@@ -1,0 +1,20 @@
+"""qbold_vi_tpu_torch: the PyTorch + CUDA port of qbold_vi_tpu.
+
+Amortized variational inference of OEF, DBV and R2' from ASE qBOLD MRI,
+ported from JAX on a TPU to PyTorch with hand-written Hopper (sm_90a)
+CUDA kernels. The JAX package ``qbold_vi_tpu`` stays the reference; this
+package never imports jax. Ported so far: the full-brain posterior-map
+serving path (``infer.posterior_maps`` / ``infer.save_predictions``) with
+its two kernels, ``ops.fused_infer.encode_quad_fused`` and
+``ops.quadrature.quad_posterior_summaries``.
+"""
+
+from .config import OPTIMAL, ModelConfig, QBoldConfig, ScanParams
+from .infer import posterior_maps, save_predictions
+from .models.vi import FineTuner, init_params
+
+__version__ = "0.1.0"
+
+__all__ = ["OPTIMAL", "ModelConfig", "QBoldConfig", "ScanParams",
+           "FineTuner", "init_params", "posterior_maps", "save_predictions",
+           "__version__"]

@@ -1,0 +1,101 @@
+"""The VI fine-tuner's inference half (PyTorch).
+
+The counterpart of ``qbold_vi_tpu/models/vi.py::FineTuner``: the encoder,
+the posterior distribution, the encoder pass and the population prior.
+The physics decoder (``apply``) comes with training.
+
+Where the JAX FineTuner is a stateless bundle applied to an explicit
+params pytree, this one is an ``nn.Module`` that owns its parameters:
+
+    encoder.*   the Encoder (models/encoder.py)
+    pop_prior   (5,) | (4,) | (4 * mog,) learned population prior, when
+                cfg.use_population_prior
+    log_sigma   scalar learned noise, when not cfg.heteroscedastic_noise
+
+``init_params`` makes a state_dict from a ``torch.Generator`` with
+flax's initialisers; ``io/from_jax.py`` converts a JAX params tree into
+the same state_dict.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..config import ModelConfig, ScanParams
+from ..dist.logit_mvn import LogitMVN
+from .encoder import Encoder, init_encoder_
+
+__all__ = ["FineTuner", "init_params", "POP_PRIOR_INIT_MVG",
+           "POP_PRIOR_INIT_DIAG"]
+
+POP_PRIOR_INIT_MVG = (-0.97, 0.4, -1.14, 0.6, 0.0)
+POP_PRIOR_INIT_DIAG = (-0.97, 0.4, -1.14, 0.6)
+
+
+class FineTuner(nn.Module):
+    """Encoder + posterior distribution. Parameters are allocated
+    uninitialised on ``device``: load a state_dict (``init_params`` or
+    the JAX bridge) before use."""
+
+    def __init__(self, cfg: ModelConfig, scan: ScanParams, *, device=None):
+        super().__init__()
+        self.cfg, self.scan = cfg, scan
+        # built on the meta device so that construction draws nothing from
+        # torch's global generator; the weights come from a state_dict
+        self.encoder = Encoder(cfg, n_taus=scan.n_taus, se_idx=scan.se_idx,
+                               device="meta")
+        if cfg.use_population_prior:
+            self.pop_prior = nn.Parameter(torch.empty(
+                _pop_prior_size(cfg), device="meta"))
+        if not cfg.heteroscedastic_noise:
+            self.log_sigma = nn.Parameter(torch.empty((), device="meta"))
+        self.to_empty(device=device or "cpu")
+
+    @property
+    def dist(self) -> LogitMVN:
+        c = self.cfg
+        return LogitMVN(c.oef_range, c.min_oef, c.dbv_range, c.min_dbv)
+
+    @property
+    def device(self) -> torch.device:
+        return self.encoder.first_conv.weight.device
+
+    def encode(self, images: torch.Tensor):
+        """(q_voxelwise, q_neighbourhood, im_sigma) from (..., T) images."""
+        return self.encoder(images)
+
+    def prior_params(self, q: torch.Tensor) -> torch.Tensor:
+        """The learned population prior broadcast to q's leading shape."""
+        pop = self.pop_prior
+        return pop.expand(q.shape[:-1] + pop.shape)
+
+
+def _pop_prior_size(cfg: ModelConfig) -> int:
+    if cfg.use_mvg:
+        return 5
+    return 4 * cfg.mog_components if cfg.mog_components > 1 else 4
+
+
+def init_params(cfg: ModelConfig, scan: ScanParams,
+                generator: torch.Generator) -> dict:
+    """A FineTuner state_dict drawn from ``generator`` (a CPU generator)
+    with flax's initialisers: he_normal for the embed/shared/head
+    kernels, normal(resid_init_std) for convs, gates and the sigma head,
+    log(im_loss_sigma) for the sigma bias. Same shapes and distributions
+    as ``qbold_vi_tpu.models.vi.FineTuner.init``, not the same numbers."""
+    tuner = FineTuner(cfg, scan, device="cpu")
+    init_encoder_(tuner.encoder, generator)
+    with torch.no_grad():
+        if cfg.use_population_prior:
+            if cfg.use_mvg:
+                tuner.pop_prior.copy_(torch.tensor(POP_PRIOR_INIT_MVG))
+            elif cfg.mog_components > 1:
+                tuner.pop_prior.normal_(generator=generator)
+            else:
+                tuner.pop_prior.copy_(torch.tensor(POP_PRIOR_INIT_DIAG))
+        if not cfg.heteroscedastic_noise:
+            tuner.log_sigma.fill_(math.log(cfg.im_loss_sigma))
+    return tuner.state_dict()

@@ -1,0 +1,229 @@
+"""Fused stream-1 inference: normalise -> dense chain -> quadrature.
+
+The counterpart of ``qbold_vi_tpu/ops/pallas_infer.py::encode_quad_fused``.
+Stream 1 of the encoder (``use_first_op=True``) is voxelwise for every
+encoder configuration -- GroupNorm and dropout act only on the stream-2
+residual path -- so the whole serving program is one pass per voxel:
+
+    [mask] -> clip -> spin-echo normalise -> log
+    -> Dense(T->U) + act -> [Dense(U->U) + act] x n_blocks
+    -> float32 Dense(U->4|5) head
+    -> quadrature posterior summaries + raw-log-std transforms
+
+``encode_quad_fused`` is the wrapper: for a CUDA tensor it launches the
+hand-written kernel of csrc/encode_quad.cu (q never leaves the chip's
+registers and shared memory) and counts the launch in
+``encode_quad_fused.launches``; for a CPU tensor it runs
+``encode_quad_fused_plain``, the plain torch version of the same math.
+
+Contract (as the JAX function's): images are ``(T[+1], N)``
+channel-major (``input_layout="channel"``) or ``(..., T[+1])``
+voxel-major (``"voxel"``); ``mask_channel`` says the last channel is the
+brain mask, multiplied in before the clip. Returns channel-major
+``(means (3, N), vars (3, N), raw (3, N))`` with raw = (log-std0,
+log-std1, offdiag), row 2 zero for diagonal heads. Unlike the TPU
+kernel, nothing is padded: the outputs hold exactly N voxels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.encoder import activation_fn, normalise_data
+from . import _cuda
+from .quadrature import quad_tile_summaries
+
+__all__ = ["encode_quad_fused", "encode_quad_fused_plain", "encode_q_plain",
+           "fused_infer_available", "SUPPORTED_ACTS"]
+
+# Activations the kernel implements (csrc/encode_quad.cu::qv_act, whose
+# codes follow this order); the same set as the JAX package's.
+SUPPORTED_ACTS = ("relu", "gelu", "tanh", "sigmoid", "softplus", "elu",
+                  "silu", "swish", "leaky_relu", "relu6", "linear")
+
+_BLOCKS = (128, 64, 32)        # threads per block, largest that fits
+
+
+def fused_infer_available(activation: str) -> bool:
+    return activation in SUPPORTED_ACTS
+
+
+def _stream1_weights(encoder, n_blocks: int):
+    """Stream-1 weights of an ``models.encoder.Encoder`` in the JAX
+    kernel's shapes: wfc (U, T), bfc (U, 1), wb (nb, U, U), bb (nb, U, 1),
+    wf (5, U), bf (5, 1); the head is zero-padded to 5 output rows so
+    diagonal heads read row 4 as 0."""
+    wfc = encoder.first_conv.weight.detach()
+    bfc = encoder.first_conv.bias.detach()[:, None]
+    blocks = [getattr(encoder, f"block_{i}").Dense_0 for i in range(n_blocks)]
+    wb = torch.stack([b.weight.detach() for b in blocks])
+    bb = torch.stack([b.bias.detach() for b in blocks])[..., None]
+    wf = encoder.final.weight.detach()
+    bf = encoder.final.bias.detach()
+    u = wfc.shape[0]
+    wf_t = wf.new_zeros((5, u))
+    wf_t[:wf.shape[0]] = wf
+    bf_t = bf.new_zeros((5, 1))
+    bf_t[:bf.shape[0], 0] = bf
+    return wfc, bfc, wb, bb, wf_t, bf_t
+
+
+def _rows(images, input_layout: str):
+    """(x, channel_major): the images as a 2-D (T[+1], N) channel-major
+    or (N, T[+1]) voxel-major view."""
+    if input_layout == "channel":
+        if images.ndim != 2:
+            raise ValueError("channel-major images must be (T[+1], N)")
+        return images, True
+    if input_layout == "voxel":
+        return images.reshape(-1, images.shape[-1]), False
+    raise ValueError(f"input_layout must be voxel|channel, "
+                     f"got {input_layout!r}")
+
+
+def _check_trunk(trunk: str) -> None:
+    if trunk == "bfloat16":
+        raise NotImplementedError(
+            "the bfloat16 trunk of the fused encode is not ported yet "
+            "(ROADMAP.md, Queue 2: kernel B's bf16 trunk)")
+    if trunk != "float32":
+        raise ValueError(f"trunk must be float32|bfloat16, got {trunk!r}")
+
+
+def encode_q_plain(images, encoder, *, se_idx: int, multi_image: bool,
+                   activation: str, n_blocks: int, trunk: str,
+                   mask_channel: bool = False, input_layout: str = "voxel"):
+    """Plain torch version of the encode half of kernel B: the raw
+    stream-1 head ``q (5, N)``, channel-major (row 4 zero for diagonal
+    heads)."""
+    _check_trunk(trunk)
+    act = activation_fn(activation)
+    x, channel_major = _rows(images, input_layout)
+    x = (x if channel_major else x.T).to(torch.float32)
+    wfc, bfc, wb, bb, wf, bf = _stream1_weights(encoder, n_blocks)
+    if mask_channel:
+        x = x[:-1] * x[-1:]
+    if x.shape[0] != wfc.shape[1]:
+        raise ValueError(f"images carry {x.shape[0]} tau channels but "
+                         f"first_conv expects {wfc.shape[1]}")
+    h = normalise_data(x.T, se_idx, multi_image).T      # (T, N)
+    h = act(wfc @ h + bfc)                              # (U, N)
+    for i in range(n_blocks):
+        h = act(wb[i] @ h + bb[i])
+    return wf @ h + bf                                  # (5, N)
+
+
+def encode_quad_fused_plain(images, encoder, *, se_idx: int,
+                            multi_image: bool, activation: str,
+                            n_blocks: int, trunk: str, mvg: bool,
+                            oef_range: float, min_oef: float,
+                            dbv_range: float, min_dbv: float,
+                            dw_coeff: float, mask_channel: bool = False,
+                            input_layout: str = "voxel"):
+    """Plain torch version of kernel B (same contract as the wrapper),
+    on whatever device ``images`` lies."""
+    q = encode_q_plain(images, encoder, se_idx=se_idx,
+                       multi_image=multi_image, activation=activation,
+                       n_blocks=n_blocks, trunk=trunk,
+                       mask_channel=mask_channel, input_layout=input_layout)
+    means, variances, raw = quad_tile_summaries(
+        q[0], q[1], q[2], q[3], q[4], mvg=mvg, oef_range=oef_range,
+        min_oef=min_oef, dbv_range=dbv_range, min_dbv=min_dbv,
+        dw_coeff=dw_coeff)
+    return torch.stack(means), torch.stack(variances), torch.stack(raw)
+
+
+def _weight_blob(encoder, n_blocks: int, device) -> tuple:
+    """The kernel's shared-memory image of the weights (layout in
+    csrc/encode_quad.cu): transposed, zero-padded to Up = ceil(U/4)*4
+    output channels, followed by the quadrature node table."""
+    wfc, bfc, wb, bb, wf, bf = _stream1_weights(encoder, n_blocks)
+    u, t = wfc.shape
+    up = -(-u // 4) * 4
+    f32 = dict(device=device, dtype=torch.float32)
+    wfc_t = torch.zeros((t, up), **f32)
+    wfc_t[:, :u] = wfc.T
+    bfc_p = torch.zeros((up,), **f32)
+    bfc_p[:u] = bfc[:, 0]
+    wb_t = torch.zeros((n_blocks, up, up), **f32)
+    wb_t[:, :u, :u] = wb.transpose(1, 2)
+    bb_p = torch.zeros((n_blocks, up), **f32)
+    bb_p[:, :u] = bb[..., 0]
+    wf_t = torch.zeros((up, 8), **f32)
+    wf_t[:u, :5] = wf.T
+    bf_p = torch.zeros((8,), **f32)
+    bf_p[:5] = bf[:, 0]
+    blob = torch.cat([wfc_t.reshape(-1), bfc_p, wb_t.reshape(-1),
+                      bb_p.reshape(-1), wf_t.reshape(-1), bf_p,
+                      _cuda.quad_consts(device)])
+    return blob.contiguous(), u, up, t
+
+
+def encode_quad_fused(images, encoder, *, se_idx: int, multi_image: bool,
+                      activation: str, n_blocks: int, trunk: str, mvg: bool,
+                      oef_range: float, min_oef: float, dbv_range: float,
+                      min_dbv: float, dw_coeff: float,
+                      mask_channel: bool = False,
+                      input_layout: str = "voxel"):
+    """Fused stream-1 encode + quadrature summaries (see module
+    docstring). CUDA tensors launch kernel B or raise; CPU tensors run
+    the plain version."""
+    kw = dict(se_idx=se_idx, multi_image=multi_image, activation=activation,
+              n_blocks=n_blocks, trunk=trunk, mvg=mvg, oef_range=oef_range,
+              min_oef=min_oef, dbv_range=dbv_range, min_dbv=min_dbv,
+              dw_coeff=dw_coeff, mask_channel=mask_channel,
+              input_layout=input_layout)
+    if images.device.type == "cpu":
+        return encode_quad_fused_plain(images, encoder, **kw)
+    if images.device.type != "cuda":
+        raise ValueError(f"no fused-infer kernel for device {images.device}")
+    _check_trunk(trunk)
+    if not fused_infer_available(activation):
+        raise ValueError(f"activation {activation!r} has no kernel "
+                         f"implementation (SUPPORTED_ACTS)")
+    if images.dtype != torch.float32:
+        raise TypeError(f"the fused-infer kernel takes float32, got "
+                        f"{images.dtype}")
+    x, channel_major = _rows(images, input_layout)
+    x = x.contiguous()
+    t_in, n = x.shape if channel_major else x.shape[::-1]
+    blob, u, up, t = _weight_blob(encoder, n_blocks, images.device)
+    if t_in - int(mask_channel) != t:
+        raise ValueError(f"images carry {t_in - int(mask_channel)} tau "
+                         f"channels but first_conv expects {t}")
+    if not 0 <= se_idx < t:
+        raise ValueError(f"se_idx {se_idx} outside the {t} tau channels")
+    outs = [torch.empty((3, n), device=images.device, dtype=torch.float32)
+            for _ in range(3)]
+    if n == 0:
+        return tuple(outs)
+    lib = _cuda.library()
+    with torch.cuda.device(images.device):
+        limit = lib.qv_max_dynamic_smem()
+        rows = max(t, up)
+        for block in _BLOCKS:
+            smem = 4 * (blob.numel() + 2 * rows * block)
+            if smem <= limit:
+                break
+        else:
+            raise ValueError(
+                f"fused-infer kernel: weights of width U={u}, "
+                f"n_blocks={n_blocks}, T={t} need {4 * blob.numel()} B of "
+                f"shared memory, beyond this card's {limit} B per block")
+        err = lib.qv_encode_quad_fused(
+            x.data_ptr(), n, t_in, int(channel_major),
+            int(mask_channel), se_idx, int(multi_image),
+            SUPPORTED_ACTS.index(activation), u, up, n_blocks,
+            blob.data_ptr(), blob.numel(),
+            _cuda.quad_ranges(oef_range=oef_range, min_oef=min_oef,
+                              dbv_range=dbv_range, min_dbv=min_dbv,
+                              dw_coeff=dw_coeff),
+            outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
+            int(mvg), block, smem,
+            torch.cuda.current_stream(images.device).cuda_stream)
+    _cuda.check(err, "fused-infer")
+    encode_quad_fused.launches += 1
+    return tuple(outs)
+
+
+encode_quad_fused.launches = 0

@@ -1,0 +1,138 @@
+"""The slice end to end: the port's posterior_maps / save_predictions
+(infer.py) against the JAX package's posterior_maps on the same weights
+and cohort, for both encoder streams and both fused_infer settings.
+
+Tolerance: rtol 1e-3 / atol 3e-5, the JAX package's own gate between its
+fused and plain paths (tests/test_pallas_infer.py); the R2' variance
+map with the absolute floor of torch_parity_utils.assert_vars_close.
+"""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from torch_parity_utils import (assert_vars_close, port_params,  # noqa: E402
+                                port_tuner)
+from qbold_vi_tpu import infer as jinfer  # noqa: E402
+from qbold_vi_tpu.config import OPTIMAL, ScanParams  # noqa: E402
+from qbold_vi_tpu_torch import config as tcfg  # noqa: E402
+from qbold_vi_tpu_torch import infer as tinfer  # noqa: E402
+from qbold_vi_tpu_torch.io import nifti  # noqa: E402
+from qbold_vi_tpu_torch.models.vi import FineTuner, init_params  # noqa: E402
+
+SCAN = ScanParams(simulate_noise=False)
+CFG = dataclasses.replace(OPTIMAL.model, compute_dtype="float32")
+TOL = dict(rtol=1e-3, atol=3e-5)
+MAPS = ("oef", "dbv", "r2p", "stds", "raw_log_stds")
+
+
+def _cohort(seed=0, shape=(3, 8, 8, 2)):
+    rng = np.random.default_rng(seed)
+    data = (np.abs(rng.normal(size=shape + (SCAN.n_taus + 1,)))
+            .astype(np.float32) * 50.0 + 100.0)
+    data[..., -1] = rng.uniform(size=shape) > 0.3
+    return data
+
+
+@pytest.fixture(scope="module")
+def slice_setup():
+    data = _cohort()
+    jt, params = port_params(CFG, SCAN, seed=4)
+    refs = {first: jinfer.posterior_maps(
+                jt, params, data, jax.random.PRNGKey(0), use_pallas=False,
+                chunk=2, use_first_op=first)
+            for first in (True, False)}
+    return data, params, refs
+
+
+def _port(params, fused: str):
+    cfg = dataclasses.replace(CFG, fused_infer=fused)
+    return port_tuner(cfg, SCAN, params)
+
+
+def _assert_maps(got, ref):
+    for key in MAPS:
+        assert got[key].shape == ref[key].shape, key
+    for key in ("oef", "dbv", "r2p", "raw_log_stds"):
+        np.testing.assert_allclose(got[key], ref[key], err_msg=key, **TOL)
+    means = np.concatenate([ref["oef"], ref["dbv"], ref["r2p"]], -1)
+    assert_vars_close(got["stds"], ref["stds"], means, **TOL)
+
+
+@pytest.mark.parametrize("use_first_op", [True, False],
+                         ids=["stream1", "stream2"])
+@pytest.mark.parametrize("fused", ["on", "off"])
+def test_posterior_maps_match_jax(slice_setup, use_first_op, fused):
+    data, params, refs = slice_setup
+    tuner = _port(params, fused)
+    got = tinfer.posterior_maps(tuner, data, use_first_op=use_first_op,
+                                chunk=2)
+    _assert_maps(got, refs[use_first_op])
+
+
+def test_save_predictions_writes_what_it_returns(slice_setup, tmp_path):
+    data, params, refs = slice_setup
+    tuner = _port(params, "on")
+    prefix = str(tmp_path / "out" / "maps")
+    maps = tinfer.save_predictions(tuner, tcfg.OPTIMAL, data, prefix)
+    _assert_maps(maps, refs[True])
+    for key, suffix in (("oef", "_oef"), ("dbv", "_dbv"), ("r2p", "_r2p"),
+                        ("stds", "_logstds"),
+                        ("raw_log_stds", "_raw_logstds")):
+        path = prefix + suffix + ".nii.gz"
+        assert os.path.isfile(path), path
+        back = nifti.load_nifti(path)
+        # subjects are folded into the last axis (reference layout)
+        m = maps[key]
+        folded = np.concatenate(np.split(m, m.shape[0], 0), -1)[0]
+        np.testing.assert_array_equal(back, folded, err_msg=key)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(method="mc"), "method='mc'"),
+    (dict(fine_tuned=True), "fine_tuned"),
+    (dict(mesh=object()), "mesh"),
+    (dict(transform_directory="/nonexistent"), "transform_directory"),
+])
+def test_unported_options_raise(tmp_path, kw, match):
+    cfg = tcfg.ModelConfig(no_units=8)
+    tuner = FineTuner(cfg, tcfg.ScanParams())
+    tuner.load_state_dict(init_params(cfg, tcfg.ScanParams(),
+                                      torch.Generator().manual_seed(0)))
+    with pytest.raises(NotImplementedError, match=match):
+        tinfer.save_predictions(tuner, tcfg.OPTIMAL, _cohort(1, (1, 2, 2, 1)),
+                                str(tmp_path / "m"), **kw)
+    assert not list(tmp_path.iterdir())          # nothing half written
+
+
+def test_method_and_mode_validation():
+    with pytest.raises(ValueError, match="quadrature"):
+        tinfer._check_method("quad")
+    cfg = tcfg.OPTIMAL.model
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    assert tinfer._resolve_fused_infer(cfg, cpu) is False      # auto
+    assert tinfer._resolve_fused_infer(cfg, cuda) is True
+    for mode, want in (("on", True), ("interpret", True), ("off", False)):
+        c = dataclasses.replace(cfg, fused_infer=mode)
+        assert tinfer._resolve_fused_infer(c, cpu) is want, mode
+    with pytest.raises(ValueError, match="fused_infer"):
+        tinfer._resolve_fused_infer(
+            dataclasses.replace(cfg, fused_infer="maybe"), cpu)
+    with pytest.raises(ValueError, match="SUPPORTED_ACTS"):
+        tinfer._resolve_fused_infer(dataclasses.replace(
+            cfg, fused_infer="on", activation="selu"), cpu)
+    assert not tinfer._resolve_fused_infer(
+        dataclasses.replace(cfg, activation="selu"), cuda)
+
+
+def test_to_channel_major():
+    x = np.arange(2 * 3 * 4, dtype=np.float32).reshape(2, 3, 4)
+    cm = tinfer.to_channel_major(x)
+    assert cm.flags.c_contiguous and cm.shape == (4, 6)
+    np.testing.assert_array_equal(cm, x.reshape(-1, 4).T)
