@@ -2,31 +2,57 @@
 
     python3 chip_smoke.py [--weights params.npz]
 
-Drives the port's serving path -- ``qbold_vi_tpu_torch.infer.
-save_predictions`` at the published OPTIMAL width (60 units x 2 blocks,
-11 taus, MVG head), with random weights from a fixed seed or a converted
-JAX checkpoint -- through both hand-written kernels, and checks it:
+Drives the port's two main paths at the published OPTIMAL width (60
+units x 2 blocks, 11 taus, MVG head), with random weights from a fixed
+seed or a converted JAX checkpoint: serving (``infer.save_predictions``,
+kernels A and B) and ELBO fine-tuning (``train.trainer.Trainer``,
+kernels F and G, forward and backward), and checks them:
 
 1. device: a CUDA card is required (otherwise exit 1, no result line);
-2. build: both kernels are compiled from csrc/ by nvcc;
+2. build: the kernels of all four sources in csrc/ are compiled by nvcc;
 3. kernel vs plain: each kernel against its plain torch version on the
    card at 1,032,192 and 1,000,003 voxels (tolerances in CHECKS);
 4. main path: three export requests per encoder stream, with the launch
    counters reset before and read after; maps must be finite, in range,
    written to NIfTI and read back equal, and the smallest request must
    agree with the plain versions run on the CPU;
-5. timings: CUDA events (warm-up, median of 7 blocks) for each kernel
-   and its plain version, and the host wall of posterior_maps on the
-   1.03 M-voxel request.
+5. timings: each kernel's device time (the median launch in a profiler
+   trace of 21 calls), its wrapper's and its plain version's time a call
+   (CUDA events, warm-up, median of 7 blocks), and the host wall of
+   posterior_maps on the 1.03 M-voxel request;
+6. F and G against their plain versions at the fine-tune shapes: F at
+   190,000 voxels (38 crops of 25 x 25 x 8 through the encoder; MVG,
+   s_nll 1, s_kl 70, host noise) and at a ragged 190,003 (diagonal; and
+   Student-t df 2 + multi-image normalisation + s_nll 2), G at 190,000;
+   rows at rtol 1e-5 / atol 1e-5, gradients scale-normalised at rtol
+   5e-4 / atol 5e-5;
+7. F's device noise: the Philox draws are philox_normals' (rows against
+   the plain version fed them, rtol 1e-4: numpy's log/sin/cos on the host
+   against the card's), a seed replays rows and gradients bit for bit,
+   another seed differs, and the mean over masked voxels of kl_rows -
+   mvg_kl_closed_form lies within 5 standard errors of 0;
+8. the training main path: Trainer.prepare_real + Trainer.finetune, 2
+   epochs x 100 steps at batch 38 with device noise, on 6 x 96 x 96 x 8
+   volumes from seed 0 (F forward and backward launched once per step),
+   then a 10-step epoch with fused_elbo="off" (G launched), then one
+   step on the card against the same step on the CPU plain path;
+9. timings: F and G forward and backward against their plain versions,
+   one fine-tune step, and the wall of one 100-step epoch.
+
+It also traces posterior_maps (each stream) and the fine-tune step with
+torch.profiler: device time by kernel and the device's busy share of
+the wall.
 
 Prints the card's name and power limit, one JSON line with the kernel
-table, and as its last line {"ok": true, "device": {...}}. Any failure
-exits non-zero before that line.
+table (launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
+library_ms), and as its last line {"ok": true, "device": {...}}. Any
+failure exits non-zero before that line.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -46,18 +72,34 @@ REQUESTS = ((14, 96, 96, 8), (6, 96, 96, 8), (3, 64, 64, 8))
 # second moment, where that cancellation lives.
 CHECKS = dict(mean=(1e-4, 3e-5), var=(1e-3, 3e-5), raw=(1e-4, 3e-5))
 EPS32 = float(np.finfo(np.float32).eps)
+FT_SHAPE = (38, 25, 25, 8)           # one fine-tune batch: 190,000 voxels
+N_FT = 38 * 25 * 25 * 8
+N_FT_RAGGED = 190_003
+TRAIN_VOLUMES = (6, 96, 96, 8)       # subjects x X x Y x Z, + a mask channel
+ROW_TOL = (1e-5, 1e-5)
+GRAD_TOL = (5e-4, 5e-5)
+# the card's peaks (NVIDIA H100 SXM data sheet): float32 outside the
+# tensor cores, and HBM3 bandwidth
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def gpu_line() -> str:
+def gpu_line(fields: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def log_clocks(when: str) -> None:
+    """The card's SM clock (and its maximum), power draw and temperature,
+    beside a timing window."""
+    log(f"clocks {when}: " + gpu_line(
+        "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"))
 
 
 def check_close(name, got, ref, kind, mean_ref=None) -> float:
@@ -79,6 +121,30 @@ def check_close(name, got, ref, kind, mean_ref=None) -> float:
                              f"version by {err.max().item():.3e} (excess "
                              f"{excess:.3e} over rtol {rtol} atol {atol})")
     return err.max().item()
+
+
+def check_rows(name, got, ref, rtol=ROW_TOL[0], atol=ROW_TOL[1]) -> float:
+    """Raise unless got ~ ref elementwise; returns the largest absolute
+    difference."""
+    got, ref = got.double(), ref.double()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output")
+    err = (got - ref).abs()
+    excess = (err - (atol + rtol * ref.abs())).max().item()
+    if excess > 0:
+        raise AssertionError(f"{name}: differs from the plain version by "
+                             f"{err.max().item():.3e} (excess {excess:.3e} "
+                             f"over rtol {rtol} atol {atol})")
+    return err.max().item()
+
+
+def check_grad(name, got, ref) -> float:
+    """Gradients, scale-normalised by the reference's largest entry, at
+    GRAD_TOL; returns the largest absolute (unscaled) difference."""
+    scale = ref.double().abs().max().clamp(min=1e-8)
+    check_rows(name, got.double() / scale, ref.double() / scale,
+               *GRAD_TOL)
+    return (got.double() - ref.double()).abs().max().item()
 
 
 def raw_head(rng, n):
@@ -106,6 +172,45 @@ def cuda_ms(fn, reps: int = 10, blocks: int = 7) -> float:
     return statistics.median(times)
 
 
+def kernel_ms(fn, symbol: str, calls: int = 21) -> float:
+    """Median device duration of the launches of the kernel ``symbol``
+    over ``calls`` calls of fn, from the profiler's CUDA activity: the
+    kernel alone. CUDA events around a loop of calls also count the gaps
+    where the host has not yet queued the next launch, which a kernel
+    shorter than its wrapper's host work (G's ~0.04 ms) cannot hide."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA and symbol in e.name]
+    # a trace can miss a launch record (one of 21 on the H100 once)
+    if len(spans) < calls // 2:
+        raise AssertionError(f"{symbol}: {len(spans)} launches traced in "
+                             f"{calls} calls")
+    return statistics.median(spans)
+
+
+def time_kernel(fn, symbol: str, plain) -> tuple:
+    """(the kernel's device ms, the wrapper's ms a call by CUDA events,
+    the plain version's ms a call by CUDA events)."""
+    return kernel_ms(fn, symbol), cuda_ms(fn), cuda_ms(plain, reps=2)
+
+
+def log_times(times: dict, n: int, card: str) -> None:
+    for k, (ms, call, plain) in times.items():
+        log(f"{k}: kernel {ms:.4f} ms on the device ({call:.4f} ms a call by "
+            f"CUDA events), plain {plain:.4f} ms at N={n} [{card}]")
+
+
 def wall_ms(fn, blocks: int = 7) -> float:
     fn()
     times = []
@@ -118,11 +223,457 @@ def wall_ms(fn, blocks: int = 7) -> float:
     return statistics.median(times)
 
 
+def profile(fn, n: int, label: str, card: str) -> None:
+    """torch.profiler over n calls of fn (after one warm-up): the device
+    time of the kernels by name, and the device's busy share of the wall
+    (the union of the kernels' intervals over the host wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict = {}
+    spans = []
+    for e in kernels:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+        spans.append((e.time_range.start, e.time_range.end))
+    busy, end = 0.0, None
+    for s, t in sorted(spans):
+        if end is None or s > end:
+            busy += t - s
+            end = t
+        elif t > end:
+            busy += t - end
+            end = t
+    busy /= 1e3
+    total = sum(t for t, _ in by_name.values())
+    log(f"profile of {label} x {n}: wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms ({100.0 * busy / wall:.1f}% of the wall), kernel "
+        f"time {total:.3f} ms in {len(kernels)} launches [{card}]")
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"  {t / n:9.4f} ms/call {c // n:5d} launches/call  {name[:90]}")
+
+
 def volumes(rng, shape, n_taus):
     data = (np.abs(rng.normal(size=shape + (n_taus + 1,)))
             .astype(np.float32) * 50.0 + 100.0)
     data[..., -1] = rng.uniform(size=shape) > 0.2
     return data
+
+
+# ---- bounds -----------------------------------------------------------------
+# Float32 operations per unit of work, counted from csrc/: an add, multiply,
+# divide, min/max or one exp/log/tanh/sqrt/sin/cos counts 1, an FMA 2 (as
+# the 67 TFLOP/s peak counts it). The Philox rounds are integer work and
+# are not counted, so each bound stays a lower bound.
+OPS = dict(
+    # quad_math.cuh, per voxel and 1-D moment routine: 16 Gauss-Hermite
+    # nodes below the s = 1.5 split, 16 Gauss-Laguerre nodes + the exact
+    # step at or above it; the rest of the summaries
+    omom=(25 * 16, 49 * 16 + 47), mom=(10 * 16, 19 * 16 + 25),
+    gmom=(17 * 16, 31 * 16 + 31), quad_fixed=114,
+    # encode_quad.cu, per tau: clip, divide by the reference, log
+    normalise=4,
+    # elbo_math.cuh, per tau: the Clenshaw sums of the 21-term surrogate
+    # and of its 20-term derivative, the rest of the signal, the Gaussian
+    # NLL term (Student-t: 3 more), the rest of the backward's chain
+    clen_i=64, clen_d=61, signal=18, nll_tau=9, grad_tau=50,
+    # per draw: reparameterised sample and two sigmoids; one reduced-KL
+    # draw forward / backward; one Box-Muller pair
+    draw=18, kl_fwd=28, kl_bwd=52, box_muller=12,
+    # per voxel: unpacking q and p (the backward with its tanh chain
+    # factors), and the KL / gradient tails
+    unpack=22, unpack_bwd=42, tail=40)
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the float32 peak, whichever is larger."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = n_ops / PEAK_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def squashed(q: torch.Tensor, mvg: bool) -> torch.Tensor:
+    """(3, N) (ls0, ls1, od) of raw head rows q (N, 5|4)."""
+    q = q.double()
+    od = (torch.tanh(q[:, 4]) * np.exp(-2.0) if mvg
+          else torch.zeros_like(q[:, 0]))
+    return torch.stack([torch.tanh(q[:, 1]) * 3.0 - 1.0,
+                        torch.tanh(q[:, 3]) * 3.0 - 1.0, od])
+
+
+def ops_quad(raw: torch.Tensor, mvg: bool) -> float:
+    """Operations of the quadrature summaries of squashed rows raw (3, N):
+    each 1-D moment routine takes its branch by its own std."""
+    ls0, ls1, od = raw.double()
+    s0, s1 = ls0.exp(), ls1.exp()
+    sm1 = (od * od + s1 * s1).sqrt() if mvg else s1
+    n = ls0.numel()
+    total = OPS["quad_fixed"] * n
+    for key, s in (("omom", s0), ("mom", sm1), ("gmom", s1)):
+        gl = int((s >= 1.5).sum())
+        total += OPS[key][0] * (n - gl) + OPS[key][1] * gl
+    return float(total)
+
+
+def ops_encode_quad(units: int, n_taus: int, n_blocks: int,
+                    raw: torch.Tensor, mvg: bool) -> float:
+    """Kernel B: normalisation, the dense chain T -> U -> nb x (U -> U) ->
+    5 (FMAs, biases, activations), then the quadrature of its rows."""
+    u, t = units, n_taus
+    dense = (2 * u * t + 2 * u + n_blocks * (2 * u * u + 2 * u)
+             + 2 * u * 5 + 5)
+    return raw.shape[1] * (dense + OPS["normalise"] * t) + ops_quad(raw, mvg)
+
+
+def ops_decode(t: int, student: bool, grads: bool) -> int:
+    """One draw's decode + NLL row over t taus (or its closed-form
+    gradients) on the Chebyshev surrogate."""
+    per_tau = OPS["clen_i"] + OPS["signal"] + OPS["nll_tau"] + 3 * student
+    if grads:
+        per_tau += OPS["clen_d"] + OPS["grad_tau"]
+    return t * per_tau
+
+
+def bound_elbo(n, live, k, t, s_nll, s_kl, student, device_noise,
+               backward) -> dict:
+    """Kernel F (MVG): q, p (n, k), y, sigma (n, t) and the mask read once
+    (+ the cotangents and the written gradients for the backward, + the
+    normals in host-noise mode); the operations of the live voxels'
+    s_nll decodes and s_kl reduced-KL draws."""
+    floats = 2 * k + 2 * t + 1 + 2 + (2 * k + 2 * t if backward else 0)
+    noise = 0 if device_noise else 2 * (s_nll + s_kl)
+    draws = OPS["box_muller"] * (s_nll + s_kl) if device_noise else 0
+    per = (OPS["unpack_bwd" if backward else "unpack"]
+           + s_nll * (OPS["draw"] + ops_decode(t, student, backward))
+           + s_kl * OPS["kl_bwd" if backward else "kl_fwd"] + draws
+           + OPS["tail"])
+    return bound(4 * n * (floats + noise), live * per)
+
+
+def bound_decode(n, live, t, student, backward) -> dict:
+    """Kernel G: oef, dbv, the mask, y and sigma read once (+ the
+    cotangent; rows or the four gradients written)."""
+    floats = (2 * t + 4) + (2 * t + 2 if backward else 0)
+    return bound(4 * n * floats, live * ops_decode(t, student, backward))
+
+
+def ft_rows(tuner, rng, dev, n_taus) -> dict:
+    """One fine-tune batch (38 crops of 25 x 25 x 8) through the encoder,
+    as (N, .) rows: q the raw posterior head, sigma, the masked images y
+    and the mask; p the head of a second batch (the priors of the real
+    path are encoder outputs too)."""
+    rows = {}
+    with torch.no_grad():
+        for key in ("q", "p"):
+            vol = torch.from_numpy(volumes(rng, FT_SHAPE, n_taus)).to(dev)
+            mask = vol[..., -1:]
+            images = vol[..., :-1] * mask
+            _, q, sigma = tuner.encode(images)
+            rows[key] = q.reshape(N_FT, -1).contiguous()
+            if key == "q":
+                rows.update(y=images.reshape(N_FT, n_taus),
+                            sigma=sigma.reshape(N_FT, n_taus).contiguous(),
+                            mask=mask.reshape(N_FT))
+    return rows
+
+
+def fine_tune_phases(dev, card, cfg, tuner) -> dict:
+    """Phases 6-9: kernels F and G against their plain versions, F's
+    device noise, the training main path, and the timings. Returns the
+    kernels' JSON entries and the step and epoch walls."""
+    from qbold_vi_tpu_torch.dist.logit_mvn import LogitMVN
+    from qbold_vi_tpu_torch.models.vi import FineTuner
+    from qbold_vi_tpu_torch.ops import decode_nll as dn
+    from qbold_vi_tpu_torch.ops import fused_elbo as fe
+    from qbold_vi_tpu_torch.train import optim, steps
+    from qbold_vi_tpu_torch.train.trainer import Trainer
+
+    mcfg, scan = cfg.model, cfg.scan
+    t_n, s_nll, s_kl = scan.n_taus, mcfg.no_samples, 70
+    rng = np.random.default_rng(3)
+    gpu = lambda a: torch.from_numpy(                             # noqa: E731
+        np.ascontiguousarray(a, np.float32)).to(dev)
+    normal = lambda *shape: gpu(rng.normal(size=shape))           # noqa: E731
+    err = {}
+
+    # ---- 6. F and G against their plain versions ------------------------
+    def check_f(tag, rows, model, s_n):
+        mvg = model.use_mvg
+        k = 5 if mvg else 4
+        n = rows["mask"].shape[0]
+        c = dn.decode_consts(model, scan, True)
+        main = (rows["q"][:, :k].contiguous(), rows["p"][:, :k].contiguous(),
+                rows["y"], rows["sigma"], rows["mask"])
+        zn, zk, ct_n, ct_k = (normal(s_n, n, 2), normal(s_kl, n, 2),
+                              normal(n), normal(n))
+        kw = dict(mvg=mvg, s_nll=s_n, s_kl=s_kl, z_nll=zn, z_kl=zk)
+        got = fe.fused_elbo_forward(*main, c, **kw)
+        grads = fe.fused_elbo_backward(*main, ct_n, ct_k, c, **kw)
+        torch.cuda.synchronize()
+        ref = fe.elbo_rows_plain(*main, zn, zk, c, mvg)
+        gref = fe.elbo_grads_plain(*main, zn, zk, ct_n, ct_k, c, mvg)
+        e_rows = max(check_rows(f"F fwd {tag} {nm}", x, r)
+                     for nm, x, r in zip(("nll", "kl"), got, ref))
+        e_grads = max(check_grad(f"F bwd {tag} {nm}", x, r)
+                      for nm, x, r in zip(("dq", "dp", "dy", "dsigma"),
+                                          grads, gref))
+        log(f"kernel F vs plain ok: {tag}, N={n} (rows {e_rows:.3e}, "
+            f"gradients {e_grads:.3e} max abs)")
+        return e_rows, e_grads
+
+    rows = ft_rows(tuner, rng, dev, t_n)
+    err["F_fwd"], err["F_bwd"] = check_f("MVG, s_nll 1, host noise", rows,
+                                         mcfg, s_nll)
+    ragged = {k: torch.cat([v, v[:N_FT_RAGGED - N_FT]])
+              for k, v in rows.items()}
+    check_f("diagonal", ragged, dataclasses.replace(mcfg, use_mvg=False),
+            s_nll)
+    check_f("Student-t df 2, multi-image, s_nll 2", ragged,
+            dataclasses.replace(mcfg, student_t_df=2.0,
+                                multi_image_normalisation=True), 2)
+
+    c_opt = dn.decode_consts(mcfg, scan, True)
+    draws = tuner.dist.sample_many(normal(1, N_FT, 2), rows["q"],
+                                   mcfg.use_mvg)[0]
+    g_args = (draws[:, 0].contiguous(), draws[:, 1].contiguous(), rows["y"],
+              rows["sigma"], rows["mask"])
+    ct = normal(N_FT)
+    got = dn.decode_nll_forward(*g_args, c_opt)
+    grads = dn.decode_nll_backward(*g_args, ct, c_opt)
+    torch.cuda.synchronize()
+    err["G_fwd"] = check_rows(
+        "G fwd", got, dn.nll_row_plain(*g_args, c_opt) * rows["mask"])
+    ctm = ct * rows["mask"]
+    err["G_bwd"] = max(
+        check_grad(f"G bwd {nm}", x, r * (ctm if r.ndim == 1 else ctm[:, None]))
+        for nm, x, r in zip(("doef", "ddbv", "dsigma", "dy"), grads,
+                            dn.nll_row_grads_plain(*g_args, c_opt)))
+    log(f"kernel G vs plain ok at N={N_FT} (rows {err['G_fwd']:.3e}, "
+        f"gradients {err['G_bwd']:.3e} max abs)")
+
+    # ---- 7. F's device noise ----------------------------------------------
+    qd, pd = normal(N_FT, 5) * 0.7, normal(N_FT, 5) * 0.7
+    qd[:, [1, 3]] *= 0.3                 # logits clear of the KL clamp
+    pd[:, [1, 3]] *= 0.3
+    main_d = (qd, pd, rows["y"], rows["sigma"], rows["mask"])
+    ct_n, ct_k = normal(N_FT), normal(N_FT)
+    kw = dict(mvg=True, s_nll=s_nll, s_kl=s_kl)
+    r1 = fe.fused_elbo_forward(*main_d, c_opt, seed=5, **kw)
+    r2 = fe.fused_elbo_forward(*main_d, c_opt, seed=5, **kw)
+    r3 = fe.fused_elbo_forward(*main_d, c_opt, seed=6, **kw)
+    g1 = fe.fused_elbo_backward(*main_d, ct_n, ct_k, c_opt, seed=5, **kw)
+    g2 = fe.fused_elbo_backward(*main_d, ct_n, ct_k, c_opt, seed=5, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(r1 + g1, r2 + g2)):
+        raise AssertionError("F device noise: one seed did not replay")
+    if torch.equal(r1[0], r3[0]):
+        raise AssertionError("F device noise: two seeds gave equal rows")
+    z = gpu(fe.philox_normals(5, N_FT, s_nll + s_kl))
+    ref = fe.elbo_rows_plain(*main_d, z[:s_nll], z[s_nll:], c_opt, True)
+    for nm, x, r in zip(("nll", "kl"), r1, ref):
+        check_rows(f"F device noise {nm} vs philox_normals", x, r, 1e-4, 1e-4)
+    live = rows["mask"] > 0
+    diff = (r1[1] - LogitMVN().mvg_kl_closed_form(qd, pd))[live].double()
+    se = float(diff.std()) / diff.numel() ** 0.5
+    if not abs(float(diff.mean())) < 5.0 * se:
+        raise AssertionError(f"F device-noise KL biased: mean {diff.mean():.3e}"
+                             f" vs standard error {se:.3e}")
+    log(f"F device noise ok: replay bit-equal, seeds differ, KL - closed "
+        f"form mean {float(diff.mean()):.3e} (standard error {se:.3e})")
+
+    # ---- 8. the training main path ----------------------------------------
+    counters = {"F_fwd": fe.fused_elbo_forward, "F_bwd": fe.fused_elbo_backward,
+                "G_fwd": dn.decode_nll_forward,
+                "G_bwd": dn.decode_nll_backward}
+    logged = []
+
+    def logger(phase, epoch, m):
+        logged.append(dict(m))
+        log(f"[{phase}] epoch {epoch}: " + " ".join(
+            f"{k}={v:.6g}" for k, v in m.items()) + f" [{card}]")
+
+    data = volumes(np.random.default_rng(0), TRAIN_VOLUMES, t_n)
+    trainer = Trainer(cfg, state_dict=tuner.state_dict(), device=dev,
+                      logger=logger)
+    before = {k: v.clone() for k, v in trainer.tuner.state_dict().items()}
+    for f in counters.values():
+        f.launches = 0
+    trainer.finetune(data, epochs=2)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    n_steps = 2 * cfg.train.ft_steps_per_epoch
+    log(f"fine-tune (2 epochs x {cfg.train.ft_steps_per_epoch} steps, batch "
+        f"{cfg.train.ft_batch_size}, device noise) launches: {launches}")
+    if (launches["F_fwd"], launches["F_bwd"]) != (n_steps, n_steps) or \
+            launches["G_fwd"] or launches["G_bwd"]:
+        raise AssertionError(f"F did not run once a step: {launches}")
+    if not all(np.isfinite(v) for m in logged for v in m.values()):
+        raise AssertionError("non-finite fine-tune metrics")
+    if all(torch.equal(before[k], v)
+           for k, v in trainer.tuner.state_dict().items()):
+        raise AssertionError("fine-tuning changed no parameter")
+    epoch_ms = logged[1]["epoch_time_s"] * 1e3
+
+    trainer.cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, fused_elbo="off", ft_steps_per_epoch=10))
+    for f in counters.values():
+        f.launches = 0
+    trainer.finetune(data, epochs=1)
+    torch.cuda.synchronize()
+    launches_g = {k: f.launches for k, f in counters.items()}
+    log(f"fine-tune (1 epoch x 10 steps, fused_elbo off) launches: "
+        f"{launches_g}")
+    if (launches_g["G_fwd"], launches_g["G_bwd"]) != (10, 10) or \
+            launches_g["F_fwd"] or launches_g["F_bwd"]:
+        raise AssertionError(f"G did not run once a step: {launches_g}")
+    launches.update(G_fwd=launches_g["G_fwd"], G_bwd=launches_g["G_bwd"])
+    trainer.cfg = cfg
+
+    # one step on the card (F, injected normals) against the same step on
+    # the CPU plain path: same weights, crops and normals
+    vol = torch.from_numpy(trainer.sampler.data).to(dev)
+    pri = torch.from_numpy(trainer.sampler.priors).to(dev)
+    batch = steps.sample_crop_batch(torch.Generator().manual_seed(7), vol,
+                                    pri, 4, cfg.train.crop_size)
+    shape = tuple(batch["images"].shape[:-1])
+    noise = {"z_nll": rng.normal(size=(s_nll,) + shape + (2,)),
+             "z_kl": rng.normal(size=(s_kl,) + shape + (2,))}
+    noise = {k: v.astype(np.float32) for k, v in noise.items()}
+    state = trainer.tuner.state_dict()
+    result = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        t = FineTuner(mcfg, scan, device=device)
+        t.load_state_dict(state)
+        opt = optim.make_finetune_optimizer(t.parameters(), cfg.train)
+        aux = steps.make_finetune_step(t, cfg, opt)(
+            {k: v.to(device) for k, v in batch.items()}, noise=noise)
+        result[name] = (float(aux["loss"]),
+                        {k: p.detach().cpu().double()
+                         for k, p in t.named_parameters()},
+                        {k: p.grad.cpu().double()
+                         for k, p in t.named_parameters()
+                         if p.grad is not None})
+    (loss_c, after_c, grad_c), (loss_r, after_r, grad_r) = (
+        result["card"], result["cpu"])
+    if not abs(loss_c - loss_r) <= 1e-5 * abs(loss_r):
+        raise AssertionError(f"step loss {loss_c} on the card, {loss_r} on "
+                             "the CPU")
+    lr = float(cfg.train.ft_lr)
+    worst_grad = 0.0
+    for k, g_r in grad_r.items():
+        # relu kinks: a pre-activation within float32 rounding of 0 may
+        # take the other side on the card, moving a conv gradient by
+        # ~1e-4 of its scale; a wrong gradient moves it by O(1)
+        scale = float(g_r.abs().max()) + 1e-30
+        worst_grad = max(worst_grad,
+                         float((grad_c[k] - g_r).abs().max()) / scale)
+        # Adam's first update is lr * g / (|g| + 1e-7): held tight where g
+        # is clear of zero and of eps (a last-bit or kink difference in g
+        # then barely moves it), and to the step's own bound elsewhere
+        before_k = state[k].cpu().double()
+        d_c, d_r = after_c[k] - before_k, after_r[k] - before_k
+        e = (d_c - d_r).abs()
+        clear = g_r.abs() > max(1e-2 * scale, 1e-4)
+        if not (bool((e[clear] <= 1e-6 + 1e-4 * d_r[clear].abs()).all())
+                and float(e.max()) <= 2.0 * lr):
+            raise AssertionError(
+                f"step update of {k} differs from the CPU by "
+                f"{float(e.max()):.3e} (gradient scale {scale:.3e})")
+    if worst_grad > 1e-2:
+        raise AssertionError(f"step gradients differ from the CPU by "
+                             f"{worst_grad:.3e} of their scale")
+    log(f"one step on the card agrees with the CPU plain path: loss "
+        f"{loss_c:.7g} vs {loss_r:.7g}, gradients within {worst_grad:.2e} "
+        "of their scale, updates within tolerance")
+
+    # ---- 9. timings ---------------------------------------------------------
+    log_clocks("before the fine-tune timings")
+    main = (rows["q"], rows["p"], rows["y"], rows["sigma"], rows["mask"])
+    ct_n, ct_k = normal(N_FT), normal(N_FT)
+    seed = 11
+    z = gpu(fe.philox_normals(seed, N_FT, s_nll + s_kl))
+    zn, zk = z[:s_nll], z[s_nll:]
+    kwd = dict(mvg=True, s_nll=s_nll, s_kl=s_kl, seed=seed)
+    kwh = dict(mvg=True, s_nll=s_nll, s_kl=s_kl, z_nll=zn, z_kl=zk)
+    times = {
+        "F_fwd": time_kernel(
+            lambda: fe.fused_elbo_forward(*main, c_opt, **kwd),
+            "qv_elbo_fwd_kernel",
+            lambda: fe.elbo_rows_plain(*main, zn, zk, c_opt, True)),
+        "F_bwd": time_kernel(
+            lambda: fe.fused_elbo_backward(*main, ct_n, ct_k, c_opt, **kwd),
+            "qv_elbo_bwd_kernel",
+            lambda: fe.elbo_grads_plain(*main, zn, zk, ct_n, ct_k, c_opt,
+                                        True)),
+        "G_fwd": time_kernel(
+            lambda: dn.decode_nll_forward(*g_args, c_opt),
+            "qv_decode_nll_fwd_kernel",
+            lambda: dn.nll_row_plain(*g_args, c_opt) * rows["mask"]),
+        "G_bwd": time_kernel(
+            lambda: dn.decode_nll_backward(*g_args, ct, c_opt),
+            "qv_decode_nll_bwd_kernel",
+            lambda: dn.nll_row_grads_plain(*g_args, c_opt)),
+    }
+    host = (kernel_ms(lambda: fe.fused_elbo_forward(*main, c_opt, **kwh),
+                      "qv_elbo_fwd_kernel"),
+            kernel_ms(lambda: fe.fused_elbo_backward(*main, ct_n, ct_k,
+                                                     c_opt, **kwh),
+                      "qv_elbo_bwd_kernel"))
+    log_times(times, N_FT, card)
+    log(f"F with host noise: forward {host[0]:.4f} ms, backward "
+        f"{host[1]:.4f} ms on the device at N={N_FT} [{card}]")
+    log_clocks("after the kernel timings")
+    step = steps.make_finetune_step(trainer.tuner, cfg, trainer.optimizer)
+    batch = steps.sample_crop_batch(torch.Generator().manual_seed(9), vol,
+                                    pri, cfg.train.ft_batch_size,
+                                    cfg.train.crop_size)
+    step_ms = wall_ms(lambda: step(batch, seed=seed))
+    log(f"fine-tune step (loss + backward + AdamW, F with device noise) wall "
+        f"{step_ms:.3f} ms at batch {cfg.train.ft_batch_size} x {shape[1:]} "
+        f"[{card}]")
+    profile(lambda: step(batch, seed=seed), 5, "fine-tune step", card)
+    log(f"fine-tune epoch ({cfg.train.ft_steps_per_epoch} steps, crops drawn "
+        f"on the card, metrics read back once) wall {epoch_ms:.1f} ms "
+        f"[{card}]")
+
+    n_live = int(live.sum())
+    student = c_opt.student
+    bounds = {
+        "F_fwd": bound_elbo(N_FT, n_live, 5, t_n, s_nll, s_kl, student, True,
+                            False),
+        "F_bwd": bound_elbo(N_FT, n_live, 5, t_n, s_nll, s_kl, student, True,
+                            True),
+        "G_fwd": bound_decode(N_FT, n_live, t_n, student, False),
+        "G_bwd": bound_decode(N_FT, n_live, t_n, student, True),
+    }
+    sources = {"F": ("fused_elbo", "qbold_vi_tpu_torch/csrc/fused_elbo.cu",
+                     "qbold_vi_tpu/ops/pallas_elbo.py", (464, 492)),
+               "G": ("decode_nll", "qbold_vi_tpu_torch/csrc/decode_nll.cu",
+                     "qbold_vi_tpu/ops/pallas_decode.py", (399, 431))}
+    kernels = []
+    for key, (name, src, tpu, lines) in sources.items():
+        for way, line in zip(("fwd", "bwd"), lines):
+            k = f"{key}_{way}"
+            kernels.append({
+                "name": f"{name}_{'forward' if way == 'fwd' else 'backward'}",
+                "route": "cuda", "source": src, "replaces": f"{tpu}:{line}",
+                "launches": launches[k], "max_abs_err": err[k],
+                "ms": times[k][0], "plain_ms": times[k][2], **bounds[k],
+                "library_ms": None})
+    return {"kernels": kernels, "step_ms": step_ms, "epoch_ms": epoch_ms}
 
 
 def main() -> int:
@@ -254,7 +805,7 @@ def main() -> int:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
 
     # the smallest request against the plain versions on the CPU
-    cpu = FineTuner(cfg, scan)
+    cpu = FineTuner(cfg, scan, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in tuner.state_dict().items()})
     for first in (True, False):
         ref = infer.posterior_maps(cpu, reqs[-1], use_first_op=first)
@@ -271,46 +822,62 @@ def main() -> int:
             "versions")
 
     # ---- 5. timings ------------------------------------------------------
+    log_clocks("before the serving timings")
     times = {}
     with torch.no_grad():
         q = torch.from_numpy(raw_head(rng, N_FULL)).to(dev)
-        times["quad"] = (
-            cuda_ms(lambda: quad.quad_posterior_summaries(q, **ranges)),
-            cuda_ms(lambda: quad.posterior_summaries_quadrature(q, **ranges),
-                    reps=2, blocks=5))
+        times["quad"] = time_kernel(
+            lambda: quad.quad_posterior_summaries(q, **ranges),
+            "qv_quad_kernel",
+            lambda: quad.posterior_summaries_quadrature(q, **ranges))
         x = torch.from_numpy(volumes(rng, (N_FULL,), scan.n_taus)).to(dev)
         kw = dict(enc_kw, **ranges, mask_channel=True, input_layout="voxel")
-        times["fused"] = (
-            cuda_ms(lambda: fi.encode_quad_fused(x, tuner.encoder, **kw)),
-            cuda_ms(lambda: fi.encode_quad_fused_plain(x, tuner.encoder,
-                                                       **kw),
-                    reps=2, blocks=5))
+        times["fused"] = time_kernel(
+            lambda: fi.encode_quad_fused(x, tuner.encoder, **kw),
+            "qv_encode_quad_kernel",
+            lambda: fi.encode_quad_fused_plain(x, tuner.encoder, **kw))
+        raw_b = fi.encode_quad_fused(x, tuner.encoder, **kw)[2]
     big = reqs[0]
     walls = {f"stream{1 if first else 2}": wall_ms(
         lambda: infer.posterior_maps(tuner, big, use_first_op=first))
         for first in (True, False)}
-    for k, (ms, plain) in times.items():
-        log(f"{k}: kernel {ms:.4f} ms, plain {plain:.4f} ms at N={N_FULL} "
-            f"[{card}]")
+    log_times(times, N_FULL, card)
     for k, ms in walls.items():
         log(f"posterior_maps {k} wall {ms:.2f} ms on {REQUESTS[0]} "
             f"(1.03 M voxels, host upload and copy back included) [{card}]")
+    for first in (True, False):
+        profile(lambda: infer.posterior_maps(tuner, big, use_first_op=first),
+                2, f"posterior_maps stream {1 if first else 2} on "
+                f"{REQUESTS[0]}", card)
 
-    table = {"kernels": [
+    # A reads 5 floats and writes 6 a voxel; B reads T + 1 and writes 9
+    kernels = [
         {"name": "quad_posterior_summaries", "route": "cuda",
          "source": "qbold_vi_tpu_torch/csrc/quadrature.cu",
          "replaces": "qbold_vi_tpu/ops/quadrature.py:518",
          "launches": launches["quad"], "max_abs_err": err["quad"],
-         "ms": times["quad"][0], "plain_ms": times["quad"][1]},
+         "ms": times["quad"][0], "plain_ms": times["quad"][2],
+         **bound(N_FULL * 4 * 11,
+                 ops_quad(squashed(q, cfg.use_mvg), cfg.use_mvg)),
+         "library_ms": None},
         {"name": "encode_quad_fused", "route": "cuda",
          "source": "qbold_vi_tpu_torch/csrc/encode_quad.cu",
          "replaces": "qbold_vi_tpu/ops/pallas_infer.py:353",
          "launches": launches["fused"], "max_abs_err": err["fused"],
-         "ms": times["fused"][0], "plain_ms": times["fused"][1]},
-    ]}
-    print(json.dumps({"posterior_maps_wall_ms": walls, "card": card}),
-          flush=True)
-    print(json.dumps(table), flush=True)
+         "ms": times["fused"][0], "plain_ms": times["fused"][2],
+         **bound(N_FULL * 4 * (scan.n_taus + 1 + 9),
+                 ops_encode_quad(cfg.no_units, scan.n_taus,
+                                 cfg.no_intermediate_layers, raw_b,
+                                 cfg.use_mvg)),
+         "library_ms": None},
+    ]
+    phases = fine_tune_phases(dev, card, OPTIMAL, tuner)
+    kernels += phases["kernels"]
+    print(json.dumps({"posterior_maps_wall_ms": walls,
+                      "finetune_step_ms": phases["step_ms"],
+                      "finetune_epoch_wall_ms": phases["epoch_ms"],
+                      "card": card}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

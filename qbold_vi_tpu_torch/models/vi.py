@@ -1,8 +1,9 @@
-"""The VI fine-tuner's inference half (PyTorch).
+"""The VI fine-tuner: encoder -> reparameterised posterior sample ->
+physics decoder -> heteroscedastic noise (PyTorch).
 
 The counterpart of ``qbold_vi_tpu/models/vi.py::FineTuner``: the encoder,
-the posterior distribution, the encoder pass and the population prior.
-The physics decoder (``apply``) comes with training.
+the posterior distribution, the encoder pass, the population prior and
+the fine-tune forward pass ``apply`` (reference model.py:239-286).
 
 Where the JAX FineTuner is a stateless bundle applied to an explicit
 params pytree, this one is an ``nn.Module`` that owns its parameters:
@@ -26,6 +27,7 @@ from torch import nn
 
 from ..config import ModelConfig, ScanParams
 from ..dist.logit_mvn import LogitMVN
+from ..ops import physics
 from .encoder import Encoder, init_encoder_
 
 __all__ = ["FineTuner", "init_params", "POP_PRIOR_INIT_MVG",
@@ -36,13 +38,23 @@ POP_PRIOR_INIT_DIAG = (-0.97, 0.4, -1.14, 0.6)
 
 
 class FineTuner(nn.Module):
-    """Encoder + posterior distribution. Parameters are allocated
-    uninitialised on ``device``: load a state_dict (``init_params`` or
-    the JAX bridge) before use."""
+    """Encoder + posterior distribution + physics decoder. Parameters are
+    allocated uninitialised on ``device`` -- the CUDA card unless the
+    caller asks for another (``device="cpu"``) -- so load a state_dict
+    (``init_params`` or the JAX bridge) before use. ``full_model`` and
+    ``use_blood`` select the decoder's tissue model and blood compartment,
+    as the JAX FineTuner's fields do."""
 
-    def __init__(self, cfg: ModelConfig, scan: ScanParams, *, device=None):
+    def __init__(self, cfg: ModelConfig, scan: ScanParams, *, device=None,
+                 full_model: bool = True, use_blood: bool = True):
         super().__init__()
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "FineTuner runs on the CUDA card unless asked otherwise, and "
+                "no CUDA device is available: pass device='cpu'")
         self.cfg, self.scan = cfg, scan
+        self.full_model, self.use_blood = full_model, use_blood
         # built on the meta device so that construction draws nothing from
         # torch's global generator; the weights come from a state_dict
         self.encoder = Encoder(cfg, n_taus=scan.n_taus, se_idx=scan.se_idx,
@@ -52,7 +64,7 @@ class FineTuner(nn.Module):
                 _pop_prior_size(cfg), device="meta"))
         if not cfg.heteroscedastic_noise:
             self.log_sigma = nn.Parameter(torch.empty((), device="meta"))
-        self.to_empty(device=device or "cpu")
+        self.to_empty(device=device)
 
     @property
     def dist(self) -> LogitMVN:
@@ -71,6 +83,38 @@ class FineTuner(nn.Module):
         """The learned population prior broadcast to q's leading shape."""
         pop = self.pop_prior
         return pop.expand(q.shape[:-1] + pop.shape)
+
+    def check_dropout(self, train: bool) -> None:
+        if train and self.cfg.dropout_rate > 0.0:
+            raise NotImplementedError(
+                "training with dropout_rate > 0 is not ported yet "
+                "(ROADMAP.md); OPTIMAL trains without dropout")
+
+    def decode(self, samples: torch.Tensor) -> torch.Tensor:
+        """Physical (OEF, DBV) draws (..., 2) -> noise-free signals
+        (..., n_taus), with the configured OEF bound for the rule gate."""
+        cfg = self.cfg
+        return physics.ase_signal(
+            samples[..., 0], samples[..., 1], self.scan,
+            full_model=self.full_model, include_blood=self.use_blood,
+            quad_rule=cfg.quad_rule, max_oef=cfg.min_oef + cfg.oef_range)
+
+    def apply(self, images: torch.Tensor, z: torch.Tensor,
+              train: bool = False) -> dict:
+        """One stochastic forward pass on (B, X, Y, Z, n_taus) images with
+        the standard normals ``z`` (S, B, X, Y, Z, 2) of its S posterior
+        draws. Returns predictions (B, ..., 4|5) raw posterior params,
+        samples (S, B, ..., 2), predicted_images (S, B, ..., n_taus) and
+        im_sigma (B, ..., n_taus) -- exp(log_sigma) everywhere when the
+        noise is not heteroscedastic."""
+        self.check_dropout(train)
+        _, q, im_sigma = self.encode(images)
+        samples = self.dist.sample_many(z, q, self.cfg.use_mvg)
+        if not self.cfg.heteroscedastic_noise:
+            im_sigma = torch.exp(self.log_sigma).expand(im_sigma.shape)
+        return {"predictions": q, "samples": samples,
+                "predicted_images": self.decode(samples),
+                "im_sigma": im_sigma}
 
 
 def _pop_prior_size(cfg: ModelConfig) -> int:

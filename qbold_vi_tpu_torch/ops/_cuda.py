@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 The kernels have a plain C interface and are bound with ``ctypes``: no
-PyTorch headers are compiled, so a cold build is one ``nvcc`` call of a
-few seconds. The shared library is built at first use into
+PyTorch headers are compiled. A cold build starts one ``nvcc`` per source,
+all at once, and links their objects into one shared library, which is
+built at first use into
 ``qbold_vi_tpu_torch/_build/`` (git-ignored), under a name keyed by a
 hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. Nothing here runs at import time.
@@ -33,14 +34,15 @@ from pathlib import Path
 import torch
 
 __all__ = ["library", "build_log", "check", "quad_consts", "quad_ranges",
-           "NVCC_FLAGS"]
+           "QvDecodeConsts", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("quadrature.cu", "encode_quad.cu")
-HEADERS = ("quad_math.cuh",)
+SOURCES = ("quadrature.cu", "encode_quad.cu", "decode_nll.cu",
+           "fused_elbo.cu")
+HEADERS = ("quad_math.cuh", "elbo_math.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
               "--resource-usage")
 
 class QvRanges(ctypes.Structure):
@@ -61,6 +63,18 @@ def quad_ranges(*, oef_range: float, min_oef: float, dbv_range: float,
                     dw * dw)
 
 
+class QvDecodeConsts(ctypes.Structure):
+    """csrc/elbo_math.cuh::QvDecodeConsts: the scalars of one decode
+    configuration, built by ops/decode_nll.py::decode_consts."""
+
+    _fields_ = ([(name, ctypes.c_int) for name in (
+        "n_taus", "se", "multi", "log_data", "student", "use_blood",
+        "cheb")] + [(name, ctypes.c_float) for name in (
+            "envelope", "bc", "mnb", "inv_cmax2", "df", "df1", "half_df1",
+            "t_const", "half_log_2pi", "wk", "oef_range", "min_oef",
+            "dbv_range", "min_dbv", "kl_bound")])
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
@@ -71,6 +85,17 @@ _SIGNATURES = {
         _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, QvRanges,
         _P, _P, _P, _I, _I, _LL, _P],
     "qv_max_dynamic_smem": [],
+    "qv_decode_nll_fwd": [
+        _P, _P, _P, _P, _P, _LL, QvDecodeConsts, _P, _I, _P, _I, _I, _P],
+    "qv_decode_nll_bwd": [
+        _P, _P, _P, _P, _P, _P, _LL, QvDecodeConsts, _P, _I, _P, _P, _P, _P,
+        _I, _I, _P],
+    "qv_elbo_fwd": [
+        _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, QvDecodeConsts, _P,
+        _I, _P, _P, _I, _I, _P],
+    "qv_elbo_bwd": [
+        _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P, _P,
+        QvDecodeConsts, _P, _I, _P, _P, _P, _P, _I, _I, _P],
 }
 
 
@@ -99,15 +124,32 @@ def _build() -> Path:
     lib = BUILD_DIR / f"libqbold_kernels_{_digest()}.so"
     if lib.is_file():
         return lib
-    tmp = lib.with_suffix(f".so.tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC / s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    tag = f"tmp{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(s).stem}_{_digest()}.{tag}.o" for s in SOURCES]
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    tmp = lib.with_suffix(f".so.{tag}")
+    link = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(tmp), *map(str, objs)]
+    failed = [c for c, p in zip(cmds, procs) if p.returncode != 0]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True,
+                              check=False)
+        outs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed = [link]
     log = BUILD_DIR / (lib.stem + ".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    log.write_text("".join(" ".join(c) + "\n" + o
+                           for c, o in zip(cmds + [link], outs)))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {' '.join(failed[0])}\n"
+                           + log.read_text())
     os.replace(tmp, lib)
     return lib
 

@@ -8,6 +8,9 @@ card, where jax is absent:
 
 Tolerances: means and raw rtol 1e-4 / atol 3e-5; variances rtol 1e-3 /
 atol 3e-5, with the R2' floor of torch_parity_utils.assert_vars_close.
+The fine-tune kernels F and G: rows at rtol 1e-5 / atol 1e-5, gradients
+scale-normalised at rtol 5e-4 / atol 5e-5 (the JAX package's own gates,
+tests/test_pallas_elbo.py:88-97).
 """
 
 import dataclasses
@@ -22,8 +25,12 @@ from torch_parity_utils import (assert_vars_close, cuda_device,  # noqa: E402,F4
 from qbold_vi_tpu_torch import config as tcfg  # noqa: E402
 from qbold_vi_tpu_torch import infer  # noqa: E402
 from qbold_vi_tpu_torch.models.vi import FineTuner, init_params  # noqa: E402
+from qbold_vi_tpu_torch.ops import decode_nll as tdn  # noqa: E402
+from qbold_vi_tpu_torch.ops import fused_elbo as tfe  # noqa: E402
 from qbold_vi_tpu_torch.ops import fused_infer as tfi  # noqa: E402
 from qbold_vi_tpu_torch.ops import quadrature as tq  # noqa: E402
+from qbold_vi_tpu_torch.train import optim as toptim  # noqa: E402
+from qbold_vi_tpu_torch.train import steps as tsteps  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -124,3 +131,190 @@ def test_posterior_maps_on_card(cuda_device, use_first_op):
              for d in (got, ref)]
     _close([means[0], got["stds"], got["raw_log_stds"]],
            [means[1], ref["stds"], ref["raw_log_stds"]])
+
+
+# ---- the fine-tune kernels F and G ------------------------------------------
+
+ROW_TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=5e-4, atol=5e-5)
+FT_CASES = {
+    "optimal": dict(),
+    "student_multi": dict(student_t_df=2.0, multi_image_normalisation=True),
+    "log_data": dict(predict_log_data=True),
+    "gj16": dict(quad_rule="gj16"),
+    "diag": dict(use_mvg=False),
+}
+
+
+def _grad_close(got, ref, name):
+    got, ref = got.double().cpu(), ref.double().cpu()
+    scale = ref.abs().max() + 1e-8
+    np.testing.assert_allclose((got / scale).numpy(), (ref / scale).numpy(),
+                               err_msg=name, **GRAD_TOL)
+
+
+def _ft_inputs(rng, n, k, device, s_nll=1, s_kl=70):
+    f = np.float32
+    mask = (rng.uniform(size=n) > 0.2).astype(f)
+    y = (np.abs(rng.normal(size=(n, SCAN.n_taus))) * 50 + 100).astype(f)
+    arrays = dict(
+        q=(rng.normal(size=(n, k)) * 0.7).astype(f),
+        p=(rng.normal(size=(n, k)) * 0.7).astype(f),
+        y=y * mask[:, None], sigma=rng.uniform(0.03, 0.2, (n, SCAN.n_taus)
+                                               ).astype(f),
+        mask=mask, z_nll=rng.normal(size=(s_nll, n, 2)).astype(f),
+        z_kl=rng.normal(size=(s_kl, n, 2)).astype(f),
+        ct_n=rng.normal(size=n).astype(f), ct_k=rng.normal(size=n).astype(f))
+    return {k_: torch.from_numpy(v).to(device) for k_, v in arrays.items()}
+
+
+@pytest.mark.parametrize("case", list(FT_CASES))
+def test_decode_nll_kernel_matches_plain(cuda_device, case):
+    cfg = dataclasses.replace(tcfg.OPTIMAL.model, **FT_CASES[case])
+    C = tdn.decode_consts(cfg, SCAN)
+    rng = np.random.default_rng(8)
+    n = 50_001
+    a = _ft_inputs(rng, n, 5, cuda_device)
+    oef = torch.from_numpy(rng.uniform(0.04, 0.84, n).astype(np.float32)
+                           ).to(cuda_device)
+    dbv = torch.from_numpy(rng.uniform(0.001, 0.201, n).astype(np.float32)
+                           ).to(cuda_device)
+    args = (oef, dbv, a["y"], a["sigma"], a["mask"])
+    counts = (tdn.decode_nll_forward.launches,
+              tdn.decode_nll_backward.launches)
+    rows = tdn.decode_nll_forward(*args, C)
+    grads = tdn.decode_nll_backward(*args, a["ct_n"], C)
+    torch.cuda.synchronize()
+    assert (tdn.decode_nll_forward.launches - counts[0],
+            tdn.decode_nll_backward.launches - counts[1]) == (1, 1)
+    np.testing.assert_allclose(
+        rows.cpu().numpy(),
+        (tdn.nll_row_plain(*args, C) * a["mask"]).cpu().numpy(), **ROW_TOL)
+    ct = a["ct_n"] * a["mask"]
+    ref = tdn.nll_row_grads_plain(*args, C)
+    for name, g, r in zip(("doef", "ddbv", "dsig", "dy"), grads, ref):
+        r = r * (ct if r.ndim == 1 else ct[:, None])
+        _grad_close(g, r, name)
+
+
+@pytest.mark.parametrize("s_nll", [1, 2])
+@pytest.mark.parametrize("case", list(FT_CASES))
+def test_fused_elbo_kernel_matches_plain(cuda_device, case, s_nll):
+    cfg = dataclasses.replace(tcfg.OPTIMAL.model, **FT_CASES[case])
+    C = tdn.decode_consts(cfg, SCAN)
+    mvg = cfg.use_mvg
+    a = _ft_inputs(np.random.default_rng(9), 40_003, 5 if mvg else 4,
+                   cuda_device, s_nll=s_nll)
+    main = (a["q"], a["p"], a["y"], a["sigma"], a["mask"])
+    kw = dict(mvg=mvg, s_nll=s_nll, s_kl=70, z_nll=a["z_nll"],
+              z_kl=a["z_kl"])
+    got = tfe.fused_elbo_forward(*main, C, **kw)
+    gg = tfe.fused_elbo_backward(*main, a["ct_n"], a["ct_k"], C, **kw)
+    torch.cuda.synchronize()
+    ref = tfe.elbo_rows_plain(*main, a["z_nll"], a["z_kl"], C, mvg)
+    gr = tfe.elbo_grads_plain(*main, a["z_nll"], a["z_kl"], a["ct_n"],
+                              a["ct_k"], C, mvg)
+    for name, x, y in zip(("nll", "kl"), got, ref):
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
+                                   err_msg=name, **ROW_TOL)
+    for name, x, y in zip(("dq", "dp", "dy", "dsig"), gg, gr):
+        _grad_close(x, y, name)
+
+
+def test_fused_elbo_device_noise(cuda_device):
+    """Device noise: the kernel's Philox draws are philox_normals' (the
+    plain version fed them agrees), a seed replays bit for bit, another
+    seed differs, and the KL rows are unbiased for the closed form."""
+    cfg = tcfg.OPTIMAL.model
+    C = tdn.decode_consts(cfg, SCAN)
+    n = 30_000
+    a = _ft_inputs(np.random.default_rng(10), n, 5, cuda_device)
+    a["q"][:, [1, 3]] *= 0.3
+    a["p"][:, [1, 3]] *= 0.3
+    main = (a["q"], a["p"], a["y"], a["sigma"], a["mask"])
+    kw = dict(mvg=True, s_nll=1, s_kl=70)
+    r1 = tfe.fused_elbo_forward(*main, C, seed=5, **kw)
+    r2 = tfe.fused_elbo_forward(*main, C, seed=5, **kw)
+    r3 = tfe.fused_elbo_forward(*main, C, seed=6, **kw)
+    g1 = tfe.fused_elbo_backward(*main, a["ct_n"], a["ct_k"], C, seed=5, **kw)
+    g2 = tfe.fused_elbo_backward(*main, a["ct_n"], a["ct_k"], C, seed=5, **kw)
+    for x, y in zip(r1 + g1, r2 + g2):
+        assert torch.equal(x, y)
+    assert not torch.equal(r1[0], r3[0])
+    z = torch.from_numpy(tfe.philox_normals(5, n, 71)).to(cuda_device)
+    ref = tfe.elbo_rows_plain(*main, z[:1], z[1:], C, True)
+    for x, y in zip(r1, ref):
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    from qbold_vi_tpu_torch.dist.logit_mvn import LogitMVN
+    live = a["mask"] > 0
+    diff = (r1[1] - LogitMVN().mvg_kl_closed_form(a["q"], a["p"]))[live]
+    se = diff.std() / diff.numel() ** 0.5
+    assert abs(float(diff.mean())) < 5 * float(se)
+
+
+def _grads(tuner):
+    return {k: p.grad.detach().cpu().double() for k, p in
+            tuner.named_parameters() if p.grad is not None}
+
+
+def _terms_grads(tuner, cfg, batch, noise):
+    """Gradients of the plain fine-tune loss, backward at the caller's
+    TF32 settings."""
+    tuner.zero_grad()
+    loss, _ = tsteps.finetune_terms(tuner, cfg, batch, noise=noise)
+    loss.backward()
+    return _grads(tuner)
+
+
+def test_step_gradients_are_float32_on_the_card(cuda_device):
+    """The fine-tune step's conv gradients on the card match the CPU's in
+    float32 (make_finetune_step turns TF32 off for its backward too); the
+    same backward with cuDNN's default TF32 would not. The activation is
+    smooth: with relu, a pre-activation within float32 rounding of 0 can
+    take the other side of the kink on the card than on the CPU, which
+    moves a conv gradient by ~1e-4 of its scale whatever the TF32
+    setting."""
+    cfg = dataclasses.replace(
+        tcfg.OPTIMAL, scan=SCAN,
+        model=dataclasses.replace(tcfg.OPTIMAL.model, activation="softplus"),
+        train=dataclasses.replace(tcfg.OPTIMAL.train, fused_elbo="off",
+                                  fused_decode_nll="off"))
+    rng = np.random.default_rng(12)
+    shape = (6, 25, 25, 8)
+    mask = (rng.uniform(size=shape + (1,)) > 0.2).astype(np.float32)
+    batch = {"images": (np.abs(rng.normal(size=shape + (11,))) * 50 + 100
+                        ).astype(np.float32) * mask, "mask": mask,
+             "priors": (rng.normal(size=shape + (5,)) * 0.3
+                        ).astype(np.float32)}
+    noise = {"z_nll": rng.normal(size=(1,) + shape + (2,)).astype(np.float32),
+             "z_kl": rng.normal(size=(70,) + shape + (2,)).astype(np.float32)}
+    sd = init_params(cfg.model, SCAN, torch.Generator().manual_seed(3))
+    cpu = FineTuner(cfg.model, SCAN, device="cpu")
+    cpu.load_state_dict(sd)
+    gpu = FineTuner(cfg.model, SCAN, device=cuda_device)
+    gpu.load_state_dict(sd)
+    ref = _terms_grads(cpu, cfg, {k: torch.from_numpy(v)
+                                  for k, v in batch.items()}, noise)
+    gb = {k: torch.from_numpy(v).to(cuda_device) for k, v in batch.items()}
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        # the backward outside the step, cuDNN at its TF32 default
+        tf32 = _terms_grads(gpu, cfg, gb, noise)
+        # the step: TF32 off around its forward and backward
+        opt = toptim.make_finetune_optimizer(gpu.parameters(), cfg.train)
+        tsteps.make_finetune_step(gpu, cfg, opt)(gb, noise=noise)
+        got = _grads(gpu)
+        assert torch.backends.cudnn.allow_tf32      # restored
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    conv = [k for k in ref if "ConvXY" in k and k.endswith("weight")]
+    assert conv
+    for k in ref:
+        _grad_close(got[k], ref[k], k)
+    worst = max(float(((tf32[k] - ref[k]).abs().max()
+                       / (ref[k].abs().max() + 1e-8))) for k in conv)
+    assert worst > GRAD_TOL["atol"], (
+        f"TF32 conv gradients were within float32 tolerance ({worst:.2e}): "
+        "the check cannot tell the two apart")

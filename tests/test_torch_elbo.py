@@ -1,0 +1,242 @@
+"""The port's fine-tune loss against the JAX package's, through each of its
+three paths: the plain versions of the fused ELBO (kernel F,
+ops/fused_elbo.py) and of the decode+NLL (kernel G, ops/decode_nll.py),
+and the plain decode + losses. The oracle is the JAX jnp path
+(``_finetune_terms`` with ``fused_elbo="off"``, ``fused_decode_nll="off"``)
+on the same weights and batch; the port is handed the normals the JAX step
+draws from its key (the split structure of steps.py:743-747), so both
+compute the same Monte-Carlo loss.
+
+Tolerances (tests/test_pallas_elbo.py:88-97): the loss at rtol 1e-5 /
+atol 1e-5; every parameter gradient scale-normalised at rtol 5e-4 /
+atol 5e-5; the aux terms at rtol 2e-5 / atol 2e-6.
+"""
+
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from torch_parity_utils import port_params, port_tuner  # noqa: E402
+from qbold_vi_tpu.config import (ModelConfig, QBoldConfig,  # noqa: E402
+                                 ScanParams, TrainConfig)
+from qbold_vi_tpu.models.vi import FineTuner as JFineTuner  # noqa: E402
+from qbold_vi_tpu.train.steps import _finetune_terms  # noqa: E402
+from qbold_vi_tpu_torch import config as tcfg  # noqa: E402
+from qbold_vi_tpu_torch.io.from_jax import state_dict_from_jax  # noqa: E402
+from qbold_vi_tpu_torch.ops import decode_nll as tdn  # noqa: E402
+from qbold_vi_tpu_torch.ops import fused_elbo as tfe  # noqa: E402
+from qbold_vi_tpu_torch.train import steps as tsteps  # noqa: E402
+
+SCAN = ScanParams(simulate_noise=False)
+S_KL = 8
+
+# the five branch configurations of tests/test_pallas_elbo.py:67-73, and
+# the Gauss-Jacobi rule and the blood-free decode the kernels also cover
+CASES = {
+    "optimal": dict(),
+    "student_multi_s2": dict(student_t_df=2.0, multi_image_normalisation=True,
+                             no_samples=2),
+    "log_pop_prior": dict(predict_log_data=True, use_population_prior=True),
+    "diag": dict(use_mvg=False),
+    "diag_student_s2": dict(use_mvg=False, student_t_df=2.0, no_samples=2),
+    "gj16_no_blood": dict(quad_rule="gj16", use_blood=False),
+}
+# the port's three paths: (fused_elbo, fused_decode_nll)
+PATHS = {"F": ("on", "off"), "G": ("off", "on"), "plain": ("off", "off")}
+
+
+def _model(kw):
+    kw = dict(kw)
+    use_blood = kw.pop("use_blood", True)
+    kw.setdefault("student_t_df", 200.0)
+    kw.setdefault("predict_log_data", False)
+    kw.setdefault("multi_image_normalisation", False)
+    kw.setdefault("use_mvg", True)
+    return ModelConfig(no_units=4, no_intermediate_layers=1, **kw), use_blood
+
+
+def _batch(rng, k):
+    shape = (1, 8, 4, 1)
+    img = (np.abs(rng.normal(size=shape + (SCAN.n_taus,))) * 50 + 100
+           ).astype(np.float32)
+    mask = (rng.uniform(size=shape + (1,)) > 0.2).astype(np.float32)
+    priors = (rng.normal(size=shape + (k,)) * 0.3).astype(np.float32)
+    return {"images": img * mask, "mask": mask, "priors": priors}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_reference(case: str):
+    """(params, batch, noise, value, aux, grads) of the JAX jnp path."""
+    model, use_blood = _model(CASES[case])
+    cfg = QBoldConfig(scan=SCAN, model=model,
+                      train=TrainConfig(fused_elbo="off",
+                                        fused_decode_nll="off"))
+    _, params = port_params(model, SCAN, seed=7)
+    tuner = JFineTuner(model, SCAN, use_blood=use_blood)
+    batch = _batch(np.random.default_rng(11), 5 if model.use_mvg else 4)
+    key = jax.random.PRNGKey(3)
+
+    def loss(p):
+        return _finetune_terms(p, key, {k: jnp.asarray(v)
+                                        for k, v in batch.items()},
+                               tuner, cfg, kl_samples=S_KL)
+
+    (value, aux), grads = jax.value_and_grad(loss, has_aux=True)(
+        jax.tree_util.tree_map(jnp.asarray, params))
+    # the normals the jnp path draws: k_sample -> apply's sample_many,
+    # k_kl -> mvg_kl_samples
+    vox = batch["images"].shape[:-1]
+    k_sample, k_kl = jax.random.split(key)
+    k_draw = jax.random.split(k_sample)[0]
+    noise = {"z_nll": np.array(jax.vmap(
+        lambda k: jax.random.normal(k, vox + (2,)))(
+            jax.random.split(k_draw, model.no_samples)))}
+    if model.use_mvg:
+        noise["z_kl"] = np.array(jax.vmap(
+            lambda k: jax.random.normal(k, vox + (2,)))(
+                jax.random.split(k_kl, S_KL)))
+    return (params, batch, noise, float(value),
+            {k: float(v) for k, v in aux.items()},
+            state_dict_from_jax(jax.tree_util.tree_map(np.asarray, grads)))
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+@pytest.mark.parametrize("case", list(CASES))
+def test_loss_and_grads_match_jax(case, path):
+    params, batch, noise, v_ref, aux_ref, g_ref = _jax_reference(case)
+    model, use_blood = _model(CASES[case])
+    elbo_mode, nll_mode = PATHS[path]
+    if path == "F" and not tfe.fused_elbo_available(
+            tcfg.ModelConfig(**dataclasses.asdict(model)),
+            tcfg.ScanParams(**dataclasses.asdict(SCAN)), True, use_blood):
+        pytest.fail("every case here is one the fused ELBO covers")
+    tuner = port_tuner(model, SCAN, params, use_blood=use_blood)
+    cfg = tcfg.QBoldConfig(
+        scan=tuner.scan, model=tuner.cfg,
+        train=tcfg.TrainConfig(fused_elbo=elbo_mode,
+                               fused_decode_nll=nll_mode))
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss, aux = tsteps.finetune_terms(tuner, cfg, tb, noise=noise,
+                                      kl_samples=S_KL)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), v_ref, rtol=1e-5,
+                               atol=1e-5)
+    for k in ("nll", "kl", "smoothness", "sigma"):
+        np.testing.assert_allclose(float(aux[k].detach()), aux_ref[k],
+                                   rtol=2e-5, atol=2e-6, err_msg=k)
+    for name, p in tuner.named_parameters():
+        ref = g_ref[name].numpy()
+        got = (np.zeros_like(ref) if p.grad is None
+               else p.grad.numpy())
+        scale = np.abs(ref).max() + 1e-8
+        np.testing.assert_allclose(got / scale, ref / scale, rtol=5e-4,
+                                   atol=5e-5, err_msg=name)
+
+
+def _rows_inputs(rng, n, k, s_nll=1, s_kl=S_KL):
+    f = np.float32
+    return dict(
+        q=torch.from_numpy((rng.normal(size=(n, k)) * 0.5).astype(f)),
+        p=torch.from_numpy((rng.normal(size=(n, k)) * 0.5).astype(f)),
+        y=torch.from_numpy((np.abs(rng.normal(size=(n, 11))) + 0.4
+                            ).astype(f)),
+        sigma=torch.full((n, 11), 0.08),
+        mask=torch.from_numpy((rng.uniform(size=n) > 0.3).astype(f)),
+        z_nll=torch.from_numpy(rng.normal(size=(s_nll, n, 2)).astype(f)),
+        z_kl=torch.from_numpy(rng.normal(size=(s_kl, n, 2)).astype(f)))
+
+
+@pytest.mark.parametrize("mvg", [True, False])
+def test_kl_rows_match_the_kl_forms(mvg):
+    """F's KL rows equal the sampled KL (MVG; dist.mvg_kl_samples on the
+    same normals) or the analytic KL (diagonal), in value and in the q
+    and p gradients; masked rows are exactly zero."""
+    rng = np.random.default_rng(5)
+    a = _rows_inputs(rng, 64, 5 if mvg else 4)
+    C = tdn.decode_consts(tcfg.OPTIMAL.model, tcfg.ScanParams(
+        simulate_noise=False))
+    q = a["q"].requires_grad_()
+    p = a["p"].requires_grad_()
+    nll, kl = tfe.fused_elbo(q, p, a["y"], a["sigma"], a["mask"], C,
+                             mvg=mvg, s_nll=1, s_kl=S_KL, z_nll=a["z_nll"],
+                             z_kl=a["z_kl"])
+    live = a["mask"] > 0
+    assert torch.all(nll[~live] == 0) and torch.all(kl[~live] == 0)
+    gk = torch.autograd.grad(kl.sum(), (q, p))
+    from qbold_vi_tpu_torch.dist.logit_mvn import LogitMVN
+    q2 = a["q"].detach().requires_grad_()
+    p2 = a["p"].detach().requires_grad_()
+    ref = (LogitMVN().mvg_kl_samples(a["z_kl"], q2, p2) if mvg
+           else LogitMVN().diag_kl(q2, p2))
+    ref = torch.where(live, ref, 0.0)
+    gr = torch.autograd.grad(ref.sum(), (q2, p2))
+    np.testing.assert_allclose(kl.detach().numpy(), ref.detach().numpy(),
+                               rtol=2e-5, atol=2e-6)
+    for x, y in zip(gk, gr):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=2e-4,
+                                   atol=1e-5)
+
+
+def test_philox_normals_and_device_noise_replay():
+    """The device-noise generator: standard normal moments, independent
+    draws, one stream per (voxel, draw); a seed replays bit for bit and
+    another seed gives other rows (the plain version takes these
+    normals, as the kernel draws them)."""
+    z = tfe.philox_normals(12345, 20_000, 4)
+    assert z.shape == (4, 20_000, 2) and z.dtype == np.float32
+    flat = z.reshape(-1, 2)
+    assert abs(flat.mean()) < 0.02 and abs(flat.std() - 1.0) < 0.02
+    assert abs(np.corrcoef(flat[:, 0], flat[:, 1])[0, 1]) < 0.02
+    np.testing.assert_array_equal(tfe.philox_normals(12345, 10, 2, first=2),
+                                  z[2:, :10])
+    rng = np.random.default_rng(6)
+    a = _rows_inputs(rng, 32, 5)
+    C = tdn.decode_consts(tcfg.OPTIMAL.model, tcfg.ScanParams())
+    kw = dict(mvg=True, s_nll=1, s_kl=S_KL)
+    args = (a["q"], a["p"], a["y"], a["sigma"], a["mask"], C)
+    r1 = tfe.fused_elbo(*args, seed=77, **kw)
+    r2 = tfe.fused_elbo(*args, seed=77, **kw)
+    r3 = tfe.fused_elbo(*args, seed=78, **kw)
+    zs = torch.from_numpy(tfe.philox_normals(77, 32, 1 + S_KL))
+    r4 = tfe.fused_elbo(*args, z_nll=zs[:1], z_kl=zs[1:], **kw)
+    for x, y, w in zip(r1, r2, r4):
+        assert torch.equal(x, y) and torch.equal(x, w)
+    assert not torch.equal(r1[1], r3[1])
+
+
+def test_modes_resolve_with_force_semantics():
+    tuner = port_tuner(*_model({})[:1], SCAN, port_params(_model({})[0],
+                                                          SCAN)[1])
+    base = tcfg.TrainConfig()
+    cpu = torch.device("cpu")
+
+    def cfg(model=None, **kw):
+        return tcfg.QBoldConfig(scan=tuner.scan, model=model or tuner.cfg,
+                                train=dataclasses.replace(base, **kw))
+
+    assert tsteps.resolve_fused_elbo(tuner, cfg(fused_elbo="auto"), cpu) is None
+    assert tsteps.resolve_fused_elbo(tuner, cfg(fused_elbo="on"), cpu)[1] is False
+    for mode in ("host", "host-interpret"):
+        assert tsteps.resolve_fused_elbo(tuner, cfg(fused_elbo=mode), cpu)[1]
+    assert tsteps.resolve_fused_elbo(tuner, cfg(fused_elbo="interpret"),
+                                     cpu) is not None
+    assert tsteps.resolve_fused_elbo(tuner, cfg(fused_elbo="auto"),
+                                     torch.device("cuda")) is not None
+    assert tsteps.resolve_fused_nll(tuner, cfg(fused_decode_nll="auto"),
+                                    cpu) is None
+    uncovered = dataclasses.replace(tuner.cfg, use_mvg=False,
+                                    use_population_prior=True)
+    with pytest.raises(ValueError, match="not covered"):
+        tsteps.resolve_fused_elbo(tuner, cfg(uncovered, fused_elbo="on"), cpu)
+    with pytest.raises(ValueError, match="fused_elbo must be"):
+        tsteps.resolve_fused_elbo(tuner, cfg(fused_elbo="bogus"), cpu)
+    homo = dataclasses.replace(tuner.cfg, heteroscedastic_noise=False)
+    with pytest.raises(ValueError, match="not covered"):
+        tsteps.resolve_fused_nll(tuner, cfg(homo, fused_decode_nll="on"), cpu)

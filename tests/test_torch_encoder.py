@@ -100,7 +100,8 @@ def test_bridge_round_trip_is_exact(tmp_path, cfg):
         np.testing.assert_array_equal(loaded[k], flat[k], err_msg=k)
     # the state_dict loads into the port's module without missing keys
     tuner = FineTuner(tcfg.ModelConfig(**dataclasses.asdict(cfg)),
-                      tcfg.ScanParams(**dataclasses.asdict(SCAN)))
+                      tcfg.ScanParams(**dataclasses.asdict(SCAN)),
+                      device="cpu")
     tuner.load_state_dict(sd, strict=True)
 
 
@@ -151,7 +152,8 @@ def test_dist_transforms_and_prior_match_jax():
     raw = rng.normal(size=(50, 2)).astype(np.float32) * 3.0
     cfg = dataclasses.replace(OPT, use_population_prior=True)
     tc = tcfg.ModelConfig(**dataclasses.asdict(cfg))
-    tuner = FineTuner(tc, tcfg.ScanParams(**dataclasses.asdict(SCAN)))
+    tuner = FineTuner(tc, tcfg.ScanParams(**dataclasses.asdict(SCAN)),
+                      device="cpu")
     tuner.load_state_dict(init_params(tc, tuner.scan,
                                       torch.Generator().manual_seed(0)))
     jd, td = JLogitMVN(), tuner.dist
@@ -176,7 +178,7 @@ def test_bf16_trunk_is_not_ported():
 def test_forward_leaves_tf32_settings_as_found():
     """The encoder turns TF32 off only while it runs."""
     cfg = tcfg.ModelConfig(no_units=8)
-    tuner = FineTuner(cfg, tcfg.ScanParams())
+    tuner = FineTuner(cfg, tcfg.ScanParams(), device="cpu")
     tuner.load_state_dict(init_params(cfg, tcfg.ScanParams(),
                                       torch.Generator().manual_seed(0)))
     prev = torch.backends.cudnn.allow_tf32

@@ -102,7 +102,7 @@ def test_save_predictions_writes_what_it_returns(slice_setup, tmp_path):
 ])
 def test_unported_options_raise(tmp_path, kw, match):
     cfg = tcfg.ModelConfig(no_units=8)
-    tuner = FineTuner(cfg, tcfg.ScanParams())
+    tuner = FineTuner(cfg, tcfg.ScanParams(), device="cpu")
     tuner.load_state_dict(init_params(cfg, tcfg.ScanParams(),
                                       torch.Generator().manual_seed(0)))
     with pytest.raises(NotImplementedError, match=match):

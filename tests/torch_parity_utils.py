@@ -43,8 +43,9 @@ def port_params(cfg, scan, seed: int = 0):
     return FineTuner(cfg, scan), jax_from_state_dict(sd)
 
 
-def port_tuner(cfg, scan, jax_params):
-    """The port's FineTuner (on the CPU) carrying the JAX params."""
+def port_tuner(cfg, scan, jax_params, **kw):
+    """The port's FineTuner (on the CPU) carrying the JAX params; ``kw``
+    (full_model, use_blood) go to the FineTuner."""
     import jax
 
     from qbold_vi_tpu_torch import config as tcfg
@@ -52,7 +53,7 @@ def port_tuner(cfg, scan, jax_params):
     from qbold_vi_tpu_torch.models.vi import FineTuner
 
     tuner = FineTuner(tcfg.ModelConfig(**_fields(cfg)),
-                      tcfg.ScanParams(**_fields(scan)))
+                      tcfg.ScanParams(**_fields(scan)), device="cpu", **kw)
     tree = jax.tree_util.tree_map(np.asarray, jax_params)
     tuner.load_state_dict(state_dict_from_jax(tree))
     return tuner
