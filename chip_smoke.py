@@ -2,15 +2,17 @@
 
     python3 chip_smoke.py [--weights params.npz]
 
-Drives the port's two main paths at the published OPTIMAL width (60
-units x 2 blocks, 11 taus, MVG head), with random weights from a fixed
-seed or a converted JAX checkpoint: serving (``infer.save_predictions``,
-kernels A and B) and ELBO fine-tuning (``train.trainer.Trainer``,
+Drives the port's main paths at the published OPTIMAL width (60 units x
+2 blocks, 11 taus, MVG head), with random weights from a fixed seed or a
+converted JAX checkpoint: serving by quadrature (``infer.save_predictions``,
+kernels A and B), serving by sampling and the fine-tuned export
+(``save_predictions(method="mc")`` and ``(fine_tuned=True, priors=...)``,
+kernels C, D and E) and ELBO fine-tuning (``train.trainer.Trainer``,
 kernels F and G, forward and backward), and checks them:
 
 1. device: a CUDA card is required (otherwise exit 1, no result line);
-2. build: the kernels of all four sources in csrc/ are compiled by nvcc;
-3. kernel vs plain: each kernel against its plain torch version on the
+2. build: the kernels of all five sources in csrc/ are compiled by nvcc;
+3. kernel vs plain: A and B against their plain torch versions on the
    card at 1,032,192 and 1,000,003 voxels (tolerances in CHECKS);
 4. main path: three export requests per encoder stream, with the launch
    counters reset before and read after; maps must be finite, in range,
@@ -37,11 +39,30 @@ kernels F and G, forward and backward), and checks them:
    then a 10-step epoch with fused_elbo="off" (G launched), then one
    step on the card against the same step on the CPU plain path;
 9. timings: F and G forward and backward against their plain versions,
-   one fine-tune step, and the wall of one 100-step epoch.
+   one fine-tune step, and the wall of one 100-step epoch;
+10. C against its plain version at 1,032,192 and 1,000,003 voxels (both
+   layouts, mask channel); D (both layouts, MVG and diagonal, antithetic
+   and iid, S = 200) and E (S = 100) against their plain versions fed
+   philox_normals at 65,536 and 65,537 voxels (means and KL rows at
+   rtol 1e-4, variances as CHECKS); a seed replays bit for bit, another
+   differs, and a request cut at a voxel offset draws what the whole
+   one does;
+11. statistics: D's means at 1,032,192 voxels within 8 standard errors
+   of kernel A's quadrature means, and the mean of E - mvg_kl_closed_form
+   over live voxels within 5 standard errors of 0;
+12. the sampled main paths: save_predictions(method="mc") on the three
+   requests per stream (C and D launched on stream 1, D on stream 2),
+   and save_predictions(fine_tuned=True, priors=predict_priors(...)) on
+   6 x 96 x 96 x 8 (E launched once per subject); maps finite, in
+   range, read back equal from NIfTI; the smallest request against the
+   CPU plain path fed the same Philox draws, and at chunk 1 against
+   chunk 2; elbo_maps on the card against the CPU given the same normals;
+13. timings: C, D and E against their plain versions, the MC
+   posterior_maps wall per stream and the elbo_maps wall per subject.
 
-It also traces posterior_maps (each stream) and the fine-tune step with
-torch.profiler: device time by kernel and the device's busy share of
-the wall.
+It also traces posterior_maps (each stream and estimator), elbo_maps and
+the fine-tune step with torch.profiler: device time by kernel and the
+device's busy share of the wall.
 
 Prints the card's name and power limit, one JSON line with the kernel
 table (launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
@@ -76,6 +97,9 @@ FT_SHAPE = (38, 25, 25, 8)           # one fine-tune batch: 190,000 voxels
 N_FT = 38 * 25 * 25 * 8
 N_FT_RAGGED = 190_003
 TRAIN_VOLUMES = (6, 96, 96, 8)       # subjects x X x Y x Z, + a mask channel
+N_MC = 65_536                        # D and E against philox_normals
+N_SUBJ = 96 * 96 * 8                 # one subject: the ELBO export's chunk
+S_MC, S_KL = 200, 100                # the sampled summaries' and KL's draws
 ROW_TOL = (1e-5, 1e-5)
 GRAD_TOL = (5e-4, 5e-5)
 # the card's peaks (NVIDIA H100 SXM data sheet): float32 outside the
@@ -264,6 +288,33 @@ def profile(fn, n: int, label: str, card: str) -> None:
         log(f"  {t / n:9.4f} ms/call {c // n:5d} launches/call  {name[:90]}")
 
 
+def check_maps(maps: dict, shape: tuple, prefix: str) -> None:
+    """Raise unless the exported maps have their shapes, are finite and in
+    range, and read back equal from their NIfTI files (subjects folded
+    into the last axis)."""
+    from qbold_vi_tpu_torch.io import nifti
+
+    want = {"oef": 1, "dbv": 1, "r2p": 1, "stds": 3, "raw_log_stds": 3,
+            "likelihood": 1, "kl": 1, "residual": 1}
+    files = {"stds": "_logstds", "raw_log_stds": "_raw_logstds"}
+    for key, m in maps.items():
+        if m.shape != shape + (want[key],):
+            raise AssertionError(f"{key} shape {m.shape}")
+        if not np.isfinite(m).all():
+            raise AssertionError(f"{key} not finite")
+        back = nifti.load_nifti(prefix + files.get(key, "_" + key)
+                                + ".nii.gz")
+        if not np.array_equal(back, np.concatenate(np.split(m, shape[0], 0),
+                                                   -1)[0]):
+            raise AssertionError(f"{key}: NIfTI read-back differs")
+    if not (0.04 <= maps["oef"].min() and maps["oef"].max() <= 0.84):
+        raise AssertionError("OEF outside [0.04, 0.84]")
+    if not (0.001 <= maps["dbv"].min() and maps["dbv"].max() <= 0.201):
+        raise AssertionError("DBV outside [0.001, 0.201]")
+    if maps["stds"].min() < 0 or maps.get("residual", maps["stds"]).min() < 0:
+        raise AssertionError("negative posterior variance or residual")
+
+
 def volumes(rng, shape, n_taus):
     data = (np.abs(rng.normal(size=shape + (n_taus + 1,)))
             .astype(np.float32) * 50.0 + 100.0)
@@ -293,7 +344,11 @@ OPS = dict(
     draw=18, kl_fwd=28, kl_bwd=52, box_muller=12,
     # per voxel: unpacking q and p (the backward with its tanh chain
     # factors), and the KL / gradient tails
-    unpack=22, unpack_bwd=42, tail=40)
+    unpack=22, unpack_bwd=42, tail=40,
+    # summarize.cu, kernel D: one sample's transform to (OEF, DBV, R2')
+    # and its six sums, the negation of an antithetic pair, the means and
+    # variances; kernel E: the hoisted whitening factors of q and p
+    mc_draw=27, negate=2, mc_tail=15, whiten=14)
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -328,14 +383,36 @@ def ops_quad(raw: torch.Tensor, mvg: bool) -> float:
     return float(total)
 
 
+def ops_encode(units: int, n_taus: int, n_blocks: int) -> int:
+    """Kernel C, per voxel: normalisation and the dense chain T -> U ->
+    nb x (U -> U) -> 5 (FMAs, biases, activations)."""
+    u, t = units, n_taus
+    return (2 * u * t + 2 * u + n_blocks * (2 * u * u + 2 * u) + 2 * u * 5
+            + 5 + OPS["normalise"] * t)
+
+
 def ops_encode_quad(units: int, n_taus: int, n_blocks: int,
                     raw: torch.Tensor, mvg: bool) -> float:
-    """Kernel B: normalisation, the dense chain T -> U -> nb x (U -> U) ->
-    5 (FMAs, biases, activations), then the quadrature of its rows."""
-    u, t = units, n_taus
-    dense = (2 * u * t + 2 * u + n_blocks * (2 * u * u + 2 * u)
-             + 2 * u * 5 + 5)
-    return raw.shape[1] * (dense + OPS["normalise"] * t) + ops_quad(raw, mvg)
+    """Kernel B: kernel C's encode, then the quadrature of its rows."""
+    return (raw.shape[1] * ops_encode(units, n_taus, n_blocks)
+            + ops_quad(raw, mvg))
+
+
+def ops_mc_summaries(no_samples: int, antithetic: bool) -> int:
+    """Kernel D, per voxel: S/2 Box-Muller pairs each taken as (z, -z), or
+    S iid draws."""
+    if antithetic:
+        pair = OPS["box_muller"] + OPS["negate"] + 2 * OPS["mc_draw"]
+        draws = (no_samples // 2) * pair
+    else:
+        draws = no_samples * (OPS["box_muller"] + OPS["mc_draw"])
+    return OPS["unpack"] // 2 + draws + OPS["mc_tail"]
+
+
+def ops_mc_kl(no_samples: int) -> int:
+    """Kernel E, per voxel: S reduced-KL draws of q against p."""
+    return (OPS["unpack"] + OPS["whiten"]
+            + no_samples * (OPS["box_muller"] + OPS["kl_fwd"]) + 5)
 
 
 def ops_decode(t: int, student: bool, grads: bool) -> int:
@@ -676,6 +753,315 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
     return {"kernels": kernels, "step_ms": step_ms, "epoch_ms": epoch_ms}
 
 
+def host_normals(stream, seed, start, shape, draws, device, index=None):
+    """An infer.draw_noise replacement: numpy normals from (seed, stream,
+    subject, pass), the same on every device."""
+    g = np.random.default_rng([seed, start, ("summaries", "kl",
+                                             "decode").index(stream),
+                               0 if index is None else index + 1])
+    lead = () if index is not None else (draws,)
+    z = g.normal(size=lead + tuple(shape) + (2,)).astype(np.float32)
+    return {"z": torch.from_numpy(z).to(device)}
+
+
+@torch.no_grad()
+def sampled_phases(dev, card, cfg, tuner, ranges, enc_kw) -> dict:
+    """Phases 10-13: kernels C, D and E against their plain versions and
+    their statistics, the sampled serving path and the fine-tuned export,
+    and the timings. Returns the kernels' JSON entries and the walls."""
+    from qbold_vi_tpu_torch import infer
+    from qbold_vi_tpu_torch.dist.logit_mvn import LogitMVN
+    from qbold_vi_tpu_torch.models.vi import FineTuner
+    from qbold_vi_tpu_torch.ops import fused_elbo as fe
+    from qbold_vi_tpu_torch.ops import fused_infer as fi
+    from qbold_vi_tpu_torch.ops import quadrature as quad
+    from qbold_vi_tpu_torch.ops import summarize as sm
+    from qbold_vi_tpu_torch.train.data import predict_priors
+
+    mcfg, scan = cfg.model, cfg.scan
+    rng = np.random.default_rng(5)
+    gpu = lambda a: torch.from_numpy(                             # noqa: E731
+        np.ascontiguousarray(a, np.float32)).to(dev)
+    err = {}
+
+    # ---- 10. C, D and E against their plain versions ------------------------
+    for n in (N_FULL, N_RAGGED):
+        x = volumes(rng, (n,), scan.n_taus)
+        for layout in ("voxel", "channel"):
+            xt = gpu(x) if layout == "voxel" else gpu(x.T)
+            kw = dict(enc_kw, mask_channel=True, input_layout=layout)
+            got = fi.encode_q1_packed(xt, tuner.encoder, **kw)
+            ref = fi.encode_q_plain(xt, tuner.encoder, **kw)
+            e = check_close(f"C n={n} {layout}", got.T, ref.T, "raw")
+            if n == N_FULL and layout == "voxel":
+                err["C"] = e
+        torch.cuda.synchronize()
+        log(f"kernel C vs plain ok at N={n} (voxel and channel layouts, "
+            "mask channel)")
+
+    seed = 7
+    z = gpu(fe.philox_normals(seed, N_MC + 1, S_MC))
+    q_all = gpu(raw_head(rng, N_MC + 1))
+    p_all = gpu(rng.normal(size=(N_MC + 1, 5)) * 0.7)
+    for n in (N_MC, N_MC + 1):
+        for mvg in (True, False):
+            k = 5 if mvg else 4
+            q, p = q_all[:n, :k].contiguous(), p_all[:n, :k].contiguous()
+            q_t = torch.cat([q.T, q.new_zeros((5 - k, n))]).contiguous()
+            for anti in (True, False):
+                kw = dict(ranges, mvg=mvg, no_samples=S_MC, antithetic=anti)
+                got = sm.mc_posterior_summaries(q, seed, **kw)
+                got_t = sm.mc_posterior_summaries_packed(q_t, seed, **kw)
+                if not all(torch.equal(a, b.T) for a, b in zip(got, got_t)):
+                    raise AssertionError("D: the packed entry differs")
+                ref = sm.mc_posterior_summaries_plain(
+                    q, z[:sm.mc_draws(S_MC, anti), :n], **kw)
+                tag = f"D n={n} mvg={mvg} antithetic={anti}"
+                e = max(check_close(tag, got[0], ref[0], "mean"),
+                        check_close(tag, got[1], ref[1], "var", ref[0]))
+                if n == N_MC and mvg and anti:
+                    err["D"] = e
+            kl = sm.mc_kl_map(q, p, seed, no_samples=S_KL, mvg=mvg)
+            e = check_rows(f"E n={n} mvg={mvg}", kl,
+                           sm.mc_kl_map_plain(q, p, z[:S_KL, :n], mvg),
+                           1e-4, 1e-4)
+            if n == N_MC and mvg:
+                err["E"] = e
+        torch.cuda.synchronize()
+        log(f"kernels D and E vs plain fed philox_normals ok at N={n} (MVG "
+            "and diagonal; D antithetic and iid, both layouts)")
+
+    q, p = q_all[:N_MC].contiguous(), p_all[:N_MC].contiguous()
+    kw = dict(ranges, no_samples=S_MC)
+    half = N_MC // 2 + 3
+    d1 = sm.mc_posterior_summaries(q, seed, **kw)
+    d2 = sm.mc_posterior_summaries(q, seed, **kw)
+    d3 = sm.mc_posterior_summaries(q, seed + 1, **kw)
+    parts = [sm.mc_posterior_summaries(q[:half], seed, **kw),
+             sm.mc_posterior_summaries(q[half:], seed, offset=half, **kw)]
+    e1, e2, e3 = (sm.mc_kl_map(q, p, s_, no_samples=S_KL)
+                  for s_ in (seed, seed, seed + 1))
+    e_parts = torch.cat([sm.mc_kl_map(q[:half], p[:half], seed,
+                                      no_samples=S_KL),
+                         sm.mc_kl_map(q[half:], p[half:], seed,
+                                      offset=half, no_samples=S_KL)])
+    torch.cuda.synchronize()
+    if not (all(torch.equal(a, b) for a, b in zip(d1, d2))
+            and torch.equal(e1, e2)):
+        raise AssertionError("D/E device noise: one seed did not replay")
+    if torch.equal(d1[0], d3[0]) or torch.equal(e1, e3):
+        raise AssertionError("D/E device noise: two seeds gave equal output")
+    whole = all(torch.equal(torch.cat([parts[0][i], parts[1][i]]), d1[i])
+                for i in range(2))
+    if not (whole and torch.equal(e_parts, e1)):
+        raise AssertionError("D/E: a request cut at an offset draws other "
+                             "normals than the whole one")
+    log("D and E device noise ok: replay bit-equal, seeds differ, a cut at "
+        "an offset draws what the whole request does")
+
+    # ---- 11. statistics -----------------------------------------------------
+    qf = gpu(raw_head(rng, N_FULL))
+    m_d, v_d = (t.double() for t in sm.mc_posterior_summaries(qf, 11, **kw))
+    m_a, v_a = (t.double() for t in quad.quad_posterior_summaries(qf,
+                                                                  **ranges))
+    # the iid standard error (antithetic pairs only lower it), from the
+    # larger variance estimate: in a narrow posterior E[x^2] - E[x]^2
+    # cancels in float32, so either may read 0, and none is read below
+    # 16 ulps of the second moment
+    gap, var_raw = (m_d - m_a).abs(), torch.maximum(v_a, v_d)
+    floor = 16 * EPS32 * (v_a + m_a**2)
+    worst = float((gap / torch.sqrt(torch.maximum(var_raw, floor) / S_MC)
+                   ).max())
+    # the reading without the floor where a variance survived, the
+    # (voxel, channel) that sets it, and the gaps where both cancelled to 0
+    kept = var_raw > 0
+    raw = torch.where(kept, gap / torch.sqrt(var_raw / S_MC), 0.0)
+    vox, ch = divmod(int(torch.argmax(raw)), 3)
+    dead = torch.where(kept, 0.0, gap / m_a.abs())
+    log(f"D vs A without the variance floor: {float(raw[vox, ch]):.2f} "
+        f"standard errors at voxel {vox} channel {ch} (means A "
+        f"{float(m_a[vox, ch]):.9g}, D {float(m_d[vox, ch]):.9g}; variances "
+        f"A {float(v_a[vox, ch]):.3e}, D {float(v_d[vox, ch]):.3e}; floor "
+        f"{float(floor[vox, ch]):.3e}; q "
+        f"{[round(x, 4) for x in qf[vox].tolist()]}); both variances 0 in "
+        f"{int((~kept).sum())} of {kept.numel()} elements, largest relative "
+        f"mean gap there {float(dead.max()):.3e}")
+    if worst > 8.0:
+        raise AssertionError(f"D's means lie {worst:.2f} standard errors "
+                             "from the quadrature's")
+    qe = gpu(rng.normal(size=(N_SUBJ, 5)) * 0.7)
+    pe = gpu(rng.normal(size=(N_SUBJ, 5)) * 0.7)
+    qe[:, [1, 3]] *= 0.3                 # logits clear of the KL clamp
+    pe[:, [1, 3]] *= 0.3
+    live = gpu(rng.uniform(size=N_SUBJ) > 0.2) > 0
+    diff = (sm.mc_kl_map(qe, pe, 13, no_samples=S_KL)
+            - LogitMVN().mvg_kl_closed_form(qe, pe))[live].double()
+    kl_se = float(diff.std()) / diff.numel() ** 0.5
+    if not abs(float(diff.mean())) < 5.0 * kl_se:
+        raise AssertionError(f"E biased: mean {float(diff.mean()):.3e} vs "
+                             f"standard error {kl_se:.3e}")
+    log(f"statistics ok: D's means within {worst:.2f} standard errors of "
+        f"A's at N={N_FULL}; E - closed form mean {float(diff.mean()):.3e} "
+        f"(standard error {kl_se:.3e}) at N={N_SUBJ}")
+
+    # ---- 12. the sampled main paths -----------------------------------------
+    counters = {"C": fi.encode_q1_packed,
+                "D_packed": sm.mc_posterior_summaries_packed,
+                "D": sm.mc_posterior_summaries, "E": sm.mc_kl_map}
+    reqs = [volumes(rng, shape, scan.n_taus) for shape in REQUESTS]
+    ft_data = volumes(np.random.default_rng(0), TRAIN_VOLUMES, scan.n_taus)
+    launches, small = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for first in (True, False):
+            stream = "stream1" if first else "stream2"
+            for f in counters.values():
+                f.launches = 0
+            for i, data in enumerate(reqs):
+                prefix = f"{tmp}/mc{i}_{stream}"
+                maps = infer.save_predictions(tuner, cfg, data, prefix,
+                                              use_first_op=first, method="mc",
+                                              seed=21)
+                check_maps(maps, data.shape[:-1], prefix)
+                small[first] = maps
+                log(f"request {i} {data.shape[:-1]} {stream}, method mc: ok,"
+                    f" mean OEF {maps['oef'].mean():.4f}")
+            launches[stream] = {k: f.launches for k, f in counters.items()}
+        log(f"sampled main-path launches: {launches}")
+        if not (launches["stream1"]["C"] and launches["stream1"]["D_packed"]
+                and launches["stream2"]["D"]):
+            raise AssertionError(f"a kernel of the path never ran: {launches}")
+
+        def encode_fn(images):
+            return [t.cpu().numpy() for t in tuner.encode(gpu(images))]
+
+        priors = predict_priors(encode_fn, ft_data, 5)
+        for f in counters.values():
+            f.launches = 0
+        prefix = f"{tmp}/fine_tuned"
+        maps = infer.save_predictions(tuner, cfg, ft_data, prefix,
+                                      fine_tuned=True, priors=priors, seed=22)
+        launches["fine_tuned"] = {k: f.launches for k, f in counters.items()}
+        log(f"fine-tuned export launches: {launches['fine_tuned']}")
+        if launches["fine_tuned"]["E"] != TRAIN_VOLUMES[0]:
+            raise AssertionError("E did not run once a subject")
+        check_maps(maps, ft_data.shape[:-1], prefix)
+        log(f"fine-tuned export {TRAIN_VOLUMES}: ok, mean likelihood "
+            f"{maps['likelihood'].mean():.4f}, KL {maps['kl'].mean():.4f}, "
+            f"residual {maps['residual'].mean():.4f}")
+
+    # the smallest request against the CPU plain path (the same Philox
+    # counters, replayed on the host) and against itself at chunk 1
+    cpu = FineTuner(mcfg, scan, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in tuner.state_dict().items()})
+    flat = lambda d, k: torch.from_numpy(                         # noqa: E731
+        d[k].reshape(-1, d[k].shape[-1]).astype(np.float64))
+    means = lambda d: torch.cat([flat(d, k) for k in              # noqa: E731
+                                 ("oef", "dbv", "r2p")], -1)
+    for first in (True, False):
+        kw_m = dict(use_first_op=first, method="mc", seed=21)
+        # chunk 1 against chunk 2: the same draws; the encoder's rounding
+        # may follow the batch shape, the Monte-Carlo spread is ~1e-2
+        again = infer.posterior_maps(tuner, reqs[-1], chunk=1, **kw_m)
+        ref = infer.posterior_maps(cpu, reqs[-1], **kw_m)
+        for tag, other in (("chunk 1", again), ("CPU", ref)):
+            tag = f"MC stream {1 if first else 2} vs {tag}"
+            check_close(tag, means(small[first]), means(other), "mean")
+            check_close(tag, flat(small[first], "stds"), flat(other, "stds"),
+                        "var", means(other))
+            check_close(tag, flat(small[first], "raw_log_stds"),
+                        flat(other, "raw_log_stds"), "raw")
+    log("MC maps of the smallest request agree with the CPU plain path and "
+        "with themselves at chunk 1")
+    draw = infer.draw_noise
+    infer.draw_noise = host_normals
+    try:
+        cut = ft_data[:1, :32, :32]
+        pri = priors[:1, :32, :32]
+        got = infer.elbo_maps(tuner, cfg, cut, pri, seed=3)
+        ref = infer.elbo_maps(cpu, cfg, cut, pri, seed=3)
+    finally:
+        infer.draw_noise = draw
+    for k in got:
+        check_rows(f"elbo_maps {k} vs CPU", torch.from_numpy(got[k]),
+                   torch.from_numpy(ref[k]), 1e-4, 1e-4)
+    log("elbo_maps on the card (kernel E) agree with the CPU plain path "
+        "given the same normals")
+
+    # ---- 13. timings --------------------------------------------------------
+    log_clocks("before the sampled-path timings")
+    x = gpu(volumes(rng, (N_FULL,), scan.n_taus))
+    kw_c = dict(enc_kw, mask_channel=True, input_layout="voxel")
+    q_t = fi.encode_q1_packed(x, tuner.encoder, **kw_c)
+    z_d = torch.randn((S_MC // 2, N_FULL, 2), device=dev)
+    subj = gpu(ft_data[:1])
+    images = subj[..., :-1] * subj[..., -1:]
+    q_e = tuner.encode(images)[1].reshape(N_SUBJ, 5).contiguous()
+    p_e = gpu(priors[:1]).reshape(N_SUBJ, 5).contiguous()
+    z_e = torch.randn((S_KL, N_SUBJ, 2), device=dev)
+    times = {
+        "C": time_kernel(
+            lambda: fi.encode_q1_packed(x, tuner.encoder, **kw_c),
+            "qv_encode_q_kernel",
+            lambda: fi.encode_q_plain(x, tuner.encoder, **kw_c)),
+        "D": time_kernel(
+            lambda: sm.mc_posterior_summaries_packed(q_t, 3, **kw),
+            "qv_mc_summaries_kernel",
+            lambda: sm.mc_posterior_summaries_plain(q_t.T, z_d, **kw)),
+        "E": time_kernel(
+            lambda: sm.mc_kl_map(q_e, p_e, 3, no_samples=S_KL),
+            "qv_mc_kl_kernel",
+            lambda: sm.mc_kl_map_plain(q_e, p_e, z_e)),
+    }
+    log_times({k: v for k, v in times.items() if k != "E"}, N_FULL, card)
+    log_times({"E": times["E"]}, N_SUBJ, card)
+    big = reqs[0]
+    walls = {f"stream{1 if first else 2}": wall_ms(
+        lambda: infer.posterior_maps(tuner, big, use_first_op=first,
+                                     method="mc"))
+        for first in (True, False)}
+    for k, ms in walls.items():
+        log(f"posterior_maps method=mc {k} wall {ms:.2f} ms on {REQUESTS[0]}"
+            f" (1.03 M voxels, S = {S_MC}) [{card}]")
+    one = (ft_data[:1], priors[:1])
+    elbo_ms = wall_ms(lambda: infer.elbo_maps(tuner, cfg, *one), blocks=3)
+    log(f"elbo_maps wall {elbo_ms:.2f} ms per {TRAIN_VOLUMES[1:]} subject "
+        f"(100 decode passes, KL by kernel E) [{card}]")
+    log_clocks("after the sampled-path timings")
+    for first in (True, False):
+        profile(lambda: infer.posterior_maps(tuner, big, use_first_op=first,
+                                             method="mc"),
+                2, f"posterior_maps method=mc stream {1 if first else 2} on "
+                f"{REQUESTS[0]}", card)
+    profile(lambda: infer.elbo_maps(tuner, cfg, *one), 1,
+            f"elbo_maps on one {TRAIN_VOLUMES[1:]} subject", card)
+
+    bounds = {
+        "C": bound(N_FULL * 4 * (scan.n_taus + 1 + 5),
+                   N_FULL * ops_encode(mcfg.no_units, scan.n_taus,
+                                       mcfg.no_intermediate_layers)),
+        "D": bound(N_FULL * 4 * (5 + 6),
+                   N_FULL * ops_mc_summaries(S_MC, True)),
+        "E": bound(N_SUBJ * 4 * (5 + 5 + 1), N_SUBJ * ops_mc_kl(S_KL)),
+    }
+    main = {"C": launches["stream1"]["C"],
+            "D": (launches["stream1"]["D_packed"]
+                  + launches["stream2"]["D"]),
+            "E": launches["fine_tuned"]["E"]}
+    sources = {
+        "C": ("encode_q1_packed", "encode_quad.cu", "pallas_infer.py:246"),
+        "D": ("mc_posterior_summaries", "summarize.cu",
+              "pallas_summarize.py:319"),
+        "E": ("mc_kl_map", "summarize.cu", "pallas_summarize.py:221")}
+    kernels = [{
+        "name": name, "route": "cuda",
+        "source": f"qbold_vi_tpu_torch/csrc/{src}",
+        "replaces": f"qbold_vi_tpu/ops/{tpu}", "launches": main[k],
+        "max_abs_err": err[k], "ms": times[k][0], "plain_ms": times[k][2],
+        **bounds[k], "library_ms": None}
+        for k, (name, src, tpu) in sources.items()]
+    return {"kernels": kernels, "mc_walls": walls, "elbo_ms": elbo_ms}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--weights", help="params .npz (io/from_jax.py "
@@ -695,7 +1081,7 @@ def main() -> int:
 
     from qbold_vi_tpu_torch import OPTIMAL, FineTuner, init_params
     from qbold_vi_tpu_torch import infer
-    from qbold_vi_tpu_torch.io import from_jax, nifti
+    from qbold_vi_tpu_torch.io import from_jax
     from qbold_vi_tpu_torch.ops import _cuda
     from qbold_vi_tpu_torch.ops import fused_infer as fi
     from qbold_vi_tpu_torch.ops import quadrature as quad
@@ -773,31 +1159,12 @@ def main() -> int:
                 prefix = f"{tmp}/req{i}_{'s1' if first else 's2'}"
                 maps = infer.save_predictions(tuner, OPTIMAL, data, prefix,
                                               use_first_op=first)
-                shape = data.shape[:-1]
-                want = {"oef": 1, "dbv": 1, "r2p": 1, "stds": 3,
-                        "raw_log_stds": 3}
-                for key, c in want.items():
-                    if maps[key].shape != shape + (c,):
-                        raise AssertionError(f"{key} shape {maps[key].shape}")
-                    if not np.isfinite(maps[key]).all():
-                        raise AssertionError(f"{key} not finite")
-                if not (0.04 <= maps["oef"].min()
-                        and maps["oef"].max() <= 0.84):
-                    raise AssertionError("OEF outside [0.04, 0.84]")
-                if not (0.001 <= maps["dbv"].min()
-                        and maps["dbv"].max() <= 0.201):
-                    raise AssertionError("DBV outside [0.001, 0.201]")
-                if maps["stds"].min() < 0:
-                    raise AssertionError("negative posterior variance")
-                back = nifti.load_nifti(prefix + "_oef.nii.gz")
-                folded = np.concatenate(
-                    np.split(maps["oef"], shape[0], 0), -1)[0]
-                if not np.array_equal(back, folded):
-                    raise AssertionError("NIfTI read-back differs")
+                check_maps(maps, data.shape[:-1], prefix)
                 if i == len(reqs) - 1:
                     small[first] = maps
-                log(f"request {i} {shape} stream {1 if first else 2}: ok, "
-                    f"mean OEF {maps['oef'].mean():.4f}")
+                log(f"request {i} {data.shape[:-1]} stream "
+                    f"{1 if first else 2}: ok, mean OEF "
+                    f"{maps['oef'].mean():.4f}")
     launches = {"fused": fi.encode_quad_fused.launches,
                 "quad": quad.quad_posterior_summaries.launches}
     log(f"main-path launches: {launches}")
@@ -871,9 +1238,13 @@ def main() -> int:
                                  cfg.use_mvg)),
          "library_ms": None},
     ]
+    sampled = sampled_phases(dev, card, OPTIMAL, tuner, ranges, enc_kw)
+    kernels += sampled["kernels"]
     phases = fine_tune_phases(dev, card, OPTIMAL, tuner)
     kernels += phases["kernels"]
     print(json.dumps({"posterior_maps_wall_ms": walls,
+                      "mc_posterior_maps_wall_ms": sampled["mc_walls"],
+                      "elbo_maps_wall_ms_per_subject": sampled["elbo_ms"],
                       "finetune_step_ms": phases["step_ms"],
                       "finetune_epoch_wall_ms": phases["epoch_ms"],
                       "card": card}), flush=True)

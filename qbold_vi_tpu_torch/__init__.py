@@ -4,17 +4,19 @@ Amortized variational inference of OEF, DBV and R2' from ASE qBOLD MRI,
 ported from JAX on a TPU to PyTorch with hand-written Hopper (sm_90a)
 CUDA kernels. The JAX package ``qbold_vi_tpu`` stays the reference; this
 package never imports jax. Ported so far: the full-brain posterior-map
-serving path (``infer.posterior_maps`` / ``infer.save_predictions``) with
-its two kernels, ``ops.fused_infer.encode_quad_fused`` and
-``ops.quadrature.quad_posterior_summaries``.
+serving path by quadrature or by sampling and the fine-tuned
+likelihood/KL/residual export (``infer.posterior_maps``,
+``infer.elbo_maps``, ``infer.save_predictions``; kernels A-E), and ELBO
+fine-tuning from given weights (``train.trainer.Trainer``; kernels F and
+G).
 """
 
 from .config import OPTIMAL, ModelConfig, QBoldConfig, ScanParams
-from .infer import posterior_maps, save_predictions
+from .infer import elbo_maps, posterior_maps, save_predictions
 from .models.vi import FineTuner, init_params
 
 __version__ = "0.1.0"
 
 __all__ = ["OPTIMAL", "ModelConfig", "QBoldConfig", "ScanParams",
-           "FineTuner", "init_params", "posterior_maps", "save_predictions",
-           "__version__"]
+           "FineTuner", "init_params", "posterior_maps", "elbo_maps",
+           "save_predictions", "__version__"]

@@ -1,21 +1,27 @@
-// Kernel B: fused stream-1 encode + quadrature posterior summaries.
+// Kernels B and C: the fused stream-1 encode, alone (C) or followed by the
+// quadrature posterior summaries (B).
 //
-// Replaces the Pallas TPU kernel qbold_vi_tpu/ops/pallas_infer.py::
+// B replaces the Pallas TPU kernel qbold_vi_tpu/ops/pallas_infer.py::
 // encode_quad_fused (_encode_quad_kernel -> _encode_body, then
-// ops/quadrature.py::quad_tile_summaries). Per voxel:
+// ops/quadrature.py::quad_tile_summaries); C replaces encode_q1_packed
+// (_kernel -> _encode_body, pallas_call at :246), the encode that feeds the
+// MC summaries. Per voxel, in one device routine both kernels call
+// (qv_encode_voxel):
 //   [mask] -> clip(1e-2, 1e8) -> divide by the spin-echo reference (one
 //   image, or the mean of [max(se-1, 0), se+2)) -> log
-//   -> Dense(T -> U) + act -> nb x Dense(U -> U) + act -> Dense(U -> 5)
-//   -> quadrature summaries (quad_math.cuh) and the raw-log-std transforms.
-// q and the activations never reach device memory; the outputs are written
-// channel-major (3, N) directly (the TPU's (5, 8, R/8) re-split is a TPU
-// layout and is not carried over).
+//   -> Dense(T -> U) + act -> nb x Dense(U -> U) + act -> Dense(U -> 5);
+// then B runs the quadrature summaries (quad_math.cuh) and the raw-log-std
+// transforms and writes channel-major (3, N) means, variances and raw rows,
+// and C writes the raw head channel-major as q (5, N) (row 4 zero for a
+// diagonal head). The activations never reach device memory, and in B
+// neither does q (the TPU's (5, 8, R/8) re-split is a TPU layout and is not
+// carried over; nor is the TPU's voxel padding).
 //
-// Bound: about 48 B read and 36 B written per voxel against U*T + nb*U*U +
-// 5*U FMAs (8.2 k at U=60, nb=2, T=11) and ~150 transcendentals, so the
-// FMA chain and the quadrature, not memory, bound it. Design: one thread
-// per voxel. The padded weights (transposed so that 4 output channels are
-// one float4) and the quadrature node table are staged once per block in
+// Bound: about 48 B read and 36 B (B) or 20 B (C) written per voxel against
+// U*T + nb*U*U + 5*U FMAs (8.2 k at U=60, nb=2, T=11) and, in B, ~150
+// transcendentals, so the FMA chain, not memory, bounds both. Design: one
+// thread per voxel. The padded weights (transposed so that 4 output channels
+// are one float4) and the quadrature node table are staged once per block in
 // shared memory, and every thread of a warp reads the same weight word (a
 // broadcast). Each thread's activations live in its own column of two
 // shared-memory buffers laid out [channel][thread] (no bank conflicts), so
@@ -85,6 +91,99 @@ static __device__ __forceinline__ void qv_dense(const float* in, int kdim,
   }
 }
 
+// The staged weights and this thread's two activation columns.
+struct QvEncoder {
+  const float *wfc, *bfc, *wb, *bb, *wf, *bf, *consts;
+  float *buf0, *buf1;
+  int T, up, nb, act, bs, se_idx, lo, hi, multi_image;
+};
+
+// Stage the blob into shared memory (whole block, synchronised) and lay out
+// the weights and this thread's activation columns.
+static __device__ __forceinline__ QvEncoder qv_stage_encoder(
+    float* smem, const float* blob, int blob_len, int t_in, int mask_channel,
+    int se_idx, int multi_image, int act, int up, int nb) {
+  const int bs = blockDim.x;
+  for (int i = threadIdx.x; i < blob_len; i += bs) smem[i] = blob[i];
+  __syncthreads();
+  QvEncoder e;
+  e.T = t_in - mask_channel;
+  e.up = up;
+  e.nb = nb;
+  e.act = act;
+  e.bs = bs;
+  e.se_idx = se_idx;
+  e.multi_image = multi_image;
+  e.lo = se_idx - 1 > 0 ? se_idx - 1 : 0;
+  e.hi = se_idx + 2 < e.T ? se_idx + 2 : e.T;
+  e.wfc = smem;
+  e.bfc = e.wfc + e.T * up;
+  e.wb = e.bfc + up;
+  e.bb = e.wb + nb * up * up;
+  e.wf = e.bb + nb * up;
+  e.bf = e.wf + up * 8;
+  e.consts = e.bf + 8;
+  const int rows = e.T > up ? e.T : up;
+  e.buf0 = smem + blob_len + threadIdx.x;
+  e.buf1 = e.buf0 + rows * bs;
+  return e;
+}
+
+// The raw stream-1 head q[5] of voxel v (kernels B and C).
+static __device__ __forceinline__ void qv_encode_voxel(
+    const QvEncoder& e, const float* __restrict__ x, long long n, long long v,
+    int t_in, int channel_major, int mask_channel, float q[5]) {
+  const int T = e.T, bs = e.bs;
+  float* buf0 = e.buf0;
+  // ---- normalise into buf0 -----------------------------------------------
+  float mask = 1.0f;
+  if (mask_channel)
+    mask = channel_major ? x[(long long)T * n + v] : x[v * t_in + T];
+  for (int t = 0; t < T; ++t) {
+    float xv = channel_major ? x[(long long)t * n + v] : x[v * t_in + t];
+    if (mask_channel) xv = xv * mask;
+    buf0[t * bs] = fminf(fmaxf(xv, 1e-2f), 1e8f);
+  }
+  float ref;
+  if (e.multi_image) {
+    float sum = 0.0f;
+    for (int t = e.lo; t < e.hi; ++t) sum += buf0[t * bs];
+    ref = sum / (float)(e.hi - e.lo);
+  } else {
+    ref = buf0[e.se_idx * bs];
+  }
+  for (int t = 0; t < T; ++t) buf0[t * bs] = logf(buf0[t * bs] / ref);
+
+  // ---- stream-1 dense chain ------------------------------------------------
+  qv_dense(buf0, T, e.wfc, e.bfc, e.buf1, e.up, e.act, bs);
+  float* cur = e.buf1;
+  float* nxt = buf0;
+  for (int i = 0; i < e.nb; ++i) {
+    qv_dense(cur, e.up, e.wb + i * e.up * e.up, e.bb + i * e.up, nxt, e.up,
+             e.act, bs);
+    float* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+  }
+
+  // ---- float32 head (U -> 5) -----------------------------------------------
+  float q0 = 0.0f, q1 = 0.0f, q2 = 0.0f, q3 = 0.0f, q4 = 0.0f;
+  for (int k = 0; k < e.up; ++k) {
+    float h = cur[k * bs];
+    float4 w = *reinterpret_cast<const float4*>(e.wf + k * 8);
+    q0 = fmaf(w.x, h, q0);
+    q1 = fmaf(w.y, h, q1);
+    q2 = fmaf(w.z, h, q2);
+    q3 = fmaf(w.w, h, q3);
+    q4 = fmaf(e.wf[k * 8 + 4], h, q4);
+  }
+  q[0] = q0 + e.bf[0];
+  q[1] = q1 + e.bf[1];
+  q[2] = q2 + e.bf[2];
+  q[3] = q3 + e.bf[3];
+  q[4] = q4 + e.bf[4];
+}
+
 __global__ void qv_encode_quad_kernel(
     const float* __restrict__ x, long long n, int t_in, int channel_major,
     int mask_channel, int se_idx, int multi_image, int act, int up, int nb,
@@ -92,78 +191,18 @@ __global__ void qv_encode_quad_kernel(
     float* __restrict__ means, float* __restrict__ vars,
     float* __restrict__ raw) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int T = t_in - mask_channel;
-  const int bs = blockDim.x;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < blob_len; i += bs) smem[i] = blob[i];
-  __syncthreads();
-
-  const float* wfc = smem;
-  const float* bfc = wfc + T * up;
-  const float* wb = bfc + up;
-  const float* bb = wb + nb * up * up;
-  const float* wf = bb + nb * up;
-  const float* bf = wf + up * 8;
-  const float* c = bf + 8;
-  const int rows = T > up ? T : up;
-  float* buf0 = smem + blob_len + tid;
-  float* buf1 = buf0 + rows * bs;
-
-  const int lo = se_idx - 1 > 0 ? se_idx - 1 : 0;
-  const int hi = se_idx + 2 < T ? se_idx + 2 : T;
-  const long long stride = (long long)gridDim.x * bs;
-  for (long long v = (long long)blockIdx.x * bs + tid; v < n; v += stride) {
-    // ---- normalise into buf0 -------------------------------------------
-    float mask = 1.0f;
-    if (mask_channel)
-      mask = channel_major ? x[(long long)T * n + v] : x[v * t_in + T];
-    for (int t = 0; t < T; ++t) {
-      float xv = channel_major ? x[(long long)t * n + v] : x[v * t_in + t];
-      if (mask_channel) xv = xv * mask;
-      buf0[t * bs] = fminf(fmaxf(xv, 1e-2f), 1e8f);
-    }
-    float ref;
-    if (multi_image) {
-      float sum = 0.0f;
-      for (int t = lo; t < hi; ++t) sum += buf0[t * bs];
-      ref = sum / (float)(hi - lo);
-    } else {
-      ref = buf0[se_idx * bs];
-    }
-    for (int t = 0; t < T; ++t) buf0[t * bs] = logf(buf0[t * bs] / ref);
-
-    // ---- stream-1 dense chain --------------------------------------------
-    qv_dense(buf0, T, wfc, bfc, buf1, up, act, bs);
-    float* cur = buf1;
-    float* nxt = buf0;
-    for (int i = 0; i < nb; ++i) {
-      qv_dense(cur, up, wb + i * up * up, bb + i * up, nxt, up, act, bs);
-      float* tmp = cur;
-      cur = nxt;
-      nxt = tmp;
-    }
-
-    // ---- float32 head (U -> 5) -------------------------------------------
-    float q0 = 0.0f, q1 = 0.0f, q2 = 0.0f, q3 = 0.0f, q4 = 0.0f;
-    for (int k = 0; k < up; ++k) {
-      float h = cur[k * bs];
-      float4 w = *reinterpret_cast<const float4*>(wf + k * 8);
-      q0 = fmaf(w.x, h, q0);
-      q1 = fmaf(w.y, h, q1);
-      q2 = fmaf(w.z, h, q2);
-      q3 = fmaf(w.w, h, q3);
-      q4 = fmaf(wf[k * 8 + 4], h, q4);
-    }
-    q0 += bf[0];
-    q1 += bf[1];
-    q2 += bf[2];
-    q3 += bf[3];
-    q4 += bf[4];
-
-    // ---- quadrature summaries + raw-log-std transforms --------------------
+  const QvEncoder e = qv_stage_encoder(reinterpret_cast<float*>(smem4), blob,
+                                       blob_len, t_in, mask_channel, se_idx,
+                                       multi_image, act, up, nb);
+  const long long stride = (long long)gridDim.x * e.bs;
+  for (long long v = (long long)blockIdx.x * e.bs + threadIdx.x; v < n;
+       v += stride) {
+    float q[5];
+    qv_encode_voxel(e, x, n, v, t_in, channel_major, mask_channel, q);
+    // ---- quadrature summaries + raw-log-std transforms ---------------------
     float m[3], s[3], rw[3];
-    qv_quad_voxel(c, q0, q1, q2, q3, q4, mvg != 0, r, m, s, rw);
+    qv_quad_voxel(e.consts, q[0], q[1], q[2], q[3], q[4], mvg != 0, r, m, s,
+                  rw);
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       means[(long long)j * n + v] = m[j];
@@ -173,16 +212,31 @@ __global__ void qv_encode_quad_kernel(
   }
 }
 
-extern "C" int qv_encode_quad_fused(
-    const float* x, long long n, int t_in, int channel_major,
-    int mask_channel, int se_idx, int multi_image, int act, int u, int up,
-    int nb, const float* blob, int blob_len, QvRanges r, float* means,
-    float* vars, float* raw, int mvg, int block, long long smem_bytes,
-    void* stream) {
-  (void)u;
+__global__ void qv_encode_q_kernel(
+    const float* __restrict__ x, long long n, int t_in, int channel_major,
+    int mask_channel, int se_idx, int multi_image, int act, int up, int nb,
+    const float* __restrict__ blob, int blob_len, float* __restrict__ q_out) {
+  extern __shared__ float4 smem4[];
+  const QvEncoder e = qv_stage_encoder(reinterpret_cast<float*>(smem4), blob,
+                                       blob_len, t_in, mask_channel, se_idx,
+                                       multi_image, act, up, nb);
+  const long long stride = (long long)gridDim.x * e.bs;
+  for (long long v = (long long)blockIdx.x * e.bs + threadIdx.x; v < n;
+       v += stride) {
+    float q[5];
+    qv_encode_voxel(e, x, n, v, t_in, channel_major, mask_channel, q);
+#pragma unroll
+    for (int j = 0; j < 5; ++j) q_out[(long long)j * n + v] = q[j];
+  }
+}
+
+// Grid of a grid-stride encode kernel: as many blocks as the voxels need, at
+// most as many as fit on the card at once (the weights are staged once per
+// resident block).
+static int qv_encode_grid(const void* kernel, long long n, int block,
+                          long long smem_bytes, int* grid) {
   cudaError_t err = cudaFuncSetAttribute(
-      qv_encode_quad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
@@ -190,16 +244,45 @@ extern "C" int qv_encode_quad_fused(
                                     dev)) != cudaSuccess)
     return (int)err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, qv_encode_quad_kernel, block, (size_t)smem_bytes)) !=
-      cudaSuccess)
+           &per_sm, kernel, block, (size_t)smem_bytes)) != cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   long long need = (n + block - 1) / block;
   long long cap = (long long)sms * per_sm;
-  int grid = (int)(need < cap ? need : cap);
+  *grid = (int)(need < cap ? need : cap);
+  return 0;
+}
+
+extern "C" int qv_encode_quad_fused(
+    const float* x, long long n, int t_in, int channel_major,
+    int mask_channel, int se_idx, int multi_image, int act, int u, int up,
+    int nb, const float* blob, int blob_len, QvRanges r, float* means,
+    float* vars, float* raw, int mvg, int block, long long smem_bytes,
+    void* stream) {
+  (void)u;
+  int grid = 0;
+  int err = qv_encode_grid((const void*)qv_encode_quad_kernel, n, block,
+                           smem_bytes, &grid);
+  if (err != 0) return err;
   qv_encode_quad_kernel<<<grid, block, (size_t)smem_bytes,
                           (cudaStream_t)stream>>>(
       x, n, t_in, channel_major, mask_channel, se_idx, multi_image, act, up,
       nb, blob, blob_len, mvg, r, means, vars, raw);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int qv_encode_q1(const float* x, long long n, int t_in,
+                            int channel_major, int mask_channel, int se_idx,
+                            int multi_image, int act, int up, int nb,
+                            const float* blob, int blob_len, float* q,
+                            int block, long long smem_bytes, void* stream) {
+  int grid = 0;
+  int err = qv_encode_grid((const void*)qv_encode_q_kernel, n, block,
+                           smem_bytes, &grid);
+  if (err != 0) return err;
+  qv_encode_q_kernel<<<grid, block, (size_t)smem_bytes,
+                       (cudaStream_t)stream>>>(
+      x, n, t_in, channel_major, mask_channel, se_idx, multi_image, act, up,
+      nb, blob, blob_len, q);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,166 @@
+// Kernels D and E: the sampled posterior summaries and the sampled KL map.
+//
+// D replaces the Pallas TPU kernel qbold_vi_tpu/ops/pallas_summarize.py::
+// mc_posterior_summaries[_packed] (_summarize_kernel, pallas_call at :319):
+// per voxel, S logit-Normal draws of the raw head q, forward-transformed to
+// (OEF, DBV) with R2' = dw OEF DBV, and their means and biased variances
+// E[x^2] - E[x]^2 (clamped at 0). Draws come in antithetic pairs (z, -z),
+// z accumulated first, unless S is odd or below 2 (then S iid draws).
+// E replaces mc_kl_map (_kl_kernel, pallas_call at :221): the reduced
+// sampled KL(q || p) of dist/logit_mvn.py::mvg_kl_samples,
+//   mean_s 0.5 (swr_p(l_s) - swr_q(l_s)) + (ls_p0 + ls_p1) - (ls_q0 + ls_q1),
+// l_s a draw of q clamped at +-KL_BOUND, the whitening factors of q and p
+// hoisted out of the draw loop (elbo_math.cuh::qv_white).
+//
+// One kernel D serves both layouts through strides: the (N, 4|5) rows of
+// the encoder path and the channel-major (5, N) q of the fused stream-1
+// encode (kernel C), writing (N, 3) or (3, N) outputs to match. The TPU's
+// (5, 8, N/8) packing and padding are TPU layouts and are not carried over.
+//
+// Noise: host normals z (draws, N, 2) in the JAX layout, or device noise:
+// pair d of voxel v from the Philox4x32-10 counter (offset + v, d) keyed by
+// the seed (elbo_math.cuh::qv_normal2, replayed on the host by
+// ops/fused_elbo.py::philox_normals). ``offset`` is the index of the first
+// voxel in the request, so a chunked request draws what a whole one would.
+// The TPU kernels reseed per grid program instead, which ties their streams
+// to the tile size.
+//
+// Bound: operations. Per voxel D reads 20 B and writes 24 B against S/2
+// Philox blocks and Box-Muller pairs and S sigmoids pairs (~40 float
+// operations a draw); E reads 40 B and writes 4 B against S draws of ~40.
+// One thread per voxel, float32 accumulators in registers, the arithmetic in
+// the plain versions' order (ops/summarize.py) so that --fmad=false rounds
+// every product where they do.
+
+#include "elbo_math.cuh"
+#include "quad_math.cuh"
+
+struct QvMcNoise {
+  const float* z;   // (draws, n, 2), or null: Philox draws
+  long long offset;  // global index of voxel 0
+  unsigned k0, k1;   // Philox key (the seed)
+};
+
+static __device__ __forceinline__ void qv_mc_normal(const QvMcNoise& nz,
+                                                    long long n, long long v,
+                                                    int d, float* z0,
+                                                    float* z1) {
+  if (nz.z != nullptr) {
+    const float* p = nz.z + ((long long)d * n + v) * 2;
+    *z0 = p[0];
+    *z1 = p[1];
+  } else {
+    qv_normal2(nz.offset + v, d, nz.k0, nz.k1, z0, z1);
+  }
+}
+
+struct QvMoments {
+  float o, o2, d, d2, r, r2;
+};
+
+// One draw's (OEF, DBV, R2') added to the running sums
+// (dist/logit_mvn.py::LogitMVN.sample, then the r2p product).
+static __device__ __forceinline__ void qv_mc_accumulate(
+    const QvPost& u, float std0, float std1, bool mvg, const QvRanges& r,
+    float z0, float z1, QvMoments* m) {
+  float oef_l = u.mu0 + z0 * std0;
+  float dbv_l = mvg ? (u.mu1 + z0 * u.od) + z1 * std1 : u.mu1 + z1 * std1;
+  float oef = qv_sigmoid_f(oef_l) * r.b + r.a;
+  float dbv = qv_sigmoid_f(dbv_l) * r.d + r.c;
+  float r2p = (r.dw * oef) * dbv;
+  m->o = m->o + oef;
+  m->o2 = m->o2 + oef * oef;
+  m->d = m->d + dbv;
+  m->d2 = m->d2 + dbv * dbv;
+  m->r = m->r + r2p;
+  m->r2 = m->r2 + r2p * r2p;
+}
+
+__global__ void qv_mc_summaries_kernel(
+    const float* __restrict__ params, long long n, long long p_vox,
+    long long p_chan, int mvg, QvRanges r, QvMcNoise nz, int draws,
+    int antithetic, float inv_n, float* __restrict__ means,
+    float* __restrict__ vars, long long o_vox, long long o_chan) {
+  long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x; v < n;
+       v += stride) {
+    float raw[5];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) raw[j] = params[v * p_vox + j * p_chan];
+    raw[4] = mvg ? params[v * p_vox + 4 * p_chan] : 0.0f;
+    QvPost u = qv_unpack(raw, mvg != 0);
+    float std0 = expf(u.ls0), std1 = expf(u.ls1);
+    QvMoments m = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for (int d = 0; d < draws; ++d) {
+      float z0, z1;
+      qv_mc_normal(nz, n, v, d, &z0, &z1);
+      qv_mc_accumulate(u, std0, std1, mvg != 0, r, z0, z1, &m);
+      if (antithetic)
+        qv_mc_accumulate(u, std0, std1, mvg != 0, r, -z0, -z1, &m);
+    }
+    float mo = m.o * inv_n, md = m.d * inv_n, mr = m.r * inv_n;
+    means[v * o_vox] = mo;
+    means[v * o_vox + o_chan] = md;
+    means[v * o_vox + 2 * o_chan] = mr;
+    vars[v * o_vox] = fmaxf(m.o2 * inv_n - mo * mo, 0.0f);
+    vars[v * o_vox + o_chan] = fmaxf(m.d2 * inv_n - md * md, 0.0f);
+    vars[v * o_vox + 2 * o_chan] = fmaxf(m.r2 * inv_n - mr * mr, 0.0f);
+  }
+}
+
+__global__ void qv_mc_kl_kernel(const float* __restrict__ qr,
+                                const float* __restrict__ pr, long long n,
+                                int mvg, QvMcNoise nz, int draws, float bound,
+                                float* __restrict__ kl) {
+  const int K = mvg ? 5 : 4;
+  long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x; v < n;
+       v += stride) {
+    QvPost q = qv_unpack(qr + v * K, mvg != 0);
+    QvPost p = qv_unpack(pr + v * K, mvg != 0);
+    float std0 = expf(q.ls0), std1 = expf(q.ls1);
+    QvWhite qf = qv_white(q), pf = qv_white(p);
+    float acc = 0.0f;
+    for (int d = 0; d < draws; ++d) {
+      float z0, z1;
+      qv_mc_normal(nz, n, v, d, &z0, &z1);
+      float l0 = fminf(fmaxf(q.mu0 + z0 * std0, -bound), bound);
+      float l1 = fminf(fmaxf((q.mu1 + z0 * q.od) + z1 * std1, -bound), bound);
+      float rq0 = l0 - q.mu0, rq1 = l1 - q.mu1;
+      float rp0 = l0 - p.mu0, rp1 = l1 - p.mu1;
+      float wq0 = rq0 * qf.itl, wq1 = rq1 * qf.ibr + rq0 * qf.ibl;
+      float wp0 = rp0 * pf.itl, wp1 = rp1 * pf.ibr + rp0 * pf.ibl;
+      acc = acc + 0.5f * ((wp0 * wp0 + wp1 * wp1) - (wq0 * wq0 + wq1 * wq1));
+    }
+    kl[v] = acc * (1.0f / (float)draws) + ((p.ls0 + p.ls1) - (q.ls0 + q.ls1));
+  }
+}
+
+static QvMcNoise qv_mc_noise(const float* z, long long offset,
+                             long long seed) {
+  QvMcNoise nz = {z, offset, (unsigned)seed,
+                  (unsigned)((unsigned long long)seed >> 32)};
+  return nz;
+}
+
+extern "C" int qv_mc_summaries(const float* params, long long n,
+                               long long p_vox, long long p_chan, int mvg,
+                               QvRanges r, const float* z, long long offset,
+                               long long seed, int draws, int antithetic,
+                               float inv_n, float* means, float* vars,
+                               long long o_vox, long long o_chan, int grid,
+                               int block, void* stream) {
+  qv_mc_summaries_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      params, n, p_vox, p_chan, mvg, r, qv_mc_noise(z, offset, seed), draws,
+      antithetic, inv_n, means, vars, o_vox, o_chan);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int qv_mc_kl(const float* q, const float* p, long long n, int mvg,
+                        const float* z, long long offset, long long seed,
+                        int draws, float bound, float* kl, int grid, int block,
+                        void* stream) {
+  qv_mc_kl_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      q, p, n, mvg, qv_mc_noise(z, offset, seed), draws, bound, kl);
+  return (int)cudaGetLastError();
+}

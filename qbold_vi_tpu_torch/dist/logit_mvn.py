@@ -206,10 +206,34 @@ class LogitMVN:
         trace = torch.square(m00) + torch.square(m10) + torch.square(m11)
         return 0.5 * (trace + swr + det - 2.0)
 
-    def mvg_kl_samples(self, z: torch.Tensor, q_params, p_params):
+    def mvg_kl_samples(self, z: torch.Tensor, q_params, p_params,
+                       mvg: bool = True):
         """Sampled KL(q || p) over the draws z (S, ..., 2) of q, in the
         reduced streamed form, exact in value and gradient against the
-        JAX ``mvg_kl_samples`` given the same normals. Returns (...,)."""
-        q = self.unpack(q_params, mvg=True)
-        p = self.unpack(p_params, mvg=True)
+        JAX ``mvg_kl_samples`` given the same normals; ``mvg=False`` reads
+        (..., 4) diagonal heads (off-diagonal 0). Returns (...,)."""
+        q = self.unpack(q_params, mvg)
+        p = self.unpack(p_params, mvg)
         return _MvgKLStreamed.apply(z, *q, *p)
+
+    def posterior_means_streamed(self, z: torch.Tensor, params, mvg: bool,
+                                 dw_coeff: float):
+        """MC posterior means and biased variances of physical (OEF, DBV)
+        and R2' = (dw_coeff * OEF) * DBV over the draws z (S, ..., 2),
+        accumulating sums and sums of squares one draw at a time (O(voxels)
+        state). The variances E[x^2] - E[x]^2 are clamped at 0. Returns
+        (means (..., 3), vars (..., 3))."""
+        n = z.shape[0]
+        s1 = params.new_zeros(params.shape[:-1] + (3,))
+        s2 = s1
+        for i in range(n):
+            s = self.sample(z[i], params, mvg)
+            r = dw_coeff * s[..., 0] * s[..., 1]
+            s = torch.cat([s, r[..., None]], -1)
+            s1 = s1 + s
+            s2 = s2 + torch.square(s)
+        # a product with 1/S, as the kernel (ops/summarize.py) takes it
+        inv_n = 1.0 / float(n)
+        mean = s1 * inv_n
+        var = s2 * inv_n - torch.square(mean)
+        return mean, torch.clamp(var, min=0.0)

@@ -39,7 +39,7 @@ __all__ = ["library", "build_log", "check", "quad_consts", "quad_ranges",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("quadrature.cu", "encode_quad.cu", "decode_nll.cu",
-           "fused_elbo.cu")
+           "fused_elbo.cu", "summarize.cu")
 HEADERS = ("quad_math.cuh", "elbo_math.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
@@ -78,12 +78,15 @@ class QvDecodeConsts(ctypes.Structure):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "qv_quad_posterior_summaries": [
         _P, _LL, _I, _I, QvRanges, _P, _P, _P, _I, _I, _P],
     "qv_encode_quad_fused": [
         _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, QvRanges,
         _P, _P, _P, _I, _I, _LL, _P],
+    "qv_encode_q1": [
+        _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _LL, _P],
     "qv_max_dynamic_smem": [],
     "qv_decode_nll_fwd": [
         _P, _P, _P, _P, _P, _LL, QvDecodeConsts, _P, _I, _P, _I, _I, _P],
@@ -96,6 +99,10 @@ _SIGNATURES = {
     "qv_elbo_bwd": [
         _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P, _P,
         QvDecodeConsts, _P, _I, _P, _P, _P, _P, _I, _I, _P],
+    "qv_mc_summaries": [
+        _P, _LL, _LL, _LL, _I, QvRanges, _P, _LL, _LL, _I, _I, _F, _P, _P,
+        _LL, _LL, _I, _I, _P],
+    "qv_mc_kl": [_P, _P, _LL, _I, _P, _LL, _LL, _I, _F, _P, _I, _I, _P],
 }
 
 

@@ -287,9 +287,9 @@ def nll_row_grads_plain(oef, dbv, y, sigma, mask, C: DecodeConsts):
 
 # ---- kernel wrappers ----------------------------------------------------------
 
-def _device_of(x: torch.Tensor) -> str:
+def _device_of(x: torch.Tensor, name: str = "decode+NLL") -> str:
     if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no decode+NLL kernel for device {x.device}")
+        raise ValueError(f"no {name} kernel for device {x.device}")
     return x.device.type
 
 

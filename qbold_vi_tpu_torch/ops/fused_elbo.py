@@ -65,13 +65,14 @@ _PHILOX_W = (np.uint64(0x9E3779B9), np.uint64(0xBB67AE85))
 _MASK32 = np.uint64(0xFFFFFFFF)
 
 
-def philox_normals(seed: int, n: int, draws: int, first: int = 0):
+def philox_normals(seed: int, n: int, draws: int, first: int = 0,
+                   offset: int = 0):
     """(draws, n, 2) float32 normals of draws first.. first+draws-1 of
-    voxels 0..n-1, bit for bit the counters of csrc/elbo_math.cuh::
-    qv_normal2 (Philox4x32-10, counter (v lo, v hi, draw, 0), key (seed lo,
-    seed hi); Box-Muller on the top 24 bits) up to the last-bit rounding
-    of float32 log/sin/cos."""
-    v = np.arange(n, dtype=np.uint64)
+    voxels offset..offset+n-1, bit for bit the counters of
+    csrc/elbo_math.cuh::qv_normal2 (Philox4x32-10, counter (v lo, v hi,
+    draw, 0), key (seed lo, seed hi); Box-Muller on the top 24 bits) up to
+    the last-bit rounding of float32 log/sin/cos."""
+    v = np.arange(offset, offset + n, dtype=np.uint64)
     d = np.arange(first, first + draws, dtype=np.uint64)
     c = [np.broadcast_to(v & _MASK32, (draws, n)).copy(),
          np.broadcast_to(v >> np.uint64(32), (draws, n)).copy(),

@@ -1,6 +1,7 @@
-"""Fused stream-1 inference: normalise -> dense chain -> quadrature.
+"""Fused stream-1 inference: normalise -> dense chain [-> quadrature].
 
-The counterpart of ``qbold_vi_tpu/ops/pallas_infer.py::encode_quad_fused``.
+The counterpart of ``qbold_vi_tpu/ops/pallas_infer.py::encode_quad_fused``
+(kernel B) and ``encode_q1_packed`` (kernel C, the encode alone).
 Stream 1 of the encoder (``use_first_op=True``) is voxelwise for every
 encoder configuration -- GroupNorm and dropout act only on the stream-2
 residual path -- so the whole serving program is one pass per voxel:
@@ -10,11 +11,14 @@ residual path -- so the whole serving program is one pass per voxel:
     -> float32 Dense(U->4|5) head
     -> quadrature posterior summaries + raw-log-std transforms
 
-``encode_quad_fused`` is the wrapper: for a CUDA tensor it launches the
-hand-written kernel of csrc/encode_quad.cu (q never leaves the chip's
-registers and shared memory) and counts the launch in
+``encode_quad_fused`` is the wrapper of kernel B: for a CUDA tensor it
+launches the hand-written kernel of csrc/encode_quad.cu (q never leaves
+the chip's registers and shared memory) and counts the launch in
 ``encode_quad_fused.launches``; for a CPU tensor it runs
 ``encode_quad_fused_plain``, the plain torch version of the same math.
+``encode_q1_packed`` is the wrapper of kernel C, which shares B's encode
+routine and writes the raw head ``q (5, N)`` for the MC summaries
+(ops/summarize.py); its plain version is ``encode_q_plain``.
 
 Contract (as the JAX function's): images are ``(T[+1], N)``
 channel-major (``input_layout="channel"``) or ``(..., T[+1])``
@@ -34,7 +38,7 @@ from . import _cuda
 from .quadrature import quad_tile_summaries
 
 __all__ = ["encode_quad_fused", "encode_quad_fused_plain", "encode_q_plain",
-           "fused_infer_available", "SUPPORTED_ACTS"]
+           "encode_q1_packed", "fused_infer_available", "SUPPORTED_ACTS"]
 
 # Activations the kernel implements (csrc/encode_quad.cu::qv_act, whose
 # codes follow this order); the same set as the JAX package's.
@@ -93,9 +97,9 @@ def _check_trunk(trunk: str) -> None:
 def encode_q_plain(images, encoder, *, se_idx: int, multi_image: bool,
                    activation: str, n_blocks: int, trunk: str,
                    mask_channel: bool = False, input_layout: str = "voxel"):
-    """Plain torch version of the encode half of kernel B: the raw
-    stream-1 head ``q (5, N)``, channel-major (row 4 zero for diagonal
-    heads)."""
+    """Plain torch version of kernel C, the encode half of kernel B: the
+    raw stream-1 head ``q (5, N)``, channel-major (row 4 zero for
+    diagonal heads)."""
     _check_trunk(trunk)
     act = activation_fn(activation)
     x, channel_major = _rows(images, input_layout)
@@ -159,6 +163,50 @@ def _weight_blob(encoder, n_blocks: int, device) -> tuple:
     return blob.contiguous(), u, up, t
 
 
+def _launch_setup(images, encoder, *, n_blocks: int, activation: str,
+                  trunk: str, mask_channel: bool, input_layout: str,
+                  se_idx: int):
+    """Checks and operands shared by kernels B and C: (x (T[+1], N) or
+    (N, T[+1]) contiguous, channel_major, n, weight blob, U, Up, block,
+    shared-memory bytes)."""
+    _check_trunk(trunk)
+    if not fused_infer_available(activation):
+        raise ValueError(f"activation {activation!r} has no kernel "
+                         f"implementation (SUPPORTED_ACTS)")
+    if images.dtype != torch.float32:
+        raise TypeError(f"the fused-infer kernel takes float32, got "
+                        f"{images.dtype}")
+    x, channel_major = _rows(images, input_layout)
+    x = x.contiguous()
+    t_in, n = x.shape if channel_major else x.shape[::-1]
+    blob, u, up, t = _weight_blob(encoder, n_blocks, images.device)
+    if t_in - int(mask_channel) != t:
+        raise ValueError(f"images carry {t_in - int(mask_channel)} tau "
+                         f"channels but first_conv expects {t}")
+    if not 0 <= se_idx < t:
+        raise ValueError(f"se_idx {se_idx} outside the {t} tau channels")
+    with torch.cuda.device(images.device):
+        limit = _cuda.library().qv_max_dynamic_smem()
+    rows = max(t, up)
+    for block in _BLOCKS:
+        smem = 4 * (blob.numel() + 2 * rows * block)
+        if smem <= limit:
+            break
+    else:
+        raise ValueError(
+            f"fused-infer kernel: weights of width U={u}, "
+            f"n_blocks={n_blocks}, T={t} need {4 * blob.numel()} B of "
+            f"shared memory, beyond this card's {limit} B per block")
+    return x, channel_major, n, blob, u, up, block, smem
+
+
+def _encode_args(x, n, channel_major, mask_channel, se_idx, multi_image,
+                 activation):
+    return (x.data_ptr(), n, x.shape[0] if channel_major else x.shape[1],
+            int(channel_major), int(mask_channel), se_idx, int(multi_image),
+            SUPPORTED_ACTS.index(activation))
+
+
 def encode_quad_fused(images, encoder, *, se_idx: int, multi_image: bool,
                       activation: str, n_blocks: int, trunk: str, mvg: bool,
                       oef_range: float, min_oef: float, dbv_range: float,
@@ -177,44 +225,19 @@ def encode_quad_fused(images, encoder, *, se_idx: int, multi_image: bool,
         return encode_quad_fused_plain(images, encoder, **kw)
     if images.device.type != "cuda":
         raise ValueError(f"no fused-infer kernel for device {images.device}")
-    _check_trunk(trunk)
-    if not fused_infer_available(activation):
-        raise ValueError(f"activation {activation!r} has no kernel "
-                         f"implementation (SUPPORTED_ACTS)")
-    if images.dtype != torch.float32:
-        raise TypeError(f"the fused-infer kernel takes float32, got "
-                        f"{images.dtype}")
-    x, channel_major = _rows(images, input_layout)
-    x = x.contiguous()
-    t_in, n = x.shape if channel_major else x.shape[::-1]
-    blob, u, up, t = _weight_blob(encoder, n_blocks, images.device)
-    if t_in - int(mask_channel) != t:
-        raise ValueError(f"images carry {t_in - int(mask_channel)} tau "
-                         f"channels but first_conv expects {t}")
-    if not 0 <= se_idx < t:
-        raise ValueError(f"se_idx {se_idx} outside the {t} tau channels")
+    x, channel_major, n, blob, u, up, block, smem = _launch_setup(
+        images, encoder, n_blocks=n_blocks, activation=activation,
+        trunk=trunk, mask_channel=mask_channel, input_layout=input_layout,
+        se_idx=se_idx)
     outs = [torch.empty((3, n), device=images.device, dtype=torch.float32)
             for _ in range(3)]
     if n == 0:
         return tuple(outs)
-    lib = _cuda.library()
     with torch.cuda.device(images.device):
-        limit = lib.qv_max_dynamic_smem()
-        rows = max(t, up)
-        for block in _BLOCKS:
-            smem = 4 * (blob.numel() + 2 * rows * block)
-            if smem <= limit:
-                break
-        else:
-            raise ValueError(
-                f"fused-infer kernel: weights of width U={u}, "
-                f"n_blocks={n_blocks}, T={t} need {4 * blob.numel()} B of "
-                f"shared memory, beyond this card's {limit} B per block")
-        err = lib.qv_encode_quad_fused(
-            x.data_ptr(), n, t_in, int(channel_major),
-            int(mask_channel), se_idx, int(multi_image),
-            SUPPORTED_ACTS.index(activation), u, up, n_blocks,
-            blob.data_ptr(), blob.numel(),
+        err = _cuda.library().qv_encode_quad_fused(
+            *_encode_args(x, n, channel_major, mask_channel, se_idx,
+                          multi_image, activation),
+            u, up, n_blocks, blob.data_ptr(), blob.numel(),
             _cuda.quad_ranges(oef_range=oef_range, min_oef=min_oef,
                               dbv_range=dbv_range, min_dbv=min_dbv,
                               dw_coeff=dw_coeff),
@@ -226,4 +249,39 @@ def encode_quad_fused(images, encoder, *, se_idx: int, multi_image: bool,
     return tuple(outs)
 
 
+def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
+                     activation: str, n_blocks: int, trunk: str,
+                     mask_channel: bool = False,
+                     input_layout: str = "voxel"):
+    """Fused stream-1 encode -> the raw head ``q (5, N)``, channel-major
+    (row 4 zero for a diagonal head), with kernel B's contract for the
+    layouts, the mask channel and the trunk. CUDA tensors launch kernel C
+    (counted in ``encode_q1_packed.launches``) or raise; CPU tensors run
+    ``encode_q_plain``. Unlike the TPU kernel, N is not padded."""
+    kw = dict(se_idx=se_idx, multi_image=multi_image, activation=activation,
+              n_blocks=n_blocks, trunk=trunk, mask_channel=mask_channel,
+              input_layout=input_layout)
+    if images.device.type == "cpu":
+        return encode_q_plain(images, encoder, **kw)
+    if images.device.type != "cuda":
+        raise ValueError(f"no fused-infer kernel for device {images.device}")
+    x, channel_major, n, blob, _, up, block, smem = _launch_setup(
+        images, encoder, n_blocks=n_blocks, activation=activation,
+        trunk=trunk, mask_channel=mask_channel, input_layout=input_layout,
+        se_idx=se_idx)
+    q = torch.empty((5, n), device=images.device, dtype=torch.float32)
+    if n == 0:
+        return q
+    with torch.cuda.device(images.device):
+        err = _cuda.library().qv_encode_q1(
+            *_encode_args(x, n, channel_major, mask_channel, se_idx,
+                          multi_image, activation),
+            up, n_blocks, blob.data_ptr(), blob.numel(), q.data_ptr(),
+            block, smem, torch.cuda.current_stream(images.device).cuda_stream)
+    _cuda.check(err, "stream-1 encode")
+    encode_q1_packed.launches += 1
+    return q
+
+
 encode_quad_fused.launches = 0
+encode_q1_packed.launches = 0

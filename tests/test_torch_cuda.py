@@ -10,7 +10,10 @@ Tolerances: means and raw rtol 1e-4 / atol 3e-5; variances rtol 1e-3 /
 atol 3e-5, with the R2' floor of torch_parity_utils.assert_vars_close.
 The fine-tune kernels F and G: rows at rtol 1e-5 / atol 1e-5, gradients
 scale-normalised at rtol 5e-4 / atol 5e-5 (the JAX package's own gates,
-tests/test_pallas_elbo.py:88-97).
+tests/test_pallas_elbo.py:88-97). The sampled kernels D and E with host
+normals at the means/variances tolerances above and rtol 1e-5 for the KL
+rows; with device noise against the plain versions fed philox_normals at
+rtol 1e-4 (numpy's log/sin/cos on the host against the card's).
 """
 
 import dataclasses
@@ -29,6 +32,7 @@ from qbold_vi_tpu_torch.ops import decode_nll as tdn  # noqa: E402
 from qbold_vi_tpu_torch.ops import fused_elbo as tfe  # noqa: E402
 from qbold_vi_tpu_torch.ops import fused_infer as tfi  # noqa: E402
 from qbold_vi_tpu_torch.ops import quadrature as tq  # noqa: E402
+from qbold_vi_tpu_torch.ops import summarize as tsm  # noqa: E402
 from qbold_vi_tpu_torch.train import optim as toptim  # noqa: E402
 from qbold_vi_tpu_torch.train import steps as tsteps  # noqa: E402
 
@@ -99,6 +103,99 @@ def test_fused_kernel_matches_plain(cuda_device, layout, act, units, mvg,
     _close([a.T.cpu().numpy() for a in got], [a.T.cpu().numpy() for a in ref])
 
 
+@pytest.mark.parametrize("layout", ["voxel", "channel"])
+@pytest.mark.parametrize("units,mvg,multi", [(60, True, False),
+                                             (13, False, True)])
+def test_encode_kernel_matches_plain(cuda_device, layout, units, mvg, multi):
+    """Kernel C: the raw head q (5, N) of the stream-1 encode."""
+    cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=units,
+                              use_mvg=mvg, multi_image_normalisation=multi)
+    tuner = _tuner(cfg, cuda_device)
+    rng = np.random.default_rng(5)
+    x = volume(rng, (50_003,), SCAN.n_taus + 1)
+    x[:, -1] = rng.uniform(size=50_003) > 0.2
+    xt = torch.from_numpy(x).to(cuda_device)
+    if layout == "channel":
+        xt = xt.T.contiguous()
+    kw = dict(se_idx=SCAN.se_idx, multi_image=multi, activation="relu",
+              n_blocks=cfg.no_intermediate_layers, trunk="float32",
+              mask_channel=True, input_layout=layout)
+    before = tfi.encode_q1_packed.launches
+    got = tfi.encode_q1_packed(xt, tuner.encoder, **kw)
+    torch.cuda.synchronize()
+    assert tfi.encode_q1_packed.launches == before + 1
+    ref = tfi.encode_q_plain(xt, tuner.encoder, **kw)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               **MEAN_TOL)
+    if not mvg:
+        assert (got[4] == 0).all()
+
+
+@pytest.mark.parametrize("device_noise", [False, True],
+                         ids=["host", "philox"])
+@pytest.mark.parametrize("mvg,antithetic,s", [(True, True, 200),
+                                              (True, False, 7),
+                                              (False, True, 9)])
+def test_mc_summaries_kernel_matches_plain(cuda_device, mvg, antithetic, s,
+                                           device_noise):
+    """Kernel D in both layouts against its plain version."""
+    n, k = 50_001, 5 if mvg else 4
+    rng = np.random.default_rng(6)
+    q = torch.from_numpy(raw_head(rng, n, k)).to(cuda_device)
+    draws = tsm.mc_draws(s, antithetic)
+    kw = dict(no_samples=s, mvg=mvg, antithetic=antithetic, **RANGES)
+    if device_noise:
+        noise = dict(seed=9, offset=1234)
+        z = torch.from_numpy(tfe.philox_normals(9, n, draws, offset=1234)
+                             ).to(cuda_device)
+    else:
+        z = torch.from_numpy(rng.normal(size=(draws, n, 2)).astype(np.float32)
+                             ).to(cuda_device)
+        noise = dict(z=z)
+    q_t = torch.cat([q.T, q.new_zeros((5 - k, n))]).contiguous()
+    counts = (tsm.mc_posterior_summaries.launches,
+              tsm.mc_posterior_summaries_packed.launches)
+    got = tsm.mc_posterior_summaries(q, **noise, **kw)
+    got_t = tsm.mc_posterior_summaries_packed(q_t, **noise, **kw)
+    torch.cuda.synchronize()
+    assert (tsm.mc_posterior_summaries.launches - counts[0],
+            tsm.mc_posterior_summaries_packed.launches - counts[1]) == (1, 1)
+    for a, b in zip(got, got_t):
+        assert torch.equal(a, b.T)
+    ref = tsm.mc_posterior_summaries_plain(q, z, **kw)
+    _close([a.cpu().numpy() for a in got], [a.cpu().numpy() for a in ref])
+
+
+@pytest.mark.parametrize("device_noise", [False, True],
+                         ids=["host", "philox"])
+@pytest.mark.parametrize("mvg", [True, False])
+def test_mc_kl_kernel_matches_plain(cuda_device, mvg, device_noise):
+    """Kernel E against its plain version; KL(q || q) is 0."""
+    n, k, s = 50_001, 5 if mvg else 4, 100
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(raw_head(rng, n, k)).to(cuda_device)
+    p = torch.from_numpy((rng.normal(size=(n, k)) * 0.7).astype(np.float32)
+                         ).to(cuda_device)
+    if device_noise:
+        noise = dict(seed=3, offset=77)
+        z = torch.from_numpy(tfe.philox_normals(3, n, s, offset=77)
+                             ).to(cuda_device)
+    else:
+        z = torch.from_numpy(rng.normal(size=(s, n, 2)).astype(np.float32)
+                             ).to(cuda_device)
+        noise = dict(z=z)
+    before = tsm.mc_kl_map.launches
+    got = tsm.mc_kl_map(q, p, no_samples=s, mvg=mvg, **noise)
+    self_kl = tsm.mc_kl_map(q, q, no_samples=s, mvg=mvg, **noise)
+    torch.cuda.synchronize()
+    assert tsm.mc_kl_map.launches == before + 2
+    assert (self_kl == 0).all()
+    ref = tsm.mc_kl_map_plain(q, p, z, mvg)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-4 if device_noise else 1e-5,
+                               atol=1e-4)
+
+
 def test_fused_kernel_raises_for_bf16_trunk(cuda_device):
     tuner = _tuner(tcfg.ModelConfig(no_units=8), cuda_device)
     x = torch.ones((10, SCAN.n_taus), device=cuda_device)
@@ -131,6 +228,74 @@ def test_posterior_maps_on_card(cuda_device, use_first_op):
              for d in (got, ref)]
     _close([means[0], got["stds"], got["raw_log_stds"]],
            [means[1], ref["stds"], ref["raw_log_stds"]])
+
+
+@pytest.mark.parametrize("use_first_op", [True, False],
+                         ids=["stream1", "stream2"])
+def test_mc_posterior_maps_on_card(cuda_device, use_first_op):
+    """method="mc" goes through kernels C and D (stream 1) or D (stream 2)
+    and, with the same Philox draws, agrees with the CPU plain path."""
+    cfg = tcfg.OPTIMAL.model
+    gpu = _tuner(cfg, cuda_device)
+    cpu = _tuner(cfg, "cpu")
+    rng = np.random.default_rng(3)
+    data = volume(rng, (3, 16, 16, 4), SCAN.n_taus + 1)
+    data[..., -1] = rng.uniform(size=data.shape[:-1]) > 0.3
+    counters = (tfi.encode_q1_packed, tsm.mc_posterior_summaries_packed,
+                tsm.mc_posterior_summaries)
+    counts = [f.launches for f in counters]
+    got = infer.posterior_maps(gpu, data, use_first_op=use_first_op,
+                               method="mc", seed=4)
+    moved = tuple(f.launches - c for f, c in zip(counters, counts))
+    assert moved == ((2, 2, 0) if use_first_op else (0, 0, 2))
+    # at chunk 1 the same draws (cuDNN's rounding may follow the batch
+    # shape; another seed's Monte-Carlo spread is ~1e-2)
+    again = infer.posterior_maps(gpu, data, use_first_op=use_first_op,
+                                 method="mc", seed=4, chunk=1)
+    ref = infer.posterior_maps(cpu, data, use_first_op=use_first_op,
+                               method="mc", seed=4)
+    for other in (again, ref):
+        means = [np.concatenate([d["oef"], d["dbv"], d["r2p"]], -1)
+                 for d in (got, other)]
+        _close([means[0], got["stds"], got["raw_log_stds"]],
+               [means[1], other["stds"], other["raw_log_stds"]])
+
+
+def test_elbo_maps_on_card(cuda_device):
+    """elbo_maps launches kernel E once a chunk for an MVG head and gives
+    the maps of the CPU path when both draw the same normals."""
+    cfg = tcfg.OPTIMAL
+    gpu = _tuner(cfg.model, cuda_device)
+    cpu = _tuner(cfg.model, "cpu")
+    rng = np.random.default_rng(4)
+    data = volume(rng, (2, 12, 12, 3), SCAN.n_taus + 1)
+    data[..., -1] = rng.uniform(size=data.shape[:-1]) > 0.3
+    priors = (rng.normal(size=data.shape[:-1] + (5,)) * 0.5
+              ).astype(np.float32)
+
+    def host_noise(stream, seed, start, shape, draws, device, index=None):
+        g = np.random.default_rng([seed, start,
+                                   ("summaries", "kl", "decode").index(stream),
+                                   0 if index is None else index + 1])
+        lead = () if index is not None else (draws,)
+        z = g.normal(size=lead + tuple(shape) + (2,)).astype(np.float32)
+        return {"z": torch.from_numpy(z).to(device)}
+
+    before = tsm.mc_kl_map.launches
+    got = infer.elbo_maps(gpu, cfg, data, priors, seed=1, no_samples=5)
+    assert tsm.mc_kl_map.launches == before + 2
+    assert set(got) == {"likelihood", "kl", "residual"}
+    assert all(np.isfinite(v).all() for v in got.values())
+    draw = infer.draw_noise
+    infer.draw_noise = host_noise
+    try:
+        a = infer.elbo_maps(gpu, cfg, data, priors, seed=1, no_samples=5)
+        b = infer.elbo_maps(cpu, cfg, data, priors, seed=1, no_samples=5)
+    finally:
+        infer.draw_noise = draw
+    for key in a:
+        np.testing.assert_allclose(a[key], b[key], rtol=1e-4, atol=1e-4,
+                                   err_msg=key)
 
 
 # ---- the fine-tune kernels F and G ------------------------------------------
