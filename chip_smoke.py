@@ -7,11 +7,13 @@ Drives the port's main paths at the published OPTIMAL width (60 units x
 converted JAX checkpoint: serving by quadrature (``infer.save_predictions``,
 kernels A and B), serving by sampling and the fine-tuned export
 (``save_predictions(method="mc")`` and ``(fine_tuned=True, priors=...)``,
-kernels C, D and E) and ELBO fine-tuning (``train.trainer.Trainer``,
-kernels F and G, forward and backward), and checks them:
+kernels C, D and E), ELBO fine-tuning (``train.trainer.Trainer``, kernels
+F and G, forward and backward), and the two-phase pipeline from scratch
+(``Trainer.pretrain`` -> ``finetune`` with the 3x3 convs through kernel H,
+forward and backward), and checks them:
 
 1. device: a CUDA card is required (otherwise exit 1, no result line);
-2. build: the kernels of all five sources in csrc/ are compiled by nvcc;
+2. build: the kernels of all six sources in csrc/ are compiled by nvcc;
 3. kernel vs plain: A and B against their plain torch versions on the
    card at 1,032,192 and 1,000,003 voxels (tolerances in CHECKS);
 4. main path: three export requests per encoder stream, with the launch
@@ -58,11 +60,31 @@ kernels F and G, forward and backward), and checks them:
    CPU plain path fed the same Philox draws, and at chunk 1 against
    chunk 2; elbo_maps on the card against the CPU given the same normals;
 13. timings: C, D and E against their plain versions, the MC
-   posterior_maps wall per stream and the elbo_maps wall per subject.
+   posterior_maps wall per stream and the elbo_maps wall per subject;
+14. kernel H (the 3x3 trunk conv; forward, dx, dw and db) against its
+   plain version and against cuDNN (TF32 off) at the fine-tune fold
+   (304, 25, 25, 60 -> 60), a serving chunk (16, 96, 96), prepare_real's
+   chunk (32, 62, 76) and two ragged planes: the output and dx within 1e-5
+   of their largest magnitude, dw and db within 1e-4 of theirs; dw and db
+   replay bit for bit; a non-contiguous input is refused; the device
+   times of H, its plain version and cuDNN at the three main shapes;
+15. the two-phase path, OPTIMAL with fused_conv="on": Trainer.pretrain
+   for 2 epochs at full data size (6.25 M synthetic voxels, 21 steps of
+   512 pseudo-volumes an epoch; no kernel H, stream 1 only), and one
+   pretrain step on the card against the CPU;
+16. then Trainer.finetune (prepare_real + 2 x 100 steps) through kernels H
+   and F, launches asserted (4 H forward and backward a step, 4 forward a
+   prepare_real chunk, F once a step), and one step through H against
+   the same step through cuDNN;
+17. stream-2 save_predictions on the three requests under fused_conv="on"
+   (4 H launches a chunk), maps against cuDNN's at the map tolerances;
+18. timings: the pretrain step, the fine-tune step both ways, the epoch
+   under "on".
 
-It also traces posterior_maps (each stream and estimator), elbo_maps and
-the fine-tune step with torch.profiler: device time by kernel and the
-device's busy share of the wall.
+It also traces posterior_maps (each stream and estimator), elbo_maps,
+the fine-tune step (both conv routes) and the pretrain step with
+torch.profiler: device time by kernel and the device's busy share of the
+wall.
 
 Prints the card's name and power limit, one JSON line with the kernel
 table (launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
@@ -447,6 +469,49 @@ def bound_decode(n, live, t, student, backward) -> dict:
     return bound(4 * n * floats, live * ops_decode(t, student, backward))
 
 
+def stepped(tuner, metrics) -> tuple:
+    """(loss, parameters, gradients) of a tuner after one train step, in
+    float64 on the host."""
+    return (float(metrics["loss"]),
+            {k: p.detach().cpu().double() for k, p in tuner.named_parameters()},
+            {k: p.grad.cpu().double() for k, p in tuner.named_parameters()
+             if p.grad is not None})
+
+
+def check_step(label, got, ref, before, lr) -> float:
+    """Raise unless one step from the weights ``before`` agrees between two
+    runs (``stepped`` triples): the loss at rtol 1e-5, the gradients
+    within 1e-2 of their scale, the updates as below. Returns the largest
+    gradient difference over its scale."""
+    (loss_c, after_c, grad_c), (loss_r, after_r, grad_r) = got, ref
+    if not abs(loss_c - loss_r) <= 1e-5 * abs(loss_r):
+        raise AssertionError(f"{label}: loss {loss_c} vs {loss_r}")
+    worst_grad = 0.0
+    for k, g_r in grad_r.items():
+        # relu kinks: a pre-activation within float32 rounding of 0 may
+        # take the other side on the card, moving a conv gradient by
+        # ~1e-4 of its scale; a wrong gradient moves it by O(1)
+        scale = float(g_r.abs().max()) + 1e-30
+        worst_grad = max(worst_grad,
+                         float((grad_c[k] - g_r).abs().max()) / scale)
+        # Adam's first update is lr * g / (|g| + 1e-7): held tight where g
+        # is clear of zero and of eps (a last-bit or kink difference in g
+        # then barely moves it), and to the step's own bound elsewhere
+        before_k = before[k].cpu().double()
+        d_c, d_r = after_c[k] - before_k, after_r[k] - before_k
+        e = (d_c - d_r).abs()
+        clear = g_r.abs() > max(1e-2 * scale, 1e-4)
+        if not (bool((e[clear] <= 1e-6 + 1e-4 * d_r[clear].abs()).all())
+                and float(e.max()) <= 2.0 * lr):
+            raise AssertionError(
+                f"{label}: update of {k} differs by {float(e.max()):.3e} "
+                f"(gradient scale {scale:.3e})")
+    if worst_grad > 1e-2:
+        raise AssertionError(f"{label}: gradients differ by {worst_grad:.3e}"
+                             " of their scale")
+    return worst_grad
+
+
 def ft_rows(tuner, rng, dev, n_taus) -> dict:
     """One fine-tune batch (38 crops of 25 x 25 x 8) through the encoder,
     as (N, .) rows: q the raw posterior head, sigma, the masked images y
@@ -635,46 +700,14 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
         t = FineTuner(mcfg, scan, device=device)
         t.load_state_dict(state)
         opt = optim.make_finetune_optimizer(t.parameters(), cfg.train)
-        aux = steps.make_finetune_step(t, cfg, opt)(
-            {k: v.to(device) for k, v in batch.items()}, noise=noise)
-        result[name] = (float(aux["loss"]),
-                        {k: p.detach().cpu().double()
-                         for k, p in t.named_parameters()},
-                        {k: p.grad.cpu().double()
-                         for k, p in t.named_parameters()
-                         if p.grad is not None})
-    (loss_c, after_c, grad_c), (loss_r, after_r, grad_r) = (
-        result["card"], result["cpu"])
-    if not abs(loss_c - loss_r) <= 1e-5 * abs(loss_r):
-        raise AssertionError(f"step loss {loss_c} on the card, {loss_r} on "
-                             "the CPU")
-    lr = float(cfg.train.ft_lr)
-    worst_grad = 0.0
-    for k, g_r in grad_r.items():
-        # relu kinks: a pre-activation within float32 rounding of 0 may
-        # take the other side on the card, moving a conv gradient by
-        # ~1e-4 of its scale; a wrong gradient moves it by O(1)
-        scale = float(g_r.abs().max()) + 1e-30
-        worst_grad = max(worst_grad,
-                         float((grad_c[k] - g_r).abs().max()) / scale)
-        # Adam's first update is lr * g / (|g| + 1e-7): held tight where g
-        # is clear of zero and of eps (a last-bit or kink difference in g
-        # then barely moves it), and to the step's own bound elsewhere
-        before_k = state[k].cpu().double()
-        d_c, d_r = after_c[k] - before_k, after_r[k] - before_k
-        e = (d_c - d_r).abs()
-        clear = g_r.abs() > max(1e-2 * scale, 1e-4)
-        if not (bool((e[clear] <= 1e-6 + 1e-4 * d_r[clear].abs()).all())
-                and float(e.max()) <= 2.0 * lr):
-            raise AssertionError(
-                f"step update of {k} differs from the CPU by "
-                f"{float(e.max()):.3e} (gradient scale {scale:.3e})")
-    if worst_grad > 1e-2:
-        raise AssertionError(f"step gradients differ from the CPU by "
-                             f"{worst_grad:.3e} of their scale")
+        result[name] = stepped(t, steps.make_finetune_step(t, cfg, opt)(
+            {k: v.to(device) for k, v in batch.items()}, noise=noise))
+    worst_grad = check_step("one fine-tune step on the card vs the CPU",
+                            result["card"], result["cpu"], state,
+                            float(cfg.train.ft_lr))
     log(f"one step on the card agrees with the CPU plain path: loss "
-        f"{loss_c:.7g} vs {loss_r:.7g}, gradients within {worst_grad:.2e} "
-        "of their scale, updates within tolerance")
+        f"{result['card'][0]:.7g} vs {result['cpu'][0]:.7g}, gradients "
+        f"within {worst_grad:.2e} of their scale, updates within tolerance")
 
     # ---- 9. timings ---------------------------------------------------------
     log_clocks("before the fine-tune timings")
@@ -1062,6 +1095,385 @@ def sampled_phases(dev, card, cfg, tuner, ranges, enc_kw) -> dict:
     return {"kernels": kernels, "mc_walls": walls, "elbo_ms": elbo_ms}
 
 
+# ---- kernel H and the two-phase path -----------------------------------------
+# (N, H, W, Ci, Co): the fine-tune fold (38 crops of 25 x 25 x 8), one
+# serving chunk (2 subjects of 96 x 96 x 8), prepare_real's chunk (4
+# blank-cropped subjects of 62 x 76 x 8), and two ragged planes
+CONV_SHAPES = ((304, 25, 25, 60, 60), (16, 96, 96, 60, 60),
+               (32, 62, 76, 60, 60), (5, 7, 6, 4, 3), (9, 3, 11, 5, 7))
+# the output and dx within 1e-5 of their largest magnitude: sums of 9 Ci
+# products in another order; dw and db within 1e-4 of theirs: sums of
+# N H W (up to 190,000) terms in another order
+CONV_TOL = dict(y=1e-5, dx=1e-5, dw=1e-4, db=1e-4)
+H_SYMBOLS = dict(fwd=("qv_conv3x3_fwd_kernel",),
+                 bwd=("qv_conv3x3_dx_kernel", "qv_conv3x3_dw_kernel",
+                      "qv_conv3x3_reduce_kernel"))
+
+
+def scaled_err(name, got, ref, tol) -> float:
+    """Raise unless |got - ref| <= tol * max |ref|; returns max |got - ref|."""
+    got, ref = got.double(), ref.double()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output")
+    err = float((got - ref).abs().max())
+    if err > tol * float(ref.abs().max()):
+        raise AssertionError(f"{name}: differs by {err:.3e}, over {tol} of "
+                             f"the largest magnitude {float(ref.abs().max()):.3e}")
+    return err
+
+
+def cudnn_conv(x, w_oihw, b):
+    """cuDNN's float32 conv (TF32 off by the caller) on NHWC x, as NHWC."""
+    import torch.nn.functional as F
+
+    return F.conv2d(x.permute(0, 3, 1, 2), w_oihw, b,
+                    padding=1).permute(0, 2, 3, 1)
+
+
+def cudnn_conv_backward(x, w_oihw, ct):
+    """The one aten.convolution_backward call with output_mask (True, True,
+    True): (dx NHWC, dw OIHW, db)."""
+    return torch.ops.aten.convolution_backward(
+        ct.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w_oihw, [w_oihw.shape[0]],
+        [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [True, True, True])
+
+
+def conv_bound(shape, backward: bool) -> dict:
+    """Kernel H: x, w, b (and ct) read once, y (dx, dw, db) written once;
+    2 * 9 * Ci * Co operations a pixel a pass (an FMA counts 2), plus the
+    bias (forward) or db (backward) adds; the backward is two passes."""
+    n, h, w, ci, co = shape
+    p = n * h * w
+    if backward:
+        floats = 2 * p * ci + 2 * p * co + 2 * 9 * ci * co + co
+        ops = 2 * (2 * 9 * ci * co * p) + p * co
+    else:
+        floats = p * ci + 9 * ci * co + co + p * co
+        ops = 2 * 9 * ci * co * p + p * co
+    return bound(4 * floats, ops)
+
+
+def device_ms(fn, calls: int = 21) -> float:
+    """The device time of all kernels of one call of fn (the sum of their
+    profiled durations over ``calls`` calls, divided by ``calls``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3 / calls
+
+
+def kernel_ms_parts(fn, symbols, calls: int = 21) -> dict:
+    """Each of the ``symbols``' median device time over ``calls`` calls."""
+    return {s: kernel_ms(fn, s, calls) for s in symbols}
+
+
+def conv_phases(dev, card) -> dict:
+    """Phase 14: kernel H against its plain version and against cuDNN at the
+    main paths' shapes and two ragged ones, dw's bit-equal replay, a refused
+    launch; and the timings of H, its plain version and cuDNN at each
+    main-path shape. Returns errors and times at the fine-tune fold."""
+    from qbold_vi_tpu_torch.models.encoder import _full_fp32
+    from qbold_vi_tpu_torch.ops import conv3x3 as cv
+
+    rng = np.random.default_rng(17)
+    out = {}
+    with torch.no_grad(), _full_fp32():
+        for shape in CONV_SHAPES:
+            n, h, w, ci, co = shape
+            x = torch.from_numpy(rng.normal(size=(n, h, w, ci)).astype(
+                np.float32)).to(dev)
+            wt = torch.from_numpy((rng.normal(size=(3, 3, ci, co)) * 0.1
+                                   ).astype(np.float32)).to(dev)
+            b = torch.from_numpy((rng.normal(size=co) * 0.1).astype(
+                np.float32)).to(dev)
+            ct = torch.from_numpy(rng.normal(size=(n, h, w, co)).astype(
+                np.float32)).to(dev)
+            w_oihw = wt.permute(3, 2, 0, 1).contiguous()
+            got = (cv.conv3x3_forward(x, wt, b),) + cv.conv3x3_backward(
+                x, wt, ct)
+            again = cv.conv3x3_backward(x, wt, ct)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[2], again[1])
+                    and torch.equal(got[3], again[2])):
+                raise AssertionError(f"H {shape}: dw/db differ between two "
+                                     "calls of the backward")
+            plain = (cv.conv3x3_plain(x, wt, b),) + cv.conv3x3_grads_plain(
+                x, wt, ct)
+            lib_dx, lib_dw, lib_db = cudnn_conv_backward(x, w_oihw, ct)
+            lib = (cudnn_conv(x, w_oihw, b), lib_dx.permute(0, 2, 3, 1),
+                   lib_dw.permute(2, 3, 1, 0), lib_db)
+            errs = {}
+            for i, key in enumerate(("y", "dx", "dw", "db")):
+                errs[key] = scaled_err(f"H {shape} {key} vs plain", got[i],
+                                       plain[i], CONV_TOL[key])
+                scaled_err(f"H {shape} {key} vs cuDNN", got[i], lib[i],
+                           CONV_TOL[key])
+            log(f"kernel H vs plain and vs cuDNN ok at {shape}: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + " max abs; dw/db replay bit-equal")
+            if shape == CONV_SHAPES[0]:
+                out["err_fwd"] = errs["y"]
+                out["err_bwd"] = max(errs["dx"], errs["dw"], errs["db"])
+            if shape in CONV_SHAPES[:3]:
+                parts = {
+                    "fwd": kernel_ms_parts(
+                        lambda: cv.conv3x3_forward(x, wt, b), H_SYMBOLS["fwd"]),
+                    "bwd": kernel_ms_parts(
+                        lambda: cv.conv3x3_backward(x, wt, ct),
+                        H_SYMBOLS["bwd"])}
+                times = {
+                    "fwd": (sum(parts["fwd"].values()),
+                            cuda_ms(lambda: cv.conv3x3_plain(x, wt, b), reps=2),
+                            cuda_ms(lambda: cudnn_conv(x, w_oihw, b))),
+                    "bwd": (sum(parts["bwd"].values()),
+                            cuda_ms(lambda: cv.conv3x3_grads_plain(x, wt, ct),
+                                    reps=2),
+                            cuda_ms(lambda: cudnn_conv_backward(x, w_oihw,
+                                                                ct)))}
+                calls = {
+                    "fwd": (lambda: cv.conv3x3_forward(x, wt, b),
+                            lambda: cudnn_conv(x, w_oihw, b)),
+                    "bwd": (lambda: cv.conv3x3_backward(x, wt, ct),
+                            lambda: cudnn_conv_backward(x, w_oihw, ct))}
+                for way, (ms, plain_ms, lib_ms) in times.items():
+                    bd = conv_bound(shape, way == "bwd")
+                    h_call, lib_call = calls[way]
+                    log(f"H {way} at {shape}: kernel {ms:.4f} ms on the device"
+                        " (" + ", ".join(f"{k[11:-7]} {v:.4f}" for k, v in
+                                         parts[way].items())
+                        + f"), {cuda_ms(h_call):.4f} ms a call by CUDA "
+                        f"events; plain {plain_ms:.4f} ms; cuDNN "
+                        f"{lib_ms:.4f} ms a call, {device_ms(lib_call):.4f} "
+                        f"ms on the device; bound {bd['bound_ms']:.4f} ms "
+                        f"({bd['bound_by']}) [{card}]")
+                if shape == CONV_SHAPES[0]:
+                    out["times"] = times
+        x = torch.zeros((2, 5, 6, 4), device=dev)
+        try:
+            cv.conv3x3_forward(x.transpose(1, 2).contiguous().transpose(1, 2),
+                               torch.zeros((3, 3, 4, 3), device=dev),
+                               torch.zeros(3, device=dev))
+        except ValueError as e:
+            log(f"H refuses a non-contiguous input: {e}")
+        else:
+            raise AssertionError("H launched on a non-contiguous input")
+    return out
+
+
+def two_phase_path(dev, card, base, conv: dict) -> dict:
+    """Phases 15-17: Trainer.pretrain at full data size (2 epochs), then
+    prepare_real + finetune (2 x 100 steps) with fused_conv="on" through
+    kernels H and F; one pretrain step and one fine-tune step checked
+    across devices and conv routes; stream-2 serving under "on"; timings.
+    Returns H's JSON entries and the walls."""
+    from qbold_vi_tpu_torch import infer, synth
+    from qbold_vi_tpu_torch.models.vi import FineTuner
+    from qbold_vi_tpu_torch.ops import conv3x3 as cv
+    from qbold_vi_tpu_torch.ops import fused_elbo as fe
+    from qbold_vi_tpu_torch.train import data as data_pipe
+    from qbold_vi_tpu_torch.train import optim, steps
+    from qbold_vi_tpu_torch.train.trainer import Trainer, WeightStatus
+
+    cfg = dataclasses.replace(
+        base, model=dataclasses.replace(base.model, fused_conv="on"),
+        train=dataclasses.replace(base.train, no_pt_epochs=2))
+    mcfg, scan = cfg.model, cfg.scan
+    off = dataclasses.replace(cfg, model=dataclasses.replace(mcfg,
+                                                             fused_conv="off"))
+    logged = []
+
+    def logger(phase, epoch, m):
+        logged.append((phase, dict(m)))
+        log(f"[{phase}] epoch {epoch}: " + " ".join(
+            f"{k}={v:.6g}" for k, v in m.items()) + f" [{card}]")
+
+    # ---- 15. pretraining at full data size --------------------------------
+    trainer = Trainer(cfg, device=dev, logger=logger)
+    if trainer.status is not WeightStatus.NOT_TRAINED:
+        raise AssertionError("a Trainer without weights is not NOT_TRAINED")
+    try:
+        trainer.finetune(np.zeros((1, 8, 8, 1, scan.n_taus + 1), np.float32))
+    except RuntimeError as e:
+        log(f"finetune before pretrain raises: {e}")
+    else:
+        raise AssertionError("finetune ran before pretrain")
+    cv.conv3x3.fwd_launches = cv.conv3x3.bwd_launches = 0
+    t0 = time.perf_counter()
+    trainer.pretrain()
+    torch.cuda.synchronize()
+    pt_wall = time.perf_counter() - t0
+    pt = [m for phase, m in logged if phase == "pretrain"]
+    n_vox = cfg.synth.sample_size ** 2
+    n_vol = n_vox // 500
+    spe = (n_vol - max(1, n_vol // 10)) // cfg.train.pt_batch_size
+    log(f"pretrain: {len(pt)} epochs x {spe} steps at batch "
+        f"{cfg.train.pt_batch_size} pseudo-volumes of 10 x 10 x 5 from "
+        f"{n_vox:,} synthetic voxels; dataset build "
+        f"{pt[0]['data_time_s']:.2f} s, epochs "
+        + ", ".join(f"{m['epoch_time_s']:.3f} s" for m in pt)
+        + f", whole call {pt_wall:.2f} s; H launches "
+        f"{cv.conv3x3.fwd_launches}/{cv.conv3x3.bwd_launches} [{card}]")
+    if len(pt) != 2 or not all(np.isfinite(v) for m in pt for v in m.values()):
+        raise AssertionError(f"pretraining metrics: {pt}")
+    if cv.conv3x3.fwd_launches or cv.conv3x3.bwd_launches:
+        raise AssertionError("pretraining launched kernel H (stream 1 only)")
+    if trainer.status is not WeightStatus.PRE_TRAINED:
+        raise AssertionError("pretrain() left the trainer unpretrained")
+    pretrained = {k: v.clone() for k, v in trainer.tuner.state_dict().items()}
+
+    # one pretrain step on the card against the same step on the CPU
+    x, y = synth.create_synthetic_dataset_host(7, scan, dataclasses.replace(
+        cfg.synth, sample_size=560), device=dev)
+    (tx, ty), _ = data_pipe.split_synthetic(x, y)
+    big = {"x": torch.from_numpy(tx[:cfg.train.pt_batch_size]).to(dev),
+           "y": torch.from_numpy(ty[:cfg.train.pt_batch_size]).to(dev)}
+    small = {k: v[:32] for k, v in big.items()}
+    result = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        t = FineTuner(mcfg, scan, device=device)
+        t.load_state_dict(pretrained)
+        opt = optim.make_pretrain_optimizer(t.named_parameters(), cfg.train)
+        result[name] = stepped(t, steps.make_pretrain_step(t, cfg, opt)(
+            {k: v.to(device) for k, v in small.items()}, seed=3))
+    worst = check_step("one pretrain step on the card vs the CPU",
+                       result["card"], result["cpu"], pretrained,
+                       float(cfg.train.pt_lr))
+    log(f"one pretrain step on the card agrees with the CPU: loss "
+        f"{result['card'][0]:.7g} vs {result['cpu'][0]:.7g}, gradients within"
+        f" {worst:.2e} of their scale, updates within tolerance")
+
+    # ---- 16. the two-phase path: prepare_real + finetune under "on" -------
+    data = volumes(np.random.default_rng(0), TRAIN_VOLUMES, scan.n_taus)
+    cv.conv3x3.fwd_launches = cv.conv3x3.bwd_launches = 0
+    fe.fused_elbo_forward.launches = fe.fused_elbo_backward.launches = 0
+    trainer.finetune(data, epochs=2)
+    torch.cuda.synchronize()
+    n_steps = 2 * cfg.train.ft_steps_per_epoch
+    n_conv = 2 * mcfg.no_intermediate_layers
+    cropped = data_pipe.blank_crop(data)
+    prior_fwd = n_conv * -(-cropped.shape[0] // 4)      # predict_priors chunks
+    launches = {"H_fwd": cv.conv3x3.fwd_launches,
+                "H_bwd": cv.conv3x3.bwd_launches,
+                "F_fwd": fe.fused_elbo_forward.launches,
+                "F_bwd": fe.fused_elbo_backward.launches}
+    log(f"two-phase fine-tune (2 epochs x {cfg.train.ft_steps_per_epoch} "
+        f"steps, fused_conv on) launches: {launches}; expected H "
+        f"{n_conv * n_steps} + {prior_fwd} (prepare_real) forward, "
+        f"{n_conv * n_steps} backward")
+    if (launches["H_fwd"], launches["H_bwd"]) != (
+            n_conv * n_steps + prior_fwd, n_conv * n_steps) or \
+            (launches["F_fwd"], launches["F_bwd"]) != (n_steps, n_steps):
+        raise AssertionError(f"H or F did not run as counted: {launches}")
+    ft = [m for phase, m in logged if phase == "finetune"]
+    if len(ft) != 2 or not all(np.isfinite(v) for m in ft for v in m.values()):
+        raise AssertionError(f"fine-tune metrics: {ft}")
+    epoch_on_ms = ft[1]["epoch_time_s"] * 1e3
+
+    # one fine-tune step under "on" against "off" (cuDNN), on the card
+    vol = torch.from_numpy(trainer.sampler.data).to(dev)
+    pri = torch.from_numpy(trainer.sampler.priors).to(dev)
+    batch = steps.sample_crop_batch(torch.Generator().manual_seed(7), vol,
+                                    pri, cfg.train.ft_batch_size,
+                                    cfg.train.crop_size)
+    state = {k: v.clone() for k, v in trainer.tuner.state_dict().items()}
+    result, tuners = {}, {}
+    for name, c in (("on", cfg), ("off", off)):
+        t = FineTuner(c.model, scan, device=dev)
+        t.load_state_dict(state)
+        opt = optim.make_finetune_optimizer(t.parameters(), c.train)
+        result[name] = stepped(t, steps.make_finetune_step(t, c, opt)(
+            batch, seed=11))
+        tuners[name] = (t, opt, c)
+    worst = check_step("one fine-tune step under fused_conv on vs off",
+                       result["on"], result["off"], state,
+                       float(cfg.train.ft_lr))
+    log(f"one fine-tune step through H agrees with cuDNN: loss "
+        f"{result['on'][0]:.7g} vs {result['off'][0]:.7g}, gradients within "
+        f"{worst:.2e} of their scale, updates within tolerance")
+
+    # ---- 17. stream-2 serving under "on" ----------------------------------
+    serve = tuners["on"][0]
+    serve.load_state_dict(pretrained)
+    ref_tuner = tuners["off"][0]
+    ref_tuner.load_state_dict(pretrained)
+    reqs = [volumes(np.random.default_rng(21 + i), shape, scan.n_taus)
+            for i, shape in enumerate(REQUESTS)]
+    cv.conv3x3.fwd_launches = cv.conv3x3.bwd_launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        maps = [infer.save_predictions(serve, cfg, d, f"{tmp}/h{i}",
+                                       use_first_op=False)
+                for i, d in enumerate(reqs)]
+        for i, (m, d) in enumerate(zip(maps, reqs)):
+            check_maps(m, d.shape[:-1], f"{tmp}/h{i}")
+    serve_launches = cv.conv3x3.fwd_launches
+    chunks = sum(-(-shape[0] // 2) for shape in REQUESTS)
+    log(f"stream-2 serving under fused_conv on: 3 requests, H launched "
+        f"{serve_launches} times forward ({n_conv} a chunk of 2 subjects, "
+        f"{chunks} chunks), {cv.conv3x3.bwd_launches} backward")
+    if serve_launches != n_conv * chunks or cv.conv3x3.bwd_launches:
+        raise AssertionError("stream-2 serving did not run H once a conv")
+    flat = lambda d, k: torch.from_numpy(                         # noqa: E731
+        d[k].reshape(-1, d[k].shape[-1]).astype(np.float64))
+    means = lambda d: torch.cat([flat(d, k) for k in              # noqa: E731
+                                 ("oef", "dbv", "r2p")], -1)
+    for i, d in enumerate(reqs):
+        ref = infer.posterior_maps(ref_tuner, d, use_first_op=False)
+        check_close(f"request {i} H vs cuDNN", means(maps[i]), means(ref),
+                    "mean")
+        check_close(f"request {i} H vs cuDNN", flat(maps[i], "stds"),
+                    flat(ref, "stds"), "var", means(ref))
+    log("stream-2 maps through H agree with the maps through cuDNN")
+
+    # ---- 18. timings ------------------------------------------------------
+    log_clocks("before the two-phase timings")
+    t = FineTuner(mcfg, scan, device=dev)
+    t.load_state_dict(pretrained)
+    opt = optim.make_pretrain_optimizer(t.named_parameters(), cfg.train)
+    pt_step = steps.make_pretrain_step(t, cfg, opt)
+    pt_step_ms = wall_ms(lambda: pt_step(big, seed=5))
+    log(f"pretrain step (stream-1 loss + backward + AdamW) wall "
+        f"{pt_step_ms:.3f} ms at batch {cfg.train.pt_batch_size} x "
+        f"{tuple(big['x'].shape[1:4])} [{card}]")
+    profile(lambda: pt_step(big, seed=5), 5, "pretrain step", card)
+    walls, ft_steps = {}, {}
+    for name, (tn, opt, c) in tuners.items():
+        ft_steps[name] = steps.make_finetune_step(tn, c, opt)
+        walls[name] = wall_ms(lambda: ft_steps[name](batch, seed=13))
+        log(f"fine-tune step wall, fused_conv {name}: {walls[name]:.3f} ms at "
+            f"batch {cfg.train.ft_batch_size} [{card}]")
+    profile(lambda: ft_steps["on"](batch, seed=13), 5,
+            "fine-tune step, fused_conv on", card)
+    log(f"fine-tune epoch wall, fused_conv on: {epoch_on_ms:.1f} ms "
+        f"({cfg.train.ft_steps_per_epoch} steps) [{card}]")
+    log_clocks("after the two-phase timings")
+
+    shape = CONV_SHAPES[0]
+    times = conv["times"]
+    kernels = [{
+        "name": f"conv3x3_{'forward' if way == 'fwd' else 'backward'}",
+        "route": "cuda", "source": "qbold_vi_tpu_torch/csrc/conv3x3.cu",
+        "replaces": f"qbold_vi_tpu/ops/pallas_conv.py:{line}",
+        "launches": launches[f"H_{way}"], "max_abs_err": conv[f"err_{way}"],
+        "ms": times[way][0], "plain_ms": times[way][1],
+        **conv_bound(shape, way == "bwd"), "library_ms": times[way][2]}
+        for way, line in (("fwd", 188), ("bwd", 239))]
+    return {"kernels": kernels, "pretrain_step_ms": pt_step_ms,
+            "pretrain_epoch_s": [m["epoch_time_s"] for m in pt],
+            "pretrain_data_s": pt[0]["data_time_s"],
+            "finetune_step_ms": walls, "finetune_epoch_on_ms": epoch_on_ms,
+            "serve_launches": serve_launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--weights", help="params .npz (io/from_jax.py "
@@ -1242,11 +1654,20 @@ def main() -> int:
     kernels += sampled["kernels"]
     phases = fine_tune_phases(dev, card, OPTIMAL, tuner)
     kernels += phases["kernels"]
+    conv = conv_phases(dev, card)
+    two = two_phase_path(dev, card, OPTIMAL, conv)
+    kernels += two["kernels"]
     print(json.dumps({"posterior_maps_wall_ms": walls,
                       "mc_posterior_maps_wall_ms": sampled["mc_walls"],
                       "elbo_maps_wall_ms_per_subject": sampled["elbo_ms"],
                       "finetune_step_ms": phases["step_ms"],
                       "finetune_epoch_wall_ms": phases["epoch_ms"],
+                      "pretrain_step_ms": two["pretrain_step_ms"],
+                      "pretrain_epoch_s": two["pretrain_epoch_s"],
+                      "pretrain_data_s": two["pretrain_data_s"],
+                      "finetune_step_ms_by_conv": two["finetune_step_ms"],
+                      "finetune_epoch_wall_ms_conv_on":
+                          two["finetune_epoch_on_ms"],
                       "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -6,9 +6,11 @@ CUDA kernels. The JAX package ``qbold_vi_tpu`` stays the reference; this
 package never imports jax. Ported so far: the full-brain posterior-map
 serving path by quadrature or by sampling and the fine-tuned
 likelihood/KL/residual export (``infer.posterior_maps``,
-``infer.elbo_maps``, ``infer.save_predictions``; kernels A-E), and ELBO
-fine-tuning from given weights (``train.trainer.Trainer``; kernels F and
-G).
+``infer.elbo_maps``, ``infer.save_predictions``; kernels A-E), and
+two-phase training (``train.trainer.Trainer``): synthetic pretraining and
+ELBO fine-tuning (kernels F and G), with the encoder's 3x3 convs by
+kernel H under ``fused_conv="on"``. Every TPU kernel of the JAX package
+has its hand-written counterpart here.
 """
 
 from .config import OPTIMAL, ModelConfig, QBoldConfig, ScanParams

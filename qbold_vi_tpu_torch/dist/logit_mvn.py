@@ -1,8 +1,9 @@
 """Logit-Normal / logit-MVN toolkit (PyTorch).
 
 The counterpart of ``qbold_vi_tpu/dist/logit_mvn.py``: the raw-head
-squashes, the logit <-> physical transforms, reparameterised sampling,
-the whitening algebra and the KL forms the fine-tune loss uses. Where the
+squashes, the logit <-> physical transforms, the (negative) log-probs of
+the pretraining loss, reparameterised sampling, the whitening algebra and
+the KL forms the fine-tune loss uses. Where the
 JAX module draws from a PRNG key, the functions here take the standard
 normals as an argument (``z``: ``(..., 2)`` for one draw, ``(S, ..., 2)``
 for S draws -- the layout of ``jax.random.normal(key, shape + (2,))``),
@@ -20,13 +21,25 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["LogitMVN", "whiten_factors", "whiten_apply", "KL_BOUND",
+__all__ = ["LogitMVN", "logit", "whiten_factors", "whiten_apply", "KL_BOUND",
            "OFFDIAG_SCALE"]
 
 OFFDIAG_SCALE = math.exp(-2.0)
+_LOG_2PI = math.log(2.0 * math.pi)
 # the reference clips u = sigmoid(l) to [1e-6, 1 - 1e-6] with a
 # straight-through gradient: in logit space a clamp at logit(1e-6)
 KL_BOUND = math.log((1.0 - 1e-6) / 1e-6)
+
+
+def logit(x: torch.Tensor) -> torch.Tensor:
+    """Inverse sigmoid (reference logit_mvn.py:9-11)."""
+    return torch.log(x / (1.0 - x))
+
+
+def _clip_preserve_gradient(x: torch.Tensor, lo: float, hi: float):
+    """The clipped value with the identity's gradient
+    (tfp.math.clip_by_value_preserve_gradient, reference logit_mvn.py:65)."""
+    return x + (torch.clamp(x, lo, hi) - x).detach()
 
 
 def whiten_factors(ls0, ls1, od):
@@ -133,6 +146,57 @@ class LogitMVN:
         oef = torch.sigmoid(logits[..., 0:1]) * self.oef_range + self.min_oef
         dbv = torch.sigmoid(logits[..., 1:2]) * self.dbv_range + self.min_dbv
         return torch.cat([oef, dbv], dim=-1)
+
+    def backwards_transform(self, signal: torch.Tensor,
+                            include_logit: bool) -> torch.Tensor:
+        """Physical (OEF, DBV) (..., 2) -> the unit interval, and on to
+        logit space with ``include_logit`` (reference logit_mvn.py:80-89).
+        Divides by 0-d tensors: torch's CUDA kernels take a Python scalar
+        divisor as a product with its reciprocal."""
+        rng = signal.new_tensor([self.oef_range, self.dbv_range])
+        oef = (signal[..., 0:1] - self.min_oef) / rng[0]
+        dbv = (signal[..., 1:2] - self.min_dbv) / rng[1]
+        out = torch.cat([oef, dbv], dim=-1)
+        return logit(out) if include_logit else out
+
+    def _unit_obs(self, observations: torch.Tensor) -> torch.Tensor:
+        """Observations in the unit interval, clipped to [1e-6, 1 - 1e-6]
+        with the identity's gradient: an observation at a range bound
+        would otherwise logit to +-inf."""
+        x = self.backwards_transform(observations[..., 0:2],
+                                     include_logit=False)
+        return _clip_preserve_gradient(x, 1e-6, 1.0 - 1e-6)
+
+    def logit_gaussian_mvg_log_prob(self, observations: torch.Tensor,
+                                    params: torch.Tensor) -> torch.Tensor:
+        """The NEGATIVE log-density of physical (OEF, DBV) observations
+        (..., 2) under the full-covariance logit-Normal of raw heads
+        (..., 5), the reference's sign despite the name (reference
+        logit_mvn.py:46-70). Returns (...,)."""
+        mu0, ls0, mu1, ls1, od = self.unpack(params, mvg=True)
+        x = self._unit_obs(observations)
+        swr = self.squared_whitened_residual(
+            logit(x), torch.stack([mu0, mu1], -1), ls0, ls1, od)
+        nll = _LOG_2PI + 0.5 * self.log_chol_det(ls0, ls1) + 0.5 * swr
+        return nll + torch.sum(torch.log(x) + torch.log(1.0 - x), -1)
+
+    @staticmethod
+    def gaussian_nll(obs, mean, log_std):
+        """Diagonal Gaussian NLL without its log(2 pi) / 2 constant, as the
+        reference drops it (model.py:402-404)."""
+        return log_std + 0.5 * torch.square((obs - mean) / torch.exp(log_std))
+
+    def logit_gaussian_log_prob(self, observations: torch.Tensor,
+                                params: torch.Tensor) -> torch.Tensor:
+        """The diagonal counterpart of ``logit_gaussian_mvg_log_prob``
+        (reference model.py:406-421), with the same sign and the same
+        dropped constant as ``gaussian_nll``."""
+        mu0, ls0, mu1, ls1, _ = self.unpack(params, mvg=False)
+        x = self._unit_obs(observations)
+        lx = logit(x)
+        nll = (self.gaussian_nll(lx[..., 0], mu0, ls0)
+               + self.gaussian_nll(lx[..., 1], mu1, ls1))
+        return nll + torch.sum(torch.log(x * (1.0 - x)), -1)
 
     def unpack(self, params: torch.Tensor, mvg: bool):
         """(..., 4|5) head -> (oef_mu, oef_log_std, dbv_mu, dbv_log_std,

@@ -14,8 +14,9 @@ as in the JAX package:
   the encode kernel encode_q1_packed (q (5, N)) and then the sampled
   summaries, ops/summarize.py::mc_posterior_summaries_packed;
 * stream 2 (``use_first_op=False``, fine-tuned weights), or stream 1 with
-  ``fused_infer`` off: the encoder (torch Linear/conv2d in full float32)
-  and then ops/quadrature.py::quad_posterior_summaries or
+  ``fused_infer`` off: the encoder (torch Linear in full float32; its 3x3
+  convs by cuDNN, or by kernel H under ``fused_conv="on"``) and then
+  ops/quadrature.py::quad_posterior_summaries or
   ops/summarize.py::mc_posterior_summaries on the (N, K) rows.
 
 ``elbo_maps`` (the fine-tuned export's ``_likelihood/_kl/_residual``

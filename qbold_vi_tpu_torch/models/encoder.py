@@ -10,8 +10,14 @@ weight bridge (io/from_jax.py) is a rename and a transpose:
   the embed and the heads is voxelwise or the z-folded conv), except
   under ``use_layer_norm``: GroupNorm(groups=1) pools over the whole
   (X, Y, Z, C) crop, so that configuration keeps the 5-D path.
-* Activations stay channels-last, as in the JAX package; the conv sees
-  an NCHW view in channels-last memory, so no copy is made around it.
+* Activations stay channels-last, as in the JAX package. ``fused_conv``
+  routes the 3x3 conv as the JAX package's ``_ConvImpl`` does
+  (qbold_vi_tpu/models/encoder.py:83-127): "on" and "interpret" run kernel
+  H (ops/conv3x3.py; its plain version on a CPU tensor) on the NHWC
+  activations and the HWIO view of the OIHW weight; "auto" and "off" run
+  cuDNN on an NCHW view. A plane smaller than 3 x 3 goes to cuDNN under
+  "on" and raises under "interpret". The parameters are ``nn.Conv2d``'s
+  either way, so the bridge and saved state_dicts do not see the flag.
 
 Numerics: the trunk runs in float32 ("auto" resolves to float32, as the
 JAX package does off TPU; "bfloat16" is not ported yet and raises).
@@ -30,7 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..config import ModelConfig
+from ..config import ModelConfig, normalize_mode
+from ..ops.conv3x3 import conv3x3, conv3x3_available
 
 __all__ = ["Encoder", "GatedResBlock", "ConvXY", "normalise_data",
            "activation_fn"]
@@ -97,16 +104,34 @@ def _full_fp32():
 class ConvXY(nn.Module):
     """3x3x1 'Conv3D' as a z-folded 2-D conv on channels-last input:
     5-D (B, X, Y, Z, C) (folded and unfolded around the conv) or already
-    folded 4-D (B*Z, X, Y, C)."""
+    folded 4-D (B*Z, X, Y, C). ``fused`` is cfg.fused_conv."""
 
-    def __init__(self, features: int, *, device=None):
+    def __init__(self, features: int, *, fused: str = "off", device=None):
         super().__init__()
+        self.fused = normalize_mode(fused, ("auto", "on", "off", "interpret"),
+                                    "fused_conv")
         self.Conv_0 = nn.Conv2d(features, features, 3, padding=1,
                                 device=device)
 
+    def _use_kernel(self, h: int, w: int) -> bool:
+        # "auto" is off: the JAX package keeps its conv kernel off unless
+        # forced (qbold_vi_tpu/models/encoder.py:90-96)
+        if self.fused in ("auto", "off"):
+            return False
+        if conv3x3_available(h, w):
+            return True
+        if self.fused == "interpret":
+            raise ValueError("fused_conv was forced to 'interpret' but the "
+                             f"plane is smaller than the 3x3 window: {h} x {w}")
+        return False
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.ndim == 4:
-            y = self.Conv_0(x.permute(0, 3, 1, 2))
+            conv = self.Conv_0
+            if self._use_kernel(x.shape[1], x.shape[2]):
+                return conv3x3(x.contiguous(), conv.weight.permute(2, 3, 1, 0)
+                               .contiguous(), conv.bias)
+            y = conv(x.permute(0, 3, 1, 2))
             return y.permute(0, 2, 3, 1)
         b, h, w, d, c = x.shape
         x2 = x.permute(0, 3, 1, 2, 4).reshape(b * d, h, w, c)
@@ -145,8 +170,8 @@ class GatedResBlock(nn.Module):
         self.cfg = cfg
         self.act = activation_fn(cfg.activation)
         self.Dense_0 = nn.Linear(u, u, device=device)       # shared
-        self.ConvXY_0 = ConvXY(u, device=device)
-        self.ConvXY_1 = ConvXY(u, device=device)
+        self.ConvXY_0 = ConvXY(u, fused=cfg.fused_conv, device=device)
+        self.ConvXY_1 = ConvXY(u, fused=cfg.fused_conv, device=device)
         self.Dense_1 = nn.Linear(u, u if cfg.channelwise_gating else 1,
                                  device=device)              # gate
         if cfg.use_layer_norm:

@@ -18,7 +18,8 @@ version needs IEEE ``expf``/``tanhf`` and division. ``--fmad=false``
 keeps nvcc from contracting a*b + c into one rounding: the plain
 version rounds every product, and the posterior variances (E[x^2] -
 E[x]^2) amplify a last-bit difference. The dense chain of the fused
-kernel asks for its FMAs explicitly (``fmaf``).
+kernel and the products of the 3x3 convolution (kernel H) ask for their
+FMAs explicitly (``fmaf``), which the flag leaves alone.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ __all__ = ["library", "build_log", "check", "quad_consts", "quad_ranges",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("quadrature.cu", "encode_quad.cu", "decode_nll.cu",
-           "fused_elbo.cu", "summarize.cu")
+           "fused_elbo.cu", "summarize.cu", "conv3x3.cu")
 HEADERS = ("quad_math.cuh", "elbo_math.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
@@ -103,6 +104,9 @@ _SIGNATURES = {
         _P, _LL, _LL, _LL, _I, QvRanges, _P, _LL, _LL, _I, _I, _F, _P, _P,
         _LL, _LL, _I, _I, _P],
     "qv_mc_kl": [_P, _P, _LL, _I, _P, _LL, _LL, _I, _F, _P, _I, _I, _P],
+    "qv_conv3x3_fwd": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "qv_conv3x3_dx": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "qv_conv3x3_dw": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _LL, _I, _P],
 }
 
 

@@ -1,10 +1,12 @@
-"""The ASE qBOLD forward model (decode part) as torch functions.
+"""The ASE qBOLD forward model as torch functions.
 
-The counterpart of ``qbold_vi_tpu/ops/physics.py:64-460``: the SDR tissue
+The counterpart of ``qbold_vi_tpu/ops/physics.py``: the SDR tissue
 integral (Chebyshev surrogate, 16-node Gauss-Jacobi lattice, or the
 reference's 129-point Simpson lattice), the asymptotic tissue model, the
-blood compartment and ``ase_signal``. Noise and slice misalignment
-(synthetic pretraining) are not ported yet.
+blood compartment and ``ase_signal``; and for synthetic pretraining R2',
+the SNR profile, acquisition noise and slice misalignment. Where the JAX
+functions draw from a PRNG key, these take the uniform and normal draws as
+arguments, so a test can hand both packages the same numbers.
 
 The tables are the JAX module's: the float64 Chebyshev coefficients and
 Gauss-Jacobi nodes copied digit for digit, rounded once to float32 the
@@ -26,7 +28,9 @@ from .bessel import bessel_j0, one_minus_j0
 __all__ = ["N_QUAD", "quadrature_lattice", "delta_omega",
            "sdr_integral_cheb", "cheb_abscissa", "select_quad_rule",
            "tissue_signal_full", "tissue_signal_asymptotic", "blood_signal",
-           "blood_steady_state_weight", "ase_signal", "MAX_PHYSICAL_OEF"]
+           "blood_steady_state_weight", "ase_signal", "MAX_PHYSICAL_OEF",
+           "MISALIGN_OEF_CLIP", "r2_prime", "norm_snr_profile",
+           "add_acquisition_noise", "misalign_params", "uniform_map"]
 
 N_QUAD = 129
 _U_LO = 1e-5
@@ -90,6 +94,8 @@ _CHEB_DI64 = np.polynomial.chebyshev.chebder(_CHEB_I64)
 _CHEB_I32 = tuple(float(np.float32(a)) for a in _CHEB_I64)
 _CHEB_DI32 = tuple(float(np.float32(a)) for a in _CHEB_DI64)
 MAX_PHYSICAL_OEF = 0.84
+# the misalignment augmentation's own OEF clip (reference signals.py:90)
+MISALIGN_OEF_CLIP = (0.05, 0.8)
 
 
 def _clenshaw(x, coef):
@@ -157,6 +163,11 @@ def _align_tau(x, n_taus: int, per_tau: bool = False):
 
 def delta_omega(oef, hct, scan: ScanParams):
     return scan.dw_coeff * hct * oef
+
+
+def r2_prime(oef, dbv, hct, scan: ScanParams):
+    """Reversible relaxation rate R2' = dw * dbv (signals.py:149-150)."""
+    return delta_omega(oef, hct, scan) * dbv
 
 
 def tissue_signal_full(dw, dbv, taus: torch.Tensor, te: float, r2t: float,
@@ -255,3 +266,59 @@ def ase_signal(oef, dbv, scan: ScanParams, hct=None, *,
         blood = blood_signal(oef, hct, taus, scan, per_tau=per_tau_params)
         return (1.0 - weight) * tissue + weight * blood
     return (1.0 - dbv_b) * tissue
+
+
+def norm_snr_profile(taus: np.ndarray) -> np.ndarray:
+    """Per-tau normalised SNR profile (reference signals.py:117-121) of the
+    11-tau clinical and 24-tau streamlined protocols; flat for any other
+    (where the reference crashes)."""
+    n = len(taus)
+    if n == 11:
+        return np.array(
+            [0.985, 1.00, 1.01, 1.0, 0.97, 0.95, 0.93, 0.90, 0.86, 0.83, 0.79],
+            dtype=np.float32)
+    if n == 24:
+        return (1.0 - np.abs(np.arange(-0.028, 0.065, 0.004)) * 3.0
+                ).astype(np.float32)
+    return np.ones(n, dtype=np.float32)
+
+
+def uniform_map(u: torch.Tensor, lo, hi) -> torch.Tensor:
+    """jax.random.uniform's map of [0, 1) draws u onto [lo, hi) in float32:
+    max(lo, u * (hi - lo) + lo); lo and hi are floats or float32 tensors."""
+    lo, hi = (v if torch.is_tensor(v) else
+              torch.tensor(v, dtype=torch.float32, device=u.device)
+              for v in (lo, hi))
+    return torch.maximum(lo, u * (hi - lo) + lo)
+
+
+def add_acquisition_noise(signal: torch.Tensor, taus: np.ndarray,
+                          u: torch.Tensor, z: torch.Tensor,
+                          snr_low: float = 50.0, snr_high: float = 120.0):
+    """SNR-profiled Gaussian acquisition noise (reference signals.py:116-128):
+    a per-image SNR from the uniform draws ``u`` (N, 1) in [0, 1) on
+    [snr_low, snr_high), scaled by the per-tau profile; the noise std is the
+    batch-mean signal per tau over the SNR; ``z`` are the normals, of
+    signal's shape."""
+    prof = torch.as_tensor(norm_snr_profile(np.asarray(taus)),
+                           device=signal.device)
+    snr = uniform_map(u, snr_low, snr_high) * prof[None, :]
+    std = torch.mean(signal, dim=0, keepdim=True) / snr
+    return signal + z * std
+
+
+def misalign_params(oef: torch.Tensor, dbv: torch.Tensor, n_taus: int,
+                    prob: float, u: torch.Tensor, from_idx: torch.Tensor,
+                    z_oef: torch.Tensor, z_dbv: torch.Tensor):
+    """Slice-misalignment augmentation (reference signals.py:80-96): where a
+    voxel's uniform draw ``u`` (N, 1) is below ``prob``, the images after
+    its index ``from_idx`` (N, 1), drawn in [4, n_taus - 1), see (OEF, DBV)
+    perturbed by 0.15 z_oef and 0.05 z_dbv (each (N, 1)) and clipped.
+    oef, dbv (N,) -> per-tau maps (N, n_taus)."""
+    oef, dbv = oef[:, None], dbv[:, None]
+    image = torch.arange(n_taus, device=oef.device)[None, :]
+    mask = ((image > from_idx) & (u < prob)).to(torch.float32)
+    mis_oef = torch.clamp(z_oef * 0.15 + oef, *MISALIGN_OEF_CLIP)
+    mis_dbv = torch.clamp(z_dbv * 0.05 + dbv, 0.002, 0.3)
+    return (oef * (1.0 - mask) + mis_oef * mask,
+            dbv * (1.0 - mask) + mis_dbv * mask)

@@ -1,9 +1,9 @@
-"""Real-data input pipeline: blank crop, per-voxel priors from the
-pretrained encoder, and random-crop fine-tune batches (numpy).
+"""Input pipelines (numpy): synthetic pseudo-volumes and their shuffled
+batches for pretraining; blank crop, per-voxel priors from the pretrained
+encoder and random-crop batches for fine-tuning.
 
 A copy of ``qbold_vi_tpu/train/data.py:77-206`` (reference
-train.py:17-72) for the port, which cannot import the JAX package. The
-synthetic-data pipeline (pretraining) is not ported yet.
+train.py:17-103) for the port, which cannot import the JAX package.
 """
 
 from __future__ import annotations
@@ -12,7 +12,43 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 
-__all__ = ["blank_crop", "predict_priors", "RealCropSampler"]
+__all__ = ["split_synthetic", "synthetic_batch_indices", "synthetic_batches",
+           "blank_crop", "predict_priors", "RealCropSampler"]
+
+
+def split_synthetic(x: np.ndarray, y: np.ndarray, vol_shape=(10, 10, 5)):
+    """Flat voxels -> pseudo-volumes of ``vol_shape``, split 90/10
+    (reference train.py:82-98); voxels beyond the last whole volume are
+    dropped. Returns ((train_x, train_y), (val_x, val_y))."""
+    vol = int(np.prod(vol_shape))
+    n = (x.shape[0] // vol) * vol
+    if n == 0:
+        raise ValueError(
+            f"need at least {vol} synthetic voxels, got {x.shape[0]}")
+    x = np.reshape(x[:n], (-1, *vol_shape, x.shape[-1]))
+    y = np.reshape(y[:n], (-1, *vol_shape, 3))
+    n_valid = max(1, x.shape[0] // 10)
+    return (x[:-n_valid], y[:-n_valid]), (x[-n_valid:], y[-n_valid:])
+
+
+def synthetic_batch_indices(rng: np.random.Generator, n: int,
+                            batch_size: int) -> Iterator[np.ndarray]:
+    """The volume indices of one epoch's shuffled batches: full batches
+    only, or the whole set as one batch when it is smaller than a batch."""
+    order = rng.permutation(n)
+    n_full = n // batch_size
+    if n_full == 0:
+        yield order
+        return
+    for i in range(n_full):
+        yield order[i * batch_size:(i + 1) * batch_size]
+
+
+def synthetic_batches(rng: np.random.Generator, x: np.ndarray, y: np.ndarray,
+                      batch_size: int) -> Iterator[dict]:
+    """One epoch of shuffled {x, y} batches (reference train.py:100-103)."""
+    for idx in synthetic_batch_indices(rng, x.shape[0], batch_size):
+        yield {"x": x[idx], "y": y[idx]}
 
 
 def blank_crop(data: np.ndarray) -> np.ndarray:

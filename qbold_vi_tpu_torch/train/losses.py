@@ -1,9 +1,9 @@
-"""Fine-tune losses: reconstruction NLL, KL dispatch, TV smoothness.
+"""The losses: synthetic pretraining NLL, fine-tune reconstruction NLL,
+KL dispatch, TV smoothness.
 
-The counterpart of ``qbold_vi_tpu/train/losses.py:41-80,166-292``
-(reference model.py:527-754). Stochastic terms take their standard
-normals as arguments instead of a PRNG key (see dist/logit_mvn.py).
-``synthetic_data_loss`` (pretraining) is not ported yet.
+The counterpart of ``qbold_vi_tpu/train/losses.py`` (reference
+model.py:449-754). Stochastic terms take their standard normals as
+arguments instead of a PRNG key (see dist/logit_mvn.py).
 
 Shapes: distribution maps (..., K), K in {4, 5}; masks (..., 1).
 """
@@ -14,12 +14,14 @@ import math
 
 import torch
 
-from ..config import ModelConfig
+from ..config import ModelConfig, ScanParams
 from ..dist.logit_mvn import LogitMVN
 
 __all__ = ["safe_mask_sum", "student_t_nll", "gaussian_nll_full",
-           "inv_gamma_log_prob", "fine_tune_nll", "kl_loss",
-           "smoothness_loss"]
+           "inv_gamma_log_prob", "synthetic_data_loss", "fine_tune_nll",
+           "kl_loss", "smoothness_loss", "R2P_LOSS_SAMPLES"]
+
+R2P_LOSS_SAMPLES = 10   # posterior draws of the R2' term (model.py:475-490)
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -58,6 +60,61 @@ def inv_gamma_log_prob(x, alpha, beta):
     """InverseGamma(alpha, beta).log_prob(x), closed form."""
     return (alpha * _log(beta) - _lgamma(alpha) - (alpha + 1.0) * torch.log(x)
             - beta / x)
+
+
+def synthetic_data_loss(dist: LogitMVN, cfg: ModelConfig, scan: ScanParams,
+                        y_true, y_pred, *, use_r2p_loss: bool,
+                        inv_gamma_alpha: float, inv_gamma_beta: float,
+                        z=None, return_mean: bool = True):
+    """Pretraining loss on synthetic voxels (reference model.py:449-514).
+
+    y_true (..., 3) physical (oef, dbv, r2p); y_pred (..., 4|5[+4]) raw
+    heads (+4 exp'd hyperprior channels under cfg.infer_inv_gamma). The
+    logit-Normal NLL of (oef, dbv); with ``use_r2p_loss``, a Gaussian NLL
+    of r2p under the mean and std of R2' over the posterior draws of the
+    normals ``z`` (R2P_LOSS_SAMPLES, N, 2); with an inverse-gamma prior
+    (inferred, or alpha * beta > 0), minus its log density at the posterior
+    variances. Returns the mean, or the (N,) rows (``return_mean=False``)."""
+    if cfg.infer_inv_gamma:
+        y_pred, ig_params = y_pred[..., :-4], y_pred[..., -4:]
+    y_true = y_true.reshape(-1, 3)
+    k = 5 if cfg.use_mvg else 4
+    y_pred = y_pred.reshape(-1, k)
+    if cfg.use_mvg:
+        loss = dist.logit_gaussian_mvg_log_prob(y_true[:, :2], y_pred)
+    else:
+        loss = dist.logit_gaussian_log_prob(y_true[:, :2], y_pred)
+    if use_r2p_loss:
+        if z is None:
+            raise ValueError("the R2' loss needs the normals z of its draws")
+        samples = dist.sample_many(z, y_pred, cfg.use_mvg)
+        r2p = scan.dw_coeff * scan.hct * samples[..., 0] * samples[..., 1]
+        mean = torch.mean(r2p, 0)
+        # the population std as jnp.std forms it, (x - mean)^2 averaged
+        log_std = torch.log(torch.sqrt(torch.mean(torch.square(r2p - mean),
+                                                  0)))
+        loss = loss + dist.gaussian_nll(y_true[:, 2], mean, log_std)
+    if cfg.infer_inv_gamma or inv_gamma_alpha * inv_gamma_beta > 0.0:
+        _, oef_ls, _, dbv_ls, _ = dist.unpack(y_pred, cfg.use_mvg)
+        if cfg.use_mvg:
+            oef_var = torch.exp(oef_ls) ** 2
+            # the reference adds the RAW off-diagonal head here, not its
+            # squashed value (model.py:501); reproduced
+            dbv_var = torch.exp(dbv_ls) ** 2 + torch.square(y_pred[:, 4])
+        else:
+            oef_var = torch.exp(2.0 * oef_ls)
+            dbv_var = torch.exp(2.0 * dbv_ls)
+        if cfg.infer_inv_gamma:
+            ig = ig_params.reshape(-1, 4)[0]
+            prior = (inv_gamma_log_prob(oef_var, ig[0], ig[1])
+                     + inv_gamma_log_prob(dbv_var, ig[2], ig[3]))
+        else:
+            prior = (inv_gamma_log_prob(oef_var, inv_gamma_alpha,
+                                        inv_gamma_beta)
+                     + inv_gamma_log_prob(dbv_var, inv_gamma_alpha,
+                                          inv_gamma_beta))
+        loss = loss - prior
+    return torch.mean(loss) if return_mean else loss
 
 
 def fine_tune_nll(cfg: ModelConfig, se_idx: int, y_true, y_pred, sigma,

@@ -1,9 +1,15 @@
-"""Fine-tune step, epoch and ELBO evaluation (PyTorch).
+"""Train steps, epochs and evaluations of both phases (PyTorch).
 
-The counterpart of the fine-tune part of ``qbold_vi_tpu/train/steps.py``
-(``sample_crop_batch`` :116, ``make_finetune_epoch_on_device`` :155,
-``_fused_nll_fn`` / ``_fused_elbo_fn`` / ``_finetune_terms`` :598-813,
-``make_finetune_step`` :827, ``make_finetune_eval`` :883). The loss is
+The counterpart of ``qbold_vi_tpu/train/steps.py``: the pretraining step
+and evaluation (``posterior_mse_metrics`` :47, ``_pretrain_loss`` /
+``make_pretrain_step`` :63-113, ``make_pretrain_eval`` :570), and the
+fine-tune part (``sample_crop_batch`` :116, ``make_finetune_epoch_on_device``
+:155, ``_fused_nll_fn`` / ``_fused_elbo_fn`` / ``_finetune_terms``
+:598-813, ``make_finetune_step`` :827, ``make_finetune_eval`` :883).
+
+Pretraining scores the synthetic (oef, dbv, r2p) labels under the
+encoder's stream-1 posterior (losses.synthetic_data_loss). The fine-tune
+loss is
     total = nll + kl * kl_weight + smoothness * smoothness_weight
 (reference train.py:313-320), through one of three paths:
 
@@ -18,19 +24,20 @@ Mode strings keep the JAX force semantics: "auto" is on for a CUDA device
 and off for the CPU; "on" forces the kernel (its plain version on the
 CPU) and raises for an uncovered configuration; "host" forces host
 noise; the Mosaic-interpreter modes "interpret" / "host-interpret" mean
-"on" / "host" here.
+"on" / "host" here. (``fused_conv``, kernel H, is the encoder's:
+models/encoder.py.)
 
 Randomness: a step takes an integer ``seed`` (drawn from the caller's
 host ``torch.Generator``), from which it derives the seeds of its
-posterior-draw normals, its KL normals and the kernel's device-noise
-stream; or ``noise``, the normals themselves ({"z_nll": (S, B, X, Y, Z,
-2), "z_kl": (S_kl, B, X, Y, Z, 2), or (2, B, X, Y, Z) for the MoG KL}),
-with which every path -- the fused one in host-noise mode -- computes the
-same loss as the JAX package given the same normals.
+normals (and of the kernel's device-noise stream); or ``noise``, the
+normals themselves -- fine-tuning {"z_nll": (S, B, X, Y, Z, 2), "z_kl":
+(S_kl, B, X, Y, Z, 2), or (2, B, X, Y, Z) for the MoG KL}, pretraining
+{"z_r2p": (10, N, 2)} -- with which every path computes the same loss as
+the JAX package given the same normals.
 
-The step runs forward and backward with TF32 off for cuDNN and matmuls
-(``models.encoder._full_fp32``): the conv gradients are float32, as the
-JAX package's are.
+The steps run forward and backward with TF32 off for cuDNN and matmuls
+(``models.encoder._full_fp32``): the gradients are float32, as the JAX
+package's are.
 """
 
 from __future__ import annotations
@@ -46,9 +53,11 @@ from ..ops.decode_nll import decode_consts, decode_nll_rows, fused_available
 from ..ops.fused_elbo import fused_elbo, fused_elbo_available
 from . import losses
 
-__all__ = ["sample_crop_batch", "finetune_terms", "make_finetune_step",
-           "make_finetune_epoch_on_device", "make_finetune_eval",
-           "resolve_fused_elbo", "resolve_fused_nll", "normals"]
+__all__ = ["posterior_mse_metrics", "pretrain_loss", "make_pretrain_step",
+           "make_pretrain_eval", "sample_crop_batch", "finetune_terms",
+           "make_finetune_step", "make_finetune_epoch_on_device",
+           "make_finetune_eval", "resolve_fused_elbo", "resolve_fused_nll",
+           "normals"]
 
 _SEED_HI = 2 ** 62
 
@@ -112,6 +121,93 @@ def _split_seed(seed: int, n: int) -> list:
     return torch.randint(0, _SEED_HI, (n,), generator=gen).tolist()
 
 
+def posterior_mse_metrics(tuner: FineTuner, q: torch.Tensor,
+                          y_true: torch.Tensor, z: torch.Tensor) -> dict:
+    """OEF, DBV and R2' mean squared errors of the MC posterior means over
+    the draws of the normals z (S, ..., 2) against the truth (reference
+    model.py:326-374)."""
+    samples = tuner.dist.sample_many(z, q, tuner.cfg.use_mvg)
+    means = torch.mean(samples, 0).reshape(-1, 2)
+    dw_coeff = tuner.scan.dw_coeff * tuner.scan.hct
+    r2p = torch.mean(dw_coeff * samples[..., 0] * samples[..., 1],
+                     0).reshape(-1)
+    y = y_true.reshape(-1, 3)
+    return {"oef_mse": torch.mean(torch.square(means[:, 0] - y[:, 0])),
+            "dbv_mse": torch.mean(torch.square(means[:, 1] - y[:, 1])),
+            "r2p_mse": torch.mean(torch.square(r2p - y[:, 2]))}
+
+
+def pretrain_loss(tuner: FineTuner, cfg: QBoldConfig, batch: dict, *,
+                  seed: Optional[int] = None, noise: Optional[dict] = None,
+                  train: bool = True) -> torch.Tensor:
+    """The mean synthetic loss of a batch {x (B, X, Y, Z, T), y (..., 3)}.
+
+    The loss reads only the encoder's first output, which ``Encoder.stream1``
+    computes without the conv trunk of stream 2: the same values and
+    gradients as the JAX step (qbold_vi_tpu/train/steps.py:63-94), whose
+    XLA program drops stream 2 because nothing reads it. So pretraining
+    launches no kernel H. The R2' term's normals come from ``noise``
+    ("z_r2p") or the ``seed``."""
+    tuner.check_dropout(train)
+    x = batch["x"]
+    z = None
+    if cfg.train.use_r2p_loss:
+        shape = (losses.R2P_LOSS_SAMPLES, x[..., 0].numel(), 2)
+        z = _noise(noise, "z_r2p", seed, shape, x.device)
+    return losses.synthetic_data_loss(
+        tuner.dist, cfg.model, cfg.scan, batch["y"], tuner.encoder.stream1(x),
+        use_r2p_loss=cfg.train.use_r2p_loss,
+        inv_gamma_alpha=cfg.train.inv_gamma_alpha,
+        inv_gamma_beta=cfg.train.inv_gamma_beta, z=z)
+
+
+def make_pretrain_step(tuner: FineTuner, cfg: QBoldConfig, optimizer):
+    """step(batch, *, seed=None, noise=None) -> {"loss"} (detached, on the
+    device): the synthetic loss and its gradients with TF32 off, then one
+    optimiser update. SWA is the caller's (optim.swa_update)."""
+
+    def step(batch: dict, *, seed: Optional[int] = None,
+             noise: Optional[dict] = None) -> dict:
+        optimizer.zero_grad()
+        with _full_fp32():
+            loss = pretrain_loss(tuner, cfg, batch, seed=seed, noise=noise)
+            loss.backward()
+        optimizer.step()
+        return {"loss": loss.detach()}
+
+    return step
+
+
+def make_pretrain_eval(tuner: FineTuner, cfg: QBoldConfig,
+                       mse_samples: int = 20):
+    """evaluate(batch, seed) -> the validation metrics of a synthetic batch:
+    val_loss (dropout off), the posterior-mean MSEs over ``mse_samples``
+    draws, and under infer_inv_gamma the learned hyperprior (reference
+    train.py:395-413)."""
+
+    @torch.no_grad()
+    def evaluate(batch: dict, seed: int) -> dict:
+        x = batch["x"]
+        seeds = _split_seed(seed, 2)
+        with _full_fp32():
+            loss = pretrain_loss(tuner, cfg, batch, seed=seeds[0],
+                                 train=False)
+            out1 = tuner.encoder.stream1(x)
+        if cfg.model.infer_inv_gamma:
+            out1 = out1[..., :-4]
+        z = normals(seeds[1], (mse_samples,) + tuple(out1.shape[:-1]) + (2,),
+                    x.device)
+        metrics = posterior_mse_metrics(tuner, out1, batch["y"], z)
+        metrics["val_loss"] = loss
+        if cfg.model.infer_inv_gamma:
+            a_o, b_o, a_d, b_d = torch.exp(tuner.encoder.inv_gamma_raw)
+            metrics.update(oef_alpha=a_o, oef_beta=b_o, dbv_alpha=a_d,
+                           dbv_beta=b_d)
+        return metrics
+
+    return evaluate
+
+
 def sample_crop_batch(generator: torch.Generator, volumes: torch.Tensor,
                       priors: torch.Tensor, b: int, crop_size: int,
                       n_subjects: Optional[int] = None) -> dict:
@@ -144,7 +240,7 @@ def _noise(noise, key, seed, shape, device):
         z = torch.as_tensor(noise[key], dtype=torch.float32)
         return z.to(device).reshape(shape)
     if seed is None:
-        raise ValueError("a fine-tune step needs a seed or its normals")
+        raise ValueError("a train step needs a seed or its normals")
     return normals(seed, shape, device)
 
 

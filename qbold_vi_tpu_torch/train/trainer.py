@@ -1,10 +1,13 @@
-"""Fine-tuning orchestrator (PyTorch).
+"""Two-phase training orchestrator (PyTorch).
 
-The counterpart of ``qbold_vi_tpu/train/trainer.py::Trainer.prepare_real``
-and ``finetune`` (:609-751; reference train.py:17-72, 285-376), starting
-from given weights (``init_params`` or a JAX checkpoint through
-``io/from_jax.py``):
+The counterpart of ``qbold_vi_tpu/train/trainer.py`` (reference
+train.py:17-72, 188-427):
 
+* ``pretrain``: the fixed synthetic set of the JAX trainer's host-set mode
+  (the same numpy draws from the same seed fold, synth.py), split into
+  pseudo-volumes, uploaded once; each epoch takes its shuffled batches in
+  the JAX trainer's order (``np.random.default_rng(seed)``), then the
+  held-out validation; SWA when configured, adopted under ``swa_adopt``;
 * ``prepare_real``: blank crop, per-voxel priors from the encoder's plain
   forward pass, and a ``RealCropSampler``;
 * ``finetune``: the volumes and priors go to the device once; each epoch
@@ -13,15 +16,20 @@ from given weights (``init_params`` or a JAX checkpoint through
   logs them and trips on a non-finite one; with study data, the ELBO
   validation runs after every epoch.
 
-The tuner lives on the CUDA card unless ``device="cpu"`` is given. Not
-ported yet, and raising ``NotImplementedError``: pretraining, resuming
-from the checkpoint files of ``save_directory``, mid-phase checkpoints
-(``checkpoint_every_epochs``), and mesh / subject sharding (ROADMAP.md).
-No checkpoint file is written: the caller keeps ``tuner.state_dict()``.
+``WeightStatus`` follows the JAX trainer: a Trainer given ``state_dict``
+starts PRE_TRAINED (pretrain() returns at once); one without it starts
+NOT_TRAINED from ``init_params(seed)``, and finetune() raises until
+pretrain() has run. The tuner lives on the CUDA card unless ``device="cpu"``
+is given. Not ported yet, and raising ``NotImplementedError``: the
+streaming pretrain (``pt_on_device_synth``), checkpoint files (resuming
+from those of ``save_directory``, ``checkpoint_every_epochs``), and mesh /
+subject sharding (ROADMAP.md). No checkpoint file is written: the caller
+keeps ``tuner.state_dict()``.
 """
 
 from __future__ import annotations
 
+import enum
 import os
 import time
 from typing import Callable, Optional
@@ -31,15 +39,32 @@ import torch
 
 from ..config import QBoldConfig
 from ..models.vi import FineTuner, init_params
+from ..synth import create_synthetic_dataset_host, pretrain_data_seed
 from . import data as data_pipe
-from .optim import make_finetune_optimizer
-from .steps import make_finetune_epoch_on_device, make_finetune_eval
+from .optim import (make_finetune_optimizer, make_pretrain_optimizer,
+                    swa_init, swa_update)
+from .steps import (make_finetune_epoch_on_device, make_finetune_eval,
+                    make_pretrain_eval, make_pretrain_step)
 
-__all__ = ["Trainer", "NaNLossError"]
+__all__ = ["Trainer", "NaNLossError", "WeightStatus", "val_batch_count"]
+
+_SEED_HI = 2 ** 62
 
 
 class NaNLossError(RuntimeError):
-    """A logged fine-tune metric was not finite."""
+    """A logged training metric was not finite."""
+
+
+class WeightStatus(enum.Enum):
+    """Training progress (reference qbold_build_model.py:11-14)."""
+    NOT_TRAINED = 0
+    PRE_TRAINED = 1
+    FULL_TRAINED = 2
+
+
+def val_batch_count(n_volumes: int, vol_voxels: int) -> int:
+    """The per-epoch validation batch bound, ~4k voxels."""
+    return min(n_volumes, 4096 // vol_voxels + 1)
 
 
 def _stdout_logger(phase: str, step: int, metrics: dict) -> None:
@@ -48,11 +73,20 @@ def _stdout_logger(phase: str, step: int, metrics: dict) -> None:
 
 
 class Trainer:
-    """Fine-tuning from given weights.
+    """Synthetic pretraining and ELBO fine-tuning.
 
-        t = Trainer(cfg, state_dict=params)     # on the card
-        t.finetune(train_data)                  # MC-ELBO on real volumes
-    """
+        t = Trainer(cfg)                        # on the card
+        t.pretrain()                            # phase 1 (synthetic)
+        t.finetune(train_data)                  # phase 2 (MC-ELBO)
+
+    or ``Trainer(cfg, state_dict=params).finetune(train_data)`` from given
+    weights (``init_params`` or a JAX checkpoint, io/from_jax.py)."""
+
+    # the learned inverse-gamma hyperprior is logged as exp(raw), which may
+    # overflow without the run diverging; the tripwire skips it, as the
+    # JAX trainer does
+    _TRIPWIRE_EXEMPT = frozenset(
+        {"oef_alpha", "oef_beta", "dbv_alpha", "dbv_beta"})
 
     def __init__(self, cfg: QBoldConfig, *, state_dict: Optional[dict] = None,
                  device=None, mesh=None,
@@ -61,6 +95,10 @@ class Trainer:
             raise NotImplementedError(
                 "mesh / subject-sharded training is not ported yet "
                 "(ROADMAP.md)")
+        if cfg.train.checkpoint_every_epochs > 0:
+            raise NotImplementedError(
+                "mid-phase checkpoints (checkpoint_every_epochs > 0) are not "
+                "ported yet (ROADMAP.md)")
         found = [name for name in ("final_model.msgpack", "pt_model.msgpack")
                  if os.path.isfile(os.path.join(cfg.train.save_directory,
                                                 name))]
@@ -73,6 +111,8 @@ class Trainer:
         self.tuner = FineTuner(cfg.model, cfg.scan, device=device,
                                full_model=cfg.train.full_model,
                                use_blood=cfg.train.use_blood)
+        self.status = (WeightStatus.NOT_TRAINED if state_dict is None
+                       else WeightStatus.PRE_TRAINED)
         if state_dict is None:
             state_dict = init_params(cfg.model, cfg.scan,
                                      torch.Generator().manual_seed(
@@ -83,12 +123,102 @@ class Trainer:
         self.optimizer = None
         self.epochs_done = 0
         self.sampler = None
+        self.swa = None
+        self.last_pretrain_metrics: dict = {}
         self.last_finetune_metrics: dict = {}
 
-    def pretrain(self, *args, **kwargs):
-        raise NotImplementedError(
-            "synthetic pretraining is not ported yet (ROADMAP.md); start "
-            "from init_params or a JAX checkpoint (io/from_jax.py)")
+    # ---- phase 1: synthetic pretraining -----------------------------------
+
+    def build_pretrain_data(self, synthetic: Optional[tuple] = None):
+        """((train_x, train_y), (val_x, val_y)) pseudo-volumes of the fixed
+        synthetic set -- generated from the config (the JAX trainer's
+        numbers: synth.pretrain_data_seed) unless ``synthetic`` (x, y) is
+        given -- split 90/10."""
+        cfg = self.cfg
+        if cfg.train.pt_on_device_synth and synthetic is None:
+            raise NotImplementedError(
+                "the streaming pretrain (pt_on_device_synth=True) is not "
+                "ported yet (ROADMAP.md); the host-set pretrain runs with "
+                "pt_on_device_synth=False")
+        if synthetic is None:
+            x, y = create_synthetic_dataset_host(
+                pretrain_data_seed(cfg.train.seed), cfg.scan, cfg.synth,
+                full_model=cfg.train.full_model,
+                use_blood=cfg.train.use_blood,
+                quad_rule=cfg.model.quad_rule, device=self.tuner.device)
+        else:
+            x, y = synthetic
+        return data_pipe.split_synthetic(x, y)
+
+    def _clip_val_batch(self, vx: np.ndarray, vy: np.ndarray) -> dict:
+        """The validation batch: at most ~4k voxels, on the device."""
+        n_val = val_batch_count(len(vx), int(np.prod(vx.shape[1:4])))
+        dev = self.tuner.device
+        return {"x": torch.from_numpy(np.ascontiguousarray(vx[:n_val])).to(dev),
+                "y": torch.from_numpy(np.ascontiguousarray(vy[:n_val])).to(dev)}
+
+    def _seed(self) -> int:
+        return int(torch.randint(0, _SEED_HI, (1,), generator=self.generator))
+
+    def pretrain_val_metrics(self, synthetic: Optional[tuple] = None) -> dict:
+        """The held-out synthetic validation metrics of the current weights,
+        on the set and batch pretrain() evaluates each epoch."""
+        _, (vx, vy) = self.build_pretrain_data(synthetic)
+        evaluate = make_pretrain_eval(self.tuner, self.cfg)
+        m = evaluate(self._clip_val_batch(vx, vy), self._seed())
+        return {k: float(v) for k, v in m.items()}
+
+    def pretrain(self, synthetic: Optional[tuple] = None) -> dict:
+        """Pretrain on synthetic voxels (reference train.py:379-427) for
+        ``no_pt_epochs`` epochs; returns the last epoch's metrics. A no-op
+        once the weights are pretrained (given, or pretrain() has run)."""
+        cfg = self.cfg
+        if self.status.value >= WeightStatus.PRE_TRAINED.value:
+            return self.last_pretrain_metrics
+        t0 = time.perf_counter()
+        (tx, ty), (vx, vy) = self.build_pretrain_data(synthetic)
+        dev = self.tuner.device
+        tx_d = torch.from_numpy(np.ascontiguousarray(tx)).to(dev)
+        ty_d = torch.from_numpy(np.ascontiguousarray(ty)).to(dev)
+        val_batch = self._clip_val_batch(vx, vy)
+        data_s = time.perf_counter() - t0
+        named = list(self.tuner.named_parameters())
+        optimizer = make_pretrain_optimizer(named, cfg.train)
+        self.swa = swa_init(named) if cfg.train.use_swa else None
+        step = make_pretrain_step(self.tuner, cfg, optimizer)
+        evaluate = make_pretrain_eval(self.tuner, cfg)
+        rng = np.random.default_rng(cfg.train.seed)
+        metrics = {}
+        for epoch in range(cfg.train.no_pt_epochs):
+            t0 = time.perf_counter()
+            losses = []
+            for idx in data_pipe.synthetic_batch_indices(
+                    rng, len(tx), cfg.train.pt_batch_size):
+                i = torch.from_numpy(idx).to(dev)
+                losses.append(step({"x": tx_d[i], "y": ty_d[i]},
+                                   seed=self._seed())["loss"])
+                if self.swa is not None:
+                    self.swa = swa_update(self.swa, named,
+                                          cfg.train.swa_start,
+                                          cfg.train.swa_period)
+            m = evaluate(val_batch, self._seed())
+            metrics = {"loss": float(torch.mean(torch.stack(losses))),
+                       "epoch_time_s": time.perf_counter() - t0}
+            metrics.update({k: float(v) for k, v in m.items()})
+            if epoch == 0:
+                metrics["data_time_s"] = data_s
+            self._log("pretrain", epoch, metrics)
+            self.last_pretrain_metrics = dict(metrics)
+        # SWA adoption is opt-in: the reference builds its SWA wrapper but
+        # never assigns the averaged weights (train.py:382-385)
+        if cfg.train.swa_adopt and self.swa is not None and self.swa.n_avg:
+            with torch.no_grad():
+                for name, p in named:
+                    p.copy_(self.swa.average[name])
+        self.status = WeightStatus.PRE_TRAINED
+        return metrics
+
+    # ---- phase 2: real-data fine-tuning -----------------------------------
 
     def _encode_fn(self):
         """The encoder's plain forward pass on numpy volumes."""
@@ -116,7 +246,8 @@ class Trainer:
 
     def _log(self, phase: str, step: int, metrics: dict) -> None:
         self.logger(phase, step, metrics)
-        if not all(np.isfinite(v) for v in metrics.values()):
+        if not all(np.isfinite(v) for k, v in metrics.items()
+                   if k not in self._TRIPWIRE_EXEMPT):
             raise NaNLossError(f"non-finite metrics at {phase} epoch {step}: "
                                f"{metrics}")
 
@@ -128,10 +259,9 @@ class Trainer:
         ``no_ft_epochs``) bounds this call, continuing the schedule.
         Returns the last epoch's metrics."""
         cfg = self.cfg
-        if cfg.train.checkpoint_every_epochs > 0:
-            raise NotImplementedError(
-                "mid-phase checkpoints (checkpoint_every_epochs > 0) are not "
-                "ported yet (ROADMAP.md)")
+        if self.status is WeightStatus.NOT_TRAINED:
+            raise RuntimeError("pretrain() must run before finetune() (or "
+                               "give the Trainer a state_dict)")
         dev = self.tuner.device
         sampler = self.prepare_real(train_data)
         eval_sampler = None
@@ -163,6 +293,8 @@ class Trainer:
             self._log("finetune", self.epochs_done, metrics)
             self.last_finetune_metrics = dict(metrics)
             self.epochs_done += 1
+        if self.epochs_done >= cfg.train.no_ft_epochs:
+            self.status = WeightStatus.FULL_TRAINED
         return metrics
 
     def _elbo_eval(self, eval_sampler, batches: int = 4) -> dict:

@@ -14,6 +14,9 @@ tests/test_pallas_elbo.py:88-97). The sampled kernels D and E with host
 normals at the means/variances tolerances above and rtol 1e-5 for the KL
 rows; with device noise against the plain versions fed philox_normals at
 rtol 1e-4 (numpy's log/sin/cos on the host against the card's).
+The 3x3 conv kernel H: the output and dx within 1e-5 of their largest
+magnitude, dw and db within 1e-4 of theirs (sums of every pixel's terms
+in another order than the plain version's).
 """
 
 import dataclasses
@@ -28,6 +31,7 @@ from torch_parity_utils import (assert_vars_close, cuda_device,  # noqa: E402,F4
 from qbold_vi_tpu_torch import config as tcfg  # noqa: E402
 from qbold_vi_tpu_torch import infer  # noqa: E402
 from qbold_vi_tpu_torch.models.vi import FineTuner, init_params  # noqa: E402
+from qbold_vi_tpu_torch.ops import conv3x3 as tcv  # noqa: E402
 from qbold_vi_tpu_torch.ops import decode_nll as tdn  # noqa: E402
 from qbold_vi_tpu_torch.ops import fused_elbo as tfe  # noqa: E402
 from qbold_vi_tpu_torch.ops import fused_infer as tfi  # noqa: E402
@@ -483,3 +487,78 @@ def test_step_gradients_are_float32_on_the_card(cuda_device):
     assert worst > GRAD_TOL["atol"], (
         f"TF32 conv gradients were within float32 tolerance ({worst:.2e}): "
         "the check cannot tell the two apart")
+
+
+# ---- the 3x3 conv kernel H --------------------------------------------------
+
+def _conv_inputs(rng, shape, device):
+    n, h, w, ci, co = shape
+    f = np.float32
+    arrays = (rng.normal(size=(n, h, w, ci)).astype(f),
+              (rng.normal(size=(3, 3, ci, co)) * 0.1).astype(f),
+              (rng.normal(size=co) * 0.1).astype(f),
+              rng.normal(size=(n, h, w, co)).astype(f))
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def _scaled_close(got, ref, tol, name):
+    got, ref = got.double().cpu(), ref.double().cpu()
+    err = float((got - ref).abs().max())
+    assert err <= tol * float(ref.abs().max()), f"{name}: {err:.3e}"
+
+
+@pytest.mark.parametrize("shape", [(38, 25, 25, 60, 60), (9, 3, 11, 5, 7)])
+def test_conv3x3_kernel_matches_plain(cuda_device, shape):
+    x, w, b, ct = _conv_inputs(np.random.default_rng(14), shape, cuda_device)
+    counts = (tcv.conv3x3.fwd_launches, tcv.conv3x3.bwd_launches)
+    y = tcv.conv3x3_forward(x, w, b)
+    dx, dw, db = tcv.conv3x3_backward(x, w, ct)
+    torch.cuda.synchronize()
+    assert (tcv.conv3x3.fwd_launches - counts[0],
+            tcv.conv3x3.bwd_launches - counts[1]) == (1, 1)
+    _scaled_close(y, tcv.conv3x3_plain(x, w, b), 1e-5, "y")
+    ref = tcv.conv3x3_grads_plain(x, w, ct)
+    for name, g, r, tol in zip(("dx", "dw", "db"), (dx, dw, db), ref,
+                               (1e-5, 1e-4, 1e-4)):
+        _scaled_close(g, r, tol, name)
+    _, dw2, db2 = tcv.conv3x3_backward(x, w, ct, need_dx=False)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)   # replay
+
+
+def test_conv3x3_kernel_refuses_bad_inputs(cuda_device):
+    x, w, b, ct = _conv_inputs(np.random.default_rng(15), (2, 5, 6, 4, 3),
+                               cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        tcv.conv3x3_forward(x.transpose(1, 2).contiguous().transpose(1, 2),
+                            w, b)
+    with pytest.raises(TypeError, match="float32"):
+        tcv.conv3x3_forward(x.double(), w, b)
+    with pytest.raises(TypeError, match="CUDA"):
+        tcv.conv3x3_forward(x, w.cpu(), b)
+    with pytest.raises(ValueError, match="cotangent"):
+        tcv.conv3x3_backward(x, w, ct[:, :, :, :2].contiguous())
+    with pytest.raises(ValueError, match="at least 3 x 3"):
+        tcv.conv3x3_forward(x[:, :2].contiguous(), w, b)
+
+
+def test_fused_conv_runs_kernel_h_in_a_finetune_step(cuda_device):
+    cfg = dataclasses.replace(
+        tcfg.OPTIMAL, scan=SCAN,
+        model=dataclasses.replace(tcfg.OPTIMAL.model, fused_conv="on"))
+    tuner = _tuner(cfg.model, cuda_device)
+    rng = np.random.default_rng(16)
+    shape = (4, 25, 25, 8)
+    mask = (rng.uniform(size=shape + (1,)) > 0.2).astype(np.float32)
+    batch = {"images": (np.abs(rng.normal(size=shape + (11,))) * 50 + 100
+                        ).astype(np.float32) * mask, "mask": mask,
+             "priors": (rng.normal(size=shape + (5,)) * 0.3
+                        ).astype(np.float32)}
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in batch.items()}
+    opt = toptim.make_finetune_optimizer(tuner.parameters(), cfg.train)
+    counts = (tcv.conv3x3.fwd_launches, tcv.conv3x3.bwd_launches)
+    m = tsteps.make_finetune_step(tuner, cfg, opt)(batch, seed=3)
+    torch.cuda.synchronize()
+    n_conv = 2 * cfg.model.no_intermediate_layers
+    assert (tcv.conv3x3.fwd_launches - counts[0],
+            tcv.conv3x3.bwd_launches - counts[1]) == (n_conv, n_conv)
+    assert all(bool(torch.isfinite(v)) for v in m.values())

@@ -256,7 +256,10 @@ def test_trainer_finetunes_on_the_cpu():
             ).astype(np.float32)
     data[..., -1] = rng.uniform(size=data.shape[:-1]) > 0.2
     logged = []
-    t = Trainer(cfg, device="cpu",
+    weights = init_params(cfg.model, cfg.scan, torch.Generator().manual_seed(1))
+    with pytest.raises(RuntimeError, match="pretrain"):
+        Trainer(cfg, device="cpu").finetune(data, epochs=1)
+    t = Trainer(cfg, state_dict=weights, device="cpu",
                 logger=lambda *a: logged.append(a))
     before = {k: v.clone() for k, v in t.tuner.state_dict().items()}
     m = t.finetune(data, study_data=data[:1], epochs=2)
@@ -266,14 +269,18 @@ def test_trainer_finetunes_on_the_cpu():
     assert any(not torch.equal(before[k], v)
                for k, v in t.tuner.state_dict().items())
     assert t.sampler.priors.shape == t.sampler.data.shape[:-1] + (5,)
-    with pytest.raises(NotImplementedError, match="pretraining"):
-        t.pretrain()
+    assert t.pretrain() == {}                 # given weights: pretrained
+    streaming = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, pt_on_device_synth=True))
+    with pytest.raises(NotImplementedError, match="pt_on_device_synth"):
+        Trainer(streaming, device="cpu").pretrain()
     with pytest.raises(NotImplementedError, match="mesh"):
         Trainer(cfg, device="cpu", mesh=object())
     drop = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, dropout_rate=0.1))
     with pytest.raises(NotImplementedError, match="dropout"):
-        Trainer(drop, device="cpu").finetune(data, epochs=1)
+        Trainer(drop, state_dict=weights, device="cpu").finetune(data,
+                                                                 epochs=1)
 
 
 def test_trainer_raises_for_unported_checkpoints(tmp_path):
