@@ -66,8 +66,10 @@ forward and backward), and checks them:
    (304, 25, 25, 60 -> 60), a serving chunk (16, 96, 96), prepare_real's
    chunk (32, 62, 76) and two ragged planes: the output and dx within 1e-5
    of their largest magnitude, dw and db within 1e-4 of theirs; dw and db
-   replay bit for bit; a non-contiguous input is refused; the device
-   times of H, its plain version and cuDNN at the three main shapes;
+   replay bit for bit; a non-contiguous input is refused; H's, the plain
+   version's and cuDNN's largest errors against a float64 conv at the
+   fold; the device times of H, its plain version and cuDNN at the three
+   main shapes, beside the 3xTF32 tensor-core and CUDA-core bounds;
 15. the two-phase path, OPTIMAL with fused_conv="on": Trainer.pretrain
    for 2 epochs at full data size (6.25 M synthetic voxels, 21 steps of
    512 pseudo-volumes an epoch; no kernel H, stream 1 only), and one
@@ -78,8 +80,8 @@ forward and backward), and checks them:
    the same step through cuDNN;
 17. stream-2 save_predictions on the three requests under fused_conv="on"
    (4 H launches a chunk), maps against cuDNN's at the map tolerances;
-18. timings: the pretrain step, the fine-tune step both ways, the epoch
-   under "on".
+18. timings: the stream-2 posterior_maps wall under "on" and "off", the
+   pretrain step, the fine-tune step both ways, the epoch under "on".
 
 It also traces posterior_maps (each stream and estimator), elbo_maps,
 the fine-tune step (both conv routes) and the pretrain step with
@@ -125,8 +127,9 @@ S_MC, S_KL = 200, 100                # the sampled summaries' and KL's draws
 ROW_TOL = (1e-5, 1e-5)
 GRAD_TOL = (5e-4, 5e-5)
 # the card's peaks (NVIDIA H100 SXM data sheet): float32 outside the
-# tensor cores, and HBM3 bandwidth
+# tensor cores, dense TF32 on the tensor cores, and HBM3 bandwidth
 PEAK_FLOPS = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
 
@@ -218,31 +221,39 @@ def cuda_ms(fn, reps: int = 10, blocks: int = 7) -> float:
     return statistics.median(times)
 
 
-def kernel_ms(fn, symbol: str, calls: int = 21) -> float:
+def kernel_ms(fn, symbol: str, calls: int = 21, need: int | None = None,
+              tries: int = 3) -> float:
     """Median device duration of the launches of the kernel ``symbol``
     over ``calls`` calls of fn, from the profiler's CUDA activity: the
     kernel alone. CUDA events around a loop of calls also count the gaps
     where the host has not yet queued the next launch, which a kernel
-    shorter than its wrapper's host work (G's ~0.04 ms) cannot hide."""
+    shorter than its wrapper's host work (G's ~0.04 ms) cannot hide. A
+    trace can drop launch records (on the H100: one of 21 once, most of
+    kernel H's 2 us weight split, once all 21 of a dx pass): a trace with
+    fewer than ``need`` (half the calls) is taken again, up to ``tries``
+    times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
+    need = calls // 2 if need is None else need
+    for _ in range(tries):
+        for _ in range(3):
             fn()
         torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == DeviceType.CUDA and symbol in e.name]
-    # a trace can miss a launch record (one of 21 on the H100 once)
-    if len(spans) < calls // 2:
-        raise AssertionError(f"{symbol}: {len(spans)} launches traced in "
-                             f"{calls} calls")
-    return statistics.median(spans)
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and symbol in e.name]
+        if len(spans) >= need:
+            return statistics.median(spans)
+        log(f"{symbol}: {len(spans)} launches traced in {calls} calls; "
+            "tracing again")
+    raise AssertionError(f"{symbol}: fewer than {need} launches traced in "
+                         f"{calls} calls, {tries} times")
 
 
 def time_kernel(fn, symbol: str, plain) -> tuple:
@@ -1105,9 +1116,9 @@ CONV_SHAPES = ((304, 25, 25, 60, 60), (16, 96, 96, 60, 60),
 # products in another order; dw and db within 1e-4 of theirs: sums of
 # N H W (up to 190,000) terms in another order
 CONV_TOL = dict(y=1e-5, dx=1e-5, dw=1e-4, db=1e-4)
-H_SYMBOLS = dict(fwd=("qv_conv3x3_fwd_kernel",),
-                 bwd=("qv_conv3x3_dx_kernel", "qv_conv3x3_dw_kernel",
-                      "qv_conv3x3_reduce_kernel"))
+H_SYMBOLS = dict(fwd=("qv_conv3x3_wsplit_kernel", "qv_conv3x3_fwd_kernel"),
+                 bwd=("qv_conv3x3_wsplit_kernel", "qv_conv3x3_dx_kernel",
+                      "qv_conv3x3_dw_kernel", "qv_conv3x3_reduce_kernel"))
 
 
 def scaled_err(name, got, ref, tol) -> float:
@@ -1140,17 +1151,22 @@ def cudnn_conv_backward(x, w_oihw, ct):
 
 def conv_bound(shape, backward: bool) -> dict:
     """Kernel H: x, w, b (and ct) read once, y (dx, dw, db) written once;
-    2 * 9 * Ci * Co operations a pixel a pass (an FMA counts 2), plus the
-    bias (forward) or db (backward) adds; the backward is two passes."""
+    2 * 9 * Ci * Co operations a pixel a pass (an FMA counts 2; the
+    backward is two passes), taken on the tensor cores as 3xTF32 -- three
+    TF32 products for each float32 one, over the dense TF32 peak -- plus
+    the bias (forward) or db (backward) adds on the CUDA cores.
+    ``cuda_core_bound_ms``: the same work at the float32 CUDA-core peak."""
     n, h, w, ci, co = shape
     p = n * h * w
-    if backward:
-        floats = 2 * p * ci + 2 * p * co + 2 * 9 * ci * co + co
-        ops = 2 * (2 * 9 * ci * co * p) + p * co
-    else:
-        floats = p * ci + 9 * ci * co + co + p * co
-        ops = 2 * 9 * ci * co * p + p * co
-    return bound(4 * floats, ops)
+    passes = 2 if backward else 1
+    floats = passes * (p * ci + p * co + 9 * ci * co) + co
+    fma_ops = passes * 2 * 9 * ci * co * p
+    adds = p * co
+    t_bytes = 4 * floats / PEAK_BYTES * 1e3
+    t_ops = (3 * fma_ops / PEAK_TF32 + adds / PEAK_FLOPS) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "cuda_core_bound_ms": bound(4 * floats, fma_ops + adds)["bound_ms"]}
 
 
 def device_ms(fn, calls: int = 21) -> float:
@@ -1173,8 +1189,11 @@ def device_ms(fn, calls: int = 21) -> float:
 
 
 def kernel_ms_parts(fn, symbols, calls: int = 21) -> dict:
-    """Each of the ``symbols``' median device time over ``calls`` calls."""
-    return {s: kernel_ms(fn, s, calls) for s in symbols}
+    """Each of the ``symbols``' median device time over ``calls`` calls.
+    The trace drops most records of H's ~2 us weight split (6 of 21 on the
+    H100), so one traced launch suffices for it."""
+    return {s: kernel_ms(fn, s, calls, 1 if "wsplit" in s else None)
+            for s in symbols}
 
 
 def conv_phases(dev, card) -> dict:
@@ -1224,6 +1243,18 @@ def conv_phases(dev, card) -> dict:
             if shape == CONV_SHAPES[0]:
                 out["err_fwd"] = errs["y"]
                 out["err_bwd"] = max(errs["dx"], errs["dw"], errs["db"])
+                ref64 = (cv.conv3x3_plain(x.double(), wt.double(),
+                                          b.double()),) + \
+                    cv.conv3x3_grads_plain(x.double(), wt.double(), ct.double())
+                for name, res in (("H", got), ("plain", plain),
+                                  ("cuDNN", lib)):
+                    errs64 = [float((r.double() - f).abs().max())
+                              for r, f in zip(res, ref64)]
+                    log(f"{name} vs float64 at {shape}: " + ", ".join(
+                        f"{k} {e:.3e} ({e / float(f.abs().max()):.2e} of the "
+                        "largest)" for k, e, f in zip(("y", "dx", "dw", "db"),
+                                                      errs64, ref64)))
+                del ref64
             if shape in CONV_SHAPES[:3]:
                 parts = {
                     "fwd": kernel_ms_parts(
@@ -1255,7 +1286,8 @@ def conv_phases(dev, card) -> dict:
                         f"events; plain {plain_ms:.4f} ms; cuDNN "
                         f"{lib_ms:.4f} ms a call, {device_ms(lib_call):.4f} "
                         f"ms on the device; bound {bd['bound_ms']:.4f} ms "
-                        f"({bd['bound_by']}) [{card}]")
+                        f"({bd['bound_by']}, 3xTF32 tensor cores), CUDA-core "
+                        f"bound {bd['cuda_core_bound_ms']:.4f} ms [{card}]")
                 if shape == CONV_SHAPES[0]:
                     out["times"] = times
         x = torch.zeros((2, 5, 6, 4), device=dev)
@@ -1436,6 +1468,14 @@ def two_phase_path(dev, card, base, conv: dict) -> dict:
 
     # ---- 18. timings ------------------------------------------------------
     log_clocks("before the two-phase timings")
+    s2_walls = {}
+    for name, tn in (("on", serve), ("off", ref_tuner)):
+        s2_walls[name] = wall_ms(lambda: infer.posterior_maps(
+            tn, reqs[0], use_first_op=False))
+        log(f"posterior_maps stream 2 wall, fused_conv {name}: "
+            f"{s2_walls[name]:.3f} ms on {REQUESTS[0]} [{card}]")
+    profile(lambda: infer.posterior_maps(serve, reqs[0], use_first_op=False),
+            2, "posterior_maps stream 2, fused_conv on", card)
     t = FineTuner(mcfg, scan, device=dev)
     t.load_state_dict(pretrained)
     opt = optim.make_pretrain_optimizer(t.named_parameters(), cfg.train)
@@ -1471,7 +1511,7 @@ def two_phase_path(dev, card, base, conv: dict) -> dict:
             "pretrain_epoch_s": [m["epoch_time_s"] for m in pt],
             "pretrain_data_s": pt[0]["data_time_s"],
             "finetune_step_ms": walls, "finetune_epoch_on_ms": epoch_on_ms,
-            "serve_launches": serve_launches}
+            "serve_launches": serve_launches, "stream2_wall_ms": s2_walls}
 
 
 def main() -> int:
@@ -1668,6 +1708,7 @@ def main() -> int:
                       "finetune_step_ms_by_conv": two["finetune_step_ms"],
                       "finetune_epoch_wall_ms_conv_on":
                           two["finetune_epoch_on_ms"],
+                      "stream2_wall_ms_by_conv": two["stream2_wall_ms"],
                       "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -18,8 +18,9 @@ version needs IEEE ``expf``/``tanhf`` and division. ``--fmad=false``
 keeps nvcc from contracting a*b + c into one rounding: the plain
 version rounds every product, and the posterior variances (E[x^2] -
 E[x]^2) amplify a last-bit difference. The dense chain of the fused
-kernel and the products of the 3x3 convolution (kernel H) ask for their
-FMAs explicitly (``fmaf``), which the flag leaves alone.
+kernel asks for its FMAs explicitly (``fmaf``), and the 3x3 convolution
+(kernel H) takes its products on the tensor cores (``mma``), both of
+which the flag leaves alone.
 """
 
 from __future__ import annotations
@@ -104,9 +105,10 @@ _SIGNATURES = {
         _P, _LL, _LL, _LL, _I, QvRanges, _P, _LL, _LL, _I, _I, _F, _P, _P,
         _LL, _LL, _I, _I, _P],
     "qv_mc_kl": [_P, _P, _LL, _I, _P, _LL, _LL, _I, _F, _P, _I, _I, _P],
-    "qv_conv3x3_fwd": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
-    "qv_conv3x3_dx": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "qv_conv3x3_fwd": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "qv_conv3x3_dx": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "qv_conv3x3_dw": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _LL, _I, _P],
+    "qv_conv3x3_dw_slots": [ctypes.POINTER(ctypes.c_int)],
 }
 
 

@@ -10,11 +10,12 @@ a closed-form backward for dx, dw and db.
   their closed-form gradients (dx is the same sum on the cotangent with the
   taps flipped and transposed; dw and db are sums over all pixels);
 * ``conv3x3_forward`` / ``conv3x3_backward``: the wrappers of the
-  hand-written kernel ``csrc/conv3x3.cu``. A CUDA tensor launches it or
-  raises; a CPU tensor runs the plain version. Launches are counted in
-  ``conv3x3.fwd_launches`` and ``conv3x3.bwd_launches`` (one backward call
-  launches dx, when the input needs a gradient, and the two passes of dw
-  and db);
+  hand-written kernel ``csrc/conv3x3.cu`` (tensor cores, 3xTF32 products:
+  float32 accuracy). A CUDA tensor launches it or raises; a CPU tensor
+  runs the plain version. Launches are counted in ``conv3x3.fwd_launches``
+  and ``conv3x3.bwd_launches`` (a forward call launches the weight split
+  and the conv; one backward call launches dx with its weight split, when
+  the input needs a gradient, and the two passes of dw and db);
 * ``conv3x3``: the op as a ``torch.autograd.Function``.
 
 The encoder keeps its conv weight OIHW (``nn.Conv2d``, the bridged
@@ -24,6 +25,9 @@ stay NHWC, so the kernel path makes no activation transposes.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -32,8 +36,7 @@ from . import _cuda
 __all__ = ["conv3x3_available", "conv3x3", "conv3x3_forward",
            "conv3x3_backward", "conv3x3_plain", "conv3x3_grads_plain"]
 
-_DW_TILE = 64            # pixels the dw/db pass stages at a time
-_DW_BLOCKS = 128         # about this many pixel blocks (x the channel tiles)
+_DW_TILE = 128           # pixels the dw/db pass stages at a time
 
 
 def conv3x3_available(h: int, w: int) -> bool:
@@ -110,6 +113,32 @@ def _check_cuda(x, w_hwio, b=None, ct=None):
                              "(x and the cotangent NHWC, w HWIO)")
 
 
+def _weight_scratch(x: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
+    """The kernel's 3xTF32 weight fragments for cin -> cout: 9 taps x
+    ceil(cin / 8) k-steps x ceil(cout / 64) * 8 column tiles x 32 lanes x
+    4 floats (csrc/conv3x3.cu, qv_conv3x3_wsplit_kernel)."""
+    return x.new_empty(9 * -(-cin // 8) * 8 * -(-cout // 64) * 32 * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_slots(device: torch.device) -> int:
+    """Blocks of the dw pass that ``device`` runs at once."""
+    slots = ctypes.c_int()
+    with torch.cuda.device(device):
+        _cuda.check(_cuda.library().qv_conv3x3_dw_slots(ctypes.byref(slots)),
+                    "conv3x3 dw occupancy")
+    return slots.value
+
+
+def _dw_chunk(np_: int, ci: int, co: int, slots: int) -> int:
+    """Pixels a dw block sums: a multiple of the tile, with as many chunks as
+    make one wave of blocks (3 tap rows x the channel tiles a chunk) where
+    the pixels allow."""
+    blocks = 3 * -(-ci // 64) * -(-co // 64)
+    chunks = max(1, slots // blocks)
+    return _DW_TILE * -(-np_ // (_DW_TILE * chunks))
+
+
 def _device_of(x: torch.Tensor) -> str:
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no conv3x3 kernel for device {x.device}")
@@ -131,7 +160,8 @@ def conv3x3_forward(x: torch.Tensor, w_hwio: torch.Tensor,
         return y
     with torch.cuda.device(x.device):
         err = _cuda.library().qv_conv3x3_fwd(
-            x.data_ptr(), w_hwio.data_ptr(), b.data_ptr(), y.data_ptr(),
+            x.data_ptr(), w_hwio.data_ptr(), b.data_ptr(),
+            _weight_scratch(x, ci, co).data_ptr(), y.data_ptr(),
             n * h * wd, h, wd, ci, co,
             torch.cuda.current_stream(x.device).cuda_stream)
     _cuda.check(err, "conv3x3 forward")
@@ -160,10 +190,12 @@ def conv3x3_backward(x: torch.Tensor, w_hwio: torch.Tensor, ct: torch.Tensor,
     with torch.cuda.device(x.device):
         if need_dx and np_:
             _cuda.check(lib.qv_conv3x3_dx(ct.data_ptr(), w_hwio.data_ptr(),
-                                          dx.data_ptr(), np_, h, wd, ci, co,
-                                          stream), "conv3x3 dx")
+                                          _weight_scratch(x, co, ci)
+                                          .data_ptr(), dx.data_ptr(), np_,
+                                          h, wd, ci, co, stream),
+                        "conv3x3 dx")
         if np_:
-            chunk = _DW_TILE * -(-np_ // (_DW_TILE * _DW_BLOCKS))
+            chunk = _dw_chunk(np_, ci, co, _dw_slots(x.device))
             nb = -(-np_ // chunk)
             part = x.new_empty((nb, out.numel()))
             _cuda.check(lib.qv_conv3x3_dw(x.data_ptr(), ct.data_ptr(),

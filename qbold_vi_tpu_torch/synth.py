@@ -134,13 +134,20 @@ def create_synthetic_dataset_host(seed: int, scan: ScanParams,
                                   synth: SynthParams, *,
                                   full_model: bool = True,
                                   use_blood: bool = True,
-                                  quad_rule: str = "auto", device="cpu"):
+                                  quad_rule: str = "auto", device=None):
     """(x (N, n_taus), y (N, 3)) float32 numpy, N = sample_size ** 2: the
     meshgrid cross product of the OEF and DBV population samples in a
     random order, y = (oef, dbv, r2') before misalignment, x the decoded
     signals (misaligned and noisy where configured). ``seed`` is the
     integer the numpy generator starts from (``pretrain_data_seed`` of the
-    config seed in the trainer); the decode runs on ``device``."""
+    config seed in the trainer); the decode runs on ``device``: the CUDA
+    card unless the caller asks for another (``device="cpu"``)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "create_synthetic_dataset_host decodes on the CUDA card unless "
+            "asked otherwise, and no CUDA device is available: pass "
+            "device='cpu'")
     rng = np.random.default_rng(int(seed))
     n = synth.sample_size
 

@@ -12,6 +12,12 @@ encoder's ``fused_conv`` routing against the JAX package.
 * The port's encoder under "interpret" against the JAX FineTuner under
   "interpret" on bridged weights: outputs at 2e-5, and the gradients of one
   fine-tune loss scale-normalised at rtol 5e-4 (ROADMAP gate (a)).
+* The card kernel's arithmetic, modelled in torch: TF32 rounding as
+  ``cvt.rna`` does it, the hi/lo split and the three TF32 products a
+  float32 product becomes (3xTF32), accumulated in float32, against a
+  float64 ``F.conv2d`` at the trunk's 60 channels within chip_smoke.py's
+  CONV_TOL (1e-5 of the largest output and dx, 1e-4 of dw and db); one
+  TF32 product fails the same gate.
 
 Three jitted programs run the Mosaic interpreter in this file.
 """
@@ -35,8 +41,8 @@ from qbold_vi_tpu_torch import config as tcfg  # noqa: E402
 from qbold_vi_tpu_torch.io import from_jax  # noqa: E402
 from qbold_vi_tpu_torch.models import encoder as tenc  # noqa: E402
 from qbold_vi_tpu_torch.models.vi import FineTuner, init_params  # noqa: E402
-from qbold_vi_tpu_torch.ops.conv3x3 import (conv3x3,  # noqa: E402
-                                            conv3x3_available,
+from qbold_vi_tpu_torch.ops.conv3x3 import (_dw_chunk,  # noqa: E402
+                                            conv3x3, conv3x3_available,
                                             conv3x3_grads_plain,
                                             conv3x3_plain)
 from qbold_vi_tpu_torch.train import steps as tsteps  # noqa: E402
@@ -144,6 +150,22 @@ def test_bad_modes_and_small_planes():
         conv3x3(x, torch.zeros(3, 3, 4, 4), torch.zeros(4))
 
 
+@pytest.mark.parametrize("np_,ci,co,slots", [
+    (190_000, 60, 60, 396), (147_456, 60, 60, 396), (297, 5, 7, 8),
+    (1, 65, 65, 2), (4_000_000, 60, 60, 264)])
+def test_dw_chunks_make_one_wave(np_, ci, co, slots):
+    """Kernel H's dw pass: chunks of whole 128-pixel tiles that cover the
+    pixels, and no more blocks (3 tap rows x channel tiles a chunk) than
+    the card runs at once, unless one chunk's blocks already exceed it."""
+    chunk = _dw_chunk(np_, ci, co, slots)
+    nb = -(-np_ // chunk)
+    blocks = 3 * -(-ci // 64) * -(-co // 64)
+    assert chunk % 128 == 0 and nb * chunk >= np_
+    assert nb * blocks <= max(slots, blocks)
+    if np_ == 190_000:
+        assert (chunk, nb) == (1536, 124)
+
+
 def test_parameter_names_do_not_depend_on_the_mode():
     base = tcfg.ModelConfig(no_units=4, no_intermediate_layers=2)
     names = {mode: set(init_params(dataclasses.replace(base, fused_conv=mode),
@@ -216,3 +238,91 @@ def test_encoder_under_interpret_matches_jax():
         scale = np.abs(r).max() + 1e-12
         np.testing.assert_allclose(g / scale, r / scale, rtol=5e-4,
                                    atol=5e-4, err_msg=name)
+
+
+# ---- the 3xTF32 arithmetic of the card kernel (csrc/conv3x3.cu) -------------
+
+CONV_TOL = dict(y=1e-5, dx=1e-5, dw=1e-4, db=1e-4)     # chip_smoke.py's
+
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """float32 a rounded to TF32 as ``cvt.rna.tf32.f32`` does: to the
+    nearest value with a 10-bit mantissa, ties away from zero (half of the
+    13 dropped bits added to the sign-magnitude pattern, then dropped)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(a: torch.Tensor):
+    hi = _tf32(a)
+    return hi, _tf32(a - hi)
+
+
+def _mm(a, b, products):
+    """a @ b as the kernel takes it: a_lo b_hi + a_hi b_lo + a_hi b_hi
+    (3xTF32), or a_hi b_hi alone (one TF32 product); TF32 products are
+    exact in float32, and the sums are float32."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    if products == 1:
+        return ah @ bh
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _conv_tf32(x, w, b, products):
+    n, h, wd, ci = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros(n * h * wd, w.shape[-1])
+    for dy in range(3):
+        for dx in range(3):
+            acc = acc + _mm(xp[:, dy:dy + h, dx:dx + wd].reshape(-1, ci),
+                            w[dy, dx], products)
+    return (acc + b).reshape(n, h, wd, -1)
+
+
+def _grads_tf32(x, w, ct, products):
+    n, h, wd, ci = x.shape
+    co = ct.shape[-1]
+    dx = _conv_tf32(ct, torch.flip(w, (0, 1)).transpose(2, 3).contiguous(),
+                    torch.zeros(ci), products)
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    c2 = ct.reshape(-1, co)
+    dw = torch.stack([_mm(xp[:, dy:dy + h, dx_:dx_ + wd].reshape(-1, ci).T
+                          .contiguous(), c2, products)
+                      for dy in range(3) for dx_ in range(3)])
+    return dx, dw.reshape(3, 3, ci, co), c2.sum(0)
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    one_ulp = 2.0 ** -10                       # TF32's ulp at 1
+    a = torch.tensor([1.0 + one_ulp / 2, -(1.0 + one_ulp / 2),
+                      1.0 + one_ulp / 2 - 2.0 ** -23, 3.0, 0.0, -0.0])
+    want = torch.tensor([1.0 + one_ulp, -(1.0 + one_ulp), 1.0, 3.0, 0.0, 0.0])
+    assert torch.equal(_tf32(a), want)
+    hi, lo = _split(torch.zeros(5))
+    assert torch.equal(hi, torch.zeros(5)) and torch.equal(lo, torch.zeros(5))
+    v = torch.from_numpy(np.random.default_rng(1).normal(size=1000)
+                         .astype(np.float32))
+    hi, lo = _split(v)
+    assert torch.equal(_tf32(hi), hi) and torch.equal(_tf32(lo), lo)
+    assert float(((hi - v).abs() / v.abs()).max()) <= 2.0 ** -11
+    assert torch.equal(_split(hi)[1], torch.zeros(1000))   # lo of a TF32 is 0
+
+
+@pytest.mark.parametrize("products,within", [(3, True), (1, False)],
+                         ids=["3xTF32", "one_TF32"])
+def test_tf32_split_conv_meets_the_card_gate(products, within):
+    n, h, w, ci, co = 2, 25, 25, 60, 60
+    rng = np.random.default_rng(23)
+    x, k, b, ct = (torch.from_numpy(a) for a in _data(rng, n, h, w, ci, co))
+    args = [t.double().requires_grad_() for t in (x, k, b)]
+    ref = F.conv2d(args[0].permute(0, 3, 1, 2),
+                   args[1].permute(3, 2, 0, 1).contiguous(), args[2],
+                   padding=1).permute(0, 2, 3, 1)
+    refs = (ref.detach(),) + torch.autograd.grad(ref, args, ct.double())
+    got = (_conv_tf32(x, k, b, products),) + _grads_tf32(x, k, ct, products)
+    rel = {key: float((g.double() - r).abs().max() / r.abs().max())
+           for key, g, r in zip(("y", "dx", "dw", "db"), got, refs)}
+    fits = all(rel[key] <= CONV_TOL[key] for key in rel)
+    assert fits == within, rel
+    if not within:                      # the products miss, not the sums
+        assert rel["y"] > CONV_TOL["y"] and rel["dx"] > CONV_TOL["dx"], rel

@@ -14,9 +14,9 @@ tests/test_pallas_elbo.py:88-97). The sampled kernels D and E with host
 normals at the means/variances tolerances above and rtol 1e-5 for the KL
 rows; with device noise against the plain versions fed philox_normals at
 rtol 1e-4 (numpy's log/sin/cos on the host against the card's).
-The 3x3 conv kernel H: the output and dx within 1e-5 of their largest
-magnitude, dw and db within 1e-4 of theirs (sums of every pixel's terms
-in another order than the plain version's).
+The 3x3 conv kernel H (3xTF32 tensor-core products): the output and dx
+within 1e-5 of their largest magnitude, dw and db within 1e-4 of theirs
+(sums of every pixel's terms in another order than the plain version's).
 """
 
 import dataclasses
@@ -507,7 +507,18 @@ def _scaled_close(got, ref, tol, name):
     assert err <= tol * float(ref.abs().max()), f"{name}: {err:.3e}"
 
 
-@pytest.mark.parametrize("shape", [(38, 25, 25, 60, 60), (9, 3, 11, 5, 7)])
+# the three main-path shapes (fine-tune fold, serving chunk, prepare_real's
+# chunk), a batch of the fold, a pixel count off the 128-pixel tile, W = 3,
+# W past the 130 at which the staged strip splits into three tap rows,
+# ragged channel counts 1, 3, 5, 7 and 64, 65 (two channel tiles)
+CONV_CARD_SHAPES = [(304, 25, 25, 60, 60), (16, 96, 96, 60, 60),
+                    (32, 62, 76, 60, 60), (38, 25, 25, 60, 60),
+                    (3, 7, 9, 60, 60), (9, 3, 11, 5, 7), (4, 5, 3, 7, 5),
+                    (1, 4, 200, 8, 12), (2, 9, 10, 1, 3), (2, 9, 10, 3, 1),
+                    (2, 9, 10, 5, 7), (2, 9, 10, 64, 65), (2, 9, 10, 65, 64)]
+
+
+@pytest.mark.parametrize("shape", CONV_CARD_SHAPES)
 def test_conv3x3_kernel_matches_plain(cuda_device, shape):
     x, w, b, ct = _conv_inputs(np.random.default_rng(14), shape, cuda_device)
     counts = (tcv.conv3x3.fwd_launches, tcv.conv3x3.bwd_launches)

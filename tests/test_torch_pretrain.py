@@ -84,10 +84,19 @@ def test_synthetic_set_matches_jax(misalign, noise):
     key = jax.random.fold_in(jax.random.PRNGKey(3), 0x5EED)
     x_ref, y_ref = jsynth.create_synthetic_dataset_host(key, scan, synth)
     x, y = tsynth.create_synthetic_dataset_host(
-        tsynth.pretrain_data_seed(3), _port(scan), _port(synth))
+        tsynth.pretrain_data_seed(3), _port(scan), _port(synth), device="cpu")
     np.testing.assert_array_equal(y, y_ref)
     assert x.dtype == np.float32 and x.shape == (900, scan.n_taus)
     np.testing.assert_allclose(x, x_ref, rtol=1e-5, atol=1e-5)
+
+
+def test_synthetic_set_decodes_on_the_card_by_default(monkeypatch):
+    """Like every entry point of the port, the synthetic set decodes on
+    the CUDA card unless given device="cpu": without a card it raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tsynth.create_synthetic_dataset_host(
+            0, tcfg.ScanParams(), tcfg.SynthParams(sample_size=4))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 42, 2 ** 31 - 1])
