@@ -37,9 +37,12 @@ forward and backward), and checks them:
    mvg_kl_closed_form lies within 5 standard errors of 0;
 8. the training main path: Trainer.prepare_real + Trainer.finetune, 2
    epochs x 100 steps at batch 38 with device noise, on 6 x 96 x 96 x 8
-   volumes from seed 0 (F forward and backward launched once per step),
-   then a 10-step epoch with fused_elbo="off" (G launched), then one
-   step on the card against the same step on the CPU plain path;
+   volumes from seed 0 (F forward and backward launched once per step,
+   every backward from the forward's KL state), then a 10-step epoch with
+   fused_elbo="off" (G launched), then one step on the card against the
+   same step on the CPU plain path (check_step: softplus from the
+   initial weights, gradients at GRAD_TOL; relu from the trained
+   weights, within 1e-2 of their scale);
 9. timings: F and G forward and backward against their plain versions,
    one fine-tune step, and the wall of one 100-step epoch;
 10. C against its plain version at 1,032,192 and 1,000,003 voxels (both
@@ -73,15 +76,36 @@ forward and backward), and checks them:
 15. the two-phase path, OPTIMAL with fused_conv="on": Trainer.pretrain
    for 2 epochs at full data size (6.25 M synthetic voxels, 21 steps of
    512 pseudo-volumes an epoch; no kernel H, stream 1 only), and one
-   pretrain step on the card against the CPU;
+   pretrain step on the card against the CPU (check_step);
 16. then Trainer.finetune (prepare_real + 2 x 100 steps) through kernels H
    and F, launches asserted (4 H forward and backward a step, 4 forward a
-   prepare_real chunk, F once a step), and one step through H against
-   the same step through cuDNN;
+   prepare_real chunk, F once a step, every F backward from the KL
+   state), and one step through H against the same step through cuDNN
+   (check_step);
 17. stream-2 save_predictions on the three requests under fused_conv="on"
    (4 H launches a chunk), maps against cuDNN's at the map tolerances;
 18. timings: the stream-2 posterior_maps wall under "on" and "off", the
    pretrain step, the fine-tune step both ways, the epoch under "on".
+
+Kernel F's KL state (run with phases 6-9): the MVG forward writes per
+voxel the moments of its KL draws and a flag "some draw clamped", and the
+backward given them forms the KL side of an unflagged voxel in closed
+form (ops/fused_elbo.py). In each MVG case of phase 6 the backward runs
+without the state (every draw replayed) and from it:
+19. F on the fold's rows with q means moved near and past +-kl_bound, so
+   that some or all KL draws of most voxels clamp: rows, both backwards
+   and the state against the plain versions, the flags exactly;
+20. F on the fold with runs of 64 dead voxels (whole warps) and on a
+   fold with every voxel dead: dead voxels' rows and gradients are 0, as
+   the plain version's;
+21. the backward with and without the state (every voxel's KL draws
+   replayed on its own lanes), against each other at GRAD_TOL and against
+   the plain version (phases 6, 19, 20), and with device noise: the state
+   replays bit for bit;
+22. F's device times at the fold, forward (writing the state) and
+   backward (from it, and replaying every draw), under device and host
+   noise, beside the function's bound on this run's data and the counts
+   of this design's work and of replaying every draw (bound_elbo).
 
 It also traces posterior_maps (each stream and estimator), elbo_maps,
 the fine-tune step (both conv routes) and the pretrain step with
@@ -131,6 +155,7 @@ GRAD_TOL = (5e-4, 5e-5)
 PEAK_FLOPS = 67e12
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
+KL_STATE_FLOATS = 6                  # kernel F's KL state a voxel
 
 
 def log(msg: str) -> None:
@@ -373,8 +398,12 @@ OPS = dict(
     # NLL term (Student-t: 3 more), the rest of the backward's chain
     clen_i=64, clen_d=61, signal=18, nll_tau=9, grad_tau=50,
     # per draw: reparameterised sample and two sigmoids; one reduced-KL
-    # draw forward / backward; one Box-Muller pair
-    draw=18, kl_fwd=28, kl_bwd=52, box_muller=12,
+    # draw forward (+ the five moments of the KL state and the clamp test)
+    # / backward; one Box-Muller pair
+    draw=18, kl_fwd=28, kl_moments=12, kl_bwd=52, box_muller=12,
+    # per voxel, kernel F's backward from the KL state: the ten KL sums in
+    # closed form from the moments (csrc/fused_elbo.cu::qv_kl_grads_moments)
+    kl_closed=180,
     # per voxel: unpacking q and p (the backward with its tanh chain
     # factors), and the KL / gradient tails
     unpack=22, unpack_bwd=42, tail=40,
@@ -458,19 +487,47 @@ def ops_decode(t: int, student: bool, grads: bool) -> int:
 
 
 def bound_elbo(n, live, k, t, s_nll, s_kl, student, device_noise,
-               backward) -> dict:
-    """Kernel F (MVG): q, p (n, k), y, sigma (n, t) and the mask read once
-    (+ the cotangents and the written gradients for the backward, + the
-    normals in host-noise mode); the operations of the live voxels'
-    s_nll decodes and s_kl reduced-KL draws."""
+               backward, flagged=0, count="function") -> dict:
+    """Kernel F (MVG), by ``count``:
+
+    * "function", the bound reported: what the function needs, whatever
+      the design. q, p (n, k), y, sigma (n, t) and the mask read once (+
+      the cotangents and the written gradients for the backward, + the
+      normals in host-noise mode); the operations of the live voxels'
+      s_nll decodes and, forward, their s_kl reduced-KL draws; backward,
+      the s_kl draws summed into their five moments and the ten KL sums
+      from them in closed form (the fewest operations known), with the
+      KL draws of the ``flagged`` voxels (those whose draws clamp)
+      replayed.
+    * "replay": the backward replaying every draw (PR 2's count; the
+      forward's is "function").
+    * "state": this design's work, the KL state's: the forward also sums
+      the moments and writes the state; the backward reads it and no KL
+      normals, forms the unflagged voxels' KL sums in closed form and
+      replays the flagged voxels' draws.
+
+    Philox's integer work is not counted."""
     floats = 2 * k + 2 * t + 1 + 2 + (2 * k + 2 * t if backward else 0)
-    noise = 0 if device_noise else 2 * (s_nll + s_kl)
-    draws = OPS["box_muller"] * (s_nll + s_kl) if device_noise else 0
-    per = (OPS["unpack_bwd" if backward else "unpack"]
-           + s_nll * (OPS["draw"] + ops_decode(t, student, backward))
-           + s_kl * OPS["kl_bwd" if backward else "kl_fwd"] + draws
-           + OPS["tail"])
-    return bound(4 * n * (floats + noise), live * per)
+    noise = 0 if device_noise else 2 * (s_nll + s_kl) * n
+    bm = OPS["box_muller"] if device_noise else 0
+    base = (OPS["unpack_bwd" if backward else "unpack"] + OPS["tail"]
+            + s_nll * (OPS["draw"] + bm + ops_decode(t, student, backward)))
+    replay = flagged * s_kl * (OPS["kl_bwd"] + bm)
+    if not backward:
+        ops = live * (base + s_kl * (OPS["kl_fwd"] + bm + (
+            OPS["kl_moments"] if count == "state" else 0)))
+    elif count == "replay":
+        ops = live * (base + s_kl * (OPS["kl_bwd"] + bm))
+    elif count == "state":
+        ops = live * (base + OPS["kl_closed"]) + replay
+    else:
+        ops = (live * (base + OPS["kl_closed"]
+                       + s_kl * (bm + OPS["kl_moments"])) + replay)
+    if count == "state":
+        floats += KL_STATE_FLOATS
+        if backward and not device_noise:
+            noise = 2 * s_nll * n + 2 * s_kl * flagged
+    return bound(4 * (n * floats + noise), ops)
 
 
 def bound_decode(n, live, t, student, backward) -> dict:
@@ -489,22 +546,31 @@ def stepped(tuner, metrics) -> tuple:
              if p.grad is not None})
 
 
-def check_step(label, got, ref, before, lr) -> float:
+def check_step(label, got, ref, before, lr, kinks=False) -> float:
     """Raise unless one step from the weights ``before`` agrees between two
-    runs (``stepped`` triples): the loss at rtol 1e-5, the gradients
-    within 1e-2 of their scale, the updates as below. Returns the largest
-    gradient difference over its scale."""
+    runs (``stepped`` triples): the loss at rtol 1e-5, the updates as
+    below, and each gradient scale-normalised at GRAD_TOL (the card tests'
+    gate for a step), or with ``kinks`` (relu) within 1e-2 of its scale.
+    Returns the largest gradient difference over its scale. Each
+    comparison runs twice: with softplus in place of relu (``smooth``)
+    from the initial weights (init_params; the card tests' setting) at
+    GRAD_TOL, and as the main path runs it, relu from the trained weights,
+    with ``kinks``: a relu input within float32 rounding of 0 may take the
+    other side of the kink on one run, which moves a conv gradient by
+    1e-4 - 3e-4 of its scale, where a wrong gradient moves it by O(1)
+    (softplus on weights trained with relu can overflow the sigma
+    stream)."""
     (loss_c, after_c, grad_c), (loss_r, after_r, grad_r) = got, ref
     if not abs(loss_c - loss_r) <= 1e-5 * abs(loss_r):
         raise AssertionError(f"{label}: loss {loss_c} vs {loss_r}")
     worst_grad = 0.0
     for k, g_r in grad_r.items():
-        # relu kinks: a pre-activation within float32 rounding of 0 may
-        # take the other side on the card, moving a conv gradient by
-        # ~1e-4 of its scale; a wrong gradient moves it by O(1)
         scale = float(g_r.abs().max()) + 1e-30
         worst_grad = max(worst_grad,
                          float((grad_c[k] - g_r).abs().max()) / scale)
+        if not kinks:
+            check_rows(f"{label}: gradient of {k} over its scale",
+                       grad_c[k] / scale, g_r / scale, *GRAD_TOL)
         # Adam's first update is lr * g / (|g| + 1e-7): held tight where g
         # is clear of zero and of eps (a last-bit or kink difference in g
         # then barely moves it), and to the step's own bound elsewhere
@@ -517,10 +583,24 @@ def check_step(label, got, ref, before, lr) -> float:
             raise AssertionError(
                 f"{label}: update of {k} differs by {float(e.max()):.3e} "
                 f"(gradient scale {scale:.3e})")
-    if worst_grad > 1e-2:
+    if kinks and worst_grad > 1e-2:
         raise AssertionError(f"{label}: gradients differ by {worst_grad:.3e}"
                              " of their scale")
     return worst_grad
+
+
+def step_runs(cfg, initial, trained) -> tuple:
+    """(tag, configuration, weights, kinks) of the two runs of a compared
+    step (check_step)."""
+    return (("softplus, initial weights", smooth(cfg), initial, False),
+            ("relu, trained weights", cfg, trained, True))
+
+
+def smooth(cfg):
+    """cfg with softplus in place of its activation, for a step compared
+    across devices or routes at GRAD_TOL (check_step)."""
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, activation="softplus"))
 
 
 def ft_rows(tuner, rng, dev, n_taus) -> dict:
@@ -563,7 +643,12 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
     err = {}
 
     # ---- 6. F and G against their plain versions ------------------------
+    names = ("dq", "dp", "dy", "dsigma")
+
     def check_f(tag, rows, model, s_n):
+        """F's rows and both backwards (replaying every draw; from the KL
+        state, MVG) against the plain version and each other, the state
+        against kl_state_plain, dead voxels' outputs 0 (phases 6, 19-21)."""
         mvg = model.use_mvg
         k = 5 if mvg else 4
         n = rows["mask"].shape[0]
@@ -573,18 +658,45 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
         zn, zk, ct_n, ct_k = (normal(s_n, n, 2), normal(s_kl, n, 2),
                               normal(n), normal(n))
         kw = dict(mvg=mvg, s_nll=s_n, s_kl=s_kl, z_nll=zn, z_kl=zk)
-        got = fe.fused_elbo_forward(*main, c, **kw)
+        state = torch.empty(n, fe.KL_STATE, device=dev) if mvg else None
+        got = fe.fused_elbo_forward(*main, c, state=state, **kw)
         grads = fe.fused_elbo_backward(*main, ct_n, ct_k, c, **kw)
+        from_state = (fe.fused_elbo_backward(*main, ct_n, ct_k, c,
+                                             state=state, **kw)
+                      if mvg else grads)
         torch.cuda.synchronize()
         ref = fe.elbo_rows_plain(*main, zn, zk, c, mvg)
         gref = fe.elbo_grads_plain(*main, zn, zk, ct_n, ct_k, c, mvg)
         e_rows = max(check_rows(f"F fwd {tag} {nm}", x, r)
                      for nm, x, r in zip(("nll", "kl"), got, ref))
-        e_grads = max(check_grad(f"F bwd {tag} {nm}", x, r)
-                      for nm, x, r in zip(("dq", "dp", "dy", "dsigma"),
-                                          grads, gref))
+        e_grads = max(check_grad(f"F bwd {tag} {nm}{way}", x, r)
+                      for way, gs in (("", grads),
+                                      (" from the state", from_state))
+                      for nm, x, r in zip(names, gs, gref))
+        flagged = 0
+        if mvg:
+            for nm, x, y in zip(names, from_state, grads):
+                check_grad(f"F bwd {tag} {nm} from the state vs replayed",
+                           x, y)
+            sref = fe.kl_state_plain(main[0], main[4], zk, c)
+            flag = state[:, 5] != 0
+            if not torch.equal(flag, sref[:, 5] != 0):
+                raise AssertionError(f"F state {tag}: clamp flags differ")
+            check_rows(f"F state {tag} moments", state[:, :5], sref[:, :5],
+                       1e-5, 1e-3)
+            flagged = int(flag.sum())
+        dead = main[4] == 0
+        for x, y in zip(tuple(got) + tuple(grads) + tuple(from_state),
+                        tuple(ref) + tuple(gref) + tuple(gref)):
+            if not (bool((x[dead] == 0).all()) and bool(
+                    (y[dead][torch.isfinite(y[dead])] == 0).all())):
+                raise AssertionError(f"F {tag}: a dead voxel's output is "
+                                     "not 0")
         log(f"kernel F vs plain ok: {tag}, N={n} (rows {e_rows:.3e}, "
-            f"gradients {e_grads:.3e} max abs)")
+            f"gradients {e_grads:.3e} max abs; "
+            + (f"backward with and without the KL state, {flagged} voxels' "
+               "KL draws clamp; " if mvg else "")
+            + f"{int(dead.sum())} dead)")
         return e_rows, e_grads
 
     rows = ft_rows(tuner, rng, dev, t_n)
@@ -597,6 +709,25 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
     check_f("Student-t df 2, multi-image, s_nll 2", ragged,
             dataclasses.replace(mcfg, student_t_df=2.0,
                                 multi_image_normalisation=True), 2)
+
+    # ---- 19. F where KL draws clamp ----------------------------------------
+    bound_kl = dn.decode_consts(mcfg, scan, True).scalars["kl_bound"]
+    q = rows["q"].clone()
+    q[0::4, 0] = bound_kl - 0.5
+    q[1::4, 2] = -(bound_kl + 1.0)
+    q[2::4, 0] = -(bound_kl - 2.0)
+    check_f("q means near and past +-kl_bound", dict(rows, q=q), mcfg,
+            s_nll)
+
+    # ---- 20. F on dead warps ---------------------------------------------
+    idx = torch.arange(N_FT, device=dev)
+    dead = (idx < N_FT // 2) & ((idx // 64) % 2 == 0)
+    check_f("runs of 64 dead voxels", dict(
+        rows, mask=torch.where(dead, 0.0, rows["mask"]),
+        y=torch.where(dead[:, None], 0.0, rows["y"])), mcfg, s_nll)
+    check_f("every voxel dead", dict(
+        rows, mask=torch.zeros_like(rows["mask"]),
+        y=torch.zeros_like(rows["y"])), mcfg, s_nll)
 
     c_opt = dn.decode_consts(mcfg, scan, True)
     draws = tuner.dist.sample_many(normal(1, N_FT, 2), rows["q"],
@@ -629,9 +760,18 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
     r3 = fe.fused_elbo_forward(*main_d, c_opt, seed=6, **kw)
     g1 = fe.fused_elbo_backward(*main_d, ct_n, ct_k, c_opt, seed=5, **kw)
     g2 = fe.fused_elbo_backward(*main_d, ct_n, ct_k, c_opt, seed=5, **kw)
+    states, gs = [], []
+    for _ in range(2):      # 21. the state path under device noise
+        states.append(torch.empty(N_FT, fe.KL_STATE, device=dev))
+        fe.fused_elbo_forward(*main_d, c_opt, seed=5, state=states[-1], **kw)
+        gs.append(fe.fused_elbo_backward(*main_d, ct_n, ct_k, c_opt, seed=5,
+                                         state=states[-1], **kw))
     torch.cuda.synchronize()
-    if not all(torch.equal(x, y) for x, y in zip(r1 + g1, r2 + g2)):
+    if not all(torch.equal(x, y) for x, y in zip(
+            r1 + g1 + gs[0] + (states[0],), r2 + g2 + gs[1] + (states[1],))):
         raise AssertionError("F device noise: one seed did not replay")
+    for nm, x, y in zip(names, gs[0], g1):
+        check_grad(f"F device noise {nm} from the state vs replayed", x, y)
     if torch.equal(r1[0], r3[0]):
         raise AssertionError("F device noise: two seeds gave equal rows")
     z = gpu(fe.philox_normals(5, N_FT, s_nll + s_kl))
@@ -664,15 +804,21 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
     before = {k: v.clone() for k, v in trainer.tuner.state_dict().items()}
     for f in counters.values():
         f.launches = 0
+    fe.fused_elbo_backward.from_state = 0
     trainer.finetune(data, epochs=2)
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counters.items()}
+    from_state = fe.fused_elbo_backward.from_state
     n_steps = 2 * cfg.train.ft_steps_per_epoch
     log(f"fine-tune (2 epochs x {cfg.train.ft_steps_per_epoch} steps, batch "
-        f"{cfg.train.ft_batch_size}, device noise) launches: {launches}")
+        f"{cfg.train.ft_batch_size}, device noise) launches: {launches}, F "
+        f"backward from the KL state {from_state}")
     if (launches["F_fwd"], launches["F_bwd"]) != (n_steps, n_steps) or \
             launches["G_fwd"] or launches["G_bwd"]:
         raise AssertionError(f"F did not run once a step: {launches}")
+    if from_state != n_steps:
+        raise AssertionError(f"F's backward took the KL state {from_state} "
+                             f"times in {n_steps} steps")
     if not all(np.isfinite(v) for m in logged for v in m.values()):
         raise AssertionError("non-finite fine-tune metrics")
     if all(torch.equal(before[k], v)
@@ -705,20 +851,23 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
     noise = {"z_nll": rng.normal(size=(s_nll,) + shape + (2,)),
              "z_kl": rng.normal(size=(s_kl,) + shape + (2,))}
     noise = {k: v.astype(np.float32) for k, v in noise.items()}
-    state = trainer.tuner.state_dict()
-    result = {}
-    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
-        t = FineTuner(mcfg, scan, device=device)
-        t.load_state_dict(state)
-        opt = optim.make_finetune_optimizer(t.parameters(), cfg.train)
-        result[name] = stepped(t, steps.make_finetune_step(t, cfg, opt)(
-            {k: v.to(device) for k, v in batch.items()}, noise=noise))
-    worst_grad = check_step("one fine-tune step on the card vs the CPU",
-                            result["card"], result["cpu"], state,
-                            float(cfg.train.ft_lr))
-    log(f"one step on the card agrees with the CPU plain path: loss "
-        f"{result['card'][0]:.7g} vs {result['cpu'][0]:.7g}, gradients "
-        f"within {worst_grad:.2e} of their scale, updates within tolerance")
+    trained = {k: v.clone() for k, v in trainer.tuner.state_dict().items()}
+    for tag, c, weights, kinks in step_runs(cfg, tuner.state_dict(), trained):
+        result = {}
+        for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            t = FineTuner(c.model, scan, device=device)
+            t.load_state_dict(weights)
+            opt = optim.make_finetune_optimizer(t.parameters(), c.train)
+            result[name] = stepped(t, steps.make_finetune_step(t, c, opt)(
+                {k: v.to(device) for k, v in batch.items()}, noise=noise))
+        worst_grad = check_step(
+            f"one fine-tune step ({tag}) on the card vs the CPU",
+            result["card"], result["cpu"], weights, float(cfg.train.ft_lr),
+            kinks)
+        log(f"one step ({tag}) on the card agrees with the CPU plain path: "
+            f"loss {result['card'][0]:.7g} vs {result['cpu'][0]:.7g}, "
+            f"gradients within {worst_grad:.2e} of their scale "
+            f"({'1e-2' if kinks else 'GRAD_TOL'}), updates within tolerance")
 
     # ---- 9. timings ---------------------------------------------------------
     log_clocks("before the fine-tune timings")
@@ -729,13 +878,22 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
     zn, zk = z[:s_nll], z[s_nll:]
     kwd = dict(mvg=True, s_nll=s_nll, s_kl=s_kl, seed=seed)
     kwh = dict(mvg=True, s_nll=s_nll, s_kl=s_kl, z_nll=zn, z_kl=zk)
+    # ---- 22. F at the fold: the main path's forward writes the KL state
+    # and its backward reads it
+    st = {way: torch.empty(N_FT, fe.KL_STATE, device=dev)
+          for way in ("device", "host")}
+    fe.fused_elbo_forward(*main, c_opt, state=st["device"], **kwd)
+    fe.fused_elbo_forward(*main, c_opt, state=st["host"], **kwh)
+    flagged = int((st["device"][:, 5] != 0).sum())
     times = {
         "F_fwd": time_kernel(
-            lambda: fe.fused_elbo_forward(*main, c_opt, **kwd),
+            lambda: fe.fused_elbo_forward(*main, c_opt, state=st["device"],
+                                          **kwd),
             "qv_elbo_fwd_kernel",
             lambda: fe.elbo_rows_plain(*main, zn, zk, c_opt, True)),
         "F_bwd": time_kernel(
-            lambda: fe.fused_elbo_backward(*main, ct_n, ct_k, c_opt, **kwd),
+            lambda: fe.fused_elbo_backward(*main, ct_n, ct_k, c_opt,
+                                           state=st["device"], **kwd),
             "qv_elbo_bwd_kernel",
             lambda: fe.elbo_grads_plain(*main, zn, zk, ct_n, ct_k, c_opt,
                                         True)),
@@ -748,14 +906,24 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
             "qv_decode_nll_bwd_kernel",
             lambda: dn.nll_row_grads_plain(*g_args, c_opt)),
     }
-    host = (kernel_ms(lambda: fe.fused_elbo_forward(*main, c_opt, **kwh),
-                      "qv_elbo_fwd_kernel"),
-            kernel_ms(lambda: fe.fused_elbo_backward(*main, ct_n, ct_k,
-                                                     c_opt, **kwh),
-                      "qv_elbo_bwd_kernel"))
+    replay = {"device": kernel_ms(
+        lambda: fe.fused_elbo_backward(*main, ct_n, ct_k, c_opt, **kwd),
+        "qv_elbo_bwd_kernel")}
+    host = (kernel_ms(lambda: fe.fused_elbo_forward(
+                *main, c_opt, state=st["host"], **kwh), "qv_elbo_fwd_kernel"),
+            kernel_ms(lambda: fe.fused_elbo_backward(
+                *main, ct_n, ct_k, c_opt, state=st["host"], **kwh),
+                "qv_elbo_bwd_kernel"))
+    replay["host"] = kernel_ms(lambda: fe.fused_elbo_backward(
+        *main, ct_n, ct_k, c_opt, **kwh), "qv_elbo_bwd_kernel")
     log_times(times, N_FT, card)
     log(f"F with host noise: forward {host[0]:.4f} ms, backward "
-        f"{host[1]:.4f} ms on the device at N={N_FT} [{card}]")
+        f"{host[1]:.4f} ms from the KL state on the device at N={N_FT} "
+        f"[{card}]")
+    log(f"F backward replaying every draw (no KL state): device noise "
+        f"{replay['device']:.4f} ms, host noise {replay['host']:.4f} ms; "
+        f"{flagged} of {int((rows['mask'] > 0).sum())} live voxels' KL draws "
+        f"clamp [{card}]")
     log_clocks("after the kernel timings")
     step = steps.make_finetune_step(trainer.tuner, cfg, trainer.optimizer)
     batch = steps.sample_crop_batch(torch.Generator().manual_seed(9), vol,
@@ -774,9 +942,9 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
     student = c_opt.student
     bounds = {
         "F_fwd": bound_elbo(N_FT, n_live, 5, t_n, s_nll, s_kl, student, True,
-                            False),
+                            False, flagged),
         "F_bwd": bound_elbo(N_FT, n_live, 5, t_n, s_nll, s_kl, student, True,
-                            True),
+                            True, flagged),
         "G_fwd": bound_decode(N_FT, n_live, t_n, student, False),
         "G_bwd": bound_decode(N_FT, n_live, t_n, student, True),
     }
@@ -784,6 +952,26 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
                      "qbold_vi_tpu/ops/pallas_elbo.py", (464, 492)),
                "G": ("decode_nll", "qbold_vi_tpu_torch/csrc/decode_nll.cu",
                      "qbold_vi_tpu/ops/pallas_decode.py", (399, 431))}
+    # F beside its bound (the function's count), this design's count (the
+    # KL state's) and PR 2's replay count (bound_elbo)
+    extra = {"F_fwd": {"host_noise_ms": host[0]},
+             "F_bwd": {"host_noise_ms": host[1],
+                       "replay_ms": replay["device"],
+                       "replay_host_noise_ms": replay["host"],
+                       "clamped_voxels": flagged}}
+    for way in ("fwd", "bwd"):
+        k = f"F_{way}"
+        for count in ("state", "replay") if way == "bwd" else ("state",):
+            extra[k][f"{count}_design_bound_ms"] = bound_elbo(
+                N_FT, n_live, 5, t_n, s_nll, s_kl, student, True,
+                way == "bwd", flagged, count)["bound_ms"]
+        log(f"{k}: {times[k][0]:.4f} ms against its bound "
+            f"{bounds[k]['bound_ms']:.5f} ms ({bounds[k]['bound_by']}; "
+            f"{100 * bounds[k]['bound_ms'] / times[k][0]:.1f}%); this "
+            f"design's count {extra[k]['state_design_bound_ms']:.5f} ms"
+            + (f", the replay count "
+               f"{extra[k]['replay_design_bound_ms']:.5f} ms"
+               if way == "bwd" else "") + f" [{card}]")
     kernels = []
     for key, (name, src, tpu, lines) in sources.items():
         for way, line in zip(("fwd", "bwd"), lines):
@@ -793,7 +981,7 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
                 "route": "cuda", "source": src, "replaces": f"{tpu}:{line}",
                 "launches": launches[k], "max_abs_err": err[k],
                 "ms": times[k][0], "plain_ms": times[k][2], **bounds[k],
-                "library_ms": None})
+                "library_ms": None, **extra.get(k, {})})
     return {"kernels": kernels, "step_ms": step_ms, "epoch_ms": epoch_ms}
 
 
@@ -1309,7 +1497,7 @@ def two_phase_path(dev, card, base, conv: dict) -> dict:
     across devices and conv routes; stream-2 serving under "on"; timings.
     Returns H's JSON entries and the walls."""
     from qbold_vi_tpu_torch import infer, synth
-    from qbold_vi_tpu_torch.models.vi import FineTuner
+    from qbold_vi_tpu_torch.models.vi import FineTuner, init_params
     from qbold_vi_tpu_torch.ops import conv3x3 as cv
     from qbold_vi_tpu_torch.ops import fused_elbo as fe
     from qbold_vi_tpu_torch.train import data as data_pipe
@@ -1370,24 +1558,29 @@ def two_phase_path(dev, card, base, conv: dict) -> dict:
     big = {"x": torch.from_numpy(tx[:cfg.train.pt_batch_size]).to(dev),
            "y": torch.from_numpy(ty[:cfg.train.pt_batch_size]).to(dev)}
     small = {k: v[:32] for k, v in big.items()}
-    result = {}
-    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
-        t = FineTuner(mcfg, scan, device=device)
-        t.load_state_dict(pretrained)
-        opt = optim.make_pretrain_optimizer(t.named_parameters(), cfg.train)
-        result[name] = stepped(t, steps.make_pretrain_step(t, cfg, opt)(
-            {k: v.to(device) for k, v in small.items()}, seed=3))
-    worst = check_step("one pretrain step on the card vs the CPU",
-                       result["card"], result["cpu"], pretrained,
-                       float(cfg.train.pt_lr))
-    log(f"one pretrain step on the card agrees with the CPU: loss "
-        f"{result['card'][0]:.7g} vs {result['cpu'][0]:.7g}, gradients within"
-        f" {worst:.2e} of their scale, updates within tolerance")
+    init = init_params(mcfg, scan, torch.Generator().manual_seed(
+        cfg.train.seed))
+    for tag, c, weights, kinks in step_runs(cfg, init, pretrained):
+        result = {}
+        for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            t = FineTuner(c.model, scan, device=device)
+            t.load_state_dict(weights)
+            opt = optim.make_pretrain_optimizer(t.named_parameters(), c.train)
+            result[name] = stepped(t, steps.make_pretrain_step(t, c, opt)(
+                {k: v.to(device) for k, v in small.items()}, seed=3))
+        worst = check_step(f"one pretrain step ({tag}) on the card vs the CPU",
+                           result["card"], result["cpu"], weights,
+                           float(cfg.train.pt_lr), kinks)
+        log(f"one pretrain step ({tag}) on the card agrees with the CPU: loss "
+            f"{result['card'][0]:.7g} vs {result['cpu'][0]:.7g}, gradients "
+            f"within {worst:.2e} of their scale "
+            f"({'1e-2' if kinks else 'GRAD_TOL'}), updates within tolerance")
 
     # ---- 16. the two-phase path: prepare_real + finetune under "on" -------
     data = volumes(np.random.default_rng(0), TRAIN_VOLUMES, scan.n_taus)
     cv.conv3x3.fwd_launches = cv.conv3x3.bwd_launches = 0
     fe.fused_elbo_forward.launches = fe.fused_elbo_backward.launches = 0
+    fe.fused_elbo_backward.from_state = 0
     trainer.finetune(data, epochs=2)
     torch.cuda.synchronize()
     n_steps = 2 * cfg.train.ft_steps_per_epoch
@@ -1397,14 +1590,16 @@ def two_phase_path(dev, card, base, conv: dict) -> dict:
     launches = {"H_fwd": cv.conv3x3.fwd_launches,
                 "H_bwd": cv.conv3x3.bwd_launches,
                 "F_fwd": fe.fused_elbo_forward.launches,
-                "F_bwd": fe.fused_elbo_backward.launches}
+                "F_bwd": fe.fused_elbo_backward.launches,
+                "F_bwd_from_state": fe.fused_elbo_backward.from_state}
     log(f"two-phase fine-tune (2 epochs x {cfg.train.ft_steps_per_epoch} "
         f"steps, fused_conv on) launches: {launches}; expected H "
         f"{n_conv * n_steps} + {prior_fwd} (prepare_real) forward, "
         f"{n_conv * n_steps} backward")
     if (launches["H_fwd"], launches["H_bwd"]) != (
             n_conv * n_steps + prior_fwd, n_conv * n_steps) or \
-            (launches["F_fwd"], launches["F_bwd"]) != (n_steps, n_steps):
+            (launches["F_fwd"], launches["F_bwd"],
+             launches["F_bwd_from_state"]) != (n_steps,) * 3:
         raise AssertionError(f"H or F did not run as counted: {launches}")
     ft = [m for phase, m in logged if phase == "finetune"]
     if len(ft) != 2 or not all(np.isfinite(v) for m in ft for v in m.values()):
@@ -1418,20 +1613,28 @@ def two_phase_path(dev, card, base, conv: dict) -> dict:
                                     pri, cfg.train.ft_batch_size,
                                     cfg.train.crop_size)
     state = {k: v.clone() for k, v in trainer.tuner.state_dict().items()}
-    result, tuners = {}, {}
+    tuners = {}
     for name, c in (("on", cfg), ("off", off)):
         t = FineTuner(c.model, scan, device=dev)
         t.load_state_dict(state)
-        opt = optim.make_finetune_optimizer(t.parameters(), c.train)
-        result[name] = stepped(t, steps.make_finetune_step(t, c, opt)(
-            batch, seed=11))
-        tuners[name] = (t, opt, c)
-    worst = check_step("one fine-tune step under fused_conv on vs off",
-                       result["on"], result["off"], state,
-                       float(cfg.train.ft_lr))
-    log(f"one fine-tune step through H agrees with cuDNN: loss "
-        f"{result['on'][0]:.7g} vs {result['off'][0]:.7g}, gradients within "
-        f"{worst:.2e} of their scale, updates within tolerance")
+        tuners[name] = (t, optim.make_finetune_optimizer(t.parameters(),
+                                                         c.train), c)
+    for tag, _, weights, kinks in step_runs(cfg, init, state):
+        result = {}
+        for name, c in (("on", cfg), ("off", off)):
+            c = smooth(c) if not kinks else c
+            t = FineTuner(c.model, scan, device=dev)
+            t.load_state_dict(weights)
+            opt = optim.make_finetune_optimizer(t.parameters(), c.train)
+            result[name] = stepped(t, steps.make_finetune_step(t, c, opt)(
+                batch, seed=11))
+        worst = check_step(f"one fine-tune step ({tag}) under fused_conv on "
+                           "vs off", result["on"], result["off"], weights,
+                           float(cfg.train.ft_lr), kinks)
+        log(f"one fine-tune step ({tag}) through H agrees with cuDNN: loss "
+            f"{result['on'][0]:.7g} vs {result['off'][0]:.7g}, gradients "
+            f"within {worst:.2e} of their scale "
+            f"({'1e-2' if kinks else 'GRAD_TOL'}), updates within tolerance")
 
     # ---- 17. stream-2 serving under "on" ----------------------------------
     serve = tuners["on"][0]

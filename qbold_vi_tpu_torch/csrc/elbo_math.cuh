@@ -239,8 +239,28 @@ static __device__ __forceinline__ void qv_nll_terms(const QvDecodeConsts& C,
   }
 }
 
-// Summed-over-tau NLL of one draw (pallas_decode._nll_row); y and sig
-// point at the voxel's T values.
+// One tau's NLL term of a draw (the body of pallas_decode._nll_row), given
+// the measured and predicted normalisers; y and sig point at the voxel's T
+// values.
+static __device__ __forceinline__ float qv_nll_tau(const QvDecodeConsts& C,
+                                                   const QvTable& tb, int t,
+                                                   float oef, float dbv,
+                                                   const float* y,
+                                                   const float* sig,
+                                                   float mask, float t_ref,
+                                                   float p_ref) {
+  float yh = y[t] / t_ref;
+  float q = qv_signal(C, tb, t, oef, dbv).pred / p_ref;
+  if (C.log_data) {
+    yh = mask > 0.0f ? logf(yh) : 0.0f;
+    q = mask > 0.0f ? logf(q) : 0.0f;
+  }
+  float nll, d_r, d_sig;
+  qv_nll_terms(C, yh - q, sig[t], &nll, &d_r, &d_sig);
+  return nll;
+}
+
+// Summed-over-tau NLL of one draw (pallas_decode._nll_row).
 static __device__ __forceinline__ float qv_nll_row(const QvDecodeConsts& C,
                                                    const QvTable& tb,
                                                    float oef, float dbv,
@@ -250,80 +270,90 @@ static __device__ __forceinline__ float qv_nll_row(const QvDecodeConsts& C,
   float t_ref = qv_ref_y(C, y);
   float p_ref = qv_ref_pred(C, tb, oef, dbv);
   float acc = 0.0f;
-  for (int t = 0; t < C.n_taus; ++t) {
-    float yh = y[t] / t_ref;
-    float q = qv_signal(C, tb, t, oef, dbv).pred / p_ref;
-    if (C.log_data) {
-      yh = mask > 0.0f ? logf(yh) : 0.0f;
-      q = mask > 0.0f ? logf(q) : 0.0f;
-    }
-    float nll, d_r, d_sig;
-    qv_nll_terms(C, yh - q, sig[t], &nll, &d_r, &d_sig);
-    acc = acc + nll;
-  }
+  for (int t = 0; t < C.n_taus; ++t)
+    acc = acc + qv_nll_tau(C, tb, t, oef, dbv, y, sig, mask, t_ref, p_ref);
   return acc;
 }
 
 // Closed-form gradients of qv_nll_row for one draw
 // (pallas_decode._nll_row_grads), in one pass over the taus: the window
-// terms of the normaliser chain are summed on the way and applied after.
-// d/doef and d/ddbv are returned unscaled; ct * d/dsigma and ct * d/dy are
-// written to dsig/dy (first draw) or added to them (later draws).
+// terms of the normaliser chain are summed on the way (QvNllSums) and
+// applied after (qv_nll_grads_tail). d/doef and d/ddbv are returned
+// unscaled; ct * d/dsigma and ct * d/dy are written to dsig/dy (first draw)
+// or added to them (later draws), tau by tau (qv_nll_tau_grads).
+struct QvNllSums {
+  float eq, cy, a_oef, a_dbv, w_oef, w_dbv;
+};
+
+static __device__ __forceinline__ void qv_nll_tau_grads(
+    const QvDecodeConsts& C, const QvTable& tb, int t, float oef, float dbv,
+    const float* y, const float* sig, float mask, float ct, bool first,
+    float t_ref, float p_ref, float* dsig, float* dy, QvNllSums* s) {
+  QvSignal sg = qv_signal(C, tb, t, oef, dbv);
+  float di = qv_dintegral(C, tb, t, oef);
+  float dt_doef = (-dbv * di) * sg.tissue;
+  float dt_ddbv = (-sg.integral) * sg.tissue;
+  float dpo, dpd;
+  if (C.use_blood) {
+    float db_doef = ((-2.0f * tb.beta[t]) * oef) * sg.blood;
+    dpo = (1.0f - sg.w) * dt_doef + sg.w * db_doef;
+    dpd = (1.0f - sg.w) * dt_ddbv + C.mnb * (sg.blood - sg.tissue);
+  } else {
+    dpo = (1.0f - sg.w) * dt_doef;
+    dpd = (1.0f - sg.w) * dt_ddbv - sg.tissue;
+  }
+  float yh_lin = y[t] / t_ref;
+  float q_lin = sg.pred / p_ref;
+  float yh = yh_lin, z = q_lin;
+  if (C.log_data) {
+    yh = mask > 0.0f ? logf(yh_lin) : 0.0f;
+    z = mask > 0.0f ? logf(q_lin) : 0.0f;
+  }
+  float nll, d_r, d_sig;
+  qv_nll_terms(C, yh - z, sig[t], &nll, &d_r, &d_sig);
+  float e = -d_r, c = d_r;
+  if (C.log_data) {
+    e = e / q_lin;
+    c = mask > 0.0f ? d_r / fmaxf(yh_lin, 1e-30f) : 0.0f;
+  }
+  s->eq = s->eq + e * q_lin;
+  s->cy = s->cy + c * yh_lin;
+  float ep = e / p_ref;
+  s->a_oef = s->a_oef + ep * dpo;
+  s->a_dbv = s->a_dbv + ep * dpd;
+  if (qv_in_window(C, t)) {
+    s->w_oef = s->w_oef + dpo;
+    s->w_dbv = s->w_dbv + dpd;
+  }
+  float vs = ct * d_sig, vy = ct * (c / t_ref);
+  dsig[t] = first ? vs : dsig[t] + vs;
+  dy[t] = first ? vy : dy[t] + vy;
+}
+
+// d/doef and d/ddbv of a draw from its summed taus; returns ct times the
+// normaliser's share, which each tau of the window subtracts from dy.
+static __device__ __forceinline__ float qv_nll_grads_tail(
+    const QvDecodeConsts& C, const QvNllSums& s, float ct, float t_ref,
+    float p_ref, float* doef, float* ddbv) {
+  float kp = s.eq * (C.wk / p_ref);
+  *doef = s.a_oef - kp * s.w_oef;
+  *ddbv = s.a_dbv - kp * s.w_dbv;
+  return ct * (s.cy * (C.wk / t_ref));
+}
+
 static __device__ __forceinline__ void qv_nll_row_grads(
     const QvDecodeConsts& C, const QvTable& tb, float oef, float dbv,
     const float* y, const float* sig, float mask, float ct, bool first,
     float* dsig, float* dy, float* doef, float* ddbv) {
   float t_ref = qv_ref_y(C, y);
   float p_ref = qv_ref_pred(C, tb, oef, dbv);
-  float sum_eq = 0.0f, sum_cy = 0.0f;
-  float a_oef = 0.0f, a_dbv = 0.0f, w_oef = 0.0f, w_dbv = 0.0f;
-  for (int t = 0; t < C.n_taus; ++t) {
-    QvSignal s = qv_signal(C, tb, t, oef, dbv);
-    float di = qv_dintegral(C, tb, t, oef);
-    float dt_doef = (-dbv * di) * s.tissue;
-    float dt_ddbv = (-s.integral) * s.tissue;
-    float dpo, dpd;
-    if (C.use_blood) {
-      float db_doef = ((-2.0f * tb.beta[t]) * oef) * s.blood;
-      dpo = (1.0f - s.w) * dt_doef + s.w * db_doef;
-      dpd = (1.0f - s.w) * dt_ddbv + C.mnb * (s.blood - s.tissue);
-    } else {
-      dpo = (1.0f - s.w) * dt_doef;
-      dpd = (1.0f - s.w) * dt_ddbv - s.tissue;
-    }
-    float yh_lin = y[t] / t_ref;
-    float q_lin = s.pred / p_ref;
-    float yh = yh_lin, z = q_lin;
-    if (C.log_data) {
-      yh = mask > 0.0f ? logf(yh_lin) : 0.0f;
-      z = mask > 0.0f ? logf(q_lin) : 0.0f;
-    }
-    float nll, d_r, d_sig;
-    qv_nll_terms(C, yh - z, sig[t], &nll, &d_r, &d_sig);
-    float e = -d_r, c = d_r;
-    if (C.log_data) {
-      e = e / q_lin;
-      c = mask > 0.0f ? d_r / fmaxf(yh_lin, 1e-30f) : 0.0f;
-    }
-    sum_eq = sum_eq + e * q_lin;
-    sum_cy = sum_cy + c * yh_lin;
-    float ep = e / p_ref;
-    a_oef = a_oef + ep * dpo;
-    a_dbv = a_dbv + ep * dpd;
-    if (qv_in_window(C, t)) {
-      w_oef = w_oef + dpo;
-      w_dbv = w_dbv + dpd;
-    }
-    float vs = ct * d_sig, vy = ct * (c / t_ref);
-    dsig[t] = first ? vs : dsig[t] + vs;
-    dy[t] = first ? vy : dy[t] + vy;
-  }
-  float kp = sum_eq * (C.wk / p_ref);
-  *doef = a_oef - kp * w_oef;
-  *ddbv = a_dbv - kp * w_dbv;
-  float ky = ct * (sum_cy * (C.wk / t_ref));
-  int lo = C.multi ? C.se - 1 : C.se, hi = C.multi ? C.se + 1 : C.se;
-  for (int t = lo; t <= hi; ++t) dy[t] = dy[t] - ky;
+  QvNllSums s = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int t = 0; t < C.n_taus; ++t)
+    qv_nll_tau_grads(C, tb, t, oef, dbv, y, sig, mask, ct, first, t_ref,
+                     p_ref, dsig, dy, &s);
+  float ky = qv_nll_grads_tail(C, s, ct, t_ref, p_ref, doef, ddbv);
+  for (int t = 0; t < C.n_taus; ++t)
+    if (qv_in_window(C, t)) dy[t] = dy[t] - ky;
 }
 
 // ---- posterior draws -------------------------------------------------------
@@ -373,33 +403,39 @@ static __device__ __forceinline__ QvWhite qv_white(const QvPost& u) {
 // ---- Philox4x32-10 + Box-Muller (ops/fused_elbo.py::philox_normals) --------
 // Counter (voxel lo, voxel hi, draw, 0), key (seed lo, seed hi): each
 // (voxel, draw) pair has its own normals, so the backward replays every
-// draw bit for bit from the seed alone.
-static __device__ __forceinline__ void qv_philox(unsigned c[4], unsigned k0,
-                                                 unsigned k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    unsigned lo0 = 0xD2511F53u * c[0], hi0 = __umulhi(0xD2511F53u, c[0]);
-    unsigned lo1 = 0xCD9E8D57u * c[2], hi1 = __umulhi(0xCD9E8D57u, c[2]);
-    unsigned n0 = hi1 ^ c[1] ^ k0, n2 = hi0 ^ c[3] ^ k1;
-    c[0] = n0;
-    c[1] = lo1;
-    c[2] = n2;
-    c[3] = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-}
-
+// draw bit for bit from the seed alone. Each round's two products take
+// their high and low words from one 32 x 32 -> 64-bit multiply.
+// Box-Muller: logf (a cheaper log loses the small radii near u1 = 1), the
+// root as x rsqrt(x), and the angle from __sincosf on [-pi, pi): no slow
+// path (cosf/sinf keep one), ~1e-6 of the normals' scale off the exact
+// values, inside every device-noise gate against philox_normals (rtol
+// 1e-4); PERF.md has the measured gain.
 static __device__ __forceinline__ void qv_normal2(long long v, int draw,
                                                   unsigned k0, unsigned k1,
                                                   float* z0, float* z1) {
-  unsigned c[4] = {(unsigned)v, (unsigned)((unsigned long long)v >> 32),
-                   (unsigned)draw, 0u};
-  qv_philox(c, k0, k1);
-  float u1 = (float)((c[0] >> 8) + 1u) * 5.9604644775390625e-8f;
-  float u2 = (float)(c[1] >> 8) * 5.9604644775390625e-8f;
-  float r = sqrtf(-2.0f * logf(u1));
-  float th = QV_F(6.283185307179586) * u2;
-  *z0 = r * cosf(th);
-  *z1 = r * sinf(th);
+  unsigned c0 = (unsigned)v, c1 = (unsigned)((unsigned long long)v >> 32);
+  unsigned c2 = (unsigned)draw, c3 = 0u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    unsigned long long p0 = (unsigned long long)0xD2511F53u * c0;
+    unsigned long long p1 = (unsigned long long)0xCD9E8D57u * c2;
+    unsigned n0 = (unsigned)(p1 >> 32) ^ c1 ^ k0;
+    unsigned n2 = (unsigned)(p0 >> 32) ^ c3 ^ k1;
+    c0 = n0;
+    c1 = (unsigned)p1;
+    c2 = n2;
+    c3 = (unsigned)p0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  float u1 = (float)((c0 >> 8) + 1u) * 5.9604644775390625e-8f;
+  float u2 = (float)(c1 >> 8) * 5.9604644775390625e-8f;
+  float x = -2.0f * logf(u1);
+  float r = x > 0.0f ? x * rsqrtf(x) : 0.0f;
+  // 2 pi u2 = pi + t, t = 2 pi (u2 - 1/2) in [-pi, pi) (u2 - 1/2 exact),
+  // where the hardware's sine and cosine keep their stated accuracy
+  float sn, cs;
+  __sincosf(6.2831855f * (u2 - 0.5f), &sn, &cs);
+  *z0 = -(r * cs);
+  *z1 = -(r * sn);
 }

@@ -97,10 +97,10 @@ _SIGNATURES = {
         _I, _I, _P],
     "qv_elbo_fwd": [
         _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, QvDecodeConsts, _P,
-        _I, _P, _P, _I, _I, _P],
+        _I, _P, _P, _P, _I, _P],
     "qv_elbo_bwd": [
-        _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P, _P,
-        QvDecodeConsts, _P, _I, _P, _P, _P, _P, _I, _I, _P],
+        _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P, _P, _P,
+        QvDecodeConsts, _P, _I, _P, _P, _P, _P, _I, _P],
     "qv_mc_summaries": [
         _P, _LL, _LL, _LL, _I, QvRanges, _P, _LL, _LL, _I, _I, _F, _P, _P,
         _LL, _LL, _I, _I, _P],

@@ -13,6 +13,14 @@ giving ``(nll_rows, kl_rows)`` (N,); the backward replays the draws and
 gives dq, dp, dy and dsigma in closed form. The loss is assembled as
 ``sum(nll_rows) / (s_nll * sum(mask)) + sum(kl_rows) / sum(mask)``.
 
+The KL state: with a ``state`` (N, 6) tensor the MVG forward also writes,
+per voxel, the moments of its KL draws (sum z0, z1, z0^2, z0 z1, z1^2) and
+a flag "some draw clamped at +-kl_bound" (``kl_state_plain``). Given it,
+the backward forms the KL side of an unflagged voxel from the moments in
+closed form and draws only the NLL draws (the kernel's ``from_state``
+path); ``fused_elbo`` passes it from its forward to its backward. The
+state changes no result beyond rounding: the plain versions define both.
+
 Noise: ``z_nll`` (s_nll, N, 2) and ``z_kl`` (s_kl, N, 2) standard normals
 in the JAX layout (host noise), or a ``seed``: the kernel then draws
 normal pair d of voxel v from a Philox4x32-10 counter (v, d) keyed by the
@@ -21,10 +29,11 @@ replays them bit for bit. ``philox_normals`` is the same generator in
 numpy: the plain version takes its normals from it for a seed.
 
 * ``elbo_rows_plain`` / ``elbo_grads_plain``: the plain torch versions of
-  the two Pallas kernels;
+  the two Pallas kernels; ``kl_state_plain``: of the state;
 * ``fused_elbo_forward`` / ``fused_elbo_backward``: the wrappers of the
   hand-written kernel ``csrc/fused_elbo.cu``. A CUDA tensor launches it,
-  counted in ``<wrapper>.launches``, or raises; a CPU tensor runs the
+  counted in ``<wrapper>.launches`` (and the backward's state path in
+  ``fused_elbo_backward.from_state``), or raises; a CPU tensor runs the
   plain version;
 * ``fused_elbo``: the op as a ``torch.autograd.Function``.
 """
@@ -38,14 +47,15 @@ from ..config import ModelConfig, ScanParams
 from ..dist.logit_mvn import whiten_apply, whiten_factors
 from . import _cuda
 from .decode_nll import (DecodeConsts, _check_cuda, _device_of, _grid,
-                         _BLOCK, fused_available,
-                         nll_row_grads_plain, nll_row_plain)
+                         fused_available, nll_row_grads_plain, nll_row_plain)
 
 __all__ = ["fused_elbo_available", "fused_elbo", "fused_elbo_forward",
            "fused_elbo_backward", "elbo_rows_plain", "elbo_grads_plain",
-           "philox_normals"]
+           "kl_state_plain", "philox_normals", "KL_STATE"]
 
 _EXP_M2 = float(np.exp(-2.0))
+KL_STATE = 6                # floats of the KL state a voxel (csrc QV_STATE)
+_BWD_LANES = 2              # lanes a backward voxel (csrc QV_BWD_LANES)
 
 
 def fused_elbo_available(cfg: ModelConfig, scan: ScanParams,
@@ -228,6 +238,25 @@ def elbo_grads_plain(q, p, y, sigma, mask, z_nll, z_kl, ct_n, ct_k,
             ct_n[:, None] * dy_acc, ct_n[:, None] * dsig_acc)
 
 
+def kl_state_plain(q, mask, z_kl, C: DecodeConsts):
+    """(N, KL_STATE) KL state of an MVG forward: per live voxel the sums
+    over its KL draws of z0, z1, z0^2, z0 z1 and z1^2, and 1.0 where some
+    draw's logits clamp at +-kl_bound (0.0 otherwise); 0 rows where the
+    mask is 0."""
+    qs, _ = _unpack(q, True)
+    std0, std1 = torch.exp(qs[1]), torch.exp(qs[3])
+    z0, z1 = z_kl[..., 0], z_kl[..., 1]
+    u0 = qs[0] + z0 * std0
+    u1 = qs[2] + z0 * qs[4] + z1 * std1
+    b = C.scalars["kl_bound"]
+    clamped = ((torch.clamp(u0, -b, b) != u0)
+               | (torch.clamp(u1, -b, b) != u1)).any(0)
+    state = torch.stack([z0.sum(0), z1.sum(0), (z0 * z0).sum(0),
+                         (z0 * z1).sum(0), (z1 * z1).sum(0),
+                         clamped.to(z0.dtype)], -1)
+    return torch.where((mask != 0)[:, None], state, 0.0)
+
+
 # ---- kernel wrappers ------------------------------------------------------------
 
 def _noise_args(z_nll, z_kl, seed, n, s_nll, s_kl, mvg):
@@ -251,15 +280,30 @@ def _plain_noise(z_nll, z_kl, seed, n, s_nll, s_kl, device):
     return z_nll, z_kl
 
 
+def _check_state(state, q, n: int, mvg: bool):
+    if state is None:
+        return
+    if not mvg:
+        raise ValueError("the KL state is an MVG posterior's")
+    if (tuple(state.shape) != (n, KL_STATE) or state.dtype != torch.float32
+            or state.device != q.device or not state.is_contiguous()):
+        raise ValueError(f"state must be a contiguous float32 (N, {KL_STATE}) "
+                         "tensor on the device of q")
+
+
 def fused_elbo_forward(q, p, y, sigma, mask, C: DecodeConsts, *, mvg: bool,
                        s_nll: int, s_kl: int, z_nll=None, z_kl=None,
-                       seed=None):
+                       seed=None, state=None):
     """(nll_rows, kl_rows). CUDA: kernel F's forward (counted in
     ``fused_elbo_forward.launches``); CPU: the plain version, with the
-    normals of ``philox_normals`` when given a seed."""
+    normals of ``philox_normals`` when given a seed. ``state``: an
+    (N, KL_STATE) float32 tensor (MVG) that receives the KL state."""
     n = mask.shape[0]
+    _check_state(state, q, n, mvg)
     if _device_of(q) == "cpu":
         zn, zk = _plain_noise(z_nll, z_kl, seed, n, s_nll, s_kl, q.device)
+        if state is not None:
+            state.copy_(kl_state_plain(q, mask, zk, C))
         return elbo_rows_plain(q, p, y, sigma, mask, zn, zk, C, mvg)
     q, p, y, sigma, mask = _check_cuda("fused ELBO", q, p, y, sigma, mask)
     zn, zk, sd = _noise_args(z_nll, z_kl, seed, n, s_nll, s_kl, mvg)
@@ -273,7 +317,8 @@ def fused_elbo_forward(q, p, y, sigma, mask, C: DecodeConsts, *, mvg: bool,
             q.data_ptr(), p.data_ptr(), y.data_ptr(), sigma.data_ptr(),
             mask.data_ptr(), ptr(zn), ptr(zk), sd, n, int(mvg), s_nll, s_kl,
             C.struct(), table.data_ptr(), table.numel(), nll.data_ptr(),
-            kl.data_ptr(), _grid(n), _BLOCK,
+            kl.data_ptr(), ptr(state),
+            _grid(n),
             torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check(err, "fused ELBO forward")
     fused_elbo_forward.launches += 1
@@ -282,11 +327,13 @@ def fused_elbo_forward(q, p, y, sigma, mask, C: DecodeConsts, *, mvg: bool,
 
 def fused_elbo_backward(q, p, y, sigma, mask, ct_n, ct_k, C: DecodeConsts, *,
                         mvg: bool, s_nll: int, s_kl: int, z_nll=None,
-                        z_kl=None, seed=None):
+                        z_kl=None, seed=None, state=None):
     """(dq, dp, dy, dsigma) of sum(ct_n * nll_rows + ct_k * kl_rows).
-    CUDA: kernel F's backward (counted in ``fused_elbo_backward.launches``);
-    CPU: the plain version."""
+    CUDA: kernel F's backward (counted in ``fused_elbo_backward.launches``;
+    given the forward's ``state``, also in ``.from_state``: the KL side
+    from the moments where no draw clamped); CPU: the plain version."""
     n = mask.shape[0]
+    _check_state(state, q, n, mvg)
     if _device_of(q) == "cpu":
         zn, zk = _plain_noise(z_nll, z_kl, seed, n, s_nll, s_kl, q.device)
         return elbo_grads_plain(q, p, y, sigma, mask, zn, zk, ct_n, ct_k, C,
@@ -304,33 +351,40 @@ def fused_elbo_backward(q, p, y, sigma, mask, ct_n, ct_k, C: DecodeConsts, *,
         err = _cuda.library().qv_elbo_bwd(
             q.data_ptr(), p.data_ptr(), y.data_ptr(), sigma.data_ptr(),
             mask.data_ptr(), ptr(zn), ptr(zk), sd, n, int(mvg), s_nll, s_kl,
-            ct_n.data_ptr(), ct_k.data_ptr(), C.struct(), table.data_ptr(),
-            table.numel(), dq.data_ptr(), dp.data_ptr(), dsig.data_ptr(),
-            dy.data_ptr(), _grid(n), _BLOCK,
+            ct_n.data_ptr(), ct_k.data_ptr(), ptr(state), C.struct(),
+            table.data_ptr(), table.numel(), dq.data_ptr(), dp.data_ptr(),
+            dsig.data_ptr(), dy.data_ptr(),
+            _grid(_BWD_LANES * n),
             torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check(err, "fused ELBO backward")
     fused_elbo_backward.launches += 1
+    fused_elbo_backward.from_state += state is not None
     return dq, dp, dy, dsig
 
 
 fused_elbo_forward.launches = 0
 fused_elbo_backward.launches = 0
+fused_elbo_backward.from_state = 0
 
 
 class _FusedELBO(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, p, y, sigma, mask, z_nll, z_kl, kw):
-        ctx.save_for_backward(q, p, y, sigma, mask, z_nll, z_kl)
+        # the backward reads the state on the card; the plain one needs none
+        state = (q.new_empty((mask.shape[0], KL_STATE))
+                 if kw["mvg"] and q.is_cuda else None)
+        rows = fused_elbo_forward(q, p, y, sigma, mask, z_nll=z_nll,
+                                  z_kl=z_kl, state=state, **kw)
+        ctx.save_for_backward(q, p, y, sigma, mask, z_nll, z_kl, state)
         ctx.kw = kw
-        return fused_elbo_forward(q, p, y, sigma, mask, z_nll=z_nll,
-                                  z_kl=z_kl, **kw)
+        return rows
 
     @staticmethod
     def backward(ctx, ct_n, ct_k):
-        q, p, y, sigma, mask, z_nll, z_kl = ctx.saved_tensors
+        q, p, y, sigma, mask, z_nll, z_kl, state = ctx.saved_tensors
         dq, dp, dy, dsig = fused_elbo_backward(
             q, p, y, sigma, mask, ct_n, ct_k, z_nll=z_nll, z_kl=z_kl,
-            **ctx.kw)
+            state=state, **ctx.kw)
         return dq, dp, dy, dsig, None, None, None, None
 
 

@@ -10,11 +10,15 @@ train.py:17-72, 188-427):
   held-out validation; SWA when configured, adopted under ``swa_adopt``;
 * ``prepare_real``: blank crop, per-voxel priors from the encoder's plain
   forward pass, and a ``RealCropSampler``;
-* ``finetune``: the volumes and priors go to the device once; each epoch
-  runs ``ft_steps_per_epoch`` steps on crops drawn there
-  (steps.make_finetune_epoch_on_device), reads its metrics back once,
-  logs them and trips on a non-finite one; with study data, the ELBO
-  validation runs after every epoch.
+* ``finetune``: the priors of the training and study crops are predicted
+  once, on the first call, from the weights fine-tuning starts from (the
+  JAX trainer predicts them from the pretrained encoder); the volumes and
+  priors go to the device; each epoch runs ``ft_steps_per_epoch`` steps on
+  crops drawn there (steps.make_finetune_epoch_on_device), reads its
+  metrics back once, logs them and trips on a non-finite one; with study
+  data, the ELBO validation runs after every epoch. Calls with ``epochs=``
+  continue the schedule up to ``no_ft_epochs``; a call after it returns
+  at once.
 
 ``WeightStatus`` follows the JAX trainer: a Trainer given ``state_dict``
 starts PRE_TRAINED (pretrain() returns at once); one without it starts
@@ -123,6 +127,7 @@ class Trainer:
         self.optimizer = None
         self.epochs_done = 0
         self.sampler = None
+        self._ft_samplers = None      # (training, study) crops of finetune
         self.swa = None
         self.last_pretrain_metrics: dict = {}
         self.last_finetune_metrics: dict = {}
@@ -256,21 +261,29 @@ class Trainer:
                  epochs: Optional[int] = None) -> dict:
         """Fine-tune with the MC-ELBO on (S, X, Y, Z, T+1) volumes with a
         trailing mask channel; ``epochs`` (default: the rest of
-        ``no_ft_epochs``) bounds this call, continuing the schedule.
-        Returns the last epoch's metrics."""
+        ``no_ft_epochs``) bounds this call, continuing the schedule, which
+        ends at ``no_ft_epochs``. The first call predicts the priors of
+        ``train_data`` and ``study_data``; a continuing call reuses its
+        crops and priors and reads neither. Returns the last epoch's
+        metrics (at once when fine-tuning has ended: FULL_TRAINED)."""
         cfg = self.cfg
+        if self.status is WeightStatus.FULL_TRAINED:
+            return self.last_finetune_metrics
         if self.status is WeightStatus.NOT_TRAINED:
             raise RuntimeError("pretrain() must run before finetune() (or "
                                "give the Trainer a state_dict)")
         dev = self.tuner.device
-        sampler = self.prepare_real(train_data)
-        eval_sampler = None
-        if study_data is not None:
-            sd = np.float32(study_data)
-            priors = data_pipe.predict_priors(
-                self._encode_fn(), sd, 5 if cfg.model.use_mvg else 4)
-            eval_sampler = data_pipe.RealCropSampler(
-                sd, priors, 76, rng=np.random.default_rng(0))
+        if self._ft_samplers is None:
+            sampler = self.prepare_real(train_data)
+            eval_sampler = None
+            if study_data is not None:
+                sd = np.float32(study_data)
+                priors = data_pipe.predict_priors(
+                    self._encode_fn(), sd, 5 if cfg.model.use_mvg else 4)
+                eval_sampler = data_pipe.RealCropSampler(
+                    sd, priors, 76, rng=np.random.default_rng(0))
+            self._ft_samplers = (sampler, eval_sampler)
+        sampler, eval_sampler = self._ft_samplers
         if self.optimizer is None:
             self.optimizer = make_finetune_optimizer(self.tuner.parameters(),
                                                      cfg.train)
@@ -278,8 +291,8 @@ class Trainer:
             self.tuner, cfg, self.optimizer, cfg.train.ft_steps_per_epoch)
         volumes = torch.from_numpy(sampler.data).to(dev)
         priors = torch.from_numpy(sampler.priors).to(dev)
-        stop = cfg.train.no_ft_epochs if epochs is None else (
-            self.epochs_done + epochs)
+        stop = cfg.train.no_ft_epochs if epochs is None else min(
+            self.epochs_done + epochs, cfg.train.no_ft_epochs)
         metrics = {}
         while self.epochs_done < stop:
             t0 = time.perf_counter()

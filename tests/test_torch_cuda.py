@@ -366,28 +366,84 @@ def test_decode_nll_kernel_matches_plain(cuda_device, case):
         _grad_close(g, r, name)
 
 
+def _shape_rows(a, rows, C):
+    """The row sets of kernel F's card cases: "random" as drawn;
+    "clamped": q means near or past +-kl_bound, so that some or all KL
+    draws clamp; "dead_warps": runs of 64 masked voxels (whole warps of
+    dead voxels) in the first half, beside the random mask."""
+    n = a["mask"].shape[0]
+    if rows == "clamped":
+        b = C.scalars["kl_bound"]
+        a["q"][0::4, 0] = b - 0.5
+        a["q"][1::4, 2] = -(b + 1.0)
+        a["q"][2::4, 0] = -(b - 2.0)
+    elif rows == "dead_warps":
+        idx = torch.arange(n, device=a["mask"].device)
+        dead = (idx < n // 2) & ((idx // 64) % 2 == 0)
+        a["mask"][dead] = 0.0
+        a["y"][dead] = 0.0
+
+
+@pytest.mark.parametrize("rows", ["random", "clamped", "dead_warps"])
 @pytest.mark.parametrize("s_nll", [1, 2])
 @pytest.mark.parametrize("case", list(FT_CASES))
-def test_fused_elbo_kernel_matches_plain(cuda_device, case, s_nll):
+def test_fused_elbo_kernel_matches_plain(cuda_device, case, s_nll, rows):
+    """Kernel F's rows and gradients against its plain version (host
+    noise); the MVG backward both without the KL state (every draw
+    replayed on the voxel's lanes) and from the forward's state (the KL
+    side of unclamped voxels from the moments, of clamped ones replayed by
+    the warp), against the plain version and each other;
+    the state against kl_state_plain; dead voxels' outputs are 0."""
     cfg = dataclasses.replace(tcfg.OPTIMAL.model, **FT_CASES[case])
     C = tdn.decode_consts(cfg, SCAN)
     mvg = cfg.use_mvg
-    a = _ft_inputs(np.random.default_rng(9), 40_003, 5 if mvg else 4,
+    n = 40_003
+    a = _ft_inputs(np.random.default_rng(9), n, 5 if mvg else 4,
                    cuda_device, s_nll=s_nll)
+    _shape_rows(a, rows, C)
     main = (a["q"], a["p"], a["y"], a["sigma"], a["mask"])
     kw = dict(mvg=mvg, s_nll=s_nll, s_kl=70, z_nll=a["z_nll"],
               z_kl=a["z_kl"])
-    got = tfe.fused_elbo_forward(*main, C, **kw)
+    state = (torch.full((n, tfe.KL_STATE), 7.0, device=cuda_device) if mvg
+             else None)
+    counts = (tfe.fused_elbo_forward.launches,
+              tfe.fused_elbo_backward.launches,
+              tfe.fused_elbo_backward.from_state)
+    got = tfe.fused_elbo_forward(*main, C, state=state, **kw)
     gg = tfe.fused_elbo_backward(*main, a["ct_n"], a["ct_k"], C, **kw)
+    gs = (tfe.fused_elbo_backward(*main, a["ct_n"], a["ct_k"], C,
+                                  state=state, **kw) if mvg else gg)
     torch.cuda.synchronize()
+    assert (tfe.fused_elbo_forward.launches - counts[0],
+            tfe.fused_elbo_backward.launches - counts[1],
+            tfe.fused_elbo_backward.from_state - counts[2]) == (
+                (1, 2, 1) if mvg else (1, 1, 0))
     ref = tfe.elbo_rows_plain(*main, a["z_nll"], a["z_kl"], C, mvg)
     gr = tfe.elbo_grads_plain(*main, a["z_nll"], a["z_kl"], a["ct_n"],
                               a["ct_k"], C, mvg)
     for name, x, y in zip(("nll", "kl"), got, ref):
         np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
                                    err_msg=name, **ROW_TOL)
-    for name, x, y in zip(("dq", "dp", "dy", "dsig"), gg, gr):
+    names = ("dq", "dp", "dy", "dsig")
+    for name, x, y, w in zip(names, gg, gr, gs):
         _grad_close(x, y, name)
+        _grad_close(w, y, name + " from the state")
+        _grad_close(w, x, name + " from the state vs replayed")
+    if mvg:
+        sref = tfe.kl_state_plain(a["q"], a["mask"], a["z_kl"], C)
+        flag = state[:, 5] != 0
+        assert torch.equal(flag, sref[:, 5] != 0)
+        np.testing.assert_allclose(state[:, :5].cpu().numpy(),
+                                   sref[:, :5].cpu().numpy(), rtol=1e-5,
+                                   atol=1e-4)
+        if rows == "clamped":
+            assert int(flag.sum()) > n // 4
+    dead = a["mask"] == 0
+    assert int(dead.sum()) > 0
+    for x, y in zip(tuple(got) + tuple(gg) + tuple(gs),
+                    tuple(ref) + tuple(gr) + tuple(gr)):
+        assert bool((x[dead] == 0).all())
+        assert bool((y[dead][torch.isfinite(y[dead])] == 0).all())
 
 
 def test_fused_elbo_device_noise(cuda_device):
@@ -409,6 +465,17 @@ def test_fused_elbo_device_noise(cuda_device):
     g2 = tfe.fused_elbo_backward(*main, a["ct_n"], a["ct_k"], C, seed=5, **kw)
     for x, y in zip(r1 + g1, r2 + g2):
         assert torch.equal(x, y)
+    states = [torch.empty(n, tfe.KL_STATE, device=cuda_device)
+              for _ in range(2)]
+    gs = []
+    for st in states:
+        tfe.fused_elbo_forward(*main, C, seed=5, state=st, **kw)
+        gs.append(tfe.fused_elbo_backward(*main, a["ct_n"], a["ct_k"], C,
+                                          seed=5, state=st, **kw))
+    assert torch.equal(*states)
+    for x, y, w in zip(gs[0], gs[1], g1):
+        assert torch.equal(x, y)
+        _grad_close(x, w, "from the state vs replayed")
     assert not torch.equal(r1[0], r3[0])
     z = torch.from_numpy(tfe.philox_normals(5, n, 71)).to(cuda_device)
     ref = tfe.elbo_rows_plain(*main, z[:1], z[1:], C, True)
@@ -487,6 +554,60 @@ def test_step_gradients_are_float32_on_the_card(cuda_device):
     assert worst > GRAD_TOL["atol"], (
         f"TF32 conv gradients were within float32 tolerance ({worst:.2e}): "
         "the check cannot tell the two apart")
+
+
+@pytest.mark.parametrize("route", ["fused_conv", "fused_elbo"])
+def test_step_through_kernels_matches_reference_route(cuda_device, route):
+    """One fine-tune step on the card with a kernel against the same step
+    through the reference route, gradients scale-normalised at GRAD_TOL:
+    the trunk convs through kernel H (fused_conv "on") against cuDNN
+    ("off"); the ELBO through kernel F (fused_elbo "on", its backward from
+    the KL state) against kernel G plus the torch KL (fused_elbo "off").
+    Host normals, so that both routes draw the same; softplus, since a
+    relu input within rounding of 0 may take either side of the kink."""
+    base = dataclasses.replace(
+        tcfg.OPTIMAL, scan=SCAN,
+        model=dataclasses.replace(tcfg.OPTIMAL.model, activation="softplus"))
+    cfgs = {}
+    for mode in ("on", "off"):
+        if route == "fused_conv":
+            cfgs[mode] = dataclasses.replace(base, model=dataclasses.replace(
+                base.model, fused_conv=mode))
+        else:
+            cfgs[mode] = dataclasses.replace(base, train=dataclasses.replace(
+                base.train, fused_elbo=mode, fused_decode_nll="on"))
+    rng = np.random.default_rng(17)
+    shape = (8, 25, 25, 8)
+    mask = (rng.uniform(size=shape + (1,)) > 0.2).astype(np.float32)
+    batch = {"images": (np.abs(rng.normal(size=shape + (11,))) * 50 + 100
+                        ).astype(np.float32) * mask, "mask": mask,
+             "priors": (rng.normal(size=shape + (5,)) * 0.3
+                        ).astype(np.float32)}
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in batch.items()}
+    noise = {"z_nll": rng.normal(size=(1,) + shape + (2,)).astype(np.float32),
+             "z_kl": rng.normal(size=(70,) + shape + (2,)).astype(np.float32)}
+    sd = init_params(base.model, SCAN, torch.Generator().manual_seed(5))
+    grads, counts = {}, {}
+    for mode, cfg in cfgs.items():
+        tuner = FineTuner(cfg.model, SCAN, device=cuda_device)
+        tuner.load_state_dict(sd)
+        opt = toptim.make_finetune_optimizer(tuner.parameters(), cfg.train)
+        before = (tcv.conv3x3.bwd_launches, tfe.fused_elbo_backward.from_state,
+                  tdn.decode_nll_backward.launches)
+        tsteps.make_finetune_step(tuner, cfg, opt)(batch, noise=noise)
+        torch.cuda.synchronize()
+        counts[mode] = (tcv.conv3x3.bwd_launches - before[0],
+                        tfe.fused_elbo_backward.from_state - before[1],
+                        tdn.decode_nll_backward.launches - before[2])
+        grads[mode] = _grads(tuner)
+    n_conv = 2 * base.model.no_intermediate_layers
+    if route == "fused_conv":
+        assert counts == {"on": (n_conv, 1, 0), "off": (0, 1, 0)}
+    else:
+        assert counts == {"on": (0, 1, 0), "off": (0, 0, 1)}
+    assert set(grads["on"]) == set(grads["off"])
+    for k, g in grads["off"].items():
+        _grad_close(grads["on"][k], g, k)
 
 
 # ---- the 3x3 conv kernel H --------------------------------------------------

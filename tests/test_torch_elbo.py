@@ -240,3 +240,173 @@ def test_modes_resolve_with_force_semantics():
     homo = dataclasses.replace(tuner.cfg, heteroscedastic_noise=False)
     with pytest.raises(ValueError, match="not covered"):
         tsteps.resolve_fused_nll(tuner, cfg(homo, fused_decode_nll="on"), cpu)
+
+
+# ---- the KL state and the moment form of kernel F's KL backward -------------
+
+def _kl_grads_moments(q, p, state, s_kl):
+    """d/dq, d/dp (N, 5) of sum(kl_rows) from the KL state's moments: a
+    transcription of csrc/fused_elbo.cu::qv_kl_grads_moments (each residual
+    of the KL backward affine in (z0, z1), its sums of degree <= 2), valid
+    where no draw clamps."""
+    from qbold_vi_tpu_torch.dist.logit_mvn import whiten_factors
+
+    qs, (qc1, qc3, qc4) = tfe._unpack(q, True)
+    ps, (pc1, pc3, pc4) = tfe._unpack(p, True)
+    std0, std1 = torch.exp(qs[1]), torch.exp(qs[3])
+    q_itl, q_ibr, q_ibl = whiten_factors(qs[1], qs[3], qs[4])
+    p_itl, p_ibr, p_ibl = whiten_factors(ps[1], ps[3], ps[4])
+    p_ee = torch.exp(-ps[1] - ps[3])
+    m = [torch.full_like(std0, float(s_kl))] + [state[:, i] for i in range(5)]
+
+    def lin(x, sx, y, sy):
+        return tuple(a * sx + b * sy for a, b in zip(x, y))
+
+    def scale(x, s):
+        return tuple(a * s for a in x)
+
+    def sum1(x):
+        return x[0] * m[0] + x[1] * m[1] + x[2] * m[2]
+
+    def sum_z0(x):
+        return x[0] * m[1] + x[1] * m[3] + x[2] * m[4]
+
+    def sum_z1(x):
+        return x[0] * m[2] + x[1] * m[4] + x[2] * m[5]
+
+    def sum2(x, y):
+        return ((x[0] * y[0]) * m[0] + (x[0] * y[1] + x[1] * y[0]) * m[1]
+                + (x[0] * y[2] + x[2] * y[0]) * m[2] + (x[1] * y[1]) * m[3]
+                + (x[1] * y[2] + x[2] * y[1]) * m[4] + (x[2] * y[2]) * m[5])
+
+    zero = torch.zeros_like(std0)
+    rq0, rq1 = (zero, std0, zero), (zero, qs[4], std1)
+    rp0, rp1 = (qs[0] - ps[0], std0, zero), (qs[2] - ps[2], qs[4], std1)
+    wq0, wq1 = scale(rq0, q_itl), lin(rq1, q_ibr, rq0, q_ibl)
+    wp0, wp1 = scale(rp0, p_itl), lin(rp1, p_ibr, rp0, p_ibl)
+    dp_l0, dp_l1 = lin(wp0, p_itl, wp1, p_ibl), scale(wp1, p_ibr)
+    dl0 = lin(dp_l0, 1.0, lin(wq0, q_itl, wq1, q_ibl), -1.0)
+    dl1 = lin(dp_l1, 1.0, scale(wq1, q_ibr), -1.0)
+    w1r0 = sum2(wp1, rp0)
+    k = [sum1(dl0), sum_z0(dl0) * std0, sum1(dl1), sum_z1(dl1) * std1,
+         sum_z0(dl1), -sum1(dp_l0), -(sum2(wp0, wp0) + w1r0 * p_ibl),
+         -sum1(dp_l1), -sum2(wp1, wp1), -(w1r0 * p_ee)]
+    k = [a / float(s_kl) for a in k]
+    k[6], k[8] = k[6] + 1.0, k[8] + 1.0
+    return (torch.stack([k[0], k[1] * qc1, k[2], k[3] * qc3, k[4] * qc4], -1),
+            torch.stack([k[5], k[6] * pc1, k[7], k[8] * pc3, k[9] * pc4], -1))
+
+
+def _moment_grads(q, p, y, sigma, mask, z_nll, z_kl, ct_n, ct_k, C, mvg):
+    """elbo_grads_plain with the KL side from the moments (MVG, no draw
+    clamped): what kernel F's backward computes given the forward's KL
+    state."""
+    dq, dp, dy, dsig = _PLAIN_GRADS(q, p, y, sigma, mask, z_nll, z_kl, ct_n,
+                                    torch.zeros_like(ct_k), C, mvg)
+    state = tfe.kl_state_plain(q, mask, z_kl, C)
+    assert not bool(state[:, 5].any()), "a KL draw clamped"
+    kq, kp = _kl_grads_moments(q, p, state, z_kl.shape[0])
+    ck = (ct_k * torch.where(mask > 0, 1.0, 0.0))[:, None]
+    return dq + ck * kq, dp + ck * kp, dy, dsig
+
+
+_PLAIN_GRADS = tfe.elbo_grads_plain
+
+
+def _scaled_close(got, ref, name):
+    got, ref = got.double().numpy(), ref.double().numpy()
+    scale = np.abs(ref).max() + 1e-8
+    np.testing.assert_allclose(got / scale, ref / scale, rtol=5e-4,
+                               atol=5e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kl_moment_backward_matches_plain(seed):
+    """The moment form of F's KL backward equals the draw-by-draw plain
+    version on rows whose KL draws do not clamp, scale-normalised at rtol
+    5e-4 / atol 5e-5; the forward's state is the plain state."""
+    rng = np.random.default_rng(20 + seed)
+    a = _rows_inputs(rng, 256, 5, s_kl=70)
+    a["q"][:, [1, 3]] *= 0.3                  # logit stds clear of the clamp
+    C = tdn.decode_consts(tcfg.OPTIMAL.model, tcfg.ScanParams(
+        simulate_noise=False))
+    ct_n = torch.from_numpy(rng.normal(size=256).astype(np.float32))
+    ct_k = torch.from_numpy(rng.normal(size=256).astype(np.float32))
+    args = (a["q"], a["p"], a["y"], a["sigma"], a["mask"], a["z_nll"],
+            a["z_kl"], ct_n, ct_k, C, True)
+    state = torch.empty(256, tfe.KL_STATE)
+    tfe.fused_elbo_forward(*args[:5], C, mvg=True, s_nll=1, s_kl=70,
+                           z_nll=a["z_nll"], z_kl=a["z_kl"], state=state)
+    assert torch.equal(state, tfe.kl_state_plain(a["q"], a["mask"],
+                                                 a["z_kl"], C))
+    assert torch.all(state[a["mask"] == 0] == 0)
+    for name, x, r in zip(("dq", "dp", "dy", "dsig"), _moment_grads(*args),
+                          _PLAIN_GRADS(*args)):
+        _scaled_close(x, r, name)
+
+
+@pytest.mark.parametrize("case", ["optimal", "student_multi_s2",
+                                  "log_pop_prior", "gj16_no_blood"])
+def test_kl_moment_backward_matches_jax(case, monkeypatch):
+    """The fine-tune loss through F's CPU path with the KL backward in the
+    moment form, against the JAX jnp path's parameter gradients (as
+    test_loss_and_grads_match_jax holds the plain version)."""
+    params, batch, noise, v_ref, _, g_ref = _jax_reference(case)
+    model, use_blood = _model(CASES[case])
+    monkeypatch.setattr(tfe, "elbo_grads_plain", _moment_grads)
+    tuner = port_tuner(model, SCAN, params, use_blood=use_blood)
+    cfg = tcfg.QBoldConfig(scan=tuner.scan, model=tuner.cfg,
+                           train=tcfg.TrainConfig(fused_elbo="on",
+                                                  fused_decode_nll="off"))
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss, _ = tsteps.finetune_terms(tuner, cfg, tb, noise=noise,
+                                    kl_samples=S_KL)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), v_ref, rtol=1e-5,
+                               atol=1e-5)
+    for name, p in tuner.named_parameters():
+        ref = g_ref[name].numpy()
+        got = np.zeros_like(ref) if p.grad is None else p.grad.numpy()
+        scale = np.abs(ref).max() + 1e-8
+        np.testing.assert_allclose(got / scale, ref / scale, rtol=5e-4,
+                                   atol=5e-5, err_msg=name)
+
+
+def test_kl_state_flags_clamped_draws():
+    """The state's flag is set exactly where some KL draw's logits clamp
+    at +-kl_bound: always for a mean past the bound, never for a narrow
+    posterior near 0; dead voxels hold zero rows."""
+    rng = np.random.default_rng(31)
+    n = 96
+    a = _rows_inputs(rng, n, 5, s_kl=70)
+    C = tdn.decode_consts(tcfg.OPTIMAL.model, tcfg.ScanParams(
+        simulate_noise=False))
+    bound = C.scalars["kl_bound"]
+    q = a["q"].clone()
+    q[:, [1, 3]] = -3.0                       # std e^-3.98: ~0.02
+    q[:, [0, 2]] = 0.1
+    q[0::3, 0] = bound + 1.0                  # every draw clamps
+    q[1::3, 2] = -(bound + 1.0)
+    q[2::6, 0] = bound - 0.01                 # about half the draws clamp
+    q[2::6, 1] = 1.0                          # std ~2
+    mask = torch.ones(n)
+    mask[5::7] = 0.0
+    state = torch.empty(n, tfe.KL_STATE)
+    tfe.fused_elbo_forward(q, a["p"], a["y"], a["sigma"], mask, C, mvg=True,
+                           s_nll=1, s_kl=70, z_nll=a["z_nll"],
+                           z_kl=a["z_kl"], state=state)
+    expect = torch.zeros(n)
+    expect[0::3] = 1.0
+    expect[1::3] = 1.0
+    expect[2::6] = 1.0
+    expect[mask == 0] = 0.0
+    assert torch.equal(state[:, 5], expect)
+    assert torch.all(state[mask == 0] == 0)
+    live = mask > 0
+    np.testing.assert_allclose(state[live, 0].numpy(),
+                               a["z_kl"][:, live, 0].sum(0).numpy(),
+                               rtol=1e-6, atol=1e-5)
+    with pytest.raises(ValueError, match="MVG"):
+        tfe.fused_elbo_forward(q[:, :4], a["p"][:, :4], a["y"], a["sigma"],
+                               mask, C, mvg=False, s_nll=1, s_kl=70,
+                               z_nll=a["z_nll"], state=state)

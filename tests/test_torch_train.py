@@ -34,7 +34,7 @@ from qbold_vi_tpu_torch.models.vi import FineTuner, init_params  # noqa: E402
 from qbold_vi_tpu_torch.train import data as tdata  # noqa: E402
 from qbold_vi_tpu_torch.train import optim as toptim  # noqa: E402
 from qbold_vi_tpu_torch.train import steps as tsteps  # noqa: E402
-from qbold_vi_tpu_torch.train.trainer import Trainer  # noqa: E402
+from qbold_vi_tpu_torch.train.trainer import Trainer, WeightStatus  # noqa: E402
 
 SCAN = ScanParams(simulate_noise=False)
 MODEL = ModelConfig(no_units=4, no_intermediate_layers=1, student_t_df=200.0,
@@ -281,6 +281,55 @@ def test_trainer_finetunes_on_the_cpu():
     with pytest.raises(NotImplementedError, match="dropout"):
         Trainer(drop, state_dict=weights, device="cpu").finetune(data,
                                                                  epochs=1)
+
+
+def test_continuing_finetune_keeps_its_priors_and_schedule():
+    """Trainer.finetune(epochs=) continues one schedule: its first call
+    predicts the training and study priors and later calls reuse them, so
+    two 1-epoch calls give the priors and weights of one 2-epoch call, bit
+    for bit; the schedule ends at no_ft_epochs, and a call after it
+    changes nothing (the JAX Trainer.finetune predicts the priors once and
+    returns at once when FULL_TRAINED)."""
+    base = tcfg.OPTIMAL
+    cfg = dataclasses.replace(
+        base, model=dataclasses.replace(base.model, no_units=6,
+                                        no_intermediate_layers=1),
+        train=dataclasses.replace(base.train, ft_steps_per_epoch=2,
+                                  ft_batch_size=2, crop_size=8,
+                                  no_ft_epochs=2, fused_elbo="on"))
+    rng = np.random.default_rng(4)
+    data = (np.abs(rng.normal(size=(2, 40, 30, 2, 12))) * 50 + 100
+            ).astype(np.float32)
+    data[..., -1] = rng.uniform(size=data.shape[:-1]) > 0.2
+    weights = init_params(cfg.model, cfg.scan, torch.Generator().manual_seed(2))
+    split = Trainer(cfg, state_dict=weights, device="cpu",
+                    logger=lambda *a: None)
+    study = split.finetune(data, study_data=data[:1], epochs=1)
+    first_priors = split.sampler.priors.copy()
+    eval_priors = split._ft_samplers[1].priors.copy()
+    m_split = split.finetune(data, study_data=data[:1], epochs=1)
+    whole = Trainer(cfg, state_dict=weights, device="cpu",
+                    logger=lambda *a: None)
+    m_whole = whole.finetune(data, study_data=data[:1], epochs=2)
+    assert "val_elbo" in study and split.epochs_done == whole.epochs_done == 2
+    np.testing.assert_array_equal(split.sampler.priors, first_priors)
+    np.testing.assert_array_equal(split._ft_samplers[1].priors, eval_priors)
+    np.testing.assert_array_equal(split.sampler.priors, whole.sampler.priors)
+    np.testing.assert_array_equal(split._ft_samplers[1].priors,
+                                  whole._ft_samplers[1].priors)
+    for k, v in whole.tuner.state_dict().items():
+        assert torch.equal(split.tuner.state_dict()[k], v), k
+    assert m_split["loss"] == m_whole["loss"]
+    assert split.status is WeightStatus.FULL_TRAINED
+    after = {k: v.clone() for k, v in split.tuner.state_dict().items()}
+    assert split.finetune(data, epochs=1) == m_split
+    assert split.epochs_done == 2
+    for k, v in split.tuner.state_dict().items():
+        assert torch.equal(after[k], v), k
+    long = Trainer(cfg, state_dict=weights, device="cpu",
+                   logger=lambda *a: None)
+    long.finetune(data, epochs=5)
+    assert long.epochs_done == 2 and long.status is WeightStatus.FULL_TRAINED
 
 
 def test_trainer_raises_for_unported_checkpoints(tmp_path):
