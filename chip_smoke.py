@@ -48,7 +48,7 @@ forward and backward), and checks them:
 10. C against its plain version at 1,032,192 and 1,000,003 voxels (both
    layouts, mask channel); D (both layouts, MVG and diagonal, antithetic
    and iid, S = 200) and E (S = 100) against their plain versions fed
-   philox_normals at 65,536 and 65,537 voxels (means and KL rows at
+   mc_philox_normals at 65,536 and 65,537 voxels (means and KL rows at
    rtol 1e-4, variances as CHECKS); a seed replays bit for bit, another
    differs, and a request cut at a voxel offset draws what the whole
    one does;
@@ -107,6 +107,22 @@ without the state (every draw replayed) and from it:
    noise, beside the function's bound on this run's data and the counts
    of this design's work and of replaying every draw (bound_elbo).
 
+Kernels B and C (the stream-1 encode on the tensor cores, 3xTF32) and D
+and E (one Philox block for two draw pairs), after phase 13:
+23. B's raw rows and C's q at 1,032,192 voxels against a float64 encode
+   of the same rows (encode_q_f64): the kernels' largest errors beside the
+   plain version's (float32, TF32 off), each within CHECKS["raw"];
+24. B and C against their plain versions at U = 13 and 30 (padded to 16
+   and 32 in the kernel) under gelu and softplus (act(0) != 0 on padded
+   channels), both layouts, N = 1,000,003 (a ragged tile of 32);
+25. D at S = 2, 7 (odd: iid) and 200, both layouts, and E at S = 2 and 7,
+   against their plain versions fed mc_philox_normals at 65,536 and 65,537
+   voxels; each replays bit for bit and a cut at a voxel offset draws what
+   the whole request does.
+Phases 5 and 13 print B, C and D beside their bounds: B and C's from the
+chain's FMAs at the 3xTF32 rate (encode_bound) and at the float32 CUDA-core
+peak.
+
 It also traces posterior_maps (each stream and estimator), elbo_maps,
 the fine-tune step (both conv routes) and the pretrain step with
 torch.profiler: device time by kernel and the device's busy share of the
@@ -145,7 +161,7 @@ FT_SHAPE = (38, 25, 25, 8)           # one fine-tune batch: 190,000 voxels
 N_FT = 38 * 25 * 25 * 8
 N_FT_RAGGED = 190_003
 TRAIN_VOLUMES = (6, 96, 96, 8)       # subjects x X x Y x Z, + a mask channel
-N_MC = 65_536                        # D and E against philox_normals
+N_MC = 65_536                        # D and E against mc_philox_normals
 N_SUBJ = 96 * 96 * 8                 # one subject: the ELBO export's chunk
 S_MC, S_KL = 200, 100                # the sampled summaries' and KL's draws
 ROW_TOL = (1e-5, 1e-5)
@@ -445,6 +461,27 @@ def ops_quad(raw: torch.Tensor, mvg: bool) -> float:
     return float(total)
 
 
+def encode_q_f64(x, encoder, *, se_idx, multi_image, activation, n_blocks,
+                 mask_channel, input_layout, **_):
+    """The stream-1 raw head q (5, N) in float64: the plain version's
+    operations (ops/fused_infer.py::encode_q_plain) with the inputs and
+    weights in double, the yardstick of kernels B and C's accuracy."""
+    from qbold_vi_tpu_torch.models.encoder import activation_fn, normalise_data
+    from qbold_vi_tpu_torch.ops.fused_infer import _rows, _stream1_weights
+
+    act = activation_fn(activation)
+    x, channel_major = _rows(x, input_layout)
+    x = (x if channel_major else x.T).double()
+    if mask_channel:
+        x = x[:-1] * x[-1:]
+    wfc, bfc, wb, bb, wf, bf = (t.double() for t in
+                                _stream1_weights(encoder, n_blocks))
+    h = act(wfc @ normalise_data(x.T, se_idx, multi_image).T + bfc)
+    for i in range(n_blocks):
+        h = act(wb[i] @ h + bb[i])
+    return wf @ h + bf
+
+
 def ops_encode(units: int, n_taus: int, n_blocks: int) -> int:
     """Kernel C, per voxel: normalisation and the dense chain T -> U ->
     nb x (U -> U) -> 5 (FMAs, biases, activations)."""
@@ -453,11 +490,46 @@ def ops_encode(units: int, n_taus: int, n_blocks: int) -> int:
             + 5 + OPS["normalise"] * t)
 
 
-def ops_encode_quad(units: int, n_taus: int, n_blocks: int,
-                    raw: torch.Tensor, mvg: bool) -> float:
-    """Kernel B: kernel C's encode, then the quadrature of its rows."""
-    return (raw.shape[1] * ops_encode(units, n_taus, n_blocks)
-            + ops_quad(raw, mvg))
+def encode_bound(n: int, units: int, n_taus: int, n_blocks: int,
+                 n_bytes: float, rest_ops: float) -> dict:
+    """Kernels B and C: the dense chain's FMAs (U T + nb U^2 + 5 U a voxel,
+    unpadded) on the tensor cores as 3xTF32 -- three TF32 products for each
+    float32 one over the dense TF32 peak, as conv_bound -- the rest of the
+    work (``rest_ops``: normalisation, biases and activations, B's
+    quadrature) at the float32 peak, and the bytes: the largest of the
+    three, since the units run side by side. ``cuda_core_bound_ms``: the
+    whole count at the float32 peak (the bound of a CUDA-core design)."""
+    fma = n * (units * n_taus + n_blocks * units * units + 5 * units)
+    t_tc = 3 * 2 * fma / PEAK_TF32 * 1e3
+    t_rest = rest_ops / PEAK_FLOPS * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    ms = max(t_tc, t_rest, t_bytes)
+    return {"bound_ms": ms,
+            "bound_by": "bytes" if t_bytes == ms else "operations",
+            "cuda_core_bound_ms": bound(n_bytes,
+                                        2 * fma + rest_ops)["bound_ms"]}
+
+
+def stream1_bounds(n, cfg, n_taus, raw_b, mvg) -> dict:
+    """encode_bound of kernels B (reads T + 1 floats a voxel, writes 9)
+    and C (writes the 5 of q)."""
+    u, nb = cfg.no_units, cfg.no_intermediate_layers
+    rest = n * (ops_encode(u, n_taus, nb)
+                - 2 * (u * n_taus + nb * u * u + 5 * u))
+    return {"B": encode_bound(n, u, n_taus, nb, n * 4 * (n_taus + 1 + 9),
+                              rest + ops_quad(raw_b, mvg)),
+            "C": encode_bound(n, u, n_taus, nb, n * 4 * (n_taus + 1 + 5),
+                              rest)}
+
+
+def log_bounds(times: dict, bounds: dict, card: str) -> None:
+    for k, b in bounds.items():
+        extra = (f", CUDA-core bound {b['cuda_core_bound_ms']:.4f} ms "
+                 f"({100 * b['cuda_core_bound_ms'] / times[k]:.1f}%)"
+                 if "cuda_core_bound_ms" in b else "")
+        log(f"{k}: {times[k]:.4f} ms on the device, bound "
+            f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
+            f"({100 * b['bound_ms'] / times[k]:.1f}%){extra} [{card}]")
 
 
 def ops_mc_summaries(no_samples: int, antithetic: bool) -> int:
@@ -997,7 +1069,7 @@ def host_normals(stream, seed, start, shape, draws, device, index=None):
 
 
 @torch.no_grad()
-def sampled_phases(dev, card, cfg, tuner, ranges, enc_kw) -> dict:
+def sampled_phases(dev, card, cfg, tuner, ranges, enc_kw, raw_b) -> dict:
     """Phases 10-13: kernels C, D and E against their plain versions and
     their statistics, the sampled serving path and the fine-tuned export,
     and the timings. Returns the kernels' JSON entries and the walls."""
@@ -1032,7 +1104,7 @@ def sampled_phases(dev, card, cfg, tuner, ranges, enc_kw) -> dict:
             "mask channel)")
 
     seed = 7
-    z = gpu(fe.philox_normals(seed, N_MC + 1, S_MC))
+    z = gpu(sm.mc_philox_normals(seed, N_MC + 1, S_MC))
     q_all = gpu(raw_head(rng, N_MC + 1))
     p_all = gpu(rng.normal(size=(N_MC + 1, 5)) * 0.7)
     for n in (N_MC, N_MC + 1):
@@ -1060,7 +1132,7 @@ def sampled_phases(dev, card, cfg, tuner, ranges, enc_kw) -> dict:
             if n == N_MC and mvg:
                 err["E"] = e
         torch.cuda.synchronize()
-        log(f"kernels D and E vs plain fed philox_normals ok at N={n} (MVG "
+        log(f"kernels D and E vs plain fed mc_philox_normals ok at N={n} (MVG "
             "and diagonal; D antithetic and iid, both layouts)")
 
     q, p = q_all[:N_MC].contiguous(), p_all[:N_MC].contiguous()
@@ -1268,13 +1340,13 @@ def sampled_phases(dev, card, cfg, tuner, ranges, enc_kw) -> dict:
             f"elbo_maps on one {TRAIN_VOLUMES[1:]} subject", card)
 
     bounds = {
-        "C": bound(N_FULL * 4 * (scan.n_taus + 1 + 5),
-                   N_FULL * ops_encode(mcfg.no_units, scan.n_taus,
-                                       mcfg.no_intermediate_layers)),
+        "C": stream1_bounds(N_FULL, mcfg, scan.n_taus, raw_b,
+                            mcfg.use_mvg)["C"],
         "D": bound(N_FULL * 4 * (5 + 6),
                    N_FULL * ops_mc_summaries(S_MC, True)),
         "E": bound(N_SUBJ * 4 * (5 + 5 + 1), N_SUBJ * ops_mc_kl(S_KL)),
     }
+    log_bounds({k: times[k][0] for k in bounds}, bounds, card)
     main = {"C": launches["stream1"]["C"],
             "D": (launches["stream1"]["D_packed"]
                   + launches["stream2"]["D"]),
@@ -1292,6 +1364,119 @@ def sampled_phases(dev, card, cfg, tuner, ranges, enc_kw) -> dict:
         **bounds[k], "library_ms": None}
         for k, (name, src, tpu) in sources.items()]
     return {"kernels": kernels, "mc_walls": walls, "elbo_ms": elbo_ms}
+
+
+@torch.no_grad()
+def stream1_phases(dev, cfg, tuner, ranges, enc_kw) -> dict:
+    """Phases 23-25: kernels B and C against a float64 encode, on widths
+    the kernel pads, and kernels D and E at S = 2 and 7. Returns the
+    float64 errors."""
+    from qbold_vi_tpu_torch.models.encoder import _full_fp32
+    from qbold_vi_tpu_torch.models.vi import FineTuner, init_params
+    from qbold_vi_tpu_torch.ops import fused_infer as fi
+    from qbold_vi_tpu_torch.ops import summarize as sm
+
+    mcfg, scan = cfg.model, cfg.scan
+    rng = np.random.default_rng(23)
+    gpu = lambda a: torch.from_numpy(                             # noqa: E731
+        np.ascontiguousarray(a, np.float32)).to(dev)
+
+    # ---- 23. B and C against a float64 encode of the same rows -------------
+    x = gpu(volumes(rng, (N_FULL,), scan.n_taus))
+    kw = dict(enc_kw, mask_channel=True, input_layout="voxel")
+    with _full_fp32():
+        q64 = encode_q_f64(x, tuner.encoder, **kw)
+        raw64 = squashed(q64.T, mcfg.use_mvg)
+        outs = {"C": fi.encode_q1_packed(x, tuner.encoder, **kw),
+                "C plain": fi.encode_q_plain(x, tuner.encoder, **kw),
+                "B raw": fi.encode_quad_fused(x, tuner.encoder, **kw,
+                                              **ranges)[2],
+                "B raw plain": fi.encode_quad_fused_plain(
+                    x, tuner.encoder, **kw, **ranges)[2]}
+    err64 = {k: float((v.double() - (q64 if k[0] == "C" else raw64)).abs()
+                      .max()) for k, v in outs.items()}
+    log(f"B and C against a float64 encode at N={N_FULL} (largest |q| "
+        f"{float(q64.abs().max()):.3f}): q by C {err64['C']:.3e}, by the "
+        f"plain version (float32, TF32 off) {err64['C plain']:.3e}; B's raw "
+        f"{err64['B raw']:.3e}, the plain version's {err64['B raw plain']:.3e}")
+    check_rows("C vs float64", outs["C"].double(), q64, *CHECKS["raw"])
+    check_rows("B raw vs float64", outs["B raw"].double(), raw64,
+               *CHECKS["raw"])
+
+    # ---- 24. B and C on padded widths and a ragged tile ---------------------
+    xr = volumes(rng, (N_RAGGED,), scan.n_taus)
+    for units in (13, 30):
+        for act in ("gelu", "softplus"):
+            c = dataclasses.replace(mcfg, no_units=units, activation=act)
+            t = FineTuner(c, scan, device=dev)
+            t.load_state_dict(init_params(c, scan,
+                                          torch.Generator().manual_seed(units)))
+            for layout in ("voxel", "channel"):
+                xt = gpu(xr) if layout == "voxel" else gpu(xr.T)
+                kw = dict(enc_kw, activation=act, mask_channel=True,
+                          input_layout=layout)
+                tag = f"U={units} {act} {layout}"
+                check_close(f"C {tag}", fi.encode_q1_packed(xt, t.encoder,
+                                                             **kw).T,
+                            fi.encode_q_plain(xt, t.encoder, **kw).T, "raw")
+                got = fi.encode_quad_fused(xt, t.encoder, **kw, **ranges)
+                ref = fi.encode_quad_fused_plain(xt, t.encoder, **kw,
+                                                 **ranges)
+                check_close(f"B {tag}", got[0].T, ref[0].T, "mean")
+                check_close(f"B {tag}", got[1].T, ref[1].T, "var", ref[0].T)
+                check_close(f"B {tag}", got[2].T, ref[2].T, "raw")
+    torch.cuda.synchronize()
+    log(f"kernels B and C vs plain ok at U = 13, 30 (padded to 16, 32) under "
+        f"gelu and softplus, both layouts, N={N_RAGGED}")
+
+    # ---- 25. D and E at S = 2 and 7 (and D at 200) under device noise -------
+    seed = 29
+    q_all = gpu(raw_head(rng, N_MC + 1))
+    p_all = gpu(rng.normal(size=(N_MC + 1, 5)) * 0.7)
+    for s_ in (2, 7, S_MC):
+        draws = sm.mc_draws(s_)
+        z = gpu(sm.mc_philox_normals(seed, N_MC + 1, draws))
+        for n in (N_MC, N_MC + 1):
+            q = q_all[:n].contiguous()
+            kw = dict(ranges, no_samples=s_)
+            got = sm.mc_posterior_summaries(q, seed, **kw)
+            got_t = sm.mc_posterior_summaries_packed(q.T.contiguous(), seed,
+                                                     **kw)
+            if not all(torch.equal(a, b.T) for a, b in zip(got, got_t)):
+                raise AssertionError(f"D S={s_}: the packed entry differs")
+            ref = sm.mc_posterior_summaries_plain(q, z[:, :n], **kw)
+            check_close(f"D S={s_} n={n}", got[0], ref[0], "mean")
+            check_close(f"D S={s_} n={n}", got[1], ref[1], "var", ref[0])
+            half = n // 2 + 5
+            parts = [sm.mc_posterior_summaries(q[:half], seed, **kw),
+                     sm.mc_posterior_summaries(q[half:], seed, offset=half,
+                                               **kw)]
+            again = sm.mc_posterior_summaries(q, seed, **kw)
+            if not all(torch.equal(a, b) and torch.equal(
+                    torch.cat([parts[0][i], parts[1][i]]), a)
+                    for i, (a, b) in enumerate(zip(got, again))):
+                raise AssertionError(f"D S={s_}: replay or offset cut "
+                                     "differs")
+            if s_ == S_MC:
+                continue
+            p = p_all[:n].contiguous()
+            kl = sm.mc_kl_map(q, p, seed, no_samples=s_)
+            check_rows(f"E S={s_} n={n}", kl,
+                       sm.mc_kl_map_plain(q, p, gpu(sm.mc_philox_normals(
+                           seed, n, s_))), 1e-4, 1e-4)
+            cut = torch.cat([sm.mc_kl_map(q[:half], p[:half], seed,
+                                          no_samples=s_),
+                             sm.mc_kl_map(q[half:], p[half:], seed,
+                                          offset=half, no_samples=s_)])
+            if not (torch.equal(kl, sm.mc_kl_map(q, p, seed, no_samples=s_))
+                    and torch.equal(cut, kl)):
+                raise AssertionError(f"E S={s_}: replay or offset cut "
+                                     "differs")
+    torch.cuda.synchronize()
+    log(f"kernels D (S = 2, 7 iid, {S_MC}; both layouts) and E (S = 2, 7) "
+        f"vs plain fed mc_philox_normals ok at N={N_MC} and {N_MC + 1}: "
+        "replay bit-equal, a cut at an offset draws what the whole does")
+    return err64
 
 
 # ---- kernel H and the two-phase path -----------------------------------------
@@ -1859,6 +2044,9 @@ def main() -> int:
             "qv_encode_quad_kernel",
             lambda: fi.encode_quad_fused_plain(x, tuner.encoder, **kw))
         raw_b = fi.encode_quad_fused(x, tuner.encoder, **kw)[2]
+    b_bound = stream1_bounds(N_FULL, cfg, scan.n_taus, raw_b,
+                             cfg.use_mvg)["B"]
+    log_bounds({"B": times["fused"][0]}, {"B": b_bound}, card)
     big = reqs[0]
     walls = {f"stream{1 if first else 2}": wall_ms(
         lambda: infer.posterior_maps(tuner, big, use_first_op=first))
@@ -1887,14 +2075,12 @@ def main() -> int:
          "replaces": "qbold_vi_tpu/ops/pallas_infer.py:353",
          "launches": launches["fused"], "max_abs_err": err["fused"],
          "ms": times["fused"][0], "plain_ms": times["fused"][2],
-         **bound(N_FULL * 4 * (scan.n_taus + 1 + 9),
-                 ops_encode_quad(cfg.no_units, scan.n_taus,
-                                 cfg.no_intermediate_layers, raw_b,
-                                 cfg.use_mvg)),
-         "library_ms": None},
+         **b_bound, "library_ms": None},
     ]
-    sampled = sampled_phases(dev, card, OPTIMAL, tuner, ranges, enc_kw)
+    sampled = sampled_phases(dev, card, OPTIMAL, tuner, ranges, enc_kw,
+                             raw_b)
     kernels += sampled["kernels"]
+    err64 = stream1_phases(dev, OPTIMAL, tuner, ranges, enc_kw)
     phases = fine_tune_phases(dev, card, OPTIMAL, tuner)
     kernels += phases["kernels"]
     conv = conv_phases(dev, card)
@@ -1912,6 +2098,7 @@ def main() -> int:
                       "finetune_epoch_wall_ms_conv_on":
                           two["finetune_epoch_on_ms"],
                       "stream2_wall_ms_by_conv": two["stream2_wall_ms"],
+                      "stream1_float64_err": err64,
                       "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -8,18 +8,8 @@
 // x (N, H, W, Ci) with weights (3, 3, Ci, Co) HWIO and bias (Co), float32
 // accumulation, any H, W >= 3 and any Ci, Co.
 //
-// Why 3xTF32. The trunk runs in full float32 (TF32 is held off around the
-// fine-tune step). One TF32 product keeps ~3 decimal digits, so each
-// float32 operand a is split into hi = tf32(a) and lo = tf32(a - hi)
-// (round to nearest, ties away, as cvt.rna) and a * b is taken as
-// a_lo * b_hi + a_hi * b_lo + a_hi * b_hi, three tensor-core products
-// accumulated in float32; the dropped a_lo * b_lo is ~2^-22 of |a * b|.
-// The lo of a zero (padding, masked taps) is zero. No product reaches an
-// output from a single TF32 term. The tensor cores' float32 sums truncate,
-// so the products of a few k-steps go to a fresh fragment that is added to
-// the thread's sums in float32 (round to nearest): a running sum fed to
-// the mma at every k-step gathered that bias to ~5e-6 of the largest
-// output at the fine-tune fold, the fresh fragments keep it at ~4e-7.
+// Why 3xTF32 (float32-accurate products on the TF32 tensor cores, with a
+// fresh fragment every few k-steps): csrc/mma_math.cuh.
 //
 // Bound: operations. At the fine-tune fold (304 planes of 25 x 25 x 60) a
 // pass is 2 * 9 * 60 * 60 * 190,000 = 12.3 GFLOP; three TF32 products each
@@ -74,12 +64,11 @@
 // partials in chunk order: the same bits in every run, so a fine-tune
 // replays. db is the column sum of ct, taken in pixel order by the blocks
 // of tap row 0.
-//
-// The build's --fmad=false leaves mma and the hi/lo subtraction alone:
-// a - hi is exact.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_math.cuh"
 
 #define QV_CONV_THREADS 256  // forward / dx: 8 warps of 32 x 32 sums
 #define QV_DW_THREADS 128    // dw: 4 warps of 16 input channels
@@ -105,53 +94,6 @@ __device__ __forceinline__ int qv_tap_mask(long long p, long long np, int h,
     }
   }
   return m;
-}
-
-// a rounded to TF32 (10 mantissa bits, nearest, ties away), as float bits:
-// what cvt.rna.tf32.f32 gives for finite a, in two integer operations (half
-// of the 13 dropped bits added to the sign-magnitude pattern, then dropped),
-// which run faster here than the conversion instruction.
-__device__ __forceinline__ uint32_t qv_tf32(float a) {
-  return (__float_as_uint(a) + 0x1000u) & 0xFFFFE000u;
-}
-
-__device__ __forceinline__ void qv_split(float a, uint32_t& hi,
-                                         uint32_t& lo) {
-  hi = qv_tf32(a);
-  lo = qv_tf32(a - __uint_as_float(hi));
-}
-
-// d = a * b + c on one 16 x 8 x 8 TF32 fragment.
-__device__ __forceinline__ void qv_mma(float* d, const uint32_t* a,
-                                       uint32_t b0, uint32_t b1,
-                                       const float* c) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
-}
-
-// d = a * b (first) or d += a * b in 3xTF32: the two small products, then
-// the large one.
-__device__ __forceinline__ void qv_mma3(float* d, const uint32_t* ahi,
-                                        const uint32_t* alo,
-                                        const uint32_t* bhi,
-                                        const uint32_t* blo, bool first) {
-  const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  qv_mma(d, alo, bhi[0], bhi[1], first ? zero : d);
-  qv_mma(d, ahi, blo[0], blo[1], d);
-  qv_mma(d, ahi, bhi[0], bhi[1], d);
-}
-
-// acc += d in float32. The tensor cores' float32 sums truncate: a running
-// sum fed to them at every k-step would gather that bias over the whole
-// pass (~5e-6 of the largest output at the fine-tune fold), so the
-// products of a few k-steps go to a fresh fragment and are added here,
-// where the adds round to nearest (~4e-7).
-__device__ __forceinline__ void qv_add4(float* acc, const float* d) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) acc[k] += d[k];
 }
 
 // Stage channels c0 .. c0 + nch - 1 (nch 32 or 64) of global rows q(r) =

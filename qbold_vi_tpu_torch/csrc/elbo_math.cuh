@@ -410,11 +410,11 @@ static __device__ __forceinline__ QvWhite qv_white(const QvPost& u) {
 // path (cosf/sinf keep one), ~1e-6 of the normals' scale off the exact
 // values, inside every device-noise gate against philox_normals (rtol
 // 1e-4); PERF.md has the measured gain.
-static __device__ __forceinline__ void qv_normal2(long long v, int draw,
-                                                  unsigned k0, unsigned k1,
-                                                  float* z0, float* z1) {
+static __device__ __forceinline__ void qv_philox(long long v, unsigned ctr,
+                                                 unsigned k0, unsigned k1,
+                                                 unsigned c[4]) {
   unsigned c0 = (unsigned)v, c1 = (unsigned)((unsigned long long)v >> 32);
-  unsigned c2 = (unsigned)draw, c3 = 0u;
+  unsigned c2 = ctr, c3 = 0u;
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
     unsigned long long p0 = (unsigned long long)0xD2511F53u * c0;
@@ -428,8 +428,17 @@ static __device__ __forceinline__ void qv_normal2(long long v, int draw,
     k0 += 0x9E3779B9u;
     k1 += 0xBB67AE85u;
   }
-  float u1 = (float)((c0 >> 8) + 1u) * 5.9604644775390625e-8f;
-  float u2 = (float)(c1 >> 8) * 5.9604644775390625e-8f;
+  c[0] = c0;
+  c[1] = c1;
+  c[2] = c2;
+  c[3] = c3;
+}
+
+// Two normals from two Philox words (the top 24 bits of each).
+static __device__ __forceinline__ void qv_box_muller(unsigned a, unsigned b,
+                                                     float* z0, float* z1) {
+  float u1 = (float)((a >> 8) + 1u) * 5.9604644775390625e-8f;
+  float u2 = (float)(b >> 8) * 5.9604644775390625e-8f;
   float x = -2.0f * logf(u1);
   float r = x > 0.0f ? x * rsqrtf(x) : 0.0f;
   // 2 pi u2 = pi + t, t = 2 pi (u2 - 1/2) in [-pi, pi) (u2 - 1/2 exact),
@@ -438,4 +447,14 @@ static __device__ __forceinline__ void qv_normal2(long long v, int draw,
   __sincosf(6.2831855f * (u2 - 0.5f), &sn, &cs);
   *z0 = -(r * cs);
   *z1 = -(r * sn);
+}
+
+// Kernel F's normals: pair `draw` of voxel v from words 0 and 1 of the
+// block with counter (v, draw).
+static __device__ __forceinline__ void qv_normal2(long long v, int draw,
+                                                  unsigned k0, unsigned k1,
+                                                  float* z0, float* z1) {
+  unsigned c[4];
+  qv_philox(v, (unsigned)draw, k0, k1, c);
+  qv_box_muller(c[0], c[1], z0, z1);
 }

@@ -6,7 +6,7 @@
 // ops/quadrature.py::quad_tile_summaries); C replaces encode_q1_packed
 // (_kernel -> _encode_body, pallas_call at :246), the encode that feeds the
 // MC summaries. Per voxel, in one device routine both kernels call
-// (qv_encode_voxel):
+// (qv_encode_tile):
 //   [mask] -> clip(1e-2, 1e8) -> divide by the spin-echo reference (one
 //   image, or the mean of [max(se-1, 0), se+2)) -> log
 //   -> Dense(T -> U) + act -> nb x Dense(U -> U) + act -> Dense(U -> 5);
@@ -19,24 +19,51 @@
 //
 // Bound: about 48 B read and 36 B (B) or 20 B (C) written per voxel against
 // U*T + nb*U*U + 5*U FMAs (8.2 k at U=60, nb=2, T=11) and, in B, ~150
-// transcendentals, so the FMA chain, not memory, bounds both. Design: one
-// thread per voxel. The padded weights (transposed so that 4 output channels
-// are one float4) and the quadrature node table are staged once per block in
-// shared memory, and every thread of a warp reads the same weight word (a
-// broadcast). Each thread's activations live in its own column of two
-// shared-memory buffers laid out [channel][thread] (no bank conflicts), so
-// the kernel takes any width whose weights fit in shared memory, without
-// 2 x U floats of registers per thread; each output chunk of 4 channels
-// keeps 4 accumulators in registers. Blocks walk the voxels in a grid-stride
-// loop, so the weights are staged once per resident block.
+// transcendentals, so the FMA chain, not memory, bounds both: on the tensor
+// cores as 3xTF32, three TF32 products a float32 FMA at 495 TFLOP/s (~0.10
+// ms a 1.03 M-voxel request on the H100, PERF.md). Design: the chain runs
+// as float32-accurate 3xTF32 mma.sync products (mma_math.cuh). A warp
+// encodes a tile of 32 voxels: each lane normalises one voxel into the
+// warp's rows in shared memory, the layers run on MT m16 tiles of 16
+// voxels at a time (MT = 2 for U <= 64, 1 for U <= 128, so that a lane's
+// activations and sums stay within 128 registers; the widths are template
+// constants, QV_ENCODE_DISPATCH, and no product sits behind a runtime
+// guard), and the heads are staged back in shared memory so that each lane
+// runs B's quadrature on its own voxel. Between layers the activations
+// stay in registers: a layer's sums hold, per lane, channels {2t, 2t + 1}
+// of each n-tile -- the channels that the next layer's A fragment of that
+// k-step wants, under the k order of mma_math.cuh -- so bias and
+// activation turn the sums into the next A operand in place. The weights
+// are split into hi / lo on the host and laid out in fragment order
+// (ops/fused_infer.py::_weight_blob), staged once per block in shared
+// memory, and read one 16-byte load per lane and (k-step, n-tile), shared
+// by the MT m-tiles. Widths are zero-padded to 16, 32, 64 or 128: padded
+// outputs have zero weights and bias, and the next layer's weights for
+// them are zero, so act(0) != 0 (sigmoid, softplus) adds nothing. A block
+// holds 12 warps (~80 registers a thread; the weights and 12 warps' rows
+// take ~124 KB of shared memory at OPTIMAL, one block an SM): 16 or more
+// warps an SM ran 1.2-26x slower on the H100 (PERF.md). Warps walk
+// the tiles in a grid-stride loop; the blocks fill the card once. The
+// trunk's operand type is a template policy (QvTrunkF32: 3xTF32 on float32
+// operands).
 //
-// Weight blob (floats; Up = U rounded up to 4, zero padded):
-//   wfc_t[T][Up] bfc[Up] wb_t[nb][Up][Up] bb[nb][Up] wf_t[Up][8] bf[8]
-//   consts[QV_NCONST]
+// Weight blob (floats; Tp = T rounded up to 8, Up = U padded, k-steps of 8,
+// n-tiles of 8; fragments [k-step][n-tile][lane] (b0 hi, b1 hi, b0 lo,
+// b1 lo), mma_math.cuh):
+//   W0 frags [Tp/8][Up/8][32][4]  Wb frags nb x [Up/8][Up/8][32][4]
+//   Wf frags [Up/8][1][32][4]  b0[Up] bb[nb][Up] bf[8] consts[QV_NCONST]
+// and after it, per warp, its staged rows xs[32][qv_xs_stride(Tp)] and
+// heads qs[32][QV_QS].
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
+#include "mma_math.cuh"
 #include "quad_math.cuh"
+
+#define QV_ENC_THREADS 384  // launch bound: 12 warps a block
+#define QV_TILE 32          // voxels a warp encodes at a time
+#define QV_QS 5             // floats of a staged head
 
 // activation codes: ops/fused_infer.py::SUPPORTED_ACTS order
 static __device__ __forceinline__ float qv_act(int act, float x) {
@@ -67,124 +94,246 @@ static __device__ __forceinline__ float qv_act(int act, float x) {
   }
 }
 
-// out[j] = act(b[j] + sum_k w_t[k][j] in[k]) for j < jp (jp % 4 == 0);
-// in/out are this thread's columns of [channel][thread] buffers.
-static __device__ __forceinline__ void qv_dense(const float* in, int kdim,
-                                                const float* w_t,
-                                                const float* b, float* out,
-                                                int jp, int act, int bs) {
-  for (int j0 = 0; j0 < jp; j0 += 4) {
-    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-#pragma unroll 4
-    for (int k = 0; k < kdim; ++k) {
-      float h = in[k * bs];
-      float4 w = *reinterpret_cast<const float4*>(w_t + k * jp + j0);
-      a0 = fmaf(w.x, h, a0);
-      a1 = fmaf(w.y, h, a1);
-      a2 = fmaf(w.z, h, a2);
-      a3 = fmaf(w.w, h, a3);
-    }
-    out[(j0 + 0) * bs] = qv_act(act, a0 + b[j0 + 0]);
-    out[(j0 + 1) * bs] = qv_act(act, a1 + b[j0 + 1]);
-    out[(j0 + 2) * bs] = qv_act(act, a2 + b[j0 + 2]);
-    out[(j0 + 3) * bs] = qv_act(act, a3 + b[j0 + 3]);
-  }
+static __device__ __noinline__ float qv_act_call(int act, float x) {
+  return qv_act(act, x);
 }
 
-// The staged weights and this thread's two activation columns.
+// The trunk's products: float32 operands split into TF32 hi / lo, three
+// tensor-core products (mma_math.cuh).
+struct QvTrunkF32 {
+  struct A {
+    uint32_t hi[4], lo[4];
+  };
+  static __device__ __forceinline__ A split(float a0, float a1, float a2,
+                                            float a3) {
+    A f;
+    qv_split(a0, f.hi[0], f.lo[0]);
+    qv_split(a1, f.hi[1], f.lo[1]);
+    qv_split(a2, f.hi[2], f.lo[2]);
+    qv_split(a3, f.hi[3], f.lo[3]);
+    return f;
+  }
+  static __device__ __forceinline__ void mma(float* d, const A& a, float4 b,
+                                             bool first) {
+    const uint32_t bhi[2] = {__float_as_uint(b.x), __float_as_uint(b.y)};
+    const uint32_t blo[2] = {__float_as_uint(b.z), __float_as_uint(b.w)};
+    qv_mma3(d, a.hi, a.lo, bhi, blo, first);
+  }
+};
+
+// Words a staged row: Tp, or Tp + 8 where Tp is a multiple of 16, so that a
+// half-warp's 64-bit A loads (rows g = 0..3, words 2t) hit distinct banks.
+static __device__ __forceinline__ int qv_xs_stride(int tp) {
+  return tp % 16 == 0 ? tp + 8 : tp;
+}
+
+// The staged weights and this warp's rows and heads.
 struct QvEncoder {
-  const float *wfc, *bfc, *wb, *bb, *wf, *bf, *consts;
-  float *buf0, *buf1;
-  int T, up, nb, act, bs, se_idx, lo, hi, multi_image;
+  const float4 *w0, *wb, *wf;
+  const float *b0, *bb, *bf, *consts;
+  float *xs, *qs;
+  int T, ks0, nt, nb, act, se_idx, lo, hi, multi_image, xs_stride;
 };
 
 // Stage the blob into shared memory (whole block, synchronised) and lay out
-// the weights and this thread's activation columns.
+// the weights and this warp's buffers.
 static __device__ __forceinline__ QvEncoder qv_stage_encoder(
     float* smem, const float* blob, int blob_len, int t_in, int mask_channel,
     int se_idx, int multi_image, int act, int up, int nb) {
-  const int bs = blockDim.x;
-  for (int i = threadIdx.x; i < blob_len; i += bs) smem[i] = blob[i];
+  const float4* src = reinterpret_cast<const float4*>(blob);
+  float4* dst = reinterpret_cast<float4*>(smem);
+  for (int i = threadIdx.x; i < blob_len / 4; i += blockDim.x) dst[i] = src[i];
   __syncthreads();
   QvEncoder e;
   e.T = t_in - mask_channel;
-  e.up = up;
+  e.ks0 = (e.T + 7) / 8;
+  e.nt = up / 8;
   e.nb = nb;
   e.act = act;
-  e.bs = bs;
   e.se_idx = se_idx;
   e.multi_image = multi_image;
   e.lo = se_idx - 1 > 0 ? se_idx - 1 : 0;
   e.hi = se_idx + 2 < e.T ? se_idx + 2 : e.T;
-  e.wfc = smem;
-  e.bfc = e.wfc + e.T * up;
-  e.wb = e.bfc + up;
-  e.bb = e.wb + nb * up * up;
-  e.wf = e.bb + nb * up;
-  e.bf = e.wf + up * 8;
+  e.w0 = dst;
+  e.wb = e.w0 + e.ks0 * e.nt * 32;
+  e.wf = e.wb + nb * e.nt * e.nt * 32;
+  e.b0 = reinterpret_cast<const float*>(e.wf + e.nt * 32);
+  e.bb = e.b0 + up;
+  e.bf = e.bb + nb * up;
   e.consts = e.bf + 8;
-  const int rows = e.T > up ? e.T : up;
-  e.buf0 = smem + blob_len + threadIdx.x;
-  e.buf1 = e.buf0 + rows * bs;
+  e.xs_stride = qv_xs_stride(8 * e.ks0);
+  e.xs = smem + blob_len + (threadIdx.x / 32) * QV_TILE * (e.xs_stride + QV_QS);
+  e.qs = e.xs + QV_TILE * e.xs_stride;
   return e;
 }
 
-// The raw stream-1 head q[5] of voxel v (kernels B and C).
-static __device__ __forceinline__ void qv_encode_voxel(
+// Row `lane` of the warp's staged rows: voxel v normalised (zeros past N
+// and past T).
+static __device__ __forceinline__ void qv_stage_row(
     const QvEncoder& e, const float* __restrict__ x, long long n, long long v,
-    int t_in, int channel_major, int mask_channel, float q[5]) {
-  const int T = e.T, bs = e.bs;
-  float* buf0 = e.buf0;
-  // ---- normalise into buf0 -----------------------------------------------
-  float mask = 1.0f;
-  if (mask_channel)
-    mask = channel_major ? x[(long long)T * n + v] : x[v * t_in + T];
-  for (int t = 0; t < T; ++t) {
-    float xv = channel_major ? x[(long long)t * n + v] : x[v * t_in + t];
-    if (mask_channel) xv = xv * mask;
-    buf0[t * bs] = fminf(fmaxf(xv, 1e-2f), 1e8f);
-  }
-  float ref;
-  if (e.multi_image) {
-    float sum = 0.0f;
-    for (int t = e.lo; t < e.hi; ++t) sum += buf0[t * bs];
-    ref = sum / (float)(e.hi - e.lo);
+    int t_in, int channel_major, int mask_channel, int lane) {
+  const int T = e.T;
+  float* row = e.xs + lane * e.xs_stride;
+  if (v < n) {
+    float mask = 1.0f;
+    if (mask_channel)
+      mask = channel_major ? x[(long long)T * n + v] : x[v * t_in + T];
+    for (int t = 0; t < T; ++t) {
+      float xv = channel_major ? x[(long long)t * n + v] : x[v * t_in + t];
+      if (mask_channel) xv = xv * mask;
+      row[t] = fminf(fmaxf(xv, 1e-2f), 1e8f);
+    }
+    float ref;
+    if (e.multi_image) {
+      float sum = 0.0f;
+      for (int t = e.lo; t < e.hi; ++t) sum += row[t];
+      ref = sum / (float)(e.hi - e.lo);
+    } else {
+      ref = row[e.se_idx];
+    }
+    for (int t = 0; t < T; ++t) row[t] = logf(row[t] / ref);
   } else {
-    ref = buf0[e.se_idx * bs];
+    for (int t = 0; t < T; ++t) row[t] = 0.0f;
   }
-  for (int t = 0; t < T; ++t) buf0[t * bs] = logf(buf0[t * bs] / ref);
-
-  // ---- stream-1 dense chain ------------------------------------------------
-  qv_dense(buf0, T, e.wfc, e.bfc, e.buf1, e.up, e.act, bs);
-  float* cur = e.buf1;
-  float* nxt = buf0;
-  for (int i = 0; i < e.nb; ++i) {
-    qv_dense(cur, e.up, e.wb + i * e.up * e.up, e.bb + i * e.up, nxt, e.up,
-             e.act, bs);
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
-
-  // ---- float32 head (U -> 5) -----------------------------------------------
-  float q0 = 0.0f, q1 = 0.0f, q2 = 0.0f, q3 = 0.0f, q4 = 0.0f;
-  for (int k = 0; k < e.up; ++k) {
-    float h = cur[k * bs];
-    float4 w = *reinterpret_cast<const float4*>(e.wf + k * 8);
-    q0 = fmaf(w.x, h, q0);
-    q1 = fmaf(w.y, h, q1);
-    q2 = fmaf(w.z, h, q2);
-    q3 = fmaf(w.w, h, q3);
-    q4 = fmaf(e.wf[k * 8 + 4], h, q4);
-  }
-  q[0] = q0 + e.bf[0];
-  q[1] = q1 + e.bf[1];
-  q[2] = q2 + e.bf[2];
-  q[3] = q3 + e.bf[3];
-  q[4] = q4 + e.bf[4];
+  for (int t = T; t < 8 * e.ks0; ++t) row[t] = 0.0f;
 }
 
-__global__ void qv_encode_quad_kernel(
+// acc[m][j] (+)= A_m W(s, j) over the NJ n-tiles of k-step s, A_m this
+// lane's split A fragment of m-tile m. Every count is a compile-time
+// constant: runtime guards around the products would cut the n-tiles into
+// separate blocks that the compiler cannot interleave.
+template <int MT, int NJ, class Trunk, int NA>
+static __device__ __forceinline__ void qv_kstep(
+    const typename Trunk::A (&f)[MT], const float4* __restrict__ w, int s,
+    int lane, bool first, float (&acc)[MT][NA][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const float4 b = w[(s * NJ + j) * 32 + lane];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) Trunk::mma(acc[m][j], f[m], b, first);
+  }
+}
+
+// The first layer's sums, A read from the staged rows row0 + 16 m + g and
+// + 8, words 8 s + 2t and + 1.
+template <int MT, int NT, class Trunk>
+static __device__ __forceinline__ void qv_layer_rows(
+    const QvEncoder& e, int row0, int lane, float (&acc)[MT][NT][4]) {
+  const int g = lane >> 2, t = lane & 3;
+  for (int s = 0; s < e.ks0; ++s) {
+    typename Trunk::A f[MT];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const float* r = e.xs + (row0 + 16 * m + g) * e.xs_stride + 8 * s + 2 * t;
+      const float2 a = *reinterpret_cast<const float2*>(r);
+      const float2 b = *reinterpret_cast<const float2*>(r + 8 * e.xs_stride);
+      f[m] = Trunk::split(a.x, b.x, a.y, b.y);
+    }
+    qv_kstep<MT, NT, Trunk>(f, e.w0, s, lane, s == 0, acc);
+  }
+}
+
+// A layer's sums from the activations in registers: NK k-steps, NJ
+// n-tiles.
+template <int MT, int NK, int NJ, class Trunk, int NA>
+static __device__ __forceinline__ void qv_layer_regs(
+    const float (&a)[MT][NK][4], const float4* __restrict__ w, int lane,
+    float (&acc)[MT][NA][4]) {
+#pragma unroll
+  for (int s = 0; s < NK; ++s) {
+    typename Trunk::A f[MT];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+      f[m] = Trunk::split(a[m][s][0], a[m][s][1], a[m][s][2], a[m][s][3]);
+    qv_kstep<MT, NJ, Trunk>(f, w, s, lane, s == 0, acc);
+  }
+}
+
+// a = f(acc + b) over the NT n-tiles: sums (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1) of n-tile j become the next layer's A
+// fragment of k-step j, (g, 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1).
+template <int MT, int NT, class F>
+static __device__ __forceinline__ void qv_bias_map(
+    const float (&acc)[MT][NT][4], const float* b, int t, F f,
+    float (&a)[MT][NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float2 bj = *reinterpret_cast<const float2*>(b + 8 * j + 2 * t);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      a[m][j][0] = f(acc[m][j][0] + bj.x);
+      a[m][j][1] = f(acc[m][j][2] + bj.x);
+      a[m][j][2] = f(acc[m][j][1] + bj.y);
+      a[m][j][3] = f(acc[m][j][3] + bj.y);
+    }
+  }
+}
+
+// a = act(acc + b): relu (OPTIMAL's) inline, any other activation through
+// one out-of-line copy of qv_act. Inlining qv_act at each of the 64
+// elements of an epilogue, or a copy of the epilogue per activation, made
+// the kernel 6-9x larger and, on the H100, the relu path slower
+// (PERF.md).
+template <int MT, int NT>
+static __device__ __forceinline__ void qv_bias_act(
+    const float (&acc)[MT][NT][4], const float* b, int t, int act,
+    float (&a)[MT][NT][4]) {
+  if (act == 0)
+    qv_bias_map(acc, b, t, [](float x) { return fmaxf(x, 0.0f); }, a);
+  else
+    qv_bias_map(acc, b, t, [act](float x) { return qv_act_call(act, x); }, a);
+}
+
+// The chain on the tile's rows row0 .. row0 + 16 MT - 1 (widths of NT
+// n-tiles); heads into qs.
+template <int MT, int NT, class Trunk>
+static __device__ __forceinline__ void qv_encode_rows(const QvEncoder& e,
+                                                      int row0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float a[MT][NT][4], acc[MT][NT][4];
+  qv_layer_rows<MT, NT, Trunk>(e, row0, lane, acc);
+  qv_bias_act<MT, NT>(acc, e.b0, t, e.act, a);
+  for (int i = 0; i < e.nb; ++i) {
+    qv_layer_regs<MT, NT, NT, Trunk>(a, e.wb + i * NT * NT * 32, lane, acc);
+    qv_bias_act<MT, NT>(acc, e.bb + i * 8 * NT, t, e.act, a);
+  }
+  // the float32 head (U -> 5, one n-tile padded to 8): q = Wf h + bf
+  qv_layer_regs<MT, NT, 1, Trunk>(a, e.wf, lane, acc);
+  const float2 bj = *reinterpret_cast<const float2*>(e.bf + 2 * t);
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    float* q = e.qs + (row0 + 16 * m + g) * QV_QS;
+    if (2 * t < QV_QS) {
+      q[2 * t] = acc[m][0][0] + bj.x;
+      q[8 * QV_QS + 2 * t] = acc[m][0][2] + bj.x;
+    }
+    if (2 * t + 1 < QV_QS) {
+      q[2 * t + 1] = acc[m][0][1] + bj.y;
+      q[8 * QV_QS + 2 * t + 1] = acc[m][0][3] + bj.y;
+    }
+  }
+}
+
+// The raw stream-1 head q[5] of voxel v0 + lane (kernels B and C): the
+// whole warp encodes the tile v0 .. v0 + 31.
+template <int MT, int NT, class Trunk>
+static __device__ __forceinline__ void qv_encode_tile(
+    const QvEncoder& e, const float* __restrict__ x, long long n,
+    long long v0, int t_in, int channel_major, int mask_channel, int lane,
+    float q[5]) {
+  qv_stage_row(e, x, n, v0 + lane, t_in, channel_major, mask_channel, lane);
+  __syncwarp();
+#pragma unroll
+  for (int row0 = 0; row0 < QV_TILE; row0 += 16 * MT)
+    qv_encode_rows<MT, NT, Trunk>(e, row0, lane);
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < 5; ++j) q[j] = e.qs[lane * QV_QS + j];
+  __syncwarp();
+}
+
+template <int MT, int NT>
+__global__ void __launch_bounds__(QV_ENC_THREADS) qv_encode_quad_kernel(
     const float* __restrict__ x, long long n, int t_in, int channel_major,
     int mask_channel, int se_idx, int multi_image, int act, int up, int nb,
     const float* __restrict__ blob, int blob_len, int mvg, QvRanges r,
@@ -194,11 +343,15 @@ __global__ void qv_encode_quad_kernel(
   const QvEncoder e = qv_stage_encoder(reinterpret_cast<float*>(smem4), blob,
                                        blob_len, t_in, mask_channel, se_idx,
                                        multi_image, act, up, nb);
-  const long long stride = (long long)gridDim.x * e.bs;
-  for (long long v = (long long)blockIdx.x * e.bs + threadIdx.x; v < n;
-       v += stride) {
+  const int lane = threadIdx.x & 31, warps = blockDim.x / 32;
+  const long long tiles = (n + QV_TILE - 1) / QV_TILE;
+  for (long long tile = (long long)blockIdx.x * warps + threadIdx.x / 32;
+       tile < tiles; tile += (long long)gridDim.x * warps) {
+    const long long v = tile * QV_TILE + lane;
     float q[5];
-    qv_encode_voxel(e, x, n, v, t_in, channel_major, mask_channel, q);
+    qv_encode_tile<MT, NT, QvTrunkF32>(e, x, n, tile * QV_TILE, t_in,
+                                   channel_major, mask_channel, lane, q);
+    if (v >= n) continue;
     // ---- quadrature summaries + raw-log-std transforms ---------------------
     float m[3], s[3], rw[3];
     qv_quad_voxel(e.consts, q[0], q[1], q[2], q[3], q[4], mvg != 0, r, m, s,
@@ -212,7 +365,8 @@ __global__ void qv_encode_quad_kernel(
   }
 }
 
-__global__ void qv_encode_q_kernel(
+template <int MT, int NT>
+__global__ void __launch_bounds__(QV_ENC_THREADS) qv_encode_q_kernel(
     const float* __restrict__ x, long long n, int t_in, int channel_major,
     int mask_channel, int se_idx, int multi_image, int act, int up, int nb,
     const float* __restrict__ blob, int blob_len, float* __restrict__ q_out) {
@@ -220,21 +374,27 @@ __global__ void qv_encode_q_kernel(
   const QvEncoder e = qv_stage_encoder(reinterpret_cast<float*>(smem4), blob,
                                        blob_len, t_in, mask_channel, se_idx,
                                        multi_image, act, up, nb);
-  const long long stride = (long long)gridDim.x * e.bs;
-  for (long long v = (long long)blockIdx.x * e.bs + threadIdx.x; v < n;
-       v += stride) {
+  const int lane = threadIdx.x & 31, warps = blockDim.x / 32;
+  const long long tiles = (n + QV_TILE - 1) / QV_TILE;
+  for (long long tile = (long long)blockIdx.x * warps + threadIdx.x / 32;
+       tile < tiles; tile += (long long)gridDim.x * warps) {
+    const long long v = tile * QV_TILE + lane;
     float q[5];
-    qv_encode_voxel(e, x, n, v, t_in, channel_major, mask_channel, q);
+    qv_encode_tile<MT, NT, QvTrunkF32>(e, x, n, tile * QV_TILE, t_in,
+                                   channel_major, mask_channel, lane, q);
+    if (v >= n) continue;
 #pragma unroll
     for (int j = 0; j < 5; ++j) q_out[(long long)j * n + v] = q[j];
   }
 }
 
-// Grid of a grid-stride encode kernel: as many blocks as the voxels need, at
+// Grid of a grid-stride encode kernel: as many blocks as the tiles need, at
 // most as many as fit on the card at once (the weights are staged once per
 // resident block).
 static int qv_encode_grid(const void* kernel, long long n, int block,
                           long long smem_bytes, int* grid) {
+  if (block % 32 != 0 || block > QV_ENC_THREADS)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -247,11 +407,40 @@ static int qv_encode_grid(const void* kernel, long long n, int block,
            &per_sm, kernel, block, (size_t)smem_bytes)) != cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  long long need = (n + block - 1) / block;
-  long long cap = (long long)sms * per_sm;
+  const long long tiles = (n + QV_TILE - 1) / QV_TILE;
+  const long long need = (tiles + block / 32 - 1) / (block / 32);
+  const long long cap = (long long)sms * per_sm;
   *grid = (int)(need < cap ? need : cap);
   return 0;
 }
+
+// Launch one encode kernel on the grid qv_encode_grid sizes.
+template <class Kernel, class... Args>
+static int qv_launch(Kernel kernel, long long n, int block,
+                     long long smem_bytes, void* stream, Args... args) {
+  int grid = 0;
+  int err = qv_encode_grid((const void*)kernel, n, block, smem_bytes, &grid);
+  if (err != 0) return err;
+  kernel<<<grid, block, (size_t)smem_bytes, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// kernel<MT, NT> for the padded width up: 2 m-tiles a pass and 2, 4 or 8
+// n-tiles up to 64 units, 1 m-tile and 16 n-tiles up to 128 (a lane's
+// activations and sums, 2 x MT x NT x 4 floats, within 128 registers).
+#define QV_ENCODE_DISPATCH(kernel, up, ...)                   \
+  switch (up) {                                               \
+    case 16:                                                  \
+      return qv_launch(kernel<2, 2>, __VA_ARGS__);            \
+    case 32:                                                  \
+      return qv_launch(kernel<2, 4>, __VA_ARGS__);            \
+    case 64:                                                  \
+      return qv_launch(kernel<2, 8>, __VA_ARGS__);            \
+    case 128:                                                 \
+      return qv_launch(kernel<1, 16>, __VA_ARGS__);           \
+    default:                                                  \
+      return (int)cudaErrorInvalidValue;                      \
+  }
 
 extern "C" int qv_encode_quad_fused(
     const float* x, long long n, int t_in, int channel_major,
@@ -260,15 +449,10 @@ extern "C" int qv_encode_quad_fused(
     float* vars, float* raw, int mvg, int block, long long smem_bytes,
     void* stream) {
   (void)u;
-  int grid = 0;
-  int err = qv_encode_grid((const void*)qv_encode_quad_kernel, n, block,
-                           smem_bytes, &grid);
-  if (err != 0) return err;
-  qv_encode_quad_kernel<<<grid, block, (size_t)smem_bytes,
-                          (cudaStream_t)stream>>>(
-      x, n, t_in, channel_major, mask_channel, se_idx, multi_image, act, up,
-      nb, blob, blob_len, mvg, r, means, vars, raw);
-  return (int)cudaGetLastError();
+  QV_ENCODE_DISPATCH(qv_encode_quad_kernel, up, n, block, smem_bytes, stream,
+                     x, n, t_in, channel_major, mask_channel, se_idx,
+                     multi_image, act, up, nb, blob, blob_len, mvg, r, means,
+                     vars, raw)
 }
 
 extern "C" int qv_encode_q1(const float* x, long long n, int t_in,
@@ -276,13 +460,7 @@ extern "C" int qv_encode_q1(const float* x, long long n, int t_in,
                             int multi_image, int act, int up, int nb,
                             const float* blob, int blob_len, float* q,
                             int block, long long smem_bytes, void* stream) {
-  int grid = 0;
-  int err = qv_encode_grid((const void*)qv_encode_q_kernel, n, block,
-                           smem_bytes, &grid);
-  if (err != 0) return err;
-  qv_encode_q_kernel<<<grid, block, (size_t)smem_bytes,
-                       (cudaStream_t)stream>>>(
-      x, n, t_in, channel_major, mask_channel, se_idx, multi_image, act, up,
-      nb, blob, blob_len, q);
-  return (int)cudaGetLastError();
+  QV_ENCODE_DISPATCH(qv_encode_q_kernel, up, n, block, smem_bytes, stream, x,
+                     n, t_in, channel_major, mask_channel, se_idx, multi_image,
+                     act, up, nb, blob, blob_len, q)
 }

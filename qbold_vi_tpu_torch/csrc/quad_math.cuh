@@ -11,6 +11,10 @@
 // sigmoid is 1 / (1 + expf(-x)): both are part of the model, so no
 // normcdff/erff and no fast-math intrinsics.
 //
+// The 16-node loops stay rolled (#pragma unroll 1): unrolled, kernel A took
+// 255 registers and ~4.7 k instructions and ran 28% slower on the H100,
+// and kernel B's tail 8% slower (PERF.md).
+//
 // Node constants are not typed here: the caller stages the float32 table
 // ops/quadrature.py::QUAD_CONSTS (built in float64 by numpy, rounded once)
 // in shared memory and passes a pointer to it. Layout (QV_NCONST floats):
@@ -67,7 +71,7 @@ static __device__ __forceinline__ void qv_mom1d(const float* c, float m,
                                                 float s, float* e1, float* e2) {
   if (s < QV_SPLIT) {
     float a1 = 0.0f, a2 = 0.0f;
-#pragma unroll
+#pragma unroll 1
     for (int i = 0; i < QV_QH; ++i) {
       float sg = qv_sigmoid(m + s * qv_xh(c)[i]);
       float w = qv_wh(c)[i] * sg;
@@ -81,7 +85,7 @@ static __device__ __forceinline__ void qv_mom1d(const float* c, float m,
   float inv_s = 1.0f / s;
   float zs = -m * inv_s;
   float c1 = 0.0f, c2 = 0.0f;
-#pragma unroll
+#pragma unroll 1
   for (int j = 0; j < QV_QL; ++j) {
     float na = qv_npdf(zs + qv_tl(c)[j] * inv_s);
     float nb = qv_npdf(zs - qv_tl(c)[j] * inv_s);
@@ -100,7 +104,7 @@ static __device__ __forceinline__ void qv_omom1d(const float* c, float m,
   if (s < QV_SPLIT) {
 #pragma unroll
     for (int k = 0; k < 8; ++k) out[k] = 0.0f;
-#pragma unroll
+#pragma unroll 1
     for (int i = 0; i < QV_QH; ++i) {
       float x = qv_xh(c)[i];
       float sg = qv_sigmoid(m + s * x);
@@ -123,7 +127,7 @@ static __device__ __forceinline__ void qv_omom1d(const float* c, float m,
   float acc[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) acc[k] = 0.0f;
-#pragma unroll
+#pragma unroll 1
   for (int j = 0; j < QV_QL; ++j) {
     float za = zs + qv_tl(c)[j] * inv_s;
     float zb = zs - qv_tl(c)[j] * inv_s;
@@ -156,7 +160,7 @@ static __device__ __forceinline__ void qv_gmom1d(const float* c, float m,
   if (s < QV_SPLIT) {
 #pragma unroll
     for (int k = 0; k < 5; ++k) g[k] = 0.0f;
-#pragma unroll
+#pragma unroll 1
     for (int i = 0; i < QV_QH; ++i) {
       float sg = qv_sigmoid(m + s * qv_xh(c)[i]);
       float w = qv_wh(c)[i] * sg;
@@ -173,7 +177,7 @@ static __device__ __forceinline__ void qv_gmom1d(const float* c, float m,
   float acc[5];
 #pragma unroll
   for (int k = 0; k < 5; ++k) acc[k] = 0.0f;
-#pragma unroll
+#pragma unroll 1
   for (int j = 0; j < QV_QL; ++j) {
     float na = qv_npdf(zs + qv_tl(c)[j] * inv_s);
     float nb = qv_npdf(zs - qv_tl(c)[j] * inv_s);

@@ -18,19 +18,24 @@
 // (5, 8, N/8) packing and padding are TPU layouts and are not carried over.
 //
 // Noise: host normals z (draws, N, 2) in the JAX layout, or device noise:
-// pair d of voxel v from the Philox4x32-10 counter (offset + v, d) keyed by
-// the seed (elbo_math.cuh::qv_normal2, replayed on the host by
-// ops/fused_elbo.py::philox_normals). ``offset`` is the index of the first
-// voxel in the request, so a chunked request draws what a whole one would.
-// The TPU kernels reseed per grid program instead, which ties their streams
-// to the tile size.
+// pairs 2k and 2k + 1 of voxel v from words (0, 1) and (2, 3) of the
+// Philox4x32-10 block with counter (offset + v, k) keyed by the seed
+// (elbo_math.cuh::qv_philox, replayed on the host by ops/summarize.py::
+// mc_philox_normals): one block for two pairs. Kernel F keeps one block a
+// pair (qv_normal2), so its stream is not D's or E's. ``offset`` is the
+// index of the first voxel in the request, so a chunked request draws
+// what a whole one would. The TPU kernels reseed per grid program
+// instead, which ties their streams to the tile size.
 //
-// Bound: operations. Per voxel D reads 20 B and writes 24 B against S/2
-// Philox blocks and Box-Muller pairs and S sigmoids pairs (~40 float
+// Bound: operations. Per voxel D reads 20 B and writes 24 B against S/4
+// Philox blocks, S/2 Box-Muller pairs and S sigmoids pairs (~40 float
 // operations a draw); E reads 40 B and writes 4 B against S draws of ~40.
-// One thread per voxel, float32 accumulators in registers, the arithmetic in
-// the plain versions' order (ops/summarize.py) so that --fmad=false rounds
-// every product where they do.
+// One thread per voxel, float32 accumulators in registers, the sums in the
+// plain versions' order (ops/summarize.py). The work a draw is what D's
+// time is made of (PERF.md: a voxel's own work is ~2% of it): one Philox
+// block serves two pairs, and the sigmoids take an approximate reciprocal
+// of 1 + __expf(-x) (MUFU.EX2 and MUFU.RCP, a few ulp) in place of expf and
+// the IEEE division, within the rtol 1e-4 gate on the means.
 
 #include "elbo_math.cuh"
 #include "quad_math.cuh"
@@ -41,17 +46,32 @@ struct QvMcNoise {
   unsigned k0, k1;   // Philox key (the seed)
 };
 
-static __device__ __forceinline__ void qv_mc_normal(const QvMcNoise& nz,
-                                                    long long n, long long v,
-                                                    int d, float* z0,
-                                                    float* z1) {
+// Pairs d and d + 1 (d even; d + 1 only where below draws) of voxel v as
+// z[0..1] and z[2..3].
+static __device__ __forceinline__ void qv_mc_normals(const QvMcNoise& nz,
+                                                     long long n, long long v,
+                                                     int d, int draws,
+                                                     float z[4]) {
   if (nz.z != nullptr) {
     const float* p = nz.z + ((long long)d * n + v) * 2;
-    *z0 = p[0];
-    *z1 = p[1];
+    z[0] = p[0];
+    z[1] = p[1];
+    if (d + 1 < draws) {
+      z[2] = p[2 * n];
+      z[3] = p[2 * n + 1];
+    }
   } else {
-    qv_normal2(nz.offset + v, d, nz.k0, nz.k1, z0, z1);
+    unsigned c[4];
+    qv_philox(nz.offset + v, (unsigned)(d >> 1), nz.k0, nz.k1, c);
+    qv_box_muller(c[0], c[1], &z[0], &z[1]);
+    if (d + 1 < draws) qv_box_muller(c[2], c[3], &z[2], &z[3]);
   }
+}
+
+// sigmoid(x) = 1 / (1 + e^-x) by the hardware's exponential and reciprocal
+// (1 / inf = 0 where e^-x overflows).
+static __device__ __forceinline__ float qv_sigmoid_fast(float x) {
+  return __fdividef(1.0f, 1.0f + __expf(-x));
 }
 
 struct QvMoments {
@@ -65,8 +85,8 @@ static __device__ __forceinline__ void qv_mc_accumulate(
     float z0, float z1, QvMoments* m) {
   float oef_l = u.mu0 + z0 * std0;
   float dbv_l = mvg ? (u.mu1 + z0 * u.od) + z1 * std1 : u.mu1 + z1 * std1;
-  float oef = qv_sigmoid_f(oef_l) * r.b + r.a;
-  float dbv = qv_sigmoid_f(dbv_l) * r.d + r.c;
+  float oef = qv_sigmoid_fast(oef_l) * r.b + r.a;
+  float dbv = qv_sigmoid_fast(dbv_l) * r.d + r.c;
   float r2p = (r.dw * oef) * dbv;
   m->o = m->o + oef;
   m->o2 = m->o2 + oef * oef;
@@ -91,12 +111,18 @@ __global__ void qv_mc_summaries_kernel(
     QvPost u = qv_unpack(raw, mvg != 0);
     float std0 = expf(u.ls0), std1 = expf(u.ls1);
     QvMoments m = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    for (int d = 0; d < draws; ++d) {
-      float z0, z1;
-      qv_mc_normal(nz, n, v, d, &z0, &z1);
-      qv_mc_accumulate(u, std0, std1, mvg != 0, r, z0, z1, &m);
-      if (antithetic)
-        qv_mc_accumulate(u, std0, std1, mvg != 0, r, -z0, -z1, &m);
+    for (int d = 0; d < draws; d += 2) {
+      float z[4];
+      qv_mc_normals(nz, n, v, d, draws, z);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (d + h == draws) break;
+        qv_mc_accumulate(u, std0, std1, mvg != 0, r, z[2 * h], z[2 * h + 1],
+                         &m);
+        if (antithetic)
+          qv_mc_accumulate(u, std0, std1, mvg != 0, r, -z[2 * h],
+                           -z[2 * h + 1], &m);
+      }
     }
     float mo = m.o * inv_n, md = m.d * inv_n, mr = m.r * inv_n;
     means[v * o_vox] = mo;
@@ -106,6 +132,23 @@ __global__ void qv_mc_summaries_kernel(
     vars[v * o_vox + o_chan] = fmaxf(m.d2 * inv_n - md * md, 0.0f);
     vars[v * o_vox + 2 * o_chan] = fmaxf(m.r2 * inv_n - mr * mr, 0.0f);
   }
+}
+
+// One draw's reduced-KL term 0.5 (swr_p(l) - swr_q(l)).
+static __device__ __forceinline__ float qv_kl_draw(const QvPost& q,
+                                                   const QvPost& p,
+                                                   const QvWhite& qf,
+                                                   const QvWhite& pf,
+                                                   float std0, float std1,
+                                                   float bound, float z0,
+                                                   float z1) {
+  float l0 = fminf(fmaxf(q.mu0 + z0 * std0, -bound), bound);
+  float l1 = fminf(fmaxf((q.mu1 + z0 * q.od) + z1 * std1, -bound), bound);
+  float rq0 = l0 - q.mu0, rq1 = l1 - q.mu1;
+  float rp0 = l0 - p.mu0, rp1 = l1 - p.mu1;
+  float wq0 = rq0 * qf.itl, wq1 = rq1 * qf.ibr + rq0 * qf.ibl;
+  float wp0 = rp0 * pf.itl, wp1 = rp1 * pf.ibr + rp0 * pf.ibl;
+  return 0.5f * ((wp0 * wp0 + wp1 * wp1) - (wq0 * wq0 + wq1 * wq1));
 }
 
 __global__ void qv_mc_kl_kernel(const float* __restrict__ qr,
@@ -121,16 +164,12 @@ __global__ void qv_mc_kl_kernel(const float* __restrict__ qr,
     float std0 = expf(q.ls0), std1 = expf(q.ls1);
     QvWhite qf = qv_white(q), pf = qv_white(p);
     float acc = 0.0f;
-    for (int d = 0; d < draws; ++d) {
-      float z0, z1;
-      qv_mc_normal(nz, n, v, d, &z0, &z1);
-      float l0 = fminf(fmaxf(q.mu0 + z0 * std0, -bound), bound);
-      float l1 = fminf(fmaxf((q.mu1 + z0 * q.od) + z1 * std1, -bound), bound);
-      float rq0 = l0 - q.mu0, rq1 = l1 - q.mu1;
-      float rp0 = l0 - p.mu0, rp1 = l1 - p.mu1;
-      float wq0 = rq0 * qf.itl, wq1 = rq1 * qf.ibr + rq0 * qf.ibl;
-      float wp0 = rp0 * pf.itl, wp1 = rp1 * pf.ibr + rp0 * pf.ibl;
-      acc = acc + 0.5f * ((wp0 * wp0 + wp1 * wp1) - (wq0 * wq0 + wq1 * wq1));
+    for (int d = 0; d < draws; d += 2) {
+      float z[4];
+      qv_mc_normals(nz, n, v, d, draws, z);
+      acc = acc + qv_kl_draw(q, p, qf, pf, std0, std1, bound, z[0], z[1]);
+      if (d + 1 < draws)
+        acc = acc + qv_kl_draw(q, p, qf, pf, std0, std1, bound, z[2], z[3]);
     }
     kl[v] = acc * (1.0f / (float)draws) + ((p.ls0 + p.ls1) - (q.ls0 + q.ls1));
   }

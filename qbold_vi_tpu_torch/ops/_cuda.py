@@ -42,7 +42,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("quadrature.cu", "encode_quad.cu", "decode_nll.cu",
            "fused_elbo.cu", "summarize.cu", "conv3x3.cu")
-HEADERS = ("quad_math.cuh", "elbo_math.cuh")
+HEADERS = ("quad_math.cuh", "elbo_math.cuh", "mma_math.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
               "--resource-usage")

@@ -51,7 +51,8 @@ from .decode_nll import (DecodeConsts, _check_cuda, _device_of, _grid,
 
 __all__ = ["fused_elbo_available", "fused_elbo", "fused_elbo_forward",
            "fused_elbo_backward", "elbo_rows_plain", "elbo_grads_plain",
-           "kl_state_plain", "philox_normals", "KL_STATE"]
+           "kl_state_plain", "philox_normals", "philox_block",
+           "box_muller", "KL_STATE"]
 
 _EXP_M2 = float(np.exp(-2.0))
 KL_STATE = 6                # floats of the KL state a voxel (csrc QV_STATE)
@@ -75,19 +76,14 @@ _PHILOX_W = (np.uint64(0x9E3779B9), np.uint64(0xBB67AE85))
 _MASK32 = np.uint64(0xFFFFFFFF)
 
 
-def philox_normals(seed: int, n: int, draws: int, first: int = 0,
-                   offset: int = 0):
-    """(draws, n, 2) float32 normals of draws first.. first+draws-1 of
-    voxels offset..offset+n-1, bit for bit the counters of
-    csrc/elbo_math.cuh::qv_normal2 (Philox4x32-10, counter (v lo, v hi,
-    draw, 0), key (seed lo, seed hi); Box-Muller on the top 24 bits) up to
-    the last-bit rounding of float32 log/sin/cos."""
-    v = np.arange(offset, offset + n, dtype=np.uint64)
-    d = np.arange(first, first + draws, dtype=np.uint64)
-    c = [np.broadcast_to(v & _MASK32, (draws, n)).copy(),
-         np.broadcast_to(v >> np.uint64(32), (draws, n)).copy(),
-         np.broadcast_to(d[:, None], (draws, n)).copy(),
-         np.zeros((draws, n), np.uint64)]
+def philox_block(seed: int, v, ctr) -> list:
+    """Words c0..c3 of the Philox4x32-10 blocks with counters (v lo, v hi,
+    ctr, 0) keyed by (seed lo, seed hi), for broadcastable uint64 arrays v
+    and ctr: csrc/elbo_math.cuh::qv_philox."""
+    v, ctr = np.broadcast_arrays(np.asarray(v, np.uint64),
+                                 np.asarray(ctr, np.uint64))
+    c = [v & _MASK32, v >> np.uint64(32), ctr.copy(),
+         np.zeros(v.shape, np.uint64)]
     s = int(seed) & 0xFFFFFFFFFFFFFFFF
     k0, k1 = np.uint64(s & 0xFFFFFFFF), np.uint64(s >> 32)
     for _ in range(10):
@@ -97,12 +93,32 @@ def philox_normals(seed: int, n: int, draws: int, first: int = 0,
              (p0 >> np.uint64(32)) ^ c[3] ^ k1, p0 & _MASK32]
         k0 = (k0 + _PHILOX_W[0]) & _MASK32
         k1 = (k1 + _PHILOX_W[1]) & _MASK32
+    return c
+
+
+def box_muller(a, b):
+    """(..., 2) float32 normals from two Philox words a, b (their top 24
+    bits): csrc/elbo_math.cuh::qv_box_muller up to the last-bit rounding
+    of float32 log/sin/cos."""
     scale = np.float32(2.0 ** -24)
-    u1 = ((c[0] >> np.uint64(8)) + np.uint64(1)).astype(np.float32) * scale
-    u2 = (c[1] >> np.uint64(8)).astype(np.float32) * scale
+    u1 = ((a >> np.uint64(8)) + np.uint64(1)).astype(np.float32) * scale
+    u2 = (b >> np.uint64(8)).astype(np.float32) * scale
     r = np.sqrt(np.float32(-2.0) * np.log(u1))
     th = np.float32(2.0 * np.pi) * u2
     return np.stack([r * np.cos(th), r * np.sin(th)], -1).astype(np.float32)
+
+
+def philox_normals(seed: int, n: int, draws: int, first: int = 0,
+                   offset: int = 0):
+    """(draws, n, 2) float32 normals of draws first.. first+draws-1 of
+    voxels offset..offset+n-1, bit for bit the counters of
+    csrc/elbo_math.cuh::qv_normal2 (Philox4x32-10, counter (v lo, v hi,
+    draw, 0), key (seed lo, seed hi); Box-Muller on words 0 and 1) up to
+    the last-bit rounding of float32 log/sin/cos."""
+    v = np.arange(offset, offset + n, dtype=np.uint64)
+    d = np.arange(first, first + draws, dtype=np.uint64)
+    c = philox_block(seed, v[None, :], d[:, None])
+    return box_muller(c[0], c[1])
 
 
 def _seed_normals(seed, n, s_nll, s_kl, device):

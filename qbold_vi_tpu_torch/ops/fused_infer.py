@@ -45,7 +45,8 @@ __all__ = ["encode_quad_fused", "encode_quad_fused_plain", "encode_q_plain",
 SUPPORTED_ACTS = ("relu", "gelu", "tanh", "sigmoid", "softplus", "elu",
                   "silu", "swish", "leaky_relu", "relu6", "linear")
 
-_BLOCKS = (128, 64, 32)        # threads per block, largest that fits
+_WARPS = (12, 8, 4, 2, 1)       # warps per block, most that fit
+_MAX_WIDTH = 128               # csrc/encode_quad.cu::QV_ENCODE_DISPATCH
 
 
 def fused_infer_available(activation: str) -> bool:
@@ -137,30 +138,65 @@ def encode_quad_fused_plain(images, encoder, *, se_idx: int,
     return torch.stack(means), torch.stack(variances), torch.stack(raw)
 
 
+def _tf32(w):
+    """w rounded to TF32 (10 mantissa bits, nearest, ties away) as float32:
+    the bits of csrc/mma_math.cuh::qv_tf32 (half of the 13 dropped bits
+    added to the sign-magnitude pattern, then dropped)."""
+    bits = w.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _fragments(w, kp: int, np_: int):
+    """The 3xTF32 B fragments of a layer out = w @ in, w (N_out, K_in)
+    zero-padded to (np_, kp): [k-step s][n-tile j][lane 4g + t] ->
+    (b0 hi, b1 hi, b0 lo, b1 lo), b0 = w[8j + g, 8s + 2t], b1 = w[8j + g,
+    8s + 2t + 1], hi = tf32(w), lo = tf32(w - hi) (csrc/mma_math.cuh)."""
+    wp = w.new_zeros((np_, kp))
+    wp[:w.shape[0], :w.shape[1]] = w
+    hi = _tf32(wp)
+    lo = _tf32(wp - hi)
+    # (n, k) = (8j + g, 8s + 2t + pair) -> [s][j][g][t][hi/lo][pair]
+    split = torch.stack([hi, lo]).reshape(2, np_ // 8, 8, kp // 8, 4, 2)
+    return split.permute(3, 1, 2, 4, 0, 5).reshape(-1)
+
+
 def _weight_blob(encoder, n_blocks: int, device) -> tuple:
     """The kernel's shared-memory image of the weights (layout in
-    csrc/encode_quad.cu): transposed, zero-padded to Up = ceil(U/4)*4
-    output channels, followed by the quadrature node table."""
-    wfc, bfc, wb, bb, wf, bf = _stream1_weights(encoder, n_blocks)
+    csrc/encode_quad.cu): each layer's 3xTF32 B fragments in fragment
+    order, the width U zero-padded to Up (``_padded_width``) and the taus T
+    to a multiple of 8, then the padded biases and the quadrature node
+    table."""
+    wfc, bfc, wb, bb, wf, bf = (t.to(device=device, dtype=torch.float32)
+                                for t in _stream1_weights(encoder, n_blocks))
     u, t = wfc.shape
-    up = -(-u // 4) * 4
-    f32 = dict(device=device, dtype=torch.float32)
-    wfc_t = torch.zeros((t, up), **f32)
-    wfc_t[:, :u] = wfc.T
-    bfc_p = torch.zeros((up,), **f32)
-    bfc_p[:u] = bfc[:, 0]
-    wb_t = torch.zeros((n_blocks, up, up), **f32)
-    wb_t[:, :u, :u] = wb.transpose(1, 2)
-    bb_p = torch.zeros((n_blocks, up), **f32)
-    bb_p[:, :u] = bb[..., 0]
-    wf_t = torch.zeros((up, 8), **f32)
-    wf_t[:u, :5] = wf.T
-    bf_p = torch.zeros((8,), **f32)
-    bf_p[:5] = bf[:, 0]
-    blob = torch.cat([wfc_t.reshape(-1), bfc_p, wb_t.reshape(-1),
-                      bb_p.reshape(-1), wf_t.reshape(-1), bf_p,
-                      _cuda.quad_consts(device)])
+    up, tp = _padded_width(u), -(-t // 8) * 8
+
+    def pad(b, size):
+        return torch.cat([b.reshape(-1), b.new_zeros(size - b.numel())])
+
+    blob = torch.cat(
+        [_fragments(wfc, tp, up)]
+        + [_fragments(wb[i], up, up) for i in range(n_blocks)]
+        + [_fragments(wf, up, 8), pad(bfc, up)]
+        + [pad(bb[i], up) for i in range(n_blocks)]
+        + [pad(bf, 8), _cuda.quad_consts(device)])
     return blob.contiguous(), u, up, t
+
+
+def _padded_width(u: int) -> int:
+    """The kernel's width for U units: 16, 32, 64 or 128, one of its
+    compiled widths (csrc/encode_quad.cu::QV_ENCODE_DISPATCH); a wider
+    layer is rounded to 8, and _launch_setup refuses it."""
+    for w in (16, 32, 64, _MAX_WIDTH):
+        if u <= w:
+            return w
+    return -(-u // 8) * 8
+
+
+def _xs_stride(t: int) -> int:
+    """csrc/encode_quad.cu::qv_xs_stride: words a staged row."""
+    tp = -(-t // 8) * 8
+    return tp + 8 if tp % 16 == 0 else tp
 
 
 def _launch_setup(images, encoder, *, n_blocks: int, activation: str,
@@ -185,11 +221,13 @@ def _launch_setup(images, encoder, *, n_blocks: int, activation: str,
                          f"channels but first_conv expects {t}")
     if not 0 <= se_idx < t:
         raise ValueError(f"se_idx {se_idx} outside the {t} tau channels")
+    if up > _MAX_WIDTH:
+        raise ValueError(f"fused-infer kernel: width U={u} above the "
+                         f"{_MAX_WIDTH} units a lane's registers hold")
     with torch.cuda.device(images.device):
         limit = _cuda.library().qv_max_dynamic_smem()
-    rows = max(t, up)
-    for block in _BLOCKS:
-        smem = 4 * (blob.numel() + 2 * rows * block)
+    for warps in _WARPS:
+        smem = 4 * (blob.numel() + warps * 32 * (_xs_stride(t) + 5))
         if smem <= limit:
             break
     else:
@@ -197,7 +235,7 @@ def _launch_setup(images, encoder, *, n_blocks: int, activation: str,
             f"fused-infer kernel: weights of width U={u}, "
             f"n_blocks={n_blocks}, T={t} need {4 * blob.numel()} B of "
             f"shared memory, beyond this card's {limit} B per block")
-    return x, channel_major, n, blob, u, up, block, smem
+    return x, channel_major, n, blob, u, up, 32 * warps, smem
 
 
 def _encode_args(x, n, channel_major, mask_channel, se_idx, multi_image,

@@ -11,14 +11,15 @@ The counterpart of ``qbold_vi_tpu/ops/pallas_summarize.py``:
 * ``mc_kl_map(q, p (N, 4|5))`` -> (N,): the S-draw reduced sampled
   KL(q || p) of ``LogitMVN.mvg_kl_samples``, kernel E.
 
-Noise, as for kernel F (ops/fused_elbo.py): host normals ``z`` in the JAX
-layout -- (pairs or draws, N, 2) for D, (draws, N, 2) for E -- or a
-``seed``: normal pair d of voxel v then comes from the Philox4x32-10
-counter (offset + v, d) keyed by the seed, drawn by the kernel on the card
-and replayed bit for bit by ``philox_normals`` for the plain versions
-(up to the last-bit rounding of float32 log/sin/cos). ``offset`` is the
-global index of the first voxel, so a request cut into chunks draws what
-the whole request would.
+Noise: host normals ``z`` in the JAX layout -- (pairs or draws, N, 2)
+for D, (draws, N, 2) for E -- or a ``seed``: normal pairs 2k and 2k + 1 of
+voxel v then come from words (0, 1) and (2, 3) of the Philox4x32-10 block
+with counter (offset + v, k) keyed by the seed (one block for two pairs;
+kernel F, ops/fused_elbo.py, takes one block a pair), drawn by the kernel
+on the card and replayed bit for bit by ``mc_philox_normals`` for the
+plain versions (up to the last-bit rounding of float32 log/sin/cos).
+``offset`` is the global index of the first voxel, so a request cut into
+chunks draws what the whole request would.
 
 A CUDA tensor launches the kernel (counted in ``<wrapper>.launches``) or
 raises; a CPU tensor runs the plain version, which repeats the kernel's
@@ -29,16 +30,17 @@ arithmetic in its order: ``mc_posterior_summaries_plain`` (through
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..dist.logit_mvn import KL_BOUND, LogitMVN
 from . import _cuda
 from .decode_nll import _BLOCK, _check_cuda, _device_of, _grid
-from .fused_elbo import philox_normals
+from .fused_elbo import box_muller, philox_block
 
 __all__ = ["mc_posterior_summaries", "mc_posterior_summaries_packed",
            "mc_posterior_summaries_plain", "mc_kl_map", "mc_kl_map_plain",
-           "mc_draws", "mc_normals"]
+           "mc_draws", "mc_normals", "mc_philox_normals"]
 
 
 def _check_samples(no_samples: int) -> None:
@@ -60,10 +62,23 @@ def mc_draws(no_samples: int, antithetic: bool = True) -> int:
         else no_samples
 
 
+def mc_philox_normals(seed: int, n: int, draws: int, offset: int = 0):
+    """(draws, n, 2) float32 normals of kernels D and E's device noise for
+    voxels offset..offset+n-1: pairs 2k and 2k + 1 of voxel v from words
+    (0, 1) and (2, 3) of the Philox4x32-10 block with counter (v, k)
+    (csrc/summarize.cu::qv_mc_normals), up to the last-bit rounding of
+    float32 log/sin/cos."""
+    v = np.arange(offset, offset + n, dtype=np.uint64)
+    k = np.arange((draws + 1) // 2, dtype=np.uint64)
+    c = philox_block(seed, v[None, :], k[:, None])
+    z = np.stack([box_muller(c[0], c[1]), box_muller(c[2], c[3])], 1)
+    return z.reshape(-1, n, 2)[:draws]
+
+
 def mc_normals(z, seed, offset: int, n: int, draws: int, device):
     """(draws, N, 2) normals for a plain version: host normals z (checked)
-    or, for a seed, philox_normals' replay of the kernel's draws of voxels
-    offset.. offset+N-1."""
+    or, for a seed, mc_philox_normals' replay of the kernel's draws of
+    voxels offset.. offset+N-1."""
     if z is not None:
         if tuple(z.shape) != (draws, n, 2):
             raise ValueError(f"z must be ({draws}, {n}, 2), got "
@@ -71,8 +86,8 @@ def mc_normals(z, seed, offset: int, n: int, draws: int, device):
         return z
     if seed is None:
         raise ValueError("pass host normals z or a seed")
-    return torch.from_numpy(philox_normals(seed, n, draws,
-                                           offset=offset)).to(device)
+    return torch.from_numpy(mc_philox_normals(seed, n, draws,
+                                              offset)).to(device)
 
 
 # ---- kernel D --------------------------------------------------------------

@@ -12,7 +12,8 @@ The fine-tune kernels F and G: rows at rtol 1e-5 / atol 1e-5, gradients
 scale-normalised at rtol 5e-4 / atol 5e-5 (the JAX package's own gates,
 tests/test_pallas_elbo.py:88-97). The sampled kernels D and E with host
 normals at the means/variances tolerances above and rtol 1e-5 for the KL
-rows; with device noise against the plain versions fed philox_normals at
+rows; with device noise against the plain versions fed their replay of
+the counters (ops/summarize.py::mc_philox_normals; F's philox_normals) at
 rtol 1e-4 (numpy's log/sin/cos on the host against the card's).
 The 3x3 conv kernel H (3xTF32 tensor-core products): the output and dx
 within 1e-5 of their largest magnitude, dw and db within 1e-4 of theirs
@@ -77,21 +78,27 @@ def test_quadrature_kernel_matches_plain(cuda_device, mvg):
     _close([a.cpu().numpy() for a in got], [a.cpu().numpy() for a in ref])
 
 
+# widths 13 and 30 are zero-padded to 16 and 32 in the kernel, whose
+# padded channels gelu and softplus map from 0 to 0 and log 2; N = 50,001
+# and 33 end in a ragged tile of 32 voxels
 @pytest.mark.parametrize("layout", ["voxel", "channel"])
-@pytest.mark.parametrize("act,units,mvg,multi", [
-    ("relu", 60, True, False),          # OPTIMAL
-    ("gelu", 30, False, True),
-    ("softplus", 13, True, False),      # width not a multiple of 4
+@pytest.mark.parametrize("act,units,mvg,multi,n", [
+    ("relu", 60, True, False, 50_001),          # OPTIMAL
+    ("gelu", 30, False, True, 50_001),
+    ("softplus", 13, True, False, 50_001),      # width not a multiple of 4
+    ("gelu", 13, True, False, 50_001),
+    ("softplus", 30, True, True, 50_001),
+    ("relu", 60, True, False, 33),
 ])
 def test_fused_kernel_matches_plain(cuda_device, layout, act, units, mvg,
-                                    multi):
+                                    multi, n):
     cfg = dataclasses.replace(tcfg.OPTIMAL.model, activation=act,
                               no_units=units, use_mvg=mvg,
                               multi_image_normalisation=multi)
     tuner = _tuner(cfg, cuda_device)
     rng = np.random.default_rng(7)
-    x = volume(rng, (50_001,), SCAN.n_taus + 1)
-    x[:, -1] = rng.uniform(size=50_001) > 0.2
+    x = volume(rng, (n,), SCAN.n_taus + 1)
+    x[:, -1] = rng.uniform(size=n) > 0.2
     xt = torch.from_numpy(x).to(cuda_device)
     if layout == "channel":
         xt = xt.T.contiguous()
@@ -107,21 +114,42 @@ def test_fused_kernel_matches_plain(cuda_device, layout, act, units, mvg,
     _close([a.T.cpu().numpy() for a in got], [a.T.cpu().numpy() for a in ref])
 
 
+def test_fused_kernel_refuses_widths_past_its_registers(cuda_device):
+    """The kernels hold a lane's activations in registers up to 128 units;
+    a wider encoder is refused before any launch."""
+    cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=130)
+    tuner = _tuner(cfg, cuda_device)
+    x = torch.ones((64, SCAN.n_taus), device=cuda_device)
+    kw = dict(se_idx=SCAN.se_idx, multi_image=False, activation="relu",
+              n_blocks=cfg.no_intermediate_layers, trunk="float32")
+    before = tfi.encode_q1_packed.launches
+    with pytest.raises(ValueError, match="128 units"):
+        tfi.encode_q1_packed(x, tuner.encoder, **kw)
+    assert tfi.encode_q1_packed.launches == before
+
+
 @pytest.mark.parametrize("layout", ["voxel", "channel"])
-@pytest.mark.parametrize("units,mvg,multi", [(60, True, False),
-                                             (13, False, True)])
-def test_encode_kernel_matches_plain(cuda_device, layout, units, mvg, multi):
+@pytest.mark.parametrize("units,mvg,multi,act,n", [
+    (60, True, False, "relu", 50_003),
+    (13, False, True, "relu", 50_003),
+    (13, True, False, "gelu", 50_003),
+    (30, False, False, "softplus", 50_003),
+    (30, True, False, "relu", 31),
+])
+def test_encode_kernel_matches_plain(cuda_device, layout, units, mvg, multi,
+                                     act, n):
     """Kernel C: the raw head q (5, N) of the stream-1 encode."""
     cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=units,
-                              use_mvg=mvg, multi_image_normalisation=multi)
+                              use_mvg=mvg, multi_image_normalisation=multi,
+                              activation=act)
     tuner = _tuner(cfg, cuda_device)
     rng = np.random.default_rng(5)
-    x = volume(rng, (50_003,), SCAN.n_taus + 1)
-    x[:, -1] = rng.uniform(size=50_003) > 0.2
+    x = volume(rng, (n,), SCAN.n_taus + 1)
+    x[:, -1] = rng.uniform(size=n) > 0.2
     xt = torch.from_numpy(x).to(cuda_device)
     if layout == "channel":
         xt = xt.T.contiguous()
-    kw = dict(se_idx=SCAN.se_idx, multi_image=multi, activation="relu",
+    kw = dict(se_idx=SCAN.se_idx, multi_image=multi, activation=act,
               n_blocks=cfg.no_intermediate_layers, trunk="float32",
               mask_channel=True, input_layout=layout)
     before = tfi.encode_q1_packed.launches
@@ -139,7 +167,9 @@ def test_encode_kernel_matches_plain(cuda_device, layout, units, mvg, multi):
                          ids=["host", "philox"])
 @pytest.mark.parametrize("mvg,antithetic,s", [(True, True, 200),
                                               (True, False, 7),
-                                              (False, True, 9)])
+                                              (False, True, 9),
+                                              (True, True, 2),
+                                              (False, False, 200)])
 def test_mc_summaries_kernel_matches_plain(cuda_device, mvg, antithetic, s,
                                            device_noise):
     """Kernel D in both layouts against its plain version."""
@@ -150,7 +180,7 @@ def test_mc_summaries_kernel_matches_plain(cuda_device, mvg, antithetic, s,
     kw = dict(no_samples=s, mvg=mvg, antithetic=antithetic, **RANGES)
     if device_noise:
         noise = dict(seed=9, offset=1234)
-        z = torch.from_numpy(tfe.philox_normals(9, n, draws, offset=1234)
+        z = torch.from_numpy(tsm.mc_philox_normals(9, n, draws, 1234)
                              ).to(cuda_device)
     else:
         z = torch.from_numpy(rng.normal(size=(draws, n, 2)).astype(np.float32)
@@ -182,7 +212,7 @@ def test_mc_kl_kernel_matches_plain(cuda_device, mvg, device_noise):
                          ).to(cuda_device)
     if device_noise:
         noise = dict(seed=3, offset=77)
-        z = torch.from_numpy(tfe.philox_normals(3, n, s, offset=77)
+        z = torch.from_numpy(tsm.mc_philox_normals(3, n, s, 77)
                              ).to(cuda_device)
     else:
         z = torch.from_numpy(rng.normal(size=(s, n, 2)).astype(np.float32)

@@ -24,6 +24,9 @@ from torch_parity_utils import (assert_vars_close, port_params,  # noqa: E402
 from qbold_vi_tpu.config import OPTIMAL, ModelConfig, ScanParams  # noqa: E402
 from qbold_vi_tpu.infer import _encode_q  # noqa: E402
 from qbold_vi_tpu.ops import pallas_infer as jpi  # noqa: E402
+from qbold_vi_tpu_torch.models.encoder import (activation_fn,  # noqa: E402
+                                               normalise_data)
+from qbold_vi_tpu_torch.ops import _cuda  # noqa: E402
 from qbold_vi_tpu_torch.ops import fused_infer as tfi  # noqa: E402
 
 SCAN = ScanParams(simulate_noise=False)
@@ -160,3 +163,162 @@ def test_wrapper_rejects_what_it_does_not_take():
     before = tfi.encode_quad_fused.launches
     tfi.encode_quad_fused(x, enc, **kw)
     assert tfi.encode_quad_fused.launches == before    # plain on the CPU
+
+
+# ---- the kernel's weight blob and its fragment-order chain -------------------
+# Kernels B and C (csrc/encode_quad.cu) run the chain as 3xTF32 mma.sync
+# m16n8k8 products on weights packed by _weight_blob: hi / lo TF32 splits in
+# fragment order, widths zero-padded, with a layer's sums handed to the next
+# layer's A fragment in place. These tests unpack the blob and replay that
+# data flow lane by lane in torch (float64 products of the TF32 splits).
+
+def _lane_maps():
+    """PTX fragment positions of mma.m16n8k8 (TF32), lane = 4 g + t:
+    A a0..a3 at (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B b0, b1 at
+    (t, g), (t + 4, g); C c0..c3 at (g, 2t), (g, 2t + 1), (g + 8, 2t),
+    (g + 8, 2t + 1)."""
+    g, t = torch.arange(32) // 4, torch.arange(32) % 4
+    a = (torch.stack([g, g + 8, g, g + 8], 1), torch.stack([t, t, t + 4,
+                                                             t + 4], 1))
+    b = (torch.stack([t, t + 4], 1), torch.stack([g, g], 1))
+    c = (torch.stack([g, g, g + 8, g + 8], 1),
+         torch.stack([2 * t, 2 * t + 1, 2 * t, 2 * t + 1], 1))
+    return a, b, c
+
+
+def _mma(af, bf):
+    """D fragments (tiles, 32, 4) = A (tiles, 32, 4) x B (32, 2), float64."""
+    (ar, ac), (br, bc), (cr, cc) = _lane_maps()
+    am = torch.zeros(af.shape[0], 16, 8, dtype=torch.float64)
+    am[:, ar, ac] = af.double()
+    bm = torch.zeros(8, 8, dtype=torch.float64)
+    bm[br, bc] = bf.double()
+    return (am @ bm)[:, cr, cc]
+
+
+def _blob_parts(blob, t, up, nb):
+    """(W0, [Wb], Wf) fragment arrays [k-step][n-tile][lane][4] and the
+    padded biases, in csrc/encode_quad.cu's blob order."""
+    ks0, nt = -(-t // 8), up // 8
+    sizes = ([ks0 * nt * 128] + [nt * nt * 128] * nb + [nt * 128, up]
+             + [up] * nb + [8])
+    parts = list(torch.split(blob[:sum(sizes)], sizes))
+    w0 = parts[0].reshape(ks0, nt, 32, 4)
+    wb = [w.reshape(nt, nt, 32, 4) for w in parts[1:1 + nb]]
+    wf = parts[1 + nb].reshape(nt, 1, 32, 4)
+    return w0, wb, wf, parts[2 + nb], parts[3 + nb:3 + 2 * nb], parts[-1]
+
+
+def _chain_in_fragments(x, encoder, *, se_idx, multi_image, activation,
+                        n_blocks):
+    """The raw head q (5, N) by the kernel's data flow: rows of 16 voxels,
+    A fragments of the normalised taus (k = 8s + 2t and + 1 in slots t and
+    t + 4), then each layer's C fragments turned into the next A fragment
+    as (c0, c2, c1, c3) after bias and activation."""
+    act = activation_fn(activation)
+    blob, u, up, t = tfi._weight_blob(encoder, n_blocks, x.device)
+    w0, wb, wf, b0, bb, bf = _blob_parts(blob, t, up, n_blocks)
+    h = normalise_data(x, se_idx, multi_image)          # (N, T)
+    n = h.shape[0]
+    rows = torch.zeros(-(-n // 16) * 16, 8 * w0.shape[0])
+    rows[:n, :t] = h
+    r16 = rows.reshape(-1, 16, rows.shape[1])
+    lane = torch.arange(32)
+    g, tt = lane // 4, lane % 4
+
+    def layer(a, w):
+        acc = [0.0] * w.shape[1]
+        for s in range(w.shape[0]):
+            hi = tfi._tf32(a[s].float())
+            lo = tfi._tf32(a[s].float() - hi)
+            for j in range(w.shape[1]):
+                b = w[s, j]
+                acc[j] = acc[j] + (_mma(lo, b[:, :2]) + _mma(hi, b[:, 2:])
+                                   + _mma(hi, b[:, :2]))
+        return acc
+
+    def epilogue(acc, b):
+        out = []
+        for j, c in enumerate(acc):
+            c = c.float()
+            b0_, b1_ = b[8 * j + 2 * tt], b[8 * j + 2 * tt + 1]
+            out.append(act(torch.stack([c[..., 0] + b0_, c[..., 2] + b0_,
+                                        c[..., 1] + b1_, c[..., 3] + b1_],
+                                       -1)))
+        return out
+
+    a = [torch.stack([r16[:, g, 8 * s + 2 * tt], r16[:, g + 8, 8 * s + 2 * tt],
+                      r16[:, g, 8 * s + 2 * tt + 1],
+                      r16[:, g + 8, 8 * s + 2 * tt + 1]], -1)
+         for s in range(w0.shape[0])]
+    a = epilogue(layer(a, w0), b0)
+    for i in range(n_blocks):
+        a = epilogue(layer(a, wb[i]), bb[i])
+    c = layer(a, wf)[0].float()                          # (tiles, 32, 4)
+    q = torch.zeros(r16.shape[0], 16, 8)
+    q[:, g, 2 * tt] = c[..., 0] + bf[2 * tt]
+    q[:, g, 2 * tt + 1] = c[..., 1] + bf[2 * tt + 1]
+    q[:, g + 8, 2 * tt] = c[..., 2] + bf[2 * tt]
+    q[:, g + 8, 2 * tt + 1] = c[..., 3] + bf[2 * tt + 1]
+    return q.reshape(-1, 8)[:n, :5].T
+
+
+def _width_tuner(units, activation="relu"):
+    cfg = dataclasses.replace(OPT, no_units=units, activation=activation)
+    _, params = port_params(cfg, SCAN, units)
+    return cfg, port_tuner(cfg, SCAN, params)
+
+
+@pytest.mark.parametrize("units", [13, 30, 60])
+def test_weight_blob_unpacks_to_the_encoder(units):
+    """Each layer's fragments hold hi = tf32(w) and lo = tf32(w - hi) of
+    the encoder's weight at (n, k) = (8j + g, 8s + 2t [+ 1]), zeros past U
+    and T; the biases follow, zero-padded, then the quadrature table."""
+    cfg, tuner = _width_tuner(units)
+    nb = cfg.no_intermediate_layers
+    blob, u, up, t = tfi._weight_blob(tuner.encoder, nb, torch.device("cpu"))
+    assert (u, up, t) == (units, {13: 16, 30: 32, 60: 64}[units], 11)
+    w0, wb, wf, b0, bb, bf = _blob_parts(blob, t, up, nb)
+    wfc, bfc, wbs, bbs, wft, bft = tfi._stream1_weights(tuner.encoder, nb)
+
+    def unpack(frags, np_, kp):
+        f = frags.reshape(kp // 8, np_ // 8, 8, 4, 2, 2)  # s j g t hl pair
+        hi, lo = f.permute(4, 1, 2, 0, 3, 5).reshape(2, np_, kp)
+        return hi, lo
+
+    for frags, w in ([(w0, wfc)] + list(zip(wb, wbs)) + [(wf, wft)]):
+        np_, kp = frags.shape[1] * 8, frags.shape[0] * 8
+        hi, lo = unpack(frags, np_, kp)
+        wp = torch.zeros((np_, kp))
+        wp[:w.shape[0], :w.shape[1]] = w
+        bits = hi.view(torch.int32)
+        assert ((bits & 0x1FFF) == 0).all()              # 10 mantissa bits
+        assert torch.equal(hi, tfi._tf32(wp))
+        assert torch.equal(lo, tfi._tf32(wp - hi))
+        assert (hi[w.shape[0]:] == 0).all() and (hi[:, w.shape[1]:] == 0).all()
+        assert (lo[w.shape[0]:] == 0).all() and (lo[:, w.shape[1]:] == 0).all()
+        # the dropped lo * lo: hi + lo within 2^-21 of w
+        assert ((hi + lo - wp).abs() <= 2.0 ** -21 * wp.abs()).all()
+    for got, ref in [(b0, bfc[:, 0])] + list(zip(bb, bbs[..., 0])) \
+            + [(bf, bft[:, 0])]:
+        assert torch.equal(got[:ref.numel()], ref)
+        assert (got[ref.numel():] == 0).all()
+    consts = _cuda.quad_consts(torch.device("cpu"))
+    assert torch.equal(blob[-consts.numel():], consts)
+
+
+@pytest.mark.parametrize("units", [13, 30, 60])
+@pytest.mark.parametrize("activation", tfi.SUPPORTED_ACTS)
+def test_fragment_chain_matches_plain(units, activation):
+    """The chain replayed in the kernel's fragment order, padded channels
+    and all (act(0) != 0 for sigmoid, softplus), equals encode_q_plain:
+    rtol 1e-6, atol 2e-6 (the dropped lo * lo terms, ~2^-22 a product)."""
+    cfg, tuner = _width_tuner(units, activation)
+    rng = np.random.default_rng(units)
+    x = torch.from_numpy(volume(rng, (37,), SCAN.n_taus))
+    kw = dict(se_idx=SCAN.se_idx, multi_image=False, activation=activation,
+              n_blocks=cfg.no_intermediate_layers)
+    got = _chain_in_fragments(x, tuner.encoder, **kw)
+    ref = tfi.encode_q_plain(x, tuner.encoder, trunk="float32", **kw)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6,
+                               atol=2e-6)

@@ -204,3 +204,80 @@ def test_mc_maps_do_not_depend_on_chunk(use_first_op):
         tsm.mc_kl_map(q, q, 1, no_samples=0)
     with pytest.raises(ValueError, match="seed"):
         tsm.mc_posterior_summaries(q, no_samples=4)
+
+
+# (g) device noise of D and E: one Philox4x32-10 block for two draw pairs,
+# replayed on the host by mc_philox_normals; against an independent Philox
+# written here with Python integers (its known answers are Random123's)
+_M0, _M1, _W0, _W1, _MASK = (0xD2511F53, 0xCD9E8D57, 0x9E3779B9,
+                             0xBB67AE85, 0xFFFFFFFF)
+
+
+def _philox(c, k):
+    c, (k0, k1) = list(c), k
+    for _ in range(10):
+        p0, p1 = _M0 * c[0], _M1 * c[2]
+        c = [(p1 >> 32) ^ c[1] ^ k0, p1 & _MASK, (p0 >> 32) ^ c[3] ^ k1,
+             p0 & _MASK]
+        k0, k1 = (k0 + _W0) & _MASK, (k1 + _W1) & _MASK
+    return c
+
+
+def _normals(a, b):
+    """Box-Muller on the top 24 bits of two words, in float64."""
+    u1 = ((a >> 8) + 1) * 2.0 ** -24
+    u2 = (b >> 8) * 2.0 ** -24
+    r = np.sqrt(-2.0 * np.log(u1))
+    return r * np.cos(2 * np.pi * u2), r * np.sin(2 * np.pi * u2)
+
+
+def test_philox_reference_known_answers():
+    assert _philox([0, 0, 0, 0], [0, 0]) == [
+        0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]
+    assert _philox([_MASK] * 4, [_MASK, _MASK]) == [
+        0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD]
+
+
+@pytest.mark.parametrize("seed,offset,draws", [(7, 0, 4), (2**40 + 3, 5, 7),
+                                               (123, 2**33, 1)])
+def test_mc_philox_normals_replays_the_counters(seed, offset, draws):
+    """Pairs 2k and 2k + 1 of voxel v: words (0, 1) and (2, 3) of the block
+    with counter (v lo, v hi, k, 0) and key (seed lo, seed hi)."""
+    n = 6
+    z = tsm.mc_philox_normals(seed, n, draws, offset)
+    assert z.shape == (draws, n, 2) and z.dtype == np.float32
+    key = [seed & _MASK, (seed >> 32) & _MASK]
+    for v in range(n):
+        g = offset + v
+        for d in range(draws):
+            w = _philox([g & _MASK, g >> 32, d // 2, 0], key)
+            ref = _normals(w[2 * (d % 2)], w[2 * (d % 2) + 1])
+            np.testing.assert_allclose(z[d, v], ref, rtol=1e-5, atol=1e-6)
+
+
+def test_mc_normals_cut_at_an_offset_draw_what_the_whole_does():
+    whole = tsm.mc_philox_normals(11, 40, 8)
+    np.testing.assert_array_equal(tsm.mc_philox_normals(11, 17, 8, 23),
+                                  whole[:, 23:])
+    # an odd count ends on the first pair of a block
+    np.testing.assert_array_equal(tsm.mc_philox_normals(11, 40, 7),
+                                  whole[:7])
+    got = tsm.mc_normals(None, 11, 23, 17, 8, torch.device("cpu"))
+    np.testing.assert_array_equal(got.numpy(), whole[:, 23:])
+    # the plain path of a seed: a request cut at a voxel offset summarises
+    # what the whole one does
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(raw_head(rng, 40))
+    kw = dict(no_samples=16, dw_coeff=DW)
+    full = tsm.mc_posterior_summaries(q, 11, **kw)
+    cut = [tsm.mc_posterior_summaries(q[:23], 11, **kw),
+           tsm.mc_posterior_summaries(q[23:], 11, offset=23, **kw)]
+    for i in range(2):
+        torch.testing.assert_close(torch.cat([cut[0][i], cut[1][i]]),
+                                   full[i], rtol=0, atol=0)
+    kl = tsm.mc_kl_map(q, q.flip(0), 11, no_samples=5)
+    kl_cut = torch.cat([tsm.mc_kl_map(q[:23], q.flip(0)[:23], 11,
+                                      no_samples=5),
+                        tsm.mc_kl_map(q[23:], q.flip(0)[23:], 11, offset=23,
+                                      no_samples=5)])
+    torch.testing.assert_close(kl_cut, kl, rtol=0, atol=0)

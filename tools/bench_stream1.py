@@ -1,0 +1,378 @@
+"""Time kernels B, C and D (qbold_vi_tpu_torch/csrc/encode_quad.cu and
+summarize.cu) on the stream-1 serving request, and kernel A
+(quadrature.cu: B's quadrature tail alone), with each build's errors and
+its registers, spills, stack frame, shared memory and blocks an SM.
+
+    python3 tools/bench_stream1.py [--only-copies] [--row-blob SRC ...] [SRC ...]
+
+Builds the package's kernels (``ops/_cuda.library``) and, for each further
+source given -- an edited copy of ``csrc/encode_quad.cu``,
+``csrc/summarize.cu`` or ``csrc/quadrature.cu`` with the package's C
+entries -- a library of that
+file alone with the same nvcc flags and ``-I csrc``, all compiles started
+at once (a copy's own directory comes first on the include path, so an
+edited header beside it replaces the package's). A source given with
+``--row-blob`` is a copy of the earlier encode (one thread a voxel on the
+CUDA cores), whose weight blob is row-major and whose block carries two
+activation columns a thread; the tool packs that blob itself.
+``--only-copies`` times the given sources alone.
+
+The request is OPTIMAL's stream-1 serving request: 1,032,192 voxels
+(14 x 96 x 96 x 8), 11 taus + a mask channel, voxel-major, U 60, 2
+blocks, MVG, relu, random weights (``init_params`` seed 0). Per build it
+prints:
+
+* B (``qv_encode_quad_fused``): means / vars / raw against the plain
+  version; C (``qv_encode_q1``): q against the plain version and against
+  a float64 encode of the same rows (``chip_smoke.encode_q_f64``);
+* A (``qv_quad_posterior_summaries``, on C's q as (N, 5) rows): means /
+  vars against the plain version;
+* D (``qv_mc_summaries``, the channel-major entry on C's q, S = 200
+  antithetic): means / vars against the plain version fed the same host
+  normals; with device noise (65,536 voxels) against the plain version fed
+  each replay of the counters (``ops/summarize.py::mc_philox_normals``,
+  one Philox block for two pairs, and ``ops/fused_elbo.py::philox_normals``,
+  one a pair, as the earlier D drew them); each error with whether chip_smoke's
+  gates (``CHECKS``) hold;
+* device ms by the profiler (median of 21 calls after warm-up,
+  ``chip_smoke.kernel_ms``) and ms a call by CUDA events: A, B and C (and
+  both with the activation gelu on the same weights, timing only), D at
+  S = 200 with device noise, D at S = 2 (the per-voxel work alone) and D
+  with host normals.
+
+Blocks an SM are computed from ptxas's registers and the block's shared
+memory against the H100's limits (65,536 registers allocated 256 a warp,
+233,472 B of shared memory with 1 KB reserved a block, 2,048 threads, 32
+blocks). Needs one CUDA card; about a minute with ten builds.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from chip_smoke import (check_close, cuda_ms, encode_q_f64,  # noqa: E402
+                        gpu_line, kernel_ms, volumes)
+from qbold_vi_tpu_torch import OPTIMAL, FineTuner, init_params  # noqa: E402
+from qbold_vi_tpu_torch.ops import _cuda  # noqa: E402
+from qbold_vi_tpu_torch.ops import fused_elbo as fe  # noqa: E402
+from qbold_vi_tpu_torch.ops import fused_infer as fi  # noqa: E402
+from qbold_vi_tpu_torch.ops import quadrature as quad  # noqa: E402
+from qbold_vi_tpu_torch.ops import summarize as sm  # noqa: E402
+from qbold_vi_tpu_torch.ops.decode_nll import _BLOCK, _grid  # noqa: E402
+
+N = 14 * 96 * 96 * 8
+N_NOISE = 65_536
+S, SEED = 200, 3
+ENTRIES = ("qv_quad_posterior_summaries", "qv_encode_quad_fused",
+           "qv_encode_q1", "qv_mc_summaries")
+KERNELS = dict(A="qv_quad_kernel", B="qv_encode_quad_kernel",
+               C="qv_encode_q_kernel", D="qv_mc_summaries_kernel")
+
+
+def build_variants(paths):
+    """{name: (ctypes library, nvcc log)} of each source, built with the
+    port's flags."""
+    out_dir = _cuda.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for path in map(Path, paths):
+        name = f"{path.parent.name}/{path.stem}"
+        so = out_dir / f"{path.parent.name}_{path.stem}.so"
+        cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, f"-I{path.resolve().parent}",
+               f"-I{_cuda.CSRC}", "-shared", "-o", str(so), str(path)]
+        procs.append((name, so, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    for name, so, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"{name}: nvcc failed\n{log}")
+        lib = ctypes.CDLL(str(so))
+        for fn in ENTRIES:
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = _cuda._SIGNATURES[fn]
+        libs[name] = (lib, log)
+    return libs
+
+
+def resources(log: str) -> dict:
+    """{kernel symbol: (registers, static shared bytes, 'stack / spill'
+    text)} from ptxas's --resource-usage report."""
+    out = {}
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(r"Function properties for \S*?(qv_\w+_kernel)", line)
+        if m and m.group(1) in KERNELS.values() and i + 2 < len(lines):
+            regs = re.search(r"Used (\d+) registers", lines[i + 2])
+            smem = re.search(r"(\d+) bytes smem", lines[i + 2])
+            out[m.group(1)] = (int(regs.group(1)) if regs else -1,
+                               int(smem.group(1)) if smem else 0,
+                               lines[i + 1].strip())
+    return out
+
+
+def blocks_per_sm(regs: int, threads: int, smem: int) -> int:
+    warps = -(-threads // 32)
+    by_regs = 65536 // (-(-regs * 32 // 256) * 256 * warps)
+    return min(by_regs, 233_472 // (smem + 1024), 2048 // threads, 32)
+
+
+def row_blob_setup(x, encoder, n_blocks):
+    """The earlier encode's operands: the row-major blob (transposed weights padded to
+    U rounded up to 4, then the quadrature table) and the block's shared
+    memory with two activation columns of max(T, Up) floats a thread."""
+    wfc, bfc, wb, bb, wf, bf = fi._stream1_weights(encoder, n_blocks)
+    u, t = wfc.shape
+    up = -(-u // 4) * 4
+    z = lambda *s: torch.zeros(s, device=x.device)              # noqa: E731
+    wfc_t, bfc_p, wb_t, bb_p, wf_t, bf_p = (
+        z(t, up), z(up), z(n_blocks, up, up), z(n_blocks, up), z(up, 8),
+        z(8))
+    wfc_t[:, :u] = wfc.T
+    bfc_p[:u] = bfc[:, 0]
+    wb_t[:, :u, :u] = wb.transpose(1, 2)
+    bb_p[:, :u] = bb[..., 0]
+    wf_t[:u, :5] = wf.T
+    bf_p[:5] = bf[:, 0]
+    blob = torch.cat([wfc_t.reshape(-1), bfc_p, wb_t.reshape(-1),
+                      bb_p.reshape(-1), wf_t.reshape(-1), bf_p,
+                      _cuda.quad_consts(x.device)]).contiguous()
+    block = 128
+    return blob, u, up, block, 4 * (blob.numel() + 2 * max(t, up) * block)
+
+
+class Calls:
+    """The C entries of one build on the request's operands."""
+
+    def __init__(self, lib, row_blob, ctx):
+        self.lib, self.ctx = lib, ctx
+        x, enc = ctx["x"], ctx["encoder"]
+        nb = OPTIMAL.model.no_intermediate_layers
+        if row_blob:
+            self.blob, self.u, self.up, self.block, self.smem = row_blob_setup(
+                x, enc, nb)
+        else:
+            (_, _, _, self.blob, self.u, self.up, self.block,
+             self.smem) = fi._launch_setup(x, enc, trunk="float32",
+                                           **ctx["setup"])
+        self.stream = torch.cuda.current_stream().cuda_stream
+
+    def enc_args(self, act):
+        c = self.ctx
+        return fi._encode_args(c["x"], N, False, True, c["kw"]["se_idx"],
+                               c["kw"]["multi_image"],
+                               act or c["kw"]["activation"])
+
+    def b(self, act=None):
+        o = self.ctx["b_out"]
+        err = self.lib.qv_encode_quad_fused(
+            *self.enc_args(act), self.u, self.up,
+            OPTIMAL.model.no_intermediate_layers, self.blob.data_ptr(),
+            self.blob.numel(), _cuda.quad_ranges(**self.ctx["ranges"]),
+            *(t.data_ptr() for t in o), 1, self.block, self.smem,
+            self.stream)
+        _cuda.check(err, "B")
+
+    def c(self, act=None):
+        err = self.lib.qv_encode_q1(
+            *self.enc_args(act), self.up, OPTIMAL.model.no_intermediate_layers,
+            self.blob.data_ptr(), self.blob.numel(),
+            self.ctx["q_out"].data_ptr(), self.block, self.smem, self.stream)
+        _cuda.check(err, "C")
+
+    def a(self):
+        q = self.ctx["q_rows"]
+        err = self.lib.qv_quad_posterior_summaries(
+            q.data_ptr(), N, 5, 1, _cuda.quad_ranges(**self.ctx["ranges"]),
+            _cuda.quad_consts(q.device).data_ptr(),
+            *(t.data_ptr() for t in self.ctx["a_out"]), -(-N // _BLOCK),
+            _BLOCK, self.stream)
+        _cuda.check(err, "A")
+
+    def d(self, q_t, z=None, seed=SEED, s=S, out=None):
+        n = q_t.shape[1]
+        draws = sm.mc_draws(s)
+        means, variances = out if out is not None else self.ctx["d_out"]
+        err = self.lib.qv_mc_summaries(
+            q_t.data_ptr(), n, 1, n, 1, _cuda.quad_ranges(**self.ctx["ranges"]),
+            None if z is None else z.data_ptr(), 0, seed, draws, 1, 1.0 / s,
+            means.data_ptr(), variances.data_ptr(), 1, n, _grid(n), _BLOCK,
+            self.stream)
+        _cuda.check(err, "D")
+
+
+def context(dev):
+    cfg, scan = OPTIMAL.model, OPTIMAL.scan
+    tuner = FineTuner(cfg, scan, device=dev)
+    tuner.load_state_dict(init_params(cfg, scan,
+                                      torch.Generator().manual_seed(0)))
+    kw = dict(se_idx=scan.se_idx, multi_image=cfg.multi_image_normalisation,
+              activation=cfg.activation, n_blocks=cfg.no_intermediate_layers,
+              mask_channel=True, input_layout="voxel")
+    ranges = dict(oef_range=cfg.oef_range, min_oef=cfg.min_oef,
+                  dbv_range=cfg.dbv_range, min_dbv=cfg.min_dbv,
+                  dw_coeff=float(scan.dw_coeff * scan.hct))
+    x = torch.from_numpy(volumes(np.random.default_rng(0), (N,),
+                                 scan.n_taus)).to(dev)
+    plain_kw = dict(kw, trunk="float32")
+    q_plain = fi.encode_q_plain(x, tuner.encoder, **plain_kw)
+    b_plain = fi.encode_quad_fused_plain(x, tuner.encoder, mvg=True,
+                                         **ranges, **plain_kw)
+    q64 = encode_q_f64(x, tuner.encoder, **kw)
+    draws = sm.mc_draws(S)
+    z = torch.randn((draws, N, 2), device=dev)
+    d_plain = sm.mc_posterior_summaries_plain(q_plain.T, z, mvg=True,
+                                              **ranges)
+    f32 = dict(device=dev, dtype=torch.float32)
+    q_rows = q_plain.T.contiguous()
+    return dict(
+        q_rows=q_rows, a_out=[torch.empty((N, 3), **f32) for _ in range(2)],
+        a_plain=quad.posterior_summaries_quadrature(q_rows, mvg=True,
+                                                    **ranges),
+        x=x, encoder=tuner.encoder, kw=kw, ranges=ranges,
+        setup={k: kw[k] for k in ("n_blocks", "activation", "mask_channel",
+                                  "input_layout", "se_idx")},
+        q_plain=q_plain, b_plain=b_plain, q64=q64, z=z, d_plain=d_plain,
+        q_d=q_plain.contiguous(),
+        b_out=[torch.empty((3, N), **f32) for _ in range(3)],
+        q_out=torch.empty((5, N), **f32),
+        d_out=[torch.empty((3, N), **f32) for _ in range(2)])
+
+
+def gate(name, got, ref, mean_ref=None) -> str:
+    """Largest errors of (means, vars) channel-major pairs against the
+    plain version's channel-last ones, and whether chip_smoke's gates
+    (CHECKS) hold."""
+    try:
+        e = (check_close(name, got[0].T, ref[0], "mean"),
+             check_close(name, got[1].T, ref[1], "var", ref[0]))
+        verdict = "within CHECKS"
+    except AssertionError as exc:
+        e = tuple(float((g.T - r).abs().max()) for g, r in zip(got, ref))
+        verdict = f"OUTSIDE CHECKS ({exc})"
+    return f"{e[0]:.2e} / {e[1]:.2e} {verdict}"
+
+
+def errors(calls: Calls, ctx) -> str:
+    out = []
+    lib = calls.lib
+    if hasattr(lib, "qv_quad_posterior_summaries"):
+        calls.a()
+        torch.cuda.synchronize()
+        out.append("A vs plain means / vars " + gate(
+            "A", [t.T for t in ctx["a_out"]], ctx["a_plain"]))
+    if hasattr(lib, "qv_encode_quad_fused"):
+        calls.b()
+        torch.cuda.synchronize()
+        out.append("B vs plain means / vars / raw " + " / ".join(
+            f"{float((g - r).abs().max()):.2e}"
+            for g, r in zip(ctx["b_out"], ctx["b_plain"])))
+    if hasattr(lib, "qv_encode_q1"):
+        calls.c()
+        torch.cuda.synchronize()
+        q, q64 = ctx["q_out"], ctx["q64"]
+        out.append(f"C vs plain {float((q - ctx['q_plain']).abs().max()):.2e}"
+                   f", vs float64 {float((q.double() - q64).abs().max()):.2e}"
+                   f" (plain vs float64 "
+                   f"{float((ctx['q_plain'].double() - q64).abs().max()):.2e}"
+                   f", largest |q| {float(q64.abs().max()):.3g})")
+    if hasattr(lib, "qv_mc_summaries"):
+        calls.d(ctx["q_d"], z=ctx["z"])
+        torch.cuda.synchronize()
+        out.append("D host noise vs plain means / vars "
+                   + gate("D host", ctx["d_out"], ctx["d_plain"]))
+        q = ctx["q_d"][:, :N_NOISE].contiguous()
+        got = [torch.empty((3, N_NOISE), device=q.device) for _ in range(2)]
+        calls.d(q, out=got)
+        torch.cuda.synchronize()
+        draws = sm.mc_draws(S)
+        for tag, z in (
+                ("mc_philox_normals", torch.from_numpy(
+                    sm.mc_philox_normals(SEED, N_NOISE, draws)).to(q.device)),
+                ("philox_normals", torch.from_numpy(fe.philox_normals(
+                    SEED, N_NOISE, draws)).to(q.device))):
+            ref = sm.mc_posterior_summaries_plain(q.T, z, mvg=True,
+                                                  **ctx["ranges"])
+            out.append(f"D device noise vs plain fed {tag} means / vars "
+                       + gate(f"D device {tag}", got, ref))
+    return "; ".join(out)
+
+
+def timed(label: str, fn, symbol: str) -> str:
+    return (f"{label} {kernel_ms(fn, symbol):.4f} "
+            f"({cuda_ms(fn, reps=10):.4f})")
+
+
+def bench(name, lib, log, row_blob, ctx) -> None:
+    calls = Calls(lib, row_blob, ctx)
+    res = resources(log)
+    parts = []
+    for key, sym in KERNELS.items():
+        if sym not in res:
+            continue
+        regs, static, frame = res[sym]
+        threads = _BLOCK if key in "AD" else calls.block
+        smem = static + (0 if key in "AD" else calls.smem)
+        parts.append(f"{key} {regs} registers, {frame}, {smem} B shared a "
+                     f"block of {threads}, {blocks_per_sm(regs, threads, smem)}"
+                     " blocks an SM")
+    print(f"{name}: " + "; ".join(parts), flush=True)
+    print(f"{name} errors: {errors(calls, ctx)}", flush=True)
+    rows = []
+    if hasattr(lib, "qv_quad_posterior_summaries"):
+        rows.append(timed("A", calls.a, KERNELS["A"]))
+    if hasattr(lib, "qv_encode_quad_fused"):
+        rows.append(timed("B", calls.b, KERNELS["B"]))
+        rows.append(timed("B gelu", lambda: calls.b("gelu"), KERNELS["B"]))
+    if hasattr(lib, "qv_encode_q1"):
+        rows.append(timed("C", calls.c, KERNELS["C"]))
+        rows.append(timed("C gelu", lambda: calls.c("gelu"), KERNELS["C"]))
+    if hasattr(lib, "qv_mc_summaries"):
+        q = ctx["q_d"]
+        rows.append(timed("D", lambda: calls.d(q), KERNELS["D"]))
+        rows.append(timed("D s=2", lambda: calls.d(q, s=2), KERNELS["D"]))
+        rows.append(timed("D host noise", lambda: calls.d(q, z=ctx["z"]),
+                          KERNELS["D"]))
+    print(f"{name} ms at N={N}, device by profiler (CUDA events a call): "
+          + "; ".join(rows), flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("no CUDA device: this bench needs the card")
+        return 1
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only-copies", action="store_true",
+                    help="time the given sources alone")
+    ap.add_argument("--row-blob", action="append", default=[],
+                    help="a copy of the earlier, row-major-blob "
+                    "encode_quad.cu")
+    ap.add_argument("sources", nargs="*", help="edited copies of the "
+                    "package's encode_quad.cu or summarize.cu")
+    args = ap.parse_args()
+    dev = torch.device("cuda", 0)
+    libs = ({} if args.only_copies
+            else {"package": (_cuda.library(), _cuda.build_log(), False)})
+    built = build_variants(args.row_blob + args.sources)
+    for i, (name, (lib, log)) in enumerate(built.items()):
+        libs[name] = (lib, log, i < len(args.row_blob))
+    with torch.no_grad():
+        ctx = context(dev)
+        for name, (lib, log, row_blob) in libs.items():
+            bench(name, lib, log, row_blob, ctx)
+    print(gpu_line())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
