@@ -14,8 +14,13 @@ forward and backward), and checks them:
 
 1. device: a CUDA card is required (otherwise exit 1, no result line);
 2. build: the kernels of all six sources in csrc/ are compiled by nvcc;
+   kernels A, B and E must hold the static MUFU instructions (cuobjdump)
+   that the special-function bounds' counts were read with (MUFU_SASS);
 3. kernel vs plain: A and B against their plain torch versions on the
-   card at 1,032,192 and 1,000,003 voxels (tolerances in CHECKS);
+   card at 1,032,192 and 1,000,003 voxels (tolerances in CHECKS), A on
+   heads straddling the s = 1.5 split, entirely below and entirely above
+   it, and at 1,032,192 MVG voxels against a float64 evaluation of the
+   same node words beside the plain version's error;
 4. main path: three export requests per encoder stream, with the launch
    counters reset before and read after; maps must be finite, in range,
    written to NIfTI and read back equal, and the smallest request must
@@ -23,7 +28,8 @@ forward and backward), and checks them:
 5. timings: each kernel's device time (the median launch in a profiler
    trace of 21 calls), its wrapper's and its plain version's time a call
    (CUDA events, warm-up, median of 7 blocks), and the host wall of
-   posterior_maps on the 1.03 M-voxel request;
+   posterior_maps on the 1.03 M-voxel request; the share of A's and B's
+   timed problems on each side of the split, and A's and B's bounds;
 6. F and G against their plain versions at the fine-tune shapes: F at
    190,000 voxels (38 crops of 25 x 25 x 8 through the encoder; MVG,
    s_nll 1, s_kl 70, host noise) and at a ragged 190,003 (diagonal; and
@@ -115,13 +121,14 @@ and E (one Philox block for two draw pairs), after phase 13:
 24. B and C against their plain versions at U = 13 and 30 (padded to 16
    and 32 in the kernel) under gelu and softplus (act(0) != 0 on padded
    channels), both layouts, N = 1,000,003 (a ragged tile of 32);
-25. D at S = 2, 7 (odd: iid) and 200, both layouts, and E at S = 2 and 7,
-   against their plain versions fed mc_philox_normals at 65,536 and 65,537
-   voxels; each replays bit for bit and a cut at a voxel offset draws what
-   the whole request does.
-Phases 5 and 13 print B, C and D beside their bounds: B and C's from the
-chain's FMAs at the 3xTF32 rate (encode_bound) and at the float32 CUDA-core
-peak.
+25. D at S = 2, 7 (odd: iid) and 200, both layouts, and E at S = 2, 7
+   and 100, against their plain versions fed mc_philox_normals (E also fed
+   host normals) at 65,536 and 65,537 voxels; each replays bit for bit and
+   a cut at a voxel offset draws what the whole request does.
+Phases 5 and 13 print A-E beside their bounds: B and C's from the chain's
+FMAs at the 3xTF32 rate (encode_bound) and at the float32 CUDA-core peak;
+A's, B's and E's special-function bound beside OPS's (MUFU: the
+instructions of the MUFU unit at 16 results a clock an SM).
 
 It also traces posterior_maps (each stream and estimator), elbo_maps,
 the fine-tune step (both conv routes) and the pretrain step with
@@ -137,8 +144,12 @@ failure exits non-zero before that line.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -237,11 +248,21 @@ def check_grad(name, got, ref) -> float:
     return (got.double() - ref.double()).abs().max().item()
 
 
-def raw_head(rng, n):
+def raw_head(rng, n, mix="straddling"):
+    """Raw MVG head rows: logit stds straddling the s = 1.5 split, or with
+    the log-std raws redrawn from [-2, 0.45] ("below": every problem of
+    kernel A on the Gauss-Hermite side) or [0.6, 3] ("above": every one on
+    the Gauss-Laguerre side)."""
     q = rng.normal(size=(n, 5)).astype(np.float32)
     q[:, [0, 2]] *= 3.0
     q[:, [1, 3]] *= 1.5             # logit stds straddle the s = 1.5 split
+    if mix != "straddling":
+        lo, hi = {"below": (-2.0, 0.45), "above": (0.6, 3.0)}[mix]
+        q[:, [1, 3]] = rng.uniform(lo, hi, size=(n, 2))
     return q
+
+
+HEAD_MIXES = ("straddling", "below", "above")
 
 
 def cuda_ms(fn, reps: int = 10, blocks: int = 7) -> float:
@@ -429,6 +450,120 @@ OPS = dict(
     mc_draw=27, negate=2, mc_tail=15, whiten=14)
 
 
+# Special-function (MUFU) instructions a voxel, a design count read from
+# the SASS (cuobjdump -sass; tools/bench_stream1.py prints it per kernel)
+# of the build whose kernels hold the static MUFU instructions MUFU_SASS,
+# and from its loops: a unit of 16 results a clock on each SM (CUDA C
+# Programming Guide, compute capability 9.0), so a second floor beside
+# OPS's. Phase 2 fails when this run's build holds other static counts, so
+# that an edit of the kernels has the counts read again.
+MUFU = dict(
+    # quad_math.cuh, per 1-D moment problem: a Gauss-Hermite node's
+    # exponential and reciprocal (16 nodes); a Gauss-Laguerre node's two
+    # exponentials, then 1 / s and the erf's reciprocal and exponential
+    # (omom one more density); per voxel the two exponentials and the root
+    # of the squash (the tanh's are left out: whether they take the unit
+    # depends on the argument)
+    gh=2 * 16, gl=2 * 16 + 3, gl_omom=1, squash=3,
+    # summarize.cu, kernel E: each draw's Box-Muller pair (rsqrt, sine,
+    # cosine; the log is a polynomial), and each voxel's exponentials of q
+    # and p (two standard deviations, six whitening; the function needs
+    # them once, whichever lanes repeat them)
+    box_muller=3, kl_voxel=8)
+MUFU_SASS = {
+    "qv_quad_kernel": {"EX2": 45, "RCP": 25, "RSQ": 2},
+    "qv_encode_quad_kernel": {"EX2": 62, "RCP": 59, "RSQ": 2},
+    "qv_mc_kl_kernel": {"COS": 2, "EX2": 14, "RCP": 11, "RSQ": 2, "SIN": 2},
+}
+MUFU_RATE = 16 * 132                 # results a clock on the card
+
+
+def sass(so) -> dict:
+    """{kernel symbol: (SASS instructions, Counter of MUFU kinds)} of a
+    built library, by cuobjdump (a loop body counts once); empty without
+    it."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=False).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : \S*?(qv_\w+_kernel)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, [0, collections.Counter()])
+            continue
+        if name and re.match(r"\s+/\*[0-9a-f]{4}\*/", line):
+            out[name][0] += 1
+            mufu = re.search(r"MUFU\.(\w+)", line)
+            if mufu:
+                out[name][1][mufu.group(1)] += 1
+    return out
+
+
+def check_mufu_sass(so) -> None:
+    """Fail unless the built kernels of A, B and E hold the static MUFU
+    instructions that MUFU's counts were read with."""
+    code = sass(so)
+    got = {k: dict(code.get(k, (0, {}))[1]) for k in MUFU_SASS}
+    if got != MUFU_SASS:
+        raise AssertionError(
+            f"static MUFU instructions {got} differ from MUFU_SASS "
+            f"{MUFU_SASS} (or cuobjdump is missing): read MUFU's counts a "
+            "voxel again from this build's SASS")
+    log(f"static MUFU instructions as MUFU's counts were read: {got}")
+
+
+def mufu_clock_hz() -> float:
+    """The SM clock of the special-function bound: the card's maximum, as
+    log_clocks prints it."""
+    return float(gpu_line("clocks.max.sm").split()[0]) * 1e6
+
+
+def mufu_quad(raw: torch.Tensor, mvg: bool) -> float:
+    """MUFU instructions of the quadrature summaries of squashed rows raw
+    (3, N), each 1-D moment problem on its side."""
+    ls0, ls1, od = raw.double()
+    s0, s1 = ls0.exp(), ls1.exp()
+    sm1 = (od * od + s1 * s1).sqrt() if mvg else s1
+    n = ls0.numel()
+    total = MUFU["squash"] * n
+    for key, s in (("omom", s0), ("mom", sm1), ("gmom", s1)):
+        gl = int((s >= 1.5).sum())
+        total += MUFU["gh"] * (n - gl) + (MUFU["gl"] + (
+            MUFU["gl_omom"] if key == "omom" else 0)) * gl
+    return float(total)
+
+
+def mufu_kl(no_samples: int) -> int:
+    """Kernel E, per voxel: each draw's Box-Muller pair and the voxel's
+    exponentials."""
+    return MUFU["box_muller"] * no_samples + MUFU["kl_voxel"]
+
+
+def mufu_bound(n_mufu: float, clock_hz: float) -> float:
+    return n_mufu / (MUFU_RATE * clock_hz) * 1e3
+
+
+def branch_shares(raw: torch.Tensor, mvg: bool) -> str:
+    """The share of voxels of squashed rows raw (3, N) whose omom, mom and
+    gmom problems take the Gauss-Laguerre side, and of 32-voxel warps that
+    straddle the split."""
+    ls0, ls1, od = raw.double()
+    s0, s1 = ls0.exp(), ls1.exp()
+    sm1 = (od * od + s1 * s1).sqrt() if mvg else s1
+    parts = []
+    for key, s in (("omom", s0), ("mom", sm1), ("gmom", s1)):
+        gl = (s >= 1.5).double()
+        w = gl[:gl.numel() // 32 * 32].reshape(-1, 32).sum(1)
+        parts.append(f"{key} {float(gl.mean()):.3f} Laguerre, "
+                     f"{float(((w > 0) & (w < 32)).double().mean()):.3f} of "
+                     "warps straddle")
+    return "; ".join(parts)
+
+
 def bound(n_bytes: float, n_ops: float) -> dict:
     """The least time the card could take: bytes over the HBM rate or
     operations over the float32 peak, whichever is larger."""
@@ -524,9 +659,11 @@ def stream1_bounds(n, cfg, n_taus, raw_b, mvg) -> dict:
 
 def log_bounds(times: dict, bounds: dict, card: str) -> None:
     for k, b in bounds.items():
-        extra = (f", CUDA-core bound {b['cuda_core_bound_ms']:.4f} ms "
-                 f"({100 * b['cuda_core_bound_ms'] / times[k]:.1f}%)"
-                 if "cuda_core_bound_ms" in b else "")
+        extra = "".join(
+            f", {label} bound {b[key]:.4f} ms ({100 * b[key] / times[k]:.1f}%)"
+            for key, label in (("cuda_core_bound_ms", "CUDA-core"),
+                               ("mufu_bound_ms", "special-function"))
+            if key in b)
         log(f"{k}: {times[k]:.4f} ms on the device, bound "
             f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
             f"({100 * b['bound_ms'] / times[k]:.1f}%){extra} [{card}]")
@@ -1346,6 +1483,8 @@ def sampled_phases(dev, card, cfg, tuner, ranges, enc_kw, raw_b) -> dict:
                    N_FULL * ops_mc_summaries(S_MC, True)),
         "E": bound(N_SUBJ * 4 * (5 + 5 + 1), N_SUBJ * ops_mc_kl(S_KL)),
     }
+    bounds["E"]["mufu_bound_ms"] = mufu_bound(
+        N_SUBJ * mufu_kl(S_KL), mufu_clock_hz())
     log_bounds({k: times[k][0] for k in bounds}, bounds, card)
     main = {"C": launches["stream1"]["C"],
             "D": (launches["stream1"]["D_packed"]
@@ -1369,8 +1508,8 @@ def sampled_phases(dev, card, cfg, tuner, ranges, enc_kw, raw_b) -> dict:
 @torch.no_grad()
 def stream1_phases(dev, cfg, tuner, ranges, enc_kw) -> dict:
     """Phases 23-25: kernels B and C against a float64 encode, on widths
-    the kernel pads, and kernels D and E at S = 2 and 7. Returns the
-    float64 errors."""
+    the kernel pads, kernel D at S = 2, 7 and 200 and kernel E at S = 2, 7
+    and 100. Returns the float64 errors."""
     from qbold_vi_tpu_torch.models.encoder import _full_fp32
     from qbold_vi_tpu_torch.models.vi import FineTuner, init_params
     from qbold_vi_tpu_torch.ops import fused_infer as fi
@@ -1429,34 +1568,18 @@ def stream1_phases(dev, cfg, tuner, ranges, enc_kw) -> dict:
     log(f"kernels B and C vs plain ok at U = 13, 30 (padded to 16, 32) under "
         f"gelu and softplus, both layouts, N={N_RAGGED}")
 
-    # ---- 25. D and E at S = 2 and 7 (and D at 200) under device noise -------
+    # ---- 25. D at S = 2, 7 and 200, E at 2, 7 and 100 ----------------------
     seed = 29
     q_all = gpu(raw_head(rng, N_MC + 1))
     p_all = gpu(rng.normal(size=(N_MC + 1, 5)) * 0.7)
-    for s_ in (2, 7, S_MC):
+    for s_ in (2, 7, S_KL, S_MC):
         draws = sm.mc_draws(s_)
         z = gpu(sm.mc_philox_normals(seed, N_MC + 1, draws))
         for n in (N_MC, N_MC + 1):
             q = q_all[:n].contiguous()
-            kw = dict(ranges, no_samples=s_)
-            got = sm.mc_posterior_summaries(q, seed, **kw)
-            got_t = sm.mc_posterior_summaries_packed(q.T.contiguous(), seed,
-                                                     **kw)
-            if not all(torch.equal(a, b.T) for a, b in zip(got, got_t)):
-                raise AssertionError(f"D S={s_}: the packed entry differs")
-            ref = sm.mc_posterior_summaries_plain(q, z[:, :n], **kw)
-            check_close(f"D S={s_} n={n}", got[0], ref[0], "mean")
-            check_close(f"D S={s_} n={n}", got[1], ref[1], "var", ref[0])
             half = n // 2 + 5
-            parts = [sm.mc_posterior_summaries(q[:half], seed, **kw),
-                     sm.mc_posterior_summaries(q[half:], seed, offset=half,
-                                               **kw)]
-            again = sm.mc_posterior_summaries(q, seed, **kw)
-            if not all(torch.equal(a, b) and torch.equal(
-                    torch.cat([parts[0][i], parts[1][i]]), a)
-                    for i, (a, b) in enumerate(zip(got, again))):
-                raise AssertionError(f"D S={s_}: replay or offset cut "
-                                     "differs")
+            if s_ != S_KL:
+                d_phase(sm, q, seed, z, s_, half, ranges)
             if s_ == S_MC:
                 continue
             p = p_all[:n].contiguous()
@@ -1464,6 +1587,10 @@ def stream1_phases(dev, cfg, tuner, ranges, enc_kw) -> dict:
             check_rows(f"E S={s_} n={n}", kl,
                        sm.mc_kl_map_plain(q, p, gpu(sm.mc_philox_normals(
                            seed, n, s_))), 1e-4, 1e-4)
+            zh = gpu(rng.normal(size=(s_, n, 2)))
+            check_rows(f"E S={s_} n={n} host noise",
+                       sm.mc_kl_map(q, p, z=zh, no_samples=s_),
+                       sm.mc_kl_map_plain(q, p, zh), 1e-5, 1e-4)
             cut = torch.cat([sm.mc_kl_map(q[:half], p[:half], seed,
                                           no_samples=s_),
                              sm.mc_kl_map(q[half:], p[half:], seed,
@@ -1473,10 +1600,33 @@ def stream1_phases(dev, cfg, tuner, ranges, enc_kw) -> dict:
                 raise AssertionError(f"E S={s_}: replay or offset cut "
                                      "differs")
     torch.cuda.synchronize()
-    log(f"kernels D (S = 2, 7 iid, {S_MC}; both layouts) and E (S = 2, 7) "
-        f"vs plain fed mc_philox_normals ok at N={N_MC} and {N_MC + 1}: "
-        "replay bit-equal, a cut at an offset draws what the whole does")
+    log(f"kernels D (S = 2, 7 iid, {S_MC}; both layouts) and E (S = 2, 7, "
+        f"{S_KL}; {sm.KL_LANES} lanes a voxel) vs plain fed mc_philox_normals "
+        f"and host normals ok at N={N_MC} and {N_MC + 1}: replay bit-equal, "
+        "a cut at an offset draws what the whole does")
     return err64
+
+
+def d_phase(sm, q, seed, z, s_, half, ranges) -> None:
+    """Phase 25's kernel D at S = s_: both layouts against the plain
+    version fed mc_philox_normals z, a replay, and a cut at voxel
+    ``half`` drawing what the whole request does."""
+    n = q.shape[0]
+    kw = dict(ranges, no_samples=s_)
+    got = sm.mc_posterior_summaries(q, seed, **kw)
+    got_t = sm.mc_posterior_summaries_packed(q.T.contiguous(), seed, **kw)
+    if not all(torch.equal(a, b.T) for a, b in zip(got, got_t)):
+        raise AssertionError(f"D S={s_}: the packed entry differs")
+    ref = sm.mc_posterior_summaries_plain(q, z[:, :n], **kw)
+    check_close(f"D S={s_} n={n}", got[0], ref[0], "mean")
+    check_close(f"D S={s_} n={n}", got[1], ref[1], "var", ref[0])
+    parts = [sm.mc_posterior_summaries(q[:half], seed, **kw),
+             sm.mc_posterior_summaries(q[half:], seed, offset=half, **kw)]
+    again = sm.mc_posterior_summaries(q, seed, **kw)
+    if not all(torch.equal(a, b) and torch.equal(
+            torch.cat([parts[0][i], parts[1][i]]), a)
+            for i, (a, b) in enumerate(zip(got, again))):
+        raise AssertionError(f"D S={s_}: replay or offset cut differs")
 
 
 # ---- kernel H and the two-phase path -----------------------------------------
@@ -1930,6 +2080,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.library()
     log(f"build: {time.perf_counter() - t0:.1f} s")
+    check_mufu_sass(_cuda.library()._name)
     for line in _cuda.build_log().splitlines():
         if "registers" in line or "Function properties" in line \
                 or "spill" in line:
@@ -1957,17 +2108,30 @@ def main() -> int:
     # ---- 3. kernel vs plain on the card ----------------------------------
     with torch.no_grad():
         for n in (N_FULL, N_RAGGED):
-            q = torch.from_numpy(raw_head(rng, n)).to(dev)
-            for mvg in (True, False):
-                kw = dict(ranges, mvg=mvg)
-                m, v = quad.quad_posterior_summaries(q, **kw)
-                mr, vr = quad.posterior_summaries_quadrature(q, **kw)
-                e = max(check_close(f"A n={n} mvg={mvg}", m, mr, "mean"),
-                        check_close(f"A n={n} mvg={mvg}", v, vr, "var", mr))
-                if n == N_FULL and mvg:
-                    err["quad"] = e
+            for mix in HEAD_MIXES:
+                q = torch.from_numpy(raw_head(rng, n, mix)).to(dev)
+                for mvg in (True, False):
+                    kw = dict(ranges, mvg=mvg)
+                    tag = f"A n={n} {mix} mvg={mvg}"
+                    m, v = quad.quad_posterior_summaries(q, **kw)
+                    mr, vr = quad.posterior_summaries_quadrature(q, **kw)
+                    e = max(check_close(tag, m, mr, "mean"),
+                            check_close(tag, v, vr, "var", mr))
+                    if n == N_FULL and mvg and mix == "straddling":
+                        err["quad"] = e
+                    if n == N_FULL and mvg:
+                        # float64: the plain code in double on the same
+                        # float32 node words
+                        m64, v64 = quad.posterior_summaries_quadrature(
+                            q.double(), **kw)
+                        f64 = [float((a.double() - b).abs().max()) for a, b
+                               in ((m, m64), (mr, m64), (v, v64), (vr, v64))]
+                        log(f"{tag} against float64: means {f64[0]:.3e} "
+                            f"(plain {f64[1]:.3e}), variances {f64[2]:.3e} "
+                            f"(plain {f64[3]:.3e})")
             torch.cuda.synchronize()
-            log(f"kernel A vs plain ok at N={n} (mvg and diag)")
+            log(f"kernel A vs plain ok at N={n} ({', '.join(HEAD_MIXES)} "
+                "heads; mvg and diag)")
             x = volumes(rng, (n,), scan.n_taus)
             for layout in ("voxel", "channel"):
                 xt = torch.from_numpy(x).to(dev)
@@ -2046,7 +2210,17 @@ def main() -> int:
         raw_b = fi.encode_quad_fused(x, tuner.encoder, **kw)[2]
     b_bound = stream1_bounds(N_FULL, cfg, scan.n_taus, raw_b,
                              cfg.use_mvg)["B"]
-    log_bounds({"B": times["fused"][0]}, {"B": b_bound}, card)
+    raw_a = squashed(q, cfg.use_mvg)
+    log(f"timed heads of A: {branch_shares(raw_a, cfg.use_mvg)}; B's: "
+        f"{branch_shares(raw_b, cfg.use_mvg)}")
+    clock = mufu_clock_hz()
+    a_bound = bound(N_FULL * 4 * 11, ops_quad(raw_a, cfg.use_mvg))
+    a_bound["mufu_bound_ms"] = mufu_bound(mufu_quad(raw_a, cfg.use_mvg),
+                                          clock)
+    b_bound["mufu_bound_ms"] = mufu_bound(mufu_quad(raw_b, cfg.use_mvg),
+                                          clock)
+    log_bounds({"A": times["quad"][0], "B": times["fused"][0]},
+               {"A": a_bound, "B": b_bound}, card)
     big = reqs[0]
     walls = {f"stream{1 if first else 2}": wall_ms(
         lambda: infer.posterior_maps(tuner, big, use_first_op=first))
@@ -2067,9 +2241,7 @@ def main() -> int:
          "replaces": "qbold_vi_tpu/ops/quadrature.py:518",
          "launches": launches["quad"], "max_abs_err": err["quad"],
          "ms": times["quad"][0], "plain_ms": times["quad"][2],
-         **bound(N_FULL * 4 * 11,
-                 ops_quad(squashed(q, cfg.use_mvg), cfg.use_mvg)),
-         "library_ms": None},
+         **a_bound, "library_ms": None},
         {"name": "encode_quad_fused", "route": "cuda",
          "source": "qbold_vi_tpu_torch/csrc/encode_quad.cu",
          "replaces": "qbold_vi_tpu/ops/pallas_infer.py:353",

@@ -28,8 +28,11 @@
 // voxels at a time (MT = 2 for U <= 64, 1 for U <= 128, so that a lane's
 // activations and sums stay within 128 registers; the widths are template
 // constants, QV_ENCODE_DISPATCH, and no product sits behind a runtime
-// guard), and the heads are staged back in shared memory so that each lane
-// runs B's quadrature on its own voxel. Between layers the activations
+// guard), and the heads are staged back in shared memory, one voxel a
+// lane. B's quadrature then sorts the block's 384 voxels' 1-D moment
+// problems by side (quad_math.cuh::qv_quad_block: on real heads nearly
+// every warp straddles the s = 1.5 split), so the warps of a block walk
+// the tiles in step. Between layers the activations
 // stay in registers: a layer's sums hold, per lane, channels {2t, 2t + 1}
 // of each n-tile -- the channels that the next layer's A fragment of that
 // k-step wants, under the k order of mma_math.cuh -- so bias and
@@ -53,7 +56,8 @@
 //   W0 frags [Tp/8][Up/8][32][4]  Wb frags nb x [Up/8][Up/8][32][4]
 //   Wf frags [Up/8][1][32][4]  b0[Up] bb[nb][Up] bf[8] consts[QV_NCONST]
 // and after it, per warp, its staged rows xs[32][qv_xs_stride(Tp)] and
-// heads qs[32][QV_QS].
+// heads qs[32][QV_QS]; then, in B, QV_QUAD_SCRATCH(block) floats for the
+// quadrature's sort (qv_quad_scratch_floats, which the wrapper adds).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -344,18 +348,30 @@ __global__ void __launch_bounds__(QV_ENC_THREADS) qv_encode_quad_kernel(
                                        blob_len, t_in, mask_channel, se_idx,
                                        multi_image, act, up, nb);
   const int lane = threadIdx.x & 31, warps = blockDim.x / 32;
+  // the quadrature's scratch, after the warps' staging buffers
+  float* scratch = reinterpret_cast<float*>(smem4) + blob_len
+                   + warps * QV_TILE * (e.xs_stride + QV_QS);
   const long long tiles = (n + QV_TILE - 1) / QV_TILE;
-  for (long long tile = (long long)blockIdx.x * warps + threadIdx.x / 32;
-       tile < tiles; tile += (long long)gridDim.x * warps) {
+  // every warp of a block takes the same rounds: the quadrature sorts the
+  // block's problems by side
+  for (long long t0 = (long long)blockIdx.x * warps; t0 < tiles;
+       t0 += (long long)gridDim.x * warps) {
+    const long long tile = t0 + threadIdx.x / 32;
     const long long v = tile * QV_TILE + lane;
-    float q[5];
-    qv_encode_tile<MT, NT, QvTrunkF32>(e, x, n, tile * QV_TILE, t_in,
-                                   channel_major, mask_channel, lane, q);
-    if (v >= n) continue;
+    float q[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (tile < tiles)
+      qv_encode_tile<MT, NT, QvTrunkF32>(e, x, n, tile * QV_TILE, t_in,
+                                         channel_major, mask_channel, lane, q);
+    const bool live = v < n;
     // ---- quadrature summaries + raw-log-std transforms ---------------------
-    float m[3], s[3], rw[3];
-    qv_quad_voxel(e.consts, q[0], q[1], q[2], q[3], q[4], mvg != 0, r, m, s,
-                  rw);
+    float rw[3];
+    const QvQuadIn in = qv_quad_squash(q[0], q[1], q[2], q[3], q[4],
+                                       mvg != 0, rw);
+    float o[8], g[5], D1, D2;
+    qv_quad_block(e.consts, scratch, live, in, o, &D1, &D2, g);
+    if (!live) continue;
+    float m[3], s[3];
+    qv_quad_combine(o, D1, D2, g, in.od, r, m, s);
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       means[(long long)j * n + v] = m[j];

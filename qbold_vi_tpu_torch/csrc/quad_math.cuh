@@ -8,12 +8,24 @@
 //   Gauss-Laguerre split (s >= 1.5) -> third-order od-Taylor cross moments
 //   -> means and biased variances of (OEF, DBV, R2').
 // The normal CDF is the Abramowitz-Stegun 7.1.26 rational erf, and the
-// sigmoid is 1 / (1 + expf(-x)): both are part of the model, so no
-// normcdff/erff and no fast-math intrinsics.
+// sigmoid is 1 / (1 + e^-x): both formulas are part of the model, so no
+// normcdff/erff. How each exponential and reciprocal is rounded is not:
+// the sigmoids, the normal densities and the erf's exponential take the
+// hardware's (MUFU.EX2 through __expf, MUFU.RCP through __fdividef; a few
+// ulp, within the card gates against the plain version, chip_smoke.py
+// CHECKS), which cut kernel A by 18% on the H100 (PERF.md). The
+// log-std transforms keep the IEEE tanhf: they are outputs of kernel B,
+// held against float64, and a fast tanh saved nothing.
 //
-// The 16-node loops stay rolled (#pragma unroll 1): unrolled, kernel A took
-// 255 registers and ~4.7 k instructions and ran 28% slower on the H100,
-// and kernel B's tail 8% slower (PERF.md).
+// The 16-node loops are unrolled by 4 (11% off kernel A on the H100):
+// fully unrolled, A took 255 registers and ~4.7 k instructions and ran 28%
+// slower, and kernel B's tail 8% slower (PERF.md).
+//
+// Each 1-D moment routine branches on its own std (s < 1.5: Gauss-Hermite,
+// else the step + Gauss-Laguerre split), so a warp whose voxels straddle
+// the split runs both sides: on real heads nearly every warp does.
+// qv_quad_block (kernels A and B) first sorts the block's problems by side,
+// so that one warp at most runs both.
 //
 // Node constants are not typed here: the caller stages the float32 table
 // ops/quadrature.py::QUAD_CONSTS (built in float64 by numpy, rounded once)
@@ -47,12 +59,14 @@ static __device__ __forceinline__ const float* qv_m(const float* c, int k) {
   return c + 128 + 16 * (k - 1);
 }
 
+// 1 / (1 + e^-x) by the hardware's exponential and reciprocal (1 / inf = 0
+// where e^-x overflows)
 static __device__ __forceinline__ float qv_sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
+  return __fdividef(1.0f, 1.0f + __expf(-x));
 }
 
 static __device__ __forceinline__ float qv_npdf(float z) {
-  return 0.3989422804014327f * expf(-0.5f * z * z);
+  return 0.3989422804014327f * __expf(-0.5f * z * z);
 }
 
 static __device__ __forceinline__ float qv_ndtr(float x) {
@@ -61,7 +75,7 @@ static __device__ __forceinline__ float qv_ndtr(float x) {
   float t = 1.0f / (1.0f + 0.3275911f * az);
   float poly = t * (0.254829592f + t * (-0.284496736f + t * (
       1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  float erf_abs = 1.0f - poly * expf(-az * az);
+  float erf_abs = 1.0f - poly * __expf(-az * az);
   float erf = z < 0.0f ? -erf_abs : erf_abs;
   return 0.5f * (1.0f + erf);
 }
@@ -71,7 +85,7 @@ static __device__ __forceinline__ void qv_mom1d(const float* c, float m,
                                                 float s, float* e1, float* e2) {
   if (s < QV_SPLIT) {
     float a1 = 0.0f, a2 = 0.0f;
-#pragma unroll 1
+#pragma unroll 4
     for (int i = 0; i < QV_QH; ++i) {
       float sg = qv_sigmoid(m + s * qv_xh(c)[i]);
       float w = qv_wh(c)[i] * sg;
@@ -85,7 +99,7 @@ static __device__ __forceinline__ void qv_mom1d(const float* c, float m,
   float inv_s = 1.0f / s;
   float zs = -m * inv_s;
   float c1 = 0.0f, c2 = 0.0f;
-#pragma unroll 1
+#pragma unroll 4
   for (int j = 0; j < QV_QL; ++j) {
     float na = qv_npdf(zs + qv_tl(c)[j] * inv_s);
     float nb = qv_npdf(zs - qv_tl(c)[j] * inv_s);
@@ -104,7 +118,7 @@ static __device__ __forceinline__ void qv_omom1d(const float* c, float m,
   if (s < QV_SPLIT) {
 #pragma unroll
     for (int k = 0; k < 8; ++k) out[k] = 0.0f;
-#pragma unroll 1
+#pragma unroll 4
     for (int i = 0; i < QV_QH; ++i) {
       float x = qv_xh(c)[i];
       float sg = qv_sigmoid(m + s * x);
@@ -127,7 +141,7 @@ static __device__ __forceinline__ void qv_omom1d(const float* c, float m,
   float acc[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) acc[k] = 0.0f;
-#pragma unroll 1
+#pragma unroll 4
   for (int j = 0; j < QV_QL; ++j) {
     float za = zs + qv_tl(c)[j] * inv_s;
     float zb = zs - qv_tl(c)[j] * inv_s;
@@ -160,7 +174,7 @@ static __device__ __forceinline__ void qv_gmom1d(const float* c, float m,
   if (s < QV_SPLIT) {
 #pragma unroll
     for (int k = 0; k < 5; ++k) g[k] = 0.0f;
-#pragma unroll 1
+#pragma unroll 4
     for (int i = 0; i < QV_QH; ++i) {
       float sg = qv_sigmoid(m + s * qv_xh(c)[i]);
       float w = qv_wh(c)[i] * sg;
@@ -177,7 +191,7 @@ static __device__ __forceinline__ void qv_gmom1d(const float* c, float m,
   float acc[5];
 #pragma unroll
   for (int k = 0; k < 5; ++k) acc[k] = 0.0f;
-#pragma unroll 1
+#pragma unroll 4
   for (int j = 0; j < QV_QL; ++j) {
     float na = qv_npdf(zs + qv_tl(c)[j] * inv_s);
     float nb = qv_npdf(zs - qv_tl(c)[j] * inv_s);
@@ -190,27 +204,36 @@ static __device__ __forceinline__ void qv_gmom1d(const float* c, float m,
   for (int k = 0; k < 5; ++k) g[k] = phi + acc[k] * inv_s;
 }
 
-// One voxel: raw head (q0..q4; q4 ignored unless mvg) -> means[3], vars[3]
-// and the squashed raw log-stds raw[3] = (ls0, ls1, od).
-static __device__ __forceinline__ void qv_quad_voxel(
-    const float* c, float q0, float q1, float q2, float q3, float q4,
-    bool mvg, const QvRanges& r, float mean[3], float var[3], float raw[3]) {
-  float mu0 = q0, mu1 = q2;
+// A voxel's three 1-D moment problems: omom at (mu0, s0), mom at
+// (mu1, sm1) and gmom at (mu1, s1), and the off-diagonal od.
+struct QvQuadIn {
+  float mu0, mu1, s0, s1, sm1, od;
+};
+
+// Raw head (q0..q4; q4 ignored unless mvg) -> the voxel's problems and
+// the squashed raw log-stds raw[3] = (ls0, ls1, od).
+static __device__ __forceinline__ QvQuadIn qv_quad_squash(
+    float q0, float q1, float q2, float q3, float q4, bool mvg,
+    float raw[3]) {
+  QvQuadIn in;
+  in.mu0 = q0;
+  in.mu1 = q2;
   float ls0 = tanhf(q1) * 3.0f - 1.0f;
   float ls1 = tanhf(q3) * 3.0f - 1.0f;
-  float od = mvg ? tanhf(q4) * 0.1353352832366127f : 0.0f;
+  in.od = mvg ? tanhf(q4) * 0.1353352832366127f : 0.0f;
   raw[0] = ls0;
   raw[1] = ls1;
-  raw[2] = od;
+  raw[2] = in.od;
+  in.s0 = expf(ls0);
+  in.s1 = expf(ls1);
+  in.sm1 = sqrtf(in.od * in.od + in.s1 * in.s1);
+  return in;
+}
 
-  float s0 = expf(ls0);
-  float s1 = expf(ls1);
-  float sm1 = sqrtf(od * od + s1 * s1);
-
-  float o[8], g[5], D1, D2;
-  qv_omom1d(c, mu0, s0, o);
-  qv_mom1d(c, mu1, sm1, &D1, &D2);
-  qv_gmom1d(c, mu1, s1, g);
+// The moments -> means[3], vars[3] (third-order od-Taylor cross moments).
+static __device__ __forceinline__ void qv_quad_combine(
+    const float o[8], float D1, float D2, const float g[5], float od,
+    const QvRanges& r, float mean[3], float var[3]) {
   float O1 = o[0], O2 = o[1], U1 = o[2], U2 = o[3];
   float V1 = o[4], V2 = o[5], W1 = o[6], W2 = o[7];
 
@@ -247,6 +270,97 @@ static __device__ __forceinline__ void qv_quad_voxel(
   var[0] = fmaxf(eo2 - mean_o * mean_o, 0.0f);
   var[1] = fmaxf(ed2 - mean_d * mean_d, 0.0f);
   var[2] = fmaxf(r.dw2 * er2 - mean_r * mean_r, 0.0f);
+}
+
+// Shared-memory words qv_quad_block needs for a block of T threads: the
+// counts (2 a warp, 32 warps), the sorted problems (3 x (m, s) x T) and
+// their moments (8 + 2 + 5 a problem set, x T).
+#define QV_QUAD_SCRATCH(T) (2 * 32 + 21 * (T))
+
+// The block's voxels, their moments computed with the problems of each
+// routine sorted by side (kernels A and B). Every thread of the block calls
+// it, ``live`` or not (at most 32 warps); a live thread gets its voxel's
+// moments, bit-equal to solving them on its own lane. Thread t solves
+// problem t of each routine: omom's and gmom's Gauss-Hermite problems come
+// first, then their Gauss-Laguerre ones, and mom's the other way round (so
+// that no warp takes the costlier side in all three), each side in voxel
+// order; only the warp at a boundary runs both sides. Three
+// __syncthreads: counts, problems, moments. Each warp's counts are summed
+// by every thread (no shuffles, no arrays indexed at run time, which took
+// registers and stack: PERF.md).
+static __device__ __forceinline__ void qv_quad_block(
+    const float* c, float* sc, bool live, const QvQuadIn& in, float o[8],
+    float* D1, float* D2, float g[5]) {
+  const int T = blockDim.x, W = T >> 5, t = threadIdx.x;
+  const int lane = t & 31, w = t >> 5;
+  float* task = sc + 2 * 32;                      // [3][2][T]: m, s
+  float* res = task + 6 * T;                      // o[8][T] d[2][T] g[5][T]
+  const float m[3] = {in.mu0, in.mu1, in.mu1};
+  const float s[3] = {in.s0, in.sm1, in.s1};
+  const unsigned below = (1u << lane) - 1u;
+  const unsigned lv = __ballot_sync(0xffffffffu, live);
+  // per warp, 16-bit fields of two words: the live problems and omom's
+  // Gauss-Laguerre ones, mom's and gmom's (a block holds at most 1,024)
+  unsigned gl[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    gl[k] = __ballot_sync(0xffffffffu, live && s[k] >= QV_SPLIT);
+  unsigned* counts = reinterpret_cast<unsigned*>(sc);
+  if (lane == 0) {
+    counts[2 * w] = __popc(lv) | (__popc(gl[0]) << 16);
+    counts[2 * w + 1] = __popc(gl[1]) | (__popc(gl[2]) << 16);
+  }
+  __syncthreads();
+  unsigned before[2] = {0u, 0u}, all[2] = {0u, 0u};  // earlier warps, block
+  for (int i = 0; i < W; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const unsigned x = counts[2 * i + h];
+      before[h] += i < w ? x : 0u;
+      all[h] += x;
+    }
+  }
+  const int n_live = (int)(all[0] & 0xffffu);
+  int slot[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int l_all = (int)((all[(k + 1) / 2] >> (16 * ((k + 1) % 2)))
+                            & 0xffffu);
+    const int l_before = (int)((before[(k + 1) / 2] >> (16 * ((k + 1) % 2)))
+                               & 0xffffu);
+    const int h_before = (int)(before[0] & 0xffffu) - l_before;
+    // mom (k = 1) places its Gauss-Laguerre problems first
+    const bool on_gl = (gl[k] >> lane) & 1u;
+    slot[k] = on_gl ? (k == 1 ? 0 : n_live - l_all) + l_before
+                          + __popc(gl[k] & below)
+                    : (k == 1 ? l_all : 0) + h_before
+                          + __popc(lv & ~gl[k] & below);
+    if (live) {
+      task[2 * k * T + slot[k]] = m[k];
+      task[(2 * k + 1) * T + slot[k]] = s[k];
+    }
+  }
+  __syncthreads();
+  if (t < n_live) {
+    float out[8];
+    qv_omom1d(c, task[t], task[T + t], out);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) res[j * T + t] = out[j];
+    qv_mom1d(c, task[2 * T + t], task[3 * T + t], &res[8 * T + t],
+             &res[9 * T + t]);
+    qv_gmom1d(c, task[4 * T + t], task[5 * T + t], out);
+#pragma unroll
+    for (int j = 0; j < 5; ++j) res[(10 + j) * T + t] = out[j];
+  }
+  __syncthreads();
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = res[j * T + slot[0]];
+    *D1 = res[8 * T + slot[1]];
+    *D2 = res[9 * T + slot[1]];
+#pragma unroll
+    for (int j = 0; j < 5; ++j) g[j] = res[(10 + j) * T + slot[2]];
+  }
 }
 
 // Copy the node table into shared memory (whole block; caller syncs).

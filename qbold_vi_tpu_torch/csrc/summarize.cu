@@ -30,12 +30,16 @@
 // Bound: operations. Per voxel D reads 20 B and writes 24 B against S/4
 // Philox blocks, S/2 Box-Muller pairs and S sigmoids pairs (~40 float
 // operations a draw); E reads 40 B and writes 4 B against S draws of ~40.
-// One thread per voxel, float32 accumulators in registers, the sums in the
-// plain versions' order (ops/summarize.py). The work a draw is what D's
+// D: one thread per voxel, float32 accumulators in registers, the sums in
+// the plain versions' order (ops/summarize.py). The work a draw is what D's
 // time is made of (PERF.md: a voxel's own work is ~2% of it): one Philox
 // block serves two pairs, and the sigmoids take an approximate reciprocal
 // of 1 + __expf(-x) (MUFU.EX2 and MUFU.RCP, a few ulp) in place of expf and
 // the IEEE division, within the rtol 1e-4 gate on the means.
+// E runs on one subject (73,728 voxels), too few threads to fill the card
+// at one a voxel (PERF.md: 4x the voxels took 3.2x the time), and drawing is
+// 71% of it: L lanes take a voxel, lane j its Philox blocks k = j (mod L)
+// -- the same draws -- and the lanes' sums meet in a fixed shuffle tree.
 
 #include "elbo_math.cuh"
 #include "quad_math.cuh"
@@ -151,28 +155,41 @@ static __device__ __forceinline__ float qv_kl_draw(const QvPost& q,
   return 0.5f * ((wp0 * wp0 + wp1 * wp1) - (wq0 * wq0 + wq1 * wq1));
 }
 
+// Kernel E, QV_KL_LANES lanes a voxel (the grid covers n L threads): lane j
+// sums the draws of the voxel's Philox blocks k = j, j + L, ... (draws 2k,
+// then 2k + 1 where below S) in order, then the lanes' sums meet in the
+// xor-shuffle tree ((a0 + a1) + (a2 + a3)) + ..., the same on every lane
+// (float addition commutes). Lanes past n take voxel n - 1 and write nothing, so every lane
+// of a warp reaches the shuffles. ops/summarize.py::KL_LANES mirrors L for
+// the host replay; other L were timed with edited copies (PERF.md).
+#define QV_KL_LANES 2
+
 __global__ void qv_mc_kl_kernel(const float* __restrict__ qr,
                                 const float* __restrict__ pr, long long n,
                                 int mvg, QvMcNoise nz, int draws, float bound,
                                 float* __restrict__ kl) {
   const int K = mvg ? 5 : 4;
-  long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x; v < n;
-       v += stride) {
-    QvPost q = qv_unpack(qr + v * K, mvg != 0);
-    QvPost p = qv_unpack(pr + v * K, mvg != 0);
-    float std0 = expf(q.ls0), std1 = expf(q.ls1);
-    QvWhite qf = qv_white(q), pf = qv_white(p);
-    float acc = 0.0f;
-    for (int d = 0; d < draws; d += 2) {
-      float z[4];
-      qv_mc_normals(nz, n, v, d, draws, z);
-      acc = acc + qv_kl_draw(q, p, qf, pf, std0, std1, bound, z[0], z[1]);
-      if (d + 1 < draws)
-        acc = acc + qv_kl_draw(q, p, qf, pf, std0, std1, bound, z[2], z[3]);
-    }
-    kl[v] = acc * (1.0f / (float)draws) + ((p.ls0 + p.ls1) - (q.ls0 + q.ls1));
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int L = QV_KL_LANES;
+  const long long v = i / L < n ? i / L : n - 1;
+  const int j = (int)(i % L);
+  QvPost q = qv_unpack(qr + v * K, mvg != 0);
+  QvPost p = qv_unpack(pr + v * K, mvg != 0);
+  float std0 = expf(q.ls0), std1 = expf(q.ls1);
+  QvWhite qf = qv_white(q), pf = qv_white(p);
+  float acc = 0.0f;
+  for (int d = 2 * j; d < draws; d += 2 * L) {
+    float z[4];
+    qv_mc_normals(nz, n, v, d, draws, z);
+    acc = acc + qv_kl_draw(q, p, qf, pf, std0, std1, bound, z[0], z[1]);
+    if (d + 1 < draws)
+      acc = acc + qv_kl_draw(q, p, qf, pf, std0, std1, bound, z[2], z[3]);
   }
+#pragma unroll
+  for (int m = 1; m < L; m <<= 1)
+    acc = acc + __shfl_xor_sync(0xffffffffu, acc, m);
+  if (j == 0 && i / L < n)
+    kl[v] = acc * (1.0f / (float)draws) + ((p.ls0 + p.ls1) - (q.ls0 + q.ls1));
 }
 
 static QvMcNoise qv_mc_noise(const float* z, long long offset,
@@ -195,11 +212,15 @@ extern "C" int qv_mc_summaries(const float* params, long long n,
   return (int)cudaGetLastError();
 }
 
-extern "C" int qv_mc_kl(const float* q, const float* p, long long n, int mvg,
-                        const float* z, long long offset, long long seed,
-                        int draws, float bound, float* kl, int grid, int block,
-                        void* stream) {
-  qv_mc_kl_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+extern "C" int qv_mc_kl_map(const float* q, const float* p, long long n,
+                            int mvg, const float* z, long long offset,
+                            long long seed, int draws, float bound, float* kl,
+                            int block, void* stream) {
+  if (block % 32 != 0 || block < 32 || block > 1024)
+    return (int)cudaErrorInvalidValue;
+  const long long grid = (n * QV_KL_LANES + block - 1) / block;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  qv_mc_kl_kernel<<<(int)grid, block, 0, (cudaStream_t)stream>>>(
       q, p, n, mvg, qv_mc_noise(z, offset, seed), draws, bound, kl);
   return (int)cudaGetLastError();
 }

@@ -13,8 +13,11 @@ Each C entry launches on the stream it is given and returns
 exception, so a refused launch (too many threads, too much shared
 memory, no image for this card) never passes silently.
 
-No ``--use_fast_math``: the quadrature's 1e-5 agreement with the plain
-version needs IEEE ``expf``/``tanhf`` and division. ``--fmad=false``
+No ``--use_fast_math``: it would give every ``expf``, ``tanhf`` and
+division the hardware's approximation. The kernels ask for it by name
+where their gates allow (``__expf``/``__fdividef`` in the quadrature's
+sigmoids and densities and in kernel D's sigmoids) and keep IEEE
+elsewhere (the log-std transforms' ``tanhf``). ``--fmad=false``
 keeps nvcc from contracting a*b + c into one rounding: the plain
 version rounds every product, and the posterior variances (E[x^2] -
 E[x]^2) amplify a last-bit difference. The dense chain of the fused
@@ -90,6 +93,7 @@ _SIGNATURES = {
     "qv_encode_q1": [
         _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _LL, _P],
     "qv_max_dynamic_smem": [],
+    "qv_quad_scratch_floats": [_I],
     "qv_decode_nll_fwd": [
         _P, _P, _P, _P, _P, _LL, QvDecodeConsts, _P, _I, _P, _I, _I, _P],
     "qv_decode_nll_bwd": [
@@ -104,7 +108,7 @@ _SIGNATURES = {
     "qv_mc_summaries": [
         _P, _LL, _LL, _LL, _I, QvRanges, _P, _LL, _LL, _I, _I, _F, _P, _P,
         _LL, _LL, _I, _I, _P],
-    "qv_mc_kl": [_P, _P, _LL, _I, _P, _LL, _LL, _I, _F, _P, _I, _I, _P],
+    "qv_mc_kl_map": [_P, _P, _LL, _I, _P, _LL, _LL, _I, _F, _P, _I, _P],
     "qv_conv3x3_fwd": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "qv_conv3x3_dx": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "qv_conv3x3_dw": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _LL, _I, _P],

@@ -201,10 +201,11 @@ def _xs_stride(t: int) -> int:
 
 def _launch_setup(images, encoder, *, n_blocks: int, activation: str,
                   trunk: str, mask_channel: bool, input_layout: str,
-                  se_idx: int):
+                  se_idx: int, scratch_floats=None):
     """Checks and operands shared by kernels B and C: (x (T[+1], N) or
     (N, T[+1]) contiguous, channel_major, n, weight blob, U, Up, block,
-    shared-memory bytes)."""
+    shared-memory bytes). ``scratch_floats(threads)``: the floats of shared
+    memory a block needs beyond the weights and its staged rows."""
     _check_trunk(trunk)
     if not fused_infer_available(activation):
         raise ValueError(f"activation {activation!r} has no kernel "
@@ -227,7 +228,8 @@ def _launch_setup(images, encoder, *, n_blocks: int, activation: str,
     with torch.cuda.device(images.device):
         limit = _cuda.library().qv_max_dynamic_smem()
     for warps in _WARPS:
-        smem = 4 * (blob.numel() + warps * 32 * (_xs_stride(t) + 5))
+        smem = 4 * (blob.numel() + warps * 32 * (_xs_stride(t) + 5)
+                     + (scratch_floats(32 * warps) if scratch_floats else 0))
         if smem <= limit:
             break
     else:
@@ -266,7 +268,8 @@ def encode_quad_fused(images, encoder, *, se_idx: int, multi_image: bool,
     x, channel_major, n, blob, u, up, block, smem = _launch_setup(
         images, encoder, n_blocks=n_blocks, activation=activation,
         trunk=trunk, mask_channel=mask_channel, input_layout=input_layout,
-        se_idx=se_idx)
+        se_idx=se_idx,
+        scratch_floats=_cuda.library().qv_quad_scratch_floats)
     outs = [torch.empty((3, n), device=images.device, dtype=torch.float32)
             for _ in range(3)]
     if n == 0:

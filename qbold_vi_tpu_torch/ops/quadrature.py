@@ -35,11 +35,12 @@ from . import _cuda
 
 __all__ = ["posterior_summaries_quadrature", "quad_tile_summaries",
            "quad_posterior_summaries", "QUAD_CONSTS", "QH", "QL",
-           "SPLIT_THRESHOLD"]
+           "SPLIT_THRESHOLD", "QUAD_BLOCK"]
 
 QH = 16              # Gauss-Hermite nodes (probabilists')
 QL = 16              # Gauss-Laguerre nodes for the split correction
 SPLIT_THRESHOLD = 1.5   # s >= this -> step+Laguerre branch
+QUAD_BLOCK = 256     # kernel A's block: the voxels it sorts by side
 
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 _OFFDIAG_SCALE = math.exp(-2.0)
@@ -241,7 +242,8 @@ def quad_tile_summaries(q0, q1, q2, q3, q4, *, mvg: bool, oef_range: float,
                         dw_coeff: float):
     """Raw head rows -> (means 3-tuple, variances 3-tuple, squashed
     (ls0, ls1, od)). The plain version of the per-voxel device routine
-    ``qv_quad_voxel`` in csrc/quad_math.cuh."""
+    ``qv_quad_squash`` / ``qv_quad_block`` / ``qv_quad_combine`` in
+    csrc/quad_math.cuh."""
     ls0 = torch.tanh(q1) * 3.0 - 1.0                 # dist transform_std
     ls1 = torch.tanh(q3) * 3.0 - 1.0
     od = (torch.tanh(q4) * _OFFDIAG_SCALE if mvg     # transform_offdiag
@@ -276,9 +278,13 @@ def quad_posterior_summaries(params: torch.Tensor, *, mvg: bool = True,
     """params (N, 4|5) -> (means (N, 3), vars (N, 3)).
 
     For a CUDA tensor this launches the kernel of csrc/quadrature.cu
-    (one thread per voxel, the (N, K) rows read as they lie) and counts
-    the launch in ``quad_posterior_summaries.launches``; a kernel that
-    cannot launch raises. For a CPU tensor it runs the plain version."""
+    (one thread per voxel, the (N, K) rows read as they lie, each 1-D
+    moment routine's problems sorted by side across a block of
+    ``QUAD_BLOCK``) and counts the launch in
+    ``quad_posterior_summaries.launches``; a kernel that cannot launch
+    raises. Its exponentials and reciprocals are the hardware's, so it
+    agrees with the plain version to a few ulp of each node's term. For a
+    CPU tensor it runs the plain version."""
     if params.ndim != 2 or params.shape[1] not in (4, 5):
         raise ValueError(f"params must be (N, 4|5), got {tuple(params.shape)}")
     if mvg and params.shape[1] != 5:
@@ -299,7 +305,7 @@ def quad_posterior_summaries(params: torch.Tensor, *, mvg: bool = True,
     if n == 0:
         return means, variances
     consts = _cuda.quad_consts(params.device)
-    block = 128
+    block = QUAD_BLOCK
     with torch.cuda.device(params.device):
         err = _cuda.library().qv_quad_posterior_summaries(
             params.data_ptr(), n, k, int(mvg),

@@ -9,7 +9,11 @@ The counterpart of ``qbold_vi_tpu/ops/pallas_summarize.py``:
   both layouts (csrc/summarize.cu). Draws come in antithetic pairs
   (z, -z), z accumulated first; odd S or S < 2 falls back to S iid draws.
 * ``mc_kl_map(q, p (N, 4|5))`` -> (N,): the S-draw reduced sampled
-  KL(q || p) of ``LogitMVN.mvg_kl_samples``, kernel E.
+  KL(q || p) of ``LogitMVN.mvg_kl_samples``, kernel E, ``KL_LANES``
+  lanes a voxel: lane j sums the draws of the voxel's Philox blocks
+  k = j (mod KL_LANES), and the lanes' sums meet in a fixed tree, so the
+  map is deterministic but sums the draws in another order than the
+  plain version.
 
 Noise: host normals ``z`` in the JAX layout -- (pairs or draws, N, 2)
 for D, (draws, N, 2) for E -- or a ``seed``: normal pairs 2k and 2k + 1 of
@@ -40,7 +44,9 @@ from .fused_elbo import box_muller, philox_block
 
 __all__ = ["mc_posterior_summaries", "mc_posterior_summaries_packed",
            "mc_posterior_summaries_plain", "mc_kl_map", "mc_kl_map_plain",
-           "mc_draws", "mc_normals", "mc_philox_normals"]
+           "mc_draws", "mc_normals", "mc_philox_normals", "KL_LANES"]
+
+KL_LANES = 2     # kernel E's lanes a voxel: csrc/summarize.cu::QV_KL_LANES
 
 
 def _check_samples(no_samples: int) -> None:
@@ -228,11 +234,11 @@ def mc_kl_map(q_params, p_params, seed=None, *, z=None, offset: int = 0,
     if n == 0:
         return kl
     with torch.cuda.device(q.device):
-        err = _cuda.library().qv_mc_kl(
+        err = _cuda.library().qv_mc_kl_map(
             q.data_ptr(), p.data_ptr(), n, int(mvg),
             None if z is None else z.data_ptr(), int(offset),
             0 if seed is None else int(seed), no_samples, KL_BOUND,
-            kl.data_ptr(), _grid(n), _BLOCK,
+            kl.data_ptr(), _BLOCK,
             torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check(err, "MC KL")
     mc_kl_map.launches += 1

@@ -14,7 +14,12 @@ tests/test_pallas_elbo.py:88-97). The sampled kernels D and E with host
 normals at the means/variances tolerances above and rtol 1e-5 for the KL
 rows; with device noise against the plain versions fed their replay of
 the counters (ops/summarize.py::mc_philox_normals; F's philox_normals) at
-rtol 1e-4 (numpy's log/sin/cos on the host against the card's).
+rtol 1e-4 (numpy's log/sin/cos on the host against the card's). Kernel
+A on heads below, above and straddling the s = 1.5 split. Kernel E
+also against the replay of its own summation order (kernel lanes, then
+a shuffle tree; torch_parity_utils.kl_lanes_replay) given the same host
+normals, at rtol 1e-5 / atol 1e-5 plus 16 ulps of the parts each row
+cancels from (assert_kl_close).
 The 3x3 conv kernel H (3xTF32 tensor-core products): the output and dx
 within 1e-5 of their largest magnitude, dw and db within 1e-4 of theirs
 (sums of every pixel's terms in another order than the plain version's).
@@ -27,7 +32,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_parity_utils import (assert_vars_close, cuda_device,  # noqa: E402,F401
+from torch_parity_utils import (HEAD_MIXES, assert_kl_close,  # noqa: E402
+                                assert_vars_close, cuda_device,  # noqa: F401
+                                head_mix, kl_lanes_replay, kl_scale,
                                 raw_head, volume)
 from qbold_vi_tpu_torch import config as tcfg  # noqa: E402
 from qbold_vi_tpu_torch import infer  # noqa: E402
@@ -67,9 +74,12 @@ def _close(got, ref):
 
 
 @pytest.mark.parametrize("mvg", [True, False])
-def test_quadrature_kernel_matches_plain(cuda_device, mvg):
+@pytest.mark.parametrize("mix", HEAD_MIXES)
+def test_quadrature_kernel_matches_plain(cuda_device, mix, mvg):
+    """Kernel A (its problems sorted by side across each block) against
+    the plain version; 100,003 voxels end in a ragged block."""
     rng = np.random.default_rng(4)
-    q = torch.from_numpy(raw_head(rng, 100_003)).to(cuda_device)
+    q = torch.from_numpy(head_mix(rng, 100_003, mix)).to(cuda_device)
     before = tq.quad_posterior_summaries.launches
     got = tq.quad_posterior_summaries(q, mvg=mvg, **RANGES)
     torch.cuda.synchronize()
@@ -202,10 +212,14 @@ def test_mc_summaries_kernel_matches_plain(cuda_device, mvg, antithetic, s,
 
 @pytest.mark.parametrize("device_noise", [False, True],
                          ids=["host", "philox"])
-@pytest.mark.parametrize("mvg", [True, False])
-def test_mc_kl_kernel_matches_plain(cuda_device, mvg, device_noise):
-    """Kernel E against its plain version; KL(q || q) is 0."""
-    n, k, s = 50_001, 5 if mvg else 4, 100
+@pytest.mark.parametrize("mvg,s", [(True, 100), (False, 100), (True, 7),
+                                   (True, 2), (False, 7)])
+def test_mc_kl_kernel_matches_plain(cuda_device, mvg, s, device_noise):
+    """Kernel E against its plain version and, with host normals, against
+    the replay of its lane order; KL(q || q) is 0. S odd and S below twice
+    the lanes leave lanes with one draw or none; 50,001 voxels end in a
+    ragged block."""
+    n, k = 50_001, 5 if mvg else 4
     rng = np.random.default_rng(7)
     q = torch.from_numpy(raw_head(rng, n, k)).to(cuda_device)
     p = torch.from_numpy((rng.normal(size=(n, k)) * 0.7).astype(np.float32)
@@ -228,6 +242,10 @@ def test_mc_kl_kernel_matches_plain(cuda_device, mvg, device_noise):
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                rtol=1e-4 if device_noise else 1e-5,
                                atol=1e-4)
+    if not device_noise:
+        assert_kl_close(got.cpu(), kl_lanes_replay(q, p, z, tsm.KL_LANES,
+                                                   mvg).cpu(),
+                        kl_scale(q, p, z, mvg).cpu(), rtol=1e-5, atol=1e-5)
 
 
 def test_fused_kernel_raises_for_bf16_trunk(cuda_device):

@@ -13,6 +13,18 @@ Tolerances: means rtol 1e-4 / atol 3e-5; variances rtol 1e-3 / atol 3e-5
 with the R2' floor of torch_parity_utils.assert_vars_close (E[x^2] - E[x]^2
 cancels); the KL rows rtol 1e-5 / atol 1e-5; q rtol 1e-5 / atol 2e-5 (the
 same float32 chain in another summation order).
+
+Kernel E sums a voxel's draws on KL_LANES lanes (lane j the draws of
+Philox blocks k = j mod lanes) and meets the lanes' sums in a fixed tree:
+another order than the plain version's. Its replay
+(torch_parity_utils.kl_lanes_replay) is held against the plain version at
+every lane count, and at the kernel's lane count against the JAX kernel E
+(interpreter) and the jnp estimator, at S = 2, 7 and 100 on a ragged N:
+the KL rows' tolerance plus 16 float32 ulps of the parts each row cancels
+from (torch_parity_utils.assert_kl_close: the mean of 0.5 (swr_p + swr_q)
+over its draws and the magnitudes of its four log-stds), since a sum in
+another order, or XLA's exp and tanh in place of torch's, move a row by
+ulps of those parts; a row can be 1e-2 of them.
 """
 
 import numpy as np
@@ -23,8 +35,9 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from torch_parity_utils import (assert_vars_close, port_params,  # noqa: E402
-                                port_tuner, raw_head, volume)
+from torch_parity_utils import (assert_kl_close,  # noqa: E402
+                                assert_vars_close, kl_lanes_replay, kl_scale,
+                                port_params, port_tuner, raw_head, volume)
 from qbold_vi_tpu.config import ModelConfig, ScanParams  # noqa: E402
 from qbold_vi_tpu.dist.logit_mvn import LogitMVN as JLogitMVN  # noqa: E402
 from qbold_vi_tpu.ops import pallas_infer as jpi  # noqa: E402
@@ -139,6 +152,33 @@ def test_kl_map_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **KL_TOL)
     qt = torch.from_numpy(q)
     assert (tsm.mc_kl_map(qt, qt, 9, no_samples=s) == 0).all()
+
+
+# (d') kernel E's lane order against the plain version and the JAX kernel E
+# and jnp estimator; 105 voxels are a ragged count of (8, 8) tiles
+@pytest.mark.parametrize("s", [2, 7, 100])
+def test_kl_lane_order_matches_jax(s):
+    n = 105
+    rng = np.random.default_rng(40 + s)
+    q = raw_head(rng, n)
+    p = (rng.normal(size=(n, 5)) * 0.7).astype(np.float32)
+    qt, pt = torch.from_numpy(q), torch.from_numpy(p)
+    z = torch.from_numpy(rng.normal(size=(s, n, 2)).astype(np.float32))
+    plain = tsm.mc_kl_map_plain(qt, pt, z)
+    for lanes in (1, 2, 4, 8):
+        assert_kl_close(kl_lanes_replay(qt, pt, z, lanes), plain,
+                        kl_scale(qt, pt, z), **KL_TOL)
+    ref = _seed_free(jps.mc_kl_map, jnp.asarray(q), jnp.asarray(p),
+                     no_samples=s, interpret=True, lanes=8)
+    z = _interp_normals(s, n)
+    assert_kl_close(kl_lanes_replay(qt, pt, z, tsm.KL_LANES), ref,
+                    kl_scale(qt, pt, z), **KL_TOL)
+    key = jax.random.PRNGKey(s)
+    ref = JLogitMVN().mvg_kl_samples(key, jnp.asarray(q), jnp.asarray(p),
+                                     no_samples=s)
+    z = _key_normals(key, s, (n,))
+    assert_kl_close(kl_lanes_replay(qt, pt, z, tsm.KL_LANES), ref,
+                    kl_scale(qt, pt, z), **KL_TOL)
 
 
 # (e) the plain stream-1 encode against the JAX kernel C

@@ -82,6 +82,104 @@ def raw_head(rng, n: int, k: int = 5) -> np.ndarray:
     return q
 
 
+# kernel A's head mixes: every log-std raw below the s = 1.5 split (the
+# three logit stds, sqrt(od^2 + s1^2) included, all Gauss-Hermite), every
+# one above it (all Gauss-Laguerre), or the straddling raw_head
+HEAD_MIXES = ("below", "above", "straddling")
+
+
+def head_mix(rng, n: int, mix: str, k: int = 5) -> np.ndarray:
+    """raw_head rows whose log-std raws (columns 1 and 3) are redrawn
+    uniformly from [-2, 0.45] ("below": s <= 1.31) or [0.6, 3] ("above":
+    s >= 1.84), or left straddling the split."""
+    q = raw_head(rng, n, k)
+    if mix != "straddling":
+        lo, hi = {"below": (-2.0, 0.45), "above": (0.6, 3.0)}[mix]
+        q[:, [1, 3]] = rng.uniform(lo, hi, size=(n, 2)).astype(np.float32)
+    return q
+
+
+def kl_terms(q_params, p_params, z, mvg: bool = True, parts: bool = False):
+    """The sampled KL's terms 0.5 (swr_p(l_s) - swr_q(l_s)) (S, N), each
+    the plain version's (dist/logit_mvn.py::_MvgKLStreamed); with
+    ``parts``, 0.5 (swr_p(l_s) + swr_q(l_s)) instead: the magnitude from
+    which each term cancels."""
+    from qbold_vi_tpu_torch.dist.logit_mvn import (LogitMVN, _kl_draw,
+                                                   whiten_apply,
+                                                   whiten_factors)
+
+    q = LogitMVN().unpack(q_params, mvg)
+    p = LogitMVN().unpack(p_params, mvg)
+    qf = whiten_factors(q[1], q[3], q[4])
+    pf = whiten_factors(p[1], p[3], p[4])
+    out = []
+    for d in range(z.shape[0]):
+        l0, l1 = _kl_draw(q, z[d, ..., 0], z[d, ..., 1])
+        _, _, wp0, wp1 = whiten_apply(l0, l1, p[0], p[2], pf)
+        _, _, wq0, wq1 = whiten_apply(l0, l1, q[0], q[2], qf)
+        swr_p, swr_q = wp0 * wp0 + wp1 * wp1, wq0 * wq0 + wq1 * wq1
+        out.append(0.5 * ((swr_p + swr_q) if parts else (swr_p - swr_q)))
+    return torch.stack(out)
+
+
+def kl_lanes_replay(q_params, p_params, z, lanes: int, mvg: bool = True):
+    """Kernel E's order of the sampled KL (csrc/summarize.cu::
+    qv_mc_kl_kernel) in torch: lane j sums the terms (kl_terms) of the
+    voxel's Philox blocks k = j, j + lanes, ... (draw 2k, then 2k + 1
+    where below S), the lanes' sums meet in the tree ((a0 + a1) +
+    (a2 + a3)) + ..., and the mean is the sum times float32(1 / S), plus
+    (ls_p0 + ls_p1) - (ls_q0 + ls_q1)."""
+    from qbold_vi_tpu_torch.dist.logit_mvn import LogitMVN
+
+    terms = kl_terms(q_params, p_params, z, mvg)
+    s = terms.shape[0]
+    acc = [torch.zeros_like(terms[0]) for _ in range(lanes)]
+    for j in range(lanes):
+        for d in range(2 * j, s, 2 * lanes):
+            acc[j] = acc[j] + terms[d]
+            if d + 1 < s:
+                acc[j] = acc[j] + terms[d + 1]
+    while len(acc) > 1:
+        acc = [acc[i] + acc[i + 1] for i in range(0, len(acc), 2)]
+    q = LogitMVN().unpack(q_params, mvg)
+    p = LogitMVN().unpack(p_params, mvg)
+    inv_s = torch.tensor(1.0 / s, dtype=acc[0].dtype)
+    return acc[0] * inv_s + ((p[1] + p[3]) - (q[1] + q[3]))
+
+
+# float32 ulps of a KL row's parts that two sums of its terms in other
+# orders, or with other last bits of exp and tanh, may differ by
+KL_PART_ULPS = 16
+
+
+def kl_scale(q_params, p_params, z, mvg: bool = True):
+    """(N,) the magnitude a sampled KL row cancels from: the mean over its
+    draws of 0.5 (swr_p + swr_q), plus |ls_p0| + |ls_p1| + |ls_q0| +
+    |ls_q1| of its log-std tail."""
+    from qbold_vi_tpu_torch.dist.logit_mvn import LogitMVN
+
+    q = LogitMVN().unpack(q_params, mvg)
+    p = LogitMVN().unpack(p_params, mvg)
+    tail = p[1].abs() + p[3].abs() + q[1].abs() + q[3].abs()
+    return (kl_terms(q_params, p_params, z, mvg, parts=True).double()
+            .mean(0) + tail.double())
+
+
+def assert_kl_close(got, ref, scale, *, rtol: float, atol: float):
+    """Sampled KL rows that sum their terms in another order, or take
+    other last bits of exp and tanh: (rtol, atol) plus KL_PART_ULPS float32
+    ulps of each row's ``kl_scale``. A row is a difference of parts far
+    larger than itself (each term 0.5 (swr_p - swr_q), and the mean against
+    the log-std tail), and rounding follows the parts, not the row."""
+    got, ref = (np.asarray(a, np.float64) for a in (got, ref))
+    bound = (atol + rtol * np.abs(ref)
+             + KL_PART_ULPS * EPS32 * np.asarray(scale, np.float64))
+    err = np.abs(got - ref)
+    assert np.isfinite(got).all() and (err <= bound).all(), (
+        f"KL rows: max error {err.max():.3e}, max excess "
+        f"{np.max(err - bound):.3e}")
+
+
 EPS32 = float(np.finfo(np.float32).eps)
 
 

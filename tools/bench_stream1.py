@@ -1,9 +1,14 @@
 """Time kernels B, C and D (qbold_vi_tpu_torch/csrc/encode_quad.cu and
-summarize.cu) on the stream-1 serving request, and kernel A
-(quadrature.cu: B's quadrature tail alone), with each build's errors and
-its registers, spills, stack frame, shared memory and blocks an SM.
+summarize.cu) on the stream-1 serving request, kernel A (quadrature.cu:
+B's quadrature tail alone) on four head mixes, and kernel E (summarize.cu)
+on one subject, with each build's errors and its registers, spills, stack
+frame, shared memory, blocks an SM and SASS instructions.
 
     python3 tools/bench_stream1.py [--only-copies] [--row-blob SRC ...] [SRC ...]
+
+Run it from the repository's root on a machine with the card, as
+``env PYTHONPATH=. python3 tools/bench_stream1.py _chip_checkout/<copy>/
+quadrature.cu ...``, with the edited copies in a git-ignored directory.
 
 Builds the package's kernels (``ops/_cuda.library``) and, for each further
 source given -- an edited copy of ``csrc/encode_quad.cu``,
@@ -34,16 +39,36 @@ prints:
   one Philox block for two pairs, and ``ops/fused_elbo.py::philox_normals``,
   one a pair, as the earlier D drew them); each error with whether chip_smoke's
   gates (``CHECKS``) hold;
+* A on four head mixes of 1,032,192 rows: C's q rows, chip_smoke's
+  straddling heads (``chip_smoke.raw_head``), heads whose three logit stds
+  all lie below the s = 1.5 split and heads whose stds all lie at or above
+  it; per mix, the share of voxels each 1-D moment routine sends to the
+  Gauss-Laguerre side and the share of 32-voxel warps that straddle the
+  split; A's errors against the plain version and against a float64
+  evaluation of the same node words (the plain version in double), beside
+  the plain float32 version's;
+* E (``qv_mc_kl_map``, or an earlier build's ``qv_mc_kl``) on one
+  subject, 73,728 voxels, S = 100: against the plain version fed the same
+  host normals and, with device noise, fed ``mc_philox_normals``;
 * device ms by the profiler (median of 21 calls after warm-up,
-  ``chip_smoke.kernel_ms``) and ms a call by CUDA events: A, B and C (and
-  both with the activation gelu on the same weights, timing only), D at
-  S = 200 with device noise, D at S = 2 (the per-voxel work alone) and D
-  with host normals.
+  ``chip_smoke.kernel_ms``) and ms a call by CUDA events: A on each mix, B
+  and C (and both with the activation gelu on the same weights, timing
+  only), D at S = 200 with device noise, D at S = 2 (the per-voxel work
+  alone) and D with host normals; E at S = 100 with device noise, at
+  S = 2, with host normals, in blocks of 64, 128 and 256 threads, and at
+  4x the voxels (timing only: what a grid too small for the card loses).
+  Other lane counts are edited copies of ``csrc/summarize.cu`` with
+  another ``QV_KL_LANES``, e.g. for L in 1 4 8: ``mkdir -p
+  _chip_checkout/e$L && sed "s/^#define QV_KL_LANES 2$/#define
+  QV_KL_LANES $L/" qbold_vi_tpu_torch/csrc/summarize.cu >
+  _chip_checkout/e$L/summarize.cu``.
 
 Blocks an SM are computed from ptxas's registers and the block's shared
 memory against the H100's limits (65,536 registers allocated 256 a warp,
 233,472 B of shared memory with 1 KB reserved a block, 2,048 threads, 32
-blocks). Needs one CUDA card; about a minute with ten builds.
+blocks). SASS per kernel by ``cuobjdump -sass``: its instructions and its
+special-function (MUFU) instructions by kind, as compiled (a loop body
+counts once). Needs one CUDA card; about a minute with ten builds.
 """
 
 from __future__ import annotations
@@ -60,28 +85,41 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from chip_smoke import (check_close, cuda_ms, encode_q_f64,  # noqa: E402
-                        gpu_line, kernel_ms, volumes)
+from chip_smoke import (branch_shares, check_close,  # noqa: E402
+                        check_rows, cuda_ms, encode_q_f64, gpu_line,
+                        kernel_ms, raw_head, sass, squashed, volumes)
 from qbold_vi_tpu_torch import OPTIMAL, FineTuner, init_params  # noqa: E402
 from qbold_vi_tpu_torch.ops import _cuda  # noqa: E402
 from qbold_vi_tpu_torch.ops import fused_elbo as fe  # noqa: E402
 from qbold_vi_tpu_torch.ops import fused_infer as fi  # noqa: E402
 from qbold_vi_tpu_torch.ops import quadrature as quad  # noqa: E402
 from qbold_vi_tpu_torch.ops import summarize as sm  # noqa: E402
+from qbold_vi_tpu_torch.dist.logit_mvn import KL_BOUND  # noqa: E402
 from qbold_vi_tpu_torch.ops.decode_nll import _BLOCK, _grid  # noqa: E402
 
 N = 14 * 96 * 96 * 8
 N_NOISE = 65_536
+N_SUBJ = 96 * 96 * 8                 # kernel E's chunk: one subject
 S, SEED = 200, 3
+S_KL = 100
 ENTRIES = ("qv_quad_posterior_summaries", "qv_encode_quad_fused",
-           "qv_encode_q1", "qv_mc_summaries")
+           "qv_encode_q1", "qv_mc_summaries", "qv_mc_kl_map", "qv_mc_kl")
+# C entries of earlier builds that the package no longer has: the earlier
+# kernel E took (grid, block), one thread a voxel
+EARLIER = {"qv_mc_kl": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                        ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                        ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_void_p]}
 KERNELS = dict(A="qv_quad_kernel", B="qv_encode_quad_kernel",
-               C="qv_encode_q_kernel", D="qv_mc_summaries_kernel")
+               C="qv_encode_q_kernel", D="qv_mc_summaries_kernel",
+               E="qv_mc_kl_kernel")
+MIXES = ("C rows", "straddling", "below", "above")   # kernel A's heads
 
 
 def build_variants(paths):
-    """{name: (ctypes library, nvcc log)} of each source, built with the
-    port's flags."""
+    """{name: (ctypes library, nvcc log, .so path)} of each source, built
+    with the port's flags."""
     out_dir = _cuda.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
@@ -97,12 +135,18 @@ def build_variants(paths):
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
-        lib = ctypes.CDLL(str(so))
-        for fn in ENTRIES:
-            if hasattr(lib, fn):
-                getattr(lib, fn).argtypes = _cuda._SIGNATURES[fn]
-        libs[name] = (lib, log)
+        libs[name] = (bind(ctypes.CDLL(str(so))), log, so)
     return libs
+
+
+def bind(lib):
+    """Set the argument types of the C entries the library has."""
+    for fn in ENTRIES:
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = _cuda._SIGNATURES.get(fn,
+                                                              EARLIER.get(fn))
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
 
 
 def resources(log: str) -> dict:
@@ -165,6 +209,11 @@ class Calls:
             (_, _, _, self.blob, self.u, self.up, self.block,
              self.smem) = fi._launch_setup(x, enc, trunk="float32",
                                            **ctx["setup"])
+        # kernel B's, with its quadrature's scratch (an earlier build's B
+        # leaves it unused)
+        self.smem_b = self.smem + (
+            0 if row_blob
+            else 4 * _cuda.library().qv_quad_scratch_floats(self.block))
         self.stream = torch.cuda.current_stream().cuda_stream
 
     def enc_args(self, act):
@@ -179,7 +228,7 @@ class Calls:
             *self.enc_args(act), self.u, self.up,
             OPTIMAL.model.no_intermediate_layers, self.blob.data_ptr(),
             self.blob.numel(), _cuda.quad_ranges(**self.ctx["ranges"]),
-            *(t.data_ptr() for t in o), 1, self.block, self.smem,
+            *(t.data_ptr() for t in o), 1, self.block, self.smem_b,
             self.stream)
         _cuda.check(err, "B")
 
@@ -190,14 +239,29 @@ class Calls:
             self.ctx["q_out"].data_ptr(), self.block, self.smem, self.stream)
         _cuda.check(err, "C")
 
-    def a(self):
-        q = self.ctx["q_rows"]
+    def a(self, mix="C rows", block=quad.QUAD_BLOCK):
+        q = self.ctx["heads"][mix]
         err = self.lib.qv_quad_posterior_summaries(
             q.data_ptr(), N, 5, 1, _cuda.quad_ranges(**self.ctx["ranges"]),
             _cuda.quad_consts(q.device).data_ptr(),
-            *(t.data_ptr() for t in self.ctx["a_out"]), -(-N // _BLOCK),
-            _BLOCK, self.stream)
+            *(t.data_ptr() for t in self.ctx["a_out"]), -(-N // block),
+            block, self.stream)
         _cuda.check(err, "A")
+
+    def e(self, q, p, z=None, s=S_KL, block=_BLOCK):
+        """Kernel E on rows q, p (n, 5)."""
+        n = q.shape[0]
+        kl = self.ctx["e_out"][:n]
+        args = (q.data_ptr(), p.data_ptr(), n, 1,
+                None if z is None else z.data_ptr(), 0, SEED, s, KL_BOUND,
+                kl.data_ptr())
+        if hasattr(self.lib, "qv_mc_kl_map"):
+            err = self.lib.qv_mc_kl_map(*args, block, self.stream)
+        else:
+            err = self.lib.qv_mc_kl(*args, -(-n // block), block,
+                                    self.stream)
+        _cuda.check(err, "E")
+        return kl
 
     def d(self, q_t, z=None, seed=SEED, s=S, out=None):
         n = q_t.shape[1]
@@ -234,11 +298,27 @@ def context(dev):
     d_plain = sm.mc_posterior_summaries_plain(q_plain.T, z, mvg=True,
                                               **ranges)
     f32 = dict(device=dev, dtype=torch.float32)
-    q_rows = q_plain.T.contiguous()
+    rng = np.random.default_rng(8)
+    heads = {"C rows": q_plain.T.contiguous()}
+    heads.update({mix: torch.from_numpy(raw_head(rng, N, mix)).to(dev)
+                  for mix in MIXES[1:]})
+    qe = heads["straddling"][:4 * N_SUBJ]
+    pe = torch.from_numpy((rng.normal(size=(4 * N_SUBJ, 5)) * 0.7).astype(
+        np.float32)).to(dev)
+    ze = torch.from_numpy(rng.normal(size=(S_KL, N_SUBJ, 2)).astype(
+        np.float32)).to(dev)
     return dict(
-        q_rows=q_rows, a_out=[torch.empty((N, 3), **f32) for _ in range(2)],
-        a_plain=quad.posterior_summaries_quadrature(q_rows, mvg=True,
-                                                    **ranges),
+        heads=heads, a_out=[torch.empty((N, 3), **f32) for _ in range(2)],
+        a_plain={k: quad.posterior_summaries_quadrature(h, mvg=True, **ranges)
+                 for k, h in heads.items()},
+        a_f64={k: quad.posterior_summaries_quadrature(h.double(), mvg=True,
+                                                      **ranges)
+               for k, h in heads.items()},
+        qe=qe, pe=pe, ze=ze, e_out=torch.empty((4 * N_SUBJ,), **f32),
+        e_plain=sm.mc_kl_map_plain(qe[:N_SUBJ], pe[:N_SUBJ], ze),
+        e_plain_dev=sm.mc_kl_map_plain(
+            qe[:N_SUBJ], pe[:N_SUBJ], torch.from_numpy(sm.mc_philox_normals(
+                SEED, N_SUBJ, S_KL)).to(dev)),
         x=x, encoder=tuner.encoder, kw=kw, ranges=ranges,
         setup={k: kw[k] for k in ("n_blocks", "activation", "mask_channel",
                                   "input_layout", "se_idx")},
@@ -263,14 +343,31 @@ def gate(name, got, ref, mean_ref=None) -> str:
     return f"{e[0]:.2e} / {e[1]:.2e} {verdict}"
 
 
+def mix_shares(ctx) -> str:
+    """Per head mix, chip_smoke.branch_shares: the share of voxels that each
+    1-D moment routine sends to the Gauss-Laguerre side, and of 32-voxel
+    warps that straddle the split."""
+    return " | ".join(f"{mix}: {branch_shares(squashed(h, True), True)}"
+                      for mix, h in ctx["heads"].items())
+
+
+def f64_err(got, ref64) -> str:
+    return " / ".join(f"{float((g.double() - r).abs().max()):.2e}"
+                      for g, r in zip(got, ref64))
+
+
 def errors(calls: Calls, ctx) -> str:
     out = []
     lib = calls.lib
     if hasattr(lib, "qv_quad_posterior_summaries"):
-        calls.a()
-        torch.cuda.synchronize()
-        out.append("A vs plain means / vars " + gate(
-            "A", [t.T for t in ctx["a_out"]], ctx["a_plain"]))
+        for mix in MIXES:
+            calls.a(mix)
+            torch.cuda.synchronize()
+            got = [t.clone() for t in ctx["a_out"]]
+            out.append(f"A {mix} vs plain means / vars " + gate(
+                f"A {mix}", [t.T for t in got], ctx["a_plain"][mix])
+                + f", vs float64 {f64_err(got, ctx['a_f64'][mix])} (plain "
+                f"{f64_err(ctx['a_plain'][mix], ctx['a_f64'][mix])})")
     if hasattr(lib, "qv_encode_quad_fused"):
         calls.b()
         torch.cuda.synchronize()
@@ -305,6 +402,18 @@ def errors(calls: Calls, ctx) -> str:
                                                   **ctx["ranges"])
             out.append(f"D device noise vs plain fed {tag} means / vars "
                        + gate(f"D device {tag}", got, ref))
+    if hasattr(lib, "qv_mc_kl_map") or hasattr(lib, "qv_mc_kl"):
+        q, p = ctx["qe"][:N_SUBJ], ctx["pe"][:N_SUBJ]
+        for tag, z, ref, rtol in (
+                ("host noise", ctx["ze"], ctx["e_plain"], 1e-5),
+                ("device noise", None, ctx["e_plain_dev"], 1e-4)):
+            got = calls.e(q, p, z)
+            torch.cuda.synchronize()
+            try:
+                e = f"{check_rows('E', got, ref, rtol, 1e-4):.2e} within gate"
+            except AssertionError as exc:
+                e = f"OUTSIDE the gate ({exc})"
+            out.append(f"E {tag} vs plain {e}")
     return "; ".join(out)
 
 
@@ -313,24 +422,32 @@ def timed(label: str, fn, symbol: str) -> str:
             f"({cuda_ms(fn, reps=10):.4f})")
 
 
-def bench(name, lib, log, row_blob, ctx) -> None:
+def bench(name, lib, log, so, row_blob, ctx) -> None:
     calls = Calls(lib, row_blob, ctx)
     res = resources(log)
+    code = sass(so)
     parts = []
     for key, sym in KERNELS.items():
         if sym not in res:
             continue
         regs, static, frame = res[sym]
-        threads = _BLOCK if key in "AD" else calls.block
-        smem = static + (0 if key in "AD" else calls.smem)
+        threads = (quad.QUAD_BLOCK if key == "A" else _BLOCK
+                   if key in "DE" else calls.block)
+        smem = static + (0 if key in "ADE" else calls.smem)
+        size, mufu = code.get(sym, (0, {}))
         parts.append(f"{key} {regs} registers, {frame}, {smem} B shared a "
                      f"block of {threads}, {blocks_per_sm(regs, threads, smem)}"
-                     " blocks an SM")
+                     f" blocks an SM, {size} SASS instructions, MUFU "
+                     f"{dict(sorted(mufu.items()))}")
     print(f"{name}: " + "; ".join(parts), flush=True)
     print(f"{name} errors: {errors(calls, ctx)}", flush=True)
     rows = []
     if hasattr(lib, "qv_quad_posterior_summaries"):
-        rows.append(timed("A", calls.a, KERNELS["A"]))
+        for mix in MIXES:
+            rows.append(timed(f"A {mix}", lambda m=mix: calls.a(m),
+                              KERNELS["A"]))
+        rows.append(timed("A C rows block 128",
+                          lambda: calls.a(block=128), KERNELS["A"]))
     if hasattr(lib, "qv_encode_quad_fused"):
         rows.append(timed("B", calls.b, KERNELS["B"]))
         rows.append(timed("B gelu", lambda: calls.b("gelu"), KERNELS["B"]))
@@ -345,6 +462,19 @@ def bench(name, lib, log, row_blob, ctx) -> None:
                           KERNELS["D"]))
     print(f"{name} ms at N={N}, device by profiler (CUDA events a call): "
           + "; ".join(rows), flush=True)
+    if hasattr(lib, "qv_mc_kl_map") or hasattr(lib, "qv_mc_kl"):
+        q, p, q4, p4 = (ctx["qe"][:N_SUBJ], ctx["pe"][:N_SUBJ], ctx["qe"],
+                        ctx["pe"])
+        rows = [timed("E", lambda: calls.e(q, p), KERNELS["E"]),
+                timed("E S=2", lambda: calls.e(q, p, s=2), KERNELS["E"]),
+                timed("E host noise", lambda: calls.e(q, p, ctx["ze"]),
+                      KERNELS["E"])]
+        rows += [timed(f"E block {b}", lambda b=b: calls.e(q, p, block=b),
+                       KERNELS["E"]) for b in (64, 256)]
+        rows.append(timed(f"E at N={4 * N_SUBJ}", lambda: calls.e(q4, p4),
+                          KERNELS["E"]))
+        print(f"{name} ms at N={N_SUBJ}, S={S_KL}, device by profiler (CUDA "
+              "events a call): " + "; ".join(rows), flush=True)
 
 
 def main() -> int:
@@ -361,15 +491,18 @@ def main() -> int:
                     "package's encode_quad.cu or summarize.cu")
     args = ap.parse_args()
     dev = torch.device("cuda", 0)
-    libs = ({} if args.only_copies
-            else {"package": (_cuda.library(), _cuda.build_log(), False)})
+    libs = {}
+    if not args.only_copies:
+        lib = bind(_cuda.library())
+        libs["package"] = (lib, _cuda.build_log(), lib._name, False)
     built = build_variants(args.row_blob + args.sources)
-    for i, (name, (lib, log)) in enumerate(built.items()):
-        libs[name] = (lib, log, i < len(args.row_blob))
+    for i, (name, (lib, log, so)) in enumerate(built.items()):
+        libs[name] = (lib, log, so, i < len(args.row_blob))
     with torch.no_grad():
         ctx = context(dev)
-        for name, (lib, log, row_blob) in libs.items():
-            bench(name, lib, log, row_blob, ctx)
+        print("head mixes: " + mix_shares(ctx), flush=True)
+        for name, (lib, log, so, row_blob) in libs.items():
+            bench(name, lib, log, so, row_blob, ctx)
     print(gpu_line())
     return 0
 
