@@ -8,14 +8,17 @@ converted JAX checkpoint: serving by quadrature (``infer.save_predictions``,
 kernels A and B), serving by sampling and the fine-tuned export
 (``save_predictions(method="mc")`` and ``(fine_tuned=True, priors=...)``,
 kernels C, D and E), ELBO fine-tuning (``train.trainer.Trainer``, kernels
-F and G, forward and backward), and the two-phase pipeline from scratch
+F and G, forward and backward; G on the configuration F leaves out, a
+diagonal posterior with a population prior), and the two-phase pipeline
+from scratch
 (``Trainer.pretrain`` -> ``finetune`` with the 3x3 convs through kernel H,
 forward and backward), and checks them:
 
 1. device: a CUDA card is required (otherwise exit 1, no result line);
 2. build: the kernels of all six sources in csrc/ are compiled by nvcc;
-   kernels A, B and E must hold the static MUFU instructions (cuobjdump)
-   that the special-function bounds' counts were read with (MUFU_SASS);
+   kernels A, B, E and G must hold the static MUFU instructions
+   (cuobjdump) that the special-function bounds' counts were read with
+   (MUFU_SASS);
 3. kernel vs plain: A and B against their plain torch versions on the
    card at 1,032,192 and 1,000,003 voxels (tolerances in CHECKS), A on
    heads straddling the s = 1.5 split, entirely below and entirely above
@@ -33,9 +36,13 @@ forward and backward), and checks them:
 6. F and G against their plain versions at the fine-tune shapes: F at
    190,000 voxels (38 crops of 25 x 25 x 8 through the encoder; MVG,
    s_nll 1, s_kl 70, host noise) and at a ragged 190,003 (diagonal; and
-   Student-t df 2 + multi-image normalisation + s_nll 2), G at 190,000;
-   rows at rtol 1e-5 / atol 1e-5, gradients scale-normalised at rtol
-   5e-4 / atol 5e-5;
+   Student-t df 2 + multi-image normalisation + s_nll 2); G at 190,000 on
+   OPTIMAL's MVG draws and on the path it serves, a diagonal posterior
+   with a population prior (rows from that configuration's encoder), at
+   190,000, at a ragged 190,003 and under Student-t df 2 + multi-image
+   normalisation + no_samples 2 (380,000 rows), each backward with dy
+   asked for and not; rows at rtol 1e-5 / atol 1e-5, gradients
+   scale-normalised at rtol 5e-4 / atol 5e-5;
 7. F's device noise: the Philox draws are philox_normals' (rows against
    the plain version fed them, rtol 1e-4: numpy's log/sin/cos on the host
    against the card's), a seed replays rows and gradients bit for bit,
@@ -48,9 +55,20 @@ forward and backward), and checks them:
    fused_elbo="off" (G launched), then one step on the card against the
    same step on the CPU plain path (check_step: softplus from the
    initial weights, gradients at GRAD_TOL; relu from the trained
-   weights, within 1e-2 of their scale);
-9. timings: F and G forward and backward against their plain versions,
-   one fine-tune step, and the wall of one 100-step epoch;
+   weights, within 1e-2 of their scale); then the diagonal posterior
+   with a population prior from its own initial weights (seed 0):
+   Trainer.finetune (prepare_real, then 1 epoch x 100 steps) on the same
+   volumes with fused_elbo and fused_decode_nll "auto", G forward and
+   backward launched once a step and F never, metrics finite, the
+   parameters moved (pop_prior among them), and one step on the card
+   against the CPU (check_step, G launched in each card step);
+9. timings: F and G forward and backward against their plain versions
+   (G on the rows of the path it serves, its backward without dy, as
+   that path runs it, and with dy), one fine-tune step, and the wall of
+   one 100-step epoch; the step wall, its profile (the device's busy
+   share) and the epoch wall of the diagonal + population prior path; G
+   beside its bytes bound (with and without dy), its operations bound and
+   its special-function bound;
 10. C against its plain version at 1,032,192 and 1,000,003 voxels (both
    layouts, mask channel); D (both layouts, MVG and diagonal, antithetic
    and iid, S = 200) and E (S = 100) against their plain versions fed
@@ -128,7 +146,8 @@ and E (one Philox block for two draw pairs), after phase 13:
 Phases 5 and 13 print A-E beside their bounds: B and C's from the chain's
 FMAs at the 3xTF32 rate (encode_bound) and at the float32 CUDA-core peak;
 A's, B's and E's special-function bound beside OPS's (MUFU: the
-instructions of the MUFU unit at 16 results a clock an SM).
+instructions of the MUFU unit at 16 results a clock an SM); phase 9
+prints G's.
 
 It also traces posterior_maps (each stream and estimator), elbo_maps,
 the fine-tune step (both conv routes) and the pretrain step with
@@ -469,11 +488,20 @@ MUFU = dict(
     # cosine; the log is a polynomial), and each voxel's exponentials of q
     # and p (two standard deviations, six whitening; the function needs
     # them once, whichever lanes repeat them)
-    box_muller=3, kl_voxel=8)
+    box_muller=3, kl_voxel=8,
+    # decode_nll.cu, kernel G on the surrogate, forward and backward alike:
+    # a tau's two exponentials and its reciprocal of sigma (the Student-t
+    # term one more), a row's reciprocals of its two normalisers (the logs
+    # are polynomials)
+    g_tau=3, g_student=1, g_row=2)
 MUFU_SASS = {
     "qv_quad_kernel": {"EX2": 45, "RCP": 25, "RSQ": 2},
     "qv_encode_quad_kernel": {"EX2": 62, "RCP": 59, "RSQ": 2},
     "qv_mc_kl_kernel": {"COS": 2, "EX2": 14, "RCP": 11, "RSQ": 2, "SIN": 2},
+    # G's forward; its backward's two instantiations (with and without dy)
+    # counted together
+    "qv_decode_nll_fwd_kernel": {"EX2": 2, "RCP": 10, "RSQ": 2},
+    "qv_decode_nll_bwd_kernel": {"EX2": 4, "LG2": 12, "RCP": 43, "RSQ": 6},
 }
 MUFU_RATE = 16 * 132                 # results a clock on the card
 
@@ -504,7 +532,7 @@ def sass(so) -> dict:
 
 
 def check_mufu_sass(so) -> None:
-    """Fail unless the built kernels of A, B and E hold the static MUFU
+    """Fail unless the built kernels of A, B, E and G hold the static MUFU
     instructions that MUFU's counts were read with."""
     code = sass(so)
     got = {k: dict(code.get(k, (0, {}))[1]) for k in MUFU_SASS}
@@ -739,11 +767,34 @@ def bound_elbo(n, live, k, t, s_nll, s_kl, student, device_noise,
     return bound(4 * (n * floats + noise), ops)
 
 
-def bound_decode(n, live, t, student, backward) -> dict:
+def bound_decode(n, live, t, student, backward, dy=True) -> dict:
     """Kernel G: oef, dbv, the mask, y and sigma read once (+ the
-    cotangent; rows or the four gradients written)."""
-    floats = (2 * t + 4) + (2 * t + 2 if backward else 0)
+    cotangent; rows or the four gradients written, dy only if asked),
+    the operations of the live rows."""
+    floats = (2 * t + 4) + (2 * t + 2 - (0 if dy else t) if backward else 0)
     return bound(4 * n * floats, live * ops_decode(t, student, backward))
+
+
+def mufu_decode(t, student) -> int:
+    """Kernel G, per row and pass: the special-function instructions of
+    its t taus and of the row (MUFU's counts)."""
+    return (MUFU["g_tau"] + MUFU["g_student"] * student) * t + MUFU["g_row"]
+
+
+def g_operands(tuner, rows, z) -> tuple:
+    """Kernel G's operands (oef, dbv, y, sigma, mask) for the draws z (S,
+    N, 2) of the diagonal head rows["q"]: y, sigma and the mask repeated
+    over the draws, as the fine-tune step passes them (train/steps.py)."""
+    s = z.shape[0]
+    d = tuner.dist.sample_many(z, rows["q"], False)
+
+    def rep(x):
+        return x.expand((s,) + x.shape).reshape((-1,) + x.shape[1:]) \
+            .contiguous()
+
+    return (d[..., 0].reshape(-1).contiguous(),
+            d[..., 1].reshape(-1).contiguous(), rep(rows["y"]),
+            rep(rows["sigma"]), rep(rows["mask"]))
 
 
 def stepped(tuner, metrics) -> tuple:
@@ -837,7 +888,7 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
     device noise, the training main path, and the timings. Returns the
     kernels' JSON entries and the step and epoch walls."""
     from qbold_vi_tpu_torch.dist.logit_mvn import LogitMVN
-    from qbold_vi_tpu_torch.models.vi import FineTuner
+    from qbold_vi_tpu_torch.models.vi import FineTuner, init_params
     from qbold_vi_tpu_torch.ops import decode_nll as dn
     from qbold_vi_tpu_torch.ops import fused_elbo as fe
     from qbold_vi_tpu_torch.train import optim, steps
@@ -939,23 +990,58 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
         y=torch.zeros_like(rows["y"])), mcfg, s_nll)
 
     c_opt = dn.decode_consts(mcfg, scan, True)
+
+    def check_g(tag, args, c):
+        """G's rows and its backward with and without dy against the
+        plain version; dy is None when not asked."""
+        n = args[0].shape[0]
+        ct = normal(n)
+        got = dn.decode_nll_forward(*args, c)
+        full = dn.decode_nll_backward(*args, ct, c)
+        nody = dn.decode_nll_backward(*args, ct, c, want_dy=False)
+        torch.cuda.synchronize()
+        if nody[3] is not None:
+            raise AssertionError(f"G bwd {tag}: dy given, not asked for")
+        e_rows = check_rows(f"G fwd {tag}", got,
+                            dn.nll_row_plain(*args, c) * args[4])
+        ctm = ct * args[4]
+        ref = [r * (ctm if r.ndim == 1 else ctm[:, None])
+               for r in dn.nll_row_grads_plain(*args, c)]
+        e_grads = max(
+            check_grad(f"G bwd {tag} {nm}{way}", x, r)
+            for way, gs in (("", full), (" without dy", nody[:3]))
+            for nm, x, r in zip(("doef", "ddbv", "dsigma", "dy"), gs, ref))
+        log(f"kernel G vs plain ok: {tag}, N={n}, dy asked and not (rows "
+            f"{e_rows:.3e}, gradients {e_grads:.3e} max abs)")
+        return e_rows, e_grads
+
     draws = tuner.dist.sample_many(normal(1, N_FT, 2), rows["q"],
                                    mcfg.use_mvg)[0]
     g_args = (draws[:, 0].contiguous(), draws[:, 1].contiguous(), rows["y"],
               rows["sigma"], rows["mask"])
-    ct = normal(N_FT)
-    got = dn.decode_nll_forward(*g_args, c_opt)
-    grads = dn.decode_nll_backward(*g_args, ct, c_opt)
-    torch.cuda.synchronize()
-    err["G_fwd"] = check_rows(
-        "G fwd", got, dn.nll_row_plain(*g_args, c_opt) * rows["mask"])
-    ctm = ct * rows["mask"]
-    err["G_bwd"] = max(
-        check_grad(f"G bwd {nm}", x, r * (ctm if r.ndim == 1 else ctm[:, None]))
-        for nm, x, r in zip(("doef", "ddbv", "dsigma", "dy"), grads,
-                            dn.nll_row_grads_plain(*g_args, c_opt)))
-    log(f"kernel G vs plain ok at N={N_FT} (rows {err['G_fwd']:.3e}, "
-        f"gradients {err['G_bwd']:.3e} max abs)")
+    g_err = [check_g("OPTIMAL's MVG draws", g_args, c_opt)]
+    # the path G serves: a diagonal posterior with a population prior (F
+    # leaves it out: its KL carries the prior's hyperprior cost), its rows
+    # from that configuration's encoder
+    pop_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        mcfg, use_mvg=False, use_population_prior=True))
+    c_pop = dn.decode_consts(pop_cfg.model, scan, True)
+    pop_tuner = FineTuner(pop_cfg.model, scan, device=dev)
+    pop_tuner.load_state_dict(init_params(pop_cfg.model, scan,
+                                          torch.Generator().manual_seed(0)))
+    z_pop = normal(2, N_FT, 2)
+    pop_rows = ft_rows(pop_tuner, rng, dev, t_n)
+    pop_args = g_operands(pop_tuner, pop_rows, z_pop[:1])
+    g_err.append(check_g("diagonal + population prior", pop_args, c_pop))
+    g_err.append(check_g("diagonal + population prior, ragged", tuple(
+        torch.cat([a, a[:N_FT_RAGGED - N_FT]]) for a in pop_args), c_pop))
+    g_err.append(check_g(
+        "Student-t df 2, multi-image, no_samples 2",
+        g_operands(pop_tuner, pop_rows, z_pop), dn.decode_consts(
+            dataclasses.replace(pop_cfg.model, student_t_df=2.0,
+                                multi_image_normalisation=True), scan, True)))
+    err["G_fwd"] = max(e for e, _ in g_err)
+    err["G_bwd"] = max(e for _, e in g_err)
 
     # ---- 7. F's device noise ----------------------------------------------
     qd, pd = normal(N_FT, 5) * 0.7, normal(N_FT, 5) * 0.7
@@ -1047,7 +1133,6 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
     if (launches_g["G_fwd"], launches_g["G_bwd"]) != (10, 10) or \
             launches_g["F_fwd"] or launches_g["F_bwd"]:
         raise AssertionError(f"G did not run once a step: {launches_g}")
-    launches.update(G_fwd=launches_g["G_fwd"], G_bwd=launches_g["G_bwd"])
     trainer.cfg = cfg
 
     # one step on the card (F, injected normals) against the same step on
@@ -1061,27 +1146,89 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
              "z_kl": rng.normal(size=(s_kl,) + shape + (2,))}
     noise = {k: v.astype(np.float32) for k, v in noise.items()}
     trained = {k: v.clone() for k, v in trainer.tuner.state_dict().items()}
-    for tag, c, weights, kinks in step_runs(cfg, tuner.state_dict(), trained):
-        result = {}
-        for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
-            t = FineTuner(c.model, scan, device=device)
-            t.load_state_dict(weights)
-            opt = optim.make_finetune_optimizer(t.parameters(), c.train)
-            result[name] = stepped(t, steps.make_finetune_step(t, c, opt)(
-                {k: v.to(device) for k, v in batch.items()}, noise=noise))
-        worst_grad = check_step(
-            f"one fine-tune step ({tag}) on the card vs the CPU",
-            result["card"], result["cpu"], weights, float(cfg.train.ft_lr),
-            kinks)
-        log(f"one step ({tag}) on the card agrees with the CPU plain path: "
-            f"loss {result['card'][0]:.7g} vs {result['cpu'][0]:.7g}, "
-            f"gradients within {worst_grad:.2e} of their scale "
-            f"({'1e-2' if kinks else 'GRAD_TOL'}), updates within tolerance")
+
+    def card_vs_cpu(base, initial, trained, batch, noise, label=""):
+        """One step of base on the card against the same step on the CPU
+        plain path (check_step, both runs); returns the card steps' G
+        launches (forward, backward)."""
+        g0 = (dn.decode_nll_forward.launches, dn.decode_nll_backward.launches)
+        for tag, c, weights, kinks in step_runs(base, initial, trained):
+            result = {}
+            for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+                t = FineTuner(c.model, scan, device=device)
+                t.load_state_dict(weights)
+                opt = optim.make_finetune_optimizer(t.parameters(), c.train)
+                result[name] = stepped(t, steps.make_finetune_step(t, c, opt)(
+                    {k: v.to(device) for k, v in batch.items()}, noise=noise))
+            worst_grad = check_step(
+                f"one fine-tune step{label} ({tag}) on the card vs the CPU",
+                result["card"], result["cpu"], weights,
+                float(base.train.ft_lr), kinks)
+            log(f"one step{label} ({tag}) on the card agrees with the CPU "
+                f"plain path: loss {result['card'][0]:.7g} vs "
+                f"{result['cpu'][0]:.7g}, gradients within {worst_grad:.2e} "
+                f"of their scale ({'1e-2' if kinks else 'GRAD_TOL'}), updates"
+                " within tolerance")
+        return (dn.decode_nll_forward.launches - g0[0],
+                dn.decode_nll_backward.launches - g0[1])
+
+    card_vs_cpu(cfg, tuner.state_dict(), trained, batch, noise)
+
+    # ---- 8, the diagonal posterior with a population prior: the fine-tune
+    # path of kernel G under "auto" (F does not cover it), from its own
+    # initial weights, on the same volumes
+    pop_logged = []
+
+    def pop_logger(phase, epoch, m):
+        pop_logged.append(dict(m))
+        log(f"[{phase}, diagonal + population prior] epoch {epoch}: "
+            + " ".join(f"{k}={v:.6g}" for k, v in m.items()) + f" [{card}]")
+
+    pop_trainer = Trainer(pop_cfg, state_dict=pop_tuner.state_dict(),
+                          device=dev, logger=pop_logger)
+    pop_before = {k: v.clone()
+                  for k, v in pop_trainer.tuner.state_dict().items()}
+    for f in counters.values():
+        f.launches = 0
+    pop_trainer.finetune(data, epochs=1)      # prepare_real, then 100 steps
+    torch.cuda.synchronize()
+    launches_pop = {k: f.launches for k, f in counters.items()}
+    n_pop = pop_cfg.train.ft_steps_per_epoch
+    log(f"fine-tune, diagonal + population prior (prepare_real, 1 epoch x "
+        f"{n_pop} steps, fused_elbo and fused_decode_nll auto) launches: "
+        f"{launches_pop}")
+    if (launches_pop["G_fwd"], launches_pop["G_bwd"]) != (n_pop, n_pop) or \
+            launches_pop["F_fwd"] or launches_pop["F_bwd"]:
+        raise AssertionError(f"G did not run once a step: {launches_pop}")
+    if not all(np.isfinite(v) for m in pop_logged for v in m.values()):
+        raise AssertionError("non-finite fine-tune metrics (diagonal + "
+                             "population prior)")
+    moved = [k for k, v in pop_trainer.tuner.state_dict().items()
+             if not torch.equal(pop_before[k], v)]
+    if "pop_prior" not in moved or len(moved) < 2:
+        raise AssertionError(f"fine-tuning moved only {moved}")
+    log(f"{len(moved)} of {len(pop_before)} parameters moved, pop_prior "
+        "among them")
+    launches.update(G_fwd=launches_pop["G_fwd"], G_bwd=launches_pop["G_bwd"])
+    pop_epoch_ms = pop_logged[-1]["epoch_time_s"] * 1e3
+    pvol = torch.from_numpy(pop_trainer.sampler.data).to(dev)
+    ppri = torch.from_numpy(pop_trainer.sampler.priors).to(dev)
+    pbatch = steps.sample_crop_batch(torch.Generator().manual_seed(8), pvol,
+                                     ppri, 4, cfg.train.crop_size)
+    pnoise = {"z_nll": rng.normal(size=(s_nll,) + tuple(
+        pbatch["images"].shape[:-1]) + (2,)).astype(np.float32)}
+    g_step = card_vs_cpu(pop_cfg, pop_tuner.state_dict(), {
+        k: v.clone() for k, v in pop_trainer.tuner.state_dict().items()},
+        pbatch, pnoise, ", diagonal + population prior")
+    if g_step != (2, 2):
+        raise AssertionError(f"the card's steps launched G {g_step} times, "
+                             "not once a step each way")
 
     # ---- 9. timings ---------------------------------------------------------
     log_clocks("before the fine-tune timings")
     main = (rows["q"], rows["p"], rows["y"], rows["sigma"], rows["mask"])
     ct_n, ct_k = normal(N_FT), normal(N_FT)
+    ct_g = normal(N_FT)
     seed = 11
     z = gpu(fe.philox_normals(seed, N_FT, s_nll + s_kl))
     zn, zk = z[:s_nll], z[s_nll:]
@@ -1106,15 +1253,20 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
             "qv_elbo_bwd_kernel",
             lambda: fe.elbo_grads_plain(*main, zn, zk, ct_n, ct_k, c_opt,
                                         True)),
+        # G on the rows of the path it serves; the main path's backward
+        # leaves dy out (the images need no gradient)
         "G_fwd": time_kernel(
-            lambda: dn.decode_nll_forward(*g_args, c_opt),
+            lambda: dn.decode_nll_forward(*pop_args, c_pop),
             "qv_decode_nll_fwd_kernel",
-            lambda: dn.nll_row_plain(*g_args, c_opt) * rows["mask"]),
+            lambda: dn.nll_row_plain(*pop_args, c_pop) * pop_args[4]),
         "G_bwd": time_kernel(
-            lambda: dn.decode_nll_backward(*g_args, ct, c_opt),
+            lambda: dn.decode_nll_backward(*pop_args, ct_g, c_pop,
+                                           want_dy=False),
             "qv_decode_nll_bwd_kernel",
-            lambda: dn.nll_row_grads_plain(*g_args, c_opt)),
+            lambda: dn.nll_row_grads_plain(*pop_args, c_pop)),
     }
+    g_dy_ms = kernel_ms(lambda: dn.decode_nll_backward(*pop_args, ct_g, c_pop),
+                        "qv_decode_nll_bwd_kernel")
     replay = {"device": kernel_ms(
         lambda: fe.fused_elbo_backward(*main, ct_n, ct_k, c_opt, **kwd),
         "qv_elbo_bwd_kernel")}
@@ -1146,16 +1298,31 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
     log(f"fine-tune epoch ({cfg.train.ft_steps_per_epoch} steps, crops drawn "
         f"on the card, metrics read back once) wall {epoch_ms:.1f} ms "
         f"[{card}]")
+    pop_step = steps.make_finetune_step(pop_trainer.tuner, pop_cfg,
+                                        pop_trainer.optimizer)
+    pbatch = steps.sample_crop_batch(
+        torch.Generator().manual_seed(9), pvol, ppri,
+        cfg.train.ft_batch_size, cfg.train.crop_size)
+    pop_step_ms = wall_ms(lambda: pop_step(pbatch, seed=seed))
+    log(f"fine-tune step, diagonal + population prior (G + the torch KL with "
+        f"the hyperprior cost, backward, AdamW) wall {pop_step_ms:.3f} ms at "
+        f"batch {cfg.train.ft_batch_size} x {shape[1:]} [{card}]")
+    profile(lambda: pop_step(pbatch, seed=seed), 5,
+            "fine-tune step, diagonal + population prior", card)
+    log(f"fine-tune epoch, diagonal + population prior ({n_pop} steps) wall "
+        f"{pop_epoch_ms:.1f} ms [{card}]")
 
     n_live = int(live.sum())
+    pop_live = int((pop_args[4] > 0).sum())
     student = c_opt.student
     bounds = {
         "F_fwd": bound_elbo(N_FT, n_live, 5, t_n, s_nll, s_kl, student, True,
                             False, flagged),
         "F_bwd": bound_elbo(N_FT, n_live, 5, t_n, s_nll, s_kl, student, True,
                             True, flagged),
-        "G_fwd": bound_decode(N_FT, n_live, t_n, student, False),
-        "G_bwd": bound_decode(N_FT, n_live, t_n, student, True),
+        "G_fwd": bound_decode(N_FT, pop_live, t_n, c_pop.student, False),
+        "G_bwd": bound_decode(N_FT, pop_live, t_n, c_pop.student, True,
+                              dy=False),
     }
     sources = {"F": ("fused_elbo", "qbold_vi_tpu_torch/csrc/fused_elbo.cu",
                      "qbold_vi_tpu/ops/pallas_elbo.py", (464, 492)),
@@ -1167,7 +1334,28 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
              "F_bwd": {"host_noise_ms": host[1],
                        "replay_ms": replay["device"],
                        "replay_host_noise_ms": replay["host"],
-                       "clamped_voxels": flagged}}
+                       "clamped_voxels": flagged},
+             "G_bwd": {"with_dy_ms": g_dy_ms, "with_dy_bound_ms": bound_decode(
+                 N_FT, pop_live, t_n, c_pop.student, True)["bound_ms"]}}
+    clock = mufu_clock_hz()
+    for way in ("fwd", "bwd"):
+        k = f"G_{way}"
+        extra.setdefault(k, {})["mufu_bound_ms"] = mufu_bound(
+            pop_live * mufu_decode(t_n, c_pop.student), clock)
+        ops_ms = bound(0, pop_live * ops_decode(t_n, c_pop.student,
+                                                way == "bwd"))["bound_ms"]
+        log(f"{k}: {times[k][0]:.4f} ms on the device"
+            + (f" without dy, {g_dy_ms:.4f} ms with it" if way == "bwd"
+               else "") + f", bound {bounds[k]['bound_ms']:.5f} ms by "
+            f"{bounds[k]['bound_by']} "
+            f"({100 * bounds[k]['bound_ms'] / times[k][0]:.1f}%)"
+            + (f", with dy {extra[k]['with_dy_bound_ms']:.5f} ms "
+               f"({100 * extra[k]['with_dy_bound_ms'] / g_dy_ms:.1f}%)"
+               if way == "bwd" else "")
+            + f", operations {ops_ms:.5f} ms, special-function "
+            f"{extra[k]['mufu_bound_ms']:.5f} ms "
+            f"({100 * extra[k]['mufu_bound_ms'] / times[k][0]:.1f}%) at "
+            f"N={N_FT}, {pop_live} live [{card}]")
     for way in ("fwd", "bwd"):
         k = f"F_{way}"
         for count in ("state", "replay") if way == "bwd" else ("state",):
@@ -1191,7 +1379,8 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
                 "launches": launches[k], "max_abs_err": err[k],
                 "ms": times[k][0], "plain_ms": times[k][2], **bounds[k],
                 "library_ms": None, **extra.get(k, {})})
-    return {"kernels": kernels, "step_ms": step_ms, "epoch_ms": epoch_ms}
+    return {"kernels": kernels, "step_ms": step_ms, "epoch_ms": epoch_ms,
+            "pop_step_ms": pop_step_ms, "pop_epoch_ms": pop_epoch_ms}
 
 
 def host_normals(stream, seed, start, shape, draws, device, index=None):
@@ -2263,6 +2452,9 @@ def main() -> int:
                       "elbo_maps_wall_ms_per_subject": sampled["elbo_ms"],
                       "finetune_step_ms": phases["step_ms"],
                       "finetune_epoch_wall_ms": phases["epoch_ms"],
+                      "finetune_diag_prior_step_ms": phases["pop_step_ms"],
+                      "finetune_diag_prior_epoch_wall_ms":
+                          phases["pop_epoch_ms"],
                       "pretrain_step_ms": two["pretrain_step_ms"],
                       "pretrain_epoch_s": two["pretrain_epoch_s"],
                       "pretrain_data_s": two["pretrain_data_s"],

@@ -39,7 +39,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["library", "build_log", "check", "quad_consts", "quad_ranges",
-           "QvDecodeConsts", "NVCC_FLAGS"]
+           "QvDecodeConsts", "QvDecodeCoeffs", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -80,6 +80,14 @@ class QvDecodeConsts(ctypes.Structure):
             "dbv_range", "min_dbv", "kl_bound")])
 
 
+class QvDecodeCoeffs(ctypes.Structure):
+    """csrc/decode_nll.cu::QvDecodeCoeffs: the surrogate's coefficients
+    and its derivative's (a decode table's ci and cd), passed to kernel G
+    by value."""
+
+    _fields_ = [("ci", ctypes.c_float * 21), ("cd", ctypes.c_float * 20)]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
@@ -95,10 +103,11 @@ _SIGNATURES = {
     "qv_max_dynamic_smem": [],
     "qv_quad_scratch_floats": [_I],
     "qv_decode_nll_fwd": [
-        _P, _P, _P, _P, _P, _LL, QvDecodeConsts, _P, _I, _P, _I, _I, _P],
+        _P, _P, _P, _P, _P, _LL, QvDecodeConsts, QvDecodeCoeffs, _P, _I, _P,
+        _P],
     "qv_decode_nll_bwd": [
-        _P, _P, _P, _P, _P, _P, _LL, QvDecodeConsts, _P, _I, _P, _P, _P, _P,
-        _I, _I, _P],
+        _P, _P, _P, _P, _P, _P, _LL, QvDecodeConsts, QvDecodeCoeffs, _P, _I,
+        _P, _P, _P, _P, _P],
     "qv_elbo_fwd": [
         _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, QvDecodeConsts, _P,
         _I, _P, _P, _P, _I, _P],

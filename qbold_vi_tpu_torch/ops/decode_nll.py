@@ -16,17 +16,21 @@ d/dy in closed form.
   of ``_nll_row`` / ``_nll_row_grads`` (also the per-draw routine of the
   fused ELBO's plain version, ops/fused_elbo.py).
 * ``decode_nll_forward`` / ``decode_nll_backward``: the wrappers of the
-  hand-written kernel ``csrc/decode_nll.cu`` (device math in
-  ``csrc/elbo_math.cuh``). A CUDA tensor launches the kernel, counted in
-  ``<wrapper>.launches``, or raises; a CPU tensor runs the plain version.
-* ``decode_nll_rows``: the op with its
-  closed-form backward, as a ``torch.autograd.Function``.
+  hand-written kernel ``csrc/decode_nll.cu`` (tiles of 128 rows a
+  block; the table's layout and the per-residual math of the plain
+  version in ``csrc/elbo_math.cuh``). A CUDA tensor launches the kernel,
+  counted in ``<wrapper>.launches``, or raises; a CPU tensor runs the
+  plain version. The backward gives dy only when asked (``want_dy``).
+* ``decode_nll_rows``: the op with its closed-form backward, as a
+  ``torch.autograd.Function``, which asks for dy only when y requires a
+  gradient (the fine-tune step's measured images do not).
 
 ``sum(rows) / sum(mask)`` is ``train.losses.fine_tune_nll``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from dataclasses import dataclass
@@ -43,7 +47,7 @@ __all__ = ["fused_available", "decode_consts", "DecodeConsts",
            "decode_nll_backward", "decode_nll_rows"]
 
 EPS = 1e-3                 # normaliser epsilon (reference model.py:540-545)
-_BLOCK = 128
+_BLOCK = 128               # the fused ELBO kernel's block (ops/fused_elbo.py)
 
 
 def fused_available(cfg: ModelConfig, scan: ScanParams, full_model: bool,
@@ -90,6 +94,13 @@ class DecodeConsts:
                      log_data=int(self.log_data), student=int(self.student),
                      use_blood=int(self.use_blood), cheb=int(self.cheb))
         return _cuda.QvDecodeConsts(**flags, **self.scalars)
+
+    @functools.lru_cache(maxsize=None)
+    def coeffs(self) -> _cuda.QvDecodeCoeffs:
+        """The table's ci and cd, which kernel G takes by value."""
+        return _cuda.QvDecodeCoeffs(*(
+            (ctypes.c_float * n)(*self.part(name))
+            for name, n in (("ci", 21), ("cd", 20))))
 
     @functools.lru_cache(maxsize=None)
     def device_table(self, device: torch.device) -> torch.Tensor:
@@ -302,6 +313,7 @@ def _check_cuda(name, *tensors):
 
 
 def _grid(n: int) -> int:
+    """The fused ELBO kernel's grid (one thread a voxel, grid-stride)."""
     return max(1, min((n + _BLOCK - 1) // _BLOCK, 1 << 20))
 
 
@@ -320,36 +332,41 @@ def decode_nll_forward(oef, dbv, y, sigma, mask, C: DecodeConsts):
     with torch.cuda.device(oef.device):
         err = _cuda.library().qv_decode_nll_fwd(
             oef.data_ptr(), dbv.data_ptr(), y.data_ptr(), sigma.data_ptr(),
-            mask.data_ptr(), n, C.struct(), table.data_ptr(), table.numel(),
-            rows.data_ptr(), _grid(n), _BLOCK,
+            mask.data_ptr(), n, C.struct(), C.coeffs(), table.data_ptr(),
+            table.numel(), rows.data_ptr(),
             torch.cuda.current_stream(oef.device).cuda_stream)
     _cuda.check(err, "decode+NLL forward")
     decode_nll_forward.launches += 1
     return rows
 
 
-def decode_nll_backward(oef, dbv, y, sigma, mask, ct, C: DecodeConsts):
-    """(doef, ddbv, dsigma, dy) of ``sum(ct * rows)``. CUDA: kernel G's
-    backward (counted in ``decode_nll_backward.launches``); CPU: plain."""
+def decode_nll_backward(oef, dbv, y, sigma, mask, ct, C: DecodeConsts,
+                        want_dy: bool = True):
+    """(doef, ddbv, dsigma, dy) of ``sum(ct * rows)``, dy None unless
+    ``want_dy``. CUDA: kernel G's backward, which then leaves the dy store
+    out (counted in ``decode_nll_backward.launches``); CPU: plain."""
     if _device_of(oef) == "cpu":
         ct = ct * mask
         doef, ddbv, dsig, dy = nll_row_grads_plain(oef, dbv, y, sigma, mask,
                                                    C)
-        return ct * doef, ct * ddbv, ct[:, None] * dsig, ct[:, None] * dy
+        return (ct * doef, ct * ddbv, ct[:, None] * dsig,
+                ct[:, None] * dy if want_dy else None)
     oef, dbv, y, sigma, mask, ct = _check_cuda(
         "decode+NLL", oef, dbv, y, sigma, mask, ct)
     n = oef.shape[0]
     doef, ddbv = torch.empty_like(oef), torch.empty_like(oef)
-    dsig, dy = torch.empty_like(y), torch.empty_like(y)
+    dsig = torch.empty_like(y)
+    dy = torch.empty_like(y) if want_dy else None
     if n == 0:
         return doef, ddbv, dsig, dy
     table = C.device_table(oef.device)
     with torch.cuda.device(oef.device):
         err = _cuda.library().qv_decode_nll_bwd(
             oef.data_ptr(), dbv.data_ptr(), y.data_ptr(), sigma.data_ptr(),
-            mask.data_ptr(), ct.data_ptr(), n, C.struct(), table.data_ptr(),
-            table.numel(), doef.data_ptr(), ddbv.data_ptr(), dsig.data_ptr(),
-            dy.data_ptr(), _grid(n), _BLOCK,
+            mask.data_ptr(), ct.data_ptr(), n, C.struct(), C.coeffs(),
+            table.data_ptr(), table.numel(), doef.data_ptr(),
+            ddbv.data_ptr(), dsig.data_ptr(),
+            dy.data_ptr() if want_dy else None,
             torch.cuda.current_stream(oef.device).cuda_stream)
     _cuda.check(err, "decode+NLL backward")
     decode_nll_backward.launches += 1
@@ -370,8 +387,9 @@ class _DecodeNLL(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         oef, dbv, y, sigma, mask = ctx.saved_tensors
-        doef, ddbv, dsig, dy = decode_nll_backward(oef, dbv, y, sigma, mask,
-                                                   ct, ctx.C)
+        doef, ddbv, dsig, dy = decode_nll_backward(
+            oef, dbv, y, sigma, mask, ct, ctx.C,
+            want_dy=ctx.needs_input_grad[2])
         return doef, ddbv, dy, dsig, None, None
 
 

@@ -385,9 +385,17 @@ def _ft_inputs(rng, n, k, device, s_nll=1, s_kl=70):
     return {k_: torch.from_numpy(v).to(device) for k_, v in arrays.items()}
 
 
-@pytest.mark.parametrize("case", list(FT_CASES))
+# kernel G also serves the configuration kernel F leaves out
+G_CASES = dict(FT_CASES, diag_pop_prior=dict(use_mvg=False,
+                                             use_population_prior=True))
+
+
+@pytest.mark.parametrize("case", list(G_CASES))
 def test_decode_nll_kernel_matches_plain(cuda_device, case):
-    cfg = dataclasses.replace(tcfg.OPTIMAL.model, **FT_CASES[case])
+    """Kernel G's rows and its backward, with dy asked for and without
+    (dy then None and the other gradients the same), against the plain
+    version at 50,001 rows (a ragged tile)."""
+    cfg = dataclasses.replace(tcfg.OPTIMAL.model, **G_CASES[case])
     C = tdn.decode_consts(cfg, SCAN)
     rng = np.random.default_rng(8)
     n = 50_001
@@ -401,9 +409,10 @@ def test_decode_nll_kernel_matches_plain(cuda_device, case):
               tdn.decode_nll_backward.launches)
     rows = tdn.decode_nll_forward(*args, C)
     grads = tdn.decode_nll_backward(*args, a["ct_n"], C)
+    nody = tdn.decode_nll_backward(*args, a["ct_n"], C, want_dy=False)
     torch.cuda.synchronize()
     assert (tdn.decode_nll_forward.launches - counts[0],
-            tdn.decode_nll_backward.launches - counts[1]) == (1, 1)
+            tdn.decode_nll_backward.launches - counts[1]) == (1, 2)
     np.testing.assert_allclose(
         rows.cpu().numpy(),
         (tdn.nll_row_plain(*args, C) * a["mask"]).cpu().numpy(), **ROW_TOL)
@@ -412,6 +421,9 @@ def test_decode_nll_kernel_matches_plain(cuda_device, case):
     for name, g, r in zip(("doef", "ddbv", "dsig", "dy"), grads, ref):
         r = r * (ct if r.ndim == 1 else ct[:, None])
         _grad_close(g, r, name)
+    assert nody[3] is None
+    for name, g, x in zip(("doef", "ddbv", "dsig"), nody, grads):
+        assert torch.equal(g, x), name
 
 
 def _shape_rows(a, rows, C):
@@ -656,6 +668,50 @@ def test_step_through_kernels_matches_reference_route(cuda_device, route):
     assert set(grads["on"]) == set(grads["off"])
     for k, g in grads["off"].items():
         _grad_close(grads["on"][k], g, k)
+
+
+def test_diag_prior_step_through_g_matches_cpu(cuda_device):
+    """One fine-tune step of a diagonal posterior with a population prior
+    on the card -- under "auto" kernel G and the torch KL with the
+    hyperprior cost, since kernel F does not cover it -- against the same
+    step on the CPU plain path: the loss at rtol 1e-5, the gradients
+    scale-normalised at GRAD_TOL (softplus, as above)."""
+    cfg = dataclasses.replace(
+        tcfg.OPTIMAL, scan=SCAN, model=dataclasses.replace(
+            tcfg.OPTIMAL.model, activation="softplus", use_mvg=False,
+            use_population_prior=True))
+    rng = np.random.default_rng(19)
+    shape = (6, 25, 25, 8)
+    mask = (rng.uniform(size=shape + (1,)) > 0.2).astype(np.float32)
+    batch = {"images": (np.abs(rng.normal(size=shape + (11,))) * 50 + 100
+                        ).astype(np.float32) * mask, "mask": mask,
+             "priors": (rng.normal(size=shape + (4,)) * 0.3
+                        ).astype(np.float32)}
+    noise = {"z_nll": rng.normal(size=(1,) + shape + (2,)).astype(np.float32)}
+    sd = init_params(cfg.model, SCAN, torch.Generator().manual_seed(6))
+    loss, grads, counts = {}, {}, {}
+    for name, dev in (("cpu", torch.device("cpu")), ("card", cuda_device)):
+        tuner = FineTuner(cfg.model, SCAN, device=dev)
+        tuner.load_state_dict(sd)
+        opt = toptim.make_finetune_optimizer(tuner.parameters(), cfg.train)
+        before = (tdn.decode_nll_forward.launches,
+                  tdn.decode_nll_backward.launches,
+                  tfe.fused_elbo_forward.launches)
+        metrics = tsteps.make_finetune_step(tuner, cfg, opt)(
+            {k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+            noise=noise)
+        torch.cuda.synchronize()
+        counts[name] = (tdn.decode_nll_forward.launches - before[0],
+                        tdn.decode_nll_backward.launches - before[1],
+                        tfe.fused_elbo_forward.launches - before[2])
+        loss[name] = float(metrics["loss"])
+        grads[name] = _grads(tuner)
+    assert counts == {"cpu": (0, 0, 0), "card": (1, 1, 0)}
+    np.testing.assert_allclose(loss["card"], loss["cpu"], rtol=1e-5)
+    assert "pop_prior" in grads["card"]
+    assert set(grads["card"]) == set(grads["cpu"])
+    for k, g in grads["cpu"].items():
+        _grad_close(grads["card"][k], g, k)
 
 
 # ---- the 3x3 conv kernel H --------------------------------------------------

@@ -50,6 +50,9 @@ CASES = {
 }
 # the port's three paths: (fused_elbo, fused_decode_nll)
 PATHS = {"F": ("on", "off"), "G": ("off", "on"), "plain": ("off", "off")}
+# the configuration the fused ELBO leaves out (its KL carries the
+# population prior's hyperprior cost): kernel G's path under "auto"
+UNFUSED = {"diag_pop_prior": dict(use_mvg=False, use_population_prior=True)}
 
 
 def _model(kw):
@@ -74,7 +77,7 @@ def _batch(rng, k):
 @functools.lru_cache(maxsize=None)
 def _jax_reference(case: str):
     """(params, batch, noise, value, aux, grads) of the JAX jnp path."""
-    model, use_blood = _model(CASES[case])
+    model, use_blood = _model({**CASES, **UNFUSED}[case])
     cfg = QBoldConfig(scan=SCAN, model=model,
                       train=TrainConfig(fused_elbo="off",
                                         fused_decode_nll="off"))
@@ -110,8 +113,36 @@ def _jax_reference(case: str):
 @pytest.mark.parametrize("path", list(PATHS))
 @pytest.mark.parametrize("case", list(CASES))
 def test_loss_and_grads_match_jax(case, path):
+    _check_loss_and_grads(case, path)
+
+
+@pytest.mark.parametrize("path", ["G", "plain"])
+@pytest.mark.parametrize("case", list(UNFUSED))
+def test_unfused_config_matches_jax(case, path):
+    """The diagonal posterior with a population prior, on kernel G's path
+    and the plain one, against the JAX jnp path at the same tolerances."""
+    _check_loss_and_grads(case, path)
+
+
+def test_diag_pop_prior_resolves_to_kernel_g_on_the_card():
+    """Under "auto" on a CUDA device the diagonal posterior with a
+    population prior takes kernel G: the fused ELBO does not cover it."""
+    model, _ = _model(UNFUSED["diag_pop_prior"])
+    tuner = port_tuner(model, SCAN, port_params(model, SCAN)[1])
+    cfg = tcfg.QBoldConfig(scan=tuner.scan, model=tuner.cfg,
+                           train=tcfg.TrainConfig())
+    assert (cfg.train.fused_elbo, cfg.train.fused_decode_nll) == ("auto",
+                                                                  "auto")
+    cuda = torch.device("cuda")
+    assert tsteps.resolve_fused_elbo(tuner, cfg, cuda) is None
+    consts = tsteps.resolve_fused_nll(tuner, cfg, cuda)
+    assert consts is tdn.decode_consts(tuner.cfg, tuner.scan, True)
+    assert not consts.student and not consts.multi and consts.cheb
+
+
+def _check_loss_and_grads(case, path):
     params, batch, noise, v_ref, aux_ref, g_ref = _jax_reference(case)
-    model, use_blood = _model(CASES[case])
+    model, use_blood = _model({**CASES, **UNFUSED}[case])
     elbo_mode, nll_mode = PATHS[path]
     if path == "F" and not tfe.fused_elbo_available(
             tcfg.ModelConfig(**dataclasses.asdict(model)),
@@ -209,6 +240,47 @@ def test_philox_normals_and_device_noise_replay():
     for x, y, w in zip(r1, r2, r4):
         assert torch.equal(x, y) and torch.equal(x, w)
     assert not torch.equal(r1[1], r3[1])
+
+
+def test_decode_nll_rows_gives_dy_only_when_y_requires_it(monkeypatch):
+    """decode_nll_rows asks the backward for dy only when y requires a
+    gradient: without it the backward returns no dy and the same doef,
+    ddbv and dsigma; with it, dy is nll_row_grads_plain's times the masked
+    cotangent."""
+    rng = np.random.default_rng(9)
+    n = 40
+    a = _rows_inputs(rng, n, 4)
+    oef = torch.from_numpy(rng.uniform(0.04, 0.84, n).astype(np.float32))
+    dbv = torch.from_numpy(rng.uniform(0.001, 0.2, n).astype(np.float32))
+    ct = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    C = tdn.decode_consts(tcfg.OPTIMAL.model, tcfg.ScanParams(
+        simulate_noise=False))
+    asked = []
+    backward = tdn.decode_nll_backward
+
+    def spy(*args, **kw):
+        out = backward(*args, **kw)
+        asked.append((kw["want_dy"], out[3]))
+        return out
+
+    monkeypatch.setattr(tdn, "decode_nll_backward", spy)
+    grads = {}
+    for y_grad in (False, True):
+        leaves = [x.clone().requires_grad_() for x in (oef, dbv, a["sigma"])]
+        y = a["y"].clone().requires_grad_(y_grad)
+        rows = tdn.decode_nll_rows(leaves[0], leaves[1], y, leaves[2],
+                                   a["mask"], C)
+        torch.autograd.backward(rows, ct)
+        grads[y_grad] = [x.grad for x in leaves] + [y.grad]
+    assert [w for w, _ in asked] == [False, True]
+    assert asked[0][1] is None and grads[False][3] is None
+    for x, z in zip(grads[False][:3], grads[True][:3]):
+        assert torch.equal(x, z)
+    dy = tdn.nll_row_grads_plain(oef, dbv, a["y"], a["sigma"], a["mask"],
+                                 C)[3]
+    np.testing.assert_allclose(
+        grads[True][3].numpy(), ((ct * a["mask"])[:, None] * dy).numpy(),
+        rtol=1e-6, atol=1e-7)
 
 
 def test_modes_resolve_with_force_semantics():
