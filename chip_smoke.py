@@ -9,13 +9,14 @@ kernels A and B), serving by sampling and the fine-tuned export
 (``save_predictions(method="mc")`` and ``(fine_tuned=True, priors=...)``,
 kernels C, D and E), ELBO fine-tuning (``train.trainer.Trainer``, kernels
 F and G, forward and backward; G on the configuration F leaves out, a
-diagonal posterior with a population prior), and the two-phase pipeline
+diagonal posterior with a population prior), the two-phase pipeline
 from scratch
 (``Trainer.pretrain`` -> ``finetune`` with the 3x3 convs through kernel H,
-forward and backward), and checks them:
+forward and backward), the streaming pretrain (a fresh batch a step
+through kernel S) and the WLS baseline, and checks them:
 
 1. device: a CUDA card is required (otherwise exit 1, no result line);
-2. build: the kernels of all six sources in csrc/ are compiled by nvcc;
+2. build: the kernels of all seven sources in csrc/ are compiled by nvcc;
    kernels A, B, E and G must hold the static MUFU instructions
    (cuobjdump) that the special-function bounds' counts were read with
    (MUFU_SASS);
@@ -143,6 +144,31 @@ and E (one Philox block for two draw pairs), after phase 13:
    and 100, against their plain versions fed mc_philox_normals (E also fed
    host normals) at 65,536 and 65,537 voxels; each replays bit for bit and
    a cut at a voxel offset draws what the whole request does.
+Kernel S (the streaming synthetic batch, csrc/synth_batch.cu; no TPU
+kernel behind it: the JAX package's batch is XLA-fused inside its step)
+and the modules around it, after phase 18:
+26. S against its plain version (train/steps.py::stream_synthetic_batch)
+   fed the host replay of S's draws (ops/synth_batch.py::
+   synth_philox_draws) at OPTIMAL's full batch (512 x 500 voxels) and at
+   16 x 500 with uniform_prop 0.3 and misalign_prob 0.5 (every branch),
+   with the Chebyshev rule and with gj16 and no noise: x and y at rtol
+   1e-5 / atol 1e-5, a seed replays bit for bit, the labels lie in the
+   mixture's ranges with R2' = (k OEF) DBV, and the OEF and DBV means lie
+   within 6 standard errors of the mixture's;
+27. Trainer.pretrain in streaming mode (pt_on_device_synth), 2 epochs x
+   22 steps at batch 512, S and its noise pass launched once a step (the
+   counts set to 0 before and read after), metrics finite, and the fold's
+   validation (pretrain_val_metrics(fold=True)); the streaming step's wall
+   and profile (busy share, launches a step); one streaming step on the
+   card (S) against the CPU (the plain version of S's replayed draws)
+   from one seed (check_step: softplus from the initial weights at
+   GRAD_TOL, relu from the trained ones within 1e-2); S's device time
+   beside its bound (the function's bytes: y and x written once) and this
+   design's count (x read and written again by the noise pass,
+   synth_bound), and its plain version's time and launches a batch;
+28. baseline.wls_maps on the card against the CPU on 6 x 96 x 96 x 8
+   noisy physics signals (rtol 1e-5 plus baseline.fit_rounding: 8
+   float32 ulps of ln S carried through the fit), and its wall and device time on 14 x 96 x 96 x 8.
 Phases 5 and 13 print A-E beside their bounds: B and C's from the chain's
 FMAs at the 3xTF32 rate (encode_bound) and at the float32 CUDA-core peak;
 A's, B's and E's special-function bound beside OPS's (MUFU: the
@@ -361,10 +387,11 @@ def wall_ms(fn, blocks: int = 7) -> float:
     return statistics.median(times)
 
 
-def profile(fn, n: int, label: str, card: str) -> None:
+def profile(fn, n: int, label: str, card: str) -> dict:
     """torch.profiler over n calls of fn (after one warm-up): the device
     time of the kernels by name, and the device's busy share of the wall
-    (the union of the kernels' intervals over the host wall)."""
+    (the union of the kernels' intervals over the host wall). Returns a
+    call's wall, busy time (ms) and launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -400,6 +427,8 @@ def profile(fn, n: int, label: str, card: str) -> None:
         f"time {total:.3f} ms in {len(kernels)} launches [{card}]")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"  {t / n:9.4f} ms/call {c // n:5d} launches/call  {name[:90]}")
+    return {"wall_ms": wall / n, "busy_ms": busy / n,
+            "launches": len(kernels) / n}
 
 
 def check_maps(maps: dict, shape: tuple, prefix: str) -> None:
@@ -466,7 +495,12 @@ OPS = dict(
     # summarize.cu, kernel D: one sample's transform to (OEF, DBV, R2')
     # and its six sums, the negation of an antithetic pair, the means and
     # variances; kernel E: the hoisted whitening factors of q and p
-    mc_draw=27, negate=2, mc_tail=15, whiten=14)
+    mc_draw=27, negate=2, mc_tail=15, whiten=14,
+    # synth_batch.cu, kernel S: per voxel the mixture, the truncated
+    # normal and the label (the Philox words' integer work not counted, as
+    # for D and E); per tau the noise pass (the SNR, the standard deviation,
+    # the sum); the signal is clen_i + signal a tau
+    synth_voxel=30, synth_noise=4)
 
 
 # Special-function (MUFU) instructions a voxel, a design count read from
@@ -2241,6 +2275,299 @@ def two_phase_path(dev, card, base, conv: dict) -> dict:
             "serve_launches": serve_launches, "stream2_wall_ms": s2_walls}
 
 
+# ---- kernel S, the streaming pretrain and the WLS baseline ----------------
+
+S_SYMBOLS = ("qv_synth_batch_kernel", "qv_synth_noise_kernel")
+
+
+def mixture_mean(lo, hi, mean, std, prop, truncated) -> tuple:
+    """(mean, sd) of one population mixture (synth.sample_batch_params):
+    ``prop`` uniform on [lo, hi], the rest N(mean, std) clipped to [lo, hi]
+    (OEF) or truncated to it (DBV), by quadrature on a fine grid."""
+    x = np.linspace(mean - 12.0 * std, mean + 12.0 * std, 400_001)
+    w = np.exp(-0.5 * ((x - mean) / std) ** 2)
+    if truncated:
+        w = w * ((x >= lo) & (x <= hi))
+    else:
+        x = np.clip(x, lo, hi)
+    w = w / w.sum()
+    m1 = prop * (lo + hi) / 2 + (1 - prop) * float(np.sum(w * x))
+    m2 = prop * (lo * lo + lo * hi + hi * hi) / 3 + (1 - prop) * float(
+        np.sum(w * x * x))
+    return m1, float(np.sqrt(m2 - m1 * m1))
+
+
+def check_labels(tag, y, cfg) -> str:
+    """Raise unless the batch's labels lie in the mixture's ranges, R2' is
+    (dw_coeff hct OEF) DBV in float32, and the OEF and DBV means lie within
+    6 standard errors of the mixture's."""
+    s, scan = cfg.synth, cfg.scan
+    y = y.reshape(-1, 3).cpu().numpy()
+    oef, dbv = y[:, 0], y[:, 1]
+    if not (s.oef_start <= oef.min() and oef.max() <= s.oef_end
+            and s.dbv_start <= dbv.min() and dbv.max() <= s.dbv_end):
+        raise AssertionError(f"S {tag}: labels outside the mixture's ranges")
+    k = np.float32(scan.dw_coeff * scan.hct)
+    if not np.array_equal(y[:, 2], (k * oef) * dbv):
+        raise AssertionError(f"S {tag}: r2p is not (k oef) dbv")
+    out = []
+    for name, v, args in (
+            ("OEF", oef, (s.oef_start, s.oef_end, s.oef_mean, s.oef_std,
+                          s.uniform_prop, False)),
+            ("DBV", dbv, (s.dbv_start, s.dbv_end, s.dbv_mean, s.dbv_std,
+                          s.uniform_prop, True))):
+        m, sd = mixture_mean(*args)
+        z = (float(v.mean()) - m) / (sd / np.sqrt(v.size))
+        if abs(z) > 6.0:
+            raise AssertionError(f"S {tag}: {name} mean {v.mean():.6f} is "
+                                 f"{z:.1f} standard errors off {m:.6f}")
+        out.append(f"{name} mean {v.mean():.5f} (mixture {m:.5f}, "
+                   f"{z:+.2f} SE)")
+    return ", ".join(out)
+
+
+def synth_bound(n: int, t: int, misalign: bool,
+                count: str = "function") -> dict:
+    """Kernel S on n voxels of t taus, by ``count``:
+
+    * "function", the bound reported: what the function needs, whatever
+      the design -- y and x written once;
+    * "design": this design's bytes -- y and x written, then x read and
+      written again by the noise pass.
+
+    Both against the float32 operations of OPS (the signal, the noise, the
+    draws and their Box-Muller pairs); Philox's integer work is not
+    counted."""
+    floats = 3 + (3 * t if count == "design" else t)
+    return bound(n * floats * 4, synth_ops(n, t, misalign))
+
+
+def synth_ops(n: int, t: int, misalign: bool) -> float:
+    """Kernel S's float32 operations (OPS) on n voxels of t taus."""
+    pairs = 1 + int(misalign) + 2 * -(-t // 4)
+    return float(n * (t * (OPS["clen_i"] + OPS["signal"]
+                           + OPS["synth_noise"])
+                      + OPS["synth_voxel"] + OPS["box_muller"] * pairs))
+
+
+def wls_signals(rng, shape, scan, dev) -> np.ndarray:
+    """Noisy ASE magnitudes (x 800, noise at mean / 80) of uniform (OEF,
+    DBV) on the card, as tools/validate_finetune_torch.py makes them."""
+    from qbold_vi_tpu_torch.ops import physics
+
+    f = np.float32
+    oef = torch.from_numpy(rng.uniform(0.05, 0.8, shape).astype(f)).to(dev)
+    dbv = torch.from_numpy(rng.uniform(0.003, 0.195, shape).astype(f)).to(
+        dev)
+    with torch.no_grad():
+        sig = physics.ase_signal(oef, dbv, scan).cpu().numpy() * 800.0
+    return (sig + rng.normal(size=sig.shape) * sig.mean() / 80.0).astype(f)
+
+
+def check_wls(name, got, ref, signals, scan) -> float:
+    """WLS maps against a reference fit: rtol 1e-5 plus the float32
+    rounding two fits carry (baseline.fit_rounding, the gate of
+    tests/torch_parity_utils.py::assert_wls_close). Returns the largest
+    absolute difference."""
+    from qbold_vi_tpu_torch.baseline import fit_rounding
+
+    atol = fit_rounding(signals, ref, scan)
+    worst = 0.0
+    for i, key in enumerate(("oef", "dbv", "r2p")):
+        r = ref[..., i].astype(np.float64)
+        e = np.abs(got[..., i].astype(np.float64) - r)
+        if not np.isfinite(got[..., i]).all() or (
+                e > 1e-5 * np.abs(r) + atol[..., i]).any():
+            raise AssertionError(f"{name}: {key} differs by {e.max():.3e}")
+        worst = max(worst, float(e.max()))
+    return worst
+
+
+def stream_phases(dev, card, base) -> dict:
+    """Phases 26-28: kernel S against its plain version fed its replayed
+    draws; Trainer.pretrain in streaming mode (S launched a step) and one
+    streaming step on the card against the CPU; baseline.wls_maps on the
+    card against the CPU, and its throughput. Returns S's JSON entry and
+    the walls."""
+    from qbold_vi_tpu_torch import baseline
+    from qbold_vi_tpu_torch.models.vi import FineTuner, init_params
+    from qbold_vi_tpu_torch.ops import synth_batch as sb
+    from qbold_vi_tpu_torch.train import optim, steps
+    from qbold_vi_tpu_torch.train.trainer import (Trainer, WeightStatus,
+                                                  stream_steps_per_epoch)
+
+    scan, t_n = base.scan, base.scan.n_taus
+    b = base.train.pt_batch_size
+    n = b * 500
+
+    def synth_cfg(quad_rule="auto", noise=True, **synth):
+        return dataclasses.replace(
+            base, synth=dataclasses.replace(base.synth, **synth),
+            scan=dataclasses.replace(scan, simulate_noise=noise),
+            model=dataclasses.replace(base.model, quad_rule=quad_rule))
+
+    # ---- 26. S against its plain version ----------------------------------
+    mixed = dict(uniform_prop=0.3, misalign_prob=0.5)
+    cases = (("OPTIMAL, full batch", base, b),
+             ("mixture + misalignment", synth_cfg(**mixed), 16),
+             ("mixture + misalignment, gj16, no noise",
+              synth_cfg("gj16", False, **mixed), 16))
+    seed = 2 ** 40 + 17
+    s_err = 0.0
+    for tag, c, bb in cases:
+        got = sb.synth_batch(c, bb, seed, device=dev)
+        again = sb.synth_batch(c, bb, seed, device=dev)
+        draws = sb.synth_philox_draws(seed, bb * 500, t_n)
+        ref = steps.stream_synthetic_batch(c, bb, draws, device=dev)
+        torch.cuda.synchronize()
+        e = max(check_rows(f"S {tag}: x", got["x"], ref["x"]),
+                check_rows(f"S {tag}: y", got["y"], ref["y"]))
+        if c is base:
+            s_err = e
+        if not all(torch.equal(got[k], again[k]) for k in ("x", "y")):
+            raise AssertionError(f"S {tag}: a seed does not replay")
+        labels = check_labels(tag, got["y"], c)
+        log(f"S vs plain ({tag}, {bb * 500:,} voxels): x and y within "
+            f"{e:.3e} (rtol {ROW_TOL[0]} atol {ROW_TOL[1]}), replays bit for "
+            f"bit; {labels}")
+
+    # ---- 27. the streaming pretrain ---------------------------------------
+    cfg = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, pt_on_device_synth=True, no_pt_epochs=2))
+    spe = stream_steps_per_epoch(cfg)
+    logged = []
+
+    def logger(phase, epoch, m):
+        logged.append(dict(m))
+        log(f"[{phase}, streaming] epoch {epoch}: " + " ".join(
+            f"{k}={v:.6g}" for k, v in m.items()) + f" [{card}]")
+
+    trainer = Trainer(cfg, device=dev, logger=logger)
+    sb.synth_batch.launches = sb.synth_batch.noise_launches = 0
+    t0 = time.perf_counter()
+    trainer.pretrain()
+    torch.cuda.synchronize()
+    pt_wall = time.perf_counter() - t0
+    s_launches = sb.synth_batch.launches
+    noise_launches = sb.synth_batch.noise_launches
+    log(f"streaming pretrain: {len(logged)} epochs x {spe} steps at batch "
+        f"{b} (a fresh batch of {n:,} voxels a step); fold build "
+        f"{logged[0]['data_time_s']:.3f} s, epochs "
+        + ", ".join(f"{m['epoch_time_s']:.3f} s" for m in logged)
+        + f", whole call {pt_wall:.2f} s; S launched {s_launches} + "
+        f"{noise_launches} (noise pass) [{card}]")
+    if (s_launches, noise_launches) != (2 * spe, 2 * spe):
+        raise AssertionError("the streaming pretrain did not launch S once "
+                             f"a step: {s_launches}, {noise_launches}")
+    if len(logged) != 2 or not all(np.isfinite(v) for m in logged
+                                   for v in m.values()):
+        raise AssertionError(f"streaming pretrain metrics: {logged}")
+    if trainer.status is not WeightStatus.PRE_TRAINED:
+        raise AssertionError("pretrain() left the trainer unpretrained")
+    fold = trainer.pretrain_val_metrics(fold=True)
+    if not np.isfinite(fold["val_loss"]):
+        raise AssertionError(f"fold metrics: {fold}")
+    pretrained = {k: v.clone() for k, v in trainer.tuner.state_dict().items()}
+
+    t = FineTuner(cfg.model, scan, device=dev)
+    t.load_state_dict(pretrained)
+    opt = optim.make_pretrain_optimizer(t.named_parameters(), cfg.train)
+    stream_step = steps.make_pretrain_stream_step(t, cfg, opt)
+    step_ms = wall_ms(lambda: stream_step(seed=5))
+    log(f"streaming pretrain step (S + stream-1 loss + backward + AdamW) "
+        f"wall {step_ms:.3f} ms at batch {b} [{card}]")
+    step_prof = profile(lambda: stream_step(seed=5), 5,
+                        "streaming pretrain step", card)
+
+    # one streaming step on the card (S) against the CPU (the plain
+    # version of S's replayed draws) from one seed
+    small = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, pt_batch_size=32))
+    init = init_params(cfg.model, scan, torch.Generator().manual_seed(
+        cfg.train.seed))
+    for tag, c, weights, kinks in step_runs(small, init, pretrained):
+        result = {}
+        for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            tn = FineTuner(c.model, scan, device=device)
+            tn.load_state_dict(weights)
+            o = optim.make_pretrain_optimizer(tn.named_parameters(), c.train)
+            before = sb.synth_batch.launches
+            m, _ = steps.make_pretrain_stream_step(tn, c, o)(seed=3)
+            torch.cuda.synchronize()
+            if sb.synth_batch.launches - before != (name == "card"):
+                raise AssertionError(f"streaming step on the {name}: S "
+                                     "launched "
+                                     f"{sb.synth_batch.launches - before}")
+            result[name] = stepped(tn, m)
+        worst = check_step(f"one streaming step ({tag}) on the card vs the "
+                           "CPU", result["card"], result["cpu"], weights,
+                           float(cfg.train.pt_lr), kinks)
+        log(f"one streaming step ({tag}) on the card (S) agrees with the CPU "
+            f"(S's replayed draws): loss {result['card'][0]:.7g} vs "
+            f"{result['cpu'][0]:.7g}, gradients within {worst:.2e} of their "
+            f"scale ({'1e-2' if kinks else 'GRAD_TOL'}), updates within "
+            "tolerance")
+
+    # S's device time, its plain version's, the plain version's launches
+    log_clocks("before S's timings")
+    parts = kernel_ms_parts(lambda: sb.synth_batch(base, b, 11, device=dev),
+                            S_SYMBOLS)
+    s_ms = sum(parts.values())
+    dd = {k: torch.from_numpy(v).to(dev)
+          for k, v in sb.synth_philox_draws(11, n, t_n).items()}
+    plain = lambda: steps.stream_synthetic_batch(base, b, dd)  # noqa: E731
+    plain_ms = cuda_ms(plain, reps=2)
+    plain_prof = profile(plain, 2, "plain version of S (draws on the card)",
+                         card)
+    mis = base.synth.misalign_prob > 0.0
+    s_bound = synth_bound(n, t_n, mis)
+    s_design = synth_bound(n, t_n, mis, "design")["bound_ms"]
+    s_ops = bound(0, synth_ops(n, t_n, mis))["bound_ms"]
+    log(f"S at {n:,} voxels: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in parts.items())
+        + f", {s_ms:.4f} ms in all on the device; plain {plain_ms:.3f} ms in "
+        f"{plain_prof['launches']:.0f} launches a batch; bound "
+        f"{s_bound['bound_ms']:.5f} ms ({s_bound['bound_by']}; "
+        f"{100 * s_bound['bound_ms'] / s_ms:.1f}% of S), operations "
+        f"{s_ops:.5f} ms; this design's count {s_design:.5f} ms "
+        f"({100 * s_design / s_ms:.1f}%) [{card}]")
+    log_clocks("after S's timings")
+
+    # ---- 28. the WLS baseline ---------------------------------------------
+    rng = np.random.default_rng(28)
+    x = wls_signals(rng, REQUESTS[1], scan, dev)
+    got = baseline.wls_maps(x, scan, device=dev)
+    ref = baseline.wls_maps(x, scan, device="cpu")
+    wls_err = check_wls("wls_maps card vs CPU", got, ref, x, scan)
+    big = wls_signals(rng, REQUESTS[0], scan, dev)
+    n_big = int(np.prod(REQUESTS[0]))
+    wls_wall = wall_ms(lambda: baseline.wls_maps(big, scan, device=dev))
+    big_d = torch.from_numpy(big).to(dev)
+    with torch.no_grad():
+        wls_dev = cuda_ms(lambda: baseline.fit_wls(big_d, scan))
+    log(f"wls_maps on the card agrees with the CPU on {REQUESTS[1]} (within "
+        f"{wls_err:.3e}); on {REQUESTS[0]}: wall {wls_wall:.3f} ms "
+        f"({n_big / wls_wall / 1e3:.1f} M voxels/s, host copies included), "
+        f"fit_wls on the card {wls_dev:.4f} ms ({n_big / wls_dev / 1e3:.1f} "
+        f"M voxels/s) [{card}]")
+
+    kernel = {
+        "name": "synth_batch", "route": "cuda",
+        "source": "qbold_vi_tpu_torch/csrc/synth_batch.cu",
+        "replaces": "qbold_vi_tpu/train/steps.py:389",
+        "launches": s_launches, "max_abs_err": s_err, "ms": s_ms,
+        "plain_ms": plain_ms, **s_bound, "library_ms": None,
+        "design_bound_ms": s_design}
+    return {"kernels": [kernel],
+            "stream_pretrain_epoch_s": [m["epoch_time_s"] for m in logged],
+            "stream_pretrain_step_ms": step_ms,
+            "stream_pretrain_step_busy": step_prof["busy_ms"]
+            / step_prof["wall_ms"],
+            "stream_pretrain_step_launches": step_prof["launches"],
+            "synth_plain_launches": plain_prof["launches"],
+            "wls_wall_ms": wls_wall, "wls_fit_ms": wls_dev}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--weights", help="params .npz (io/from_jax.py "
@@ -2447,6 +2774,8 @@ def main() -> int:
     conv = conv_phases(dev, card)
     two = two_phase_path(dev, card, OPTIMAL, conv)
     kernels += two["kernels"]
+    stream = stream_phases(dev, card, OPTIMAL)
+    kernels += stream["kernels"]
     print(json.dumps({"posterior_maps_wall_ms": walls,
                       "mc_posterior_maps_wall_ms": sampled["mc_walls"],
                       "elbo_maps_wall_ms_per_subject": sampled["elbo_ms"],
@@ -2462,6 +2791,7 @@ def main() -> int:
                       "finetune_epoch_wall_ms_conv_on":
                           two["finetune_epoch_on_ms"],
                       "stream2_wall_ms_by_conv": two["stream2_wall_ms"],
+                      **{k: v for k, v in stream.items() if k != "kernels"},
                       "stream1_float64_err": err64,
                       "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

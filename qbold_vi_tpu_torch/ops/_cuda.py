@@ -39,12 +39,12 @@ from pathlib import Path
 import torch
 
 __all__ = ["library", "build_log", "check", "quad_consts", "quad_ranges",
-           "QvDecodeConsts", "QvDecodeCoeffs", "NVCC_FLAGS"]
+           "QvDecodeConsts", "QvDecodeCoeffs", "QvSynthConsts", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("quadrature.cu", "encode_quad.cu", "decode_nll.cu",
-           "fused_elbo.cu", "summarize.cu", "conv3x3.cu")
+           "fused_elbo.cu", "summarize.cu", "conv3x3.cu", "synth_batch.cu")
 HEADERS = ("quad_math.cuh", "elbo_math.cuh", "mma_math.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
@@ -88,6 +88,18 @@ class QvDecodeCoeffs(ctypes.Structure):
     _fields_ = [("ci", ctypes.c_float * 21), ("cd", ctypes.c_float * 20)]
 
 
+class QvSynthConsts(ctypes.Structure):
+    """csrc/synth_batch.cu::QvSynthConsts: the population mixture's,
+    the misalignment's and the noise's scalars, built by
+    ops/synth_batch.py::synth_consts."""
+
+    _fields_ = [("misalign", ctypes.c_int), ("noise", ctypes.c_int)] + [
+        (name, ctypes.c_float) for name in (
+            "oef_lo", "oef_hi", "oef_mean", "oef_std", "dbv_lo", "dbv_hi",
+            "dbv_mean", "dbv_std", "tn_a", "tn_b", "uniform_prop",
+            "misalign_prob", "k_r2p", "snr_lo", "snr_hi")]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
@@ -122,6 +134,10 @@ _SIGNATURES = {
     "qv_conv3x3_dx": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "qv_conv3x3_dw": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _LL, _I, _P],
     "qv_conv3x3_dw_slots": [ctypes.POINTER(ctypes.c_int)],
+    "qv_synth_grid": [_LL],
+    "qv_synth_batch": [
+        _LL, QvDecodeConsts, _P, _I, QvSynthConsts, ctypes.c_ulonglong, _P,
+        _P, _P, _P, _I, _P],
 }
 
 

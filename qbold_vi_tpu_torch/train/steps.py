@@ -2,7 +2,10 @@
 
 The counterpart of ``qbold_vi_tpu/train/steps.py``: the pretraining step
 and evaluation (``posterior_mse_metrics`` :47, ``_pretrain_loss`` /
-``make_pretrain_step`` :63-113, ``make_pretrain_eval`` :570), and the
+``make_pretrain_step`` :63-113, ``make_pretrain_eval`` :570), the
+streaming pretrain (``stream_synthetic_batch`` :389, ``_stream_step_body``
+/ ``make_pretrain_stream_step`` / ``make_pretrain_stream_epoch``
+:424-526, without the mesh branch), and the
 fine-tune part (``sample_crop_batch`` :116, ``make_finetune_epoch_on_device``
 :155, ``_fused_nll_fn`` / ``_fused_elbo_fn`` / ``_finetune_terms``
 :598-813, ``make_finetune_step`` :827, ``make_finetune_eval`` :883).
@@ -33,7 +36,10 @@ normals (and of the kernel's device-noise stream); or ``noise``, the
 normals themselves -- fine-tuning {"z_nll": (S, B, X, Y, Z, 2), "z_kl":
 (S_kl, B, X, Y, Z, 2), or (2, B, X, Y, Z) for the MoG KL}, pretraining
 {"z_r2p": (10, N, 2)} -- with which every path computes the same loss as
-the JAX package given the same normals.
+the JAX package given the same normals. A streaming step draws its batch
+from the seed too (kernel S on the card, ops/synth_batch.py), or takes
+the batch's ``draws`` (the layout of ``stream_synthetic_batch``), the
+JAX key's in the tests.
 
 The steps run forward and backward with TF32 off for cuDNN and matmuls
 (``models.encoder._full_fp32``): the gradients are float32, as the JAX
@@ -42,6 +48,7 @@ package's are.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -50,11 +57,17 @@ from ..config import QBoldConfig, normalize_mode
 from ..models.encoder import _full_fp32
 from ..models.vi import FineTuner
 from ..ops.decode_nll import decode_consts, decode_nll_rows, fused_available
+from ..ops import physics
 from ..ops.fused_elbo import fused_elbo, fused_elbo_available
+from ..ops.synth_batch import synth_batch
+from ..synth import sample_batch_params, synth_oef_bound
 from . import losses
+from .optim import swa_update
 
 __all__ = ["posterior_mse_metrics", "pretrain_loss", "make_pretrain_step",
-           "make_pretrain_eval", "sample_crop_batch", "finetune_terms",
+           "make_pretrain_eval", "stream_synthetic_batch",
+           "make_pretrain_stream_step", "make_pretrain_stream_epoch",
+           "sample_crop_batch", "finetune_terms",
            "make_finetune_step", "make_finetune_epoch_on_device",
            "make_finetune_eval", "resolve_fused_elbo", "resolve_fused_nll",
            "normals"]
@@ -176,6 +189,103 @@ def make_pretrain_step(tuner: FineTuner, cfg: QBoldConfig, optimizer):
         return {"loss": loss.detach()}
 
     return step
+
+
+def stream_synthetic_batch(cfg: QBoldConfig, batch_size: int, draws: dict,
+                           *, device=None, vol_shape=(10, 10, 5)) -> dict:
+    """The plain version of kernel S: a synthetic pretraining batch
+    {x (B, *vol_shape, T), y (B, *vol_shape, 3)} from the population
+    mixture (synth.sample_batch_params), misaligned where configured,
+    decoded through the forward model (with the quadrature rule of the
+    data path's OEF bound) and noisy where the scan says so, as the JAX
+    function draws it from its key (k_par, k_mis, k_noise).
+
+    ``draws`` (numpy arrays or tensors; ``device`` defaults to where they
+    lie): the mixture's "sel_o", "sel_d", "oef_u", "oef_n", "dbv_u",
+    "dbv_n" (N,); where misalign_prob > 0 "mis_u", "from_idx", "z_oef",
+    "z_dbv" (N, 1); where the scan simulates noise "snr_u" (N, 1) and "z"
+    (N, T); uniforms on [0, 1), normals standard. ``ops.synth_batch.
+    synth_philox_draws`` gives kernel S's."""
+    scan, synth = cfg.scan, cfg.synth
+    n = int(batch_size) * math.prod(vol_shape)
+    d = {k: torch.as_tensor(v, device=device) for k, v in draws.items()}
+    with torch.no_grad():
+        oef, dbv = sample_batch_params(synth, d)
+        if oef.shape != (n,):
+            raise ValueError(f"draws hold {tuple(oef.shape)} voxels, the "
+                             f"batch needs {n}")
+        y = torch.stack([oef, dbv, physics.r2_prime(oef, dbv, scan.hct,
+                                                    scan)], -1)
+        sig_oef, sig_dbv = oef, dbv
+        per_tau = synth.misalign_prob > 0.0
+        if per_tau:
+            sig_oef, sig_dbv = physics.misalign_params(
+                oef, dbv, scan.n_taus, synth.misalign_prob, d["mis_u"],
+                d["from_idx"], d["z_oef"], d["z_dbv"])
+        x = physics.ase_signal(sig_oef, sig_dbv, scan,
+                               full_model=cfg.train.full_model,
+                               include_blood=cfg.train.use_blood,
+                               per_tau_params=per_tau,
+                               quad_rule=cfg.model.quad_rule,
+                               max_oef=synth_oef_bound(synth))
+        if scan.simulate_noise:
+            x = physics.add_acquisition_noise(x, scan.taus(), d["snr_u"],
+                                              d["z"])
+    shape = (int(batch_size),) + tuple(vol_shape)
+    return {"x": x.reshape(shape + (scan.n_taus,)),
+            "y": y.reshape(shape + (3,))}
+
+
+def make_pretrain_stream_step(tuner: FineTuner, cfg: QBoldConfig, optimizer):
+    """step(seed=None, *, swa=None, draws=None, noise=None) -> ({"loss"},
+    swa): one streaming pretraining step on a fresh batch of
+    ``pt_batch_size`` pseudo-volumes -- drawn under the seed's first split
+    by ``ops.synth_batch.synth_batch`` (kernel S on the card), or by the
+    plain version from ``draws`` -- then the synthetic loss (normals from
+    the seed's second split, or ``noise``), its gradients, the optimiser
+    update and, given an SWA state, its update (the JAX key split k_batch,
+    k_loss as two seeds)."""
+    update = make_pretrain_step(tuner, cfg, optimizer)
+    named = list(tuner.named_parameters())
+    b, tw = cfg.train.pt_batch_size, cfg.train
+
+    def step(seed: Optional[int] = None, *, swa=None,
+             draws: Optional[dict] = None, noise: Optional[dict] = None):
+        seeds = _split_seed(seed, 2) if seed is not None else (None, None)
+        if draws is not None:
+            batch = stream_synthetic_batch(cfg, b, draws, device=tuner.device)
+        elif seed is not None:
+            batch = synth_batch(cfg, b, seeds[0], device=tuner.device)
+        else:
+            raise ValueError("a streaming step needs a seed or its draws")
+        metrics = update(batch, seed=seeds[1], noise=noise)
+        if swa is not None:
+            swa = swa_update(swa, named, tw.swa_start, tw.swa_period)
+        return metrics, swa
+
+    return step
+
+
+def make_pretrain_stream_epoch(tuner: FineTuner, cfg: QBoldConfig,
+                               optimizer, n_steps: int):
+    """epoch(seed=None, *, swa=None, draws=None) -> (losses (n_steps,)
+    numpy, swa): ``n_steps`` streaming steps, step i on the i-th split of
+    the seed (or on the batch draws ``draws[i]``), the losses read back
+    from the device once."""
+    step = make_pretrain_stream_step(tuner, cfg, optimizer)
+
+    def epoch(seed: Optional[int] = None, *, swa=None,
+              draws: Optional[list] = None):
+        seeds = (_split_seed(seed, n_steps) if seed is not None
+                 else [None] * n_steps)
+        losses = []
+        for i in range(n_steps):
+            m, swa = step(seeds[i], swa=swa,
+                          draws=None if draws is None else draws[i])
+            losses.append(m["loss"])
+        return torch.stack(losses).cpu().numpy(), swa
+
+    return epoch
 
 
 def make_pretrain_eval(tuner: FineTuner, cfg: QBoldConfig,

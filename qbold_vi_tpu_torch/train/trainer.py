@@ -3,11 +3,16 @@
 The counterpart of ``qbold_vi_tpu/train/trainer.py`` (reference
 train.py:17-72, 188-427):
 
-* ``pretrain``: the fixed synthetic set of the JAX trainer's host-set mode
-  (the same numpy draws from the same seed fold, synth.py), split into
-  pseudo-volumes, uploaded once; each epoch takes its shuffled batches in
-  the JAX trainer's order (``np.random.default_rng(seed)``), then the
-  held-out validation; SWA when configured, adopted under ``swa_adopt``;
+* ``pretrain``: in host-set mode the fixed synthetic set of the JAX
+  trainer (the same numpy draws from the same seed fold, synth.py), split
+  into pseudo-volumes, uploaded once; each epoch takes its shuffled
+  batches in the JAX trainer's order (``np.random.default_rng(seed)``);
+  in streaming mode (``pt_on_device_synth``) each epoch runs
+  ``round(0.9 sample_size^2 / 500 / pt_batch_size)`` steps, each on a
+  fresh batch drawn on the device (kernel S, steps.
+  make_pretrain_stream_epoch), and validates on the fixed seed fold
+  (``pretrain_val_fold``); then the held-out validation; SWA when
+  configured, adopted under ``swa_adopt``;
 * ``prepare_real``: blank crop, per-voxel priors from the encoder's plain
   forward pass, and a ``RealCropSampler``;
 * ``finetune``: the priors of the training and study crops are predicted
@@ -24,15 +29,15 @@ train.py:17-72, 188-427):
 starts PRE_TRAINED (pretrain() returns at once); one without it starts
 NOT_TRAINED from ``init_params(seed)``, and finetune() raises until
 pretrain() has run. The tuner lives on the CUDA card unless ``device="cpu"``
-is given. Not ported yet, and raising ``NotImplementedError``: the
-streaming pretrain (``pt_on_device_synth``), checkpoint files (resuming
-from those of ``save_directory``, ``checkpoint_every_epochs``), and mesh /
-subject sharding (ROADMAP.md). No checkpoint file is written: the caller
-keeps ``tuner.state_dict()``.
+is given. Not ported yet, and raising ``NotImplementedError``: checkpoint
+files (resuming from those of ``save_directory``,
+``checkpoint_every_epochs``), and mesh / subject sharding (ROADMAP.md). No
+checkpoint file is written: the caller keeps ``tuner.state_dict()``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 import os
 import time
@@ -48,9 +53,11 @@ from . import data as data_pipe
 from .optim import (make_finetune_optimizer, make_pretrain_optimizer,
                     swa_init, swa_update)
 from .steps import (make_finetune_epoch_on_device, make_finetune_eval,
-                    make_pretrain_eval, make_pretrain_step)
+                    make_pretrain_eval, make_pretrain_step,
+                    make_pretrain_stream_epoch)
 
-__all__ = ["Trainer", "NaNLossError", "WeightStatus", "val_batch_count"]
+__all__ = ["Trainer", "NaNLossError", "WeightStatus", "val_batch_count",
+           "pretrain_val_fold", "stream_steps_per_epoch"]
 
 _SEED_HI = 2 ** 62
 
@@ -64,6 +71,29 @@ class WeightStatus(enum.Enum):
     NOT_TRAINED = 0
     PRE_TRAINED = 1
     FULL_TRAINED = 2
+
+
+def pretrain_val_fold(cfg: QBoldConfig, device=None):
+    """(vx, vy): the fixed held-out synthetic validation fold of the
+    streaming pretrain -- the host set of ``min(sample_size, 160)`` from
+    the config seed's fold (synth.pretrain_data_seed), split 90/10, its
+    last 10% (the JAX trainer's, qbold_vi_tpu/train/trainer.py:59-80). The
+    decode runs on ``device``, the CUDA card unless given another."""
+    val_synth = dataclasses.replace(
+        cfg.synth, sample_size=min(cfg.synth.sample_size, 160))
+    x, y = create_synthetic_dataset_host(
+        pretrain_data_seed(cfg.train.seed), cfg.scan, val_synth,
+        full_model=cfg.train.full_model, use_blood=cfg.train.use_blood,
+        quad_rule=cfg.model.quad_rule, device=device)
+    _, val = data_pipe.split_synthetic(x, y)
+    return val
+
+
+def stream_steps_per_epoch(cfg: QBoldConfig) -> int:
+    """The streaming pretrain's steps an epoch: 90% of sample_size^2
+    voxels in pseudo-volumes of 500, over the batch (the JAX trainer's)."""
+    return max(1, round(0.9 * cfg.synth.sample_size ** 2 / 500
+                        / cfg.train.pt_batch_size))
 
 
 def val_batch_count(n_volumes: int, vol_voxels: int) -> int:
@@ -135,16 +165,15 @@ class Trainer:
     # ---- phase 1: synthetic pretraining -----------------------------------
 
     def build_pretrain_data(self, synthetic: Optional[tuple] = None):
-        """((train_x, train_y), (val_x, val_y)) pseudo-volumes of the fixed
-        synthetic set -- generated from the config (the JAX trainer's
-        numbers: synth.pretrain_data_seed) unless ``synthetic`` (x, y) is
-        given -- split 90/10."""
+        """((train_x, train_y) or None, (val_x, val_y)): pseudo-volumes of
+        the fixed synthetic set -- generated from the config (the JAX
+        trainer's numbers: synth.pretrain_data_seed) unless ``synthetic``
+        (x, y) is given -- split 90/10; in streaming mode no training set
+        (its batches are drawn each step) and the seed fold
+        (``pretrain_val_fold``)."""
         cfg = self.cfg
         if cfg.train.pt_on_device_synth and synthetic is None:
-            raise NotImplementedError(
-                "the streaming pretrain (pt_on_device_synth=True) is not "
-                "ported yet (ROADMAP.md); the host-set pretrain runs with "
-                "pt_on_device_synth=False")
+            return None, pretrain_val_fold(cfg, self.tuner.device)
         if synthetic is None:
             x, y = create_synthetic_dataset_host(
                 pretrain_data_seed(cfg.train.seed), cfg.scan, cfg.synth,
@@ -165,10 +194,20 @@ class Trainer:
     def _seed(self) -> int:
         return int(torch.randint(0, _SEED_HI, (1,), generator=self.generator))
 
-    def pretrain_val_metrics(self, synthetic: Optional[tuple] = None) -> dict:
+    def pretrain_val_metrics(self, synthetic: Optional[tuple] = None, *,
+                             fold: bool = False) -> dict:
         """The held-out synthetic validation metrics of the current weights,
-        on the set and batch pretrain() evaluates each epoch."""
-        _, (vx, vy) = self.build_pretrain_data(synthetic)
+        on the set and batch pretrain() evaluates each epoch; ``fold=True``
+        evaluates on the seed fold (``pretrain_val_fold``) whatever the
+        pretrain mode, so that runs of both modes rank on one set; it
+        takes no ``synthetic`` set."""
+        if fold and synthetic is not None:
+            raise ValueError("fold=True evaluates on the seed fold: pass "
+                             "no synthetic set")
+        if fold:
+            vx, vy = pretrain_val_fold(self.cfg, self.tuner.device)
+        else:
+            _, (vx, vy) = self.build_pretrain_data(synthetic)
         evaluate = make_pretrain_eval(self.tuner, self.cfg)
         m = evaluate(self._clip_val_batch(vx, vy), self._seed())
         return {k: float(v) for k, v in m.items()}
@@ -181,33 +220,44 @@ class Trainer:
         if self.status.value >= WeightStatus.PRE_TRAINED.value:
             return self.last_pretrain_metrics
         t0 = time.perf_counter()
-        (tx, ty), (vx, vy) = self.build_pretrain_data(synthetic)
+        train_set, (vx, vy) = self.build_pretrain_data(synthetic)
+        streaming = train_set is None
         dev = self.tuner.device
-        tx_d = torch.from_numpy(np.ascontiguousarray(tx)).to(dev)
-        ty_d = torch.from_numpy(np.ascontiguousarray(ty)).to(dev)
+        if not streaming:
+            tx_d, ty_d = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                          for a in train_set)
         val_batch = self._clip_val_batch(vx, vy)
         data_s = time.perf_counter() - t0
         named = list(self.tuner.named_parameters())
         optimizer = make_pretrain_optimizer(named, cfg.train)
         self.swa = swa_init(named) if cfg.train.use_swa else None
-        step = make_pretrain_step(self.tuner, cfg, optimizer)
+        if streaming:
+            stream_epoch = make_pretrain_stream_epoch(
+                self.tuner, cfg, optimizer, stream_steps_per_epoch(cfg))
+        else:
+            step = make_pretrain_step(self.tuner, cfg, optimizer)
         evaluate = make_pretrain_eval(self.tuner, cfg)
         rng = np.random.default_rng(cfg.train.seed)
         metrics = {}
         for epoch in range(cfg.train.no_pt_epochs):
             t0 = time.perf_counter()
-            losses = []
-            for idx in data_pipe.synthetic_batch_indices(
-                    rng, len(tx), cfg.train.pt_batch_size):
-                i = torch.from_numpy(idx).to(dev)
-                losses.append(step({"x": tx_d[i], "y": ty_d[i]},
-                                   seed=self._seed())["loss"])
-                if self.swa is not None:
-                    self.swa = swa_update(self.swa, named,
-                                          cfg.train.swa_start,
-                                          cfg.train.swa_period)
+            if streaming:
+                losses, self.swa = stream_epoch(self._seed(), swa=self.swa)
+                loss = float(np.mean(losses))
+            else:
+                losses = []
+                for idx in data_pipe.synthetic_batch_indices(
+                        rng, len(tx_d), cfg.train.pt_batch_size):
+                    i = torch.from_numpy(idx).to(dev)
+                    losses.append(step({"x": tx_d[i], "y": ty_d[i]},
+                                       seed=self._seed())["loss"])
+                    if self.swa is not None:
+                        self.swa = swa_update(self.swa, named,
+                                              cfg.train.swa_start,
+                                              cfg.train.swa_period)
+                loss = float(torch.mean(torch.stack(losses)))
             m = evaluate(val_batch, self._seed())
-            metrics = {"loss": float(torch.mean(torch.stack(losses))),
+            metrics = {"loss": loss,
                        "epoch_time_s": time.perf_counter() - t0}
             metrics.update({k: float(v) for k, v in m.items()})
             if epoch == 0:

@@ -33,7 +33,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from torch_parity_utils import (HEAD_MIXES, assert_kl_close,  # noqa: E402
-                                assert_vars_close, cuda_device,  # noqa: F401
+                                assert_vars_close, assert_wls_close,
+                                cuda_device,  # noqa: F401
                                 head_mix, kl_lanes_replay, kl_scale,
                                 raw_head, volume)
 from qbold_vi_tpu_torch import config as tcfg  # noqa: E402
@@ -798,3 +799,112 @@ def test_fused_conv_runs_kernel_h_in_a_finetune_step(cuda_device):
     assert (tcv.conv3x3.fwd_launches - counts[0],
             tcv.conv3x3.bwd_launches - counts[1]) == (n_conv, n_conv)
     assert all(bool(torch.isfinite(v)) for v in m.values())
+
+
+# ---- kernel S, the streaming synthetic batch ---------------------------------
+
+S_CASES = {
+    "optimal": dict(),
+    "mixture_misalign": dict(uniform_prop=0.3, misalign_prob=0.5),
+    "gj16_no_noise": dict(uniform_prop=0.3, misalign_prob=0.5,
+                          quad_rule="gj16", simulate_noise=False),
+}
+
+
+def _synth_cfg(case):
+    kw = dict(S_CASES[case])
+    scan = dataclasses.replace(tcfg.OPTIMAL.scan,
+                               simulate_noise=kw.pop("simulate_noise", True))
+    model = dataclasses.replace(tcfg.OPTIMAL.model,
+                                quad_rule=kw.pop("quad_rule", "auto"))
+    return dataclasses.replace(
+        tcfg.OPTIMAL, scan=scan, model=model,
+        synth=dataclasses.replace(tcfg.OPTIMAL.synth, **kw))
+
+
+@pytest.mark.parametrize("case", list(S_CASES))
+def test_synth_batch_kernel_matches_plain(cuda_device, case):
+    """Kernel S against its plain version fed the host replay of its draws
+    (ops/synth_batch.py::synth_philox_draws), at the row tolerance rtol
+    1e-5 / atol 1e-5: the plain decode (ops/physics.py) rounds its
+    constants otherwise than the kernel's table, and the replay's normals
+    are numpy's log/sin/cos; a seed replays bit for bit, another differs."""
+    from qbold_vi_tpu_torch.ops import synth_batch as tsb
+
+    cfg = _synth_cfg(case)
+    b, seed = 64, 2 ** 40 + 17
+    n = b * 500
+    before = (tsb.synth_batch.launches, tsb.synth_batch.noise_launches)
+    got = tsb.synth_batch(cfg, b, seed, device=cuda_device)
+    again = tsb.synth_batch(cfg, b, seed, device=cuda_device)
+    other = tsb.synth_batch(cfg, b, seed + 1, device=cuda_device)
+    torch.cuda.synchronize()
+    noisy = int(cfg.scan.simulate_noise)
+    assert (tsb.synth_batch.launches - before[0],
+            tsb.synth_batch.noise_launches - before[1]) == (3, 3 * noisy)
+    ref = tsteps.stream_synthetic_batch(
+        cfg, b, tsb.synth_philox_draws(seed, n, SCAN.n_taus),
+        device=cuda_device)
+    for k, shape in (("x", (b, 10, 10, 5, 11)), ("y", (b, 10, 10, 5, 3))):
+        assert got[k].shape == shape
+        assert torch.equal(got[k], again[k]), k
+        assert not torch.equal(got[k], other[k]), k
+        np.testing.assert_allclose(got[k].cpu().numpy(),
+                                   ref[k].cpu().numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=k)
+    y = got["y"].reshape(-1, 3).cpu().numpy()
+    s = cfg.synth
+    assert s.oef_start <= y[:, 0].min() and y[:, 0].max() <= s.oef_end
+    assert s.dbv_start <= y[:, 1].min() and y[:, 1].max() <= s.dbv_end
+
+
+def test_stream_step_on_card_matches_cpu(cuda_device):
+    """One streaming pretrain step from one seed: on the card through
+    kernel S, on the CPU through the plain version of S's replayed draws
+    -- the loss at rtol 1e-5, the gradients scale-normalised at GRAD_TOL
+    (softplus: a relu kink moves a gradient by more than the batches'
+    float32 rounding)."""
+    from qbold_vi_tpu_torch.ops import synth_batch as tsb
+
+    cfg = dataclasses.replace(
+        tcfg.OPTIMAL,
+        model=dataclasses.replace(tcfg.OPTIMAL.model, activation="softplus"),
+        train=dataclasses.replace(tcfg.OPTIMAL.train, pt_batch_size=16))
+    sd = init_params(cfg.model, cfg.scan, torch.Generator().manual_seed(4))
+    loss, grads = {}, {}
+    for name, dev in (("cpu", torch.device("cpu")), ("card", cuda_device)):
+        tuner = FineTuner(cfg.model, cfg.scan, device=dev)
+        tuner.load_state_dict(sd)
+        opt = toptim.make_pretrain_optimizer(tuner.named_parameters(),
+                                             cfg.train)
+        launched = tsb.synth_batch.launches
+        m, _ = tsteps.make_pretrain_stream_step(tuner, cfg, opt)(seed=99)
+        torch.cuda.synchronize()
+        assert tsb.synth_batch.launches - launched == (name == "card")
+        loss[name] = float(m["loss"])
+        grads[name] = _grads(tuner)
+    np.testing.assert_allclose(loss["card"], loss["cpu"], rtol=1e-5)
+    assert set(grads["card"]) == set(grads["cpu"])
+    for k, g in grads["cpu"].items():
+        _grad_close(grads["card"][k], g, k)
+
+
+def test_wls_maps_on_card_match_cpu(cuda_device):
+    """baseline.wls_maps on the card against the CPU on noisy physics
+    signals: the same float32 operations, the taus summed in another
+    order (torch_parity_utils.assert_wls_close)."""
+    from qbold_vi_tpu_torch import baseline
+    from qbold_vi_tpu_torch.ops import physics
+
+    rng = np.random.default_rng(5)
+    shape = (3, 32, 32, 8)
+    sig = physics.ase_signal(
+        torch.from_numpy(rng.uniform(0.05, 0.8, shape).astype(np.float32)),
+        torch.from_numpy(rng.uniform(0.003, 0.195, shape).astype(
+            np.float32)), SCAN).numpy() * 800.0
+    x = (sig + rng.normal(size=sig.shape) * sig.mean() / 80.0).astype(
+        np.float32)
+    got = baseline.wls_maps(x, SCAN, device=cuda_device)
+    ref = baseline.wls_maps(x, SCAN, device="cpu")
+    assert got.shape == shape + (3,)
+    assert_wls_close(got, ref, x, SCAN)

@@ -270,10 +270,14 @@ def test_trainer_finetunes_on_the_cpu():
                for k, v in t.tuner.state_dict().items())
     assert t.sampler.priors.shape == t.sampler.data.shape[:-1] + (5,)
     assert t.pretrain() == {}                 # given weights: pretrained
-    streaming = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, pt_on_device_synth=True))
-    with pytest.raises(NotImplementedError, match="pt_on_device_synth"):
-        Trainer(streaming, device="cpu").pretrain()
+    # the streaming pretrain runs (tests/test_torch_stream_pretrain.py
+    # holds it against the JAX trainer)
+    streaming = dataclasses.replace(
+        cfg, synth=dataclasses.replace(cfg.synth, sample_size=40),
+        train=dataclasses.replace(cfg.train, pt_on_device_synth=True,
+                                  pt_batch_size=1, no_pt_epochs=1))
+    m = Trainer(streaming, device="cpu", logger=lambda *a: None).pretrain()
+    assert all(np.isfinite(v) for v in m.values())
     with pytest.raises(NotImplementedError, match="mesh"):
         Trainer(cfg, device="cpu", mesh=object())
     drop = dataclasses.replace(cfg, model=dataclasses.replace(

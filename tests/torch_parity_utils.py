@@ -206,3 +206,19 @@ def cuda_device():
         pytest.skip("needs a CUDA card: run on the H100 with "
                     "python -m pytest --noconftest -m cuda tests/test_torch_cuda.py")
     return torch.device("cuda", 0)
+
+
+def assert_wls_close(got, ref, signals, scan):
+    """WLS maps (..., 3) [oef, dbv, r2p] against a reference fit of the same
+    signals: rtol 1e-5 plus the float32 rounding that two fits' sums over
+    the taus in different orders carry (qbold_vi_tpu_torch.baseline.
+    fit_rounding: 8 float32 ulps of ln S through the fit's cancellations)."""
+    from qbold_vi_tpu_torch.baseline import fit_rounding
+
+    atol = fit_rounding(signals, ref, scan)
+    for i, name in enumerate(("oef", "dbv", "r2p")):
+        g = np.asarray(got[..., i], np.float64)
+        r = np.asarray(ref[..., i], np.float64)
+        assert np.isfinite(g).all(), name
+        excess = np.abs(g - r) - (1e-5 * np.abs(r) + atol[..., i])
+        assert excess.max() <= 0, (name, np.abs(g - r).max(), excess.max())
