@@ -13,7 +13,9 @@ diagonal posterior with a population prior), the two-phase pipeline
 from scratch
 (``Trainer.pretrain`` -> ``finetune`` with the 3x3 convs through kernel H,
 forward and backward), the streaming pretrain (a fresh batch a step
-through kernel S) and the WLS baseline, and checks them:
+through kernel S), the WLS baseline, and the trunk in bf16
+(``compute_dtype="bfloat16"``: kernels B, C and H at bf16 on serving,
+fine-tuning and pretraining), and checks them:
 
 1. device: a CUDA card is required (otherwise exit 1, no result line);
 2. build: the kernels of all seven sources in csrc/ are compiled by nvcc;
@@ -169,6 +171,32 @@ and the modules around it, after phase 18:
 28. baseline.wls_maps on the card against the CPU on 6 x 96 x 96 x 8
    noisy physics signals (rtol 1e-5 plus baseline.fit_rounding: 8
    float32 ulps of ln S carried through the fit), and its wall and device time on 14 x 96 x 96 x 8.
+The bf16 trunk (OPTIMAL at compute_dtype="bfloat16", full width, the
+weights of phase 3), after phase 28:
+29. kernel H at bf16 (forward, dx, dw/db) against its plain version at the
+   fine-tune fold (304 planes of 25 x 25 x 60 -> 60) and on an odd plane
+   (9 x 3 x 11, 5 -> 7), within 2 bf16 ulps of each output's largest
+   magnitude, dw/db replaying bit for bit; kernels C and B with the bf16
+   trunk against their plain versions at 1,032,192 voxels, MVG and
+   diagonal heads: C's q rows within 4 bf16 ulps, B against the plain
+   quadrature of C's q at CHECKS and against its plain version at the
+   JAX package's bf16 gate; each error in bf16 ulps with the share of
+   elements a rounding moved; the device times of H (and cuDNN's bf16
+   conv2d and convolution_backward beside it), B and C, their plain
+   versions' and their bounds at the dense bf16 peak (PEAK_BF16);
+30. serving at bf16: one 14 x 96 x 96 x 8 request a route through
+   save_predictions -- stream 1 by quadrature (B) and by mc (C + D),
+   stream 2 under "auto" (cuDNN bf16) and "on" (H bf16) -- with the
+   counts set to 0 before and read after each; maps finite, in range and
+   read back, and against the float32 maps of the same weights at the JAX
+   package's bf16 gates (BF16_GATE); the walls;
+31. fine-tuning at bf16: Trainer.finetune 1 x 100 steps through H bf16
+   and F (counted), 10 steps through cuDNN bf16 (H not launched), the
+   parameters float32; one step (softplus, initial weights) on the card
+   against the CPU and one through H against cuDNN, at BF16_STEP_TOL;
+32. pretraining at bf16: one streaming epoch (22 steps, S launched a step);
+33. timings: the bf16 fine-tune step's wall, busy share and launches
+   through H and through cuDNN, and the epoch wall.
 Phases 5 and 13 print A-E beside their bounds: B and C's from the chain's
 FMAs at the 3xTF32 rate (encode_bound) and at the float32 CUDA-core peak;
 A's, B's and E's special-function bound beside OPS's (MUFU: the
@@ -223,9 +251,11 @@ S_MC, S_KL = 200, 100                # the sampled summaries' and KL's draws
 ROW_TOL = (1e-5, 1e-5)
 GRAD_TOL = (5e-4, 5e-5)
 # the card's peaks (NVIDIA H100 SXM data sheet): float32 outside the
-# tensor cores, dense TF32 on the tensor cores, and HBM3 bandwidth
+# tensor cores, dense TF32 and dense bf16 on the tensor cores, and HBM3
+# bandwidth
 PEAK_FLOPS = 67e12
 PEAK_TF32 = 495e12
+PEAK_BF16 = 989.4e12
 PEAK_BYTES = 3.35e12
 KL_STATE_FLOATS = 6                  # kernel F's KL state a voxel
 
@@ -530,7 +560,10 @@ MUFU = dict(
     g_tau=3, g_student=1, g_row=2)
 MUFU_SASS = {
     "qv_quad_kernel": {"EX2": 45, "RCP": 25, "RSQ": 2},
-    "qv_encode_quad_kernel": {"EX2": 62, "RCP": 59, "RSQ": 2},
+    # kernel B's four widths together (62 EX2 before its encode took the
+    # trunk as a template policy; the quadrature tail, whose per-voxel
+    # counts MUFU holds, is A's routine, unchanged)
+    "qv_encode_quad_kernel": {"EX2": 60, "RCP": 59, "RSQ": 2},
     "qv_mc_kl_kernel": {"COS": 2, "EX2": 14, "RCP": 11, "RSQ": 2, "SIN": 2},
     # G's forward; its backward's two instantiations (with and without dy)
     # counted together
@@ -840,11 +873,15 @@ def stepped(tuner, metrics) -> tuple:
              if p.grad is not None})
 
 
-def check_step(label, got, ref, before, lr, kinks=False) -> float:
+def check_step(label, got, ref, before, lr, kinks=False, tol=None) -> float:
     """Raise unless one step from the weights ``before`` agrees between two
     runs (``stepped`` triples): the loss at rtol 1e-5, the updates as
     below, and each gradient scale-normalised at GRAD_TOL (the card tests'
-    gate for a step), or with ``kinks`` (relu) within 1e-2 of its scale.
+    gate for a step), or with ``kinks`` (relu) within 1e-2 of its scale,
+    or, given ``tol`` = (loss rtol, share of the scale), a bf16 trunk's
+    step: the loss at that rtol and each gradient within that share of its
+    scale (the updates held tight only where the gradient is clear of
+    three times that share).
     Returns the largest gradient difference over its scale. Each
     comparison runs twice: with softplus in place of relu (``smooth``)
     from the initial weights (init_params; the card tests' setting) at
@@ -855,14 +892,15 @@ def check_step(label, got, ref, before, lr, kinks=False) -> float:
     (softplus on weights trained with relu can overflow the sigma
     stream)."""
     (loss_c, after_c, grad_c), (loss_r, after_r, grad_r) = got, ref
-    if not abs(loss_c - loss_r) <= 1e-5 * abs(loss_r):
+    loss_rtol, limit = tol if tol else (1e-5, 1e-2 if kinks else None)
+    if not abs(loss_c - loss_r) <= loss_rtol * abs(loss_r):
         raise AssertionError(f"{label}: loss {loss_c} vs {loss_r}")
     worst_grad = 0.0
     for k, g_r in grad_r.items():
         scale = float(g_r.abs().max()) + 1e-30
         worst_grad = max(worst_grad,
                          float((grad_c[k] - g_r).abs().max()) / scale)
-        if not kinks:
+        if limit is None:
             check_rows(f"{label}: gradient of {k} over its scale",
                        grad_c[k] / scale, g_r / scale, *GRAD_TOL)
         # Adam's first update is lr * g / (|g| + 1e-7): held tight where g
@@ -871,15 +909,15 @@ def check_step(label, got, ref, before, lr, kinks=False) -> float:
         before_k = before[k].cpu().double()
         d_c, d_r = after_c[k] - before_k, after_r[k] - before_k
         e = (d_c - d_r).abs()
-        clear = g_r.abs() > max(1e-2 * scale, 1e-4)
+        clear = g_r.abs() > max((3 * tol[1] if tol else 1e-2) * scale, 1e-4)
         if not (bool((e[clear] <= 1e-6 + 1e-4 * d_r[clear].abs()).all())
                 and float(e.max()) <= 2.0 * lr):
             raise AssertionError(
                 f"{label}: update of {k} differs by {float(e.max()):.3e} "
                 f"(gradient scale {scale:.3e})")
-    if kinks and worst_grad > 1e-2:
+    if limit is not None and worst_grad > limit:
         raise AssertionError(f"{label}: gradients differ by {worst_grad:.3e}"
-                             " of their scale")
+                             f" of their scale (gate {limit})")
     return worst_grad
 
 
@@ -2568,6 +2606,515 @@ def stream_phases(dev, card, base) -> dict:
             "wls_wall_ms": wls_wall, "wls_fit_ms": wls_dev}
 
 
+# ---- the bf16 trunk: kernels B, C and H at compute_dtype="bfloat16" --------
+
+# kernel vs plain at bf16, in bf16 ulps of the output's largest magnitude:
+# H's outputs within 2 (one rounding of float32 sums taken in another
+# order), C's q rows within 4 (a one-ulp move of an activation travels
+# through the later layers); the maps of a bf16 request against the float32
+# maps of the same weights at the JAX package's bf16 gates: stream 1 at the
+# fused encode's, rtol 0.05 / atol 0.03 (tests/test_pallas_infer.py:217),
+# stream 2 at the encoder's, rtol / atol 0.05 (tests/test_model.py:132-133),
+# the variance maps in their square roots, the posterior standard
+# deviations; a bf16 step's gradients across
+# devices or conv routes within 1e-2 of their scale, its loss at rtol 1e-4
+H16_ULPS, Q16_ULPS = 2, 4
+BF16_GATE = {True: (0.05, 0.03), False: (0.05, 0.05)}   # by use_first_op
+BF16_STEP_TOL = (1e-4, 1e-2)
+H16_SHAPES = ((304, 25, 25, 60, 60), (9, 3, 11, 5, 7))
+H16_SYMBOLS = dict(
+    fwd=("qv_conv3x3_wsplit_bf16_kernel", "qv_conv3x3_fwd_bf16_kernel"),
+    bwd=("qv_conv3x3_wsplit_bf16_kernel", "qv_conv3x3_dx_bf16_kernel",
+         "qv_conv3x3_dw_bf16_kernel", "qv_conv3x3_reduce_kernel"))
+BC16_SYMBOLS = dict(B="qv_encode_quad_bf16_kernel",
+                    C="qv_encode_q_bf16_kernel")
+
+
+def bf16_ulp(ref: torch.Tensor) -> float:
+    """One bf16 ulp at the largest magnitude of ref (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(float(ref.abs().max()))) - 7)
+
+
+def ulp_err(name, got, ref, ulps, moved=0.0) -> tuple:
+    """Raise unless |got - ref| <= ``ulps`` bf16 ulps of ref's largest
+    magnitude; returns (the largest difference in those ulps, the share of
+    elements that differ by more than ``moved`` of that magnitude: for a
+    bf16 output, the share one rounding moved)."""
+    got, ref = got.double(), ref.double()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output")
+    ulp = bf16_ulp(ref)
+    d = (got - ref).abs()
+    err = float(d.max()) / ulp
+    if err > ulps:
+        raise AssertionError(f"{name}: differs from the plain version by "
+                             f"{err:.2f} bf16 ulps of its scale (gate {ulps})")
+    return err, float((d > moved * float(ref.abs().max())).double().mean())
+
+
+def conv_bound_bf16(shape, backward: bool) -> dict:
+    """Kernel H at bf16: each input read once and each output written once,
+    two bytes an element (forward: x, w, b in, y out; backward: x, ct, w
+    in, dx, dw, db out); 2 * 9 * Ci * Co operations a pixel a pass at the
+    dense bf16 tensor-core peak, plus the bias adds (forward) or db's sums
+    (backward) at the float32 peak."""
+    n, h, w, ci, co = shape
+    p = n * h * w
+    elems = (2 * p * ci + p * co + 2 * 9 * ci * co + co if backward
+             else p * ci + p * co + 9 * ci * co + co)
+    passes = 2 if backward else 1
+    t_bytes = 2 * elems / PEAK_BYTES * 1e3
+    t_ops = (passes * 2 * 9 * ci * co * p / PEAK_BF16
+             + p * co / PEAK_FLOPS) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def encode_bound_bf16(n, units, n_taus, n_blocks, n_bytes, rest_ops) -> dict:
+    """Kernels B and C with the bf16 trunk: the trunk's FMAs (U T + nb U^2 a
+    voxel) at the dense bf16 tensor-core peak, the float32 head's (5 U) as
+    3xTF32 at the TF32 peak, the rest (normalisation, biases, activations,
+    B's quadrature) at the float32 peak, and the bytes; the largest."""
+    trunk = n * (units * n_taus + n_blocks * units * units)
+    head = n * 5 * units
+    t_tc = (2 * trunk / PEAK_BF16 + 3 * 2 * head / PEAK_TF32) * 1e3
+    t_rest = rest_ops / PEAK_FLOPS * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    ms = max(t_tc, t_rest, t_bytes)
+    return {"bound_ms": ms,
+            "bound_by": "bytes" if t_bytes == ms else "operations",
+            "trunk_products_ms": 2 * trunk / PEAK_BF16 * 1e3}
+
+
+def bf16_kernel_phases(dev, card, cfg16, tuner16) -> dict:
+    """Phase 29: kernel H at bf16 (forward, dx, dw/db) against its plain
+    version at the fine-tune fold and on an odd plane; kernels B and C with
+    the bf16 trunk against their plain versions at 1,032,192 voxels, MVG
+    and diagonal heads; their device times beside the plain versions',
+    cuDNN's bf16 conv and their bounds. Returns errors, times, bounds."""
+    from qbold_vi_tpu_torch.models.vi import FineTuner, init_params
+    from qbold_vi_tpu_torch.models.encoder import _full_fp32
+    from qbold_vi_tpu_torch.ops import conv3x3 as cv
+    from qbold_vi_tpu_torch.ops import fused_infer as fi
+    from qbold_vi_tpu_torch.ops.quadrature import quad_tile_summaries
+
+    rng = np.random.default_rng(29)
+    out = {}
+    bf16 = torch.bfloat16
+    with torch.no_grad(), _full_fp32():
+        for shape in H16_SHAPES:
+            n, h, w, ci, co = shape
+            x = torch.from_numpy(rng.normal(size=(n, h, w, ci)).astype(
+                np.float32)).to(dev, bf16)
+            wt = torch.from_numpy((rng.normal(size=(3, 3, ci, co)) * 0.1
+                                   ).astype(np.float32)).to(dev, bf16)
+            b = torch.from_numpy((rng.normal(size=co) * 0.1).astype(
+                np.float32)).to(dev, bf16)
+            ct = torch.from_numpy(rng.normal(size=(n, h, w, co)).astype(
+                np.float32)).to(dev, bf16)
+            got = (cv.conv3x3_forward(x, wt, b),) + cv.conv3x3_backward(
+                x, wt, ct)
+            again = cv.conv3x3_backward(x, wt, ct)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[2], again[1])
+                    and torch.equal(got[3], again[2])):
+                raise AssertionError(f"H bf16 {shape}: dw/db differ between "
+                                     "two calls of the backward")
+            plain = (cv.conv3x3_plain(x, wt, b),) + cv.conv3x3_grads_plain(
+                x, wt, ct)
+            errs = {key: ulp_err(f"H bf16 {shape} {key}", g, r, H16_ULPS)
+                    for key, g, r in zip(("y", "dx", "dw", "db"), got, plain)}
+            log(f"kernel H bf16 vs plain ok at {shape}: " + ", ".join(
+                f"{k} {e:.2f} ulps ({100 * s:.3f}% of elements moved by a "
+                "rounding)" for k, (e, s) in errs.items()))
+            if shape != H16_SHAPES[0]:
+                continue
+            out["H_err"] = {"fwd": errs["y"][0] * bf16_ulp(plain[0]),
+                            "bwd": max(errs[k][0] * bf16_ulp(r) for k, r in
+                                       zip(("dx", "dw", "db"), plain[1:]))}
+            w_oihw = wt.permute(3, 2, 0, 1).contiguous()
+            parts = {
+                "fwd": kernel_ms_parts(lambda: cv.conv3x3_forward(x, wt, b),
+                                       H16_SYMBOLS["fwd"]),
+                "bwd": kernel_ms_parts(lambda: cv.conv3x3_backward(x, wt, ct),
+                                       H16_SYMBOLS["bwd"])}
+            lib_calls = {"fwd": lambda: cudnn_conv(x, w_oihw, b),
+                         "bwd": lambda: cudnn_conv_backward(x, w_oihw, ct)}
+            # the library's time as float32 H's: a call by CUDA events
+            out["H_times"] = {
+                "fwd": (sum(parts["fwd"].values()),
+                        cuda_ms(lambda: cv.conv3x3_plain(x, wt, b), reps=2),
+                        cuda_ms(lib_calls["fwd"])),
+                "bwd": (sum(parts["bwd"].values()),
+                        cuda_ms(lambda: cv.conv3x3_grads_plain(x, wt, ct),
+                                reps=2),
+                        cuda_ms(lib_calls["bwd"]))}
+            for way, (ms, plain_ms, lib_ms) in out["H_times"].items():
+                bd = conv_bound_bf16(shape, way == "bwd")
+                log(f"H bf16 {way} at {shape}: kernel {ms:.4f} ms on the "
+                    "device (" + ", ".join(f"{k[11:-7]} {v:.4f}" for k, v in
+                                           parts[way].items())
+                    + f"); plain {plain_ms:.4f} ms a call; cuDNN bf16 "
+                    f"{lib_ms:.4f} ms a call, "
+                    f"{device_ms(lib_calls[way]):.4f} ms on the device; bound "
+                    f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
+                    f"{100 * bd['bound_ms'] / ms:.1f}%) [{card}]")
+
+        # ---- B and C with the bf16 trunk, MVG and diagonal heads ----------
+        mcfg, scan = cfg16.model, cfg16.scan
+        diag = dataclasses.replace(mcfg, use_mvg=False)
+        diag_tuner = FineTuner(diag, scan, device=dev)
+        diag_tuner.load_state_dict(init_params(
+            diag, scan, torch.Generator().manual_seed(1)))
+        ranges = dict(oef_range=mcfg.oef_range, min_oef=mcfg.min_oef,
+                      dbv_range=mcfg.dbv_range, min_dbv=mcfg.min_dbv,
+                      dw_coeff=float(scan.dw_coeff * scan.hct))
+        x = torch.from_numpy(volumes(rng, (N_FULL,), scan.n_taus)).to(dev)
+        enc = dict(se_idx=scan.se_idx,
+                   multi_image=mcfg.multi_image_normalisation,
+                   activation=mcfg.activation,
+                   n_blocks=mcfg.no_intermediate_layers, trunk="bfloat16",
+                   mask_channel=True, input_layout="voxel")
+        for tag, t, mvg in (("MVG", tuner16, True), ("diag", diag_tuner,
+                                                     False)):
+            q = fi.encode_q1_packed(x, t.encoder, **enc)
+            got = fi.encode_quad_fused(x, t.encoder, mvg=mvg, **enc,
+                                       **ranges)
+            q_ref = fi.encode_q_plain(x, t.encoder, **enc)
+            ref = fi.encode_quad_fused_plain(x, t.encoder, mvg=mvg, **enc,
+                                             **ranges)
+            torch.cuda.synchronize()
+            rows = 5 if mvg else 4
+            q_errs = [ulp_err(f"C bf16 {tag} q row {j}", q[j], q_ref[j],
+                              Q16_ULPS, moved=1e-6) for j in range(rows)]
+            if not mvg and bool((q[4] != 0).any()):
+                raise AssertionError("C bf16 diag: row 4 of q is not 0")
+            tail = [torch.stack(v) for v in quad_tile_summaries(
+                q[0], q[1], q[2], q[3], q[4], mvg=mvg, **ranges)]
+            e_tail = max(check_close(f"B bf16 {tag} vs C's q", got[0].T,
+                                     tail[0].T, "mean"),
+                         check_close(f"B bf16 {tag} vs C's q", got[1].T,
+                                     tail[1].T, "var", tail[0].T),
+                         check_close(f"B bf16 {tag} vs C's q", got[2].T,
+                                     tail[2].T, "raw"))
+            b_errs = {}
+            for name, g, r in (("means", got[0], ref[0]),
+                               ("raw", got[2], ref[2])):
+                check_rows(f"B bf16 {tag} {name} vs plain", g, r,
+                           *BF16_GATE[True])
+                b_errs[name] = (float((g - r).abs().max()) / bf16_ulp(r),
+                                float(((g - r).abs() > 1e-5 * r.abs().max())
+                                      .double().mean()))
+            log(f"kernels B and C bf16 vs plain ok at N={N_FULL} ({tag}): C's "
+                "q rows " + ", ".join(f"{e:.2f} ulps ({100 * s:.3f}% moved)"
+                                      for e, s in q_errs)
+                + f"; B against the quadrature of C's q {e_tail:.3e}, against "
+                "its plain version " + ", ".join(
+                    f"{k} {e:.2f} ulps ({100 * s:.3f}% moved)"
+                    for k, (e, s) in b_errs.items()))
+            if mvg:
+                out["C_err"] = max(float((q[j] - q_ref[j]).abs().max())
+                                   for j in range(rows))
+                out["B_err"] = max(float((g - r).abs().max())
+                                   for g, r in zip(got, ref))
+                out["raw_b"] = got[2]
+        kw = dict(enc, **ranges)
+        out["BC_times"] = {
+            "B": time_kernel(lambda: fi.encode_quad_fused(
+                x, tuner16.encoder, mvg=True, **kw), BC16_SYMBOLS["B"],
+                lambda: fi.encode_quad_fused_plain(x, tuner16.encoder,
+                                                   mvg=True, **kw)),
+            "C": time_kernel(lambda: fi.encode_q1_packed(
+                x, tuner16.encoder, **enc), BC16_SYMBOLS["C"],
+                lambda: fi.encode_q_plain(x, tuner16.encoder, **enc))}
+    u, nb, t_n = mcfg.no_units, mcfg.no_intermediate_layers, scan.n_taus
+    rest = N_FULL * (ops_encode(u, t_n, nb) - 2 * (u * t_n + nb * u * u
+                                                   + 5 * u))
+    out["BC_bounds"] = {
+        "B": encode_bound_bf16(N_FULL, u, t_n, nb, N_FULL * 4 * (t_n + 1 + 9),
+                               rest + ops_quad(out["raw_b"], True)),
+        "C": encode_bound_bf16(N_FULL, u, t_n, nb, N_FULL * 4 * (t_n + 1 + 5),
+                               rest)}
+    out["BC_bounds"]["B"]["mufu_bound_ms"] = mufu_bound(
+        mufu_quad(out["raw_b"], True), mufu_clock_hz())
+    for k, (ms, call, plain) in out["BC_times"].items():
+        bd = out["BC_bounds"][k]
+        log(f"{k} bf16: kernel {ms:.4f} ms on the device ({call:.4f} ms a call"
+            f" by CUDA events), plain {plain:.4f} ms; bound "
+            f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+            f"({100 * bd['bound_ms'] / ms:.1f}%), the trunk's products "
+            f"{bd['trunk_products_ms']:.4f} ms" + (
+                f", special-function {bd['mufu_bound_ms']:.4f} ms"
+                if "mufu_bound_ms" in bd else "") + f" at N={N_FULL} [{card}]")
+    del out["raw_b"]
+    return out
+
+
+def bf16_phases(dev, card, base, tuner) -> dict:
+    """Phases 29-33: OPTIMAL at compute_dtype="bfloat16", full width, from
+    the weights of ``tuner`` (phase 29, bf16_kernel_phases); serving
+    (phase 30: stream 1 by quadrature through B and by mc through C + D,
+    stream 2 under "auto" (cuDNN) and "on" (H), each against the float32
+    maps of the same weights); fine-tuning (phase 31: Trainer.finetune
+    1 x 100 steps through H, 10 through cuDNN, one step on the card against
+    the CPU and one through H against cuDNN); pretraining (phase 32: one
+    streaming epoch); timings (phase 33). Returns the four kernels' JSON
+    entries and the walls."""
+    from qbold_vi_tpu_torch import infer
+    from qbold_vi_tpu_torch.models.vi import FineTuner, init_params
+    from qbold_vi_tpu_torch.ops import conv3x3 as cv
+    from qbold_vi_tpu_torch.ops import fused_elbo as fe
+    from qbold_vi_tpu_torch.ops import fused_infer as fi
+    from qbold_vi_tpu_torch.ops import summarize as sm
+    from qbold_vi_tpu_torch.ops import synth_batch as sb
+    from qbold_vi_tpu_torch.train import data as data_pipe
+    from qbold_vi_tpu_torch.train import optim, steps
+    from qbold_vi_tpu_torch.train.trainer import (Trainer,
+                                                  stream_steps_per_epoch)
+
+    cfg16 = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, compute_dtype="bfloat16"))
+    on16 = dataclasses.replace(cfg16, model=dataclasses.replace(
+        cfg16.model, fused_conv="on"))
+    scan, mcfg = base.scan, cfg16.model
+    n_conv = 2 * mcfg.no_intermediate_layers
+    weights = {k: v.clone() for k, v in tuner.state_dict().items()}
+
+    def tuner_of(cfg):
+        t = FineTuner(cfg.model, scan, device=dev)
+        t.load_state_dict(weights)
+        return t
+
+    t16, t16_on = tuner_of(cfg16), tuner_of(on16)
+    if t16.encoder.dtype != torch.bfloat16:
+        raise AssertionError("compute_dtype='bfloat16' did not give a bf16 "
+                             "trunk")
+    kern = bf16_kernel_phases(dev, card, cfg16, t16)
+
+    # ---- 30. serving at bf16 -----------------------------------------------
+    data = volumes(np.random.default_rng(30), REQUESTS[0], scan.n_taus)
+    chunks = -(-REQUESTS[0][0] // 2)
+    routes = (("stream 1, quadrature", t16, True, "quadrature"),
+              ("stream 1, mc", t16, True, "mc"),
+              ("stream 2, auto (cuDNN)", t16, False, "quadrature"),
+              ("stream 2, on (H)", t16_on, False, "quadrature"))
+    counters = {"B": (fi.encode_quad_fused, "bf16_launches"),
+                "C": (fi.encode_q1_packed, "bf16_launches"),
+                "D": (sm.mc_posterior_summaries_packed, "launches"),
+                "H_fwd": (cv.conv3x3, "fwd_bf16_launches"),
+                "H_bwd": (cv.conv3x3, "bwd_bf16_launches")}
+    expect = {"stream 1, quadrature": dict(B=chunks),
+              "stream 1, mc": dict(C=chunks, D=chunks),
+              "stream 2, auto (cuDNN)": {},
+              "stream 2, on (H)": dict(H_fwd=n_conv * chunks)}
+    serve_launches, walls = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (tag, t, first, method) in enumerate(routes):
+            for fn, attr in counters.values():
+                setattr(fn, attr, 0)
+            prefix = f"{tmp}/bf16_{i}"
+            maps = infer.save_predictions(t, cfg16, data, prefix,
+                                          use_first_op=first, method=method)
+            torch.cuda.synchronize()
+            got = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+            want = {k: expect[tag].get(k, 0) for k in counters}
+            if got != want:
+                raise AssertionError(f"bf16 serving {tag}: launches {got}, "
+                                     f"expected {want}")
+            serve_launches[tag] = got
+            check_maps(maps, data.shape[:-1], prefix)
+            ref = infer.posterior_maps(tuner, data, use_first_op=first,
+                                       method=method)
+            gaps = {}
+            for key in ("oef", "dbv", "r2p", "stds", "raw_log_stds"):
+                # the variance maps in their square roots: the posterior
+                # standard deviations, in the heads' units
+                g, r = (torch.from_numpy(m[key]).double() for m in (maps, ref))
+                if key == "stds":
+                    g, r = g.sqrt(), r.sqrt()
+                gaps[key] = check_rows(f"bf16 serving {tag} {key} vs float32",
+                                       g, r, *BF16_GATE[first])
+            rtol, atol = BF16_GATE[first]
+            log(f"bf16 serving {tag}: maps finite, in range, read back; "
+                f"launches {got}; against the float32 maps of the same "
+                f"weights (rtol {rtol} / atol {atol}): " + ", ".join(
+                    f"{k} {v:.3e}" for k, v in gaps.items()))
+    for tag, t, first, method in routes:
+        walls[tag] = wall_ms(lambda: infer.posterior_maps(
+            t, data, use_first_op=first, method=method))
+        log(f"posterior_maps wall at bf16, {tag}: {walls[tag]:.3f} ms on "
+            f"{REQUESTS[0]} [{card}]")
+    profile(lambda: infer.posterior_maps(t16_on, data, use_first_op=False),
+            2, "posterior_maps at bf16, stream 2, fused_conv on", card)
+
+    # ---- 31. fine-tuning at bf16 -------------------------------------------
+    logged = []
+
+    def logger(phase, epoch, m):
+        logged.append(dict(m))
+        log(f"[{phase}, bf16] epoch {epoch}: " + " ".join(
+            f"{k}={v:.6g}" for k, v in m.items()) + f" [{card}]")
+
+    vols = volumes(np.random.default_rng(0), TRAIN_VOLUMES, scan.n_taus)
+    on_run = dataclasses.replace(on16, train=dataclasses.replace(
+        on16.train, no_ft_epochs=1))
+    trainer = Trainer(on_run, state_dict=weights, device=dev, logger=logger)
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    cv.conv3x3.fwd_launches = cv.conv3x3.bwd_launches = 0
+    fe.fused_elbo_forward.launches = fe.fused_elbo_backward.launches = 0
+    trainer.finetune(vols, epochs=1)
+    torch.cuda.synchronize()
+    n_steps = on_run.train.ft_steps_per_epoch
+    prior_fwd = n_conv * -(-data_pipe.blank_crop(vols).shape[0] // 4)
+    ft_launches = {"H_fwd": cv.conv3x3.fwd_bf16_launches,
+                   "H_bwd": cv.conv3x3.bwd_bf16_launches,
+                   "H_fwd_float32": cv.conv3x3.fwd_launches,
+                   "F_fwd": fe.fused_elbo_forward.launches,
+                   "F_bwd": fe.fused_elbo_backward.launches}
+    log(f"bf16 fine-tune (1 epoch x {n_steps} steps, fused_conv on) "
+        f"launches: {ft_launches}; expected H bf16 {n_conv * n_steps} + "
+        f"{prior_fwd} (prepare_real) forward, {n_conv * n_steps} backward")
+    if ft_launches != {"H_fwd": n_conv * n_steps + prior_fwd,
+                       "H_bwd": n_conv * n_steps, "H_fwd_float32": 0,
+                       "F_fwd": n_steps, "F_bwd": n_steps}:
+        raise AssertionError(f"H bf16 or F did not run as counted: "
+                             f"{ft_launches}")
+    if not all(np.isfinite(v) for m in logged for v in m.values()):
+        raise AssertionError(f"bf16 fine-tune metrics: {logged}")
+    if any(p.dtype != torch.float32 for p in trainer.tuner.parameters()):
+        raise AssertionError("a bf16 fine-tune left a parameter not float32")
+    epoch_on_ms = logged[-1]["epoch_time_s"] * 1e3
+    auto_run = dataclasses.replace(cfg16, train=dataclasses.replace(
+        cfg16.train, no_ft_epochs=1, ft_steps_per_epoch=10))
+    trainer = Trainer(auto_run, state_dict=trainer.tuner.state_dict(),
+                      device=dev, logger=logger)
+    cv.conv3x3.fwd_bf16_launches = cv.conv3x3.bwd_bf16_launches = 0
+    fe.fused_elbo_forward.launches = fe.fused_elbo_backward.launches = 0
+    trainer.finetune(vols, epochs=1)
+    torch.cuda.synchronize()
+    if (cv.conv3x3.fwd_bf16_launches, cv.conv3x3.bwd_bf16_launches,
+            fe.fused_elbo_forward.launches,
+            fe.fused_elbo_backward.launches) != (0, 0, 10, 10):
+        raise AssertionError("the bf16 cuDNN epoch launched H or missed F")
+    if not all(np.isfinite(v) for m in logged for v in m.values()):
+        raise AssertionError(f"bf16 fine-tune metrics: {logged}")
+    log("bf16 fine-tune (1 epoch x 10 steps, fused_conv auto: cuDNN bf16): "
+        "F launched 10 times each way, H none; metrics finite")
+
+    # one bf16 step on the card against the CPU, and through H against cuDNN
+    vol = torch.from_numpy(trainer.sampler.data).to(dev)
+    pri = torch.from_numpy(trainer.sampler.priors).to(dev)
+    batch = steps.sample_crop_batch(torch.Generator().manual_seed(7), vol,
+                                    pri, 4, cfg16.train.crop_size)
+    rng = np.random.default_rng(31)
+    shape = tuple(batch["images"].shape[:-1])
+    noise = {"z_nll": rng.normal(size=(1,) + shape + (2,)).astype(np.float32),
+             "z_kl": rng.normal(size=(70,) + shape + (2,)).astype(np.float32)}
+    init = init_params(mcfg, scan, torch.Generator().manual_seed(3))
+    cpu = torch.device("cpu")
+    for label, runs in (
+            ("on the card vs the CPU", ((smooth(cfg16), dev),
+                                         (smooth(cfg16), cpu))),
+            ("through H vs cuDNN", ((smooth(on16), dev),
+                                     (smooth(cfg16), dev)))):
+        result = []
+        for c, device in runs:
+            t = FineTuner(c.model, scan, device=device)
+            t.load_state_dict(init)
+            opt = optim.make_finetune_optimizer(t.parameters(), c.train)
+            result.append(stepped(t, steps.make_finetune_step(t, c, opt)(
+                {k: v.to(device) for k, v in batch.items()}, noise=noise)))
+        worst = check_step(f"one bf16 fine-tune step (softplus) {label}",
+                           *result, init, float(cfg16.train.ft_lr),
+                           tol=BF16_STEP_TOL)
+        log(f"one bf16 fine-tune step (softplus, initial weights) {label}: "
+            f"loss {result[0][0]:.7g} vs {result[1][0]:.7g}, gradients "
+            f"within {worst:.2e} of their scale (gate 1e-2), updates within "
+            "tolerance")
+
+    # ---- 32. pretraining at bf16: one streaming epoch ---------------------
+    pt_cfg = dataclasses.replace(cfg16, train=dataclasses.replace(
+        cfg16.train, pt_on_device_synth=True, no_pt_epochs=1))
+    pt_logged = []
+    pt_trainer = Trainer(pt_cfg, device=dev, logger=lambda phase, e, m:
+                         pt_logged.append(dict(m)))
+    sb.synth_batch.launches = sb.synth_batch.noise_launches = 0
+    t0 = time.perf_counter()
+    pt_trainer.pretrain()
+    torch.cuda.synchronize()
+    pt_wall = time.perf_counter() - t0
+    spe = stream_steps_per_epoch(pt_cfg)
+    if (sb.synth_batch.launches, sb.synth_batch.noise_launches) != (spe, spe):
+        raise AssertionError("the bf16 streaming epoch did not draw its "
+                             "batches through S")
+    if not pt_logged or not all(np.isfinite(v) for m in pt_logged
+                                for v in m.values()):
+        raise AssertionError(f"bf16 pretrain metrics: {pt_logged}")
+    log(f"bf16 streaming pretrain: 1 epoch x {spe} steps, S launched {spe} + "
+        f"{spe}; " + " ".join(f"{k}={v:.6g}" for k, v in pt_logged[-1].items())
+        + f"; whole call {pt_wall:.2f} s [{card}]")
+
+    # ---- 33. timings -------------------------------------------------------
+    log_clocks("before the bf16 timings")
+    step_ms, step_prof = {}, {}
+    for name, c in (("on (H)", on16), ("auto (cuDNN)", cfg16)):
+        t = tuner_of(c)
+        opt = optim.make_finetune_optimizer(t.parameters(), c.train)
+        fn = steps.make_finetune_step(t, c, opt)
+        full = steps.sample_crop_batch(torch.Generator().manual_seed(8), vol,
+                                       pri, c.train.ft_batch_size,
+                                       c.train.crop_size)
+        step_ms[name] = wall_ms(lambda: fn(full, seed=13))
+        step_prof[name] = profile(lambda: fn(full, seed=13), 5,
+                                  f"bf16 fine-tune step, fused_conv {name}",
+                                  card)
+        log(f"bf16 fine-tune step wall, fused_conv {name}: "
+            f"{step_ms[name]:.3f} ms at batch {c.train.ft_batch_size} "
+            f"[{card}]")
+    log(f"bf16 fine-tune epoch wall, fused_conv on: {epoch_on_ms:.1f} ms "
+        f"({n_steps} steps) [{card}]")
+    log_clocks("after the bf16 timings")
+
+    fold = H16_SHAPES[0]
+    kernels = [
+        {"name": "B-bf16", "route": "cuda",
+         "source": "qbold_vi_tpu_torch/csrc/encode_quad.cu",
+         "replaces": "qbold_vi_tpu/ops/pallas_infer.py:353",
+         "launches": serve_launches["stream 1, quadrature"]["B"],
+         "max_abs_err": kern["B_err"], "ms": kern["BC_times"]["B"][0],
+         "plain_ms": kern["BC_times"]["B"][2],
+         **{k: kern["BC_bounds"]["B"][k] for k in ("bound_ms", "bound_by")},
+         "library_ms": None},
+        {"name": "C-bf16", "route": "cuda",
+         "source": "qbold_vi_tpu_torch/csrc/encode_quad.cu",
+         "replaces": "qbold_vi_tpu/ops/pallas_infer.py:246",
+         "launches": serve_launches["stream 1, mc"]["C"],
+         "max_abs_err": kern["C_err"], "ms": kern["BC_times"]["C"][0],
+         "plain_ms": kern["BC_times"]["C"][2],
+         **{k: kern["BC_bounds"]["C"][k] for k in ("bound_ms", "bound_by")},
+         "library_ms": None}]
+    for way, line in (("fwd", 188), ("bwd", 239)):
+        ms, plain_ms, lib_ms = kern["H_times"][way]
+        kernels.append({
+            "name": f"H-bf16-{way}", "route": "cuda",
+            "source": "qbold_vi_tpu_torch/csrc/conv3x3.cu",
+            "replaces": f"qbold_vi_tpu/ops/pallas_conv.py:{line}",
+            "launches": ft_launches[f"H_{way}"]
+            + serve_launches["stream 2, on (H)"][f"H_{way}"],
+            "max_abs_err": kern["H_err"][way], "ms": ms,
+            "plain_ms": plain_ms, **conv_bound_bf16(fold, way == "bwd"),
+            "library_ms": lib_ms})
+    return {"kernels": kernels, "serving_wall_ms": walls,
+            "finetune_step_ms": step_ms,
+            "finetune_step_busy_share": {
+                k: p["busy_ms"] / p["wall_ms"] for k, p in step_prof.items()},
+            "finetune_step_launches": {k: p["launches"]
+                                       for k, p in step_prof.items()},
+            "finetune_epoch_on_ms": epoch_on_ms,
+            "pretrain_epoch_s": pt_logged[-1].get("epoch_time_s")}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--weights", help="params .npz (io/from_jax.py "
@@ -2575,6 +3122,11 @@ def main() -> int:
     args = ap.parse_args()
 
     # ---- 1. device -------------------------------------------------------
+    t_start = time.perf_counter()
+
+    def elapsed(what: str) -> None:
+        log(f"[{time.perf_counter() - t_start:.1f} s] {what}")
+
     if not torch.cuda.is_available():
         log("no CUDA device: this smoke run needs the card")
         return 1
@@ -2765,17 +3317,27 @@ def main() -> int:
          "ms": times["fused"][0], "plain_ms": times["fused"][2],
          **b_bound, "library_ms": None},
     ]
+    elapsed("phases 10-13")
     sampled = sampled_phases(dev, card, OPTIMAL, tuner, ranges, enc_kw,
                              raw_b)
     kernels += sampled["kernels"]
+    elapsed("phases 23-25")
     err64 = stream1_phases(dev, OPTIMAL, tuner, ranges, enc_kw)
+    elapsed("phases 6-9 and 19-22")
     phases = fine_tune_phases(dev, card, OPTIMAL, tuner)
     kernels += phases["kernels"]
+    elapsed("phase 14")
     conv = conv_phases(dev, card)
+    elapsed("phases 15-18")
     two = two_phase_path(dev, card, OPTIMAL, conv)
     kernels += two["kernels"]
+    elapsed("phases 26-28")
     stream = stream_phases(dev, card, OPTIMAL)
     kernels += stream["kernels"]
+    elapsed("phases 29-33")
+    bf16 = bf16_phases(dev, card, OPTIMAL, tuner)
+    kernels += bf16["kernels"]
+    elapsed("done")
     print(json.dumps({"posterior_maps_wall_ms": walls,
                       "mc_posterior_maps_wall_ms": sampled["mc_walls"],
                       "elbo_maps_wall_ms_per_subject": sampled["elbo_ms"],
@@ -2792,6 +3354,8 @@ def main() -> int:
                           two["finetune_epoch_on_ms"],
                       "stream2_wall_ms_by_conv": two["stream2_wall_ms"],
                       **{k: v for k, v in stream.items() if k != "kernels"},
+                      "bf16": {k: v for k, v in bf16.items()
+                               if k != "kernels"},
                       "stream1_float64_err": err64,
                       "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

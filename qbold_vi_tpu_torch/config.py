@@ -134,13 +134,17 @@ class ModelConfig:
     min_oef: float = 0.04
     dbv_range: float = 0.2
     min_dbv: float = 0.001
-    # Compute dtype of the encoder trunk. Params and the distribution /
-    # sigma heads always stay float32. In the port "auto" resolves to
-    # float32 (models/encoder.py::_dtype_of); "bfloat16" is not yet
-    # ported and raises.
+    # Compute dtype of the encoder trunk (models/encoder.py::_dtype_of):
+    # "auto" and "float32" run it in float32 ("auto" resolves as the JAX
+    # package resolves it off the TPU, so bf16 is opt-in); "bfloat16" runs
+    # the first Dense, each block's shared and gate Dense and both 3x3
+    # convs in bf16 with float32 sums -- on the card through kernels B, C
+    # and H at bf16 -- and serving's fused stream-1 kernels at
+    # trunk="bfloat16"; anything else raises. Params and the distribution /
+    # sigma heads always stay float32.
     compute_dtype: str = "auto"
-    # SDR tissue-integral rule for the decode paths (training; not yet
-    # ported): "auto" | "cheb" | "gj16".
+    # SDR tissue-integral rule for the decode paths (ops/physics.py::
+    # select_quad_rule): "auto" | "cheb" | "gj16".
     quad_rule: str = "auto"
     # Fused stream-1 inference encode + quadrature (ops/fused_infer.py,
     # one CUDA kernel). "auto" = on for CUDA tensors when the activation
@@ -148,8 +152,11 @@ class ModelConfig:
     # runs the encoder + the standalone quadrature kernel. The JAX
     # package's "interpret" mode is accepted and means "on" (infer.py).
     fused_infer: str = "auto"
-    # 3x3x1 trunk convolution kernel (not yet ported; the port's encoder
-    # always runs torch's conv2d). Kept for config parity.
+    # 3x3x1 trunk convolution (models/encoder.py::ConvXY): "on" and
+    # "interpret" run kernel H (ops/conv3x3.py; its plain version on a CPU
+    # tensor) and raise on a plane smaller than 3 x 3; "auto" and "off"
+    # run the library conv (cuDNN on the card), as the JAX package's
+    # "auto" keeps its Pallas conv off.
     fused_conv: str = "auto"
 
 

@@ -47,14 +47,27 @@
 // take ~124 KB of shared memory at OPTIMAL, one block an SM): 16 or more
 // warps an SM ran 1.2-26x slower on the H100 (PERF.md). Warps walk
 // the tiles in a grid-stride loop; the blocks fill the card once. The
-// trunk's operand type is a template policy (QvTrunkF32: 3xTF32 on float32
-// operands).
+// trunk's operand type is a template policy: QvTrunkF32, 3xTF32 on float32
+// operands in k-steps of 8 channels, or QvTrunkBF16, the bf16 trunk
+// (pallas_infer.py:98-133 under trunk="bfloat16"): one m16n8k16 bf16
+// product with float32 sums in k-steps of 16 channels, the sums of n-tiles
+// 2s and 2s + 1 packing into the next layer's A fragment of k-step s
+// (mma_math.cuh), and the JAX kernel's rounding points: the normalised log
+// signal rounded to bf16, each layer's float32 sums rounded to bf16, the
+// bf16 bias added in bf16, the activation in bf16 (jax.nn's composition,
+// each step rounded: qv_act_bf16); the head stays float32 (3xTF32) on the
+// float32-cast features. Its bound at OPTIMAL and 1.03 M voxels is bytes,
+// ~0.021 ms for C (the trunk's products 0.0164 ms at 989 TFLOP/s, the
+// float32 head 0.0092 ms at the TF32 rate) and ~0.026 ms for B.
 //
-// Weight blob (floats; Tp = T rounded up to 8, Up = U padded, k-steps of 8,
-// n-tiles of 8; fragments [k-step][n-tile][lane] (b0 hi, b1 hi, b0 lo,
-// b1 lo), mma_math.cuh):
-//   W0 frags [Tp/8][Up/8][32][4]  Wb frags nb x [Up/8][Up/8][32][4]
-//   Wf frags [Up/8][1][32][4]  b0[Up] bb[nb][Up] bf[8] consts[QV_NCONST]
+// Weight blob (floats; Tp = T rounded up to K, Up = U padded, k-steps of
+// K = 8 channels (float32 trunk) or 16 (bf16), n-tiles of 8; fragments
+// [k-step][n-tile][lane] of W words: (b0 hi, b1 hi, b0 lo, b1 lo) in
+// 3xTF32, W = 4, or two words of two bf16 each, W = 2, mma_math.cuh):
+//   W0 frags [Tp/K][Up/8][32][W]  Wb frags nb x [Up/K][Up/8][32][W]
+//   Wf frags [Up/8][1][32][4] (3xTF32 whatever the trunk)
+//   b0[Up] bb[nb][Up] bf[8] consts[QV_NCONST]
+// (a bf16 trunk's biases b0 and bb hold bf16 values)
 // and after it, per warp, its staged rows xs[32][qv_xs_stride(Tp)] and
 // heads qs[32][QV_QS]; then, in B, QV_QUAD_SCRATCH(block) floats for the
 // quadrature's sort (qv_quad_scratch_floats, which the wrapper adds).
@@ -102,9 +115,49 @@ static __device__ __noinline__ float qv_act_call(int act, float x) {
   return qv_act(act, x);
 }
 
+// jax.nn's activations on a bf16 x, each step rounded to bf16 as the JAX
+// package's bf16 arithmetic rounds it (the constants rounded to bf16 first,
+// as JAX's weak-typed Python floats are); the result is bf16.
+static __device__ __noinline__ float qv_act_bf16(int act, float x) {
+  switch (act) {
+    case 0:  // relu
+      return fmaxf(x, 0.0f);
+    case 1: {  // gelu, tanh approximation
+      const float x3 = qv_bf16(qv_bf16(x * x) * x);
+      const float inner =
+          qv_bf16(0.796875f * qv_bf16(x + qv_bf16(0.044677734375f * x3)));
+      const float cdf = qv_bf16(0.5f * qv_bf16(1.0f + qv_bf16(tanhf(inner))));
+      return qv_bf16(x * cdf);
+    }
+    case 2:
+      return qv_bf16(tanhf(x));
+    case 3:  // sigmoid: 1 / (1 + exp(-x))
+      return qv_bf16(1.0f / qv_bf16(1.0f + qv_bf16(expf(-x))));
+    case 4:  // softplus = logaddexp(x, 0)
+      return qv_bf16(fmaxf(x, 0.0f) +
+                     qv_bf16(log1pf(qv_bf16(expf(-fabsf(x))))));
+    case 5:  // elu, alpha 1
+      return x > 0.0f ? x : qv_bf16(expm1f(x));
+    case 6:  // silu
+    case 7: {  // swish
+      const float sg = qv_bf16(1.0f / qv_bf16(1.0f + qv_bf16(expf(-x))));
+      return qv_bf16(x * sg);
+    }
+    case 8:  // leaky_relu, slope 0.01 in bf16
+      return x >= 0.0f ? x : qv_bf16(0.010009765625f * x);
+    case 9:  // relu6
+      return fminf(fmaxf(x, 0.0f), 6.0f);
+    default:  // linear
+      return x;
+  }
+}
+
 // The trunk's products: float32 operands split into TF32 hi / lo, three
-// tensor-core products (mma_math.cuh).
+// tensor-core products (mma_math.cuh), k-steps of 8 channels.
 struct QvTrunkF32 {
+  static constexpr int K = 8;        // channels a k-step
+  static constexpr bool BF16 = false;
+  typedef float4 B;                  // a lane's B fragment (hi and lo)
   struct A {
     uint32_t hi[4], lo[4];
   };
@@ -117,11 +170,62 @@ struct QvTrunkF32 {
     qv_split(a3, f.hi[3], f.lo[3]);
     return f;
   }
+  // k-step s from staged rows: r at (row g, word K s + 2t), row g + 8 at
+  // r + 8 stride
+  static __device__ __forceinline__ A from_rows(const float* r, int stride) {
+    const float2 a = *reinterpret_cast<const float2*>(r);
+    const float2 b = *reinterpret_cast<const float2*>(r + 8 * stride);
+    return split(a.x, b.x, a.y, b.y);
+  }
+  // k-step s from the activations in registers (qv_bias_map's layout)
+  template <int NK>
+  static __device__ __forceinline__ A from_regs(const float (&a)[NK][4],
+                                                int s) {
+    return split(a[s][0], a[s][1], a[s][2], a[s][3]);
+  }
   static __device__ __forceinline__ void mma(float* d, const A& a, float4 b,
                                              bool first) {
     const uint32_t bhi[2] = {__float_as_uint(b.x), __float_as_uint(b.y)};
     const uint32_t blo[2] = {__float_as_uint(b.z), __float_as_uint(b.w)};
     qv_mma3(d, a.hi, a.lo, bhi, blo, first);
+  }
+};
+
+// The bf16 trunk's products: bf16 operands, one tensor-core product with
+// float32 sums, k-steps of 16 channels (mma_math.cuh). Staged rows and
+// activations are floats; packing rounds them to bf16 (the activations are
+// bf16 values already; the normalised rows are rounded here, where the JAX
+// kernel casts them).
+struct QvTrunkBF16 {
+  static constexpr int K = 16;
+  static constexpr bool BF16 = true;
+  typedef uint2 B;
+  struct A {
+    uint32_t r[4];
+  };
+  static __device__ __forceinline__ A from_rows(const float* r, int stride) {
+    const float2 a00 = *reinterpret_cast<const float2*>(r);
+    const float2 a10 = *reinterpret_cast<const float2*>(r + 8 * stride);
+    const float2 a01 = *reinterpret_cast<const float2*>(r + 8);
+    const float2 a11 = *reinterpret_cast<const float2*>(r + 8 * stride + 8);
+    return A{{qv_pack_bf16(a00.x, a00.y), qv_pack_bf16(a10.x, a10.y),
+              qv_pack_bf16(a01.x, a01.y), qv_pack_bf16(a11.x, a11.y)}};
+  }
+  // k-step s = n-tiles 2s and 2s + 1 of the previous layer's sums: a[j][0]
+  // (g, 2t), a[j][1] (g + 8, 2t), a[j][2] (g, 2t + 1), a[j][3] (g + 8,
+  // 2t + 1)
+  template <int NK>
+  static __device__ __forceinline__ A from_regs(const float (&a)[NK][4],
+                                                int s) {
+    const float* lo = a[2 * s];
+    const float* hi = a[2 * s + 1];
+    return A{{qv_pack_bf16(lo[0], lo[2]), qv_pack_bf16(lo[1], lo[3]),
+              qv_pack_bf16(hi[0], hi[2]), qv_pack_bf16(hi[1], hi[3])}};
+  }
+  static __device__ __forceinline__ void mma(float* d, const A& a, uint2 b,
+                                             bool first) {
+    const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    qv_mma_bf16(d, a.r, b.x, b.y, first ? zero : d);
   }
 };
 
@@ -131,9 +235,11 @@ static __device__ __forceinline__ int qv_xs_stride(int tp) {
   return tp % 16 == 0 ? tp + 8 : tp;
 }
 
-// The staged weights and this warp's rows and heads.
+// The staged weights and this warp's rows and heads; w0 and wb hold the
+// trunk's fragments (Trunk::B), wf the 3xTF32 head's.
 struct QvEncoder {
-  const float4 *w0, *wb, *wf;
+  const void *w0, *wb;
+  const float4* wf;
   const float *b0, *bb, *bf, *consts;
   float *xs, *qs;
   int T, ks0, nt, nb, act, se_idx, lo, hi, multi_image, xs_stride;
@@ -141,6 +247,7 @@ struct QvEncoder {
 
 // Stage the blob into shared memory (whole block, synchronised) and lay out
 // the weights and this warp's buffers.
+template <class Trunk>
 static __device__ __forceinline__ QvEncoder qv_stage_encoder(
     float* smem, const float* blob, int blob_len, int t_in, int mask_channel,
     int se_idx, int multi_image, int act, int up, int nb) {
@@ -149,8 +256,9 @@ static __device__ __forceinline__ QvEncoder qv_stage_encoder(
   for (int i = threadIdx.x; i < blob_len / 4; i += blockDim.x) dst[i] = src[i];
   __syncthreads();
   QvEncoder e;
+  constexpr int W = sizeof(typename Trunk::B) / 4;  // words a fragment
   e.T = t_in - mask_channel;
-  e.ks0 = (e.T + 7) / 8;
+  e.ks0 = (e.T + Trunk::K - 1) / Trunk::K;
   e.nt = up / 8;
   e.nb = nb;
   e.act = act;
@@ -158,21 +266,23 @@ static __device__ __forceinline__ QvEncoder qv_stage_encoder(
   e.multi_image = multi_image;
   e.lo = se_idx - 1 > 0 ? se_idx - 1 : 0;
   e.hi = se_idx + 2 < e.T ? se_idx + 2 : e.T;
-  e.w0 = dst;
-  e.wb = e.w0 + e.ks0 * e.nt * 32;
-  e.wf = e.wb + nb * e.nt * e.nt * 32;
+  e.w0 = smem;
+  e.wb = smem + e.ks0 * e.nt * 32 * W;
+  e.wf = reinterpret_cast<const float4*>(
+      smem + (e.ks0 + nb * (up / Trunk::K)) * e.nt * 32 * W);
   e.b0 = reinterpret_cast<const float*>(e.wf + e.nt * 32);
   e.bb = e.b0 + up;
   e.bf = e.bb + nb * up;
   e.consts = e.bf + 8;
-  e.xs_stride = qv_xs_stride(8 * e.ks0);
+  e.xs_stride = qv_xs_stride(Trunk::K * e.ks0);
   e.xs = smem + blob_len + (threadIdx.x / 32) * QV_TILE * (e.xs_stride + QV_QS);
   e.qs = e.xs + QV_TILE * e.xs_stride;
   return e;
 }
 
 // Row `lane` of the warp's staged rows: voxel v normalised (zeros past N
-// and past T).
+// and past T, up to the k-steps' K ks0 words).
+template <class Trunk>
 static __device__ __forceinline__ void qv_stage_row(
     const QvEncoder& e, const float* __restrict__ x, long long n, long long v,
     int t_in, int channel_major, int mask_channel, int lane) {
@@ -199,7 +309,7 @@ static __device__ __forceinline__ void qv_stage_row(
   } else {
     for (int t = 0; t < T; ++t) row[t] = 0.0f;
   }
-  for (int t = T; t < 8 * e.ks0; ++t) row[t] = 0.0f;
+  for (int t = T; t < Trunk::K * e.ks0; ++t) row[t] = 0.0f;
 }
 
 // acc[m][j] (+)= A_m W(s, j) over the NJ n-tiles of k-step s, A_m this
@@ -208,47 +318,46 @@ static __device__ __forceinline__ void qv_stage_row(
 // separate blocks that the compiler cannot interleave.
 template <int MT, int NJ, class Trunk, int NA>
 static __device__ __forceinline__ void qv_kstep(
-    const typename Trunk::A (&f)[MT], const float4* __restrict__ w, int s,
-    int lane, bool first, float (&acc)[MT][NA][4]) {
+    const typename Trunk::A (&f)[MT], const typename Trunk::B* __restrict__ w,
+    int s, int lane, bool first, float (&acc)[MT][NA][4]) {
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
-    const float4 b = w[(s * NJ + j) * 32 + lane];
+    const typename Trunk::B b = w[(s * NJ + j) * 32 + lane];
 #pragma unroll
     for (int m = 0; m < MT; ++m) Trunk::mma(acc[m][j], f[m], b, first);
   }
 }
 
 // The first layer's sums, A read from the staged rows row0 + 16 m + g and
-// + 8, words 8 s + 2t and + 1.
+// + 8, words K s + 2t and + 1 (and, in bf16, + 8 and + 9).
 template <int MT, int NT, class Trunk>
 static __device__ __forceinline__ void qv_layer_rows(
     const QvEncoder& e, int row0, int lane, float (&acc)[MT][NT][4]) {
   const int g = lane >> 2, t = lane & 3;
+  const typename Trunk::B* w0 =
+      reinterpret_cast<const typename Trunk::B*>(e.w0);
   for (int s = 0; s < e.ks0; ++s) {
     typename Trunk::A f[MT];
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const float* r = e.xs + (row0 + 16 * m + g) * e.xs_stride + 8 * s + 2 * t;
-      const float2 a = *reinterpret_cast<const float2*>(r);
-      const float2 b = *reinterpret_cast<const float2*>(r + 8 * e.xs_stride);
-      f[m] = Trunk::split(a.x, b.x, a.y, b.y);
-    }
-    qv_kstep<MT, NT, Trunk>(f, e.w0, s, lane, s == 0, acc);
+    for (int m = 0; m < MT; ++m)
+      f[m] = Trunk::from_rows(e.xs + (row0 + 16 * m + g) * e.xs_stride +
+                                  Trunk::K * s + 2 * t,
+                              e.xs_stride);
+    qv_kstep<MT, NT, Trunk>(f, w0, s, lane, s == 0, acc);
   }
 }
 
-// A layer's sums from the activations in registers: NK k-steps, NJ
-// n-tiles.
+// A layer's sums from the activations in registers (NK n-tiles of the
+// previous layer: NK * 8 / K k-steps), NJ n-tiles.
 template <int MT, int NK, int NJ, class Trunk, int NA>
 static __device__ __forceinline__ void qv_layer_regs(
-    const float (&a)[MT][NK][4], const float4* __restrict__ w, int lane,
-    float (&acc)[MT][NA][4]) {
+    const float (&a)[MT][NK][4], const typename Trunk::B* __restrict__ w,
+    int lane, float (&acc)[MT][NA][4]) {
 #pragma unroll
-  for (int s = 0; s < NK; ++s) {
+  for (int s = 0; s < NK * 8 / Trunk::K; ++s) {
     typename Trunk::A f[MT];
 #pragma unroll
-    for (int m = 0; m < MT; ++m)
-      f[m] = Trunk::split(a[m][s][0], a[m][s][1], a[m][s][2], a[m][s][3]);
+    for (int m = 0; m < MT; ++m) f[m] = Trunk::template from_regs<NK>(a[m], s);
     qv_kstep<MT, NJ, Trunk>(f, w, s, lane, s == 0, acc);
   }
 }
@@ -256,19 +365,25 @@ static __device__ __forceinline__ void qv_layer_regs(
 // a = f(acc + b) over the NT n-tiles: sums (g, 2t), (g, 2t + 1),
 // (g + 8, 2t), (g + 8, 2t + 1) of n-tile j become the next layer's A
 // fragment of k-step j, (g, 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1).
+// (round_sums: each sum rounded to bf16 before the bias is added, and f
+// rounds the sum with the bias.)
 template <int MT, int NT, class F>
 static __device__ __forceinline__ void qv_bias_map(
     const float (&acc)[MT][NT][4], const float* b, int t, F f,
-    float (&a)[MT][NT][4]) {
+    float (&a)[MT][NT][4], bool round_sums = false) {
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     const float2 bj = *reinterpret_cast<const float2*>(b + 8 * j + 2 * t);
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
-      a[m][j][0] = f(acc[m][j][0] + bj.x);
-      a[m][j][1] = f(acc[m][j][2] + bj.x);
-      a[m][j][2] = f(acc[m][j][1] + bj.y);
-      a[m][j][3] = f(acc[m][j][3] + bj.y);
+      float s[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        s[k] = round_sums ? qv_bf16(acc[m][j][k]) : acc[m][j][k];
+      a[m][j][0] = f(s[0] + bj.x);
+      a[m][j][1] = f(s[2] + bj.x);
+      a[m][j][2] = f(s[1] + bj.y);
+      a[m][j][3] = f(s[3] + bj.y);
     }
   }
 }
@@ -277,15 +392,26 @@ static __device__ __forceinline__ void qv_bias_map(
 // one out-of-line copy of qv_act. Inlining qv_act at each of the 64
 // elements of an epilogue, or a copy of the epilogue per activation, made
 // the kernel 6-9x larger and, on the H100, the relu path slower
-// (PERF.md).
-template <int MT, int NT>
+// (PERF.md). The bf16 trunk: a = act(bf16(bf16(acc) + b)), b bf16 values,
+// the activation in bf16 (qv_act_bf16).
+template <int MT, int NT, class Trunk>
 static __device__ __forceinline__ void qv_bias_act(
     const float (&acc)[MT][NT][4], const float* b, int t, int act,
     float (&a)[MT][NT][4]) {
-  if (act == 0)
-    qv_bias_map(acc, b, t, [](float x) { return fmaxf(x, 0.0f); }, a);
-  else
-    qv_bias_map(acc, b, t, [act](float x) { return qv_act_call(act, x); }, a);
+  if constexpr (Trunk::BF16) {
+    if (act == 0)
+      qv_bias_map(acc, b, t, [](float x) {
+        return fmaxf(qv_bf16(x), 0.0f); }, a, true);
+    else
+      qv_bias_map(acc, b, t, [act](float x) {
+        return qv_act_bf16(act, qv_bf16(x)); }, a, true);
+  } else {
+    if (act == 0)
+      qv_bias_map(acc, b, t, [](float x) { return fmaxf(x, 0.0f); }, a);
+    else
+      qv_bias_map(acc, b, t, [act](float x) { return qv_act_call(act, x); },
+                  a);
+  }
 }
 
 // The chain on the tile's rows row0 .. row0 + 16 MT - 1 (widths of NT
@@ -295,14 +421,18 @@ static __device__ __forceinline__ void qv_encode_rows(const QvEncoder& e,
                                                       int row0, int lane) {
   const int g = lane >> 2, t = lane & 3;
   float a[MT][NT][4], acc[MT][NT][4];
+  const typename Trunk::B* wb =
+      reinterpret_cast<const typename Trunk::B*>(e.wb);
   qv_layer_rows<MT, NT, Trunk>(e, row0, lane, acc);
-  qv_bias_act<MT, NT>(acc, e.b0, t, e.act, a);
+  qv_bias_act<MT, NT, Trunk>(acc, e.b0, t, e.act, a);
   for (int i = 0; i < e.nb; ++i) {
-    qv_layer_regs<MT, NT, NT, Trunk>(a, e.wb + i * NT * NT * 32, lane, acc);
-    qv_bias_act<MT, NT>(acc, e.bb + i * 8 * NT, t, e.act, a);
+    qv_layer_regs<MT, NT, NT, Trunk>(a, wb + i * (NT * 8 / Trunk::K) * NT * 32,
+                                     lane, acc);
+    qv_bias_act<MT, NT, Trunk>(acc, e.bb + i * 8 * NT, t, e.act, a);
   }
-  // the float32 head (U -> 5, one n-tile padded to 8): q = Wf h + bf
-  qv_layer_regs<MT, NT, 1, Trunk>(a, e.wf, lane, acc);
+  // the float32 head (U -> 5, one n-tile padded to 8): q = Wf h + bf, in
+  // 3xTF32 whatever the trunk (a bf16 activation splits into itself and 0)
+  qv_layer_regs<MT, NT, 1, QvTrunkF32>(a, e.wf, lane, acc);
   const float2 bj = *reinterpret_cast<const float2*>(e.bf + 2 * t);
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
@@ -325,7 +455,8 @@ static __device__ __forceinline__ void qv_encode_tile(
     const QvEncoder& e, const float* __restrict__ x, long long n,
     long long v0, int t_in, int channel_major, int mask_channel, int lane,
     float q[5]) {
-  qv_stage_row(e, x, n, v0 + lane, t_in, channel_major, mask_channel, lane);
+  qv_stage_row<Trunk>(e, x, n, v0 + lane, t_in, channel_major, mask_channel,
+                      lane);
   __syncwarp();
 #pragma unroll
   for (int row0 = 0; row0 < QV_TILE; row0 += 16 * MT)
@@ -336,17 +467,17 @@ static __device__ __forceinline__ void qv_encode_tile(
   __syncwarp();
 }
 
-template <int MT, int NT>
-__global__ void __launch_bounds__(QV_ENC_THREADS) qv_encode_quad_kernel(
+template <int MT, int NT, class Trunk>
+static __device__ __forceinline__ void qv_encode_quad_body(
     const float* __restrict__ x, long long n, int t_in, int channel_major,
     int mask_channel, int se_idx, int multi_image, int act, int up, int nb,
     const float* __restrict__ blob, int blob_len, int mvg, QvRanges r,
     float* __restrict__ means, float* __restrict__ vars,
     float* __restrict__ raw) {
   extern __shared__ float4 smem4[];
-  const QvEncoder e = qv_stage_encoder(reinterpret_cast<float*>(smem4), blob,
-                                       blob_len, t_in, mask_channel, se_idx,
-                                       multi_image, act, up, nb);
+  const QvEncoder e = qv_stage_encoder<Trunk>(
+      reinterpret_cast<float*>(smem4), blob, blob_len, t_in, mask_channel,
+      se_idx, multi_image, act, up, nb);
   const int lane = threadIdx.x & 31, warps = blockDim.x / 32;
   // the quadrature's scratch, after the warps' staging buffers
   float* scratch = reinterpret_cast<float*>(smem4) + blob_len
@@ -360,8 +491,8 @@ __global__ void __launch_bounds__(QV_ENC_THREADS) qv_encode_quad_kernel(
     const long long v = tile * QV_TILE + lane;
     float q[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
     if (tile < tiles)
-      qv_encode_tile<MT, NT, QvTrunkF32>(e, x, n, tile * QV_TILE, t_in,
-                                         channel_major, mask_channel, lane, q);
+      qv_encode_tile<MT, NT, Trunk>(e, x, n, tile * QV_TILE, t_in,
+                                    channel_major, mask_channel, lane, q);
     const bool live = v < n;
     // ---- quadrature summaries + raw-log-std transforms ---------------------
     float rw[3];
@@ -381,27 +512,72 @@ __global__ void __launch_bounds__(QV_ENC_THREADS) qv_encode_quad_kernel(
   }
 }
 
-template <int MT, int NT>
-__global__ void __launch_bounds__(QV_ENC_THREADS) qv_encode_q_kernel(
+template <int MT, int NT, class Trunk>
+static __device__ __forceinline__ void qv_encode_q_body(
     const float* __restrict__ x, long long n, int t_in, int channel_major,
     int mask_channel, int se_idx, int multi_image, int act, int up, int nb,
     const float* __restrict__ blob, int blob_len, float* __restrict__ q_out) {
   extern __shared__ float4 smem4[];
-  const QvEncoder e = qv_stage_encoder(reinterpret_cast<float*>(smem4), blob,
-                                       blob_len, t_in, mask_channel, se_idx,
-                                       multi_image, act, up, nb);
+  const QvEncoder e = qv_stage_encoder<Trunk>(
+      reinterpret_cast<float*>(smem4), blob, blob_len, t_in, mask_channel,
+      se_idx, multi_image, act, up, nb);
   const int lane = threadIdx.x & 31, warps = blockDim.x / 32;
   const long long tiles = (n + QV_TILE - 1) / QV_TILE;
   for (long long tile = (long long)blockIdx.x * warps + threadIdx.x / 32;
        tile < tiles; tile += (long long)gridDim.x * warps) {
     const long long v = tile * QV_TILE + lane;
     float q[5];
-    qv_encode_tile<MT, NT, QvTrunkF32>(e, x, n, tile * QV_TILE, t_in,
-                                   channel_major, mask_channel, lane, q);
+    qv_encode_tile<MT, NT, Trunk>(e, x, n, tile * QV_TILE, t_in,
+                                  channel_major, mask_channel, lane, q);
     if (v >= n) continue;
 #pragma unroll
     for (int j = 0; j < 5; ++j) q_out[(long long)j * n + v] = q[j];
   }
+}
+
+// Kernels B and C, float32 trunk (3xTF32) and bf16 trunk: one symbol each,
+// so that a profile and the SASS tell them apart.
+#define QV_QUAD_ARGS                                                          \
+  const float *__restrict__ x, long long n, int t_in, int channel_major,      \
+      int mask_channel, int se_idx, int multi_image, int act, int up, int nb, \
+      const float *__restrict__ blob, int blob_len, int mvg, QvRanges r,      \
+      float *__restrict__ means, float *__restrict__ vars,                    \
+      float *__restrict__ raw
+#define QV_Q_ARGS                                                             \
+  const float *__restrict__ x, long long n, int t_in, int channel_major,      \
+      int mask_channel, int se_idx, int multi_image, int act, int up, int nb, \
+      const float *__restrict__ blob, int blob_len, float *__restrict__ q_out
+
+template <int MT, int NT>
+__global__ void __launch_bounds__(QV_ENC_THREADS)
+    qv_encode_quad_kernel(QV_QUAD_ARGS) {
+  qv_encode_quad_body<MT, NT, QvTrunkF32>(
+      x, n, t_in, channel_major, mask_channel, se_idx, multi_image, act, up,
+      nb, blob, blob_len, mvg, r, means, vars, raw);
+}
+
+template <int MT, int NT>
+__global__ void __launch_bounds__(QV_ENC_THREADS)
+    qv_encode_quad_bf16_kernel(QV_QUAD_ARGS) {
+  qv_encode_quad_body<MT, NT, QvTrunkBF16>(
+      x, n, t_in, channel_major, mask_channel, se_idx, multi_image, act, up,
+      nb, blob, blob_len, mvg, r, means, vars, raw);
+}
+
+template <int MT, int NT>
+__global__ void __launch_bounds__(QV_ENC_THREADS)
+    qv_encode_q_kernel(QV_Q_ARGS) {
+  qv_encode_q_body<MT, NT, QvTrunkF32>(x, n, t_in, channel_major,
+                                       mask_channel, se_idx, multi_image, act,
+                                       up, nb, blob, blob_len, q_out);
+}
+
+template <int MT, int NT>
+__global__ void __launch_bounds__(QV_ENC_THREADS)
+    qv_encode_q_bf16_kernel(QV_Q_ARGS) {
+  qv_encode_q_body<MT, NT, QvTrunkBF16>(x, n, t_in, channel_major,
+                                        mask_channel, se_idx, multi_image, act,
+                                        up, nb, blob, blob_len, q_out);
 }
 
 // Grid of a grid-stride encode kernel: as many blocks as the tiles need, at
@@ -479,4 +655,30 @@ extern "C" int qv_encode_q1(const float* x, long long n, int t_in,
   QV_ENCODE_DISPATCH(qv_encode_q_kernel, up, n, block, smem_bytes, stream, x,
                      n, t_in, channel_major, mask_channel, se_idx, multi_image,
                      act, up, nb, blob, blob_len, q)
+}
+
+// The bf16 trunk's kernels B and C: the float32 entries' arguments, with
+// ops/fused_infer.py::_weight_blob's bf16 layout of the blob.
+extern "C" int qv_encode_quad_fused_bf16(
+    const float* x, long long n, int t_in, int channel_major,
+    int mask_channel, int se_idx, int multi_image, int act, int u, int up,
+    int nb, const float* blob, int blob_len, QvRanges r, float* means,
+    float* vars, float* raw, int mvg, int block, long long smem_bytes,
+    void* stream) {
+  (void)u;
+  QV_ENCODE_DISPATCH(qv_encode_quad_bf16_kernel, up, n, block, smem_bytes,
+                     stream, x, n, t_in, channel_major, mask_channel, se_idx,
+                     multi_image, act, up, nb, blob, blob_len, mvg, r, means,
+                     vars, raw)
+}
+
+extern "C" int qv_encode_q1_bf16(const float* x, long long n, int t_in,
+                                 int channel_major, int mask_channel,
+                                 int se_idx, int multi_image, int act, int up,
+                                 int nb, const float* blob, int blob_len,
+                                 float* q, int block, long long smem_bytes,
+                                 void* stream) {
+  QV_ENCODE_DISPATCH(qv_encode_q_bf16_kernel, up, n, block, smem_bytes,
+                     stream, x, n, t_in, channel_major, mask_channel, se_idx,
+                     multi_image, act, up, nb, blob, blob_len, q)
 }

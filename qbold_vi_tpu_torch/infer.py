@@ -8,13 +8,15 @@ the device a chunk of subjects at a time. Two streams and two estimators,
 as in the JAX package:
 
 * stream 1 (``use_first_op=True``, pretrained weights) with
-  ``fused_infer`` resolved on: with ``method="quadrature"`` ONE kernel per
-  chunk, ops/fused_infer.py::encode_quad_fused (mask, normalise, dense
-  chain, head, quadrature, raw-log-std transforms); with ``method="mc"``
-  the encode kernel encode_q1_packed (q (5, N)) and then the sampled
-  summaries, ops/summarize.py::mc_posterior_summaries_packed;
+  ``fused_infer`` resolved on, its trunk at the encoder's dtype
+  (``compute_dtype``; JAX infer.py:144): with ``method="quadrature"``
+  ONE kernel per chunk, ops/fused_infer.py::encode_quad_fused (mask,
+  normalise, dense chain, head, quadrature, raw-log-std transforms); with
+  ``method="mc"`` the encode kernel encode_q1_packed (q (5, N)) and then
+  the sampled summaries, ops/summarize.py::mc_posterior_summaries_packed;
 * stream 2 (``use_first_op=False``, fine-tuned weights), or stream 1 with
-  ``fused_infer`` off: the encoder (torch Linear in full float32; its 3x3
+  ``fused_infer`` off: the encoder (its trunk in float32 with TF32 off,
+  or in bf16 with float32 sums under ``compute_dtype="bfloat16"``; its 3x3
   convs by cuDNN, or by kernel H under ``fused_conv="on"``) and then
   ops/quadrature.py::quad_posterior_summaries or
   ops/summarize.py::mc_posterior_summaries on the (N, K) rows.
@@ -169,10 +171,12 @@ def _raw_log_stds(tuner: FineTuner, q: torch.Tensor, dim: int):
 
 def _chunk_fused(tuner: FineTuner, block: torch.Tensor, mc) -> dict:
     cfg = tuner.cfg
+    trunk = ("bfloat16" if tuner.encoder.dtype == torch.bfloat16
+             else "float32")
     enc = dict(se_idx=tuner.scan.se_idx,
                multi_image=cfg.multi_image_normalisation,
                activation=cfg.activation,
-               n_blocks=cfg.no_intermediate_layers, trunk="float32",
+               n_blocks=cfg.no_intermediate_layers, trunk=trunk,
                mask_channel=True, input_layout="voxel")
     if mc is None:
         means, variances, raw = encode_quad_fused(

@@ -15,16 +15,29 @@ weight bridge (io/from_jax.py) is a rename and a transpose:
   (qbold_vi_tpu/models/encoder.py:83-127): "on" and "interpret" run kernel
   H (ops/conv3x3.py; its plain version on a CPU tensor) on the NHWC
   activations and the HWIO view of the OIHW weight; "auto" and "off" run
-  cuDNN on an NCHW view. A plane smaller than 3 x 3 goes to cuDNN under
-  "on" and raises under "interpret". The parameters are ``nn.Conv2d``'s
-  either way, so the bridge and saved state_dicts do not see the flag.
+  cuDNN on an NCHW view (in bf16 with the bias added after the rounding,
+  as flax's nn.Conv adds it). A plane smaller than 3 x 3 raises under "on"
+  and "interpret" (the JAX package silently takes nn.Conv under "on";
+  the port's forced modes raise, as ``fused_elbo`` and
+  ``fused_decode_nll`` do). The parameters are ``nn.Conv2d``'s either
+  way, so the bridge and saved state_dicts do not see the flag.
 
-Numerics: the trunk runs in float32 ("auto" resolves to float32, as the
-JAX package does off TPU; "bfloat16" is not ported yet and raises).
-cuDNN runs float32 convolutions in TF32 by default on Hopper, which
-keeps about three decimal digits; ``forward`` therefore turns TF32 off
-for both cuDNN and matmuls for its duration (``_full_fp32``) and
-restores the caller's settings afterwards.
+Numerics: ``compute_dtype`` sets the trunk's dtype (``_dtype_of``):
+"auto" and "float32" resolve to float32, as the JAX package resolves
+"auto" off the TPU, and "bfloat16" runs the trunk in bf16 as flax's
+``dtype=jnp.bfloat16`` does. The parameters stay float32; each trunk
+layer (the first Dense, each block's shared and gate Dense, both 3x3
+convs) casts its input, weight and bias to bf16, so a gradient flows
+back through those casts and reaches a float32 parameter rounded to
+bf16. A Dense rounds its float32 sums to bf16 and then adds the bf16
+bias in bf16 (``_dense``); activations, the gate's sigmoid and the
+blend run in bf16; GroupNorm takes its statistics in float32 and, as
+flax's does with float32 parameters, returns float32; the heads run in
+float32 on the float32-cast features. cuDNN runs float32 convolutions
+in TF32 by default on Hopper, which keeps about three decimal digits,
+and cuBLAS may reduce bf16 products in bf16 (split-K); ``forward``
+therefore turns TF32 and reduced-precision bf16 reductions off for its
+duration (``_full_fp32``) and restores the caller's settings afterwards.
 """
 
 from __future__ import annotations
@@ -56,9 +69,44 @@ def normalise_data(data: torch.Tensor, se_idx: int,
     return torch.log(data / ref)
 
 
-def activation_fn(name: str):
+def _sigmoid_steps(x):
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def _const(value: float, x: torch.Tensor) -> torch.Tensor:
+    """A constant in x's dtype, as JAX rounds a weak-typed Python float
+    (torch would keep a Python scalar in float32 on the card)."""
+    return torch.tensor(value, dtype=x.dtype, device=x.device)
+
+
+def _gelu_steps(x):
+    inner = x + _const(0.044715, x) * (x * x * x)
+    return x * (0.5 * (1.0 + torch.tanh(_const(math.sqrt(2.0 / math.pi), x)
+                                        * inner)))
+
+
+# jax.nn's definitions, one torch op a step: in bf16 each step rounds where
+# JAX's rounds (sigmoid 1 / (1 + exp(-x)), softplus logaddexp(x, 0), gelu's
+# tanh form, leaky_relu's slope rounded to bf16); in float32 the single ops
+# below agree to float32 rounding
+_STEPS = {
+    "sigmoid": _sigmoid_steps,
+    "softplus": lambda x: torch.clamp(x, min=0.0)
+    + torch.log1p(torch.exp(-torch.abs(x))),
+    "gelu": _gelu_steps,
+    "silu": lambda x: x * _sigmoid_steps(x),
+    "swish": lambda x: x * _sigmoid_steps(x),
+    "leaky_relu": lambda x: torch.where(x >= 0, x, _const(0.01, x) * x),
+}
+
+
+def activation_fn(name: str, dtype: torch.dtype = torch.float32):
     """The torch form of a flax activation name (``nn.gelu`` is the tanh
-    approximation; ``leaky_relu``'s slope is 0.01, as in ``jax.nn``)."""
+    approximation; ``leaky_relu``'s slope is 0.01, as in ``jax.nn``). For
+    a bf16 trunk the compositions of ``jax.nn`` step by step, so that each
+    intermediate rounds to bf16 as the JAX package's does."""
+    if dtype != torch.float32 and name in _STEPS:
+        return _STEPS[name]
     table = {
         "relu": F.relu,
         "gelu": lambda x: F.gelu(x, approximate="tanh"),
@@ -78,38 +126,55 @@ def activation_fn(name: str):
 
 
 def _dtype_of(cfg: ModelConfig) -> torch.dtype:
+    """The trunk's dtype: "auto" is float32 (the JAX package's "auto" off
+    the TPU), "bfloat16" bf16; anything else raises."""
     if cfg.compute_dtype in ("auto", "float32"):
         return torch.float32
     if cfg.compute_dtype == "bfloat16":
-        raise NotImplementedError(
-            "compute_dtype='bfloat16' is not ported yet (ROADMAP.md, "
-            "Queue 2: kernel B's bf16 trunk)")
+        return torch.bfloat16
     raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
 
 
 @contextlib.contextmanager
 def _full_fp32():
-    """Run float32 convs and matmuls in full float32 (no TF32)."""
-    cudnn = torch.backends.cudnn.allow_tf32
-    matmul = torch.backends.cuda.matmul.allow_tf32
+    """Run float32 convs and matmuls in full float32 (no TF32), and bf16
+    matmuls with float32 reductions."""
+    matmul = torch.backends.cuda.matmul
+    saved = (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+             matmul.allow_bf16_reduced_precision_reduction)
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    matmul.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = cudnn
-        torch.backends.cuda.matmul.allow_tf32 = matmul
+        (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+         matmul.allow_bf16_reduced_precision_reduction) = saved
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor,
+           dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=dtype)``: in float32 the layer itself; in
+    bf16 the input, weight and bias cast to bf16, the product's float32
+    sums rounded to bf16, then the bias added in bf16."""
+    if dtype == torch.float32:
+        return layer(x)
+    return F.linear(x.to(dtype), layer.weight.to(dtype)) \
+        + layer.bias.to(dtype)
 
 
 class ConvXY(nn.Module):
     """3x3x1 'Conv3D' as a z-folded 2-D conv on channels-last input:
     5-D (B, X, Y, Z, C) (folded and unfolded around the conv) or already
-    folded 4-D (B*Z, X, Y, C). ``fused`` is cfg.fused_conv."""
+    folded 4-D (B*Z, X, Y, C). ``fused`` is cfg.fused_conv; ``dtype`` the
+    trunk's: the input, weight and bias are cast to it."""
 
-    def __init__(self, features: int, *, fused: str = "off", device=None):
+    def __init__(self, features: int, *, fused: str = "off",
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.fused = normalize_mode(fused, ("auto", "on", "off", "interpret"),
                                     "fused_conv")
+        self.dtype = dtype
         self.Conv_0 = nn.Conv2d(features, features, 3, padding=1,
                                 device=device)
 
@@ -118,20 +183,25 @@ class ConvXY(nn.Module):
         # forced (qbold_vi_tpu/models/encoder.py:90-96)
         if self.fused in ("auto", "off"):
             return False
-        if conv3x3_available(h, w):
-            return True
-        if self.fused == "interpret":
-            raise ValueError("fused_conv was forced to 'interpret' but the "
-                             f"plane is smaller than the 3x3 window: {h} x {w}")
-        return False
+        if not conv3x3_available(h, w):
+            raise ValueError(f"fused_conv was forced to {self.fused!r} but "
+                             "the plane is smaller than the 3x3 window: "
+                             f"{h} x {w}")
+        return True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.ndim == 4:
-            conv = self.Conv_0
+            dt = self.dtype
+            x = x.to(dt)
+            w, b = self.Conv_0.weight.to(dt), self.Conv_0.bias.to(dt)
             if self._use_kernel(x.shape[1], x.shape[2]):
-                return conv3x3(x.contiguous(), conv.weight.permute(2, 3, 1, 0)
-                               .contiguous(), conv.bias)
-            y = conv(x.permute(0, 3, 1, 2))
+                return conv3x3(x.contiguous(),
+                               w.permute(2, 3, 1, 0).contiguous(), b)
+            x = x.permute(0, 3, 1, 2)
+            if dt == torch.float32:
+                y = F.conv2d(x, w, b, padding=1)
+            else:   # nn.Conv(dtype=bf16): rounded to bf16, then the bias
+                y = F.conv2d(x, w, None, padding=1) + b[:, None, None]
             return y.permute(0, 2, 3, 1)
         b, h, w, d, c = x.shape
         x2 = x.permute(0, 3, 1, 2, 4).reshape(b * d, h, w, c)
@@ -142,7 +212,9 @@ class ConvXY(nn.Module):
 class _GroupNorm1(nn.Module):
     """flax GroupNorm(num_groups=1) on channels-last input: statistics
     over all non-batch axes, variance as E[x^2] - E[x]^2 clipped at 0,
-    epsilon 1e-6, per-channel scale and bias."""
+    epsilon 1e-6, per-channel scale and bias. A bf16 input is taken in
+    float32 and the output is float32, as flax promotes it with the
+    float32 parameters."""
 
     def __init__(self, features: int, *, device=None):
         super().__init__()
@@ -150,6 +222,7 @@ class _GroupNorm1(nn.Module):
         self.bias = nn.Parameter(torch.empty(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
         dims = tuple(range(1, x.ndim))
         mean = x.mean(dim=dims, keepdim=True)
         mean2 = (x * x).mean(dim=dims, keepdim=True)
@@ -168,10 +241,14 @@ class GatedResBlock(nn.Module):
         super().__init__()
         u = cfg.no_units
         self.cfg = cfg
-        self.act = activation_fn(cfg.activation)
+        self.dtype = dt = _dtype_of(cfg)
+        self.act = activation_fn(cfg.activation, dt)
+        self.sigmoid = activation_fn("sigmoid", dt)
         self.Dense_0 = nn.Linear(u, u, device=device)       # shared
-        self.ConvXY_0 = ConvXY(u, fused=cfg.fused_conv, device=device)
-        self.ConvXY_1 = ConvXY(u, fused=cfg.fused_conv, device=device)
+        self.ConvXY_0 = ConvXY(u, fused=cfg.fused_conv, dtype=dt,
+                               device=device)
+        self.ConvXY_1 = ConvXY(u, fused=cfg.fused_conv, dtype=dt,
+                               device=device)
         self.Dense_1 = nn.Linear(u, u if cfg.channelwise_gating else 1,
                                  device=device)              # gate
         if cfg.use_layer_norm:
@@ -179,18 +256,19 @@ class GatedResBlock(nn.Module):
             self.GroupNorm_1 = _GroupNorm1(u, device=device)
 
     def stream1(self, net1: torch.Tensor) -> torch.Tensor:
-        return self.act(self.Dense_0(net1))
+        return self.act(_dense(self.Dense_0, net1, self.dtype))
 
     def forward(self, net1, net2):
         cfg, act = self.cfg, self.act
         out1 = self.stream1(net1)
-        skip = act(self.Dense_0(net2))
+        skip = act(_dense(self.Dense_0, net2, self.dtype))
         h = self.GroupNorm_0(net2) if cfg.use_layer_norm else net2
         h = self.ConvXY_0(act(h))
         if cfg.use_layer_norm:
             h = self.GroupNorm_1(h)
         h = self.ConvXY_1(act(h))
-        gate = torch.sigmoid(self.Dense_1(h) + cfg.gate_offset)
+        gate = self.sigmoid(_dense(self.Dense_1, h, self.dtype)
+                            + cfg.gate_offset)
         out2 = skip * (1.0 - gate) + h * gate
         return out1, out2
 
@@ -205,10 +283,10 @@ class Encoder(nn.Module):
     def __init__(self, cfg: ModelConfig, n_taus: int, se_idx: int, *,
                  device=None):
         super().__init__()
-        _dtype_of(cfg)
+        self.dtype = _dtype_of(cfg)
         u = cfg.no_units
         self.cfg, self.n_taus, self.se_idx = cfg, n_taus, se_idx
-        self.act = activation_fn(cfg.activation)
+        self.act = activation_fn(cfg.activation, self.dtype)
         self.first_conv = nn.Linear(n_taus, u, device=device)
         for i in range(cfg.no_intermediate_layers):
             self.add_module(f"block_{i}", GatedResBlock(cfg, device=device))
@@ -226,7 +304,7 @@ class Encoder(nn.Module):
         """Raw images (..., T) -> post-first-conv features (..., U)."""
         x = normalise_data(images, self.se_idx,
                            self.cfg.multi_image_normalisation)
-        return self.act(self.first_conv(x))
+        return self.act(_dense(self.first_conv, x, self.dtype))
 
     def _hyper(self, out1: torch.Tensor) -> torch.Tensor:
         if not self.cfg.infer_inv_gamma:
@@ -241,7 +319,7 @@ class Encoder(nn.Module):
             h = self.embed(images)
             for blk in self.blocks:
                 h = blk.stream1(h)
-            return self._hyper(self.final(h))
+            return self._hyper(self.final(h.float()))
 
     def forward(self, images: torch.Tensor):
         with _full_fp32():
@@ -260,6 +338,8 @@ class Encoder(nn.Module):
             net1 = net2 = features
             for blk in self.blocks:
                 net1, net2 = blk(net1, net2)
+            # the heads run in float32 on the float32-cast features
+            net1, net2 = net1.float(), net2.float()
             out1 = self._hyper(unfold(self.final(net1)))
             out2 = unfold(self.final(net2))
             sigma = unfold(torch.exp(self.sigma_head(net2)))

@@ -112,6 +112,11 @@ _SIGNATURES = {
         _P, _P, _P, _I, _I, _LL, _P],
     "qv_encode_q1": [
         _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _LL, _P],
+    "qv_encode_quad_fused_bf16": [
+        _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, QvRanges,
+        _P, _P, _P, _I, _I, _LL, _P],
+    "qv_encode_q1_bf16": [
+        _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _LL, _P],
     "qv_max_dynamic_smem": [],
     "qv_quad_scratch_floats": [_I],
     "qv_decode_nll_fwd": [
@@ -133,6 +138,9 @@ _SIGNATURES = {
     "qv_conv3x3_fwd": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "qv_conv3x3_dx": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "qv_conv3x3_dw": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _LL, _I, _P],
+    "qv_conv3x3_fwd_bf16": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "qv_conv3x3_dx_bf16": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "qv_conv3x3_dw_bf16": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _LL, _I, _P],
     "qv_conv3x3_dw_slots": [ctypes.POINTER(ctypes.c_int)],
     "qv_synth_grid": [_LL],
     "qv_synth_batch": [

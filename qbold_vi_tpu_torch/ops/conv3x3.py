@@ -1,21 +1,27 @@
 """The encoder trunk's 3x3 SAME convolution, forward and backward (kernel H).
 
 The counterpart of ``qbold_vi_tpu/ops/pallas_conv.py::make_conv3x3``:
-``nn.Conv((3, 3), padding="SAME")`` on channels-last float32 x (N, H, W, Ci)
-with weights (3, 3, Ci, Co) HWIO and bias (Co,), giving (N, H, W, Co), with
-a closed-form backward for dx, dw and db.
+``nn.Conv((3, 3), padding="SAME")`` on channels-last x (N, H, W, Ci) with
+weights (3, 3, Ci, Co) HWIO and bias (Co,), giving (N, H, W, Co), with a
+closed-form backward for dx, dw and db. x, w and b share one dtype, the
+activations': float32, or bfloat16 (the trunk at ``compute_dtype=
+"bfloat16"``), where every sum is float32 and each output is rounded to
+bf16 once -- y after the bias is added in float32, dx from its sums, dw
+and db after their sums over all pixels (pallas_conv.py:105-113, 280-281).
 
 * ``conv3x3_plain`` / ``conv3x3_grads_plain``: the plain torch versions --
   nine shifted products of the zero-padded input summed in float32, and
   their closed-form gradients (dx is the same sum on the cotangent with the
   taps flipped and transposed; dw and db are sums over all pixels);
 * ``conv3x3_forward`` / ``conv3x3_backward``: the wrappers of the
-  hand-written kernel ``csrc/conv3x3.cu`` (tensor cores, 3xTF32 products:
-  float32 accuracy). A CUDA tensor launches it or raises; a CPU tensor
-  runs the plain version. Launches are counted in ``conv3x3.fwd_launches``
-  and ``conv3x3.bwd_launches`` (a forward call launches the weight split
-  and the conv; one backward call launches dx with its weight split, when
-  the input needs a gradient, and the two passes of dw and db);
+  hand-written kernel ``csrc/conv3x3.cu`` (tensor cores: 3xTF32 products
+  at float32 accuracy, bf16 products with float32 sums at bf16). A CUDA
+  tensor launches it or raises; a CPU tensor runs the plain version.
+  Launches are counted in ``conv3x3.fwd_launches`` and
+  ``conv3x3.bwd_launches``, the bf16 kernels' in ``conv3x3.fwd_bf16_launches``
+  and ``conv3x3.bwd_bf16_launches`` (a forward call launches the weight
+  split and the conv; one backward call launches dx with its weight split,
+  when the input needs a gradient, and the two passes of dw and db);
 * ``conv3x3``: the op as a ``torch.autograd.Function``.
 
 The encoder keeps its conv weight OIHW (``nn.Conv2d``, the bridged
@@ -56,7 +62,10 @@ def _taps(xp: torch.Tensor, h: int, w: int):
 def conv3x3_plain(x: torch.Tensor, w_hwio: torch.Tensor,
                   b: torch.Tensor) -> torch.Tensor:
     """y[n, h, w] = b + sum over the nine taps of xpad[n, h + dy, w + dx]
-    @ w[dy, dx], in float32."""
+    @ w[dy, dx], in float32 (bf16 operands: their products summed and the
+    bias added in float32, then one rounding to bf16)."""
+    if x.dtype == torch.bfloat16:
+        return conv3x3_plain(x.float(), w_hwio.float(), b.float()).to(x.dtype)
     n, h, wd, _ = x.shape
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
     acc = None
@@ -68,7 +77,12 @@ def conv3x3_plain(x: torch.Tensor, w_hwio: torch.Tensor,
 
 def conv3x3_grads_plain(x: torch.Tensor, w_hwio: torch.Tensor,
                         ct: torch.Tensor, need_dx: bool = True):
-    """(dx or None, dw, db) of sum(ct * conv3x3_plain(x, w, b))."""
+    """(dx or None, dw, db) of sum(ct * conv3x3_plain(x, w, b)); bf16
+    operands: float32 sums, each gradient rounded to bf16 once."""
+    if x.dtype == torch.bfloat16:
+        grads = conv3x3_grads_plain(x.float(), w_hwio.float(), ct.float(),
+                                    need_dx)
+        return tuple(g if g is None else g.to(x.dtype) for g in grads)
     n, h, wd, ci = x.shape
     co = ct.shape[-1]
     dx = None
@@ -101,23 +115,40 @@ def _check_shapes(x, w_hwio, b=None, ct=None):
 
 def _check_cuda(x, w_hwio, b=None, ct=None):
     """Device, dtype and layout the kernel takes; raises otherwise."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the conv3x3 kernel takes float32 or bfloat16, got "
+                        f"{x.dtype}")
     for t in (x, w_hwio, b, ct):
         if t is None:
             continue
-        if t.device.type != "cuda" or t.dtype != torch.float32 \
+        if t.device.type != "cuda" or t.dtype != x.dtype \
                 or t.device != x.device:
-            raise TypeError(f"the conv3x3 kernel takes float32 tensors on one "
-                            f"CUDA device, got {t.dtype} on {t.device}")
+            raise TypeError(f"the conv3x3 kernel takes tensors of one dtype "
+                            f"on one CUDA device, got {t.dtype} on {t.device} "
+                            f"beside {x.dtype} on {x.device}")
         if not t.is_contiguous():
             raise ValueError("the conv3x3 kernel takes contiguous tensors "
                              "(x and the cotangent NHWC, w HWIO)")
 
 
 def _weight_scratch(x: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
-    """The kernel's 3xTF32 weight fragments for cin -> cout: 9 taps x
-    ceil(cin / 8) k-steps x ceil(cout / 64) * 8 column tiles x 32 lanes x
-    4 floats (csrc/conv3x3.cu, qv_conv3x3_wsplit_kernel)."""
-    return x.new_empty(9 * -(-cin // 8) * 8 * -(-cout // 64) * 32 * 4)
+    """The kernel's weight fragments for cin -> cout, as float32 words
+    (csrc/conv3x3.cu, qv_conv3x3_wsplit_kernel): 9 taps x ceil(cin / 8)
+    k-steps x ceil(cout / 64) * 8 column tiles x 32 lanes x 4 floats of
+    3xTF32 hi / lo pairs; for bf16, k-steps of 16 and 2 words of two bf16
+    each."""
+    if x.dtype == torch.bfloat16:
+        words = 9 * -(-cin // 16) * 8 * -(-cout // 64) * 32 * 2
+    else:
+        words = 9 * -(-cin // 8) * 8 * -(-cout // 64) * 32 * 4
+    return torch.empty(words, device=x.device, dtype=torch.float32)
+
+
+def _entry(name: str, x: torch.Tensor):
+    """The C entry of kernel H's pass ``name`` for x's dtype."""
+    lib = _cuda.library()
+    return getattr(lib, name + ("_bf16" if x.dtype == torch.bfloat16
+                                else ""))
 
 
 @functools.lru_cache(maxsize=None)
@@ -159,13 +190,16 @@ def conv3x3_forward(x: torch.Tensor, w_hwio: torch.Tensor,
     if n == 0:
         return y
     with torch.cuda.device(x.device):
-        err = _cuda.library().qv_conv3x3_fwd(
+        err = _entry("qv_conv3x3_fwd", x)(
             x.data_ptr(), w_hwio.data_ptr(), b.data_ptr(),
             _weight_scratch(x, ci, co).data_ptr(), y.data_ptr(),
             n * h * wd, h, wd, ci, co,
             torch.cuda.current_stream(x.device).cuda_stream)
     _cuda.check(err, "conv3x3 forward")
-    conv3x3.fwd_launches += 1
+    if x.dtype == torch.bfloat16:
+        conv3x3.fwd_bf16_launches += 1
+    else:
+        conv3x3.fwd_launches += 1
     return y
 
 
@@ -174,8 +208,9 @@ def conv3x3_backward(x: torch.Tensor, w_hwio: torch.Tensor, ct: torch.Tensor,
     """(dx or None, dw (3, 3, Ci, Co), db (Co,)) of sum(ct * conv(x, w, b)).
     CUDA: kernel H's dx pass (when ``need_dx``) and its two-pass dw/db
     reduction, counted once in ``conv3x3.bwd_launches``; the reduction adds
-    its partial sums in a fixed order, so dw is the same bits in every run.
-    CPU: the plain version."""
+    its float32 partial sums in a fixed order (then rounds them to bf16
+    for a bf16 x), so dw is the same bits in every run. CPU: the plain
+    version."""
     _check_shapes(x, w_hwio, ct=ct)
     if _device_of(x) == "cpu":
         return conv3x3_grads_plain(x, w_hwio, ct, need_dx)
@@ -184,25 +219,26 @@ def conv3x3_backward(x: torch.Tensor, w_hwio: torch.Tensor, ct: torch.Tensor,
     co = w_hwio.shape[-1]
     np_ = n * h * wd
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    lib = _cuda.library()
     dx = x.new_empty(x.shape) if need_dx else None
     out = (x.new_empty if np_ else x.new_zeros)(9 * ci * co + co)
     with torch.cuda.device(x.device):
         if need_dx and np_:
-            _cuda.check(lib.qv_conv3x3_dx(ct.data_ptr(), w_hwio.data_ptr(),
-                                          _weight_scratch(x, co, ci)
-                                          .data_ptr(), dx.data_ptr(), np_,
-                                          h, wd, ci, co, stream),
-                        "conv3x3 dx")
+            _cuda.check(_entry("qv_conv3x3_dx", x)(
+                ct.data_ptr(), w_hwio.data_ptr(),
+                _weight_scratch(x, co, ci).data_ptr(), dx.data_ptr(), np_,
+                h, wd, ci, co, stream), "conv3x3 dx")
         if np_:
             chunk = _dw_chunk(np_, ci, co, _dw_slots(x.device))
             nb = -(-np_ // chunk)
-            part = x.new_empty((nb, out.numel()))
-            _cuda.check(lib.qv_conv3x3_dw(x.data_ptr(), ct.data_ptr(),
-                                          part.data_ptr(), out.data_ptr(),
-                                          np_, h, wd, ci, co, chunk, nb,
-                                          stream), "conv3x3 dw/db")
-    conv3x3.bwd_launches += 1
+            part = torch.empty((nb, out.numel()), device=x.device,
+                               dtype=torch.float32)
+            _cuda.check(_entry("qv_conv3x3_dw", x)(
+                x.data_ptr(), ct.data_ptr(), part.data_ptr(), out.data_ptr(),
+                np_, h, wd, ci, co, chunk, nb, stream), "conv3x3 dw/db")
+    if x.dtype == torch.bfloat16:
+        conv3x3.bwd_bf16_launches += 1
+    else:
+        conv3x3.bwd_launches += 1
     return dx, out[:9 * ci * co].view(3, 3, ci, co), out[9 * ci * co:]
 
 
@@ -230,5 +266,5 @@ def conv3x3(x: torch.Tensor, w_hwio: torch.Tensor,
     return _Conv3x3.apply(x, w_hwio, b)
 
 
-conv3x3.fwd_launches = 0
-conv3x3.bwd_launches = 0
+conv3x3.fwd_launches = conv3x3.bwd_launches = 0
+conv3x3.fwd_bf16_launches = conv3x3.bwd_bf16_launches = 0

@@ -14,7 +14,8 @@ residual path -- so the whole serving program is one pass per voxel:
 ``encode_quad_fused`` is the wrapper of kernel B: for a CUDA tensor it
 launches the hand-written kernel of csrc/encode_quad.cu (q never leaves
 the chip's registers and shared memory) and counts the launch in
-``encode_quad_fused.launches``; for a CPU tensor it runs
+``encode_quad_fused.launches`` (the bf16 trunk's kernel in
+``encode_quad_fused.bf16_launches``); for a CPU tensor it runs
 ``encode_quad_fused_plain``, the plain torch version of the same math.
 ``encode_q1_packed`` is the wrapper of kernel C, which shares B's encode
 routine and writes the raw head ``q (5, N)`` for the MC summaries
@@ -27,6 +28,15 @@ brain mask, multiplied in before the clip. Returns channel-major
 ``(means (3, N), vars (3, N), raw (3, N))`` with raw = (log-std0,
 log-std1, offdiag), row 2 zero for diagonal heads. Unlike the TPU
 kernel, nothing is padded: the outputs hold exactly N voxels.
+
+``trunk`` is the dense chain's dtype, as the JAX kernel's: "float32"
+(the kernel's products in 3xTF32, float32-accurate) or "bfloat16", whose
+rounding points are ``_encode_body``'s (pallas_infer.py:118-133): the
+normalised log signal is float32, then rounded to bf16; each layer's
+products take bf16 operands and a float32 sum, rounded to bf16; the bf16
+bias is added in bf16 and the activation runs in bf16 (jax.nn's
+composition, models/encoder.py::activation_fn); the head is float32 on the
+float32-cast features.
 """
 
 from __future__ import annotations
@@ -87,12 +97,15 @@ def _rows(images, input_layout: str):
 
 
 def _check_trunk(trunk: str) -> None:
-    if trunk == "bfloat16":
-        raise NotImplementedError(
-            "the bfloat16 trunk of the fused encode is not ported yet "
-            "(ROADMAP.md, Queue 2: kernel B's bf16 trunk)")
-    if trunk != "float32":
+    if trunk not in ("float32", "bfloat16"):
         raise ValueError(f"trunk must be float32|bfloat16, got {trunk!r}")
+
+
+def _mm_bf16(w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """w @ h on bf16 operands: their products (exact in float32) summed in
+    float32, then one rounding to bf16; float32 products whatever the
+    device's bf16 matmul flags."""
+    return (w.float() @ h.float()).to(torch.bfloat16)
 
 
 def encode_q_plain(images, encoder, *, se_idx: int, multi_image: bool,
@@ -102,7 +115,6 @@ def encode_q_plain(images, encoder, *, se_idx: int, multi_image: bool,
     raw stream-1 head ``q (5, N)``, channel-major (row 4 zero for
     diagonal heads)."""
     _check_trunk(trunk)
-    act = activation_fn(activation)
     x, channel_major = _rows(images, input_layout)
     x = (x if channel_major else x.T).to(torch.float32)
     wfc, bfc, wb, bb, wf, bf = _stream1_weights(encoder, n_blocks)
@@ -112,10 +124,18 @@ def encode_q_plain(images, encoder, *, se_idx: int, multi_image: bool,
         raise ValueError(f"images carry {x.shape[0]} tau channels but "
                          f"first_conv expects {wfc.shape[1]}")
     h = normalise_data(x.T, se_idx, multi_image).T      # (T, N)
-    h = act(wfc @ h + bfc)                              # (U, N)
+    if trunk == "float32":
+        act = activation_fn(activation)
+        h = act(wfc @ h + bfc)                          # (U, N)
+        for i in range(n_blocks):
+            h = act(wb[i] @ h + bb[i])
+        return wf @ h + bf                              # (5, N)
+    dt = torch.bfloat16
+    act = activation_fn(activation, dt)
+    h = act(_mm_bf16(wfc.to(dt), h.to(dt)) + bfc.to(dt))
     for i in range(n_blocks):
-        h = act(wb[i] @ h + bb[i])
-    return wf @ h + bf                                  # (5, N)
+        h = act(_mm_bf16(wb[i].to(dt), h) + bb[i].to(dt))
+    return wf @ h.float() + bf
 
 
 def encode_quad_fused_plain(images, encoder, *, se_idx: int,
@@ -160,27 +180,56 @@ def _fragments(w, kp: int, np_: int):
     return split.permute(3, 1, 2, 4, 0, 5).reshape(-1)
 
 
-def _weight_blob(encoder, n_blocks: int, device) -> tuple:
+def _fragments_bf16(w, kp: int, np_: int):
+    """The bf16 B fragments of a layer out = w @ in, w rounded to bf16 and
+    zero-padded to (np_, kp), as float32 words: [k-step s][n-tile j][lane
+    4g + t] -> two words of two bf16, the lower k in the low half: (w[8j +
+    g, 16s + 2t], w[.., 16s + 2t + 1]) and (w[.., 16s + 8 + 2t], w[..,
+    16s + 9 + 2t]) (csrc/mma_math.cuh)."""
+    wp = w.new_zeros((np_, kp), dtype=torch.bfloat16)
+    wp[:w.shape[0], :w.shape[1]] = w.to(torch.bfloat16)
+    # (n, k) = (8j + g, 16s + 8 half + 2t + pair) -> [s][j][g][t][half][pair]
+    frags = wp.reshape(np_ // 8, 8, kp // 16, 2, 4, 2).permute(2, 0, 1, 4, 3,
+                                                               5)
+    return frags.contiguous().reshape(-1).view(torch.float32)
+
+
+def _weight_blob(encoder, n_blocks: int, device, trunk: str = "float32"
+                 ) -> tuple:
     """The kernel's shared-memory image of the weights (layout in
-    csrc/encode_quad.cu): each layer's 3xTF32 B fragments in fragment
-    order, the width U zero-padded to Up (``_padded_width``) and the taus T
-    to a multiple of 8, then the padded biases and the quadrature node
-    table."""
+    csrc/encode_quad.cu): each layer's B fragments in fragment order --
+    3xTF32 hi / lo in k-steps of 8 for the float32 trunk, bf16 pairs in
+    k-steps of 16 for the bf16 trunk, whose biases are rounded to bf16;
+    the head's 3xTF32 in either -- the width U zero-padded to Up
+    (``_padded_width``) and the taus T to a whole k-step, then the padded
+    biases and the quadrature node table."""
     wfc, bfc, wb, bb, wf, bf = (t.to(device=device, dtype=torch.float32)
                                 for t in _stream1_weights(encoder, n_blocks))
     u, t = wfc.shape
-    up, tp = _padded_width(u), -(-t // 8) * 8
+    k = _k_step(trunk)
+    up, tp = _padded_width(u), -(-t // k) * k
+    if trunk == "float32":
+        trunk_frags = _fragments
+    else:
+        trunk_frags = _fragments_bf16
+        bfc, bb = (b.to(torch.bfloat16).float() for b in (bfc, bb))
 
     def pad(b, size):
         return torch.cat([b.reshape(-1), b.new_zeros(size - b.numel())])
 
     blob = torch.cat(
-        [_fragments(wfc, tp, up)]
-        + [_fragments(wb[i], up, up) for i in range(n_blocks)]
+        [trunk_frags(wfc, tp, up)]
+        + [trunk_frags(wb[i], up, up) for i in range(n_blocks)]
         + [_fragments(wf, up, 8), pad(bfc, up)]
         + [pad(bb[i], up) for i in range(n_blocks)]
         + [pad(bf, 8), _cuda.quad_consts(device)])
     return blob.contiguous(), u, up, t
+
+
+def _k_step(trunk: str) -> int:
+    """Channels a k-step of the trunk's products: 8 (m16n8k8 TF32) or 16
+    (m16n8k16 bf16)."""
+    return 8 if trunk == "float32" else 16
 
 
 def _padded_width(u: int) -> int:
@@ -193,9 +242,10 @@ def _padded_width(u: int) -> int:
     return -(-u // 8) * 8
 
 
-def _xs_stride(t: int) -> int:
-    """csrc/encode_quad.cu::qv_xs_stride: words a staged row."""
-    tp = -(-t // 8) * 8
+def _xs_stride(t: int, k: int = 8) -> int:
+    """csrc/encode_quad.cu::qv_xs_stride: words a staged row of T taps in
+    k-steps of k channels."""
+    tp = -(-t // k) * k
     return tp + 8 if tp % 16 == 0 else tp
 
 
@@ -216,7 +266,7 @@ def _launch_setup(images, encoder, *, n_blocks: int, activation: str,
     x, channel_major = _rows(images, input_layout)
     x = x.contiguous()
     t_in, n = x.shape if channel_major else x.shape[::-1]
-    blob, u, up, t = _weight_blob(encoder, n_blocks, images.device)
+    blob, u, up, t = _weight_blob(encoder, n_blocks, images.device, trunk)
     if t_in - int(mask_channel) != t:
         raise ValueError(f"images carry {t_in - int(mask_channel)} tau "
                          f"channels but first_conv expects {t}")
@@ -228,7 +278,8 @@ def _launch_setup(images, encoder, *, n_blocks: int, activation: str,
     with torch.cuda.device(images.device):
         limit = _cuda.library().qv_max_dynamic_smem()
     for warps in _WARPS:
-        smem = 4 * (blob.numel() + warps * 32 * (_xs_stride(t) + 5)
+        smem = 4 * (blob.numel() + warps * 32 * (_xs_stride(t, _k_step(trunk))
+                                                  + 5)
                      + (scratch_floats(32 * warps) if scratch_floats else 0))
         if smem <= limit:
             break
@@ -238,6 +289,12 @@ def _launch_setup(images, encoder, *, n_blocks: int, activation: str,
             f"n_blocks={n_blocks}, T={t} need {4 * blob.numel()} B of "
             f"shared memory, beyond this card's {limit} B per block")
     return x, channel_major, n, blob, u, up, 32 * warps, smem
+
+
+def _entry(name: str, trunk: str):
+    """The C entry of kernel B or C for the trunk's dtype."""
+    return getattr(_cuda.library(),
+                   name + ("_bf16" if trunk == "bfloat16" else ""))
 
 
 def _encode_args(x, n, channel_major, mask_channel, se_idx, multi_image,
@@ -275,7 +332,7 @@ def encode_quad_fused(images, encoder, *, se_idx: int, multi_image: bool,
     if n == 0:
         return tuple(outs)
     with torch.cuda.device(images.device):
-        err = _cuda.library().qv_encode_quad_fused(
+        err = _entry("qv_encode_quad_fused", trunk)(
             *_encode_args(x, n, channel_major, mask_channel, se_idx,
                           multi_image, activation),
             u, up, n_blocks, blob.data_ptr(), blob.numel(),
@@ -286,7 +343,10 @@ def encode_quad_fused(images, encoder, *, se_idx: int, multi_image: bool,
             int(mvg), block, smem,
             torch.cuda.current_stream(images.device).cuda_stream)
     _cuda.check(err, "fused-infer")
-    encode_quad_fused.launches += 1
+    if trunk == "bfloat16":
+        encode_quad_fused.bf16_launches += 1
+    else:
+        encode_quad_fused.launches += 1
     return tuple(outs)
 
 
@@ -297,7 +357,8 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
     """Fused stream-1 encode -> the raw head ``q (5, N)``, channel-major
     (row 4 zero for a diagonal head), with kernel B's contract for the
     layouts, the mask channel and the trunk. CUDA tensors launch kernel C
-    (counted in ``encode_q1_packed.launches``) or raise; CPU tensors run
+    (counted in ``encode_q1_packed.launches``, the bf16 trunk's in
+    ``encode_q1_packed.bf16_launches``) or raise; CPU tensors run
     ``encode_q_plain``. Unlike the TPU kernel, N is not padded."""
     kw = dict(se_idx=se_idx, multi_image=multi_image, activation=activation,
               n_blocks=n_blocks, trunk=trunk, mask_channel=mask_channel,
@@ -314,15 +375,18 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
     if n == 0:
         return q
     with torch.cuda.device(images.device):
-        err = _cuda.library().qv_encode_q1(
+        err = _entry("qv_encode_q1", trunk)(
             *_encode_args(x, n, channel_major, mask_channel, se_idx,
                           multi_image, activation),
             up, n_blocks, blob.data_ptr(), blob.numel(), q.data_ptr(),
             block, smem, torch.cuda.current_stream(images.device).cuda_stream)
     _cuda.check(err, "stream-1 encode")
-    encode_q1_packed.launches += 1
+    if trunk == "bfloat16":
+        encode_q1_packed.bf16_launches += 1
+    else:
+        encode_q1_packed.launches += 1
     return q
 
 
-encode_quad_fused.launches = 0
-encode_q1_packed.launches = 0
+encode_quad_fused.launches = encode_quad_fused.bf16_launches = 0
+encode_q1_packed.launches = encode_q1_packed.bf16_launches = 0

@@ -15,6 +15,12 @@ the noise, which needs the batch-mean signal per tau).
   ``synth_batch.noise_launches``); on the CPU the plain version fed
   ``synth_philox_draws`` -- the kernel's draws replayed on the host -- so
   one seed gives one batch on either device, up to float32 rounding.
+  Kernel S decodes the full SDR model only: a configuration with
+  ``train.full_model=False`` (the asymptotic tissue model) is routed by
+  its config, before any launch, to the plain version on the card, fed
+  the same replayed draws -- as a configuration kernel F leaves out is
+  routed to kernel G. The JAX package decodes either model in its batch
+  (qbold_vi_tpu/train/steps.py:410-415).
 * ``synth_philox_draws(seed, n, n_taus)``: the Philox4x32-10 words of
   counters (voxel, k) under the seed, mapped as the kernel maps them
   (csrc/synth_batch.cu's header), in the draws layout of
@@ -114,22 +120,20 @@ def synth_batch(cfg: QBoldConfig, batch_size: int, seed: int, *,
     """A fresh synthetic batch {x (B, *vol_shape, T), y (B, *vol_shape, 3)}
     drawn under ``seed`` on ``device`` (the CUDA card unless given another):
     kernel S on the card, the plain version on the CPU fed the kernel's
-    replayed draws."""
+    replayed draws, and on the card too for the asymptotic tissue model
+    (``train.full_model=False``), which kernel S does not decode."""
     device = torch.device("cuda" if device is None else device)
     scan = cfg.scan
     n = int(batch_size) * int(np.prod(vol_shape))
     shape = (int(batch_size),) + tuple(vol_shape)
-    if device.type == "cpu":
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no synthetic-batch kernel for device {device}")
+    if device.type == "cpu" or not cfg.train.full_model:
         from ..train.steps import stream_synthetic_batch
 
         return stream_synthetic_batch(
             cfg, batch_size, synth_philox_draws(seed, n, scan.n_taus),
             device=device, vol_shape=vol_shape)
-    if device.type != "cuda":
-        raise ValueError(f"no synthetic-batch kernel for device {device}")
-    if not cfg.train.full_model:
-        raise ValueError("kernel S decodes the full SDR model only "
-                         "(train.full_model=True)")
     C = synth_decode_consts(cfg)
     table = C.device_table(device)
     x = torch.empty(shape + (scan.n_taus,), device=device,

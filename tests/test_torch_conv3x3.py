@@ -6,9 +6,15 @@ encoder's ``fused_conv`` routing against the JAX package.
   runs it, at that file's tolerances: 1e-5 on the value, rtol 1e-4 /
   atol 1e-5 on dx, dw and db (the two sum the nine taps in other orders).
 * The plain conv against ``F.conv2d`` in float64 at ragged planes.
+* The same at bf16 operands (the trunk at compute_dtype="bfloat16"): the
+  value and its VJP against the JAX kernel on bf16 x, w and b, each within
+  BF16_ULPS bf16 ulps of its largest magnitude (both sum in float32 and
+  round once to bf16; sums in another order can move that rounding by one
+  ulp), and bf16 out of every output and gradient.
 * The routing: "on" / "interpret" reach the plain H on the CPU, "auto" /
   "off" the library conv, a bad mode raises, and a plane smaller than the
-  window takes the library conv under "on" and raises under "interpret".
+  window raises under "on" and "interpret" (the JAX package takes nn.Conv
+  there under "on"; the port's forced modes raise).
 * The port's encoder under "interpret" against the JAX FineTuner under
   "interpret" on bridged weights: outputs at 2e-5, and the gradients of one
   fine-tune loss scale-normalised at rtol 5e-4 (ROADMAP gate (a)).
@@ -19,7 +25,7 @@ encoder's ``fused_conv`` routing against the JAX package.
   CONV_TOL (1e-5 of the largest output and dx, 1e-4 of dw and db); one
   TF32 product fails the same gate.
 
-Three jitted programs run the Mosaic interpreter in this file.
+Five jitted programs run the Mosaic interpreter in this file.
 """
 
 import dataclasses
@@ -33,7 +39,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from torch_parity_utils import port_params, port_tuner  # noqa: E402
+from torch_parity_utils import bf16_ulp, port_params, port_tuner  # noqa: E402
 from qbold_vi_tpu.config import (ModelConfig, QBoldConfig,  # noqa: E402
                                  ScanParams, TrainConfig)
 from qbold_vi_tpu.ops.pallas_conv import make_conv3x3  # noqa: E402
@@ -48,6 +54,7 @@ from qbold_vi_tpu_torch.ops.conv3x3 import (_dw_chunk,  # noqa: E402
 from qbold_vi_tpu_torch.train import steps as tsteps  # noqa: E402
 
 SCAN = ScanParams(simulate_noise=False)
+BF16_ULPS = 2
 
 
 def _data(rng, n, h, w, ci, co):
@@ -78,6 +85,40 @@ def test_plain_matches_the_jax_kernel(shape):
     for g, r, name in zip(grads, ref[1:], ("dx", "dw", "db")):
         np.testing.assert_allclose(g.numpy(), r, rtol=1e-4, atol=1e-5,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("shape", [(5, 7, 6, 4, 3), (3, 9, 10, 60, 60)])
+def test_bf16_plain_matches_the_jax_kernel(shape):
+    n, h, w, ci, co = shape
+    x, k, b, ct = (a.astype(jnp.bfloat16) for a in
+                   _data(np.random.default_rng(sum(shape) + 1), *shape))
+    conv = make_conv3x3(h, w, ci, co, interpret=True)
+
+    @jax.jit
+    def run(x, k, b, ct):
+        y, vjp = jax.vjp(conv, x, k, b)
+        return (y,) + vjp(ct)
+
+    ref = run(x, k, b, ct)
+    assert all(r.dtype == jnp.bfloat16 for r in ref)
+    ref = [np.asarray(r.astype(jnp.float32)) for r in ref]
+
+    def bf16(a):
+        return torch.from_numpy(np.asarray(a.astype(jnp.float32))).to(
+            torch.bfloat16)
+
+    args = [bf16(a).requires_grad_() for a in (x, k, b)]
+    y = conv3x3(*args)
+    grads = torch.autograd.grad(y, args, bf16(ct))
+    for g, r, name in zip((y.detach(),) + grads, ref,
+                          ("y", "dx", "dw", "db")):
+        assert g.dtype == torch.bfloat16, name
+        np.testing.assert_allclose(g.float().numpy(), r, rtol=0,
+                                   atol=BF16_ULPS * bf16_ulp(r), err_msg=name)
+    # one rounding: the plain bf16 conv is the float32 conv of the same
+    # bf16 values, rounded once
+    y32 = conv3x3_plain(*(a.detach().float() for a in args))
+    assert torch.equal(y.detach(), y32.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 3, 5, 2), (1, 3, 11, 4, 6),
@@ -140,12 +181,8 @@ def test_bad_modes_and_small_planes():
     with pytest.raises(ValueError, match="smaller than the 3x3 window"):
         forced(x)
     on = tenc.ConvXY(4, fused="on", device="cpu")
-    with torch.no_grad():
-        on.Conv_0.weight.normal_(generator=torch.Generator().manual_seed(1))
-        on.Conv_0.bias.zero_()
-        ref = F.conv2d(x.permute(0, 3, 1, 2), on.Conv_0.weight,
-                       on.Conv_0.bias, padding=1).permute(0, 2, 3, 1)
-        torch.testing.assert_close(on(x), ref)
+    with pytest.raises(ValueError, match="smaller than the 3x3 window"):
+        on(x)
     with pytest.raises(ValueError, match="at least 3 x 3"):
         conv3x3(x, torch.zeros(3, 3, 4, 4), torch.zeros(4))
 

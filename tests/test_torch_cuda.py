@@ -23,6 +23,17 @@ cancels from (assert_kl_close).
 The 3x3 conv kernel H (3xTF32 tensor-core products): the output and dx
 within 1e-5 of their largest magnitude, dw and db within 1e-4 of theirs
 (sums of every pixel's terms in another order than the plain version's).
+The bf16 trunk (bf16 products, float32 sums, one rounding to bf16 where
+the plain versions round): H's outputs and gradients and kernel C's q
+within BF16_ULPS bf16 ulps of their largest magnitude (a float32 sum in
+another order moves a rounding by one ulp, and in the encode that ulp
+travels through the next layers); kernel B against the plain quadrature
+of kernel C's q (the two kernels share the encode) at the float32
+tolerances, and against its plain version at the JAX package's bf16 gate
+(rtol 0.05 / atol 0.03, tests/test_pallas_infer.py:217); a fine-tune step
+through H at bf16 against the same step through cuDNN at bf16 within
+torch_parity_utils.assert_bf16_grads_close's weight tolerance, 0.01 of
+each gradient's scale (cuDNN rounds its sums before the bias, H after).
 """
 
 import dataclasses
@@ -33,7 +44,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from torch_parity_utils import (HEAD_MIXES, assert_kl_close,  # noqa: E402
-                                assert_vars_close, assert_wls_close,
+                                assert_vars_close, assert_wls_close, bf16_ulp,
                                 cuda_device,  # noqa: F401
                                 head_mix, kl_lanes_replay, kl_scale,
                                 raw_head, volume)
@@ -57,6 +68,16 @@ VAR_TOL = dict(rtol=1e-3, atol=3e-5)
 DW = float(SCAN.dw_coeff * SCAN.hct)
 RANGES = dict(oef_range=0.8, min_oef=0.04, dbv_range=0.2, min_dbv=0.001,
               dw_coeff=DW)
+BF16_ULPS = 4
+
+
+def _ulp_close(got, ref, ulps, name):
+    """|got - ref| within ``ulps`` bf16 ulps of ref's largest magnitude."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    assert torch.isfinite(got).all(), name
+    ulp = bf16_ulp(ref)
+    err = float((got - ref).abs().max())
+    assert err <= ulps * ulp, f"{name}: {err:.3e}, {err / ulp:.2f} ulps"
 
 
 def _tuner(cfg, device):
@@ -249,14 +270,51 @@ def test_mc_kl_kernel_matches_plain(cuda_device, mvg, s, device_noise):
                         kl_scale(q, p, z, mvg).cpu(), rtol=1e-5, atol=1e-5)
 
 
-def test_fused_kernel_raises_for_bf16_trunk(cuda_device):
-    tuner = _tuner(tcfg.ModelConfig(no_units=8), cuda_device)
-    x = torch.ones((10, SCAN.n_taus), device=cuda_device)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfi.encode_quad_fused(
-            x, tuner.encoder, se_idx=SCAN.se_idx, multi_image=False,
-            activation="relu", n_blocks=1, trunk="bfloat16", mvg=False,
-            **RANGES)
+@pytest.mark.parametrize("layout", ["voxel", "channel"])
+@pytest.mark.parametrize("act,units,mvg,n", [
+    ("relu", 60, True, 100_003), ("softplus", 13, False, 4_099),
+    ("gelu", 30, True, 4_099), ("sigmoid", 128, True, 4_099)])
+def test_fused_kernel_bf16_trunk_matches_plain(cuda_device, layout, act,
+                                               units, mvg, n):
+    """Kernels B and C at trunk="bfloat16" against the plain versions."""
+    from qbold_vi_tpu_torch.ops.quadrature import quad_tile_summaries
+
+    cfg = tcfg.ModelConfig(no_units=units, activation=act, use_mvg=mvg,
+                           compute_dtype="bfloat16")
+    tuner = _tuner(cfg, cuda_device)
+    rng = np.random.default_rng(units)
+    x = torch.from_numpy(volume(rng, (n,), SCAN.n_taus + 1)).to(cuda_device)
+    x[:, -1] = (torch.rand(n, device=cuda_device) > 0.2).float()
+    if layout == "channel":
+        x = x.T.contiguous()
+    kw = dict(se_idx=SCAN.se_idx, multi_image=False, activation=act,
+              n_blocks=cfg.no_intermediate_layers, trunk="bfloat16",
+              mask_channel=True, input_layout=layout)
+    counts = (tfi.encode_quad_fused.bf16_launches,
+              tfi.encode_q1_packed.bf16_launches,
+              tfi.encode_quad_fused.launches, tfi.encode_q1_packed.launches)
+    q = tfi.encode_q1_packed(x, tuner.encoder, **kw)
+    got = tfi.encode_quad_fused(x, tuner.encoder, mvg=mvg, **kw, **RANGES)
+    torch.cuda.synchronize()
+    assert (tfi.encode_quad_fused.bf16_launches - counts[0],
+            tfi.encode_q1_packed.bf16_launches - counts[1],
+            tfi.encode_quad_fused.launches - counts[2],
+            tfi.encode_q1_packed.launches - counts[3]) == (1, 1, 0, 0)
+    q_ref = tfi.encode_q_plain(x, tuner.encoder, **kw)
+    for j in range(5 if mvg else 4):
+        _ulp_close(q[j], q_ref[j], BF16_ULPS, f"q row {j}")
+    if not mvg:
+        assert (q[4] == 0).all()
+    tail = quad_tile_summaries(q[0], q[1], q[2], q[3], q[4], mvg=mvg,
+                               **RANGES)
+    tail = [torch.stack(t).T.cpu().numpy() for t in tail]
+    _close([g.T.cpu().numpy() for g in got], tail)
+    ref = tfi.encode_quad_fused_plain(x, tuner.encoder, mvg=mvg, **kw,
+                                      **RANGES)
+    for name, g, r in zip(("means", "raw"), (got[0], got[2]),
+                          (ref[0], ref[2])):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   rtol=0.05, atol=0.03, err_msg=name)
 
 
 @pytest.mark.parametrize("use_first_op", [True, False],
@@ -762,6 +820,75 @@ def test_conv3x3_kernel_matches_plain(cuda_device, shape):
     assert torch.equal(dw, dw2) and torch.equal(db, db2)   # replay
 
 
+@pytest.mark.parametrize("shape", [(304, 25, 25, 60, 60), (3, 7, 9, 60, 60),
+                                   (9, 3, 11, 5, 7), (1, 4, 200, 8, 12),
+                                   (2, 9, 10, 64, 65)])
+def test_conv3x3_bf16_kernel_matches_plain(cuda_device, shape):
+    """Kernel H at bf16: forward, dx and dw/db against the plain versions
+    within 2 bf16 ulps (each output one rounding of float32 sums; dw and db
+    after the fixed-order reduction, so they replay bit for bit)."""
+    x, w, b, ct = (t.to(torch.bfloat16) for t in _conv_inputs(
+        np.random.default_rng(18), shape, cuda_device))
+    counts = (tcv.conv3x3.fwd_bf16_launches, tcv.conv3x3.bwd_bf16_launches,
+              tcv.conv3x3.fwd_launches, tcv.conv3x3.bwd_launches)
+    y = tcv.conv3x3_forward(x, w, b)
+    grads = tcv.conv3x3_backward(x, w, ct)
+    torch.cuda.synchronize()
+    assert (tcv.conv3x3.fwd_bf16_launches - counts[0],
+            tcv.conv3x3.bwd_bf16_launches - counts[1],
+            tcv.conv3x3.fwd_launches - counts[2],
+            tcv.conv3x3.bwd_launches - counts[3]) == (1, 1, 0, 0)
+    assert all(t.dtype == torch.bfloat16 for t in (y,) + grads)
+    _ulp_close(y, tcv.conv3x3_plain(x, w, b), 2, "y")
+    for name, g, r in zip(("dx", "dw", "db"), grads,
+                          tcv.conv3x3_grads_plain(x, w, ct)):
+        _ulp_close(g, r, 2, name)
+    _, dw2, db2 = tcv.conv3x3_backward(x, w, ct, need_dx=False)
+    assert torch.equal(grads[1], dw2) and torch.equal(grads[2], db2)
+    with pytest.raises(TypeError, match="one dtype"):
+        tcv.conv3x3_forward(x, w.float(), b)
+
+
+def test_step_through_kernel_h_bf16_matches_cudnn_bf16(cuda_device):
+    """One bf16 fine-tune step with the trunk convs through kernel H
+    (fused_conv "on") against the same step through cuDNN (softplus)."""
+    from torch_parity_utils import assert_bf16_grads_close
+
+    base = dataclasses.replace(
+        tcfg.OPTIMAL, scan=SCAN,
+        model=dataclasses.replace(tcfg.OPTIMAL.model, activation="softplus",
+                                  compute_dtype="bfloat16"))
+    rng = np.random.default_rng(21)
+    shape = (8, 25, 25, 8)
+    mask = (rng.uniform(size=shape + (1,)) > 0.2).astype(np.float32)
+    batch = {"images": (np.abs(rng.normal(size=shape + (11,))) * 50 + 100
+                        ).astype(np.float32) * mask, "mask": mask,
+             "priors": (rng.normal(size=shape + (5,)) * 0.3
+                        ).astype(np.float32)}
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in batch.items()}
+    noise = {"z_nll": rng.normal(size=(1,) + shape + (2,)).astype(np.float32),
+             "z_kl": rng.normal(size=(70,) + shape + (2,)).astype(np.float32)}
+    sd = init_params(base.model, SCAN, torch.Generator().manual_seed(5))
+    tuners, counts = {}, {}
+    for mode in ("on", "off"):
+        cfg = dataclasses.replace(base, model=dataclasses.replace(
+            base.model, fused_conv=mode))
+        tuner = FineTuner(cfg.model, SCAN, device=cuda_device)
+        tuner.load_state_dict(sd)
+        before = tcv.conv3x3.bwd_bf16_launches
+        tuner.zero_grad()
+        loss, _ = tsteps.finetune_terms(tuner, cfg, batch, noise=noise)
+        loss.backward()
+        torch.cuda.synchronize()
+        counts[mode] = tcv.conv3x3.bwd_bf16_launches - before
+        tuners[mode] = tuner
+    assert counts == {"on": 2 * base.model.no_intermediate_layers, "off": 0}
+    assert_bf16_grads_close(tuners["on"].named_parameters(),
+                            {k: p.grad.cpu() for k, p in
+                             tuners["off"].named_parameters()},
+                            weight_tol=0.01, bias_tol=0.01)
+
+
 def test_conv3x3_kernel_refuses_bad_inputs(cuda_device):
     x, w, b, ct = _conv_inputs(np.random.default_rng(15), (2, 5, 6, 4, 3),
                                cuda_device)
@@ -887,6 +1014,36 @@ def test_stream_step_on_card_matches_cpu(cuda_device):
     assert set(grads["card"]) == set(grads["cpu"])
     for k, g in grads["cpu"].items():
         _grad_close(grads["card"][k], g, k)
+
+
+def test_stream_pretrain_routes_the_asymptotic_model(cuda_device):
+    """train.full_model=False: kernel S does not decode the asymptotic
+    tissue model, so the batch takes the plain version of S's replayed
+    draws on the card (no launch of S), and the streaming pretrain runs."""
+    from qbold_vi_tpu_torch.ops import synth_batch as tsb
+    from qbold_vi_tpu_torch.train.trainer import Trainer
+
+    cfg = dataclasses.replace(
+        tcfg.OPTIMAL, model=dataclasses.replace(tcfg.OPTIMAL.model,
+                                                no_units=16),
+        synth=dataclasses.replace(tcfg.OPTIMAL.synth, sample_size=400),
+        train=dataclasses.replace(tcfg.OPTIMAL.train, full_model=False,
+                                  pt_on_device_synth=True, no_pt_epochs=1,
+                                  pt_batch_size=16))
+    before = (tsb.synth_batch.launches, tsb.synth_batch.noise_launches)
+    got = tsb.synth_batch(cfg, 16, 5, device=cuda_device)
+    ref = tsteps.stream_synthetic_batch(
+        cfg, 16, tsb.synth_philox_draws(5, 16 * 500, SCAN.n_taus),
+        device=cuda_device)
+    for k in ("x", "y"):
+        assert got[k].device.type == "cuda"
+        assert torch.equal(got[k], ref[k]), k
+    trainer = Trainer(cfg, device=cuda_device)
+    m = trainer.pretrain()
+    torch.cuda.synchronize()
+    assert (tsb.synth_batch.launches,
+            tsb.synth_batch.noise_launches) == before
+    assert all(np.isfinite(float(v)) for v in m.values())
 
 
 def test_wls_maps_on_card_match_cpu(cuda_device):

@@ -4,6 +4,17 @@ against the flax Encoder with the same weights.
 Tolerance for the encoder outputs: rtol 1e-5 / atol 2e-5 (float32
 matmuls and convolutions in another summation order). The bridge and the
 npz round trip are exact.
+
+At compute_dtype="bfloat16" the port rounds where flax rounds (a Dense's
+float32 sums to bf16, then the bf16 bias; nn.Conv's sums, then its bias;
+jax.nn's activations step by step; the heads in float32), so each output
+lies within BF16_ULPS bf16 ulps of its largest magnitude of flax's: a
+float32 sum in another order (a GroupNorm's statistics, a Dense's
+products) can move a bf16 rounding by one ulp, and that ulp travels on.
+Under fused_conv="off" the port's library conv stands for nn.Conv; under
+"interpret" kernel H's plain version for the JAX kernel in the Mosaic
+interpreter. Both are well inside the JAX package's own bf16 gate for the
+encoder, rtol / atol 0.05 (tests/test_model.py:132-133).
 """
 
 import dataclasses
@@ -16,8 +27,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from torch_parity_utils import (jax_tuner_and_params, port_params,  # noqa: E402
-                                port_tuner, volume)
+from torch_parity_utils import (bf16_ulp, jax_tuner_and_params,  # noqa: E402
+                                port_params, port_tuner, volume)
 from qbold_vi_tpu.config import OPTIMAL, ModelConfig, ScanParams  # noqa: E402
 from qbold_vi_tpu.models.vi import FineTuner as JFineTuner  # noqa: E402
 from qbold_vi_tpu_torch import config as tcfg  # noqa: E402
@@ -27,6 +38,7 @@ from qbold_vi_tpu_torch.models.vi import FineTuner, init_params  # noqa: E402
 
 SCAN = ScanParams(simulate_noise=False)
 TOL = dict(rtol=1e-5, atol=2e-5)
+BF16_ULPS = 4
 OPT = dataclasses.replace(OPTIMAL.model, compute_dtype="float32")
 
 
@@ -169,10 +181,64 @@ def test_dist_transforms_and_prior_match_jax():
                                [-0.97, 0.4, -1.14, 0.6, 0.0])
 
 
-def test_bf16_trunk_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _dtype_of(tcfg.ModelConfig(compute_dtype="bfloat16"))
+def test_compute_dtype_resolution():
+    """"auto" (the default) and "float32" resolve to float32, as the JAX
+    package resolves "auto" off the TPU; "bfloat16" to bf16; anything else
+    raises (the JAX package's tests/test_model.py:135-150)."""
     assert _dtype_of(tcfg.ModelConfig()) is torch.float32
+    assert _dtype_of(tcfg.ModelConfig(compute_dtype="auto")) is torch.float32
+    assert _dtype_of(tcfg.ModelConfig(compute_dtype="float32")) \
+        is torch.float32
+    assert _dtype_of(tcfg.ModelConfig(compute_dtype="bfloat16")) \
+        is torch.bfloat16
+    with pytest.raises(ValueError, match="compute_dtype"):
+        _dtype_of(tcfg.ModelConfig(compute_dtype="fp16"))
+    with pytest.raises(ValueError, match="compute_dtype"):
+        FineTuner(tcfg.ModelConfig(no_units=4, compute_dtype="fp16"),
+                  tcfg.ScanParams(), device="cpu")
+
+
+def _cfg16(**kw):
+    return _cfg(**{"compute_dtype": "bfloat16", **kw})
+
+
+BF16_CASES = [
+    ("mvg-relu-off", _cfg16()),
+    ("diag-softplus-layer_norm-off", _cfg16(use_mvg=False,
+                                            activation="softplus",
+                                            use_layer_norm=True)),
+    ("mvg-softplus-interpret", _cfg16(activation="softplus", no_units=8,
+                                      no_intermediate_layers=1,
+                                      fused_conv="interpret")),
+    ("diag-relu-layer_norm-interpret", _cfg16(use_mvg=False, no_units=8,
+                                              no_intermediate_layers=1,
+                                              use_layer_norm=True,
+                                              fused_conv="interpret")),
+]
+
+
+@pytest.mark.parametrize("name,cfg", BF16_CASES,
+                         ids=[c[0] for c in BF16_CASES])
+def test_bf16_encoder_matches_flax(name, cfg):
+    rng = np.random.default_rng(0)
+    images = volume(rng, (2, 6, 7, 3), SCAN.n_taus)
+    _, params = port_params(cfg, SCAN, seed=1)
+    ref = JFineTuner(cfg, SCAN).encode(params, jnp.asarray(images))
+    tuner = port_tuner(cfg, SCAN, params)
+    x = torch.from_numpy(images)
+    with torch.no_grad():
+        got = tuner.encode(x)
+        s1 = tuner.encoder.stream1(x)
+        f32 = port_tuner(dataclasses.replace(cfg, compute_dtype="float32"),
+                         SCAN, params).encode(x)
+    for key, g, r, g32 in zip(("stream1", "stream2", "sigma"), got, ref,
+                              f32):
+        r = np.asarray(r)
+        assert g.dtype == torch.float32 and g.shape == r.shape, key
+        np.testing.assert_allclose(g.numpy(), r, rtol=0,
+                                   atol=BF16_ULPS * bf16_ulp(r), err_msg=key)
+        assert (g != g32).any(), key        # the trunk ran in bf16
+    np.testing.assert_array_equal(s1.numpy(), got[0].numpy())
 
 
 def test_forward_leaves_tf32_settings_as_found():

@@ -5,6 +5,10 @@ and cohort, for both encoder streams and both fused_infer settings.
 Tolerance: rtol 1e-3 / atol 3e-5, the JAX package's own gate between its
 fused and plain paths (tests/test_pallas_infer.py); the R2' variance
 map with the absolute floor of torch_parity_utils.assert_vars_close.
+At compute_dtype="bfloat16" (OPTIMAL's relu) each map within BF16_ULPS
+bf16 ulps of its largest magnitude: the port's trunk rounds where flax's
+does, but a float32 sum in another order can move one activation's bf16
+rounding by an ulp, and the maps carry it.
 """
 
 import dataclasses
@@ -17,8 +21,8 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
-from torch_parity_utils import (assert_vars_close, port_params,  # noqa: E402
-                                port_tuner)
+from torch_parity_utils import (assert_vars_close, bf16_ulp,  # noqa: E402
+                                port_params, port_tuner)
 from qbold_vi_tpu import infer as jinfer  # noqa: E402
 from qbold_vi_tpu.config import OPTIMAL, ScanParams  # noqa: E402
 from qbold_vi_tpu_torch import config as tcfg  # noqa: E402
@@ -29,6 +33,7 @@ from qbold_vi_tpu_torch.models.vi import FineTuner, init_params  # noqa: E402
 SCAN = ScanParams(simulate_noise=False)
 CFG = dataclasses.replace(OPTIMAL.model, compute_dtype="float32")
 TOL = dict(rtol=1e-3, atol=3e-5)
+BF16_ULPS = 4
 MAPS = ("oef", "dbv", "r2p", "stds", "raw_log_stds")
 
 
@@ -74,6 +79,28 @@ def test_posterior_maps_match_jax(slice_setup, use_first_op, fused):
     got = tinfer.posterior_maps(tuner, data, use_first_op=use_first_op,
                                 chunk=2)
     _assert_maps(got, refs[use_first_op])
+
+
+@pytest.mark.parametrize("use_first_op,fused", [(True, "on"), (True, "off"),
+                                                (False, "off")],
+                         ids=["stream1-fused", "stream1", "stream2"])
+def test_bf16_posterior_maps_match_jax(use_first_op, fused):
+    cfg = dataclasses.replace(CFG, compute_dtype="bfloat16")
+    data = _cohort(1)
+    jt, params = port_params(cfg, SCAN, seed=5)
+    ref = jinfer.posterior_maps(jt, params, data, jax.random.PRNGKey(0),
+                                use_pallas=False, chunk=2,
+                                use_first_op=use_first_op)
+    tuner = port_tuner(dataclasses.replace(cfg, fused_infer=fused), SCAN,
+                       params)
+    assert tuner.encoder.dtype == torch.bfloat16
+    got = tinfer.posterior_maps(tuner, data, use_first_op=use_first_op,
+                                chunk=2)
+    for key in MAPS:
+        r = ref[key]
+        assert got[key].shape == r.shape, key
+        np.testing.assert_allclose(got[key], r, rtol=0,
+                                   atol=BF16_ULPS * bf16_ulp(r), err_msg=key)
 
 
 def test_save_predictions_writes_what_it_returns(slice_setup, tmp_path):

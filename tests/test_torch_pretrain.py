@@ -11,7 +11,9 @@
 (f) the pretraining optimiser and SWA against optax over 5 steps at
     rtol 1e-6 / atol 1e-7 (the same float32 operations in the same order);
 (g) one pretraining step: the loss at rtol 1e-5, the update held as in
-    tests/test_torch_train.py (Adam's first step is ~lr sign(g));
+    tests/test_torch_train.py (Adam's first step is ~lr sign(g)); at
+    compute_dtype="bfloat16" (softplus) the loss at rtol 1e-4 and the
+    gradients by torch_parity_utils.assert_bf16_grads_close;
 (h) ``Trainer.pretrain()`` against the JAX ``Trainer.pretrain()`` from the
     same initial parameters: parameters within 1e-4 of each leaf's scale,
     val_loss within 1e-5;
@@ -31,7 +33,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from torch_parity_utils import port_params, port_tuner  # noqa: E402
+from torch_parity_utils import (assert_bf16_grads_close,  # noqa: E402
+                                port_params, port_tuner)
 from qbold_vi_tpu import config as jcfg  # noqa: E402
 from qbold_vi_tpu import synth as jsynth  # noqa: E402
 from qbold_vi_tpu.dist.logit_mvn import LogitMVN as JLogitMVN  # noqa: E402
@@ -355,6 +358,47 @@ def test_one_pretrain_step_matches_jax(use_swa, r2p):
         assert np.all(err <= 2.0 * lr), name
         if not g.any():        # stream 2 and the sigma head: decay alone
             np.testing.assert_array_equal(delta, delta_ref, err_msg=name)
+
+
+def test_bf16_pretrain_step_matches_jax():
+    """One stream-1 pretraining step with the trunk in bf16: its loss and
+    gradients against JAX's, float32 parameters, head output and loss."""
+    base = jcfg.OPTIMAL
+    model = dataclasses.replace(base.model, no_units=8,
+                                no_intermediate_layers=2,
+                                activation="softplus",
+                                compute_dtype="bfloat16")
+    cfg = dataclasses.replace(base, model=model)
+    jt, params = port_params(model, cfg.scan, seed=2)
+    rng = np.random.default_rng(3)
+    shape = (3, 4, 4, 2)
+    oef = rng.uniform(0.04, 0.84, shape)
+    dbv = rng.uniform(0.001, 0.201, shape)
+    batch = {"x": (rng.uniform(size=shape + (11,)) * 0.4 + 0.4
+                   ).astype(np.float32),
+             "y": np.stack([oef, dbv, cfg.scan.dw_coeff * cfg.scan.hct * oef
+                            * dbv], -1).astype(np.float32)}
+    key = jax.random.PRNGKey(4)
+    value_ref, grads_ref = jax.value_and_grad(
+        lambda p: jax_pretrain_loss(p, key, batch, jt, cfg))(
+        jax.tree_util.tree_map(jnp.asarray, params))
+    k_loss = jax.random.split(key)[0]
+    n = int(np.prod(shape))
+    noise = {"z_r2p": np.asarray(jax.vmap(lambda kk: jax.random.normal(
+        kk, (n, 2)))(jax.random.split(k_loss, 10)))}
+    tuner = port_tuner(model, cfg.scan, params)
+    tc = _port(cfg)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    assert tuner.encoder.stream1(tb["x"]).dtype == torch.float32
+    loss = tsteps.pretrain_loss(tuner, tc, tb, noise=noise)
+    assert loss.dtype == torch.float32
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(value_ref),
+                               rtol=1e-4)
+    assert_bf16_grads_close(tuner.named_parameters(),
+                            from_jax.state_dict_from_jax(
+                                jax.tree_util.tree_map(np.asarray,
+                                                       grads_ref)))
 
 
 def jax_pretrain_loss(params, key, batch, tuner, cfg):

@@ -2,9 +2,10 @@
 
 (a) ``steps.stream_synthetic_batch`` fed the JAX key's draws (split in
     the JAX order: k_par, k_mis, k_noise, then sample_batch_params' six
-    keys) against the JAX function, misalignment and noise on and off, at
-    the physics tolerance 1e-5 (the two decodes round differently in
-    float32; y to float32 rounding: erfinv differs in its last bits);
+    keys) against the JAX function, misalignment and noise on and off,
+    the full SDR and the asymptotic tissue model, at the physics
+    tolerance 1e-5 (the two decodes round differently in float32; y to
+    float32 rounding: erfinv differs in its last bits);
 (b) one streaming step and a 2-step epoch against JAX
     ``make_pretrain_stream_step`` / ``make_pretrain_stream_epoch`` given
     the same draws, SWA on and off, at
@@ -26,7 +27,13 @@
     counter scheme (Philox4x32-10 on 16-bit limbs in int64), the words'
     uniforms bit-equal and the normals at rtol 1e-5 / atol 1e-6 (float64
     log/sin/cos against numpy's float32), and the plain version on a seed
-    drawing that replay on the CPU.
+    drawing that replay on the CPU;
+(f) that replay's batch (kernel S's draws) against the JAX function's own
+    key in distribution, at 200,000 voxels of OPTIMAL's synthetic set:
+    the labels' means, variances and quantiles, the truncated normal's
+    tails and each tau's noise variance, each within 5 standard errors of
+    the difference of two independent samples; with misalignment, the
+    misaligned share and the from_idx histogram of the two draws.
 """
 
 import dataclasses
@@ -116,18 +123,20 @@ def jax_loss_noise(key, cfg, n):
 @pytest.mark.parametrize("misalign,noise,uniform_prop", [
     (0.0, True, None), (0.5, True, 0.3), (0.5, False, 0.3), (0.0, False, None)])
 def test_stream_batch_matches_jax(misalign, noise, uniform_prop):
-    cfg = _cfg(misalign, noise, uniform_prop)
     key = jax.random.PRNGKey(5)
     n = BATCH * int(np.prod(VOL))
-    ref = jsteps.stream_synthetic_batch(key, cfg, BATCH, VOL)
-    got = tsteps.stream_synthetic_batch(
-        _port(cfg), BATCH, jax_batch_draws(key, cfg, n), vol_shape=VOL)
-    assert got["x"].shape == (BATCH,) + VOL + (11,)
-    assert got["y"].shape == (BATCH,) + VOL + (3,)
-    np.testing.assert_allclose(got["y"].numpy(), np.asarray(ref["y"]),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(got["x"].numpy(), np.asarray(ref["x"]),
-                               rtol=1e-5, atol=1e-5)
+    for full_model in (True, False):      # the SDR and asymptotic models
+        cfg = _cfg(misalign, noise, uniform_prop, full_model=full_model)
+        ref = jsteps.stream_synthetic_batch(key, cfg, BATCH, VOL)
+        got = tsteps.stream_synthetic_batch(
+            _port(cfg), BATCH, jax_batch_draws(key, cfg, n), vol_shape=VOL)
+        assert got["x"].shape == (BATCH,) + VOL + (11,)
+        assert got["y"].shape == (BATCH,) + VOL + (3,)
+        np.testing.assert_allclose(got["y"].numpy(), np.asarray(ref["y"]),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got["x"].numpy(), np.asarray(ref["x"]),
+                                   rtol=1e-5, atol=1e-5,
+                                   err_msg=f"full_model={full_model}")
 
 
 # ---- (b) the step and the epoch -------------------------------------------
@@ -425,3 +434,89 @@ def test_synth_batch_on_the_cpu_is_the_plain_version_of_the_replay():
     assert np.isfinite(got["x"].numpy()).all()
     other = tsb.synth_batch(cfg, BATCH, 1235, device="cpu")
     assert not np.array_equal(other["y"].numpy(), got["y"].numpy())
+
+
+def test_synth_batch_routes_the_asymptotic_model_to_the_plain_version():
+    """Kernel S decodes the full SDR model only; the asymptotic model takes
+    the plain version of the same replayed draws by its config (the card's
+    route is tests/test_torch_cuda.py's)."""
+    cfg = _port(_cfg(full_model=False))
+    got = tsb.synth_batch(cfg, BATCH, 77, device="cpu")
+    ref = tsteps.stream_synthetic_batch(
+        cfg, BATCH, tsb.synth_philox_draws(77, BATCH * 500, 11))
+    np.testing.assert_array_equal(got["x"].numpy(), ref["x"].numpy())
+    full = tsb.synth_batch(_port(_cfg()), BATCH, 77, device="cpu")
+    np.testing.assert_array_equal(got["y"].numpy(), full["y"].numpy())
+    assert not np.array_equal(got["x"].numpy(), full["x"].numpy())
+
+
+# ---- (f) kernel S's draws against the JAX samplers, in distribution ---------
+
+N_STAT = 200_000
+
+
+def _within(name, a, b, se, k=5.0):
+    assert abs(a - b) <= k * se, (f"{name}: {a} against {b}, "
+                                  f"{abs(a - b) / se:.2f} standard errors")
+
+
+def _var_se(v) -> float:
+    """Standard error of a sample variance: sqrt((m4 - var^2) / n)."""
+    c = v - v.mean()
+    return float(np.sqrt(((c ** 4).mean() - (c ** 2).mean() ** 2) / v.size))
+
+
+def test_replayed_batch_matches_jax_in_distribution():
+    cfg = _cfg(batch=N_STAT // 500)
+    clean = dataclasses.replace(
+        cfg, scan=dataclasses.replace(cfg.scan, simulate_noise=False))
+    key = jax.random.PRNGKey(11)
+    b = cfg.train.pt_batch_size
+    ref, ref0 = (jsteps.stream_synthetic_batch(key, c, b, VOL)
+                 for c in (cfg, clean))
+    d = tsb.synth_philox_draws(11, N_STAT, 11)
+    got, got0 = (tsteps.stream_synthetic_batch(_port(c), b, d, vol_shape=VOL)
+                 for c in (cfg, clean))
+    y_r = np.asarray(ref["y"], np.float64).reshape(-1, 3)
+    y_g = got["y"].numpy().astype(np.float64).reshape(-1, 3)
+    n = N_STAT
+    for i, name in enumerate(("oef", "dbv", "r2p")):
+        a, r = y_g[:, i], y_r[:, i]
+        _within(f"{name} mean", a.mean(), r.mean(),
+                np.sqrt((a.var() + r.var()) / n))
+        _within(f"{name} variance", a.var(), r.var(),
+                np.hypot(_var_se(a), _var_se(r)))
+        # the two CDFs at the replay's quantiles (OEF has atoms where the
+        # normal is clipped to its range)
+        for q in (0.01, 0.05, 0.25, 0.5, 0.75, 0.95, 0.99):
+            x = np.quantile(a, q)
+            pa, pr = (a <= x).mean(), (r <= x).mean()
+            pm = (pa + pr) / 2
+            _within(f"{name} quantile {q}", pa, pr,
+                    np.sqrt(2 * pm * (1 - pm) / n))
+    # the truncated normal's tails: DBV near its lower bound and far above
+    # its mean (OPTIMAL: mean 0.025, std 0.02 on [0.003, 0.195])
+    for lo, hi in ((0.003, 0.005), (0.08, 0.195), (0.12, 0.195)):
+        pa = ((y_g[:, 1] >= lo) & (y_g[:, 1] <= hi)).mean()
+        pr = ((y_r[:, 1] >= lo) & (y_r[:, 1] <= hi)).mean()
+        p = (pa + pr) / 2
+        _within(f"dbv in [{lo}, {hi}]", pa, pr,
+                max(np.sqrt(2 * p * (1 - p) / n), 1 / n))
+    noise_r = (np.asarray(ref["x"]) - np.asarray(ref0["x"])).reshape(-1, 11)
+    noise_g = (got["x"] - got0["x"]).numpy().reshape(-1, 11)
+    for t in range(11):
+        a, r = noise_g[:, t].astype(np.float64), noise_r[:, t].astype(
+            np.float64)
+        _within(f"noise variance, tau {t}", a.var(), r.var(),
+                np.hypot(_var_se(a), _var_se(r)))
+    # misalignment: the share of misaligned voxels and the tau it starts at
+    mis = _cfg(0.5, batch=N_STAT // 500)
+    dj = jax_batch_draws(key, mis, n)
+    p = mis.synth.misalign_prob
+    _within("misaligned share", (d["mis_u"] < p).mean(),
+            (dj["mis_u"] < p).mean(), np.sqrt(2 * p * (1 - p) / n))
+    for k in range(4, 10):
+        pa, pr = (d["from_idx"] == k).mean(), (dj["from_idx"] == k).mean()
+        pm = (pa + pr) / 2
+        _within(f"from_idx {k}", pa, pr, np.sqrt(2 * pm * (1 - pm) / n))
+    assert d["from_idx"].min() == 4 and d["from_idx"].max() == 9

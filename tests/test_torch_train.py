@@ -21,7 +21,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from torch_parity_utils import port_params, port_tuner  # noqa: E402
+from torch_parity_utils import (assert_bf16_grads_close,  # noqa: E402
+                                port_params, port_tuner)
 from qbold_vi_tpu.config import (ModelConfig, QBoldConfig,  # noqa: E402
                                  ScanParams, TrainConfig)
 from qbold_vi_tpu.models.vi import FineTuner as JFineTuner  # noqa: E402
@@ -108,6 +109,73 @@ def _jax_loss(params, key, batch, tuner, cfg):
     return _finetune_terms(params, key,
                            {k: jnp.asarray(v) for k, v in batch.items()},
                            tuner, cfg)[0]
+
+
+def test_bf16_finetune_step_matches_jax():
+    """One fine-tune step at compute_dtype="bfloat16" (softplus, convs by
+    the library conv against nn.Conv): the loss within rtol 1e-4 and the
+    gradients by assert_bf16_grads_close; parameters, heads, loss and
+    gradients float32; then the port's step updates its float32
+    parameters."""
+    from qbold_vi_tpu.train.steps import _finetune_terms
+
+    model = dataclasses.replace(MODEL, no_units=8, activation="softplus",
+                                compute_dtype="bfloat16")
+    cfg = QBoldConfig(scan=SCAN, model=model,
+                      train=TrainConfig(fused_elbo="off",
+                                        fused_decode_nll="off"))
+    jt, params = port_params(model, SCAN, seed=3)
+    rng = np.random.default_rng(11)
+    shape = (2, 9, 10, 2)
+    mask = (rng.uniform(size=shape + (1,)) > 0.2).astype(np.float32)
+    batch = {"images": (np.abs(rng.normal(size=shape + (11,))) * 50 + 100
+                        ).astype(np.float32) * mask,
+             "mask": mask,
+             "priors": (rng.normal(size=shape + (5,)) * 0.3
+                        ).astype(np.float32)}
+    key = jax.random.PRNGKey(5)
+
+    @jax.jit
+    def run(p):
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        return jax.value_and_grad(
+            lambda q: _finetune_terms(q, key, jb, jt, cfg)[0])(p)
+
+    value_ref, grads_ref = run(jax.tree_util.tree_map(jnp.asarray, params))
+    k_sample, k_kl = jax.random.split(key)
+    k_draw = jax.random.split(k_sample)[0]
+
+    def draws(k, s):
+        return np.array(jax.vmap(lambda kk: jax.random.normal(
+            kk, shape + (2,)))(jax.random.split(k, s)))
+
+    noise = {"z_nll": draws(k_draw, model.no_samples),
+             "z_kl": draws(k_kl, 70)}
+    tuner = port_tuner(model, SCAN, params)
+    tc = tcfg.QBoldConfig(scan=tuner.scan, model=tuner.cfg,
+                          train=tcfg.TrainConfig(fused_elbo="off",
+                                                 fused_decode_nll="off"))
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with torch.no_grad():
+        assert all(o.dtype == torch.float32
+                   for o in tuner.encode(tb["images"]))
+    total, _ = tsteps.finetune_terms(tuner, tc, tb, noise=noise)
+    assert total.dtype == torch.float32
+    total.backward()
+    np.testing.assert_allclose(float(total.detach()), float(value_ref),
+                               rtol=1e-4)
+    assert_bf16_grads_close(tuner.named_parameters(),
+                            from_jax.state_dict_from_jax(
+                                jax.tree_util.tree_map(np.asarray,
+                                                       grads_ref)))
+    before = {k: v.clone() for k, v in tuner.state_dict().items()}
+    opt = toptim.make_finetune_optimizer(tuner.parameters(), tc.train)
+    m = tsteps.make_finetune_step(tuner, tc, opt)(tb, noise=noise)
+    assert np.isfinite(float(m["loss"]))
+    for k, v in tuner.state_dict().items():
+        assert v.dtype == torch.float32, k
+    assert not torch.equal(before["encoder.first_conv.weight"],
+                           tuner.encoder.first_conv.weight.detach())
 
 
 @pytest.mark.parametrize("decay", [2e-4, 0.0])

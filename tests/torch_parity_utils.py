@@ -222,3 +222,38 @@ def assert_wls_close(got, ref, signals, scan):
         assert np.isfinite(g).all(), name
         excess = np.abs(g - r) - (1e-5 * np.abs(r) + atol[..., i])
         assert excess.max() <= 0, (name, np.abs(g - r).max(), excess.max())
+
+
+def bf16_ulp(ref) -> float:
+    """One bf16 ulp (8 significant bits) at the largest magnitude of ref, a
+    numpy array or a tensor."""
+    top = float(np.abs(np.asarray(ref.cpu() if torch.is_tensor(ref) else ref,
+                                  np.float64)).max())
+    return 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+def assert_bf16_grads_close(named_params, grads_ref: dict,
+                            weight_tol: float = 0.01,
+                            bias_tol: float = 0.05) -> None:
+    """A bf16-trunk step's float32 gradients against the JAX package's
+    (a state_dict of its gradient tree), each scaled by the reference's
+    largest entry. Weights: within ``weight_tol`` (2.5 bf16 ulps of the
+    scale; both sides sum in float32 and round to bf16 at flax's points).
+    Biases: within the JAX package's encoder gate, rtol / atol 0.05 --
+    XLA's CPU backend sums a bf16 bias gradient (the transpose of its
+    broadcast, a bf16 ``reduce``) in bf16, which moves it by up to a few
+    per cent of its scale at a few hundred voxels, where the port's sum is
+    float32."""
+    for name, p in named_params:
+        r = grads_ref[name].cpu().numpy().astype(np.float64)
+        assert p.dtype == torch.float32, name
+        g = (p.grad.cpu().numpy().astype(np.float64) if p.grad is not None
+             else np.zeros_like(r))
+        assert p.grad is None or p.grad.dtype == torch.float32, name
+        scale = np.abs(r).max() + 1e-12
+        if name.endswith("bias"):
+            np.testing.assert_allclose(g / scale, r / scale, rtol=bias_tol,
+                                       atol=bias_tol, err_msg=name)
+        else:
+            np.testing.assert_allclose(g / scale, r / scale, rtol=0,
+                                       atol=weight_tol, err_msg=name)

@@ -1,7 +1,7 @@
 """Time kernel H (qbold_vi_tpu_torch/csrc/conv3x3.cu) pass by pass on the
 card, with each output's error against a float64 conv.
 
-    python3 tools/bench_conv3x3.py [variant.cu ...]
+    python3 tools/bench_conv3x3.py [--dtype float32|bfloat16] [variant.cu ...]
 
 Builds the package's kernels (``ops/_cuda.library``) and, for each further
 source given -- an edited copy of ``csrc/conv3x3.cu`` with the same C
@@ -12,13 +12,18 @@ dx and dw/db entries by CUDA events (median of 7 blocks of 20 calls, after
 3 warm-up calls) and prints the largest error of y, dx, dw and db against
 the plain version in float64, as a share of the largest magnitude. It
 prints each build's registers and spills for the forward and dw kernels,
-and the card's name and power limit. Needs one CUDA card; about half a
-minute with two variants.
+and the card's name and power limit. ``--dtype bfloat16`` times the bf16
+trunk's entries (``qv_conv3x3_*_bf16``: bf16 operands, float32 sums) on
+the same shapes, the float64 reference taken on the same bf16 values, and
+adds each error in bf16 ulps of the largest magnitude. Needs one CUDA
+card; about half a minute with two variants.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -53,10 +58,15 @@ def build_variants(paths):
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
         report(name, log)
         lib = ctypes.CDLL(str(so))
-        lib.qv_conv3x3_fwd.argtypes = [_P] * 5 + [_LL] + [_I] * 4 + [_P]
-        lib.qv_conv3x3_dx.argtypes = [_P] * 4 + [_LL] + [_I] * 4 + [_P]
-        lib.qv_conv3x3_dw.argtypes = [_P] * 4 + [_LL] + [_I] * 4 + [_LL, _I,
-                                                                  _P]
+        for tag in ("", "_bf16"):
+            if not hasattr(lib, "qv_conv3x3_fwd" + tag):
+                continue
+            getattr(lib, "qv_conv3x3_fwd" + tag).argtypes = (
+                [_P] * 5 + [_LL] + [_I] * 4 + [_P])
+            getattr(lib, "qv_conv3x3_dx" + tag).argtypes = (
+                [_P] * 4 + [_LL] + [_I] * 4 + [_P])
+            getattr(lib, "qv_conv3x3_dw" + tag).argtypes = (
+                [_P] * 4 + [_LL] + [_I] * 4 + [_LL, _I, _P])
         libs[name] = lib
     return libs
 
@@ -83,31 +93,38 @@ def dw_slots(lib) -> int:
     return slots.value
 
 
-def bench(name, lib, shape, dev) -> None:
+def bench(name, lib, shape, dev, dtype=torch.float32) -> None:
     n, h, w, ci, co = shape
     gen = torch.Generator().manual_seed(sum(shape))
-    x = torch.randn(n, h, w, ci, generator=gen).to(dev)
-    k = (torch.randn(3, 3, ci, co, generator=gen) * 0.1).to(dev)
-    b = (torch.randn(co, generator=gen) * 0.1).to(dev)
-    ct = torch.randn(n, h, w, co, generator=gen).to(dev)
+    x = torch.randn(n, h, w, ci, generator=gen).to(dev, dtype)
+    k = (torch.randn(3, 3, ci, co, generator=gen) * 0.1).to(dev, dtype)
+    b = (torch.randn(co, generator=gen) * 0.1).to(dev, dtype)
+    ct = torch.randn(n, h, w, co, generator=gen).to(dev, dtype)
     ref = (cv.conv3x3_plain(x.double(), k.double(), b.double()),) + \
         cv.conv3x3_grads_plain(x.double(), k.double(), ct.double())
+    tag = "_bf16" if dtype == torch.bfloat16 else ""
+    if not hasattr(lib, "qv_conv3x3_fwd" + tag):
+        print(f"{name}: no {dtype} entries", flush=True)
+        return
     npx = n * h * w
     stream = torch.cuda.current_stream().cuda_stream
     wf_fwd, wf_dx = cv._weight_scratch(x, ci, co), cv._weight_scratch(x, co, ci)
     chunk = cv._dw_chunk(npx, ci, co, dw_slots(lib))
     nb = -(-npx // chunk)
-    y, dx = torch.empty(n, h, w, co, device=dev), torch.empty_like(x)
-    out = torch.empty(9 * ci * co + co, device=dev)
+    y = torch.empty(n, h, w, co, device=dev, dtype=dtype)
+    dx = torch.empty_like(x)
+    out = torch.empty(9 * ci * co + co, device=dev, dtype=dtype)
     part = torch.empty(nb, out.numel(), device=dev)
+    fwd, dxe, dwe = (getattr(lib, f"qv_conv3x3_{e}{tag}")
+                     for e in ("fwd", "dx", "dw"))
     calls = {
-        "fwd": lambda: lib.qv_conv3x3_fwd(
+        "fwd": lambda: fwd(
             x.data_ptr(), k.data_ptr(), b.data_ptr(), wf_fwd.data_ptr(),
             y.data_ptr(), npx, h, w, ci, co, stream),
-        "dx": lambda: lib.qv_conv3x3_dx(
+        "dx": lambda: dxe(
             ct.data_ptr(), k.data_ptr(), wf_dx.data_ptr(), dx.data_ptr(), npx,
             h, w, ci, co, stream),
-        "dw": lambda: lib.qv_conv3x3_dw(
+        "dw": lambda: dwe(
             x.data_ptr(), ct.data_ptr(), part.data_ptr(), out.data_ptr(), npx,
             h, w, ci, co, chunk, nb, stream)}
     for key, fn in calls.items():
@@ -115,26 +132,36 @@ def bench(name, lib, shape, dev) -> None:
             raise RuntimeError(f"{name}: the {key} launch failed")
     torch.cuda.synchronize()
     got = (y, dx, out[:9 * ci * co].view(3, 3, ci, co), out[9 * ci * co:])
-    errs = " ".join(
-        f"{key} {float((g.double() - r).abs().max() / r.abs().max()):.2e}"
-        for key, g, r in zip(("y", "dx", "dw", "db"), got, ref))
+    errs = []
+    for key, g, r in zip(("y", "dx", "dw", "db"), got, ref):
+        e, scale = float((g.double() - r).abs().max()), float(r.abs().max())
+        errs.append(f"{key} {e / scale:.2e}")
+        if dtype == torch.bfloat16:
+            ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+            errs[-1] += f" ({e / ulp:.2f} bf16 ulps)"
     times = " ".join(f"{key} {cuda_ms(fn, reps=20):.4f}"
                      for key, fn in calls.items())
-    print(f"{name} {shape} ({nb} dw chunks): {times} ms; vs float64 {errs}",
-          flush=True)
+    print(f"{name} {shape} {str(dtype)[6:]} ({nb} dw chunks): {times} ms; "
+          f"vs float64 {' '.join(errs)}", flush=True)
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: this bench needs the card")
         return 1
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    ap.add_argument("variants", nargs="*", help="edited copies of conv3x3.cu")
+    args = ap.parse_args()
+    dtype = getattr(torch, args.dtype)
     dev = torch.device("cuda", 0)
     libs = {"conv3x3": _cuda.library()}
     report("conv3x3", _cuda.build_log())
-    libs.update(build_variants(sys.argv[1:]))
+    libs.update(build_variants(args.variants))
     for shape in SHAPES:
         for name, lib in libs.items():
-            bench(name, lib, shape, dev)
+            bench(name, lib, shape, dev, dtype)
     print(gpu_line())
     return 0
 

@@ -4,7 +4,8 @@ B's quadrature tail alone) on four head mixes, and kernel E (summarize.cu)
 on one subject, with each build's errors and its registers, spills, stack
 frame, shared memory, blocks an SM and SASS instructions.
 
-    python3 tools/bench_stream1.py [--only-copies] [--row-blob SRC ...] [SRC ...]
+    python3 tools/bench_stream1.py [--dtype float32|bfloat16] [--only-copies]
+        [--row-blob SRC ...] [SRC ...]
 
 Run it from the repository's root on a machine with the card, as
 ``env PYTHONPATH=. python3 tools/bench_stream1.py _chip_checkout/<copy>/
@@ -63,6 +64,12 @@ prints:
   QV_KL_LANES $L/" qbold_vi_tpu_torch/csrc/summarize.cu >
   _chip_checkout/e$L/summarize.cu``.
 
+``--dtype bfloat16`` runs B and C at trunk="bfloat16" (the entries
+``qv_encode_quad_fused_bf16`` and ``qv_encode_q1_bf16``, kernels
+``qv_encode_quad_bf16_kernel`` and ``qv_encode_q_bf16_kernel``) against
+the plain versions at the same trunk; the float64 encode and the other
+kernels are as above (A, D and E take the bf16 trunk's q).
+
 Blocks an SM are computed from ptxas's registers and the block's shared
 memory against the H100's limits (65,536 registers allocated 256 a warp,
 233,472 B of shared memory with 1 KB reserved a block, 2,048 threads, 32
@@ -103,7 +110,8 @@ N_SUBJ = 96 * 96 * 8                 # kernel E's chunk: one subject
 S, SEED = 200, 3
 S_KL = 100
 ENTRIES = ("qv_quad_posterior_summaries", "qv_encode_quad_fused",
-           "qv_encode_q1", "qv_mc_summaries", "qv_mc_kl_map", "qv_mc_kl")
+           "qv_encode_q1", "qv_encode_quad_fused_bf16", "qv_encode_q1_bf16",
+           "qv_mc_summaries", "qv_mc_kl_map", "qv_mc_kl")
 # C entries of earlier builds that the package no longer has: the earlier
 # kernel E took (grid, block), one thread a voxel
 EARLIER = {"qv_mc_kl": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
@@ -207,7 +215,7 @@ class Calls:
                 x, enc, nb)
         else:
             (_, _, _, self.blob, self.u, self.up, self.block,
-             self.smem) = fi._launch_setup(x, enc, trunk="float32",
+             self.smem) = fi._launch_setup(x, enc, trunk=ctx["trunk"],
                                            **ctx["setup"])
         # kernel B's, with its quadrature's scratch (an earlier build's B
         # leaves it unused)
@@ -224,7 +232,7 @@ class Calls:
 
     def b(self, act=None):
         o = self.ctx["b_out"]
-        err = self.lib.qv_encode_quad_fused(
+        err = getattr(self.lib, "qv_encode_quad_fused" + self.ctx["tag"])(
             *self.enc_args(act), self.u, self.up,
             OPTIMAL.model.no_intermediate_layers, self.blob.data_ptr(),
             self.blob.numel(), _cuda.quad_ranges(**self.ctx["ranges"]),
@@ -233,7 +241,7 @@ class Calls:
         _cuda.check(err, "B")
 
     def c(self, act=None):
-        err = self.lib.qv_encode_q1(
+        err = getattr(self.lib, "qv_encode_q1" + self.ctx["tag"])(
             *self.enc_args(act), self.up, OPTIMAL.model.no_intermediate_layers,
             self.blob.data_ptr(), self.blob.numel(),
             self.ctx["q_out"].data_ptr(), self.block, self.smem, self.stream)
@@ -275,7 +283,7 @@ class Calls:
         _cuda.check(err, "D")
 
 
-def context(dev):
+def context(dev, trunk="float32"):
     cfg, scan = OPTIMAL.model, OPTIMAL.scan
     tuner = FineTuner(cfg, scan, device=dev)
     tuner.load_state_dict(init_params(cfg, scan,
@@ -288,7 +296,7 @@ def context(dev):
                   dw_coeff=float(scan.dw_coeff * scan.hct))
     x = torch.from_numpy(volumes(np.random.default_rng(0), (N,),
                                  scan.n_taus)).to(dev)
-    plain_kw = dict(kw, trunk="float32")
+    plain_kw = dict(kw, trunk=trunk)
     q_plain = fi.encode_q_plain(x, tuner.encoder, **plain_kw)
     b_plain = fi.encode_quad_fused_plain(x, tuner.encoder, mvg=True,
                                          **ranges, **plain_kw)
@@ -319,7 +327,8 @@ def context(dev):
         e_plain_dev=sm.mc_kl_map_plain(
             qe[:N_SUBJ], pe[:N_SUBJ], torch.from_numpy(sm.mc_philox_normals(
                 SEED, N_SUBJ, S_KL)).to(dev)),
-        x=x, encoder=tuner.encoder, kw=kw, ranges=ranges,
+        x=x, encoder=tuner.encoder, kw=kw, ranges=ranges, trunk=trunk,
+        tag="_bf16" if trunk == "bfloat16" else "",
         setup={k: kw[k] for k in ("n_blocks", "activation", "mask_channel",
                                   "input_layout", "se_idx")},
         q_plain=q_plain, b_plain=b_plain, q64=q64, z=z, d_plain=d_plain,
@@ -368,13 +377,13 @@ def errors(calls: Calls, ctx) -> str:
                 f"A {mix}", [t.T for t in got], ctx["a_plain"][mix])
                 + f", vs float64 {f64_err(got, ctx['a_f64'][mix])} (plain "
                 f"{f64_err(ctx['a_plain'][mix], ctx['a_f64'][mix])})")
-    if hasattr(lib, "qv_encode_quad_fused"):
+    if hasattr(lib, "qv_encode_quad_fused" + ctx["tag"]):
         calls.b()
         torch.cuda.synchronize()
         out.append("B vs plain means / vars / raw " + " / ".join(
             f"{float((g - r).abs().max()):.2e}"
             for g, r in zip(ctx["b_out"], ctx["b_plain"])))
-    if hasattr(lib, "qv_encode_q1"):
+    if hasattr(lib, "qv_encode_q1" + ctx["tag"]):
         calls.c()
         torch.cuda.synchronize()
         q, q64 = ctx["q_out"], ctx["q64"]
@@ -427,7 +436,11 @@ def bench(name, lib, log, so, row_blob, ctx) -> None:
     res = resources(log)
     code = sass(so)
     parts = []
-    for key, sym in KERNELS.items():
+    kernels = dict(KERNELS)
+    if ctx["tag"]:
+        kernels.update(B="qv_encode_quad_bf16_kernel",
+                       C="qv_encode_q_bf16_kernel")
+    for key, sym in kernels.items():
         if sym not in res:
             continue
         regs, static, frame = res[sym]
@@ -448,12 +461,12 @@ def bench(name, lib, log, so, row_blob, ctx) -> None:
                               KERNELS["A"]))
         rows.append(timed("A C rows block 128",
                           lambda: calls.a(block=128), KERNELS["A"]))
-    if hasattr(lib, "qv_encode_quad_fused"):
-        rows.append(timed("B", calls.b, KERNELS["B"]))
-        rows.append(timed("B gelu", lambda: calls.b("gelu"), KERNELS["B"]))
-    if hasattr(lib, "qv_encode_q1"):
-        rows.append(timed("C", calls.c, KERNELS["C"]))
-        rows.append(timed("C gelu", lambda: calls.c("gelu"), KERNELS["C"]))
+    if hasattr(lib, "qv_encode_quad_fused" + ctx["tag"]):
+        rows.append(timed("B", calls.b, kernels["B"]))
+        rows.append(timed("B gelu", lambda: calls.b("gelu"), kernels["B"]))
+    if hasattr(lib, "qv_encode_q1" + ctx["tag"]):
+        rows.append(timed("C", calls.c, kernels["C"]))
+        rows.append(timed("C gelu", lambda: calls.c("gelu"), kernels["C"]))
     if hasattr(lib, "qv_mc_summaries"):
         q = ctx["q_d"]
         rows.append(timed("D", lambda: calls.d(q), KERNELS["D"]))
@@ -487,6 +500,9 @@ def main() -> int:
     ap.add_argument("--row-blob", action="append", default=[],
                     help="a copy of the earlier, row-major-blob "
                     "encode_quad.cu")
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="the stream-1 trunk of kernels B and C")
     ap.add_argument("sources", nargs="*", help="edited copies of the "
                     "package's encode_quad.cu or summarize.cu")
     args = ap.parse_args()
@@ -499,7 +515,7 @@ def main() -> int:
     for i, (name, (lib, log, so)) in enumerate(built.items()):
         libs[name] = (lib, log, so, i < len(args.row_blob))
     with torch.no_grad():
-        ctx = context(dev)
+        ctx = context(dev, args.dtype)
         print("head mixes: " + mix_shares(ctx), flush=True)
         for name, (lib, log, so, row_blob) in libs.items():
             bench(name, lib, log, so, row_blob, ctx)

@@ -4,7 +4,8 @@ through ``Trainer``, checked against the generating parameters and
 against the classical WLS fit of the same volumes.
 
     python3 tools/validate_finetune_torch.py [--seed N] [--fused-conv MODE]
-        [--fused-elbo MODE] [--ft-epochs N] [--pt-epochs N] [--out DIR]
+        [--fused-elbo MODE] [--compute-dtype float32|bfloat16]
+        [--ft-epochs N] [--pt-epochs N] [--out DIR]
 
 Run it from the repository's root on the machine with the card (``env
 PYTHONPATH=. python3 tools/validate_finetune_torch.py --seed 1``). The
@@ -16,7 +17,9 @@ counterpart of benchmarks/validate_finetune.py, with its setup:
   the mean signal / 80, all drawn by numpy from seed 0;
 * OPTIMAL with the streaming pretrain (``pt_on_device_synth``: a fresh
   batch a step through kernel S), 30 pretrain epochs, 40 fine-tune epochs
-  of 100 steps, acquisition noise in the synthetic data;
+  of 100 steps, acquisition noise in the synthetic data, the trunk in
+  float32 or, with ``--compute-dtype bfloat16``, in bf16 (the JAX script's
+  bf16 A/B, benchmarks/validate_finetune.py:70);
 * ``Trainer.pretrain`` -> ``finetune(data, study_data=data[:2])`` ->
   ``infer.posterior_maps(use_first_op=False)`` -> ``save_predictions(
   fine_tuned=True, priors=...)`` with the priors of the fine-tuned
@@ -26,12 +29,12 @@ Prints the masked posterior-mean |OEF err|, |DBV err| and their
 correlations with the truth; the WLS anchor (``baseline.wls_maps`` on
 the same volumes: its own errors and correlations, and the VI maps'
 correlation with it); the pretrain wall, the fine-tune wall and epoch,
-the export wall; the launches of kernels S, F, H, A and E; the card's
-name and power limit; and as its last line one JSON object of all of
-them. Exits 1 without a card, and 2 when a quality number lies outside
-the floors (|OEF err| <= 0.10, OEF corr >= 0.60, |DBV err| <= 0.019,
-DBV corr >= 0.84: the JAX record's worst of four runs,
-benchmarks/RESULTS.md:377-380, loosened by 7-12%).
+the export wall; the launches of kernels S, F, H (float32 and bf16), A
+and E; the card's name and power limit; and as its last line one JSON
+object of all of them. Exits 1 without a card, and 2 when a quality
+number lies outside the floors (|OEF err| <= 0.10, OEF corr >= 0.60,
+|DBV err| <= 0.019, DBV corr >= 0.84: the JAX record's worst of four
+runs, benchmarks/RESULTS.md:377-380, loosened by 7-12%).
 """
 
 from __future__ import annotations
@@ -94,6 +97,9 @@ def main() -> int:
                     help="the trunk's 3x3 convs: kernel H (on) or cuDNN")
     ap.add_argument("--fused-elbo", default="auto",
                     help="fused_elbo mode (auto|on|off|host)")
+    ap.add_argument("--compute-dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="the encoder trunk's compute dtype")
     ap.add_argument("--pt-epochs", type=int, default=30)
     ap.add_argument("--ft-epochs", type=int, default=40)
     ap.add_argument("--out", default=None,
@@ -123,7 +129,8 @@ def main() -> int:
         cfg = dataclasses.replace(
             OPTIMAL,
             model=dataclasses.replace(OPTIMAL.model,
-                                      fused_conv=args.fused_conv),
+                                      fused_conv=args.fused_conv,
+                                      compute_dtype=args.compute_dtype),
             train=dataclasses.replace(OPTIMAL.train, **train),
             scan=dataclasses.replace(OPTIMAL.scan, simulate_noise=True))
         data, oef_true, dbv_true, mask = make_subjects(cfg.scan)
@@ -134,6 +141,8 @@ def main() -> int:
                     (fused_elbo.fused_elbo_backward, "launches"),
                     (conv3x3.conv3x3, "fwd_launches"),
                     (conv3x3.conv3x3, "bwd_launches"),
+                    (conv3x3.conv3x3, "fwd_bf16_launches"),
+                    (conv3x3.conv3x3, "bwd_bf16_launches"),
                     (quadrature.quad_posterior_summaries, "launches"),
                     (summarize.mc_kl_map, "launches"))
         for fn, attr in counters:
@@ -199,7 +208,8 @@ def main() -> int:
               if (vi[k] > v if k.endswith("err") else vi[k] < v)]
     print(json.dumps({
         "seed": cfg.train.seed, "fused_conv": args.fused_conv,
-        "fused_elbo": args.fused_elbo, "quality": vi, "wls": anchor,
+        "fused_elbo": args.fused_elbo, "compute_dtype": args.compute_dtype,
+        "quality": vi, "wls": anchor,
         "vi_vs_wls": vs_wls, "pretrain_s": t_pt, "finetune_s": t_ft,
         "finetune_epoch_s": epoch_s, "export_s": t_ex, "wls_s": t_wls,
         "launches": launches, "floors": FLOORS, "failed": failed,
