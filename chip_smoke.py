@@ -15,7 +15,8 @@ from scratch
 forward and backward), the streaming pretrain (a fresh batch a step
 through kernel S), the WLS baseline, and the trunk in bf16
 (``compute_dtype="bfloat16"``: kernels B, C and H at bf16 on serving,
-fine-tuning and pretraining), and checks them:
+fine-tuning and pretraining), and the command line (``cli.main``: train
+with its checkpoints and their resume, infer and serve), and checks them:
 
 1. device: a CUDA card is required (otherwise exit 1, no result line);
 2. build: the kernels of all seven sources in csrc/ are compiled by nvcc;
@@ -196,7 +197,28 @@ weights of phase 3), after phase 28:
    against the CPU and one through H against cuDNN, at BF16_STEP_TOL;
 32. pretraining at bf16: one streaming epoch (22 steps, S launched a step);
 33. timings: the bf16 fine-tune step's wall, busy share and launches
-   through H and through cuDNN, and the epoch wall.
+   through H and through cuDNN, and the epoch wall;
+34. the CLI's train (``cli.main(["train", "--preset", "optimal", ...])``,
+   every Trainer of the run in a save_directory of its own) on a
+   real-data directory: ASE_scan of 6 brains of 64 x 64 x 8
+   (tools/validate_finetune_torch.py::make_subjects) and one hyperv and
+   one baseline subject with grey-matter and brain masks; 2 streaming
+   pretrain epochs, 2 x 100 fine-tune steps, checkpoint_every_epochs=1:
+   pt_model.msgpack, final_model.msgpack, no .partial, the pt_*,
+   baseline_* and hyperv_* maps, and S, B, F, A and E launched (counts
+   set to 0 before the call and read after); the checkpoint's bytes and
+   its write and read times;
+35. resume: a pretrain and a fine-tune whose logger raises at epoch 1 leave
+   a .partial each; fresh Trainers restore them (params, mu, nu, count,
+   SWA and step bit for bit equal to the tensors saved, at epoch 1), and
+   two fresh Trainers resumed from the one fine-tune .partial end with
+   bit-equal weights;
+36. the CLI's infer on a 14 x 96 x 96 x 8 request from phase 34's
+   final_model.msgpack in a fresh Trainer, its 8 maps bit-equal to
+   save_predictions of the Trainer that trained (seed 7, the same pt
+   priors); serve --warm 1 96 96 8 answering a quadrature, an mc and a
+   bad request, each ack's wall_s beside the in-process posterior_maps
+   wall of the same request.
 Phases 5 and 13 print A-E beside their bounds: B and C's from the chain's
 FMAs at the 3xTF32 rate (encode_bound) and at the float32 CUDA-core peak;
 A's, B's and E's special-function bound beside OPS's (MUFU: the
@@ -1166,8 +1188,8 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
             f"{k}={v:.6g}" for k, v in m.items()) + f" [{card}]")
 
     data = volumes(np.random.default_rng(0), TRAIN_VOLUMES, t_n)
-    trainer = Trainer(cfg, state_dict=tuner.state_dict(), device=dev,
-                      logger=logger)
+    trainer = Trainer(fresh_save(cfg), state_dict=tuner.state_dict(),
+                      device=dev, logger=logger)
     before = {k: v.clone() for k, v in trainer.tuner.state_dict().items()}
     for f in counters.values():
         f.launches = 0
@@ -1256,7 +1278,8 @@ def fine_tune_phases(dev, card, cfg, tuner) -> dict:
         log(f"[{phase}, diagonal + population prior] epoch {epoch}: "
             + " ".join(f"{k}={v:.6g}" for k, v in m.items()) + f" [{card}]")
 
-    pop_trainer = Trainer(pop_cfg, state_dict=pop_tuner.state_dict(),
+    pop_trainer = Trainer(fresh_save(pop_cfg),
+                          state_dict=pop_tuner.state_dict(),
                           device=dev, logger=pop_logger)
     pop_before = {k: v.clone()
                   for k, v in pop_trainer.tuner.state_dict().items()}
@@ -2114,7 +2137,7 @@ def two_phase_path(dev, card, base, conv: dict) -> dict:
             f"{k}={v:.6g}" for k, v in m.items()) + f" [{card}]")
 
     # ---- 15. pretraining at full data size --------------------------------
-    trainer = Trainer(cfg, device=dev, logger=logger)
+    trainer = Trainer(fresh_save(cfg), device=dev, logger=logger)
     if trainer.status is not WeightStatus.NOT_TRAINED:
         raise AssertionError("a Trainer without weights is not NOT_TRAINED")
     try:
@@ -2480,7 +2503,7 @@ def stream_phases(dev, card, base) -> dict:
         log(f"[{phase}, streaming] epoch {epoch}: " + " ".join(
             f"{k}={v:.6g}" for k, v in m.items()) + f" [{card}]")
 
-    trainer = Trainer(cfg, device=dev, logger=logger)
+    trainer = Trainer(fresh_save(cfg), device=dev, logger=logger)
     sb.synth_batch.launches = sb.synth_batch.noise_launches = 0
     t0 = time.perf_counter()
     trainer.pretrain()
@@ -2958,7 +2981,8 @@ def bf16_phases(dev, card, base, tuner) -> dict:
     vols = volumes(np.random.default_rng(0), TRAIN_VOLUMES, scan.n_taus)
     on_run = dataclasses.replace(on16, train=dataclasses.replace(
         on16.train, no_ft_epochs=1))
-    trainer = Trainer(on_run, state_dict=weights, device=dev, logger=logger)
+    trainer = Trainer(fresh_save(on_run), state_dict=weights, device=dev,
+                      logger=logger)
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     cv.conv3x3.fwd_launches = cv.conv3x3.bwd_launches = 0
@@ -2987,7 +3011,8 @@ def bf16_phases(dev, card, base, tuner) -> dict:
     epoch_on_ms = logged[-1]["epoch_time_s"] * 1e3
     auto_run = dataclasses.replace(cfg16, train=dataclasses.replace(
         cfg16.train, no_ft_epochs=1, ft_steps_per_epoch=10))
-    trainer = Trainer(auto_run, state_dict=trainer.tuner.state_dict(),
+    trainer = Trainer(fresh_save(auto_run),
+                      state_dict=trainer.tuner.state_dict(),
                       device=dev, logger=logger)
     cv.conv3x3.fwd_bf16_launches = cv.conv3x3.bwd_bf16_launches = 0
     fe.fused_elbo_forward.launches = fe.fused_elbo_backward.launches = 0
@@ -3037,7 +3062,8 @@ def bf16_phases(dev, card, base, tuner) -> dict:
     pt_cfg = dataclasses.replace(cfg16, train=dataclasses.replace(
         cfg16.train, pt_on_device_synth=True, no_pt_epochs=1))
     pt_logged = []
-    pt_trainer = Trainer(pt_cfg, device=dev, logger=lambda phase, e, m:
+    pt_trainer = Trainer(fresh_save(pt_cfg), device=dev,
+                         logger=lambda phase, e, m:
                          pt_logged.append(dict(m)))
     sb.synth_batch.launches = sb.synth_batch.noise_launches = 0
     t0 = time.perf_counter()
@@ -3113,6 +3139,439 @@ def bf16_phases(dev, card, base, tuner) -> dict:
                                        for k, p in step_prof.items()},
             "finetune_epoch_on_ms": epoch_on_ms,
             "pretrain_epoch_s": pt_logged[-1].get("epoch_time_s")}
+
+
+# ---- the CLI, checkpoints and resume (phases 34-36) -------------------------
+
+CLI_SUBJECTS = 6                     # ASE_scan: make_subjects' 64 x 64 x 8
+SERVE_REQUEST = (14, 96, 96, 8)      # infer / serve: one 1.03 M-voxel stack
+_SAVE_ROOT: list = []                # the run's checkpoint directories
+
+
+def fresh_save(cfg):
+    """``cfg`` with a save_directory of its own (removed at exit): a
+    Trainer writes its checkpoints there and resumes what it finds, so no
+    two Trainers of this run share one."""
+    import atexit
+
+    if not _SAVE_ROOT:
+        _SAVE_ROOT.append(tempfile.mkdtemp(prefix="qbold_smoke_"))
+        atexit.register(shutil.rmtree, _SAVE_ROOT[0], True)
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, save_directory=tempfile.mkdtemp(dir=_SAVE_ROOT[0])))
+
+
+def load_tool(name: str):
+    """A module of tools/ (not a package) by its path beside this file."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def write_real_directory(d: str, scan) -> np.ndarray:
+    """load_real_directory's layout in ``d``: ASE_scan.npy (CLI_SUBJECTS
+    synthetic brains of tools/validate_finetune_torch.py::make_subjects,
+    a brain-mask channel) and hyperv_ase.npy / baseline_ase.npy (one
+    brain each from another seed, with a grey-matter mask -- the inner
+    ellipse -- and the brain mask). Returns ASE_scan."""
+    vt = load_tool("validate_finetune_torch")
+    data, _, _, _ = vt.make_subjects(scan, n=CLI_SUBJECTS)
+    np.save(os.path.join(d, "ASE_scan.npy"), data)
+    study, _, _, brain = vt.make_subjects(scan, n=2, seed=1)
+    xx, yy = np.meshgrid(np.linspace(-1, 1, study.shape[1]),
+                         np.linspace(-1, 1, study.shape[2]), indexing="ij")
+    gm = (brain * ((xx ** 2 + yy ** 2) < 0.5)[None, :, :, None]
+          ).astype(np.float32)
+    for i, name in enumerate(("hyperv_ase", "baseline_ase")):
+        np.save(os.path.join(d, name + ".npy"), np.concatenate(
+            [study[i:i + 1, ..., :-1], gm[i:i + 1, ..., None],
+             study[i:i + 1, ..., -1:]], -1))
+    return data
+
+
+def run_cli(argv: list, stdin: str = "") -> tuple:
+    """(exit code, stdout lines) of cli.main(argv) with ``stdin`` as its
+    standard input; its output is kept from this script's own."""
+    import contextlib
+    import io
+
+    from qbold_vi_tpu_torch import cli
+
+    out, old_stdin = io.StringIO(), sys.stdin
+    sys.stdin = io.StringIO(stdin)
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+    finally:
+        sys.stdin = old_stdin
+    return rc, out.getvalue().splitlines()
+
+
+def cli_counters() -> dict:
+    from qbold_vi_tpu_torch.ops import fused_elbo as fe
+    from qbold_vi_tpu_torch.ops import fused_infer as fi
+    from qbold_vi_tpu_torch.ops import quadrature as quad
+    from qbold_vi_tpu_torch.ops import summarize as sm
+    from qbold_vi_tpu_torch.ops import synth_batch as sb
+
+    return {"S": sb.synth_batch, "B": fi.encode_quad_fused,
+            "C": fi.encode_q1_packed, "D": sm.mc_posterior_summaries,
+            "D_packed": sm.mc_posterior_summaries_packed,
+            "E": sm.mc_kl_map, "A": quad.quad_posterior_summaries,
+            "F_fwd": fe.fused_elbo_forward, "F_bwd": fe.fused_elbo_backward}
+
+
+def reset_counts() -> None:
+    for fn in cli_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in cli_counters().items()}
+
+
+def clone_state(state):
+    """A TrainState's tensors copied to the CPU."""
+    from qbold_vi_tpu_torch.train import checkpoint as ck
+    from qbold_vi_tpu_torch.train.optim import SWAState
+
+    c = lambda d: {k: v.detach().cpu().clone()  # noqa: E731
+                   for k, v in d.items()}
+    o = state.opt_state
+    swa = None if state.swa is None else SWAState(
+        state.swa.step, state.swa.n_avg, c(state.swa.average))
+    return ck.TrainState(c(state.params),
+                         ck.OptState(o.count, c(o.mu), c(o.nu), o.tail),
+                         swa, state.step)
+
+
+def assert_state_equal(tag: str, got, want) -> None:
+    """Bit for bit: params, mu, nu, count, SWA and step."""
+    pairs = [("params", got.params, want.params),
+             ("mu", got.opt_state.mu, want.opt_state.mu),
+             ("nu", got.opt_state.nu, want.opt_state.nu)]
+    if (got.swa is None) != (want.swa is None):
+        raise AssertionError(f"{tag}: SWA state restored as {got.swa!r}")
+    if want.swa is not None:
+        pairs.append(("swa", got.swa.average, want.swa.average))
+        if got.swa[:2] != want.swa[:2]:
+            raise AssertionError(f"{tag}: SWA step / n_avg {got.swa[:2]} "
+                                 f"!= {want.swa[:2]}")
+    if (got.opt_state.count, got.step) != (want.opt_state.count, want.step):
+        raise AssertionError(f"{tag}: count / step")
+    for what, a, b in pairs:
+        if set(a) != set(b) or not all(torch.equal(a[k].cpu(), b[k].cpu())
+                                       for k in b):
+            raise AssertionError(f"{tag}: {what} differs from what was saved")
+
+
+def cli_phases(dev, card, base) -> dict:
+    """Phases 34-36: ``python -m qbold_vi_tpu_torch train`` at OPTIMAL's
+    width on a real-data directory (S, B, F, A and E launched); a
+    .partial of each phase resumed bit for bit, and two runs resumed from
+    one .partial ending equal; ``infer`` and ``serve`` from the trained
+    checkpoint in fresh Trainers. Returns the walls and sizes."""
+    from qbold_vi_tpu_torch import infer
+    from qbold_vi_tpu_torch.io import nifti
+    from qbold_vi_tpu_torch.train import checkpoint as ck
+    from qbold_vi_tpu_torch.train import data as data_pipe
+    from qbold_vi_tpu_torch.train import trainer as tr
+
+    # ---- 34. train -----------------------------------------------------
+    cfg = fresh_save(base)
+    save = cfg.train.save_directory
+    data_dir = tempfile.mkdtemp(dir=_SAVE_ROOT[0])
+    ase = write_real_directory(data_dir, base.scan)
+    trained = []
+
+    class Recording(tr.Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            trained.append(self)
+
+    argv = ["train", "--preset", "optimal", "--set", f"save_directory={save}",
+            "--set", f"d={data_dir}", "--set", "no_pt_epochs=2",
+            "--set", "pt_on_device_synth=true", "--set", "no_ft_epochs=2",
+            "--set", "checkpoint_every_epochs=1"]
+    tr.Trainer, real_trainer = Recording, tr.Trainer
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        rc, lines = run_cli(argv)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        tr.Trainer = real_trainer
+    counts = read_counts()
+    for ln in lines:
+        log("  train: " + ln)
+    files = sorted(os.listdir(save))
+    log(f"cli train on {CLI_SUBJECTS} x 64 x 64 x 8 brains + 2 study "
+        f"subjects: rc {rc}, {train_s:.2f} s (2 streaming pretrain epochs, "
+        f"2 x {base.train.ft_steps_per_epoch} fine-tune steps, 4 exports); "
+        f"launches {counts}; wrote {files} [{card}]")
+    want = {"pt_model.msgpack", "final_model.msgpack"} | {
+        f"{p}_{m}.nii.gz" for p in ("pt_baseline", "pt_hyperv", "baseline",
+                                    "hyperv")
+        for m in ("oef", "dbv", "r2p", "logstds", "raw_logstds")} | {
+        f"{p}_{m}.nii.gz" for p in ("baseline", "hyperv")
+        for m in ("likelihood", "kl", "residual")}
+    if rc != 0 or not want <= set(files) or any(
+            f.endswith(".partial") for f in files):
+        raise AssertionError(f"cli train: rc {rc}, files {files}")
+    for k in ("S", "B", "F_fwd", "F_bwd", "A", "E"):
+        if counts[k] == 0:
+            raise AssertionError(f"cli train never launched {k}: {counts}")
+    oef = nifti.load_nifti(os.path.join(save, "baseline_oef.nii.gz"))
+    if not (np.isfinite(oef).all() and 0.04 <= oef.min()
+            and oef.max() <= 0.84):
+        raise AssertionError("cli train: baseline OEF map out of range")
+    (trainer,) = trained
+    if trainer.status is not tr.WeightStatus.FULL_TRAINED:
+        raise AssertionError("cli train left the Trainer unfinished")
+    ckpt_bytes = os.path.getsize(trainer.final_path)
+    write_ms = wall_ms(lambda: trainer._save(
+        trainer.final_path + ".copy", "finetune", trainer.optimizer))
+    read_ms = wall_ms(lambda: trainer._load_state(trainer.final_path,
+                                                  "finetune"))
+    with open(trainer.final_path, "rb") as f, \
+            open(trainer.final_path + ".copy", "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("a rewrite of the live state differs from "
+                                 "final_model.msgpack")
+    os.remove(trainer.final_path + ".copy")
+    log(f"checkpoint at OPTIMAL's width: final_model.msgpack "
+        f"{ckpt_bytes:,} bytes, pt_model.msgpack "
+        f"{os.path.getsize(trainer.pt_path):,} bytes; write (capture + "
+        f"encode + write) {write_ms:.3f} ms, read (decode + bridge) "
+        f"{read_ms:.3f} ms, median of 7 [{card}]")
+
+    # ---- 35. resume on the card ------------------------------------------
+    saved = {}
+    real_save = tr._save_state
+
+    def recording(path, state, cfg=None, steps_per_epoch=0):
+        saved[os.path.basename(path)] = clone_state(state)
+        return real_save(path, state, cfg=cfg,
+                         steps_per_epoch=steps_per_epoch)
+
+    class Crash(RuntimeError):
+        pass
+
+    def crash_at(phase, epoch):
+        def logger(p, e, m):
+            if (p, e) == (phase, epoch):
+                raise Crash(f"{p} epoch {e}")
+        return logger
+
+    # SWA folds at the end of each streaming epoch: one goes into the
+    # pretrain's .partial, one comes after its resume
+    spe = tr.stream_steps_per_epoch(base)
+    every = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, checkpoint_every_epochs=1, no_pt_epochs=2,
+        pt_on_device_synth=True, no_ft_epochs=2, swa_start=spe,
+        swa_period=spe))
+    weights = {k: v.clone() for k, v in trainer.pretrained_params().items()}
+    tr._save_state = recording
+    try:
+        # the pretrain's .partial (Adam's state and SWA's)
+        pt_cfg = fresh_save(every)
+        try:
+            tr.Trainer(pt_cfg, device=dev,
+                       logger=crash_at("pretrain", 1)).pretrain()
+            raise AssertionError("the pretrain did not crash")
+        except Crash:
+            pass
+        pt_partial = saved["pt_model.msgpack.partial"]
+        t = tr.Trainer(pt_cfg, device=dev, logger=lambda *a: None)
+        state, start = t._phase_start(t.pt_path, "pretrain", spe)
+        assert_state_equal("pretrain .partial", state, pt_partial)
+        if start != 1 or state.opt_state.count != spe or state.swa is None \
+                or state.swa.n_avg != 1:
+            raise AssertionError(f"pretrain .partial: start {start}, count "
+                                 f"{state.opt_state.count}, SWA "
+                                 f"{state.swa and state.swa[:2]}")
+        # resumed on the card, the pretrain folds its weights into the
+        # restored average at the end of epoch 1
+        t0 = time.perf_counter()
+        t.pretrain()
+        torch.cuda.synchronize()
+        pt_resume_s = time.perf_counter() - t0
+        if (t.swa.step, t.swa.n_avg) != (2 * spe, 2):
+            raise AssertionError(f"resumed pretrain: SWA step / n_avg "
+                                 f"{t.swa[:2]}")
+        for name, p in t.tuner.named_parameters():
+            avg = t.swa.average[name]
+            want = (pt_partial.swa.average[name].to(dev) * 1.0
+                    + p.detach()) / p.new_tensor(2.0)
+            if avg.device.type != "cuda" or not torch.equal(avg, want):
+                raise AssertionError(f"resumed pretrain: SWA average of "
+                                     f"{name} is not the fold of the saved "
+                                     "one and the weights")
+        written = t._load_state(t.pt_path, "pretrain").swa
+        if written.n_avg != 2 or not all(
+                torch.equal(v, t.swa.average[k].cpu())
+                for k, v in written.average.items()):
+            raise AssertionError("pt_model.msgpack's SWA state differs "
+                                 "from the resumed Trainer's")
+        # the fine-tune's
+        ft_cfg = fresh_save(every)
+        try:
+            tr.Trainer(ft_cfg, state_dict=weights, device=dev,
+                       logger=crash_at("finetune", 1)).finetune(ase)
+            raise AssertionError("the fine-tune did not crash")
+        except Crash:
+            pass
+        ft_partial = saved["final_model.msgpack.partial"]
+    finally:
+        tr._save_state = real_save
+    partial = os.path.join(ft_cfg.train.save_directory,
+                           "final_model.msgpack.partial")
+    t = tr.Trainer(ft_cfg, state_dict=weights, resume_partial=True,
+                   device=dev, logger=lambda *a: None)
+    t.finetune(ase, epochs=0)                  # restores, runs no epoch
+    names = [n for n, _ in t.tuner.named_parameters()]
+    restored = ck.TrainState(
+        t.tuner.state_dict(),
+        ck.OptState(t.optimizer.count,
+                    dict(zip(names, t.optimizer.mu)),
+                    dict(zip(names, t.optimizer.nu)),
+                    ft_partial.opt_state.tail), None, t.optimizer.count)
+    assert_state_equal("fine-tune .partial", restored, ft_partial)
+    if t.epochs_done != 1 or t.optimizer.count != \
+            base.train.ft_steps_per_epoch:
+        raise AssertionError(f"fine-tune .partial: epoch {t.epochs_done}, "
+                             f"count {t.optimizer.count}")
+    log(f"resume: the pretrain .partial (count {spe}, SWA n_avg "
+        f"{pt_partial.swa.n_avg}) and the fine-tune .partial (count "
+        f"{t.optimizer.count}) restore params, mu, nu, count, SWA and step "
+        f"bit for bit, at epoch 1; the resumed pretrain's epoch "
+        f"({pt_resume_s:.2f} s) folds its weights into the restored SWA "
+        f"average on the card [{card}]")
+    # two fresh Trainers resumed from the one .partial
+    finals, walls = [], []
+    for i in range(2):
+        c = fresh_save(every)
+        shutil.copy(partial, os.path.join(c.train.save_directory,
+                                          "final_model.msgpack.partial"))
+        logged = []
+        r = tr.Trainer(c, state_dict=weights, resume_partial=True,
+                       device=dev, logger=lambda p, e, m: logged.append(e))
+        t0 = time.perf_counter()
+        r.finetune(ase)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if logged != [1] or not os.path.isfile(r.final_path) or \
+                os.path.exists(r.final_path + ".partial"):
+            raise AssertionError(f"resumed run {i}: epochs {logged}")
+        finals.append({k: v.clone() for k, v in r.tuner.state_dict().items()})
+    diff = max(float((finals[0][k] - finals[1][k]).abs().max())
+               for k in finals[0])
+    log(f"two Trainers resumed from one .partial (epoch 1 of 2, "
+        f"{walls[0]:.2f} s and {walls[1]:.2f} s): weights differ by at most "
+        f"{diff:.3e} [{card}]")
+    if diff != 0.0:
+        raise AssertionError("two runs resumed from one .partial differ by "
+                             f"{diff:.3e}")
+
+    # ---- 36. infer and serve -------------------------------------------
+    rng = np.random.default_rng(36)
+    req = volumes(rng, SERVE_REQUEST, base.scan.n_taus)
+    req_path = os.path.join(data_dir, "request.npy")
+    np.save(req_path, req)
+    out_cli = os.path.join(save, "infer")
+    common = ["--preset", "optimal", "--set", f"save_directory={save}"]
+    reset_counts()
+    t0 = time.perf_counter()
+    rc, lines = run_cli(["infer", req_path, "-o", out_cli, *common])
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    infer_counts = read_counts()
+    if rc != 0:
+        raise AssertionError(f"cli infer: rc {rc}, {lines}")
+    priors = data_pipe.predict_priors(trainer.pretrained_encode_fn(), req, 5)
+    out_ref = os.path.join(save, "inproc")
+    t0 = time.perf_counter()
+    infer.save_predictions(trainer.tuner, trainer.cfg, req, out_ref, seed=7,
+                           use_first_op=False, fine_tuned=True,
+                           priors=priors)
+    torch.cuda.synchronize()
+    inproc_s = time.perf_counter() - t0
+    for m in ("oef", "dbv", "r2p", "logstds", "raw_logstds", "likelihood",
+              "kl", "residual"):
+        got = nifti.load_nifti(f"{out_cli}_{m}.nii.gz")
+        ref = nifti.load_nifti(f"{out_ref}_{m}.nii.gz")
+        if not np.array_equal(got, ref):
+            raise AssertionError(f"cli infer's {m} map differs from the "
+                                 "training process's save_predictions")
+    log(f"cli infer on {SERVE_REQUEST} from final_model.msgpack in a fresh "
+        f"Trainer: {infer_s:.2f} s (restore included), launches "
+        f"{infer_counts}; its 8 maps are bit-equal to save_predictions of "
+        f"the Trainer that trained ({inproc_s:.2f} s) [{card}]")
+
+    reqs = [{"data": req_path, "output": os.path.join(save, "serve_q")},
+            {"data": req_path, "output": os.path.join(save, "serve_mc"),
+             "method": "mc"},
+            {"data": os.path.join(data_dir, "missing.npy"),
+             "output": os.path.join(save, "serve_bad")}]
+    reset_counts()
+    rc, lines = run_cli(["serve", "--warm", "1", "96", "96", "8", *common],
+                        "\n".join(json.dumps(r) for r in reqs) + "\n")
+    serve_counts = read_counts()
+    acks = [json.loads(ln) for ln in lines]
+    if rc != 0 or len(acks) != 4 or not (
+            acks[0].get("ready") and acks[0].get("fine_tuned")
+            and acks[1]["ok"] and acks[2]["ok"] and not acks[3]["ok"]
+            and "FileNotFoundError" in acks[3]["error"]):
+        raise AssertionError(f"cli serve: rc {rc}, acks {acks}")
+    for k in ("A", "E", "D"):
+        if serve_counts[k] == 0:
+            raise AssertionError(f"serve never launched {k}: {serve_counts}")
+    pm = {method: wall_ms(lambda: infer.posterior_maps(
+        trainer.tuner, req, seed=7, use_first_op=False, method=method),
+        blocks=3) for method in ("quadrature", "mc")}
+    log(f"cli serve --warm 1 96 96 8: acks {acks} (launches {serve_counts}); "
+        f"wall_s {acks[1]['wall_s']} s (quadrature) and {acks[2]['wall_s']} "
+        f"s (mc) for the whole fine-tuned export of {SERVE_REQUEST}, "
+        f"against in-process posterior_maps {pm['quadrature']:.1f} ms and "
+        f"{pm['mc']:.1f} ms of the same request [{card}]")
+    # the export's parts, each once: the pt priors' encoder pass, the maps,
+    # the likelihood / KL / residual maps, the eight NIfTI writes
+    split = {}
+    t0 = time.perf_counter()
+    priors = data_pipe.predict_priors(trainer.pretrained_encode_fn(), req, 5)
+    split["priors_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    maps = infer.posterior_maps(trainer.tuner, req, seed=7,
+                                use_first_op=False)
+    split["posterior_maps_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    maps.update(infer.elbo_maps(trainer.tuner, trainer.cfg, req, priors, 7))
+    torch.cuda.synchronize()
+    split["elbo_maps_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for key, suffix in (("oef", "_oef"), ("dbv", "_dbv"), ("r2p", "_r2p"),
+                        ("stds", "_logstds"), ("raw_log_stds", "_raw_logstds"),
+                        ("likelihood", "_likelihood"), ("kl", "_kl"),
+                        ("residual", "_residual")):
+        nifti.save_im_data(maps[key], os.path.join(save, "split") + suffix)
+    split["nifti_s"] = time.perf_counter() - t0
+    log("the fine-tuned export of " + str(SERVE_REQUEST) + " in parts: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f" [{card}]")
+    return {"train_s": train_s, "train_launches": counts,
+            "checkpoint_bytes": ckpt_bytes, "checkpoint_write_ms": write_ms,
+            "checkpoint_read_ms": read_ms, "resume_epoch_s": walls,
+            "pt_resume_epoch_s": pt_resume_s,
+            "infer_s": infer_s, "inproc_export_s": inproc_s,
+            "serve_wall_s": {"quadrature": acks[1]["wall_s"],
+                             "mc": acks[2]["wall_s"]},
+            "posterior_maps_ms": pm, "export_split_s": split}
 
 
 def main() -> int:
@@ -3337,6 +3796,8 @@ def main() -> int:
     elapsed("phases 29-33")
     bf16 = bf16_phases(dev, card, OPTIMAL, tuner)
     kernels += bf16["kernels"]
+    elapsed("phases 34-36")
+    cli = cli_phases(dev, card, OPTIMAL)
     elapsed("done")
     print(json.dumps({"posterior_maps_wall_ms": walls,
                       "mc_posterior_maps_wall_ms": sampled["mc_walls"],
@@ -3357,6 +3818,7 @@ def main() -> int:
                       "bf16": {k: v for k, v in bf16.items()
                                if k != "kernels"},
                       "stream1_float64_err": err64,
+                      "cli": cli,
                       "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

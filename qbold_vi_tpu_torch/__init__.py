@@ -9,8 +9,11 @@ likelihood/KL/residual export (``infer.posterior_maps``,
 ``infer.elbo_maps``, ``infer.save_predictions``; kernels A-E), and
 two-phase training (``train.trainer.Trainer``): synthetic pretraining and
 ELBO fine-tuning (kernels F and G), with the encoder's 3x3 convs by
-kernel H under ``fused_conv="on"``. Every TPU kernel of the JAX package
-has its hand-written counterpart here.
+kernel H under ``fused_conv="on"``, with the JAX Trainer's checkpoint
+files and their resume (``train/checkpoint.py``), and the command line
+``python -m qbold_vi_tpu_torch train | infer | serve | baseline``
+(``cli.py``). Every TPU kernel of the JAX package has its hand-written
+counterpart here.
 """
 
 from .config import OPTIMAL, ModelConfig, QBoldConfig, ScanParams

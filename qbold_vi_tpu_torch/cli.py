@@ -1,0 +1,441 @@
+"""Command-line entry points of the port: train / infer / serve / baseline.
+
+    python -m qbold_vi_tpu_torch train --preset optimal --set d=DATA_DIR
+    python -m qbold_vi_tpu_torch infer vols.npy -o out/subj --preset optimal
+    python -m qbold_vi_tpu_torch serve --warm 1 96 96 8 --preset optimal
+    python -m qbold_vi_tpu_torch baseline vols.npy -o out/wls
+
+The counterpart of ``qbold_vi_tpu/cli.py`` (its names, flags, checkpoint
+files and exit codes), with these differences, each stated in the help:
+
+* ``--device {cuda,cpu}`` (default cuda) takes the place of
+  ``QBOLD_CPU_DEVICES``: without a CUDA device and without ``--device
+  cpu`` a command fails; it never falls back to the CPU;
+* the seeds of the exports' sampled maps are ``seed=5`` (post-pretrain)
+  and ``seed=7`` (fine-tuned), where the JAX CLI passes
+  ``jax.random.PRNGKey(5 / 7)``;
+* not ported yet, and exiting with code 2 and a message: the subcommands
+  synth, sweep, dryrun, export-model, import-weights and transfer; train's
+  --mesh, --coordinator, --num-processes and --process-id; and an MNI-space
+  export (``--transform-directory``; ``train`` writes native-space maps
+  when the data directory holds transforms);
+* ``--config`` needs pyyaml, which the CUDA machine lacks: there, give
+  ``--preset optimal`` and ``--set key=value`` overrides.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+
+from .config import (OPTIMAL, QBoldConfig, apply_flat_overrides,
+                     load_ini_config, load_yaml_config)
+
+__all__ = ["main", "build_parser"]
+
+NOT_PORTED = 2          # the exit code of what the port does not run yet
+
+
+def _not_ported(what: str) -> int:
+    print(f"{what} is not ported yet (ROADMAP.md); the JAX package's CLI "
+          "(python -m qbold_vi_tpu) runs it", file=sys.stderr)
+    return NOT_PORTED
+
+
+def _load_cfg(args) -> QBoldConfig:
+    base = OPTIMAL if args.preset == "optimal" else QBoldConfig()
+    if getattr(args, "ini", None):
+        # the reference INI: scanner constants and the synthetic-population
+        # section (reference config:1-61)
+        base = load_ini_config(args.ini, base)
+    strict = not getattr(args, "allow_unknown_keys", False)
+    cfg = (load_yaml_config(args.config, base=base, strict=strict)
+           if args.config else base)
+    overrides = dict(kv.split("=", 1) for kv in (args.set or []))
+    if overrides:
+        # a typo'd --set key raises with a did-you-mean unless
+        # --allow-unknown-keys
+        cfg = apply_flat_overrides(cfg, overrides, strict=strict)
+    return cfg
+
+
+def _maybe_wandb(cfg: QBoldConfig):
+    """wandb is optional (reference qbold_train_model.py:22-25)."""
+    if not cfg.train.wandb_project:
+        return None
+    try:
+        import wandb
+    except ImportError:
+        print("wandb not installed; logging to stdout only", file=sys.stderr)
+        return None
+    return wandb.init(project=cfg.train.wandb_project, config=cfg.__dict__)
+
+
+def _with_brain_mask(arr: np.ndarray) -> np.ndarray:
+    """A study set's (GM mask, brain mask) channels -> the brain mask."""
+    return np.concatenate([arr[..., :-2], arr[..., -1:]], -1)
+
+
+def _transforms(d: str, name: str) -> None:
+    tdir = os.path.join(d, f"transforms_{name}")
+    if os.path.isdir(tdir):
+        print(f"{tdir} found, but the MNI-space export is not ported yet "
+              "(ROADMAP.md): writing native-space maps", file=sys.stderr)
+
+
+def cmd_train(args) -> int:
+    """Two-phase training (reference train.py:188-282): pretrain (or resume
+    save_directory's checkpoints), then, when the data directory holds ASE
+    volumes, the post-pretrain exports, fine-tuning and the fine-tuned
+    exports of the study sets."""
+    from . import infer
+    from .train import data as data_pipe
+    from .train.trainer import Trainer, WeightStatus
+
+    for flag in ("mesh", "coordinator", "num_processes", "process_id"):
+        if getattr(args, flag):
+            return _not_ported(f"train --{flag.replace('_', '-')}")
+    cfg = _load_cfg(args)
+    if args.smoke:
+        # a tiny end-to-end run: the same code path at small shapes
+        cfg = dataclasses.replace(
+            cfg,
+            synth=dataclasses.replace(cfg.synth, sample_size=64),
+            model=dataclasses.replace(cfg.model, no_units=8,
+                                      no_intermediate_layers=1),
+            train=dataclasses.replace(cfg.train, no_pt_epochs=1,
+                                      no_ft_epochs=1, ft_steps_per_epoch=2,
+                                      pt_batch_size=4))
+    trainer = Trainer(cfg, device=args.device, wandb_run=_maybe_wandb(cfg))
+    trainer.pretrain()
+
+    d = cfg.train.data_directory
+    if not os.path.exists(d):
+        print(f"real data directory {d} not found; pretraining only",
+              file=sys.stderr)
+        return 0
+    real = data_pipe.load_real_directory(d)
+    if real["train"] is None:
+        print("no ASE training volumes found; pretraining only",
+              file=sys.stderr)
+        return 0
+    hyperv, baseline = real["hyperv"], real["baseline"]
+    save = cfg.train.save_directory
+
+    # post-pretrain exports and the population stats for prior
+    # initialisation (reference train.py:241-251)
+    if baseline is not None:
+        stats = trainer.estimate_population_param_distribution(
+            _with_brain_mask(baseline))
+        print("population stats (for prior init):", stats)
+        if trainer.status is WeightStatus.PRE_TRAINED:
+            for name, arr in (("pt_baseline", baseline),
+                              ("pt_hyperv", hyperv)):
+                if arr is None:
+                    continue
+                _transforms(d, name.split("_")[1])
+                infer.save_predictions(
+                    trainer.tuner, cfg, _with_brain_mask(arr),
+                    os.path.join(save, name), seed=5)
+
+    # per-voxel priors from the pre-finetune encoder, for the KL maps of
+    # the final exports (reference train.py:227-236)
+    k = 5 if cfg.model.use_mvg else 4
+    priors = {name: data_pipe.predict_priors(
+        trainer._encode_fn(), _with_brain_mask(arr), k)
+        for name, arr in (("baseline", baseline), ("hyperv", hyperv))
+        if arr is not None}
+
+    trainer.finetune(real["train"], study_data=real["study"])
+
+    # posterior export of the study sets (reference train.py:241-279)
+    for name, arr in (("baseline", baseline), ("hyperv", hyperv)):
+        if arr is None:
+            continue
+        _transforms(d, name)
+        infer.save_predictions(
+            trainer.tuner, cfg, _with_brain_mask(arr),
+            os.path.join(save, name), seed=7, use_first_op=False,
+            fine_tuned=True, priors=priors.get(name))
+    return 0
+
+
+def cmd_baseline(args) -> int:
+    """Log-linear WLS fit (reference loglinear.py:107-157). --protocol auto
+    (default) takes the reference CLI's 24-tau streamlined grid (tau from
+    -0.028 step 0.004, loglinear.py:149-152) when the data carries 24 tau
+    channels and the config grid does not, else the config grid;
+    'streamlined' / 'config' force one."""
+    from . import baseline
+    from .io import nifti
+
+    if args.transform_directory:
+        return _not_ported("--transform-directory (the MNI-space export)")
+    cfg = _load_cfg(args)
+    data = _load_volumes(args.data)
+    if args.strip_channels:
+        data = data[..., :-args.strip_channels]
+    scan = cfg.scan
+    if args.protocol == "streamlined":
+        scan = dataclasses.replace(scan, tau_start=-0.028, tau_step=0.004)
+    elif (args.protocol == "auto" and data.shape[-1] == 24
+          and scan.n_taus != data.shape[-1]):
+        # never replace a configured grid that already matches the data
+        scan = dataclasses.replace(scan, tau_start=-0.028, tau_step=0.004)
+    if data.shape[-1] != scan.n_taus:
+        print(f"data has {data.shape[-1]} tau channels but the "
+              f"{args.protocol} protocol grid has {scan.n_taus}",
+              file=sys.stderr)
+        return 1
+    maps = baseline.wls_maps(data, scan, device=args.device)
+    base = args.output or os.path.splitext(args.data)[0]
+    for i, name in enumerate(("oef", "dbv", "r2p")):
+        nifti.save_im_data(maps[..., i:i + 1], f"{base}_{name}")
+    print(f"wrote {base}_{{oef,dbv,r2p}}.nii.gz ({scan.n_taus}-tau grid)")
+    return 0
+
+
+def _load_volumes(path: str) -> np.ndarray:
+    """An export request's volume stack: .npy, or .npz (the 'x' entry when
+    present, else the archive's first array)."""
+    arr = np.load(path)
+    if hasattr(arr, "files"):
+        # close the zip handle at once: serve opens one a request
+        with arr:
+            key = "x" if "x" in arr.files else arr.files[0]
+            return np.asarray(arr[key])
+    return np.asarray(arr)
+
+
+def _infer_export(trainer, cfg: QBoldConfig, data: np.ndarray, output: str,
+                  transform_directory: Optional[str], method: str) -> dict:
+    """The one-stack export of ``infer`` and ``serve`` (reference
+    model.py:772-887 driven by train.py:241-279). A fine-tuned
+    checkpoint's KL map takes per-voxel priors from the PRETRAINED
+    encoder (reference train.py:26-31), read from the pt checkpoint beside
+    the final one, unless a population prior carries them."""
+    from . import infer
+    from .train import data as data_pipe
+    from .train.trainer import WeightStatus
+
+    # a typo'd estimator fails before the priors' encoder pass
+    infer._check_method(method)
+    fine_tuned = trainer.status is WeightStatus.FULL_TRAINED
+    priors = None
+    if fine_tuned and not cfg.model.use_population_prior:
+        encode = trainer.pretrained_encode_fn()
+        if encode is not None:
+            priors = data_pipe.predict_priors(
+                encode, data, 5 if cfg.model.use_mvg else 4)
+    return infer.save_predictions(
+        trainer.tuner, cfg, data, output, seed=7,
+        transform_directory=transform_directory, use_first_op=not fine_tuned,
+        fine_tuned=fine_tuned, priors=priors, method=method)
+
+
+def cmd_infer(args) -> int:
+    """Posterior map export from save_directory's checkpoint (reference
+    model.py:772-887)."""
+    from .train.trainer import Trainer, WeightStatus
+
+    if args.transform_directory:
+        return _not_ported("--transform-directory (the MNI-space export)")
+    cfg = _load_cfg(args)
+    trainer = Trainer(cfg, device=args.device)
+    if trainer.status is WeightStatus.NOT_TRAINED:
+        print("no checkpoint found in save_directory", file=sys.stderr)
+        return 1
+    _infer_export(trainer, cfg, _load_volumes(args.data), args.output, None,
+                  args.method)
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """Warm inference server: restore the checkpoint once, then answer
+    export requests, one JSON object a line on stdin, with one ack line
+    each on stdout.
+
+      {"data": "vols.npy", "output": "out/subj"}   an export request
+          (optional: "method": "quadrature" | "mc")
+      {"cmd": "ping"}                               readiness probe
+      {"cmd": "shutdown"}  (or the end of stdin)    clean exit
+
+    Acks: {"ok": true, "output", "subjects", "voxels", "wall_s"} or
+    {"ok": false, "error"}; a bad request never ends the server.
+    ``--warm S X Y Z`` runs one export of zeros of that geometry first."""
+    import tempfile
+
+    from .train.trainer import Trainer, WeightStatus
+
+    if args.warm and min(args.warm) < 1:
+        print(f"--warm dimensions must be >= 1, got {args.warm}",
+              file=sys.stderr)
+        return 1
+    cfg = _load_cfg(args)
+    trainer = Trainer(cfg, device=args.device)
+    if trainer.status is WeightStatus.NOT_TRAINED:
+        print("no checkpoint found in save_directory", file=sys.stderr)
+        return 1
+
+    def ack(obj: dict) -> None:
+        print(json.dumps(obj), flush=True)
+
+    if args.warm:
+        s, x, y, z = args.warm
+        t0 = time.perf_counter()
+        vols = np.zeros((s, x, y, z, cfg.scan.n_taus + 1), np.float32)
+        vols[..., -1] = 1.0
+        with tempfile.TemporaryDirectory() as td:
+            _infer_export(trainer, cfg, vols, os.path.join(td, "warm"),
+                          None, args.method)
+        print(f"warmed ({s},{x},{y},{z}) export in "
+              f"{time.perf_counter() - t0:.1f}s", file=sys.stderr)
+
+    ack({"ok": True, "ready": True,
+         "fine_tuned": trainer.status is WeightStatus.FULL_TRAINED})
+    for line in sys.stdin:
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            req = json.loads(line)
+        except json.JSONDecodeError as e:
+            ack({"ok": False, "error": f"bad json: {e}"})
+            continue
+        if not isinstance(req, dict):
+            ack({"ok": False, "error": "request must be a JSON object, got "
+                                       f"{type(req).__name__}"})
+            continue
+        if req.get("cmd") == "shutdown":
+            ack({"ok": True, "shutdown": True})
+            break
+        if req.get("cmd") == "ping":
+            ack({"ok": True, "ready": True})
+            continue
+        if "cmd" in req:
+            ack({"ok": False, "error": f"unknown cmd: {req['cmd']!r}"})
+            continue
+        try:
+            data = _load_volumes(req["data"])
+            t0 = time.perf_counter()
+            _infer_export(trainer, cfg, data, req["output"],
+                          req.get("transform_directory"),
+                          req.get("method", args.method))
+            ack({"ok": True, "output": req["output"],
+                 "subjects": int(data.shape[0]),
+                 "voxels": int(np.prod(data.shape[:-1])),
+                 "wall_s": round(time.perf_counter() - t0, 3)})
+        except Exception as e:   # noqa: BLE001 -- a bad request must never
+            # end the warm process
+            ack({"ok": False, "error": f"{type(e).__name__}: {e}"})
+    return 0
+
+
+_UNPORTED = ("synth", "sweep", "dryrun", "export-model", "import-weights",
+             "transfer")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    common = argparse.ArgumentParser(add_help=False)
+    common.add_argument("--config", "-c", default=None,
+                        help="YAML config path (needs pyyaml, which the "
+                             "CUDA machine lacks: use --preset and --set "
+                             "there)")
+    common.add_argument("--preset", default="default",
+                        choices=["default", "optimal"])
+    common.add_argument("--set", action="append", metavar="KEY=VAL",
+                        help="flat config overrides (reference-style keys); "
+                             "unknown keys raise with a did-you-mean")
+    common.add_argument("--ini", default=None, metavar="CONFIG",
+                        help="reference-style INI config file: the scanner "
+                             "constants and the synthetic-population "
+                             "section")
+    common.add_argument("--allow-unknown-keys", action="store_true",
+                        help="ignore (with a warning) config keys this "
+                             "build does not know instead of raising")
+    common.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="where the port runs (default: the CUDA card; "
+                             "without one the command fails unless given "
+                             "--device cpu -- the counterpart of the JAX "
+                             "CLI's QBOLD_CPU_DEVICES)")
+
+    p = argparse.ArgumentParser(prog="qbold_vi_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    def add(name, **kw):
+        return sub.add_parser(name, parents=[common], **kw)
+
+    sp = add("train", help="two-phase training")
+    sp.add_argument("--smoke", action="store_true",
+                    help="tiny end-to-end run (verification)")
+    for flag, kw in (("--mesh", dict(action="store_true")),
+                     ("--coordinator", dict(default=None)),
+                     ("--num-processes", dict(type=int, default=None)),
+                     ("--process-id", dict(type=int, default=None))):
+        sp.add_argument(flag, help="data-parallel / multi-host training: "
+                        "not ported yet (ROADMAP.md), exits 2", **kw)
+    sp.set_defaults(fn=cmd_train)
+
+    transform_help = ("MNI-space export: not ported yet (ROADMAP.md), "
+                      "exits 2")
+    sp = add("baseline", help="log-linear WLS fit")
+    sp.add_argument("data", help=".npy signal volumes")
+    sp.add_argument("--output", "-o", default=None)
+    sp.add_argument("--strip-channels", type=int, default=2,
+                    help="trailing mask channels to drop (reference uses 2)")
+    sp.add_argument("--protocol", default="auto",
+                    choices=["auto", "streamlined", "config"],
+                    help="tau grid: the reference CLI's 24-tau streamlined "
+                         "protocol, the config grid, or auto-pick by "
+                         "channel count (default)")
+    sp.add_argument("--transform-directory", default=None,
+                    help=transform_help)
+    sp.set_defaults(fn=cmd_baseline)
+
+    method_help = ("posterior summary estimator: Gaussian quadrature "
+                   "(default) or the reference's 200-sample MC")
+    sp = add("infer", help="posterior map export (sampled maps from seed "
+                           "7, where the JAX CLI passes PRNGKey(7))")
+    sp.add_argument("data", help=".npy volumes with trailing mask channel")
+    sp.add_argument("--output", "-o", required=True)
+    sp.add_argument("--transform-directory", default=None,
+                    help=transform_help)
+    sp.add_argument("--method", choices=("quadrature", "mc"),
+                    default="quadrature", help=method_help)
+    sp.set_defaults(fn=cmd_infer)
+
+    sp = add("serve", help="warm inference server: JSON-line export "
+                           "requests on stdin, one ack a line on stdout "
+                           "(a request's transform_directory is not "
+                           "ported yet and gets an error ack)")
+    sp.add_argument("--method", choices=("quadrature", "mc"),
+                    default="quadrature",
+                    help=method_help + "; a request's 'method' overrides")
+    sp.add_argument("--warm", type=int, nargs=4, default=None,
+                    metavar=("S", "X", "Y", "Z"),
+                    help="run one export of this volume geometry before "
+                         "accepting requests")
+    sp.set_defaults(fn=cmd_serve)
+
+    for name in _UNPORTED:    # main() answers these before parsing
+        sub.add_parser(name, help="not ported yet (ROADMAP.md): exits 2")
+    return p
+
+
+def main(argv: Optional[list] = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in _UNPORTED:
+        return _not_ported(f"the {argv[0]} subcommand")
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

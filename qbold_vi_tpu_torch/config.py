@@ -186,15 +186,14 @@ class TrainConfig:
     pt_adamw_decay: float = 2e-4
     inv_gamma_alpha: float = 0.0
     inv_gamma_beta: float = 0.0
-    # The fields below configure training, which the port does not run
-    # yet; they are kept so the two configs stay field-for-field equal.
     # Mid-phase crash recovery: .partial checkpoint every N epochs (> 0).
     checkpoint_every_epochs: int = 0
     # Fused decode+NLL kernel mode for the fine-tune likelihood term.
     fused_decode_nll: str = "auto"
     # Fused ELBO kernel mode ("auto"/"on"/"off"/"host"/...).
     fused_elbo: str = "auto"
-    # Subject-sharded training-data residency under a mesh.
+    # Subject-sharded training-data residency under a mesh (not ported
+    # yet; kept so the two configs stay field-for-field equal).
     ft_shard_subjects: str = "auto"
     ft_steps_per_epoch: int = 100     # reference: train.py:376
     ft_batch_size: int = 38           # reference: train.py:68

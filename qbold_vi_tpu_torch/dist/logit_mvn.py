@@ -137,6 +137,11 @@ class LogitMVN:
         return torch.tanh(raw) * 3.0 - 1.0
 
     @staticmethod
+    def inv_transform_std(log_std: torch.Tensor) -> torch.Tensor:
+        """Inverse of transform_std (reference logit_mvn.py:99-100)."""
+        return torch.atanh((log_std + 1.0) / 3.0)
+
+    @staticmethod
     def transform_offdiag(raw: torch.Tensor) -> torch.Tensor:
         """Raw head output -> Cholesky off-diagonal in (-e^-2, e^-2)."""
         return torch.tanh(raw) * OFFDIAG_SCALE

@@ -12,10 +12,10 @@ they convert to a ``models.vi.FineTuner`` state_dict and back, exactly
 * every other leaf (biases, GroupNorm scales, ``inv_gamma_raw``,
   ``pop_prior``, ``log_sigma``) keeps its name and layout.
 
-The port's checkpoint format for now is an ``.npz`` of the JAX-layout
-tree with '/'-joined keys (``save_params_npz`` / ``load_params_npz``):
-it needs only numpy to write, so a machine with JAX can export a trained
-model with ``save_params_npz(jax.device_get(params), path)``.
+The Trainer's checkpoint files are the JAX Trainer's own, read and
+written through this bridge (train/checkpoint.py). For weights alone there
+is also an ``.npz`` of the JAX-layout tree with '/'-joined keys
+(``save_params_npz`` / ``load_params_npz``; ``chip_smoke.py --weights``).
 """
 
 from __future__ import annotations

@@ -2,8 +2,9 @@
 batches for pretraining; blank crop, per-voxel priors from the pretrained
 encoder and random-crop batches for fine-tuning.
 
-A copy of ``qbold_vi_tpu/train/data.py:77-206`` (reference
-train.py:17-103) for the port, which cannot import the JAX package.
+A copy of ``qbold_vi_tpu/train/data.py:42-206`` (reference
+train.py:17-103, 208-238) for the port, which cannot import the JAX
+package.
 """
 
 from __future__ import annotations
@@ -13,7 +14,39 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 
 __all__ = ["split_synthetic", "synthetic_batch_indices", "synthetic_batches",
-           "blank_crop", "predict_priors", "RealCropSampler"]
+           "blank_crop", "predict_priors", "load_real_directory",
+           "RealCropSampler"]
+
+
+def load_real_directory(d: str) -> dict:
+    """Load the reference's real-data directory layout (reference
+    train.py:208-238): ``ASE_scan.npy`` / ``ASE_INF.npy`` / ``ASE_SUP.npy``
+    (training volumes, a trailing brain-mask channel) and optionally
+    ``hyperv_ase.npy`` / ``baseline_ase.npy`` study sets with TWO trailing
+    channels (GM mask, brain mask).
+
+    Returns ``{"train", "study", "hyperv", "baseline"}``: ``train`` the
+    concatenation of the ASE sets (None when none exist); ``study`` the
+    hyperv + baseline concatenation with the brain mask dropped, so that
+    the GM mask is the mask channel -- the set the reference's ELBO
+    validation evaluates (train.py:223-226, 325-359), None unless both
+    exist; ``hyperv`` / ``baseline`` the arrays as loaded (both masks)."""
+    import os
+
+    def load(name):
+        p = os.path.join(d, name)
+        return np.load(p) if os.path.isfile(p) else None
+
+    parts = [x for x in (load("ASE_scan.npy"), load("ASE_INF.npy"),
+                         load("ASE_SUP.npy")) if x is not None]
+    train = np.concatenate(parts, axis=0) if parts else None
+    hyperv, baseline = load("hyperv_ase.npy"), load("baseline_ase.npy")
+    study = None
+    if hyperv is not None and baseline is not None:
+        study = np.concatenate([hyperv[..., :-1], baseline[..., :-1]],
+                               axis=0)
+    return {"train": train, "study": study,
+            "hyperv": hyperv, "baseline": baseline}
 
 
 def split_synthetic(x: np.ndarray, y: np.ndarray, vol_shape=(10, 10, 5)):

@@ -25,14 +25,32 @@ train.py:17-72, 188-427):
   continue the schedule up to ``no_ft_epochs``; a call after it returns
   at once.
 
-``WeightStatus`` follows the JAX trainer: a Trainer given ``state_dict``
-starts PRE_TRAINED (pretrain() returns at once); one without it starts
-NOT_TRAINED from ``init_params(seed)``, and finetune() raises until
-pretrain() has run. The tuner lives on the CUDA card unless ``device="cpu"``
-is given. Not ported yet, and raising ``NotImplementedError``: checkpoint
-files (resuming from those of ``save_directory``,
-``checkpoint_every_epochs``), and mesh / subject sharding (ROADMAP.md). No
-checkpoint file is written: the caller keeps ``tuner.state_dict()``.
+``WeightStatus`` and checkpoints follow the JAX trainer (its files, read
+and written by train/checkpoint.py, cross both ways):
+
+* a Trainer resumes the most advanced checkpoint of ``save_directory``:
+  ``final_model.msgpack`` -> FULL_TRAINED, else ``pt_model.msgpack`` ->
+  PRE_TRAINED; one with neither starts NOT_TRAINED from
+  ``init_params(seed)``, and finetune() raises until pretrain() has run;
+* one given ``state_dict`` starts PRE_TRAINED from it and refuses a
+  directory that holds either file or ``pt_model.msgpack.partial``, and
+  one that holds ``final_model.msgpack.partial`` unless
+  ``resume_partial=True`` asks that its fine-tune resume it (the
+  ``.partial``'s weights then replace the given ones);
+* pretrain() writes ``pt_model.msgpack``; finetune() writes
+  ``final_model.msgpack`` once ``no_ft_epochs`` are done;
+* with ``checkpoint_every_epochs`` k > 0, every k-th epoch of a phase
+  writes ``<file>.partial`` (after the NaN tripwire has passed the epoch,
+  so a poisoned state never reaches disk), the next Trainer's phase
+  resumes it at epoch ``step // steps_per_epoch``, and the phase's end
+  removes it. A resume restarts ``self.generator`` from the config seed,
+  as the JAX trainer restarts its key sequence (trainer.py:333-336), so a
+  resumed run draws other crops and noise than an uninterrupted one;
+  two runs resumed from one ``.partial`` end equal.
+
+The tuner lives on the CUDA card unless ``device="cpu"`` is given. Not
+ported yet, and raising ``NotImplementedError``: mesh / subject sharding
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -50,6 +68,9 @@ from ..config import QBoldConfig
 from ..models.vi import FineTuner, init_params
 from ..synth import create_synthetic_dataset_host, pretrain_data_seed
 from . import data as data_pipe
+from .checkpoint import (CheckpointMismatchError, TrainState, _load_state,
+                         _save_state, capture_state, opt_tail,
+                         restore_optimizer)
 from .optim import (make_finetune_optimizer, make_pretrain_optimizer,
                     swa_init, swa_update)
 from .steps import (make_finetune_epoch_on_device, make_finetune_eval,
@@ -57,7 +78,8 @@ from .steps import (make_finetune_epoch_on_device, make_finetune_eval,
                     make_pretrain_stream_epoch)
 
 __all__ = ["Trainer", "NaNLossError", "WeightStatus", "val_batch_count",
-           "pretrain_val_fold", "stream_steps_per_epoch"]
+           "pretrain_val_fold", "stream_steps_per_epoch",
+           "CheckpointMismatchError"]
 
 _SEED_HI = 2 ** 62
 
@@ -114,7 +136,7 @@ class Trainer:
         t.finetune(train_data)                  # phase 2 (MC-ELBO)
 
     or ``Trainer(cfg, state_dict=params).finetune(train_data)`` from given
-    weights (``init_params`` or a JAX checkpoint, io/from_jax.py)."""
+    weights (``init_params`` or io/from_jax.py)."""
 
     # the learned inverse-gamma hyperprior is logged as exp(raw), which may
     # overflow without the run diverging; the tripwire skips it, as the
@@ -123,44 +145,156 @@ class Trainer:
         {"oef_alpha", "oef_beta", "dbv_alpha", "dbv_beta"})
 
     def __init__(self, cfg: QBoldConfig, *, state_dict: Optional[dict] = None,
-                 device=None, mesh=None,
-                 logger: Callable[[str, int, dict], None] = _stdout_logger):
+                 resume_partial: bool = False, device=None, mesh=None,
+                 logger: Callable[[str, int, dict], None] = _stdout_logger,
+                 wandb_run=None):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh / subject-sharded training is not ported yet "
                 "(ROADMAP.md)")
-        if cfg.train.checkpoint_every_epochs > 0:
-            raise NotImplementedError(
-                "mid-phase checkpoints (checkpoint_every_epochs > 0) are not "
-                "ported yet (ROADMAP.md)")
-        found = [name for name in ("final_model.msgpack", "pt_model.msgpack")
-                 if os.path.isfile(os.path.join(cfg.train.save_directory,
-                                                name))]
-        if found:
-            raise NotImplementedError(
-                f"resuming from {found[0]} in {cfg.train.save_directory!r} is "
-                "not ported yet (ROADMAP.md); pass the weights as state_dict "
-                "(io/from_jax.py) and another save_directory")
         self.cfg = cfg
+        self.save_dir = cfg.train.save_directory
+        if state_dict is not None:
+            refused = [self.final_path, self.pt_path,
+                       self._partial_path(self.pt_path)]
+            if not resume_partial:
+                refused.append(self._partial_path(self.final_path))
+            found = [p for p in refused if os.path.isfile(p)]
+            if found:
+                raise ValueError(
+                    f"a Trainer given state_dict= would not choose between "
+                    f"its weights and {', '.join(found)}: pass another "
+                    f"save_directory than {self.save_dir!r}, or no "
+                    "state_dict to resume a checkpoint, or "
+                    "resume_partial=True to resume final_model.msgpack."
+                    "partial")
         self.tuner = FineTuner(cfg.model, cfg.scan, device=device,
                                full_model=cfg.train.full_model,
                                use_blood=cfg.train.use_blood)
         self.status = (WeightStatus.NOT_TRAINED if state_dict is None
                        else WeightStatus.PRE_TRAINED)
-        if state_dict is None:
-            state_dict = init_params(cfg.model, cfg.scan,
-                                     torch.Generator().manual_seed(
-                                         cfg.train.seed))
-        self.tuner.load_state_dict(state_dict)
+        self._load_params(self._init_params() if state_dict is None
+                          else state_dict)
         self.generator = torch.Generator().manual_seed(cfg.train.seed)
         self.logger = logger
+        self.wandb_run = wandb_run
         self.optimizer = None
         self.epochs_done = 0
         self.sampler = None
         self._ft_samplers = None      # (training, study) crops of finetune
+        self._pt_tuner = None         # pretrained_encode_fn's weights
         self.swa = None
         self.last_pretrain_metrics: dict = {}
         self.last_finetune_metrics: dict = {}
+        if state_dict is None:
+            self._maybe_resume()
+
+    # ---- checkpoints ------------------------------------------------------
+
+    @property
+    def pt_path(self) -> str:
+        return os.path.join(self.save_dir, "pt_model.msgpack")
+
+    @property
+    def final_path(self) -> str:
+        return os.path.join(self.save_dir, "final_model.msgpack")
+
+    def _init_params(self) -> dict:
+        return init_params(self.cfg.model, self.cfg.scan,
+                           torch.Generator().manual_seed(self.cfg.train.seed))
+
+    def _with_extras(self, params: dict) -> dict:
+        """``params`` with the population prior or noise scale that the
+        config asks for and they lack taken from ``init_params``, as the
+        JAX fine-tune tops them up (trainer.py:669-672)."""
+        missing = [k for k in ("pop_prior", "log_sigma")
+                   if hasattr(self.tuner, k) and k not in params]
+        if not missing:
+            return params
+        init = self._init_params()
+        return dict(params, **{k: init[k] for k in missing})
+
+    def _load_params(self, params: dict) -> None:
+        self.tuner.load_state_dict(self._with_extras(params))
+
+    def _load_state(self, path: str, phase: str,
+                    expect_steps_per_epoch: Optional[int] = None
+                    ) -> TrainState:
+        train = self.cfg.train
+        return _load_state(path, self.cfg, tail=opt_tail(phase, train),
+                           swa=phase == "pretrain" and train.use_swa,
+                           expect_steps_per_epoch=expect_steps_per_epoch)
+
+    def _maybe_resume(self) -> None:
+        """Restore the most advanced checkpoint of save_directory
+        (reference qbold_build_model.py:45-56)."""
+        if os.path.isfile(self.final_path):
+            state = self._load_state(self.final_path, "finetune")
+            self.status = WeightStatus.FULL_TRAINED
+            self.epochs_done = self.cfg.train.no_ft_epochs
+        elif os.path.isfile(self.pt_path):
+            state = self._load_state(self.pt_path, "pretrain")
+            self.status = WeightStatus.PRE_TRAINED
+        else:
+            return
+        self._load_params(state.params)
+
+    @staticmethod
+    def _partial_path(final_path: str) -> str:
+        return final_path + ".partial"
+
+    def _phase_start(self, final_path: str, phase: str,
+                     steps_per_epoch: int):
+        """(TrainState or None, start epoch): the phase's ``.partial``
+        when mid-phase checkpoints are on and one exists."""
+        partial = self._partial_path(final_path)
+        if self.cfg.train.checkpoint_every_epochs <= 0 or \
+                not os.path.isfile(partial):
+            return None, 0
+        state = self._load_state(partial, phase,
+                                 expect_steps_per_epoch=steps_per_epoch)
+        return state, state.step // max(1, steps_per_epoch)
+
+    def _resume(self, state: TrainState, optimizer) -> None:
+        """Load a ``.partial``'s weights and optimiser state and restart
+        the generator from the config seed (the JAX trainer restarts its
+        key sequence on a resume)."""
+        self._load_params(state.params)
+        restore_optimizer(optimizer, self.tuner, state.opt_state)
+        self.generator.manual_seed(self.cfg.train.seed)
+
+    def _save(self, path: str, phase: str, optimizer,
+              steps_per_epoch: int = 0) -> int:
+        state = capture_state(self.tuner, optimizer,
+                              self.swa if phase == "pretrain" else None,
+                              opt_tail(phase, self.cfg.train))
+        return _save_state(path, state, cfg=self.cfg,
+                           steps_per_epoch=steps_per_epoch)
+
+    def _phase_checkpoint(self, final_path: str, phase: str, optimizer,
+                          epoch: int, steps_per_epoch: int) -> None:
+        k = self.cfg.train.checkpoint_every_epochs
+        if k > 0 and (epoch + 1) % k == 0:
+            self._save(self._partial_path(final_path), phase, optimizer,
+                       steps_per_epoch)
+
+    def _phase_done(self, final_path: str) -> None:
+        partial = self._partial_path(final_path)
+        if os.path.isfile(partial):
+            os.remove(partial)
+
+    def pretrained_params(self) -> Optional[dict]:
+        """The pretrained weights (a state_dict): the current ones while
+        PRE_TRAINED, else those of ``pt_model.msgpack`` (kept after
+        fine-tuning) -- the encoder the reference predicts per-voxel
+        priors with (train.py:26-31); None without a pt checkpoint."""
+        if self.status is WeightStatus.PRE_TRAINED:
+            return {k: v.detach().clone()
+                    for k, v in self.tuner.state_dict().items()}
+        if not os.path.isfile(self.pt_path):
+            return None
+        return self._with_extras(
+            self._load_state(self.pt_path, "pretrain").params)
 
     # ---- phase 1: synthetic pretraining -----------------------------------
 
@@ -214,8 +348,10 @@ class Trainer:
 
     def pretrain(self, synthetic: Optional[tuple] = None) -> dict:
         """Pretrain on synthetic voxels (reference train.py:379-427) for
-        ``no_pt_epochs`` epochs; returns the last epoch's metrics. A no-op
-        once the weights are pretrained (given, or pretrain() has run)."""
+        ``no_pt_epochs`` epochs, resuming a ``.partial``, and write
+        ``pt_model.msgpack``; returns the last epoch's metrics. A no-op
+        once the weights are pretrained (given, restored, or pretrain()
+        has run)."""
         cfg = self.cfg
         if self.status.value >= WeightStatus.PRE_TRAINED.value:
             return self.last_pretrain_metrics
@@ -228,18 +364,31 @@ class Trainer:
                           for a in train_set)
         val_batch = self._clip_val_batch(vx, vy)
         data_s = time.perf_counter() - t0
+        spe = (stream_steps_per_epoch(cfg) if streaming else
+               max(1, len(tx_d) // cfg.train.pt_batch_size))
         named = list(self.tuner.named_parameters())
         optimizer = make_pretrain_optimizer(named, cfg.train)
         self.swa = swa_init(named) if cfg.train.use_swa else None
+        state, start_epoch = self._phase_start(self.pt_path, "pretrain", spe)
+        if state is not None:
+            self._resume(state, optimizer)
+            if cfg.train.use_swa:
+                if state.swa is None:
+                    raise CheckpointMismatchError(
+                        f"{self._partial_path(self.pt_path)} holds no SWA "
+                        "state and use_swa is set")
+                # the average folds in the weights where they live
+                self.swa = state.swa._replace(average={
+                    k: v.to(dev) for k, v in state.swa.average.items()})
         if streaming:
             stream_epoch = make_pretrain_stream_epoch(
-                self.tuner, cfg, optimizer, stream_steps_per_epoch(cfg))
+                self.tuner, cfg, optimizer, spe)
         else:
             step = make_pretrain_step(self.tuner, cfg, optimizer)
         evaluate = make_pretrain_eval(self.tuner, cfg)
         rng = np.random.default_rng(cfg.train.seed)
         metrics = {}
-        for epoch in range(cfg.train.no_pt_epochs):
+        for epoch in range(start_epoch, cfg.train.no_pt_epochs):
             t0 = time.perf_counter()
             if streaming:
                 losses, self.swa = stream_epoch(self._seed(), swa=self.swa)
@@ -260,10 +409,14 @@ class Trainer:
             metrics = {"loss": loss,
                        "epoch_time_s": time.perf_counter() - t0}
             metrics.update({k: float(v) for k, v in m.items()})
-            if epoch == 0:
+            if epoch == start_epoch:
                 metrics["data_time_s"] = data_s
+            # checkpoint only after the tripwire: a diverged state must
+            # never reach the .partial
             self._log("pretrain", epoch, metrics)
             self.last_pretrain_metrics = dict(metrics)
+            self._phase_checkpoint(self.pt_path, "pretrain", optimizer,
+                                   epoch, spe)
         # SWA adoption is opt-in: the reference builds its SWA wrapper but
         # never assigns the averaged weights (train.py:382-385)
         if cfg.train.swa_adopt and self.swa is not None and self.swa.n_avg:
@@ -271,13 +424,16 @@ class Trainer:
                 for name, p in named:
                     p.copy_(self.swa.average[name])
         self.status = WeightStatus.PRE_TRAINED
+        self._save(self.pt_path, "pretrain", optimizer)
+        self._phase_done(self.pt_path)
         return metrics
 
     # ---- phase 2: real-data fine-tuning -----------------------------------
 
-    def _encode_fn(self):
-        """The encoder's plain forward pass on numpy volumes."""
-        tuner = self.tuner
+    def _encode_fn(self, tuner: Optional[FineTuner] = None):
+        """The encoder's plain forward pass on numpy volumes, with the
+        current weights or ``tuner``'s."""
+        tuner = self.tuner if tuner is None else tuner
 
         @torch.no_grad()
         def encode(images: np.ndarray):
@@ -286,6 +442,23 @@ class Trainer:
                          for o in tuner.encode(x.to(tuner.device)))
 
         return encode
+
+    def pretrained_encode_fn(self):
+        """The encoder pass with the pretrained weights
+        (``pretrained_params``), None without them; the weights are read
+        once and kept in a second FineTuner, so a long-lived process
+        (cli.cmd_serve) reads the checkpoint once."""
+        if self._pt_tuner is None:
+            params = self.pretrained_params()
+            if params is None:
+                return None
+            cfg = self.cfg
+            self._pt_tuner = FineTuner(cfg.model, cfg.scan,
+                                       device=self.tuner.device,
+                                       full_model=cfg.train.full_model,
+                                       use_blood=cfg.train.use_blood)
+            self._pt_tuner.load_state_dict(params)
+        return self._encode_fn(self._pt_tuner)
 
     def prepare_real(self, train_data: np.ndarray, *,
                      blank_crop: bool = True) -> data_pipe.RealCropSampler:
@@ -301,6 +474,8 @@ class Trainer:
 
     def _log(self, phase: str, step: int, metrics: dict) -> None:
         self.logger(phase, step, metrics)
+        if self.wandb_run is not None:
+            self.wandb_run.log(metrics)
         if not all(np.isfinite(v) for k, v in metrics.items()
                    if k not in self._TRIPWIRE_EXEMPT):
             raise NaNLossError(f"non-finite metrics at {phase} epoch {step}: "
@@ -312,10 +487,12 @@ class Trainer:
         """Fine-tune with the MC-ELBO on (S, X, Y, Z, T+1) volumes with a
         trailing mask channel; ``epochs`` (default: the rest of
         ``no_ft_epochs``) bounds this call, continuing the schedule, which
-        ends at ``no_ft_epochs``. The first call predicts the priors of
-        ``train_data`` and ``study_data``; a continuing call reuses its
-        crops and priors and reads neither. Returns the last epoch's
-        metrics (at once when fine-tuning has ended: FULL_TRAINED)."""
+        ends at ``no_ft_epochs``, where ``final_model.msgpack`` is
+        written. The first call predicts the priors of ``train_data`` and
+        ``study_data`` with the current weights, then resumes a
+        ``.partial``; a continuing call reuses its crops and priors and
+        reads neither. Returns the last epoch's metrics (at once when
+        fine-tuning has ended: FULL_TRAINED)."""
         cfg = self.cfg
         if self.status is WeightStatus.FULL_TRAINED:
             return self.last_finetune_metrics
@@ -323,22 +500,23 @@ class Trainer:
             raise RuntimeError("pretrain() must run before finetune() (or "
                                "give the Trainer a state_dict)")
         dev = self.tuner.device
+        spe = cfg.train.ft_steps_per_epoch
         if self._ft_samplers is None:
             sampler = self.prepare_real(train_data)
             eval_sampler = None
             if study_data is not None:
-                sd = np.float32(study_data)
-                priors = data_pipe.predict_priors(
-                    self._encode_fn(), sd, 5 if cfg.model.use_mvg else 4)
-                eval_sampler = data_pipe.RealCropSampler(
-                    sd, priors, 76, rng=np.random.default_rng(0))
+                eval_sampler = self._study_eval_sampler(study_data)
             self._ft_samplers = (sampler, eval_sampler)
         sampler, eval_sampler = self._ft_samplers
         if self.optimizer is None:
             self.optimizer = make_finetune_optimizer(self.tuner.parameters(),
                                                      cfg.train)
+            state, self.epochs_done = self._phase_start(
+                self.final_path, "finetune", spe)
+            if state is not None:
+                self._resume(state, self.optimizer)
         epoch_fn = make_finetune_epoch_on_device(
-            self.tuner, cfg, self.optimizer, cfg.train.ft_steps_per_epoch)
+            self.tuner, cfg, self.optimizer, spe)
         volumes = torch.from_numpy(sampler.data).to(dev)
         priors = torch.from_numpy(sampler.priors).to(dev)
         stop = cfg.train.no_ft_epochs if epochs is None else min(
@@ -353,12 +531,28 @@ class Trainer:
             metrics.update({k: float(np.mean(v)) for k, v in host.items()})
             if eval_sampler is not None:
                 metrics.update(self._elbo_eval(eval_sampler))
+            # checkpoint only after the tripwire (see pretrain)
             self._log("finetune", self.epochs_done, metrics)
             self.last_finetune_metrics = dict(metrics)
+            self._phase_checkpoint(self.final_path, "finetune",
+                                   self.optimizer, self.epochs_done, spe)
             self.epochs_done += 1
         if self.epochs_done >= cfg.train.no_ft_epochs:
             self.status = WeightStatus.FULL_TRAINED
+            self._save(self.final_path, "finetune", self.optimizer)
+            self._phase_done(self.final_path)
         return metrics
+
+    def _study_eval_sampler(self, study_data: np.ndarray
+                            ) -> data_pipe.RealCropSampler:
+        """Held-out study crops (76, the subjects in order) with per-voxel
+        priors from the current encoder (reference train.py:26-31,
+        223-238)."""
+        sd = np.float32(study_data)
+        priors = data_pipe.predict_priors(
+            self._encode_fn(), sd, 5 if self.cfg.model.use_mvg else 4)
+        return data_pipe.RealCropSampler(sd, priors, 76,
+                                         rng=np.random.default_rng(0))
 
     def _elbo_eval(self, eval_sampler, batches: int = 4) -> dict:
         """Mean ELBO validation metrics over up to ``batches`` study
@@ -376,3 +570,51 @@ class Trainer:
             vals.append(evaluate(vb, seed))
         return {k: float(torch.mean(torch.stack([v[k] for v in vals])))
                 for k in (vals[0] if vals else {})}
+
+    def finetune_val_metrics(self, study_data: Optional[np.ndarray] = None,
+                             batches: int = 4) -> dict:
+        """One ELBO validation pass of the current weights on held-out
+        study data -- the reference sweep's ranking metric (``val_elbo``,
+        train.py:325-359). Reuses the study crops that
+        ``finetune(study_data=)`` built (priors from the encoder that
+        fine-tuning started from); otherwise ``study_data`` must be given,
+        and each call crops it anew with priors from the current encoder.
+        The JAX trainer (trainer.py:764-814) keeps the crops of its first
+        such call and scores them again on later calls, whatever they
+        pass; the port scores the set it is given."""
+        if self.status is WeightStatus.NOT_TRAINED:
+            raise RuntimeError("no trained weights to evaluate")
+        sampler = self._ft_samplers[1] if self._ft_samplers else None
+        if sampler is None:
+            if study_data is None:
+                raise ValueError("no stored eval sampler: pass study_data")
+            sampler = self._study_eval_sampler(study_data)
+        return self._elbo_eval(sampler, batches)
+
+    # ---- population statistics --------------------------------------------
+
+    @torch.no_grad()
+    def estimate_population_param_distribution(self, data: np.ndarray
+                                               ) -> dict:
+        """Masked population mean and std of the predicted logit means of
+        OEF and DBV over (S, X, Y, Z, T+1) volumes with a trailing mask, for
+        prior initialisation (reference model.py:756-770): ``mean_oef``,
+        ``log_std_oef``, ``mean_dbv``, ``log_std_dbv``, the stds through
+        ``LogitMVN.inv_transform_std``."""
+        dev = self.tuner.device
+        mask_np = data[..., -1:]
+        x = torch.from_numpy(np.ascontiguousarray(
+            data[..., :-1] * mask_np, np.float32)).to(dev)
+        q = self.tuner.encode(x)[0]
+        mask = torch.from_numpy(np.ascontiguousarray(
+            mask_np, np.float32)).to(dev)
+        n = torch.sum(mask)
+        out = {}
+        for name, idx in (("oef", 0), ("dbv", 2)):
+            ch = q[..., idx:idx + 1] * mask
+            mean = torch.sum(ch) / n
+            std = torch.sqrt(torch.sum(torch.square(ch - mean) * mask) / n)
+            out[f"mean_{name}"] = float(mean)
+            out[f"log_std_{name}"] = float(
+                self.tuner.dist.inv_transform_std(torch.log(std)))
+        return out

@@ -1,0 +1,291 @@
+"""The port's CLI (python -m qbold_vi_tpu_torch) on the CPU.
+
+* (h) tests/test_cli.py's train --smoke -> infer round trip, serve, baseline
+  and the fine-tuned infer with a _kl map, ported, with ``--device cpu``;
+* (i) the slice as a whole: ``python -m qbold_vi_tpu train --smoke``
+  writes a directory, and the port's ``infer`` on it writes the JAX
+  ``infer``'s maps of the same request within test_torch_infer.py's TOL
+  (rtol 1e-3, atol 3e-5; the variances by assert_vars_close); and the
+  other way round;
+* ``train`` on a real-data directory (load_real_directory's layout) with
+  mid-phase checkpoints: the post-pretrain, baseline and hyperv exports,
+  both checkpoints and no .partial left;
+* what is not ported exits 2, and the card is asked for unless
+  ``--device cpu`` is given.
+"""
+
+import io
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from torch_parity_utils import assert_vars_close  # noqa: E402
+from qbold_vi_tpu_torch.cli import main  # noqa: E402
+from qbold_vi_tpu_torch.io.nifti import load_nifti  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOL = dict(rtol=1e-3, atol=3e-5)
+CPU = ["--device", "cpu"]
+SMOKE_ARCH = ["--set", "no_units=8", "--set", "no_intermediate_layers=1"]
+
+
+def _smoke(save, *extra):
+    return main(["train", "--smoke", *CPU, "--set", f"save_directory={save}",
+                 "--set", "d=/tmp/definitely_missing", *extra])
+
+
+def _request(path, seed, shape):
+    rng = np.random.default_rng(seed)
+    data = (np.abs(rng.normal(size=shape + (12,))).astype(np.float32) * 50
+            + 100)
+    data[..., -1] = 1.0
+    np.save(path, data)
+    return str(path)
+
+
+def test_train_smoke_and_infer_roundtrip(tmp_path):
+    save = str(tmp_path / "run")
+    assert _smoke(save) == 0
+    assert os.path.isfile(os.path.join(save, "pt_model.msgpack"))
+    dpath = _request(tmp_path / "subj.npy", 1, (1, 8, 8, 2))
+    out = str(tmp_path / "maps")
+    # the architecture must be what --smoke trained
+    assert main(["infer", dpath, "--output", out, *CPU,
+                 "--set", f"save_directory={save}", *SMOKE_ARCH]) == 0
+    for suffix in ("_oef", "_dbv", "_r2p", "_logstds"):
+        assert os.path.isfile(out + suffix + ".nii.gz")
+    # a second smoke run resumes the checkpoint instead of pretraining
+    with open(os.path.join(save, "pt_model.msgpack"), "rb") as f:
+        before = f.read()
+    assert _smoke(save) == 0
+    with open(os.path.join(save, "pt_model.msgpack"), "rb") as f:
+        assert f.read() == before
+
+
+def test_serve_command(tmp_path, monkeypatch, capsys):
+    """One process, many export requests as JSON lines; a bad request never
+    ends it."""
+    save = str(tmp_path / "run")
+    assert _smoke(save) == 0
+    dpath = _request(tmp_path / "subj.npy", 4, (1, 4, 4, 2))
+    out1, out2 = str(tmp_path / "m1"), str(tmp_path / "m2")
+    reqs = "\n".join([
+        json.dumps({"cmd": "ping"}),
+        json.dumps({"cmd": "status"}),
+        json.dumps({"data": dpath, "output": out1}),
+        "this is not json",
+        json.dumps([1, 2]),
+        json.dumps({"data": str(tmp_path / "missing.npy"), "output": out2}),
+        json.dumps({"data": dpath, "output": out2, "method": "quad"}),
+        json.dumps({"data": dpath, "output": out2,
+                    "transform_directory": str(tmp_path)}),
+        json.dumps({"data": dpath, "output": out2, "method": "mc"}),
+        json.dumps({"cmd": "shutdown"}),
+        json.dumps({"data": dpath, "output": out2}),   # after shutdown
+    ]) + "\n"
+    monkeypatch.setattr("sys.stdin", io.StringIO(reqs))
+    capsys.readouterr()
+    assert main(["serve", "--warm", "1", "4", "4", "2", *CPU,
+                 "--set", f"save_directory={save}", *SMOKE_ARCH]) == 0
+    lines = [json.loads(ln)
+             for ln in capsys.readouterr().out.strip().splitlines()]
+    assert lines[0]["ok"] and lines[0]["ready"]
+    assert not lines[0]["fine_tuned"]
+    assert lines[1]["ok"] and lines[1]["ready"]
+    assert not lines[2]["ok"] and "unknown cmd: 'status'" in lines[2]["error"]
+    assert lines[3]["ok"] and lines[3]["subjects"] == 1
+    assert lines[3]["voxels"] == 32 and lines[3]["wall_s"] >= 0
+    assert not lines[4]["ok"] and "bad json" in lines[4]["error"]
+    assert not lines[5]["ok"] and "JSON object" in lines[5]["error"]
+    assert not lines[6]["ok"]
+    assert not lines[7]["ok"] and "method" in lines[7]["error"]
+    assert not lines[8]["ok"] and "not ported" in lines[8]["error"]
+    assert lines[9]["ok"] and lines[9]["output"] == out2
+    assert lines[10]["ok"] and lines[10]["shutdown"]
+    assert len(lines) == 11
+    for suffix in ("_oef", "_dbv", "_r2p", "_logstds"):
+        assert os.path.isfile(out1 + suffix + ".nii.gz")
+        assert os.path.isfile(out2 + suffix + ".nii.gz")
+
+    monkeypatch.setattr("sys.stdin", io.StringIO(""))
+    assert main(["serve", *CPU, "--set",
+                 f"save_directory={tmp_path / 'nothing'}"]) == 1
+    monkeypatch.setattr("sys.stdin", io.StringIO(""))
+    assert main(["serve", "--warm", "0", "4", "4", "2", *CPU,
+                 "--set", f"save_directory={save}", *SMOKE_ARCH]) == 1
+    assert "--warm dimensions" in capsys.readouterr().err
+
+
+def test_baseline_command(tmp_path):
+    rng = np.random.default_rng(0)
+    vols = np.abs(rng.normal(size=(2, 6, 5, 3, 13))).astype(np.float32) + 0.5
+    path = str(tmp_path / "vols.npy")
+    np.save(path, vols)
+    out = str(tmp_path / "wls")
+    assert main(["baseline", path, "--output", out, *CPU]) == 0
+    for suffix in ("_oef", "_dbv", "_r2p"):
+        assert os.path.isfile(out + suffix + ".nii.gz")
+    # the JAX CLI's maps of the same volumes
+    from qbold_vi_tpu.cli import main as jmain
+    ref = str(tmp_path / "wls_jax")
+    assert jmain(["baseline", path, "--output", ref]) == 0
+    for suffix in ("_oef", "_dbv", "_r2p"):
+        np.testing.assert_allclose(load_nifti(out + suffix + ".nii.gz"),
+                                   load_nifti(ref + suffix + ".nii.gz"),
+                                   rtol=1e-4, atol=1e-5, err_msg=suffix)
+    assert main(["baseline", path, "--output", out, *CPU,
+                 "--protocol", "streamlined"]) == 1
+
+
+def test_infer_fine_tuned_without_pop_prior_exports_kl(tmp_path):
+    """OPTIMAL-like (MVG, no population prior): infer on a FULL_TRAINED
+    checkpoint takes the per-voxel priors from the pt checkpoint beside it
+    and exports the _kl map."""
+    from qbold_vi_tpu_torch.config import (ModelConfig, QBoldConfig,
+                                           ScanParams, SynthParams,
+                                           TrainConfig)
+    from qbold_vi_tpu_torch.train.trainer import Trainer
+
+    save = str(tmp_path / "run")
+    cfg = QBoldConfig(
+        scan=ScanParams(simulate_noise=False),
+        synth=SynthParams(sample_size=40),
+        model=ModelConfig(no_units=4, no_intermediate_layers=1, use_mvg=True,
+                          student_t_df=200.0, predict_log_data=False),
+        train=TrainConfig(no_pt_epochs=1, no_ft_epochs=1, pt_batch_size=8,
+                          ft_batch_size=2, ft_steps_per_epoch=2, crop_size=6,
+                          save_directory=save, swa_start=1, swa_period=1))
+    t = Trainer(cfg, device="cpu", logger=lambda *a: None)
+    t.pretrain()
+    rng = np.random.default_rng(3)
+    real = np.abs(rng.normal(size=(2, 8, 8, 2, cfg.scan.n_taus + 1))
+                  ).astype(np.float32) * 50 + 100
+    real[..., -1] = 1.0
+    t.finetune(real)
+    assert os.path.isfile(t.final_path)
+    dpath = str(tmp_path / "subj.npy")
+    np.save(dpath, real[:1])
+    out = str(tmp_path / "maps")
+    assert main(["infer", dpath, "--output", out, *CPU,
+                 "--set", f"save_directory={save}",
+                 "--set", "no_units=4", "--set", "no_intermediate_layers=1",
+                 "--set", "simulate_noise=False", "--set", "use_mvg=True",
+                 "--set", "student_t_df=200.0",
+                 "--set", "predict_log_data=False"]) == 0
+    for suffix in ("_oef", "_kl", "_likelihood", "_residual"):
+        assert os.path.isfile(out + suffix + ".nii.gz"), suffix
+
+
+def _maps(prefix):
+    return {k: load_nifti(f"{prefix}_{k}.nii.gz")
+            for k in ("oef", "dbv", "r2p", "logstds", "raw_logstds")}
+
+
+@pytest.mark.parametrize("trained_by", ["jax", "port"])
+def test_infer_matches_the_jax_cli(tmp_path, trained_by):
+    """The slice as a whole: one package's train --smoke writes a
+    directory; each package's infer on it writes the same maps within
+    TOL."""
+    from qbold_vi_tpu.cli import main as jmain
+
+    save = str(tmp_path / "run")
+    if trained_by == "jax":
+        assert jmain(["train", "--smoke", "--set", f"save_directory={save}",
+                      "--set", "d=/tmp/definitely_missing"]) == 0
+    else:
+        assert _smoke(save) == 0
+    dpath = _request(tmp_path / "subj.npy", 6, (2, 8, 8, 2))
+    args = ["--set", f"save_directory={save}", *SMOKE_ARCH]
+    assert main(["infer", dpath, "-o", str(tmp_path / "port"), *CPU,
+                 *args]) == 0
+    assert jmain(["infer", dpath, "-o", str(tmp_path / "jax"), *args]) == 0
+    got, ref = _maps(tmp_path / "port"), _maps(tmp_path / "jax")
+    for k in ("oef", "dbv", "r2p", "raw_logstds"):
+        assert got[k].shape == ref[k].shape, k
+        np.testing.assert_allclose(got[k], ref[k], err_msg=k, **TOL)
+    means = np.stack([ref["oef"], ref["dbv"], ref["r2p"]], -1)
+    stds = lambda m: m.reshape(m.shape[:-1] + (-1, 3))  # noqa: E731
+    assert_vars_close(stds(got["logstds"]), stds(ref["logstds"]), means,
+                      **TOL)
+
+
+def test_train_on_a_real_data_directory(tmp_path):
+    """train on load_real_directory's layout with checkpoint_every_epochs=1:
+    both checkpoints, no .partial, the pt_* exports of the pretrained
+    weights and the baseline_* / hyperv_* exports of the fine-tuned ones
+    with their _kl maps; a second run resumes final_model.msgpack."""
+    rng = np.random.default_rng(7)
+    d = tmp_path / "data"
+    d.mkdir()
+    ase = (np.abs(rng.normal(size=(3, 10, 10, 2, 12))) * 50 + 100
+           ).astype(np.float32)
+    ase[..., -1] = 1.0
+    np.save(d / "ASE_scan.npy", ase)
+    for name in ("hyperv_ase", "baseline_ase"):
+        study = np.concatenate([ase[:1, ..., :-1],
+                                np.ones(ase.shape[1:-1] + (2,),
+                                        np.float32)[None]], -1)
+        np.save(d / f"{name}.npy", study)
+    save = tmp_path / "run"
+    argv = ["train", "--smoke", *CPU, "--set", f"save_directory={save}",
+            "--set", f"d={d}", "--set", "checkpoint_every_epochs=1",
+            "--set", "no_ft_epochs=2"]
+    assert main(argv) == 0
+    files = set(os.listdir(save))
+    assert {"pt_model.msgpack", "final_model.msgpack"} <= files
+    assert not any(f.endswith(".partial") for f in files)
+    for prefix in ("pt_baseline", "pt_hyperv"):
+        assert f"{prefix}_oef.nii.gz" in files and \
+            f"{prefix}_kl.nii.gz" not in files
+    for prefix in ("baseline", "hyperv"):
+        for suffix in ("oef", "dbv", "r2p", "logstds", "kl", "likelihood",
+                       "residual"):
+            assert f"{prefix}_{suffix}.nii.gz" in files, (prefix, suffix)
+    oef = load_nifti(str(save / "baseline_oef.nii.gz"))
+    assert np.all(np.isfinite(oef))
+    with open(save / "final_model.msgpack", "rb") as f:
+        before = f.read()
+    assert main(argv) == 0
+    with open(save / "final_model.msgpack", "rb") as f:
+        assert f.read() == before
+
+
+def test_what_is_not_ported_exits_2(tmp_path, capsys):
+    for argv in (["sweep", "--trials", "3"], ["synth"], ["dryrun"],
+                 ["export-model", "-o", "x"], ["import-weights", "a.h5"],
+                 ["transfer", "--output", "x"],
+                 ["train", "--mesh", *CPU],
+                 ["train", "--coordinator", "h:1", *CPU],
+                 ["baseline", "v.npy", "--transform-directory", "t", *CPU],
+                 ["infer", "v.npy", "-o", "x", "--transform-directory", "t",
+                  *CPU]):
+        assert main(argv) == 2, argv
+        assert "not ported yet (ROADMAP.md)" in capsys.readouterr().err
+    assert not os.listdir(tmp_path)
+
+
+def test_the_card_is_asked_for_unless_device_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["train", "--smoke", "--set", f"save_directory={tmp_path}",
+              "--set", "d=/tmp/definitely_missing"])
+    assert not os.listdir(tmp_path)
+
+
+def test_python_m_runs_the_cli(tmp_path):
+    """``python -m qbold_vi_tpu_torch`` reaches cli.main."""
+    out = subprocess.run(
+        [sys.executable, "-m", "qbold_vi_tpu_torch", "synth"], cwd=REPO,
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 2 and "not ported yet" in out.stderr
+    out = subprocess.run(
+        [sys.executable, "-m", "qbold_vi_tpu_torch", "--help"], cwd=REPO,
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "serve" in out.stdout

@@ -58,19 +58,38 @@ def test_yaml_config_matches():
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports with jax made unimportable."""
+    """Every module of the port imports with jax, flax, msgpack and yaml
+    made unimportable (the card has none of them), and a checkpoint
+    round-trips there: train --smoke writes pt_model.msgpack, a fresh
+    Trainer resumes it to the same weights."""
     code = (
-        "import sys, pkgutil, importlib\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['flax'] = None\n"
+        "import sys, pkgutil, importlib, tempfile, os\n"
+        "for m in ('jax', 'flax', 'msgpack', 'yaml'): sys.modules[m] = None\n"
         "import qbold_vi_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert not any(k == 'jax' or k.startswith('jax.') for k in "
-        "sys.modules if sys.modules[k] is not None)\n"
+        "assert not any(k.split('.')[0] in ('jax', 'flax', 'msgpack', "
+        "'yaml', 'qbold_vi_tpu') for k in sys.modules "
+        "if sys.modules[k] is not None)\n"
+        "import torch\n"
+        "from qbold_vi_tpu_torch.cli import main\n"
+        "from qbold_vi_tpu_torch.config import apply_flat_overrides, "
+        "QBoldConfig\n"
+        "from qbold_vi_tpu_torch.train.trainer import Trainer\n"
+        "d = tempfile.mkdtemp()\n"
+        "assert main(['train', '--smoke', '--device', 'cpu', '--set', "
+        "'save_directory=' + d, '--set', 'd=' + d + '/none']) == 0\n"
+        "cfg = apply_flat_overrides(QBoldConfig(), {'save_directory': d, "
+        "'no_units': 8, 'no_intermediate_layers': 1})\n"
+        "t = Trainer(cfg, device='cpu')\n"
+        "assert t.status.name == 'PRE_TRAINED'\n"
+        "state = t._load_state(t.pt_path, 'pretrain')\n"
+        "assert state.opt_state.count > 0\n"
+        "for k, v in state.params.items():\n"
+        "    assert torch.equal(t.tuner.state_dict()[k], v)\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 10
+    assert int(out.stdout.strip().splitlines()[-1]) >= 10

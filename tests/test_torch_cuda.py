@@ -37,6 +37,7 @@ each gradient's scale (cuDNN rounds its sums before the bias, H after).
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -47,7 +48,7 @@ from torch_parity_utils import (HEAD_MIXES, assert_kl_close,  # noqa: E402
                                 assert_vars_close, assert_wls_close, bf16_ulp,
                                 cuda_device,  # noqa: F401
                                 head_mix, kl_lanes_replay, kl_scale,
-                                raw_head, volume)
+                                own_save_dir, raw_head, volume)
 from qbold_vi_tpu_torch import config as tcfg  # noqa: E402
 from qbold_vi_tpu_torch import infer  # noqa: E402
 from qbold_vi_tpu_torch.models.vi import FineTuner, init_params  # noqa: E402
@@ -1016,7 +1017,7 @@ def test_stream_step_on_card_matches_cpu(cuda_device):
         _grad_close(grads["card"][k], g, k)
 
 
-def test_stream_pretrain_routes_the_asymptotic_model(cuda_device):
+def test_stream_pretrain_routes_the_asymptotic_model(cuda_device, tmp_path):
     """train.full_model=False: kernel S does not decode the asymptotic
     tissue model, so the batch takes the plain version of S's replayed
     draws on the card (no launch of S), and the streaming pretrain runs."""
@@ -1038,7 +1039,7 @@ def test_stream_pretrain_routes_the_asymptotic_model(cuda_device):
     for k in ("x", "y"):
         assert got[k].device.type == "cuda"
         assert torch.equal(got[k], ref[k]), k
-    trainer = Trainer(cfg, device=cuda_device)
+    trainer = Trainer(own_save_dir(cfg, tmp_path), device=cuda_device)
     m = trainer.pretrain()
     torch.cuda.synchronize()
     assert (tsb.synth_batch.launches,
@@ -1065,3 +1066,144 @@ def test_wls_maps_on_card_match_cpu(cuda_device):
     ref = baseline.wls_maps(x, SCAN, device="cpu")
     assert got.shape == shape + (3,)
     assert_wls_close(got, ref, x, SCAN)
+
+
+def test_checkpoints_round_trip_on_the_card(cuda_device, tmp_path):
+    """A Trainer on the card writes a .partial of its fine-tune (crash at
+    epoch 1) and final_model.msgpack after the resume; the file's tensors
+    come back on the card bit for bit, in a fresh Trainer resumed
+    FULL_TRAINED, and two runs resumed from one .partial end equal."""
+    import shutil
+
+    from qbold_vi_tpu_torch.train.trainer import Trainer, WeightStatus
+
+    base = tcfg.OPTIMAL
+    cfg = dataclasses.replace(
+        base, model=dataclasses.replace(base.model, no_units=16),
+        train=dataclasses.replace(base.train, no_ft_epochs=2,
+                                  ft_steps_per_epoch=3, ft_batch_size=4,
+                                  checkpoint_every_epochs=1))
+    rng = np.random.default_rng(3)
+    data = volume(rng, (2, 40, 30, 2), cfg.scan.n_taus + 1)
+    data[..., -1] = 1.0
+    weights = init_params(cfg.model, cfg.scan,
+                          torch.Generator().manual_seed(2))
+
+    class Crash(RuntimeError):
+        pass
+
+    def crash(phase, epoch, m):
+        if epoch == 1:
+            raise Crash()
+
+    first = own_save_dir(cfg, tmp_path)
+    with pytest.raises(Crash):
+        Trainer(first, state_dict=weights, device=cuda_device,
+                logger=crash).finetune(data)
+    partial = os.path.join(first.train.save_directory,
+                           "final_model.msgpack.partial")
+    finals = []
+    for _ in range(2):
+        c = own_save_dir(cfg, tmp_path)
+        shutil.copy(partial, c.train.save_directory)
+        t = Trainer(c, state_dict=weights, resume_partial=True,
+                    device=cuda_device, logger=lambda *a: None)
+        t.finetune(data)
+        assert t.status is WeightStatus.FULL_TRAINED
+        finals.append(t)
+    for k, v in finals[0].tuner.state_dict().items():
+        assert torch.equal(v, finals[1].tuner.state_dict()[k]), k
+    back = Trainer(finals[0].cfg, device=cuda_device)
+    assert back.status is WeightStatus.FULL_TRAINED
+    for k, v in finals[0].tuner.state_dict().items():
+        assert back.tuner.state_dict()[k].device.type == "cuda"
+        assert torch.equal(back.tuner.state_dict()[k], v), k
+    assert back._load_state(back.final_path,
+                            "finetune").opt_state.count == 6
+
+
+def test_pretrain_resumes_its_swa_on_the_card(cuda_device, tmp_path):
+    """A pretrain .partial holding SWA's average (one fold, at the end of
+    epoch 0) resumed on the card: the average comes to the card, and the
+    fold at the end of epoch 1 gives (average + weights) / 2 of the saved
+    average and the final weights, also in pt_model.msgpack. A CPU resume
+    of the same file ends within 2 pt_lr a resumed step of the card's
+    weights (each run moves a weight by about pt_lr a step; the card's
+    decode and sums round otherwise), and its average within half that."""
+    import shutil
+
+    from qbold_vi_tpu_torch.train.trainer import Trainer
+
+    base = dataclasses.replace(
+        tcfg.OPTIMAL,
+        model=dataclasses.replace(tcfg.OPTIMAL.model, no_units=16),
+        synth=dataclasses.replace(tcfg.OPTIMAL.synth, sample_size=60),
+        train=dataclasses.replace(tcfg.OPTIMAL.train, no_pt_epochs=2,
+                                  pt_batch_size=2, pt_on_device_synth=False,
+                                  checkpoint_every_epochs=1))
+    probe = Trainer(own_save_dir(base, tmp_path), device="cpu")
+    (tx, _), _ = probe.build_pretrain_data()
+    spe = len(tx) // base.train.pt_batch_size
+    assert spe >= 2
+    cfg = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, swa_start=spe, swa_period=spe))
+
+    class Crash(RuntimeError):
+        pass
+
+    def crash(phase, epoch, m):
+        if epoch == 1:
+            raise Crash()
+
+    first = own_save_dir(cfg, tmp_path)
+    with pytest.raises(Crash):
+        Trainer(first, device=cuda_device, logger=crash).pretrain()
+    partial = os.path.join(first.train.save_directory,
+                           "pt_model.msgpack.partial")
+    ends = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        c = own_save_dir(cfg, tmp_path)
+        shutil.copy(partial, c.train.save_directory)
+        t = Trainer(c, device=dev, logger=lambda *a: None)
+        saved = t._load_state(t._partial_path(t.pt_path), "pretrain").swa
+        assert (saved.step, saved.n_avg) == (spe, 1)
+        t.pretrain()
+        assert (t.swa.step, t.swa.n_avg) == (2 * spe, 2)
+        params = dict(t.tuner.named_parameters())
+        for k, p in params.items():
+            avg = t.swa.average[k]
+            assert avg.device.type == dev.type, k
+            want = (saved.average[k].to(dev) * 1.0 + p.detach()) \
+                / p.new_tensor(2.0)
+            assert torch.equal(avg, want), k
+        written = t._load_state(t.pt_path, "pretrain").swa
+        assert written.n_avg == 2
+        for k, v in written.average.items():
+            assert torch.equal(v, t.swa.average[k].cpu()), k
+        ends[dev.type] = ({k: p.detach().cpu() for k, p in params.items()},
+                          {k: v.cpu() for k, v in t.swa.average.items()})
+    lr = cfg.train.pt_lr
+    for i, tol in ((0, 2 * lr * spe), (1, lr * spe)):
+        for k, v in ends["cpu"][i].items():
+            err = float((ends["cuda"][i][k] - v).abs().max())
+            assert err <= tol, (k, i, err)
+
+
+def test_cli_train_and_infer_on_the_card(cuda_device, tmp_path):
+    """python -m qbold_vi_tpu_torch train --smoke then infer, on the card by
+    default (no --device)."""
+    from qbold_vi_tpu_torch.cli import main
+    from qbold_vi_tpu_torch.io.nifti import load_nifti
+
+    save = str(tmp_path / "run")
+    assert main(["train", "--smoke", "--set", f"save_directory={save}",
+                 "--set", f"d={tmp_path / 'none'}"]) == 0
+    rng = np.random.default_rng(1)
+    data = volume(rng, (1, 8, 8, 2), 12)
+    data[..., -1] = 1.0
+    np.save(tmp_path / "subj.npy", data)
+    out = str(tmp_path / "maps")
+    assert main(["infer", str(tmp_path / "subj.npy"), "-o", out,
+                 "--set", f"save_directory={save}", "--set", "no_units=8",
+                 "--set", "no_intermediate_layers=1"]) == 0
+    assert np.all(np.isfinite(load_nifti(out + "_oef.nii.gz")))

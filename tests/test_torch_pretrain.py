@@ -34,7 +34,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from torch_parity_utils import (assert_bf16_grads_close,  # noqa: E402
-                                port_params, port_tuner)
+                                own_save_dir, port_params, port_tuner)
 from qbold_vi_tpu import config as jcfg  # noqa: E402
 from qbold_vi_tpu import synth as jsynth  # noqa: E402
 from qbold_vi_tpu.dist.logit_mvn import LogitMVN as JLogitMVN  # noqa: E402
@@ -457,8 +457,9 @@ def test_pretrain_then_finetune_kernel_h_chain(tmp_path):
     data[..., -1] = rng.uniform(size=data.shape[:-1]) > 0.2
     finals = {}
     for mode in ("on", "off"):
-        cfg = _port(_tiny(tmp_path, ft_steps_per_epoch=3, ft_batch_size=2,
-                          crop_size=8, fused_elbo="on"))
+        cfg = own_save_dir(_port(_tiny(
+            tmp_path, ft_steps_per_epoch=3, ft_batch_size=2, crop_size=8,
+            fused_elbo="on")), tmp_path)
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, fused_conv=mode))
         t = Trainer(cfg, device="cpu", logger=lambda *a: None)

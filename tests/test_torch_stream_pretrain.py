@@ -46,7 +46,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from torch_parity_utils import port_params, port_tuner  # noqa: E402
+from torch_parity_utils import (own_save_dir, port_params,  # noqa: E402
+                                port_tuner)
 from qbold_vi_tpu import config as jcfg  # noqa: E402
 from qbold_vi_tpu.train import optim as joptim  # noqa: E402
 from qbold_vi_tpu.train import steps as jsteps  # noqa: E402
@@ -355,10 +356,11 @@ def test_trainer_stream_pretrain(tmp_path, monkeypatch):
                                fold["val_loss"], rtol=1e-6)
 
 
-def test_pretrain_val_metrics_fold_takes_no_synthetic_set():
+def test_pretrain_val_metrics_fold_takes_no_synthetic_set(tmp_path):
     """fold=True evaluates on the seed fold, so a synthetic set beside it is
     refused rather than silently ignored."""
-    t = ttrainer.Trainer(_port(_cfg()), device="cpu", logger=lambda *a: None)
+    t = ttrainer.Trainer(own_save_dir(_port(_cfg()), tmp_path), device="cpu",
+                         logger=lambda *a: None)
     with pytest.raises(ValueError, match="fold"):
         t.pretrain_val_metrics((np.zeros((1, 11)), np.zeros((1, 3))),
                                fold=True)

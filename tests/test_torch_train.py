@@ -22,7 +22,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from torch_parity_utils import (assert_bf16_grads_close,  # noqa: E402
-                                port_params, port_tuner)
+                                own_save_dir, port_params, port_tuner)
 from qbold_vi_tpu.config import (ModelConfig, QBoldConfig,  # noqa: E402
                                  ScanParams, TrainConfig)
 from qbold_vi_tpu.models.vi import FineTuner as JFineTuner  # noqa: E402
@@ -299,7 +299,7 @@ def test_bridge_carries_pop_prior_and_log_sigma(kw):
                                    np.exp(flat["log_sigma"]), rtol=1e-6)
 
 
-def test_finetuner_asks_for_the_card_by_default():
+def test_finetuner_asks_for_the_card_by_default(tmp_path):
     cfg = tcfg.ModelConfig(no_units=4)
     if torch.cuda.is_available():
         assert FineTuner(cfg, tcfg.ScanParams()).device.type == "cuda"
@@ -307,11 +307,11 @@ def test_finetuner_asks_for_the_card_by_default():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             FineTuner(cfg, tcfg.ScanParams())
         with pytest.raises(RuntimeError, match="device='cpu'"):
-            Trainer(tcfg.OPTIMAL)
+            Trainer(own_save_dir(tcfg.OPTIMAL, tmp_path))
     assert FineTuner(cfg, tcfg.ScanParams(), device="cpu").device.type == "cpu"
 
 
-def test_trainer_finetunes_on_the_cpu():
+def test_trainer_finetunes_on_the_cpu(tmp_path):
     base = tcfg.OPTIMAL
     cfg = dataclasses.replace(
         base, model=dataclasses.replace(base.model, no_units=6,
@@ -326,9 +326,10 @@ def test_trainer_finetunes_on_the_cpu():
     logged = []
     weights = init_params(cfg.model, cfg.scan, torch.Generator().manual_seed(1))
     with pytest.raises(RuntimeError, match="pretrain"):
-        Trainer(cfg, device="cpu").finetune(data, epochs=1)
-    t = Trainer(cfg, state_dict=weights, device="cpu",
-                logger=lambda *a: logged.append(a))
+        Trainer(own_save_dir(cfg, tmp_path), device="cpu").finetune(
+            data, epochs=1)
+    t = Trainer(own_save_dir(cfg, tmp_path), state_dict=weights,
+                device="cpu", logger=lambda *a: logged.append(a))
     before = {k: v.clone() for k, v in t.tuner.state_dict().items()}
     m = t.finetune(data, study_data=data[:1], epochs=2)
     assert t.epochs_done == 2 and len(logged) == 2
@@ -344,18 +345,19 @@ def test_trainer_finetunes_on_the_cpu():
         cfg, synth=dataclasses.replace(cfg.synth, sample_size=40),
         train=dataclasses.replace(cfg.train, pt_on_device_synth=True,
                                   pt_batch_size=1, no_pt_epochs=1))
-    m = Trainer(streaming, device="cpu", logger=lambda *a: None).pretrain()
+    m = Trainer(own_save_dir(streaming, tmp_path), device="cpu",
+                logger=lambda *a: None).pretrain()
     assert all(np.isfinite(v) for v in m.values())
     with pytest.raises(NotImplementedError, match="mesh"):
-        Trainer(cfg, device="cpu", mesh=object())
+        Trainer(own_save_dir(cfg, tmp_path), device="cpu", mesh=object())
     drop = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, dropout_rate=0.1))
     with pytest.raises(NotImplementedError, match="dropout"):
-        Trainer(drop, state_dict=weights, device="cpu").finetune(data,
-                                                                 epochs=1)
+        Trainer(own_save_dir(drop, tmp_path), state_dict=weights,
+                device="cpu").finetune(data, epochs=1)
 
 
-def test_continuing_finetune_keeps_its_priors_and_schedule():
+def test_continuing_finetune_keeps_its_priors_and_schedule(tmp_path):
     """Trainer.finetune(epochs=) continues one schedule: its first call
     predicts the training and study priors and later calls reuse them, so
     two 1-epoch calls give the priors and weights of one 2-epoch call, bit
@@ -374,14 +376,14 @@ def test_continuing_finetune_keeps_its_priors_and_schedule():
             ).astype(np.float32)
     data[..., -1] = rng.uniform(size=data.shape[:-1]) > 0.2
     weights = init_params(cfg.model, cfg.scan, torch.Generator().manual_seed(2))
-    split = Trainer(cfg, state_dict=weights, device="cpu",
-                    logger=lambda *a: None)
+    split = Trainer(own_save_dir(cfg, tmp_path), state_dict=weights,
+                    device="cpu", logger=lambda *a: None)
     study = split.finetune(data, study_data=data[:1], epochs=1)
     first_priors = split.sampler.priors.copy()
     eval_priors = split._ft_samplers[1].priors.copy()
     m_split = split.finetune(data, study_data=data[:1], epochs=1)
-    whole = Trainer(cfg, state_dict=weights, device="cpu",
-                    logger=lambda *a: None)
+    whole = Trainer(own_save_dir(cfg, tmp_path), state_dict=weights,
+                    device="cpu", logger=lambda *a: None)
     m_whole = whole.finetune(data, study_data=data[:1], epochs=2)
     assert "val_elbo" in study and split.epochs_done == whole.epochs_done == 2
     np.testing.assert_array_equal(split.sampler.priors, first_priors)
@@ -398,32 +400,10 @@ def test_continuing_finetune_keeps_its_priors_and_schedule():
     assert split.epochs_done == 2
     for k, v in split.tuner.state_dict().items():
         assert torch.equal(after[k], v), k
-    long = Trainer(cfg, state_dict=weights, device="cpu",
-                   logger=lambda *a: None)
+    long = Trainer(own_save_dir(cfg, tmp_path), state_dict=weights,
+                   device="cpu", logger=lambda *a: None)
     long.finetune(data, epochs=5)
     assert long.epochs_done == 2 and long.status is WeightStatus.FULL_TRAINED
-
-
-def test_trainer_raises_for_unported_checkpoints(tmp_path):
-    """A save directory holding a JAX checkpoint would be resumed by the JAX
-    Trainer; the port raises instead of silently starting over, and it
-    raises for mid-phase checkpoints too."""
-    cfg = dataclasses.replace(
-        tcfg.OPTIMAL,
-        model=dataclasses.replace(tcfg.OPTIMAL.model, no_units=4,
-                                  no_intermediate_layers=1),
-        train=dataclasses.replace(tcfg.OPTIMAL.train,
-                                  save_directory=str(tmp_path)))
-    Trainer(cfg, device="cpu")                     # an empty directory
-    (tmp_path / "final_model.msgpack").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="final_model.msgpack"):
-        Trainer(cfg, device="cpu")
-    (tmp_path / "final_model.msgpack").unlink()
-    every = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, checkpoint_every_epochs=1))
-    data = np.ones((1, 40, 30, 1, 12), np.float32)
-    with pytest.raises(NotImplementedError, match="checkpoint_every_epochs"):
-        Trainer(every, device="cpu").finetune(data, epochs=1)
 
 
 def test_init_params_carry_population_prior():

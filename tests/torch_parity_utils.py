@@ -59,6 +59,18 @@ def port_tuner(cfg, scan, jax_params, **kw):
     return tuner
 
 
+def own_save_dir(cfg, tmp_path):
+    """``cfg`` with a save_directory of its own under ``tmp_path``. The
+    port's Trainer writes its checkpoints there and resumes what it finds
+    (OPTIMAL's is the relative "optimal"), so no two Trainers -- of one test
+    or of tests run side by side -- may share one."""
+    import dataclasses
+    import tempfile
+
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, save_directory=tempfile.mkdtemp(dir=str(tmp_path))))
+
+
 def _fields(dc) -> dict:
     import dataclasses
 

@@ -5,7 +5,7 @@ against the classical WLS fit of the same volumes.
 
     python3 tools/validate_finetune_torch.py [--seed N] [--fused-conv MODE]
         [--fused-elbo MODE] [--compute-dtype float32|bfloat16]
-        [--ft-epochs N] [--pt-epochs N] [--out DIR]
+        [--ft-epochs N] [--pt-epochs N] [--out DIR [--resume]]
 
 Run it from the repository's root on the machine with the card (``env
 PYTHONPATH=. python3 tools/validate_finetune_torch.py --seed 1``). The
@@ -25,6 +25,12 @@ counterpart of benchmarks/validate_finetune.py, with its setup:
   fine_tuned=True, priors=...)`` with the priors of the fine-tuned
   encoder.
 
+With ``--out DIR`` the checkpoints go to DIR too (the Trainer's
+save_directory): a run trains fresh, removing the checkpoints DIR holds,
+unless ``--resume`` asks to resume them (pt_model.msgpack skips the
+pretrain, final_model.msgpack the fine-tune), as the JAX script's
+``--resume`` does (benchmarks/validate_finetune.py:78).
+
 Prints the masked posterior-mean |OEF err|, |DBV err| and their
 correlations with the truth; the WLS anchor (``baseline.wls_maps`` on
 the same volumes: its own errors and correlations, and the VI maps'
@@ -41,7 +47,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import glob
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -103,8 +111,16 @@ def main() -> int:
     ap.add_argument("--pt-epochs", type=int, default=30)
     ap.add_argument("--ft-epochs", type=int, default=40)
     ap.add_argument("--out", default=None,
-                    help="export directory (default: a temporary one)")
+                    help="export and checkpoint directory (default: a "
+                         "temporary one)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume the checkpoints already in --out (default: "
+                         "remove them and train fresh, so that a stale "
+                         "final_model.msgpack of another run is never "
+                         "reported under this run's flags)")
     args = ap.parse_args()
+    if args.resume and not args.out:
+        ap.error("--resume needs --out")
 
     if not torch.cuda.is_available():
         print("no CUDA device: this validation runs on the card", flush=True)
@@ -121,8 +137,19 @@ def main() -> int:
     from qbold_vi_tpu_torch.train.trainer import Trainer
 
     with tempfile.TemporaryDirectory() as tmp:
+        save = args.out or tmp
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            stale = glob.glob(os.path.join(args.out, "*.msgpack*"))
+            if not args.resume:
+                for path in stale:
+                    os.remove(path)
+                if stale:
+                    print(f"removed {len(stale)} stale checkpoint(s) from "
+                          f"{args.out} (pass --resume to resume them)",
+                          flush=True)
         train = dict(pt_on_device_synth=True, no_pt_epochs=args.pt_epochs,
-                     no_ft_epochs=args.ft_epochs, save_directory=tmp,
+                     no_ft_epochs=args.ft_epochs, save_directory=save,
                      fused_elbo=args.fused_elbo)
         if args.seed is not None:
             train["seed"] = args.seed
@@ -149,12 +176,14 @@ def main() -> int:
             setattr(fn, attr, 0)
 
         tr = Trainer(cfg, logger=lambda *a: None)
+        resumed = tr.status.name
         t0 = time.perf_counter()
         pt = tr.pretrain()
         torch.cuda.synchronize()
         t_pt = time.perf_counter() - t0
         print(f"pretrain: {t_pt:.1f} s ({cfg.train.no_pt_epochs} epochs, "
-              f"last val_loss {pt['val_loss']:.5g}) [{card}]", flush=True)
+              f"last val_loss {pt.get('val_loss', float('nan')):.5g}; "
+              f"started {resumed}) [{card}]", flush=True)
 
         epochs = []
         tr.logger = lambda phase, e, mt: epochs.append(mt["epoch_time_s"])
@@ -162,7 +191,7 @@ def main() -> int:
         tr.finetune(data, study_data=data[:2])
         torch.cuda.synchronize()
         t_ft = time.perf_counter() - t0
-        epoch_s = float(np.median(epochs))
+        epoch_s = float(np.median(epochs)) if epochs else float("nan")
         print(f"finetune ({cfg.train.no_ft_epochs} epochs x "
               f"{cfg.train.ft_steps_per_epoch} steps): {t_ft:.1f} s, epoch "
               f"{epoch_s:.3f} s median [{card}]", flush=True)
@@ -207,7 +236,8 @@ def main() -> int:
     failed = [k for k, v in FLOORS.items()
               if (vi[k] > v if k.endswith("err") else vi[k] < v)]
     print(json.dumps({
-        "seed": cfg.train.seed, "fused_conv": args.fused_conv,
+        "seed": cfg.train.seed, "resumed_from": resumed,
+        "fused_conv": args.fused_conv,
         "fused_elbo": args.fused_elbo, "compute_dtype": args.compute_dtype,
         "quality": vi, "wls": anchor,
         "vi_vs_wls": vs_wls, "pretrain_s": t_pt, "finetune_s": t_ft,
