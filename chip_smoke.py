@@ -15,8 +15,11 @@ from scratch
 forward and backward), the streaming pretrain (a fresh batch a step
 through kernel S), the WLS baseline, and the trunk in bf16
 (``compute_dtype="bfloat16"``: kernels B, C and H at bf16 on serving,
-fine-tuning and pretraining), and the command line (``cli.main``: train
-with its checkpoints and their resume, infer and serve), and checks them:
+fine-tuning and pretraining), the command line (``cli.main``: train
+with its checkpoints and their resume, infer and serve), dropout
+training, the serving artifacts (``torch.export``; kernel B as a
+registered op) and the CLI's synth / transfer / import-weights, and
+checks them:
 
 1. device: a CUDA card is required (otherwise exit 1, no result line);
 2. build: the kernels of all seven sources in csrc/ are compiled by nvcc;
@@ -218,7 +221,26 @@ weights of phase 3), after phase 28:
    save_predictions of the Trainer that trained (seed 7, the same pt
    priors); serve --warm 1 96 96 8 answering a quadrature, an mc and a
    bad request, each ack's wall_s beside the in-process posterior_maps
-   wall of the same request.
+   wall of the same request;
+37. dropout at rate 0.1 (OPTIMAL's width): Trainer.finetune 1 x 10 steps
+   under fused_conv "auto" (F) and "on" (H and F), masks drawn on the card
+   from each step's seed, launches asserted; one step with the same masks
+   (drawn on the card) and host normals through H and F against cuDNN and
+   the plain ELBO (check_step, softplus, GRAD_TOL); a train=False pass
+   bit-equal to rate 0; the step walls at rates 0.1 and 0 under both conv
+   routes; one streaming pretrain step (S) whose loss is rate 0's;
+38. the serving artifacts (io/export_model.py): the default .pt2 of
+   stream 2, exported, saved and reloaded on the card, against
+   posterior_maps at 14 x 96 x 96 x 8 and 3 x 64 x 64 x 8 (CHECKS); the
+   fused .pt2 at 1,032,192 voxels, bit-equal to the in-process kernel-B
+   route, one B launch a call through the registered op; their export,
+   save and load times and bytes, and the calls' walls;
+39. the CLI: synth --preset optimal (6.25 M voxels drawn and decoded on
+   the card), transfer to the 24-tau grid (the trunk bit for bit) and
+   infer on a 3 x 64 x 64 x 8 x 24-tau request (B launched);
+   save_predictions(transform_directory=) of stream 2 (A launched; no FSL
+   here, so native-space maps); import-weights, which needs h5py, exits 1
+   saying so where h5py is missing (its gates run on the CPU).
 Phases 5 and 13 print A-E beside their bounds: B and C's from the chain's
 FMAs at the 3xTF32 rate (encode_bound) and at the float32 CUDA-core peak;
 A's, B's and E's special-function bound beside OPS's (MUFU: the
@@ -3574,6 +3596,407 @@ def cli_phases(dev, card, base) -> dict:
             "posterior_maps_ms": pm, "export_split_s": split}
 
 
+DROPOUT_RATE = 0.1
+DROPOUT_STEPS = 10                   # a fine-tune epoch of each conv route
+EXPORT_GEOMETRIES = ((14, 96, 96, 8), (3, 64, 64, 8))
+TRANSFER_GRID = (-0.028, 0.004, 0.068)   # tau start, step, end: 24 taus
+
+
+def map_rows(maps: dict) -> tuple:
+    """(means (N, 3), variances (N, 3), raw (N, 2|3)) float64 tensors of a
+    posterior map dict (numpy or tensors)."""
+    def flat(key):
+        v = maps[key]
+        v = v.detach().cpu().numpy() if torch.is_tensor(v) else v
+        return torch.from_numpy(np.asarray(v, np.float64).reshape(
+            -1, v.shape[-1]))
+
+    return (torch.cat([flat(k) for k in ("oef", "dbv", "r2p")], -1),
+            flat("stds"), flat("raw_log_stds"))
+
+
+def dropout_export_cli_phases(dev, card, base, tuner) -> dict:
+    """Phases 37-39: dropout training (F, and H under "on"), the serving
+    artifacts (the default .pt2 and the fused one through kernel B's op),
+    and the CLI's synth, transfer -> infer and import-weights. Returns the
+    walls, sizes and launches."""
+    out = dropout_phase(dev, card, base, tuner)
+    out["export"] = default_artifact_phase(dev, card, base, tuner)
+    out["export"].update(fused_artifact_phase(dev, card, base, tuner))
+    out["cli"] = cli13_phase(dev, card, base, tuner)
+    return out
+
+
+def dropout_phase(dev, card, base, tuner) -> dict:
+    """Phase 37 (see the module docstring)."""
+    from qbold_vi_tpu_torch import FineTuner, init_params
+    from qbold_vi_tpu_torch.ops import conv3x3 as cv
+    from qbold_vi_tpu_torch.ops import fused_elbo as fe
+    from qbold_vi_tpu_torch.ops import synth_batch as sb
+    from qbold_vi_tpu_torch.train import data as data_pipe
+    from qbold_vi_tpu_torch.train import optim, steps
+    from qbold_vi_tpu_torch.train.trainer import Trainer
+
+    scan, mcfg = base.scan, base.model
+    n_conv = 2 * mcfg.no_intermediate_layers
+    weights = {k: v.detach().clone() for k, v in tuner.state_dict().items()}
+    out = {}
+
+    drop = dataclasses.replace(
+        base, model=dataclasses.replace(mcfg, dropout_rate=DROPOUT_RATE),
+        train=dataclasses.replace(base.train, no_ft_epochs=1,
+                                  ft_steps_per_epoch=DROPOUT_STEPS))
+    vols = volumes(np.random.default_rng(0), TRAIN_VOLUMES, scan.n_taus)
+    prior_fwd = n_conv * -(-data_pipe.blank_crop(vols).shape[0] // 4)
+    launches, epoch_s = {}, {}
+    for conv in ("auto", "on"):
+        c = dataclasses.replace(drop, model=dataclasses.replace(
+            drop.model, fused_conv=conv))
+        logged = []
+        trainer = Trainer(fresh_save(c), state_dict=weights, device=dev,
+                          logger=lambda ph, ep, m: logged.append(dict(m)))
+        cv.conv3x3.fwd_launches = cv.conv3x3.bwd_launches = 0
+        fe.fused_elbo_forward.launches = fe.fused_elbo_backward.launches = 0
+        fe.fused_elbo_backward.from_state = 0
+        trainer.finetune(vols, epochs=1)
+        torch.cuda.synchronize()
+        launches[conv] = {"H_fwd": cv.conv3x3.fwd_launches,
+                          "H_bwd": cv.conv3x3.bwd_launches,
+                          "F_fwd": fe.fused_elbo_forward.launches,
+                          "F_bwd": fe.fused_elbo_backward.launches,
+                          "F_bwd_from_state":
+                              fe.fused_elbo_backward.from_state}
+        if not all(np.isfinite(v) for m in logged for v in m.values()):
+            raise AssertionError(f"dropout fine-tune metrics: {logged}")
+        epoch_s[conv] = logged[-1]["epoch_time_s"]
+    n = DROPOUT_STEPS
+    want = {"auto": {"H_fwd": 0, "H_bwd": 0, "F_fwd": n, "F_bwd": n,
+                     "F_bwd_from_state": n},
+            "on": {"H_fwd": n_conv * n + prior_fwd, "H_bwd": n_conv * n,
+                   "F_fwd": n, "F_bwd": n, "F_bwd_from_state": n}}
+    log(f"dropout {DROPOUT_RATE} fine-tune, 1 x {n} steps a conv route "
+        f"(masks from the step seeds' generators on the card): launches "
+        f"{launches}; epochs {epoch_s} s [{card}]")
+    if launches != want:
+        raise AssertionError(f"the dropout steps missed F or H: {launches}, "
+                             f"expected {want}")
+    out["dropout_launches"] = launches
+
+    # one step through H and F against cuDNN and the plain ELBO, given the
+    # same masks (drawn on the card) and host normals; softplus, initial
+    # weights (check_step)
+    vol = torch.from_numpy(trainer.sampler.data).to(dev)
+    pri = torch.from_numpy(trainer.sampler.priors).to(dev)
+    batch = steps.sample_crop_batch(torch.Generator().manual_seed(9), vol,
+                                    pri, base.train.ft_batch_size,
+                                    base.train.crop_size)
+    shape = tuple(batch["images"].shape[:-1])
+    rng = np.random.default_rng(37)
+    noise = {"z_nll": rng.normal(size=(1,) + shape + (2,)).astype(np.float32),
+             "z_kl": rng.normal(size=(70,) + shape + (2,)).astype(np.float32)}
+    gen = torch.Generator(device=dev).manual_seed(13)
+    fold = (shape[0] * shape[3], shape[1], shape[2], mcfg.no_units)
+    masks = [torch.rand(fold, generator=gen, device=dev) < 1 - DROPOUT_RATE
+             for _ in range(n_conv)]
+    init = init_params(mcfg, scan, torch.Generator().manual_seed(3))
+    routes = {"on": dict(fused_conv="on", fused_elbo="on"),
+              "off": dict(fused_conv="off", fused_elbo="off",
+                          fused_decode_nll="off")}
+    result, counted = [], {}
+    for route, kw in routes.items():
+        c = smooth(drop)
+        c = dataclasses.replace(
+            c, model=dataclasses.replace(c.model, fused_conv=kw["fused_conv"]),
+            train=dataclasses.replace(c.train, **{k: v for k, v in kw.items()
+                                                  if k != "fused_conv"}))
+        t = FineTuner(c.model, scan, device=dev)
+        t.load_state_dict(init)
+        opt = optim.make_finetune_optimizer(t.parameters(), c.train)
+        cv.conv3x3.bwd_launches = fe.fused_elbo_backward.from_state = 0
+        result.append(stepped(t, steps.make_finetune_step(t, c, opt)(
+            batch, noise=noise, dropout_masks=masks)))
+        torch.cuda.synchronize()
+        counted[route] = (cv.conv3x3.bwd_launches,
+                          fe.fused_elbo_backward.from_state)
+    if counted != {"on": (n_conv, 1), "off": (0, 0)}:
+        raise AssertionError(f"the compared dropout steps: {counted}")
+    worst = check_step("one dropout step (softplus) through H and F vs cuDNN "
+                       "and the plain ELBO", *result, init,
+                       float(base.train.ft_lr))
+    log(f"one dropout step (softplus, initial weights, the same masks drawn "
+        f"on the card) through H and F vs cuDNN and the plain ELBO: loss "
+        f"{result[0][0]:.7g} vs {result[1][0]:.7g}, gradients within "
+        f"{worst:.2e} of their scale (GRAD_TOL), updates within tolerance")
+    out["dropout_step_vs_plain_grad_err"] = worst
+
+    # train=False ignores the rate; the step walls with and without dropout
+    t_drop = FineTuner(drop.model, scan, device=dev)
+    t_drop.load_state_dict(weights)
+    with torch.no_grad():
+        for a, b in zip(t_drop.encode(batch["images"]),
+                        tuner.encode(batch["images"])):
+            if not torch.equal(a, b):
+                raise AssertionError("a train=False pass saw the dropout rate")
+    seeds = iter(range(1000, 2000))
+    walls = {}
+    for conv in ("auto", "on"):
+        for rate in (DROPOUT_RATE, 0.0):
+            c = dataclasses.replace(drop, model=dataclasses.replace(
+                drop.model, fused_conv=conv, dropout_rate=rate))
+            t = FineTuner(c.model, scan, device=dev)
+            t.load_state_dict(weights)
+            step = steps.make_finetune_step(
+                t, c, optim.make_finetune_optimizer(t.parameters(), c.train))
+            walls[f"{conv}_rate{rate}"] = wall_ms(
+                lambda: step(batch, seed=next(seeds)))
+    log("fine-tune step walls (OPTIMAL, batch 38, F; median of 7): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in walls.items())
+        + f" [{card}]")
+    out["dropout_step_ms"] = walls
+    out["dropout_epoch_s"] = epoch_s
+
+    # one streaming pretrain step at the rate: S launched, the loss that of
+    # rate 0 (dropout never reaches stream 1)
+    losses_ = []
+    for rate in (DROPOUT_RATE, 0.0):
+        c = dataclasses.replace(drop, model=dataclasses.replace(
+            drop.model, dropout_rate=rate), train=dataclasses.replace(
+            drop.train, pt_on_device_synth=True))
+        t = FineTuner(c.model, scan, device=dev)
+        t.load_state_dict(weights)
+        sb.synth_batch.launches = 0
+        m, _ = steps.make_pretrain_stream_step(
+            t, c, optim.make_pretrain_optimizer(t.named_parameters(),
+                                                c.train))(seed=11)
+        torch.cuda.synchronize()
+        if sb.synth_batch.launches != 1 or not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"streaming step at rate {rate}: S "
+                                 f"{sb.synth_batch.launches}, {m}")
+        losses_.append(float(m["loss"]))
+    if abs(losses_[0] - losses_[1]) > 1e-6 * abs(losses_[1]):
+        raise AssertionError(f"the streaming pretrain loss moved with the "
+                             f"dropout rate: {losses_}")
+    log(f"one streaming pretrain step at dropout {DROPOUT_RATE}: S launched, "
+        f"loss {losses_[0]:.7g} (rate 0: {losses_[1]:.7g})")
+
+    return out
+
+
+def default_artifact_phase(dev, card, base, tuner) -> dict:
+    """Phase 38, the default artifact."""
+    from qbold_vi_tpu_torch import infer
+    from qbold_vi_tpu_torch.io import export_model as em
+
+    scan = base.scan
+    tmp = tempfile.mkdtemp(dir=_SAVE_ROOT[0])
+    rng = np.random.default_rng(38)
+    t0 = time.perf_counter()
+    ep = em.export_inference(tuner, use_first_op=False)
+    export_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "maps.pt2")
+    t0 = time.perf_counter()
+    nbytes = em.save_exported(ep, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = em.load_exported(path)
+    load_s = time.perf_counter() - t0
+    big = None
+    for shape in EXPORT_GEOMETRIES:
+        data = volumes(rng, shape, scan.n_taus)
+        x = torch.from_numpy(data).to(dev)
+        got = map_rows(art(x))
+        ref = map_rows(infer.posterior_maps(tuner, data, use_first_op=False))
+        e = max(check_close(f"default artifact {shape}", got[0], ref[0],
+                            "mean"),
+                check_close(f"default artifact {shape}", got[1], ref[1],
+                            "var", ref[0]),
+                check_close(f"default artifact {shape}", got[2], ref[2],
+                            "raw"))
+        log(f"default artifact (stream 2) at {shape} against posterior_maps: "
+            f"within CHECKS, largest difference {e:.3e}")
+        big = big if big is not None else (data, x)
+    art_ms = wall_ms(lambda: art(big[1]), blocks=3)
+    pm_ms = wall_ms(lambda: infer.posterior_maps(tuner, big[0],
+                                                 use_first_op=False),
+                    blocks=3)
+    log(f"default artifact: export {export_s:.2f} s, save {save_s:.2f} s "
+        f"({nbytes} bytes), load {load_s:.2f} s; a call on "
+        f"{EXPORT_GEOMETRIES[0]} (on the card) {art_ms:.2f} ms against "
+        f"posterior_maps (numpy in and out, chunks of 2) {pm_ms:.2f} ms "
+        f"[{card}]")
+    shutil.rmtree(tmp, True)
+    return {"default_export_s": export_s, "default_save_s": save_s,
+            "default_load_s": load_s, "default_bytes": nbytes,
+            "default_call_ms": art_ms, "posterior_maps_ms": pm_ms}
+
+
+def fused_artifact_phase(dev, card, base, tuner) -> dict:
+    """Phase 38, the fused artifact: kernel B through its registered op."""
+    from qbold_vi_tpu_torch import infer
+    from qbold_vi_tpu_torch.io import export_model as em
+    from qbold_vi_tpu_torch.ops import fused_infer as fi
+
+    scan, mcfg = base.scan, base.model
+    tmp = tempfile.mkdtemp(dir=_SAVE_ROOT[0])
+    rng = np.random.default_rng(381)
+    enc = dict(se_idx=scan.se_idx, multi_image=mcfg.multi_image_normalisation,
+               activation=mcfg.activation,
+               n_blocks=mcfg.no_intermediate_layers, trunk="float32",
+               mvg=mcfg.use_mvg, oef_range=mcfg.oef_range,
+               min_oef=mcfg.min_oef, dbv_range=mcfg.dbv_range,
+               min_dbv=mcfg.min_dbv,
+               dw_coeff=float(scan.dw_coeff * scan.hct), mask_channel=True,
+               input_layout="channel")
+    x_cm = torch.from_numpy(infer.to_channel_major(
+        volumes(rng, REQUESTS[0], scan.n_taus))).to(dev)
+    t0 = time.perf_counter()
+    ep_f = em.export_inference(tuner, fused=True, platforms=("cuda",),
+                               example_shape=REQUESTS[0])
+    fused_export_s = time.perf_counter() - t0
+    fpath = os.path.join(tmp, "fused.pt2")
+    fbytes = em.save_exported(ep_f, fpath)
+    t0 = time.perf_counter()
+    art_f = em.load_exported(fpath)
+    fused_load_s = time.perf_counter() - t0
+    reset_counts()
+    got = art_f(x_cm)
+    torch.cuda.synchronize()
+    b_launches = read_counts()["B"]
+    ref = fi.encode_quad_fused(x_cm, tuner.encoder, **enc)
+    for key, r in zip(("means", "stds", "raw_log_stds"), ref):
+        if not torch.equal(got[key], r if mcfg.use_mvg or key != "raw_log_stds"
+                           else r[:2]):
+            raise AssertionError(f"fused artifact's {key} differs from the "
+                                 "in-process kernel-B route")
+    if b_launches != 1:
+        raise AssertionError(f"the fused artifact launched B {b_launches} "
+                             "times")
+    fused_ms = wall_ms(lambda: art_f(x_cm))
+    inproc_ms = wall_ms(lambda: fi.encode_quad_fused(x_cm, tuner.encoder,
+                                                     **enc))
+    log(f"fused artifact at {x_cm.shape[1]} voxels: bit-equal to the "
+        f"in-process kernel-B route, B launched once a call through "
+        f"torch.ops.qbold_vi_tpu_torch.encode_quad_fused; export "
+        f"{fused_export_s:.2f} s, {fbytes} bytes, load {fused_load_s:.2f} s; "
+        f"a call {fused_ms:.3f} ms against the wrapper's {inproc_ms:.3f} ms "
+        f"[{card}]")
+    shutil.rmtree(tmp, True)
+    return {"fused_export_s": fused_export_s, "fused_load_s": fused_load_s,
+            "fused_bytes": fbytes, "fused_call_ms": fused_ms,
+            "fused_inproc_ms": inproc_ms,
+            "fused_B_launches_a_call": b_launches}
+
+
+def cli13_phase(dev, card, base, tuner) -> dict:
+    """Phase 39 (see the module docstring)."""
+    from qbold_vi_tpu_torch import cli, infer
+    from qbold_vi_tpu_torch.io import nifti
+    from qbold_vi_tpu_torch.train.trainer import Trainer
+
+    scan = base.scan
+    weights = {k: v.detach().clone() for k, v in tuner.state_dict().items()}
+    tmp = tempfile.mkdtemp(dir=_SAVE_ROOT[0])
+    rng = np.random.default_rng(39)
+
+    spath = os.path.join(tmp, "synthetic.npz")
+    t0 = time.perf_counter()
+    rc, lines = run_cli(["synth", "-o", spath, "--preset", "optimal"])
+    synth_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli synth: rc {rc}, {lines}")
+    with np.load(spath) as f:
+        x, y = f["x"], f["y"]
+    n_vox = base.synth.sample_size ** 2
+    if x.shape != (n_vox, scan.n_taus) or y.shape != (n_vox, 3) or not (
+            np.isfinite(x).all() and np.isfinite(y).all()):
+        raise AssertionError(f"cli synth wrote x{x.shape} y{y.shape}")
+    s = base.synth
+    if not (s.oef_start <= y[:, 0].min() and y[:, 0].max() <= s.oef_end
+            and s.dbv_start <= y[:, 1].min() and y[:, 1].max() <= s.dbv_end):
+        raise AssertionError("cli synth's labels left the population range")
+    os.remove(spath)
+    log(f"cli synth --preset optimal: {lines[-1]}; {synth_s:.2f} s (draws, "
+        f"cross product and decode on the card, then the .npz) [{card}]")
+
+    src = fresh_save(base)
+    cli._save_fresh(Trainer(src, state_dict=weights, device=dev), weights,
+                    "pretrain")
+    dst = tempfile.mkdtemp(dir=_SAVE_ROOT[0])
+    start, step, end = (str(v) for v in TRANSFER_GRID)
+    rc, lines = run_cli(["transfer", "--tau-start", start, "--tau-step", step,
+                         "--tau-end", end, "-o", dst, "--preset", "optimal",
+                         "--set",
+                         f"save_directory={src.train.save_directory}"])
+    if rc != 0 or "24-tau protocol" not in lines[-1]:
+        raise AssertionError(f"cli transfer: rc {rc}, {lines}")
+    grid = ["--set", f"tau_start={start}", "--set", f"tau_step={step}",
+            "--set", f"tau_end={end}"]
+    moved = Trainer(dataclasses.replace(base, scan=dataclasses.replace(
+        scan, tau_start=TRANSFER_GRID[0], tau_step=TRANSFER_GRID[1],
+        tau_end=TRANSFER_GRID[2]), train=dataclasses.replace(
+        base.train, save_directory=dst)), device=dev)
+    for k, v in moved.tuner.state_dict().items():
+        layer = k.split(".")[1] if k.startswith("encoder.") else None
+        if layer not in ("first_conv", "sigma_head") and not torch.equal(
+                v, weights[k]):
+            raise AssertionError(f"transfer changed the trunk's {k}")
+    req = volumes(rng, REQUESTS[-1], 24)
+    rpath = os.path.join(tmp, "request24.npy")
+    np.save(rpath, req)
+    prefix = os.path.join(tmp, "maps24")
+    reset_counts()
+    t0 = time.perf_counter()
+    rc, lines = run_cli(["infer", rpath, "-o", prefix, "--preset", "optimal",
+                         "--set", f"save_directory={dst}", *grid])
+    torch.cuda.synchronize()
+    infer24_s = time.perf_counter() - t0
+    counts = read_counts()
+    if rc != 0 or counts["B"] == 0:
+        raise AssertionError(f"cli infer on the transferred model: rc {rc}, "
+                             f"launches {counts}")
+    oef = nifti.load_nifti(prefix + "_oef.nii.gz")
+    if not (np.isfinite(oef).all() and 0.04 <= oef.min()
+            and oef.max() <= 0.84):
+        raise AssertionError("the transferred model's OEF map")
+    log(f"cli transfer to the 24-tau grid {TRANSFER_GRID} (trunk kept bit "
+        f"for bit), then cli infer on {REQUESTS[-1]} x 24 taus: "
+        f"{infer24_s:.2f} s, launches {counts} [{card}]")
+
+    tdir = tempfile.mkdtemp(dir=_SAVE_ROOT[0])
+    data = volumes(rng, EXPORT_GEOMETRIES[0], scan.n_taus)
+    reset_counts()
+    maps = infer.save_predictions(tuner, base, data, os.path.join(
+        tmp, "mni"), use_first_op=False, transform_directory=tdir)
+    a_launches = read_counts()["A"]
+    check_maps(maps, data.shape[:-1], os.path.join(tmp, "mni"))
+    if a_launches == 0:
+        raise AssertionError("stream-2 save_predictions under "
+                             "transform_directory never launched A")
+    log(f"save_predictions(transform_directory=) of stream 2 on "
+        f"{EXPORT_GEOMETRIES[0]}: A launched {a_launches} times; FSL "
+        "absent here, so the maps stay in native space (the MNI commands "
+        "are gated on the CPU: tests/test_torch_fsl_preprocess.py)")
+
+    try:
+        import h5py  # noqa: F401
+        log("import-weights: h5py is installed here, but its gates run on "
+            "the CPU (tests/test_torch_import_transfer.py, "
+            "tests/test_torch_cli.py), against the JAX importer")
+    except ImportError:
+        rc, lines = run_cli(["import-weights", os.path.join(tmp, "w.h5"),
+                             "--preset", "optimal", "--set",
+                             f"save_directory={dst}"])
+        if rc != 1:
+            raise AssertionError(f"import-weights without h5py: rc {rc}")
+        log("import-weights: this machine has no h5py, and the command "
+            "exits 1 saying so (checked); its parity gates run on the CPU "
+            "(tests/test_torch_import_transfer.py, tests/test_torch_cli.py)")
+    shutil.rmtree(tmp, True)
+    return {"synth_s": synth_s, "infer_transferred_s": infer24_s,
+            "infer_transferred_launches": counts,
+            "mni_save_predictions_A_launches": a_launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--weights", help="params .npz (io/from_jax.py "
@@ -3798,6 +4221,8 @@ def main() -> int:
     kernels += bf16["kernels"]
     elapsed("phases 34-36")
     cli = cli_phases(dev, card, OPTIMAL)
+    elapsed("phases 37-39")
+    new = dropout_export_cli_phases(dev, card, OPTIMAL, tuner)
     elapsed("done")
     print(json.dumps({"posterior_maps_wall_ms": walls,
                       "mc_posterior_maps_wall_ms": sampled["mc_walls"],
@@ -3819,6 +4244,7 @@ def main() -> int:
                                if k != "kernels"},
                       "stream1_float64_err": err64,
                       "cli": cli,
+                      "dropout_export_cli": new,
                       "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

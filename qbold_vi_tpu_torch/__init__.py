@@ -11,9 +11,14 @@ two-phase training (``train.trainer.Trainer``): synthetic pretraining and
 ELBO fine-tuning (kernels F and G), with the encoder's 3x3 convs by
 kernel H under ``fused_conv="on"``, with the JAX Trainer's checkpoint
 files and their resume (``train/checkpoint.py``), and the command line
-``python -m qbold_vi_tpu_torch train | infer | serve | baseline``
-(``cli.py``). Every TPU kernel of the JAX package has its hand-written
-counterpart here.
+``python -m qbold_vi_tpu_torch train | infer | serve | baseline | synth |
+export-model | import-weights | transfer`` (``cli.py``), with dropout in
+training, the ``torch.export`` serving artifacts (io/export_model.py;
+kernel B is the registered op ``qbold_vi_tpu_torch::encode_quad_fused``,
+so a process must import this package before it loads a fused artifact),
+the legacy Keras ``.h5`` import, tau-protocol transfer and the FSL
+MNI-space export. Every TPU kernel of the JAX package has its
+hand-written counterpart here.
 """
 
 from .config import OPTIMAL, ModelConfig, QBoldConfig, ScanParams

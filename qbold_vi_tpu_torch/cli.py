@@ -1,24 +1,37 @@
-"""Command-line entry points of the port: train / infer / serve / baseline.
+"""Command-line entry points of the port: train / infer / serve / baseline /
+synth / export-model / import-weights / transfer.
 
     python -m qbold_vi_tpu_torch train --preset optimal --set d=DATA_DIR
     python -m qbold_vi_tpu_torch infer vols.npy -o out/subj --preset optimal
     python -m qbold_vi_tpu_torch serve --warm 1 96 96 8 --preset optimal
     python -m qbold_vi_tpu_torch baseline vols.npy -o out/wls
+    python -m qbold_vi_tpu_torch synth -o synthetic_data.npz
+    python -m qbold_vi_tpu_torch export-model -o maps.pt2 --preset optimal
+    python -m qbold_vi_tpu_torch import-weights pt_model.h5 --device cpu
+    python -m qbold_vi_tpu_torch transfer --tau-start -0.028 --tau-step 0.004
+        --tau-end 0.068 -o transferred --preset optimal
 
 The counterpart of ``qbold_vi_tpu/cli.py`` (its names, flags, checkpoint
-files and exit codes), with these differences, each stated in the help:
+files, messages and exit codes), with these differences, each stated in
+the help:
 
 * ``--device {cuda,cpu}`` (default cuda) takes the place of
   ``QBOLD_CPU_DEVICES``: without a CUDA device and without ``--device
   cpu`` a command fails; it never falls back to the CPU;
 * the seeds of the exports' sampled maps are ``seed=5`` (post-pretrain)
   and ``seed=7`` (fine-tuned), where the JAX CLI passes
-  ``jax.random.PRNGKey(5 / 7)``;
+  ``jax.random.PRNGKey(5 / 7)``; ``synth`` draws from a generator seeded
+  with the config seed, where the JAX CLI splits ``PRNGKey(seed)``;
+* ``export-model`` writes a ``torch.export`` artifact (.pt2) for the
+  platforms cuda and cpu (a TPU artifact is the JAX package's: exit 2);
+  ``--fused`` holds kernel B and runs on the card in a process that has
+  imported qbold_vi_tpu_torch;
+* ``import-weights`` reads the legacy Keras-2 HDF5 layout with h5py (the
+  card's machine has no h5py: run it on a host that has it) and has no
+  Keras fallback; ``--reference-dir`` is accepted and not read;
 * not ported yet, and exiting with code 2 and a message: the subcommands
-  synth, sweep, dryrun, export-model, import-weights and transfer; train's
-  --mesh, --coordinator, --num-processes and --process-id; and an MNI-space
-  export (``--transform-directory``; ``train`` writes native-space maps
-  when the data directory holds transforms);
+  sweep and dryrun, and train's --mesh, --coordinator, --num-processes and
+  --process-id;
 * ``--config`` needs pyyaml, which the CUDA machine lacks: there, give
   ``--preset optimal`` and ``--set key=value`` overrides.
 """
@@ -83,11 +96,11 @@ def _with_brain_mask(arr: np.ndarray) -> np.ndarray:
     return np.concatenate([arr[..., :-2], arr[..., -1:]], -1)
 
 
-def _transforms(d: str, name: str) -> None:
+def _transforms(d: str, name: str) -> Optional[str]:
+    """The data directory's ``transforms_<name>`` (MNI-space export), where
+    it exists."""
     tdir = os.path.join(d, f"transforms_{name}")
-    if os.path.isdir(tdir):
-        print(f"{tdir} found, but the MNI-space export is not ported yet "
-              "(ROADMAP.md): writing native-space maps", file=sys.stderr)
+    return tdir if os.path.isdir(tdir) else None
 
 
 def cmd_train(args) -> int:
@@ -140,10 +153,10 @@ def cmd_train(args) -> int:
                               ("pt_hyperv", hyperv)):
                 if arr is None:
                     continue
-                _transforms(d, name.split("_")[1])
                 infer.save_predictions(
                     trainer.tuner, cfg, _with_brain_mask(arr),
-                    os.path.join(save, name), seed=5)
+                    os.path.join(save, name), seed=5,
+                    transform_directory=_transforms(d, name.split("_")[1]))
 
     # per-voxel priors from the pre-finetune encoder, for the KL maps of
     # the final exports (reference train.py:227-236)
@@ -159,10 +172,10 @@ def cmd_train(args) -> int:
     for name, arr in (("baseline", baseline), ("hyperv", hyperv)):
         if arr is None:
             continue
-        _transforms(d, name)
         infer.save_predictions(
             trainer.tuner, cfg, _with_brain_mask(arr),
-            os.path.join(save, name), seed=7, use_first_op=False,
+            os.path.join(save, name), seed=7,
+            transform_directory=_transforms(d, name), use_first_op=False,
             fine_tuned=True, priors=priors.get(name))
     return 0
 
@@ -172,12 +185,12 @@ def cmd_baseline(args) -> int:
     (default) takes the reference CLI's 24-tau streamlined grid (tau from
     -0.028 step 0.004, loglinear.py:149-152) when the data carries 24 tau
     channels and the config grid does not, else the config grid;
-    'streamlined' / 'config' force one."""
+    'streamlined' / 'config' force one. With --transform-directory the
+    (OEF, DBV, R2') maps are also warped to MNI space where FSL is
+    installed (reference loglinear.py:31-61)."""
     from . import baseline
-    from .io import nifti
+    from .io import fsl, nifti
 
-    if args.transform_directory:
-        return _not_ported("--transform-directory (the MNI-space export)")
     cfg = _load_cfg(args)
     data = _load_volumes(args.data)
     if args.strip_channels:
@@ -196,8 +209,14 @@ def cmd_baseline(args) -> int:
         return 1
     maps = baseline.wls_maps(data, scan, device=args.device)
     base = args.output or os.path.splitext(args.data)[0]
+    tdir = args.transform_directory
+    if tdir and fsl.have_fsl():
+        fsl.warp_maps_to_mni(maps[..., 0:1], maps[..., 1:2], maps[..., 2:3],
+                             base, tdir)
+    elif tdir:
+        print("FSL not found; skipping MNI warp", file=sys.stderr)
     for i, name in enumerate(("oef", "dbv", "r2p")):
-        nifti.save_im_data(maps[..., i:i + 1], f"{base}_{name}")
+        nifti.save_im_data(maps[..., i:i + 1], f"{base}_{name}", tdir)
     print(f"wrote {base}_{{oef,dbv,r2p}}.nii.gz ({scan.n_taus}-tau grid)")
     return 0
 
@@ -245,15 +264,13 @@ def cmd_infer(args) -> int:
     model.py:772-887)."""
     from .train.trainer import Trainer, WeightStatus
 
-    if args.transform_directory:
-        return _not_ported("--transform-directory (the MNI-space export)")
     cfg = _load_cfg(args)
     trainer = Trainer(cfg, device=args.device)
     if trainer.status is WeightStatus.NOT_TRAINED:
         print("no checkpoint found in save_directory", file=sys.stderr)
         return 1
-    _infer_export(trainer, cfg, _load_volumes(args.data), args.output, None,
-                  args.method)
+    _infer_export(trainer, cfg, _load_volumes(args.data), args.output,
+                  args.transform_directory, args.method)
     return 0
 
 
@@ -338,8 +355,153 @@ def cmd_serve(args) -> int:
     return 0
 
 
-_UNPORTED = ("synth", "sweep", "dryrun", "export-model", "import-weights",
-             "transfer")
+def cmd_synth(args) -> int:
+    """Generate a synthetic dataset .npz (reference signals.py:302-332): the
+    cross product of the population samples, drawn and decoded on the
+    device (synth.create_synthetic_dataset) from the config seed."""
+    from .synth import create_synthetic_dataset
+
+    cfg = _load_cfg(args)
+    x, y = create_synthetic_dataset(
+        cfg.train.seed, cfg.scan, cfg.synth, full_model=cfg.train.full_model,
+        use_blood=cfg.train.use_blood, quad_rule=cfg.model.quad_rule,
+        device=args.device)
+    np.savez(args.output, x=x.cpu().numpy(), y=y.cpu().numpy())
+    print(f"wrote {args.output}: x{tuple(x.shape)} y{tuple(y.shape)}")
+    return 0
+
+
+def cmd_export_model(args) -> int:
+    """Serialize the inference program to a torch.export serving artifact
+    (io/export_model.py): the deployment story the reference lacks (its
+    model.py:772-887 requires the training codebase to predict)."""
+    from .io.export_model import (PLATFORMS, _check_platforms,
+                                  export_inference, save_exported)
+    from .train.trainer import Trainer, WeightStatus
+
+    try:
+        platforms = _check_platforms(p.strip() for p in
+                                     args.platforms.split(",") if p.strip())
+    except ValueError as e:
+        print(f"--platforms {args.platforms!r}: {e}; python -m qbold_vi_tpu "
+              "export-model writes TPU artifacts", file=sys.stderr)
+        return NOT_PORTED
+    cfg = _load_cfg(args)
+    trainer = Trainer(cfg, device=args.device)
+    if trainer.status is WeightStatus.NOT_TRAINED:
+        print("no checkpoint found in save_directory", file=sys.stderr)
+        return 1
+    fine_tuned = trainer.status is WeightStatus.FULL_TRAINED
+    if args.fused and platforms == PLATFORMS:
+        platforms = ("cuda",)   # the fused artifact runs on the card only
+    use_first_op = args.fused or not fine_tuned
+    if args.fused and fine_tuned:
+        print("note: --fused serves the stream-1 (voxelwise) posterior "
+              "head -- the reference's save_predictions default "
+              "(model.py:776) -- not the stream-2 maps the non-fused "
+              "export of a fine-tuned checkpoint serves", file=sys.stderr)
+    example = tuple(args.static_shape) if args.static_shape else (1, 64, 64, 8)
+    polymorphic = not (args.static_shape or args.fused)
+    exp = export_inference(trainer.tuner, use_first_op=use_first_op,
+                           platforms=platforms, polymorphic=polymorphic,
+                           example_shape=example, fused=args.fused)
+    n = save_exported(exp, args.output)
+    n_ch = cfg.scan.n_taus + 1
+    shape = (f"{n_ch}, {int(np.prod(example))}" if args.fused
+             else f"s, x, y, z, {n_ch}" if polymorphic
+             else ", ".join(str(d) for d in example + (n_ch,)))
+    print(f"wrote {args.output}: {n} bytes, platforms {','.join(platforms)}"
+          f", input ({shape}) float32, "
+          f"{'fine-tuned' if fine_tuned else 'pretrained'} checkpoint, "
+          f"stream-{1 if use_first_op else 2} head")
+    return 0
+
+
+def _save_fresh(trainer, params: dict, phase: str) -> str:
+    """Write ``params`` as the checkpoint of ``phase`` in the trainer's
+    save_directory with a fresh optimiser state (and, for pretraining
+    with SWA, a fresh average), as the JAX CLI's import-weights and
+    transfer write theirs; returns the path."""
+    from .train import optim
+
+    trainer._load_params(params)
+    named = list(trainer.tuner.named_parameters())
+    if phase == "finetune":
+        optimizer = optim.make_finetune_optimizer(
+            [p for _, p in named], trainer.cfg.train)
+        path = trainer.final_path
+    else:
+        optimizer = optim.make_pretrain_optimizer(named, trainer.cfg.train)
+        trainer.swa = optim.swa_init(named) if trainer.cfg.train.use_swa \
+            else None
+        path = trainer.pt_path
+    trainer._save(path, phase, optimizer)
+    return path
+
+
+def cmd_import_weights(args) -> int:
+    """Convert a trained reference .h5 checkpoint into the Trainer's
+    checkpoint files (io/keras_import.py): a pt_model.h5 becomes
+    pt_model.msgpack; --final converts a fine-tuned final_model.h5 (with
+    the learned population prior / trainable sigma extras, reference
+    model.py:252-281) into final_model.msgpack, which a Trainer resumes as
+    FULL_TRAINED."""
+    from .io.keras_import import load_reference_h5
+    from .train.trainer import Trainer
+
+    cfg = _load_cfg(args)
+    try:
+        imported = load_reference_h5(args.h5, cfg.model)
+    except ImportError as e:
+        print(f"import-weights reads the .h5 with h5py, which is not "
+              f"installed here ({e}): run it on a host that has h5py "
+              "(--device cpu) and carry the checkpoint over",
+              file=sys.stderr)
+        return 1
+    trainer = Trainer(cfg, device=args.device)
+    params = {k: v for k, v in trainer._init_params().items()
+              if not k.startswith("encoder.")}
+    params.update(imported)   # encoder + pop_prior/log_sigma when present
+    extras = sorted({k for k in imported if not k.startswith("encoder.")})
+    out = _save_fresh(trainer, params,
+                      "finetune" if args.final else "pretrain")
+    print(f"imported {args.h5} -> {out}"
+          + (f" (extras: {', '.join(extras)})" if extras else ""))
+    return 0
+
+
+def cmd_transfer(args) -> int:
+    """Retarget a trained checkpoint to a different tau protocol
+    (models/transfer.py): trunk weights are kept, the tau-dependent first
+    conv and sigma head are re-initialised for the new grid, and the
+    result is written as pt_model.msgpack in --output."""
+    import torch
+
+    from .models.transfer import transfer_params
+    from .train.trainer import Trainer, WeightStatus
+
+    cfg = _load_cfg(args)
+    src = Trainer(cfg, device=args.device)
+    if src.status is WeightStatus.NOT_TRAINED:
+        print("no checkpoint in save_directory", file=sys.stderr)
+        return 1
+    new_scan = dataclasses.replace(
+        cfg.scan, tau_start=args.tau_start, tau_step=args.tau_step,
+        tau_end=args.tau_end)
+    new_cfg = dataclasses.replace(
+        cfg, scan=new_scan,
+        train=dataclasses.replace(cfg.train, save_directory=args.output))
+    sample = np.zeros((1, 4, 4, 2, new_scan.n_taus), np.float32)
+    params = transfer_params(torch.Generator().manual_seed(cfg.train.seed),
+                             src.tuner.state_dict(), new_cfg.model, new_scan,
+                             sample)
+    dst = Trainer(new_cfg, device=args.device)
+    path = _save_fresh(dst, params, "pretrain")
+    print(f"transferred to {new_scan.n_taus}-tau protocol -> {path}")
+    return 0
+
+
+_UNPORTED = ("sweep", "dryrun")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -383,8 +545,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "not ported yet (ROADMAP.md), exits 2", **kw)
     sp.set_defaults(fn=cmd_train)
 
-    transform_help = ("MNI-space export: not ported yet (ROADMAP.md), "
-                      "exits 2")
+    transform_help = ("directory with nonlin<i>.nii.gz warps + "
+                      "MNI152_T1_2mm.nii.gz for the MNI-space export "
+                      "(needs FSL and nibabel; without FSL the maps stay in "
+                      "native space)")
     sp = add("baseline", help="log-linear WLS fit")
     sp.add_argument("data", help=".npy signal volumes")
     sp.add_argument("--output", "-o", default=None)
@@ -412,9 +576,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.set_defaults(fn=cmd_infer)
 
     sp = add("serve", help="warm inference server: JSON-line export "
-                           "requests on stdin, one ack a line on stdout "
-                           "(a request's transform_directory is not "
-                           "ported yet and gets an error ack)")
+                           "requests on stdin, one ack a line on stdout")
     sp.add_argument("--method", choices=("quadrature", "mc"),
                     default="quadrature",
                     help=method_help + "; a request's 'method' overrides")
@@ -423,6 +585,51 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run one export of this volume geometry before "
                          "accepting requests")
     sp.set_defaults(fn=cmd_serve)
+
+    sp = add("synth", help="generate synthetic dataset (drawn from a "
+                           "generator seeded with the config seed)")
+    sp.add_argument("--output", "-o", default="synthetic_data.npz")
+    sp.set_defaults(fn=cmd_synth)
+
+    sp = add("export-model", help="serialize inference to a torch.export "
+                                  "serving artifact (.pt2)")
+    sp.add_argument("--output", "-o", required=True,
+                    help="artifact path (e.g. model.pt2)")
+    sp.add_argument("--platforms", default="cuda,cpu",
+                    help="comma-separated platforms the artifact serves "
+                         "(cuda, cpu; default both: the default artifact "
+                         "loads on either; tpu exits 2)")
+    sp.add_argument("--static-shape", type=int, nargs=4, default=None,
+                    metavar=("S", "X", "Y", "Z"),
+                    help="bake a fixed volume geometry instead of the "
+                         "default shape-polymorphic (s, x, y, z) export")
+    sp.add_argument("--fused", action="store_true",
+                    help="export kernel B (the fused stream-1 encode + "
+                         "quadrature, a registered op): channel-major "
+                         "(n_taus+1, N) input with N baked from "
+                         "--static-shape; runs on the card only, in a "
+                         "process that has imported qbold_vi_tpu_torch")
+    sp.set_defaults(fn=cmd_export_model)
+
+    sp = add("import-weights", help="convert a reference .h5 checkpoint "
+                                    "(needs h5py)")
+    sp.add_argument("h5", help="path to reference pt_model.h5/final_model.h5")
+    sp.add_argument("--reference-dir", default=None,
+                    help="the JAX CLI's checkout of the upstream code for "
+                         "its Keras fallback; the port has none and does "
+                         "not read it")
+    sp.add_argument("--final", action="store_true",
+                    help="the .h5 is a fine-tuned final_model: write "
+                         "final_model.msgpack (FULL_TRAINED resume)")
+    sp.set_defaults(fn=cmd_import_weights)
+
+    sp = add("transfer", help="retarget a checkpoint to a new tau protocol")
+    sp.add_argument("--tau-start", type=float, required=True)
+    sp.add_argument("--tau-step", type=float, required=True)
+    sp.add_argument("--tau-end", type=float, required=True)
+    sp.add_argument("--output", "-o", required=True,
+                    help="save_directory for the transferred checkpoint")
+    sp.set_defaults(fn=cmd_transfer)
 
     for name in _UNPORTED:    # main() answers these before parsing
         sub.add_parser(name, help="not ported yet (ROADMAP.md): exits 2")

@@ -146,6 +146,19 @@ class LogitMVN:
         """Raw head output -> Cholesky off-diagonal in (-e^-2, e^-2)."""
         return torch.tanh(raw) * OFFDIAG_SCALE
 
+    @staticmethod
+    def scale_uncertainty(q_params: torch.Tensor, factor: float, mvg: bool):
+        """Scale a raw head map's posterior spread by ``factor`` (reference
+        model.py:225-237): the log-std raws get + log(factor) (taken in
+        float32, as jnp.log takes it) before their squash, and an MVG
+        head's off-diagonal raw is multiplied by ``factor``."""
+        lf = float(torch.log(torch.tensor(float(factor))))
+        if mvg:
+            return ((q_params + q_params.new_tensor([0.0, lf, 0.0, lf, 0.0]))
+                    * q_params.new_tensor([1.0, 1.0, 1.0, 1.0,
+                                           float(factor)]))
+        return q_params + q_params.new_tensor([0.0, lf, 0.0, lf])
+
     def forward_transform(self, logits: torch.Tensor) -> torch.Tensor:
         """Logit-space (..., 2) -> physical (OEF, DBV) (..., 2)."""
         oef = torch.sigmoid(logits[..., 0:1]) * self.oef_range + self.min_oef
@@ -254,6 +267,31 @@ class LogitMVN:
         p0, p1, p2, p3, _ = self.unpack(p_params, mvg=False)
         return self.normal_kl(q0, q1, p0, p1) + self.normal_kl(q2, q3, p2, p3)
 
+    def mvg_kl_analytic_marginals(self, q_params, p_params):
+        """The marginal-matched analytic KL of MVG heads: each marginal's
+        std absorbs the Cholesky off-diagonal, std_dbv = sqrt(e^{2b} +
+        c^2) (reference model.py:570-590). Returns (...,)."""
+        q0, q1, q2, q3, q_od = self.unpack(q_params, mvg=True)
+        p0, p1, p2, p3, p_od = self.unpack(p_params, mvg=True)
+        q_std = torch.sqrt(torch.exp(q3) ** 2 + q_od ** 2)
+        p_std = torch.sqrt(torch.exp(p3) ** 2 + p_od ** 2)
+        return (self.normal_kl(q0, q1, p0, p1)
+                + self.normal_kl(q2, torch.log(q_std), p2, torch.log(p_std)))
+
+    def mvg_kl_samples_reference(self, z: torch.Tensor, q_params,
+                                 p_params):
+        """The reference's sampled KL transcribed directly (model.py:
+        592-610), the oracle of ``mvg_kl_samples``: physical draws of q
+        from the normals z (S, ..., 2), two full logit-Normal log-probs a
+        draw, q's parameters detached inside log q. Returns the mean over
+        the draws (...,)."""
+        samples = self.sample_many(z, q_params, mvg=True)
+        q_sg = q_params.detach()
+        # logit_gaussian_mvg_log_prob is the NEGATIVE log-density
+        kl = (self.logit_gaussian_mvg_log_prob(samples, p_params)
+              - self.logit_gaussian_mvg_log_prob(samples, q_sg))
+        return torch.mean(kl, 0)
+
     def mvg_kl_closed_form(self, q_params, p_params):
         """Exact KL between two 2x2 Gaussians in Cholesky form:
         0.5 [tr(P^-1 Q) + swr + log|P| - log|Q| - 2], with
@@ -284,6 +322,28 @@ class LogitMVN:
         q = self.unpack(q_params, mvg)
         p = self.unpack(p_params, mvg)
         return _MvgKLStreamed.apply(z, *q, *p)
+
+    def posterior_means(self, z: torch.Tensor, params, mvg: bool,
+                        return_stds: bool = False, r2p_fn=None):
+        """MC posterior means (and biased variances, the reference's 1/N)
+        of physical OEF and DBV, and of ``r2p_fn(oef, dbv)`` appended as a
+        third channel, over the draws of the normals z (S, ..., 2), the
+        draws materialised (reference model.py:326-343 calculate_means).
+        Returns (..., 2|3) means [, variances]."""
+        samples = self.sample_many(z, params, mvg)          # (S, ..., 2)
+        means = torch.mean(samples, 0)
+        outs = [means]
+        if return_stds:
+            outs.append(torch.mean(torch.square(samples - means[None]), 0))
+        if r2p_fn is not None:
+            r2ps = r2p_fn(samples[..., 0], samples[..., 1])  # (S, ...)
+            r2p_mean = torch.mean(r2ps, 0)[..., None]
+            outs[0] = torch.cat([outs[0], r2p_mean], -1)
+            if return_stds:
+                r2p_var = torch.mean(torch.square(r2ps - r2p_mean[None, ..., 0]),
+                                     0)
+                outs[1] = torch.cat([outs[1], r2p_var[..., None]], -1)
+        return tuple(outs) if return_stds else outs[0]
 
     def posterior_means_streamed(self, z: torch.Tensor, params, mvg: bool,
                                  dw_coeff: float):

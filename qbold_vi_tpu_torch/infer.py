@@ -42,9 +42,11 @@ layouts, so the host transpose the TPU path pays for a channel-major
 upload is skipped), and the per-chunk results stay on the device until
 one copy back at the end.
 
+``save_predictions(transform_directory=)`` adds the FSL MNI-space export
+(io/fsl.py) where FSL and nibabel are installed, and takes the maps'
+NIfTI header from the directory's ``example.nii.gz`` where nibabel is.
 Not ported yet, and raising ``NotImplementedError`` rather than doing
-something else: mesh-sharded export (``mesh=``) and the FSL MNI-space
-export (``transform_directory=``).
+something else: mesh-sharded export (``mesh=``).
 """
 
 from __future__ import annotations
@@ -366,17 +368,18 @@ def save_predictions(tuner: FineTuner, cfg: QBoldConfig, data: np.ndarray,
     ``_likelihood/_kl/_residual`` (``_kl`` only with ``priors`` or a
     population prior); returns the map dict. ``seed`` keys every draw
     (posterior_maps' and elbo_maps' streams are derived from it, never
-    shared)."""
-    from .io import nifti
+    shared). With ``transform_directory`` (``nonlin<i>.nii.gz`` warps,
+    ``MNI152_T1_2mm.nii.gz``, ``example.nii.gz``) the maps carry the
+    example's header, and where FSL is installed the (OEF, DBV, R2') maps
+    are also warped to MNI space (``_oef_mni`` ...; io/fsl.py) -- with a
+    warning and without the warp where nibabel is missing, as the JAX
+    package does (infer.py:778-792)."""
+    from .io import fsl, nifti
 
     _check_method(method)
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (sharded export) is not ported yet: ROADMAP.md")
-    if transform_directory is not None:
-        raise NotImplementedError(
-            "transform_directory= (FSL MNI-space export, io/fsl.py) is not "
-            "ported yet: ROADMAP.md")
     maps = posterior_maps(tuner, data, seed=seed, use_first_op=use_first_op,
                           method=method)
     suffixes = [("oef", "_oef"), ("dbv", "_dbv"), ("r2p", "_r2p"),
@@ -393,6 +396,16 @@ def save_predictions(tuner: FineTuner, cfg: QBoldConfig, data: np.ndarray,
         maps.update(extra)
         suffixes += [(k, "_" + k) for k in ("likelihood", "kl", "residual")
                      if k in extra]
+    if transform_directory and fsl.have_fsl():
+        if nifti.have_nibabel():
+            fsl.warp_maps_to_mni(maps["oef"], maps["dbv"], maps["r2p"],
+                                 filename, transform_directory)
+        else:
+            warnings.warn(
+                "transform_directory given but nibabel is unavailable: "
+                "skipping the MNI-space export (the built-in NIfTI "
+                "fallback cannot carry the affines applywarp needs)",
+                stacklevel=2)
     for key, suffix in suffixes:
-        nifti.save_im_data(maps[key], filename + suffix)
+        nifti.save_im_data(maps[key], filename + suffix, transform_directory)
     return maps

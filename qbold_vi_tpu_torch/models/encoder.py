@@ -52,7 +52,7 @@ from torch import nn
 from ..config import ModelConfig, normalize_mode
 from ..ops.conv3x3 import conv3x3, conv3x3_available
 
-__all__ = ["Encoder", "GatedResBlock", "ConvXY", "normalise_data",
+__all__ = ["Encoder", "GatedResBlock", "ConvXY", "Dropout", "normalise_data",
            "activation_fn"]
 
 
@@ -231,11 +231,57 @@ class _GroupNorm1(nn.Module):
         return (x - mean) * mul + self.bias
 
 
+class Dropout:
+    """flax ``nn.Dropout(rate)`` in a training pass (``deterministic=False``):
+    each unit is kept with probability 1 - rate and scaled by 1 / (1 -
+    rate), the rest are zeroed; rate 1 zeroes everything and draws
+    nothing. The scale is a division by the keep rate in the activation's
+    dtype, as flax divides by a weak-typed Python float (in bf16 by
+    bf16(0.9) = 0.8984375 at rate 0.1).
+
+    Each call takes the next mask: drawn as ``torch.rand(shape) < 1 - rate``
+    from ``generator`` (a generator of the activations' device), or taken
+    from ``masks``, booleans of each activation's shape in the order the
+    trunk asks for them (two a block, block 0 first: before its first and
+    second GroupNorm position), which is how a test injects the masks the
+    JAX package drew."""
+
+    def __init__(self, rate: float, *, generator: torch.Generator = None,
+                 masks=None):
+        if (generator is None) == (masks is None):
+            raise ValueError("Dropout takes a generator or its masks")
+        self.rate = float(rate)
+        self.generator = generator
+        self._masks = None if masks is None else iter(masks)
+
+    def _mask(self, h: torch.Tensor) -> torch.Tensor:
+        if self._masks is None:
+            return torch.rand(h.shape, generator=self.generator,
+                              device=h.device) < 1.0 - self.rate
+        try:
+            m = torch.as_tensor(next(self._masks), device=h.device)
+        except StopIteration:
+            raise ValueError("the trunk asked for more dropout masks than "
+                             "were given") from None
+        if m.shape != h.shape:
+            raise ValueError(f"dropout mask of shape {tuple(m.shape)} for "
+                             f"an activation of shape {tuple(h.shape)}")
+        return m.to(torch.bool)
+
+    def __call__(self, h: torch.Tensor) -> torch.Tensor:
+        if self.rate >= 1.0:
+            return torch.zeros_like(h)
+        return torch.where(self._mask(h), h / _const(1.0 - self.rate, h),
+                           _const(0.0, h))
+
+
 class GatedResBlock(nn.Module):
     """One two-stream block (reference model.py:142-174): stream 1 is
     act(shared(net1)); stream 2 blends act(shared(net2)) with a residual
-    path of two 3x3x1 convs by a learned sigmoid gate. Dropout is an
-    identity at inference and is not ported yet (training)."""
+    path of two 3x3x1 convs by a learned sigmoid gate. A training pass's
+    ``dropout`` acts where flax's ``norm_drop`` puts it: on the residual
+    path's input and on the first conv's output, each before its GroupNorm
+    position; stream 1 and the skip never see it."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
@@ -258,12 +304,16 @@ class GatedResBlock(nn.Module):
     def stream1(self, net1: torch.Tensor) -> torch.Tensor:
         return self.act(_dense(self.Dense_0, net1, self.dtype))
 
-    def forward(self, net1, net2):
+    def forward(self, net1, net2, dropout: Dropout = None):
         cfg, act = self.cfg, self.act
         out1 = self.stream1(net1)
         skip = act(_dense(self.Dense_0, net2, self.dtype))
-        h = self.GroupNorm_0(net2) if cfg.use_layer_norm else net2
+        h = net2 if dropout is None else dropout(net2)
+        if cfg.use_layer_norm:
+            h = self.GroupNorm_0(h)
         h = self.ConvXY_0(act(h))
+        if dropout is not None:
+            h = dropout(h)
         if cfg.use_layer_norm:
             h = self.GroupNorm_1(h)
         h = self.ConvXY_1(act(h))
@@ -276,9 +326,12 @@ class GatedResBlock(nn.Module):
 class Encoder(nn.Module):
     """The full encoder (reference outer model, model.py:122-223).
 
-    ``forward(images)`` returns (dist_params, dist_params_neighbourhood,
-    im_sigma): 4 (diag) or 5 (mvg) channels, + 4 exp(hyperprior)
-    channels on stream 1 when ``infer_inv_gamma``."""
+    ``forward(images, dropout=None)`` returns (dist_params,
+    dist_params_neighbourhood, im_sigma): 4 (diag) or 5 (mvg) channels,
+    + 4 exp(hyperprior) channels on stream 1 when ``infer_inv_gamma``.
+    ``dropout`` (a ``Dropout``) makes it a training pass; its masks have
+    the trunk's shape, (B*Z, X, Y, U) where the trunk is z-folded and
+    (B, X, Y, Z, U) under ``use_layer_norm``, as the JAX encoder's."""
 
     def __init__(self, cfg: ModelConfig, n_taus: int, se_idx: int, *,
                  device=None):
@@ -321,7 +374,7 @@ class Encoder(nn.Module):
                 h = blk.stream1(h)
             return self._hyper(self.final(h.float()))
 
-    def forward(self, images: torch.Tensor):
+    def forward(self, images: torch.Tensor, dropout: Dropout = None):
         with _full_fp32():
             features = self.embed(images)
             fold = features.ndim == 5 and not self.cfg.use_layer_norm
@@ -337,7 +390,7 @@ class Encoder(nn.Module):
                     return y
             net1 = net2 = features
             for blk in self.blocks:
-                net1, net2 = blk(net1, net2)
+                net1, net2 = blk(net1, net2, dropout)
             # the heads run in float32 on the float32-cast features
             net1, net2 = net1.float(), net2.float()
             out1 = self._hyper(unfold(self.final(net1)))

@@ -28,7 +28,7 @@ from torch import nn
 from ..config import ModelConfig, ScanParams
 from ..dist.logit_mvn import LogitMVN
 from ..ops import physics
-from .encoder import Encoder, init_encoder_
+from .encoder import Dropout, Encoder, init_encoder_
 
 __all__ = ["FineTuner", "init_params", "POP_PRIOR_INIT_MVG",
            "POP_PRIOR_INIT_DIAG"]
@@ -75,20 +75,33 @@ class FineTuner(nn.Module):
     def device(self) -> torch.device:
         return self.encoder.first_conv.weight.device
 
-    def encode(self, images: torch.Tensor):
-        """(q_voxelwise, q_neighbourhood, im_sigma) from (..., T) images."""
-        return self.encoder(images)
+    def encode(self, images: torch.Tensor, dropout: Dropout = None):
+        """(q_voxelwise, q_neighbourhood, im_sigma) from (..., T) images;
+        a training pass with ``dropout`` (``FineTuner.dropout``)."""
+        return self.encoder(images, dropout)
 
     def prior_params(self, q: torch.Tensor) -> torch.Tensor:
         """The learned population prior broadcast to q's leading shape."""
         pop = self.pop_prior
         return pop.expand(q.shape[:-1] + pop.shape)
 
-    def check_dropout(self, train: bool) -> None:
-        if train and self.cfg.dropout_rate > 0.0:
-            raise NotImplementedError(
-                "training with dropout_rate > 0 is not ported yet "
-                "(ROADMAP.md); OPTIMAL trains without dropout")
+    def dropout(self, train: bool, *, seed: int = None, masks=None):
+        """The trunk's dropout of one pass, or None: a pass with ``train``
+        and ``dropout_rate`` > 0 draws its masks from a generator on the
+        tuner's device seeded with ``seed``, or takes ``masks`` (see
+        models.encoder.Dropout); validation and inference (``train``
+        False) are deterministic, as the JAX package keys dropout only in
+        its training steps (models/vi.py:84-93, train/steps.py:71-78)."""
+        rate = self.cfg.dropout_rate
+        if not train or rate <= 0.0:
+            return None
+        if masks is not None:
+            return Dropout(rate, masks=masks)
+        if seed is None:
+            raise ValueError("a training pass with dropout needs a seed or "
+                             "its masks")
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        return Dropout(rate, generator=gen)
 
     def decode(self, samples: torch.Tensor) -> torch.Tensor:
         """Physical (OEF, DBV) draws (..., 2) -> noise-free signals
@@ -100,15 +113,15 @@ class FineTuner(nn.Module):
             quad_rule=cfg.quad_rule, max_oef=cfg.min_oef + cfg.oef_range)
 
     def apply(self, images: torch.Tensor, z: torch.Tensor,
-              train: bool = False) -> dict:
+              dropout: Dropout = None) -> dict:
         """One stochastic forward pass on (B, X, Y, Z, n_taus) images with
         the standard normals ``z`` (S, B, X, Y, Z, 2) of its S posterior
-        draws. Returns predictions (B, ..., 4|5) raw posterior params,
-        samples (S, B, ..., 2), predicted_images (S, B, ..., n_taus) and
-        im_sigma (B, ..., n_taus) -- exp(log_sigma) everywhere when the
-        noise is not heteroscedastic."""
-        self.check_dropout(train)
-        _, q, im_sigma = self.encode(images)
+        draws, a training pass with ``dropout``. Returns predictions
+        (B, ..., 4|5) raw posterior params, samples (S, B, ..., 2),
+        predicted_images (S, B, ..., n_taus) and im_sigma (B, ..., n_taus)
+        -- exp(log_sigma) everywhere when the noise is not
+        heteroscedastic."""
+        _, q, im_sigma = self.encode(images, dropout)
         samples = self.dist.sample_many(z, q, self.cfg.use_mvg)
         if not self.cfg.heteroscedastic_noise:
             im_sigma = torch.exp(self.log_sigma).expand(im_sigma.shape)

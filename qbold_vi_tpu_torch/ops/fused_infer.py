@@ -12,9 +12,13 @@ residual path -- so the whole serving program is one pass per voxel:
     -> quadrature posterior summaries + raw-log-std transforms
 
 ``encode_quad_fused`` is the wrapper of kernel B: for a CUDA tensor it
+packs the weights and calls the registered op
+``torch.ops.qbold_vi_tpu_torch.encode_quad_fused`` (``encode_quad_fused_op``,
+registered when this module is imported, with a fake implementation for
+``torch.export``; the fused serving artifact calls the same op), which
 launches the hand-written kernel of csrc/encode_quad.cu (q never leaves
-the chip's registers and shared memory) and counts the launch in
-``encode_quad_fused.launches`` (the bf16 trunk's kernel in
+the chip's registers and shared memory) on the current stream and counts
+the launch in ``encode_quad_fused.launches`` (the bf16 trunk's kernel in
 ``encode_quad_fused.bf16_launches``); for a CPU tensor it runs
 ``encode_quad_fused_plain``, the plain torch version of the same math.
 ``encode_q1_packed`` is the wrapper of kernel C, which shares B's encode
@@ -47,8 +51,9 @@ from ..models.encoder import activation_fn, normalise_data
 from . import _cuda
 from .quadrature import quad_tile_summaries
 
-__all__ = ["encode_quad_fused", "encode_quad_fused_plain", "encode_q_plain",
-           "encode_q1_packed", "fused_infer_available", "SUPPORTED_ACTS"]
+__all__ = ["encode_quad_fused", "encode_quad_fused_op",
+           "encode_quad_fused_plain", "encode_q_plain", "encode_q1_packed",
+           "fused_infer_available", "SUPPORTED_ACTS"]
 
 # Activations the kernel implements (csrc/encode_quad.cu::qv_act, whose
 # codes follow this order); the same set as the JAX package's.
@@ -251,11 +256,9 @@ def _xs_stride(t: int, k: int = 8) -> int:
 
 def _launch_setup(images, encoder, *, n_blocks: int, activation: str,
                   trunk: str, mask_channel: bool, input_layout: str,
-                  se_idx: int, scratch_floats=None):
+                  se_idx: int):
     """Checks and operands shared by kernels B and C: (x (T[+1], N) or
-    (N, T[+1]) contiguous, channel_major, n, weight blob, U, Up, block,
-    shared-memory bytes). ``scratch_floats(threads)``: the floats of shared
-    memory a block needs beyond the weights and its staged rows."""
+    (N, T[+1]) contiguous, channel_major, n, weight blob, U, Up, T)."""
     _check_trunk(trunk)
     if not fused_infer_available(activation):
         raise ValueError(f"activation {activation!r} has no kernel "
@@ -275,20 +278,26 @@ def _launch_setup(images, encoder, *, n_blocks: int, activation: str,
     if up > _MAX_WIDTH:
         raise ValueError(f"fused-infer kernel: width U={u} above the "
                          f"{_MAX_WIDTH} units a lane's registers hold")
-    with torch.cuda.device(images.device):
+    return x, channel_major, n, blob, u, up, t
+
+
+def _block_smem(blob_floats: int, t: int, trunk: str, device,
+                scratch_floats=None) -> tuple:
+    """(threads a block, shared-memory bytes) of kernel B or C: the most
+    warps whose staged rows fit beside the weights in this card's shared
+    memory. ``scratch_floats(threads)``: the floats of shared memory a
+    block needs beyond the weights and its staged rows."""
+    with torch.cuda.device(device):
         limit = _cuda.library().qv_max_dynamic_smem()
     for warps in _WARPS:
-        smem = 4 * (blob.numel() + warps * 32 * (_xs_stride(t, _k_step(trunk))
-                                                  + 5)
-                     + (scratch_floats(32 * warps) if scratch_floats else 0))
+        smem = 4 * (blob_floats + warps * 32 * (_xs_stride(t, _k_step(trunk))
+                                                 + 5)
+                    + (scratch_floats(32 * warps) if scratch_floats else 0))
         if smem <= limit:
-            break
-    else:
-        raise ValueError(
-            f"fused-infer kernel: weights of width U={u}, "
-            f"n_blocks={n_blocks}, T={t} need {4 * blob.numel()} B of "
-            f"shared memory, beyond this card's {limit} B per block")
-    return x, channel_major, n, blob, u, up, 32 * warps, smem
+            return 32 * warps, smem
+    raise ValueError(
+        f"fused-infer kernel: {4 * blob_floats} B of weights (T={t}) in "
+        f"shared memory, beyond this card's {limit} B per block")
 
 
 def _entry(name: str, trunk: str):
@@ -311,8 +320,9 @@ def encode_quad_fused(images, encoder, *, se_idx: int, multi_image: bool,
                       mask_channel: bool = False,
                       input_layout: str = "voxel"):
     """Fused stream-1 encode + quadrature summaries (see module
-    docstring). CUDA tensors launch kernel B or raise; CPU tensors run
-    the plain version."""
+    docstring). CUDA tensors launch kernel B through the registered op
+    ``torch.ops.qbold_vi_tpu_torch.encode_quad_fused`` or raise; CPU
+    tensors run the plain version."""
     kw = dict(se_idx=se_idx, multi_image=multi_image, activation=activation,
               n_blocks=n_blocks, trunk=trunk, mvg=mvg, oef_range=oef_range,
               min_oef=min_oef, dbv_range=dbv_range, min_dbv=min_dbv,
@@ -322,32 +332,71 @@ def encode_quad_fused(images, encoder, *, se_idx: int, multi_image: bool,
         return encode_quad_fused_plain(images, encoder, **kw)
     if images.device.type != "cuda":
         raise ValueError(f"no fused-infer kernel for device {images.device}")
-    x, channel_major, n, blob, u, up, block, smem = _launch_setup(
+    x, channel_major, _, blob, u, up, _ = _launch_setup(
         images, encoder, n_blocks=n_blocks, activation=activation,
         trunk=trunk, mask_channel=mask_channel, input_layout=input_layout,
-        se_idx=se_idx,
-        scratch_floats=_cuda.library().qv_quad_scratch_floats)
-    outs = [torch.empty((3, n), device=images.device, dtype=torch.float32)
+        se_idx=se_idx)
+    return encode_quad_fused_op(
+        x, blob, u, up, n_blocks, channel_major, mask_channel, se_idx,
+        multi_image, activation, trunk, mvg, oef_range, min_oef, dbv_range,
+        min_dbv, dw_coeff)
+
+
+@torch.library.custom_op("qbold_vi_tpu_torch::encode_quad_fused",
+                         mutates_args=(), device_types="cuda")
+def encode_quad_fused_op(x: torch.Tensor, blob: torch.Tensor, units: int,
+                         padded_units: int, n_blocks: int,
+                         channel_major: bool, mask_channel: bool,
+                         se_idx: int, multi_image: bool, activation: str,
+                         trunk: str, mvg: bool, oef_range: float,
+                         min_oef: float, dbv_range: float, min_dbv: float,
+                         dw_coeff: float
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel B as a registered op on the card, its operands as tensors
+    and its scalars as attributes: the rows ``x`` (T[+1], N) channel-major
+    or (N, T[+1]) voxel-major, contiguous, and the weight blob of
+    ``_weight_blob`` (width ``units`` padded to ``padded_units``, the
+    quadrature node table at its end); returns channel-major (means,
+    vars, raw), each (3, N), launched on the current stream and counted
+    in ``encode_quad_fused.launches`` (``bf16_launches`` for the bf16
+    trunk). ``encode_quad_fused`` and the fused serving artifact
+    (io/export_model.py) call it; it mutates none of its inputs."""
+    n = x.shape[1] if channel_major else x.shape[0]
+    t = (x.shape[0] if channel_major else x.shape[1]) - int(mask_channel)
+    outs = [torch.empty((3, n), device=x.device, dtype=torch.float32)
             for _ in range(3)]
     if n == 0:
         return tuple(outs)
-    with torch.cuda.device(images.device):
+    block, smem = _block_smem(blob.numel(), t, trunk, x.device,
+                              _cuda.library().qv_quad_scratch_floats)
+    with torch.cuda.device(x.device):
         err = _entry("qv_encode_quad_fused", trunk)(
             *_encode_args(x, n, channel_major, mask_channel, se_idx,
                           multi_image, activation),
-            u, up, n_blocks, blob.data_ptr(), blob.numel(),
+            units, padded_units, n_blocks, blob.data_ptr(), blob.numel(),
             _cuda.quad_ranges(oef_range=oef_range, min_oef=min_oef,
                               dbv_range=dbv_range, min_dbv=min_dbv,
                               dw_coeff=dw_coeff),
             outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
             int(mvg), block, smem,
-            torch.cuda.current_stream(images.device).cuda_stream)
+            torch.cuda.current_stream(x.device).cuda_stream)
     _cuda.check(err, "fused-infer")
     if trunk == "bfloat16":
         encode_quad_fused.bf16_launches += 1
     else:
         encode_quad_fused.launches += 1
     return tuple(outs)
+
+
+@encode_quad_fused_op.register_fake
+def _encode_quad_fused_shapes(x, blob, units, padded_units, n_blocks,
+                              channel_major, mask_channel, se_idx,
+                              multi_image, activation, trunk, mvg,
+                              oef_range, min_oef, dbv_range, min_dbv,
+                              dw_coeff):
+    # shapes only: no data, no launch (tracing and export)
+    n = x.shape[1] if channel_major else x.shape[0]
+    return tuple(x.new_empty((3, n), dtype=torch.float32) for _ in range(3))
 
 
 def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
@@ -367,13 +416,14 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
         return encode_q_plain(images, encoder, **kw)
     if images.device.type != "cuda":
         raise ValueError(f"no fused-infer kernel for device {images.device}")
-    x, channel_major, n, blob, _, up, block, smem = _launch_setup(
+    x, channel_major, n, blob, _, up, t = _launch_setup(
         images, encoder, n_blocks=n_blocks, activation=activation,
         trunk=trunk, mask_channel=mask_channel, input_layout=input_layout,
         se_idx=se_idx)
     q = torch.empty((5, n), device=images.device, dtype=torch.float32)
     if n == 0:
         return q
+    block, smem = _block_smem(blob.numel(), t, trunk, images.device)
     with torch.cuda.device(images.device):
         err = _entry("qv_encode_q1", trunk)(
             *_encode_args(x, n, channel_major, mask_channel, se_idx,

@@ -20,11 +20,23 @@ which it cannot import:
   [0, 1) floats, ``jax.random.normal``'s normals), so a test can feed them
   the JAX key's draws.
 * ``synth_oef_bound``: the OEF bound the data path can reach.
+* ``create_synthetic_dataset``: the JAX package's device-side set (the
+  ``synth`` subcommand): the same cross product as the host set, every
+  draw -- the population samples, the permutation, misalignment and
+  noise -- from a ``torch.Generator`` on the device, decoded there; or
+  from given ``draws`` (the JAX key's, in the tests). No Pallas kernel
+  stands behind the JAX function, and kernel S (ops/synth_batch.py)
+  draws iid pairs a voxel rather than a cross product, so this is plain
+  torch on the device.
+* ``synthetic_signals``: the labels and decoded (misaligned, noisy)
+  signals of given (OEF, DBV) pairs, shared by that set and the streaming
+  batch's plain version (train/steps.py::stream_synthetic_batch).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -34,7 +46,8 @@ from .ops import physics
 
 __all__ = ["pretrain_data_seed", "threefry_fold_in", "truncated_normal",
            "sample_population_params", "sample_batch_params",
-           "synth_oef_bound", "create_synthetic_dataset_host"]
+           "synth_oef_bound", "synthetic_signals", "create_synthetic_dataset",
+           "create_synthetic_dataset_host"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -128,6 +141,102 @@ def synth_oef_bound(synth: SynthParams) -> float:
     if synth.misalign_prob > 0.0:
         hi = max(hi, physics.MISALIGN_OEF_CLIP[1])
     return hi
+
+
+def synthetic_signals(oef: torch.Tensor, dbv: torch.Tensor, draws: dict,
+                      scan: ScanParams, synth: SynthParams, *,
+                      full_model: bool = True, use_blood: bool = True,
+                      quad_rule: str = "auto"):
+    """(x (N, n_taus), y (N, 3)) of the pairs (oef, dbv) (N,): y = (oef,
+    dbv, r2') before misalignment (signals.py:292-299), x the decoded
+    signals, misaligned where ``misalign_prob`` > 0 (``draws`` "mis_u",
+    "from_idx", "z_oef", "z_dbv" (N, 1)) and noisy where the scan
+    simulates noise ("snr_u" (N, 1), "z" (N, n_taus)), decoded with the
+    quadrature rule of the data path's OEF bound."""
+    y = torch.stack([oef, dbv, physics.r2_prime(oef, dbv, scan.hct, scan)],
+                    -1)
+    sig_oef, sig_dbv = oef, dbv
+    per_tau = synth.misalign_prob > 0.0
+    if per_tau:
+        sig_oef, sig_dbv = physics.misalign_params(
+            oef, dbv, scan.n_taus, synth.misalign_prob, draws["mis_u"],
+            draws["from_idx"], draws["z_oef"], draws["z_dbv"])
+    x = physics.ase_signal(sig_oef, sig_dbv, scan, full_model=full_model,
+                           include_blood=use_blood, per_tau_params=per_tau,
+                           quad_rule=quad_rule,
+                           max_oef=synth_oef_bound(synth))
+    if scan.simulate_noise:
+        x = physics.add_acquisition_noise(x, scan.taus(), draws["snr_u"],
+                                          draws["z"])
+    return x, y
+
+
+def _dataset_draws(gen: torch.Generator, scan: ScanParams,
+                   synth: SynthParams, device) -> dict:
+    """The draws of ``create_synthetic_dataset`` from ``gen``, in the
+    layout its ``draws`` take."""
+    n = synth.sample_size
+    n_uni = round(n * synth.uniform_prop)
+    n_vox = n * n
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    d = {"oef_u": rand(n_uni), "oef_n": randn(n - n_uni),
+         "dbv_u": rand(n_uni), "dbv_n": rand(n - n_uni),
+         "perm": torch.randperm(n_vox, generator=gen, device=device)}
+    if synth.misalign_prob > 0.0:
+        d.update(mis_u=rand(n_vox, 1),
+                 from_idx=torch.randint(4, scan.n_taus - 1, (n_vox, 1),
+                                        generator=gen, device=device),
+                 z_oef=randn(n_vox, 1), z_dbv=randn(n_vox, 1))
+    if scan.simulate_noise:
+        d.update(snr_u=rand(n_vox, 1), z=randn(n_vox, scan.n_taus))
+    return d
+
+
+@torch.no_grad()
+def create_synthetic_dataset(seed: Optional[int], scan: ScanParams,
+                             synth: SynthParams, *, full_model: bool = True,
+                             use_blood: bool = True, quad_rule: str = "auto",
+                             device=None, draws: Optional[dict] = None):
+    """(x (N, n_taus), y (N, 3)) float32 tensors on ``device``, N =
+    sample_size ** 2: the meshgrid cross product of the OEF and DBV
+    population samples (signals.py:270-271), one permutation of the pairs
+    (:279), then ``synthetic_signals``. The draws come from a generator on
+    ``device`` seeded with ``seed``, or from ``draws`` (numpy arrays or
+    tensors): the population's "oef_u", "dbv_u" (n_uni,), "oef_n",
+    "dbv_n" (n_norm,) as ``sample_population_params`` takes them, "perm"
+    (N,) the permutation, and ``synthetic_signals``' misalignment and
+    noise draws. ``device``: the CUDA card unless the caller asks for
+    another (``device="cpu"``). The JAX function's counterpart
+    (qbold_vi_tpu/synth.py:113); the same seed does not give the JAX
+    key's numbers."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "create_synthetic_dataset draws and decodes on the CUDA card "
+            "unless asked otherwise, and no CUDA device is available: pass "
+            "device='cpu'")
+    if draws is None:
+        if seed is None:
+            raise ValueError("create_synthetic_dataset needs a seed or its "
+                             "draws")
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+        d = _dataset_draws(gen, scan, synth, device)
+    else:
+        d = {k: torch.as_tensor(np.asarray(v), device=device)
+             for k, v in draws.items()}
+    oefs, dbvs = sample_population_params(synth, d)
+    oef, dbv = (a.reshape(-1) for a in torch.meshgrid(oefs, dbvs,
+                                                       indexing="ij"))
+    perm = d["perm"].to(torch.int64)
+    return synthetic_signals(oef[perm], dbv[perm], d, scan, synth,
+                             full_model=full_model, use_blood=use_blood,
+                             quad_rule=quad_rule)
 
 
 def create_synthetic_dataset_host(seed: int, scan: ScanParams,

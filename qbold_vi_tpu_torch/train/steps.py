@@ -36,7 +36,10 @@ normals (and of the kernel's device-noise stream); or ``noise``, the
 normals themselves -- fine-tuning {"z_nll": (S, B, X, Y, Z, 2), "z_kl":
 (S_kl, B, X, Y, Z, 2), or (2, B, X, Y, Z) for the MoG KL}, pretraining
 {"z_r2p": (10, N, 2)} -- with which every path computes the same loss as
-the JAX package given the same normals. A streaming step draws its batch
+the JAX package given the same normals. At ``dropout_rate`` > 0 a
+fine-tune step draws its dropout masks on the device from the seed's
+fourth split, or takes them as ``dropout_masks`` (the JAX run's in the
+tests). A streaming step draws its batch
 from the seed too (kernel S on the card, ops/synth_batch.py), or takes
 the batch's ``draws`` (the layout of ``stream_synthetic_batch``), the
 JAX key's in the tests.
@@ -57,10 +60,9 @@ from ..config import QBoldConfig, normalize_mode
 from ..models.encoder import _full_fp32
 from ..models.vi import FineTuner
 from ..ops.decode_nll import decode_consts, decode_nll_rows, fused_available
-from ..ops import physics
 from ..ops.fused_elbo import fused_elbo, fused_elbo_available
 from ..ops.synth_batch import synth_batch
-from ..synth import sample_batch_params, synth_oef_bound
+from ..synth import sample_batch_params, synthetic_signals
 from . import losses
 from .optim import swa_update
 
@@ -151,17 +153,20 @@ def posterior_mse_metrics(tuner: FineTuner, q: torch.Tensor,
 
 
 def pretrain_loss(tuner: FineTuner, cfg: QBoldConfig, batch: dict, *,
-                  seed: Optional[int] = None, noise: Optional[dict] = None,
-                  train: bool = True) -> torch.Tensor:
+                  seed: Optional[int] = None,
+                  noise: Optional[dict] = None) -> torch.Tensor:
     """The mean synthetic loss of a batch {x (B, X, Y, Z, T), y (..., 3)}.
 
     The loss reads only the encoder's first output, which ``Encoder.stream1``
     computes without the conv trunk of stream 2: the same values and
     gradients as the JAX step (qbold_vi_tpu/train/steps.py:63-94), whose
     XLA program drops stream 2 because nothing reads it. So pretraining
-    launches no kernel H. The R2' term's normals come from ``noise``
-    ("z_r2p") or the ``seed``."""
-    tuner.check_dropout(train)
+    launches no kernel H. Dropout, which flax applies on stream 2's
+    residual path only, cannot reach this loss: a step with
+    ``dropout_rate`` > 0 computes what one without it does, as the JAX
+    step does, and validation (the JAX ``train=False``) is the same pass.
+    The R2' term's normals come from ``noise`` ("z_r2p") or the
+    ``seed``."""
     x = batch["x"]
     z = None
     if cfg.train.use_r2p_loss:
@@ -214,23 +219,10 @@ def stream_synthetic_batch(cfg: QBoldConfig, batch_size: int, draws: dict,
         if oef.shape != (n,):
             raise ValueError(f"draws hold {tuple(oef.shape)} voxels, the "
                              f"batch needs {n}")
-        y = torch.stack([oef, dbv, physics.r2_prime(oef, dbv, scan.hct,
-                                                    scan)], -1)
-        sig_oef, sig_dbv = oef, dbv
-        per_tau = synth.misalign_prob > 0.0
-        if per_tau:
-            sig_oef, sig_dbv = physics.misalign_params(
-                oef, dbv, scan.n_taus, synth.misalign_prob, d["mis_u"],
-                d["from_idx"], d["z_oef"], d["z_dbv"])
-        x = physics.ase_signal(sig_oef, sig_dbv, scan,
-                               full_model=cfg.train.full_model,
-                               include_blood=cfg.train.use_blood,
-                               per_tau_params=per_tau,
-                               quad_rule=cfg.model.quad_rule,
-                               max_oef=synth_oef_bound(synth))
-        if scan.simulate_noise:
-            x = physics.add_acquisition_noise(x, scan.taus(), d["snr_u"],
-                                              d["z"])
+        x, y = synthetic_signals(oef, dbv, d, scan, synth,
+                                 full_model=cfg.train.full_model,
+                                 use_blood=cfg.train.use_blood,
+                                 quad_rule=cfg.model.quad_rule)
     shape = (int(batch_size),) + tuple(vol_shape)
     return {"x": x.reshape(shape + (scan.n_taus,)),
             "y": y.reshape(shape + (3,))}
@@ -300,8 +292,7 @@ def make_pretrain_eval(tuner: FineTuner, cfg: QBoldConfig,
         x = batch["x"]
         seeds = _split_seed(seed, 2)
         with _full_fp32():
-            loss = pretrain_loss(tuner, cfg, batch, seed=seeds[0],
-                                 train=False)
+            loss = pretrain_loss(tuner, cfg, batch, seed=seeds[0])
             out1 = tuner.encoder.stream1(x)
         if cfg.model.infer_inv_gamma:
             out1 = out1[..., :-4]
@@ -357,9 +348,13 @@ def _noise(noise, key, seed, shape, device):
 def finetune_terms(tuner: FineTuner, cfg: QBoldConfig, batch: dict, *,
                    seed: Optional[int] = None, noise: Optional[dict] = None,
                    no_samples: Optional[int] = None, kl_samples: int = 70,
-                   train: bool = True):
+                   train: bool = True, dropout_masks=None):
     """(total, aux{nll, kl, smoothness, sigma}) of one fine-tune batch
-    {images (B, X, Y, Z, T), mask (..., 1)[, priors (..., 4|5)][, live]}."""
+    {images (B, X, Y, Z, T), mask (..., 1)[, priors (..., 4|5)][, live]}.
+    With ``train`` and ``dropout_rate`` > 0 the encoder pass drops units,
+    its masks drawn on the device from the seed's fourth split, or taken
+    from ``dropout_masks`` (models.encoder.Dropout), as ``noise`` injects
+    the normals."""
     mcfg = cfg.model
     images, mask = batch["images"], batch["mask"]
     device = images.device
@@ -368,8 +363,8 @@ def finetune_terms(tuner: FineTuner, cfg: QBoldConfig, batch: dict, *,
     s = no_samples if no_samples is not None else mcfg.no_samples
     t = tuner.scan.n_taus
     vox = tuple(images.shape[:-1])
-    seeds = _split_seed(seed, 3) if seed is not None else (None,) * 3
-    tuner.check_dropout(train)
+    seeds = _split_seed(seed, 4) if seed is not None else (None,) * 4
+    drop = tuner.dropout(train, seed=seeds[3], masks=dropout_masks)
 
     def prior_of(q):
         return (tuner.prior_params(q) if mcfg.use_population_prior
@@ -378,7 +373,7 @@ def finetune_terms(tuner: FineTuner, cfg: QBoldConfig, batch: dict, *,
     elbo = resolve_fused_elbo(tuner, cfg, device)
     if elbo is not None:
         consts, host = elbo
-        _, q, sigma = tuner.encode(images)
+        _, q, sigma = tuner.encode(images, drop)
         k = q.shape[-1]
         mf = mask.reshape(-1)
         n = mf.shape[0]
@@ -400,7 +395,7 @@ def finetune_terms(tuner: FineTuner, cfg: QBoldConfig, batch: dict, *,
         z_nll = _noise(noise, "z_nll", seeds[0], (s,) + vox + (2,), device)
         consts = resolve_fused_nll(tuner, cfg, device)
         if consts is not None:
-            _, q, sigma = tuner.encode(images)
+            _, q, sigma = tuner.encode(images, drop)
             samples = tuner.dist.sample_many(z_nll, q, mcfg.use_mvg)
             yb = images.expand((s,) + images.shape).reshape(-1, t)
             sb = sigma.expand((s,) + sigma.shape).reshape(-1, t)
@@ -410,7 +405,7 @@ def finetune_terms(tuner: FineTuner, cfg: QBoldConfig, batch: dict, *,
                                    consts)
             nll = torch.sum(rows) / losses.safe_mask_sum(mb)
         else:
-            out = tuner.apply(images, z_nll, train=train)
+            out = tuner.apply(images, z_nll, drop)
             q, sigma = out["predictions"], out["im_sigma"]
             pred = out["predicted_images"]
             nll = losses.fine_tune_nll(
@@ -435,16 +430,17 @@ def finetune_terms(tuner: FineTuner, cfg: QBoldConfig, batch: dict, *,
 
 
 def make_finetune_step(tuner: FineTuner, cfg: QBoldConfig, optimizer):
-    """step(batch, *, seed=None, noise=None) -> metrics {loss, nll, kl,
-    smoothness, sigma} (detached, on the device): loss and gradients with
-    TF32 off, then one optimiser update."""
+    """step(batch, *, seed=None, noise=None, dropout_masks=None) -> metrics
+    {loss, nll, kl, smoothness, sigma} (detached, on the device): loss and
+    gradients with TF32 off, then one optimiser update."""
 
     def step(batch: dict, *, seed: Optional[int] = None,
-             noise: Optional[dict] = None) -> dict:
+             noise: Optional[dict] = None, dropout_masks=None) -> dict:
         optimizer.zero_grad()
         with _full_fp32():
             loss, aux = finetune_terms(tuner, cfg, batch, seed=seed,
-                                       noise=noise)
+                                       noise=noise,
+                                       dropout_masks=dropout_masks)
             loss.backward()
         optimizer.step()
         aux["loss"] = loss

@@ -1207,3 +1207,182 @@ def test_cli_train_and_infer_on_the_card(cuda_device, tmp_path):
                  "--set", f"save_directory={save}", "--set", "no_units=8",
                  "--set", "no_intermediate_layers=1"]) == 0
     assert np.all(np.isfinite(load_nifti(out + "_oef.nii.gz")))
+
+
+# ---- kernel B's registered op, the serving artifacts, dropout --------------
+
+@pytest.mark.parametrize("trunk", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["voxel", "channel"])
+def test_kernel_b_op_matches_the_direct_launch(cuda_device, layout, trunk):
+    """encode_quad_fused (through torch.ops.qbold_vi_tpu_torch.
+    encode_quad_fused) against the ctypes call of the C entry made as the
+    wrapper made it before the op: bit for bit, one launch counted."""
+    from qbold_vi_tpu_torch.ops import _cuda
+
+    cfg = dataclasses.replace(tcfg.OPTIMAL.model, compute_dtype=(
+        "bfloat16" if trunk == "bfloat16" else "auto"))
+    tuner = _tuner(cfg, cuda_device)
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(volume(rng, (20_011,), 12)).to(cuda_device)
+    if layout == "channel":
+        x = x.T.contiguous()
+    kw = dict(se_idx=SCAN.se_idx, multi_image=cfg.multi_image_normalisation,
+              activation=cfg.activation, n_blocks=cfg.no_intermediate_layers,
+              trunk=trunk, mask_channel=True, input_layout=layout)
+    counter = "bf16_launches" if trunk == "bfloat16" else "launches"
+    before = getattr(tfi.encode_quad_fused, counter)
+    got = tfi.encode_quad_fused(x, tuner.encoder, mvg=True, **RANGES, **kw)
+    assert getattr(tfi.encode_quad_fused, counter) == before + 1
+    xs, cm, n, blob, u, up, t = tfi._launch_setup(
+        x, tuner.encoder, n_blocks=kw["n_blocks"], activation=kw["activation"],
+        trunk=trunk, mask_channel=True, input_layout=layout,
+        se_idx=kw["se_idx"])
+    block, smem = tfi._block_smem(blob.numel(), t, trunk, x.device,
+                                  _cuda.library().qv_quad_scratch_floats)
+    ref = [torch.empty((3, n), device=cuda_device) for _ in range(3)]
+    err = tfi._entry("qv_encode_quad_fused", trunk)(
+        *tfi._encode_args(xs, n, cm, True, kw["se_idx"], kw["multi_image"],
+                          kw["activation"]),
+        u, up, kw["n_blocks"], blob.data_ptr(), blob.numel(),
+        _cuda.quad_ranges(**RANGES), *(r.data_ptr() for r in ref), 1, block,
+        smem, torch.cuda.current_stream().cuda_stream)
+    _cuda.check(err, "B direct")
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_fused_artifact_reloads_in_a_fresh_process(cuda_device, tmp_path):
+    """The fused .pt2 (kernel B's op over channel-major rows, N baked)
+    reloaded by another process that imports qbold_vi_tpu_torch gives the
+    in-process kernel-B route's maps bit for bit, with one B launch."""
+    import subprocess
+    import sys
+
+    from qbold_vi_tpu_torch.io import export_model as em
+
+    tuner = _tuner(tcfg.OPTIMAL.model, cuda_device)
+    shape = (2, 40, 33, 4)
+    ep = em.export_inference(tuner, fused=True, platforms=("cuda",),
+                             example_shape=shape)
+    path = str(tmp_path / "fused.pt2")
+    em.save_exported(ep, path)
+    rng = np.random.default_rng(5)
+    x_cm = np.ascontiguousarray(volume(rng, shape, 12).reshape(-1, 12).T)
+    np.save(tmp_path / "x.npy", x_cm)
+    ref = tfi.encode_quad_fused(
+        torch.from_numpy(x_cm).to(cuda_device), tuner.encoder,
+        se_idx=SCAN.se_idx, multi_image=False, activation="relu",
+        n_blocks=2, trunk="float32", mvg=True, **RANGES, mask_channel=True,
+        input_layout="channel")
+    script = (
+        "import sys, numpy as np, torch\n"
+        "import qbold_vi_tpu_torch\n"
+        "from qbold_vi_tpu_torch.io.export_model import load_exported\n"
+        "from qbold_vi_tpu_torch.ops import fused_infer as fi\n"
+        "art = load_exported(sys.argv[1])\n"
+        "x = torch.from_numpy(np.load(sys.argv[2])).cuda()\n"
+        "out = art(x)\n"
+        "torch.cuda.synchronize()\n"
+        "np.savez(sys.argv[3], **{k: v.cpu().numpy() for k, v in "
+        "out.items()})\n"
+        "print(fi.encode_quad_fused.launches)\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, "-c", script, path, str(tmp_path / "x.npy"),
+         str(tmp_path / "out.npz")], capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, PYTHONPATH=repo))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "1"
+    with np.load(tmp_path / "out.npz") as out:
+        for key, r in zip(("means", "stds", "raw_log_stds"), ref):
+            np.testing.assert_array_equal(out[key], r.cpu().numpy(),
+                                          err_msg=key)
+
+
+def test_default_artifact_on_the_card(cuda_device, tmp_path):
+    """The default .pt2 exported from a tuner on the card, reloaded there,
+    at two geometries against posterior_maps (stream 2: the encoder, then
+    kernel A) at the maps' tolerances."""
+    from qbold_vi_tpu_torch.io import export_model as em
+
+    cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=16)
+    tuner = _tuner(cfg, cuda_device)
+    path = str(tmp_path / "maps.pt2")
+    em.save_exported(em.export_inference(tuner, use_first_op=False), path)
+    art = em.load_exported(path)
+    rng = np.random.default_rng(8)
+    for shape in ((1, 9, 7, 3), (3, 20, 16, 8)):
+        data = volume(rng, shape, 12)
+        data[..., -1] = rng.uniform(size=shape) > 0.2
+        got = art(torch.from_numpy(data).to(cuda_device))
+        ref = infer.posterior_maps(tuner, data, use_first_op=False)
+        g = {k: v.cpu().numpy() for k, v in got.items()}
+        means = lambda d: np.concatenate([d[k] for k in  # noqa: E731
+                                          ("oef", "dbv", "r2p")], -1)
+        _close((means(g), g["stds"], g["raw_log_stds"]),
+               (means(ref), ref["stds"], ref["raw_log_stds"]))
+
+
+def test_dropout_step_through_f_and_h_matches_the_plain_route(cuda_device):
+    """A fine-tune step at dropout_rate 0.1 through kernels H (fused_conv
+    "on") and F against the same step through cuDNN and the plain ELBO,
+    given the same masks and host normals: gradients at GRAD_TOL, H and F
+    launched; softplus (a relu kink may fall either way). A pass with
+    train=False ignores the rate (bit-equal to rate 0), and masks drawn
+    from a seed on the card replay."""
+    base = dataclasses.replace(
+        tcfg.OPTIMAL, scan=SCAN,
+        model=dataclasses.replace(tcfg.OPTIMAL.model, activation="softplus",
+                                  dropout_rate=0.1))
+    cfgs = {"on": dataclasses.replace(base, model=dataclasses.replace(
+                base.model, fused_conv="on"), train=dataclasses.replace(
+                base.train, fused_elbo="on")),
+            "off": dataclasses.replace(base, model=dataclasses.replace(
+                base.model, fused_conv="off"), train=dataclasses.replace(
+                base.train, fused_elbo="off", fused_decode_nll="off"))}
+    rng = np.random.default_rng(19)
+    shape = (8, 25, 25, 8)
+    mask = (rng.uniform(size=shape + (1,)) > 0.2).astype(np.float32)
+    batch = {"images": (np.abs(rng.normal(size=shape + (11,))) * 50 + 100
+                        ).astype(np.float32) * mask, "mask": mask,
+             "priors": (rng.normal(size=shape + (5,)) * 0.3
+                        ).astype(np.float32)}
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in batch.items()}
+    noise = {"z_nll": rng.normal(size=(1,) + shape + (2,)).astype(np.float32),
+             "z_kl": rng.normal(size=(70,) + shape + (2,)).astype(np.float32)}
+    fold = (shape[0] * shape[3], shape[1], shape[2], base.model.no_units)
+    masks = [rng.uniform(size=fold) < 0.9
+             for _ in range(2 * base.model.no_intermediate_layers)]
+    sd = init_params(base.model, SCAN, torch.Generator().manual_seed(6))
+    grads, counts = {}, {}
+    for mode, cfg in cfgs.items():
+        tuner = FineTuner(cfg.model, SCAN, device=cuda_device)
+        tuner.load_state_dict(sd)
+        opt = toptim.make_finetune_optimizer(tuner.parameters(), cfg.train)
+        before = (tcv.conv3x3.bwd_launches, tfe.fused_elbo_backward.from_state)
+        tsteps.make_finetune_step(tuner, cfg, opt)(batch, noise=noise,
+                                                   dropout_masks=masks)
+        torch.cuda.synchronize()
+        counts[mode] = (tcv.conv3x3.bwd_launches - before[0],
+                        tfe.fused_elbo_backward.from_state - before[1])
+        grads[mode] = _grads(tuner)
+    n_conv = 2 * base.model.no_intermediate_layers
+    assert counts == {"on": (n_conv, 1), "off": (0, 0)}
+    for k, g in grads["off"].items():
+        _grad_close(grads["on"][k], g, k)
+
+    tuner = FineTuner(cfgs["on"].model, SCAN, device=cuda_device)
+    tuner.load_state_dict(sd)
+    zero = FineTuner(dataclasses.replace(cfgs["on"].model, dropout_rate=0.0),
+                     SCAN, device=cuda_device)
+    zero.load_state_dict(sd)
+    with torch.no_grad():
+        for a, b in zip(tuner.encode(batch["images"]),
+                        zero.encode(batch["images"])):
+            assert torch.equal(a, b)
+        drop = [tuner.dropout(True, seed=4) for _ in range(2)]
+        h = torch.ones(fold, device=cuda_device)
+        a, b = drop[0](h), drop[1](h)
+        assert torch.equal(a, b) and a.device.type == "cuda"
+        assert abs(float((a != 0).float().mean()) - 0.9) < 0.01

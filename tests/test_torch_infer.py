@@ -123,10 +123,10 @@ def test_save_predictions_writes_what_it_returns(slice_setup, tmp_path):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(mesh=object()), "mesh"),
-    (dict(transform_directory="/nonexistent"), "transform_directory"),
+    (dict(transform_directory="/nonexistent", mesh=object()), "mesh"),
     (dict(method="mc", fine_tuned=True, mesh=object()), "mesh"),
-    (dict(method="mc", fine_tuned=True, transform_directory="/nonexistent"),
-     "transform_directory"),
+    (dict(method="mc", fine_tuned=True, transform_directory="/nonexistent",
+          mesh=object()), "mesh"),
 ])
 def test_unported_options_raise(tmp_path, kw, match):
     cfg = tcfg.ModelConfig(no_units=8)

@@ -269,3 +269,56 @@ def assert_bf16_grads_close(named_params, grads_ref: dict,
         else:
             np.testing.assert_allclose(g / scale, r / scale, rtol=0,
                                        atol=weight_tol, err_msg=name)
+
+
+def legacy_kernels(rng, cfg, n_taus):
+    """The reference encoder's Conv3D (kernel, bias) pairs in creation
+    order: (kx, ky, kz, in, out) kernels."""
+    u = cfg.no_units
+    shapes = [(1, 1, 1, n_taus, u)]
+    for _ in range(cfg.no_intermediate_layers):
+        shapes += [(1, 1, 1, u, u), (3, 3, 1, u, u), (3, 3, 1, u, u),
+                   (1, 1, 1, u, u)]
+    shapes += [(1, 1, 1, u, 5 if cfg.use_mvg else 4), (1, 1, 1, u, n_taus)]
+    return [(rng.normal(size=s).astype(np.float32),
+             rng.normal(size=s[-1:]).astype(np.float32)) for s in shapes]
+
+
+def write_legacy_h5(path, convs, nested: bool, extras=()):
+    """A Keras-2 legacy weights file: root attr layer_names; each layer
+    group's attr weight_names lists its datasets' sub-paths. ``nested``
+    puts every conv under one "model" group (reference final_model.h5);
+    the flat form gives each conv its own group, written in a shuffled
+    order (the parser sorts by the names' counter)."""
+    names = [f"conv3d_{i}" if i else "conv3d" for i in range(len(convs))]
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        layer_names = []
+        if nested:
+            g = f.create_group("model")
+            wnames = []
+            for name, (k, b) in zip(names, convs):
+                for var, arr in (("kernel", k), ("bias", b)):
+                    wn = f"{name}/{var}:0"
+                    wnames.append(wn.encode())
+                    g.create_dataset(wn, data=arr)
+            g.attrs["weight_names"] = wnames
+            layer_names.append(b"model")
+        else:
+            order = np.random.default_rng(0).permutation(len(convs))
+            for i in order:
+                g = f.create_group(names[i])
+                wnames = [f"{names[i]}/kernel:0", f"{names[i]}/bias:0"]
+                g.create_dataset(wnames[0], data=convs[i][0])
+                g.create_dataset(wnames[1], data=convs[i][1])
+                g.attrs["weight_names"] = [w.encode() for w in wnames]
+                layer_names.append(names[i].encode())
+        for i, arr in enumerate(extras):
+            lname = f"variable_{i}" if i else "variable"
+            vg = f.create_group(lname)
+            wn = f"{lname}/Variable:0"
+            vg.attrs["weight_names"] = [wn.encode()]
+            vg.create_dataset(wn, data=arr)
+            layer_names.append(lname.encode())
+        f.attrs["layer_names"] = layer_names

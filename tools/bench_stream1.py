@@ -214,9 +214,10 @@ class Calls:
             self.blob, self.u, self.up, self.block, self.smem = row_blob_setup(
                 x, enc, nb)
         else:
-            (_, _, _, self.blob, self.u, self.up, self.block,
-             self.smem) = fi._launch_setup(x, enc, trunk=ctx["trunk"],
-                                           **ctx["setup"])
+            _, _, _, self.blob, self.u, self.up, t = fi._launch_setup(
+                x, enc, trunk=ctx["trunk"], **ctx["setup"])
+            self.block, self.smem = fi._block_smem(
+                self.blob.numel(), t, ctx["trunk"], x.device)
         # kernel B's, with its quadrature's scratch (an earlier build's B
         # leaves it unused)
         self.smem_b = self.smem + (
