@@ -18,8 +18,10 @@ through kernel S), the WLS baseline, and the trunk in bf16
 fine-tuning and pretraining), the command line (``cli.main``: train
 with its checkpoints and their resume, infer and serve), dropout
 training, the serving artifacts (``torch.export``; kernel B as a
-registered op) and the CLI's synth / transfer / import-weights, and
-checks them:
+registered op) and the CLI's synth / transfer / import-weights, and the
+data-parallel layer (qbold_vi_tpu_torch/parallel: the sharded steps,
+maps and Trainer on one rank over NCCL, on two ranks sharing the card,
+and through ``train --mesh``), and checks them:
 
 1. device: a CUDA card is required (otherwise exit 1, no result line);
 2. build: the kernels of all seven sources in csrc/ are compiled by nvcc;
@@ -240,7 +242,31 @@ weights of phase 3), after phase 28:
    infer on a 3 x 64 x 64 x 8 x 24-tau request (B launched);
    save_predictions(transform_directory=) of stream 2 (A launched; no FSL
    here, so native-space maps); import-weights, which needs h5py, exits 1
-   saying so where h5py is missing (its gates run on the CPU).
+   saying so where h5py is missing (its gates run on the CPU);
+40. one rank over NCCL in this process (OPTIMAL's width): the sharded
+   fine-tune step (F) given a batch and a seed bit-equal to the unsharded
+   step, the two steps' walls and launches, the all-reduce's ms a step;
+   then, the counts set to 0 before and read after, a 100-step
+   make_finetune_epoch_sharded epoch (F once a step), a 22-step sharded
+   streaming epoch (S once a step), posterior_maps_sharded of both
+   streams on 14 x 96 x 96 x 8 (B, A) and elbo_maps_sharded of 6 subjects
+   (E), the maps bit-equal to the unsharded ones; the group destroyed;
+41. two ranks sharing the card (gloo on CUDA tensors):
+   parallel.multihost.certify at OPTIMAL's width -- the host-draw stages
+   (38 crops of 25 x 25 x 8 through F, 511 volumes, the per-rank-fed
+   evaluation) and the sharded maps of 15 subjects bit-equal across ranks
+   and within rtol 2e-5 / atol 1e-6 of this process alone, the
+   device-noise epochs and the Trainer (streaming pretrain, then the
+   subject-sharded fine-tune of 3 subjects over 2 ranks) bit-equal across
+   ranks; each rank's launches, all-reduce ms and step wall, and the
+   unsharded step's wall in this process, both timed as 100-step epochs;
+42. two ``python -m qbold_vi_tpu_torch train --mesh --coordinator ...``
+   processes on the card on phase 34's synthetic brains (a streaming
+   pretrain epoch, one 100-step fine-tune epoch, the exports): both exit
+   0 with equal metrics, rank 0 alone logs and writes the checkpoints and
+   maps, an unsharded Trainer resumes final_model.msgpack; each rank's
+   launches (its last line). The kernels line gives F, S, B, A and E's
+   launches by phase and rank under "launches_sharded".
 Phases 5 and 13 print A-E beside their bounds: B and C's from the chain's
 FMAs at the 3xTF32 rate (encode_bound) and at the float32 CUDA-core peak;
 A's, B's and E's special-function bound beside OPS's (MUFU: the
@@ -3997,6 +4023,289 @@ def cli13_phase(dev, card, base, tuner) -> dict:
             "mni_save_predictions_A_launches": a_launches}
 
 
+# ---- the data-parallel layer (phases 40-42) ---------------------------------
+
+SHARDED_KERNELS = {"F_fwd": "fused_elbo_forward", "F_bwd": "fused_elbo_backward",
+                   "S": "synth_batch", "B": "encode_quad_fused",
+                   "A": "quad_posterior_summaries", "E": "mc_kl_map"}
+MESH_STEPS = 100          # the sharded epochs of phase 40 and 41's timing
+CERTIFY_RANKS = 2                    # phase 41: two ranks share the card
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def finite(tag: str, values) -> None:
+    if not np.all(np.isfinite(np.asarray(values, np.float64))):
+        raise AssertionError(f"{tag}: not finite: {values}")
+
+
+def sharded_phases(dev, card, base, tuner) -> dict:
+    """Phases 40-42: the sharded paths on one rank (NCCL, in process), on
+    two ranks sharing the card (gloo on CUDA tensors; multihost.certify)
+    and through two ``train --mesh`` processes. Returns the walls, the
+    all-reduce times and each rank's launches of F, S, B, A and E."""
+    out = {"launches": {}}
+    out["phase40"] = one_rank_phase(dev, card, base, tuner, out["launches"])
+    out["phase41"] = two_rank_phase(card, out["launches"])
+    out["phase42"] = mesh_cli_phase(card, base, out["launches"])
+    return out
+
+
+def one_rank_phase(dev, card, base, tuner, launches) -> dict:
+    """Phase 40: a world of one rank over NCCL in this process."""
+    import torch.distributed as dist
+
+    from qbold_vi_tpu_torch import FineTuner, infer
+    from qbold_vi_tpu_torch.ops import launch_counts
+    from qbold_vi_tpu_torch.parallel import mesh as pmesh
+    from qbold_vi_tpu_torch.train import optim, steps
+    from qbold_vi_tpu_torch.train.data import predict_priors
+
+    backend = pmesh.initialize_distributed(f"localhost:{free_port()}", 1, 0,
+                                           device="cuda")
+    log(f"phase 40: one rank, backend {backend} [{card}]")
+    if backend != "nccl":
+        raise AssertionError(f"one rank a card chose {backend}, not nccl")
+    try:
+        mesh = pmesh.make_mesh()
+        rng = np.random.default_rng(40)
+        vol = volumes(rng, TRAIN_VOLUMES, base.scan.n_taus)
+        pri = (rng.normal(size=TRAIN_VOLUMES + (5,)) * 0.3).astype(np.float32)
+        vol_d, pri_d = (torch.from_numpy(a).to(dev) for a in (vol, pri))
+        sd = {k: v.clone() for k, v in tuner.state_dict().items()}
+        b = base.train.ft_batch_size
+        batch = steps.sample_crop_batch(torch.Generator().manual_seed(40),
+                                        vol_d, pri_d, b, base.train.crop_size)
+
+        def fresh():
+            t = FineTuner(base.model, base.scan, device=dev)
+            t.load_state_dict(sd)
+            return t, optim.make_finetune_optimizer(t.parameters(),
+                                                    base.train)
+
+        # 40a. the sharded step is the unsharded one, bit for bit
+        runs, step_fns = [], {}
+        for name, m in (("unsharded", None), ("sharded", mesh)):
+            t, opt = fresh()
+            step = steps.make_finetune_step(t, base, opt, m)
+            bt = batch if m is None else dict(
+                batch, live=torch.ones(b, device=dev))
+            runs.append((step(bt, seed=41), t.state_dict()))
+            step_fns[name] = (lambda st=step, bb=bt: st(bb, seed=42))
+        torch.cuda.synchronize()
+        for k, v in runs[0][0].items():
+            if not torch.equal(runs[1][0][k], v):
+                raise AssertionError(f"phase 40: sharded {k} differs")
+        for k, v in runs[0][1].items():
+            if not torch.equal(runs[1][1][k], v):
+                raise AssertionError(f"phase 40: sharded weights {k} differ")
+        log("phase 40: the one-rank sharded step is the unsharded step bit "
+            f"for bit (loss {float(runs[0][0]['loss']):.6f})")
+        walls = {k: wall_ms(fn) for k, fn in step_fns.items()}
+        profs = {k: profile(fn, 5, f"the {k} fine-tune step (phase 40)", card)
+                 for k, fn in step_fns.items()}
+        mesh.timed, mesh.seconds = True, collections.Counter()
+        calls0 = mesh.counts["all_reduce"]
+        for _ in range(10):
+            step_fns["sharded"]()
+        mesh.timed = False
+        ar_ms = 1e3 * mesh.seconds["all_reduce"] / 10
+        ar_calls = (mesh.counts["all_reduce"] - calls0) / 10
+        log(f"phase 40: step wall {walls['sharded']:.3f} ms sharded against "
+            f"{walls['unsharded']:.3f} ms unsharded; launches a step "
+            f"{profs['sharded']['launches']:.0f} against "
+            f"{profs['unsharded']['launches']:.0f}; all-reduce "
+            f"{ar_ms:.4f} ms a step in {ar_calls:.0f} calls (NCCL, one "
+            f"rank) [{card}]")
+
+        # 40b-d. the sharded paths, their launches counted
+        t, opt = fresh()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        m = steps.make_finetune_epoch_sharded(t, base, opt, MESH_STEPS,
+                                              mesh)(43, vol_d, pri_d)
+        loss = m["loss"].cpu().numpy()
+        epoch_s = time.perf_counter() - t0
+        finite("phase 40 sharded epoch", loss)
+        popt = optim.make_pretrain_optimizer(t.named_parameters(), base.train)
+        spe = 22
+        t0 = time.perf_counter()
+        plosses, _ = steps.make_pretrain_stream_epoch(t, base, popt, spe,
+                                                      mesh=mesh)(44)
+        stream_s = time.perf_counter() - t0
+        finite("phase 40 streaming epoch", plosses)
+        req = volumes(rng, REQUESTS[0], base.scan.n_taus)
+        got = {f: infer.posterior_maps_sharded(tuner, req, mesh,
+                                               use_first_op=f)
+               for f in (True, False)}
+        sub = vol[:6]
+
+        @torch.no_grad()
+        def encode(images):
+            x = torch.from_numpy(np.ascontiguousarray(images)).to(dev)
+            return tuple(o.cpu().numpy() for o in tuner.encode(x))
+
+        priors = predict_priors(encode, sub, 5)
+        emaps = infer.elbo_maps_sharded(tuner, base, sub, priors, mesh,
+                                        seed=7)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        counts = {k: after[k] - before[k] for k in SHARDED_KERNELS}
+        for f in (True, False):
+            ref = infer.posterior_maps(tuner, req, use_first_op=f)
+            for k, v in ref.items():
+                if not np.array_equal(got[f][k], v):
+                    raise AssertionError(f"phase 40: sharded stream "
+                                         f"{1 if f else 2} {k} differs")
+        eref = infer.elbo_maps(tuner, base, sub, priors, seed=7)
+        for k, v in eref.items():
+            if not np.array_equal(emaps[k], v):
+                raise AssertionError(f"phase 40: sharded elbo {k} differs")
+        log(f"phase 40: {MESH_STEPS}-step sharded epoch {epoch_s:.2f} s "
+            f"(last loss {loss[-1]:.4f}), streaming sharded epoch of {spe} "
+            f"steps {stream_s:.2f} s; posterior_maps_sharded on "
+            f"{REQUESTS[0]} and elbo_maps_sharded on 6 subjects bit-equal "
+            f"to the unsharded maps; launches {counts} [{card}]")
+        want = {"F_fwd": MESH_STEPS, "F_bwd": MESH_STEPS, "S": spe}
+        for k, n in want.items():
+            if counts[k] != n:
+                raise AssertionError(f"phase 40: {k} launched {counts[k]} "
+                                     f"times, not {n}")
+        for k in ("B", "A", "E"):
+            if counts[k] == 0:
+                raise AssertionError(f"phase 40: {k} was never launched")
+        for k in SHARDED_KERNELS:
+            launches.setdefault(k, {})["phase 40 (rank 0 of 1)"] = counts[k]
+    finally:
+        dist.destroy_process_group()
+    return {"backend": backend, "step_ms": walls,
+            "step_launches": {k: p["launches"] for k, p in profs.items()},
+            "allreduce_ms_per_step": ar_ms, "epoch_s": epoch_s,
+            "stream_epoch_s": stream_s}
+
+
+def two_rank_phase(card, launches) -> dict:
+    """Phase 41: two ranks sharing the card, certified against this
+    process (multihost.certify at OPTIMAL's width)."""
+    from qbold_vi_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    out = multihost.certify(CERTIFY_RANKS, device="cuda", width="optimal",
+                            time_steps=MESH_STEPS, timeout_s=400)
+    secs = time.perf_counter() - t0
+    log(f"phase 41: {CERTIFY_RANKS} ranks, backend {out['backend']}; "
+        f"metrics bit-equal across ranks and within rtol {out['parity_rtol']} of "
+        f"one process (fine-tune losses {out['ft_loss']} against "
+        f"{out['single_process_ft_loss']}); the sharded maps of "
+        f"{out['maps_subjects']} subjects "
+        f"within it too; subject-sharded Trainer.finetune on 3 subjects: "
+        f"loss {out['trainer_ft_loss']:.4f}; {secs:.1f} s [{card}]")
+    log(f"phase 41: the device-noise sharded step "
+        f"{out['ft_device_step_ms']} ms by rank against one process's "
+        f"{out['single_process_step_ms']} ms for the whole batch (each a "
+        f"{out['time_steps']}-step epoch's wall a step); its all-reduces "
+        f"{out['allreduce_ms_per_step']} ms a step "
+        f"({out['allreduce_calls_per_step']:.0f} calls, timed alone) by rank "
+        f"[{card}]")
+    for k in SHARDED_KERNELS:
+        got = [c[k] for c in out["launches"]]
+        if min(got) == 0:
+            raise AssertionError(f"phase 41: {k} not launched on a rank: "
+                                 f"{got}")
+        launches.setdefault(k, {})["phase 41 (ranks 0-1)"] = got
+    return {k: out[k] for k in (
+        "backend", "ft_loss", "single_process_ft_loss",
+        "allreduce_ms_per_step", "ft_device_step_ms",
+        "single_process_step_ms", "collectives")} | {
+        "seconds": secs}
+
+
+def mesh_cli_phase(card, base, launches) -> dict:
+    """Phase 42: two ``python -m qbold_vi_tpu_torch train --mesh`` ranks
+    on the card on phase 34's synthetic brains; rank 0 writes, both end
+    equal, and the checkpoint resumes in an unsharded Trainer."""
+    from qbold_vi_tpu_torch import infer
+    from qbold_vi_tpu_torch.train import trainer as tr
+
+    cfg = fresh_save(base)
+    save = cfg.train.save_directory
+    data_dir = tempfile.mkdtemp(dir=_SAVE_ROOT[0])
+    write_real_directory(data_dir, base.scan)
+    port = free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    argv = ["--preset", "optimal", "--set", f"save_directory={save}",
+            "--set", f"d={data_dir}", "--set", "no_pt_epochs=1",
+            "--set", "pt_on_device_synth=true", "--set", "no_ft_epochs=1"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "qbold_vi_tpu_torch", "train", "--mesh",
+         "--coordinator", f"localhost:{port}", "--num-processes", "2",
+         "--process-id", str(i), *argv], cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for i in range(2)]
+    outs = []
+    try:
+        for i, p in enumerate(procs):
+            o, e = p.communicate(timeout=400)
+            if p.returncode != 0:
+                raise AssertionError(f"phase 42: rank {i} exited "
+                                     f"{p.returncode}:\n{e[-3000:]}")
+            outs.append(o.splitlines())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    ranks = []
+    for i, lines in enumerate(outs):
+        tag = f"rank {i} of 2: "
+        mine = [ln[len(tag):] for ln in lines if ln.startswith(tag)]
+        if len(mine) != 1:
+            raise AssertionError(f"phase 42: rank {i} printed {lines[-5:]}")
+        ranks.append(json.loads(mine[0]))
+    timeless = [{ph: {k: v for k, v in r[ph].items()
+                      if not k.endswith("_time_s")}
+                 for ph in ("pretrain", "finetune")} for r in ranks]
+    if timeless[0] != timeless[1]:
+        raise AssertionError(f"phase 42: the ranks' losses differ: "
+                             f"{timeless}")
+    if not any(ln.startswith("[finetune]") for ln in outs[0]) or any(
+            ln.startswith(("[pretrain]", "[finetune]")) for ln in outs[1]):
+        raise AssertionError("phase 42: rank 0 alone must log")
+    files = set(os.listdir(save))
+    for f in ("pt_model.msgpack", "final_model.msgpack", "baseline_kl.nii.gz",
+              "hyperv_oef.nii.gz", "pt_baseline_oef.nii.gz"):
+        if f not in files:
+            raise AssertionError(f"phase 42: {f} not written: {files}")
+    plain = tr.Trainer(cfg, logger=lambda *a: None)
+    if plain.status is not tr.WeightStatus.FULL_TRAINED:
+        raise AssertionError(f"phase 42: resumed as {plain.status}")
+    finite("phase 42 resumed maps", infer.posterior_maps(
+        plain.tuner, volumes(np.random.default_rng(42), (1, 32, 32, 8),
+                             base.scan.n_taus))["oef"])
+    log(f"phase 42: train --mesh on 2 ranks {secs:.1f} s; losses equal on "
+        f"both ranks ({timeless[0]['finetune'].get('loss')}); rank 0 wrote "
+        f"the checkpoints and maps; an unsharded Trainer resumed "
+        f"final_model.msgpack; launches by rank "
+        f"{[{k: r['launches'][k] for k in SHARDED_KERNELS} for r in ranks]}"
+        f" [{card}]")
+    for k in SHARDED_KERNELS:
+        got = [r["launches"][k] for r in ranks]
+        if min(got) == 0:
+            raise AssertionError(f"phase 42: {k} not launched on a rank: "
+                                 f"{got}")
+        launches.setdefault(k, {})["phase 42 (ranks 0-1)"] = got
+    return {"seconds": secs, "metrics": timeless[0]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--weights", help="params .npz (io/from_jax.py "
@@ -4223,6 +4532,12 @@ def main() -> int:
     cli = cli_phases(dev, card, OPTIMAL)
     elapsed("phases 37-39")
     new = dropout_export_cli_phases(dev, card, OPTIMAL, tuner)
+    elapsed("phases 40-42")
+    sharded = sharded_phases(dev, card, OPTIMAL, tuner)
+    for entry in kernels:
+        for k, name in SHARDED_KERNELS.items():
+            if entry["name"] == name:
+                entry["launches_sharded"] = sharded["launches"][k]
     elapsed("done")
     print(json.dumps({"posterior_maps_wall_ms": walls,
                       "mc_posterior_maps_wall_ms": sampled["mc_walls"],
@@ -4245,6 +4560,8 @@ def main() -> int:
                       "stream1_float64_err": err64,
                       "cli": cli,
                       "dropout_export_cli": new,
+                      "sharded": {k: v for k, v in sharded.items()
+                                  if k != "launches"},
                       "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,5 +1,5 @@
 """Command-line entry points of the port: train / infer / serve / baseline /
-synth / export-model / import-weights / transfer.
+synth / export-model / import-weights / transfer / dryrun.
 
     python -m qbold_vi_tpu_torch train --preset optimal --set d=DATA_DIR
     python -m qbold_vi_tpu_torch infer vols.npy -o out/subj --preset optimal
@@ -10,6 +10,9 @@ synth / export-model / import-weights / transfer.
     python -m qbold_vi_tpu_torch import-weights pt_model.h5 --device cpu
     python -m qbold_vi_tpu_torch transfer --tau-start -0.028 --tau-step 0.004
         --tau-end 0.068 -o transferred --preset optimal
+    python -m qbold_vi_tpu_torch train --mesh --coordinator localhost:29500
+        --num-processes 2 --process-id 0 --preset optimal    # every rank
+    python -m qbold_vi_tpu_torch dryrun --devices 4 --device cpu
 
 The counterpart of ``qbold_vi_tpu/cli.py`` (its names, flags, checkpoint
 files, messages and exit codes), with these differences, each stated in
@@ -29,9 +32,19 @@ the help:
 * ``import-weights`` reads the legacy Keras-2 HDF5 layout with h5py (the
   card's machine has no h5py: run it on a host that has it) and has no
   Keras fallback; ``--reference-dir`` is accepted and not read;
-* not ported yet, and exiting with code 2 and a message: the subcommands
-  sweep and dryrun, and train's --mesh, --coordinator, --num-processes and
-  --process-id;
+* ``train --coordinator HOST:PORT --num-processes N --process-id I``
+  starts one process a device (run the same command for every rank; rank
+  0 serves the rendezvous, and its card is ``I % device count``), and
+  ``--mesh`` trains data-parallel over them (parallel/mesh.py; a world of
+  one rank means no mesh, as in the JAX CLI); the exports shard too, and
+  rank 0 writes the checkpoints, the logs and the maps; every rank prints
+  its last metrics and kernel launches on a line of its own at the end;
+* ``dryrun --devices N`` spawns N ranks, one device each
+  (parallel/dryrun.py); with ``--processes P`` > 1 it certifies P ranks
+  against one process (parallel/multihost.py), one device a rank, so
+  ``--devices`` is not read;
+* not ported yet, and exiting with code 2 and a message: the sweep
+  subcommand;
 * ``--config`` needs pyyaml, which the CUDA machine lacks: there, give
   ``--preset optimal`` and ``--set key=value`` overrides.
 """
@@ -108,13 +121,25 @@ def cmd_train(args) -> int:
     save_directory's checkpoints), then, when the data directory holds ASE
     volumes, the post-pretrain exports, fine-tuning and the fine-tuned
     exports of the study sets."""
-    from . import infer
-    from .train import data as data_pipe
-    from .train.trainer import Trainer, WeightStatus
+    import torch.distributed as dist
 
-    for flag in ("mesh", "coordinator", "num_processes", "process_id"):
-        if getattr(args, flag):
-            return _not_ported(f"train --{flag.replace('_', '-')}")
+    from .parallel import mesh as pmesh
+
+    backend = pmesh.initialize_distributed(
+        args.coordinator, args.num_processes, args.process_id,
+        device=args.device)
+    try:
+        return _train(args)
+    finally:
+        if backend is not None:
+            dist.destroy_process_group()
+
+
+def _train(args) -> int:
+    from .ops import launch_counts
+    from .parallel import mesh as pmesh
+    from .train.trainer import Trainer
+
     cfg = _load_cfg(args)
     if args.smoke:
         # a tiny end-to-end run: the same code path at small shapes
@@ -126,8 +151,26 @@ def cmd_train(args) -> int:
             train=dataclasses.replace(cfg.train, no_pt_epochs=1,
                                       no_ft_epochs=1, ft_steps_per_epoch=2,
                                       pt_batch_size=4))
-    trainer = Trainer(cfg, device=args.device, wandb_run=_maybe_wandb(cfg))
+    mesh = None
+    if args.mesh and pmesh.process_count() > 1:
+        mesh = pmesh.make_mesh(args.device)
+    trainer = Trainer(cfg, device=args.device, mesh=mesh,
+                      wandb_run=_maybe_wandb(cfg) if pmesh.process_index() == 0
+                      else None)
     trainer.pretrain()
+    rc = _train_real(cfg, trainer, mesh)
+    if mesh is not None:
+        print(f"rank {mesh.rank} of {mesh.world_size}: " + json.dumps({
+            "pretrain": trainer.last_pretrain_metrics,
+            "finetune": trainer.last_finetune_metrics,
+            "launches": launch_counts()}), flush=True)
+    return rc
+
+
+def _train_real(cfg: QBoldConfig, trainer, mesh) -> int:
+    from . import infer
+    from .train import data as data_pipe
+    from .train.trainer import WeightStatus
 
     d = cfg.train.data_directory
     if not os.path.exists(d):
@@ -147,7 +190,8 @@ def cmd_train(args) -> int:
     if baseline is not None:
         stats = trainer.estimate_population_param_distribution(
             _with_brain_mask(baseline))
-        print("population stats (for prior init):", stats)
+        if trainer.writes:
+            print("population stats (for prior init):", stats)
         if trainer.status is WeightStatus.PRE_TRAINED:
             for name, arr in (("pt_baseline", baseline),
                               ("pt_hyperv", hyperv)):
@@ -155,7 +199,7 @@ def cmd_train(args) -> int:
                     continue
                 infer.save_predictions(
                     trainer.tuner, cfg, _with_brain_mask(arr),
-                    os.path.join(save, name), seed=5,
+                    os.path.join(save, name), seed=5, mesh=mesh,
                     transform_directory=_transforms(d, name.split("_")[1]))
 
     # per-voxel priors from the pre-finetune encoder, for the KL maps of
@@ -176,7 +220,7 @@ def cmd_train(args) -> int:
             trainer.tuner, cfg, _with_brain_mask(arr),
             os.path.join(save, name), seed=7,
             transform_directory=_transforms(d, name), use_first_op=False,
-            fine_tuned=True, priors=priors.get(name))
+            fine_tuned=True, priors=priors.get(name), mesh=mesh)
     return 0
 
 
@@ -501,7 +545,22 @@ def cmd_transfer(args) -> int:
     return 0
 
 
-_UNPORTED = ("sweep", "dryrun")
+def cmd_dryrun(args) -> int:
+    """The sharded paths on ``--devices`` spawned ranks (parallel/
+    dryrun.py), or with ``--processes`` > 1 on that many: both are the
+    multi-process certification against one process (parallel/
+    multihost.py); prints the result's JSON."""
+    from .parallel import dryrun, multihost
+
+    if args.processes > 1:
+        out = multihost.certify(args.processes, device=args.device)
+    else:
+        out = dryrun.run(args.devices, device=args.device)
+    print(json.dumps(out))
+    return 0
+
+
+_UNPORTED = ("sweep",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -537,12 +596,16 @@ def build_parser() -> argparse.ArgumentParser:
     sp = add("train", help="two-phase training")
     sp.add_argument("--smoke", action="store_true",
                     help="tiny end-to-end run (verification)")
-    for flag, kw in (("--mesh", dict(action="store_true")),
-                     ("--coordinator", dict(default=None)),
-                     ("--num-processes", dict(type=int, default=None)),
-                     ("--process-id", dict(type=int, default=None))):
-        sp.add_argument(flag, help="data-parallel / multi-host training: "
-                        "not ported yet (ROADMAP.md), exits 2", **kw)
+    sp.add_argument("--mesh", action="store_true",
+                    help="data-parallel over the ranks of --coordinator "
+                         "(one process a device)")
+    sp.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="the rendezvous of a multi-process run, served by "
+                         "rank 0: run the SAME command for every rank with "
+                         "its own --process-id; checkpoints, logs and maps "
+                         "come from rank 0")
+    sp.add_argument("--num-processes", type=int, default=None)
+    sp.add_argument("--process-id", type=int, default=None)
     sp.set_defaults(fn=cmd_train)
 
     transform_help = ("directory with nonlin<i>.nii.gz warps + "
@@ -630,6 +693,16 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--output", "-o", required=True,
                     help="save_directory for the transferred checkpoint")
     sp.set_defaults(fn=cmd_transfer)
+
+    sp = add("dryrun", help="the sharded paths on spawned ranks")
+    sp.add_argument("--devices", type=int, default=8,
+                    help="ranks to spawn, one device each")
+    sp.add_argument("--processes", type=int, default=1,
+                    help="certify this many ranks against one process "
+                         "(metrics bit-equal across ranks and within rtol "
+                         "2e-5 of the single-process run); --devices is "
+                         "then not read")
+    sp.set_defaults(fn=cmd_dryrun)
 
     for name in _UNPORTED:    # main() answers these before parsing
         sub.add_parser(name, help="not ported yet (ROADMAP.md): exits 2")

@@ -192,8 +192,9 @@ class TrainConfig:
     fused_decode_nll: str = "auto"
     # Fused ELBO kernel mode ("auto"/"on"/"off"/"host"/...).
     fused_elbo: str = "auto"
-    # Subject-sharded training-data residency under a mesh (not ported
-    # yet; kept so the two configs stay field-for-field equal).
+    # Subject-sharded training-data residency under a mesh: "on" gives each
+    # rank only its ceil(S / n) subjects; "auto" does so above the
+    # Trainer's SHARD_SUBJECTS_AUTO_BYTES (1 GiB of volumes + priors).
     ft_shard_subjects: str = "auto"
     ft_steps_per_epoch: int = 100     # reference: train.py:376
     ft_batch_size: int = 38           # reference: train.py:68

@@ -45,8 +45,15 @@ one copy back at the end.
 ``save_predictions(transform_directory=)`` adds the FSL MNI-space export
 (io/fsl.py) where FSL and nibabel are installed, and takes the maps'
 NIfTI header from the directory's ``example.nii.gz`` where nibabel is.
-Not ported yet, and raising ``NotImplementedError`` rather than doing
-something else: mesh-sharded export (``mesh=``).
+
+Under a mesh (parallel/mesh.py), ``posterior_maps_sharded`` and
+``elbo_maps_sharded`` (the JAX infer.py:494-681) pad the subjects to a
+multiple of the world size, run each rank's subjects through the paths
+above, all-gather the maps and slice the padding off. Every draw is keyed
+by its GLOBAL subject or voxel index (each rank passes its first
+subject's index as ``start``), so the sharded maps take exactly the
+single-device draws, as the JAX ``_chunk_key_chain`` arranges;
+``save_predictions(mesh=)`` routes to them and writes its files on rank 0.
 """
 
 from __future__ import annotations
@@ -65,9 +72,11 @@ from .ops.quadrature import quad_posterior_summaries
 from .ops.summarize import (mc_draws, mc_kl_map, mc_normals,
                             mc_posterior_summaries,
                             mc_posterior_summaries_packed)
+from .parallel import mesh as pmesh
 from .train import losses
 
 __all__ = ["posterior_maps", "elbo_maps", "save_predictions",
+           "posterior_maps_sharded", "elbo_maps_sharded",
            "to_channel_major", "draw_noise"]
 
 
@@ -218,6 +227,73 @@ def _chunk_encoder(tuner: FineTuner, block: torch.Tensor,
             "raw_log_stds": _raw_log_stds(tuner, q, -1)}
 
 
+def _posterior_maps_device(tuner: FineTuner, data: np.ndarray, *, seed: int,
+                           no_samples: int, use_first_op: bool, chunk: int,
+                           method: str, antithetic: bool,
+                           start: int = 0) -> dict:
+    """posterior_maps' (means, stds, raw_log_stds) on the device;
+    ``start`` is the request index of ``data``'s first subject."""
+    device = tuner.device
+    fused = use_first_op and _resolve_fused_infer(tuner.cfg, device)
+    draws = mc_draws(no_samples, antithetic) if method == "mc" else 0
+    outs = []
+    for i in range(0, data.shape[0], chunk):
+        block = torch.from_numpy(np.ascontiguousarray(
+            data[i:i + chunk], dtype=np.float32)).to(device)
+        mc = None
+        if method == "mc":
+            shape = tuple(block.shape[:-1])
+            noise = draw_noise("summaries", seed, start + i, shape, draws,
+                               device)
+            mc = dict(_flat_noise(noise, int(np.prod(shape))),
+                      no_samples=no_samples, antithetic=antithetic)
+        outs.append(_chunk_fused(tuner, block, mc) if fused
+                    else _chunk_encoder(tuner, block, use_first_op, mc))
+    return {k: torch.cat([o[k] for o in outs], 0) for k in outs[0]}
+
+
+def _maps_dict(cat: dict) -> dict:
+    means = cat["means"]
+    return {"oef": means[..., 0:1], "dbv": means[..., 1:2],
+            "r2p": means[..., 2:3], "stds": cat["stds"],
+            "raw_log_stds": cat["raw_log_stds"]}
+
+
+def _rank_subjects(mesh, arr: np.ndarray) -> tuple:
+    """(rows, lo): the rank's subjects of ``arr`` zero-padded to a multiple
+    of the world size (padded subjects carry an all-zero mask), and the
+    request index of its first."""
+    n = arr.shape[0]
+    lo, hi = pmesh.host_local_rows(mesh, n + (-n) % mesh.world_size)
+    rows = np.zeros((hi - lo,) + arr.shape[1:], np.float32)
+    rows[:max(min(hi, n) - lo, 0)] = arr[lo:hi]
+    return rows, lo
+
+
+@torch.no_grad()
+def posterior_maps_sharded(tuner: FineTuner, data: np.ndarray, mesh, *,
+                           seed: int = 0, no_samples: int = 200,
+                           use_first_op: bool = True, chunk: int = 2,
+                           method: str = "quadrature",
+                           antithetic: bool = True) -> dict:
+    """posterior_maps over ``mesh``: the subjects, of ANY count, are padded
+    to a multiple of the world size; each rank maps its own through
+    posterior_maps' path (kernel B, or C and D, for stream 1; the
+    encoder, then A or D), keyed by their request indices, so its draws
+    are posterior_maps'; the ranks all-gather the maps (the JAX
+    posterior_maps_sharded). Every rank returns the whole request's
+    numpy maps."""
+    _check_method(method)
+    rows, lo = _rank_subjects(mesh, data)
+    local = _posterior_maps_device(
+        tuner, rows, seed=seed, no_samples=no_samples,
+        use_first_op=use_first_op, chunk=chunk, method=method,
+        antithetic=antithetic, start=lo)
+    n = data.shape[0]
+    return _maps_dict({k: pmesh.all_gather_rows(mesh, v)[:n].cpu().numpy()
+                       for k, v in local.items()})
+
+
 @torch.no_grad()
 def posterior_maps(tuner: FineTuner, data: np.ndarray, *, seed: int = 0,
                    no_samples: int = 200, use_first_op: bool = True,
@@ -237,27 +313,11 @@ def posterior_maps(tuner: FineTuner, data: np.ndarray, *, seed: int = 0,
     which the reference saves as ``_logstds`` -- and raw_log_stds
     (S,X,Y,Z,2|3)."""
     _check_method(method)
-    device = tuner.device
-    fused = use_first_op and _resolve_fused_infer(tuner.cfg, device)
-    draws = mc_draws(no_samples, antithetic) if method == "mc" else 0
-    outs = []
-    for i in range(0, data.shape[0], chunk):
-        block = torch.from_numpy(np.ascontiguousarray(
-            data[i:i + chunk], dtype=np.float32)).to(device)
-        mc = None
-        if method == "mc":
-            shape = tuple(block.shape[:-1])
-            noise = draw_noise("summaries", seed, i, shape, draws, device)
-            mc = dict(_flat_noise(noise, int(np.prod(shape))),
-                      no_samples=no_samples, antithetic=antithetic)
-        outs.append(_chunk_fused(tuner, block, mc) if fused
-                    else _chunk_encoder(tuner, block, use_first_op, mc))
-    cat = {k: torch.cat([o[k] for o in outs], 0).cpu().numpy()
-           for k in outs[0]}
-    means = cat["means"]
-    return {"oef": means[..., 0:1], "dbv": means[..., 1:2],
-            "r2p": means[..., 2:3], "stds": cat["stds"],
-            "raw_log_stds": cat["raw_log_stds"]}
+    local = _posterior_maps_device(
+        tuner, data, seed=seed, no_samples=no_samples,
+        use_first_op=use_first_op, chunk=chunk, method=method,
+        antithetic=antithetic)
+    return _maps_dict({k: v.cpu().numpy() for k, v in local.items()})
 
 
 def _elbo_maps_one(tuner: FineTuner, cfg: QBoldConfig, block, priors, *,
@@ -340,7 +400,18 @@ def elbo_maps(tuner: FineTuner, cfg: QBoldConfig, data: np.ndarray,
     MVG head it runs through ops/summarize.py::mc_kl_map (kernel E on the
     card, its plain version on the CPU), otherwise through
     losses.kl_loss."""
-    with_kl = priors is not None or cfg.model.use_population_prior
+    local = _elbo_maps_device(tuner, cfg, data, priors, seed=seed,
+                              no_samples=no_samples, chunk=chunk)
+    return {k: v.cpu().numpy() for k, v in local.items()}
+
+
+def _elbo_maps_device(tuner: FineTuner, cfg: QBoldConfig, data, priors, *,
+                      seed: int, no_samples: int, chunk: int,
+                      with_kl: bool | None = None, start: int = 0) -> dict:
+    """elbo_maps' maps on the device; ``start`` is the request index of
+    ``data``'s first subject."""
+    if with_kl is None:
+        with_kl = priors is not None or cfg.model.use_population_prior
     device = tuner.device
     outs = []
     for i in range(0, data.shape[0], chunk):
@@ -351,10 +422,29 @@ def elbo_maps(tuner: FineTuner, cfg: QBoldConfig, data: np.ndarray,
             p = torch.from_numpy(np.ascontiguousarray(
                 priors[i:i + chunk], dtype=np.float32)).to(device)
         outs.append(_elbo_maps_one(
-            tuner, cfg, block, p, seed=seed, start=i, no_samples=no_samples,
-            kl_samples=100, with_kl=with_kl))
-    return {k: torch.cat([o[k] for o in outs], 0).cpu().numpy()
-            for k in outs[0]}
+            tuner, cfg, block, p, seed=seed, start=start + i,
+            no_samples=no_samples, kl_samples=100, with_kl=with_kl))
+    return {k: torch.cat([o[k] for o in outs], 0) for k in outs[0]}
+
+
+@torch.no_grad()
+def elbo_maps_sharded(tuner: FineTuner, cfg: QBoldConfig, data: np.ndarray,
+                      priors, mesh, *, seed: int = 0, no_samples: int = 100,
+                      chunk: int = 1) -> dict:
+    """elbo_maps over ``mesh``: subjects padded to a multiple of the world
+    size (the padding's mask is zero), each rank's through elbo_maps'
+    path (kernel E for an MVG head's KL map) under their request indices,
+    so the maps take elbo_maps' draws; all-gathered, the padding sliced
+    off (the JAX elbo_maps_sharded). Every rank returns the numpy maps."""
+    with_kl = priors is not None or cfg.model.use_population_prior
+    rows, lo = _rank_subjects(mesh, data)
+    p = None if priors is None else _rank_subjects(mesh, priors)[0]
+    local = _elbo_maps_device(tuner, cfg, rows, p, seed=seed,
+                              no_samples=no_samples, chunk=chunk,
+                              with_kl=with_kl, start=lo)
+    n = data.shape[0]
+    return {k: pmesh.all_gather_rows(mesh, v)[:n].cpu().numpy()
+            for k, v in local.items()}
 
 
 def save_predictions(tuner: FineTuner, cfg: QBoldConfig, data: np.ndarray,
@@ -373,15 +463,20 @@ def save_predictions(tuner: FineTuner, cfg: QBoldConfig, data: np.ndarray,
     example's header, and where FSL is installed the (OEF, DBV, R2') maps
     are also warped to MNI space (``_oef_mni`` ...; io/fsl.py) -- with a
     warning and without the warp where nibabel is missing, as the JAX
-    package does (infer.py:778-792)."""
+    package does (infer.py:778-792). With ``mesh`` the maps are
+    posterior_maps_sharded's and elbo_maps_sharded's, every rank returns
+    them, and rank 0 writes the files (rank 0 of an initialised process
+    group without a mesh, too)."""
     from .io import fsl, nifti
 
     _check_method(method)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sharded export) is not ported yet: ROADMAP.md")
-    maps = posterior_maps(tuner, data, seed=seed, use_first_op=use_first_op,
-                          method=method)
+    if mesh is None:
+        maps = posterior_maps(tuner, data, seed=seed,
+                              use_first_op=use_first_op, method=method)
+    else:
+        maps = posterior_maps_sharded(tuner, data, mesh, seed=seed,
+                                      use_first_op=use_first_op,
+                                      method=method)
     suffixes = [("oef", "_oef"), ("dbv", "_dbv"), ("r2p", "_r2p"),
                 ("stds", "_logstds"), ("raw_log_stds", "_raw_logstds")]
     if fine_tuned:
@@ -392,10 +487,14 @@ def save_predictions(tuner: FineTuner, cfg: QBoldConfig, data: np.ndarray,
                 "(reference train.py:26-31) -- pass priors= (e.g. from "
                 "train.data.predict_priors); exporting _likelihood/"
                 "_residual only", stacklevel=2)
-        extra = elbo_maps(tuner, cfg, data, priors, seed)
+        extra = (elbo_maps(tuner, cfg, data, priors, seed) if mesh is None
+                 else elbo_maps_sharded(tuner, cfg, data, priors, mesh,
+                                        seed=seed))
         maps.update(extra)
         suffixes += [(k, "_" + k) for k in ("likelihood", "kl", "residual")
                      if k in extra]
+    if (pmesh.process_index() if mesh is None else mesh.rank) != 0:
+        return maps                  # rank 0 writes
     if transform_directory and fsl.have_fsl():
         if nifti.have_nibabel():
             fsl.warp_maps_to_mni(maps["oef"], maps["dbv"], maps["r2p"],

@@ -7,6 +7,9 @@ built at first use into
 ``qbold_vi_tpu_torch/_build/`` (git-ignored), under a name keyed by a
 hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. Nothing here runs at import time.
+Processes that start cold together (the ranks of a sharded run) build
+once: the build holds an exclusive ``flock`` on ``_build/.lock``, and a
+process that waited for it finds the library built.
 
 Each C entry launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` turns a non-zero code into an
@@ -29,6 +32,7 @@ which the flag leaves alone.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -174,6 +178,14 @@ def _build() -> Path:
     lib = BUILD_DIR / f"libqbold_kernels_{_digest()}.so"
     if lib.is_file():
         return lib
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)       # released when closed
+        if not lib.is_file():
+            _compile(lib)
+    return lib
+
+
+def _compile(lib: Path) -> None:
     tag = f"tmp{os.getpid()}"
     objs = [BUILD_DIR / f"{Path(s).stem}_{_digest()}.{tag}.o" for s in SOURCES]
     cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
@@ -201,7 +213,6 @@ def _build() -> Path:
         raise RuntimeError(f"nvcc failed: {' '.join(failed[0])}\n"
                            + log.read_text())
     os.replace(tmp, lib)
-    return lib
 
 
 @functools.lru_cache(maxsize=None)

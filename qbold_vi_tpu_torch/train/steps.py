@@ -4,10 +4,12 @@ The counterpart of ``qbold_vi_tpu/train/steps.py``: the pretraining step
 and evaluation (``posterior_mse_metrics`` :47, ``_pretrain_loss`` /
 ``make_pretrain_step`` :63-113, ``make_pretrain_eval`` :570), the
 streaming pretrain (``stream_synthetic_batch`` :389, ``_stream_step_body``
-/ ``make_pretrain_stream_step`` / ``make_pretrain_stream_epoch``
-:424-526, without the mesh branch), and the
-fine-tune part (``sample_crop_batch`` :116, ``make_finetune_epoch_on_device``
-:155, ``_fused_nll_fn`` / ``_fused_elbo_fn`` / ``_finetune_terms``
+/ ``make_pretrain_stream_step`` / ``make_pretrain_stream_epoch`` /
+``make_pretrain_stream_step_sharded`` :424-567), and the fine-tune part
+(``sample_crop_batch`` :116, ``make_finetune_epoch_on_device`` :155,
+``_device_crop_counts`` / ``make_finetune_epoch_sharded`` :194-276,
+``_subject_shard_counts`` / ``make_finetune_epoch_subject_sharded``
+:279-386, ``_fused_nll_fn`` / ``_fused_elbo_fn`` / ``_finetune_terms``
 :598-813, ``make_finetune_step`` :827, ``make_finetune_eval`` :883).
 
 Pretraining scores the synthetic (oef, dbv, r2p) labels under the
@@ -44,6 +46,20 @@ from the seed too (kernel S on the card, ops/synth_batch.py), or takes
 the batch's ``draws`` (the layout of ``stream_synthetic_batch``), the
 JAX key's in the tests.
 
+Under a mesh (parallel/mesh.py; one process a device) the parameters are
+replicated and every rank runs the same steps on its own rows: a rank
+draws its crops or its synthetic volumes from ``fold_seed(seed, rank)``
+(the JAX ``fold_in(key, d)``), of which the first ``_device_crop_counts``
+(or ``_subject_shard_counts``) slots are live and the rest carry a zero
+mask; each term is rescaled to its share of the global masked mean (the
+rank's mask count over the all-reduced count, the JAX ``_globalise``),
+and ONE all-reduce sums every gradient and the step's metrics, after
+which every rank applies the same update, so the parameters stay equal
+bit for bit. The streaming pretrain takes the live-weighted mean over
+the all-reduced live-voxel count. With one rank the reduction is the
+identity and the scale 1: a sharded step is the unsharded one bit for
+bit.
+
 The steps run forward and backward with TF32 off for cuDNN and matmuls
 (``models.encoder._full_fp32``): the gradients are float32, as the JAX
 package's are.
@@ -51,6 +67,7 @@ package's are.
 
 from __future__ import annotations
 
+import hashlib
 import math
 from typing import Optional
 
@@ -62,6 +79,7 @@ from ..models.vi import FineTuner
 from ..ops.decode_nll import decode_consts, decode_nll_rows, fused_available
 from ..ops.fused_elbo import fused_elbo, fused_elbo_available
 from ..ops.synth_batch import synth_batch
+from ..parallel import mesh as pmesh
 from ..synth import sample_batch_params, synthetic_signals
 from . import losses
 from .optim import swa_update
@@ -72,7 +90,9 @@ __all__ = ["posterior_mse_metrics", "pretrain_loss", "make_pretrain_step",
            "sample_crop_batch", "finetune_terms",
            "make_finetune_step", "make_finetune_epoch_on_device",
            "make_finetune_eval", "resolve_fused_elbo", "resolve_fused_nll",
-           "normals"]
+           "normals", "fold_seed", "make_pretrain_stream_step_sharded",
+           "make_finetune_epoch_sharded",
+           "make_finetune_epoch_subject_sharded"]
 
 _SEED_HI = 2 ** 62
 
@@ -136,6 +156,79 @@ def _split_seed(seed: int, n: int) -> list:
     return torch.randint(0, _SEED_HI, (n,), generator=gen).tolist()
 
 
+def fold_seed(seed: int, rank: int) -> int:
+    """Rank ``rank``'s seed of the stream under ``seed`` (BLAKE2b): the
+    counterpart of ``jax.random.fold_in(key, d)``, so that ranks draw
+    disjoint crops and noise."""
+    h = hashlib.blake2b(repr((int(seed), int(rank))).encode(), digest_size=8)
+    return int.from_bytes(h.digest(), "little") % _SEED_HI
+
+
+def _device_crop_counts(b_global: int, n_dev: int):
+    """(b_local, counts): every device samples ``b_local = ceil(b/n)``
+    crop SLOTS (static shape, same SPMD program) but only its first
+    ``counts[d] = b//n + (d < b%n)`` are live -- counts sum to exactly
+    ``b_global``, so the published global batch (38, reference
+    train.py:68) is preserved on ANY mesh size via pad-and-mask instead
+    of being silently rounded to a multiple of the mesh."""
+    b_local = -(-b_global // n_dev)
+    return b_local, (b_global // n_dev, b_global % n_dev)
+
+
+def _subject_shard_counts(n_subjects: int, n_dev: int, b_global: int):
+    """Static layout of the subject-sharded fine-tune epoch.
+
+    Subjects pad to ``s_pad = chunk*n`` rows (``chunk = ceil(S/n)``) so
+    the stack shards evenly. jax shards the leading axis CONTIGUOUSLY
+    in chunk-sized blocks, so device d's local shard holds rows
+    ``[d*chunk, (d+1)*chunk)`` of the padded stack and its LIVE subject
+    count is ``subj[d] = clamp(S - d*chunk, 0, chunk)`` -- full chunks
+    up front, one partial chunk, zeros after (NOT the round-robin
+    ``S//n + (d < S%n)`` split, which would skip real subjects on
+    full-chunk devices and sample pad rows on the partial one whenever
+    S > n and S % n != 0). The global batch of ``b_global`` crops is
+    apportioned to devices proportionally to their live subject counts
+    by largest remainder (deterministic, ties to the lower device
+    index), so counts sum EXACTLY to b_global and each crop's subject
+    marginal is uniform over all S subjects up to the <1-crop-per-device
+    apportionment rounding (exact whenever b_global*subj[d]/S is
+    integral -- e.g. equal shards). Returns (s_pad, subj, crops,
+    b_local) with b_local = max(crops) slot count (pad slots are
+    dead-masked, the pad-and-mask mechanism of _device_crop_counts)."""
+    chunk = -(-n_subjects // n_dev)
+    s_pad = chunk * n_dev
+    subj = [min(max(n_subjects - d * chunk, 0), chunk)
+            for d in range(n_dev)]
+    quota = [b_global * s / n_subjects for s in subj]
+    crops = [int(q) for q in quota]
+    short = b_global - sum(crops)
+    order = sorted(range(n_dev), key=lambda d: (crops[d] - quota[d], d))
+    for d in order[:short]:
+        crops[d] += 1
+    assert sum(crops) == b_global
+    return s_pad, subj, crops, max(max(crops), 1)
+
+
+def _live(b_local: int, n_live: int, device) -> torch.Tensor:
+    """(b_local,) float flags: the first ``n_live`` slots live."""
+    return (torch.arange(b_local) < n_live).to(torch.float32).to(device)
+
+
+def _reduce_step(mesh, params: list, metrics: dict) -> dict:
+    """Sum every parameter's gradient and the step's metrics over the
+    ranks in ONE all-reduce; the sums replace each rank's gradients, and
+    the summed metrics are returned (detached)."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    names = list(metrics)
+    mesh.counts["step_reduce"] += 1
+    out = pmesh.all_reduce_sum(
+        mesh, grads + [metrics[k].detach() for k in names])
+    for p, g in zip(params, out):
+        p.grad = g
+    return dict(zip(names, out[len(params):]))
+
+
 def posterior_mse_metrics(tuner: FineTuner, q: torch.Tensor,
                           y_true: torch.Tensor, z: torch.Tensor) -> dict:
     """OEF, DBV and R2' mean squared errors of the MC posterior means over
@@ -153,8 +246,9 @@ def posterior_mse_metrics(tuner: FineTuner, q: torch.Tensor,
 
 
 def pretrain_loss(tuner: FineTuner, cfg: QBoldConfig, batch: dict, *,
-                  seed: Optional[int] = None,
-                  noise: Optional[dict] = None) -> torch.Tensor:
+                  seed: Optional[int] = None, noise: Optional[dict] = None,
+                  live: Optional[torch.Tensor] = None,
+                  mesh=None) -> torch.Tensor:
     """The mean synthetic loss of a batch {x (B, X, Y, Z, T), y (..., 3)}.
 
     The loss reads only the encoder's first output, which ``Encoder.stream1``
@@ -166,32 +260,59 @@ def pretrain_loss(tuner: FineTuner, cfg: QBoldConfig, batch: dict, *,
     ``dropout_rate`` > 0 computes what one without it does, as the JAX
     step does, and validation (the JAX ``train=False``) is the same pass.
     The R2' term's normals come from ``noise`` ("z_r2p") or the
-    ``seed``."""
+    ``seed``.
+
+    ``live`` (B,) flags the real volumes of a rank's slots: the loss is
+    then the live-weighted sum over the live-voxel count, all-reduced
+    under ``mesh``, so that the ranks' losses sum to the global mean (the
+    JAX ``_pretrain_loss(live=, axis_name=)``)."""
     x = batch["x"]
     z = None
     if cfg.train.use_r2p_loss:
         shape = (losses.R2P_LOSS_SAMPLES, x[..., 0].numel(), 2)
         z = _noise(noise, "z_r2p", seed, shape, x.device)
-    return losses.synthetic_data_loss(
+    rows = losses.synthetic_data_loss(
         tuner.dist, cfg.model, cfg.scan, batch["y"], tuner.encoder.stream1(x),
         use_r2p_loss=cfg.train.use_r2p_loss,
         inv_gamma_alpha=cfg.train.inv_gamma_alpha,
-        inv_gamma_beta=cfg.train.inv_gamma_beta, z=z)
+        inv_gamma_beta=cfg.train.inv_gamma_beta, z=z,
+        return_mean=live is None)
+    if live is None:
+        return rows
+    b = x.shape[0]
+    n_per_vol = rows.shape[0] // b
+    num = torch.sum(torch.sum(rows.reshape(b, n_per_vol), 1) * live)
+    den = torch.sum(live) * n_per_vol
+    if mesh is not None:
+        den = pmesh.all_reduce_sum(mesh, [den])[0]
+    return num / den
 
 
-def make_pretrain_step(tuner: FineTuner, cfg: QBoldConfig, optimizer):
-    """step(batch, *, seed=None, noise=None) -> {"loss"} (detached, on the
-    device): the synthetic loss and its gradients with TF32 off, then one
-    optimiser update. SWA is the caller's (optim.swa_update)."""
+def make_pretrain_step(tuner: FineTuner, cfg: QBoldConfig, optimizer,
+                       mesh=None):
+    """step(batch, *, seed=None, noise=None, live=None) -> {"loss"}
+    (detached, on the device): the synthetic loss and its gradients with
+    TF32 off, then one optimiser update. SWA is the caller's
+    (optim.swa_update). Under ``mesh`` the batch is the rank's slots,
+    ``live`` flags its real volumes (default all), and the gradients and
+    the loss are summed over the ranks before the update."""
 
     def step(batch: dict, *, seed: Optional[int] = None,
-             noise: Optional[dict] = None) -> dict:
+             noise: Optional[dict] = None,
+             live: Optional[torch.Tensor] = None) -> dict:
         optimizer.zero_grad()
+        if mesh is not None and live is None:
+            live = _live(batch["x"].shape[0], batch["x"].shape[0],
+                         batch["x"].device)
         with _full_fp32():
-            loss = pretrain_loss(tuner, cfg, batch, seed=seed, noise=noise)
+            loss = pretrain_loss(tuner, cfg, batch, seed=seed, noise=noise,
+                                 live=live, mesh=mesh)
             loss.backward()
+        metrics = {"loss": loss.detach()}
+        if mesh is not None:
+            metrics = _reduce_step(mesh, optimizer.params, metrics)
         optimizer.step()
-        return {"loss": loss.detach()}
+        return metrics
 
     return step
 
@@ -228,18 +349,14 @@ def stream_synthetic_batch(cfg: QBoldConfig, batch_size: int, draws: dict,
             "y": y.reshape(shape + (3,))}
 
 
-def make_pretrain_stream_step(tuner: FineTuner, cfg: QBoldConfig, optimizer):
-    """step(seed=None, *, swa=None, draws=None, noise=None) -> ({"loss"},
-    swa): one streaming pretraining step on a fresh batch of
-    ``pt_batch_size`` pseudo-volumes -- drawn under the seed's first split
-    by ``ops.synth_batch.synth_batch`` (kernel S on the card), or by the
-    plain version from ``draws`` -- then the synthetic loss (normals from
-    the seed's second split, or ``noise``), its gradients, the optimiser
-    update and, given an SWA state, its update (the JAX key split k_batch,
-    k_loss as two seeds)."""
-    update = make_pretrain_step(tuner, cfg, optimizer)
+def _stream_step(tuner: FineTuner, cfg: QBoldConfig, optimizer, b: int,
+                 mesh=None, live: Optional[torch.Tensor] = None):
+    """The streaming step on ``b`` pseudo-volumes (the JAX
+    ``_stream_step_body``); under ``mesh`` on the rank's slots, ``live``
+    flagging the real ones, the gradients and loss summed over ranks."""
+    update = make_pretrain_step(tuner, cfg, optimizer, mesh)
     named = list(tuner.named_parameters())
-    b, tw = cfg.train.pt_batch_size, cfg.train
+    tw = cfg.train
 
     def step(seed: Optional[int] = None, *, swa=None,
              draws: Optional[dict] = None, noise: Optional[dict] = None):
@@ -250,7 +367,7 @@ def make_pretrain_stream_step(tuner: FineTuner, cfg: QBoldConfig, optimizer):
             batch = synth_batch(cfg, b, seeds[0], device=tuner.device)
         else:
             raise ValueError("a streaming step needs a seed or its draws")
-        metrics = update(batch, seed=seeds[1], noise=noise)
+        metrics = update(batch, seed=seeds[1], noise=noise, live=live)
         if swa is not None:
             swa = swa_update(swa, named, tw.swa_start, tw.swa_period)
         return metrics, swa
@@ -258,16 +375,64 @@ def make_pretrain_stream_step(tuner: FineTuner, cfg: QBoldConfig, optimizer):
     return step
 
 
+def _stream_slots(cfg: QBoldConfig, mesh, device) -> tuple:
+    """(b_local, live) of the rank's streaming batch."""
+    b_local, (c_base, c_rem) = _device_crop_counts(cfg.train.pt_batch_size,
+                                                   mesh.world_size)
+    return b_local, _live(b_local, c_base + (mesh.rank < c_rem), device)
+
+
+def make_pretrain_stream_step(tuner: FineTuner, cfg: QBoldConfig, optimizer):
+    """step(seed=None, *, swa=None, draws=None, noise=None) -> ({"loss"},
+    swa): one streaming pretraining step on a fresh batch of
+    ``pt_batch_size`` pseudo-volumes -- drawn under the seed's first split
+    by ``ops.synth_batch.synth_batch`` (kernel S on the card), or by the
+    plain version from ``draws`` -- then the synthetic loss (normals from
+    the seed's second split, or ``noise``), its gradients, the optimiser
+    update and, given an SWA state, its update (the JAX key split k_batch,
+    k_loss as two seeds)."""
+    return _stream_step(tuner, cfg, optimizer, cfg.train.pt_batch_size)
+
+
+def make_pretrain_stream_step_sharded(tuner: FineTuner, cfg: QBoldConfig,
+                                      optimizer, mesh):
+    """The streaming step under ``mesh``: each rank draws its
+    ``ceil(pt_batch_size / n)`` pseudo-volumes (kernel S on the card)
+    under ``fold_seed(seed, rank)``, of which the first
+    ``_device_crop_counts`` are live; the live-weighted loss and the
+    gradients are summed over ranks, and every rank applies the same
+    update. step(seed=None, *, swa=None, draws=None, noise=None) as
+    make_pretrain_stream_step's, ``draws`` / ``noise`` being the rank's
+    (its b_local volumes')."""
+    b_local, live = _stream_slots(cfg, mesh, tuner.device)
+    inner = _stream_step(tuner, cfg, optimizer, b_local, mesh, live)
+
+    def step(seed: Optional[int] = None, **kw):
+        return inner(None if seed is None else fold_seed(seed, mesh.rank),
+                     **kw)
+
+    return step
+
+
 def make_pretrain_stream_epoch(tuner: FineTuner, cfg: QBoldConfig,
-                               optimizer, n_steps: int):
+                               optimizer, n_steps: int, mesh=None):
     """epoch(seed=None, *, swa=None, draws=None) -> (losses (n_steps,)
     numpy, swa): ``n_steps`` streaming steps, step i on the i-th split of
     the seed (or on the batch draws ``draws[i]``), the losses read back
-    from the device once."""
-    step = make_pretrain_stream_step(tuner, cfg, optimizer)
+    from the device once. Under ``mesh`` the steps are
+    make_pretrain_stream_step_sharded's, on the splits of the rank's
+    ``fold_seed(seed, rank)`` (``draws[i]`` the rank's), and the losses
+    are the global ones."""
+    if mesh is None:
+        step = make_pretrain_stream_step(tuner, cfg, optimizer)
+    else:
+        b_local, live = _stream_slots(cfg, mesh, tuner.device)
+        step = _stream_step(tuner, cfg, optimizer, b_local, mesh, live)
 
     def epoch(seed: Optional[int] = None, *, swa=None,
               draws: Optional[list] = None):
+        if seed is not None and mesh is not None:
+            seed = fold_seed(seed, mesh.rank)
         seeds = (_split_seed(seed, n_steps) if seed is not None
                  else [None] * n_steps)
         losses = []
@@ -280,26 +445,63 @@ def make_pretrain_stream_epoch(tuner: FineTuner, cfg: QBoldConfig,
     return epoch
 
 
+def _rows_normals(seed: int, shape: tuple, rows, device,
+                  axis: int = 1) -> torch.Tensor:
+    """normals(seed, shape), or under ``rows`` = (lo, hi, n) the rank's
+    rows [lo, hi) (along ``axis``) of the normals of the global batch of n
+    rows: the draws the unsharded pass over the global batch takes."""
+    if rows is None:
+        return normals(seed, shape, device)
+    lo, hi, n = rows
+    full = tuple(shape[:axis]) + (n,) + tuple(shape[axis + 1:])
+    return normals(seed, full, device).narrow(axis, lo, hi - lo)
+
+
 def make_pretrain_eval(tuner: FineTuner, cfg: QBoldConfig,
-                       mse_samples: int = 20):
-    """evaluate(batch, seed) -> the validation metrics of a synthetic batch:
-    val_loss (dropout off), the posterior-mean MSEs over ``mse_samples``
-    draws, and under infer_inv_gamma the learned hyperprior (reference
-    train.py:395-413)."""
+                       mse_samples: int = 20, mesh=None):
+    """evaluate(batch, seed, *, rows=None) -> the validation metrics of a
+    synthetic batch: val_loss (dropout off), the posterior-mean MSEs over
+    ``mse_samples`` draws, and under infer_inv_gamma the learned
+    hyperprior (reference train.py:395-413). Under ``mesh``, ``rows`` =
+    (lo, hi, n) says the batch holds rows [lo, hi) of a global batch of n
+    (parallel.mesh.shard_batch): the metrics are then the global batch's,
+    from the draws its unsharded evaluation takes, summed over ranks (the
+    JAX jitted eval of a sharded batch); a replicated batch (no ``rows``)
+    is evaluated on each rank as a whole."""
 
     @torch.no_grad()
-    def evaluate(batch: dict, seed: int) -> dict:
+    def evaluate(batch: dict, seed: int, *, rows=None) -> dict:
         x = batch["x"]
         seeds = _split_seed(seed, 2)
+        on = mesh if rows is not None else None      # a sharded batch
+        rows = rows if on is not None else None
+        b = x.shape[0]
+        noise = live = None
+        if on is not None:
+            live = _live(b, b, x.device)
+            if cfg.train.use_r2p_loss:
+                vox = x[0, ..., 0].numel()
+                noise = {"z_r2p": _rows_normals(
+                    seeds[0], (losses.R2P_LOSS_SAMPLES, b, vox, 2), rows,
+                    x.device)}
         with _full_fp32():
-            loss = pretrain_loss(tuner, cfg, batch, seed=seeds[0])
+            loss = pretrain_loss(tuner, cfg, batch, seed=seeds[0],
+                                 noise=noise, live=live, mesh=on)
             out1 = tuner.encoder.stream1(x)
         if cfg.model.infer_inv_gamma:
             out1 = out1[..., :-4]
-        z = normals(seeds[1], (mse_samples,) + tuple(out1.shape[:-1]) + (2,),
-                    x.device)
+        z = _rows_normals(seeds[1], (mse_samples,) + tuple(out1.shape[:-1])
+                          + (2,), rows, x.device)
         metrics = posterior_mse_metrics(tuner, out1, batch["y"], z)
         metrics["val_loss"] = loss
+        if on is not None:
+            # a rank's means weigh in by its share of the voxels
+            share = x.new_tensor((rows[1] - rows[0]) / rows[2])
+            parts = {k: v * share for k, v in metrics.items()
+                     if k != "val_loss"}
+            parts["val_loss"] = loss
+            metrics = dict(zip(parts, pmesh.all_reduce_sum(
+                on, list(parts.values()))))
         if cfg.model.infer_inv_gamma:
             a_o, b_o, a_d, b_d = torch.exp(tuner.encoder.inv_gamma_raw)
             metrics.update(oef_alpha=a_o, oef_beta=b_o, dbv_alpha=a_d,
@@ -348,13 +550,20 @@ def _noise(noise, key, seed, shape, device):
 def finetune_terms(tuner: FineTuner, cfg: QBoldConfig, batch: dict, *,
                    seed: Optional[int] = None, noise: Optional[dict] = None,
                    no_samples: Optional[int] = None, kl_samples: int = 70,
-                   train: bool = True, dropout_masks=None):
+                   train: bool = True, dropout_masks=None, mesh=None):
     """(total, aux{nll, kl, smoothness, sigma}) of one fine-tune batch
     {images (B, X, Y, Z, T), mask (..., 1)[, priors (..., 4|5)][, live]}.
     With ``train`` and ``dropout_rate`` > 0 the encoder pass drops units,
     its masks drawn on the device from the seed's fourth split, or taken
     from ``dropout_masks`` (models.encoder.Dropout), as ``noise`` injects
-    the normals."""
+    the normals.
+
+    Under ``mesh`` every masked-mean term is rescaled by the rank's mask
+    count over the all-reduced count, and sigma (an unmasked monitoring
+    mean) divided by the world size, so that the ranks' totals and terms
+    SUM to the global ones (the JAX ``_globalise``); the population
+    prior's hyperprior cost counts the rank's live crops
+    (``batch["live"]``)."""
     mcfg = cfg.model
     images, mask = batch["images"], batch["mask"]
     device = images.device
@@ -426,25 +635,47 @@ def finetune_terms(tuner: FineTuner, cfg: QBoldConfig, batch: dict, *,
            "sigma": torch.mean(sigma)}
     total = (nll + kl * cfg.train.kl_weight
              + smooth * cfg.train.smoothness_weight)
-    return total, aux
+    if mesh is None:
+        return total, aux
+    m_local = torch.sum(mask)
+    scale = m_local / pmesh.all_reduce_sum(mesh, [m_local.detach()])[0]
+    aux = {k: aux[k] * scale for k in ("nll", "kl", "smoothness")}
+    aux["sigma"] = torch.mean(sigma) / sigma.new_tensor(
+        float(mesh.world_size))
+    return total * scale, aux
 
 
-def make_finetune_step(tuner: FineTuner, cfg: QBoldConfig, optimizer):
+def make_finetune_step(tuner: FineTuner, cfg: QBoldConfig, optimizer,
+                       mesh=None):
     """step(batch, *, seed=None, noise=None, dropout_masks=None) -> metrics
     {loss, nll, kl, smoothness, sigma} (detached, on the device): loss and
-    gradients with TF32 off, then one optimiser update."""
+    gradients with TF32 off, then one optimiser update.
+
+    Under ``mesh`` the batch holds the rank's crop slots with their
+    ``live`` flags (dead slots' masks are zeroed here), and ``noise`` /
+    ``dropout_masks`` are the rank's; the terms are globalised
+    (finetune_terms), the gradients and the metrics summed over the ranks
+    in one all-reduce, and every rank applies the same update."""
 
     def step(batch: dict, *, seed: Optional[int] = None,
              noise: Optional[dict] = None, dropout_masks=None) -> dict:
         optimizer.zero_grad()
+        if mesh is not None and "live" in batch:
+            mask = batch["mask"]
+            live = batch["live"].reshape((-1,) + (1,) * (mask.dim() - 1))
+            batch = dict(batch, mask=mask * live)
         with _full_fp32():
             loss, aux = finetune_terms(tuner, cfg, batch, seed=seed,
                                        noise=noise,
-                                       dropout_masks=dropout_masks)
+                                       dropout_masks=dropout_masks,
+                                       mesh=mesh)
             loss.backward()
-        optimizer.step()
         aux["loss"] = loss
-        return {k: v.detach() for k, v in aux.items()}
+        aux = {k: v.detach() for k, v in aux.items()}
+        if mesh is not None:
+            aux = _reduce_step(mesh, optimizer.params, aux)
+        optimizer.step()
+        return aux
 
     return step
 
@@ -470,23 +701,86 @@ def make_finetune_epoch_on_device(tuner: FineTuner, cfg: QBoldConfig,
     return epoch
 
 
+def _sharded_epoch(tuner: FineTuner, cfg: QBoldConfig, optimizer,
+                   n_steps: int, mesh, b_local: int, n_live: int,
+                   n_subjects: Optional[int] = None):
+    step = make_finetune_step(tuner, cfg, optimizer, mesh)
+    live = _live(b_local, n_live, tuner.device)
+    crop = cfg.train.crop_size
+
+    def epoch(seed: int, volumes: torch.Tensor,
+              priors: torch.Tensor) -> dict:
+        gen = torch.Generator().manual_seed(fold_seed(seed, mesh.rank))
+        hist = []
+        for _ in range(n_steps):
+            batch = sample_crop_batch(gen, volumes, priors, b_local, crop,
+                                      n_subjects=n_subjects)
+            batch["live"] = live
+            s = int(torch.randint(0, _SEED_HI, (1,), generator=gen))
+            hist.append(step(batch, seed=s))
+        return {k: torch.stack([h[k] for h in hist]) for k in hist[0]}
+
+    return epoch
+
+
+def make_finetune_epoch_sharded(tuner: FineTuner, cfg: QBoldConfig,
+                                optimizer, n_steps: int, mesh):
+    """epoch(seed, volumes, priors) -> the global metrics, each a (n_steps,)
+    tensor: ``n_steps`` sharded steps (make_finetune_step under ``mesh``)
+    on replicated volumes and priors. Each rank draws its
+    ``ceil(ft_batch_size / n)`` crop slots and its step seeds from a
+    generator seeded with ``fold_seed(seed, rank)``; its first
+    ``_device_crop_counts`` slots are live, so every step trains on exactly
+    ``ft_batch_size`` crops whatever the world size (the JAX
+    make_finetune_epoch_sharded)."""
+    b_local, (c_base, c_rem) = _device_crop_counts(cfg.train.ft_batch_size,
+                                                   mesh.world_size)
+    return _sharded_epoch(tuner, cfg, optimizer, n_steps, mesh, b_local,
+                          c_base + (mesh.rank < c_rem))
+
+
+def make_finetune_epoch_subject_sharded(tuner: FineTuner, cfg: QBoldConfig,
+                                        optimizer, n_steps: int, mesh,
+                                        n_subjects: int):
+    """epoch(seed, volumes, priors) -> the global metrics, as
+    make_finetune_epoch_sharded's, where ``volumes`` / ``priors`` are only
+    the rank's rows (``parallel.mesh.shard_batch``) of the stack padded
+    to ``_subject_shard_counts``' s_pad subjects: each rank samples its
+    crop share from its live subjects only, so a rank holds
+    ceil(S / n) subjects, not S (the JAX
+    make_finetune_epoch_subject_sharded)."""
+    _, subj, crops, b_local = _subject_shard_counts(
+        n_subjects, mesh.world_size, cfg.train.ft_batch_size)
+    return _sharded_epoch(tuner, cfg, optimizer, n_steps, mesh, b_local,
+                          crops[mesh.rank], n_subjects=subj[mesh.rank])
+
+
 def make_finetune_eval(tuner: FineTuner, cfg: QBoldConfig,
-                       stochastic_passes: int = 10, kl_samples: int = 70):
-    """evaluate(batch, seed) -> the ELBO validation metrics (reference
-    train.py:325-359): the NLL averaged over ``stochastic_passes`` draws
-    through the plain decode, and the KL and smoothness once."""
+                       stochastic_passes: int = 10, kl_samples: int = 70,
+                       mesh=None):
+    """evaluate(batch, seed, *, rows=None) -> the ELBO validation metrics
+    (reference train.py:325-359): the NLL averaged over
+    ``stochastic_passes`` draws through the plain decode, and the KL and
+    smoothness once. Under ``mesh``, ``rows`` = (lo, hi, n) says the batch
+    holds crops [lo, hi) of a global batch of n: the metrics are then the
+    global batch's, from the draws of its unsharded evaluation (each term
+    rescaled to its share of the global masked mean and summed over
+    ranks); a replicated batch (no ``rows``) is evaluated as a whole."""
     mcfg = cfg.model
 
     @torch.no_grad()
-    def evaluate(batch: dict, seed: int) -> dict:
+    def evaluate(batch: dict, seed: int, *, rows=None) -> dict:
         images, mask = batch["images"], batch["mask"]
         vox = tuple(images.shape[:-1])
         seeds = _split_seed(seed, stochastic_passes + 1)
+        on = mesh if rows is not None else None      # a sharded batch
+        rows = rows if on is not None else None
         with _full_fp32():
             nlls = []
             for sd in seeds[1:]:
-                out = tuner.apply(images, normals(
-                    sd, (mcfg.no_samples,) + vox + (2,), images.device))
+                out = tuner.apply(images, _rows_normals(
+                    sd, (mcfg.no_samples,) + vox + (2,), rows,
+                    images.device))
                 pred = out["predicted_images"]
                 nlls.append(losses.fine_tune_nll(
                     mcfg, tuner.scan.se_idx, images.expand(pred.shape), pred,
@@ -497,13 +791,19 @@ def make_finetune_eval(tuner: FineTuner, cfg: QBoldConfig,
         prior = (tuner.prior_params(q) if mcfg.use_population_prior
                  else batch["priors"])
         if mcfg.use_mvg:
-            z = normals(seeds[0], (kl_samples,) + vox + (2,), images.device)
+            z = _rows_normals(seeds[0], (kl_samples,) + vox + (2,), rows,
+                              images.device)
         elif mcfg.use_population_prior and mcfg.mog_components > 1:
-            z = normals(seeds[0], (2,) + vox, images.device)
+            z = _rows_normals(seeds[0], (2,) + vox, rows, images.device)
         else:
             z = None
         kl = losses.kl_loss(tuner.dist, mcfg, prior, q, mask, z=z)
         smooth = losses.smoothness_loss(tuner.dist, q, mask)
+        if on is not None:
+            m_local = torch.sum(mask)
+            scale = m_local / pmesh.all_reduce_sum(on, [m_local])[0]
+            nll, kl, smooth = pmesh.all_reduce_sum(
+                on, [nll * scale, kl * scale, smooth * scale])
         tw = cfg.train
         return {"val_nll": nll, "val_kl": kl, "val_smoothness": smooth,
                 "val_smoothness_scaled": smooth * tw.smoothness_weight,

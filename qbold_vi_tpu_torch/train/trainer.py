@@ -48,9 +48,20 @@ and written by train/checkpoint.py, cross both ways):
   resumed run draws other crops and noise than an uninterrupted one;
   two runs resumed from one ``.partial`` end equal.
 
-The tuner lives on the CUDA card unless ``device="cpu"`` is given. Not
-ported yet, and raising ``NotImplementedError``: mesh / subject sharding
-(ROADMAP.md).
+The tuner lives on the CUDA card unless ``device="cpu"`` is given.
+
+Under a mesh (``Trainer(cfg, mesh=parallel.make_mesh())`` on every rank;
+the JAX trainer's mesh branches) the weights are broadcast from rank 0
+and stay replicated; the streaming pretrain runs the sharded epoch
+(every rank draws its own volumes, kernel S on the card), the host-set
+pretrain takes each rank's rows of every batch; fine-tuning runs the
+replicated epoch (the volumes on every rank) or, under
+``ft_shard_subjects`` "on" or "auto" above ``SHARD_SUBJECTS_AUTO_BYTES``,
+the subject-sharded one (a rank holds ceil(S / n) subjects);
+evaluation batches are sharded where the mesh divides them, replicated
+otherwise. Only rank 0 writes checkpoints and calls the logger; the NaN
+tripwire runs on every rank (the metrics are replicated, so all raise
+together).
 """
 
 from __future__ import annotations
@@ -64,8 +75,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..config import QBoldConfig
+from ..config import QBoldConfig, normalize_mode
 from ..models.vi import FineTuner, init_params
+from ..parallel import mesh as pmesh
 from ..synth import create_synthetic_dataset_host, pretrain_data_seed
 from . import data as data_pipe
 from .checkpoint import (CheckpointMismatchError, TrainState, _load_state,
@@ -73,7 +85,10 @@ from .checkpoint import (CheckpointMismatchError, TrainState, _load_state,
                          restore_optimizer)
 from .optim import (make_finetune_optimizer, make_pretrain_optimizer,
                     swa_init, swa_update)
-from .steps import (make_finetune_epoch_on_device, make_finetune_eval,
+from .steps import (_subject_shard_counts, fold_seed,
+                    make_finetune_epoch_on_device,
+                    make_finetune_epoch_sharded,
+                    make_finetune_epoch_subject_sharded, make_finetune_eval,
                     make_pretrain_eval, make_pretrain_step,
                     make_pretrain_stream_epoch)
 
@@ -144,14 +159,23 @@ class Trainer:
     _TRIPWIRE_EXEMPT = frozenset(
         {"oef_alpha", "oef_beta", "dbv_alpha", "dbv_beta"})
 
+    # the replicated volume + prior bytes above which ft_shard_subjects
+    # "auto" shards the subjects under a mesh (the JAX trainer's): a few MB
+    # at the published scale replicate for free; a cohort near a card's
+    # memory must shard or cannot train
+    SHARD_SUBJECTS_AUTO_BYTES: int = 1 << 30
+
     def __init__(self, cfg: QBoldConfig, *, state_dict: Optional[dict] = None,
                  resume_partial: bool = False, device=None, mesh=None,
                  logger: Callable[[str, int, dict], None] = _stdout_logger,
                  wandb_run=None):
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh / subject-sharded training is not ported yet "
-                "(ROADMAP.md)")
+            if device is not None and \
+                    torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
+        self.mesh = mesh
         self.cfg = cfg
         self.save_dir = cfg.train.save_directory
         if state_dict is not None:
@@ -188,6 +212,20 @@ class Trainer:
         self.last_finetune_metrics: dict = {}
         if state_dict is None:
             self._maybe_resume()
+        self._replicate()
+
+    @property
+    def writes(self) -> bool:
+        """Whether this process writes checkpoints and logs: rank 0 (of
+        the mesh, or of an initialised process group without one)."""
+        return (pmesh.process_index() if self.mesh is None
+                else self.mesh.rank) == 0
+
+    def _replicate(self) -> None:
+        """Rank 0's weights on every rank."""
+        if self.mesh is not None:
+            pmesh.replicate(self.mesh, [p.detach()
+                                        for p in self.tuner.parameters()])
 
     # ---- checkpoints ------------------------------------------------------
 
@@ -262,14 +300,22 @@ class Trainer:
         self._load_params(state.params)
         restore_optimizer(optimizer, self.tuner, state.opt_state)
         self.generator.manual_seed(self.cfg.train.seed)
+        self._replicate()
 
     def _save(self, path: str, phase: str, optimizer,
               steps_per_epoch: int = 0) -> int:
-        state = capture_state(self.tuner, optimizer,
-                              self.swa if phase == "pretrain" else None,
-                              opt_tail(phase, self.cfg.train))
-        return _save_state(path, state, cfg=self.cfg,
-                           steps_per_epoch=steps_per_epoch)
+        """Write the phase's state to ``path`` (rank 0 of a mesh, the others
+        waiting until it is written); the bytes written."""
+        n = 0
+        if self.writes:
+            state = capture_state(self.tuner, optimizer,
+                                  self.swa if phase == "pretrain" else None,
+                                  opt_tail(phase, self.cfg.train))
+            n = _save_state(path, state, cfg=self.cfg,
+                            steps_per_epoch=steps_per_epoch)
+        if self.mesh is not None:
+            pmesh.barrier(self.mesh)
+        return n
 
     def _phase_checkpoint(self, final_path: str, phase: str, optimizer,
                           epoch: int, steps_per_epoch: int) -> None:
@@ -280,7 +326,7 @@ class Trainer:
 
     def _phase_done(self, final_path: str) -> None:
         partial = self._partial_path(final_path)
-        if os.path.isfile(partial):
+        if self.writes and os.path.isfile(partial):
             os.remove(partial)
 
     def pretrained_params(self) -> Optional[dict]:
@@ -318,12 +364,27 @@ class Trainer:
             x, y = synthetic
         return data_pipe.split_synthetic(x, y)
 
-    def _clip_val_batch(self, vx: np.ndarray, vy: np.ndarray) -> dict:
-        """The validation batch: at most ~4k voxels, on the device."""
-        n_val = val_batch_count(len(vx), int(np.prod(vx.shape[1:4])))
+    def _put_eval_batch(self, batch: dict) -> tuple:
+        """(batch on the device, rows): under a mesh that divides its rows,
+        the rank's rows and rows = (lo, hi, n); otherwise the whole batch
+        (replicated) and None."""
+        lead = len(next(iter(batch.values())))
+        if self.mesh is not None and lead % self.mesh.world_size == 0:
+            lo, hi = pmesh.host_local_rows(self.mesh, lead)
+            return pmesh.shard_batch(self.mesh, batch), (lo, hi, lead)
         dev = self.tuner.device
-        return {"x": torch.from_numpy(np.ascontiguousarray(vx[:n_val])).to(dev),
-                "y": torch.from_numpy(np.ascontiguousarray(vy[:n_val])).to(dev)}
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in batch.items()}, None
+
+    def _clip_val_batch(self, vx: np.ndarray, vy: np.ndarray) -> tuple:
+        """The validation batch (at most ~4k voxels; under a mesh, a
+        multiple of the world size where the set allows) placed by
+        _put_eval_batch."""
+        n_val = val_batch_count(len(vx), int(np.prod(vx.shape[1:4])))
+        if self.mesh is not None:
+            n = self.mesh.world_size
+            n_val = max(n_val // n * n, min(len(vx), n))
+        return self._put_eval_batch({"x": vx[:n_val], "y": vy[:n_val]})
 
     def _seed(self) -> int:
         return int(torch.randint(0, _SEED_HI, (1,), generator=self.generator))
@@ -342,8 +403,9 @@ class Trainer:
             vx, vy = pretrain_val_fold(self.cfg, self.tuner.device)
         else:
             _, (vx, vy) = self.build_pretrain_data(synthetic)
-        evaluate = make_pretrain_eval(self.tuner, self.cfg)
-        m = evaluate(self._clip_val_batch(vx, vy), self._seed())
+        evaluate = make_pretrain_eval(self.tuner, self.cfg, mesh=self.mesh)
+        batch, rows = self._clip_val_batch(vx, vy)
+        m = evaluate(batch, self._seed(), rows=rows)
         return {k: float(v) for k, v in m.items()}
 
     def pretrain(self, synthetic: Optional[tuple] = None) -> dict:
@@ -362,7 +424,7 @@ class Trainer:
         if not streaming:
             tx_d, ty_d = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                           for a in train_set)
-        val_batch = self._clip_val_batch(vx, vy)
+        val_batch, val_rows = self._clip_val_batch(vx, vy)
         data_s = time.perf_counter() - t0
         spe = (stream_steps_per_epoch(cfg) if streaming else
                max(1, len(tx_d) // cfg.train.pt_batch_size))
@@ -382,10 +444,10 @@ class Trainer:
                     k: v.to(dev) for k, v in state.swa.average.items()})
         if streaming:
             stream_epoch = make_pretrain_stream_epoch(
-                self.tuner, cfg, optimizer, spe)
+                self.tuner, cfg, optimizer, spe, mesh=self.mesh)
         else:
-            step = make_pretrain_step(self.tuner, cfg, optimizer)
-        evaluate = make_pretrain_eval(self.tuner, cfg)
+            step = make_pretrain_step(self.tuner, cfg, optimizer, self.mesh)
+        evaluate = make_pretrain_eval(self.tuner, cfg, mesh=self.mesh)
         rng = np.random.default_rng(cfg.train.seed)
         metrics = {}
         for epoch in range(start_epoch, cfg.train.no_pt_epochs):
@@ -397,15 +459,19 @@ class Trainer:
                 losses = []
                 for idx in data_pipe.synthetic_batch_indices(
                         rng, len(tx_d), cfg.train.pt_batch_size):
+                    seed, kw = self._seed(), {}
+                    if self.mesh is not None:
+                        idx, kw["live"] = self._rank_slots(idx)
+                        seed = fold_seed(seed, self.mesh.rank)
                     i = torch.from_numpy(idx).to(dev)
                     losses.append(step({"x": tx_d[i], "y": ty_d[i]},
-                                       seed=self._seed())["loss"])
+                                       seed=seed, **kw)["loss"])
                     if self.swa is not None:
                         self.swa = swa_update(self.swa, named,
                                               cfg.train.swa_start,
                                               cfg.train.swa_period)
                 loss = float(torch.mean(torch.stack(losses)))
-            m = evaluate(val_batch, self._seed())
+            m = evaluate(val_batch, self._seed(), rows=val_rows)
             metrics = {"loss": loss,
                        "epoch_time_s": time.perf_counter() - t0}
             metrics.update({k: float(v) for k, v in m.items()})
@@ -460,6 +526,19 @@ class Trainer:
             self._pt_tuner.load_state_dict(params)
         return self._encode_fn(self._pt_tuner)
 
+    def _rank_slots(self, idx: np.ndarray) -> tuple:
+        """(indices, live) of the rank's slots of a host-set batch of
+        ``idx``: its _device_crop_counts rows, padded with the batch's
+        first row (dead, live 0) to ceil(B / n) slots."""
+        b, n = len(idx), self.mesh.world_size
+        lo, hi = pmesh.crop_rows(b, n, self.mesh.rank)
+        b_local = -(-b // n)
+        slots = np.concatenate([idx[lo:hi], np.repeat(idx[:1],
+                                                      b_local - (hi - lo))])
+        live = torch.zeros(b_local, device=self.tuner.device)
+        live[:hi - lo] = 1.0
+        return slots, live
+
     def prepare_real(self, train_data: np.ndarray, *,
                      blank_crop: bool = True) -> data_pipe.RealCropSampler:
         """Blank-crop + predict priors -> RealCropSampler."""
@@ -473,9 +552,10 @@ class Trainer:
         return self.sampler
 
     def _log(self, phase: str, step: int, metrics: dict) -> None:
-        self.logger(phase, step, metrics)
-        if self.wandb_run is not None:
-            self.wandb_run.log(metrics)
+        if self.writes:
+            self.logger(phase, step, metrics)
+            if self.wandb_run is not None:
+                self.wandb_run.log(metrics)
         if not all(np.isfinite(v) for k, v in metrics.items()
                    if k not in self._TRIPWIRE_EXEMPT):
             raise NaNLossError(f"non-finite metrics at {phase} epoch {step}: "
@@ -499,7 +579,6 @@ class Trainer:
         if self.status is WeightStatus.NOT_TRAINED:
             raise RuntimeError("pretrain() must run before finetune() (or "
                                "give the Trainer a state_dict)")
-        dev = self.tuner.device
         spe = cfg.train.ft_steps_per_epoch
         if self._ft_samplers is None:
             sampler = self.prepare_real(train_data)
@@ -515,16 +594,14 @@ class Trainer:
                 self.final_path, "finetune", spe)
             if state is not None:
                 self._resume(state, self.optimizer)
-        epoch_fn = make_finetune_epoch_on_device(
-            self.tuner, cfg, self.optimizer, spe)
-        volumes = torch.from_numpy(sampler.data).to(dev)
-        priors = torch.from_numpy(sampler.priors).to(dev)
+        epoch_fn, volumes, priors = self._finetune_epoch(sampler, spe)
         stop = cfg.train.no_ft_epochs if epochs is None else min(
             self.epochs_done + epochs, cfg.train.no_ft_epochs)
         metrics = {}
         while self.epochs_done < stop:
             t0 = time.perf_counter()
-            m = epoch_fn(self.generator, volumes, priors)
+            m = epoch_fn(self.generator if self.mesh is None
+                         else self._seed(), volumes, priors)
             host = {k: v.cpu().numpy() for k, v in m.items()}   # one sync
             metrics = {"loss": float(np.mean(host.pop("loss"))),
                        "epoch_time_s": time.perf_counter() - t0}
@@ -543,6 +620,41 @@ class Trainer:
             self._phase_done(self.final_path)
         return metrics
 
+    def _shard_subjects(self, sampler) -> bool:
+        """ft_shard_subjects (auto|on|off) resolved for this cohort."""
+        mode = normalize_mode(self.cfg.train.ft_shard_subjects,
+                              ("auto", "on", "off"), "ft_shard_subjects")
+        if mode != "auto":
+            return mode == "on"
+        nbytes = sampler.data.nbytes + sampler.priors.nbytes
+        return nbytes > self.SHARD_SUBJECTS_AUTO_BYTES
+
+    def _finetune_epoch(self, sampler, spe: int) -> tuple:
+        """(epoch function, volumes, priors on the device): the on-device
+        epoch; under a mesh the replicated sharded one, or the
+        subject-sharded one with the rank's rows of the padded stack."""
+        cfg, dev = self.cfg, self.tuner.device
+        if self.mesh is None or not self._shard_subjects(sampler):
+            make = (make_finetune_epoch_on_device if self.mesh is None else
+                    lambda *a: make_finetune_epoch_sharded(*a, self.mesh))
+            return (make(self.tuner, cfg, self.optimizer, spe),
+                    torch.from_numpy(sampler.data).to(dev),
+                    torch.from_numpy(sampler.priors).to(dev))
+        n_subj = sampler.data.shape[0]
+        s_pad = _subject_shard_counts(n_subj, self.mesh.world_size,
+                                      cfg.train.ft_batch_size)[0]
+
+        def pad(x):
+            out = np.zeros((s_pad,) + x.shape[1:], np.float32)
+            out[:n_subj] = x
+            return out
+
+        local = pmesh.shard_batch(self.mesh, {"v": pad(sampler.data),
+                                              "p": pad(sampler.priors)})
+        return (make_finetune_epoch_subject_sharded(
+            self.tuner, cfg, self.optimizer, spe, self.mesh, n_subj),
+            local["v"], local["p"])
+
     def _study_eval_sampler(self, study_data: np.ndarray
                             ) -> data_pipe.RealCropSampler:
         """Held-out study crops (76, the subjects in order) with per-voxel
@@ -557,17 +669,16 @@ class Trainer:
     def _elbo_eval(self, eval_sampler, batches: int = 4) -> dict:
         """Mean ELBO validation metrics over up to ``batches`` study
         batches (reference train.py:333)."""
-        evaluate = make_finetune_eval(self.tuner, self.cfg)
-        dev = self.tuner.device
+        evaluate = make_finetune_eval(self.tuner, self.cfg, mesh=self.mesh)
         vals = []
         for i, vb in enumerate(eval_sampler.eval_batches(
                 self.cfg.train.eval_batch_size)):
             if i >= batches:
                 break
-            vb = {k: torch.from_numpy(v).to(dev) for k, v in vb.items()}
+            vb, rows = self._put_eval_batch(vb)
             seed = int(torch.randint(0, 2 ** 62, (1,),
                                      generator=self.generator))
-            vals.append(evaluate(vb, seed))
+            vals.append(evaluate(vb, seed, rows=rows))
         return {k: float(torch.mean(torch.stack([v[k] for v in vals])))
                 for k in (vals[0] if vals else {})}
 

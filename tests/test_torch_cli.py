@@ -17,6 +17,7 @@
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -259,13 +260,20 @@ def test_train_on_a_real_data_directory(tmp_path):
 
 
 def test_what_is_not_ported_exits_2(tmp_path, capsys):
-    for argv in (["sweep", "--trials", "3"], ["dryrun"],
-                 ["train", "--mesh", *CPU],
-                 ["train", "--coordinator", "h:1", *CPU],
-                 ["train", "--num-processes", "2", *CPU],
-                 ["train", "--process-id", "1", *CPU]):
+    """Only sweep is not ported: dryrun and train's --mesh /
+    --coordinator / --num-processes / --process-id run
+    (tests/test_torch_multihost.py), and --mesh without a process group
+    trains on one rank, unsharded, as the JAX CLI does."""
+    for argv in (["sweep", "--trials", "3"], ["sweep"]):
         assert main(argv) == 2, argv
         assert "not ported yet (ROADMAP.md)" in capsys.readouterr().err
+    save = tmp_path / "mesh1"
+    assert main(["train", "--mesh", "--smoke", *CPU, "--set",
+                 f"save_directory={save}", "--set",
+                 f"d={tmp_path}/none"]) == 0
+    assert os.listdir(save) == ["pt_model.msgpack"]
+    assert "not ported" not in capsys.readouterr().err
+    shutil.rmtree(save)
     assert main(["export-model", "-o", "x", "--platforms", "tpu",
                  *CPU]) == 2
     assert "JAX package's" in capsys.readouterr().err

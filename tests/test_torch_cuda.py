@@ -1386,3 +1386,84 @@ def test_dropout_step_through_f_and_h_matches_the_plain_route(cuda_device):
         a, b = drop[0](h), drop[1](h)
         assert torch.equal(a, b) and a.device.type == "cuda"
         assert abs(float((a != 0).float().mean()) - 0.9) < 0.01
+
+
+# ---- the data-parallel layer on the card ------------------------------------
+
+def _port_of_a_free_socket():
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def test_one_rank_nccl_step_is_the_unsharded_step(cuda_device):
+    """A world of one rank (NCCL, in this process): the sharded fine-tune
+    step through kernel F, given a batch and a seed, is the unsharded
+    step bit for bit (the reduction is the identity, the scale 1)."""
+    import torch.distributed as dist
+
+    from qbold_vi_tpu_torch.parallel import mesh as pmesh
+
+    assert pmesh.initialize_distributed(
+        f"localhost:{_port_of_a_free_socket()}", 1, 0,
+        device="cuda") == "nccl"
+    try:
+        mesh = pmesh.make_mesh()
+        cfg = dataclasses.replace(tcfg.OPTIMAL, model=dataclasses.replace(
+            tcfg.OPTIMAL.model, no_units=8, no_intermediate_layers=1),
+            scan=SCAN)
+        rng = np.random.default_rng(3)
+        shape = (4, 9, 9, 2)
+        mask = (rng.uniform(size=shape + (1,)) > 0.2).astype(np.float32)
+        batch = {"images": volume(rng, shape, SCAN.n_taus) * mask,
+                 "mask": mask,
+                 "priors": (rng.normal(size=shape + (5,)) * 0.3
+                            ).astype(np.float32)}
+        batch = {k: torch.from_numpy(v).to(cuda_device)
+                 for k, v in batch.items()}
+        sd = init_params(cfg.model, SCAN, torch.Generator().manual_seed(2))
+        out = []
+        for m in (None, mesh):
+            tuner = FineTuner(cfg.model, SCAN, device=cuda_device)
+            tuner.load_state_dict(sd)
+            opt = toptim.make_finetune_optimizer(tuner.parameters(),
+                                                 cfg.train)
+            b = batch if m is None else dict(
+                batch, live=torch.ones(shape[0], device=cuda_device))
+            f0 = tfe.fused_elbo_forward.launches
+            metrics = tsteps.make_finetune_step(tuner, cfg, opt, m)(b,
+                                                                    seed=9)
+            assert tfe.fused_elbo_forward.launches == f0 + 1
+            out.append((metrics, tuner.state_dict()))
+        assert mesh.counts["step_reduce"] == 1
+        for k, v in out[0][0].items():
+            assert torch.equal(out[1][0][k], v), k
+        for k, v in out[0][1].items():
+            assert torch.equal(out[1][1][k], v), k
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_ranks_share_the_card(cuda_device, tmp_path):
+    """Two ranks on the one card (gloo on CUDA tensors): certify's
+    workload through F, S, B, A and E, bit-equal across ranks and within
+    rtol 2e-5 of this process alone."""
+    from qbold_vi_tpu_torch.parallel import multihost
+
+    out = multihost.certify(2, device="cuda", workdir=str(tmp_path),
+                            timeout_s=600)
+    assert out["ok"] and out["backend"] == "gloo"
+    for counts in out["launches"]:
+        for k in ("F_fwd", "F_bwd", "S", "B", "A", "E"):
+            assert counts[k] > 0, (k, counts)
+
+
+def test_dryrun_on_the_card(cuda_device):
+    from qbold_vi_tpu_torch.parallel import dryrun
+
+    out = dryrun.run(2, device="cuda", timeout_s=600)
+    assert out["ok"] and out["step_reduces_per_step"] == 1

@@ -121,22 +121,35 @@ def test_save_predictions_writes_what_it_returns(slice_setup, tmp_path):
         np.testing.assert_array_equal(back, folded, err_msg=key)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(mesh=object()), "mesh"),
-    (dict(transform_directory="/nonexistent", mesh=object()), "mesh"),
-    (dict(method="mc", fine_tuned=True, mesh=object()), "mesh"),
-    (dict(method="mc", fine_tuned=True, transform_directory="/nonexistent",
-          mesh=object()), "mesh"),
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(transform_directory="/nonexistent"),
+    dict(method="mc", fine_tuned=True),
+    dict(method="mc", fine_tuned=True, transform_directory="/nonexistent"),
 ])
-def test_unported_options_raise(tmp_path, kw, match):
+def test_unported_options_raise(tmp_path, kw):
+    """``mesh=``, refused until the sharded export was ported, now routes
+    to posterior_maps_sharded / elbo_maps_sharded: on a one-rank mesh
+    (no process group) the maps and files are those of the unsharded
+    export, bit for bit (tests/test_torch_parallel.py holds 2 and 3
+    ranks)."""
+    from qbold_vi_tpu_torch.parallel import make_mesh
+
     cfg = tcfg.ModelConfig(no_units=8)
     tuner = FineTuner(cfg, tcfg.ScanParams(), device="cpu")
     tuner.load_state_dict(init_params(cfg, tcfg.ScanParams(),
                                       torch.Generator().manual_seed(0)))
-    with pytest.raises(NotImplementedError, match=match):
-        tinfer.save_predictions(tuner, tcfg.OPTIMAL, _cohort(1, (1, 2, 2, 1)),
-                                str(tmp_path / "m"), **kw)
-    assert not list(tmp_path.iterdir())          # nothing half written
+    data, qcfg = _cohort(1, (3, 2, 2, 1)), tcfg.QBoldConfig(model=cfg)
+    got = tinfer.save_predictions(tuner, qcfg, data,
+                                  str(tmp_path / "a" / "m"),
+                                  mesh=make_mesh("cpu"), **kw)
+    ref = tinfer.save_predictions(tuner, qcfg, data,
+                                  str(tmp_path / "b" / "m"), **kw)
+    assert set(got) == set(ref)
+    for key, v in ref.items():
+        np.testing.assert_array_equal(got[key], v, err_msg=key)
+    assert sorted(os.listdir(tmp_path / "a")) == \
+        sorted(os.listdir(tmp_path / "b"))
 
 
 def test_method_and_mode_validation():

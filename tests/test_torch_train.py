@@ -348,8 +348,16 @@ def test_trainer_finetunes_on_the_cpu(tmp_path):
     m = Trainer(own_save_dir(streaming, tmp_path), device="cpu",
                 logger=lambda *a: None).pretrain()
     assert all(np.isfinite(v) for v in m.values())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Trainer(own_save_dir(cfg, tmp_path), device="cpu", mesh=object())
+    # a one-rank mesh (no process group) trains the sharded epoch to the
+    # unsharded one's weights (tests/test_torch_parallel.py holds the
+    # multi-rank paths against JAX)
+    from qbold_vi_tpu_torch.parallel import make_mesh
+
+    sharded = Trainer(own_save_dir(cfg, tmp_path), state_dict=weights,
+                      mesh=make_mesh("cpu"), logger=lambda *a: None)
+    m = sharded.finetune(data, epochs=1)
+    assert sharded.tuner.device.type == "cpu" and sharded.mesh.world_size == 1
+    assert all(np.isfinite(v) for v in m.values())
     # dropout trains (tests/test_torch_dropout.py holds it against the JAX
     # step given its masks)
     drop = dataclasses.replace(cfg, model=dataclasses.replace(
