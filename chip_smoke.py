@@ -21,7 +21,9 @@ training, the serving artifacts (``torch.export``; kernel B as a
 registered op) and the CLI's synth / transfer / import-weights, and the
 data-parallel layer (qbold_vi_tpu_torch/parallel: the sharded steps,
 maps and Trainer on one rank over NCCL, on two ranks sharing the card,
-and through ``train --mesh``), and checks them:
+and through ``train --mesh``), and the sweep (populations of trials through
+kernel S's trial axis and one kernel-F call a step, the searches, the
+CLI's sweep, the wandb agent, trials over two ranks), and checks them:
 
 1. device: a CUDA card is required (otherwise exit 1, no result line);
 2. build: the kernels of all seven sources in csrc/ are compiled by nvcc;
@@ -260,6 +262,7 @@ weights of phase 3), after phase 28:
    subject-sharded fine-tune of 3 subjects over 2 ranks) bit-equal across
    ranks; each rank's launches, all-reduce ms and step wall, and the
    unsharded step's wall in this process, both timed as 100-step epochs;
+   the ranks then run the sweep's population stage (read in phase 46);
 42. two ``python -m qbold_vi_tpu_torch train --mesh --coordinator ...``
    processes on the card on phase 34's synthetic brains (a streaming
    pretrain epoch, one 100-step fine-tune epoch, the exports): both exit
@@ -267,6 +270,41 @@ weights of phase 3), after phase 28:
    maps, an unsharded Trainer resumes final_model.msgpack; each rank's
    launches (its last line). The kernels line gives F, S, B, A and E's
    launches by phase and rank under "launches_sharded".
+The sweep (qbold_vi_tpu_torch/sweep.py), after phase 42:
+43. kernel S's trial axis: synth_batch(seeds=) of 4 seeds x 512 x 500
+   voxels in one launch of each pass, each trial bit-equal to its one-trial
+   launch and within ROW_TOL of the plain version on its replayed draws;
+   the P = 4 launch's device time against 4 single launches, and its
+   bytes bound (4 x 14.3 MB);
+44. populations at OPTIMAL's width, 4 trials varying pt_lr, the
+   inverse-gamma prior, ft_lr and adamw_decay, on phase 34's brains: one
+   streaming pretrain epoch (22 steps of 512 volumes a trial) and one
+   fine-tune epoch (100 steps of 38 crops of 25 x 25 x 8 a trial, 760,000
+   F rows a step) -- no_pt_epochs 60 -> 1, no_ft_epochs 40 -> 1;
+   population_pretrain and population_full_run against their serial=True
+   oracle under host noise (rtol 2e-4 / 5e-4, atol 1e-5: the JAX
+   package's gates), then under device noise (the counts set to 0 before
+   and read after): F launched 100 + 100 times, S 22, every metric finite
+   and the trials distinct; the walls of the population and of its 4
+   trials serially (host noise), and one population fine-tune step's
+   profile; F on the 760,000 rows one population step hands it (host
+   noise, captured at its call) against the plain rows and gradients at
+   ROW_TOL / GRAD_TOL, and its device noise at a row offset bit-equal to
+   the whole launch's;
+45. bayes_search (8 trials, populations of 4 through full_run) and
+   random_search (4 trials, one population through the pretrain
+   objective) over configurations/sweep_prior.yaml's space (SWEEP_PRIOR,
+   its schedule cut as in 44); ``sweep --preset optimal --layers 2 --units
+   60 --seeds 2`` through cli.main (two serial full_run trials, streaming
+   pretrain); run_wandb_agent with a stand-in wandb, parallel_trials 2 and
+   count 3; F and S launched;
+46. 3 trials of a population over 2 ranks sharing the card (gloo; the
+   population stage of phase 41's multihost.certify(population_trials=3))
+   bit-equal across ranks and within rtol 2e-4 of one process, and
+   ``dryrun --devices 2`` with its population stage.
+No phase 43-46 accepts a trial whose status is "failed". The kernels line
+gives S and F their launches on the population path under
+"launches_sweep", and S its P = 4 time and bound.
 Phases 5 and 13 print A-E beside their bounds: B and C's from the chain's
 FMAs at the 3xTF32 rate (encode_bound) and at the float32 CUDA-core peak;
 A's, B's and E's special-function bound beside OPS's (MUFU: the
@@ -4030,6 +4068,7 @@ SHARDED_KERNELS = {"F_fwd": "fused_elbo_forward", "F_bwd": "fused_elbo_backward"
                    "A": "quad_posterior_summaries", "E": "mc_kl_map"}
 MESH_STEPS = 100          # the sharded epochs of phase 40 and 41's timing
 CERTIFY_RANKS = 2                    # phase 41: two ranks share the card
+MESH_POP_TRIALS = 3                  # its population stage (read in 46)
 
 
 def free_port() -> int:
@@ -4199,7 +4238,8 @@ def two_rank_phase(card, launches) -> dict:
 
     t0 = time.perf_counter()
     out = multihost.certify(CERTIFY_RANKS, device="cuda", width="optimal",
-                            time_steps=MESH_STEPS, timeout_s=400)
+                            time_steps=MESH_STEPS, timeout_s=400,
+                            population_trials=MESH_POP_TRIALS)
     secs = time.perf_counter() - t0
     log(f"phase 41: {CERTIFY_RANKS} ranks, backend {out['backend']}; "
         f"metrics bit-equal across ranks and within rtol {out['parity_rtol']} of "
@@ -4224,7 +4264,8 @@ def two_rank_phase(card, launches) -> dict:
     return {k: out[k] for k in (
         "backend", "ft_loss", "single_process_ft_loss",
         "allreduce_ms_per_step", "ft_device_step_ms",
-        "single_process_step_ms", "collectives")} | {
+        "single_process_step_ms", "collectives", "population",
+        "population_rel_err", "population_s_launches")} | {
         "seconds": secs}
 
 
@@ -4304,6 +4345,482 @@ def mesh_cli_phase(card, base, launches) -> dict:
                                  f"{got}")
         launches.setdefault(k, {})["phase 42 (ranks 0-1)"] = got
     return {"seconds": secs, "metrics": timeless[0]}
+
+
+# ---- the sweep (phases 43-46) -----------------------------------------------
+
+# configurations/sweep_prior.yaml as yaml.safe_load reads it (the card's
+# machine has no pyyaml; tests/test_torch_sweep.py holds the two equal):
+# YAML 1.1 reads the dot-less exponents as strings, which the overrides
+# coerce to the field's type
+SWEEP_PRIOR = {
+    "method": "bayes",
+    "metric": {"name": "val_elbo", "goal": "minimize"},
+    "parameters": {
+        "no_units": {"value": 30},
+        "student_t_df": {"value": 2},
+        "no_pt_epochs": {"values": [10, 20]},
+        "crop_size": {"value": 16},
+        "pt_lr": {"values": ["2e-3", "1e-3", "8e-4", "5e-4", "1e-4", "5e-5",
+                             "1e-5"]},
+        "ft_lr": {"value": "2e-3"},
+        "inv_gamma_alpha": {"min": 0.1, "max": 10.0},
+        "inv_gamma_beta": {"min": 0.1, "max": 10.0},
+        "misalign_prob": {"value": 0.0},
+        "use_blood": {"values": [True]},
+        "activation": {"values": ["relu"]},
+        "use_r2p_loss": {"values": [False]},
+        "multi_image_normalisation": {"values": [True]},
+        "dropout_rate": {"value": 0.0},
+        "no_intermediate_layers": {"value": 1},
+        "no_ft_epochs": {"value": 40},
+        "use_layer_norm": {"value": False},
+        "kl_weight": {"value": 1.0},
+        "smoothness_weight": {"value": 1.0},
+        "im_loss_sigma": {"value": 0.08},
+    },
+}
+
+
+POP_TRIALS = (           # phase 44: one group (every trial has the prior)
+    {"pt_lr": 2e-3, "inv_gamma_alpha": 1.0, "inv_gamma_beta": 1.0,
+     "ft_lr": 5e-3, "adamw_decay": 2e-4},
+    {"pt_lr": 1e-3, "inv_gamma_alpha": 3.0, "inv_gamma_beta": 1.0,
+     "ft_lr": 2e-3, "adamw_decay": 0.0},
+    {"pt_lr": 5e-4, "inv_gamma_alpha": 0.5, "inv_gamma_beta": 2.0,
+     "ft_lr": 1e-3, "adamw_decay": 1e-3},
+    {"pt_lr": 4e-3, "inv_gamma_alpha": 2.0, "inv_gamma_beta": 0.5,
+     "ft_lr": 8e-3, "adamw_decay": 5e-4})
+S_TRIAL_SEEDS = (11, 2 ** 40 + 3, 977, 12345)      # phase 43's four trials
+PT_GATE = dict(rtol=2e-4, atol=1e-5)  # tests/test_sweep.py:207-216
+FT_GATE = dict(rtol=5e-4, atol=1e-5)  # tests/test_sweep.py:729-733
+SWEEP_KERNELS = {"S": "synth_batch", "F_fwd": "fused_elbo_forward",
+                 "F_bwd": "fused_elbo_backward"}
+
+
+def no_failed(tag: str, results) -> None:
+    """A card phase accepts no trial whose status is "failed": the
+    population batch's retry would otherwise hide a kernel that fails to
+    build or launch behind a failed trial ranked last."""
+    bad = [r for r in results if r.get("status") == "failed"]
+    if bad:
+        raise AssertionError(f"{tag}: failed trials {bad}")
+    finite(tag, [r["val_elbo"] for r in results])
+
+
+def gate(tag: str, got: list, ref: list, keys, tol: dict) -> float:
+    """Each trial's metrics within ``tol`` of the oracle's; returns the
+    largest relative difference."""
+    worst = 0.0
+    for a, b in zip(got, ref):
+        for k in keys:
+            if not np.isclose(a[k], b[k], **tol):
+                raise AssertionError(f"{tag}: {k} {a[k]} against {b[k]}")
+            worst = max(worst, abs(a[k] - b[k]) / max(abs(b[k]), 1e-30))
+    return worst
+
+
+def sweep_phases(dev, card, base, two_ranks) -> dict:
+    """Phases 43-46: kernel S's trial axis, the populations at OPTIMAL's
+    width, the searches, the CLI's sweep and the agent, and the trials over
+    two ranks (``two_ranks``: phase 41's certification, whose ranks ran the
+    population stage). Returns S's trial-axis times and bound, the
+    launches of S and F on the population path, and the walls."""
+    out = {"launches": {}}
+    out["phase43"] = synth_trials_phase(dev, card, base)
+    with tempfile.TemporaryDirectory() as d:
+        write_real_directory(d, base.scan)
+        out["phase44"] = population_phase(dev, card, base, d, out["launches"])
+        out["phase45"] = search_phase(dev, card, base, d, out["launches"])
+    out["phase46"] = mesh_population_phase(card, two_ranks)
+    return out
+
+
+def synth_trials_phase(dev, card, base) -> dict:
+    """Phase 43: S at P = 4 trials of OPTIMAL's batch in one launch."""
+    from qbold_vi_tpu_torch.ops import synth_batch as sb
+    from qbold_vi_tpu_torch.train import steps
+
+    b, t_n = base.train.pt_batch_size, base.scan.n_taus
+    n = b * 500
+    seeds = list(S_TRIAL_SEEDS)
+    before = (sb.synth_batch.launches, sb.synth_batch.noise_launches)
+    got = sb.synth_batch(base, b, seeds=seeds, device=dev)
+    torch.cuda.synchronize()
+    if (sb.synth_batch.launches - before[0],
+            sb.synth_batch.noise_launches - before[1]) != (1, 1):
+        raise AssertionError("phase 43: the trial axis is not one launch of "
+                             "each pass")
+    err = 0.0
+    for j, seed in enumerate(seeds):
+        one = sb.synth_batch(base, b, seed, device=dev)
+        for k in ("x", "y"):
+            if not torch.equal(got[k][j], one[k]):
+                raise AssertionError(f"phase 43: trial {j}'s {k} is not the "
+                                     "one-trial launch's bit for bit")
+        dd = {k: torch.from_numpy(v).to(dev)
+              for k, v in sb.synth_philox_draws(seed, n, t_n).items()}
+        ref = steps.stream_synthetic_batch(base, b, dd)
+        for k in ("x", "y"):
+            err = max(err, check_rows(f"phase 43 trial {j} {k}", got[k][j],
+                                      ref[k]))
+    log(f"phase 43: S at P = 4 x {n:,} voxels in one launch: each trial "
+        "bit-equal to its one-trial launch, and within ROW_TOL of the "
+        f"plain version on the replayed draws (largest {err:.3e})")
+    log_clocks("before S's trial-axis timings")
+    p4, how4 = s_device_ms(lambda: sb.synth_batch(base, b, seeds=seeds,
+                                                  device=dev))
+    one_ms, how1 = s_device_ms(lambda: sb.synth_batch(base, b, seeds[0],
+                                                      device=dev))
+    calls = {"P4": cuda_ms(lambda: sb.synth_batch(base, b, seeds=seeds,
+                                                  device=dev)),
+             "4x1": cuda_ms(lambda: [sb.synth_batch(base, b, s, device=dev)
+                                     for s in seeds])}
+    mis = base.synth.misalign_prob > 0.0
+    p_bound = synth_bound(4 * n, t_n, mis)
+    # the two device times compare only when both are the profiler's
+    # (CUDA events add the launches' overhead)
+    versus = (f"against 4 x {one_ms:.4f} = {4 * one_ms:.4f} ms in single "
+              f"launches (profiler)" if how4 == how1 == "profiler" else
+              f"(single launch {one_ms:.4f} ms by {how1}: not compared)")
+    log(f"phase 43: S device time {p4:.4f} ms at P = 4 ({how4}) {versus}; "
+        f"a call {calls['P4']:.4f} ms against {calls['4x1']:.4f} ms for the "
+        f"four (CUDA events); bound {p_bound['bound_ms']:.5f} ms "
+        f"({p_bound['bound_by']}, 4 x {n * (3 + t_n) * 4 / 1e6:.1f} MB) "
+        f"[{card}]")
+    return {"ms_trials4": p4, "ms_trials4_how": how4, "ms_single": one_ms,
+            "ms_single_how": how1,
+            "call_ms_trials4": calls["P4"], "call_ms_4x1": calls["4x1"],
+            "bound_ms_trials4": p_bound["bound_ms"],
+            "bound_by_trials4": p_bound["bound_by"], "max_abs_err": err}
+
+
+def s_device_ms(fn) -> tuple:
+    """(kernel S's device ms a call, how it was taken): its two kernels'
+    median launches summed from the profiler's trace, at least 4 of 21
+    calls' records each (a trace late in a long process dropped most of
+    the pass-1 records on the H100: 8 of 21, three times); where even
+    fewer are traced, CUDA events around back-to-back calls."""
+    try:
+        return (sum(kernel_ms(fn, sym, 21, need=4) for sym in S_SYMBOLS),
+                "profiler")
+    except AssertionError as e:
+        log(f"{e}: S timed by CUDA events")
+        return cuda_ms(fn), "CUDA events"
+
+
+def population_phase(dev, card, base, data_dir, launches) -> dict:
+    """Phase 44: population_pretrain and population_full_run of 4 trials at
+    OPTIMAL's width against their serial oracle (host noise), the device
+    noise's launches, the walls, and one population step's profile."""
+    from qbold_vi_tpu_torch import sweep
+    from qbold_vi_tpu_torch.train import data as data_pipe
+    from qbold_vi_tpu_torch.train import steps
+
+    cfg = fresh_save(dataclasses.replace(base, train=dataclasses.replace(
+        base.train, no_pt_epochs=1, no_ft_epochs=1,
+        data_directory=data_dir)))
+    host = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, fused_elbo="host"))
+    trials = list(POP_TRIALS)
+    # the pretrain objective's trials: its per-trial keys only (the
+    # fine-tune's would make each trial a group of its own)
+    pt_trials = [{k: v for k, v in t.items() if k in sweep._POP_KEYS}
+                 for t in trials]
+    pt_keys = ("val_loss", "oef_mse", "dbv_mse", "r2p_mse", "loss")
+    ft_keys = ("val_elbo", "val_nll", "val_kl", "val_smoothness", "loss",
+               "pt_val_loss")
+    walls, errs = {}, {}
+    for name, fn, c, ovs, keys, tol in (
+            ("pretrain", sweep.population_pretrain, cfg, pt_trials, pt_keys,
+             PT_GATE),
+            ("full_run", sweep.population_full_run, host, trials, ft_keys,
+             FT_GATE)):
+        t0 = time.perf_counter()
+        pop = fn(c, ovs, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ser = fn(c, ovs, device=dev, serial=True)
+        torch.cuda.synchronize()
+        walls[f"{name}_host_noise"] = (t1 - t0, time.perf_counter() - t1)
+        no_failed(f"phase 44 {name}", pop + ser)
+        errs[name] = gate(f"phase 44 {name} against its serial run", pop,
+                          ser, keys, tol)
+        log(f"phase 44: population_{name} of 4 trials matches its serial "
+            f"oracle (largest rel {errs[name]:.2e}); walls "
+            f"{walls[name + '_host_noise'][0]:.2f} s against "
+            f"{walls[name + '_host_noise'][1]:.2f} s serial [{card}]")
+    reset_counts()
+    t0 = time.perf_counter()
+    pop = sweep.population_full_run(cfg, trials, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    walls["full_run_device_noise"] = wall
+    no_failed("phase 44 device noise", pop)
+    if len({round(r["val_elbo"], 6) for r in pop}) != 4:
+        raise AssertionError("phase 44: the trials are not distinct")
+    total = cfg.train.no_ft_epochs * cfg.train.ft_steps_per_epoch
+    pt_steps = cfg.train.no_pt_epochs * max(1, round(
+        0.9 * cfg.synth.sample_size ** 2 / 500 / cfg.train.pt_batch_size))
+    want = {"F_fwd": total, "F_bwd": total, "S": pt_steps}
+    for k, v in want.items():
+        if counts[k] != v:
+            raise AssertionError(f"phase 44: {k} launched {counts[k]} times "
+                                 f"in the population, not {v}")
+        launches.setdefault(k, {})["phase 44 (P = 4)"] = counts[k]
+    log(f"phase 44: population_full_run of 4 trials (device noise): F "
+        f"{counts['F_fwd']} + {counts['F_bwd']} launches for {total} steps "
+        f"of 4 x {cfg.train.ft_batch_size} crops, S {counts['S']} for "
+        f"{pt_steps} pretrain steps; wall {wall:.2f} s (under host noise "
+        f"{walls['full_run_host_noise'][0]:.2f} s, serially "
+        f"{walls['full_run_host_noise'][1]:.2f} s) [{card}]")
+    # one population fine-tune step, profiled
+    pop_ = sweep._Population(cfg, trials, range(4), dev)
+    vols = torch.from_numpy(data_pipe.blank_crop(np.load(os.path.join(
+        data_dir, "ASE_scan.npy")))).to(dev)
+    with torch.no_grad():
+        priors = [t.encode(vols[..., :-1] * vols[..., -1:])[0][..., :5]
+                  for t in pop_.tuners]
+    adam = sweep._StackedAdam(pop_.stacked, b2=0.9)
+    gen = torch.Generator().manual_seed(44)
+
+    def step():
+        batches = [steps.sample_crop_batch(gen, vols, p,
+                                           cfg.train.ft_batch_size,
+                                           cfg.train.crop_size)
+                   for p in priors]
+        seeds = [int(torch.randint(0, 2 ** 62, (1,), generator=gen))
+                 for _ in range(5)]
+        sweep._finetune_step(pop_, cfg, adam, batches, seeds[:4], seeds[4],
+                             0, total)
+
+    prof = profile(step, 5, "one population fine-tune step (P = 4, 4 x "
+                   "190,000 F rows)", card)
+    f_rows = f_population_check(dev, host, trials, vols, card)
+    return {"walls_s": walls, "rel_err": errs, "step": prof,
+            "launches": counts, "f_rows": f_rows}
+
+
+def f_population_check(dev, cfg, trials, vols, card) -> dict:
+    """Kernel F at the population's shape: the P N rows of all trials that
+    one population step (host noise) hands it, captured at its call in
+    steps.population_finetune_terms, against the plain rows and gradients
+    at ROW_TOL / GRAD_TOL (the backward replaying every draw, and from the
+    KL state); then its device noise at an offset: a launch over the last
+    half of the rows under a seed draws, bit for bit, what a launch over
+    all of them draws there (a trial's draws do not depend on the trials
+    launched with it)."""
+    from qbold_vi_tpu_torch import sweep
+    from qbold_vi_tpu_torch.ops import fused_elbo as fe
+    from qbold_vi_tpu_torch.train import steps
+
+    pop = sweep._Population(cfg, trials, range(len(trials)), dev)
+    gen = torch.Generator().manual_seed(45)
+    with torch.no_grad():
+        priors = [t.encode(vols[..., :-1] * vols[..., -1:])[0][..., :5]
+                  for t in pop.tuners]
+        batches = [steps.sample_crop_batch(gen, vols, p,
+                                           cfg.train.ft_batch_size,
+                                           cfg.train.crop_size)
+                   for p in priors]
+        seeds = [int(torch.randint(0, 2 ** 62, (1,), generator=gen))
+                 for _ in priors]
+        seen, real = [], steps.fused_elbo
+
+        def capture(*args, **kw):
+            seen.append((args, kw))
+            return real(*args, **kw)
+
+        steps.fused_elbo = capture
+        try:
+            steps.population_finetune_terms(pop.tuners, cfg, batches,
+                                            seeds=seeds, device_seed=0)
+        finally:
+            steps.fused_elbo = real
+    (args, kw), = seen
+    *main, c = args
+    main = [a.detach().contiguous() for a in main]
+    n = main[4].shape[0]
+    per = cfg.train.ft_batch_size * cfg.train.crop_size ** 2 * vols.shape[3]
+    if n != len(trials) * per or "z_nll" not in kw:
+        raise AssertionError(f"phase 44: F was handed {n:,} rows ({kw}), not "
+                             f"{len(trials)} x {per:,} under host noise")
+    g = torch.Generator(device=dev).manual_seed(46)
+    ct_n, ct_k = (torch.randn(n, device=dev, generator=g) for _ in range(2))
+    state = torch.empty(n, fe.KL_STATE, device=dev)
+    got = fe.fused_elbo_forward(*main, c, state=state, **kw)
+    grads = fe.fused_elbo_backward(*main, ct_n, ct_k, c, **kw)
+    from_state = fe.fused_elbo_backward(*main, ct_n, ct_k, c, state=state,
+                                        **kw)
+    ref = fe.elbo_rows_plain(*main, kw["z_nll"], kw["z_kl"], c, kw["mvg"])
+    gref = fe.elbo_grads_plain(*main, kw["z_nll"], kw["z_kl"], ct_n, ct_k,
+                               c, kw["mvg"])
+    names = ("dq", "dp", "dy", "dsigma")
+    e_rows = max(check_rows(f"phase 44 F fwd at {n:,} rows {nm}", x, r)
+                 for nm, x, r in zip(("nll", "kl"), got, ref))
+    e_grads = max(check_grad(f"phase 44 F bwd at {n:,} rows {nm}{way}", x, r)
+                  for way, gs in (("", grads), (" from the state", from_state))
+                  for nm, x, r in zip(names, gs, gref))
+    dkw = {k: kw[k] for k in ("mvg", "s_nll", "s_kl")}
+    half = n // 2
+    tail = [a[half:] for a in main]
+    whole = fe.fused_elbo_forward(*main, c, seed=4407, **dkw)
+    part = fe.fused_elbo_forward(*tail, c, seed=4407, offset=half, **dkw)
+    g_whole = fe.fused_elbo_backward(*main, ct_n, ct_k, c, seed=4407, **dkw)
+    g_part = fe.fused_elbo_backward(*tail, ct_n[half:], ct_k[half:], c,
+                                    seed=4407, offset=half, **dkw)
+    for nm, a, b in zip(("nll", "kl") + names, (*whole, *g_whole),
+                        (*part, *g_part)):
+        if not torch.equal(a[half:], b):
+            raise AssertionError(f"phase 44: F's {nm} over rows {half:,}.. at "
+                                 "their offset is not the whole launch's")
+    log(f"phase 44: F on one population step's {n:,} rows (4 trials x "
+        f"{per:,}, host noise) against the plain version: rows within "
+        f"ROW_TOL (largest {e_rows:.3e}), gradients within GRAD_TOL "
+        f"(largest {e_grads:.3e}), replayed and from the state; device "
+        f"noise at offset {half:,} bit-equal to the whole launch's rows "
+        f"[{card}]")
+    return {"rows": n, "max_abs_err": e_rows, "max_grad_err": e_grads}
+
+
+def search_phase(dev, card, base, data_dir, launches) -> dict:
+    """Phase 45: bayes_search (populations of 4 through full_run) and
+    random_search (populations through the pretrain objective) over
+    sweep_prior.yaml's space, the CLI's grid sweep (serial Trainer trials)
+    and the wandb agent with a stand-in module."""
+    import threading
+
+    from qbold_vi_tpu_torch import sweep
+
+    space, metric, goal, _ = sweep.parse_wandb_sweep(SWEEP_PRIOR)
+    # the schedule cut as in phase 44
+    space = dict(space, no_pt_epochs=("fixed", 1), no_ft_epochs=("fixed", 1))
+    cfg = fresh_save(dataclasses.replace(base, train=dataclasses.replace(
+        base.train, data_directory=data_dir)))
+    out = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    res = sweep.bayes_search(cfg, space, 8, run_fn=sweep.full_run,
+                             metric=metric, maximize=goal == "maximize",
+                             parallel_trials=4, n_startup=4, device=dev)
+    out["bayes_s"] = time.perf_counter() - t0
+    no_failed("phase 45 bayes_search", res)
+    counts = read_counts()
+    for k in SWEEP_KERNELS:
+        if counts[k] == 0:
+            raise AssertionError(f"phase 45: {k} not launched by the search")
+        launches.setdefault(k, {})["phase 45 (bayes_search, 2 x P = 4)"] = \
+            counts[k]
+    log(f"phase 45: bayes_search of 8 trials in populations of 4 over "
+        f"sweep_prior.yaml's space ({out['bayes_s']:.1f} s): best val_elbo "
+        f"{res[0]['val_elbo']:.4f} at pt_lr {res[0]['overrides']['pt_lr']}; "
+        f"launches {counts} [{card}]")
+    t0 = time.perf_counter()
+    res = sweep.random_search(cfg, space, 4, parallel_trials=4, device=dev)
+    out["random_s"] = time.perf_counter() - t0
+    no_failed("phase 45 random_search", res)
+    log(f"phase 45: random_search of 4 trials, one population through the "
+        f"pretrain objective ({out['random_s']:.1f} s): best val_elbo "
+        f"{res[0]['val_elbo']:.4f} [{card}]")
+    save = fresh_save(base).train.save_directory
+    reset_counts()
+    t0 = time.perf_counter()
+    rc, lines = run_cli(["sweep", "--preset", "optimal", "--layers", "2",
+                         "--units", "60", "--seeds", "2", "--set",
+                         "no_pt_epochs=1", "--set", "no_ft_epochs=1",
+                         "--set", "pt_on_device_synth=True", "--set",
+                         f"d={data_dir}", "--set",
+                         f"save_directory={save}"])
+    out["cli_s"] = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"phase 45: sweep exited {rc}: {lines[-5:]}")
+    text = "\n".join(lines)
+    res = json.loads(text[text.index("[\n"):])
+    no_failed("phase 45 sweep CLI", res)
+    if [r["status"] for r in res] != ["FULL_TRAINED"] * 2:
+        raise AssertionError(f"phase 45: the CLI's trials: {res}")
+    counts = read_counts()
+    if min(counts[k] for k in SWEEP_KERNELS) == 0:
+        raise AssertionError(f"phase 45: the CLI's sweep launched {counts}")
+    log(f"phase 45: sweep --layers 2 --units 60 --seeds 2 (two serial "
+        f"full_run trials, streaming pretrain) {out['cli_s']:.1f} s: val_elbo "
+        f"{[round(r['val_elbo'], 4) for r in res]}; launches {counts} "
+        f"[{card}]")
+
+    class Run:
+        def __init__(self, config):
+            self.config, self.logged = config, []
+
+        def log(self, m):
+            self.logged.append(m)
+
+        def finish(self, exit_code=0):
+            self.exit_code = exit_code
+
+    class Wandb:
+        """wandb's stand-in: agent() calls the function a proposal."""
+
+        def __init__(self, proposals):
+            self.proposals, self.runs = list(proposals), []
+            self.lock = threading.Lock()
+
+        def init(self, **kw):
+            with self.lock:
+                run = Run(self.proposals[len(self.runs)])
+                self.runs.append(run)
+                return run
+
+        def agent(self, sweep_id, function=None, count=None):
+            for _ in range(count):
+                function()
+
+    fake = Wandb([{"pt_lr": 1e-3, "ft_lr": 2e-3},
+                  {"pt_lr": 5e-4, "ft_lr": 5e-3},
+                  {"pt_lr": 2e-3, "ft_lr": 1e-3}])
+    agent_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, no_pt_epochs=1, no_ft_epochs=1))
+    t0 = time.perf_counter()
+    n = sweep.run_wandb_agent("smoke/sweep", agent_cfg, count=3,
+                              wandb_module=fake, parallel_trials=2,
+                              device=dev)
+    out["agent_s"] = time.perf_counter() - t0
+    if n != 3 or any(r.exit_code for r in fake.runs):
+        raise AssertionError("phase 45: the agent's runs did not all finish "
+                             "cleanly")
+    no_failed("phase 45 agent", [r.logged[0] for r in fake.runs])
+    log(f"phase 45: run_wandb_agent (stand-in wandb, parallel_trials 2, "
+        f"count 3) {out['agent_s']:.1f} s: val_elbo "
+        f"{[round(r.logged[0]['val_elbo'], 4) for r in fake.runs]} [{card}]")
+    return out
+
+
+def mesh_population_phase(card, out) -> dict:
+    """Phase 46: the population stage of phase 41's certification (3
+    trials over 2 ranks sharing the card, held by multihost.certify to one
+    process), then ``dryrun --devices 2`` with its population stage."""
+    no_failed("phase 46", out["population"])
+    if (len(out["population"]) != MESH_POP_TRIALS
+            or min(out["population_s_launches"]) == 0):
+        raise AssertionError(f"phase 46: the ranks' population: "
+                             f"{out['population']}, S launches by rank "
+                             f"{out['population_s_launches']}")
+    log(f"phase 46: {MESH_POP_TRIALS} trials over 2 ranks ({out['backend']}, "
+        f"phase 41's ranks) bit-equal across ranks, within rel "
+        f"{out['population_rel_err']:.2e} of one process; S launches by rank "
+        f"{out['population_s_launches']} [{card}]")
+    t0 = time.perf_counter()
+    rc, lines = run_cli(["dryrun", "--devices", "2"])
+    dry_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"phase 46: dryrun exited {rc}")
+    dry = json.loads(lines[-1])
+    if not dry["ok"] or len(dry["population"]) != 2:
+        raise AssertionError(f"phase 46: dryrun {dry}")
+    no_failed("phase 46 dryrun", dry["population"])
+    log(f"phase 46: dryrun --devices 2 with its population stage "
+        f"(rel {dry['population_rel_err']:.2e}) {dry_s:.1f} s [{card}]")
+    return {"rel_err": out["population_rel_err"], "dryrun_s": dry_s}
 
 
 def main() -> int:
@@ -4538,6 +5055,17 @@ def main() -> int:
         for k, name in SHARDED_KERNELS.items():
             if entry["name"] == name:
                 entry["launches_sharded"] = sharded["launches"][k]
+    elapsed("phases 43-46")
+    swept = sweep_phases(dev, card, OPTIMAL, sharded["phase41"])
+    for entry in kernels:
+        for k, name in SWEEP_KERNELS.items():
+            if entry["name"] == name:
+                entry["launches_sweep"] = swept["launches"][k]
+        if entry["name"] == "synth_batch":
+            entry.update({k: swept["phase43"][k] for k in (
+                "ms_trials4", "ms_trials4_how", "bound_ms_trials4",
+                "bound_by_trials4", "ms_single_how")})
+            entry["ms_4_single_launches"] = 4 * swept["phase43"]["ms_single"]
     elapsed("done")
     print(json.dumps({"posterior_maps_wall_ms": walls,
                       "mc_posterior_maps_wall_ms": sampled["mc_walls"],
@@ -4562,6 +5090,8 @@ def main() -> int:
                       "dropout_export_cli": new,
                       "sharded": {k: v for k, v in sharded.items()
                                   if k != "launches"},
+                      "sweep": {k: v for k, v in swept.items()
+                                if k != "launches"},
                       "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

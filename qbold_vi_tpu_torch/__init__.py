@@ -17,8 +17,11 @@ training, the ``torch.export`` serving artifacts (io/export_model.py;
 kernel B is the registered op ``qbold_vi_tpu_torch::encode_quad_fused``,
 so a process must import this package before it loads a fused artifact),
 the legacy Keras ``.h5`` import, tau-protocol transfer and the FSL
-MNI-space export. Every TPU kernel of the JAX package has its
-hand-written counterpart here.
+MNI-space export, the data-parallel layer (``parallel``) and the
+hyperparameter sweep (``sweep``: grid, random and TPE search, populations
+of trials, the wandb agent, ``python -m qbold_vi_tpu_torch sweep``). Every
+TPU kernel of the JAX package has its hand-written counterpart here, and
+every module of it its port.
 """
 
 from .config import OPTIMAL, ModelConfig, QBoldConfig, ScanParams

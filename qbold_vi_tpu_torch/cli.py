@@ -1,5 +1,5 @@
 """Command-line entry points of the port: train / infer / serve / baseline /
-synth / export-model / import-weights / transfer / dryrun.
+synth / export-model / import-weights / transfer / dryrun / sweep.
 
     python -m qbold_vi_tpu_torch train --preset optimal --set d=DATA_DIR
     python -m qbold_vi_tpu_torch infer vols.npy -o out/subj --preset optimal
@@ -13,6 +13,10 @@ synth / export-model / import-weights / transfer / dryrun.
     python -m qbold_vi_tpu_torch train --mesh --coordinator localhost:29500
         --num-processes 2 --process-id 0 --preset optimal    # every rank
     python -m qbold_vi_tpu_torch dryrun --devices 4 --device cpu
+    python -m qbold_vi_tpu_torch sweep --preset optimal --layers 2
+        --units 60 --seeds 2
+    python -m qbold_vi_tpu_torch sweep --space configurations/
+        sweep_prior.yaml --trials 8 --parallel-trials 4
 
 The counterpart of ``qbold_vi_tpu/cli.py`` (its names, flags, checkpoint
 files, messages and exit codes), with these differences, each stated in
@@ -43,10 +47,13 @@ the help:
   (parallel/dryrun.py); with ``--processes P`` > 1 it certifies P ranks
   against one process (parallel/multihost.py), one device a rank, so
   ``--devices`` is not read;
-* not ported yet, and exiting with code 2 and a message: the sweep
-  subcommand;
-* ``--config`` needs pyyaml, which the CUDA machine lacks: there, give
-  ``--preset optimal`` and ``--set key=value`` overrides.
+* ``sweep --mesh`` splits each population's trials over the ranks of
+  ``--coordinator`` (one process a device, as ``train --mesh``); every
+  rank prints the ranked results;
+* ``--config`` and ``sweep --space`` need pyyaml, and ``sweep --agent``
+  needs wandb, which the CUDA machine lacks: there, give ``--preset
+  optimal`` and ``--set key=value`` overrides, and a grid sweep; without
+  them the command says so and exits 2.
 """
 
 from __future__ import annotations
@@ -66,13 +73,8 @@ from .config import (OPTIMAL, QBoldConfig, apply_flat_overrides,
 
 __all__ = ["main", "build_parser"]
 
-NOT_PORTED = 2          # the exit code of what the port does not run yet
-
-
-def _not_ported(what: str) -> int:
-    print(f"{what} is not ported yet (ROADMAP.md); the JAX package's CLI "
-          "(python -m qbold_vi_tpu) runs it", file=sys.stderr)
-    return NOT_PORTED
+NOT_PORTED = 2          # the exit code of what the port does not run
+MISSING = 2             # the exit code of a command whose package is missing
 
 
 def _load_cfg(args) -> QBoldConfig:
@@ -560,7 +562,91 @@ def cmd_dryrun(args) -> int:
     return 0
 
 
-_UNPORTED = ("sweep",)
+def cmd_sweep(args) -> int:
+    """A grid sweep over layers x units x seeds (reference wandb_sweep.py),
+    a Bayesian (TPE, the YAML's ``method: bayes``) or random search from a
+    space YAML (``--space``, reference configurations/sweep_prior.yaml),
+    or an agent of an existing wandb sweep (``--agent``). Trials train the
+    two-phase program when the data directory holds ASE volumes, else the
+    pretrain objective; ``--parallel-trials`` trains them as populations,
+    ``--mesh`` their trials over the ranks of ``--coordinator``. Prints
+    the ranked results' JSON."""
+    import torch.distributed as dist
+
+    from .parallel import mesh as pmesh
+
+    backend = pmesh.initialize_distributed(
+        args.coordinator, args.num_processes, args.process_id,
+        device=args.device)
+    try:
+        return _sweep(args)
+    finally:
+        if backend is not None:
+            dist.destroy_process_group()
+
+
+def _sweep(args) -> int:
+    from . import sweep
+    from .parallel import mesh as pmesh
+
+    cfg = _load_cfg(args)
+    objective = sweep.default_objective(cfg)
+    run_fn = None if objective is sweep._default_run else objective
+    print("sweep objective: " + ("two-phase (real-data val_elbo)" if run_fn
+                                 else "pretrain (synthetic val loss)"),
+          file=sys.stderr)
+    if args.parallel_trials > 1:
+        print(f"populations of {args.parallel_trials} trials",
+              file=sys.stderr)
+    mesh = None
+    if args.mesh and args.parallel_trials > 1 and pmesh.process_count() > 1:
+        mesh = pmesh.make_mesh(args.device)
+        print(f"population trials over {mesh.world_size} ranks",
+              file=sys.stderr)
+    if args.agent:
+        try:
+            import wandb
+        except ImportError:
+            print("sweep --agent needs wandb, which is not installed",
+                  file=sys.stderr)
+            return MISSING
+        n = sweep.run_wandb_agent(args.agent, cfg, count=args.trials or None,
+                                  run_fn=run_fn, wandb_module=wandb,
+                                  parallel_trials=args.parallel_trials,
+                                  mesh=mesh, device=args.device)
+        print(json.dumps({"agent": args.agent, "trials_run": n}))
+        return 0
+    if args.space:
+        try:
+            import yaml
+        except ImportError:
+            print("sweep --space needs pyyaml, which is not installed: give "
+                  "a grid sweep (--layers / --units / --seeds) and --set "
+                  "overrides", file=sys.stderr)
+            return MISSING
+        with open(args.space) as f:
+            spec = yaml.safe_load(f)
+        if "parameters" in spec:
+            # the reference's own wandb sweep grammar
+            space, metric, goal, method = sweep.parse_wandb_sweep(spec)
+        else:
+            # flat: {space: {...}, metric: ..., goal: ..., method: ...}
+            space = spec["space"]
+            metric = spec.get("metric", "val_elbo")
+            goal = spec.get("goal", "minimize")
+            method = spec.get("method", "bayes")
+        search = (sweep.bayes_search if (args.method or method) == "bayes"
+                  else sweep.random_search)
+        results = search(cfg, space, n_trials=args.trials, metric=metric,
+                         run_fn=run_fn, maximize=goal == "maximize",
+                         parallel_trials=args.parallel_trials, mesh=mesh,
+                         device=args.device)
+    else:
+        results = sweep.run_grid_sweep(cfg, layers=args.layers,
+                                       units=args.units, seeds=args.seeds,
+                                       run_fn=run_fn, device=args.device)
+    print(json.dumps(results, default=str, indent=1))
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -704,15 +790,41 @@ def build_parser() -> argparse.ArgumentParser:
                          "then not read")
     sp.set_defaults(fn=cmd_dryrun)
 
-    for name in _UNPORTED:    # main() answers these before parsing
-        sub.add_parser(name, help="not ported yet (ROADMAP.md): exits 2")
+    sp = add("sweep", help="grid sweep over layers x units, or a "
+                           "Bayesian/random search from a space YAML")
+    sp.add_argument("--layers", type=int, nargs="+", default=[2, 4, 6, 8, 10])
+    sp.add_argument("--units", type=int, nargs="+", default=[2, 4, 6, 8, 10])
+    sp.add_argument("--seeds", type=int, default=3)
+    sp.add_argument("--space", default=None,
+                    help="search-space YAML, wandb sweep grammar or flat "
+                         "(e.g. configurations/sweep_prior.yaml; needs "
+                         "pyyaml)")
+    sp.add_argument("--method", default=None, choices=["bayes", "random"],
+                    help="override the YAML's sweep method")
+    sp.add_argument("--trials", type=int, default=20)
+    sp.add_argument("--parallel-trials", type=int, default=1,
+                    dest="parallel_trials",
+                    help="train this many trials together as ONE "
+                         "population (kernel S and kernel F once a step "
+                         "for all of them)")
+    sp.add_argument("--mesh", action="store_true",
+                    help="split each population's trials over the ranks "
+                         "of --coordinator (needs --parallel-trials > 1)")
+    sp.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="the rendezvous of a multi-process sweep, served "
+                         "by rank 0: run the SAME command for every rank "
+                         "with its own --process-id")
+    sp.add_argument("--num-processes", type=int, default=None)
+    sp.add_argument("--process-id", type=int, default=None)
+    sp.add_argument("--agent", default=None, metavar="SWEEP_ID",
+                    help="attach to an existing wandb sweep as an agent "
+                         "(needs wandb); --trials caps the run count")
+    sp.set_defaults(fn=cmd_sweep)
     return p
 
 
 def main(argv: Optional[list] = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in _UNPORTED:
-        return _not_ported(f"the {argv[0]} subcommand")
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

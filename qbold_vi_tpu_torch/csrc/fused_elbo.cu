@@ -13,7 +13,9 @@
 // JAX layout has them; device mode draws each (voxel, draw) pair from a
 // Philox4x32-10 counter keyed by the seed (elbo_math.cuh::qv_normal2), so
 // the backward replays the forward's draws exactly with no per-program
-// reseeding. Draws 0..s_nll-1 feed the NLL, s_nll.. the KL.
+// reseeding. Draws 0..s_nll-1 feed the NLL, s_nll.. the KL. The counter of
+// row v is offset + v: a launch over rows [a, b) of a larger set of rows
+// draws what one launch over the whole set draws for them.
 //
 // Bound: operations. Per voxel the forward runs s_nll decodes (T + 1
 // Clenshaw evaluations each) and s_kl = 70 KL draws (a Philox block, a
@@ -56,6 +58,7 @@ struct QvNoise {
   const float* zk;  // (s_kl, n, 2) or null
   unsigned k0, k1;  // Philox key (the seed)
   long long n;
+  long long offset;  // the Philox counter of row 0
 };
 
 static __device__ __forceinline__ void qv_draw(const QvNoise& nz,
@@ -67,7 +70,7 @@ static __device__ __forceinline__ void qv_draw(const QvNoise& nz,
     *z0 = p[0];
     *z1 = p[1];
   } else {
-    qv_normal2(v, draw, nz.k0, nz.k1, z0, z1);
+    qv_normal2(nz.offset + v, draw, nz.k0, nz.k1, z0, z1);
   }
 }
 
@@ -486,38 +489,38 @@ __global__ void __launch_bounds__(QV_ELBO_BLOCK) qv_elbo_bwd_kernel(
 }
 
 static QvNoise qv_noise(const float* zn, const float* zk, long long seed,
-                        long long n) {
+                        long long offset, long long n) {
   QvNoise nz = {zn, zk, (unsigned)seed,
-                (unsigned)((unsigned long long)seed >> 32), n};
+                (unsigned)((unsigned long long)seed >> 32), n, offset};
   return nz;
 }
 
 extern "C" int qv_elbo_fwd(const float* q, const float* p, const float* y,
                            const float* sig, const float* mask,
                            const float* zn, const float* zk, long long seed,
-                           long long n, int mvg, int s_nll, int s_kl,
-                           QvDecodeConsts C, const float* table, int table_len,
+                           long long offset, long long n, int mvg, int s_nll,
+                           int s_kl, QvDecodeConsts C, const float* table, int table_len,
                            float* nll, float* kl, float* state, int grid,
                            void* stream) {
   qv_elbo_fwd_kernel<<<grid, QV_ELBO_BLOCK, table_len * sizeof(float),
                        (cudaStream_t)stream>>>(
-      q, p, y, sig, mask, qv_noise(zn, zk, seed, n), mvg, s_nll, s_kl, C,
-      table, nll, kl, state);
+      q, p, y, sig, mask, qv_noise(zn, zk, seed, offset, n), mvg, s_nll,
+      s_kl, C, table, nll, kl, state);
   return (int)cudaGetLastError();
 }
 
 extern "C" int qv_elbo_bwd(const float* q, const float* p, const float* y,
                            const float* sig, const float* mask,
                            const float* zn, const float* zk, long long seed,
-                           long long n, int mvg, int s_nll, int s_kl,
-                           const float* ctn, const float* ctk,
+                           long long offset, long long n, int mvg, int s_nll,
+                           int s_kl, const float* ctn, const float* ctk,
                            const float* state, QvDecodeConsts C,
                            const float* table, int table_len, float* dq,
                            float* dp, float* dsig, float* dy, int grid,
                            void* stream) {
   qv_elbo_bwd_kernel<<<grid, QV_ELBO_BLOCK, table_len * sizeof(float),
-                       (cudaStream_t)stream>>>(q, p, y, sig, mask, qv_noise(zn, zk, seed, n),
-                                 mvg, s_nll, s_kl, ctn, ctk, state, C, table,
-                                 dq, dp, dsig, dy);
+                       (cudaStream_t)stream>>>(
+      q, p, y, sig, mask, qv_noise(zn, zk, seed, offset, n), mvg, s_nll,
+      s_kl, ctn, ctk, state, C, table, dq, dp, dsig, dy);
   return (int)cudaGetLastError();
 }

@@ -37,6 +37,16 @@
 // batch mean per tau, then adds each voxel's noise, its normals drawn
 // again from the same counters, so the batch is deterministic.
 //
+// A trial axis (qv_synth_batch_trials): P batches of n voxels each, one
+// launch of each pass for all of them. Block row blockIdx.y is trial j:
+// it draws under seeds[j] with the counters (v, k) of its own voxels, and
+// writes x, y and its partials at trial j's offsets; pass 2's row j sums
+// only trial j's partials. Each trial's blocks do what a single launch
+// under seeds[j] does, in the same order, so trial j's batch is bit-equal
+// to it (the noise of a batch scales with its own mean signal, so P
+// batches are not one batch of P n voxels). qv_synth_batch is the
+// one-trial launch (seeds NULL: the key is the scalar seed).
+//
 // Bound: bytes. A voxel writes 3 + T floats, and the noise pass reads and
 // writes the T again (36.9 MB at 256,000 voxels and 11 taus); its math is
 // ~100 float operations and 2 exponentials a tau (the surrogate) and ~20
@@ -117,14 +127,30 @@ static __device__ __forceinline__ QvSynthVoxel qv_synth_voxel(
   return o;
 }
 
+// Block row blockIdx.y's key: seeds[trial], or k0/k1 as given when seeds
+// is NULL (the one-trial launch).
+static __device__ __forceinline__ void qv_synth_key(
+    const unsigned long long* seeds, unsigned* k0, unsigned* k1) {
+  if (seeds != nullptr) {
+    const unsigned long long s = seeds[blockIdx.y];
+    *k0 = (unsigned)s;
+    *k1 = (unsigned)(s >> 32);
+  }
+}
+
 __global__ void __launch_bounds__(QV_SYNTH_BLOCK) qv_synth_batch_kernel(
     long long n, QvDecodeConsts C, const float* __restrict__ table,
     int table_len, QvSynthConsts S, unsigned k0, unsigned k1,
+    const unsigned long long* __restrict__ seeds,
     float* __restrict__ x, float* __restrict__ y,
     double* __restrict__ partial) {
   extern __shared__ float smem[];
   __shared__ double acc[QV_SYNTH_MAX_T * QV_SYNTH_BLOCK];
   const int T = C.n_taus;
+  qv_synth_key(seeds, &k0, &k1);
+  x += (long long)blockIdx.y * n * T;
+  y += (long long)blockIdx.y * n * 3;
+  partial += (long long)blockIdx.y * gridDim.x * T;
   qv_stage_table(table, smem, table_len);
   for (int t = 0; t < T; ++t) acc[t * QV_SYNTH_BLOCK + threadIdx.x] = 0.0;
   __syncthreads();
@@ -161,8 +187,12 @@ __global__ void __launch_bounds__(QV_SYNTH_BLOCK) qv_synth_batch_kernel(
 __global__ void __launch_bounds__(QV_SYNTH_BLOCK) qv_synth_noise_kernel(
     long long n, int T, const double* __restrict__ partial, int n_partial,
     const float* __restrict__ prof, QvSynthConsts S, unsigned k0,
-    unsigned k1, float* __restrict__ x) {
+    unsigned k1, const unsigned long long* __restrict__ seeds,
+    float* __restrict__ x) {
   __shared__ float mean[QV_SYNTH_MAX_T];
+  qv_synth_key(seeds, &k0, &k1);
+  x += (long long)blockIdx.y * n * T;
+  partial += (long long)blockIdx.y * n_partial * T;
   // warp w sums taus w, w + 4, ...: each lane a strided share of the
   // partials in order, then a fixed shuffle tree -- the same sum in every
   // block
@@ -201,25 +231,50 @@ extern "C" int qv_synth_grid(long long n) {
   return (int)(g < 1 ? 1 : (g > 1024 ? 1024 : g));
 }
 
+static int qv_synth_launch(long long n, int trials, QvDecodeConsts C,
+                           const float* table, int table_len,
+                           QvSynthConsts S, unsigned k0, unsigned k1,
+                           const unsigned long long* seeds, float* x,
+                           float* y, double* partial, const float* prof,
+                           int noise_grid, void* stream) {
+  const int T = C.n_taus;
+  if (T > QV_SYNTH_MAX_T || (S.misalign && T < 6) || trials < 1 ||
+      trials > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int grid = qv_synth_grid(n);
+  qv_synth_batch_kernel<<<dim3(grid, trials), QV_SYNTH_BLOCK,
+                          table_len * sizeof(float),
+                          (cudaStream_t)stream>>>(n, C, table, table_len, S,
+                                                  k0, k1, seeds, x, y,
+                                                  partial);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !S.noise) return (int)err;
+  qv_synth_noise_kernel<<<dim3(noise_grid, trials), QV_SYNTH_BLOCK, 0,
+                          (cudaStream_t)stream>>>(n, T, partial, grid, prof,
+                                                  S, k0, k1, seeds, x);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int qv_synth_batch(long long n, QvDecodeConsts C,
                               const float* table, int table_len,
                               QvSynthConsts S, unsigned long long seed,
                               float* x,
                               float* y, double* partial, const float* prof,
                               int noise_grid, void* stream) {
-  const int T = C.n_taus;
-  if (T > QV_SYNTH_MAX_T || (S.misalign && T < 6))
-    return (int)cudaErrorInvalidValue;
-  const unsigned k0 = (unsigned)seed;
-  const unsigned k1 = (unsigned)(seed >> 32);
-  const int grid = qv_synth_grid(n);
-  qv_synth_batch_kernel<<<grid, QV_SYNTH_BLOCK, table_len * sizeof(float),
-                          (cudaStream_t)stream>>>(n, C, table, table_len, S,
-                                                  k0, k1, x, y, partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || !S.noise) return (int)err;
-  qv_synth_noise_kernel<<<noise_grid, QV_SYNTH_BLOCK, 0,
-                          (cudaStream_t)stream>>>(n, T, partial, grid, prof,
-                                                  S, k0, k1, x);
-  return (int)cudaGetLastError();
+  return qv_synth_launch(n, 1, C, table, table_len, S, (unsigned)seed,
+                         (unsigned)(seed >> 32), nullptr, x, y, partial,
+                         prof, noise_grid, stream);
+}
+
+// P = ``trials`` batches of n voxels, batch j under seeds[j] (a device
+// array); x (P, n, T), y (P, n, 3), partial (P, qv_synth_grid(n), T).
+extern "C" int qv_synth_batch_trials(long long n, int trials,
+                                     QvDecodeConsts C, const float* table,
+                                     int table_len, QvSynthConsts S,
+                                     const unsigned long long* seeds,
+                                     float* x, float* y, double* partial,
+                                     const float* prof, int noise_grid,
+                                     void* stream) {
+  return qv_synth_launch(n, trials, C, table, table_len, S, 0u, 0u, seeds, x,
+                         y, partial, prof, noise_grid, stream);
 }

@@ -12,6 +12,12 @@ they convert to a ``models.vi.FineTuner`` state_dict and back, exactly
 * every other leaf (biases, GroupNorm scales, ``inv_gamma_raw``,
   ``pop_prior``, ``log_sigma``) keeps its name and layout.
 
+A population of sweep trials (sweep.py) carries its parameters with a
+leading trial axis, as the JAX population's stacked tree
+(``qbold_vi_tpu/sweep.py::_population_group(with_params=True)``) does:
+``stacked_state_dict_from_jax`` / ``jax_from_stacked_state_dict`` convert
+those trial by trial.
+
 The Trainer's checkpoint files are the JAX Trainer's own, read and
 written through this bridge (train/checkpoint.py). For weights alone there
 is also an ``.npz`` of the JAX-layout tree with '/'-joined keys
@@ -24,7 +30,8 @@ import numpy as np
 import torch
 
 __all__ = ["state_dict_from_jax", "jax_from_state_dict", "flatten_params",
-           "unflatten_params", "save_params_npz", "load_params_npz"]
+           "unflatten_params", "save_params_npz", "load_params_npz",
+           "stacked_state_dict_from_jax", "jax_from_stacked_state_dict"]
 
 
 def flatten_params(tree: dict, prefix: str = "") -> dict:
@@ -83,6 +90,27 @@ def jax_from_state_dict(state_dict: dict) -> dict:
             leaf = "kernel"
         flat["/".join(parents + [leaf])] = np.array(arr)   # copy, keeps 0-d
     return unflatten_params(flat)
+
+
+def stacked_state_dict_from_jax(tree: dict) -> dict:
+    """A JAX params tree whose leaves carry a leading trial axis (P, ...)
+    -> a state_dict of (P, ...) tensors, each trial converted as
+    ``state_dict_from_jax`` converts it."""
+    flat = flatten_params(tree)
+    p_n = len(next(iter(flat.values())))
+    trials = [state_dict_from_jax(unflatten_params(
+        {k: v[j] for k, v in flat.items()})) for j in range(p_n)]
+    return {k: torch.stack([t[k] for t in trials]) for k in trials[0]}
+
+
+def jax_from_stacked_state_dict(state_dict: dict) -> dict:
+    """A state_dict of (P, ...) tensors -> the JAX params tree with a
+    leading trial axis on every leaf."""
+    p_n = len(next(iter(state_dict.values())))
+    trials = [flatten_params(jax_from_state_dict(
+        {k: v[j] for k, v in state_dict.items()})) for j in range(p_n)]
+    return unflatten_params({k: np.stack([t[k] for t in trials])
+                             for k in trials[0]})
 
 
 def save_params_npz(tree: dict, path: str) -> None:

@@ -130,10 +130,10 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _LL, QvDecodeConsts, QvDecodeCoeffs, _P, _I,
         _P, _P, _P, _P, _P],
     "qv_elbo_fwd": [
-        _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, QvDecodeConsts, _P,
-        _I, _P, _P, _P, _I, _P],
+        _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _I, QvDecodeConsts,
+        _P, _I, _P, _P, _P, _I, _P],
     "qv_elbo_bwd": [
-        _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _P, _P, _P,
         QvDecodeConsts, _P, _I, _P, _P, _P, _P, _I, _P],
     "qv_mc_summaries": [
         _P, _LL, _LL, _LL, _I, QvRanges, _P, _LL, _LL, _I, _I, _F, _P, _P,
@@ -150,6 +150,9 @@ _SIGNATURES = {
     "qv_synth_batch": [
         _LL, QvDecodeConsts, _P, _I, QvSynthConsts, ctypes.c_ulonglong, _P,
         _P, _P, _P, _I, _P],
+    "qv_synth_batch_trials": [
+        _LL, _I, QvDecodeConsts, _P, _I, QvSynthConsts, _P, _P, _P, _P, _P,
+        _I, _P],
 }
 
 

@@ -23,10 +23,12 @@ state changes no result beyond rounding: the plain versions define both.
 
 Noise: ``z_nll`` (s_nll, N, 2) and ``z_kl`` (s_kl, N, 2) standard normals
 in the JAX layout (host noise), or a ``seed``: the kernel then draws
-normal pair d of voxel v from a Philox4x32-10 counter (v, d) keyed by the
-seed (draws 0..s_nll-1 for the NLL, s_nll.. for the KL) and its backward
-replays them bit for bit. ``philox_normals`` is the same generator in
-numpy: the plain version takes its normals from it for a seed.
+normal pair d of row v from a Philox4x32-10 counter (offset + v, d) keyed
+by the seed (draws 0..s_nll-1 for the NLL, s_nll.. for the KL) and its
+backward replays them bit for bit; ``offset`` (default 0) lets a launch
+over some rows of a larger set draw what a launch over the whole set draws
+for them. ``philox_normals`` is the same generator in numpy: the plain
+version takes its normals from it for a seed.
 
 * ``elbo_rows_plain`` / ``elbo_grads_plain``: the plain torch versions of
   the two Pallas kernels; ``kl_state_plain``: of the state;
@@ -121,8 +123,9 @@ def philox_normals(seed: int, n: int, draws: int, first: int = 0,
     return box_muller(c[0], c[1])
 
 
-def _seed_normals(seed, n, s_nll, s_kl, device):
-    z = torch.from_numpy(philox_normals(seed, n, s_nll + s_kl)).to(device)
+def _seed_normals(seed, n, s_nll, s_kl, device, offset=0):
+    z = torch.from_numpy(philox_normals(seed, n, s_nll + s_kl,
+                                        offset=offset)).to(device)
     return z[:s_nll], z[s_nll:]
 
 
@@ -290,9 +293,9 @@ def _noise_args(z_nll, z_kl, seed, n, s_nll, s_kl, mvg):
     return z_nll, zk, 0
 
 
-def _plain_noise(z_nll, z_kl, seed, n, s_nll, s_kl, device):
+def _plain_noise(z_nll, z_kl, seed, n, s_nll, s_kl, device, offset):
     if seed is not None:
-        return _seed_normals(seed, n, s_nll, s_kl, device)
+        return _seed_normals(seed, n, s_nll, s_kl, device, offset)
     return z_nll, z_kl
 
 
@@ -309,15 +312,17 @@ def _check_state(state, q, n: int, mvg: bool):
 
 def fused_elbo_forward(q, p, y, sigma, mask, C: DecodeConsts, *, mvg: bool,
                        s_nll: int, s_kl: int, z_nll=None, z_kl=None,
-                       seed=None, state=None):
+                       seed=None, offset: int = 0, state=None):
     """(nll_rows, kl_rows). CUDA: kernel F's forward (counted in
     ``fused_elbo_forward.launches``); CPU: the plain version, with the
-    normals of ``philox_normals`` when given a seed. ``state``: an
-    (N, KL_STATE) float32 tensor (MVG) that receives the KL state."""
+    normals of ``philox_normals`` (rows offset..) when given a seed.
+    ``state``: an (N, KL_STATE) float32 tensor (MVG) that receives the KL
+    state."""
     n = mask.shape[0]
     _check_state(state, q, n, mvg)
     if _device_of(q) == "cpu":
-        zn, zk = _plain_noise(z_nll, z_kl, seed, n, s_nll, s_kl, q.device)
+        zn, zk = _plain_noise(z_nll, z_kl, seed, n, s_nll, s_kl, q.device,
+                              offset)
         if state is not None:
             state.copy_(kl_state_plain(q, mask, zk, C))
         return elbo_rows_plain(q, p, y, sigma, mask, zn, zk, C, mvg)
@@ -331,8 +336,9 @@ def fused_elbo_forward(q, p, y, sigma, mask, C: DecodeConsts, *, mvg: bool,
     with torch.cuda.device(q.device):
         err = _cuda.library().qv_elbo_fwd(
             q.data_ptr(), p.data_ptr(), y.data_ptr(), sigma.data_ptr(),
-            mask.data_ptr(), ptr(zn), ptr(zk), sd, n, int(mvg), s_nll, s_kl,
-            C.struct(), table.data_ptr(), table.numel(), nll.data_ptr(),
+            mask.data_ptr(), ptr(zn), ptr(zk), sd, int(offset), n, int(mvg),
+            s_nll, s_kl, C.struct(), table.data_ptr(), table.numel(),
+            nll.data_ptr(),
             kl.data_ptr(), ptr(state),
             _grid(n),
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -343,7 +349,7 @@ def fused_elbo_forward(q, p, y, sigma, mask, C: DecodeConsts, *, mvg: bool,
 
 def fused_elbo_backward(q, p, y, sigma, mask, ct_n, ct_k, C: DecodeConsts, *,
                         mvg: bool, s_nll: int, s_kl: int, z_nll=None,
-                        z_kl=None, seed=None, state=None):
+                        z_kl=None, seed=None, offset: int = 0, state=None):
     """(dq, dp, dy, dsigma) of sum(ct_n * nll_rows + ct_k * kl_rows).
     CUDA: kernel F's backward (counted in ``fused_elbo_backward.launches``;
     given the forward's ``state``, also in ``.from_state``: the KL side
@@ -351,7 +357,8 @@ def fused_elbo_backward(q, p, y, sigma, mask, ct_n, ct_k, C: DecodeConsts, *,
     n = mask.shape[0]
     _check_state(state, q, n, mvg)
     if _device_of(q) == "cpu":
-        zn, zk = _plain_noise(z_nll, z_kl, seed, n, s_nll, s_kl, q.device)
+        zn, zk = _plain_noise(z_nll, z_kl, seed, n, s_nll, s_kl, q.device,
+                              offset)
         return elbo_grads_plain(q, p, y, sigma, mask, zn, zk, ct_n, ct_k, C,
                                 mvg)
     q, p, y, sigma, mask, ct_n, ct_k = _check_cuda(
@@ -366,8 +373,8 @@ def fused_elbo_backward(q, p, y, sigma, mask, ct_n, ct_k, C: DecodeConsts, *,
     with torch.cuda.device(q.device):
         err = _cuda.library().qv_elbo_bwd(
             q.data_ptr(), p.data_ptr(), y.data_ptr(), sigma.data_ptr(),
-            mask.data_ptr(), ptr(zn), ptr(zk), sd, n, int(mvg), s_nll, s_kl,
-            ct_n.data_ptr(), ct_k.data_ptr(), ptr(state), C.struct(),
+            mask.data_ptr(), ptr(zn), ptr(zk), sd, int(offset), n, int(mvg),
+            s_nll, s_kl, ct_n.data_ptr(), ct_k.data_ptr(), ptr(state), C.struct(),
             table.data_ptr(), table.numel(), dq.data_ptr(), dp.data_ptr(),
             dsig.data_ptr(), dy.data_ptr(),
             _grid(_BWD_LANES * n),
@@ -405,9 +412,11 @@ class _FusedELBO(torch.autograd.Function):
 
 
 def fused_elbo(q, p, y, sigma, mask, C: DecodeConsts, *, mvg: bool,
-               s_nll: int, s_kl: int, z_nll=None, z_kl=None, seed=None):
+               s_nll: int, s_kl: int, z_nll=None, z_kl=None, seed=None,
+               offset: int = 0):
     """(nll_rows, kl_rows) (N,), differentiable in q, p (N, 5|4), y and
     sigma (N, T). Host noise (z_nll (s_nll, N, 2), z_kl (s_kl, N, 2) for
-    MVG) or a seed (device noise)."""
-    kw = dict(C=C, mvg=mvg, s_nll=s_nll, s_kl=s_kl, seed=seed)
+    MVG) or a seed (device noise, row v's counter offset + v)."""
+    kw = dict(C=C, mvg=mvg, s_nll=s_nll, s_kl=s_kl, seed=seed,
+              offset=offset)
     return _FusedELBO.apply(q, p, y, sigma, mask, z_nll, z_kl, kw)

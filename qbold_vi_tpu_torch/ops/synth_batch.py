@@ -10,11 +10,16 @@ blood model and adds the SNR-profiled noise in two passes (the second for
 the noise, which needs the batch-mean signal per tau).
 
 * ``synth_batch(cfg, batch_size, seed, device=...)`` -> {x (B, X, Y, Z, T),
-  y (B, X, Y, Z, 3)}: on the card kernel S (pass 1 counted in
+  y (B, X, Y, Z, 3)}, or with ``seeds=[s_0, ..., s_{P-1}]`` a trial axis:
+  x (P, B, X, Y, Z, T), y (P, B, X, Y, Z, 3), batch j the one of seed
+  s_j (the population sweep's P trials a step). On the card kernel S,
+  one launch of each pass for every trial (pass 1 counted in
   ``synth_batch.launches``, the noise pass in
-  ``synth_batch.noise_launches``); on the CPU the plain version fed
-  ``synth_philox_draws`` -- the kernel's draws replayed on the host -- so
-  one seed gives one batch on either device, up to float32 rounding.
+  ``synth_batch.noise_launches``), trial j bit-equal to the one-trial
+  launch under s_j; on the CPU the plain version fed
+  ``synth_philox_draws`` -- the kernel's draws replayed on the host, each
+  trial's stacked -- so one seed gives one batch on either device, up to
+  float32 rounding.
   Kernel S decodes the full SDR model only: a configuration with
   ``train.full_model=False`` (the asymptotic tissue model) is routed by
   its config, before any launch, to the plain version on the card, fed
@@ -115,14 +120,22 @@ def _profile(n_taus: int, device: torch.device) -> torch.Tensor:
         np.zeros(n_taus, np.float32))).to(device)
 
 
-def synth_batch(cfg: QBoldConfig, batch_size: int, seed: int, *,
-                device=None, vol_shape=(10, 10, 5)) -> dict:
+def synth_batch(cfg: QBoldConfig, batch_size: int, seed: int = None, *,
+                seeds=None, device=None, vol_shape=(10, 10, 5)) -> dict:
     """A fresh synthetic batch {x (B, *vol_shape, T), y (B, *vol_shape, 3)}
     drawn under ``seed`` on ``device`` (the CUDA card unless given another):
     kernel S on the card, the plain version on the CPU fed the kernel's
     replayed draws, and on the card too for the asymptotic tissue model
-    (``train.full_model=False``), which kernel S does not decode."""
+    (``train.full_model=False``), which kernel S does not decode. With
+    ``seeds`` (a sequence of P seeds) and no ``seed``: P batches stacked on
+    a leading trial axis, batch j drawn under seeds[j] -- one launch of
+    each pass on the card."""
     device = torch.device("cuda" if device is None else device)
+    if (seed is None) == (seeds is None):
+        raise ValueError("synth_batch takes a seed or a sequence of seeds")
+    trials = None if seeds is None else [int(s) for s in seeds]
+    if trials is not None and not trials:
+        raise ValueError("synth_batch needs at least one seed")
     scan = cfg.scan
     n = int(batch_size) * int(np.prod(vol_shape))
     shape = (int(batch_size),) + tuple(vol_shape)
@@ -131,25 +144,43 @@ def synth_batch(cfg: QBoldConfig, batch_size: int, seed: int, *,
     if device.type == "cpu" or not cfg.train.full_model:
         from ..train.steps import stream_synthetic_batch
 
-        return stream_synthetic_batch(
-            cfg, batch_size, synth_philox_draws(seed, n, scan.n_taus),
-            device=device, vol_shape=vol_shape)
+        def plain(s):
+            return stream_synthetic_batch(
+                cfg, batch_size, synth_philox_draws(s, n, scan.n_taus),
+                device=device, vol_shape=vol_shape)
+
+        if trials is None:
+            return plain(seed)
+        parts = [plain(s) for s in trials]
+        return {k: torch.stack([p[k] for p in parts]) for k in ("x", "y")}
+    p_n = 1 if trials is None else len(trials)
+    lead = () if trials is None else (p_n,)
     C = synth_decode_consts(cfg)
     table = C.device_table(device)
-    x = torch.empty(shape + (scan.n_taus,), device=device,
+    x = torch.empty(lead + shape + (scan.n_taus,), device=device,
                     dtype=torch.float32)
-    y = torch.empty(shape + (3,), device=device, dtype=torch.float32)
+    y = torch.empty(lead + shape + (3,), device=device, dtype=torch.float32)
     lib = _cuda.library()
-    partial = torch.empty((lib.qv_synth_grid(n), scan.n_taus),
+    partial = torch.empty((p_n, lib.qv_synth_grid(n), scan.n_taus),
                           device=device, dtype=torch.float64)
     prof = _profile(scan.n_taus, device)
     consts = synth_consts(cfg)
+    stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        err = lib.qv_synth_batch(
-            n, C.struct(), table.data_ptr(), table.numel(), consts,
-            int(seed) & 0xFFFFFFFFFFFFFFFF, x.data_ptr(), y.data_ptr(),
-            partial.data_ptr(), prof.data_ptr(), _NOISE_GRID,
-            torch.cuda.current_stream(device).cuda_stream)
+        if trials is None:
+            err = lib.qv_synth_batch(
+                n, C.struct(), table.data_ptr(), table.numel(), consts,
+                int(seed) & 0xFFFFFFFFFFFFFFFF, x.data_ptr(), y.data_ptr(),
+                partial.data_ptr(), prof.data_ptr(), _NOISE_GRID, stream)
+        else:
+            # the seeds as uint64 words, through int64's bits
+            words = np.array([s & 0xFFFFFFFFFFFFFFFF for s in trials],
+                             np.uint64).view(np.int64)
+            keys = torch.from_numpy(words).to(device)
+            err = lib.qv_synth_batch_trials(
+                n, p_n, C.struct(), table.data_ptr(), table.numel(), consts,
+                keys.data_ptr(), x.data_ptr(), y.data_ptr(),
+                partial.data_ptr(), prof.data_ptr(), _NOISE_GRID, stream)
     _cuda.check(err, "synthetic batch")
     synth_batch.launches += 1
     synth_batch.noise_launches += int(bool(consts.noise))

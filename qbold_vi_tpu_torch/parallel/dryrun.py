@@ -27,8 +27,11 @@ workload (``multihost.workload_metrics``):
    unsharded maps; 5b, kernel B in them: ``fused_infer="auto"`` takes B
    on the card.
 
-The JAX dry run's mesh-sharded population sweep (its stage 5d) belongs
-to the sweep, which the port has not yet.
+5d. the mesh-sharded population sweep: a 2-trial pretrain population
+   (``sweep.population_pretrain(mesh=)``), each rank its slice of the
+   trials (padded by trial 0 where the ranks outnumber them), every metric
+   bit-equal across ranks and within rtol 2e-4 of the population in one
+   process.
 """
 
 from __future__ import annotations
@@ -39,11 +42,12 @@ __all__ = ["run"]
 def run(n_devices: int, *, device: str = "cuda",
         timeout_s: float = 900.0) -> dict:
     """``multihost.certify(n_devices)`` at the tiny width on ``device``
-    ranks; returns its summary with ``devices`` ("ok": True)."""
+    ranks, with its 2-trial population stage; returns its summary with
+    ``devices`` ("ok": True)."""
     from .multihost import certify
 
     if n_devices < 1:
         raise ValueError("a dry run needs at least one device")
     out = certify(n_devices, width="tiny", device=device,
-                  timeout_s=timeout_s)
+                  timeout_s=timeout_s, population_trials=2)
     return dict(out, devices=n_devices)

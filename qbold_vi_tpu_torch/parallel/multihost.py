@@ -31,6 +31,12 @@ device count in one process"):
    OPTIMAL's width) from the initial weights, against posterior_maps /
    elbo_maps.
 
+With ``population_trials`` K > 0 the ranks also train a K-trial
+pretrain population of the sweep (``sweep.population_pretrain(mesh=)``:
+each rank its slice of the trials, the metrics gathered), held bit for
+bit across ranks and within rtol 2e-4 of the population in this process
+(the JAX dry run's stage 5d).
+
 Every run times the fine-tune epoch on the device's draws (kernel F's
 Philox streams on the card) over ``time_steps`` steps, after a warm
 epoch: ``make_finetune_epoch_sharded`` under a mesh, the unsharded
@@ -66,7 +72,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["workload_metrics", "launch_workers", "certify"]
+__all__ = ["workload_metrics", "population_metrics", "launch_workers",
+           "certify"]
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -95,6 +102,46 @@ def _workload_cfg(width: str, n_ranks: int):
                           predict_log_data=False),
         train=TrainConfig(ft_batch_size=n_ranks + 1, crop_size=6,
                           pt_batch_size=n_ranks + 1))
+
+
+# the trials of the population stage: pt_lr and the inverse-gamma prior
+# vary (one group: every trial has the prior)
+POPULATION_TRIALS = (
+    {"pt_lr": 1e-3, "inv_gamma_alpha": 1.0, "inv_gamma_beta": 2.0},
+    {"pt_lr": 5e-4, "inv_gamma_alpha": 3.0, "inv_gamma_beta": 1.0},
+    {"pt_lr": 2e-3, "inv_gamma_alpha": 0.5, "inv_gamma_beta": 0.5},
+    {"pt_lr": 8e-4, "inv_gamma_alpha": 2.0, "inv_gamma_beta": 4.0})
+POPULATION_RTOL = 2e-4
+
+
+def _population_cfg(width: str):
+    """The population stage's configuration: OPTIMAL for one streaming
+    epoch, or at the tiny width the sweep tests' (its seed fold holds a
+    validation volume)."""
+    from ..config import (OPTIMAL, ModelConfig, QBoldConfig, ScanParams,
+                          SynthParams, TrainConfig)
+
+    if width == "optimal":
+        return dataclasses.replace(OPTIMAL, train=dataclasses.replace(
+            OPTIMAL.train, no_pt_epochs=1))
+    return QBoldConfig(
+        scan=ScanParams(simulate_noise=False),
+        synth=SynthParams(sample_size=40),
+        model=ModelConfig(no_units=8, no_intermediate_layers=1,
+                          use_mvg=True, student_t_df=200.0,
+                          predict_log_data=False),
+        train=TrainConfig(no_pt_epochs=1, pt_batch_size=4))
+
+
+def population_metrics(mesh=None, *, n_trials: int, width: str = "tiny",
+                       device: str = "cuda") -> list:
+    """The population stage: ``n_trials`` of POPULATION_TRIALS through
+    ``sweep.population_pretrain`` (under ``mesh``, each rank its slice)."""
+    from ..sweep import population_pretrain
+
+    return population_pretrain(_population_cfg(width),
+                               list(POPULATION_TRIALS[:n_trials]),
+                               mesh=mesh, device=device)
 
 
 def _shapes(width: str, n_ranks: int) -> dict:
@@ -431,6 +478,8 @@ def _worker_main(argv=None) -> int:
     p.add_argument("--device", default="cuda", choices=["cpu", "cuda"])
     p.add_argument("--steps", type=int, default=2)
     p.add_argument("--time-steps", type=int, default=None)
+    p.add_argument("--population", type=int, default=0,
+                   help="trials of the population stage (0: none)")
     args = p.parse_args(argv)
 
     pmesh.initialize_distributed(args.coordinator, args.num_processes,
@@ -441,9 +490,19 @@ def _worker_main(argv=None) -> int:
             mesh, n_ranks=args.num_processes, width=args.width,
             n_steps=args.steps, time_steps=args.time_steps,
             trainer_dir=os.path.join(os.path.dirname(args.out), "trainer"))
-        out["backend"] = mesh.backend
         if mesh.rank == 0:
             np.savez(args.out + ".maps.npz", **maps)
+        if args.population:
+            from ..ops import launch_counts
+
+            before, coll = launch_counts()["S"], collections.Counter(
+                mesh.counts)
+            out["population"] = population_metrics(
+                mesh, n_trials=args.population, width=args.width,
+                device=args.device)
+            out["population_s_launches"] = launch_counts()["S"] - before
+            out["population_collectives"] = dict(mesh.counts - coll)
+        out["backend"] = mesh.backend
     finally:
         dist.destroy_process_group()
     write_result(args.out, out)
@@ -554,34 +613,67 @@ def _launch_once(n: int, args: list, module: str, timeout_s: float,
     return results
 
 
+def _certify_population(workers: list, reference: list) -> dict:
+    """The population stage of every rank: bit-equal across ranks, each
+    trial's metrics within POPULATION_RTOL of this process's population;
+    each rank's S launches and collectives (one all_gather a group)."""
+    pops = [w["population"] for w in workers]
+    for r, pop in enumerate(pops[1:], 1):
+        assert pop == pops[0], f"population differs on rank {r}: {pop}"
+    assert len(pops[0]) == len(reference)
+    worst = 0.0
+    for got, ref in zip(pops[0], reference):
+        for k, v in ref.items():
+            np.testing.assert_allclose(
+                got[k], v, rtol=POPULATION_RTOL, atol=1e-6,
+                err_msg=f"population {k}: {len(workers)} ranks against one "
+                        "process")
+            worst = max(worst, abs(got[k] - v) / max(abs(v), 1e-30))
+        assert np.isfinite(got["val_elbo"]), got
+    for w in workers:
+        assert w["population_collectives"].get("all_gather") == 1, w
+    return {"population": pops[0], "population_rel_err": worst,
+            "population_s_launches": [w["population_s_launches"]
+                                      for w in workers]}
+
+
 def certify(n_processes: int, *, n_steps: int = 2,
             time_steps: Optional[int] = None, width: str = "tiny",
             device: str = "cuda", timeout_s: float = 900.0,
-            rtol: float = 2e-5, workdir: Optional[str] = None) -> dict:
+            rtol: float = 2e-5, workdir: Optional[str] = None,
+            population_trials: int = 0) -> dict:
     """Run the workload on ``n_processes`` ranks and in this process, and
     hold them to each other: every metric bit-equal across ranks; the
     host-draw stages and the maps within ``rtol`` (atol 1e-6) of the
     single-process run (the ranks reduce in another order); the per-rank
     evaluation rows tiling the global batch; one gradient all-reduce a
     step; rank 0's checkpoints written. ``time_steps`` (default
-    ``n_steps``) steps the timed epochs. Returns the certification as a
-    dict ("ok": True)."""
+    ``n_steps``) steps the timed epochs. With ``population_trials`` the
+    population stage too. Returns the certification as a dict ("ok":
+    True)."""
     from .mesh import require_device
 
     require_device(device)
     time_steps = time_steps or n_steps
     workdir = workdir or tempfile.mkdtemp(prefix="qbold_multihost_")
+    pop_args = (["--population", str(population_trials)]
+                if population_trials else [])
     reference, ref_maps = workload_metrics(
         None, n_ranks=n_processes, width=width, n_steps=n_steps,
         time_steps=time_steps, device=device)
+    ref_pop = (population_metrics(n_trials=population_trials, width=width,
+                                  device=device)
+               if population_trials else None)
     workers = launch_workers(
         n_processes, args=["--width", width, "--device", device, "--steps",
-                           str(n_steps), "--time-steps", str(time_steps)],
+                           str(n_steps), "--time-steps", str(time_steps),
+                           *pop_args],
         timeout_s=timeout_s, workdir=workdir)
     w0 = workers[0]
     assert w0["world_size"] == n_processes, w0
     skip = ("rank", "local_eval_rows", "launches", "collectives",
-            "allreduce_ms_per_step", "ft_device_step_ms")
+            "allreduce_ms_per_step", "ft_device_step_ms", "population",
+            "population_s_launches", "population_collectives")
     for w in workers[1:]:
         for k, v in w0.items():
             if k not in skip:
@@ -605,7 +697,10 @@ def certify(n_processes: int, *, n_steps: int = 2,
     assert w0["step_reduces_per_step"] == 1, w0["step_reduces_per_step"]
     assert w0["trainer_ckpt_exists"] and w0["trainer_final_ckpt_exists"], \
         "rank 0's checkpoints were not written"
+    pop = (_certify_population(workers, ref_pop) if population_trials
+           else {})
     return {
+        **pop,
         "processes": n_processes,
         "devices_per_process": 1,
         "backend": w0["backend"],

@@ -87,7 +87,8 @@ from .optim import swa_update
 __all__ = ["posterior_mse_metrics", "pretrain_loss", "make_pretrain_step",
            "make_pretrain_eval", "stream_synthetic_batch",
            "make_pretrain_stream_step", "make_pretrain_stream_epoch",
-           "sample_crop_batch", "finetune_terms",
+           "sample_crop_batch", "take_crops", "finetune_terms",
+           "population_finetune_terms",
            "make_finetune_step", "make_finetune_epoch_on_device",
            "make_finetune_eval", "resolve_fused_elbo", "resolve_fused_nll",
            "normals", "fold_seed", "make_pretrain_stream_step_sharded",
@@ -526,6 +527,17 @@ def sample_crop_batch(generator: torch.Generator, volumes: torch.Tensor,
         torch.randint(0, hi, (b,), generator=generator),
         torch.randint(0, x_n - cx + 1, (b,), generator=generator),
         torch.randint(0, y_n - cy + 1, (b,), generator=generator)])
+    return take_crops(volumes, priors, idx, crop_size)
+
+
+def take_crops(volumes: torch.Tensor, priors: torch.Tensor, idx,
+               crop_size: int) -> dict:
+    """The crops (subject, x0, y0) = idx[:, i] (a (3, b) integer array) of
+    the resident volumes and priors, gathered on their device in one
+    indexing op: {images (masked), mask, priors}."""
+    x_n, y_n = volumes.shape[1:3]
+    cx, cy = min(crop_size, x_n), min(crop_size, y_n)
+    idx = torch.as_tensor(idx, dtype=torch.int64)
     if volumes.device.type == "cuda":
         idx = idx.pin_memory().to(volumes.device, non_blocking=True)
     si, xi, yi = idx
@@ -563,73 +575,127 @@ def finetune_terms(tuner: FineTuner, cfg: QBoldConfig, batch: dict, *,
     mean) divided by the world size, so that the ranks' totals and terms
     SUM to the global ones (the JAX ``_globalise``); the population
     prior's hyperprior cost counts the rank's live crops
-    (``batch["live"]``)."""
+    (``batch["live"]``).
+
+    The pieces (``_encoded``, ``_elbo_noise``, ``_elbo_means``,
+    ``_nll_inputs``, ``_kl_term``, ``_total``) are shared with
+    ``population_finetune_terms``, which puts one kernel call over every
+    trial's rows between the encoder passes and the terms."""
     mcfg = cfg.model
-    images, mask = batch["images"], batch["mask"]
+    images = batch["images"]
     device = images.device
-    n_crops = (torch.sum(batch["live"]) if "live" in batch
-               else images.shape[0])
     s = no_samples if no_samples is not None else mcfg.no_samples
-    t = tuner.scan.n_taus
-    vox = tuple(images.shape[:-1])
     seeds = _split_seed(seed, 4) if seed is not None else (None,) * 4
     drop = tuner.dropout(train, seed=seeds[3], masks=dropout_masks)
-
-    def prior_of(q):
-        return (tuner.prior_params(q) if mcfg.use_population_prior
-                else batch["priors"])
-
     elbo = resolve_fused_elbo(tuner, cfg, device)
     if elbo is not None:
         consts, host = elbo
-        _, q, sigma = tuner.encode(images, drop)
-        k = q.shape[-1]
-        mf = mask.reshape(-1)
-        n = mf.shape[0]
-        args = (q.reshape(-1, k), prior_of(q).reshape(-1, k),
-                images.reshape(-1, t), sigma.reshape(-1, t), mf)
-        kw = dict(mvg=mcfg.use_mvg, s_nll=s, s_kl=kl_samples)
-        if host or (noise is not None and "z_nll" in noise):
-            kw["z_nll"] = _noise(noise, "z_nll", seeds[0], (s, n, 2), device)
-            if mcfg.use_mvg:
-                kw["z_kl"] = _noise(noise, "z_kl", seeds[1],
-                                    (kl_samples, n, 2), device)
-        else:
-            kw["seed"] = seeds[2]
+        q, sigma, args = _encoded(tuner, cfg, batch, drop)
+        kw = _elbo_noise(cfg, host, noise, seeds, args[4].shape[0], s,
+                         kl_samples, device)
         nll_rows, kl_rows = fused_elbo(*args, consts, **kw)
-        denom = losses.safe_mask_sum(mf)
-        nll = torch.sum(nll_rows) / (s * denom)
-        kl = torch.sum(kl_rows) / denom
+        nll, kl = _elbo_means(nll_rows, kl_rows, args[4], s)
+        return _total(tuner, cfg, batch, q, sigma, nll, kl, mesh)
+    consts = resolve_fused_nll(tuner, cfg, device)
+    if consts is not None:
+        q, sigma, rows_in = _nll_inputs(tuner, cfg, batch, drop, noise,
+                                        seeds, s)
+        nll = (torch.sum(decode_nll_rows(*rows_in, consts))
+               / losses.safe_mask_sum(rows_in[4]))
     else:
-        z_nll = _noise(noise, "z_nll", seeds[0], (s,) + vox + (2,), device)
-        consts = resolve_fused_nll(tuner, cfg, device)
-        if consts is not None:
-            _, q, sigma = tuner.encode(images, drop)
-            samples = tuner.dist.sample_many(z_nll, q, mcfg.use_mvg)
-            yb = images.expand((s,) + images.shape).reshape(-1, t)
-            sb = sigma.expand((s,) + sigma.shape).reshape(-1, t)
-            mb = mask.expand((s,) + mask.shape).reshape(-1)
-            rows = decode_nll_rows(samples[..., 0].reshape(-1),
-                                   samples[..., 1].reshape(-1), yb, sb, mb,
-                                   consts)
-            nll = torch.sum(rows) / losses.safe_mask_sum(mb)
-        else:
-            out = tuner.apply(images, z_nll, drop)
-            q, sigma = out["predictions"], out["im_sigma"]
-            pred = out["predicted_images"]
-            nll = losses.fine_tune_nll(
-                mcfg, tuner.scan.se_idx, images.expand(pred.shape), pred,
-                sigma.expand(pred.shape),
-                mask.expand(pred.shape[:-1] + (1,)))
-        if mcfg.use_mvg:
-            z_kl = _noise(noise, "z_kl", seeds[1],
-                          (kl_samples,) + vox + (2,), device)
-        elif mcfg.use_population_prior and mcfg.mog_components > 1:
-            z_kl = _noise(noise, "z_kl", seeds[1], (2,) + vox, device)
-        else:
-            z_kl = None
-        kl = losses.kl_loss(tuner.dist, mcfg, prior_of(q), q, mask, z=z_kl,
-                            n_crops=n_crops)
+        z_nll = _noise(noise, "z_nll", seeds[0],
+                       (s,) + tuple(images.shape[:-1]) + (2,), device)
+        out = tuner.apply(images, z_nll, drop)
+        q, sigma = out["predictions"], out["im_sigma"]
+        pred = out["predicted_images"]
+        nll = losses.fine_tune_nll(
+            mcfg, tuner.scan.se_idx, images.expand(pred.shape), pred,
+            sigma.expand(pred.shape),
+            batch["mask"].expand(pred.shape[:-1] + (1,)))
+    kl = _kl_term(tuner, cfg, batch, q, noise, seeds, kl_samples)
+    return _total(tuner, cfg, batch, q, sigma, nll, kl, mesh)
+
+
+def _prior_of(tuner: FineTuner, cfg: QBoldConfig, batch: dict, q):
+    return (tuner.prior_params(q) if cfg.model.use_population_prior
+            else batch["priors"])
+
+
+def _encoded(tuner: FineTuner, cfg: QBoldConfig, batch: dict, drop):
+    """(q, sigma, kernel F's row inputs (q, prior, y, sigma, mask)) of one
+    batch's encoder pass."""
+    images, mask = batch["images"], batch["mask"]
+    t = tuner.scan.n_taus
+    _, q, sigma = tuner.encode(images, drop)
+    k = q.shape[-1]
+    return q, sigma, (q.reshape(-1, k),
+                      _prior_of(tuner, cfg, batch, q).reshape(-1, k),
+                      images.reshape(-1, t), sigma.reshape(-1, t),
+                      mask.reshape(-1))
+
+
+def _elbo_noise(cfg: QBoldConfig, host: bool, noise, seeds, n: int, s: int,
+                kl_samples: int, device) -> dict:
+    """Kernel F's keyword arguments for n rows: the host normals (``noise``
+    or the seeds' first two splits) under host noise or given, else the
+    device-noise seed (the seeds' third split)."""
+    kw = dict(mvg=cfg.model.use_mvg, s_nll=s, s_kl=kl_samples)
+    if host or (noise is not None and "z_nll" in noise):
+        kw["z_nll"] = _noise(noise, "z_nll", seeds[0], (s, n, 2), device)
+        if cfg.model.use_mvg:
+            kw["z_kl"] = _noise(noise, "z_kl", seeds[1], (kl_samples, n, 2),
+                                device)
+    else:
+        kw["seed"] = seeds[2]
+    return kw
+
+
+def _elbo_means(nll_rows, kl_rows, mf, s: int) -> tuple:
+    denom = losses.safe_mask_sum(mf)
+    return torch.sum(nll_rows) / (s * denom), torch.sum(kl_rows) / denom
+
+
+def _nll_inputs(tuner: FineTuner, cfg: QBoldConfig, batch: dict, drop,
+                noise, seeds, s: int) -> tuple:
+    """(q, sigma, kernel G's row inputs (oef, dbv, y, sigma, mask) over the
+    s draws) of one batch's encoder pass and posterior draws."""
+    images, mask = batch["images"], batch["mask"]
+    t = tuner.scan.n_taus
+    z_nll = _noise(noise, "z_nll", seeds[0],
+                   (s,) + tuple(images.shape[:-1]) + (2,), images.device)
+    _, q, sigma = tuner.encode(images, drop)
+    samples = tuner.dist.sample_many(z_nll, q, cfg.model.use_mvg)
+    return q, sigma, (samples[..., 0].reshape(-1),
+                      samples[..., 1].reshape(-1),
+                      images.expand((s,) + images.shape).reshape(-1, t),
+                      sigma.expand((s,) + sigma.shape).reshape(-1, t),
+                      mask.expand((s,) + mask.shape).reshape(-1))
+
+
+def _kl_term(tuner: FineTuner, cfg: QBoldConfig, batch: dict, q, noise,
+             seeds, kl_samples: int):
+    """The KL term in torch (the paths other than kernel F's)."""
+    mcfg = cfg.model
+    mask = batch["mask"]
+    vox = tuple(batch["images"].shape[:-1])
+    n_crops = (torch.sum(batch["live"]) if "live" in batch
+               else batch["images"].shape[0])
+    if mcfg.use_mvg:
+        z_kl = _noise(noise, "z_kl", seeds[1], (kl_samples,) + vox + (2,),
+                      q.device)
+    elif mcfg.use_population_prior and mcfg.mog_components > 1:
+        z_kl = _noise(noise, "z_kl", seeds[1], (2,) + vox, q.device)
+    else:
+        z_kl = None
+    return losses.kl_loss(tuner.dist, mcfg, _prior_of(tuner, cfg, batch, q),
+                          q, mask, z=z_kl, n_crops=n_crops)
+
+
+def _total(tuner: FineTuner, cfg: QBoldConfig, batch: dict, q, sigma, nll,
+           kl, mesh):
+    """(total, aux) from the NLL and KL means: the smoothness term, the
+    weighted total, and under ``mesh`` the rank's share of each."""
+    mask = batch["mask"]
     smooth = losses.smoothness_loss(tuner.dist, q, mask)
     aux = {"nll": nll, "kl": kl, "smoothness": smooth,
            "sigma": torch.mean(sigma)}
@@ -643,6 +709,87 @@ def finetune_terms(tuner: FineTuner, cfg: QBoldConfig, batch: dict, *,
     aux["sigma"] = torch.mean(sigma) / sigma.new_tensor(
         float(mesh.world_size))
     return total * scale, aux
+
+
+def population_finetune_terms(tuners: list, cfg: QBoldConfig,
+                              batches: list, *, seeds: list,
+                              noises: Optional[list] = None,
+                              device_seed: int, first_trial: int = 0,
+                              kl_samples: int = 70) -> list:
+    """[(total, aux)] of P trials' fine-tune batches of N rows each, trial
+    j through ``tuners[j]`` on ``batches[j]`` with the step seed
+    ``seeds[j]`` (or the normals ``noises[j]``), as finetune_terms gives
+    each -- except that the kernel of the path runs ONCE for all trials:
+    each trial's encoder pass gives its rows, the rows of every trial are
+    concatenated (trial j's at rows j N ...), kernel F (or G) runs forward
+    and, in the backward, once more over them, and each trial's terms are
+    its own rows' masked means (its mask count, its weights).
+
+    Host normals (``fused_elbo="host"``, or given) travel with their rows,
+    so every trial computes exactly what finetune_terms computes for it;
+    kernel G's normals are drawn in torch from each trial's seed, so they
+    do too. Under device noise kernel F draws from ONE seed a step,
+    ``device_seed``, with the Philox counters of rows (first_trial + j)
+    N ... for trial j: a trial's draws depend on
+    the step's seed and on its index in its group, not on which trials
+    share the launch. Its draws are valid ones, but not those that
+    finetune_terms takes for it under its own seed. Whether the step's
+    seeds differ or are one and the same, the trials draw distinct noise
+    (their rows' counters differ). Paths without a kernel run
+    finetune_terms per trial."""
+    p_n = len(tuners)
+    noises = noises if noises is not None else [None] * p_n
+    tuner = tuners[0]
+    device = batches[0]["images"].device
+    s = cfg.model.no_samples
+    splits = [_split_seed(sd, 4) if sd is not None else (None,) * 4
+              for sd in seeds]
+    drops = [tj.dropout(True, seed=sp[3]) for tj, sp in zip(tuners, splits)]
+    elbo = resolve_fused_elbo(tuner, cfg, device)
+    consts = None if elbo is not None else resolve_fused_nll(tuner, cfg,
+                                                             device)
+    if elbo is None and consts is None:
+        return [finetune_terms(tj, cfg, b, seed=sd, noise=nz,
+                               kl_samples=kl_samples)
+                for tj, b, sd, nz in zip(tuners, batches, seeds, noises)]
+    if elbo is not None:
+        consts, host = elbo
+        parts = [_encoded(tj, cfg, b, d)
+                 for tj, b, d in zip(tuners, batches, drops)]
+        sizes = [p[2][4].shape[0] for p in parts]
+        args = [torch.cat([p[2][i] for p in parts]) for i in range(5)]
+        kws = [_elbo_noise(cfg, host, nz, sp, n, s, kl_samples, device)
+               for nz, sp, n in zip(noises, splits, sizes)]
+        kw = dict(kws[0])
+        for z in ("z_nll", "z_kl"):
+            if z in kw:
+                kw[z] = torch.cat([k[z] for k in kws], 1)
+        if "seed" in kw:
+            kw.update(seed=device_seed, offset=first_trial * sizes[0])
+        nll_rows, kl_rows = fused_elbo(*args, consts, **kw)
+        out = []
+        for j, (n_r, k_r) in enumerate(zip(torch.split(nll_rows, sizes),
+                                           torch.split(kl_rows, sizes))):
+            q, sigma, a = parts[j]
+            nll, kl = _elbo_means(n_r, k_r, a[4], s)
+            out.append(_total(tuners[j], cfg, batches[j], q, sigma, nll, kl,
+                              None))
+        return out
+    parts = [_nll_inputs(tj, cfg, b, d, nz, sp, s)
+             for tj, b, d, nz, sp in zip(tuners, batches, drops, noises,
+                                         splits)]
+    sizes = [p[2][4].shape[0] for p in parts]
+    rows = decode_nll_rows(*[torch.cat([p[2][i] for p in parts])
+                             for i in range(5)], consts)
+    out = []
+    for j, r in enumerate(torch.split(rows, sizes)):
+        q, sigma, a = parts[j]
+        nll = torch.sum(r) / losses.safe_mask_sum(a[4])
+        kl = _kl_term(tuners[j], cfg, batches[j], q, noises[j], splits[j],
+                      kl_samples)
+        out.append(_total(tuners[j], cfg, batches[j], q, sigma, nll, kl,
+                          None))
+    return out
 
 
 def make_finetune_step(tuner: FineTuner, cfg: QBoldConfig, optimizer,

@@ -10,8 +10,8 @@
 * ``train`` on a real-data directory (load_real_directory's layout) with
   mid-phase checkpoints: the post-pretrain, baseline and hyperv exports,
   both checkpoints and no .partial left;
-* what is not ported exits 2, and the card is asked for unless
-  ``--device cpu`` is given.
+* a TPU artifact (the JAX package's) exits 2, and the card is asked for
+  unless ``--device cpu`` is given.
 """
 
 import io
@@ -260,13 +260,15 @@ def test_train_on_a_real_data_directory(tmp_path):
 
 
 def test_what_is_not_ported_exits_2(tmp_path, capsys):
-    """Only sweep is not ported: dryrun and train's --mesh /
-    --coordinator / --num-processes / --process-id run
-    (tests/test_torch_multihost.py), and --mesh without a process group
-    trains on one rank, unsharded, as the JAX CLI does."""
-    for argv in (["sweep", "--trials", "3"], ["sweep"]):
-        assert main(argv) == 2, argv
-        assert "not ported yet (ROADMAP.md)" in capsys.readouterr().err
+    """Every subcommand of the JAX CLI is ported (sweep:
+    tests/test_torch_sweep.py): only a TPU artifact, which is the JAX
+    package's, exits 2. dryrun and train's --mesh / --coordinator /
+    --num-processes / --process-id run (tests/test_torch_multihost.py),
+    and --mesh without a process group trains on one rank, unsharded, as
+    the JAX CLI does."""
+    from qbold_vi_tpu_torch import cli
+
+    assert not hasattr(cli, "_UNPORTED")
     save = tmp_path / "mesh1"
     assert main(["train", "--mesh", "--smoke", *CPU, "--set",
                  f"save_directory={save}", "--set",
@@ -292,9 +294,10 @@ def test_the_card_is_asked_for_unless_device_cpu(tmp_path):
 def test_python_m_runs_the_cli(tmp_path):
     """``python -m qbold_vi_tpu_torch`` reaches cli.main."""
     out = subprocess.run(
-        [sys.executable, "-m", "qbold_vi_tpu_torch", "sweep"], cwd=REPO,
-        capture_output=True, text=True, timeout=120)
-    assert out.returncode == 2 and "not ported yet" in out.stderr
+        [sys.executable, "-m", "qbold_vi_tpu_torch", "export-model", "-o",
+         str(tmp_path / "x"), "--platforms", "tpu", "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 2 and "TPU artifacts" in out.stderr
     out = subprocess.run(
         [sys.executable, "-m", "qbold_vi_tpu_torch", "--help"], cwd=REPO,
         capture_output=True, text=True, timeout=120)

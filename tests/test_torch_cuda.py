@@ -566,6 +566,39 @@ def test_fused_elbo_kernel_matches_plain(cuda_device, case, s_nll, rows):
         assert bool((y[dead][torch.isfinite(y[dead])] == 0).all())
 
 
+def test_fused_elbo_device_noise_at_an_offset(cuda_device):
+    """A launch over rows [h, n) at offset h draws, bit for bit, what one
+    launch over all n rows draws there (forward and both backwards), and
+    the plain version at that offset agrees with it."""
+    cfg = tcfg.OPTIMAL.model
+    C = tdn.decode_consts(cfg, SCAN)
+    n, h = 20_000, 7_504
+    a = _ft_inputs(np.random.default_rng(12), n, 5, cuda_device)
+    a["q"][:, [1, 3]] *= 0.3
+    a["p"][:, [1, 3]] *= 0.3
+    main = (a["q"], a["p"], a["y"], a["sigma"], a["mask"])
+    tail = [x[h:] for x in main]
+    kw = dict(mvg=True, s_nll=1, s_kl=70, seed=9)
+    states = [torch.empty(m, tfe.KL_STATE, device=cuda_device)
+              for m in (n, n - h)]
+    whole = tfe.fused_elbo_forward(*main, C, state=states[0], **kw)
+    part = tfe.fused_elbo_forward(*tail, C, offset=h, state=states[1], **kw)
+    assert torch.equal(states[0][h:], states[1])
+    for st in (None, states):
+        gw = tfe.fused_elbo_backward(*main, a["ct_n"], a["ct_k"], C,
+                                     state=st and st[0], **kw)
+        gp = tfe.fused_elbo_backward(*tail, a["ct_n"][h:], a["ct_k"][h:], C,
+                                     offset=h, state=st and st[1], **kw)
+        for x, y in zip(gw, gp):
+            assert torch.equal(x[h:], y)
+    for x, y in zip(whole, part):
+        assert torch.equal(x[h:], y)
+    ref = tfe.fused_elbo_forward(*[x.cpu() for x in tail], C, offset=h, **kw)
+    for x, y in zip(part, ref):
+        np.testing.assert_allclose(x.cpu().numpy(), y.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
 def test_fused_elbo_device_noise(cuda_device):
     """Device noise: the kernel's Philox draws are philox_normals' (the
     plain version fed them agrees), a seed replays bit for bit, another
@@ -1467,3 +1500,108 @@ def test_dryrun_on_the_card(cuda_device):
 
     out = dryrun.run(2, device="cuda", timeout_s=600)
     assert out["ok"] and out["step_reduces_per_step"] == 1
+
+
+# ---- the sweep: kernel S's trial axis and the populations ----------------------
+
+@pytest.mark.parametrize("case", list(S_CASES))
+def test_synth_batch_trial_axis_is_bit_equal(cuda_device, case):
+    """synth_batch(seeds=[...]): one launch of each pass for every trial,
+    trial j bit-equal to the one-trial launch under seeds[j]."""
+    from qbold_vi_tpu_torch.ops import synth_batch as tsb
+
+    cfg = _synth_cfg(case)
+    seeds = [5, 2 ** 40 + 17, 123456789]
+    before = (tsb.synth_batch.launches, tsb.synth_batch.noise_launches)
+    got = tsb.synth_batch(cfg, 32, seeds=seeds, device=cuda_device)
+    torch.cuda.synchronize()
+    noisy = int(cfg.scan.simulate_noise)
+    assert (tsb.synth_batch.launches - before[0],
+            tsb.synth_batch.noise_launches - before[1]) == (1, noisy)
+    assert got["x"].shape == (3, 32, 10, 10, 5, 11)
+    for j, s in enumerate(seeds):
+        one = tsb.synth_batch(cfg, 32, s, device=cuda_device)
+        for k in ("x", "y"):
+            assert torch.equal(got[k][j], one[k]), (k, j)
+
+
+def _sweep_cfg(tmp_path, **train):
+    """tests/test_sweep.py's population configuration with a data
+    directory of 3 subjects and a study set."""
+    rng = np.random.default_rng(7)
+    d = tmp_path / "data"
+    d.mkdir(exist_ok=True)
+    vols = volume(rng, (3, 40, 30, 2), SCAN.n_taus + 1)
+    vols[..., -1] = 1.0
+    np.save(d / "ASE_scan.npy", vols)
+    study = volume(rng, (2, 12, 12, 2), SCAN.n_taus + 2)
+    study[..., -2:] = 1.0
+    np.save(d / "hyperv_ase.npy", study)
+    np.save(d / "baseline_ase.npy", study + 1.0)
+    return tcfg.QBoldConfig(
+        scan=dataclasses.replace(SCAN, simulate_noise=False),
+        synth=tcfg.SynthParams(sample_size=40),
+        model=tcfg.ModelConfig(no_units=4, no_intermediate_layers=1,
+                               use_mvg=True, student_t_df=200.0,
+                               predict_log_data=False),
+        train=tcfg.TrainConfig(**dict(dict(
+            no_pt_epochs=1, pt_batch_size=4, no_ft_epochs=1,
+            ft_batch_size=2, ft_steps_per_epoch=3, crop_size=6,
+            swa_start=1, swa_period=1, save_directory=str(tmp_path),
+            data_directory=str(d)), **train)))
+
+
+@pytest.mark.parametrize("p_n", [1, 3])
+def test_population_step_launches_f_twice_whatever_p(cuda_device, tmp_path,
+                                                      p_n):
+    """A population fine-tune step launches kernel F once forward and once
+    backward for all its trials, and a pretrain step kernel S once; no
+    trial fails."""
+    from qbold_vi_tpu_torch import sweep
+    from qbold_vi_tpu_torch.ops import launch_counts
+
+    cfg = _sweep_cfg(tmp_path)
+    before = launch_counts()
+    out = sweep.population_full_run(
+        cfg, [{"ft_lr": 1e-3 * (j + 1)} for j in range(p_n)],
+        device=cuda_device)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    steps = cfg.train.no_ft_epochs * cfg.train.ft_steps_per_epoch
+    assert after["F_fwd"] - before["F_fwd"] == steps
+    assert after["F_bwd"] - before["F_bwd"] == steps
+    assert after["S"] - before["S"] == 1          # one pretrain step
+    assert all(r["status"] == "FULL_TRAINED" for r in out)
+    assert all(np.isfinite(r["val_elbo"]) for r in out)
+
+
+@pytest.mark.parametrize("fused", ["host", "on"])
+def test_population_matches_serial_on_the_card(cuda_device, tmp_path, fused):
+    """The populations against their serial oracle on the card (kernels S
+    and F, F under host noise, and under device noise, where trial i draws
+    at the counters of rows i N ... whether alone or with the others): the
+    pretrain at rtol 2e-4 / atol 1e-5, the full run at rtol 5e-4 / atol
+    1e-5 (tests/test_sweep.py's gates)."""
+    from qbold_vi_tpu_torch import sweep
+
+    from qbold_vi_tpu_torch.ops import launch_counts
+
+    cfg = _sweep_cfg(tmp_path, fused_elbo=fused)
+    trials = [{"pt_lr": 1e-3, "ft_lr": 2e-3}, {"pt_lr": 5e-4, "ft_lr": 1e-3},
+              {"pt_lr": 2e-3, "ft_lr": 5e-3, "adamw_decay": 1e-3}]
+    before = launch_counts()
+    for fn, tol, keys in (
+            (sweep.population_pretrain, dict(rtol=2e-4, atol=1e-5),
+             ("val_loss", "oef_mse", "dbv_mse", "r2p_mse", "loss")),
+            (sweep.population_full_run, dict(rtol=5e-4, atol=1e-5),
+             ("val_elbo", "val_nll", "val_kl", "loss", "pt_val_loss"))):
+        pop = fn(cfg, trials, device=cuda_device)
+        ser = fn(cfg, trials, device=cuda_device, serial=True)
+        for a, b in zip(pop, ser):
+            assert a.get("status") != "failed"
+            for k in keys:
+                np.testing.assert_allclose(a[k], b[k], err_msg=k, **tol)
+        assert len({round(r["val_elbo"], 6) for r in pop}) == 3
+    after = launch_counts()
+    for k in ("S", "F_fwd", "F_bwd"):
+        assert after[k] > before[k], k

@@ -28,6 +28,9 @@ paths, on gloo ranks on the CPU.
 (d) ``Trainer(mesh=)`` on 2 ranks: a streaming pretrain, then finetune
     with ft_shard_subjects "on" and "off"; only rank 0 logs and writes;
     metrics and weights replicated; a plain Trainer resumes the checkpoint.
+(e) The sweep's populations with 3 trials split over the 2 ranks
+    (sweep.population_pretrain(mesh=), and population_full_run(mesh=) under
+    kernel F's device noise), against one process.
 """
 
 import dataclasses
@@ -55,6 +58,7 @@ from qbold_vi_tpu.train.steps import TrainState  # noqa: E402
 from qbold_vi_tpu_torch import infer as tinfer  # noqa: E402
 from qbold_vi_tpu_torch.io import from_jax  # noqa: E402
 from qbold_vi_tpu_torch.parallel import mesh as tmesh  # noqa: E402
+from qbold_vi_tpu_torch.parallel import multihost  # noqa: E402
 from qbold_vi_tpu_torch.parallel.multihost import launch_workers  # noqa: E402
 from qbold_vi_tpu_torch.train import steps as tsteps  # noqa: E402
 from qbold_vi_tpu_torch.train.trainer import Trainer, WeightStatus  # noqa: E402
@@ -338,6 +342,12 @@ def ranks(tmp_path_factory):
             save_directory=str(tmp / f"trainer_{mode}")))
         payload[2][f"trainer-{mode}"] = dict(kind="trainer", cfg=cfg,
                                              data=vols)
+    payload[2]["population"] = dict(kind="population",
+                                    cfg=multihost._population_cfg("tiny"),
+                                    trials=list(POP_TRIALS))
+    payload[2]["population-full"] = dict(kind="population_full",
+                                         cfg=_full_run_cfg(tmp / "full"),
+                                         trials=list(FULL_TRIALS))
     path = tmp / "payload.pkl"
     with open(path, "wb") as f:
         pickle.dump(payload, f)
@@ -476,3 +486,62 @@ def test_trainer_on_a_mesh(ranks, mode):
     for key, v in plain.tuner.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), r0["params"][key],
                                       err_msg=key)
+
+
+# ---- (e) the sweep's population over the ranks ------------------------------------
+
+POP_TRIALS = multihost.POPULATION_TRIALS[:3]
+
+
+def test_population_over_two_ranks_matches_one_process(ranks):
+    """3 trials over 2 ranks (rank 1's second slot a pad copy of trial 0):
+    every rank returns all 3 results in order, bit-equal across ranks and
+    within rtol 2e-4 of the population in one process."""
+    from qbold_vi_tpu_torch import sweep
+
+    _, results = ranks
+    got = [r["population"] for r in results[2]]
+    assert got[0] == got[1] and len(got[0]) == 3
+    ref = sweep.population_pretrain(multihost._population_cfg("tiny"),
+                                    list(POP_TRIALS), device="cpu")
+    for a, b in zip(got[0], ref):
+        assert set(a) == set(b)
+        for k in b:
+            np.testing.assert_allclose(a[k], b[k], rtol=2e-4, atol=1e-6,
+                                       err_msg=k)
+    assert len({round(r["val_elbo"], 6) for r in got[0]}) == 3
+
+
+FULL_TRIALS = ({"pt_lr": 1e-3, "ft_lr": 2e-3}, {"pt_lr": 5e-4, "ft_lr": 1e-3},
+               {"ft_lr": 5e-3, "adamw_decay": 1e-3})
+
+
+def _full_run_cfg(tmp):
+    """tests/test_sweep.py's full-run population configuration, kernel F's
+    plain version under device noise."""
+    import test_torch_sweep_population as tsw
+
+    tmp.mkdir()
+    return tsp._port(tsw._cfg(tmp, tsw._data_dir(tmp), fused_elbo="on"))
+
+
+def test_full_run_population_over_two_ranks_matches_one_process(ranks):
+    """3 trials of population_full_run over 2 ranks under device noise:
+    each trial draws from its index in the group (the group's step seed,
+    the Philox counters of its rows), so its metrics do not depend on the
+    rank or slot it runs in -- within rtol 2e-4 of one process."""
+    from qbold_vi_tpu_torch import sweep
+
+    refs, results = ranks
+    got = [r["population-full"] for r in results[2]]
+    assert got[0] == got[1] and len(got[0]) == 3
+    tmp = refs["_maps"][4]
+    ref = sweep.population_full_run(_full_run_cfg(tmp / "one_process"),
+                                    list(FULL_TRIALS), device="cpu")
+    for a, b in zip(got[0], ref):
+        assert a["status"] == b["status"] == "FULL_TRAINED"
+        for k in b:
+            if k != "status":
+                np.testing.assert_allclose(a[k], b[k], rtol=2e-4, atol=1e-6,
+                                           err_msg=k)
+    assert len({round(r["val_elbo"], 6) for r in got[0]}) == 3

@@ -105,6 +105,25 @@ def trainer(mesh, case) -> dict:
             "pt_path": t.pt_path, "final_path": t.final_path}
 
 
+def population(mesh, case) -> list:
+    """The sweep's pretrain population with its trials split over the
+    ranks (each rank its slice, the metrics gathered)."""
+    from qbold_vi_tpu_torch import sweep
+
+    return sweep.population_pretrain(case["cfg"], case["trials"], mesh=mesh,
+                                     device="cpu")
+
+
+def population_full(mesh, case) -> list:
+    """The sweep's full-run population (pretrain, fine-tune under kernel
+    F's device noise, the ELBO validation) with its trials split over the
+    ranks."""
+    from qbold_vi_tpu_torch import sweep
+
+    return sweep.population_full_run(case["cfg"], case["trials"], mesh=mesh,
+                                     device="cpu")
+
+
 def main(argv=None) -> int:
     import torch.distributed as dist
 

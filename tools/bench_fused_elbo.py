@@ -138,8 +138,8 @@ class Calls:
 
     def noise(self, host):
         a = self.a
-        return ((a["zn"].data_ptr(), a["zk"].data_ptr(), 0) if host
-                else (None, None, SEED))
+        return ((a["zn"].data_ptr(), a["zk"].data_ptr(), 0, 0) if host
+                else (None, None, SEED, 0))
 
     def fwd(self, host=False, state=True):
         a = self.a
