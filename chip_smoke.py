@@ -149,7 +149,11 @@ and E (one Philox block for two draw pairs), after phase 13:
    plain version's (float32, TF32 off), each within CHECKS["raw"];
 24. B and C against their plain versions at U = 13 and 30 (padded to 16
    and 32 in the kernel) under gelu and softplus (act(0) != 0 on padded
-   channels), both layouts, N = 1,000,003 (a ragged tile of 32);
+   channels), both layouts, N = 1,000,003 (a ragged tile of 32); a
+   stream-1 request at 256 units under fused_infer "auto" through the
+   encoder route (A launched, B not; kernel B holds at most 128 units a
+   lane) against the CPU at rtol 1e-3 / atol 3e-5, and a forced "on"
+   refused at the launch;
 25. D at S = 2, 7 (odd: iid) and 200, both layouts, and E at S = 2, 7
    and 100, against their plain versions fed mc_philox_normals (E also fed
    host normals) at 65,536 and 65,537 voxels; each replays bit for bit and
@@ -182,9 +186,15 @@ and the modules around it, after phase 18:
 The bf16 trunk (OPTIMAL at compute_dtype="bfloat16", full width, the
 weights of phase 3), after phase 28:
 29. kernel H at bf16 (forward, dx, dw/db) against its plain version at the
-   fine-tune fold (304 planes of 25 x 25 x 60 -> 60) and on an odd plane
-   (9 x 3 x 11, 5 -> 7), within 2 bf16 ulps of each output's largest
-   magnitude, dw/db replaying bit for bit; kernels C and B with the bf16
+   fine-tune fold (304 planes of 25 x 25 x 60 -> 60), on an odd plane
+   (9 x 3 x 11, 5 -> 7) and at a serving chunk (16 x 96 x 96, 60 -> 60),
+   within 2 bf16 ulps of each output's largest magnitude, dw/db replaying
+   bit for bit; its three passes' static HGMMA (wgmma) instructions in the
+   build's SASS (cuobjdump), none failing the phase; at the fold and the
+   serving chunk each pass's device time (weight image, forward, dx, dw
+   and its reduction; a pass missing from the trace fails the phase)
+   beside its own bound and cuDNN bf16's call for it; kernels C and B
+   with the bf16
    trunk against their plain versions at 1,032,192 voxels, MVG and
    diagonal heads: C's q rows within 4 bf16 ulps, B against the plain
    quadrature of C's q at CHECKS and against its plain version at the
@@ -682,9 +692,9 @@ MUFU_RATE = 16 * 132                 # results a clock on the card
 
 
 def sass(so) -> dict:
-    """{kernel symbol: (SASS instructions, Counter of MUFU kinds)} of a
-    built library, by cuobjdump (a loop body counts once); empty without
-    it."""
+    """{kernel symbol: (SASS instructions, Counter of MUFU kinds and of
+    wgmma instructions, "HGMMA")} of a built library, by cuobjdump (a loop
+    body counts once); empty without it."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.isfile(tool):
@@ -703,7 +713,24 @@ def sass(so) -> dict:
             mufu = re.search(r"MUFU\.(\w+)", line)
             if mufu:
                 out[name][1][mufu.group(1)] += 1
+            elif "HGMMA" in line:
+                out[name][1]["HGMMA"] += 1
     return out
+
+
+def check_wgmma_sass() -> None:
+    """Fail unless kernel H's bf16 passes (H16_WGMMA) take their products
+    on wgmma: HGMMA instructions in the built library's SASS."""
+    from qbold_vi_tpu_torch.ops import _cuda
+
+    code = sass(_cuda.library()._name)
+    got = {k: code.get(k, (0, {}))[1].get("HGMMA", 0) for k in H16_WGMMA}
+    if not all(got.values()):
+        raise AssertionError(f"HGMMA instructions of kernel H at bf16: {got} "
+                             "(each pass must hold some; or cuobjdump is "
+                             "missing)")
+    log(f"kernel H at bf16 takes its products on wgmma: static HGMMA "
+        f"instructions {got}")
 
 
 def check_mufu_sass(so) -> None:
@@ -1937,6 +1964,7 @@ def stream1_phases(dev, cfg, tuner, ranges, enc_kw) -> dict:
     torch.cuda.synchronize()
     log(f"kernels B and C vs plain ok at U = 13, 30 (padded to 16, 32) under "
         f"gelu and softplus, both layouts, N={N_RAGGED}")
+    wide_stream1_phase(dev, cfg, rng)
 
     # ---- 25. D at S = 2, 7 and 200, E at 2, 7 and 100 ----------------------
     seed = 29
@@ -1975,6 +2003,60 @@ def stream1_phases(dev, cfg, tuner, ranges, enc_kw) -> dict:
         f"and host normals ok at N={N_MC} and {N_MC + 1}: replay bit-equal, "
         "a cut at an offset draws what the whole does")
     return err64
+
+
+def wide_stream1_phase(dev, cfg, rng) -> None:
+    """Phase 24's wide trunk: a stream-1 request at 256 units under
+    fused_infer "auto" takes the encoder route (kernel A; kernel B holds at
+    most 128 units a lane) and matches the same route on the CPU at
+    tests/test_torch_infer.py's tolerances; a forced "on" is refused at
+    the launch, launching nothing."""
+    from qbold_vi_tpu_torch import infer
+    from qbold_vi_tpu_torch.models.vi import FineTuner, init_params
+    from qbold_vi_tpu_torch.ops import fused_infer as fi
+    from qbold_vi_tpu_torch.ops import quadrature as tq
+
+    wide = dataclasses.replace(cfg.model, no_units=256,
+                               compute_dtype="float32")
+    sd = init_params(wide, cfg.scan, torch.Generator().manual_seed(256))
+    tuners = {}
+    for name, d, mode in (("card", dev, "auto"), ("cpu", "cpu", "auto"),
+                          ("on", dev, "on")):
+        t = FineTuner(dataclasses.replace(wide, fused_infer=mode), cfg.scan,
+                      device=d)
+        t.load_state_dict(sd)
+        tuners[name] = t
+    data = volumes(rng, (3, 12, 12, 3), cfg.scan.n_taus)
+    before = (fi.encode_quad_fused.launches,
+              tq.quad_posterior_summaries.launches)
+    got = infer.posterior_maps(tuners["card"], data, use_first_op=True)
+    moved = (fi.encode_quad_fused.launches - before[0],
+             tq.quad_posterior_summaries.launches - before[1])
+    if moved[0] != 0 or moved[1] == 0:
+        raise AssertionError(f"stream 1 at 256 units: launches (B, A) moved "
+                             f"by {moved}, want (0, > 0)")
+    ref = infer.posterior_maps(tuners["cpu"], data, use_first_op=True)
+    err = 0.0
+    for key in ("oef", "dbv", "r2p", "raw_log_stds"):
+        if not np.isfinite(got[key]).all():
+            raise AssertionError(f"stream 1 at 256 units: {key} not finite")
+        np.testing.assert_allclose(got[key], ref[key], rtol=1e-3, atol=3e-5,
+                                   err_msg=f"stream 1 at 256 units: {key}")
+        err = max(err, float(np.abs(got[key] - ref[key]).max()))
+    try:
+        infer.posterior_maps(tuners["on"], data, use_first_op=True)
+    except ValueError as e:
+        if "128 units" not in str(e):
+            raise
+    else:
+        raise AssertionError("stream 1 at 256 units under a forced \"on\" "
+                             "was not refused")
+    if fi.encode_quad_fused.launches != before[0]:
+        raise AssertionError("the refused 256-unit request launched B")
+    log(f"stream 1 at 256 units (3 x 12 x 12 x 3) under \"auto\": the "
+        f"encoder route, A launched {moved[1]} times, B none; maps finite and "
+        f"within rtol 1e-3 / atol 3e-5 of the CPU's (largest difference "
+        f"{err:.3e}); a forced \"on\" refused at the launch")
 
 
 def d_phase(sm, q, seed, z, s_, half, ranges) -> None:
@@ -2034,12 +2116,13 @@ def cudnn_conv(x, w_oihw, b):
                     padding=1).permute(0, 2, 3, 1)
 
 
-def cudnn_conv_backward(x, w_oihw, ct):
-    """The one aten.convolution_backward call with output_mask (True, True,
-    True): (dx NHWC, dw OIHW, db)."""
+def cudnn_conv_backward(x, w_oihw, ct, mask=(True, True, True)):
+    """The one aten.convolution_backward call with output_mask ``mask``
+    (dx, dw, db; all three by default): (dx NHWC, dw OIHW, db), None where
+    not asked for."""
     return torch.ops.aten.convolution_backward(
         ct.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w_oihw, [w_oihw.shape[0]],
-        [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [True, True, True])
+        [1, 1], [1, 1], [1, 1], False, [0, 0], 1, list(mask))
 
 
 def conv_bound(shape, backward: bool) -> dict:
@@ -2083,9 +2166,10 @@ def device_ms(fn, calls: int = 21) -> float:
 
 def kernel_ms_parts(fn, symbols, calls: int = 21) -> dict:
     """Each of the ``symbols``' median device time over ``calls`` calls.
-    The trace drops most records of H's ~2 us weight split (6 of 21 on the
-    H100), so one traced launch suffices for it."""
-    return {s: kernel_ms(fn, s, calls, 1 if "wsplit" in s else None)
+    The trace drops most records of H's ~2 us weight split or image (6 of
+    21 on the H100), so one traced launch suffices for it."""
+    return {s: kernel_ms(fn, s, calls,
+                         1 if "wsplit" in s or "wimg" in s else None)
             for s in symbols}
 
 
@@ -2730,11 +2814,17 @@ def stream_phases(dev, card, base) -> dict:
 H16_ULPS, Q16_ULPS = 2, 4
 BF16_GATE = {True: (0.05, 0.03), False: (0.05, 0.05)}   # by use_first_op
 BF16_STEP_TOL = (1e-4, 1e-2)
-H16_SHAPES = ((304, 25, 25, 60, 60), (9, 3, 11, 5, 7))
+# the fine-tune fold, an odd plane, a serving chunk (timed: the fold and
+# the serving chunk)
+H16_SHAPES = ((304, 25, 25, 60, 60), (9, 3, 11, 5, 7), (16, 96, 96, 60, 60))
+H16_TIMED = (H16_SHAPES[0], H16_SHAPES[2])
 H16_SYMBOLS = dict(
-    fwd=("qv_conv3x3_wsplit_bf16_kernel", "qv_conv3x3_fwd_bf16_kernel"),
-    bwd=("qv_conv3x3_wsplit_bf16_kernel", "qv_conv3x3_dx_bf16_kernel",
-         "qv_conv3x3_dw_bf16_kernel", "qv_conv3x3_reduce_kernel"))
+    fwd=("qv_conv3x3_wimg_bf16_kernel", "qv_conv3x3_fwd_wg_bf16_kernel"),
+    bwd=("qv_conv3x3_wimg_bf16_kernel", "qv_conv3x3_dx_wg_bf16_kernel",
+         "qv_conv3x3_dw_wg_bf16_kernel", "qv_conv3x3_reduce_kernel"))
+# the kernels that must take their products on wgmma (HGMMA in the SASS)
+H16_WGMMA = ("qv_conv3x3_fwd_wg_bf16_kernel", "qv_conv3x3_dx_wg_bf16_kernel",
+             "qv_conv3x3_dw_wg_bf16_kernel")
 BC16_SYMBOLS = dict(B="qv_encode_quad_bf16_kernel",
                     C="qv_encode_q_bf16_kernel")
 
@@ -2779,6 +2869,23 @@ def conv_bound_bf16(shape, backward: bool) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def conv_pass_bound_bf16(shape, part: str) -> dict:
+    """One pass of kernel H at bf16 alone, as conv_bound_bf16 counts: the
+    forward (x, w, b in, y out; the bias adds), dx (ct, w in, dx out) or
+    dw/db (x, ct in, dw, db out; db's sums); 2 * 9 * Ci * Co operations a
+    pixel at the dense bf16 peak."""
+    n, h, w, ci, co = shape
+    p = n * h * w
+    elems = {"fwd": p * ci + p * co + 9 * ci * co + co,
+             "dx": p * co + 9 * ci * co + p * ci,
+             "dw": p * ci + p * co + 9 * ci * co + co}[part]
+    t_bytes = 2 * elems / PEAK_BYTES * 1e3
+    t_ops = (2 * 9 * ci * co * p / PEAK_BF16
+             + (0 if part == "dx" else p * co) / PEAK_FLOPS) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def encode_bound_bf16(n, units, n_taus, n_blocks, n_bytes, rest_ops) -> dict:
     """Kernels B and C with the bf16 trunk: the trunk's FMAs (U T + nb U^2 a
     voxel) at the dense bf16 tensor-core peak, the float32 head's (5 U) as
@@ -2797,7 +2904,8 @@ def encode_bound_bf16(n, units, n_taus, n_blocks, n_bytes, rest_ops) -> dict:
 
 def bf16_kernel_phases(dev, card, cfg16, tuner16) -> dict:
     """Phase 29: kernel H at bf16 (forward, dx, dw/db) against its plain
-    version at the fine-tune fold and on an odd plane; kernels B and C with
+    version at the fine-tune fold, on an odd plane and at a serving chunk,
+    its passes' wgmma in the SASS and their times; kernels B and C with
     the bf16 trunk against their plain versions at 1,032,192 voxels, MVG
     and diagonal heads; their device times beside the plain versions',
     cuDNN's bf16 conv and their bounds. Returns errors, times, bounds."""
@@ -2836,11 +2944,13 @@ def bf16_kernel_phases(dev, card, cfg16, tuner16) -> dict:
             log(f"kernel H bf16 vs plain ok at {shape}: " + ", ".join(
                 f"{k} {e:.2f} ulps ({100 * s:.3f}% of elements moved by a "
                 "rounding)" for k, (e, s) in errs.items()))
-            if shape != H16_SHAPES[0]:
+            if shape == H16_SHAPES[0]:
+                out["H_err"] = {
+                    "fwd": errs["y"][0] * bf16_ulp(plain[0]),
+                    "bwd": max(errs[k][0] * bf16_ulp(r) for k, r in
+                               zip(("dx", "dw", "db"), plain[1:]))}
+            if shape not in H16_TIMED:
                 continue
-            out["H_err"] = {"fwd": errs["y"][0] * bf16_ulp(plain[0]),
-                            "bwd": max(errs[k][0] * bf16_ulp(r) for k, r in
-                                       zip(("dx", "dw", "db"), plain[1:]))}
             w_oihw = wt.permute(3, 2, 0, 1).contiguous()
             parts = {
                 "fwd": kernel_ms_parts(lambda: cv.conv3x3_forward(x, wt, b),
@@ -2848,9 +2958,14 @@ def bf16_kernel_phases(dev, card, cfg16, tuner16) -> dict:
                 "bwd": kernel_ms_parts(lambda: cv.conv3x3_backward(x, wt, ct),
                                        H16_SYMBOLS["bwd"])}
             lib_calls = {"fwd": lambda: cudnn_conv(x, w_oihw, b),
-                         "bwd": lambda: cudnn_conv_backward(x, w_oihw, ct)}
+                         "bwd": lambda: cudnn_conv_backward(x, w_oihw, ct),
+                         "dx": lambda: cudnn_conv_backward(
+                             x, w_oihw, ct, (True, False, False)),
+                         "dw": lambda: cudnn_conv_backward(
+                             x, w_oihw, ct, (False, True, True))}
+            lib_dev = {k: device_ms(f) for k, f in lib_calls.items()}
             # the library's time as float32 H's: a call by CUDA events
-            out["H_times"] = {
+            times = {
                 "fwd": (sum(parts["fwd"].values()),
                         cuda_ms(lambda: cv.conv3x3_plain(x, wt, b), reps=2),
                         cuda_ms(lib_calls["fwd"])),
@@ -2858,16 +2973,32 @@ def bf16_kernel_phases(dev, card, cfg16, tuner16) -> dict:
                         cuda_ms(lambda: cv.conv3x3_grads_plain(x, wt, ct),
                                 reps=2),
                         cuda_ms(lib_calls["bwd"]))}
-            for way, (ms, plain_ms, lib_ms) in out["H_times"].items():
+            if shape == H16_SHAPES[0]:
+                out["H_times"] = times
+            for way, (ms, plain_ms, lib_ms) in times.items():
                 bd = conv_bound_bf16(shape, way == "bwd")
                 log(f"H bf16 {way} at {shape}: kernel {ms:.4f} ms on the "
-                    "device (" + ", ".join(f"{k[11:-7]} {v:.4f}" for k, v in
-                                           parts[way].items())
-                    + f"); plain {plain_ms:.4f} ms a call; cuDNN bf16 "
-                    f"{lib_ms:.4f} ms a call, "
-                    f"{device_ms(lib_calls[way]):.4f} ms on the device; bound "
-                    f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
-                    f"{100 * bd['bound_ms'] / ms:.1f}%) [{card}]")
+                    f"device; plain {plain_ms:.4f} ms a call; cuDNN bf16 "
+                    f"{lib_ms:.4f} ms a call, {lib_dev[way]:.4f} ms on the "
+                    f"device; bound {bd['bound_ms']:.4f} ms "
+                    f"({bd['bound_by']}, {100 * bd['bound_ms'] / ms:.1f}%) "
+                    f"[{card}]")
+            # pass by pass: the weight image, the convs (forward, dx) and
+            # dw/db (its reduction with it), each beside its own bound and
+            # the library's call for the same pass
+            pass_ms = {"fwd": parts["fwd"][H16_SYMBOLS["fwd"][1]],
+                       "dx": parts["bwd"][H16_SYMBOLS["bwd"][1]],
+                       "dw": parts["bwd"][H16_SYMBOLS["bwd"][2]]
+                       + parts["bwd"][H16_SYMBOLS["bwd"][3]]}
+            pb = {k: conv_pass_bound_bf16(shape, k) for k in pass_ms}
+            log(f"H bf16 passes at {shape} (device ms): weight image "
+                f"{parts['fwd'][H16_SYMBOLS['fwd'][0]]:.4f}; " + "; ".join(
+                    f"{k} {v:.4f} (bound {pb[k]['bound_ms']:.4f} by "
+                    f"{pb[k]['bound_by']}, cuDNN bf16 {lib_dev[k]:.4f})"
+                    for k, v in pass_ms.items())
+                + f" (dw {parts['bwd'][H16_SYMBOLS['bwd'][2]]:.4f} + reduce "
+                f"{parts['bwd'][H16_SYMBOLS['bwd'][3]]:.4f}) [{card}]")
+        check_wgmma_sass()
 
         # ---- B and C with the bf16 trunk, MVG and diagonal heads ----------
         mcfg, scan = cfg16.model, cfg16.scan

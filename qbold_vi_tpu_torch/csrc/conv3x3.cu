@@ -69,19 +69,46 @@
 //
 // The bf16 trunk (compute_dtype="bfloat16"; the TPU kernel in the
 // activations' dtype, float32 sums, pallas_conv.py:105-113, 280-281): x, w,
-// b, ct, y and dx are bf16, and every pass keeps the float32 design's
-// blocks, tiles, staging and masks with three changes. The staged rows hold
-// the bf16 values as floats (exact), so the strips and bank layout are the
-// float32 kernel's. The products are mma.sync.m16n8k16 bf16 with float32
-// sums (mma_math.cuh): one product where 3xTF32 takes three, k-steps of 16
-// channels (or, in dw, 16 pixels), and the weight split packs bf16 pairs
-// (qv_conv3x3_wsplit_bf16_kernel, 8 bytes a lane and fragment). Each output
-// is rounded to bf16 once: y after its float32 bias, dx from its sums, dw
-// and db after the reduction of the float32 partials. Bound at the
-// fine-tune fold: bytes for the forward (45.6 MB of bf16 at 3.35 TB/s,
-// 0.0136 ms; the products 0.0124 ms at 989 TFLOP/s), operations for the
-// backward (2.46e10 FLOP, 0.0249 ms). A simple port of the float32 design,
-// not a tuned one (wgmma and TMA are later work).
+// b, ct, y and dx are bf16, every product a bf16 wgmma with float32 sums,
+// and each output rounded to bf16 once: y after its float32 bias, dx from
+// its sums, dw and db after the fixed-order reduction of float32 partials
+// (qv_conv3x3_reduce_kernel; no atomics), so a fine-tune replays bit for
+// bit. Bound at the fine-tune fold (chip_smoke.py::conv_bound_bf16): bytes
+// for the forward (45.6 MB of bf16 at 3.35 TB/s, 0.0136 ms; the products
+// 0.0124 ms at 989 TFLOP/s), operations for the backward (2.46e10 FLOP,
+// 0.0251 ms). Design:
+// * Staging: bf16 stays bf16, in rows of 64 channels (128 bytes) under the
+//   128-byte XOR swizzle (qv_swz), by cp.async into a ring of 1-4 slots
+//   (as many as shared memory holds), zeros by the copies' source size.
+//   At Ci = 60 a row is 120 bytes: a 2-D TMA tensor map refuses that
+//   stride and ldmatrix cannot address rows at that pitch, so the copies
+//   are 8 bytes (16 where Ci % 8 == 0; plain loads where Ci % 4 != 0).
+// * Forward and dx: persistent blocks of three warpgroups (192 pixels a
+//   tile), one an SM. The weight image (qv_conv3x3_wimg_bf16_kernel: 9
+//   taps of 64 x 64 bf16, K-major, swizzled, zero past Ci and Co; 73,728
+//   bytes) is copied into shared memory once and stays while the block
+//   walks its tiles (Ci or Co above 64: chunks of 64, reloaded as a step
+//   needs them). A tap: ldmatrix.x4 at the tap's row offset, the pixels'
+//   tap masks applied to A in registers (so a tile crosses any number of
+//   planes), four wgmma.m64n64k16 (A registers, B the weights by
+//   descriptor) into sums carried across all taps and channels. The
+//   outputs go through a shared tile and leave by one bulk copy.
+// * dw: dW_t = sum_p mask_t(p) X[p + off_t]^T ct[p] (M = Ci, N = Co,
+//   K = pixels). A block of three warpgroups, one a tap row, stages x and
+//   ct once for all nine taps (a block a tap row reads them three times);
+//   A = X^T by ldmatrix.trans, its pixels' masks on its K slots; B = the ct
+//   tile, MN-major, by descriptor; sums in the wgmma accumulators (no
+//   fresh fragments); tiles of 256 pixels where two stages fit, else 128.
+//   Warpgroup 0 sums db in pixel order.
+// What holds it back (tools/bench_conv3x3.py on an H100 with edited copies
+// of this file; PERF.md): with N only the 60 output channels, A from
+// ldmatrix and B from shared memory take about the bytes the shared-memory
+// pipe gives per m64n64k16 product, so the products alone ran at ~45% of
+// the tensor peak, and the staging's copies, the tap masks and the
+// epilogue did not overlap them (removing the staging saved ~12 us of the
+// forward's ~55, ~24 of dw's ~89). Bulk copies of the 120-byte rows with
+// an mbarrier, re-laid out by the threads, measured slower (64 against
+// 55 us) and are not used.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -115,37 +142,20 @@ __device__ __forceinline__ int qv_tap_mask(long long p, long long np, int h,
   return m;
 }
 
-// One activation as a float, and four (16-byte aligned float32 or 8-byte
-// aligned bf16); a bf16 becomes a float by a shift of its bits.
-__device__ __forceinline__ float qv_load1(const float* p) { return *p; }
-__device__ __forceinline__ float qv_load1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ float4 qv_load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 qv_load4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xFFFF0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xFFFF0000u));
-}
-
 // Stage channels c0 .. c0 + nch - 1 (nch 32 or 64) of global rows q(r) =
 // q0 + (r / seg) * step + r % seg, r in [0, rows), as floats s[r * STRIDE +
 // c]; zeros outside rows [0, nq) and channels [0, cin). vec: cin % 4 == 0
 // and x aligned to 4 elements.
-template <class T>
 __device__ __forceinline__ void qv_stage_rows(
-    const T* __restrict__ x, float* s, long long q0, int rows, int seg,
+    const float* __restrict__ x, float* s, long long q0, int rows, int seg,
     long long step, long long nq, int cin, int c0, int nch, bool vec) {
   if (vec) {
     for (int e = threadIdx.x; e < rows * (nch / 4); e += blockDim.x) {
       int r = e / (nch / 4), c = 4 * (e % (nch / 4));
       long long q = q0 + (long long)(r / seg) * step + r % seg;
       float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (q >= 0 && q < nq && c0 + c < cin) v = qv_load4(x + q * cin + c0 + c);
+      if (q >= 0 && q < nq && c0 + c < cin)
+        v = __ldg(reinterpret_cast<const float4*>(x + q * cin + c0 + c));
       *reinterpret_cast<float4*>(s + r * QV_CONV_STRIDE + c) = v;
     }
   } else {
@@ -153,7 +163,7 @@ __device__ __forceinline__ void qv_stage_rows(
       int r = e / nch, c = e % nch;
       long long q = q0 + (long long)(r / seg) * step + r % seg;
       float v = 0.0f;
-      if (q >= 0 && q < nq && c0 + c < cin) v = qv_load1(x + q * cin + c0 + c);
+      if (q >= 0 && q < nq && c0 + c < cin) v = x[q * cin + c0 + c];
       s[r * QV_CONV_STRIDE + c] = v;
     }
   }
@@ -424,241 +434,578 @@ __global__ void __launch_bounds__(QV_DW_THREADS)
     out[9LL * cin * cout + co0 + threadIdx.x] = db;
 }
 
-// ---- the bf16 trunk --------------------------------------------------------
+// ---- the bf16 trunk: wgmma, asynchronous staging, resident weights ---------
 
-// The weights of out = conv(in, W) as bf16 B fragments: wf[tap][ks][nt]
-// [lane] = (b0, b1) of k-step ks -- b0 packs input channels 16 ks + 2 (lane
-// % 4) and + 1, b1 the two 8 further -- and output channel nt * 8 + lane /
-// 4; W as qv_conv3x3_wsplit_kernel's; zeros past cin and cout.
-__global__ void qv_conv3x3_wsplit_bf16_kernel(
-    const __nv_bfloat16* __restrict__ w, uint2* __restrict__ wf, int cin,
-    int cout, int nks, int ntn, int flip) {
-  long long total = 9LL * nks * ntn * 32;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < total; e += (long long)gridDim.x * blockDim.x) {
-    int lane = (int)(e % 32);
-    long long rest = e / 32;
-    int nt = (int)(rest % ntn);
-    rest /= ntn;
-    int ks = (int)(rest % nks);
-    int tap = (int)(rest / nks);
-    int o = nt * 8 + lane / 4;
-    float v[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int c = 16 * ks + 2 * (lane % 4) + (j & 1) + 8 * (j >> 1);
-      v[j] = 0.0f;
-      if (c < cin && o < cout)
-        v[j] = __bfloat162float(
-            flip ? w[((long long)(8 - tap) * cout + o) * cin + c]
-                 : w[((long long)tap * cin + c) * cout + o]);
+#define QV_H16_WGS 3                  // forward / dx: warpgroups a block
+#define QV_H16_TP (64 * QV_H16_WGS)   // pixels of a forward / dx tile
+#define QV_H16_THREADS (128 * QV_H16_WGS)
+#define QV_H16_WTAP 8192              // bytes of a tap's 64 x 64 weight tile
+#define QV_H16_WIMG (9 * QV_H16_WTAP) // bytes of one (N, K) chunk's image
+#define QV_H16_DW_THREADS 384         // dw: a warpgroup for each tap row
+
+static __host__ __device__ __forceinline__ int qv_align1k(int n) {
+  return (n + 1023) & ~1023;
+}
+
+// The staged rows of a tile of tp pixels: the whole strip p0 - W - 1 ..
+// p0 + tp + W when it is no longer than three tap rows of tp + 2, else
+// those three segments (segment dy from p0 + (dy - 1) W - 1).
+static __host__ __device__ __forceinline__ bool qv_h16_whole(int wd, int tp) {
+  return tp + 2 * wd + 2 <= 3 * (tp + 2);
+}
+static __host__ __device__ __forceinline__ int qv_h16_rows(int wd, int tp) {
+  return qv_h16_whole(wd, tp) ? tp + 2 * wd + 2 : 3 * (tp + 2);
+}
+
+// Byte offset of 16-byte chunk c (channels 8c .. 8c + 7) of staged row r:
+// a row holds 64 bf16 channels, 128 bytes, chunk c at c ^ (r % 8). This is
+// the 128-byte swizzle of wgmma's descriptors (layout 1, 8-row atoms on
+// 1024-byte boundaries), and it puts the eight rows an ldmatrix matrix
+// reads on eight distinct bank groups whatever the tap's row offset.
+static __device__ __forceinline__ uint32_t qv_swz(int r, int c) {
+  return (uint32_t)r * 128u + ((uint32_t)(c ^ (r & 7)) << 4);
+}
+
+static __device__ __forceinline__ uint32_t qv_smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The first 1024-byte boundary of the dynamic shared memory.
+static __device__ __forceinline__ uint8_t* qv_smem_1k(uint8_t* raw) {
+  return raw + ((1024u - (qv_smem_addr(raw) & 1023u)) & 1023u);
+}
+
+// Asynchronous copies of 16 or 8 bytes; on == false fills zeros.
+static __device__ __forceinline__ void qv_cp16(uint32_t dst, const void* src,
+                                               bool on) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(on ? 16 : 0)
+               : "memory");
+}
+static __device__ __forceinline__ void qv_cp8(uint32_t dst, const void* src,
+                                              bool on) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(on ? 8 : 0)
+               : "memory");
+}
+static __device__ __forceinline__ void qv_cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+static __device__ __forceinline__ void qv_cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Wait until at most n (0 .. 3) of this thread's newest groups are pending.
+static __device__ __forceinline__ void qv_cp_wait_n(int n) {
+  if (n >= 3)
+    qv_cp_wait<3>();
+  else if (n == 2)
+    qv_cp_wait<2>();
+  else if (n == 1)
+    qv_cp_wait<1>();
+  else
+    qv_cp_wait<0>();
+}
+// This thread's shared-memory writes made visible to wgmma's operand reads
+// (the async proxy).
+static __device__ __forceinline__ void qv_fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// One bulk copy of bytes (a multiple of 16, both ends 16-byte aligned)
+// from shared to global memory by the copy engine, as its own group; the
+// waits: the shared source read (.read), or the copies done.
+static __device__ __forceinline__ void qv_bulk_store(void* dst,
+                                                     const void* src,
+                                                     uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(dst),
+      "r"(qv_smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+static __device__ __forceinline__ void qv_bulk_store_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+static __device__ __forceinline__ void qv_bulk_store_done() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Stage channels c0 .. c0 + 63 of global rows q(r) = q0 + (r / seg) * step
+// + r % seg, r in [0, rows), of the (nq, cin) bf16 matrix x as swizzled
+// rows at s; zeros outside rows [0, nq) and channels [0, cin), by the
+// copies' source size. mode 2: 16-byte cp.async (cin % 8 == 0, x 16-byte
+// aligned); 1: 8-byte cp.async (cin % 4 == 0, x 8-byte aligned); 0: plain
+// loads and stores, done when the thread leaves.
+static __device__ __forceinline__ void qv_stage_bf16(
+    const __nv_bfloat16* __restrict__ x, uint8_t* s, long long q0, int rows,
+    int seg, long long step, long long nq, int cin, int c0, int mode) {
+  const uint32_t sa = qv_smem_addr(s);
+  if (mode == 0) {
+    for (int e = threadIdx.x; e < rows * 64; e += blockDim.x) {
+      const int r = e >> 6, c = e & 63;
+      const long long q = q0 + (long long)(r / seg) * step + r % seg;
+      const bool on = q >= 0 && q < nq && c0 + c < cin;
+      *reinterpret_cast<__nv_bfloat16*>(s + qv_swz(r, c >> 3) + 2 * (c & 7)) =
+          on ? x[q * cin + c0 + c] : __ushort_as_bfloat16(0);
     }
-    wf[e] = make_uint2(qv_pack_bf16(v[0], v[1]), qv_pack_bf16(v[2], v[3]));
+    return;
+  }
+  // a thread copies piece c (8 or 16 bytes) of rows r0, r0 + dr, ...; the
+  // segment of row r is tracked, not divided for (dr < seg)
+  const int per_row = mode == 2 ? 8 : 16;
+  const int c = threadIdx.x % per_row, dr = blockDim.x / per_row;
+  const int ch = c0 + (mode == 2 ? 8 : 4) * c;
+  const bool c_on = ch < cin;
+  const uint32_t col = mode == 2 ? (uint32_t)c << 4 : (uint32_t)c << 3;
+  int r = threadIdx.x / per_row, sg = r / seg, rr = r % seg;
+#pragma unroll 1
+  for (; r < rows; r += dr) {
+    const long long q = q0 + sg * step + rr;
+    const bool on = c_on && q >= 0 && q < nq;
+    const __nv_bfloat16* src = on ? x + q * cin + ch : x;
+    // chunk (col >> 4) of row r, and the 8-byte half for mode 1
+    const uint32_t dst = sa + (uint32_t)r * 128u +
+                         ((((col >> 4) ^ (uint32_t)(r & 7)) << 4) | (col & 8));
+    if (mode == 2)
+      qv_cp16(dst, src, on);
+    else
+      qv_cp8(dst, src, on);
+    rr += dr;
+    if (rr >= seg) {
+      rr -= seg;
+      ++sg;
+    }
   }
 }
 
-// qv_conv3x3_mma_body on bf16: the same blocks, strips and masks, one bf16
-// product a fragment in k-steps of 16 channels, summed in float32 in the
-// fragments; out = bf16(sums + b) (bias in float32) or bf16(sums).
-__device__ __forceinline__ void qv_conv3x3_bf16_body(
-    const __nv_bfloat16* __restrict__ x, const uint2* __restrict__ wf,
+// The tap masks (qv_tap_mask) of the pixels p0 .. p0 + n - 1 into m[0 ..
+// n - 1], 0 at or past pend, in 32-bit arithmetic from p0's column and row.
+static __device__ __forceinline__ void qv_tile_masks(int* m, long long p0,
+                                                     int n, long long pend,
+                                                     int h, int wd) {
+  const int col0 = (int)(p0 % wd), row0 = (int)((p0 / wd) % h);
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    int v = 0;
+    if (p0 + e < pend) {
+      const int cq = (col0 + e) / wd, c = col0 + e - cq * wd;
+      const int r = (row0 + cq) % h;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const int rr = r + dy - 1, cc = c + dx - 1;
+          if (rr >= 0 && rr < h && cc >= 0 && cc < wd) v |= 1 << (dy * 3 + dx);
+        }
+    }
+    m[e] = v;
+  }
+}
+
+// One (N, K) chunk's weight image (QV_H16_WIMG bytes) into shared memory.
+static __device__ __forceinline__ void qv_stage_wimg(
+    const uint8_t* __restrict__ src, uint32_t dst) {
+  for (int e = threadIdx.x; e < QV_H16_WIMG / 16; e += blockDim.x)
+    qv_cp16(dst + 16 * e, src + 16 * e, true);
+}
+
+// ldmatrix of four 8 x 8 bf16 matrices, lanes 8j .. 8j + 7 giving the row
+// addresses of matrix j; .trans hands each lane the transposed fragment.
+static __device__ __forceinline__ void qv_ldsm4(uint32_t* a, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr)
+      : "memory");
+}
+static __device__ __forceinline__ void qv_ldsm4_t(uint32_t* a, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr)
+      : "memory");
+}
+
+static __device__ __forceinline__ void qv_wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+static __device__ __forceinline__ void qv_wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+static __device__ __forceinline__ void qv_wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving a use of the sums across the points where
+// the tensor cores own them.
+static __device__ __forceinline__ void qv_fence_sums(float* d) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Descriptor of a 128-byte-swizzled operand at shared address a: start
+// address, leading and stride byte offsets (16-byte units), layout 1.
+static __device__ __forceinline__ uint64_t qv_desc(uint32_t a, uint32_t lbo,
+                                                   uint32_t sbo) {
+  return (uint64_t)((a & 0x3FFFFu) >> 4) | ((uint64_t)lbo << 16) |
+         ((uint64_t)sbo << 32) | (1ull << 62);
+}
+
+// d (64 x 64 float32 sums) += a * b: a (64 x 16 bf16) in registers, warp w
+// of the warpgroup holding rows 16 w .. 16 w + 15 as mma.m16n8k16's A
+// fragment; b (16 x 64 bf16) in shared memory by descriptor, K-major (TB
+// 0) or MN-major (TB 1). Thread (warp w, lane 4 g + t) holds d[4 j + 2 hh
+// + i] = D(16 w + g + 8 hh, 8 j + 2 t + i).
+template <int TB>
+static __device__ __forceinline__ void qv_wgmma(float* d, const uint32_t* a,
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+        "n"(TB));
+}
+
+// The weight image of out = conv(in, W), chunk (nc, kc) of 64 output and
+// 64 input channels at img + ((nc * nk + kc) * 9 + tap) * 8192 bytes: a
+// K-major tile, row n (output channel 64 nc + n) holding input channels
+// 64 kc .. + 63 as 128 swizzled bytes (qv_swz); W as
+// qv_conv3x3_wsplit_kernel's; zeros past cin and cout.
+__global__ void qv_conv3x3_wimg_bf16_kernel(
+    const __nv_bfloat16* __restrict__ w, __nv_bfloat16* __restrict__ img,
+    int cin, int cout, int nk, int nn, int flip) {
+  const long long total = (long long)nn * nk * 9 * 4096;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < total; e += (long long)gridDim.x * blockDim.x) {
+    const int in = (int)(e & 4095);
+    const long long rest = e >> 12;
+    const int tap = (int)(rest % 9);
+    const int kc = (int)((rest / 9) % nk), nc = (int)(rest / 9 / nk);
+    const int n = in >> 6, k = ((((in >> 3) & 7) ^ (n & 7)) << 3) | (in & 7);
+    const int c = 64 * kc + k, o = 64 * nc + n;
+    __nv_bfloat16 v = __ushort_as_bfloat16(0);
+    if (c < cin && o < cout)
+      v = flip ? w[((long long)(8 - tap) * cout + o) * cin + c]
+               : w[((long long)tap * cin + c) * cout + o];
+    img[e] = v;
+  }
+}
+
+// A block's step: its item (a tile of pixels, a chunk of 64 output
+// channels) and the chunk of 64 input channels it sums. The block's items
+// are blockIdx.x, + gridDim.x, ..., item = nc * ntiles + tile; a step
+// cursor moves over them without a division.
+struct QvStep {
+  long long tile;
+  int nc, kc;
+};
+static __device__ __forceinline__ void qv_next(QvStep& st, int nk,
+                                               long long ntiles) {
+  if (++st.kc < nk) return;
+  st.kc = 0;
+  st.tile += gridDim.x;
+  while (st.tile >= ntiles) {
+    st.tile -= ntiles;
+    ++st.nc;
+  }
+}
+
+// out[p, o] = bf16(sum_{tap, c} in[p + off(tap), c] * W(tap, c, o) (+ b[o])),
+// W given as the weight image. Persistent blocks of QV_H16_WGS warpgroups
+// walk their items; warpgroup k holds pixels 64 k .. 64 k + 63 of the
+// tile, 32 sums a thread. A ring of nslots slots, each a step's strip and
+// its pixels' tap masks, keeps nslots - 1 steps loading while one is
+// multiplied. Where a step needs other weights than the resident chunk
+// (Ci or Co above 64), the block waits for every copy and loads them.
+static __device__ __forceinline__ void qv_conv3x3_wg_body(
+    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wimg,
     const __nv_bfloat16* __restrict__ b, __nv_bfloat16* __restrict__ y,
-    long long np, int h, int wd, int cin, int cout, bool vec) {
-  extern __shared__ float4 qv_conv_smem[];
-  float* xs = reinterpret_cast<float*>(qv_conv_smem);
-  const bool whole = qv_whole_strip(wd);
-  const int seg = whole ? QV_CONV_TP + 2 * wd + 2 : QV_CONV_TP + 2;
-  const int rows = whole ? seg : 3 * seg;
-  const long long p0 = (long long)blockIdx.x * QV_CONV_TP;
+    long long np, int h, int wd, int cin, int cout, int mode, int nslots) {
+  extern __shared__ uint8_t qv_h16_raw[];
+  uint8_t* sw = qv_smem_1k(qv_h16_raw);  // the weight image
+  uint8_t* obuf = sw + QV_H16_WIMG;      // the output tile, bf16 rows
+  uint8_t* ring = obuf + QV_H16_TP * 128;
+  const bool whole = qv_h16_whole(wd, QV_H16_TP);
+  const int rows = qv_h16_rows(wd, QV_H16_TP);
+  const int seg = whole ? rows : QV_H16_TP + 2;
+  const int sbytes = qv_align1k(rows * 128), slot = sbytes + 1024;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int nks = (cin + 15) / 16, ntn = gridDim.y * (QV_CONV_NT / 8);
-  const int nt0 = blockIdx.y * (QV_CONV_NT / 8) + wn * 4;
+  const int nk = (cin + 63) / 64, nn = (cout + 63) / 64;
+  const long long ntiles = (np + QV_H16_TP - 1) / QV_H16_TP;
+  const long long items = ntiles * nn;
+  if ((long long)blockIdx.x >= items) return;
+  const long long nsteps =
+      ((items - 1 - blockIdx.x) / gridDim.x + 1) * (long long)nk;
+  // the row (of the warp's 16 pixels) and chunk half of this lane's
+  // ldmatrix address: matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15)
+  const int lrow = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int lhi = lane >> 4;
+  const uint32_t wa = qv_smem_addr(sw);
 
-  int mask[2][2];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-      mask[m][hh] = qv_tap_mask(p0 + wm * 32 + m * 16 + g + 8 * hh, np, h, wd);
-  float acc[2][4][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[m][n][k] = 0.0f;
+  auto stage = [&](const QvStep& st, long long i) {
+    uint8_t* sl = ring + (int)(i % nslots) * slot;
+    const long long p0 = st.tile * QV_H16_TP;
+    qv_stage_bf16(x, sl, p0 - wd - 1, rows, seg, whole ? 0 : wd, np, cin,
+                  64 * st.kc, mode);
+    if (st.kc == 0)
+      qv_tile_masks(reinterpret_cast<int*>(sl + sbytes), p0, QV_H16_TP, np,
+                    h, wd);
+  };
 
-  for (int c0 = 0; c0 < cin; c0 += QV_CONV_KC) {
-    __syncthreads();
-    qv_stage_rows(x, xs, p0 - wd - 1, rows, seg, whole ? 0 : wd, np, cin, c0,
-                  QV_CONV_KC, vec);
-    __syncthreads();
-    const int ks_n = (min(QV_CONV_KC, cin - c0) + 15) / 16;
+  QvStep cur = {blockIdx.x % ntiles, (int)(blockIdx.x / ntiles), 0};
+  QvStep ld = cur;  // the step whose strip loads next
+  qv_stage_wimg(wimg + (size_t)(cur.nc * nk + cur.kc) * QV_H16_WIMG, wa);
+  for (int i = 0; i < nslots - 1; ++i) {
+    if (i < nsteps) {
+      stage(ld, i);
+      qv_next(ld, nk, ntiles);
+    }
+    qv_cp_commit();
+  }
+  int m0 = 0, m1 = 0;
+  float acc[32], bias[16];
 #pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
-      const float* base = xs + ((whole ? dy * wd : dy * seg) + dx +
-                                wm * 32 + g) * QV_CONV_STRIDE + 2 * t;
-      const uint2* wt = wf + ((long long)tap * nks + c0 / 16) * ntn * 32 +
-                        nt0 * 32 + lane;
-#pragma unroll 1
-      for (int ks = 0; ks < ks_n; ++ks) {
-        uint2 bw[4];
+  for (long long s = 0; s < nsteps; ++s) {
+    if (s + nslots - 1 < nsteps) {  // loads while s multiplies
+      stage(ld, s + nslots - 1);
+      qv_next(ld, nk, ntiles);
+    }
+    qv_cp_commit();
+    qv_cp_wait_n(nslots - 1);  // step s's strip (and weights) have landed
+    qv_fence_async_smem();
+    if (threadIdx.x == 0) qv_bulk_store_read();  // the output tile is free
+    __syncthreads();
+    const uint8_t* sl = ring + (int)(s % nslots) * slot;
+    const uint32_t xa = qv_smem_addr(sl);
+    if (cur.kc == 0) {
+      const int* ms = reinterpret_cast<const int*>(sl + sbytes);
+      m0 = ms[warp * 16 + g];
+      m1 = ms[warp * 16 + g + 8];
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
-          bw[n] = __ldg(wt + ((long long)ks * ntn + n) * 32);
+      for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
 #pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          // rows g and g + 8; channels 2t, 2t + 1 and 8 further
-          const float* r = base + (m * 16) * QV_CONV_STRIDE + 16 * ks;
-          const float2 r00 = *reinterpret_cast<const float2*>(r);
-          const float2 r10 =
-              *reinterpret_cast<const float2*>(r + 8 * QV_CONV_STRIDE);
-          const float2 r01 = *reinterpret_cast<const float2*>(r + 8);
-          const float2 r11 =
-              *reinterpret_cast<const float2*>(r + 8 * QV_CONV_STRIDE + 8);
-          const bool on0 = (mask[m][0] >> tap) & 1;
-          const bool on1 = (mask[m][1] >> tap) & 1;
-          const uint32_t a[4] = {on0 ? qv_pack_bf16(r00.x, r00.y) : 0u,
-                                 on1 ? qv_pack_bf16(r10.x, r10.y) : 0u,
-                                 on0 ? qv_pack_bf16(r01.x, r01.y) : 0u,
-                                 on1 ? qv_pack_bf16(r11.x, r11.y) : 0u};
-#pragma unroll
-          for (int n = 0; n < 4; ++n)
-            qv_mma_bf16(acc[m][n], a, bw[n].x, bw[n].y, acc[m][n]);
-        }
+      for (int i = 0; i < 16; ++i) {  // the item's bias, 0 for dx
+        const int o = 64 * cur.nc + 8 * (i >> 1) + 2 * t + (i & 1);
+        bias[i] = b && o < cout ? __bfloat162float(b[o]) : 0.0f;
       }
     }
-  }
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dx = tap % 3;
+      const int r = lrow + (whole ? dy * wd : dy * seg) + dx;
+      uint32_t a[4][4];
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      long long p = p0 + wm * 32 + m * 16 + g + 8 * hh;
-      if (p >= np) continue;
+      for (int ks = 0; ks < 4; ++ks) {
+        qv_ldsm4(a[ks], xa + qv_swz(r, 2 * ks + lhi));
+        if (!((m0 >> tap) & 1)) a[ks][0] = a[ks][2] = 0u;  // pixel g
+        if (!((m1 >> tap) & 1)) a[ks][1] = a[ks][3] = 0u;  // pixel g + 8
+      }
+      qv_fence_sums(acc);
+      qv_wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
+      for (int ks = 0; ks < 4; ++ks)
+        qv_wgmma<0>(acc, a[ks],
+                    qv_desc(wa + tap * QV_H16_WTAP + 32 * ks, 1, 64));
+      qv_wgmma_commit();
+      qv_wgmma_wait<1>();  // the previous tap's products are done
+      qv_fence_sums(acc);
+    }
+    qv_wgmma_wait<0>();
+    qv_fence_sums(acc);
+    if (cur.kc == nk - 1) {
+      // The tile's outputs, rounded to bf16, go into the output tile as
+      // rows of the item's ow channels, then out: by one bulk copy where
+      // those rows are one range of y, else by the threads.
+      const long long p0 = cur.tile * QV_H16_TP;
+      const int o0 = 64 * cur.nc, ow = min(64, cout - o0);
+      const int nv = (int)min((long long)QV_H16_TP, np - p0);
+      __nv_bfloat16* ot = reinterpret_cast<__nv_bfloat16*>(obuf);
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          int o = (nt0 + n) * 8 + 2 * t + j;
-          if (o < cout) {
-            float v = acc[m][n][2 * hh + j];
-            y[p * cout + o] =
-                __float2bfloat16_rn(b ? v + __bfloat162float(b[o]) : v);
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = warp * 16 + g + 8 * hh;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int o = 8 * j + 2 * t;
+          const float v0 = acc[4 * j + 2 * hh] + bias[2 * j];
+          const float v1 = acc[4 * j + 2 * hh + 1] + bias[2 * j + 1];
+          if ((ow & 1) == 0 && o + 1 < ow) {
+            *reinterpret_cast<__nv_bfloat162*>(ot + r * ow + o) =
+                __floats2bfloat162_rn(v0, v1);
+          } else {
+            if (o < ow) ot[r * ow + o] = __float2bfloat16_rn(v0);
+            if (o + 1 < ow) ot[r * ow + o + 1] = __float2bfloat16_rn(v1);
           }
         }
       }
+      qv_fence_async_smem();
+      __syncthreads();  // the tile written; every warp's strip reads done
+      const int bytes = nv * cout * 2;
+      if (ow == cout && bytes % 16 == 0) {  // 16-byte aligned (p0 * cout)
+        if (threadIdx.x == 0) qv_bulk_store(y + p0 * cout, obuf, bytes);
+      } else {
+        for (int e = threadIdx.x; e < nv * ow; e += blockDim.x)
+          y[(p0 + e / ow) * cout + o0 + e % ow] = ot[e];
+      }
+    } else {
+      __syncthreads();  // every warp's strip reads done
+    }
+    const int wnc = cur.nc, wkc = cur.kc;
+    qv_next(cur, nk, ntiles);
+    if (s + 1 < nsteps && (cur.nc != wnc || cur.kc != wkc)) {
+      qv_stage_wimg(wimg + (size_t)(cur.nc * nk + cur.kc) * QV_H16_WIMG, wa);
+      qv_cp_commit();
+      qv_cp_wait<0>();
     }
   }
+  if (threadIdx.x == 0) qv_bulk_store_done();
 }
 
-__global__ void __launch_bounds__(QV_CONV_THREADS)
-    qv_conv3x3_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                               const uint2* __restrict__ wf,
-                               const __nv_bfloat16* __restrict__ b,
-                               __nv_bfloat16* __restrict__ y, long long np,
-                               int h, int wd, int cin, int cout, int vec) {
-  qv_conv3x3_bf16_body(x, wf, b, y, np, h, wd, cin, cout, vec != 0);
+__global__ void __launch_bounds__(QV_H16_THREADS, 1)
+    qv_conv3x3_fwd_wg_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                                  const uint8_t* __restrict__ wimg,
+                                  const __nv_bfloat16* __restrict__ b,
+                                  __nv_bfloat16* __restrict__ y, long long np,
+                                  int h, int wd, int cin, int cout, int mode,
+                                  int nslots) {
+  qv_conv3x3_wg_body(x, wimg, b, y, np, h, wd, cin, cout, mode, nslots);
 }
 
-__global__ void __launch_bounds__(QV_CONV_THREADS)
-    qv_conv3x3_dx_bf16_kernel(const __nv_bfloat16* __restrict__ ct,
-                              const uint2* __restrict__ wf,
-                              __nv_bfloat16* __restrict__ dx, long long np,
-                              int h, int wd, int co_f, int ci_f, int vec) {
-  qv_conv3x3_bf16_body(ct, wf, nullptr, dx, np, h, wd, co_f, ci_f, vec != 0);
+__global__ void __launch_bounds__(QV_H16_THREADS, 1)
+    qv_conv3x3_dx_wg_bf16_kernel(const __nv_bfloat16* __restrict__ ct,
+                                 const uint8_t* __restrict__ wimg,
+                                 const __nv_bfloat16* __restrict__ b,
+                                 __nv_bfloat16* __restrict__ dx, long long np,
+                                 int h, int wd, int co_f, int ci_f, int mode,
+                                 int nslots) {
+  qv_conv3x3_wg_body(ct, wimg, nullptr, dx, np, h, wd, co_f, ci_f, mode,
+                     nslots);
 }
 
-// qv_conv3x3_dw_kernel on bf16: the same blocks and staging, k-steps of 16
-// pixels, one bf16 product a fragment into a fresh fragment a k-step, added
-// in float32; float32 partial sums.
-__global__ void __launch_bounds__(QV_DW_THREADS)
-    qv_conv3x3_dw_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                              const __nv_bfloat16* __restrict__ ct,
-                              float* __restrict__ part, long long np, int h,
-                              int wd, int cin, int cout, long long chunk,
-                              int vx, int vc) {
-  extern __shared__ float4 qv_conv_smem[];
-  float* cs = reinterpret_cast<float*>(qv_conv_smem);  // [TP][STRIDE]
-  float* xs = cs + QV_CONV_TP * QV_CONV_STRIDE;        // [TP + 2][STRIDE]
-  int* ms = reinterpret_cast<int*>(xs + (QV_CONV_TP + 2) * QV_CONV_STRIDE);
+// First pass of dw/db: block (bx, by, bz) sums pixels [bx * chunk, +chunk)
+// for input channels by * 64 .. +63 and output channels bz * 64 .. +63 into
+// part[bx, :], laid out as dw (3, 3, cin, cout) then db (cout). Warpgroup
+// dy holds the taps (dy, 0..2): 3 x 32 sums a thread, M = input channels
+// (warp w: 16 w .. 16 w + 15), N = output channels, K = 16 pixels a
+// product. A = X^T by ldmatrix.trans of the staged strip at the tap's row
+// offset, its pixels (K slots) masked in registers; B = the staged ct
+// tile, MN-major. The threads of by == 0, warpgroup 0, sum db in pixel
+// order. A ring of nslots stages (ct tile, strip, masks) keeps nslots - 1
+// tiles loading while one is multiplied.
+__global__ void __launch_bounds__(QV_H16_DW_THREADS, 1)
+    qv_conv3x3_dw_wg_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                                 const __nv_bfloat16* __restrict__ ct,
+                                 float* __restrict__ part, long long np,
+                                 int h, int wd, int cin, int cout,
+                                 long long chunk, int xmode, int cmode,
+                                 int tp, int nslots) {
+  extern __shared__ uint8_t qv_h16_raw[];
+  uint8_t* sm = qv_smem_1k(qv_h16_raw);
+  const bool whole = qv_h16_whole(wd, tp);
+  const int rows = qv_h16_rows(wd, tp), seg = whole ? rows : tp + 2;
+  const int ctb = tp * 128;  // bytes of the staged ct tile
+  const int xbytes = qv_align1k(rows * 128);
+  // a stage: the ct tile, the strip, the tile's tap masks
+  const int stage_bytes = ctb + xbytes + 1024;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int dy = blockIdx.z % 3;
-  const int ci0 = blockIdx.y * QV_CONV_KC, co0 = (blockIdx.z / 3) * QV_CONV_NT;
-  const bool with_db = dy == 0 && blockIdx.y == 0 && threadIdx.x < QV_CONV_NT;
+  const int dy = warp >> 2, wq = warp & 3;
+  const int ci0 = blockIdx.y * 64, co0 = blockIdx.z * 64;
+  const bool with_db = blockIdx.y == 0 && threadIdx.x < 64;
   const long long pbeg = (long long)blockIdx.x * chunk;
   const long long pend = pbeg + chunk < np ? pbeg + chunk : np;
+  const int ntile = (int)((pend - pbeg + tp - 1) / tp);
+  // this lane's ldmatrix row (a pixel) and chunk: matrices (channels 0-7 |
+  // 8-15 of the warp's 16) x (pixels 0-7 | 8-15)
+  const int lpix = (lane & 7) + (lane >> 4) * 8;
+  const int lch = 2 * wq + ((lane >> 3) & 1);
+  const int roff = whole ? dy * wd : dy * seg;
 
-  float acc[3][8][4];
+  auto stage = [&](int i) {
+    uint8_t* st = sm + (i % nslots) * stage_bytes;
+    const long long p0 = pbeg + (long long)i * tp;
+    qv_stage_bf16(ct, st, p0, tp, tp, 0, pend, cout, co0, cmode);
+    qv_stage_bf16(x, st + ctb, p0 - wd - 1, rows, seg, whole ? 0 : wd, np,
+                  cin, ci0, xmode);
+    qv_tile_masks(reinterpret_cast<int*>(st + ctb + xbytes), p0, tp, pend,
+                  h, wd);
+  };
+
+  float acc[3][32];
 #pragma unroll
   for (int d = 0; d < 3; ++d)
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[d][n][k] = 0.0f;
+    for (int i = 0; i < 32; ++i) acc[d][i] = 0.0f;
   float db = 0.0f;
-  const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 
-  for (long long p0 = pbeg; p0 < pend; p0 += QV_CONV_TP) {
-    __syncthreads();
-    qv_stage_rows(ct, cs, p0, QV_CONV_TP, QV_CONV_TP, 0, pend, cout, co0,
-                  QV_CONV_NT, vc != 0);
-    qv_stage_rows(x, xs, p0 + (long long)(dy - 1) * wd - 1, QV_CONV_TP + 2,
-                  QV_CONV_TP + 2, 0, np, cin, ci0, QV_CONV_KC, vx != 0);
-    for (int e = threadIdx.x; e < QV_CONV_TP; e += QV_DW_THREADS)
-      ms[e] = p0 + e < pend ? qv_tap_mask(p0 + e, np, h, wd) >> (3 * dy) : 0;
-    __syncthreads();
-    if (with_db)
-      for (int r = 0; r < QV_CONV_TP; ++r)
-        db += cs[r * QV_CONV_STRIDE + threadIdx.x];
-    const int ks_n =
-        (int)((pend - p0 < QV_CONV_TP ? pend - p0 : QV_CONV_TP) + 15) / 16;
+  for (int i = 0; i < nslots - 1; ++i) {
+    if (i < ntile) stage(i);
+    qv_cp_commit();
+  }
 #pragma unroll 1
-    for (int ks = 0; ks < ks_n; ++ks) {
-      // pixels r0, r0 + 1 (the low k slots) and r0 + 8, r0 + 9
-      const int r0 = 16 * ks + 2 * t;
-      // B = ct (K = pixels x N = output channels): b0 pixels r0, r0 + 1,
-      // b1 r0 + 8, r0 + 9, output channel n * 8 + g
-      uint32_t bw[8][2];
-      const float* crow = cs + r0 * QV_CONV_STRIDE + g;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        bw[n][0] = qv_pack_bf16(crow[n * 8], crow[QV_CONV_STRIDE + n * 8]);
-        bw[n][1] = qv_pack_bf16(crow[8 * QV_CONV_STRIDE + n * 8],
-                                crow[9 * QV_CONV_STRIDE + n * 8]);
-      }
-      const int m0 = ms[r0], m1 = ms[r0 + 1], m8 = ms[r0 + 8],
-                m9 = ms[r0 + 9];
-      // A = X^T (M = input channels x K = pixels): a0 (channel g, pixels
-      // r0, r0 + 1), a1 (g + 8, r0 | r0 + 1), a2 (g, r0 + 8 | r0 + 9),
-      // a3 (g + 8, r0 + 8 | r0 + 9)
-      const float* xrow = xs + r0 * QV_CONV_STRIDE + warp * 16 + g;
+  for (int i = 0; i < ntile; ++i) {
+    if (i + nslots - 1 < ntile) stage(i + nslots - 1);
+    qv_cp_commit();
+    qv_cp_wait_n(nslots - 1);
+    qv_fence_async_smem();
+    __syncthreads();
+    const uint8_t* st = sm + (i % nslots) * stage_bytes;
+    const uint32_t ca = qv_smem_addr(st), xa = ca + ctb;
+    const int* ms = reinterpret_cast<const int*>(st + ctb + xbytes);
+#pragma unroll 2
+    for (int ks = 0; ks < tp / 16; ++ks) {
+      const int kp = 16 * ks;
+      // this thread's K slots: pixels 2t, 2t + 1 (a0, a1) and 2t + 8,
+      // 2t + 9 (a2, a3), each the low and high half of a register
+      const int mk0 = ms[kp + 2 * t], mk1 = ms[kp + 2 * t + 1];
+      const int mk8 = ms[kp + 2 * t + 8], mk9 = ms[kp + 2 * t + 9];
+      uint32_t a[3][4];
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
-        const float* xr = xrow + d * QV_CONV_STRIDE;
-        const bool on0 = (m0 >> d) & 1, on1 = (m1 >> d) & 1,
-                   on8 = (m8 >> d) & 1, on9 = (m9 >> d) & 1;
-        const float* x8 = xr + 8 * QV_CONV_STRIDE;
-        const uint32_t a[4] = {
-            qv_pack_bf16(on0 ? xr[0] : 0.0f,
-                         on1 ? xr[QV_CONV_STRIDE] : 0.0f),
-            qv_pack_bf16(on0 ? xr[8] : 0.0f,
-                         on1 ? xr[QV_CONV_STRIDE + 8] : 0.0f),
-            qv_pack_bf16(on8 ? x8[0] : 0.0f,
-                         on9 ? x8[QV_CONV_STRIDE] : 0.0f),
-            qv_pack_bf16(on8 ? x8[8] : 0.0f,
-                         on9 ? x8[QV_CONV_STRIDE + 8] : 0.0f)};
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          float f[4];
-          qv_mma_bf16(f, a, bw[n][0], bw[n][1], zero);
-          qv_add4(acc[d][n], f);
-        }
+        const int r = kp + lpix + roff + d;
+        qv_ldsm4_t(a[d], xa + qv_swz(r, lch));
+        const int bit = 3 * dy + d;
+        const uint32_t lo = (((mk0 >> bit) & 1) ? 0x0000FFFFu : 0u) |
+                            (((mk1 >> bit) & 1) ? 0xFFFF0000u : 0u);
+        const uint32_t hi = (((mk8 >> bit) & 1) ? 0x0000FFFFu : 0u) |
+                            (((mk9 >> bit) & 1) ? 0xFFFF0000u : 0u);
+        a[d][0] &= lo;
+        a[d][1] &= lo;
+        a[d][2] &= hi;
+        a[d][3] &= hi;
       }
+#pragma unroll
+      for (int d = 0; d < 3; ++d) qv_fence_sums(acc[d]);
+      qv_wgmma_fence();
+      const uint64_t desc = qv_desc(ca + 2048 * ks, 64, 64);
+#pragma unroll
+      for (int d = 0; d < 3; ++d) qv_wgmma<1>(acc[d], a[d], desc);
+      qv_wgmma_commit();
+      if (with_db) {
+        const int c = threadIdx.x;
+#pragma unroll
+        for (int r = kp; r < kp + 16; ++r)
+          db += __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+              st + qv_swz(r, c >> 3) + 2 * (c & 7)));
+      }
+      qv_wgmma_wait<1>();
+#pragma unroll
+      for (int d = 0; d < 3; ++d) qv_fence_sums(acc[d]);
     }
+    qv_wgmma_wait<0>();
+#pragma unroll
+    for (int d = 0; d < 3; ++d) qv_fence_sums(acc[d]);
+    __syncthreads();  // the stage's reads are done
   }
   const long long len_part = 9LL * cin * cout + cout;
   float* out = part + (long long)blockIdx.x * len_part;
@@ -666,14 +1013,10 @@ __global__ void __launch_bounds__(QV_DW_THREADS)
   for (int d = 0; d < 3; ++d) {
     const long long tap = 3 * dy + d;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        int ci = ci0 + warp * 16 + g + 8 * (k >> 1);
-        int o = co0 + n * 8 + 2 * t + (k & 1);
-        if (ci < cin && o < cout)
-          out[(tap * cin + ci) * cout + o] = acc[d][n][k];
-      }
+    for (int v = 0; v < 32; ++v) {
+      const int ci = ci0 + 16 * wq + g + 8 * ((v >> 1) & 1);
+      const int o = co0 + 8 * (v >> 2) + 2 * t + (v & 1);
+      if (ci < cin && o < cout) out[(tap * cin + ci) * cout + o] = acc[d][v];
     }
   }
   if (with_db && co0 + (int)threadIdx.x < cout)
@@ -816,56 +1159,110 @@ extern "C" int qv_conv3x3_dw(const float* x, const float* ct, float* part,
 }
 
 // ---- the bf16 trunk's entries: the float32 entries' arguments, on bf16 x,
-// w, b, ct, y, dx and out (dw then db); wf and part stay float32 words.
+// w, b, ct, y, dx and out (dw then db); wf (the weight image) and part
+// stay float32 words.
+
+// The ring slots of a bf16 pass: as many as the card's 227 KB of shared
+// memory a block hold beside the fixed part, 1 to 4 (one slot: each step
+// waits for its own strip; a block that holds none fails its launch).
+#define QV_H16_SMEM 232448  // shared memory a block may take (227 KB)
+
+static int qv_h16_slots(size_t fixed, size_t slot) {
+  const size_t room = (QV_H16_SMEM - fixed) / slot;
+  return room < 1 ? 1 : room > 4 ? 4 : (int)room;
+}
+static size_t qv_h16_fwd_slot(int wd) {
+  return (size_t)qv_align1k(qv_h16_rows(wd, QV_H16_TP) * 128) + 1024;
+}
+static size_t qv_h16_dw_slot(int wd, int tp) {
+  return (size_t)tp * 128 + (size_t)qv_align1k(qv_h16_rows(wd, tp) * 128) +
+         1024;
+}
+
+// How a bf16 (rows, c) matrix at p is staged (qv_stage_bf16's mode).
+static int qv_h16_mode(const __nv_bfloat16* p, int c) {
+  const uintptr_t a = (uintptr_t)p;
+  if (c % 8 == 0 && a % 16 == 0) return 2;
+  if (c % 4 == 0 && a % 8 == 0) return 1;
+  return 0;
+}
+
+typedef void (*QvH16Kernel)(const __nv_bfloat16*, const uint8_t*,
+                            const __nv_bfloat16*, __nv_bfloat16*, long long,
+                            int, int, int, int, int, int);
+
+// The weight image of (cin -> cout, flip) into wf, then the persistent
+// forward / dx kernel: one block an SM (or as many as fit), no more blocks
+// than items.
+static int qv_h16_conv(QvH16Kernel kernel, const __nv_bfloat16* in,
+                       const __nv_bfloat16* w, const __nv_bfloat16* b,
+                       float* wf, __nv_bfloat16* out, long long np, int h,
+                       int wd, int cin, int cout, int flip, cudaStream_t s) {
+  const int nk = (cin + 63) / 64, nn = (cout + 63) / 64;
+  const long long total = 9LL * nk * nn * 4096;
+  qv_conv3x3_wimg_bf16_kernel<<<(int)((total + 255) / 256), 256, 0, s>>>(
+      w, reinterpret_cast<__nv_bfloat16*>(wf), cin, cout, nk, nn, flip);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const size_t fixed = 1024 + QV_H16_WIMG + QV_H16_TP * 128;
+  const size_t slot = qv_h16_fwd_slot(wd);
+  const int nslots = qv_h16_slots(fixed, slot);
+  const size_t smem = fixed + nslots * slot;
+  int dev, sms, per_sm;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute((const void*)kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, (const void*)kernel, QV_H16_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long items = (np + QV_H16_TP - 1) / QV_H16_TP * nn;
+  const long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  kernel<<<(unsigned)(items < cap ? items : cap), QV_H16_THREADS, smem, s>>>(
+      in, reinterpret_cast<const uint8_t*>(wf), b, out, np, h, wd, cin, cout,
+      qv_h16_mode(in, cin), nslots);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int qv_conv3x3_fwd_bf16(const __nv_bfloat16* x,
                                    const __nv_bfloat16* w,
                                    const __nv_bfloat16* b, float* wf,
                                    __nv_bfloat16* y, long long np, int h,
                                    int wd, int cin, int cout, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  int nks = (cin + 15) / 16, ntn = 8 * ((cout + QV_CONV_NT - 1) / QV_CONV_NT);
-  long long total = 9LL * nks * ntn * 32;
-  qv_conv3x3_wsplit_bf16_kernel<<<(int)((total + 255) / 256), 256, 0, s>>>(
-      w, reinterpret_cast<uint2*>(wf), cin, cout, nks, ntn, 0);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  size_t smem = qv_conv_smem_bytes(wd);
-  e = cudaFuncSetAttribute(qv_conv3x3_fwd_bf16_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)((np + QV_CONV_TP - 1) / QV_CONV_TP),
-            (unsigned)((cout + QV_CONV_NT - 1) / QV_CONV_NT));
-  qv_conv3x3_fwd_bf16_kernel<<<grid, QV_CONV_THREADS, smem, s>>>(
-      x, reinterpret_cast<const uint2*>(wf), b, y, np, h, wd, cin, cout,
-      qv_vec(x, cin));
-  return (int)cudaGetLastError();
+  return qv_h16_conv(qv_conv3x3_fwd_wg_bf16_kernel, x, w, b, wf, y, np, h,
+                     wd, cin, cout, 0, (cudaStream_t)stream);
 }
 
+// dx: the image of the flipped, transposed taps (in-channels cout, out cin)
 extern "C" int qv_conv3x3_dx_bf16(const __nv_bfloat16* ct,
                                   const __nv_bfloat16* w, float* wf,
                                   __nv_bfloat16* dx, long long np, int h,
                                   int wd, int cin, int cout, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  // the split of the flipped, transposed taps: in-channels cout, out cin
-  int nks = (cout + 15) / 16, ntn = 8 * ((cin + QV_CONV_NT - 1) / QV_CONV_NT);
-  long long total = 9LL * nks * ntn * 32;
-  qv_conv3x3_wsplit_bf16_kernel<<<(int)((total + 255) / 256), 256, 0, s>>>(
-      w, reinterpret_cast<uint2*>(wf), cout, cin, nks, ntn, 1);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  size_t smem = qv_conv_smem_bytes(wd);
-  e = cudaFuncSetAttribute(qv_conv3x3_dx_bf16_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)((np + QV_CONV_TP - 1) / QV_CONV_TP),
-            (unsigned)((cin + QV_CONV_NT - 1) / QV_CONV_NT));
-  qv_conv3x3_dx_bf16_kernel<<<grid, QV_CONV_THREADS, smem, s>>>(
-      ct, reinterpret_cast<const uint2*>(wf), dx, np, h, wd, cout, cin,
-      qv_vec(ct, cout));
-  return (int)cudaGetLastError();
+  return qv_h16_conv(qv_conv3x3_dx_wg_bf16_kernel, ct, w, nullptr, wf, dx, np,
+                     h, wd, cout, cin, 1, (cudaStream_t)stream);
+}
+
+// Blocks of the bf16 dw pass the card runs at once (at the largest strip).
+extern "C" int qv_conv3x3_dw_bf16_slots(int* slots) {
+  const size_t slot = qv_h16_dw_slot(1 << 20, QV_CONV_TP);
+  const size_t smem = 1024 + qv_h16_slots(1024, slot) * slot;
+  int dev, sms, per_sm;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(qv_conv3x3_dw_wg_bf16_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, qv_conv3x3_dw_wg_bf16_kernel, QV_H16_DW_THREADS, smem);
+  if (err == cudaSuccess) *slots = sms * per_sm;
+  return (int)err;
 }
 
 extern "C" int qv_conv3x3_dw_bf16(const __nv_bfloat16* x,
@@ -874,16 +1271,22 @@ extern "C" int qv_conv3x3_dw_bf16(const __nv_bfloat16* x,
                                   int wd, int cin, int cout, long long chunk,
                                   int nb, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  size_t smem = qv_dw_smem_bytes();
+  // tiles of 256 pixels where two stages of them fit, else of 128 (the
+  // wrapper's chunks are whole multiples of 256)
+  int tp = 256;
+  if (1024 + 2 * qv_h16_dw_slot(wd, tp) > QV_H16_SMEM) tp = 128;
+  const size_t slot = qv_h16_dw_slot(wd, tp);
+  const int nslots = qv_h16_slots(1024, slot);
+  const size_t smem = 1024 + nslots * slot;
   cudaError_t err = cudaFuncSetAttribute(
-      qv_conv3x3_dw_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      qv_conv3x3_dw_wg_bf16_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)nb, (unsigned)((cin + QV_CONV_KC - 1) / QV_CONV_KC),
-            (unsigned)(3 * ((cout + QV_CONV_NT - 1) / QV_CONV_NT)));
-  qv_conv3x3_dw_bf16_kernel<<<grid, QV_DW_THREADS, smem, s>>>(
-      x, ct, part, np, h, wd, cin, cout, chunk, qv_vec(x, cin),
-      qv_vec(ct, cout));
+  dim3 grid((unsigned)nb, (unsigned)((cin + 63) / 64),
+            (unsigned)((cout + 63) / 64));
+  qv_conv3x3_dw_wg_bf16_kernel<<<grid, QV_H16_DW_THREADS, smem, s>>>(
+      x, ct, part, np, h, wd, cin, cout, chunk, qv_h16_mode(x, cin),
+      qv_h16_mode(ct, cout), tp, nslots);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   long long len = 9LL * cin * cout + cout;
   int blocks = len > 4096LL * 256 ? 4096 : (int)((len + 255) / 256);

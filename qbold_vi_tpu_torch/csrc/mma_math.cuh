@@ -1,8 +1,8 @@
 // Tensor-core products shared by the 3x3 trunk conv (conv3x3.cu, kernel H)
 // and the stream-1 encode (encode_quad.cu, kernels B and C): float32-accurate
 // products on Hopper's TF32 tensor cores (3xTF32) for the float32 trunk, and
-// one bf16 product with float32 sums for the bf16 trunk (at the end of this
-// file).
+// one bf16 product with float32 sums for kernels B and C's bf16 trunk (at
+// the end of this file; kernel H at bf16 takes wgmma, conv3x3.cu).
 //
 // Why 3xTF32. The trunk runs in full float32 (TF32 is held off around the
 // fine-tune step). One TF32 product keeps ~3 decimal digits, so each

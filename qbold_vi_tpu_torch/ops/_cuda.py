@@ -146,6 +146,7 @@ _SIGNATURES = {
     "qv_conv3x3_dx_bf16": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "qv_conv3x3_dw_bf16": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _LL, _I, _P],
     "qv_conv3x3_dw_slots": [ctypes.POINTER(ctypes.c_int)],
+    "qv_conv3x3_dw_bf16_slots": [ctypes.POINTER(ctypes.c_int)],
     "qv_synth_grid": [_LL],
     "qv_synth_batch": [
         _LL, QvDecodeConsts, _P, _I, QvSynthConsts, ctypes.c_ulonglong, _P,

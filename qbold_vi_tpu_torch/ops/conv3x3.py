@@ -14,14 +14,17 @@ and db after their sums over all pixels (pallas_conv.py:105-113, 280-281).
   their closed-form gradients (dx is the same sum on the cotangent with the
   taps flipped and transposed; dw and db are sums over all pixels);
 * ``conv3x3_forward`` / ``conv3x3_backward``: the wrappers of the
-  hand-written kernel ``csrc/conv3x3.cu`` (tensor cores: 3xTF32 products
-  at float32 accuracy, bf16 products with float32 sums at bf16). A CUDA
-  tensor launches it or raises; a CPU tensor runs the plain version.
+  hand-written kernel ``csrc/conv3x3.cu`` (tensor cores: 3xTF32
+  ``mma.sync`` products at float32 accuracy; at bf16, ``wgmma`` products
+  with float32 sums from asynchronously staged bf16 strips and, in the
+  forward and dx, weights resident in shared memory). A CUDA tensor
+  launches it or raises; a CPU tensor runs the plain version.
   Launches are counted in ``conv3x3.fwd_launches`` and
   ``conv3x3.bwd_launches``, the bf16 kernels' in ``conv3x3.fwd_bf16_launches``
   and ``conv3x3.bwd_bf16_launches`` (a forward call launches the weight
-  split and the conv; one backward call launches dx with its weight split,
-  when the input needs a gradient, and the two passes of dw and db);
+  split -- at bf16 the weight image -- and the conv; one backward call
+  launches dx with its weight split, when the input needs a gradient, and
+  the two passes of dw and db);
 * ``conv3x3``: the op as a ``torch.autograd.Function``.
 
 The encoder keeps its conv weight OIHW (``nn.Conv2d``, the bridged
@@ -42,7 +45,7 @@ from . import _cuda
 __all__ = ["conv3x3_available", "conv3x3", "conv3x3_forward",
            "conv3x3_backward", "conv3x3_plain", "conv3x3_grads_plain"]
 
-_DW_TILE = 128           # pixels the dw/db pass stages at a time
+_DW_TILE = 128           # pixels the float32 dw/db pass stages at a time
 
 
 def conv3x3_available(h: int, w: int) -> bool:
@@ -132,13 +135,14 @@ def _check_cuda(x, w_hwio, b=None, ct=None):
 
 
 def _weight_scratch(x: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
-    """The kernel's weight fragments for cin -> cout, as float32 words
-    (csrc/conv3x3.cu, qv_conv3x3_wsplit_kernel): 9 taps x ceil(cin / 8)
-    k-steps x ceil(cout / 64) * 8 column tiles x 32 lanes x 4 floats of
-    3xTF32 hi / lo pairs; for bf16, k-steps of 16 and 2 words of two bf16
-    each."""
+    """The kernel's weights for cin -> cout, as float32 words
+    (csrc/conv3x3.cu): float32, qv_conv3x3_wsplit_kernel's fragments, 9 taps
+    x ceil(cin / 8) k-steps x ceil(cout / 64) * 8 column tiles x 32 lanes x
+    4 floats of 3xTF32 hi / lo pairs; bf16, qv_conv3x3_wimg_bf16_kernel's
+    image, 9 taps of 64 x 64 bf16 for each chunk of 64 input and of 64
+    output channels."""
     if x.dtype == torch.bfloat16:
-        words = 9 * -(-cin // 16) * 8 * -(-cout // 64) * 32 * 2
+        words = 9 * -(-cin // 64) * -(-cout // 64) * 64 * 64 // 2
     else:
         words = 9 * -(-cin // 8) * 8 * -(-cout // 64) * 32 * 4
     return torch.empty(words, device=x.device, dtype=torch.float32)
@@ -152,22 +156,28 @@ def _entry(name: str, x: torch.Tensor):
 
 
 @functools.lru_cache(maxsize=None)
-def _dw_slots(device: torch.device) -> int:
-    """Blocks of the dw pass that ``device`` runs at once."""
+def _dw_slots(device: torch.device, bf16: bool = False) -> int:
+    """Blocks of the dw pass (float32 or bf16) that ``device`` runs at
+    once."""
     slots = ctypes.c_int()
+    fn = "qv_conv3x3_dw_bf16_slots" if bf16 else "qv_conv3x3_dw_slots"
     with torch.cuda.device(device):
-        _cuda.check(_cuda.library().qv_conv3x3_dw_slots(ctypes.byref(slots)),
+        _cuda.check(getattr(_cuda.library(), fn)(ctypes.byref(slots)),
                     "conv3x3 dw occupancy")
     return slots.value
 
 
-def _dw_chunk(np_: int, ci: int, co: int, slots: int) -> int:
-    """Pixels a dw block sums: a multiple of the tile, with as many chunks as
-    make one wave of blocks (3 tap rows x the channel tiles a chunk) where
-    the pixels allow."""
-    blocks = 3 * -(-ci // 64) * -(-co // 64)
+def _dw_chunk(np_: int, ci: int, co: int, slots: int,
+              bf16: bool = False) -> int:
+    """Pixels a dw block sums: a multiple of the kernel's tile, with as many
+    chunks as make one wave of blocks (the channel tiles a chunk, times the
+    3 tap rows of the float32 kernel, whose block sums one; the bf16
+    kernel's sums all three over tiles of up to 256 pixels) where the
+    pixels allow."""
+    tile = 2 * _DW_TILE if bf16 else _DW_TILE
+    blocks = (1 if bf16 else 3) * -(-ci // 64) * -(-co // 64)
     chunks = max(1, slots // blocks)
-    return _DW_TILE * -(-np_ // (_DW_TILE * chunks))
+    return tile * -(-np_ // (tile * chunks))
 
 
 def _device_of(x: torch.Tensor) -> str:
@@ -228,7 +238,8 @@ def conv3x3_backward(x: torch.Tensor, w_hwio: torch.Tensor, ct: torch.Tensor,
                 _weight_scratch(x, co, ci).data_ptr(), dx.data_ptr(), np_,
                 h, wd, ci, co, stream), "conv3x3 dx")
         if np_:
-            chunk = _dw_chunk(np_, ci, co, _dw_slots(x.device))
+            bf16 = x.dtype == torch.bfloat16
+            chunk = _dw_chunk(np_, ci, co, _dw_slots(x.device, bf16), bf16)
             nb = -(-np_ // chunk)
             part = torch.empty((nb, out.numel()), device=x.device,
                                dtype=torch.float32)

@@ -53,7 +53,8 @@ from .quadrature import quad_tile_summaries
 
 __all__ = ["encode_quad_fused", "encode_quad_fused_op",
            "encode_quad_fused_plain", "encode_q_plain", "encode_q1_packed",
-           "fused_infer_available", "SUPPORTED_ACTS"]
+           "fused_infer_available", "fused_infer_width_ok",
+           "SUPPORTED_ACTS"]
 
 # Activations the kernel implements (csrc/encode_quad.cu::qv_act, whose
 # codes follow this order); the same set as the JAX package's.
@@ -66,6 +67,12 @@ _MAX_WIDTH = 128               # csrc/encode_quad.cu::QV_ENCODE_DISPATCH
 
 def fused_infer_available(activation: str) -> bool:
     return activation in SUPPORTED_ACTS
+
+
+def fused_infer_width_ok(units: int) -> bool:
+    """Whether a trunk of ``units`` units fits the kernel's widest compiled
+    width (``_launch_setup`` refuses a wider one)."""
+    return _padded_width(units) <= _MAX_WIDTH
 
 
 def _stream1_weights(encoder, n_blocks: int):

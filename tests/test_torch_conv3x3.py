@@ -203,6 +203,23 @@ def test_dw_chunks_make_one_wave(np_, ci, co, slots):
         assert (chunk, nb) == (1536, 124)
 
 
+@pytest.mark.parametrize("np_,ci,co,slots", [
+    (190_000, 60, 60, 132), (147_456, 60, 60, 132), (297, 5, 7, 8),
+    (2 * 625, 256, 256, 132), (4_000_000, 60, 60, 132)])
+def test_bf16_dw_chunks_make_one_wave(np_, ci, co, slots):
+    """Kernel H's bf16 dw pass, whose block sums all three tap rows over
+    tiles of up to 256 pixels: chunks of whole such tiles that cover the
+    pixels, and no more blocks (channel tiles a chunk) than the card runs at
+    once, unless one chunk's exceed it."""
+    chunk = _dw_chunk(np_, ci, co, slots, bf16=True)
+    nb = -(-np_ // chunk)
+    blocks = -(-ci // 64) * -(-co // 64)
+    assert chunk % 256 == 0 and nb * chunk >= np_
+    assert nb * blocks <= max(slots, blocks)
+    if np_ == 190_000:
+        assert (chunk, nb) == (1536, 124)
+
+
 def test_parameter_names_do_not_depend_on_the_mode():
     base = tcfg.ModelConfig(no_units=4, no_intermediate_layers=2)
     names = {mode: set(init_params(dataclasses.replace(base, fused_conv=mode),

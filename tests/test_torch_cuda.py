@@ -342,6 +342,37 @@ def test_posterior_maps_on_card(cuda_device, use_first_op):
            [means[1], ref["stds"], ref["raw_log_stds"]])
 
 
+def test_wide_stream1_takes_the_encoder_route_on_card(cuda_device):
+    """At 256 units "auto" runs stream 1 through the encoder and kernel A
+    (kernel B holds at most 128 units a lane) and matches the plain route
+    on the CPU at test_torch_infer.py's tolerances; a forced "on" still
+    meets the kernel's width refusal, before any launch."""
+    cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=256,
+                              compute_dtype="float32")
+    gpu = _tuner(cfg, cuda_device)
+    cpu = _tuner(cfg, "cpu")
+    rng = np.random.default_rng(3)
+    data = volume(rng, (3, 12, 12, 3), SCAN.n_taus + 1)
+    data[..., -1] = rng.uniform(size=data.shape[:-1]) > 0.3
+    counts = (tfi.encode_quad_fused.launches,
+              tq.quad_posterior_summaries.launches)
+    got = infer.posterior_maps(gpu, data, use_first_op=True)
+    moved = (tfi.encode_quad_fused.launches - counts[0],
+             tq.quad_posterior_summaries.launches - counts[1])
+    assert moved == (0, 2)
+    ref = infer.posterior_maps(cpu, data, use_first_op=True)
+    tol = dict(rtol=1e-3, atol=3e-5)
+    for key in ("oef", "dbv", "r2p", "raw_log_stds"):
+        np.testing.assert_allclose(got[key], ref[key], err_msg=key, **tol)
+    means = np.concatenate([ref["oef"], ref["dbv"], ref["r2p"]], -1)
+    assert_vars_close(got["stds"], ref["stds"], means, **tol)
+    forced = _tuner(dataclasses.replace(cfg, fused_infer="on"), cuda_device)
+    forced.load_state_dict(gpu.state_dict())
+    with pytest.raises(ValueError, match="128 units"):
+        infer.posterior_maps(forced, data, use_first_op=True)
+    assert tfi.encode_quad_fused.launches == counts[0]
+
+
 @pytest.mark.parametrize("use_first_op", [True, False],
                          ids=["stream1", "stream2"])
 def test_mc_posterior_maps_on_card(cuda_device, use_first_op):
@@ -856,7 +887,8 @@ def test_conv3x3_kernel_matches_plain(cuda_device, shape):
 
 @pytest.mark.parametrize("shape", [(304, 25, 25, 60, 60), (3, 7, 9, 60, 60),
                                    (9, 3, 11, 5, 7), (1, 4, 200, 8, 12),
-                                   (2, 9, 10, 64, 65)])
+                                   (2, 9, 10, 64, 65), (2, 25, 25, 256, 256),
+                                   (2, 96, 96, 60, 60)])
 def test_conv3x3_bf16_kernel_matches_plain(cuda_device, shape):
     """Kernel H at bf16: forward, dx and dw/db against the plain versions
     within 2 bf16 ulps (each output one rounding of float32 sums; dw and db

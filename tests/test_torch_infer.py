@@ -172,6 +172,19 @@ def test_method_and_mode_validation():
         dataclasses.replace(cfg, activation="selu"), cuda)
 
 
+def test_auto_fused_infer_follows_the_kernel_width():
+    """"auto" leaves stream 1's fused kernel at the widths kernel B holds
+    (128 units) and takes the encoder route above them; a forced "on" keeps
+    the kernel, whose launch refuses the width on the card."""
+    cuda = torch.device("cuda")
+    cfg = tcfg.OPTIMAL.model
+    for units, want in ((128, True), (129, False), (256, False)):
+        c = dataclasses.replace(cfg, no_units=units)
+        assert tinfer._resolve_fused_infer(c, cuda) is want, units
+    wide = dataclasses.replace(cfg, no_units=256, fused_infer="on")
+    assert tinfer._resolve_fused_infer(wide, cuda) is True
+
+
 def test_to_channel_major():
     x = np.arange(2 * 3 * 4, dtype=np.float32).reshape(2, 3, 4)
     cm = tinfer.to_channel_major(x)

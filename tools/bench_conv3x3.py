@@ -9,10 +9,13 @@ entries -- a library of that file alone with the same nvcc flags, all
 compiles started at once. At the fine-tune fold (304, 25, 25, 60 -> 60)
 and a serving chunk (16, 96, 96, 60 -> 60) it times each build's forward,
 dx and dw/db entries by CUDA events (median of 7 blocks of 20 calls, after
-3 warm-up calls) and prints the largest error of y, dx, dw and db against
-the plain version in float64, as a share of the largest magnitude. It
-prints each build's registers and spills for the forward and dw kernels,
-and the card's name and power limit. ``--dtype bfloat16`` times the bf16
+3 warm-up calls) and each kernel of a pass by its device time (the
+profiler's median over 21 calls), and prints the largest error of y, dx,
+dw and db against the plain version in float64, as a share of the
+largest magnitude. It
+prints each build's registers and spills for the forward, dx and dw
+kernels, their SASS instructions and the wgmma (HGMMA) among them, and the
+card's name and power limit. ``--dtype bfloat16`` times the bf16
 trunk's entries (``qv_conv3x3_*_bf16``: bf16 operands, float32 sums) on
 the same shapes, the float64 reference taken on the same bf16 values, and
 adds each error in bf16 ulps of the largest magnitude. Needs one CUDA
@@ -24,6 +27,8 @@ from __future__ import annotations
 import argparse
 import ctypes
 import math
+import re
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -32,7 +37,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from chip_smoke import cuda_ms, gpu_line  # noqa: E402
+from chip_smoke import cuda_ms, gpu_line, sass  # noqa: E402
 from qbold_vi_tpu_torch.ops import _cuda  # noqa: E402
 from qbold_vi_tpu_torch.ops import conv3x3 as cv  # noqa: E402
 
@@ -57,6 +62,7 @@ def build_variants(paths):
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
         report(name, log)
+        report_sass(name, so)
         lib = ctypes.CDLL(str(so))
         for tag in ("", "_bf16"):
             if not hasattr(lib, "qv_conv3x3_fwd" + tag):
@@ -71,26 +77,45 @@ def build_variants(paths):
     return libs
 
 
+H_KERNELS = {"conv3x3_fwd_kernel": "forward", "conv3x3_dw_kernel": "dw",
+             "conv3x3_fwd_wg_bf16_kernel": "bf16 forward",
+             "conv3x3_dx_wg_bf16_kernel": "bf16 dx",
+             "conv3x3_dw_wg_bf16_kernel": "bf16 dw"}
+
+
 def report(name: str, log: str) -> None:
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if "Function properties" in line and (
-                "conv3x3_fwd_kernel" in line or "conv3x3_dw_kernel" in line):
-            kernel = "forward" if "fwd_kernel" in line else "dw"
+        kernel = next((v for k, v in H_KERNELS.items()
+                       if "Function properties" in line and k in line), None)
+        if kernel:
             print(f"{name} {kernel}: " + " ".join(
                 s.replace("ptxas info    :", "").strip()
                 for s in lines[i + 1:i + 3]), flush=True)
 
 
-def dw_slots(lib) -> int:
-    fn = getattr(lib, "qv_conv3x3_dw_slots", None)
+def report_sass(name: str, so) -> None:
+    """Each kernel H's SASS instructions and its wgmma (HGMMA) among them,
+    by cuobjdump (a loop body counts once)."""
+    code = sass(so)
+    print(f"{name} SASS: " + ", ".join(
+        f"{k} {code[k][0]} ({code[k][1].get('HGMMA', 0)} HGMMA)"
+        for k in sorted(code) if "conv3x3" in k), flush=True)
+
+
+def dw_slots(lib, bf16: bool) -> tuple:
+    """(blocks of the dw pass the card runs at once, whether they are the
+    bf16 kernel's): the bf16 entries' own count where the library has it."""
+    fn = getattr(lib, "qv_conv3x3_dw_bf16_slots", None) if bf16 else None
+    ours = fn is not None
+    fn = fn or getattr(lib, "qv_conv3x3_dw_slots", None)
     if fn is None:
-        return 3 * 128
+        return 3 * 128, ours
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
     slots = ctypes.c_int()
     if fn(ctypes.byref(slots)) != 0:
-        raise RuntimeError("qv_conv3x3_dw_slots failed")
-    return slots.value
+        raise RuntimeError("the dw pass's occupancy query failed")
+    return slots.value, ours
 
 
 def bench(name, lib, shape, dev, dtype=torch.float32) -> None:
@@ -109,7 +134,7 @@ def bench(name, lib, shape, dev, dtype=torch.float32) -> None:
     npx = n * h * w
     stream = torch.cuda.current_stream().cuda_stream
     wf_fwd, wf_dx = cv._weight_scratch(x, ci, co), cv._weight_scratch(x, co, ci)
-    chunk = cv._dw_chunk(npx, ci, co, dw_slots(lib))
+    chunk = cv._dw_chunk(npx, ci, co, *dw_slots(lib, dtype == torch.bfloat16))
     nb = -(-npx // chunk)
     y = torch.empty(n, h, w, co, device=dev, dtype=dtype)
     dx = torch.empty_like(x)
@@ -143,6 +168,35 @@ def bench(name, lib, shape, dev, dtype=torch.float32) -> None:
                      for key, fn in calls.items())
     print(f"{name} {shape} {str(dtype)[6:]} ({nb} dw chunks): {times} ms; "
           f"vs float64 {' '.join(errs)}", flush=True)
+    print(f"{name} {shape} device ms: " + "; ".join(
+        f"{key} " + ", ".join(f"{k} {v:.4f}" for k, v in
+                              device_parts(fn).items())
+        for key, fn in calls.items()), flush=True)
+
+
+def device_parts(fn, calls: int = 21) -> dict:
+    """{kernel: median device ms a launch} over ``calls`` calls of fn,
+    from the profiler's CUDA activity (a kernel whose launches the trace
+    drops shows the median of those it kept)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"qv_\w+?_kernel", e.name)
+            spans.setdefault(m.group(0) if m else e.name, []).append(
+                e.time_range.elapsed_us() / 1e3)
+    return {k[11:-7] if k.startswith("qv_conv3x3_") else k:
+            statistics.median(v) for k, v in spans.items()}
 
 
 def main() -> int:
@@ -158,6 +212,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     libs = {"conv3x3": _cuda.library()}
     report("conv3x3", _cuda.build_log())
+    report_sass("conv3x3", libs["conv3x3"]._name)
     libs.update(build_variants(args.variants))
     for shape in SHAPES:
         for name, lib in libs.items():
