@@ -26,7 +26,7 @@ kernel S's trial axis and one kernel-F call a step, the searches, the
 CLI's sweep, the wandb agent, trials over two ranks), and checks them:
 
 1. device: a CUDA card is required (otherwise exit 1, no result line);
-2. build: the kernels of all seven sources in csrc/ are compiled by nvcc;
+2. build: the kernels of all eight sources in csrc/ are compiled by nvcc;
    kernels A, B, E and G must hold the static MUFU instructions
    (cuobjdump) that the special-function bounds' counts were read with
    (MUFU_SASS);
@@ -176,10 +176,12 @@ and the modules around it, after phase 18:
    and profile (busy share, launches a step); one streaming step on the
    card (S) against the CPU (the plain version of S's replayed draws)
    from one seed (check_step: softplus from the initial weights at
-   GRAD_TOL, relu from the trained ones within 1e-2); S's device time
-   beside its bound (the function's bytes: y and x written once) and this
-   design's count (x read and written again by the noise pass,
-   synth_bound), and its plain version's time and launches a batch;
+   GRAD_TOL, relu from the trained ones within 1e-2); S's device time,
+   pass by pass (pass 1 with the last block's reduction of the mean, the
+   noise pass), beside its bound (the function's bytes: y and x written
+   once) and this design's count (x read and written again by the noise
+   pass, synth_bound), its launches a step, and its plain version's time
+   and launches a batch;
 28. baseline.wls_maps on the card against the CPU on 6 x 96 x 96 x 8
    noisy physics signals (rtol 1e-5 plus baseline.fit_rounding: 8
    float32 ulps of ln S carried through the fit), and its wall and device time on 14 x 96 x 96 x 8.
@@ -194,14 +196,17 @@ weights of phase 3), after phase 28:
    serving chunk each pass's device time (weight image, forward, dx, dw
    and its reduction; a pass missing from the trace fails the phase)
    beside its own bound and cuDNN bf16's call for it; kernels C and B
-   with the bf16
-   trunk against their plain versions at 1,032,192 voxels, MVG and
-   diagonal heads: C's q rows within 4 bf16 ulps, B against the plain
-   quadrature of C's q at CHECKS and against its plain version at the
-   JAX package's bf16 gate; each error in bf16 ulps with the share of
-   elements a rounding moved; the device times of H (and cuDNN's bf16
-   conv2d and convolution_backward beside it), B and C, their plain
-   versions' and their bounds at the dense bf16 peak (PEAK_BF16);
+   with the bf16 trunk (csrc/encode_quad_bf16.cu, wgmma: HGMMA in both
+   kernels' SASS, or the phase fails) against their plain versions at
+   1,032,192 voxels, MVG and diagonal heads: C's q rows within 4 bf16
+   ulps, B against the plain quadrature of C's q at CHECKS and against
+   its plain version at the JAX package's bf16 gate; each error in bf16
+   ulps with the share of elements a rounding moved; C's head against a
+   float64 head on the plain version's bf16 features (median and 99.9th
+   percentile); the device times of H (and cuDNN's bf16 conv2d and
+   convolution_backward beside it), B and C, their plain versions' and
+   their bounds at the dense bf16 peak (PEAK_BF16), and B beside C + A
+   on the same request (A on C's q);
 30. serving at bf16: one 14 x 96 x 96 x 8 request a route through
    save_predictions -- stream 1 by quadrature (B) and by mc (C + D),
    stream 2 under "auto" (cuDNN bf16) and "on" (H bf16) -- with the
@@ -708,29 +713,31 @@ def sass(so) -> dict:
             name = m.group(1)
             out.setdefault(name, [0, collections.Counter()])
             continue
+        if name and "HGMMA" in line:      # at any offset
+            out[name][1]["HGMMA"] += 1
         if name and re.match(r"\s+/\*[0-9a-f]{4}\*/", line):
             out[name][0] += 1
             mufu = re.search(r"MUFU\.(\w+)", line)
             if mufu:
                 out[name][1][mufu.group(1)] += 1
-            elif "HGMMA" in line:
-                out[name][1]["HGMMA"] += 1
     return out
 
 
 def check_wgmma_sass() -> None:
-    """Fail unless kernel H's bf16 passes (H16_WGMMA) take their products
-    on wgmma: HGMMA instructions in the built library's SASS."""
+    """Fail unless kernel H's bf16 passes (H16_WGMMA) and the bf16 encode
+    of kernels B and C (BC16_SYMBOLS) take their products on wgmma: HGMMA
+    instructions in the built library's SASS."""
     from qbold_vi_tpu_torch.ops import _cuda
 
     code = sass(_cuda.library()._name)
-    got = {k: code.get(k, (0, {}))[1].get("HGMMA", 0) for k in H16_WGMMA}
+    got = {k: code.get(k, (0, {}))[1].get("HGMMA", 0)
+           for k in H16_WGMMA + tuple(BC16_SYMBOLS.values())}
     if not all(got.values()):
-        raise AssertionError(f"HGMMA instructions of kernel H at bf16: {got} "
-                             "(each pass must hold some; or cuobjdump is "
-                             "missing)")
-    log(f"kernel H at bf16 takes its products on wgmma: static HGMMA "
-        f"instructions {got}")
+        raise AssertionError(f"HGMMA instructions of kernels H, B and C at "
+                             f"bf16: {got} (each must hold some; or "
+                             "cuobjdump is missing)")
+    log(f"kernels H, B and C at bf16 take their products on wgmma: static "
+        f"HGMMA instructions {got}")
 
 
 def check_mufu_sass(so) -> None:
@@ -2756,12 +2763,15 @@ def stream_phases(dev, card, base) -> dict:
     s_ops = bound(0, synth_ops(n, t_n, mis))["bound_ms"]
     log(f"S at {n:,} voxels: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in parts.items())
-        + f", {s_ms:.4f} ms in all on the device; plain {plain_ms:.3f} ms in "
+        + f", {s_ms:.4f} ms in all on the device, "
+        f"{(s_launches + noise_launches) / (2 * spe):.0f} launches a step "
+        f"(pass 1 and the noise pass); plain {plain_ms:.3f} ms in "
         f"{plain_prof['launches']:.0f} launches a batch; bound "
         f"{s_bound['bound_ms']:.5f} ms ({s_bound['bound_by']}; "
         f"{100 * s_bound['bound_ms'] / s_ms:.1f}% of S), operations "
         f"{s_ops:.5f} ms; this design's count {s_design:.5f} ms "
-        f"({100 * s_design / s_ms:.1f}%) [{card}]")
+        f"({100 * s_design / s_ms:.1f}%, "
+        f"{n * (3 + 3 * t_n) * 4 / 1e6:.1f} MB) [{card}]")
     log_clocks("after S's timings")
 
     # ---- 28. the WLS baseline ---------------------------------------------
@@ -2913,7 +2923,8 @@ def bf16_kernel_phases(dev, card, cfg16, tuner16) -> dict:
     from qbold_vi_tpu_torch.models.encoder import _full_fp32
     from qbold_vi_tpu_torch.ops import conv3x3 as cv
     from qbold_vi_tpu_torch.ops import fused_infer as fi
-    from qbold_vi_tpu_torch.ops.quadrature import quad_tile_summaries
+    from qbold_vi_tpu_torch.ops.quadrature import (quad_posterior_summaries,
+                                                   quad_tile_summaries)
 
     rng = np.random.default_rng(29)
     out = {}
@@ -3053,6 +3064,13 @@ def bf16_kernel_phases(dev, card, cfg16, tuner16) -> dict:
                     f"{k} {e:.2f} ulps ({100 * s:.3f}% moved)"
                     for k, (e, s) in b_errs.items()))
             if mvg:
+                out["head_err"] = head_f64_err(q, x, t.encoder, enc)
+                log("C bf16 head against a float64 head on the plain "
+                    "version's bf16 features: kernel " + ", ".join(
+                        f"{k} {v:.3e}" for k, v in out["head_err"][0].items())
+                    + "; the plain float32 head " + ", ".join(
+                        f"{k} {v:.3e}" for k, v in out["head_err"][1].items()))
+                out["q_rows"] = q.T.contiguous()
                 out["C_err"] = max(float((q[j] - q_ref[j]).abs().max())
                                    for j in range(rows))
                 out["B_err"] = max(float((g - r).abs().max())
@@ -3067,6 +3085,10 @@ def bf16_kernel_phases(dev, card, cfg16, tuner16) -> dict:
             "C": time_kernel(lambda: fi.encode_q1_packed(
                 x, tuner16.encoder, **enc), BC16_SYMBOLS["C"],
                 lambda: fi.encode_q_plain(x, tuner16.encoder, **enc))}
+        # A on C's q: B beside C + A on the same request
+        a_rows = out.pop("q_rows")
+        out["A_on_C_ms"] = kernel_ms(lambda: quad_posterior_summaries(
+            a_rows, mvg=True, **ranges), "qv_quad_kernel")
     u, nb, t_n = mcfg.no_units, mcfg.no_intermediate_layers, scan.n_taus
     rest = N_FULL * (ops_encode(u, t_n, nb) - 2 * (u * t_n + nb * u * u
                                                    + 5 * u))
@@ -3087,7 +3109,45 @@ def bf16_kernel_phases(dev, card, cfg16, tuner16) -> dict:
                 f", special-function {bd['mufu_bound_ms']:.4f} ms"
                 if "mufu_bound_ms" in bd else "") + f" at N={N_FULL} [{card}]")
     del out["raw_b"]
+    b_ms, c_ms, a_ms = (out["BC_times"]["B"][0], out["BC_times"]["C"][0],
+                        out["A_on_C_ms"])
+    log(f"B bf16 {b_ms:.4f} ms against C bf16 + A on C's q {c_ms:.4f} + "
+        f"{a_ms:.4f} = {c_ms + a_ms:.4f} ms on the same request "
+        f"({'not more' if b_ms <= c_ms + a_ms else 'MORE'}) [{card}]")
     return out
+
+
+def head_f64_err(q, x, encoder, enc) -> tuple:
+    """The bf16 head's error: |q - the head in float64 on the plain
+    version's bf16 features| (median, 99.9th percentile, largest; where a
+    feature's rounding moved between kernel and plain version, its voxel
+    differs by more), and the same for the plain version's float32 head."""
+    from qbold_vi_tpu_torch.models.encoder import activation_fn, normalise_data
+    from qbold_vi_tpu_torch.ops.fused_infer import (_mm_bf16, _rows,
+                                                    _stream1_weights)
+
+    bf16 = torch.bfloat16
+    xr, cm = _rows(x, enc["input_layout"])
+    xr = (xr if cm else xr.T).float()
+    if enc["mask_channel"]:
+        xr = xr[:-1] * xr[-1:]
+    wfc, bfc, wb, bb, wf, bf = _stream1_weights(encoder, enc["n_blocks"])
+    act = activation_fn(enc["activation"], bf16)
+    h = normalise_data(xr.T, enc["se_idx"], enc["multi_image"]).T
+    h = act(_mm_bf16(wfc.to(bf16), h.to(bf16)) + bfc.to(bf16))
+    for i in range(enc["n_blocks"]):
+        h = act(_mm_bf16(wb[i].to(bf16), h) + bb[i].to(bf16))
+    q64 = wf.double() @ h.double() + bf.double()
+    plain = wf.float() @ h.float() + bf.float()
+
+    def stats(got):
+        d = (got.double() - q64).abs().flatten()
+        k = max(int(0.999 * d.numel()) - 1, 0)
+        return {"median": float(d.median()),
+                "p99.9": float(d.kthvalue(k + 1).values),
+                "max": float(d.max())}
+
+    return stats(q), stats(plain)
 
 
 def bf16_phases(dev, card, base, tuner) -> dict:
@@ -3322,7 +3382,7 @@ def bf16_phases(dev, card, base, tuner) -> dict:
     fold = H16_SHAPES[0]
     kernels = [
         {"name": "B-bf16", "route": "cuda",
-         "source": "qbold_vi_tpu_torch/csrc/encode_quad.cu",
+         "source": "qbold_vi_tpu_torch/csrc/encode_quad_bf16.cu",
          "replaces": "qbold_vi_tpu/ops/pallas_infer.py:353",
          "launches": serve_launches["stream 1, quadrature"]["B"],
          "max_abs_err": kern["B_err"], "ms": kern["BC_times"]["B"][0],
@@ -3330,7 +3390,7 @@ def bf16_phases(dev, card, base, tuner) -> dict:
          **{k: kern["BC_bounds"]["B"][k] for k in ("bound_ms", "bound_by")},
          "library_ms": None},
         {"name": "C-bf16", "route": "cuda",
-         "source": "qbold_vi_tpu_torch/csrc/encode_quad.cu",
+         "source": "qbold_vi_tpu_torch/csrc/encode_quad_bf16.cu",
          "replaces": "qbold_vi_tpu/ops/pallas_infer.py:246",
          "launches": serve_launches["stream 1, mc"]["C"],
          "max_abs_err": kern["C_err"], "ms": kern["BC_times"]["C"][0],

@@ -47,27 +47,16 @@
 // take ~124 KB of shared memory at OPTIMAL, one block an SM): 16 or more
 // warps an SM ran 1.2-26x slower on the H100 (PERF.md). Warps walk
 // the tiles in a grid-stride loop; the blocks fill the card once. The
-// trunk's operand type is a template policy: QvTrunkF32, 3xTF32 on float32
-// operands in k-steps of 8 channels, or QvTrunkBF16, the bf16 trunk
-// (pallas_infer.py:98-133 under trunk="bfloat16"): one m16n8k16 bf16
-// product with float32 sums in k-steps of 16 channels, the sums of n-tiles
-// 2s and 2s + 1 packing into the next layer's A fragment of k-step s
-// (mma_math.cuh), and the JAX kernel's rounding points: the normalised log
-// signal rounded to bf16, each layer's float32 sums rounded to bf16, the
-// bf16 bias added in bf16, the activation in bf16 (jax.nn's composition,
-// each step rounded: qv_act_bf16); the head stays float32 (3xTF32) on the
-// float32-cast features. Its bound at OPTIMAL and 1.03 M voxels is bytes,
-// ~0.021 ms for C (the trunk's products 0.0164 ms at 989 TFLOP/s, the
-// float32 head 0.0092 ms at the TF32 rate) and ~0.026 ms for B.
+// trunk's operand type is a template policy, QvTrunkF32: 3xTF32 on float32
+// operands in k-steps of 8 channels. The bf16 trunk's kernels B and C are
+// encode_quad_bf16.cu's (wgmma).
 //
 // Weight blob (floats; Tp = T rounded up to K, Up = U padded, k-steps of
-// K = 8 channels (float32 trunk) or 16 (bf16), n-tiles of 8; fragments
-// [k-step][n-tile][lane] of W words: (b0 hi, b1 hi, b0 lo, b1 lo) in
-// 3xTF32, W = 4, or two words of two bf16 each, W = 2, mma_math.cuh):
+// K = 8 channels, n-tiles of 8; fragments [k-step][n-tile][lane] of W = 4
+// words: (b0 hi, b1 hi, b0 lo, b1 lo), mma_math.cuh):
 //   W0 frags [Tp/K][Up/8][32][W]  Wb frags nb x [Up/K][Up/8][32][W]
-//   Wf frags [Up/8][1][32][4] (3xTF32 whatever the trunk)
+//   Wf frags [Up/8][1][32][4]
 //   b0[Up] bb[nb][Up] bf[8] consts[QV_NCONST]
-// (a bf16 trunk's biases b0 and bb hold bf16 values)
 // and after it, per warp, its staged rows xs[32][qv_xs_stride(Tp)] and
 // heads qs[32][QV_QS]; then, in B, QV_QUAD_SCRATCH(block) floats for the
 // quadrature's sort (qv_quad_scratch_floats, which the wrapper adds).
@@ -115,48 +104,10 @@ static __device__ __noinline__ float qv_act_call(int act, float x) {
   return qv_act(act, x);
 }
 
-// jax.nn's activations on a bf16 x, each step rounded to bf16 as the JAX
-// package's bf16 arithmetic rounds it (the constants rounded to bf16 first,
-// as JAX's weak-typed Python floats are); the result is bf16.
-static __device__ __noinline__ float qv_act_bf16(int act, float x) {
-  switch (act) {
-    case 0:  // relu
-      return fmaxf(x, 0.0f);
-    case 1: {  // gelu, tanh approximation
-      const float x3 = qv_bf16(qv_bf16(x * x) * x);
-      const float inner =
-          qv_bf16(0.796875f * qv_bf16(x + qv_bf16(0.044677734375f * x3)));
-      const float cdf = qv_bf16(0.5f * qv_bf16(1.0f + qv_bf16(tanhf(inner))));
-      return qv_bf16(x * cdf);
-    }
-    case 2:
-      return qv_bf16(tanhf(x));
-    case 3:  // sigmoid: 1 / (1 + exp(-x))
-      return qv_bf16(1.0f / qv_bf16(1.0f + qv_bf16(expf(-x))));
-    case 4:  // softplus = logaddexp(x, 0)
-      return qv_bf16(fmaxf(x, 0.0f) +
-                     qv_bf16(log1pf(qv_bf16(expf(-fabsf(x))))));
-    case 5:  // elu, alpha 1
-      return x > 0.0f ? x : qv_bf16(expm1f(x));
-    case 6:  // silu
-    case 7: {  // swish
-      const float sg = qv_bf16(1.0f / qv_bf16(1.0f + qv_bf16(expf(-x))));
-      return qv_bf16(x * sg);
-    }
-    case 8:  // leaky_relu, slope 0.01 in bf16
-      return x >= 0.0f ? x : qv_bf16(0.010009765625f * x);
-    case 9:  // relu6
-      return fminf(fmaxf(x, 0.0f), 6.0f);
-    default:  // linear
-      return x;
-  }
-}
-
 // The trunk's products: float32 operands split into TF32 hi / lo, three
 // tensor-core products (mma_math.cuh), k-steps of 8 channels.
 struct QvTrunkF32 {
   static constexpr int K = 8;        // channels a k-step
-  static constexpr bool BF16 = false;
   typedef float4 B;                  // a lane's B fragment (hi and lo)
   struct A {
     uint32_t hi[4], lo[4];
@@ -188,44 +139,6 @@ struct QvTrunkF32 {
     const uint32_t bhi[2] = {__float_as_uint(b.x), __float_as_uint(b.y)};
     const uint32_t blo[2] = {__float_as_uint(b.z), __float_as_uint(b.w)};
     qv_mma3(d, a.hi, a.lo, bhi, blo, first);
-  }
-};
-
-// The bf16 trunk's products: bf16 operands, one tensor-core product with
-// float32 sums, k-steps of 16 channels (mma_math.cuh). Staged rows and
-// activations are floats; packing rounds them to bf16 (the activations are
-// bf16 values already; the normalised rows are rounded here, where the JAX
-// kernel casts them).
-struct QvTrunkBF16 {
-  static constexpr int K = 16;
-  static constexpr bool BF16 = true;
-  typedef uint2 B;
-  struct A {
-    uint32_t r[4];
-  };
-  static __device__ __forceinline__ A from_rows(const float* r, int stride) {
-    const float2 a00 = *reinterpret_cast<const float2*>(r);
-    const float2 a10 = *reinterpret_cast<const float2*>(r + 8 * stride);
-    const float2 a01 = *reinterpret_cast<const float2*>(r + 8);
-    const float2 a11 = *reinterpret_cast<const float2*>(r + 8 * stride + 8);
-    return A{{qv_pack_bf16(a00.x, a00.y), qv_pack_bf16(a10.x, a10.y),
-              qv_pack_bf16(a01.x, a01.y), qv_pack_bf16(a11.x, a11.y)}};
-  }
-  // k-step s = n-tiles 2s and 2s + 1 of the previous layer's sums: a[j][0]
-  // (g, 2t), a[j][1] (g + 8, 2t), a[j][2] (g, 2t + 1), a[j][3] (g + 8,
-  // 2t + 1)
-  template <int NK>
-  static __device__ __forceinline__ A from_regs(const float (&a)[NK][4],
-                                                int s) {
-    const float* lo = a[2 * s];
-    const float* hi = a[2 * s + 1];
-    return A{{qv_pack_bf16(lo[0], lo[2]), qv_pack_bf16(lo[1], lo[3]),
-              qv_pack_bf16(hi[0], hi[2]), qv_pack_bf16(hi[1], hi[3])}};
-  }
-  static __device__ __forceinline__ void mma(float* d, const A& a, uint2 b,
-                                             bool first) {
-    const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    qv_mma_bf16(d, a.r, b.x, b.y, first ? zero : d);
   }
 };
 
@@ -329,7 +242,7 @@ static __device__ __forceinline__ void qv_kstep(
 }
 
 // The first layer's sums, A read from the staged rows row0 + 16 m + g and
-// + 8, words K s + 2t and + 1 (and, in bf16, + 8 and + 9).
+// + 8, words K s + 2t and + 1.
 template <int MT, int NT, class Trunk>
 static __device__ __forceinline__ void qv_layer_rows(
     const QvEncoder& e, int row0, int lane, float (&acc)[MT][NT][4]) {
@@ -365,25 +278,19 @@ static __device__ __forceinline__ void qv_layer_regs(
 // a = f(acc + b) over the NT n-tiles: sums (g, 2t), (g, 2t + 1),
 // (g + 8, 2t), (g + 8, 2t + 1) of n-tile j become the next layer's A
 // fragment of k-step j, (g, 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1).
-// (round_sums: each sum rounded to bf16 before the bias is added, and f
-// rounds the sum with the bias.)
 template <int MT, int NT, class F>
 static __device__ __forceinline__ void qv_bias_map(
     const float (&acc)[MT][NT][4], const float* b, int t, F f,
-    float (&a)[MT][NT][4], bool round_sums = false) {
+    float (&a)[MT][NT][4]) {
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     const float2 bj = *reinterpret_cast<const float2*>(b + 8 * j + 2 * t);
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
-      float s[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        s[k] = round_sums ? qv_bf16(acc[m][j][k]) : acc[m][j][k];
-      a[m][j][0] = f(s[0] + bj.x);
-      a[m][j][1] = f(s[2] + bj.x);
-      a[m][j][2] = f(s[1] + bj.y);
-      a[m][j][3] = f(s[3] + bj.y);
+      a[m][j][0] = f(acc[m][j][0] + bj.x);
+      a[m][j][1] = f(acc[m][j][2] + bj.x);
+      a[m][j][2] = f(acc[m][j][1] + bj.y);
+      a[m][j][3] = f(acc[m][j][3] + bj.y);
     }
   }
 }
@@ -392,26 +299,15 @@ static __device__ __forceinline__ void qv_bias_map(
 // one out-of-line copy of qv_act. Inlining qv_act at each of the 64
 // elements of an epilogue, or a copy of the epilogue per activation, made
 // the kernel 6-9x larger and, on the H100, the relu path slower
-// (PERF.md). The bf16 trunk: a = act(bf16(bf16(acc) + b)), b bf16 values,
-// the activation in bf16 (qv_act_bf16).
+// (PERF.md).
 template <int MT, int NT, class Trunk>
 static __device__ __forceinline__ void qv_bias_act(
     const float (&acc)[MT][NT][4], const float* b, int t, int act,
     float (&a)[MT][NT][4]) {
-  if constexpr (Trunk::BF16) {
-    if (act == 0)
-      qv_bias_map(acc, b, t, [](float x) {
-        return fmaxf(qv_bf16(x), 0.0f); }, a, true);
-    else
-      qv_bias_map(acc, b, t, [act](float x) {
-        return qv_act_bf16(act, qv_bf16(x)); }, a, true);
-  } else {
-    if (act == 0)
-      qv_bias_map(acc, b, t, [](float x) { return fmaxf(x, 0.0f); }, a);
-    else
-      qv_bias_map(acc, b, t, [act](float x) { return qv_act_call(act, x); },
-                  a);
-  }
+  if (act == 0)
+    qv_bias_map(acc, b, t, [](float x) { return fmaxf(x, 0.0f); }, a);
+  else
+    qv_bias_map(acc, b, t, [act](float x) { return qv_act_call(act, x); }, a);
 }
 
 // The chain on the tile's rows row0 .. row0 + 16 MT - 1 (widths of NT
@@ -430,8 +326,7 @@ static __device__ __forceinline__ void qv_encode_rows(const QvEncoder& e,
                                      lane, acc);
     qv_bias_act<MT, NT, Trunk>(acc, e.bb + i * 8 * NT, t, e.act, a);
   }
-  // the float32 head (U -> 5, one n-tile padded to 8): q = Wf h + bf, in
-  // 3xTF32 whatever the trunk (a bf16 activation splits into itself and 0)
+  // the float32 head (U -> 5, one n-tile padded to 8): q = Wf h + bf
   qv_layer_regs<MT, NT, 1, QvTrunkF32>(a, e.wf, lane, acc);
   const float2 bj = *reinterpret_cast<const float2*>(e.bf + 2 * t);
 #pragma unroll
@@ -535,8 +430,8 @@ static __device__ __forceinline__ void qv_encode_q_body(
   }
 }
 
-// Kernels B and C, float32 trunk (3xTF32) and bf16 trunk: one symbol each,
-// so that a profile and the SASS tell them apart.
+// Kernels B and C, float32 trunk (3xTF32): one symbol each, so that a
+// profile and the SASS tell them from the bf16 trunk's.
 #define QV_QUAD_ARGS                                                          \
   const float *__restrict__ x, long long n, int t_in, int channel_major,      \
       int mask_channel, int se_idx, int multi_image, int act, int up, int nb, \
@@ -558,26 +453,10 @@ __global__ void __launch_bounds__(QV_ENC_THREADS)
 
 template <int MT, int NT>
 __global__ void __launch_bounds__(QV_ENC_THREADS)
-    qv_encode_quad_bf16_kernel(QV_QUAD_ARGS) {
-  qv_encode_quad_body<MT, NT, QvTrunkBF16>(
-      x, n, t_in, channel_major, mask_channel, se_idx, multi_image, act, up,
-      nb, blob, blob_len, mvg, r, means, vars, raw);
-}
-
-template <int MT, int NT>
-__global__ void __launch_bounds__(QV_ENC_THREADS)
     qv_encode_q_kernel(QV_Q_ARGS) {
   qv_encode_q_body<MT, NT, QvTrunkF32>(x, n, t_in, channel_major,
                                        mask_channel, se_idx, multi_image, act,
                                        up, nb, blob, blob_len, q_out);
-}
-
-template <int MT, int NT>
-__global__ void __launch_bounds__(QV_ENC_THREADS)
-    qv_encode_q_bf16_kernel(QV_Q_ARGS) {
-  qv_encode_q_body<MT, NT, QvTrunkBF16>(x, n, t_in, channel_major,
-                                        mask_channel, se_idx, multi_image, act,
-                                        up, nb, blob, blob_len, q_out);
 }
 
 // Grid of a grid-stride encode kernel: as many blocks as the tiles need, at
@@ -655,30 +534,4 @@ extern "C" int qv_encode_q1(const float* x, long long n, int t_in,
   QV_ENCODE_DISPATCH(qv_encode_q_kernel, up, n, block, smem_bytes, stream, x,
                      n, t_in, channel_major, mask_channel, se_idx, multi_image,
                      act, up, nb, blob, blob_len, q)
-}
-
-// The bf16 trunk's kernels B and C: the float32 entries' arguments, with
-// ops/fused_infer.py::_weight_blob's bf16 layout of the blob.
-extern "C" int qv_encode_quad_fused_bf16(
-    const float* x, long long n, int t_in, int channel_major,
-    int mask_channel, int se_idx, int multi_image, int act, int u, int up,
-    int nb, const float* blob, int blob_len, QvRanges r, float* means,
-    float* vars, float* raw, int mvg, int block, long long smem_bytes,
-    void* stream) {
-  (void)u;
-  QV_ENCODE_DISPATCH(qv_encode_quad_bf16_kernel, up, n, block, smem_bytes,
-                     stream, x, n, t_in, channel_major, mask_channel, se_idx,
-                     multi_image, act, up, nb, blob, blob_len, mvg, r, means,
-                     vars, raw)
-}
-
-extern "C" int qv_encode_q1_bf16(const float* x, long long n, int t_in,
-                                 int channel_major, int mask_channel,
-                                 int se_idx, int multi_image, int act, int up,
-                                 int nb, const float* blob, int blob_len,
-                                 float* q, int block, long long smem_bytes,
-                                 void* stream) {
-  QV_ENCODE_DISPATCH(qv_encode_q_bf16_kernel, up, n, block, smem_bytes,
-                     stream, x, n, t_in, channel_major, mask_channel, se_idx,
-                     multi_image, act, up, nb, blob, blob_len, q)
 }

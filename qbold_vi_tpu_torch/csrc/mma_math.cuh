@@ -1,8 +1,8 @@
 // Tensor-core products shared by the 3x3 trunk conv (conv3x3.cu, kernel H)
 // and the stream-1 encode (encode_quad.cu, kernels B and C): float32-accurate
 // products on Hopper's TF32 tensor cores (3xTF32) for the float32 trunk, and
-// one bf16 product with float32 sums for kernels B and C's bf16 trunk (at
-// the end of this file; kernel H at bf16 takes wgmma, conv3x3.cu).
+// the bf16 rounding the bf16 trunk's activations take (kernels B, C and H
+// at bf16 take wgmma: encode_quad_bf16.cu, conv3x3.cu).
 //
 // Why 3xTF32. The trunk runs in full float32 (TF32 is held off around the
 // fine-tune step). One TF32 product keeps ~3 decimal digits, so each
@@ -81,37 +81,8 @@ static __device__ __forceinline__ void qv_add4(float* acc, const float* d) {
 }
 
 // ---- the bf16 trunk ----------------------------------------------------------
-// The JAX package's bf16 trunk takes bf16 operands and float32 sums
-// (preferred_element_type=float32), one rounding to bf16 where it casts.
-// One mma.sync.m16n8k16 bf16 product is exact in float32 (8-bit mantissas),
-// so a single product replaces 3xTF32's three.
-//
-// Fragments of m16n8k16 (bf16), lane = 4 g + t; a register holds two bf16,
-// the lower k (or column) in its low half: A (16 x 16) a0 (g, 2t | 2t + 1),
-// a1 (g + 8, 2t | 2t + 1), a2 (g, 2t + 8 | 2t + 9), a3 (g + 8, 2t + 8 |
-// 2t + 9); B (16 x 8) b0 (k 2t | 2t + 1, n g), b1 (k 2t + 8 | 2t + 9, n g);
-// C / D (16 x 8) as m16n8k8's: c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t),
-// c3 (g + 8, 2t + 1). So the sums of n-tiles 2s and 2s + 1 of one layer are,
-// lane by lane, the A fragment of k-step s of the next.
 
 // a rounded to bf16 (nearest, ties to even), as a float
 static __device__ __forceinline__ float qv_bf16(float a) {
   return __bfloat162float(__float2bfloat16_rn(a));
-}
-
-// lo and hi rounded to bf16 and packed, lo in the low half
-static __device__ __forceinline__ uint32_t qv_pack_bf16(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
-}
-
-// d = a * b + c on one 16 x 8 x 16 bf16 fragment, float32 sums.
-static __device__ __forceinline__ void qv_mma_bf16(float* d, const uint32_t* a,
-                                                   uint32_t b0, uint32_t b1,
-                                                   const float* c) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
 }

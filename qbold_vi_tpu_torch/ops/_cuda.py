@@ -47,8 +47,9 @@ __all__ = ["library", "build_log", "check", "quad_consts", "quad_ranges",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("quadrature.cu", "encode_quad.cu", "decode_nll.cu",
-           "fused_elbo.cu", "summarize.cu", "conv3x3.cu", "synth_batch.cu")
+SOURCES = ("quadrature.cu", "encode_quad.cu", "encode_quad_bf16.cu",
+           "decode_nll.cu", "fused_elbo.cu", "summarize.cu", "conv3x3.cu",
+           "synth_batch.cu")
 HEADERS = ("quad_math.cuh", "elbo_math.cuh", "mma_math.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
@@ -150,10 +151,10 @@ _SIGNATURES = {
     "qv_synth_grid": [_LL],
     "qv_synth_batch": [
         _LL, QvDecodeConsts, _P, _I, QvSynthConsts, ctypes.c_ulonglong, _P,
-        _P, _P, _P, _I, _P],
+        _P, _P, _P, _P, _P],
     "qv_synth_batch_trials": [
         _LL, _I, QvDecodeConsts, _P, _I, QvSynthConsts, _P, _P, _P, _P, _P,
-        _I, _P],
+        _P, _P],
 }
 
 

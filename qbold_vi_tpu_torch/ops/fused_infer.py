@@ -16,8 +16,9 @@ packs the weights and calls the registered op
 ``torch.ops.qbold_vi_tpu_torch.encode_quad_fused`` (``encode_quad_fused_op``,
 registered when this module is imported, with a fake implementation for
 ``torch.export``; the fused serving artifact calls the same op), which
-launches the hand-written kernel of csrc/encode_quad.cu (q never leaves
-the chip's registers and shared memory) on the current stream and counts
+launches the hand-written kernel of csrc/encode_quad.cu, or at bf16
+csrc/encode_quad_bf16.cu (q never leaves the chip's registers and shared
+memory) on the current stream and counts
 the launch in ``encode_quad_fused.launches`` (the bf16 trunk's kernel in
 ``encode_quad_fused.bf16_launches``); for a CPU tensor it runs
 ``encode_quad_fused_plain``, the plain torch version of the same math.
@@ -63,6 +64,11 @@ SUPPORTED_ACTS = ("relu", "gelu", "tanh", "sigmoid", "softplus", "elu",
 
 _WARPS = (12, 8, 4, 2, 1)       # warps per block, most that fit
 _MAX_WIDTH = 128               # csrc/encode_quad.cu::QV_ENCODE_DISPATCH
+# the bf16 kernels' block and round of voxels (csrc/encode_quad_bf16.cu::
+# QV_E16_THREADS, QV_E16_ROUND), and the tag words their blob starts with:
+# a magic word and the layout's number (QV_E16_TAG_WORDS words in all)
+_E16_THREADS = _E16_ROUND = 256
+_BF16_TAG = (0x51564232, 2, 0, 0)
 
 
 def fused_infer_available(activation: str) -> bool:
@@ -192,55 +198,102 @@ def _fragments(w, kp: int, np_: int):
     return split.permute(3, 1, 2, 4, 0, 5).reshape(-1)
 
 
-def _fragments_bf16(w, kp: int, np_: int):
-    """The bf16 B fragments of a layer out = w @ in, w rounded to bf16 and
-    zero-padded to (np_, kp), as float32 words: [k-step s][n-tile j][lane
-    4g + t] -> two words of two bf16, the lower k in the low half: (w[8j +
-    g, 16s + 2t], w[.., 16s + 2t + 1]) and (w[.., 16s + 8 + 2t], w[..,
-    16s + 9 + 2t]) (csrc/mma_math.cuh)."""
+def _core_image(w, kp: int, np_: int):
+    """The wgmma B image of a layer out = w @ in (csrc/encode_quad_bf16.cu),
+    w (bf16 values) zero-padded to (np_, kp), as float32 words: 8 x 8 core
+    matrices, K-major, [k-step s][8-row group][k-half][row][column] --
+    element (n, k) at ((s * np_/8 + n // 8) * 2 + k % 16 // 8) * 64 +
+    n % 8 * 8 + k % 8, s = k // 16."""
     wp = w.new_zeros((np_, kp), dtype=torch.bfloat16)
     wp[:w.shape[0], :w.shape[1]] = w.to(torch.bfloat16)
-    # (n, k) = (8j + g, 16s + 8 half + 2t + pair) -> [s][j][g][t][half][pair]
-    frags = wp.reshape(np_ // 8, 8, kp // 16, 2, 4, 2).permute(2, 0, 1, 4, 3,
-                                                               5)
-    return frags.contiguous().reshape(-1).view(torch.float32)
+    # (n, k) = (8 ng + r, 16 s + 8 kh + c) -> [s][ng][kh][r][c]
+    img = wp.reshape(np_ // 8, 8, kp // 16, 2, 8).permute(2, 0, 3, 1, 4)
+    return img.contiguous().reshape(-1).view(torch.float32)
+
+
+def _bf16_pieces(w):
+    """Three bf16 tensors w1, w2, w3 with w1 + w2 + w3 == w exactly for a
+    float32 w: w1 its top 8 significant bits (the sign, the exponent and 7
+    mantissa bits), w2 the next 8 of w - w1, w3 the rest (at most 8 bits,
+    so exact in bf16 for |w| >= 2^-103, where w3 stays a normal bf16).
+    Truncation, not rounding, so that no piece overflows at the largest
+    floats; the two subtractions are exact in float32."""
+    def top(v):
+        return (v.contiguous().view(torch.int32) & -65536).view(torch.float32)
+
+    w1 = top(w)
+    r1 = w - w1
+    w2 = top(r1)
+    return w1.to(torch.bfloat16), w2.to(torch.bfloat16), (r1 - w2).to(
+        torch.bfloat16)
 
 
 def _weight_blob(encoder, n_blocks: int, device, trunk: str = "float32"
                  ) -> tuple:
-    """The kernel's shared-memory image of the weights (layout in
-    csrc/encode_quad.cu): each layer's B fragments in fragment order --
-    3xTF32 hi / lo in k-steps of 8 for the float32 trunk, bf16 pairs in
-    k-steps of 16 for the bf16 trunk, whose biases are rounded to bf16;
-    the head's 3xTF32 in either -- the width U zero-padded to Up
-    (``_padded_width``) and the taus T to a whole k-step, then the padded
-    biases and the quadrature node table."""
+    """The kernel's shared-memory image of the weights, the width U
+    zero-padded to Up (``_padded_width``) and the taus T to a whole k-step.
+    float32 trunk (layout in csrc/encode_quad.cu): each layer's 3xTF32 hi /
+    lo B fragments in k-steps of 8, the head's too, then the padded biases
+    and the quadrature node table. bf16 trunk (csrc/encode_quad_bf16.cu):
+    the tag ``_BF16_TAG``, each layer's wgmma image of bf16 weights
+    (``_core_image``), the head's three bf16 pieces' images
+    (``_bf16_pieces``), the biases in bf16, the head's bias in float32 and
+    the node table; the blob is marked as checked
+    (``_check_blob_layout``)."""
     wfc, bfc, wb, bb, wf, bf = (t.to(device=device, dtype=torch.float32)
                                 for t in _stream1_weights(encoder, n_blocks))
     u, t = wfc.shape
     k = _k_step(trunk)
     up, tp = _padded_width(u), -(-t // k) * k
-    if trunk == "float32":
-        trunk_frags = _fragments
-    else:
-        trunk_frags = _fragments_bf16
-        bfc, bb = (b.to(torch.bfloat16).float() for b in (bfc, bb))
 
     def pad(b, size):
         return torch.cat([b.reshape(-1), b.new_zeros(size - b.numel())])
 
+    if trunk == "float32":
+        blob = torch.cat(
+            [_fragments(wfc, tp, up)]
+            + [_fragments(wb[i], up, up) for i in range(n_blocks)]
+            + [_fragments(wf, up, 8), pad(bfc, up)]
+            + [pad(bb[i], up) for i in range(n_blocks)]
+            + [pad(bf, 8), _cuda.quad_consts(device)])
+        return blob.contiguous(), u, up, t
+
+    def bias16(b):
+        return pad(b, up).to(torch.bfloat16).view(torch.float32)
+
+    tag = torch.tensor(_BF16_TAG, dtype=torch.int32).view(torch.float32)
     blob = torch.cat(
-        [trunk_frags(wfc, tp, up)]
-        + [trunk_frags(wb[i], up, up) for i in range(n_blocks)]
-        + [_fragments(wf, up, 8), pad(bfc, up)]
-        + [pad(bb[i], up) for i in range(n_blocks)]
-        + [pad(bf, 8), _cuda.quad_consts(device)])
-    return blob.contiguous(), u, up, t
+        [tag.to(device), _core_image(wfc, tp, up)]
+        + [_core_image(wb[i], up, up) for i in range(n_blocks)]
+        + [_core_image(p, up, 8) for p in _bf16_pieces(wf)]
+        + [bias16(bfc)] + [bias16(bb[i]) for i in range(n_blocks)]
+        + [pad(bf, 8), _cuda.quad_consts(device)]).contiguous()
+    blob._qv_layout = _BF16_TAG
+    return blob, u, up, t
+
+
+def _check_blob_layout(blob, trunk: str) -> None:
+    """Refuse a bf16 weight blob of another layout than this build's: one
+    without ``_BF16_TAG`` at its start, as a fused bf16 ``.pt2`` exported
+    before the wgmma encode carries. Read once a blob (a device blob's tag
+    costs a synchronisation); ``_weight_blob`` marks its own."""
+    if trunk != "bfloat16" or getattr(blob, "_qv_layout", None) == _BF16_TAG:
+        return
+    head = (tuple(blob[:4].view(torch.int32).tolist()) if blob.numel() >= 4
+            else ())
+    if head != _BF16_TAG:
+        raise ValueError(
+            "the bf16 weight blob was written in another layout than this "
+            "build's kernel reads (no tag "
+            f"{_BF16_TAG[0]:#x}, layout {_BF16_TAG[1]}): a fused bf16 "
+            "serving artifact exported before it must be exported again "
+            "(io/export_model.py::export_inference(fused=True))")
+    blob._qv_layout = _BF16_TAG
 
 
 def _k_step(trunk: str) -> int:
     """Channels a k-step of the trunk's products: 8 (m16n8k8 TF32) or 16
-    (m16n8k16 bf16)."""
+    (wgmma's k16 at bf16)."""
     return 8 if trunk == "float32" else 16
 
 
@@ -254,10 +307,10 @@ def _padded_width(u: int) -> int:
     return -(-u // 8) * 8
 
 
-def _xs_stride(t: int, k: int = 8) -> int:
+def _xs_stride(t: int) -> int:
     """csrc/encode_quad.cu::qv_xs_stride: words a staged row of T taps in
-    k-steps of k channels."""
-    tp = -(-t // k) * k
+    the float32 trunk's k-steps of 8 channels."""
+    tp = -(-t // 8) * 8
     return tp + 8 if tp % 16 == 0 else tp
 
 
@@ -289,16 +342,28 @@ def _launch_setup(images, encoder, *, n_blocks: int, activation: str,
 
 
 def _block_smem(blob_floats: int, t: int, trunk: str, device,
-                scratch_floats=None) -> tuple:
-    """(threads a block, shared-memory bytes) of kernel B or C: the most
-    warps whose staged rows fit beside the weights in this card's shared
-    memory. ``scratch_floats(threads)``: the floats of shared memory a
-    block needs beyond the weights and its staged rows."""
+                scratch_floats=None, t_in: int = None) -> tuple:
+    """(threads a block, shared-memory bytes) of kernel B or C. float32:
+    the most warps whose staged rows fit beside the weights in this card's
+    shared memory; bf16 (csrc/encode_quad_bf16.cu): the weights (the blob
+    past its tag) from a 1024-byte boundary, the ring of two rounds' rows
+    of t_in channels and a round's heads. ``scratch_floats(threads)``: the
+    floats of shared memory a block needs beyond the weights and its
+    staged rows (B's quadrature)."""
     with torch.cuda.device(device):
         limit = _cuda.library().qv_max_dynamic_smem()
+    if trunk == "bfloat16":
+        smem = 1024 + 4 * (blob_floats - len(_BF16_TAG)
+                           + _E16_ROUND * (2 * t_in + 5)
+                           + (scratch_floats(_E16_THREADS) if scratch_floats
+                              else 0))
+        if smem <= limit:
+            return _E16_THREADS, smem
+        raise ValueError(
+            f"fused-infer kernel: {smem} B of weights and staging in shared "
+            f"memory (T={t}), beyond this card's {limit} B per block")
     for warps in _WARPS:
-        smem = 4 * (blob_floats + warps * 32 * (_xs_stride(t, _k_step(trunk))
-                                                 + 5)
+        smem = 4 * (blob_floats + warps * 32 * (_xs_stride(t) + 5)
                     + (scratch_floats(32 * warps) if scratch_floats else 0))
         if smem <= limit:
             return 32 * warps, smem
@@ -363,7 +428,8 @@ def encode_quad_fused_op(x: torch.Tensor, blob: torch.Tensor, units: int,
     and its scalars as attributes: the rows ``x`` (T[+1], N) channel-major
     or (N, T[+1]) voxel-major, contiguous, and the weight blob of
     ``_weight_blob`` (width ``units`` padded to ``padded_units``, the
-    quadrature node table at its end); returns channel-major (means,
+    quadrature node table at its end; a bf16 blob of another layout is
+    refused, ``_check_blob_layout``); returns channel-major (means,
     vars, raw), each (3, N), launched on the current stream and counted
     in ``encode_quad_fused.launches`` (``bf16_launches`` for the bf16
     trunk). ``encode_quad_fused`` and the fused serving artifact
@@ -374,8 +440,10 @@ def encode_quad_fused_op(x: torch.Tensor, blob: torch.Tensor, units: int,
             for _ in range(3)]
     if n == 0:
         return tuple(outs)
+    _check_blob_layout(blob, trunk)
     block, smem = _block_smem(blob.numel(), t, trunk, x.device,
-                              _cuda.library().qv_quad_scratch_floats)
+                              _cuda.library().qv_quad_scratch_floats,
+                              t + int(mask_channel))
     with torch.cuda.device(x.device):
         err = _entry("qv_encode_quad_fused", trunk)(
             *_encode_args(x, n, channel_major, mask_channel, se_idx,
@@ -430,7 +498,8 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
     q = torch.empty((5, n), device=images.device, dtype=torch.float32)
     if n == 0:
         return q
-    block, smem = _block_smem(blob.numel(), t, trunk, images.device)
+    block, smem = _block_smem(blob.numel(), t, trunk, images.device,
+                              t_in=t + int(mask_channel))
     with torch.cuda.device(images.device):
         err = _entry("qv_encode_q1", trunk)(
             *_encode_args(x, n, channel_major, mask_channel, se_idx,

@@ -7,7 +7,9 @@ the jitted step, where XLA fuses it. Its plain version in the port is
 kernel S (``csrc/synth_batch.cu``) draws the population parameters,
 misaligns them where configured, decodes every tau through the full SDR +
 blood model and adds the SNR-profiled noise in two passes (the second for
-the noise, which needs the batch-mean signal per tau).
+the noise, which needs the batch-mean signal per tau: pass 1's last block
+reduces it once, under a ticket the wrapper keeps a word a trial of, per
+device and stream, at 0 between launches).
 
 * ``synth_batch(cfg, batch_size, seed, device=...)`` -> {x (B, X, Y, Z, T),
   y (B, X, Y, Z, 3)}, or with ``seeds=[s_0, ..., s_{P-1}]`` a trial axis:
@@ -49,7 +51,7 @@ from .fused_elbo import box_muller, philox_block
 __all__ = ["synth_batch", "synth_philox_draws"]
 
 SNR_RANGE = (50.0, 120.0)   # physics.add_acquisition_noise's defaults
-_NOISE_GRID = 264           # pass 2's blocks (two an SM on the H100)
+_TICKETS: dict = {}          # (device, stream) -> pass 1's ticket words
 
 
 def synth_consts(cfg: QBoldConfig) -> _cuda.QvSynthConsts:
@@ -113,6 +115,18 @@ def synth_philox_draws(seed: int, n: int, n_taus: int) -> dict:
             "z": np.ascontiguousarray(z[:, :n_taus])}
 
 
+def _tickets(device: torch.device, stream: int, trials: int) -> torch.Tensor:
+    """Pass 1's ticket words (a trial each) for launches on ``stream``:
+    zeros when made, and each launch's last block leaves its word at 0, so
+    launches ordered on one stream share them."""
+    key = (device, stream)
+    words = _TICKETS.get(key)
+    if words is None or words.numel() < trials:
+        words = torch.zeros(max(trials, 4), device=device, dtype=torch.int32)
+        _TICKETS[key] = words
+    return words
+
+
 @functools.lru_cache(maxsize=None)
 def _profile(n_taus: int, device: torch.device) -> torch.Tensor:
     """physics.norm_snr_profile (it reads only the tau count) on device."""
@@ -160,18 +174,23 @@ def synth_batch(cfg: QBoldConfig, batch_size: int, seed: int = None, *,
     x = torch.empty(lead + shape + (scan.n_taus,), device=device,
                     dtype=torch.float32)
     y = torch.empty(lead + shape + (3,), device=device, dtype=torch.float32)
+    if n == 0:
+        return {"x": x, "y": y}
     lib = _cuda.library()
-    partial = torch.empty((p_n, lib.qv_synth_grid(n), scan.n_taus),
+    # each block's per-tau sums, then the trial's mean in the last row
+    partial = torch.empty((p_n, lib.qv_synth_grid(n) + 1, scan.n_taus),
                           device=device, dtype=torch.float64)
     prof = _profile(scan.n_taus, device)
     consts = synth_consts(cfg)
     stream = torch.cuda.current_stream(device).cuda_stream
+    tickets = _tickets(device, stream, p_n)
     with torch.cuda.device(device):
         if trials is None:
             err = lib.qv_synth_batch(
                 n, C.struct(), table.data_ptr(), table.numel(), consts,
                 int(seed) & 0xFFFFFFFFFFFFFFFF, x.data_ptr(), y.data_ptr(),
-                partial.data_ptr(), prof.data_ptr(), _NOISE_GRID, stream)
+                partial.data_ptr(), tickets.data_ptr(), prof.data_ptr(),
+                stream)
         else:
             # the seeds as uint64 words, through int64's bits
             words = np.array([s & 0xFFFFFFFFFFFFFFFF for s in trials],
@@ -180,7 +199,8 @@ def synth_batch(cfg: QBoldConfig, batch_size: int, seed: int = None, *,
             err = lib.qv_synth_batch_trials(
                 n, p_n, C.struct(), table.data_ptr(), table.numel(), consts,
                 keys.data_ptr(), x.data_ptr(), y.data_ptr(),
-                partial.data_ptr(), prof.data_ptr(), _NOISE_GRID, stream)
+                partial.data_ptr(), tickets.data_ptr(), prof.data_ptr(),
+                stream)
     _cuda.check(err, "synthetic batch")
     synth_batch.launches += 1
     synth_batch.noise_launches += int(bool(consts.noise))

@@ -318,6 +318,33 @@ def test_fused_kernel_bf16_trunk_matches_plain(cuda_device, layout, act,
                                    rtol=0.05, atol=0.03, err_msg=name)
 
 
+def test_bf16_encode_reads_unaligned_rows(cuda_device):
+    """Kernels B and C at bf16 on voxel-major rows that start 4 bytes past
+    a 16-byte boundary (the 4-byte cp.async path) give the same outputs,
+    bit for bit, as on the same rows 16-byte aligned (the 16-byte path)."""
+    cfg = tcfg.ModelConfig(no_units=60, use_mvg=True,
+                           compute_dtype="bfloat16")
+    tuner = _tuner(cfg, cuda_device)
+    rng = np.random.default_rng(7)
+    n, t_in = 4_099, SCAN.n_taus + 1
+    x = torch.from_numpy(volume(rng, (n,), t_in)).to(cuda_device)
+    buf = torch.empty(n * t_in + 1, device=cuda_device)
+    shifted = buf[1:].view(n, t_in)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 == 4 and x.data_ptr() % 16 == 0
+    kw = dict(se_idx=SCAN.se_idx, multi_image=False, activation="relu",
+              n_blocks=cfg.no_intermediate_layers, trunk="bfloat16",
+              mask_channel=True, input_layout="voxel")
+    q = tfi.encode_q1_packed(x, tuner.encoder, **kw)
+    q_shifted = tfi.encode_q1_packed(shifted, tuner.encoder, **kw)
+    got = tfi.encode_quad_fused(x, tuner.encoder, mvg=True, **kw, **RANGES)
+    got_shifted = tfi.encode_quad_fused(shifted, tuner.encoder, mvg=True,
+                                        **kw, **RANGES)
+    torch.cuda.synchronize()
+    assert torch.equal(q, q_shifted)
+    assert all(torch.equal(a, b) for a, b in zip(got, got_shifted))
+
+
 @pytest.mark.parametrize("use_first_op", [True, False],
                          ids=["stream1", "stream2"])
 def test_posterior_maps_on_card(cuda_device, use_first_op):
@@ -1303,7 +1330,8 @@ def test_kernel_b_op_matches_the_direct_launch(cuda_device, layout, trunk):
         trunk=trunk, mask_channel=True, input_layout=layout,
         se_idx=kw["se_idx"])
     block, smem = tfi._block_smem(blob.numel(), t, trunk, x.device,
-                                  _cuda.library().qv_quad_scratch_floats)
+                                  _cuda.library().qv_quad_scratch_floats,
+                                  t_in=t + 1)
     ref = [torch.empty((3, n), device=cuda_device) for _ in range(3)]
     err = tfi._entry("qv_encode_quad_fused", trunk)(
         *tfi._encode_args(xs, n, cm, True, kw["se_idx"], kw["multi_image"],
@@ -1555,6 +1583,64 @@ def test_synth_batch_trial_axis_is_bit_equal(cuda_device, case):
         one = tsb.synth_batch(cfg, 32, s, device=cuda_device)
         for k in ("x", "y"):
             assert torch.equal(got[k][j], one[k]), (k, j)
+
+
+def test_synth_batch_trial_axis_at_full_batch(cuda_device):
+    """S at P = 4 trials of OPTIMAL's batch (512 volumes of 10 x 10 x 5,
+    256,000 voxels a trial, a grid of pass-1 blocks at its cap): each trial
+    bit-equal to its one-trial launch, the same on a second call, and the
+    first within rtol / atol 1e-5 of the plain version fed its replayed
+    draws."""
+    from qbold_vi_tpu_torch.ops import synth_batch as tsb
+
+    cfg = tcfg.OPTIMAL
+    b, seeds = cfg.train.pt_batch_size, [11, 2 ** 40 + 3, 977, 12345]
+    n = b * 500
+    got = tsb.synth_batch(cfg, b, seeds=seeds, device=cuda_device)
+    again = tsb.synth_batch(cfg, b, seeds=seeds, device=cuda_device)
+    torch.cuda.synchronize()
+    assert got["x"].shape == (4, b, 10, 10, 5, cfg.scan.n_taus)
+    for k in ("x", "y"):
+        assert torch.equal(got[k], again[k]), k
+    for j, s in enumerate(seeds):
+        one = tsb.synth_batch(cfg, b, s, device=cuda_device)
+        for k in ("x", "y"):
+            assert torch.equal(got[k][j], one[k]), (k, j)
+    ref = tsteps.stream_synthetic_batch(
+        cfg, b, tsb.synth_philox_draws(seeds[0], n, cfg.scan.n_taus),
+        device=cuda_device)
+    for k in ("x", "y"):
+        np.testing.assert_allclose(got[k][0].cpu().numpy(),
+                                   ref[k].cpu().numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("case", list(S_CASES))
+def test_synth_batch_launches_its_design_s_kernels(cuda_device, case):
+    """One batch is two kernel launches on the device with noise (pass 1,
+    whose last block reduces the mean, and the noise pass) and one without,
+    whatever the trial count: the profiler's kernel records of a call,
+    against the wrapper's counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from qbold_vi_tpu_torch.ops import synth_batch as tsb
+
+    cfg = _synth_cfg(case)
+    noisy = int(cfg.scan.simulate_noise)
+    for kw in (dict(seed=5), dict(seeds=[5, 6, 7, 8])):
+        tsb.synth_batch(cfg, 64, device=cuda_device, **kw)
+        torch.cuda.synchronize()
+        before = (tsb.synth_batch.launches, tsb.synth_batch.noise_launches)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tsb.synth_batch(cfg, 64, device=cuda_device, **kw)
+            torch.cuda.synchronize()
+        names = [e.name.split("(")[0] for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and "qv_synth" in e.name]
+        assert sorted(names) == sorted(
+            ["qv_synth_batch_kernel"] + ["qv_synth_noise_kernel"] * noisy)
+        assert (tsb.synth_batch.launches - before[0],
+                tsb.synth_batch.noise_launches - before[1]) == (1, noisy)
 
 
 def _sweep_cfg(tmp_path, **train):

@@ -394,138 +394,212 @@ def test_fragment_chain_matches_plain(units, activation):
                                atol=2e-6)
 
 
-# ---- the bf16 trunk's fragments (m16n8k16) ---------------------------------
+# ---- the bf16 trunk's wgmma data flow ---------------------------------------
+# Kernels B and C at bf16 (csrc/encode_quad_bf16.cu) run each layer as
+# wgmma.m64nUpk16 products: A, 64 voxels x 16 channels, from the registers of
+# a warpgroup's 128 threads, B by descriptor from shared memory. The blob
+# holds each layer as 8 x 8 core matrices (K-major: a k-step's two halves
+# LBO = 128 B apart, 8-row groups SBO = 256 B apart), which the kernel
+# stages into the 32-byte swizzle its descriptors read (qv_e16_swz32). A
+# layer's sums become the next layer's A registers pair by pair after the
+# packed epilogue. These tests unpack the blob by the core-matrix rule and
+# by the staging's swizzle, and replay that data flow thread by thread in
+# torch (float64 products of bf16 values, which are exact).
 
-def _lane_maps16():
-    """PTX fragment positions of mma.m16n8k16 (bf16), lane = 4 g + t, a
-    register's two bf16 the lower k first: A a0..a7 at (g, 2t), (g, 2t + 1),
-    (g + 8, 2t), (g + 8, 2t + 1), then the same at k + 8; B b0..b3 at
-    (2t, g), (2t + 1, g), (2t + 8, g), (2t + 9, g); C as m16n8k8's."""
-    g, t = torch.arange(32) // 4, torch.arange(32) % 4
-    k = torch.stack([2 * t, 2 * t + 1], 1)
-    ar = torch.stack([g, g, g + 8, g + 8, g, g, g + 8, g + 8], 1)
-    ac = torch.cat([k, k, k + 8, k + 8], 1)
-    b = (torch.cat([k, k + 8], 1), torch.stack([g] * 4, 1))
-    return (ar, ac), b, _lane_maps()[2]
+_LBO, _SBO = 64, 128        # the descriptors' offsets in bf16 elements
 
 
-def _mma16(af, bf):
-    """D fragments (tiles, 32, 4) = A (tiles, 32, 8) x B (32, 4), float64
-    (bf16 products are exact)."""
-    (ar, ac), (br, bc), (cr, cc) = _lane_maps16()
-    am = torch.zeros(af.shape[0], 16, 16, dtype=torch.float64)
-    am[:, ar, ac] = af.double()
-    bm = torch.zeros(16, 8, dtype=torch.float64)
-    bm[br, bc] = bf.double()
-    return (am @ bm)[:, cr, cc]
+def _wg_maps(n):
+    """Thread th = 32 w + 4 g + t of a warpgroup: (rows, columns) of its A
+    registers for one k-step, (128, 4) each -- register r holds the pair at
+    (row, col) and (row, col + 1): (g, 2t), (g + 8, 2t), (g, 2t + 8),
+    (g + 8, 2t + 8), rows + 16 w -- and of its n / 2 sums, d[4j + 2hh + i]
+    at (16 w + g + 8 hh, 8 j + 2 t + i)."""
+    th = torch.arange(128)
+    w, g, t = th // 32, th % 32 // 4, th % 4
+    r0 = 16 * w + g
+    a = (torch.stack([r0, r0 + 8, r0, r0 + 8], 1),
+         torch.stack([2 * t, 2 * t, 2 * t + 8, 2 * t + 8], 1))
+    m = torch.arange(n // 2)
+    j, hh, i = m // 4, m % 4 // 2, m % 2
+    d = (r0[:, None] + 8 * hh[None], 8 * j[None] + 2 * t[:, None] + i[None])
+    return a, d
+
+
+def _desc_tile(elems, start, n):
+    """The 16 x n B operand (k, n) that a descriptor at bf16 element
+    ``start`` of ``elems`` addresses: core matrix (n // 8, k // 8) at
+    start + (n // 8) SBO + (k // 8) LBO, row n % 8 at 8 elements, column
+    k % 8 at 1."""
+    k = torch.arange(16)[:, None]
+    nn = torch.arange(n)[None, :]
+    idx = start + nn // 8 * _SBO + k // 8 * _LBO + nn % 8 * 8 + k % 8
+    return elems[idx]
+
+
+def _wgmma(a_regs, b):
+    """D (tiles, 128, n / 2) = A x B, float64: A (64 x 16) assembled from
+    a_regs (tiles, 128, 4, 2) at _wg_maps' positions, b (16, n)."""
+    n = b.shape[1]
+    (ar, ac), (dr, dc) = _wg_maps(n)
+    am = torch.zeros(a_regs.shape[0], 64, 16, dtype=torch.float64)
+    for p in range(2):
+        am[:, ar, ac + p] = a_regs[..., p].double()
+    return (am @ b.double())[:, dr, dc]
 
 
 def _blob_parts_bf16(blob, t, up, nb):
-    """The bf16 blob's (W0, [Wb]) bf16 fragments [k-step][n-tile][lane][4],
-    the 3xTF32 head's Wf and the biases."""
-    ks0, nt = -(-t // 16), up // 8
-    sizes = ([ks0 * nt * 64] + [up // 16 * nt * 64] * nb + [nt * 128, up]
-             + [up] * nb + [8])
+    """The bf16 blob's tag, its images as flat bf16 element arrays (W0,
+    [Wb], the head's three pieces), the bf16 biases and the float32 head
+    bias, in csrc/encode_quad_bf16.cu's order."""
+    ks0 = -(-t // 16)
+    sizes = ([4, ks0 * up * 8] + [up * up // 2] * nb + [up * 4] * 3
+             + [up // 2] * (1 + nb) + [8])
     parts = list(torch.split(blob[:sum(sizes)], sizes))
-    w0 = parts[0].view(torch.bfloat16).reshape(ks0, nt, 32, 4)
-    wb = [w.view(torch.bfloat16).reshape(up // 16, nt, 32, 4)
-          for w in parts[1:1 + nb]]
-    wf = parts[1 + nb].reshape(nt, 1, 32, 4)
-    return w0, wb, wf, parts[2 + nb], parts[3 + nb:3 + 2 * nb], parts[-1]
+    imgs = [q.view(torch.bfloat16) for q in parts[1:5 + nb]]
+    biases = [q.view(torch.bfloat16) for q in parts[5 + nb:6 + 2 * nb]]
+    return (parts[0].view(torch.int32), imgs[0], imgs[1:1 + nb],
+            imgs[1 + nb:], biases[0], biases[1:], parts[-1])
+
+
+def _unpack_image(elems, kp, np_):
+    """A layer's (np_, kp) bf16 weights as the descriptors of its kp / 16
+    k-steps read them (k-step s at element s * np_ * 16)."""
+    return torch.cat([_desc_tile(elems, s * np_ * 16, np_).T
+                      for s in range(kp // 16)], 1)
+
+
+def _swizzled(elems, n):
+    """A blob image of n-row k-steps as the kernel stages it: 16-byte piece
+    q (8 bf16) at qv_e16_swz32(q, n) -- row r of k-step s at bytes
+    s * 32 n + 32 r, its half kh at 16 (kh ^ (r >> 2 & 1))."""
+    q = torch.arange(elems.numel() // 8)
+    s, rem = q // (2 * n), q % (2 * n)
+    row, kh = rem // 16 * 8 + rem % 8, rem // 8 % 2
+    dst = (s * n * 32 + row * 32 + (kh ^ (row >> 2 & 1)) * 16) // 2
+    out = torch.empty_like(elems)
+    out[(dst[:, None] + torch.arange(8)).reshape(-1)] = elems
+    return out
+
+
+def _swz32_tile(elems, start, n):
+    """The 16 x n B operand (k, n) that a 32-byte-swizzled descriptor at
+    bf16 element ``start`` addresses: row n at 16 n, half k // 8 at
+    8 (k // 8 ^ (n >> 2 & 1)), column k % 8."""
+    k = torch.arange(16)[:, None]
+    nn = torch.arange(n)[None, :]
+    return elems[start + nn * 16 + (k // 8 ^ (nn >> 2 & 1)) * 8 + k % 8]
 
 
 def _chain_in_fragments_bf16(x, encoder, *, se_idx, multi_image, activation,
                              n_blocks):
-    """The raw head q (5, N) by the bf16 kernel's data flow: A fragments of
-    the normalised taus rounded to bf16; each layer's sums rounded to bf16,
-    the bf16 bias added and the activation taken in bf16, and the C
-    fragments of n-tiles 2s, 2s + 1 packed into the next layer's A fragment
-    of k-step s; the float32 head by 3xTF32 on those bf16 activations."""
+    """The raw head q (5, N) by the bf16 kernel's data flow: tiles of 64
+    voxels; A registers of the normalised taus rounded to bf16; each
+    layer's wgmma sums (float32) rounded to bf16, the bf16 bias pair added
+    in bf16 and the activation taken in bf16, the pairs becoming the next
+    layer's A registers in order (pair 4s + r is register r of k-step s);
+    the head as three bf16 pieces' products, w1's summed apart from w2's
+    and w3's, q = (w1 sums + the rest) + bias in float32."""
     dt = torch.bfloat16
     act = activation_fn(activation, dt)
     blob, u, up, t = tfi._weight_blob(encoder, n_blocks, x.device,
                                       "bfloat16")
-    w0, wb, wf, b0, bb, bf = _blob_parts_bf16(blob, t, up, n_blocks)
+    tag, w0, wb, wf, b0, bb, bf = _blob_parts_bf16(blob, t, up, n_blocks)
     h = normalise_data(x, se_idx, multi_image)
     n = h.shape[0]
-    rows = torch.zeros(-(-n // 16) * 16, 16 * w0.shape[0])
+    ks0 = -(-t // 16)
+    rows = torch.zeros(-(-n // 64) * 64, 16 * ks0)
     rows[:n, :t] = h
-    r16 = rows.to(dt).reshape(-1, 16, rows.shape[1])
-    lane = torch.arange(32)
-    g, tt = lane // 4, lane % 4
+    r64 = rows.to(dt).reshape(-1, 64, rows.shape[1])
+    (ar, ac), _ = _wg_maps(up)
+    tt = torch.arange(128) % 4
 
-    def layer16(a, w):
-        acc = [0.0] * w.shape[1]
-        for s in range(w.shape[0]):
-            for j in range(w.shape[1]):
-                acc[j] = acc[j] + _mma16(a[s], w[s, j])
-        return acc
+    def layer(a_steps, elems, n_out):
+        acc = 0.0
+        for s, a in enumerate(a_steps):
+            acc = acc + _wgmma(a, _desc_tile(elems, s * n_out * 16, n_out))
+        return acc.float()
 
     def epilogue(acc, b):
-        out = []
-        for j, c in enumerate(acc):
-            c = c.float().to(dt)
-            b0_, b1_ = (b[8 * j + 2 * tt].to(dt),
-                        b[8 * j + 2 * tt + 1].to(dt))
-            out.append(act(torch.stack([c[..., 0] + b0_, c[..., 2] + b0_,
-                                        c[..., 1] + b1_, c[..., 3] + b1_],
-                                       -1)))
-        return out
+        pairs = acc.reshape(acc.shape[0], 128, -1, 2).to(dt)
+        p = torch.arange(pairs.shape[2])
+        ch = 8 * (p[None, :] // 2) + 2 * tt[:, None]          # (128, pairs)
+        bias = torch.stack([b[ch], b[ch + 1]], -1)
+        return act(pairs + bias)                # (tiles, 128, P, 2)
 
-    def a_of(a):
-        return [torch.cat([a[2 * s][..., [0, 2, 1, 3]],
-                           a[2 * s + 1][..., [0, 2, 1, 3]]], -1)
-                for s in range(len(a) // 2)]
+    def a_steps_of(pairs):
+        return [pairs[:, :, 4 * s:4 * s + 4]
+                for s in range(pairs.shape[2] // 4)]
 
-    k = torch.stack([2 * tt, 2 * tt + 1], 1)
-    a = [torch.cat([r16[:, g[:, None], 16 * s + k],
-                    r16[:, g[:, None] + 8, 16 * s + k],
-                    r16[:, g[:, None], 16 * s + 8 + k],
-                    r16[:, g[:, None] + 8, 16 * s + 8 + k]], -1)
-         for s in range(w0.shape[0])]
-    a = epilogue(layer16(a, w0), b0)
+    a0 = [torch.stack([r64[:, ar, 16 * s + ac], r64[:, ar, 16 * s + ac + 1]],
+                      -1) for s in range(ks0)]
+    a = epilogue(layer(a0, w0, up), b0)
     for i in range(n_blocks):
-        a = epilogue(layer16(a_of(a), wb[i]), bb[i])
-    acc = 0.0
-    for s in range(wf.shape[0]):     # the head: a bf16 value is its own hi
-        acc = acc + _mma(a[s].float(), wf[s, 0, :, :2]) + _mma(
-            a[s].float(), wf[s, 0, :, 2:])
-    c = acc.float()
-    q = torch.zeros(r16.shape[0], 16, 8)
-    q[:, g, 2 * tt] = c[..., 0] + bf[2 * tt]
-    q[:, g, 2 * tt + 1] = c[..., 1] + bf[2 * tt + 1]
-    q[:, g + 8, 2 * tt] = c[..., 2] + bf[2 * tt]
-    q[:, g + 8, 2 * tt + 1] = c[..., 3] + bf[2 * tt + 1]
+        a = epilogue(layer(a_steps_of(a), wb[i], up), bb[i])
+    steps = a_steps_of(a)
+    h1 = layer(steps, wf[0], 8)
+    h23 = (sum(_wgmma(a_s, _desc_tile(wf[2], s * 128, 8))
+               for s, a_s in enumerate(steps))
+           + sum(_wgmma(a_s, _desc_tile(wf[1], s * 128, 8))
+                 for s, a_s in enumerate(steps))).float()
+    _, (dr, dc) = _wg_maps(8)
+    q = torch.zeros(r64.shape[0], 64, 8)
+    q[:, dr, dc] = (h1 + h23) + bf[dc]
     return q.reshape(-1, 8)[:n, :5].T
 
 
-@pytest.mark.parametrize("units", [13, 60])
-@pytest.mark.parametrize("activation", ["relu", "softplus", "gelu",
-                                        "sigmoid"])
-def test_bf16_fragment_chain_matches_plain(units, activation):
-    """The bf16 blob holds bf16(w) at (n, k) = (8j + g, 16s + 2t [+ 1],
-    + 8), zeros past U and T, and bf16 biases; the chain replayed in the
-    bf16 kernel's fragment order equals encode_q_plain at trunk="bfloat16"
-    to BF16_ULPS bf16 ulps of q's largest magnitude (a layer's float32 sums
-    in another order can move a rounding by one ulp)."""
-    cfg, tuner = _width_tuner(units, activation)
+@pytest.mark.parametrize("units", [13, 30, 60, 128])
+def test_bf16_weight_blob_unpacks_to_the_encoder(units):
+    """The bf16 blob starts with its layout tag; each layer's image, read
+    as the kernel's descriptors address it, holds bf16(w) at (n, k), zeros
+    past U and T; the head's three pieces sum exactly to the float32 head;
+    the biases follow in bf16, the head's in float32, then the quadrature
+    table."""
+    cfg, tuner = _width_tuner(units)
     nb = cfg.no_intermediate_layers
     blob, u, up, t = tfi._weight_blob(tuner.encoder, nb, torch.device("cpu"),
                                       "bfloat16")
-    w0, wb, wf, b0, bb, bf = _blob_parts_bf16(blob, t, up, nb)
-    wfc, bfc, wbs, bbs, _, bft = tfi._stream1_weights(tuner.encoder, nb)
-    for frags, w in [(w0, wfc)] + list(zip(wb, wbs)):
-        np_, kp = frags.shape[1] * 8, frags.shape[0] * 16
-        f = frags.reshape(kp // 16, np_ // 8, 8, 4, 2, 2)  # s j g t half pair
-        got = f.permute(1, 2, 0, 4, 3, 5).reshape(np_, kp)
+    assert (u, up, t) == (units, tfi._padded_width(units), 11)
+    tag, w0, wb, wf, b0, bb, bf = _blob_parts_bf16(blob, t, up, nb)
+    assert tuple(tag.tolist()) == tfi._BF16_TAG
+    wfc, bfc, wbs, bbs, wft, bft = tfi._stream1_weights(tuner.encoder, nb)
+    for elems, w, kp, np_ in ([(w0, wfc, 16, up)]
+                              + [(e, w, up, up) for e, w in zip(wb, wbs)]):
         wp = torch.zeros((np_, kp), dtype=torch.bfloat16)
         wp[:w.shape[0], :w.shape[1]] = w.to(torch.bfloat16)
-        assert torch.equal(got, wp)
+        assert torch.equal(_unpack_image(elems, kp, np_), wp)
+    head = sum(_unpack_image(e, up, 8).double() for e in wf)
+    wp = torch.zeros((8, up), dtype=torch.float64)
+    wp[:5, :units] = wft.double()
+    assert torch.equal(head, wp)
+    # the staged, swizzled images hold the same weights at the addresses
+    # the kernel's 32-byte-swizzle descriptors read
+    for elems, kp, np_ in ([(w0, 16, up)] + [(e, up, up) for e in wb]
+                           + [(e, up, 8) for e in wf]):
+        sw = _swizzled(elems, np_)
+        got = torch.cat([_swz32_tile(sw, s * np_ * 16, np_).T
+                         for s in range(kp // 16)], 1)
+        assert torch.equal(got, _unpack_image(elems, kp, np_))
     for got, ref in [(b0, bfc[:, 0])] + list(zip(bb, bbs[..., 0])):
-        assert torch.equal(got[:ref.numel()],
-                           ref.to(torch.bfloat16).float())
+        assert torch.equal(got[:ref.numel()], ref.to(torch.bfloat16))
         assert (got[ref.numel():] == 0).all()
     assert torch.equal(bf[:bft.numel()], bft[:, 0])
+    consts = _cuda.quad_consts(torch.device("cpu"))
+    assert torch.equal(blob[-consts.numel():], consts)
+    assert (blob.numel() - 4) % 4 == 0          # 16-byte shared staging
+
+
+@pytest.mark.parametrize("units", [13, 30, 60, 128])
+@pytest.mark.parametrize("activation", ["relu", "softplus", "gelu",
+                                        "sigmoid"])
+def test_bf16_fragment_chain_matches_plain(units, activation):
+    """The chain replayed in the bf16 kernel's wgmma data flow (registers,
+    descriptors, the packed epilogue, the three-piece head) equals
+    encode_q_plain at trunk="bfloat16" to BF16_ULPS bf16 ulps of q's
+    largest magnitude (a layer's float32 sums in another order can move a
+    rounding by one ulp)."""
+    cfg, tuner = _width_tuner(units, activation)
+    nb = cfg.no_intermediate_layers
     rng = np.random.default_rng(units)
     x = torch.from_numpy(volume(rng, (37,), SCAN.n_taus))
     kw = dict(se_idx=SCAN.se_idx, multi_image=False, activation=activation,
@@ -534,3 +608,97 @@ def test_bf16_fragment_chain_matches_plain(units, activation):
     ref = tfi.encode_q_plain(x, tuner.encoder, trunk="bfloat16", **kw)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
                                atol=BF16_ULPS * bf16_ulp(ref.numpy()))
+
+
+def _bf16_rne(v):
+    """float64 v rounded once to bf16 (8 significant bits, ties to even),
+    as float64: the add.rn.bf16x2 of the kernel's epilogue on the exact
+    sum (a float64 sum of two bf16 values is exact up to exponent gaps of
+    45 bits, and beyond them no tie can be reached)."""
+    m, e = np.frexp(v)
+    return np.ldexp(np.rint(m * 256.0), e - 8)
+
+
+def _as_bf16(v):
+    return torch.from_numpy(np.asarray(v, np.float32)).to(torch.bfloat16)
+
+
+def test_bf16_packed_epilogue_is_the_per_element_chain():
+    """The kernel's packed epilogue -- cvt.rn.bf16x2 of the float32 sums,
+    add.rn.bf16x2 of the bf16 bias (one rounding of the exact sum), max
+    with 0 -- equals the plain chain relu(bf16(float32(bf16(acc) + b)))
+    bit for bit: on random values, on sums at a tie between two bf16
+    values, and across exponent gaps of 0-60 bits."""
+    rng = np.random.default_rng(17)
+    n = 20_000
+    acc = (rng.normal(size=n) * 2.0 ** rng.uniform(-30, 30, n)).astype(
+        np.float32)
+    b = _as_bf16(rng.normal(size=n) * 2.0 ** rng.uniform(-30, 30, n))
+    # ties: x in [1, 2) with 8 significant bits, b half an ulp of x
+    x_tie = 1.0 + rng.integers(0, 128, 4_000) / 128.0
+    sign = rng.choice([-1.0, 1.0], 4_000)
+    scale = 2.0 ** rng.integers(-20, 20, 4_000)
+    acc_tie = (x_tie * sign * scale).astype(np.float32)
+    b_tie = _as_bf16(sign * scale * 2.0 ** -8
+                     * rng.choice([1.0, 3.0, -1.0], 4_000))
+    # wide exponent gaps
+    gap = rng.integers(0, 61, 4_000)
+    acc_gap = rng.normal(size=4_000).astype(np.float32)
+    b_gap = _as_bf16(rng.normal(size=4_000) * 2.0 ** -gap.astype(float))
+    acc = np.concatenate([acc, acc_tie, acc_gap])
+    b = torch.cat([b, b_tie, b_gap])
+    a16 = torch.from_numpy(acc).to(torch.bfloat16)
+    chain = torch.relu((a16.float() + b.float()).to(torch.bfloat16))
+    packed = np.maximum(_bf16_rne(a16.double().numpy() + b.double().numpy()),
+                        0.0)
+    assert torch.equal(chain.double(), torch.from_numpy(packed))
+    # the ties did land on ties, and some rounded down, some up
+    exact = a16.double()[-8_000:-4_000] + b.double()[-8_000:-4_000]
+    assert not torch.equal(exact, exact.to(torch.bfloat16).double())
+
+
+def test_bf16_head_pieces_sum_to_the_float32_weights():
+    """_bf16_pieces cuts float32 weights into three bf16 tensors whose sum
+    is the weight exactly: random weights, tiny, huge and negative ones,
+    and float32's largest; no piece overflows."""
+    rng = np.random.default_rng(5)
+    big = float(np.finfo(np.float32).max)
+    w = np.concatenate([rng.normal(size=500) * 0.3,
+                        rng.normal(size=200) * 2.0 ** rng.uniform(-100, 120,
+                                                                  200),
+                        [1e-30, -2.5e-30, 7e-31, 3.3e38, -3.4e38, big, -big,
+                         1.0, -1.0, 0.0, 2.0 ** -100, 1.0 + 2.0 ** -23]])
+    w = torch.from_numpy(w.astype(np.float32)).reshape(2, -1)
+    pieces = tfi._bf16_pieces(w)
+    assert all(p.dtype == torch.bfloat16 and torch.isfinite(p).all()
+               for p in pieces)
+    total = sum(p.double() for p in pieces)
+    assert torch.equal(total, w.double())
+    # w1 carries the top bits: the rest is under 2^-7 of |w|
+    assert ((w.double() - pieces[0].double()).abs()
+            <= 2.0 ** -7 * w.double().abs()).all()
+
+
+def test_fused_op_refuses_a_bf16_blob_of_another_layout():
+    """A bf16 blob carries _BF16_TAG: the op's check passes the blob
+    _weight_blob makes (marked, no read) and an unmarked copy (by its
+    tag), and refuses a blob without the tag -- as a fused bf16 .pt2
+    exported before the wgmma encode holds -- asking for a new export; a
+    float32 blob is not checked."""
+    cfg, tuner = _width_tuner(60)
+    nb = cfg.no_intermediate_layers
+    blob, *_ = tfi._weight_blob(tuner.encoder, nb, torch.device("cpu"),
+                                "bfloat16")
+    tfi._check_blob_layout(blob, "bfloat16")
+    copy = blob.clone()
+    assert getattr(copy, "_qv_layout", None) is None
+    tfi._check_blob_layout(copy, "bfloat16")
+    assert copy._qv_layout == tfi._BF16_TAG
+    old = blob[4:].clone()        # a blob of the earlier layout: no tag
+    with pytest.raises(ValueError, match="exported again"):
+        tfi._check_blob_layout(old, "bfloat16")
+    with pytest.raises(ValueError, match="exported again"):
+        tfi._check_blob_layout(torch.zeros(2), "bfloat16")
+    f32, *_ = tfi._weight_blob(tuner.encoder, nb, torch.device("cpu"))
+    tfi._check_blob_layout(f32, "float32")
+

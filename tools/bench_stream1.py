@@ -5,7 +5,7 @@ on one subject, with each build's errors and its registers, spills, stack
 frame, shared memory, blocks an SM and SASS instructions.
 
     python3 tools/bench_stream1.py [--dtype float32|bfloat16] [--only-copies]
-        [--row-blob SRC ...] [SRC ...]
+        [--row-blob SRC ...] [--package DIR] [SRC ...]
 
 Run it from the repository's root on a machine with the card, as
 ``env PYTHONPATH=. python3 tools/bench_stream1.py _chip_checkout/<copy>/
@@ -64,6 +64,13 @@ prints:
   QV_KL_LANES $L/" qbold_vi_tpu_torch/csrc/summarize.cu >
   _chip_checkout/e$L/summarize.cu``.
 
+``--package DIR`` imports ``qbold_vi_tpu_torch`` from DIR (another
+checkout, e.g. the parent's unpacked by ``git archive`` into
+``_chip_checkout/parent``) and times only B, C and A through that
+package's wrappers, with their errors, C's head against a float64 head
+on the plain version's features (``chip_smoke.head_f64_err``) and B
+beside C + A: the way to time two commits in one call.
+
 ``--dtype bfloat16`` runs B and C at trunk="bfloat16" (the entries
 ``qv_encode_quad_fused_bf16`` and ``qv_encode_q1_bf16``, kernels
 ``qv_encode_quad_bf16_kernel`` and ``qv_encode_q_bf16_kernel``) against
@@ -91,10 +98,16 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+# --package DIR: that checkout's qbold_vi_tpu_torch (read before the
+# imports below)
+if "--package" in sys.argv[:-1]:
+    sys.path.insert(0, str(Path(sys.argv[sys.argv.index("--package") + 1])
+                           .resolve()))
 
 from chip_smoke import (branch_shares, check_close,  # noqa: E402
                         check_rows, cuda_ms, encode_q_f64, gpu_line,
-                        kernel_ms, raw_head, sass, squashed, volumes)
+                        head_f64_err, kernel_ms, raw_head, sass, squashed,
+                        volumes)
 from qbold_vi_tpu_torch import OPTIMAL, FineTuner, init_params  # noqa: E402
 from qbold_vi_tpu_torch.ops import _cuda  # noqa: E402
 from qbold_vi_tpu_torch.ops import fused_elbo as fe  # noqa: E402
@@ -157,14 +170,16 @@ def bind(lib):
     return lib
 
 
-def resources(log: str) -> dict:
+def resources(log: str, kernels: dict) -> dict:
     """{kernel symbol: (registers, static shared bytes, 'stack / spill'
-    text)} from ptxas's --resource-usage report."""
+    text)} of ``kernels``' symbols from ptxas's --resource-usage report
+    (of a bf16 kernel's widths, the request's: Up = 64)."""
     out = {}
     lines = log.splitlines()
     for i, line in enumerate(lines):
         m = re.search(r"Function properties for \S*?(qv_\w+_kernel)", line)
-        if m and m.group(1) in KERNELS.values() and i + 2 < len(lines):
+        if (m and m.group(1) in kernels.values() and i + 2 < len(lines)
+                and ("bf16" not in m.group(1) or "ILi64E" in line)):
             regs = re.search(r"Used (\d+) registers", lines[i + 2])
             smem = re.search(r"(\d+) bytes smem", lines[i + 2])
             out[m.group(1)] = (int(regs.group(1)) if regs else -1,
@@ -213,16 +228,16 @@ class Calls:
         if row_blob:
             self.blob, self.u, self.up, self.block, self.smem = row_blob_setup(
                 x, enc, nb)
+            self.block_b, self.smem_b = self.block, self.smem
         else:
             _, _, _, self.blob, self.u, self.up, t = fi._launch_setup(
                 x, enc, trunk=ctx["trunk"], **ctx["setup"])
             self.block, self.smem = fi._block_smem(
-                self.blob.numel(), t, ctx["trunk"], x.device)
-        # kernel B's, with its quadrature's scratch (an earlier build's B
-        # leaves it unused)
-        self.smem_b = self.smem + (
-            0 if row_blob
-            else 4 * _cuda.library().qv_quad_scratch_floats(self.block))
+                self.blob.numel(), t, ctx["trunk"], x.device, t_in=t + 1)
+            # kernel B's, with its quadrature's scratch
+            self.block_b, self.smem_b = fi._block_smem(
+                self.blob.numel(), t, ctx["trunk"], x.device,
+                _cuda.library().qv_quad_scratch_floats, t_in=t + 1)
         self.stream = torch.cuda.current_stream().cuda_stream
 
     def enc_args(self, act):
@@ -237,7 +252,7 @@ class Calls:
             *self.enc_args(act), self.u, self.up,
             OPTIMAL.model.no_intermediate_layers, self.blob.data_ptr(),
             self.blob.numel(), _cuda.quad_ranges(**self.ctx["ranges"]),
-            *(t.data_ptr() for t in o), 1, self.block, self.smem_b,
+            *(t.data_ptr() for t in o), 1, self.block_b, self.smem_b,
             self.stream)
         _cuda.check(err, "B")
 
@@ -434,26 +449,34 @@ def timed(label: str, fn, symbol: str) -> str:
 
 def bench(name, lib, log, so, row_blob, ctx) -> None:
     calls = Calls(lib, row_blob, ctx)
-    res = resources(log)
-    code = sass(so)
-    parts = []
     kernels = dict(KERNELS)
     if ctx["tag"]:
         kernels.update(B="qv_encode_quad_bf16_kernel",
                        C="qv_encode_q_bf16_kernel")
+    res = resources(log, kernels)
+    code = sass(so)
+    parts = []
     for key, sym in kernels.items():
         if sym not in res:
             continue
         regs, static, frame = res[sym]
         threads = (quad.QUAD_BLOCK if key == "A" else _BLOCK
-                   if key in "DE" else calls.block)
-        smem = static + (0 if key in "ADE" else calls.smem)
+                   if key in "DE" else calls.block_b if key == "B"
+                   else calls.block)
+        smem = static + (0 if key in "ADE" else calls.smem_b if key == "B"
+                         else calls.smem)
         size, mufu = code.get(sym, (0, {}))
         parts.append(f"{key} {regs} registers, {frame}, {smem} B shared a "
                      f"block of {threads}, {blocks_per_sm(regs, threads, smem)}"
                      f" blocks an SM, {size} SASS instructions, MUFU "
                      f"{dict(sorted(mufu.items()))}")
     print(f"{name}: " + "; ".join(parts), flush=True)
+    serial = sorted({re.sub(r".*function '\S*?(qv_\w+_kernel)(ILi\d+E)?.*",
+                            r"\1\2", line)
+                     for line in log.splitlines() if "C7512" in line})
+    if serial:
+        print(f"{name}: ptxas serialises the wgmma of {', '.join(serial)} "
+              "(C7512: insufficient register resources)", flush=True)
     print(f"{name} errors: {errors(calls, ctx)}", flush=True)
     rows = []
     if hasattr(lib, "qv_quad_posterior_summaries"):
@@ -491,6 +514,51 @@ def bench(name, lib, log, so, row_blob, ctx) -> None:
               "events a call): " + "; ".join(rows), flush=True)
 
 
+def wrappers(dev, dtype) -> None:
+    """B, C and A through the package's wrappers (the same in every
+    checkout that has the bf16 trunk): errors against the plain versions,
+    C's head against a float64 head on the plain version's features
+    (chip_smoke.head_f64_err), device times, and B beside C + A."""
+    cfg, scan = OPTIMAL.model, OPTIMAL.scan
+    tuner = FineTuner(cfg, scan, device=dev)
+    tuner.load_state_dict(init_params(cfg, scan,
+                                      torch.Generator().manual_seed(0)))
+    kw = dict(se_idx=scan.se_idx, multi_image=cfg.multi_image_normalisation,
+              activation=cfg.activation, n_blocks=cfg.no_intermediate_layers,
+              mask_channel=True, input_layout="voxel", trunk=dtype)
+    ranges = dict(oef_range=cfg.oef_range, min_oef=cfg.min_oef,
+                  dbv_range=cfg.dbv_range, min_dbv=cfg.min_dbv,
+                  dw_coeff=float(scan.dw_coeff * scan.hct))
+    x = torch.from_numpy(volumes(np.random.default_rng(0), (N,),
+                                 scan.n_taus)).to(dev)
+    enc = tuner.encoder
+    q = fi.encode_q1_packed(x, enc, **kw)
+    b = fi.encode_quad_fused(x, enc, mvg=True, **kw, **ranges)
+    q_ref = fi.encode_q_plain(x, enc, **kw)
+    b_ref = fi.encode_quad_fused_plain(x, enc, mvg=True, **kw, **ranges)
+    head = head_f64_err(q, x, enc, kw)
+    rows = q.T.contiguous()
+    tag = "_bf16" if dtype == "bfloat16" else ""
+    ms = {"B": kernel_ms(lambda: fi.encode_quad_fused(
+              x, enc, mvg=True, **kw, **ranges),
+              f"qv_encode_quad{tag}_kernel"),
+          "C": kernel_ms(lambda: fi.encode_q1_packed(x, enc, **kw),
+                         f"qv_encode_q{tag}_kernel"),
+          "A": kernel_ms(lambda: quad.quad_posterior_summaries(
+              rows, mvg=True, **ranges), KERNELS["A"])}
+    print(f"package {Path(fi.__file__).resolve().parent.parent} through its "
+          f"wrappers at {dtype}: C vs plain "
+          f"{float((q - q_ref).abs().max()):.2e}, B vs plain means / vars / "
+          "raw " + " / ".join(f"{float((g - r).abs().max()):.2e}"
+                              for g, r in zip(b, b_ref))
+          + "; C's head against a float64 head on the plain features "
+          + ", ".join(f"{k} {v:.3e}" for k, v in head[0].items())
+          + " (the plain float32 head " + ", ".join(
+              f"{k} {v:.3e}" for k, v in head[1].items()) + "); device ms "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+          + f", C + A {ms['C'] + ms['A']:.4f}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: this bench needs the card")
@@ -504,10 +572,18 @@ def main() -> int:
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"],
                     help="the stream-1 trunk of kernels B and C")
+    ap.add_argument("--package", default=None,
+                    help="import qbold_vi_tpu_torch from this directory and "
+                    "time B, C and A through its wrappers alone")
     ap.add_argument("sources", nargs="*", help="edited copies of the "
                     "package's encode_quad.cu or summarize.cu")
     args = ap.parse_args()
     dev = torch.device("cuda", 0)
+    if args.package:
+        with torch.no_grad():
+            wrappers(dev, args.dtype)
+        print(gpu_line())
+        return 0
     libs = {}
     if not args.only_copies:
         lib = bind(_cuda.library())
