@@ -26,7 +26,7 @@ kernel S's trial axis and one kernel-F call a step, the searches, the
 CLI's sweep, the wandb agent, trials over two ranks), and checks them:
 
 1. device: a CUDA card is required (otherwise exit 1, no result line);
-2. build: the kernels of all eight sources in csrc/ are compiled by nvcc;
+2. build: the kernels of all ten sources in csrc/ are compiled by nvcc;
    kernels A, B, E and G must hold the static MUFU instructions
    (cuobjdump) that the special-function bounds' counts were read with
    (MUFU_SASS);
@@ -150,10 +150,9 @@ and E (one Philox block for two draw pairs), after phase 13:
 24. B and C against their plain versions at U = 13 and 30 (padded to 16
    and 32 in the kernel) under gelu and softplus (act(0) != 0 on padded
    channels), both layouts, N = 1,000,003 (a ragged tile of 32); a
-   stream-1 request at 256 units under fused_infer "auto" through the
-   encoder route (A launched, B not; kernel B holds at most 128 units a
-   lane) against the CPU at rtol 1e-3 / atol 3e-5, and a forced "on"
-   refused at the launch;
+   stream-1 request at 256 units under fused_infer "auto" through kernel
+   B's streamed design (B launched, A not) against the CPU at rtol 1e-3 /
+   atol 3e-5, and a forced "on" giving the same maps;
 25. D at S = 2, 7 (odd: iid) and 200, both layouts, and E at S = 2, 7
    and 100, against their plain versions fed mc_philox_normals (E also fed
    host normals) at 65,536 and 65,537 voxels; each replays bit for bit and
@@ -317,6 +316,21 @@ The sweep (qbold_vi_tpu_torch/sweep.py), after phase 42:
    population stage of phase 41's multihost.certify(population_trials=3))
    bit-equal across ranks and within rtol 2e-4 of one process, and
    ``dryrun --devices 2`` with its population stage.
+Kernels B and C past the resident blob (csrc/encode_stream.cuh), run after
+phase 24:
+47. OPTIMAL's 1,032,192-voxel request at 256 units x 2 blocks, float32
+   and bf16, through posterior_maps under "auto" by quadrature (streamed
+   B) and by method="mc" (streamed C, then D), the counts set to 0 before
+   and read after each, maps finite; B and C against their plain versions
+   at 50,003 voxels (float32 at CHECKS; bf16 C within Q16_ULPS ulps, B
+   against the plain quadrature of C's q at CHECKS); their device ms at
+   full width beside their bounds, their plain versions' ms, and the
+   fused route's ms a call beside the "off" route's (the encoder, then A
+   or D) on the same device request; the same request at 100 x 2 in
+   float32 (whose resident blob does not fit) by quadrature through
+   streamed B, held against its plain version on the whole request. The
+   kernels line gives the four streamed kernels (B-stream, C-stream,
+   B-bf16-stream, C-bf16-stream) their launches on this path.
 No phase 43-46 accepts a trial whose status is "failed". The kernels line
 gives S and F their launches on the population path under
 "launches_sweep", and S its P = 4 time and bound.
@@ -1910,10 +1924,11 @@ def sampled_phases(dev, card, cfg, tuner, ranges, enc_kw, raw_b) -> dict:
 
 
 @torch.no_grad()
-def stream1_phases(dev, cfg, tuner, ranges, enc_kw) -> dict:
-    """Phases 23-25: kernels B and C against a float64 encode, on widths
-    the kernel pads, kernel D at S = 2, 7 and 200 and kernel E at S = 2, 7
-    and 100. Returns the float64 errors."""
+def stream1_phases(dev, card, cfg, tuner, ranges, enc_kw) -> tuple:
+    """Phases 23-25 and 47: kernels B and C against a float64 encode, on
+    widths the kernel pads, past 128 units (phase 47's full-width path),
+    kernel D at S = 2, 7 and 200 and kernel E at S = 2, 7 and 100. Returns
+    the float64 errors and phase 47's results."""
     from qbold_vi_tpu_torch.models.encoder import _full_fp32
     from qbold_vi_tpu_torch.models.vi import FineTuner, init_params
     from qbold_vi_tpu_torch.ops import fused_infer as fi
@@ -1972,6 +1987,7 @@ def stream1_phases(dev, cfg, tuner, ranges, enc_kw) -> dict:
     log(f"kernels B and C vs plain ok at U = 13, 30 (padded to 16, 32) under "
         f"gelu and softplus, both layouts, N={N_RAGGED}")
     wide_stream1_phase(dev, cfg, rng)
+    wide = full_width_phase(dev, card, cfg, rng)
 
     # ---- 25. D at S = 2, 7 and 200, E at 2, 7 and 100 ----------------------
     seed = 29
@@ -2009,19 +2025,48 @@ def stream1_phases(dev, cfg, tuner, ranges, enc_kw) -> dict:
         f"{S_KL}; {sm.KL_LANES} lanes a voxel) vs plain fed mc_philox_normals "
         f"and host normals ok at N={N_MC} and {N_MC + 1}: replay bit-equal, "
         "a cut at an offset draws what the whole does")
-    return err64
+    return err64, wide
+
+
+STREAM_COUNTERS = ("launches", "bf16_launches", "stream_launches",
+                   "stream_bf16_launches")
+
+
+def bc_counts() -> dict:
+    """Kernel B's and C's launch counters, by design and trunk, and A's
+    and D's."""
+    from qbold_vi_tpu_torch.ops import fused_infer as fi
+    from qbold_vi_tpu_torch.ops import quadrature as tq
+    from qbold_vi_tpu_torch.ops import summarize as sm
+
+    out = {f"B.{c}": getattr(fi.encode_quad_fused, c) for c in STREAM_COUNTERS}
+    out.update({f"C.{c}": getattr(fi.encode_q1_packed, c)
+                for c in STREAM_COUNTERS})
+    out["A"] = tq.quad_posterior_summaries.launches
+    out["D"] = sm.mc_posterior_summaries_packed.launches
+    return out
+
+
+def zero_bc_counts() -> None:
+    from qbold_vi_tpu_torch.ops import fused_infer as fi
+    from qbold_vi_tpu_torch.ops import quadrature as tq
+    from qbold_vi_tpu_torch.ops import summarize as sm
+
+    for w in (fi.encode_quad_fused, fi.encode_q1_packed):
+        for c in STREAM_COUNTERS:
+            setattr(w, c, 0)
+    tq.quad_posterior_summaries.launches = 0
+    sm.mc_posterior_summaries_packed.launches = 0
 
 
 def wide_stream1_phase(dev, cfg, rng) -> None:
     """Phase 24's wide trunk: a stream-1 request at 256 units under
-    fused_infer "auto" takes the encoder route (kernel A; kernel B holds at
-    most 128 units a lane) and matches the same route on the CPU at
-    tests/test_torch_infer.py's tolerances; a forced "on" is refused at
-    the launch, launching nothing."""
+    fused_infer "auto" runs kernel B's streamed design (not the encoder
+    and kernel A) and matches the same request on the CPU at
+    tests/test_torch_infer.py's tolerances; a forced "on" runs the same
+    kernel, bit for bit."""
     from qbold_vi_tpu_torch import infer
     from qbold_vi_tpu_torch.models.vi import FineTuner, init_params
-    from qbold_vi_tpu_torch.ops import fused_infer as fi
-    from qbold_vi_tpu_torch.ops import quadrature as tq
 
     wide = dataclasses.replace(cfg.model, no_units=256,
                                compute_dtype="float32")
@@ -2034,14 +2079,12 @@ def wide_stream1_phase(dev, cfg, rng) -> None:
         t.load_state_dict(sd)
         tuners[name] = t
     data = volumes(rng, (3, 12, 12, 3), cfg.scan.n_taus)
-    before = (fi.encode_quad_fused.launches,
-              tq.quad_posterior_summaries.launches)
+    zero_bc_counts()
     got = infer.posterior_maps(tuners["card"], data, use_first_op=True)
-    moved = (fi.encode_quad_fused.launches - before[0],
-             tq.quad_posterior_summaries.launches - before[1])
-    if moved[0] != 0 or moved[1] == 0:
-        raise AssertionError(f"stream 1 at 256 units: launches (B, A) moved "
-                             f"by {moved}, want (0, > 0)")
+    moved = bc_counts()
+    if moved["B.stream_launches"] == 0 or moved["A"] or moved["B.launches"]:
+        raise AssertionError(f"stream 1 at 256 units: launches {moved}, "
+                             "want streamed B only")
     ref = infer.posterior_maps(tuners["cpu"], data, use_first_op=True)
     err = 0.0
     for key in ("oef", "dbv", "r2p", "raw_log_stds"):
@@ -2050,20 +2093,221 @@ def wide_stream1_phase(dev, cfg, rng) -> None:
         np.testing.assert_allclose(got[key], ref[key], rtol=1e-3, atol=3e-5,
                                    err_msg=f"stream 1 at 256 units: {key}")
         err = max(err, float(np.abs(got[key] - ref[key]).max()))
-    try:
-        infer.posterior_maps(tuners["on"], data, use_first_op=True)
-    except ValueError as e:
-        if "128 units" not in str(e):
-            raise
-    else:
-        raise AssertionError("stream 1 at 256 units under a forced \"on\" "
-                             "was not refused")
-    if fi.encode_quad_fused.launches != before[0]:
-        raise AssertionError("the refused 256-unit request launched B")
-    log(f"stream 1 at 256 units (3 x 12 x 12 x 3) under \"auto\": the "
-        f"encoder route, A launched {moved[1]} times, B none; maps finite and "
-        f"within rtol 1e-3 / atol 3e-5 of the CPU's (largest difference "
-        f"{err:.3e}); a forced \"on\" refused at the launch")
+    forced = infer.posterior_maps(tuners["on"], data, use_first_op=True)
+    for key in got:
+        if not np.array_equal(forced[key], got[key]):
+            raise AssertionError(f"stream 1 at 256 units under \"on\": "
+                                 f"{key} differs from \"auto\"'s")
+    log(f"stream 1 at 256 units (3 x 12 x 12 x 3) under \"auto\": kernel B "
+        f"streamed, launched {moved['B.stream_launches']} times, A none; "
+        f"maps finite and within rtol 1e-3 / atol 3e-5 of the CPU's (largest "
+        f"difference {err:.3e}); a forced \"on\" gives the same maps")
+
+
+WIDE_TRUNK = (256, 2)                # phase 47's full-width path
+FAULT_TRUNK = (100, 2)               # float32: the blob does not fit
+N_WIDE_CMP = 50_003                  # kernels vs plain at wide widths
+WIDE_SYMBOLS = {
+    ("B", "float32"): "qv_encode_quad_stream_kernel",
+    ("C", "float32"): "qv_encode_q_stream_kernel",
+    ("B", "bfloat16"): "qv_encode_quad_stream_bf16_kernel",
+    ("C", "bfloat16"): "qv_encode_q_stream_bf16_kernel"}
+
+
+def wide_tuner(dev, cfg, units, nb, trunk):
+    from qbold_vi_tpu_torch.models.vi import FineTuner, init_params
+
+    mcfg = dataclasses.replace(cfg.model, no_units=units,
+                               no_intermediate_layers=nb,
+                               compute_dtype=trunk)
+    t = FineTuner(mcfg, cfg.scan, device=dev)
+    t.load_state_dict(init_params(mcfg, cfg.scan,
+                                  torch.Generator().manual_seed(units)))
+    return t
+
+
+def full_width_phase(dev, card, cfg, rng) -> dict:
+    """Phase 47: OPTIMAL's 1,032,192-voxel request at 256 units x 2 blocks
+    (init_params seed 256) under fused_infer "auto", float32 and bf16:
+    posterior_maps by quadrature (kernel B, streamed) and by method="mc"
+    (C streamed, then D), the counts set to 0 before each and read after;
+    the maps finite and of the request's shape. B and C against their
+    plain versions at N_WIDE_CMP voxels (float32 at CHECKS; bf16 C within
+    Q16_ULPS ulps, B against the plain quadrature of C's q at CHECKS).
+    The same request at 100 x 2 in float32 (the resident blob does not
+    fit) by quadrature, kernel B held against its plain version on the
+    whole request. Device ms of B and C at full width beside their bounds
+    and beside the "off" route's (the encoder, then kernel A or D) and the
+    fused route's ms a call by CUDA events on the same device request."""
+    from qbold_vi_tpu_torch import infer
+    from qbold_vi_tpu_torch.ops import fused_infer as fi
+    from qbold_vi_tpu_torch.ops.quadrature import quad_tile_summaries
+
+    scan = cfg.scan
+    ranges = dict(oef_range=cfg.model.oef_range, min_oef=cfg.model.min_oef,
+                  dbv_range=cfg.model.dbv_range, min_dbv=cfg.model.min_dbv,
+                  dw_coeff=float(scan.dw_coeff * scan.hct))
+    req = volumes(rng, REQUESTS[0], scan.n_taus)
+    block = torch.from_numpy(req).to(dev)
+    x_full = block.reshape(-1, block.shape[-1])
+    x_cmp = torch.from_numpy(volumes(rng, (N_WIDE_CMP,), scan.n_taus)).to(dev)
+    units, nb = WIDE_TRUNK
+    out = {"launches": {}, "err": {}, "ms": {}, "plain_ms": {}, "bound": {},
+           "routes_ms": {}}
+    for trunk in ("float32", "bfloat16"):
+        t = wide_tuner(dev, cfg, units, nb, trunk)
+        enc = dict(se_idx=scan.se_idx,
+                   multi_image=t.cfg.multi_image_normalisation,
+                   activation=t.cfg.activation, n_blocks=nb, trunk=trunk,
+                   mask_channel=True, input_layout="voxel")
+        kw = dict(enc, mvg=t.cfg.use_mvg, **ranges)
+        stream = "stream_bf16_launches" if trunk == "bfloat16" else \
+            "stream_launches"
+        # ---- the main path, through the entry point -----------------------
+        for method, key in (("quadrature", "B"), ("mc", "C")):
+            zero_bc_counts()
+            maps = infer.posterior_maps(t, req, use_first_op=True,
+                                        method=method, seed=47)
+            torch.cuda.synchronize()
+            counts = bc_counts()
+            for k, v in maps.items():
+                if not np.isfinite(v).all() or v.shape[:-1] != req.shape[:-1]:
+                    raise AssertionError(f"{units} x {nb} {trunk} {method}: "
+                                         f"map {k} not finite or misshapen")
+            want_d = counts["D"] > 0 if method == "mc" else counts["A"] == 0
+            if counts[f"{key}.{stream}"] == 0 or not want_d or counts["A"]:
+                raise AssertionError(f"{units} x {nb} {trunk} {method}: "
+                                     f"launches {counts}")
+            out["launches"][(key, trunk)] = counts[f"{key}.{stream}"]
+            log(f"posterior_maps {method} at {units} x {nb} {trunk} on "
+                f"{REQUESTS[0]} under \"auto\": {key} streamed launched "
+                f"{counts[f'{key}.{stream}']} times, D {counts['D']}, A "
+                f"{counts['A']}; mean OEF {maps['oef'].mean():.4f}")
+        # ---- B and C against their plain versions ------------------------
+        q = fi.encode_q1_packed(x_cmp, t.encoder, **enc)
+        q_ref = fi.encode_q_plain(x_cmp, t.encoder, **enc)
+        got = fi.encode_quad_fused(x_cmp, t.encoder, **kw)
+        ref = fi.encode_quad_fused_plain(x_cmp, t.encoder, **kw)
+        torch.cuda.synchronize()
+        if trunk == "float32":
+            check_close(f"C {units}x{nb}", q.T, q_ref.T, "raw")
+            e_b = max(check_close(f"B {units}x{nb}", got[0].T, ref[0].T,
+                                  "mean"),
+                      check_close(f"B {units}x{nb}", got[1].T, ref[1].T,
+                                  "var", ref[0].T),
+                      check_close(f"B {units}x{nb}", got[2].T, ref[2].T,
+                                  "raw"))
+            how = "at CHECKS"
+        else:
+            ulps = [ulp_err(f"C bf16 {units}x{nb} row {j}", q[j], q_ref[j],
+                            Q16_ULPS)[0] for j in range(5)]
+            tail = [torch.stack(v) for v in quad_tile_summaries(
+                q[0], q[1], q[2], q[3], q[4], mvg=t.cfg.use_mvg, **ranges)]
+            e_b = max(check_close(f"B bf16 {units}x{nb} vs C's tail",
+                                  got[0].T, tail[0].T, "mean"),
+                      check_close(f"B bf16 {units}x{nb} vs C's tail",
+                                  got[1].T, tail[1].T, "var", tail[0].T),
+                      check_close(f"B bf16 {units}x{nb} vs C's tail",
+                                  got[2].T, tail[2].T, "raw"))
+            how = (f"C within {max(ulps):.2f} bf16 ulps, B against the "
+                   "quadrature of C's q at CHECKS")
+        out["err"][("C", trunk)] = float((q - q_ref).abs().max())
+        out["err"][("B", trunk)] = e_b
+        log(f"B and C at {units} x {nb} {trunk} vs plain at N={N_WIDE_CMP}: "
+            f"{how}; largest |C - plain| {out['err'][('C', trunk)]:.3e}")
+        # ---- times: the kernels, their plain versions, the routes ----------
+        for key, fn, plain in (
+                ("B", lambda: fi.encode_quad_fused(x_full, t.encoder, **kw),
+                 lambda: fi.encode_quad_fused_plain(x_full, t.encoder, **kw)),
+                ("C", lambda: fi.encode_q1_packed(x_full, t.encoder, **enc),
+                 lambda: fi.encode_q_plain(x_full, t.encoder, **enc))):
+            out["ms"][(key, trunk)] = kernel_ms(fn, WIDE_SYMBOLS[(key, trunk)])
+            out["plain_ms"][(key, trunk)] = cuda_ms(plain, reps=2, blocks=3)
+        raw_b = fi.encode_quad_fused(x_full, t.encoder, **kw)[2]
+        rest = N_FULL * (ops_encode(units, scan.n_taus, nb)
+                         - 2 * (units * scan.n_taus + nb * units * units
+                                + 5 * units))
+        bound_fn = encode_bound if trunk == "float32" else encode_bound_bf16
+        for key, writes, extra in (("B", 9, ops_quad(raw_b, t.cfg.use_mvg)),
+                                   ("C", 5, 0.0)):
+            out["bound"][(key, trunk)] = bound_fn(
+                N_FULL, units, scan.n_taus, nb,
+                N_FULL * 4 * (scan.n_taus + 1 + writes), rest + extra)
+        draws = infer.mc_draws(S_MC, True)
+        noise = infer._flat_noise(infer.draw_noise(
+            "summaries", 47, 0, tuple(block.shape[:-1]), draws, dev), N_FULL)
+        mc = dict(noise, no_samples=S_MC, antithetic=True)
+        routes = {
+            "B route": lambda: infer._chunk_fused(t, block, None),
+            "off, quadrature": lambda: infer._chunk_encoder(t, block, True,
+                                                            None),
+            "C + D route": lambda: infer._chunk_fused(t, block, mc),
+            "off, mc": lambda: infer._chunk_encoder(t, block, True, mc)}
+        for name, fn in routes.items():
+            out["routes_ms"][(name, trunk)] = cuda_ms(fn, reps=3, blocks=5)
+        for key, route, off in (("B", "B route", "off, quadrature"),
+                                ("C", "C + D route", "off, mc")):
+            ms, bd = out["ms"][(key, trunk)], out["bound"][(key, trunk)]
+            r_ms = out["routes_ms"][(route, trunk)]
+            o_ms = out["routes_ms"][(off, trunk)]
+            log(f"{key} {trunk} streamed at {units} x {nb}: kernel {ms:.4f} ms"
+                f" on the device, plain {out['plain_ms'][(key, trunk)]:.4f} "
+                f"ms; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                f"({100 * bd['bound_ms'] / ms:.1f}%); the fused route "
+                f"{r_ms:.4f} ms a call against the \"off\" route (encoder, "
+                f"then {'A' if key == 'B' else 'D'}) {o_ms:.4f} ms "
+                f"({'faster' if r_ms < o_ms else 'NOT faster'}) on "
+                f"{REQUESTS[0]} [{card}]")
+    # ---- the 100 x 2 float32 request: the blob does not fit -----------------
+    units, nb = FAULT_TRUNK
+    t = wide_tuner(dev, cfg, units, nb, "float32")
+    zero_bc_counts()
+    maps = infer.posterior_maps(t, req, use_first_op=True)
+    counts = bc_counts()
+    if counts["B.stream_launches"] == 0 or counts["A"] or \
+            counts["B.launches"]:
+        raise AssertionError(f"{units} x {nb} float32: launches {counts}")
+    if not all(np.isfinite(v).all() for v in maps.values()):
+        raise AssertionError(f"{units} x {nb} float32: maps not finite")
+    out["launches"][("B", "float32")] += counts["B.stream_launches"]
+    kw = dict(se_idx=scan.se_idx, multi_image=t.cfg.multi_image_normalisation,
+              activation=t.cfg.activation, n_blocks=nb, trunk="float32",
+              mask_channel=True, input_layout="voxel", mvg=t.cfg.use_mvg,
+              **ranges)
+    got = fi.encode_quad_fused(x_full, t.encoder, **kw)
+    ref = fi.encode_quad_fused_plain(x_full, t.encoder, **kw)
+    e = max(check_close(f"B {units}x{nb}", got[0].T, ref[0].T, "mean"),
+            check_close(f"B {units}x{nb}", got[1].T, ref[1].T, "var",
+                        ref[0].T),
+            check_close(f"B {units}x{nb}", got[2].T, ref[2].T, "raw"))
+    out["fault"] = {"err": e, "ms": kernel_ms(
+        lambda: fi.encode_quad_fused(x_full, t.encoder, **kw),
+        WIDE_SYMBOLS[("B", "float32")])}
+    out["fault"]["plain_ms"] = cuda_ms(
+        lambda: fi.encode_quad_fused_plain(x_full, t.encoder, **kw), reps=2,
+        blocks=3)
+    log(f"{units} x {nb} float32 on {REQUESTS[0]} under \"auto\": kernel B "
+        f"streamed launched {counts['B.stream_launches']} times, A none; B "
+        f"vs plain on the whole request within CHECKS (largest {e:.3e}); "
+        f"kernel {out['fault']['ms']:.4f} ms, plain "
+        f"{out['fault']['plain_ms']:.4f} ms [{card}]")
+    names = {"float32": "", "bfloat16": "-bf16"}
+    sources = {"float32": "encode_stream.cu",
+               "bfloat16": "encode_stream_bf16.cu"}
+    out["kernels"] = [{
+        "name": f"{key}{names[trunk]}-stream", "route": "cuda",
+        "source": f"qbold_vi_tpu_torch/csrc/{sources[trunk]}",
+        "replaces": "qbold_vi_tpu/ops/pallas_infer.py:"
+                    + ("353" if key == "B" else "246"),
+        "launches": out["launches"][(key, trunk)],
+        "max_abs_err": out["err"][(key, trunk)],
+        "ms": out["ms"][(key, trunk)],
+        "plain_ms": out["plain_ms"][(key, trunk)],
+        **{k: out["bound"][(key, trunk)][k] for k in ("bound_ms",
+                                                       "bound_by")},
+        "library_ms": None}
+        for trunk in ("float32", "bfloat16") for key in ("B", "C")]
+    return out
 
 
 def d_phase(sm, q, seed, z, s_, half, ranges) -> None:
@@ -5220,8 +5464,9 @@ def main() -> int:
     sampled = sampled_phases(dev, card, OPTIMAL, tuner, ranges, enc_kw,
                              raw_b)
     kernels += sampled["kernels"]
-    elapsed("phases 23-25")
-    err64 = stream1_phases(dev, OPTIMAL, tuner, ranges, enc_kw)
+    elapsed("phases 23-25 and 47")
+    err64, wide = stream1_phases(dev, card, OPTIMAL, tuner, ranges, enc_kw)
+    kernels += wide["kernels"]
     elapsed("phases 6-9 and 19-22")
     phases = fine_tune_phases(dev, card, OPTIMAL, tuner)
     kernels += phases["kernels"]
@@ -5277,6 +5522,13 @@ def main() -> int:
                       "bf16": {k: v for k, v in bf16.items()
                                if k != "kernels"},
                       "stream1_float64_err": err64,
+                      "wide_stream1": {
+                          "trunk": WIDE_TRUNK,
+                          "ms": {f"{k}-{t}": v
+                                 for (k, t), v in wide["ms"].items()},
+                          "routes_ms": {f"{k}-{t}": v for (k, t), v
+                                        in wide["routes_ms"].items()},
+                          "fault_100x2": wide["fault"]},
                       "cli": cli,
                       "dropout_export_cli": new,
                       "sharded": {k: v for k, v in sharded.items()

@@ -147,14 +147,12 @@ class ModelConfig:
     # select_quad_rule): "auto" | "cheb" | "gj16".
     quad_rule: str = "auto"
     # Fused stream-1 inference encode + quadrature (ops/fused_infer.py,
-    # one CUDA kernel). "auto" = on for CUDA tensors when the activation
-    # is covered and no_units is at most 128 (the JAX "auto" has no width
-    # limit; kernel B holds a lane's units in registers, so a wider trunk
-    # takes the encoder route, which computes the same maps); "on" forces
-    # it (and raises where not covered, or at the launch for a wider
-    # trunk); "off" runs the encoder + the standalone quadrature kernel.
-    # The JAX package's "interpret" mode is accepted and means "on"
-    # (infer.py).
+    # one CUDA kernel at every width and depth: the weights resident in
+    # shared memory where they fit, streamed through it elsewhere).
+    # "auto" = on for CUDA tensors when the activation is covered, as the
+    # JAX "auto"; "on" forces it (and raises where not covered); "off" runs
+    # the encoder + the standalone quadrature kernel. The JAX package's
+    # "interpret" mode is accepted and means "on" (infer.py).
     fused_infer: str = "auto"
     # 3x3x1 trunk convolution (models/encoder.py::ConvXY): "on" and
     # "interpret" run kernel H (ops/conv3x3.py; its plain version on a CPU

@@ -64,45 +64,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "encode_act.cuh"
 #include "mma_math.cuh"
 #include "quad_math.cuh"
 
 #define QV_ENC_THREADS 384  // launch bound: 12 warps a block
 #define QV_TILE 32          // voxels a warp encodes at a time
 #define QV_QS 5             // floats of a staged head
-
-// activation codes: ops/fused_infer.py::SUPPORTED_ACTS order
-static __device__ __forceinline__ float qv_act(int act, float x) {
-  switch (act) {
-    case 0:  // relu
-      return fmaxf(x, 0.0f);
-    case 1: {  // gelu, tanh approximation (jax.nn.gelu default)
-      float inner = 0.7978845608028654f * (x + 0.044715f * (x * x * x));
-      return x * (0.5f * (1.0f + tanhf(inner)));
-    }
-    case 2:
-      return tanhf(x);
-    case 3:
-      return 1.0f / (1.0f + expf(-x));
-    case 4:  // softplus = logaddexp(x, 0)
-      return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
-    case 5:  // elu, alpha 1
-      return x > 0.0f ? x : expm1f(x);
-    case 6:  // silu
-    case 7:  // swish
-      return x * (1.0f / (1.0f + expf(-x)));
-    case 8:  // leaky_relu, slope 0.01
-      return x >= 0.0f ? x : 0.01f * x;
-    case 9:  // relu6
-      return fminf(fmaxf(x, 0.0f), 6.0f);
-    default:  // linear
-      return x;
-  }
-}
-
-static __device__ __noinline__ float qv_act_call(int act, float x) {
-  return qv_act(act, x);
-}
 
 // The trunk's products: float32 operands split into TF32 hi / lo, three
 // tensor-core products (mma_math.cuh), k-steps of 8 channels.

@@ -82,6 +82,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "encode_act.cuh"
 #include "mma_math.cuh"
 #include "quad_math.cuh"
 
@@ -90,44 +91,6 @@
 #define QV_E16_TAG_WORDS 4
 // blocks an SM the registers are sized for
 #define QV_E16_MINB(up) ((up) <= 64 ? 3 : 2)
-
-// jax.nn's activations on a bf16 x, each step rounded to bf16 as the JAX
-// package's bf16 arithmetic rounds it (the constants rounded to bf16 first,
-// as JAX's weak-typed Python floats are); the result is bf16. Codes:
-// ops/fused_infer.py::SUPPORTED_ACTS order.
-static __device__ __noinline__ float qv_act_bf16(int act, float x) {
-  switch (act) {
-    case 0:  // relu
-      return fmaxf(x, 0.0f);
-    case 1: {  // gelu, tanh approximation
-      const float x3 = qv_bf16(qv_bf16(x * x) * x);
-      const float inner =
-          qv_bf16(0.796875f * qv_bf16(x + qv_bf16(0.044677734375f * x3)));
-      const float cdf = qv_bf16(0.5f * qv_bf16(1.0f + qv_bf16(tanhf(inner))));
-      return qv_bf16(x * cdf);
-    }
-    case 2:
-      return qv_bf16(tanhf(x));
-    case 3:  // sigmoid: 1 / (1 + exp(-x))
-      return qv_bf16(1.0f / qv_bf16(1.0f + qv_bf16(expf(-x))));
-    case 4:  // softplus = logaddexp(x, 0)
-      return qv_bf16(fmaxf(x, 0.0f) +
-                     qv_bf16(log1pf(qv_bf16(expf(-fabsf(x))))));
-    case 5:  // elu, alpha 1
-      return x > 0.0f ? x : qv_bf16(expm1f(x));
-    case 6:  // silu
-    case 7: {  // swish
-      const float sg = qv_bf16(1.0f / qv_bf16(1.0f + qv_bf16(expf(-x))));
-      return qv_bf16(x * sg);
-    }
-    case 8:  // leaky_relu, slope 0.01 in bf16
-      return x >= 0.0f ? x : qv_bf16(0.010009765625f * x);
-    case 9:  // relu6
-      return fminf(fmaxf(x, 0.0f), 6.0f);
-    default:  // linear
-      return x;
-  }
-}
 
 // ---- PTX --------------------------------------------------------------------
 

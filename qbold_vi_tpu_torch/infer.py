@@ -67,7 +67,7 @@ import torch
 from .config import QBoldConfig, normalize_mode
 from .models.vi import FineTuner
 from .ops.fused_infer import (encode_q1_packed, encode_quad_fused,
-                              fused_infer_available, fused_infer_width_ok)
+                              fused_infer_available)
 from .ops.quadrature import quad_posterior_summaries
 from .ops.summarize import (mc_draws, mc_kl_map, mc_normals,
                             mc_posterior_summaries,
@@ -144,21 +144,18 @@ def to_channel_major(data: np.ndarray) -> np.ndarray:
 
 def _resolve_fused_infer(cfg, device: torch.device) -> bool:
     """ModelConfig.fused_infer -> whether stream 1 runs the fused kernel.
-    "auto" is on for CUDA devices when the activation is covered and the
-    trunk's width fits the kernel (``fused_infer_width_ok``: kernel B holds
-    a lane's units in registers, at most 128); "on" forces it (raising for
-    an uncovered activation here, for a wider trunk at the launch), on a
-    CPU device through the kernel's plain version; "interpret" (the JAX
-    package's Mosaic-interpreter mode) has no meaning here and is taken as
-    "on"."""
+    "auto" is on for CUDA devices when the activation is covered, at every
+    width and depth (the JAX rule); "on" forces it (raising for an
+    uncovered activation), on a CPU device through the kernel's plain
+    version; "interpret" (the JAX package's Mosaic-interpreter mode) has
+    no meaning here and is taken as "on"."""
     mode = normalize_mode(cfg.fused_infer, ("auto", "on", "off",
                                             "interpret"), "fused_infer")
     if mode == "off":
         return False
     ok = fused_infer_available(cfg.activation)
     if mode == "auto":
-        return (ok and fused_infer_width_ok(cfg.no_units)
-                and torch.device(device).type == "cuda")
+        return ok and torch.device(device).type == "cuda"
     if not ok:
         raise ValueError(
             f"fused_infer was forced on but activation {cfg.activation!r} "

@@ -47,8 +47,8 @@ from torch import nn
 from ..infer import _quad_kwargs, _raw_log_stds
 from ..models.encoder import _full_fp32
 from ..models.vi import FineTuner
-from ..ops.fused_infer import (_MAX_WIDTH, _weight_blob,
-                               encode_quad_fused_op, fused_infer_available)
+from ..ops.fused_infer import (_weight_blob, encode_quad_fused_op,
+                               fused_infer_available)
 from ..ops.quadrature import posterior_summaries_quadrature
 
 __all__ = ["make_serving_fn", "make_fused_serving_fn", "export_inference",
@@ -100,9 +100,6 @@ class _FusedServing(nn.Module):
         blob, self.units, self.padded_units, _ = _weight_blob(
             tuner.encoder, cfg.no_intermediate_layers, tuner.device,
             self.trunk)
-        if self.padded_units > _MAX_WIDTH:
-            raise ValueError(f"fused serving export: width {self.units} "
-                             f"above kernel B's {_MAX_WIDTH} units")
         self.register_buffer("blob", blob)
         self.n_blocks = cfg.no_intermediate_layers
         self.se_idx = tuner.scan.se_idx

@@ -16,12 +16,18 @@ packs the weights and calls the registered op
 ``torch.ops.qbold_vi_tpu_torch.encode_quad_fused`` (``encode_quad_fused_op``,
 registered when this module is imported, with a fake implementation for
 ``torch.export``; the fused serving artifact calls the same op), which
-launches the hand-written kernel of csrc/encode_quad.cu, or at bf16
-csrc/encode_quad_bf16.cu (q never leaves the chip's registers and shared
-memory) on the current stream and counts
-the launch in ``encode_quad_fused.launches`` (the bf16 trunk's kernel in
-``encode_quad_fused.bf16_launches``); for a CPU tensor it runs
+launches a hand-written kernel on the current stream (q never leaves the
+chip's registers and shared memory); for a CPU tensor it runs
 ``encode_quad_fused_plain``, the plain torch version of the same math.
+Every width and depth runs on the card, as the JAX kernel covers every
+encoder configuration; ``launch_plan``, a function of shapes alone, picks
+the design: the resident kernels of csrc/encode_quad.cu (float32) and
+csrc/encode_quad_bf16.cu (bf16), which hold the whole weight blob in
+shared memory, wherever it fits (counted in ``encode_quad_fused.launches``
+and ``.bf16_launches``), and the streamed kernels of
+csrc/encode_stream.cuh everywhere else, which stream the same blob through
+shared memory a slab at a time (``.stream_launches`` and
+``.stream_bf16_launches``).
 ``encode_q1_packed`` is the wrapper of kernel C, which shares B's encode
 routine and writes the raw head ``q (5, N)`` for the MC summaries
 (ops/summarize.py); its plain version is ``encode_q_plain``.
@@ -46,6 +52,8 @@ float32-cast features.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..models.encoder import activation_fn, normalise_data
@@ -54,7 +62,7 @@ from .quadrature import quad_tile_summaries
 
 __all__ = ["encode_quad_fused", "encode_quad_fused_op",
            "encode_quad_fused_plain", "encode_q_plain", "encode_q1_packed",
-           "fused_infer_available", "fused_infer_width_ok",
+           "fused_infer_available", "launch_plan", "LaunchPlan",
            "SUPPORTED_ACTS"]
 
 # Activations the kernel implements (csrc/encode_quad.cu::qv_act, whose
@@ -62,23 +70,26 @@ __all__ = ["encode_quad_fused", "encode_quad_fused_op",
 SUPPORTED_ACTS = ("relu", "gelu", "tanh", "sigmoid", "softplus", "elu",
                   "silu", "swish", "leaky_relu", "relu6", "linear")
 
-_WARPS = (12, 8, 4, 2, 1)       # warps per block, most that fit
-_MAX_WIDTH = 128               # csrc/encode_quad.cu::QV_ENCODE_DISPATCH
+_WARPS = (12, 8, 4, 2, 1)       # resident float32 warps a block, most that fit
+_RESIDENT_WIDTHS = (16, 32, 64, 128)  # csrc/encode_quad.cu::QV_ENCODE_DISPATCH
 # the bf16 kernels' block and round of voxels (csrc/encode_quad_bf16.cu::
 # QV_E16_THREADS, QV_E16_ROUND), and the tag words their blob starts with:
 # a magic word and the layout's number (QV_E16_TAG_WORDS words in all)
 _E16_THREADS = _E16_ROUND = 256
 _BF16_TAG = (0x51564232, 2, 0, 0)
+_NCONST = 3 * 16 + 10 * 16      # csrc/quad_math.cuh::QV_NCONST
+# the streamed kernels (csrc/encode_stream.cuh): threads a block and voxels
+# a quadrature round (QV_ST_THREADS, QV_ST_ROUND), the (MT, NCW) tiles
+# compiled (QV_ST_DISPATCH) by n-tiles a warp, largest pass first, and the
+# slabs' bytes tried, largest first (on the H100 64 KB slabs ran no faster
+# than 32 KB ones, at bf16 slower)
+_ST_THREADS = _ST_ROUND = 256
+_ST_TILES = {1: (8, 4), 2: (8, 4), 4: (8, 4, 2, 1)}
+_ST_SLAB_BYTES = (32768, 16384)
 
 
 def fused_infer_available(activation: str) -> bool:
     return activation in SUPPORTED_ACTS
-
-
-def fused_infer_width_ok(units: int) -> bool:
-    """Whether a trunk of ``units`` units fits the kernel's widest compiled
-    width (``_launch_setup`` refuses a wider one)."""
-    return _padded_width(units) <= _MAX_WIDTH
 
 
 def _stream1_weights(encoder, n_blocks: int):
@@ -298,13 +309,133 @@ def _k_step(trunk: str) -> int:
 
 
 def _padded_width(u: int) -> int:
-    """The kernel's width for U units: 16, 32, 64 or 128, one of its
-    compiled widths (csrc/encode_quad.cu::QV_ENCODE_DISPATCH); a wider
-    layer is rounded to 8, and _launch_setup refuses it."""
-    for w in (16, 32, 64, _MAX_WIDTH):
+    """The kernels' width for U units: 16, 32, 64 or 128, the resident
+    kernels' compiled widths (csrc/encode_quad.cu::QV_ENCODE_DISPATCH), and
+    past 128 a multiple of 64, whole chunks of the streamed kernels'
+    n-tiles a warp (csrc/encode_stream.cuh)."""
+    for w in _RESIDENT_WIDTHS:
         if u <= w:
             return w
-    return -(-u // 8) * 8
+    return -(-u // 64) * 64
+
+
+def _blob_floats(up: int, nb: int, t: int, trunk: str) -> int:
+    """32-bit words of ``_weight_blob``'s blob at padded width ``up``,
+    ``nb`` blocks and ``t`` taus."""
+    tp = -(-t // _k_step(trunk)) * _k_step(trunk)
+    tail = 8 + _NCONST                       # the head's bias, node table
+    if trunk == "float32":       # hi + lo fragments: 2 words a weight
+        return (2 * tp * up + 2 * nb * up * up + 16 * up + up * (1 + nb)
+                + tail)
+    # bf16 images: half a word a weight; 3 head pieces; bf16 biases
+    return (len(_BF16_TAG) + tp * up // 2 + nb * up * up // 2 + 12 * up
+            + up // 2 * (1 + nb) + tail)
+
+
+def _quad_scratch_floats(threads: int) -> int:
+    """csrc/quad_math.cuh::QV_QUAD_SCRATCH: kernel B's quadrature scratch
+    for a block of ``threads``."""
+    return 2 * 32 + 21 * threads
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How kernel B or C runs at one shape: ``design`` "resident" (the
+    whole weight blob in shared memory, csrc/encode_quad.cu or
+    encode_quad_bf16.cu) or "streamed" (csrc/encode_stream.cuh: ``mt``
+    m-tiles -- 16 mt voxels a pass -- and ``ncw`` n-tiles a warp, slabs of
+    ``ks`` k-steps, double-buffered), with the block's ``threads`` and
+    dynamic shared-memory bytes ``smem``."""
+
+    design: str
+    threads: int
+    smem: int
+    mt: int = 0
+    ncw: int = 0
+    ks: int = 0
+
+
+def _st_ncw(up: int) -> int:
+    """n-tiles a warp of the streamed kernels: the 8 warps of a block
+    cover 64 outputs at up <= 64, 128 at 128, 256 past it."""
+    return 1 if up <= 64 else 2 if up <= 128 else 4
+
+
+def _st_slabs(up: int, trunk: str) -> list:
+    """k-steps of the streamed kernels' slabs that launch_plan tries,
+    largest first: _ST_SLAB_BYTES of one chunk's n-tiles (512 B a k-step's
+    n-tile in float32, 256 in bf16), at most a block layer's k-steps."""
+    fb = 512 if trunk == "float32" else 256
+    kmax = up // _k_step(trunk)
+    return sorted({min(max(1, b // (8 * _st_ncw(up) * fb)), kmax)
+                   for b in _ST_SLAB_BYTES}, reverse=True)
+
+
+def _st_smem(up: int, t: int, trunk: str, quad: bool, mt: int,
+             ks: int) -> int:
+    """Shared-memory bytes of the streamed kernels, in the layout of
+    csrc/encode_stream.cuh: two slots of slabs of ``ks`` k-steps, the
+    activation buffers (one where a layer is one chunk), the staged rows,
+    the round's heads and, in B, the node table and the quadrature's
+    scratch (in the first activation buffer where it fits)."""
+    v, ncw, k = 16 * mt, _st_ncw(up), _k_step(trunk)
+    ks0 = -(-t // k)
+    if trunk == "float32":
+        fb, sa, sx = 512, up + 8, _xs_stride(t)
+    else:
+        fb, sa, sx = 256, up // 2 + 4, 8 * ks0 + 4
+    bufs = 1 if up <= 64 * ncw else 2
+    words = bufs * v * sa + v * sx + 5 * _ST_ROUND
+    if quad:
+        scratch = _quad_scratch_floats(_ST_ROUND)
+        words += _NCONST + (scratch if v * sa < scratch else 0)
+    return 2 * ks * 8 * ncw * fb + 4 * words
+
+
+def launch_plan(up: int, nb: int, t: int, t_in: int, trunk: str,
+                quad: bool, limit: int) -> LaunchPlan:
+    """The launch of kernel B (``quad``) or C at padded width ``up``, ``nb``
+    blocks, ``t`` taus of ``t_in`` input channels (a mask channel adds one)
+    on a card whose blocks take ``limit`` bytes of shared memory: the
+    resident design wherever its blob fits (in float32 beside the staged
+    rows of the most warps that fit), else the streamed design with the
+    largest pass of voxels, then the largest slab, that fits. Raises if
+    neither fits."""
+    _check_trunk(trunk)
+    scratch = _quad_scratch_floats if quad else (lambda threads: 0)
+    blob = _blob_floats(up, nb, t, trunk)
+    if up in _RESIDENT_WIDTHS:
+        if trunk == "bfloat16":
+            smem = 1024 + 4 * (blob - len(_BF16_TAG)
+                               + _E16_ROUND * (2 * t_in + 5)
+                               + scratch(_E16_THREADS))
+            if smem <= limit:
+                return LaunchPlan("resident", _E16_THREADS, smem)
+        else:
+            for warps in _WARPS:
+                smem = 4 * (blob + warps * 32 * (_xs_stride(t) + 5)
+                            + scratch(32 * warps))
+                if smem <= limit:
+                    return LaunchPlan("resident", 32 * warps, smem)
+    for mt in _ST_TILES[_st_ncw(up)]:
+        for ks in _st_slabs(up, trunk):
+            smem = _st_smem(up, t, trunk, quad, mt, ks)
+            if smem <= limit:
+                return LaunchPlan("streamed", _ST_THREADS, smem, mt,
+                                  _st_ncw(up), ks)
+    raise ValueError(
+        f"fused-infer kernel: no launch fits {limit} B of shared memory at "
+        f"{up} units (padded), {nb} blocks, T={t}: the streamed design's "
+        f"smallest pass needs "
+        f"{_st_smem(up, t, trunk, quad, 1, _st_slabs(up, trunk)[-1])} B")
+
+
+def _plan(up: int, nb: int, t: int, t_in: int, trunk: str, quad: bool,
+          device) -> LaunchPlan:
+    """launch_plan on this card's limit."""
+    with torch.cuda.device(device):
+        limit = _cuda.library().qv_max_dynamic_smem()
+    return launch_plan(up, nb, t, t_in, trunk, quad, limit)
 
 
 def _xs_stride(t: int) -> int:
@@ -335,47 +466,20 @@ def _launch_setup(images, encoder, *, n_blocks: int, activation: str,
                          f"channels but first_conv expects {t}")
     if not 0 <= se_idx < t:
         raise ValueError(f"se_idx {se_idx} outside the {t} tau channels")
-    if up > _MAX_WIDTH:
-        raise ValueError(f"fused-infer kernel: width U={u} above the "
-                         f"{_MAX_WIDTH} units a lane's registers hold")
     return x, channel_major, n, blob, u, up, t
-
-
-def _block_smem(blob_floats: int, t: int, trunk: str, device,
-                scratch_floats=None, t_in: int = None) -> tuple:
-    """(threads a block, shared-memory bytes) of kernel B or C. float32:
-    the most warps whose staged rows fit beside the weights in this card's
-    shared memory; bf16 (csrc/encode_quad_bf16.cu): the weights (the blob
-    past its tag) from a 1024-byte boundary, the ring of two rounds' rows
-    of t_in channels and a round's heads. ``scratch_floats(threads)``: the
-    floats of shared memory a block needs beyond the weights and its
-    staged rows (B's quadrature)."""
-    with torch.cuda.device(device):
-        limit = _cuda.library().qv_max_dynamic_smem()
-    if trunk == "bfloat16":
-        smem = 1024 + 4 * (blob_floats - len(_BF16_TAG)
-                           + _E16_ROUND * (2 * t_in + 5)
-                           + (scratch_floats(_E16_THREADS) if scratch_floats
-                              else 0))
-        if smem <= limit:
-            return _E16_THREADS, smem
-        raise ValueError(
-            f"fused-infer kernel: {smem} B of weights and staging in shared "
-            f"memory (T={t}), beyond this card's {limit} B per block")
-    for warps in _WARPS:
-        smem = 4 * (blob_floats + warps * 32 * (_xs_stride(t) + 5)
-                    + (scratch_floats(32 * warps) if scratch_floats else 0))
-        if smem <= limit:
-            return 32 * warps, smem
-    raise ValueError(
-        f"fused-infer kernel: {4 * blob_floats} B of weights (T={t}) in "
-        f"shared memory, beyond this card's {limit} B per block")
 
 
 def _entry(name: str, trunk: str):
     """The C entry of kernel B or C for the trunk's dtype."""
     return getattr(_cuda.library(),
                    name + ("_bf16" if trunk == "bfloat16" else ""))
+
+
+def _count(wrapper, plan: LaunchPlan, trunk: str) -> None:
+    """One launch of kernel B or C, counted by design and trunk."""
+    name = ("stream_" if plan.design == "streamed" else "") + (
+        "bf16_launches" if trunk == "bfloat16" else "launches")
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def _encode_args(x, n, channel_major, mask_channel, se_idx, multi_image,
@@ -430,10 +534,10 @@ def encode_quad_fused_op(x: torch.Tensor, blob: torch.Tensor, units: int,
     ``_weight_blob`` (width ``units`` padded to ``padded_units``, the
     quadrature node table at its end; a bf16 blob of another layout is
     refused, ``_check_blob_layout``); returns channel-major (means,
-    vars, raw), each (3, N), launched on the current stream and counted
-    in ``encode_quad_fused.launches`` (``bf16_launches`` for the bf16
-    trunk). ``encode_quad_fused`` and the fused serving artifact
-    (io/export_model.py) call it; it mutates none of its inputs."""
+    vars, raw), each (3, N), launched on the current stream by the design
+    ``launch_plan`` picks and counted by ``_count``. ``encode_quad_fused``
+    and the fused serving artifact (io/export_model.py) call it; it
+    mutates none of its inputs."""
     n = x.shape[1] if channel_major else x.shape[0]
     t = (x.shape[0] if channel_major else x.shape[1]) - int(mask_channel)
     outs = [torch.empty((3, n), device=x.device, dtype=torch.float32)
@@ -441,25 +545,33 @@ def encode_quad_fused_op(x: torch.Tensor, blob: torch.Tensor, units: int,
     if n == 0:
         return tuple(outs)
     _check_blob_layout(blob, trunk)
-    block, smem = _block_smem(blob.numel(), t, trunk, x.device,
-                              _cuda.library().qv_quad_scratch_floats,
-                              t + int(mask_channel))
+    if blob.numel() != _blob_floats(padded_units, n_blocks, t, trunk):
+        raise ValueError(
+            f"fused-infer kernel: a weight blob of {blob.numel()} words, not "
+            f"the {_blob_floats(padded_units, n_blocks, t, trunk)} of "
+            f"{padded_units} units (padded), {n_blocks} blocks, T={t}")
+    plan = _plan(padded_units, n_blocks, t, t + int(mask_channel), trunk,
+                 True, x.device)
+    args = _encode_args(x, n, channel_major, mask_channel, se_idx,
+                        multi_image, activation)
+    ranges = _cuda.quad_ranges(oef_range=oef_range, min_oef=min_oef,
+                               dbv_range=dbv_range, min_dbv=min_dbv,
+                               dw_coeff=dw_coeff)
+    ptrs = tuple(o.data_ptr() for o in outs)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = _entry("qv_encode_quad_fused", trunk)(
-            *_encode_args(x, n, channel_major, mask_channel, se_idx,
-                          multi_image, activation),
-            units, padded_units, n_blocks, blob.data_ptr(), blob.numel(),
-            _cuda.quad_ranges(oef_range=oef_range, min_oef=min_oef,
-                              dbv_range=dbv_range, min_dbv=min_dbv,
-                              dw_coeff=dw_coeff),
-            outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
-            int(mvg), block, smem,
-            torch.cuda.current_stream(x.device).cuda_stream)
+        if plan.design == "resident":
+            err = _entry("qv_encode_quad_fused", trunk)(
+                *args, units, padded_units, n_blocks, blob.data_ptr(),
+                blob.numel(), ranges, *ptrs, int(mvg), plan.threads,
+                plan.smem, stream)
+        else:
+            err = _entry("qv_encode_quad_stream", trunk)(
+                *args, padded_units, n_blocks, blob.data_ptr(), ranges,
+                *ptrs, int(mvg), plan.mt, plan.ncw, plan.ks, plan.threads,
+                plan.smem, stream)
     _cuda.check(err, "fused-infer")
-    if trunk == "bfloat16":
-        encode_quad_fused.bf16_launches += 1
-    else:
-        encode_quad_fused.launches += 1
+    _count(encode_quad_fused, plan, trunk)
     return tuple(outs)
 
 
@@ -481,9 +593,11 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
     """Fused stream-1 encode -> the raw head ``q (5, N)``, channel-major
     (row 4 zero for a diagonal head), with kernel B's contract for the
     layouts, the mask channel and the trunk. CUDA tensors launch kernel C
-    (counted in ``encode_q1_packed.launches``, the bf16 trunk's in
-    ``encode_q1_packed.bf16_launches``) or raise; CPU tensors run
-    ``encode_q_plain``. Unlike the TPU kernel, N is not padded."""
+    by the design ``launch_plan`` picks (counted as kernel B's, in
+    ``encode_q1_packed.launches``, ``.bf16_launches``,
+    ``.stream_launches`` and ``.stream_bf16_launches``) or raise; CPU
+    tensors run ``encode_q_plain``. Unlike the TPU kernel, N is not
+    padded."""
     kw = dict(se_idx=se_idx, multi_image=multi_image, activation=activation,
               n_blocks=n_blocks, trunk=trunk, mask_channel=mask_channel,
               input_layout=input_layout)
@@ -498,21 +612,25 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
     q = torch.empty((5, n), device=images.device, dtype=torch.float32)
     if n == 0:
         return q
-    block, smem = _block_smem(blob.numel(), t, trunk, images.device,
-                              t_in=t + int(mask_channel))
+    plan = _plan(up, n_blocks, t, t + int(mask_channel), trunk, False,
+                 images.device)
+    args = _encode_args(x, n, channel_major, mask_channel, se_idx,
+                        multi_image, activation)
+    stream = torch.cuda.current_stream(images.device).cuda_stream
     with torch.cuda.device(images.device):
-        err = _entry("qv_encode_q1", trunk)(
-            *_encode_args(x, n, channel_major, mask_channel, se_idx,
-                          multi_image, activation),
-            up, n_blocks, blob.data_ptr(), blob.numel(), q.data_ptr(),
-            block, smem, torch.cuda.current_stream(images.device).cuda_stream)
+        if plan.design == "resident":
+            err = _entry("qv_encode_q1", trunk)(
+                *args, up, n_blocks, blob.data_ptr(), blob.numel(),
+                q.data_ptr(), plan.threads, plan.smem, stream)
+        else:
+            err = _entry("qv_encode_q1_stream", trunk)(
+                *args, up, n_blocks, blob.data_ptr(), q.data_ptr(), plan.mt,
+                plan.ncw, plan.ks, plan.threads, plan.smem, stream)
     _cuda.check(err, "stream-1 encode")
-    if trunk == "bfloat16":
-        encode_q1_packed.bf16_launches += 1
-    else:
-        encode_q1_packed.launches += 1
+    _count(encode_q1_packed, plan, trunk)
     return q
 
 
-encode_quad_fused.launches = encode_quad_fused.bf16_launches = 0
-encode_q1_packed.launches = encode_q1_packed.bf16_launches = 0
+for _w in (encode_quad_fused, encode_q1_packed):
+    _w.launches = _w.bf16_launches = 0
+    _w.stream_launches = _w.stream_bf16_launches = 0

@@ -147,18 +147,88 @@ def test_fused_kernel_matches_plain(cuda_device, layout, act, units, mvg,
     _close([a.T.cpu().numpy() for a in got], [a.T.cpu().numpy() for a in ref])
 
 
-def test_fused_kernel_refuses_widths_past_its_registers(cuda_device):
-    """The kernels hold a lane's activations in registers up to 128 units;
-    a wider encoder is refused before any launch."""
-    cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=130)
+def _design_counter(units, nb, trunk, quad, t_in):
+    """The launch counter of kernel B (quad) or C at this shape: the
+    design launch_plan picks on this card, and the trunk."""
+    from qbold_vi_tpu_torch.ops import _cuda
+
+    plan = tfi.launch_plan(tfi._padded_width(units), nb, t_in - 1, t_in,
+                           trunk, quad, _cuda.library().qv_max_dynamic_smem())
+    return (("stream_" if plan.design == "streamed" else "")
+            + ("bf16_launches" if trunk == "bfloat16" else "launches"))
+
+
+# widths and depths past the resident blob: 100 and 128 units x 2 blocks in
+# float32 (the blob does not fit), 256 x 2 and 520 x 1 (past 128 units),
+# 60 x 7 (depth); 128 x 2 at bf16 stays resident. N = 20,011 ends in a
+# ragged pass and round, and channel-major at N % 4 != 0.
+@pytest.mark.parametrize("trunk", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["voxel", "channel"])
+@pytest.mark.parametrize("units,nb,act", [
+    (100, 2, "relu"), (128, 2, "gelu"), (256, 2, "relu"),
+    (520, 1, "softplus"), (60, 7, "relu")])
+def test_wide_and_deep_kernels_match_plain(cuda_device, trunk, layout, units,
+                                           nb, act):
+    """Kernels B and C at every width and depth against their plain
+    versions: float32 at the kernel tolerances (C's q at rtol 1e-4 / atol
+    3e-5, B by _close); bf16 C within BF16_ULPS bf16 ulps, B against the
+    plain quadrature of C's q at the float32 tolerances and against its
+    plain version at the JAX package's bf16 gate. One launch each, counted
+    under the design launch_plan picks."""
+    from qbold_vi_tpu_torch.ops.quadrature import quad_tile_summaries
+
+    cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=units,
+                              no_intermediate_layers=nb, activation=act,
+                              compute_dtype=("bfloat16" if trunk == "bfloat16"
+                                             else "float32"))
     tuner = _tuner(cfg, cuda_device)
-    x = torch.ones((64, SCAN.n_taus), device=cuda_device)
-    kw = dict(se_idx=SCAN.se_idx, multi_image=False, activation="relu",
-              n_blocks=cfg.no_intermediate_layers, trunk="float32")
-    before = tfi.encode_q1_packed.launches
-    with pytest.raises(ValueError, match="128 units"):
-        tfi.encode_q1_packed(x, tuner.encoder, **kw)
-    assert tfi.encode_q1_packed.launches == before
+    rng = np.random.default_rng(units + nb)
+    n = 20_011
+    x = torch.from_numpy(volume(rng, (n,), SCAN.n_taus + 1)).to(cuda_device)
+    x[:, -1] = (torch.rand(n, device=cuda_device) > 0.2).float()
+    if layout == "channel":
+        x = x.T.contiguous()
+    kw = dict(se_idx=SCAN.se_idx, multi_image=False, activation=act,
+              n_blocks=nb, trunk=trunk, mask_channel=True,
+              input_layout=layout)
+    names = [_design_counter(units, nb, trunk, quad, SCAN.n_taus + 1)
+             for quad in (True, False)]
+    before = (getattr(tfi.encode_quad_fused, names[0]),
+              getattr(tfi.encode_q1_packed, names[1]))
+    q = tfi.encode_q1_packed(x, tuner.encoder, **kw)
+    got = tfi.encode_quad_fused(x, tuner.encoder, mvg=True, **kw, **RANGES)
+    torch.cuda.synchronize()
+    assert (getattr(tfi.encode_quad_fused, names[0]) - before[0],
+            getattr(tfi.encode_q1_packed, names[1]) - before[1]) == (1, 1)
+    q_ref = tfi.encode_q_plain(x, tuner.encoder, **kw)
+    ref = tfi.encode_quad_fused_plain(x, tuner.encoder, mvg=True, **kw,
+                                      **RANGES)
+    if trunk == "float32":
+        np.testing.assert_allclose(q.cpu().numpy(), q_ref.cpu().numpy(),
+                                   **MEAN_TOL)
+        _close([g.T.cpu().numpy() for g in got],
+               [r.T.cpu().numpy() for r in ref])
+        return
+    for j in range(5):
+        _ulp_close(q[j], q_ref[j], BF16_ULPS, f"q row {j}")
+    tail = quad_tile_summaries(q[0], q[1], q[2], q[3], q[4], mvg=True,
+                               **RANGES)
+    _close([g.T.cpu().numpy() for g in got],
+           [torch.stack(t).T.cpu().numpy() for t in tail])
+    for name, g, r in zip(("means", "raw"), (got[0], got[2]),
+                          (ref[0], ref[2])):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   rtol=0.05, atol=0.03, err_msg=name)
+
+
+def test_launch_plan_scratch_is_the_kernels(cuda_device):
+    """launch_plan counts kernel B's quadrature scratch as the C side sizes
+    it (csrc/quad_math.cuh::QV_QUAD_SCRATCH)."""
+    from qbold_vi_tpu_torch.ops import _cuda
+
+    for threads in (128, 256, 384):
+        assert (tfi._quad_scratch_floats(threads)
+                == _cuda.library().qv_quad_scratch_floats(threads))
 
 
 @pytest.mark.parametrize("layout", ["voxel", "channel"])
@@ -369,11 +439,11 @@ def test_posterior_maps_on_card(cuda_device, use_first_op):
            [means[1], ref["stds"], ref["raw_log_stds"]])
 
 
-def test_wide_stream1_takes_the_encoder_route_on_card(cuda_device):
-    """At 256 units "auto" runs stream 1 through the encoder and kernel A
-    (kernel B holds at most 128 units a lane) and matches the plain route
-    on the CPU at test_torch_infer.py's tolerances; a forced "on" still
-    meets the kernel's width refusal, before any launch."""
+def test_auto_at_256_units_launches_b_not_a(cuda_device):
+    """At 256 units x 2 blocks "auto" runs stream 1 through kernel B (the
+    streamed design), not the encoder and kernel A, and matches the plain
+    route on the CPU at test_torch_infer.py's tolerances; a forced "on"
+    runs the same kernel."""
     cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=256,
                               compute_dtype="float32")
     gpu = _tuner(cfg, cuda_device)
@@ -381,12 +451,13 @@ def test_wide_stream1_takes_the_encoder_route_on_card(cuda_device):
     rng = np.random.default_rng(3)
     data = volume(rng, (3, 12, 12, 3), SCAN.n_taus + 1)
     data[..., -1] = rng.uniform(size=data.shape[:-1]) > 0.3
-    counts = (tfi.encode_quad_fused.launches,
-              tq.quad_posterior_summaries.launches)
+    counters = (lambda: tfi.encode_quad_fused.stream_launches,
+                lambda: tfi.encode_quad_fused.launches,
+                lambda: tq.quad_posterior_summaries.launches)
+    counts = [c() for c in counters]
     got = infer.posterior_maps(gpu, data, use_first_op=True)
-    moved = (tfi.encode_quad_fused.launches - counts[0],
-             tq.quad_posterior_summaries.launches - counts[1])
-    assert moved == (0, 2)
+    moved = tuple(c() - n for c, n in zip(counters, counts))
+    assert moved[0] > 0 and moved[1:] == (0, 0), moved
     ref = infer.posterior_maps(cpu, data, use_first_op=True)
     tol = dict(rtol=1e-3, atol=3e-5)
     for key in ("oef", "dbv", "r2p", "raw_log_stds"):
@@ -395,9 +466,10 @@ def test_wide_stream1_takes_the_encoder_route_on_card(cuda_device):
     assert_vars_close(got["stds"], ref["stds"], means, **tol)
     forced = _tuner(dataclasses.replace(cfg, fused_infer="on"), cuda_device)
     forced.load_state_dict(gpu.state_dict())
-    with pytest.raises(ValueError, match="128 units"):
-        infer.posterior_maps(forced, data, use_first_op=True)
-    assert tfi.encode_quad_fused.launches == counts[0]
+    again = infer.posterior_maps(forced, data, use_first_op=True)
+    assert tfi.encode_quad_fused.stream_launches - counts[0] == 2 * moved[0]
+    for key in ("oef", "dbv", "r2p", "stds", "raw_log_stds"):
+        np.testing.assert_array_equal(again[key], got[key], err_msg=key)
 
 
 @pytest.mark.parametrize("use_first_op", [True, False],
@@ -1329,16 +1401,15 @@ def test_kernel_b_op_matches_the_direct_launch(cuda_device, layout, trunk):
         x, tuner.encoder, n_blocks=kw["n_blocks"], activation=kw["activation"],
         trunk=trunk, mask_channel=True, input_layout=layout,
         se_idx=kw["se_idx"])
-    block, smem = tfi._block_smem(blob.numel(), t, trunk, x.device,
-                                  _cuda.library().qv_quad_scratch_floats,
-                                  t_in=t + 1)
+    plan = tfi._plan(up, kw["n_blocks"], t, t + 1, trunk, True, x.device)
+    assert plan.design == "resident"
     ref = [torch.empty((3, n), device=cuda_device) for _ in range(3)]
     err = tfi._entry("qv_encode_quad_fused", trunk)(
         *tfi._encode_args(xs, n, cm, True, kw["se_idx"], kw["multi_image"],
                           kw["activation"]),
         u, up, kw["n_blocks"], blob.data_ptr(), blob.numel(),
-        _cuda.quad_ranges(**RANGES), *(r.data_ptr() for r in ref), 1, block,
-        smem, torch.cuda.current_stream().cuda_stream)
+        _cuda.quad_ranges(**RANGES), *(r.data_ptr() for r in ref), 1,
+        plan.threads, plan.smem, torch.cuda.current_stream().cuda_stream)
     _cuda.check(err, "B direct")
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
@@ -1391,6 +1462,39 @@ def test_fused_artifact_reloads_in_a_fresh_process(cuda_device, tmp_path):
         for key, r in zip(("means", "stds", "raw_log_stds"), ref):
             np.testing.assert_array_equal(out[key], r.cpu().numpy(),
                                           err_msg=key)
+
+
+@pytest.mark.parametrize("trunk", ["float32", "bfloat16"])
+def test_fused_artifact_at_256_units(cuda_device, tmp_path, trunk):
+    """The fused .pt2 at 256 units x 2 blocks (kernel B's streamed design)
+    exports, saves, reloads and gives the in-process kernel-B route's maps
+    bit for bit, one streamed launch a call."""
+    from qbold_vi_tpu_torch.io import export_model as em
+
+    cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=256,
+                              compute_dtype=trunk)
+    tuner = _tuner(cfg, cuda_device)
+    shape = (1, 24, 20, 4)
+    path = str(tmp_path / "fused256.pt2")
+    em.save_exported(em.export_inference(tuner, fused=True,
+                                         platforms=("cuda",),
+                                         example_shape=shape), path)
+    art = em.load_exported(path)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(np.ascontiguousarray(
+        volume(rng, shape, 12).reshape(-1, 12).T)).to(cuda_device)
+    counter = "stream_bf16_launches" if trunk == "bfloat16" else \
+        "stream_launches"
+    before = getattr(tfi.encode_quad_fused, counter)
+    out = art(x)
+    torch.cuda.synchronize()
+    assert getattr(tfi.encode_quad_fused, counter) == before + 1
+    ref = tfi.encode_quad_fused(
+        x, tuner.encoder, se_idx=SCAN.se_idx, multi_image=False,
+        activation="relu", n_blocks=2, trunk=trunk, mvg=True, **RANGES,
+        mask_channel=True, input_layout="channel")
+    for key, r in zip(("means", "stds", "raw_log_stds"), ref):
+        assert torch.equal(out[key], r), key
 
 
 def test_default_artifact_on_the_card(cuda_device, tmp_path):

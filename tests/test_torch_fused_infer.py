@@ -179,6 +179,60 @@ def test_bf16_trunk_matches_jax_kernel(name, cfg, scan, layout, mask):
     assert np.abs(q32 - q).max() > 0
 
 
+# Widths and depths past the resident blob (65-128 units x 2 in float32)
+# and past 128 units, where the card runs the streamed kernels: the port's
+# plain versions against the JAX kernel in the interpreter, relu and a
+# smooth activation, both layouts, with the mask.
+WIDE_CASES = [
+    ("100x2-relu-channel", 100, 2, "relu", "float32", "channel"),
+    ("256x2-gelu-voxel", 256, 2, "gelu", "float32", "voxel"),
+    ("520x1-relu-voxel", 520, 1, "relu", "float32", "voxel"),
+    ("100x2-softplus-voxel-bf16", 100, 2, "softplus", "bfloat16", "voxel"),
+    ("256x2-relu-channel-bf16", 256, 2, "relu", "bfloat16", "channel"),
+    ("520x1-softplus-channel-bf16", 520, 1, "softplus", "bfloat16",
+     "channel"),
+]
+
+
+@pytest.mark.parametrize("name,units,nb,act,trunk,layout", WIDE_CASES,
+                         ids=[c[0] for c in WIDE_CASES])
+def test_wide_and_deep_match_jax_kernel(name, units, nb, act, trunk, layout):
+    """Kernel C's plain version (encode_q_plain) against the JAX kernel C
+    at Q_TOL in float32 and within BF16_ULPS bf16 ulps of q's largest
+    magnitude in bf16 (test_bf16_trunk_matches_jax_kernel's gate), and
+    kernel B's plain version against the JAX kernel B (interpreted): in
+    float32 at test_matches_jax_kernel's tolerances; in bf16 at the JAX
+    package's bf16 gate, rtol 0.05 / atol 0.03 -- at 256 units a feature
+    whose float32 sum rounds to the other bf16 neighbour moves q by ~1e-4,
+    inside q's ulp gate but past the float32 summaries' tolerance."""
+    cfg = dataclasses.replace(
+        OPT, no_units=units, no_intermediate_layers=nb, activation=act,
+        compute_dtype=trunk)
+    ref, got, (jt, params, tuner, images) = _run(
+        cfg, SCAN, (1, 7, 5, 3), 2, mask_channel=True, layout=layout,
+        trunk=trunk)
+    if trunk == "float32":
+        np.testing.assert_allclose(got[0], ref[0], err_msg="means",
+                                   **MEAN_TOL)
+        assert_vars_close(got[1].T, ref[1].T, ref[0].T, **VAR_TOL)
+        np.testing.assert_allclose(got[2], ref[2], err_msg="raw", **Q_TOL)
+    else:
+        for name, g, r in zip(("means", "vars", "raw"), got, ref):
+            np.testing.assert_allclose(g, r, rtol=0.05, atol=0.03,
+                                       err_msg=name)
+    x = images.reshape(-1, SCAN.n_taus)
+    kw = dict(_enc_kw(cfg, SCAN), trunk=trunk)
+    q_ref = np.asarray(jpi.encode_q1_packed(
+        jnp.asarray(x), params["encoder"], rows=64, pad_multiple=64,
+        interpret=True, **kw))[:, :x.shape[0]]
+    q = tfi.encode_q_plain(torch.from_numpy(x), tuner.encoder, **kw).numpy()
+    if trunk == "float32":
+        np.testing.assert_allclose(q, q_ref, **Q_TOL)
+    else:
+        np.testing.assert_allclose(q, q_ref, rtol=0,
+                                   atol=BF16_ULPS * bf16_ulp(q_ref))
+
+
 def test_bf16_trunk_other_activations_at_the_jax_gate():
     """gelu, tanh, sigmoid, silu (swish's function), leaky_relu and relu6
     at the JAX package's bf16 gate (rtol 0.05 / atol 0.03), one
@@ -339,7 +393,7 @@ def _width_tuner(units, activation="relu"):
     return cfg, port_tuner(cfg, SCAN, params)
 
 
-@pytest.mark.parametrize("units", [13, 30, 60])
+@pytest.mark.parametrize("units", [13, 30, 60, 256])
 def test_weight_blob_unpacks_to_the_encoder(units):
     """Each layer's fragments hold hi = tf32(w) and lo = tf32(w - hi) of
     the encoder's weight at (n, k) = (8j + g, 8s + 2t [+ 1]), zeros past U
@@ -347,7 +401,9 @@ def test_weight_blob_unpacks_to_the_encoder(units):
     cfg, tuner = _width_tuner(units)
     nb = cfg.no_intermediate_layers
     blob, u, up, t = tfi._weight_blob(tuner.encoder, nb, torch.device("cpu"))
-    assert (u, up, t) == (units, {13: 16, 30: 32, 60: 64}[units], 11)
+    assert (u, up, t) == (units, {13: 16, 30: 32, 60: 64, 256: 256}[units],
+                          11)
+    assert blob.numel() == tfi._blob_floats(up, nb, t, "float32")
     w0, wb, wf, b0, bb, bf = _blob_parts(blob, t, up, nb)
     wfc, bfc, wbs, bbs, wft, bft = tfi._stream1_weights(tuner.encoder, nb)
 
@@ -548,7 +604,7 @@ def _chain_in_fragments_bf16(x, encoder, *, se_idx, multi_image, activation,
     return q.reshape(-1, 8)[:n, :5].T
 
 
-@pytest.mark.parametrize("units", [13, 30, 60, 128])
+@pytest.mark.parametrize("units", [13, 30, 60, 128, 256])
 def test_bf16_weight_blob_unpacks_to_the_encoder(units):
     """The bf16 blob starts with its layout tag; each layer's image, read
     as the kernel's descriptors address it, holds bf16(w) at (n, k), zeros
@@ -560,6 +616,7 @@ def test_bf16_weight_blob_unpacks_to_the_encoder(units):
     blob, u, up, t = tfi._weight_blob(tuner.encoder, nb, torch.device("cpu"),
                                       "bfloat16")
     assert (u, up, t) == (units, tfi._padded_width(units), 11)
+    assert blob.numel() == tfi._blob_floats(up, nb, t, "bfloat16")
     tag, w0, wb, wf, b0, bb, bf = _blob_parts_bf16(blob, t, up, nb)
     assert tuple(tag.tolist()) == tfi._BF16_TAG
     wfc, bfc, wbs, bbs, wft, bft = tfi._stream1_weights(tuner.encoder, nb)
@@ -702,3 +759,162 @@ def test_fused_op_refuses_a_bf16_blob_of_another_layout():
     f32, *_ = tfi._weight_blob(tuner.encoder, nb, torch.device("cpu"))
     tfi._check_blob_layout(f32, "float32")
 
+
+
+# ---- the launch plan and the streamed kernels' slab walk --------------------
+
+H100_SMEM = 232_448       # shared memory a block can take on the H100
+
+
+@pytest.mark.parametrize("quad", [True, False], ids=["B", "C"])
+@pytest.mark.parametrize("trunk", ["float32", "bfloat16"])
+def test_launch_plan_takes_every_width_and_depth(trunk, quad):
+    """launch_plan has a launch for every width and depth of the grid
+    within the H100's shared memory, and keeps the resident design at
+    OPTIMAL (60 units x 2 blocks). At 100 x 2 in float32 the resident blob
+    does not fit (72,280 floats): the plan streams the weights."""
+    for units in (1, 13, 60, 64, 65, 100, 128, 129, 200, 256, 520, 1024):
+        up = tfi._padded_width(units)
+        assert up >= units
+        for nb in (1, 2, 3, 7, 12):
+            plan = tfi.launch_plan(up, nb, 11, 12, trunk, quad, H100_SMEM)
+            assert 0 < plan.smem <= H100_SMEM, (units, nb, plan)
+            assert plan.design in ("resident", "streamed")
+            if plan.design == "streamed":
+                assert (plan.mt, plan.ncw) in {
+                    (mt, ncw) for ncw, mts in tfi._ST_TILES.items()
+                    for mt in mts}
+                assert plan.threads == 256 and plan.ks >= 1
+                assert tfi._ST_ROUND % (16 * plan.mt) == 0
+    opt = tfi.launch_plan(64, 2, 11, 12, trunk, quad, H100_SMEM)
+    assert opt.design == "resident"
+    assert opt.threads == (384 if trunk == "float32" else 256)
+    if trunk == "float32":
+        assert tfi._blob_floats(128, 2, 11, trunk) == 72_280
+        assert tfi.launch_plan(128, 2, 11, 12, trunk, quad,
+                               H100_SMEM).design == "streamed"
+    with pytest.raises(ValueError, match="no launch fits"):
+        tfi.launch_plan(1024, 2, 11, 12, trunk, quad, 64 * 1024)
+
+
+def _stream_walk(up, nb, t, trunk, plan):
+    """The slabs a pass of csrc/encode_stream.cuh walks, in its order
+    (qv_st_body's issue): (layer, first k-step, k-steps, first n-tile,
+    n-tiles) -- the first layer's k-slabs chunk by chunk, then each
+    block's."""
+    k = tfi._k_step(trunk)
+    nt, ks0, ksh, cn = up // 8, -(-t // k), up // k, 8 * plan.ncw
+    nch = -(-nt // cn)
+    for layer in range(nb + 1):
+        kl = ks0 if layer == 0 else ksh
+        for c in range(nch):
+            for k0 in range(0, kl, plan.ks):
+                yield (layer, k0, min(plan.ks, kl - k0), c * cn,
+                       min(cn, nt - c * cn))
+
+
+@pytest.mark.parametrize("trunk", ["float32", "bfloat16"])
+def test_streamed_slabs_unpack_to_the_encoder(trunk):
+    """At 256 units x 2 blocks, the streamed kernels' slabs -- the blob's
+    bytes copied as qv_st_body copies them into a slot, then read as each
+    warp reads its B fragments (lane 4g + t) -- hold every layer's weight
+    at (n, k) exactly once: float32's hi / lo TF32 splits, bf16's bf16
+    values, zeros past U and T. The head's fragments and the biases, read
+    where qv_st_blob points, hold the head and the biases."""
+    cfg, tuner = _width_tuner(256)
+    nb, up = cfg.no_intermediate_layers, 256
+    blob, u, _, t = tfi._weight_blob(tuner.encoder, nb, torch.device("cpu"),
+                                     trunk)
+    plan = tfi.launch_plan(up, nb, t, t + 1, trunk, True, H100_SMEM)
+    assert plan.design == "streamed"
+    f32 = trunk == "float32"
+    k, fb = (8, 512) if f32 else (16, 256)
+    nt, ks0, cn = up // 8, -(-t // k), 8 * plan.ncw
+    raw = blob.numpy().view(np.uint8)[0 if f32 else 16:]
+    layer_off = [0] + [ks0 * nt * fb + i * (up // k) * nt * fb
+                       for i in range(nb)]
+    wfc, bfc, wbs, bbs, wft, bft = tfi._stream1_weights(tuner.encoder, nb)
+    lane = np.arange(32)
+    g, tt = lane // 4, lane % 4
+    got = [np.full((2, up, k * (ks0 if i == 0 else up // k)), np.nan,
+                   np.float32) for i in range(nb + 1)]
+    for layer, k0, nk, j0, nj in _stream_walk(up, nb, t, trunk, plan):
+        slot = np.zeros(plan.ks * cn * fb, np.uint8)
+        for kk in range(nk):
+            src = layer_off[layer] + ((k0 + kk) * nt + j0) * fb
+            slot[kk * cn * fb:kk * cn * fb + nj * fb] = raw[src:src + nj * fb]
+        for w in range(8):
+            jw = j0 + w * plan.ncw
+            if jw >= nt:
+                continue
+            for s_ in range(nk):
+                for j in range(plan.ncw):
+                    grp = slot[(s_ * cn + w * plan.ncw + j) * fb:][:fb]
+                    n_ = (jw + j) * 8 + g
+                    kb = (k0 + s_) * k
+                    if f32:
+                        v = grp.view(np.float32).reshape(32, 4)
+                        for h in range(2):        # (b0, b1) hi, then lo
+                            for pair in range(2):
+                                dst = got[layer][h, n_, kb + 2 * tt + pair]
+                                assert np.isnan(dst).all()
+                                got[layer][h, n_, kb + 2 * tt + pair] = \
+                                    v[:, 2 * h + pair]
+                    else:
+                        words = grp.view(np.uint32)
+                        for half, word in enumerate((words[:32],
+                                                     words[32:])):
+                            b = torch.from_numpy(word.view(np.int32).copy())
+                            pairs = b.view(torch.bfloat16).float().numpy()
+                            for pair in range(2):
+                                col = kb + 8 * half + 2 * tt + pair
+                                assert np.isnan(got[layer][0, n_, col]).all()
+                                got[layer][0, n_, col] = pairs[pair::2]
+    for layer, w in enumerate([wfc] + list(wbs)):
+        wp = torch.zeros((up, got[layer].shape[2]))
+        wp[:w.shape[0], :w.shape[1]] = w
+        if f32:
+            hi = tfi._tf32(wp)
+            assert np.array_equal(got[layer][0], hi.numpy()), layer
+            assert np.array_equal(got[layer][1], tfi._tf32(wp - hi).numpy())
+        else:
+            assert np.array_equal(got[layer][0],
+                                  wp.to(torch.bfloat16).float().numpy())
+    # the head, read from global memory at qv_st_blob's wf, k-step by k-step
+    wf_off = layer_off[-1] + (up // k) * nt * fb
+    head = np.zeros((8, up))
+    for piece in range(1 if f32 else 3):
+        for ks in range(up // k):
+            grp = raw[wf_off + piece * (up // k) * fb + ks * fb:][:fb]
+            if f32:
+                v = grp.view(np.float32).reshape(32, 4).astype(np.float64)
+                for pair in range(2):
+                    head[g, ks * 8 + 2 * tt + pair] += (v[:, pair]
+                                                        + v[:, 2 + pair])
+            else:
+                words = grp.view(np.uint32)
+                for half, word in enumerate((words[:32], words[32:])):
+                    b = torch.from_numpy(word.view(np.int32).copy())
+                    pairs = b.view(torch.bfloat16).double().numpy()
+                    for pair in range(2):
+                        head[g, ks * 16 + 8 * half + 2 * tt + pair] += \
+                            pairs[pair::2]
+    ref = np.zeros((8, up))
+    ref[:5, :u] = wft.double().numpy()
+    tol = 2.0 ** -21 * np.abs(ref) if f32 else 0.0
+    assert (np.abs(head - ref) <= tol).all()
+    # the biases (layer l's at wf + head pieces + l x its bytes), the
+    # head's float32 bias, then the node table
+    bias_off = wf_off + (1 if f32 else 3) * (up // k) * fb
+    bb = 4 * up if f32 else 2 * up
+    for layer, b in enumerate([bfc[:, 0]] + list(bbs[..., 0])):
+        cut = raw[bias_off + layer * bb:][:bb]
+        got_b = (cut.view(np.float32) if f32 else torch.from_numpy(
+            cut.view(np.int16).copy()).view(torch.bfloat16).float().numpy())
+        want = torch.zeros(up)
+        want[:u] = b if f32 else b.to(torch.bfloat16).float()
+        assert np.array_equal(got_b, want.numpy()), layer
+    bf_off = bias_off + (nb + 1) * bb
+    assert np.array_equal(raw[bf_off:bf_off + 32].view(np.float32)[:5],
+                          bft[:, 0].numpy())
+    assert raw.size == bf_off + 4 * (8 + tfi._NCONST)

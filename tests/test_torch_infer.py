@@ -173,14 +173,17 @@ def test_method_and_mode_validation():
 
 
 def test_auto_fused_infer_follows_the_kernel_width():
-    """"auto" leaves stream 1's fused kernel at the widths kernel B holds
-    (128 units) and takes the encoder route above them; a forced "on" keeps
-    the kernel, whose launch refuses the width on the card."""
+    """"auto" turns stream 1's fused kernel on at every width and depth on
+    a CUDA device, as the JAX "auto" does (kernels B and C stream the
+    weights where the resident blob does not fit): 100 and 128 units x 2
+    blocks, past 128 units, 60 x 7; a forced "on" too."""
     cuda = torch.device("cuda")
     cfg = tcfg.OPTIMAL.model
-    for units, want in ((128, True), (129, False), (256, False)):
-        c = dataclasses.replace(cfg, no_units=units)
-        assert tinfer._resolve_fused_infer(c, cuda) is want, units
+    for units, nb in ((60, 2), (100, 2), (128, 2), (129, 2), (256, 2),
+                      (520, 1), (1024, 2), (60, 7)):
+        c = dataclasses.replace(cfg, no_units=units,
+                                no_intermediate_layers=nb)
+        assert tinfer._resolve_fused_infer(c, cuda) is True, (units, nb)
     wide = dataclasses.replace(cfg, no_units=256, fused_infer="on")
     assert tinfer._resolve_fused_infer(wide, cuda) is True
 

@@ -4,8 +4,10 @@ B's quadrature tail alone) on four head mixes, and kernel E (summarize.cu)
 on one subject, with each build's errors and its registers, spills, stack
 frame, shared memory, blocks an SM and SASS instructions.
 
-    python3 tools/bench_stream1.py [--dtype float32|bfloat16] [--only-copies]
-        [--row-blob SRC ...] [--package DIR] [SRC ...]
+    python3 tools/bench_stream1.py [--dtype float32|bfloat16|both]
+        [--units U] [--blocks NB] [--sweep] [--only-copies]
+        [--row-blob SRC ...]
+        [--package DIR] [SRC ...]
 
 Run it from the repository's root on a machine with the card, as
 ``env PYTHONPATH=. python3 tools/bench_stream1.py _chip_checkout/<copy>/
@@ -25,8 +27,16 @@ activation columns a thread; the tool packs that blob itself.
 
 The request is OPTIMAL's stream-1 serving request: 1,032,192 voxels
 (14 x 96 x 96 x 8), 11 taus + a mask channel, voxel-major, U 60, 2
-blocks, MVG, relu, random weights (``init_params`` seed 0). Per build it
-prints:
+blocks, MVG, relu, random weights (``init_params`` seed 0); ``--units``
+and ``--blocks`` change the trunk's width and depth (``init_params`` of
+that configuration, seed 0), and kernels B and C then run the design
+``fused_infer.launch_plan`` picks there: the resident entries
+(``qv_encode_quad_fused``, ``qv_encode_q1``) or the streamed ones
+(``qv_encode_quad_stream``, ``qv_encode_q1_stream``, kernels
+``qv_encode_quad_stream_kernel`` and ``qv_encode_q_stream_kernel``; an
+edited copy of ``csrc/encode_stream.cu`` or ``encode_stream_bf16.cu``
+keeps their C interface and the plan's shared-memory layout). Per build
+it prints:
 
 * B (``qv_encode_quad_fused``): means / vars / raw against the plain
   version; C (``qv_encode_q1``): q against the plain version and against
@@ -66,10 +76,18 @@ prints:
 
 ``--package DIR`` imports ``qbold_vi_tpu_torch`` from DIR (another
 checkout, e.g. the parent's unpacked by ``git archive`` into
-``_chip_checkout/parent``) and times only B, C and A through that
-package's wrappers, with their errors, C's head against a float64 head
-on the plain version's features (``chip_smoke.head_f64_err``) and B
-beside C + A: the way to time two commits in one call.
+``_chip_checkout/parent``, or ``.`` for this one) and times only B, C and
+A through that package's wrappers, with their errors, C's head against a
+float64 head on the plain version's features (``chip_smoke.head_f64_err``)
+and B beside C + A: the way to time two commits in one call, in turns
+(parent, change, change, parent; ``--dtype both`` runs both trunks in
+one process).
+
+``--sweep`` times B and C (errors against the plain versions, device ms)
+under every streamed plan that fits the card's shared memory at the
+request's width and depth: each tile (m-tiles a pass) of
+``fused_infer._ST_TILES`` and each slab of ``fused_infer._st_slabs`` --
+the measurement behind ``launch_plan``'s order.
 
 ``--dtype bfloat16`` runs B and C at trunk="bfloat16" (the entries
 ``qv_encode_quad_fused_bf16`` and ``qv_encode_q1_bf16``, kernels
@@ -89,6 +107,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import re
 import subprocess
 import sys
@@ -124,6 +143,8 @@ S, SEED = 200, 3
 S_KL = 100
 ENTRIES = ("qv_quad_posterior_summaries", "qv_encode_quad_fused",
            "qv_encode_q1", "qv_encode_quad_fused_bf16", "qv_encode_q1_bf16",
+           "qv_encode_quad_stream", "qv_encode_q1_stream",
+           "qv_encode_quad_stream_bf16", "qv_encode_q1_stream_bf16",
            "qv_mc_summaries", "qv_mc_kl_map", "qv_mc_kl")
 # C entries of earlier builds that the package no longer has: the earlier
 # kernel E took (grid, block), one thread a voxel
@@ -170,16 +191,19 @@ def bind(lib):
     return lib
 
 
-def resources(log: str, kernels: dict) -> dict:
+def resources(log: str, kernels: dict, inst: str) -> dict:
     """{kernel symbol: (registers, static shared bytes, 'stack / spill'
     text)} of ``kernels``' symbols from ptxas's --resource-usage report
-    (of a bf16 kernel's widths, the request's: Up = 64)."""
+    (of a templated kernel, the request's instantiation ``inst``, e.g.
+    "ILi64E" for a bf16 resident kernel at Up = 64)."""
     out = {}
     lines = log.splitlines()
     for i, line in enumerate(lines):
         m = re.search(r"Function properties for \S*?(qv_\w+_kernel)", line)
+        templated = "bf16" in m.group(1) or "stream" in m.group(1) if m \
+            else False
         if (m and m.group(1) in kernels.values() and i + 2 < len(lines)
-                and ("bf16" not in m.group(1) or "ILi64E" in line)):
+                and (not templated or inst in line)):
             regs = re.search(r"Used (\d+) registers", lines[i + 2])
             smem = re.search(r"(\d+) bytes smem", lines[i + 2])
             out[m.group(1)] = (int(regs.group(1)) if regs else -1,
@@ -224,21 +248,25 @@ class Calls:
     def __init__(self, lib, row_blob, ctx):
         self.lib, self.ctx = lib, ctx
         x, enc = ctx["x"], ctx["encoder"]
-        nb = OPTIMAL.model.no_intermediate_layers
+        self.nb = nb = ctx["kw"]["n_blocks"]
         if row_blob:
             self.blob, self.u, self.up, self.block, self.smem = row_blob_setup(
                 x, enc, nb)
             self.block_b, self.smem_b = self.block, self.smem
+            self.plan_b = self.plan_c = None
         else:
             _, _, _, self.blob, self.u, self.up, t = fi._launch_setup(
                 x, enc, trunk=ctx["trunk"], **ctx["setup"])
-            self.block, self.smem = fi._block_smem(
-                self.blob.numel(), t, ctx["trunk"], x.device, t_in=t + 1)
-            # kernel B's, with its quadrature's scratch
-            self.block_b, self.smem_b = fi._block_smem(
-                self.blob.numel(), t, ctx["trunk"], x.device,
-                _cuda.library().qv_quad_scratch_floats, t_in=t + 1)
+            # kernel B's plan counts its quadrature's scratch
+            self.plan_b, self.plan_c = (
+                fi._plan(self.up, nb, t, t + 1, ctx["trunk"], quad_, x.device)
+                for quad_ in (True, False))
+            self.block_b, self.smem_b = self.plan_b.threads, self.plan_b.smem
+            self.block, self.smem = self.plan_c.threads, self.plan_c.smem
         self.stream = torch.cuda.current_stream().cuda_stream
+
+    def streamed(self) -> bool:
+        return self.plan_b is not None and self.plan_b.design == "streamed"
 
     def enc_args(self, act):
         c = self.ctx
@@ -247,20 +275,32 @@ class Calls:
                                act or c["kw"]["activation"])
 
     def b(self, act=None):
-        o = self.ctx["b_out"]
-        err = getattr(self.lib, "qv_encode_quad_fused" + self.ctx["tag"])(
-            *self.enc_args(act), self.u, self.up,
-            OPTIMAL.model.no_intermediate_layers, self.blob.data_ptr(),
-            self.blob.numel(), _cuda.quad_ranges(**self.ctx["ranges"]),
-            *(t.data_ptr() for t in o), 1, self.block_b, self.smem_b,
-            self.stream)
+        o = [t.data_ptr() for t in self.ctx["b_out"]]
+        ranges = _cuda.quad_ranges(**self.ctx["ranges"])
+        if self.streamed():
+            p = self.plan_b
+            err = getattr(self.lib, "qv_encode_quad_stream" + self.ctx["tag"])(
+                *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
+                ranges, *o, 1, p.mt, p.ncw, p.ks, p.threads, p.smem,
+                self.stream)
+        else:
+            err = getattr(self.lib, "qv_encode_quad_fused" + self.ctx["tag"])(
+                *self.enc_args(act), self.u, self.up, self.nb,
+                self.blob.data_ptr(), self.blob.numel(), ranges, *o, 1,
+                self.block_b, self.smem_b, self.stream)
         _cuda.check(err, "B")
 
     def c(self, act=None):
-        err = getattr(self.lib, "qv_encode_q1" + self.ctx["tag"])(
-            *self.enc_args(act), self.up, OPTIMAL.model.no_intermediate_layers,
-            self.blob.data_ptr(), self.blob.numel(),
-            self.ctx["q_out"].data_ptr(), self.block, self.smem, self.stream)
+        q = self.ctx["q_out"].data_ptr()
+        if self.streamed():
+            p = self.plan_c
+            err = getattr(self.lib, "qv_encode_q1_stream" + self.ctx["tag"])(
+                *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
+                q, p.mt, p.ncw, p.ks, p.threads, p.smem, self.stream)
+        else:
+            err = getattr(self.lib, "qv_encode_q1" + self.ctx["tag"])(
+                *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
+                self.blob.numel(), q, self.block, self.smem, self.stream)
         _cuda.check(err, "C")
 
     def a(self, mix="C rows", block=quad.QUAD_BLOCK):
@@ -299,8 +339,14 @@ class Calls:
         _cuda.check(err, "D")
 
 
-def context(dev, trunk="float32"):
-    cfg, scan = OPTIMAL.model, OPTIMAL.scan
+def trunk_config(units, blocks):
+    """OPTIMAL's model at the trunk's width and depth."""
+    return dataclasses.replace(OPTIMAL.model, no_units=units,
+                               no_intermediate_layers=blocks)
+
+
+def context(dev, trunk="float32", units=60, blocks=2):
+    cfg, scan = trunk_config(units, blocks), OPTIMAL.scan
     tuner = FineTuner(cfg, scan, device=dev)
     tuner.load_state_dict(init_params(cfg, scan,
                                       torch.Generator().manual_seed(0)))
@@ -393,13 +439,13 @@ def errors(calls: Calls, ctx) -> str:
                 f"A {mix}", [t.T for t in got], ctx["a_plain"][mix])
                 + f", vs float64 {f64_err(got, ctx['a_f64'][mix])} (plain "
                 f"{f64_err(ctx['a_plain'][mix], ctx['a_f64'][mix])})")
-    if hasattr(lib, "qv_encode_quad_fused" + ctx["tag"]):
+    if hasattr(lib, entry(calls, "B", ctx)):
         calls.b()
         torch.cuda.synchronize()
         out.append("B vs plain means / vars / raw " + " / ".join(
             f"{float((g - r).abs().max()):.2e}"
             for g, r in zip(ctx["b_out"], ctx["b_plain"])))
-    if hasattr(lib, "qv_encode_q1" + ctx["tag"]):
+    if hasattr(lib, entry(calls, "C", ctx)):
         calls.c()
         torch.cuda.synchronize()
         q, q64 = ctx["q_out"], ctx["q64"]
@@ -447,13 +493,34 @@ def timed(label: str, fn, symbol: str) -> str:
             f"({cuda_ms(fn, reps=10):.4f})")
 
 
+def entry(calls, key, ctx) -> str:
+    """The C entry of kernel B or C on this build's plan and trunk."""
+    stem = {"B": "qv_encode_quad_", "C": "qv_encode_q1"}[key]
+    if calls.streamed():
+        stem += "stream" if key == "B" else "_stream"
+    elif key == "B":
+        stem += "fused"
+    return stem + ctx["tag"]
+
+
+def bc_symbols(plan, trunk) -> tuple:
+    """(B's, C's) kernel symbols on this plan and trunk, and the template
+    instantiation ptxas reports for them."""
+    tag = "_bf16" if trunk == "bfloat16" else ""
+    if plan is not None and plan.design == "streamed":
+        return ((f"qv_encode_quad_stream{tag}_kernel",
+                 f"qv_encode_q_stream{tag}_kernel"),
+                f"ILi{plan.mt}ELi{plan.ncw}E")
+    return ((f"qv_encode_quad{tag}_kernel", f"qv_encode_q{tag}_kernel"),
+            "ILi64E")
+
+
 def bench(name, lib, log, so, row_blob, ctx) -> None:
     calls = Calls(lib, row_blob, ctx)
     kernels = dict(KERNELS)
-    if ctx["tag"]:
-        kernels.update(B="qv_encode_quad_bf16_kernel",
-                       C="qv_encode_q_bf16_kernel")
-    res = resources(log, kernels)
+    (kernels["B"], kernels["C"]), inst = bc_symbols(calls.plan_b,
+                                                    ctx["trunk"])
+    res = resources(log, kernels, inst)
     code = sass(so)
     parts = []
     for key, sym in kernels.items():
@@ -485,10 +552,10 @@ def bench(name, lib, log, so, row_blob, ctx) -> None:
                               KERNELS["A"]))
         rows.append(timed("A C rows block 128",
                           lambda: calls.a(block=128), KERNELS["A"]))
-    if hasattr(lib, "qv_encode_quad_fused" + ctx["tag"]):
+    if hasattr(lib, entry(calls, "B", ctx)):
         rows.append(timed("B", calls.b, kernels["B"]))
         rows.append(timed("B gelu", lambda: calls.b("gelu"), kernels["B"]))
-    if hasattr(lib, "qv_encode_q1" + ctx["tag"]):
+    if hasattr(lib, entry(calls, "C", ctx)):
         rows.append(timed("C", calls.c, kernels["C"]))
         rows.append(timed("C gelu", lambda: calls.c("gelu"), kernels["C"]))
     if hasattr(lib, "qv_mc_summaries"):
@@ -514,12 +581,50 @@ def bench(name, lib, log, so, row_blob, ctx) -> None:
               "events a call): " + "; ".join(rows), flush=True)
 
 
-def wrappers(dev, dtype) -> None:
+def sweep(lib, ctx) -> None:
+    """--sweep: B and C under every streamed plan that fits."""
+    calls = Calls(lib, False, ctx)
+    if not calls.streamed():
+        print("sweep: launch_plan keeps the resident design here", flush=True)
+        return
+    trunk, up, nb = ctx["trunk"], calls.up, calls.nb
+    t = OPTIMAL.scan.n_taus
+    limit = _cuda.library().qv_max_dynamic_smem()
+    ncw = fi._st_ncw(up)
+    (sym_b, sym_c), _ = bc_symbols(calls.plan_b, trunk)
+    chosen = (calls.plan_b, calls.plan_c)
+    rows = []
+    for mt in fi._ST_TILES[ncw]:
+        for ks in fi._st_slabs(up, trunk):
+            plans = [fi.LaunchPlan("streamed", fi._ST_THREADS,
+                                   fi._st_smem(up, t, trunk, q, mt, ks), mt,
+                                   ncw, ks) for q in (True, False)]
+            if plans[0].smem > limit:
+                continue
+            calls.plan_b, calls.plan_c = plans
+            calls.b()
+            calls.c()
+            torch.cuda.synchronize()
+            err_b = max(float((g - r).abs().max()) for g, r in
+                        zip(ctx["b_out"][:1] + ctx["b_out"][2:],
+                            ctx["b_plain"][:1] + ctx["b_plain"][2:]))
+            err_c = float((ctx["q_out"] - ctx["q_plain"]).abs().max())
+            mark = " (launch_plan's)" if plans[0] == chosen[0] else ""
+            rows.append(f"mt {mt} ks {ks}{mark}: B "
+                        f"{kernel_ms(calls.b, sym_b):.4f} (means/raw err "
+                        f"{err_b:.1e}), C {kernel_ms(calls.c, sym_c):.4f}"
+                        f" (err {err_c:.1e}), smem B {plans[0].smem}")
+    calls.plan_b, calls.plan_c = chosen
+    print(f"sweep at {trunk}, {up} units (padded) x {nb} blocks, device ms at "
+          f"N={N}: " + "; ".join(rows), flush=True)
+
+
+def wrappers(dev, dtype, units=60, blocks=2) -> None:
     """B, C and A through the package's wrappers (the same in every
     checkout that has the bf16 trunk): errors against the plain versions,
     C's head against a float64 head on the plain version's features
     (chip_smoke.head_f64_err), device times, and B beside C + A."""
-    cfg, scan = OPTIMAL.model, OPTIMAL.scan
+    cfg, scan = trunk_config(units, blocks), OPTIMAL.scan
     tuner = FineTuner(cfg, scan, device=dev)
     tuner.load_state_dict(init_params(cfg, scan,
                                       torch.Generator().manual_seed(0)))
@@ -538,16 +643,18 @@ def wrappers(dev, dtype) -> None:
     b_ref = fi.encode_quad_fused_plain(x, enc, mvg=True, **kw, **ranges)
     head = head_f64_err(q, x, enc, kw)
     rows = q.T.contiguous()
-    tag = "_bf16" if dtype == "bfloat16" else ""
+    plan = (fi._plan(fi._padded_width(units), blocks, scan.n_taus,
+                     scan.n_taus + 1, dtype, True, dev)
+            if hasattr(fi, "launch_plan") else None)
+    (sym_b, sym_c), _ = bc_symbols(plan, dtype)
     ms = {"B": kernel_ms(lambda: fi.encode_quad_fused(
-              x, enc, mvg=True, **kw, **ranges),
-              f"qv_encode_quad{tag}_kernel"),
-          "C": kernel_ms(lambda: fi.encode_q1_packed(x, enc, **kw),
-                         f"qv_encode_q{tag}_kernel"),
+              x, enc, mvg=True, **kw, **ranges), sym_b),
+          "C": kernel_ms(lambda: fi.encode_q1_packed(x, enc, **kw), sym_c),
           "A": kernel_ms(lambda: quad.quad_posterior_summaries(
               rows, mvg=True, **ranges), KERNELS["A"])}
     print(f"package {Path(fi.__file__).resolve().parent.parent} through its "
-          f"wrappers at {dtype}: C vs plain "
+          f"wrappers at {dtype}, {units} units x {blocks} blocks"
+          f"{' (' + plan.design + ')' if plan else ''}: C vs plain "
           f"{float((q - q_ref).abs().max()):.2e}, B vs plain means / vars / "
           "raw " + " / ".join(f"{float((g - r).abs().max()):.2e}"
                               for g, r in zip(b, b_ref))
@@ -570,18 +677,28 @@ def main() -> int:
                     help="a copy of the earlier, row-major-blob "
                     "encode_quad.cu")
     ap.add_argument("--dtype", default="float32",
-                    choices=["float32", "bfloat16"],
+                    choices=["float32", "bfloat16", "both"],
                     help="the stream-1 trunk of kernels B and C")
+    ap.add_argument("--units", type=int, default=OPTIMAL.model.no_units,
+                    help="the trunk's width (OPTIMAL's 60)")
+    ap.add_argument("--blocks", type=int,
+                    default=OPTIMAL.model.no_intermediate_layers,
+                    help="the trunk's depth (OPTIMAL's 2)")
     ap.add_argument("--package", default=None,
                     help="import qbold_vi_tpu_torch from this directory and "
                     "time B, C and A through its wrappers alone")
+    ap.add_argument("--sweep", action="store_true",
+                    help="time B and C under every streamed plan that fits")
     ap.add_argument("sources", nargs="*", help="edited copies of the "
                     "package's encode_quad.cu or summarize.cu")
     args = ap.parse_args()
     dev = torch.device("cuda", 0)
+    dtypes = (("float32", "bfloat16") if args.dtype == "both"
+              else (args.dtype,))
     if args.package:
         with torch.no_grad():
-            wrappers(dev, args.dtype)
+            for dtype in dtypes:
+                wrappers(dev, dtype, args.units, args.blocks)
         print(gpu_line())
         return 0
     libs = {}
@@ -592,10 +709,15 @@ def main() -> int:
     for i, (name, (lib, log, so)) in enumerate(built.items()):
         libs[name] = (lib, log, so, i < len(args.row_blob))
     with torch.no_grad():
-        ctx = context(dev, args.dtype)
-        print("head mixes: " + mix_shares(ctx), flush=True)
-        for name, (lib, log, so, row_blob) in libs.items():
-            bench(name, lib, log, so, row_blob, ctx)
+        for dtype in dtypes:
+            ctx = context(dev, dtype, args.units, args.blocks)
+            print(f"{dtype}, {args.units} units x {args.blocks} blocks; head "
+                  "mixes: " + mix_shares(ctx), flush=True)
+            if args.sweep:
+                sweep(bind(_cuda.library()), ctx)
+                continue
+            for name, (lib, log, so, row_blob) in libs.items():
+                bench(name, lib, log, so, row_blob, ctx)
     print(gpu_line())
     return 0
 
