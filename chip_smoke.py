@@ -316,21 +316,24 @@ The sweep (qbold_vi_tpu_torch/sweep.py), after phase 42:
    population stage of phase 41's multihost.certify(population_trials=3))
    bit-equal across ranks and within rtol 2e-4 of one process, and
    ``dryrun --devices 2`` with its population stage.
-Kernels B and C past the resident blob (csrc/encode_stream.cuh), run after
-phase 24:
-47. OPTIMAL's 1,032,192-voxel request at 256 units x 2 blocks, float32
-   and bf16, through posterior_maps under "auto" by quadrature (streamed
-   B) and by method="mc" (streamed C, then D), the counts set to 0 before
-   and read after each, maps finite; B and C against their plain versions
-   at 50,003 voxels (float32 at CHECKS; bf16 C within Q16_ULPS ulps, B
-   against the plain quadrature of C's q at CHECKS); their device ms at
-   full width beside their bounds, their plain versions' ms, and the
-   fused route's ms a call beside the "off" route's (the encoder, then A
-   or D) on the same device request; the same request at 100 x 2 in
-   float32 (whose resident blob does not fit) by quadrature through
-   streamed B, held against its plain version on the whole request. The
-   kernels line gives the four streamed kernels (B-stream, C-stream,
-   B-bf16-stream, C-bf16-stream) their launches on this path.
+Kernels B and C past the resident blob (csrc/encode_stream_wg.cu in
+float32 up to 256 units, csrc/encode_stream.cuh past it and in bf16), run
+after phase 24:
+47. OPTIMAL's 1,032,192-voxel request at 256 units x 2 blocks in float32
+   (the wgmma kernels) and bf16, and at 320 x 2 in float32 (the streamed
+   kernels), through posterior_maps under "auto" by quadrature (B) and by
+   method="mc" (C, then D), the counts set to 0 before and read after
+   each, maps finite; B and C against their plain versions at 50,003
+   voxels (float32 at CHECKS; bf16 C within Q16_ULPS ulps, B against the
+   plain quadrature of C's q at CHECKS); their device ms at full width
+   beside their bounds, their plain versions' ms, and the fused route's
+   ms a call beside the "off" route's (the encoder, then A or D) on the
+   same device request; the same request in float32 at 100 x 2 (B and C)
+   and 60 x 7 (B), whose resident blobs do not fit (the wgmma kernels),
+   each kernel held against its plain version on the whole request, its
+   ms beside its bound; the wgmma B and C hold HGMMA in the SASS. The
+   kernels line gives the six kernels (B-wgmma, C-wgmma, B-stream,
+   C-stream, B-bf16-stream, C-bf16-stream) their launches on this path.
 No phase 43-46 accepts a trial whose status is "failed". The kernels line
 gives S and F their launches on the population path under
 "launches_sweep", and S its P = 4 time and bound.
@@ -2028,8 +2031,8 @@ def stream1_phases(dev, card, cfg, tuner, ranges, enc_kw) -> tuple:
     return err64, wide
 
 
-STREAM_COUNTERS = ("launches", "bf16_launches", "stream_launches",
-                   "stream_bf16_launches")
+STREAM_COUNTERS = ("launches", "bf16_launches", "wgmma_launches",
+                   "stream_launches", "stream_bf16_launches")
 
 
 def bc_counts() -> dict:
@@ -2061,7 +2064,7 @@ def zero_bc_counts() -> None:
 
 def wide_stream1_phase(dev, cfg, rng) -> None:
     """Phase 24's wide trunk: a stream-1 request at 256 units under
-    fused_infer "auto" runs kernel B's streamed design (not the encoder
+    fused_infer "auto" runs kernel B's wgmma design (not the encoder
     and kernel A) and matches the same request on the CPU at
     tests/test_torch_infer.py's tolerances; a forced "on" runs the same
     kernel, bit for bit."""
@@ -2082,9 +2085,10 @@ def wide_stream1_phase(dev, cfg, rng) -> None:
     zero_bc_counts()
     got = infer.posterior_maps(tuners["card"], data, use_first_op=True)
     moved = bc_counts()
-    if moved["B.stream_launches"] == 0 or moved["A"] or moved["B.launches"]:
+    if moved["B.wgmma_launches"] == 0 or moved["A"] or moved["B.launches"] \
+            or moved["B.stream_launches"]:
         raise AssertionError(f"stream 1 at 256 units: launches {moved}, "
-                             "want streamed B only")
+                             "want B's wgmma design only")
     ref = infer.posterior_maps(tuners["cpu"], data, use_first_op=True)
     err = 0.0
     for key in ("oef", "dbv", "r2p", "raw_log_stds"):
@@ -2099,19 +2103,53 @@ def wide_stream1_phase(dev, cfg, rng) -> None:
             raise AssertionError(f"stream 1 at 256 units under \"on\": "
                                  f"{key} differs from \"auto\"'s")
     log(f"stream 1 at 256 units (3 x 12 x 12 x 3) under \"auto\": kernel B "
-        f"streamed, launched {moved['B.stream_launches']} times, A none; "
+        f"(wgmma) launched {moved['B.wgmma_launches']} times, A none; "
         f"maps finite and within rtol 1e-3 / atol 3e-5 of the CPU's (largest "
         f"difference {err:.3e}); a forced \"on\" gives the same maps")
 
 
 WIDE_TRUNK = (256, 2)                # phase 47's full-width path
+PAST_TRUNK = (320, 2)                # float32 past 256: the streamed design
 FAULT_TRUNK = (100, 2)               # float32: the blob does not fit
+DEEP_TRUNK = (60, 7)                 # float32: OPTIMAL's width, 7 blocks
 N_WIDE_CMP = 50_003                  # kernels vs plain at wide widths
+# phase 47's kernels by design: the float32 wgmma kernels up to 256 units
+# (padded), the streamed ones past it in float32 and past 128 in bf16
 WIDE_SYMBOLS = {
-    ("B", "float32"): "qv_encode_quad_stream_kernel",
-    ("C", "float32"): "qv_encode_q_stream_kernel",
-    ("B", "bfloat16"): "qv_encode_quad_stream_bf16_kernel",
-    ("C", "bfloat16"): "qv_encode_q_stream_bf16_kernel"}
+    ("B", "wgmma"): "qv_encode_quad_wg_kernel",
+    ("C", "wgmma"): "qv_encode_q_wg_kernel",
+    ("B", "stream"): "qv_encode_quad_stream_kernel",
+    ("C", "stream"): "qv_encode_q_stream_kernel",
+    ("B", "stream-bf16"): "qv_encode_quad_stream_bf16_kernel",
+    ("C", "stream-bf16"): "qv_encode_q_stream_bf16_kernel"}
+WIDE_KINDS = {"wgmma": ("encode_stream_wg.cu", "wgmma_launches", "-wgmma"),
+              "stream": ("encode_stream.cu", "stream_launches", "-stream"),
+              "stream-bf16": ("encode_stream_bf16.cu", "stream_bf16_launches",
+                              "-bf16-stream")}
+
+
+def wide_kind(dev, units, nb, trunk, n_taus) -> str:
+    """The design launch_plan gives kernel B at this trunk on this card,
+    as a key of WIDE_KINDS (a resident plan fails the phase)."""
+    from qbold_vi_tpu_torch.ops import fused_infer as fi
+
+    design = fi._plan(fi._padded_width(units), nb, n_taus, n_taus + 1, trunk,
+                      True, dev).design
+    kind = {"wgmma": "wgmma", "streamed": "stream"}[design]
+    return kind + ("-bf16" if trunk == "bfloat16" else "")
+
+
+def wide_bound(key, units, nb, trunk, scan, raw_b, mvg) -> dict:
+    """encode_bound (bf16: encode_bound_bf16) of kernel B (reads T + 1
+    floats a voxel, writes 9; the quadrature of ``raw_b``) or C (writes 5)
+    on the 1.03 M-voxel request at this trunk."""
+    rest = N_FULL * (ops_encode(units, scan.n_taus, nb)
+                     - 2 * (units * scan.n_taus + nb * units * units
+                            + 5 * units))
+    fn = encode_bound if trunk == "float32" else encode_bound_bf16
+    writes, extra = (9, ops_quad(raw_b, mvg)) if key == "B" else (5, 0.0)
+    return fn(N_FULL, units, scan.n_taus, nb,
+              N_FULL * 4 * (scan.n_taus + 1 + writes), rest + extra)
 
 
 def wide_tuner(dev, cfg, units, nb, trunk):
@@ -2127,22 +2165,37 @@ def wide_tuner(dev, cfg, units, nb, trunk):
 
 
 def full_width_phase(dev, card, cfg, rng) -> dict:
-    """Phase 47: OPTIMAL's 1,032,192-voxel request at 256 units x 2 blocks
-    (init_params seed 256) under fused_infer "auto", float32 and bf16:
-    posterior_maps by quadrature (kernel B, streamed) and by method="mc"
-    (C streamed, then D), the counts set to 0 before each and read after;
-    the maps finite and of the request's shape. B and C against their
-    plain versions at N_WIDE_CMP voxels (float32 at CHECKS; bf16 C within
-    Q16_ULPS ulps, B against the plain quadrature of C's q at CHECKS).
-    The same request at 100 x 2 in float32 (the resident blob does not
-    fit) by quadrature, kernel B held against its plain version on the
-    whole request. Device ms of B and C at full width beside their bounds
-    and beside the "off" route's (the encoder, then kernel A or D) and the
-    fused route's ms a call by CUDA events on the same device request."""
+    """Phase 47: OPTIMAL's 1,032,192-voxel request at wide and deep trunks
+    under fused_infer "auto" (init_params seed = the units), each kernel
+    launched through posterior_maps with the counts set to 0 before and
+    read after, and held against its plain version. At 256 units x 2
+    blocks in float32 (the wgmma kernels), in bf16 and at 320 x 2 in
+    float32 (the streamed kernels): posterior_maps by quadrature (kernel
+    B) and by method="mc" (C, then D), the maps finite and of the
+    request's shape; B and C against their plain versions at N_WIDE_CMP
+    voxels (float32 at CHECKS; bf16 C within Q16_ULPS ulps, B against the
+    plain quadrature of C's q at CHECKS); device ms of B and C beside
+    their bounds and the "off" route's (the encoder, then kernel A or D)
+    and the fused route's ms a call by CUDA events on the same device
+    request. At 100 x 2 (B and C) and 60 x 7 (B) in float32, where the
+    resident blob does not fit (the wgmma kernels): the request through
+    posterior_maps, the kernel against its plain version on the whole
+    request, its device ms beside its bound. First, the wgmma kernels must
+    hold HGMMA instructions in the built library's SASS."""
     from qbold_vi_tpu_torch import infer
+    from qbold_vi_tpu_torch.ops import _cuda
     from qbold_vi_tpu_torch.ops import fused_infer as fi
     from qbold_vi_tpu_torch.ops.quadrature import quad_tile_summaries
 
+    code = sass(_cuda.library()._name)
+    hgmma = {WIDE_SYMBOLS[(k, "wgmma")]: code.get(
+        WIDE_SYMBOLS[(k, "wgmma")], (0, {}))[1].get("HGMMA", 0) for k in "BC"}
+    if not all(hgmma.values()):
+        raise AssertionError(f"HGMMA instructions of the float32 wgmma B and "
+                             f"C: {hgmma} (each must hold some; or cuobjdump "
+                             "is missing)")
+    log(f"kernels B and C's float32 wgmma design takes its products on "
+        f"wgmma: static HGMMA instructions {hgmma}")
     scan = cfg.scan
     ranges = dict(oef_range=cfg.model.oef_range, min_oef=cfg.model.min_oef,
                   dbv_range=cfg.model.dbv_range, min_dbv=cfg.model.min_dbv,
@@ -2151,88 +2204,95 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
     block = torch.from_numpy(req).to(dev)
     x_full = block.reshape(-1, block.shape[-1])
     x_cmp = torch.from_numpy(volumes(rng, (N_WIDE_CMP,), scan.n_taus)).to(dev)
-    units, nb = WIDE_TRUNK
-    out = {"launches": {}, "err": {}, "ms": {}, "plain_ms": {}, "bound": {},
-           "routes_ms": {}}
-    for trunk in ("float32", "bfloat16"):
+    out = {"launches": collections.Counter(), "err": {}, "ms": {},
+           "plain_ms": {}, "bound": {}, "routes_ms": {}, "requests": {}}
+
+    def main_path(t, units, nb, trunk, kind, method, key):
+        """posterior_maps of the request by `method`, kernel `key` of the
+        design `kind` counted; returns the maps."""
+        counter = f"{key}.{WIDE_KINDS[kind][1]}"
+        zero_bc_counts()
+        maps = infer.posterior_maps(t, req, use_first_op=True,
+                                    method=method, seed=47)
+        torch.cuda.synchronize()
+        counts = bc_counts()
+        for k, v in maps.items():
+            if not np.isfinite(v).all() or v.shape[:-1] != req.shape[:-1]:
+                raise AssertionError(f"{units} x {nb} {trunk} {method}: "
+                                     f"map {k} not finite or misshapen")
+        want_d = counts["D"] > 0 if method == "mc" else counts["D"] == 0
+        others = sum(v for k, v in counts.items()
+                     if k[0] in "BC" and k != counter)
+        if counts[counter] == 0 or not want_d or counts["A"] or others:
+            raise AssertionError(f"{units} x {nb} {trunk} {method}: "
+                                 f"launches {counts}, want {counter}")
+        out["launches"][(key, kind)] += counts[counter]
+        log(f"posterior_maps {method} at {units} x {nb} {trunk} on "
+            f"{REQUESTS[0]} under \"auto\": {key} ({kind}) launched "
+            f"{counts[counter]} times, D {counts['D']}, A {counts['A']}; "
+            f"mean OEF {maps['oef'].mean():.4f}")
+        return maps
+
+    for (units, nb), trunk in ((WIDE_TRUNK, "float32"),
+                               (WIDE_TRUNK, "bfloat16"),
+                               (PAST_TRUNK, "float32")):
         t = wide_tuner(dev, cfg, units, nb, trunk)
+        kind = wide_kind(dev, units, nb, trunk, scan.n_taus)
+        if (units <= 256 and trunk == "float32") != (kind == "wgmma"):
+            raise AssertionError(f"{units} x {nb} {trunk}: plan {kind}")
         enc = dict(se_idx=scan.se_idx,
                    multi_image=t.cfg.multi_image_normalisation,
                    activation=t.cfg.activation, n_blocks=nb, trunk=trunk,
                    mask_channel=True, input_layout="voxel")
         kw = dict(enc, mvg=t.cfg.use_mvg, **ranges)
-        stream = "stream_bf16_launches" if trunk == "bfloat16" else \
-            "stream_launches"
         # ---- the main path, through the entry point -----------------------
         for method, key in (("quadrature", "B"), ("mc", "C")):
-            zero_bc_counts()
-            maps = infer.posterior_maps(t, req, use_first_op=True,
-                                        method=method, seed=47)
-            torch.cuda.synchronize()
-            counts = bc_counts()
-            for k, v in maps.items():
-                if not np.isfinite(v).all() or v.shape[:-1] != req.shape[:-1]:
-                    raise AssertionError(f"{units} x {nb} {trunk} {method}: "
-                                         f"map {k} not finite or misshapen")
-            want_d = counts["D"] > 0 if method == "mc" else counts["A"] == 0
-            if counts[f"{key}.{stream}"] == 0 or not want_d or counts["A"]:
-                raise AssertionError(f"{units} x {nb} {trunk} {method}: "
-                                     f"launches {counts}")
-            out["launches"][(key, trunk)] = counts[f"{key}.{stream}"]
-            log(f"posterior_maps {method} at {units} x {nb} {trunk} on "
-                f"{REQUESTS[0]} under \"auto\": {key} streamed launched "
-                f"{counts[f'{key}.{stream}']} times, D {counts['D']}, A "
-                f"{counts['A']}; mean OEF {maps['oef'].mean():.4f}")
+            main_path(t, units, nb, trunk, kind, method, key)
         # ---- B and C against their plain versions ------------------------
         q = fi.encode_q1_packed(x_cmp, t.encoder, **enc)
         q_ref = fi.encode_q_plain(x_cmp, t.encoder, **enc)
         got = fi.encode_quad_fused(x_cmp, t.encoder, **kw)
         ref = fi.encode_quad_fused_plain(x_cmp, t.encoder, **kw)
         torch.cuda.synchronize()
+        tag = f"{units}x{nb} {kind}"
         if trunk == "float32":
-            check_close(f"C {units}x{nb}", q.T, q_ref.T, "raw")
-            e_b = max(check_close(f"B {units}x{nb}", got[0].T, ref[0].T,
-                                  "mean"),
-                      check_close(f"B {units}x{nb}", got[1].T, ref[1].T,
-                                  "var", ref[0].T),
-                      check_close(f"B {units}x{nb}", got[2].T, ref[2].T,
-                                  "raw"))
+            check_close(f"C {tag}", q.T, q_ref.T, "raw")
+            e_b = max(check_close(f"B {tag}", got[0].T, ref[0].T, "mean"),
+                      check_close(f"B {tag}", got[1].T, ref[1].T, "var",
+                                  ref[0].T),
+                      check_close(f"B {tag}", got[2].T, ref[2].T, "raw"))
             how = "at CHECKS"
         else:
-            ulps = [ulp_err(f"C bf16 {units}x{nb} row {j}", q[j], q_ref[j],
+            ulps = [ulp_err(f"C {tag} row {j}", q[j], q_ref[j],
                             Q16_ULPS)[0] for j in range(5)]
             tail = [torch.stack(v) for v in quad_tile_summaries(
                 q[0], q[1], q[2], q[3], q[4], mvg=t.cfg.use_mvg, **ranges)]
-            e_b = max(check_close(f"B bf16 {units}x{nb} vs C's tail",
-                                  got[0].T, tail[0].T, "mean"),
-                      check_close(f"B bf16 {units}x{nb} vs C's tail",
-                                  got[1].T, tail[1].T, "var", tail[0].T),
-                      check_close(f"B bf16 {units}x{nb} vs C's tail",
-                                  got[2].T, tail[2].T, "raw"))
+            e_b = max(check_close(f"B {tag} vs C's tail", got[0].T,
+                                  tail[0].T, "mean"),
+                      check_close(f"B {tag} vs C's tail", got[1].T,
+                                  tail[1].T, "var", tail[0].T),
+                      check_close(f"B {tag} vs C's tail", got[2].T,
+                                  tail[2].T, "raw"))
             how = (f"C within {max(ulps):.2f} bf16 ulps, B against the "
                    "quadrature of C's q at CHECKS")
-        out["err"][("C", trunk)] = float((q - q_ref).abs().max())
-        out["err"][("B", trunk)] = e_b
-        log(f"B and C at {units} x {nb} {trunk} vs plain at N={N_WIDE_CMP}: "
-            f"{how}; largest |C - plain| {out['err'][('C', trunk)]:.3e}")
+        out["err"][("C", kind)] = float((q - q_ref).abs().max())
+        out["err"][("B", kind)] = e_b
+        log(f"B and C at {units} x {nb} {trunk} ({kind}) vs plain at "
+            f"N={N_WIDE_CMP}: {how}; largest |C - plain| "
+            f"{out['err'][('C', kind)]:.3e}")
         # ---- times: the kernels, their plain versions, the routes ----------
         for key, fn, plain in (
                 ("B", lambda: fi.encode_quad_fused(x_full, t.encoder, **kw),
                  lambda: fi.encode_quad_fused_plain(x_full, t.encoder, **kw)),
                 ("C", lambda: fi.encode_q1_packed(x_full, t.encoder, **enc),
                  lambda: fi.encode_q_plain(x_full, t.encoder, **enc))):
-            out["ms"][(key, trunk)] = kernel_ms(fn, WIDE_SYMBOLS[(key, trunk)])
-            out["plain_ms"][(key, trunk)] = cuda_ms(plain, reps=2, blocks=3)
+            out["ms"][(key, kind)] = kernel_ms(fn, WIDE_SYMBOLS[(key, kind)])
+            out["plain_ms"][(key, kind)] = cuda_ms(plain, reps=2, blocks=3)
         raw_b = fi.encode_quad_fused(x_full, t.encoder, **kw)[2]
-        rest = N_FULL * (ops_encode(units, scan.n_taus, nb)
-                         - 2 * (units * scan.n_taus + nb * units * units
-                                + 5 * units))
-        bound_fn = encode_bound if trunk == "float32" else encode_bound_bf16
-        for key, writes, extra in (("B", 9, ops_quad(raw_b, t.cfg.use_mvg)),
-                                   ("C", 5, 0.0)):
-            out["bound"][(key, trunk)] = bound_fn(
-                N_FULL, units, scan.n_taus, nb,
-                N_FULL * 4 * (scan.n_taus + 1 + writes), rest + extra)
+        for key in "BC":
+            out["bound"][(key, kind)] = wide_bound(key, units, nb, trunk,
+                                                   scan, raw_b,
+                                                   t.cfg.use_mvg)
         draws = infer.mc_draws(S_MC, True)
         noise = infer._flat_noise(infer.draw_noise(
             "summaries", 47, 0, tuple(block.shape[:-1]), draws, dev), N_FULL)
@@ -2244,69 +2304,81 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
             "C + D route": lambda: infer._chunk_fused(t, block, mc),
             "off, mc": lambda: infer._chunk_encoder(t, block, True, mc)}
         for name, fn in routes.items():
-            out["routes_ms"][(name, trunk)] = cuda_ms(fn, reps=3, blocks=5)
+            out["routes_ms"][(name, kind)] = cuda_ms(fn, reps=3, blocks=5)
         for key, route, off in (("B", "B route", "off, quadrature"),
                                 ("C", "C + D route", "off, mc")):
-            ms, bd = out["ms"][(key, trunk)], out["bound"][(key, trunk)]
-            r_ms = out["routes_ms"][(route, trunk)]
-            o_ms = out["routes_ms"][(off, trunk)]
-            log(f"{key} {trunk} streamed at {units} x {nb}: kernel {ms:.4f} ms"
-                f" on the device, plain {out['plain_ms'][(key, trunk)]:.4f} "
-                f"ms; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+            ms, bd = out["ms"][(key, kind)], out["bound"][(key, kind)]
+            r_ms = out["routes_ms"][(route, kind)]
+            o_ms = out["routes_ms"][(off, kind)]
+            log(f"{key} {trunk} ({kind}) at {units} x {nb}: kernel "
+                f"{ms:.4f} ms on the device, plain "
+                f"{out['plain_ms'][(key, kind)]:.4f} ms; bound "
+                f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} "
                 f"({100 * bd['bound_ms'] / ms:.1f}%); the fused route "
                 f"{r_ms:.4f} ms a call against the \"off\" route (encoder, "
                 f"then {'A' if key == 'B' else 'D'}) {o_ms:.4f} ms "
                 f"({'faster' if r_ms < o_ms else 'NOT faster'}) on "
                 f"{REQUESTS[0]} [{card}]")
-    # ---- the 100 x 2 float32 request: the blob does not fit -----------------
-    units, nb = FAULT_TRUNK
-    t = wide_tuner(dev, cfg, units, nb, "float32")
-    zero_bc_counts()
-    maps = infer.posterior_maps(t, req, use_first_op=True)
-    counts = bc_counts()
-    if counts["B.stream_launches"] == 0 or counts["A"] or \
-            counts["B.launches"]:
-        raise AssertionError(f"{units} x {nb} float32: launches {counts}")
-    if not all(np.isfinite(v).all() for v in maps.values()):
-        raise AssertionError(f"{units} x {nb} float32: maps not finite")
-    out["launches"][("B", "float32")] += counts["B.stream_launches"]
-    kw = dict(se_idx=scan.se_idx, multi_image=t.cfg.multi_image_normalisation,
-              activation=t.cfg.activation, n_blocks=nb, trunk="float32",
-              mask_channel=True, input_layout="voxel", mvg=t.cfg.use_mvg,
-              **ranges)
-    got = fi.encode_quad_fused(x_full, t.encoder, **kw)
-    ref = fi.encode_quad_fused_plain(x_full, t.encoder, **kw)
-    e = max(check_close(f"B {units}x{nb}", got[0].T, ref[0].T, "mean"),
-            check_close(f"B {units}x{nb}", got[1].T, ref[1].T, "var",
-                        ref[0].T),
-            check_close(f"B {units}x{nb}", got[2].T, ref[2].T, "raw"))
-    out["fault"] = {"err": e, "ms": kernel_ms(
-        lambda: fi.encode_quad_fused(x_full, t.encoder, **kw),
-        WIDE_SYMBOLS[("B", "float32")])}
-    out["fault"]["plain_ms"] = cuda_ms(
-        lambda: fi.encode_quad_fused_plain(x_full, t.encoder, **kw), reps=2,
-        blocks=3)
-    log(f"{units} x {nb} float32 on {REQUESTS[0]} under \"auto\": kernel B "
-        f"streamed launched {counts['B.stream_launches']} times, A none; B "
-        f"vs plain on the whole request within CHECKS (largest {e:.3e}); "
-        f"kernel {out['fault']['ms']:.4f} ms, plain "
-        f"{out['fault']['plain_ms']:.4f} ms [{card}]")
-    names = {"float32": "", "bfloat16": "-bf16"}
-    sources = {"float32": "encode_stream.cu",
-               "bfloat16": "encode_stream_bf16.cu"}
+    # ---- 100 x 2 and 60 x 7 in float32: the resident blob does not fit ------
+    for (units, nb), keys in ((FAULT_TRUNK, "BC"), (DEEP_TRUNK, "B")):
+        t = wide_tuner(dev, cfg, units, nb, "float32")
+        kind = wide_kind(dev, units, nb, "float32", scan.n_taus)
+        if kind != "wgmma":
+            raise AssertionError(f"{units} x {nb} float32: plan {kind}")
+        enc = dict(se_idx=scan.se_idx,
+                   multi_image=t.cfg.multi_image_normalisation,
+                   activation=t.cfg.activation, n_blocks=nb,
+                   trunk="float32", mask_channel=True, input_layout="voxel")
+        kw = dict(enc, mvg=t.cfg.use_mvg, **ranges)
+        raw_b = None
+        for key in keys:
+            main_path(t, units, nb, "float32", kind,
+                      "quadrature" if key == "B" else "mc", key)
+            if key == "B":
+                fn = lambda: fi.encode_quad_fused(x_full, t.encoder,  # noqa
+                                                  **kw)
+                plain = lambda: fi.encode_quad_fused_plain(  # noqa: E731
+                    x_full, t.encoder, **kw)
+                got, ref = fn(), plain()
+                raw_b = got[2]
+                e = max(check_close(f"B {units}x{nb}", got[0].T, ref[0].T,
+                                    "mean"),
+                        check_close(f"B {units}x{nb}", got[1].T, ref[1].T,
+                                    "var", ref[0].T),
+                        check_close(f"B {units}x{nb}", got[2].T, ref[2].T,
+                                    "raw"))
+            else:
+                fn = lambda: fi.encode_q1_packed(x_full, t.encoder,  # noqa
+                                                 **enc)
+                plain = lambda: fi.encode_q_plain(  # noqa: E731
+                    x_full, t.encoder, **enc)
+                e = check_close(f"C {units}x{nb}", fn().T, plain().T, "raw")
+            ms = kernel_ms(fn, WIDE_SYMBOLS[(key, kind)])
+            bd = wide_bound(key, units, nb, "float32", scan, raw_b,
+                            t.cfg.use_mvg)
+            res = {"err": e, "ms": ms, "plain_ms": cuda_ms(plain, reps=2,
+                                                           blocks=3),
+                   **{k: bd[k] for k in ("bound_ms", "bound_by")},
+                   "launches": out["launches"][(key, kind)]}
+            out["requests"][f"{key}-{units}x{nb}"] = res
+            log(f"{key} at {units} x {nb} float32 ({kind}) on {REQUESTS[0]}"
+                f": vs plain on the whole request within CHECKS (largest "
+                f"{e:.3e}); kernel {ms:.4f} ms, plain {res['plain_ms']:.4f} "
+                f"ms; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                f"({100 * bd['bound_ms'] / ms:.1f}%) [{card}]")
     out["kernels"] = [{
-        "name": f"{key}{names[trunk]}-stream", "route": "cuda",
-        "source": f"qbold_vi_tpu_torch/csrc/{sources[trunk]}",
+        "name": f"{key}{WIDE_KINDS[kind][2]}", "route": "cuda",
+        "source": f"qbold_vi_tpu_torch/csrc/{WIDE_KINDS[kind][0]}",
         "replaces": "qbold_vi_tpu/ops/pallas_infer.py:"
                     + ("353" if key == "B" else "246"),
-        "launches": out["launches"][(key, trunk)],
-        "max_abs_err": out["err"][(key, trunk)],
-        "ms": out["ms"][(key, trunk)],
-        "plain_ms": out["plain_ms"][(key, trunk)],
-        **{k: out["bound"][(key, trunk)][k] for k in ("bound_ms",
-                                                       "bound_by")},
+        "launches": out["launches"][(key, kind)],
+        "max_abs_err": out["err"][(key, kind)],
+        "ms": out["ms"][(key, kind)],
+        "plain_ms": out["plain_ms"][(key, kind)],
+        **{k: out["bound"][(key, kind)][k] for k in ("bound_ms",
+                                                      "bound_by")},
         "library_ms": None}
-        for trunk in ("float32", "bfloat16") for key in ("B", "C")]
+        for kind in WIDE_KINDS for key in ("B", "C")]
     return out
 
 
@@ -5523,12 +5595,12 @@ def main() -> int:
                                if k != "kernels"},
                       "stream1_float64_err": err64,
                       "wide_stream1": {
-                          "trunk": WIDE_TRUNK,
+                          "trunk": WIDE_TRUNK, "past": PAST_TRUNK,
                           "ms": {f"{k}-{t}": v
                                  for (k, t), v in wide["ms"].items()},
                           "routes_ms": {f"{k}-{t}": v for (k, t), v
                                         in wide["routes_ms"].items()},
-                          "fault_100x2": wide["fault"]},
+                          "requests": wide["requests"]},
                       "cli": cli,
                       "dropout_export_cli": new,
                       "sharded": {k: v for k, v in sharded.items()

@@ -1,7 +1,8 @@
-// Kernels B and C, streamed, float32 trunk (3xTF32): encode_stream.cuh's
-// design instantiated with QvStF32; symbols qv_encode_quad_stream_kernel
-// and qv_encode_q_stream_kernel, entries qv_encode_quad_stream and
-// qv_encode_q1_stream (ops/fused_infer.py).
+// Kernels B and C, streamed, float32 trunk (3xTF32) past a padded width of
+// 256 (encode_stream_wg.cu serves the float32 trunk below it):
+// encode_stream.cuh's design instantiated with QvStF32; symbols
+// qv_encode_quad_stream_kernel and qv_encode_q_stream_kernel, entries
+// qv_encode_quad_stream and qv_encode_q1_stream (ops/fused_infer.py).
 
 #include "encode_stream.cuh"
 

@@ -9,9 +9,11 @@
 // (pallas_infer.py:35-38), and computes what they compute, rounding where
 // the resident kernels round. The resident kernels keep the whole weight
 // blob in shared memory; the wrapper takes them wherever it fits
-// (ops/fused_infer.py::launch_plan) and this kernel everywhere else: past
-// 128 units, and at depths whose blob does not fit (60 units x 7 blocks,
-// 65-128 units x 2 blocks in float32).
+// (ops/fused_infer.py::launch_plan). Elsewhere the float32 trunk takes
+// encode_stream_wg.cu's wgmma kernels up to a padded width of 256 (65-128
+// units x 2 blocks, deep trunks such as 60 x 7, 129-256 units) and this
+// kernel past it; the bf16 trunk takes this kernel past 128 units and at
+// depths whose blob does not fit.
 //
 // Bound: at 256 units x 2 blocks the products (U T + nb U^2 + 5 U FMAs a
 // voxel, 3xTF32 in float32) take 1.69 ms of a 1.03 M-voxel request at the
@@ -24,9 +26,10 @@
 // latency: at 256 x 2 in float32 a ring of 2 to 6 slabs ran within 3% of
 // one another, 128 voxels a pass took 20% less time than 64 and 64 35%
 // less than 32, 32 KB slabs 11% less than 16 KB; 64 KB slabs were no
-// faster (tools/bench_stream1.py --sweep, PERF.md). So the plan takes the
-// largest pass, then the largest slab up to 32 KB, that fit; two slots
-// double-buffer the slabs.
+// faster (tools/bench_stream1.py --sweep, PERF.md; this kernel then
+// served float32 at 256 x 2). So the plan takes the largest pass, then
+// the largest slab up to 32 KB, that fit; two slots double-buffer the
+// slabs.
 //
 // Design. A block of 8 warps takes a pass of V = 16 MT voxels at a time:
 // * Activations in shared memory. The pass's normalised rows (xs) and two
@@ -61,10 +64,10 @@
 //   voxel a thread, run B's quadrature (quad_math.cuh, qv_quad_block's
 //   side sort over the block) or write C's q.
 // * Products: mma.sync (m16n8k8 TF32 as 3xTF32, mma_math.cuh; m16n8k16
-//   bf16 with float32 sums). Not wgmma in the bf16 trunk: one skeleton
-//   serves both trunks, and at these widths the weights' stream, not the
-//   instruction, is what a pass waits on. A wgmma version (A from the
-//   activation buffer by descriptor) is later work (PERF.md).
+//   bf16 with float32 sums). One skeleton serves both trunks. Where a
+//   layer is one wgmma width in float32 (up to 256) encode_stream_wg.cu
+//   redesigns it on wgmma with a producer's ring (PERF.md); a bf16
+//   version on wgmma is later work.
 // MT and NCW are template constants (QV_ST_DISPATCH); depth, width and the
 // slab's k-steps are runtime values that the wrapper's plan gives
 // (launch_plan), with the shared-memory bytes; this file computes the
@@ -376,10 +379,14 @@ static __device__ __forceinline__ void qv_st_head(
 
 // A round's tail, a voxel a thread: kernel B's quadrature summaries
 // (means, vars, raw (3, N) to o0, o1, o2) or kernel C's q (5, N) to o0.
-// Out of line: one copy serves every instantiation's round.
+// Out of line: one copy serves every instantiation's round. The round's
+// threads are the block's (QvBlockSync) or the first QV_ST_ROUND threads
+// on a named barrier (QvNamedSync: encode_stream_wg.cu's consumers).
+template <class Sync = QvBlockSync>
 static __device__ __noinline__ void qv_st_quad_round(
     const float* consts, float* scratch, const float* hq, long long n,
-    long long v0, int mvg, QvRanges rg, float* o0, float* o1, float* o2) {
+    long long v0, int mvg, QvRanges rg, float* o0, float* o1, float* o2,
+    Sync sync = Sync()) {
   const long long v = v0 + threadIdx.x;
   const bool live = v < n;
   const float* q = hq + threadIdx.x;
@@ -388,7 +395,7 @@ static __device__ __noinline__ void qv_st_quad_round(
       qv_quad_squash(q[0], q[QV_ST_ROUND], q[2 * QV_ST_ROUND],
                      q[3 * QV_ST_ROUND], q[4 * QV_ST_ROUND], mvg != 0, rw);
   float o[8], gm[5], D1, D2;
-  qv_quad_block(consts, scratch, live, in, o, &D1, &D2, gm);
+  qv_quad_block(consts, scratch, live, in, o, &D1, &D2, gm, sync);
   if (!live) return;
   float m[3], sv[3];
   qv_quad_combine(o, D1, D2, gm, in.od, rg, m, sv);
@@ -550,11 +557,11 @@ static __device__ __forceinline__ void qv_st_body(
 }
 
 // Grid: as many blocks as the rounds need, at most as many as fit on the
-// card at once.
+// card at once; block must be the kernel's `threads`.
 template <class Kernel, class... Args>
-static int qv_st_launch(Kernel kernel, long long n, int block,
+static int qv_st_launch(Kernel kernel, int threads, long long n, int block,
                         long long smem_bytes, void* stream, Args... args) {
-  if (block != QV_ST_THREADS) return (int)cudaErrorInvalidValue;
+  if (block != threads) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -578,21 +585,21 @@ static int qv_st_launch(Kernel kernel, long long n, int block,
 #define QV_ST_DISPATCH(kernel, mt, ncw, ...)                         \
   switch (mt * 16 + ncw) {                                           \
     case 8 * 16 + 4:                                                 \
-      return qv_st_launch(kernel<8, 4>, __VA_ARGS__);                \
+      return qv_st_launch(kernel<8, 4>, QV_ST_THREADS, __VA_ARGS__); \
     case 8 * 16 + 1:                                                 \
-      return qv_st_launch(kernel<8, 1>, __VA_ARGS__);                \
+      return qv_st_launch(kernel<8, 1>, QV_ST_THREADS, __VA_ARGS__); \
     case 4 * 16 + 1:                                                 \
-      return qv_st_launch(kernel<4, 1>, __VA_ARGS__);                \
+      return qv_st_launch(kernel<4, 1>, QV_ST_THREADS, __VA_ARGS__); \
     case 8 * 16 + 2:                                                 \
-      return qv_st_launch(kernel<8, 2>, __VA_ARGS__);                \
+      return qv_st_launch(kernel<8, 2>, QV_ST_THREADS, __VA_ARGS__); \
     case 4 * 16 + 2:                                                 \
-      return qv_st_launch(kernel<4, 2>, __VA_ARGS__);                \
+      return qv_st_launch(kernel<4, 2>, QV_ST_THREADS, __VA_ARGS__); \
     case 4 * 16 + 4:                                                 \
-      return qv_st_launch(kernel<4, 4>, __VA_ARGS__);                \
+      return qv_st_launch(kernel<4, 4>, QV_ST_THREADS, __VA_ARGS__); \
     case 2 * 16 + 4:                                                 \
-      return qv_st_launch(kernel<2, 4>, __VA_ARGS__);                \
+      return qv_st_launch(kernel<2, 4>, QV_ST_THREADS, __VA_ARGS__); \
     case 1 * 16 + 4:                                                 \
-      return qv_st_launch(kernel<1, 4>, __VA_ARGS__);                \
+      return qv_st_launch(kernel<1, 4>, QV_ST_THREADS, __VA_ARGS__); \
     default:                                                         \
       return (int)cudaErrorInvalidValue;                             \
   }

@@ -1,0 +1,594 @@
+// Kernels B and C, float32 trunk, where the resident blob does not fit and
+// the padded width Up is at most 256 (65-128 units x 2 blocks, deep trunks
+// such as 60 x 7, 129-256 units): the streamed encode on Hopper's wgmma,
+// with the weights fed through a ring of slabs by a producer warp.
+//
+// It replaces the same TPU kernels as encode_quad.cu and encode_stream.cu
+// (qbold_vi_tpu/ops/pallas_infer.py::encode_quad_fused, pallas_call at :353,
+// and encode_q1_packed, at :246) and computes what they compute: the
+// normalised log signal, the dense chain in 3xTF32 (float32-accurate),
+// the float32 head, then B's quadrature summaries or C's q (5, N).
+// ops/fused_infer.py::launch_plan takes it for the float32 trunk at every
+// Up <= 256 where the resident blob does not fit; past 256 units
+// encode_stream.cu serves, and the bf16 trunk keeps its own kernels.
+//
+// Bound: at 256 units x 2 blocks the 3xTF32 products take 1.69 ms of a
+// 1.03 M-voxel request at the dense TF32 peak; the request's bytes 0.026
+// ms. A design adds the weights' reads from L2: every pass of V voxels
+// reads all the trunk's weights (hi and lo), 1.1 MB at 256 x 2, ~8.9 GB a
+// request at V = 128. In encode_stream.cu the time followed the block-wide
+// barrier of every slab and the B fragments each warp loads into
+// registers, and every warp split all the pass's activations into TF32
+// hi / lo once again (PERF.md).
+//
+// Design. A block of three warpgroups: two consumer warpgroups, each of
+// which owns 64 voxels of a pass of 128, and a producer warpgroup.
+// * Products on wgmma.m64nUpk8.f32.tf32.tf32, A (64 voxels x 8 channels)
+//   from registers, B from shared memory by descriptor: 3xTF32 as three
+//   products into one float32 accumulator, a_lo b_hi + a_hi b_lo + a_hi
+//   b_hi (mma_math.cuh's split and order). A layer is one wgmma width
+//   (Up <= 256), so its outputs stay in the accumulators (Up / 2 floats a
+//   thread) until its last k-step.
+// * The weights as K-major core-matrix images (TF32 wgmma takes no other
+//   layout), hi and lo apart: k-step s of the trunk (the first layer's,
+//   then each block's) is [hi | lo][Up/8 row groups][2 k-halves][8 rows]
+//   [4 columns] floats, 64 Up bytes, row groups SBO = 256 B and k-halves
+//   LBO = 128 B apart, no swizzle. The wrapper derives this image from
+//   the fragment blob on the card (a permutation, ops/fused_infer.py::
+//   _wg_image) and keeps it beside the blob; the blob's layout is
+//   unchanged, so a serving .pt2 of the fragment blob runs as it did.
+// * Channel 8 s + 2c + kh of k-step s sits in k-slot 4 kh + c, so thread
+//   (g, t)'s A registers (rows g, g + 8; slots t, t + 4) are channels 2t
+//   and 2t + 1: the columns its own accumulators hold after the layer's
+//   products. Each thread therefore writes its own outputs (bias, then
+//   the activation) to the warpgroup's activation rows and reads back
+//   only what it wrote: no barrier between layers, and each activation is
+//   split into hi / lo once a layer, by the thread that owns it. Up <= 256
+//   keeps 64 x (Up + 8) floats a warpgroup in shared memory rather than
+//   in registers (Up floats a thread with the accumulators).
+// * One lane of the producer warpgroup walks the pass's slabs (KS k-steps
+//   of a layer, each contiguous in the image) for every pass and fills a ring
+//   of `stages` slots by cp.async.bulk, completion to the slot's full
+//   mbarrier; a consumer warp waits on it, and after its warpgroup's
+//   products of the slab have completed (wgmma.wait_group) releases the
+//   slot with one arrive on its empty mbarrier (8 a phase). No block-wide
+//   barrier runs in the encode. The producer warpgroup keeps 40 registers
+//   a thread (setmaxnreg) and gives the rest to the consumers (232), whose
+//   Up / 2 sums and the A registers of a slab's KS k-steps would spill at
+//   the 168 that 384 threads get evenly.
+// * Rows and heads as in encode_stream.cuh: each warp stages its own 16
+//   rows (qv_st_stage_row); the head (U -> 5) on mma.sync from the blob's
+//   fragments in global memory (qv_st_head); a round of 256 voxels (two
+//   passes) stages its heads, then the 256 consumer threads, a voxel a
+//   thread, run B's quadrature (qv_quad_block's side sort over the round,
+//   on named barrier 1) or write C's q. B's scratch shares the activation
+//   rows where it fits (they are idle between a round's last head and its
+//   next pass).
+// Shared memory (ops/fused_infer.py::_wg_smem, in this order):
+//   mbarriers (QV_WG_BAR_BYTES) | ring stages x KS x 64 Up bytes |
+//   activations 128 x (Up + 8) floats | rows 128 x SX floats |
+//   heads 5 x 256 floats | [B: node table QV_NCONST, quadrature scratch
+//   QV_QUAD_SCRATCH(256) floats unless it fits in the activations]
+// (SX: QvStF32::x_stride of the first layer's k-steps.)
+
+#include "encode_stream.cuh"
+
+#define QV_WG_THREADS 384     // two consumer warpgroups + a producer's
+#define QV_WG_CONSUMERS 256
+// registers a thread after setmaxnreg: the producer warpgroup gives its
+// share to the consumers (128 x 40 + 256 x 232 <= 65,536)
+#define QV_WG_PRODUCER_REGS 40
+#define QV_WG_CONSUMER_REGS 232
+#define QV_WG_BAR_BYTES 128   // the ring's full / empty mbarriers
+#define QV_WG_MAX_STAGES 8
+#define QV_WG_PASS 128        // voxels a pass: 64 a consumer warpgroup
+
+// ---- PTX ----------------------------------------------------------------------
+
+static __device__ __forceinline__ uint32_t qv_wg_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+static __device__ __forceinline__ void qv_wg_bar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+static __device__ __forceinline__ void qv_wg_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// The producer's arrival on a full barrier, with the bytes to come.
+static __device__ __forceinline__ void qv_wg_arrive_tx(uint32_t bar,
+                                                       int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+// Wait until the phase of the given parity has completed.
+static __device__ __forceinline__ void qv_wg_wait(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// One bulk copy of `bytes` (a multiple of 16) from global to shared
+// memory, its completion counted on barrier bar.
+static __device__ __forceinline__ void qv_wg_bulk(uint32_t dst,
+                                                  const void* src, int bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+template <int N>
+static __device__ __forceinline__ void qv_wg_setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+static __device__ __forceinline__ void qv_wg_setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+static __device__ __forceinline__ void qv_wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+static __device__ __forceinline__ void qv_wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+static __device__ __forceinline__ void qv_wg_wait_mma() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving a use of the sums across the points where
+// the tensor cores own them.
+template <int NR>
+static __device__ __forceinline__ void qv_wg_fence_sums(float* d) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Descriptor of a K-major TF32 operand at shared address a (16-byte
+// aligned), no swizzle: 8 x 16-byte core matrices, the two k-halves of a
+// k-step LBO = 128 B apart, 8-row groups SBO = 256 B apart (layout 0).
+static __device__ __forceinline__ uint64_t qv_wg_desc(uint32_t a) {
+  return (uint64_t)((a & 0x3FFFFu) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32);
+}
+
+// d (64 x N float32 sums) (+)= a * b: a (64 x 8 TF32) in registers, warp w
+// of the warpgroup holding rows 16 w .. 16 w + 15 as mma.m16n8k8's A
+// fragment (a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4),
+// lane = 4 g + t); b (8 x N) by descriptor, K-major. Thread (w, 4 g + t)
+// holds d[4 j + 2 hh + i] = D(16 w + g + 8 hh, 8 j + 2 t + i). acc == 0:
+// d = a * b.
+template <int N>
+struct QvWgTf32;
+
+template <>
+struct QvWgTf32<16> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
+                                             uint64_t desc, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7},"
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  }
+};
+
+template <>
+struct QvWgTf32<32> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
+                                             uint64_t desc, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15},"
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  }
+};
+
+template <>
+struct QvWgTf32<64> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
+                                             uint64_t desc, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31},"
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  }
+};
+
+template <>
+struct QvWgTf32<128> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
+                                             uint64_t desc, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  }
+};
+
+template <>
+struct QvWgTf32<192> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
+                                             uint64_t desc, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+        "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+        "%93, %94, %95},"
+        "{%96, %97, %98, %99}, %100, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+          "+f"(d[95])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  }
+};
+
+template <>
+struct QvWgTf32<256> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
+                                             uint64_t desc, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+        "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+        "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+        "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+        "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+        "%127},"
+        "{%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+          "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  }
+};
+
+// ---- the encode -------------------------------------------------------------
+
+// KS: k-steps a slab (their A registers, 8 a k-step, are loaded before
+// the slab's products).
+template <int UP, int KS, bool QUAD>
+static __device__ __forceinline__ void qv_wg_body(
+    const float* __restrict__ x, long long n, int t_in, int cm, int mask,
+    int se, int multi, int act, int nb, const float* __restrict__ blob,
+    const float* __restrict__ image, int mvg, QvRanges rg, int stages,
+    float* __restrict__ o0, float* __restrict__ o1, float* __restrict__ o2) {
+  constexpr int KB = 64 * UP;  // bytes of a k-step's image, hi then lo
+  constexpr int SA = UP + 8, PASS = QV_WG_PASS;
+  extern __shared__ float4 qv_wg_smem[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(qv_wg_smem);
+  const int T = t_in - mask;
+  const int ks0 = (T + 7) / 8, ksh = UP / 8;
+  const int nks0 = (ks0 + KS - 1) / KS;
+  const int nksh = (ksh + KS - 1) / KS;
+  const int nslab = nks0 + nb * nksh, slab_bytes = KS * KB;
+  const int sx = QvStF32::x_stride(ks0);
+  const uint32_t full = qv_wg_addr(sm), empty = full + 8 * stages;
+  uint8_t* ring = sm + QV_WG_BAR_BYTES;
+  float* acts = reinterpret_cast<float*>(ring + stages * slab_bytes);
+  float* xss = acts + PASS * SA;
+  float* hq = xss + PASS * sx;
+  float* consts = hq + 5 * QV_ST_ROUND;
+  float* scratch = PASS * SA >= QV_QUAD_SCRATCH(QV_ST_ROUND)
+                       ? acts
+                       : consts + QV_NCONST;
+  const QvStBlob b = qv_st_blob<QvStF32>(blob, UP, nb, ks0);
+  if (QUAD) qv_stage_consts(b.consts, consts);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      qv_wg_bar_init(full + 8 * s, 1);   // the producer's arrival + bytes
+      qv_wg_bar_init(empty + 8 * s, 8);  // a lane of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const long long rounds = (n + QV_ST_ROUND - 1) / QV_ST_ROUND;
+  // the warpgroup, warp-uniform as the compiler sees it (a wgmma in a
+  // branch it takes for divergent is serialised)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+
+  if (wg == QV_WG_CONSUMERS / 128) {
+    // the producer: one lane walks every pass's slabs into the ring
+    qv_wg_setmaxnreg_dec<QV_WG_PRODUCER_REGS>();
+    if (threadIdx.x != QV_WG_CONSUMERS) return;
+    const uint8_t* img = reinterpret_cast<const uint8_t*>(image);
+    int slot = 0;
+    uint32_t phase = 0;
+#pragma unroll 1
+    for (long long rnd = blockIdx.x; rnd < rounds; rnd += gridDim.x) {
+      const int passes =
+          (int)min((long long)(QV_ST_ROUND / PASS),
+                   (n - rnd * QV_ST_ROUND + PASS - 1) / PASS);
+#pragma unroll 1
+      for (int i = 0; i < passes * nslab; ++i) {
+        const int j = i % nslab;
+        // slab j: k-steps k0 .. k0 + nk - 1 of layer l (the image's k-step
+        // ks of the trunk)
+        int kl = ks0, k0 = j * KS, ks = k0;
+        if (j >= nks0) {
+          const int l = (j - nks0) / nksh;
+          kl = ksh;
+          k0 = (j - nks0 - l * nksh) * KS;
+          ks = ks0 + l * ksh + k0;
+        }
+        const int bytes = min(KS, kl - k0) * KB;
+        qv_wg_wait(empty + 8 * slot, phase ^ 1);
+        qv_wg_arrive_tx(full + 8 * slot, bytes);
+        qv_wg_bulk(qv_wg_addr(ring + slot * slab_bytes),
+                   img + (long long)ks * KB, bytes, full + 8 * slot);
+        if (++slot == stages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg encodes rows 64 wg .. 64 wg + 63 of a
+  // pass, warp w its rows 16 w .. 16 w + 15
+  qv_wg_setmaxnreg_inc<QV_WG_CONSUMER_REGS>();
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  uint32_t* act_w = reinterpret_cast<uint32_t*>(acts + wg * 64 * SA);
+  uint32_t* xs_w = reinterpret_cast<uint32_t*>(xss + wg * 64 * sx);
+  const int lo = se - 1 > 0 ? se - 1 : 0, hi = se + 2 < T ? se + 2 : T;
+  int slot = 0;
+  uint32_t phase = 0;
+  float acc[UP / 2];
+#pragma unroll 1
+  for (long long rnd = blockIdx.x; rnd < rounds; rnd += gridDim.x) {
+    const long long v0r = rnd * QV_ST_ROUND;
+    const int passes = (int)min((long long)(QV_ST_ROUND / PASS),
+                                (n - v0r + PASS - 1) / PASS);
+#pragma unroll 1
+    for (int p = 0; p < passes; ++p) {
+      const int base = p * PASS + wg * 64;  // the warpgroup's rows
+      __syncwarp();  // the warp's rows of the last pass are read
+      if (lane < 16) {
+        const int r = 16 * warp + lane;
+        qv_st_stage_row<QvStF32>(xs_w, sx, r, x, n, v0r + base + r, t_in, cm,
+                                 mask, T, se, multi, lo, hi, 8 * ks0);
+      }
+      __syncwarp();
+#pragma unroll 1
+      for (int l = 0; l <= nb; ++l) {
+        const uint32_t* in = l == 0 ? xs_w : act_w;
+        const int s_in = l == 0 ? sx : SA;
+        const int kl = l == 0 ? ks0 : ksh, nks = l == 0 ? nks0 : nksh;
+#pragma unroll 1
+        for (int ksl = 0; ksl < nks; ++ksl) {
+          const int k0 = ksl * KS, nk = min(KS, kl - k0);
+          // a slab's KS k-steps with no branch around the products: past
+          // the slab's nk (the first layer's last slab), A is zero and B
+          // the slab's first k-step
+          QvStF32::A a[KS];
+#pragma unroll
+          for (int s = 0; s < KS; ++s) {
+            a[s] = QvStF32::load_a(in, s_in, 16 * warp, min(k0 + s, kl - 1),
+                                   g, t);
+            const uint32_t keep = s < nk ? 0xFFFFFFFFu : 0u;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              a[s].hi[i] &= keep;
+              a[s].lo[i] &= keep;
+            }
+          }
+          const uint32_t cur = qv_wg_addr(ring + slot * slab_bytes);
+          qv_wg_wait(full + 8 * slot, phase);
+          qv_wg_fence_sums<UP / 2>(acc);
+          qv_wg_fence();
+#pragma unroll
+          for (int s = 0; s < KS; ++s) {
+            const uint32_t bk = cur + (s < nk ? s : 0) * KB;
+            QvWgTf32<UP>::mma(acc, a[s].lo, qv_wg_desc(bk), k0 + s > 0);
+            QvWgTf32<UP>::mma(acc, a[s].hi, qv_wg_desc(bk + 32 * UP), 1);
+            QvWgTf32<UP>::mma(acc, a[s].hi, qv_wg_desc(bk), 1);
+          }
+          qv_wg_commit();
+          qv_wg_wait_mma();
+          qv_wg_fence_sums<UP / 2>(acc);
+          if (lane == 0) qv_wg_arrive(empty + 8 * slot);  // the slot is read
+          if (++slot == stages) {
+            slot = 0;
+            phase ^= 1;
+          }
+        }
+        // bias and activation: each thread's own rows and channels, which
+        // only it reads back (header)
+#pragma unroll
+        for (int j = 0; j < UP / 8; ++j)
+          QvStF32::store(act_w, SA, 16 * warp + g, 8 * j + 2 * t, acc + 4 * j,
+                         b.layer_bias(l), act);
+      }
+      __syncwarp();
+      qv_st_head(QvStF32(), act_w, SA, b, UP, 16 * warp, lane, hq, base);
+    }
+    const QvNamedSync round{1, QV_WG_CONSUMERS};
+    round.sync();  // the round's heads are staged
+    if (QUAD)
+      qv_st_quad_round(consts, scratch, hq, n, v0r, mvg, rg, o0, o1, o2,
+                       round);
+    else
+      qv_st_write_q(hq, n, v0r, o0);
+    round.sync();  // the heads and the scratch are read
+  }
+}
+
+#define QV_WG_ARGS                                                          \
+  const float *__restrict__ x, long long n, int t_in, int cm, int mask,     \
+      int se, int multi, int act, int nb, const float *__restrict__ blob,   \
+      const float *__restrict__ image
+
+// Kernels B and C, one symbol each (the profile and the SASS tell them
+// from encode_stream.cu's).
+template <int UP, int KS>
+__global__ void __launch_bounds__(QV_WG_THREADS, 1)
+    qv_encode_quad_wg_kernel(QV_WG_ARGS, int mvg, QvRanges r, int stages,
+                             float* __restrict__ means,
+                             float* __restrict__ vars,
+                             float* __restrict__ raw) {
+  qv_wg_body<UP, KS, true>(x, n, t_in, cm, mask, se, multi, act, nb, blob,
+                           image, mvg, r, stages, means, vars, raw);
+}
+
+template <int UP, int KS>
+__global__ void __launch_bounds__(QV_WG_THREADS, 1)
+    qv_encode_q_wg_kernel(QV_WG_ARGS, int stages, float* __restrict__ q) {
+  qv_wg_body<UP, KS, false>(x, n, t_in, cm, mask, se, multi, act, nb, blob,
+                            image, 0, QvRanges{}, stages, q, nullptr,
+                            nullptr);
+}
+
+// kernel<Up, KS> for the plan's ring (stages slots of ks k-steps; the
+// pairs ops/fused_infer.py::_WG_SLABS offers), launched as
+// encode_stream.cuh's kernels are.
+#define QV_WG_CASE(kernel, UP_, KS_, ...) \
+  case UP_ * 8 + KS_:                     \
+    return qv_st_launch(kernel<UP_, KS_>, QV_WG_THREADS, __VA_ARGS__);
+#define QV_WG_DISPATCH(kernel, up, stages, ks, ...) \
+  if (stages < 2 || stages > QV_WG_MAX_STAGES)      \
+    return (int)cudaErrorInvalidValue;              \
+  switch (up * 8 + ks) {                            \
+    QV_WG_CASE(kernel, 16, 2, __VA_ARGS__)          \
+    QV_WG_CASE(kernel, 32, 4, __VA_ARGS__)          \
+    QV_WG_CASE(kernel, 64, 4, __VA_ARGS__)          \
+    QV_WG_CASE(kernel, 128, 2, __VA_ARGS__)         \
+    QV_WG_CASE(kernel, 192, 1, __VA_ARGS__)         \
+    QV_WG_CASE(kernel, 192, 2, __VA_ARGS__)         \
+    QV_WG_CASE(kernel, 256, 1, __VA_ARGS__)         \
+    QV_WG_CASE(kernel, 256, 2, __VA_ARGS__)         \
+    default:                                        \
+      return (int)cudaErrorInvalidValue;            \
+  }
+
+// The C entries: encode_stream.cu's arguments with the wgmma image
+// (ops/fused_infer.py::_wg_image) beside the blob and the plan's ring in
+// place of its tile; block must be QV_WG_THREADS and smem_bytes the
+// plan's.
+extern "C" int qv_encode_quad_wg(
+    const float* x, long long n, int t_in, int channel_major,
+    int mask_channel, int se_idx, int multi_image, int act, int up, int nb,
+    const float* blob, const float* image, QvRanges r, float* means,
+    float* vars, float* raw, int mvg, int stages, int ks, int block,
+    long long smem_bytes, void* stream) {
+  QV_WG_DISPATCH(qv_encode_quad_wg_kernel, up, stages, ks, n, block,
+                 smem_bytes, stream, x, n, t_in, channel_major, mask_channel,
+                 se_idx, multi_image, act, nb, blob, image, mvg, r, stages,
+                 means, vars, raw)
+}
+
+extern "C" int qv_encode_q1_wg(const float* x, long long n, int t_in,
+                               int channel_major, int mask_channel,
+                               int se_idx, int multi_image, int act, int up,
+                               int nb, const float* blob, const float* image,
+                               float* q, int stages, int ks, int block,
+                               long long smem_bytes, void* stream) {
+  QV_WG_DISPATCH(qv_encode_q_wg_kernel, up, stages, ks, n, block,
+                 smem_bytes, stream, x, n, t_in, channel_major, mask_channel,
+                 se_idx, multi_image, act, nb, blob, image, stages, q)
+}

@@ -277,21 +277,38 @@ static __device__ __forceinline__ void qv_quad_combine(
 // their moments (8 + 2 + 5 a problem set, x T).
 #define QV_QUAD_SCRATCH(T) (2 * 32 + 21 * (T))
 
+// The threads that share qv_quad_block's sort, and their barrier: the
+// whole block (kernels A and B), or its first n threads on the named
+// barrier id (encode_stream_wg.cu's consumer warpgroups, beside a producer
+// warpgroup that takes no part).
+struct QvBlockSync {
+  __device__ __forceinline__ int threads() const { return blockDim.x; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+struct QvNamedSync {
+  int id, n;
+  __device__ __forceinline__ int threads() const { return n; }
+  __device__ __forceinline__ void sync() const {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+  }
+};
+
 // The block's voxels, their moments computed with the problems of each
-// routine sorted by side (kernels A and B). Every thread of the block calls
-// it, ``live`` or not (at most 32 warps); a live thread gets its voxel's
-// moments, bit-equal to solving them on its own lane. Thread t solves
-// problem t of each routine: omom's and gmom's Gauss-Hermite problems come
-// first, then their Gauss-Laguerre ones, and mom's the other way round (so
-// that no warp takes the costlier side in all three), each side in voxel
-// order; only the warp at a boundary runs both sides. Three
-// __syncthreads: counts, problems, moments. Each warp's counts are summed
-// by every thread (no shuffles, no arrays indexed at run time, which took
-// registers and stack: PERF.md).
+// routine sorted by side (kernels A and B). Every thread of the block (of
+// `sync`'s threads) calls it, ``live`` or not (at most 32 warps); a live
+// thread gets its voxel's moments, bit-equal to solving them on its own
+// lane. Thread t solves problem t of each routine: omom's and gmom's
+// Gauss-Hermite problems come first, then their Gauss-Laguerre ones, and
+// mom's the other way round (so that no warp takes the costlier side in
+// all three), each side in voxel order; only the warp at a boundary runs
+// both sides. Three barriers: counts, problems, moments. Each warp's
+// counts are summed by every thread (no shuffles, no arrays indexed at run
+// time, which took registers and stack: PERF.md).
+template <class Sync = QvBlockSync>
 static __device__ __forceinline__ void qv_quad_block(
     const float* c, float* sc, bool live, const QvQuadIn& in, float o[8],
-    float* D1, float* D2, float g[5]) {
-  const int T = blockDim.x, W = T >> 5, t = threadIdx.x;
+    float* D1, float* D2, float g[5], Sync sync = Sync()) {
+  const int T = sync.threads(), W = T >> 5, t = threadIdx.x;
   const int lane = t & 31, w = t >> 5;
   float* task = sc + 2 * 32;                      // [3][2][T]: m, s
   float* res = task + 6 * T;                      // o[8][T] d[2][T] g[5][T]
@@ -310,7 +327,7 @@ static __device__ __forceinline__ void qv_quad_block(
     counts[2 * w] = __popc(lv) | (__popc(gl[0]) << 16);
     counts[2 * w + 1] = __popc(gl[1]) | (__popc(gl[2]) << 16);
   }
-  __syncthreads();
+  sync.sync();
   unsigned before[2] = {0u, 0u}, all[2] = {0u, 0u};  // earlier warps, block
   for (int i = 0; i < W; ++i) {
 #pragma unroll
@@ -340,7 +357,7 @@ static __device__ __forceinline__ void qv_quad_block(
       task[(2 * k + 1) * T + slot[k]] = s[k];
     }
   }
-  __syncthreads();
+  sync.sync();
   if (t < n_live) {
     float out[8];
     qv_omom1d(c, task[t], task[T + t], out);
@@ -352,7 +369,7 @@ static __device__ __forceinline__ void qv_quad_block(
 #pragma unroll
     for (int j = 0; j < 5; ++j) res[(10 + j) * T + t] = out[j];
   }
-  __syncthreads();
+  sync.sync();
   if (live) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) o[j] = res[j * T + slot[0]];

@@ -24,10 +24,12 @@ encoder configuration; ``launch_plan``, a function of shapes alone, picks
 the design: the resident kernels of csrc/encode_quad.cu (float32) and
 csrc/encode_quad_bf16.cu (bf16), which hold the whole weight blob in
 shared memory, wherever it fits (counted in ``encode_quad_fused.launches``
-and ``.bf16_launches``), and the streamed kernels of
-csrc/encode_stream.cuh everywhere else, which stream the same blob through
-shared memory a slab at a time (``.stream_launches`` and
-``.stream_bf16_launches``).
+and ``.bf16_launches``); else, in float32 up to a padded width of 256,
+csrc/encode_stream_wg.cu, which feeds a wgmma image of the blob's weights
+(``_wg_image``) through a ring of slabs (``.wgmma_launches``); and the
+streamed kernels of csrc/encode_stream.cuh everywhere else, which stream
+the blob itself through shared memory a slab at a time
+(``.stream_launches`` and ``.stream_bf16_launches``).
 ``encode_q1_packed`` is the wrapper of kernel C, which shares B's encode
 routine and writes the raw head ``q (5, N)`` for the MC summaries
 (ops/summarize.py); its plain version is ``encode_q_plain``.
@@ -86,6 +88,20 @@ _NCONST = 3 * 16 + 10 * 16      # csrc/quad_math.cuh::QV_NCONST
 _ST_THREADS = _ST_ROUND = 256
 _ST_TILES = {1: (8, 4), 2: (8, 4), 4: (8, 4, 2, 1)}
 _ST_SLAB_BYTES = (32768, 16384)
+# the float32 trunk's wgmma kernels (csrc/encode_stream_wg.cu): threads a
+# block (QV_WG_THREADS: two consumer warpgroups and a producer's), voxels a
+# pass (QV_WG_PASS), the bytes of the ring's mbarriers (QV_WG_BAR_BYTES),
+# the k-steps a slab compiled for each padded width (QV_WG_DISPATCH: 12-32
+# KB slabs) and the ring's slots. launch_plan takes the smallest ring, the
+# first slab in two slots, which ran fastest on the H100 (at 256 x 2, 16
+# KB slabs in two slots 13-15% faster than any block past 196 KB; PERF.md);
+# the other slabs and slots are tools/bench_stream1.py --sweep's
+_WG_THREADS = 384
+_WG_PASS = 128
+_WG_BAR_BYTES = 128
+_WG_SLABS = {16: (2,), 32: (4,), 64: (4,), 128: (2,), 192: (1, 2),
+             256: (1, 2)}
+_WG_STAGES = (2, 3, 4)
 
 
 def fused_infer_available(activation: str) -> bool:
@@ -207,6 +223,31 @@ def _fragments(w, kp: int, np_: int):
     # (n, k) = (8j + g, 8s + 2t + pair) -> [s][j][g][t][hi/lo][pair]
     split = torch.stack([hi, lo]).reshape(2, np_ // 8, 8, kp // 8, 4, 2)
     return split.permute(3, 1, 2, 4, 0, 5).reshape(-1)
+
+
+def _wg_image(blob, up: int, nb: int, t: int):
+    """The wgmma image of a float32 blob's trunk (csrc/encode_stream_wg.cu),
+    a permutation of its fragments: the layers' k-steps in order (the
+    first layer's, then each block's), each as K-major core matrices with
+    hi and lo apart, [k-step s][hi | lo][row group j][k-half kh][row g]
+    [column c] = the split of w[8j + g, 8s + 2c + kh] -- fragment (s, j,
+    lane 4g + c) word 2 hi/lo + kh (``_fragments``)."""
+    nt = up // 8
+    steps = -(-t // 8) + nb * nt
+    frag = blob[:steps * nt * 128].view(steps, nt, 8, 4, 2, 2)
+    return frag.permute(0, 4, 1, 5, 2, 3).contiguous().view(-1)
+
+
+def _wg_image_of(blob, up: int, nb: int, t: int):
+    """``_wg_image`` of ``blob``, derived on the blob's device at its
+    first use by the wgmma kernels and kept on the blob (a fused serving
+    artifact's buffer derives it once) while the blob is unchanged."""
+    key = (blob._version, up, nb, t)
+    kept = getattr(blob, "_qv_wg_image", None)
+    if kept is None or kept[0] != key:
+        kept = (key, _wg_image(blob, up, nb, t))
+        blob._qv_wg_image = kept
+    return kept[1]
 
 
 def _core_image(w, kp: int, np_: int):
@@ -342,10 +383,12 @@ def _quad_scratch_floats(threads: int) -> int:
 class LaunchPlan:
     """How kernel B or C runs at one shape: ``design`` "resident" (the
     whole weight blob in shared memory, csrc/encode_quad.cu or
-    encode_quad_bf16.cu) or "streamed" (csrc/encode_stream.cuh: ``mt``
-    m-tiles -- 16 mt voxels a pass -- and ``ncw`` n-tiles a warp, slabs of
-    ``ks`` k-steps, double-buffered), with the block's ``threads`` and
-    dynamic shared-memory bytes ``smem``."""
+    encode_quad_bf16.cu), "wgmma" (float32, csrc/encode_stream_wg.cu: a
+    ring of ``stages`` slabs of ``ks`` k-steps) or "streamed"
+    (csrc/encode_stream.cuh: ``mt`` m-tiles -- 16 mt voxels a pass -- and
+    ``ncw`` n-tiles a warp, slabs of ``ks`` k-steps, double-buffered),
+    with the block's ``threads`` and dynamic shared-memory bytes
+    ``smem``."""
 
     design: str
     threads: int
@@ -353,6 +396,7 @@ class LaunchPlan:
     mt: int = 0
     ncw: int = 0
     ks: int = 0
+    stages: int = 0
 
 
 def _st_ncw(up: int) -> int:
@@ -392,15 +436,30 @@ def _st_smem(up: int, t: int, trunk: str, quad: bool, mt: int,
     return 2 * ks * 8 * ncw * fb + 4 * words
 
 
+def _wg_smem(up: int, t: int, quad: bool, stages: int, ks: int) -> int:
+    """Shared-memory bytes of the wgmma kernels, in the layout of
+    csrc/encode_stream_wg.cu: the ring's mbarriers, ``stages`` slots of
+    ``ks`` k-steps (64 up bytes each), the activation rows of a pass, its
+    staged rows, the round's heads and, in B, the node table and the
+    quadrature's scratch (in the activation rows where it fits)."""
+    act = _WG_PASS * (up + 8)
+    words = act + _WG_PASS * _xs_stride(t) + 5 * _ST_ROUND
+    if quad:
+        scratch = _quad_scratch_floats(_ST_ROUND)
+        words += _NCONST + (scratch if act < scratch else 0)
+    return _WG_BAR_BYTES + stages * ks * 64 * up + 4 * words
+
+
 def launch_plan(up: int, nb: int, t: int, t_in: int, trunk: str,
                 quad: bool, limit: int) -> LaunchPlan:
     """The launch of kernel B (``quad``) or C at padded width ``up``, ``nb``
     blocks, ``t`` taus of ``t_in`` input channels (a mask channel adds one)
     on a card whose blocks take ``limit`` bytes of shared memory: the
     resident design wherever its blob fits (in float32 beside the staged
-    rows of the most warps that fit), else the streamed design with the
-    largest pass of voxels, then the largest slab, that fits. Raises if
-    neither fits."""
+    rows of the most warps that fit); else, in float32 at ``up`` <= 256,
+    the wgmma design's smallest ring if it fits; else the streamed design
+    with the largest pass of voxels, then the largest slab, that fits.
+    Raises if none fits."""
     _check_trunk(trunk)
     scratch = _quad_scratch_floats if quad else (lambda threads: 0)
     blob = _blob_floats(up, nb, t, trunk)
@@ -417,6 +476,12 @@ def launch_plan(up: int, nb: int, t: int, t_in: int, trunk: str,
                             + scratch(32 * warps))
                 if smem <= limit:
                     return LaunchPlan("resident", 32 * warps, smem)
+    if trunk == "float32" and up in _WG_SLABS:
+        ks, stages = _WG_SLABS[up][0], _WG_STAGES[0]
+        smem = _wg_smem(up, t, quad, stages, ks)
+        if smem <= limit:
+            return LaunchPlan("wgmma", _WG_THREADS, smem, ks=ks,
+                              stages=stages)
     for mt in _ST_TILES[_st_ncw(up)]:
         for ks in _st_slabs(up, trunk):
             smem = _st_smem(up, t, trunk, quad, mt, ks)
@@ -475,9 +540,12 @@ def _entry(name: str, trunk: str):
                    name + ("_bf16" if trunk == "bfloat16" else ""))
 
 
+_COUNTER_PREFIX = {"resident": "", "streamed": "stream_", "wgmma": "wgmma_"}
+
+
 def _count(wrapper, plan: LaunchPlan, trunk: str) -> None:
     """One launch of kernel B or C, counted by design and trunk."""
-    name = ("stream_" if plan.design == "streamed" else "") + (
+    name = _COUNTER_PREFIX[plan.design] + (
         "bf16_launches" if trunk == "bfloat16" else "launches")
     setattr(wrapper, name, getattr(wrapper, name) + 1)
 
@@ -565,6 +633,12 @@ def encode_quad_fused_op(x: torch.Tensor, blob: torch.Tensor, units: int,
                 *args, units, padded_units, n_blocks, blob.data_ptr(),
                 blob.numel(), ranges, *ptrs, int(mvg), plan.threads,
                 plan.smem, stream)
+        elif plan.design == "wgmma":
+            image = _wg_image_of(blob, padded_units, n_blocks, t)
+            err = _cuda.library().qv_encode_quad_wg(
+                *args, padded_units, n_blocks, blob.data_ptr(),
+                image.data_ptr(), ranges, *ptrs, int(mvg), plan.stages,
+                plan.ks, plan.threads, plan.smem, stream)
         else:
             err = _entry("qv_encode_quad_stream", trunk)(
                 *args, padded_units, n_blocks, blob.data_ptr(), ranges,
@@ -595,7 +669,8 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
     layouts, the mask channel and the trunk. CUDA tensors launch kernel C
     by the design ``launch_plan`` picks (counted as kernel B's, in
     ``encode_q1_packed.launches``, ``.bf16_launches``,
-    ``.stream_launches`` and ``.stream_bf16_launches``) or raise; CPU
+    ``.wgmma_launches``, ``.stream_launches`` and
+    ``.stream_bf16_launches``) or raise; CPU
     tensors run ``encode_q_plain``. Unlike the TPU kernel, N is not
     padded."""
     kw = dict(se_idx=se_idx, multi_image=multi_image, activation=activation,
@@ -622,6 +697,12 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
             err = _entry("qv_encode_q1", trunk)(
                 *args, up, n_blocks, blob.data_ptr(), blob.numel(),
                 q.data_ptr(), plan.threads, plan.smem, stream)
+        elif plan.design == "wgmma":
+            image = _wg_image_of(blob, up, n_blocks, t)
+            err = _cuda.library().qv_encode_q1_wg(
+                *args, up, n_blocks, blob.data_ptr(), image.data_ptr(),
+                q.data_ptr(), plan.stages, plan.ks, plan.threads, plan.smem,
+                stream)
         else:
             err = _entry("qv_encode_q1_stream", trunk)(
                 *args, up, n_blocks, blob.data_ptr(), q.data_ptr(), plan.mt,
@@ -632,5 +713,5 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
 
 
 for _w in (encode_quad_fused, encode_q1_packed):
-    _w.launches = _w.bf16_launches = 0
+    _w.launches = _w.bf16_launches = _w.wgmma_launches = 0
     _w.stream_launches = _w.stream_bf16_launches = 0

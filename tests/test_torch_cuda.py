@@ -154,18 +154,20 @@ def _design_counter(units, nb, trunk, quad, t_in):
 
     plan = tfi.launch_plan(tfi._padded_width(units), nb, t_in - 1, t_in,
                            trunk, quad, _cuda.library().qv_max_dynamic_smem())
-    return (("stream_" if plan.design == "streamed" else "")
-            + ("bf16_launches" if trunk == "bfloat16" else "launches"))
+    return tfi._COUNTER_PREFIX[plan.design] + (
+        "bf16_launches" if trunk == "bfloat16" else "launches")
 
 
 # widths and depths past the resident blob: 100 and 128 units x 2 blocks in
-# float32 (the blob does not fit), 256 x 2 and 520 x 1 (past 128 units),
-# 60 x 7 (depth); 128 x 2 at bf16 stays resident. N = 20,011 ends in a
+# float32 (the blob does not fit), 192 and 256 x 2 and 520 x 1 (past 128
+# units), 60 x 7 (depth); 128 x 2 and 60 x 7 at bf16 stay resident. In
+# float32 every padded width up to 256 takes the wgmma design
+# (csrc/encode_stream_wg.cu), 520 the streamed one. N = 20,011 ends in a
 # ragged pass and round, and channel-major at N % 4 != 0.
 @pytest.mark.parametrize("trunk", ["float32", "bfloat16"])
 @pytest.mark.parametrize("layout", ["voxel", "channel"])
 @pytest.mark.parametrize("units,nb,act", [
-    (100, 2, "relu"), (128, 2, "gelu"), (256, 2, "relu"),
+    (100, 2, "relu"), (128, 2, "gelu"), (192, 2, "relu"), (256, 2, "relu"),
     (520, 1, "softplus"), (60, 7, "relu")])
 def test_wide_and_deep_kernels_match_plain(cuda_device, trunk, layout, units,
                                            nb, act):
@@ -174,7 +176,21 @@ def test_wide_and_deep_kernels_match_plain(cuda_device, trunk, layout, units,
     3e-5, B by _close); bf16 C within BF16_ULPS bf16 ulps, B against the
     plain quadrature of C's q at the float32 tolerances and against its
     plain version at the JAX package's bf16 gate. One launch each, counted
-    under the design launch_plan picks."""
+    under the design launch_plan picks: wgmma in float32 up to 256 units
+    (padded), streamed past it."""
+    _wide_and_deep_case(cuda_device, trunk, layout, units, nb, act)
+
+
+@pytest.mark.parametrize("layout", ["voxel", "channel"])
+def test_deep_narrow_float32_takes_the_wgmma_design(cuda_device, layout):
+    """30 units x 32 blocks in float32 (the resident blob does not fit at
+    a padded width of 32): kernels B and C on the wgmma design, whose slab
+    there holds 4 k-steps and the first layer's only 2, against their
+    plain versions as test_wide_and_deep_kernels_match_plain holds them."""
+    _wide_and_deep_case(cuda_device, "float32", layout, 30, 32, "softplus")
+
+
+def _wide_and_deep_case(cuda_device, trunk, layout, units, nb, act):
     from qbold_vi_tpu_torch.ops.quadrature import quad_tile_summaries
 
     cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=units,
@@ -193,6 +209,9 @@ def test_wide_and_deep_kernels_match_plain(cuda_device, trunk, layout, units,
               input_layout=layout)
     names = [_design_counter(units, nb, trunk, quad, SCAN.n_taus + 1)
              for quad in (True, False)]
+    if trunk == "float32":
+        assert names == 2 * ["wgmma_launches" if units <= 256
+                             else "stream_launches"]
     before = (getattr(tfi.encode_quad_fused, names[0]),
               getattr(tfi.encode_q1_packed, names[1]))
     q = tfi.encode_q1_packed(x, tuner.encoder, **kw)
@@ -219,6 +238,53 @@ def test_wide_and_deep_kernels_match_plain(cuda_device, trunk, layout, units,
                           (ref[0], ref[2])):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
                                    rtol=0.05, atol=0.03, err_msg=name)
+
+
+def test_wgmma_design_raises_rather_than_running_plain(cuda_device,
+                                                      monkeypatch):
+    """At 256 units x 2 blocks (the wgmma design) a launch the card refuses
+    (a plan past its shared memory) and a kernel library that does not
+    build raise from kernels B and C; neither runs a plain version or
+    counts a launch."""
+    from qbold_vi_tpu_torch.ops import _cuda
+
+    cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=256)
+    tuner = _tuner(cfg, cuda_device)
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(volume(rng, (5_003,), SCAN.n_taus + 1)).to(
+        cuda_device)
+    kw = dict(se_idx=SCAN.se_idx, multi_image=False, activation="relu",
+              n_blocks=2, trunk="float32", mask_channel=True,
+              input_layout="voxel")
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(tfi, "encode_quad_fused_plain", plain)
+    monkeypatch.setattr(tfi, "encode_q_plain", plain)
+    counts = (tfi.encode_quad_fused.wgmma_launches,
+              tfi.encode_q1_packed.wgmma_launches)
+    plan = tfi._plan
+    assert plan(256, 2, SCAN.n_taus, SCAN.n_taus + 1, "float32", True,
+                x.device).design == "wgmma"
+    monkeypatch.setattr(tfi, "_plan", lambda *a: dataclasses.replace(
+        plan(*a), smem=1 << 20))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tfi.encode_quad_fused(x, tuner.encoder, mvg=True, **kw, **RANGES)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tfi.encode_q1_packed(x, tuner.encoder, **kw)
+    monkeypatch.setattr(tfi, "_plan", plan)
+
+    def unbuilt():
+        raise RuntimeError("nvcc failed: no kernel library")
+
+    monkeypatch.setattr(_cuda, "library", unbuilt)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        tfi.encode_quad_fused(x, tuner.encoder, mvg=True, **kw, **RANGES)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        tfi.encode_q1_packed(x, tuner.encoder, **kw)
+    assert (tfi.encode_quad_fused.wgmma_launches,
+            tfi.encode_q1_packed.wgmma_launches) == counts
 
 
 def test_launch_plan_scratch_is_the_kernels(cuda_device):
@@ -441,7 +507,7 @@ def test_posterior_maps_on_card(cuda_device, use_first_op):
 
 def test_auto_at_256_units_launches_b_not_a(cuda_device):
     """At 256 units x 2 blocks "auto" runs stream 1 through kernel B (the
-    streamed design), not the encoder and kernel A, and matches the plain
+    wgmma design), not the encoder and kernel A, and matches the plain
     route on the CPU at test_torch_infer.py's tolerances; a forced "on"
     runs the same kernel."""
     cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=256,
@@ -451,7 +517,7 @@ def test_auto_at_256_units_launches_b_not_a(cuda_device):
     rng = np.random.default_rng(3)
     data = volume(rng, (3, 12, 12, 3), SCAN.n_taus + 1)
     data[..., -1] = rng.uniform(size=data.shape[:-1]) > 0.3
-    counters = (lambda: tfi.encode_quad_fused.stream_launches,
+    counters = (lambda: tfi.encode_quad_fused.wgmma_launches,
                 lambda: tfi.encode_quad_fused.launches,
                 lambda: tq.quad_posterior_summaries.launches)
     counts = [c() for c in counters]
@@ -467,7 +533,7 @@ def test_auto_at_256_units_launches_b_not_a(cuda_device):
     forced = _tuner(dataclasses.replace(cfg, fused_infer="on"), cuda_device)
     forced.load_state_dict(gpu.state_dict())
     again = infer.posterior_maps(forced, data, use_first_op=True)
-    assert tfi.encode_quad_fused.stream_launches - counts[0] == 2 * moved[0]
+    assert tfi.encode_quad_fused.wgmma_launches - counts[0] == 2 * moved[0]
     for key in ("oef", "dbv", "r2p", "stds", "raw_log_stds"):
         np.testing.assert_array_equal(again[key], got[key], err_msg=key)
 
@@ -1466,9 +1532,10 @@ def test_fused_artifact_reloads_in_a_fresh_process(cuda_device, tmp_path):
 
 @pytest.mark.parametrize("trunk", ["float32", "bfloat16"])
 def test_fused_artifact_at_256_units(cuda_device, tmp_path, trunk):
-    """The fused .pt2 at 256 units x 2 blocks (kernel B's streamed design)
-    exports, saves, reloads and gives the in-process kernel-B route's maps
-    bit for bit, one streamed launch a call."""
+    """The fused .pt2 at 256 units x 2 blocks (kernel B's wgmma design in
+    float32, the streamed one in bf16) exports, saves, reloads and gives
+    the in-process kernel-B route's maps bit for bit, one launch of that
+    design a call."""
     from qbold_vi_tpu_torch.io import export_model as em
 
     cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=256,
@@ -1484,7 +1551,7 @@ def test_fused_artifact_at_256_units(cuda_device, tmp_path, trunk):
     x = torch.from_numpy(np.ascontiguousarray(
         volume(rng, shape, 12).reshape(-1, 12).T)).to(cuda_device)
     counter = "stream_bf16_launches" if trunk == "bfloat16" else \
-        "stream_launches"
+        "wgmma_launches"
     before = getattr(tfi.encode_quad_fused, counter)
     out = art(x)
     torch.cuda.synchronize()

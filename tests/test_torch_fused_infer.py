@@ -771,16 +771,29 @@ H100_SMEM = 232_448       # shared memory a block can take on the H100
 def test_launch_plan_takes_every_width_and_depth(trunk, quad):
     """launch_plan has a launch for every width and depth of the grid
     within the H100's shared memory, and keeps the resident design at
-    OPTIMAL (60 units x 2 blocks). At 100 x 2 in float32 the resident blob
-    does not fit (72,280 floats): the plan streams the weights."""
-    for units in (1, 13, 60, 64, 65, 100, 128, 129, 200, 256, 520, 1024):
+    OPTIMAL (60 units x 2 blocks). Where the resident blob does not fit
+    (at 100 x 2 in float32 it is 72,280 floats; 60 x 7; past 128 units)
+    the float32 trunk takes the wgmma design up to a padded width of 256
+    and the streamed one past it; the bf16 trunk (half the blob) streams
+    past 128 units."""
+    for units in (1, 13, 60, 64, 65, 100, 128, 129, 192, 200, 256, 257,
+                  520, 1024):
         up = tfi._padded_width(units)
         assert up >= units
         for nb in (1, 2, 3, 7, 12):
             plan = tfi.launch_plan(up, nb, 11, 12, trunk, quad, H100_SMEM)
             assert 0 < plan.smem <= H100_SMEM, (units, nb, plan)
-            assert plan.design in ("resident", "streamed")
-            if plan.design == "streamed":
+            if plan.design == "resident":
+                assert up in tfi._RESIDENT_WIDTHS
+            elif trunk == "float32" and up <= 256:
+                assert plan.design == "wgmma", (units, nb, plan)
+                assert plan.threads == tfi._WG_THREADS == 384
+                assert (plan.ks, plan.stages) == (tfi._WG_SLABS[up][0], 2)
+                assert plan.smem == tfi._wg_smem(up, 11, quad, plan.stages,
+                                                 plan.ks)
+                assert tfi._ST_ROUND % tfi._WG_PASS == 0
+            else:
+                assert plan.design == "streamed", (units, nb, plan)
                 assert (plan.mt, plan.ncw) in {
                     (mt, ncw) for ncw, mts in tfi._ST_TILES.items()
                     for mt in mts}
@@ -789,10 +802,26 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
     opt = tfi.launch_plan(64, 2, 11, 12, trunk, quad, H100_SMEM)
     assert opt.design == "resident"
     assert opt.threads == (384 if trunk == "float32" else 256)
+    designs = {shape: tfi.launch_plan(tfi._padded_width(shape[0]), shape[1],
+                                      11, 12, trunk, quad, H100_SMEM).design
+               for shape in ((100, 2), (128, 2), (60, 7), (192, 2),
+                             (256, 2), (320, 2), (520, 1))}
     if trunk == "float32":
         assert tfi._blob_floats(128, 2, 11, trunk) == 72_280
-        assert tfi.launch_plan(128, 2, 11, 12, trunk, quad,
-                               H100_SMEM).design == "streamed"
+        assert designs == {(100, 2): "wgmma", (128, 2): "wgmma",
+                           (60, 7): "wgmma", (192, 2): "wgmma",
+                           (256, 2): "wgmma", (320, 2): "streamed",
+                           (520, 1): "streamed"}
+        # at 256 x 2: two warpgroups' activation rows (132 KB) beside a
+        # ring of two 16 KB slabs
+        plan = tfi.launch_plan(256, 2, 11, 12, trunk, quad, H100_SMEM)
+        assert (plan.ks, plan.stages) == (1, 2)
+        assert tfi._WG_PASS * (256 + 8) * 4 == 135_168
+    else:
+        assert designs == {(100, 2): "resident", (128, 2): "resident",
+                           (60, 7): "resident", (192, 2): "streamed",
+                           (256, 2): "streamed", (320, 2): "streamed",
+                           (520, 1): "streamed"}
     with pytest.raises(ValueError, match="no launch fits"):
         tfi.launch_plan(1024, 2, 11, 12, trunk, quad, 64 * 1024)
 
@@ -815,14 +844,17 @@ def _stream_walk(up, nb, t, trunk, plan):
 
 @pytest.mark.parametrize("trunk", ["float32", "bfloat16"])
 def test_streamed_slabs_unpack_to_the_encoder(trunk):
-    """At 256 units x 2 blocks, the streamed kernels' slabs -- the blob's
-    bytes copied as qv_st_body copies them into a slot, then read as each
-    warp reads its B fragments (lane 4g + t) -- hold every layer's weight
-    at (n, k) exactly once: float32's hi / lo TF32 splits, bf16's bf16
-    values, zeros past U and T. The head's fragments and the biases, read
-    where qv_st_blob points, hold the head and the biases."""
-    cfg, tuner = _width_tuner(256)
-    nb, up = cfg.no_intermediate_layers, 256
+    """At 256 units x 2 blocks in bf16 and 320 x 2 in float32 (the
+    streamed design's widths: float32 takes the wgmma design up to 256),
+    the streamed kernels' slabs -- the blob's bytes copied as qv_st_body
+    copies them into a slot, then read as each warp reads its B fragments
+    (lane 4g + t) -- hold every layer's weight at (n, k) exactly once:
+    float32's hi / lo TF32 splits, bf16's bf16 values, zeros past U and
+    T. The head's fragments and the biases, read where qv_st_blob points,
+    hold the head and the biases."""
+    up = 256 if trunk == "bfloat16" else 320
+    cfg, tuner = _width_tuner(up)
+    nb = cfg.no_intermediate_layers
     blob, u, _, t = tfi._weight_blob(tuner.encoder, nb, torch.device("cpu"),
                                      trunk)
     plan = tfi.launch_plan(up, nb, t, t + 1, trunk, True, H100_SMEM)
@@ -918,3 +950,180 @@ def test_streamed_slabs_unpack_to_the_encoder(trunk):
     assert np.array_equal(raw[bf_off:bf_off + 32].view(np.float32)[:5],
                           bft[:, 0].numpy())
     assert raw.size == bf_off + 4 * (8 + tfi._NCONST)
+
+
+# ---- the float32 trunk's wgmma design -----------------------------------------
+# Kernels B and C in float32 at padded widths up to 256 where the resident
+# blob does not fit (csrc/encode_stream_wg.cu) run each layer as
+# wgmma.m64nUpk8 TF32 products, three a k-step (3xTF32): A, 64 voxels x 8
+# channels, from the registers of a warpgroup's 128 threads (mma.m16n8k8's
+# A fragment per warp), B by descriptor from a slab of the wgmma image that
+# ops/fused_infer.py::_wg_image derives from the fragment blob: K-major core
+# matrices, no swizzle, hi then lo a k-step, channel 8s + 2c + kh of k-step s
+# in k-slot 4kh + c. These tests read the image as the descriptors read it
+# and replay that data flow thread by thread in torch (float64 products of
+# the TF32 splits).
+
+_WG_LBO, _WG_SBO = 128, 256        # the descriptors' byte offsets
+
+
+def _wg_slot_channel(slot):
+    """The channel (within its k-step) that k-slot `slot` carries."""
+    return 2 * (slot % 4) + slot // 4
+
+
+def _wg_read_b(words, step, half, up):
+    """B (8 k-slots x up) of the image's k-step `step`, hi (half 0) or lo
+    (1), read as the kernel's descriptors read a slab that holds it: the
+    k-step's image at 64 up bytes a step, lo 32 up bytes past hi; element
+    (k-slot kk, row n) in core matrix (n // 8, kk // 4) at SBO and LBO
+    strides, its 16-byte row n % 8, 4 bytes a k-slot."""
+    kk = torch.arange(8)[:, None]
+    n = torch.arange(up)[None]
+    off = (step * 64 * up + half * 32 * up + n // 8 * _WG_SBO
+           + kk // 4 * _WG_LBO + n % 8 * 16 + kk % 4 * 4)
+    return words[off // 4]
+
+
+def _wg_thread_maps():
+    """Thread th = 32 w + 4 g + t of a warpgroup: (rows, k-slots) of its A
+    registers a0..a3 -- (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) of
+    warp w's 16 rows -- and (rows, columns) of accumulator d[4 j + 2 hh +
+    i] = D(16 w + g + 8 hh, 8 j + 2 t + i), j = 0 (later j add 8 j)."""
+    th = torch.arange(128)
+    w, g, t = th // 32, th % 32 // 4, th % 4
+    rows = torch.stack([16 * w + g, 16 * w + g + 8] * 2, 1)
+    slots = torch.stack([t, t, t + 4, t + 4], 1)
+    d_rows = torch.stack([16 * w + g, 16 * w + g, 16 * w + g + 8,
+                          16 * w + g + 8], 1)
+    d_cols = torch.stack([2 * t, 2 * t + 1, 2 * t, 2 * t + 1], 1)
+    return rows, slots, d_rows, d_cols
+
+
+@pytest.mark.parametrize("units,nb", [(100, 2), (256, 2), (60, 7), (13, 3)])
+def test_wgmma_image_unpacks_to_the_encoder(units, nb):
+    """The wgmma image, read by the kernel's descriptors k-step by k-step
+    (the first layer's, then each block's), holds every trunk weight w[n,
+    8s + channel(slot)] exactly once: hi = tf32(w) in the hi half, lo =
+    tf32(w - hi) in the lo half (hi + lo within 2^-21 of w), zeros past U
+    and T; it is a permutation of the blob's trunk fragments, which stay
+    as they were."""
+    cfg = dataclasses.replace(OPT, no_units=units, no_intermediate_layers=nb)
+    _, params = port_params(cfg, SCAN, units)
+    tuner = port_tuner(cfg, SCAN, params)
+    blob, u, up, t = tfi._weight_blob(tuner.encoder, nb, torch.device("cpu"))
+    img = tfi._wg_image(blob, up, nb, t)
+    ks0 = -(-t // 8)
+    trunk = (ks0 + nb * up // 8) * up * 16
+    assert img.numel() == trunk
+    assert torch.equal(img.sort().values, blob[:trunk].sort().values)
+    words = img
+    wfc, _, wbs, _, _, _ = tfi._stream1_weights(tuner.encoder, nb)
+    step = 0
+    chan = _wg_slot_channel(torch.arange(8))
+    for w in [wfc] + list(wbs):
+        kp = 8 * ks0 if step == 0 else up
+        wp = torch.zeros((up, kp))
+        wp[:w.shape[0], :w.shape[1]] = w
+        hi_ref = tfi._tf32(wp)
+        lo_ref = tfi._tf32(wp - hi_ref)
+        got = torch.full((2, up, kp), float("nan"))
+        for s in range(kp // 8):
+            for half in range(2):
+                got[half][:, 8 * s + chan] = _wg_read_b(words, step + s, half,
+                                                        up).T
+        assert torch.equal(got[0], hi_ref) and torch.equal(got[1], lo_ref)
+        assert ((got[0] + got[1] - wp).abs() <= 2.0 ** -21 * wp.abs()).all()
+        step += kp // 8
+    # the blob's head, biases and node table follow its trunk unchanged
+    assert blob.numel() == tfi._blob_floats(up, nb, t, "float32")
+
+
+def _chain_in_wgmma(x, encoder, *, se_idx, multi_image, activation,
+                    n_blocks):
+    """The raw head q (5, N) by the wgmma kernels' data flow: tiles of 64
+    voxels a warpgroup; a layer's k-steps as three TF32 products into one
+    sum per thread (A registers of the activations a thread wrote itself,
+    B read from the image by descriptor); the epilogue's bias and
+    activation on each thread's own accumulators; the head on mma.sync
+    from the blob's fragments, 16 rows a warp (as _chain_in_fragments)."""
+    act = activation_fn(activation)
+    blob, u, up, t = tfi._weight_blob(encoder, n_blocks, x.device)
+    words = tfi._wg_image(blob, up, n_blocks, t)
+    _, _, wf, b0, bb, bf = _blob_parts(blob, t, up, n_blocks)
+    ks0 = -(-t // 8)
+    h = normalise_data(x, se_idx, multi_image)          # (N, T)
+    n = h.shape[0]
+    rows = torch.zeros(-(-n // 64) * 64, 8 * ks0)
+    rows[:n, :t] = h
+    tiles = rows.reshape(-1, 64, 8 * ks0)
+    a_rows, a_slots, d_rows, d_cols = _wg_thread_maps()
+    th = torch.arange(128)[:, None].expand(128, 4)
+    # who writes each (row, column) of a layer's output, and who reads it
+    writer = torch.full((64, up), -1)
+    for j in range(up // 8):
+        writer[d_rows, 8 * j + d_cols] = th
+    for s in range(up // 8):
+        assert torch.equal(writer[a_rows, 8 * s + _wg_slot_channel(a_slots)],
+                           th)
+
+    def layer(src, first, steps, bias):
+        d = torch.zeros(src.shape[0], 64, up, dtype=torch.float64)
+        for s in range(steps):
+            regs = src[:, a_rows, 8 * s + _wg_slot_channel(a_slots)]
+            hi = tfi._tf32(regs)
+            lo = tfi._tf32(regs - hi)
+            a_hi = torch.zeros(src.shape[0], 64, 8, dtype=torch.float64)
+            a_lo = torch.zeros_like(a_hi)
+            a_hi[:, a_rows, a_slots] = hi.double()
+            a_lo[:, a_rows, a_slots] = lo.double()
+            b_hi, b_lo = (_wg_read_b(words, first + s, half, up).double()
+                          for half in range(2))
+            d = d + (a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi)
+        return act(d.float() + bias)
+
+    a = layer(tiles, 0, ks0, b0)
+    for i in range(n_blocks):
+        a = layer(a, ks0 + i * (up // 8), up // 8, bb[i])
+    r16 = a.reshape(-1, 16, up)
+    lane = torch.arange(32)
+    g, tt = lane // 4, lane % 4
+    frags = [torch.stack([r16[:, g, 8 * s + 2 * tt], r16[:, g + 8, 8 * s + 2 * tt],
+                          r16[:, g, 8 * s + 2 * tt + 1],
+                          r16[:, g + 8, 8 * s + 2 * tt + 1]], -1)
+             for s in range(up // 8)]
+    c = 0.0
+    for s, af in enumerate(frags):
+        hi = tfi._tf32(af.float())
+        lo = tfi._tf32(af.float() - hi)
+        b = wf[s, 0]
+        c = c + (_mma(lo, b[:, :2]) + _mma(hi, b[:, 2:]) + _mma(hi, b[:, :2]))
+    c = c.float()
+    q = torch.zeros(r16.shape[0], 16, 8)
+    q[:, g, 2 * tt] = c[..., 0] + bf[2 * tt]
+    q[:, g, 2 * tt + 1] = c[..., 1] + bf[2 * tt + 1]
+    q[:, g + 8, 2 * tt] = c[..., 2] + bf[2 * tt]
+    q[:, g + 8, 2 * tt + 1] = c[..., 3] + bf[2 * tt + 1]
+    return q.reshape(-1, 8)[:n, :5].T
+
+
+@pytest.mark.parametrize("units,nb,activation", [
+    (100, 2, "relu"), (100, 2, "softplus"), (60, 7, "gelu"),
+    (13, 3, "sigmoid"), (192, 1, "relu")])
+def test_wgmma_chain_matches_plain(units, nb, activation):
+    """The chain replayed in the wgmma kernels' data flow -- padded
+    channels and all, each thread reading back only the activations it
+    wrote (asserted) -- equals encode_q_plain: rtol 1e-6, atol 2e-6 (the
+    dropped lo * lo terms, ~2^-22 a product), as the fragment chain."""
+    cfg = dataclasses.replace(OPT, no_units=units, no_intermediate_layers=nb,
+                              activation=activation)
+    _, params = port_params(cfg, SCAN, units)
+    tuner = port_tuner(cfg, SCAN, params)
+    rng = np.random.default_rng(units + nb)
+    x = torch.from_numpy(volume(rng, (70,), SCAN.n_taus))
+    kw = dict(se_idx=SCAN.se_idx, multi_image=False, activation=activation,
+              n_blocks=nb)
+    got = _chain_in_wgmma(x, tuner.encoder, **kw)
+    ref = tfi.encode_q_plain(x, tuner.encoder, trunk="float32", **kw)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6,
+                               atol=2e-6)

@@ -5,7 +5,8 @@ on one subject, with each build's errors and its registers, spills, stack
 frame, shared memory, blocks an SM and SASS instructions.
 
     python3 tools/bench_stream1.py [--dtype float32|bfloat16|both]
-        [--units U] [--blocks NB] [--sweep] [--only-copies]
+        [--units U] [--blocks NB] [--shapes UxNB,...] [--sweep]
+        [--only-copies]
         [--row-blob SRC ...]
         [--package DIR] [SRC ...]
 
@@ -31,12 +32,15 @@ blocks, MVG, relu, random weights (``init_params`` seed 0); ``--units``
 and ``--blocks`` change the trunk's width and depth (``init_params`` of
 that configuration, seed 0), and kernels B and C then run the design
 ``fused_infer.launch_plan`` picks there: the resident entries
-(``qv_encode_quad_fused``, ``qv_encode_q1``) or the streamed ones
-(``qv_encode_quad_stream``, ``qv_encode_q1_stream``, kernels
-``qv_encode_quad_stream_kernel`` and ``qv_encode_q_stream_kernel``; an
-edited copy of ``csrc/encode_stream.cu`` or ``encode_stream_bf16.cu``
-keeps their C interface and the plan's shared-memory layout). Per build
-it prints:
+(``qv_encode_quad_fused``, ``qv_encode_q1``), the float32 wgmma ones
+(``qv_encode_quad_wg``, ``qv_encode_q1_wg``, kernels
+``qv_encode_quad_wg_kernel`` and ``qv_encode_q_wg_kernel``, fed the
+blob's wgmma image ``fused_infer._wg_image``; an edited copy of
+``csrc/encode_stream_wg.cu`` keeps their C interface and the plan's
+shared-memory layout) or the streamed ones (``qv_encode_quad_stream``,
+``qv_encode_q1_stream``, kernels ``qv_encode_quad_stream_kernel`` and
+``qv_encode_q_stream_kernel``; an edited copy of ``csrc/encode_stream.cu``
+or ``encode_stream_bf16.cu`` likewise). Per build it prints:
 
 * B (``qv_encode_quad_fused``): means / vars / raw against the plain
   version; C (``qv_encode_q1``): q against the plain version and against
@@ -81,13 +85,19 @@ A through that package's wrappers, with their errors, C's head against a
 float64 head on the plain version's features (``chip_smoke.head_f64_err``)
 and B beside C + A: the way to time two commits in one call, in turns
 (parent, change, change, parent; ``--dtype both`` runs both trunks in
-one process).
+one process, and ``--shapes 60x2,256x2,...`` each width x depth given,
+in place of ``--units`` / ``--blocks``).
 
 ``--sweep`` times B and C (errors against the plain versions, device ms)
-under every streamed plan that fits the card's shared memory at the
-request's width and depth: each tile (m-tiles a pass) of
-``fused_infer._ST_TILES`` and each slab of ``fused_infer._st_slabs`` --
-the measurement behind ``launch_plan``'s order.
+under every plan of the design ``launch_plan`` picks that fits the card's
+shared memory at the request's width and depth -- the measurement behind
+``launch_plan``'s order: streamed, each tile (m-tiles a pass) of
+``fused_infer._ST_TILES`` and each slab of ``fused_infer._st_slabs``;
+wgmma, each slab compiled for the width (``fused_infer._WG_SLABS``: its
+k-steps and bytes) and each ring of ``fused_infer._WG_STAGES`` slots. The
+wgmma design's other knobs are compiled in (two consumer warpgroups of 64
+voxels, no cluster): time another as an edited copy of
+``csrc/encode_stream_wg.cu``.
 
 ``--dtype bfloat16`` runs B and C at trunk="bfloat16" (the entries
 ``qv_encode_quad_fused_bf16`` and ``qv_encode_q1_bf16``, kernels
@@ -144,6 +154,7 @@ S_KL = 100
 ENTRIES = ("qv_quad_posterior_summaries", "qv_encode_quad_fused",
            "qv_encode_q1", "qv_encode_quad_fused_bf16", "qv_encode_q1_bf16",
            "qv_encode_quad_stream", "qv_encode_q1_stream",
+           "qv_encode_quad_wg", "qv_encode_q1_wg",
            "qv_encode_quad_stream_bf16", "qv_encode_q1_stream_bf16",
            "qv_mc_summaries", "qv_mc_kl_map", "qv_mc_kl")
 # C entries of earlier builds that the package no longer has: the earlier
@@ -200,8 +211,8 @@ def resources(log: str, kernels: dict, inst: str) -> dict:
     lines = log.splitlines()
     for i, line in enumerate(lines):
         m = re.search(r"Function properties for \S*?(qv_\w+_kernel)", line)
-        templated = "bf16" in m.group(1) or "stream" in m.group(1) if m \
-            else False
+        templated = any(k in m.group(1) for k in ("bf16", "stream", "_wg_")) \
+            if m else False
         if (m and m.group(1) in kernels.values() and i + 2 < len(lines)
                 and (not templated or inst in line)):
             regs = re.search(r"Used (\d+) registers", lines[i + 2])
@@ -264,9 +275,14 @@ class Calls:
             self.block_b, self.smem_b = self.plan_b.threads, self.plan_b.smem
             self.block, self.smem = self.plan_c.threads, self.plan_c.smem
         self.stream = torch.cuda.current_stream().cuda_stream
+        self.image = (fi._wg_image(self.blob, self.up, nb, t)
+                      if self.design() == "wgmma" else None)
+
+    def design(self) -> str:
+        return "row blob" if self.plan_b is None else self.plan_b.design
 
     def streamed(self) -> bool:
-        return self.plan_b is not None and self.plan_b.design == "streamed"
+        return self.design() == "streamed"
 
     def enc_args(self, act):
         c = self.ctx
@@ -283,6 +299,12 @@ class Calls:
                 *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
                 ranges, *o, 1, p.mt, p.ncw, p.ks, p.threads, p.smem,
                 self.stream)
+        elif self.design() == "wgmma":
+            p = self.plan_b
+            err = self.lib.qv_encode_quad_wg(
+                *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
+                self.image.data_ptr(), ranges, *o, 1, p.stages, p.ks,
+                p.threads, p.smem, self.stream)
         else:
             err = getattr(self.lib, "qv_encode_quad_fused" + self.ctx["tag"])(
                 *self.enc_args(act), self.u, self.up, self.nb,
@@ -297,6 +319,12 @@ class Calls:
             err = getattr(self.lib, "qv_encode_q1_stream" + self.ctx["tag"])(
                 *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
                 q, p.mt, p.ncw, p.ks, p.threads, p.smem, self.stream)
+        elif self.design() == "wgmma":
+            p = self.plan_c
+            err = self.lib.qv_encode_q1_wg(
+                *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
+                self.image.data_ptr(), q, p.stages, p.ks, p.threads, p.smem,
+                self.stream)
         else:
             err = getattr(self.lib, "qv_encode_q1" + self.ctx["tag"])(
                 *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
@@ -498,19 +526,24 @@ def entry(calls, key, ctx) -> str:
     stem = {"B": "qv_encode_quad_", "C": "qv_encode_q1"}[key]
     if calls.streamed():
         stem += "stream" if key == "B" else "_stream"
+    elif calls.design() == "wgmma":
+        stem += "wg" if key == "B" else "_wg"
     elif key == "B":
         stem += "fused"
     return stem + ctx["tag"]
 
 
-def bc_symbols(plan, trunk) -> tuple:
-    """(B's, C's) kernel symbols on this plan and trunk, and the template
-    instantiation ptxas reports for them."""
+def bc_symbols(plan, trunk, up) -> tuple:
+    """(B's, C's) kernel symbols on this plan and trunk at padded width
+    ``up``, and the template instantiation ptxas reports for them."""
     tag = "_bf16" if trunk == "bfloat16" else ""
     if plan is not None and plan.design == "streamed":
         return ((f"qv_encode_quad_stream{tag}_kernel",
                  f"qv_encode_q_stream{tag}_kernel"),
                 f"ILi{plan.mt}ELi{plan.ncw}E")
+    if plan is not None and plan.design == "wgmma":
+        return (("qv_encode_quad_wg_kernel", "qv_encode_q_wg_kernel"),
+                f"ILi{up}ELi{plan.ks}EE")
     return ((f"qv_encode_quad{tag}_kernel", f"qv_encode_q{tag}_kernel"),
             "ILi64E")
 
@@ -519,7 +552,7 @@ def bench(name, lib, log, so, row_blob, ctx) -> None:
     calls = Calls(lib, row_blob, ctx)
     kernels = dict(KERNELS)
     (kernels["B"], kernels["C"]), inst = bc_symbols(calls.plan_b,
-                                                    ctx["trunk"])
+                                                    ctx["trunk"], calls.up)
     res = resources(log, kernels, inst)
     code = sass(so)
     parts = []
@@ -581,39 +614,59 @@ def bench(name, lib, log, so, row_blob, ctx) -> None:
               "events a call): " + "; ".join(rows), flush=True)
 
 
-def sweep(lib, ctx) -> None:
-    """--sweep: B and C under every streamed plan that fits."""
-    calls = Calls(lib, False, ctx)
-    if not calls.streamed():
-        print("sweep: launch_plan keeps the resident design here", flush=True)
-        return
-    trunk, up, nb = ctx["trunk"], calls.up, calls.nb
-    t = OPTIMAL.scan.n_taus
-    limit = _cuda.library().qv_max_dynamic_smem()
+def sweep_plans(calls, trunk, up, t) -> list:
+    """[(label, B's plan, C's plan)] of every plan of the design
+    launch_plan picks here."""
+    out = []
+    if calls.design() == "wgmma":
+        for ks in fi._WG_SLABS[up]:
+            for stages in fi._WG_STAGES:
+                plans = [fi.LaunchPlan("wgmma", fi._WG_THREADS,
+                                       fi._wg_smem(up, t, q, stages, ks),
+                                       ks=ks, stages=stages)
+                         for q in (True, False)]
+                out.append((f"ks {ks} ({ks * 64 * up} B slabs) stages "
+                            f"{stages}", *plans))
+        return out
     ncw = fi._st_ncw(up)
-    (sym_b, sym_c), _ = bc_symbols(calls.plan_b, trunk)
-    chosen = (calls.plan_b, calls.plan_c)
-    rows = []
     for mt in fi._ST_TILES[ncw]:
         for ks in fi._st_slabs(up, trunk):
             plans = [fi.LaunchPlan("streamed", fi._ST_THREADS,
                                    fi._st_smem(up, t, trunk, q, mt, ks), mt,
                                    ncw, ks) for q in (True, False)]
-            if plans[0].smem > limit:
-                continue
-            calls.plan_b, calls.plan_c = plans
-            calls.b()
-            calls.c()
-            torch.cuda.synchronize()
-            err_b = max(float((g - r).abs().max()) for g, r in
-                        zip(ctx["b_out"][:1] + ctx["b_out"][2:],
-                            ctx["b_plain"][:1] + ctx["b_plain"][2:]))
-            err_c = float((ctx["q_out"] - ctx["q_plain"]).abs().max())
-            mark = " (launch_plan's)" if plans[0] == chosen[0] else ""
-            rows.append(f"mt {mt} ks {ks}{mark}: B "
-                        f"{kernel_ms(calls.b, sym_b):.4f} (means/raw err "
-                        f"{err_b:.1e}), C {kernel_ms(calls.c, sym_c):.4f}"
-                        f" (err {err_c:.1e}), smem B {plans[0].smem}")
+            out.append((f"mt {mt} ks {ks}", *plans))
+    return out
+
+
+def sweep(lib, ctx) -> None:
+    """--sweep: B and C under every plan of launch_plan's design that
+    fits."""
+    calls = Calls(lib, False, ctx)
+    if calls.design() == "resident":
+        print("sweep: launch_plan keeps the resident design here", flush=True)
+        return
+    trunk, up, nb = ctx["trunk"], calls.up, calls.nb
+    t = OPTIMAL.scan.n_taus
+    limit = _cuda.library().qv_max_dynamic_smem()
+    (sym_b, sym_c), _ = bc_symbols(calls.plan_b, trunk, up)
+    chosen = (calls.plan_b, calls.plan_c)
+    rows = []
+    for label, *plans in sweep_plans(calls, trunk, up, t):
+        if plans[0].smem > limit:
+            continue
+        calls.plan_b, calls.plan_c = plans
+        calls.b()
+        calls.c()
+        torch.cuda.synchronize()
+        err_b = max(float((g - r).abs().max()) for g, r in
+                    zip(ctx["b_out"][:1] + ctx["b_out"][2:],
+                        ctx["b_plain"][:1] + ctx["b_plain"][2:]))
+        err_c = float((ctx["q_out"] - ctx["q_plain"]).abs().max())
+        mark = " (launch_plan's)" if plans[0] == chosen[0] else ""
+        rows.append(f"{label}{mark}: B "
+                    f"{kernel_ms(calls.b, sym_b):.4f} (means/raw err "
+                    f"{err_b:.1e}), C {kernel_ms(calls.c, sym_c):.4f}"
+                    f" (err {err_c:.1e}), smem B {plans[0].smem}")
     calls.plan_b, calls.plan_c = chosen
     print(f"sweep at {trunk}, {up} units (padded) x {nb} blocks, device ms at "
           f"N={N}: " + "; ".join(rows), flush=True)
@@ -646,7 +699,7 @@ def wrappers(dev, dtype, units=60, blocks=2) -> None:
     plan = (fi._plan(fi._padded_width(units), blocks, scan.n_taus,
                      scan.n_taus + 1, dtype, True, dev)
             if hasattr(fi, "launch_plan") else None)
-    (sym_b, sym_c), _ = bc_symbols(plan, dtype)
+    (sym_b, sym_c), _ = bc_symbols(plan, dtype, fi._padded_width(units))
     ms = {"B": kernel_ms(lambda: fi.encode_quad_fused(
               x, enc, mvg=True, **kw, **ranges), sym_b),
           "C": kernel_ms(lambda: fi.encode_q1_packed(x, enc, **kw), sym_c),
@@ -684,11 +737,15 @@ def main() -> int:
     ap.add_argument("--blocks", type=int,
                     default=OPTIMAL.model.no_intermediate_layers,
                     help="the trunk's depth (OPTIMAL's 2)")
+    ap.add_argument("--shapes", default=None,
+                    help="with --package: the trunks to time, as "
+                    "UNITSxBLOCKS separated by commas")
     ap.add_argument("--package", default=None,
                     help="import qbold_vi_tpu_torch from this directory and "
                     "time B, C and A through its wrappers alone")
     ap.add_argument("--sweep", action="store_true",
-                    help="time B and C under every streamed plan that fits")
+                    help="time B and C under every plan of launch_plan's "
+                    "design that fits")
     ap.add_argument("sources", nargs="*", help="edited copies of the "
                     "package's encode_quad.cu or summarize.cu")
     args = ap.parse_args()
@@ -696,9 +753,13 @@ def main() -> int:
     dtypes = (("float32", "bfloat16") if args.dtype == "both"
               else (args.dtype,))
     if args.package:
+        shapes = ([tuple(map(int, s.split("x")))
+                   for s in args.shapes.split(",")] if args.shapes
+                  else [(args.units, args.blocks)])
         with torch.no_grad():
-            for dtype in dtypes:
-                wrappers(dev, dtype, args.units, args.blocks)
+            for units, blocks in shapes:
+                for dtype in dtypes:
+                    wrappers(dev, dtype, units, blocks)
         print(gpu_line())
         return 0
     libs = {}

@@ -10,13 +10,17 @@
 directory, and this one).
 
 * ``save`` / ``compare``: kernel B's (means, vars, raw) and kernel C's q
-  at OPTIMAL (``init_params`` seed 0) on a 1,032,192-voxel request (seeded
-  uniform signals, a random mask channel), both trunks and both input
-  layouts, from checkout a; then b's, held bit for bit against them (exit
-  1 if any differs).
-* ``export-pt2`` / ``run-pt2``: a's fused bf16 serving ``.pt2`` at
-  OPTIMAL, run by b and held bit for bit against b's kernel B on the same
-  rows: an artifact of a's weight-blob layout still runs on b's op.
+  on a 1,032,192-voxel request (seeded uniform signals, a random mask
+  channel), both input layouts, at each trunk of ``COMPAT``: OPTIMAL in
+  both trunks (the resident kernels), 256 units x 2 blocks in bf16 and
+  320 x 2 in float32 (the streamed kernels) -- ``init_params`` seed 0 --
+  from checkout a; then b's, held bit for bit against them (exit 1 if any
+  differs).
+* ``export-pt2`` / ``run-pt2``: a's fused serving ``.pt2`` of each trunk of
+  ``PT2``: bf16 at OPTIMAL (F.pt2) and float32 at 100 x 2 (F-f32-100x2.pt2,
+  a width whose float32 design b may have changed), run by b and held bit
+  for bit against b's kernel B on the same rows: an artifact of a's
+  weight-blob layout still runs on b's op.
 
 Prints the package each step imported. Needs one CUDA card.
 """
@@ -36,10 +40,16 @@ from qbold_vi_tpu_torch.ops import fused_infer as fi
 
 N = 14 * 96 * 96 * 8
 PT2_SHAPE = (1, 24, 20, 4)
+# (trunk, units, blocks): the kernels whose outputs must not move
+COMPAT = (("float32", 60, 2), ("bfloat16", 60, 2), ("bfloat16", 256, 2),
+          ("float32", 320, 2))
+# (trunk, units, blocks, the artifact's suffix)
+PT2 = (("bfloat16", 60, 2, ""), ("float32", 100, 2, "-f32-100x2"))
 
 
-def tuner(trunk: str) -> FineTuner:
-    cfg = dataclasses.replace(OPTIMAL.model, compute_dtype=trunk)
+def tuner(trunk: str, units: int = 60, blocks: int = 2) -> FineTuner:
+    cfg = dataclasses.replace(OPTIMAL.model, compute_dtype=trunk,
+                              no_units=units, no_intermediate_layers=blocks)
     t = FineTuner(cfg, OPTIMAL.scan, device="cuda")
     t.load_state_dict(init_params(cfg, OPTIMAL.scan,
                                   torch.Generator().manual_seed(0)))
@@ -63,8 +73,8 @@ def outputs() -> dict:
     x[:, -1] = rng.uniform(size=N) > 0.2
     x = torch.from_numpy(x).cuda()
     out = {}
-    for trunk in ("float32", "bfloat16"):
-        t = tuner(trunk)
+    for trunk, units, blocks in COMPAT:
+        t = tuner(trunk, units, blocks)
         for layout in ("voxel", "channel"):
             xi = x if layout == "voxel" else x.T.contiguous()
             b = kernel_b(t, xi, trunk, layout)
@@ -73,9 +83,15 @@ def outputs() -> dict:
                 activation=t.cfg.activation,
                 n_blocks=t.cfg.no_intermediate_layers, trunk=trunk,
                 mask_channel=True, input_layout=layout)
+            tag = trunk if units == 60 else f"{trunk}-{units}x{blocks}"
             for k, v in zip(("means", "vars", "raw", "q"), list(b) + [q]):
-                out[f"{trunk}-{layout}-{k}"] = v.cpu().numpy()
+                out[f"{tag}-{layout}-{k}"] = v.cpu().numpy()
     return out
+
+
+def pt2_path(path: str, suffix: str) -> str:
+    return path[:-4] + suffix + ".pt2" if path.endswith(".pt2") else \
+        path + suffix
 
 
 def main() -> int:
@@ -93,24 +109,28 @@ def main() -> int:
             same = {k: bool(np.array_equal(ref[k], v)) for k, v in got.items()}
         print(f"bit-equal: {same}")
         return 0 if all(same.values()) else 1
-    t = tuner("bfloat16")
     if mode == "export-pt2":
-        em.save_exported(em.export_inference(
-            t, fused=True, platforms=("cuda",), example_shape=PT2_SHAPE),
-            path)
-        print(f"exported {path}")
+        for trunk, units, blocks, suffix in PT2:
+            em.save_exported(em.export_inference(
+                tuner(trunk, units, blocks), fused=True, platforms=("cuda",),
+                example_shape=PT2_SHAPE), pt2_path(path, suffix))
+            print(f"exported {pt2_path(path, suffix)}")
         return 0
     if mode == "run-pt2":
         rng = np.random.default_rng(1)
         x = torch.from_numpy(rng.uniform(
             50, 150, size=(12, int(np.prod(PT2_SHAPE)))).astype(
                 np.float32)).cuda()
-        got = em.load_exported(path)(x)
-        ref = kernel_b(t, x, "bfloat16", "channel")
-        same = {k: bool(torch.equal(got[k], r)) for k, r in
-                zip(("means", "stds", "raw_log_stds"), ref)}
-        print(f"the .pt2 against this package's kernel B, bit-equal: {same}")
-        return 0 if all(same.values()) else 1
+        ok = True
+        for trunk, units, blocks, suffix in PT2:
+            got = em.load_exported(pt2_path(path, suffix))(x)
+            ref = kernel_b(tuner(trunk, units, blocks), x, trunk, "channel")
+            same = {k: bool(torch.equal(got[k], r)) for k, r in
+                    zip(("means", "stds", "raw_log_stds"), ref)}
+            print(f"the {trunk} {units} x {blocks} .pt2 against this "
+                  f"package's kernel B, bit-equal: {same}")
+            ok = ok and all(same.values())
+        return 0 if ok else 1
     print(__doc__)
     return 1
 
