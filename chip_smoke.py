@@ -359,6 +359,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -498,6 +499,24 @@ def cuda_ms(fn, reps: int = 10, blocks: int = 7) -> float:
     return statistics.median(times)
 
 
+def launch_total() -> int:
+    """Every launch the port's kernel wrappers have counted so far: the sum
+    of each ``*launches`` counter on the functions of its ops modules."""
+    import importlib
+    import pkgutil
+
+    import qbold_vi_tpu_torch.ops as ops
+
+    total = 0
+    for info in pkgutil.iter_modules(ops.__path__):
+        mod = importlib.import_module(f"qbold_vi_tpu_torch.ops.{info.name}")
+        for name, fn in vars(mod).items():
+            if callable(fn) and getattr(fn, "__module__", None) == mod.__name__:
+                total += sum(v for k, v in getattr(fn, "__dict__", {}).items()
+                             if k.endswith("launches") and isinstance(v, int))
+    return total
+
+
 def kernel_ms(fn, symbol: str, calls: int = 21, need: int | None = None,
               tries: int = 3) -> float:
     """Median device duration of the launches of the kernel ``symbol``
@@ -506,9 +525,15 @@ def kernel_ms(fn, symbol: str, calls: int = 21, need: int | None = None,
     where the host has not yet queued the next launch, which a kernel
     shorter than its wrapper's host work (G's ~0.04 ms) cannot hide. A
     trace can drop launch records (on the H100: one of 21 once, most of
-    kernel H's 2 us weight split, once all 21 of a dx pass): a trace with
-    fewer than ``need`` (half the calls) is taken again, up to ``tries``
-    times."""
+    kernel H's 2 us weight split, once all 21 of a dx pass, three times in
+    a row all 21 of G's backward): a trace with fewer than ``need`` (half
+    the calls) is taken again, up to ``tries`` times. If every try falls
+    short, the kernel wrappers' launch counters (``launch_total``) must
+    show that the last try's calls launched (at least one counted launch a
+    call), and the time is then fn's ms a call by CUDA events over
+    ``calls`` calls -- every kernel of a call and the gaps between them,
+    logged as "events; trace dropped"; a call that launched nothing
+    fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -518,19 +543,27 @@ def kernel_ms(fn, symbol: str, calls: int = 21, need: int | None = None,
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
+        counted = launch_total()
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+        counted = launch_total() - counted
         spans = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
                  if e.device_type == DeviceType.CUDA and symbol in e.name]
         if len(spans) >= need:
             return statistics.median(spans)
-        log(f"{symbol}: {len(spans)} launches traced in {calls} calls; "
-            "tracing again")
-    raise AssertionError(f"{symbol}: fewer than {need} launches traced in "
-                         f"{calls} calls, {tries} times")
+        log(f"{symbol}: {len(spans)} launches traced in {calls} calls "
+            f"({counted} counted by the wrappers); tracing again")
+    if counted < calls:
+        raise AssertionError(f"{symbol}: fewer than {need} launches traced in "
+                             f"{calls} calls, {tries} times, and the wrappers "
+                             f"counted {counted} launches in the last")
+    ms = cuda_ms(fn, reps=calls, blocks=1)
+    log(f"{symbol}: {ms:.4f} ms a call by CUDA events; trace dropped (the "
+        f"wrappers counted {counted} launches in {calls} calls)")
+    return ms
 
 
 def time_kernel(fn, symbol: str, plain) -> tuple:
@@ -713,10 +746,12 @@ MUFU_SASS = {
 MUFU_RATE = 16 * 132                 # results a clock on the card
 
 
+@functools.lru_cache(maxsize=None)
 def sass(so) -> dict:
     """{kernel symbol: (SASS instructions, Counter of MUFU kinds and of
     wgmma instructions, "HGMMA")} of a built library, by cuobjdump (a loop
-    body counts once); empty without it."""
+    body counts once); empty without it. Read once a library: three
+    phases read it, and its disassembly took 25 s on the H100's host."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.isfile(tool):
@@ -2032,7 +2067,8 @@ def stream1_phases(dev, card, cfg, tuner, ranges, enc_kw) -> tuple:
 
 
 STREAM_COUNTERS = ("launches", "bf16_launches", "wgmma_launches",
-                   "stream_launches", "stream_bf16_launches")
+                   "chunked_launches", "stream_launches",
+                   "stream_bf16_launches")
 
 
 def bc_counts() -> dict:
@@ -2109,23 +2145,42 @@ def wide_stream1_phase(dev, cfg, rng) -> None:
 
 
 WIDE_TRUNK = (256, 2)                # phase 47's full-width path
-PAST_TRUNK = (320, 2)                # float32 past 256: the streamed design
+PAST_TRUNK = (320, 2)                # float32 past 256: the chunked design
+PAST_WIDE_TRUNK = (384, 2)           # float32: the chunked design's widest
+STREAM_TRUNK = (448, 1)              # float32: the narrowest streamed width
 FAULT_TRUNK = (100, 2)               # float32: the blob does not fit
 DEEP_TRUNK = (60, 7)                 # float32: OPTIMAL's width, 7 blocks
 N_WIDE_CMP = 50_003                  # kernels vs plain at wide widths
 # phase 47's kernels by design: the float32 wgmma kernels up to 256 units
-# (padded), the streamed ones past it in float32 and past 128 in bf16
+# (padded), the chunked wgmma ones at 320 and 384, the streamed ones past
+# them in float32 and past 128 in bf16
 WIDE_SYMBOLS = {
     ("B", "wgmma"): "qv_encode_quad_wg_kernel",
     ("C", "wgmma"): "qv_encode_q_wg_kernel",
+    ("B", "chunked"): "qv_encode_quad_wgc_kernel",
+    ("C", "chunked"): "qv_encode_q_wgc_kernel",
     ("B", "stream"): "qv_encode_quad_stream_kernel",
     ("C", "stream"): "qv_encode_q_stream_kernel",
     ("B", "stream-bf16"): "qv_encode_quad_stream_bf16_kernel",
     ("C", "stream-bf16"): "qv_encode_q_stream_bf16_kernel"}
 WIDE_KINDS = {"wgmma": ("encode_stream_wg.cu", "wgmma_launches", "-wgmma"),
+              "chunked": ("encode_stream_wgc.cu", "chunked_launches",
+                          "-chunked"),
               "stream": ("encode_stream.cu", "stream_launches", "-stream"),
               "stream-bf16": ("encode_stream_bf16.cu", "stream_bf16_launches",
                               "-bf16-stream")}
+
+
+def wide_kind_expected(units, trunk) -> str:
+    """The design phase 47 expects at this width: bf16 streams past 128
+    units; float32 takes wgmma up to 256 (padded), the chunked wgmma at 320
+    and 384, the streamed design past them."""
+    from qbold_vi_tpu_torch.ops import fused_infer as fi
+
+    if trunk == "bfloat16":
+        return "stream-bf16"
+    up = fi._padded_width(units)
+    return "wgmma" if up <= 256 else "chunked" if up <= 384 else "stream"
 
 
 def wide_kind(dev, units, nb, trunk, n_taus) -> str:
@@ -2135,7 +2190,8 @@ def wide_kind(dev, units, nb, trunk, n_taus) -> str:
 
     design = fi._plan(fi._padded_width(units), nb, n_taus, n_taus + 1, trunk,
                       True, dev).design
-    kind = {"wgmma": "wgmma", "streamed": "stream"}[design]
+    kind = {"wgmma": "wgmma", "chunked": "chunked",
+            "streamed": "stream"}[design]
     return kind + ("-bf16" if trunk == "bfloat16" else "")
 
 
@@ -2169,33 +2225,37 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
     under fused_infer "auto" (init_params seed = the units), each kernel
     launched through posterior_maps with the counts set to 0 before and
     read after, and held against its plain version. At 256 units x 2
-    blocks in float32 (the wgmma kernels), in bf16 and at 320 x 2 in
-    float32 (the streamed kernels): posterior_maps by quadrature (kernel
-    B) and by method="mc" (C, then D), the maps finite and of the
-    request's shape; B and C against their plain versions at N_WIDE_CMP
-    voxels (float32 at CHECKS; bf16 C within Q16_ULPS ulps, B against the
-    plain quadrature of C's q at CHECKS); device ms of B and C beside
-    their bounds and the "off" route's (the encoder, then kernel A or D)
-    and the fused route's ms a call by CUDA events on the same device
-    request. At 100 x 2 (B and C) and 60 x 7 (B) in float32, where the
-    resident blob does not fit (the wgmma kernels): the request through
+    blocks in float32 (the wgmma kernels), in bf16 (the streamed bf16
+    kernels), at 320 x 2 and 384 x 2 in float32 (the chunked wgmma
+    kernels) and at 448 x 1 in float32 (the streamed kernels, at the
+    narrowest width they serve): posterior_maps by quadrature (kernel B)
+    and by method="mc" (C, then D), the maps finite and of the request's
+    shape; B and C against their plain versions at N_WIDE_CMP voxels
+    (float32 at CHECKS; bf16 C within Q16_ULPS ulps, B against the plain
+    quadrature of C's q at CHECKS); device ms of B and C beside their
+    bounds and, at 256 x 2 and 320 x 2, the "off" route's (the encoder, then
+    kernel A or D) and the fused route's ms a call by CUDA events on the
+    same device request. At 100 x 2 (B and C) and 60 x 7 (B) in float32, where
+    the resident blob does not fit (the wgmma kernels): the request through
     posterior_maps, the kernel against its plain version on the whole
-    request, its device ms beside its bound. First, the wgmma kernels must
-    hold HGMMA instructions in the built library's SASS."""
+    request, its device ms beside its bound. First, the wgmma and chunked
+    wgmma kernels must hold HGMMA instructions in the built library's
+    SASS."""
     from qbold_vi_tpu_torch import infer
     from qbold_vi_tpu_torch.ops import _cuda
     from qbold_vi_tpu_torch.ops import fused_infer as fi
     from qbold_vi_tpu_torch.ops.quadrature import quad_tile_summaries
 
     code = sass(_cuda.library()._name)
-    hgmma = {WIDE_SYMBOLS[(k, "wgmma")]: code.get(
-        WIDE_SYMBOLS[(k, "wgmma")], (0, {}))[1].get("HGMMA", 0) for k in "BC"}
+    hgmma = {WIDE_SYMBOLS[(k, kind)]: code.get(
+        WIDE_SYMBOLS[(k, kind)], (0, {}))[1].get("HGMMA", 0)
+        for k in "BC" for kind in ("wgmma", "chunked")}
     if not all(hgmma.values()):
-        raise AssertionError(f"HGMMA instructions of the float32 wgmma B and "
-                             f"C: {hgmma} (each must hold some; or cuobjdump "
-                             "is missing)")
-    log(f"kernels B and C's float32 wgmma design takes its products on "
-        f"wgmma: static HGMMA instructions {hgmma}")
+        raise AssertionError(f"HGMMA instructions of the float32 wgmma and "
+                             f"chunked B and C: {hgmma} (each must hold "
+                             "some; or cuobjdump is missing)")
+    log(f"kernels B and C's float32 wgmma and chunked designs take their "
+        f"products on wgmma: static HGMMA instructions {hgmma}")
     scan = cfg.scan
     ranges = dict(oef_range=cfg.model.oef_range, min_oef=cfg.model.min_oef,
                   dbv_range=cfg.model.dbv_range, min_dbv=cfg.model.min_dbv,
@@ -2204,8 +2264,11 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
     block = torch.from_numpy(req).to(dev)
     x_full = block.reshape(-1, block.shape[-1])
     x_cmp = torch.from_numpy(volumes(rng, (N_WIDE_CMP,), scan.n_taus)).to(dev)
+    # results by (kernel, design, trunk "UxNB"); launches by (kernel, design)
+    # and by trunk
     out = {"launches": collections.Counter(), "err": {}, "ms": {},
-           "plain_ms": {}, "bound": {}, "routes_ms": {}, "requests": {}}
+           "plain_ms": {}, "bound": {}, "routes_ms": {}, "requests": {},
+           "shapes": collections.defaultdict(list)}
 
     def main_path(t, units, nb, trunk, kind, method, key):
         """posterior_maps of the request by `method`, kernel `key` of the
@@ -2227,19 +2290,25 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
             raise AssertionError(f"{units} x {nb} {trunk} {method}: "
                                  f"launches {counts}, want {counter}")
         out["launches"][(key, kind)] += counts[counter]
+        out["launches"][(key, kind, f"{units}x{nb}")] += counts[counter]
         log(f"posterior_maps {method} at {units} x {nb} {trunk} on "
             f"{REQUESTS[0]} under \"auto\": {key} ({kind}) launched "
             f"{counts[counter]} times, D {counts['D']}, A {counts['A']}; "
             f"mean OEF {maps['oef'].mean():.4f}")
         return maps
 
-    for (units, nb), trunk in ((WIDE_TRUNK, "float32"),
-                               (WIDE_TRUNK, "bfloat16"),
-                               (PAST_TRUNK, "float32")):
+    for (units, nb), trunk, routed in ((WIDE_TRUNK, "float32", True),
+                                       (WIDE_TRUNK, "bfloat16", True),
+                                       (PAST_TRUNK, "float32", True),
+                                       (PAST_WIDE_TRUNK, "float32", False),
+                                       (STREAM_TRUNK, "float32", False)):
         t = wide_tuner(dev, cfg, units, nb, trunk)
         kind = wide_kind(dev, units, nb, trunk, scan.n_taus)
-        if (units <= 256 and trunk == "float32") != (kind == "wgmma"):
-            raise AssertionError(f"{units} x {nb} {trunk}: plan {kind}")
+        if kind != wide_kind_expected(units, trunk):
+            raise AssertionError(f"{units} x {nb} {trunk}: plan {kind}, want "
+                                 f"{wide_kind_expected(units, trunk)}")
+        shape = f"{units}x{nb}"
+        out["shapes"][kind].append(shape)
         enc = dict(se_idx=scan.se_idx,
                    multi_image=t.cfg.multi_image_normalisation,
                    activation=t.cfg.activation, n_blocks=nb, trunk=trunk,
@@ -2254,7 +2323,7 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
         got = fi.encode_quad_fused(x_cmp, t.encoder, **kw)
         ref = fi.encode_quad_fused_plain(x_cmp, t.encoder, **kw)
         torch.cuda.synchronize()
-        tag = f"{units}x{nb} {kind}"
+        tag = f"{shape} {kind}"
         if trunk == "float32":
             check_close(f"C {tag}", q.T, q_ref.T, "raw")
             e_b = max(check_close(f"B {tag}", got[0].T, ref[0].T, "mean"),
@@ -2275,50 +2344,57 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
                                   tail[2].T, "raw"))
             how = (f"C within {max(ulps):.2f} bf16 ulps, B against the "
                    "quadrature of C's q at CHECKS")
-        out["err"][("C", kind)] = float((q - q_ref).abs().max())
-        out["err"][("B", kind)] = e_b
+        out["err"][("C", kind, shape)] = float((q - q_ref).abs().max())
+        out["err"][("B", kind, shape)] = e_b
         log(f"B and C at {units} x {nb} {trunk} ({kind}) vs plain at "
             f"N={N_WIDE_CMP}: {how}; largest |C - plain| "
-            f"{out['err'][('C', kind)]:.3e}")
+            f"{out['err'][('C', kind, shape)]:.3e}")
         # ---- times: the kernels, their plain versions, the routes ----------
         for key, fn, plain in (
                 ("B", lambda: fi.encode_quad_fused(x_full, t.encoder, **kw),
                  lambda: fi.encode_quad_fused_plain(x_full, t.encoder, **kw)),
                 ("C", lambda: fi.encode_q1_packed(x_full, t.encoder, **enc),
                  lambda: fi.encode_q_plain(x_full, t.encoder, **enc))):
-            out["ms"][(key, kind)] = kernel_ms(fn, WIDE_SYMBOLS[(key, kind)])
-            out["plain_ms"][(key, kind)] = cuda_ms(plain, reps=2, blocks=3)
+            out["ms"][(key, kind, shape)] = kernel_ms(
+                fn, WIDE_SYMBOLS[(key, kind)])
+            out["plain_ms"][(key, kind, shape)] = cuda_ms(plain, reps=2,
+                                                          blocks=3)
         raw_b = fi.encode_quad_fused(x_full, t.encoder, **kw)[2]
         for key in "BC":
-            out["bound"][(key, kind)] = wide_bound(key, units, nb, trunk,
-                                                   scan, raw_b,
-                                                   t.cfg.use_mvg)
-        draws = infer.mc_draws(S_MC, True)
-        noise = infer._flat_noise(infer.draw_noise(
-            "summaries", 47, 0, tuple(block.shape[:-1]), draws, dev), N_FULL)
-        mc = dict(noise, no_samples=S_MC, antithetic=True)
-        routes = {
-            "B route": lambda: infer._chunk_fused(t, block, None),
-            "off, quadrature": lambda: infer._chunk_encoder(t, block, True,
-                                                            None),
-            "C + D route": lambda: infer._chunk_fused(t, block, mc),
-            "off, mc": lambda: infer._chunk_encoder(t, block, True, mc)}
-        for name, fn in routes.items():
-            out["routes_ms"][(name, kind)] = cuda_ms(fn, reps=3, blocks=5)
+            out["bound"][(key, kind, shape)] = wide_bound(
+                key, units, nb, trunk, scan, raw_b, t.cfg.use_mvg)
+        if routed:
+            draws = infer.mc_draws(S_MC, True)
+            noise = infer._flat_noise(infer.draw_noise(
+                "summaries", 47, 0, tuple(block.shape[:-1]), draws, dev),
+                N_FULL)
+            mc = dict(noise, no_samples=S_MC, antithetic=True)
+            routes = {
+                "B route": lambda: infer._chunk_fused(t, block, None),
+                "off, quadrature": lambda: infer._chunk_encoder(
+                    t, block, True, None),
+                "C + D route": lambda: infer._chunk_fused(t, block, mc),
+                "off, mc": lambda: infer._chunk_encoder(t, block, True, mc)}
+            for name, fn in routes.items():
+                out["routes_ms"][(name, kind, shape)] = cuda_ms(fn, reps=3,
+                                                                blocks=5)
         for key, route, off in (("B", "B route", "off, quadrature"),
                                 ("C", "C + D route", "off, mc")):
-            ms, bd = out["ms"][(key, kind)], out["bound"][(key, kind)]
-            r_ms = out["routes_ms"][(route, kind)]
-            o_ms = out["routes_ms"][(off, kind)]
-            log(f"{key} {trunk} ({kind}) at {units} x {nb}: kernel "
-                f"{ms:.4f} ms on the device, plain "
-                f"{out['plain_ms'][(key, kind)]:.4f} ms; bound "
-                f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} "
-                f"({100 * bd['bound_ms'] / ms:.1f}%); the fused route "
-                f"{r_ms:.4f} ms a call against the \"off\" route (encoder, "
-                f"then {'A' if key == 'B' else 'D'}) {o_ms:.4f} ms "
-                f"({'faster' if r_ms < o_ms else 'NOT faster'}) on "
-                f"{REQUESTS[0]} [{card}]")
+            ms, bd = out["ms"][(key, kind, shape)], out["bound"][
+                (key, kind, shape)]
+            line = (f"{key} {trunk} ({kind}) at {units} x {nb}: kernel "
+                    f"{ms:.4f} ms on the device, plain "
+                    f"{out['plain_ms'][(key, kind, shape)]:.4f} ms; bound "
+                    f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                    f"({100 * bd['bound_ms'] / ms:.1f}%)")
+            if routed:
+                r_ms = out["routes_ms"][(route, kind, shape)]
+                o_ms = out["routes_ms"][(off, kind, shape)]
+                line += (f"; the fused route {r_ms:.4f} ms a call against "
+                         f"the \"off\" route (encoder, then "
+                         f"{'A' if key == 'B' else 'D'}) {o_ms:.4f} ms "
+                         f"({'faster' if r_ms < o_ms else 'NOT faster'})")
+            log(f"{line} on {REQUESTS[0]} [{card}]")
     # ---- 100 x 2 and 60 x 7 in float32: the resident blob does not fit ------
     for (units, nb), keys in ((FAULT_TRUNK, "BC"), (DEEP_TRUNK, "B")):
         t = wide_tuner(dev, cfg, units, nb, "float32")
@@ -2359,26 +2435,33 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
             res = {"err": e, "ms": ms, "plain_ms": cuda_ms(plain, reps=2,
                                                            blocks=3),
                    **{k: bd[k] for k in ("bound_ms", "bound_by")},
-                   "launches": out["launches"][(key, kind)]}
+                   "launches": out["launches"][(key, kind, f"{units}x{nb}")]}
             out["requests"][f"{key}-{units}x{nb}"] = res
             log(f"{key} at {units} x {nb} float32 ({kind}) on {REQUESTS[0]}"
                 f": vs plain on the whole request within CHECKS (largest "
                 f"{e:.3e}); kernel {ms:.4f} ms, plain {res['plain_ms']:.4f} "
                 f"ms; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
                 f"({100 * bd['bound_ms'] / ms:.1f}%) [{card}]")
+    # the kernels line: each kernel by design at the first trunk phase 47
+    # ran it at, and the chunked design again at each further trunk
+    entries = [(key, kind, out["shapes"][kind][0], "")
+               for kind in WIDE_KINDS for key in ("B", "C")]
+    entries += [(key, "chunked", shape, f"-{shape}")
+                for shape in out["shapes"]["chunked"][1:] for key in "BC"]
     out["kernels"] = [{
-        "name": f"{key}{WIDE_KINDS[kind][2]}", "route": "cuda",
+        "name": f"{key}{WIDE_KINDS[kind][2]}{suffix}", "route": "cuda",
         "source": f"qbold_vi_tpu_torch/csrc/{WIDE_KINDS[kind][0]}",
         "replaces": "qbold_vi_tpu/ops/pallas_infer.py:"
                     + ("353" if key == "B" else "246"),
-        "launches": out["launches"][(key, kind)],
-        "max_abs_err": out["err"][(key, kind)],
-        "ms": out["ms"][(key, kind)],
-        "plain_ms": out["plain_ms"][(key, kind)],
-        **{k: out["bound"][(key, kind)][k] for k in ("bound_ms",
-                                                      "bound_by")},
+        "launches": out["launches"][(key, kind) if not suffix
+                                    else (key, kind, shape)],
+        "max_abs_err": out["err"][(key, kind, shape)],
+        "ms": out["ms"][(key, kind, shape)],
+        "plain_ms": out["plain_ms"][(key, kind, shape)],
+        **{k: out["bound"][(key, kind, shape)][k] for k in ("bound_ms",
+                                                             "bound_by")},
         "library_ms": None}
-        for kind in WIDE_KINDS for key in ("B", "C")]
+        for key, kind, shape, suffix in entries]
     return out
 
 
@@ -5596,9 +5679,11 @@ def main() -> int:
                       "stream1_float64_err": err64,
                       "wide_stream1": {
                           "trunk": WIDE_TRUNK, "past": PAST_TRUNK,
-                          "ms": {f"{k}-{t}": v
-                                 for (k, t), v in wide["ms"].items()},
-                          "routes_ms": {f"{k}-{t}": v for (k, t), v
+                          "past_wide": PAST_WIDE_TRUNK,
+                          "streamed": STREAM_TRUNK,
+                          "ms": {"-".join(k): v
+                                 for k, v in wide["ms"].items()},
+                          "routes_ms": {"-".join(k): v for k, v
                                         in wide["routes_ms"].items()},
                           "requests": wide["requests"]},
                       "cli": cli,

@@ -1,5 +1,6 @@
 // Kernels B and C, streamed, float32 trunk (3xTF32) past a padded width of
-// 256 (encode_stream_wg.cu serves the float32 trunk below it):
+// 384 (encode_stream_wg.cu serves the float32 trunk up to 256,
+// encode_stream_wgc.cu at 320 and 384, where a pass of 128 voxels fits):
 // encode_stream.cuh's design instantiated with QvStF32; symbols
 // qv_encode_quad_stream_kernel and qv_encode_q_stream_kernel, entries
 // qv_encode_quad_stream and qv_encode_q1_stream (ops/fused_infer.py).

@@ -11,9 +11,10 @@
 // blob in shared memory; the wrapper takes them wherever it fits
 // (ops/fused_infer.py::launch_plan). Elsewhere the float32 trunk takes
 // encode_stream_wg.cu's wgmma kernels up to a padded width of 256 (65-128
-// units x 2 blocks, deep trunks such as 60 x 7, 129-256 units) and this
-// kernel past it; the bf16 trunk takes this kernel past 128 units and at
-// depths whose blob does not fit.
+// units x 2 blocks, deep trunks such as 60 x 7, 129-256 units),
+// encode_stream_wgc.cu's chunked wgmma kernels at 320 and 384 (257-384
+// units) and this kernel past them; the bf16 trunk takes this kernel past
+// 128 units and at depths whose blob does not fit.
 //
 // Bound: at 256 units x 2 blocks the products (U T + nb U^2 + 5 U FMAs a
 // voxel, 3xTF32 in float32) take 1.69 ms of a 1.03 M-voxel request at the
@@ -66,8 +67,9 @@
 // * Products: mma.sync (m16n8k8 TF32 as 3xTF32, mma_math.cuh; m16n8k16
 //   bf16 with float32 sums). One skeleton serves both trunks. Where a
 //   layer is one wgmma width in float32 (up to 256) encode_stream_wg.cu
-//   redesigns it on wgmma with a producer's ring (PERF.md); a bf16
-//   version on wgmma is later work.
+//   redesigns it on wgmma with a producer's ring, and at 320 and 384
+//   encode_stream_wgc.cu in output chunks of one activation buffer
+//   (PERF.md); a bf16 version on wgmma is later work.
 // MT and NCW are template constants (QV_ST_DISPATCH); depth, width and the
 // slab's k-steps are runtime values that the wrapper's plan gives
 // (launch_plan), with the shared-memory bytes; this file computes the

@@ -10,7 +10,8 @@
 // the float32 head, then B's quadrature summaries or C's q (5, N).
 // ops/fused_infer.py::launch_plan takes it for the float32 trunk at every
 // Up <= 256 where the resident blob does not fit; past 256 units
-// encode_stream.cu serves, and the bf16 trunk keeps its own kernels.
+// encode_stream_wgc.cu's chunked kernels serve where they fit (320 and 384),
+// encode_stream.cu beyond, and the bf16 trunk keeps its own kernels.
 //
 // Bound: at 256 units x 2 blocks the 3xTF32 products take 1.69 ms of a
 // 1.03 M-voxel request at the dense TF32 peak; the request's bytes 0.026
@@ -69,283 +70,11 @@
 //   activations 128 x (Up + 8) floats | rows 128 x SX floats |
 //   heads 5 x 256 floats | [B: node table QV_NCONST, quadrature scratch
 //   QV_QUAD_SCRATCH(256) floats unless it fits in the activations]
-// (SX: QvStF32::x_stride of the first layer's k-steps.)
+// (SX: QvStF32::x_stride of the first layer's k-steps.) The PTX helpers
+// and the products are encode_stream_wg.cuh's, shared with
+// encode_stream_wgc.cu.
 
-#include "encode_stream.cuh"
-
-#define QV_WG_THREADS 384     // two consumer warpgroups + a producer's
-#define QV_WG_CONSUMERS 256
-// registers a thread after setmaxnreg: the producer warpgroup gives its
-// share to the consumers (128 x 40 + 256 x 232 <= 65,536)
-#define QV_WG_PRODUCER_REGS 40
-#define QV_WG_CONSUMER_REGS 232
-#define QV_WG_BAR_BYTES 128   // the ring's full / empty mbarriers
-#define QV_WG_MAX_STAGES 8
-#define QV_WG_PASS 128        // voxels a pass: 64 a consumer warpgroup
-
-// ---- PTX ----------------------------------------------------------------------
-
-static __device__ __forceinline__ uint32_t qv_wg_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-static __device__ __forceinline__ void qv_wg_bar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-static __device__ __forceinline__ void qv_wg_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// The producer's arrival on a full barrier, with the bytes to come.
-static __device__ __forceinline__ void qv_wg_arrive_tx(uint32_t bar,
-                                                       int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-// Wait until the phase of the given parity has completed.
-static __device__ __forceinline__ void qv_wg_wait(uint32_t bar,
-                                                  uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// One bulk copy of `bytes` (a multiple of 16) from global to shared
-// memory, its completion counted on barrier bar.
-static __device__ __forceinline__ void qv_wg_bulk(uint32_t dst,
-                                                  const void* src, int bytes,
-                                                  uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-template <int N>
-static __device__ __forceinline__ void qv_wg_setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-static __device__ __forceinline__ void qv_wg_setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-static __device__ __forceinline__ void qv_wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-static __device__ __forceinline__ void qv_wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-static __device__ __forceinline__ void qv_wg_wait_mma() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving a use of the sums across the points where
-// the tensor cores own them.
-template <int NR>
-static __device__ __forceinline__ void qv_wg_fence_sums(float* d) {
-#pragma unroll
-  for (int i = 0; i < NR; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Descriptor of a K-major TF32 operand at shared address a (16-byte
-// aligned), no swizzle: 8 x 16-byte core matrices, the two k-halves of a
-// k-step LBO = 128 B apart, 8-row groups SBO = 256 B apart (layout 0).
-static __device__ __forceinline__ uint64_t qv_wg_desc(uint32_t a) {
-  return (uint64_t)((a & 0x3FFFFu) >> 4) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)(256 >> 4) << 32);
-}
-
-// d (64 x N float32 sums) (+)= a * b: a (64 x 8 TF32) in registers, warp w
-// of the warpgroup holding rows 16 w .. 16 w + 15 as mma.m16n8k8's A
-// fragment (a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4),
-// lane = 4 g + t); b (8 x N) by descriptor, K-major. Thread (w, 4 g + t)
-// holds d[4 j + 2 hh + i] = D(16 w + g + 8 hh, 8 j + 2 t + i). acc == 0:
-// d = a * b.
-template <int N>
-struct QvWgTf32;
-
-template <>
-struct QvWgTf32<16> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
-                                             uint64_t desc, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7},"
-        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
-  }
-};
-
-template <>
-struct QvWgTf32<32> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
-                                             uint64_t desc, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15},"
-        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
-  }
-};
-
-template <>
-struct QvWgTf32<64> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
-                                             uint64_t desc, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31},"
-        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
-  }
-};
-
-template <>
-struct QvWgTf32<128> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
-                                             uint64_t desc, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
-  }
-};
-
-template <>
-struct QvWgTf32<192> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
-                                             uint64_t desc, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-        "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-        "%93, %94, %95},"
-        "{%96, %97, %98, %99}, %100, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-          "+f"(d[95])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
-  }
-};
-
-template <>
-struct QvWgTf32<256> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
-                                             uint64_t desc, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-        "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-        "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
-        "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
-        "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
-        "%127},"
-        "{%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-          "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
-  }
-};
+#include "encode_stream_wg.cuh"
 
 // ---- the encode -------------------------------------------------------------
 
@@ -518,11 +247,6 @@ static __device__ __forceinline__ void qv_wg_body(
     round.sync();  // the heads and the scratch are read
   }
 }
-
-#define QV_WG_ARGS                                                          \
-  const float *__restrict__ x, long long n, int t_in, int cm, int mask,     \
-      int se, int multi, int act, int nb, const float *__restrict__ blob,   \
-      const float *__restrict__ image
 
 // Kernels B and C, one symbol each (the profile and the SASS tell them
 // from encode_stream.cu's).

@@ -26,10 +26,14 @@ csrc/encode_quad_bf16.cu (bf16), which hold the whole weight blob in
 shared memory, wherever it fits (counted in ``encode_quad_fused.launches``
 and ``.bf16_launches``); else, in float32 up to a padded width of 256,
 csrc/encode_stream_wg.cu, which feeds a wgmma image of the blob's weights
-(``_wg_image``) through a ring of slabs (``.wgmma_launches``); and the
-streamed kernels of csrc/encode_stream.cuh everywhere else, which stream
-the blob itself through shared memory a slab at a time
-(``.stream_launches`` and ``.stream_bf16_launches``).
+(``_wg_image``) through a ring of slabs (``.wgmma_launches``); in float32
+at padded widths 320 and 384 (257-384 units), csrc/encode_stream_wgc.cu,
+the same design with each layer's products in output chunks of at most 256
+columns (``.chunked_launches``); and the streamed kernels of
+csrc/encode_stream.cuh everywhere else (float32 past 384 units, bf16 past
+128 units or where its blob does not fit), which stream the blob itself
+through shared memory a slab at a time (``.stream_launches`` and
+``.stream_bf16_launches``).
 ``encode_q1_packed`` is the wrapper of kernel C, which shares B's encode
 routine and writes the raw head ``q (5, N)`` for the MC summaries
 (ops/summarize.py); its plain version is ``encode_q_plain``.
@@ -102,6 +106,11 @@ _WG_BAR_BYTES = 128
 _WG_SLABS = {16: (2,), 32: (4,), 64: (4,), 128: (2,), 192: (1, 2),
              256: (1, 2)}
 _WG_STAGES = (2, 3, 4)
+# the chunked wgmma kernels (csrc/encode_stream_wgc.cu) past 256: the
+# (chunk width, k-steps a slab) compiled for each padded width
+# (QV_WGC_DISPATCH); on the H100 384 ran 13-14% faster in chunks of 192
+# than of 128 (PERF.md)
+_WGC_SLABS = {320: (160, 1), 384: (192, 1)}
 
 
 def fused_infer_available(activation: str) -> bool:
@@ -225,27 +234,36 @@ def _fragments(w, kp: int, np_: int):
     return split.permute(3, 1, 2, 4, 0, 5).reshape(-1)
 
 
-def _wg_image(blob, up: int, nb: int, t: int):
-    """The wgmma image of a float32 blob's trunk (csrc/encode_stream_wg.cu),
-    a permutation of its fragments: the layers' k-steps in order (the
-    first layer's, then each block's), each as K-major core matrices with
-    hi and lo apart, [k-step s][hi | lo][row group j][k-half kh][row g]
-    [column c] = the split of w[8j + g, 8s + 2c + kh] -- fragment (s, j,
-    lane 4g + c) word 2 hi/lo + kh (``_fragments``)."""
+def _wg_image(blob, up: int, nb: int, t: int, cn: int | None = None):
+    """The wgmma image of a float32 blob's trunk, a permutation of its
+    fragments: layer by layer (the first, then each block), its outputs in
+    chunks of ``cn`` columns (``up`` by default: csrc/encode_stream_wg.cu;
+    fewer past 256, csrc/encode_stream_wgc.cu), each chunk's k-steps in
+    order as K-major core matrices with hi and lo apart, [chunk][k-step s]
+    [hi | lo][row group j of the chunk][k-half kh][row g][column c] = the
+    split of w[8j + g, 8s + 2c + kh] -- fragment (s, j, lane 4g + c) word 2
+    hi/lo + kh (``_fragments``). With one chunk the image is the layers'
+    k-steps in order."""
     nt = up // 8
-    steps = -(-t // 8) + nb * nt
-    frag = blob[:steps * nt * 128].view(steps, nt, 8, 4, 2, 2)
-    return frag.permute(0, 4, 1, 5, 2, 3).contiguous().view(-1)
+    cn = up if cn is None else cn
+    ks0 = -(-t // 8)
+    parts, step = [], 0
+    for kl in [ks0] + [nt] * nb:
+        frag = blob[step * nt * 128:(step + kl) * nt * 128].view(
+            kl, up // cn, cn // 8, 8, 4, 2, 2)
+        parts.append(frag.permute(1, 0, 5, 2, 6, 3, 4).reshape(-1))
+        step += kl
+    return torch.cat(parts)
 
 
-def _wg_image_of(blob, up: int, nb: int, t: int):
+def _wg_image_of(blob, up: int, nb: int, t: int, cn: int | None = None):
     """``_wg_image`` of ``blob``, derived on the blob's device at its
     first use by the wgmma kernels and kept on the blob (a fused serving
     artifact's buffer derives it once) while the blob is unchanged."""
-    key = (blob._version, up, nb, t)
+    key = (blob._version, up, nb, t, cn)
     kept = getattr(blob, "_qv_wg_image", None)
     if kept is None or kept[0] != key:
-        kept = (key, _wg_image(blob, up, nb, t))
+        kept = (key, _wg_image(blob, up, nb, t, cn))
         blob._qv_wg_image = kept
     return kept[1]
 
@@ -384,7 +402,9 @@ class LaunchPlan:
     """How kernel B or C runs at one shape: ``design`` "resident" (the
     whole weight blob in shared memory, csrc/encode_quad.cu or
     encode_quad_bf16.cu), "wgmma" (float32, csrc/encode_stream_wg.cu: a
-    ring of ``stages`` slabs of ``ks`` k-steps) or "streamed"
+    ring of ``stages`` slabs of ``ks`` k-steps), "chunked" (float32,
+    csrc/encode_stream_wgc.cu: the same with each layer in output chunks
+    of ``cn`` columns) or "streamed"
     (csrc/encode_stream.cuh: ``mt`` m-tiles -- 16 mt voxels a pass -- and
     ``ncw`` n-tiles a warp, slabs of ``ks`` k-steps, double-buffered),
     with the block's ``threads`` and dynamic shared-memory bytes
@@ -397,6 +417,7 @@ class LaunchPlan:
     ncw: int = 0
     ks: int = 0
     stages: int = 0
+    cn: int = 0
 
 
 def _st_ncw(up: int) -> int:
@@ -436,18 +457,22 @@ def _st_smem(up: int, t: int, trunk: str, quad: bool, mt: int,
     return 2 * ks * 8 * ncw * fb + 4 * words
 
 
-def _wg_smem(up: int, t: int, quad: bool, stages: int, ks: int) -> int:
+def _wg_smem(up: int, t: int, quad: bool, stages: int, ks: int,
+             cn: int | None = None) -> int:
     """Shared-memory bytes of the wgmma kernels, in the layout of
-    csrc/encode_stream_wg.cu: the ring's mbarriers, ``stages`` slots of
-    ``ks`` k-steps (64 up bytes each), the activation rows of a pass, its
-    staged rows, the round's heads and, in B, the node table and the
-    quadrature's scratch (in the activation rows where it fits)."""
+    csrc/encode_stream_wg.cu (``cn`` None) or csrc/encode_stream_wgc.cu
+    (chunks of ``cn`` columns): the ring's mbarriers, ``stages`` slots of
+    ``ks`` k-steps (64 up bytes each, 64 cn chunked), the activation rows
+    of a pass, its staged rows (chunked: in the activation rows), the
+    round's heads and, in B, the node table and the quadrature's scratch
+    (in the activation rows where it fits)."""
     act = _WG_PASS * (up + 8)
-    words = act + _WG_PASS * _xs_stride(t) + 5 * _ST_ROUND
+    rows = 0 if cn else _WG_PASS * _xs_stride(t)
+    words = act + rows + 5 * _ST_ROUND
     if quad:
         scratch = _quad_scratch_floats(_ST_ROUND)
         words += _NCONST + (scratch if act < scratch else 0)
-    return _WG_BAR_BYTES + stages * ks * 64 * up + 4 * words
+    return _WG_BAR_BYTES + stages * ks * 64 * (cn or up) + 4 * words
 
 
 def launch_plan(up: int, nb: int, t: int, t_in: int, trunk: str,
@@ -457,9 +482,11 @@ def launch_plan(up: int, nb: int, t: int, t_in: int, trunk: str,
     on a card whose blocks take ``limit`` bytes of shared memory: the
     resident design wherever its blob fits (in float32 beside the staged
     rows of the most warps that fit); else, in float32 at ``up`` <= 256,
-    the wgmma design's smallest ring if it fits; else the streamed design
-    with the largest pass of voxels, then the largest slab, that fits.
-    Raises if none fits."""
+    the wgmma design's smallest ring if it fits; in float32 at ``up`` 320
+    and 384 the chunked design in two slots if it fits (the staged rows
+    must fit in an activation row); else the streamed
+    design with the largest pass of voxels, then the largest slab, that
+    fits. Raises if none fits."""
     _check_trunk(trunk)
     scratch = _quad_scratch_floats if quad else (lambda threads: 0)
     blob = _blob_floats(up, nb, t, trunk)
@@ -482,6 +509,12 @@ def launch_plan(up: int, nb: int, t: int, t_in: int, trunk: str,
         if smem <= limit:
             return LaunchPlan("wgmma", _WG_THREADS, smem, ks=ks,
                               stages=stages)
+    if trunk == "float32" and up in _WGC_SLABS and -(-t // 8) * 8 <= up:
+        cn, ks = _WGC_SLABS[up]
+        smem = _wg_smem(up, t, quad, _WG_STAGES[0], ks, cn)
+        if smem <= limit:
+            return LaunchPlan("chunked", _WG_THREADS, smem, ks=ks,
+                              stages=_WG_STAGES[0], cn=cn)
     for mt in _ST_TILES[_st_ncw(up)]:
         for ks in _st_slabs(up, trunk):
             smem = _st_smem(up, t, trunk, quad, mt, ks)
@@ -540,7 +573,8 @@ def _entry(name: str, trunk: str):
                    name + ("_bf16" if trunk == "bfloat16" else ""))
 
 
-_COUNTER_PREFIX = {"resident": "", "streamed": "stream_", "wgmma": "wgmma_"}
+_COUNTER_PREFIX = {"resident": "", "streamed": "stream_", "wgmma": "wgmma_",
+                   "chunked": "chunked_"}
 
 
 def _count(wrapper, plan: LaunchPlan, trunk: str) -> None:
@@ -639,6 +673,12 @@ def encode_quad_fused_op(x: torch.Tensor, blob: torch.Tensor, units: int,
                 *args, padded_units, n_blocks, blob.data_ptr(),
                 image.data_ptr(), ranges, *ptrs, int(mvg), plan.stages,
                 plan.ks, plan.threads, plan.smem, stream)
+        elif plan.design == "chunked":
+            image = _wg_image_of(blob, padded_units, n_blocks, t, plan.cn)
+            err = _cuda.library().qv_encode_quad_wgc(
+                *args, padded_units, n_blocks, blob.data_ptr(),
+                image.data_ptr(), ranges, *ptrs, int(mvg), plan.stages,
+                plan.ks, plan.cn, plan.threads, plan.smem, stream)
         else:
             err = _entry("qv_encode_quad_stream", trunk)(
                 *args, padded_units, n_blocks, blob.data_ptr(), ranges,
@@ -669,7 +709,7 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
     layouts, the mask channel and the trunk. CUDA tensors launch kernel C
     by the design ``launch_plan`` picks (counted as kernel B's, in
     ``encode_q1_packed.launches``, ``.bf16_launches``,
-    ``.wgmma_launches``, ``.stream_launches`` and
+    ``.wgmma_launches``, ``.chunked_launches``, ``.stream_launches`` and
     ``.stream_bf16_launches``) or raise; CPU
     tensors run ``encode_q_plain``. Unlike the TPU kernel, N is not
     padded."""
@@ -703,6 +743,12 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
                 *args, up, n_blocks, blob.data_ptr(), image.data_ptr(),
                 q.data_ptr(), plan.stages, plan.ks, plan.threads, plan.smem,
                 stream)
+        elif plan.design == "chunked":
+            image = _wg_image_of(blob, up, n_blocks, t, plan.cn)
+            err = _cuda.library().qv_encode_q1_wgc(
+                *args, up, n_blocks, blob.data_ptr(), image.data_ptr(),
+                q.data_ptr(), plan.stages, plan.ks, plan.cn, plan.threads,
+                plan.smem, stream)
         else:
             err = _entry("qv_encode_q1_stream", trunk)(
                 *args, up, n_blocks, blob.data_ptr(), q.data_ptr(), plan.mt,
@@ -714,4 +760,5 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
 
 for _w in (encode_quad_fused, encode_q1_packed):
     _w.launches = _w.bf16_launches = _w.wgmma_launches = 0
+    _w.chunked_launches = 0
     _w.stream_launches = _w.stream_bf16_launches = 0

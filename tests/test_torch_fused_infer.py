@@ -180,12 +180,14 @@ def test_bf16_trunk_matches_jax_kernel(name, cfg, scan, layout, mask):
 
 
 # Widths and depths past the resident blob (65-128 units x 2 in float32)
-# and past 128 units, where the card runs the streamed kernels: the port's
-# plain versions against the JAX kernel in the interpreter, relu and a
-# smooth activation, both layouts, with the mask.
+# and past 128 units, where the card runs the wgmma, chunked wgmma or
+# streamed kernels: the port's plain versions against the JAX kernel in
+# the interpreter, relu and a smooth activation, both layouts, with the
+# mask.
 WIDE_CASES = [
     ("100x2-relu-channel", 100, 2, "relu", "float32", "channel"),
     ("256x2-gelu-voxel", 256, 2, "gelu", "float32", "voxel"),
+    ("320x2-softplus-channel", 320, 2, "softplus", "float32", "channel"),
     ("520x1-relu-voxel", 520, 1, "relu", "float32", "voxel"),
     ("100x2-softplus-voxel-bf16", 100, 2, "softplus", "bfloat16", "voxel"),
     ("256x2-relu-channel-bf16", 256, 2, "relu", "bfloat16", "channel"),
@@ -773,11 +775,12 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
     within the H100's shared memory, and keeps the resident design at
     OPTIMAL (60 units x 2 blocks). Where the resident blob does not fit
     (at 100 x 2 in float32 it is 72,280 floats; 60 x 7; past 128 units)
-    the float32 trunk takes the wgmma design up to a padded width of 256
-    and the streamed one past it; the bf16 trunk (half the blob) streams
-    past 128 units."""
+    the float32 trunk takes the wgmma design up to a padded width of 256,
+    the chunked wgmma design at 320 and 384 (257-384 units, whose pass of
+    128 voxels fits) and the streamed one past it; the bf16 trunk (half
+    the blob) streams past 128 units."""
     for units in (1, 13, 60, 64, 65, 100, 128, 129, 192, 200, 256, 257,
-                  520, 1024):
+                  300, 320, 321, 384, 385, 448, 520, 1024):
         up = tfi._padded_width(units)
         assert up >= units
         for nb in (1, 2, 3, 7, 12):
@@ -792,6 +795,14 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
                 assert plan.smem == tfi._wg_smem(up, 11, quad, plan.stages,
                                                  plan.ks)
                 assert tfi._ST_ROUND % tfi._WG_PASS == 0
+            elif trunk == "float32" and up <= 384:
+                assert plan.design == "chunked", (units, nb, plan)
+                assert plan.threads == tfi._WG_THREADS
+                assert (plan.cn, plan.ks) == tfi._WGC_SLABS[up]
+                assert plan.stages == 2 and up % plan.cn == 0
+                assert plan.cn % 8 == 0 and plan.cn <= 256
+                assert plan.smem == tfi._wg_smem(up, 11, quad, plan.stages,
+                                                 plan.ks, plan.cn)
             else:
                 assert plan.design == "streamed", (units, nb, plan)
                 assert (plan.mt, plan.ncw) in {
@@ -805,23 +816,41 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
     designs = {shape: tfi.launch_plan(tfi._padded_width(shape[0]), shape[1],
                                       11, 12, trunk, quad, H100_SMEM).design
                for shape in ((100, 2), (128, 2), (60, 7), (192, 2),
-                             (256, 2), (320, 2), (520, 1))}
+                             (256, 2), (320, 2), (520, 1), (320, 1),
+                             (320, 3), (384, 1), (384, 2), (384, 3),
+                             (448, 2))}
     if trunk == "float32":
         assert tfi._blob_floats(128, 2, 11, trunk) == 72_280
         assert designs == {(100, 2): "wgmma", (128, 2): "wgmma",
                            (60, 7): "wgmma", (192, 2): "wgmma",
-                           (256, 2): "wgmma", (320, 2): "streamed",
-                           (520, 1): "streamed"}
+                           (256, 2): "wgmma", (320, 2): "chunked",
+                           (520, 1): "streamed", (320, 1): "chunked",
+                           (320, 3): "chunked", (384, 1): "chunked",
+                           (384, 2): "chunked", (384, 3): "chunked",
+                           (448, 2): "streamed"}
         # at 256 x 2: two warpgroups' activation rows (132 KB) beside a
         # ring of two 16 KB slabs
         plan = tfi.launch_plan(256, 2, 11, 12, trunk, quad, H100_SMEM)
         assert (plan.ks, plan.stages) == (1, 2)
         assert tfi._WG_PASS * (256 + 8) * 4 == 135_168
+        # at 320 x 2: 160-column chunks, the staged rows in the activation
+        # rows (168 KB), two 10 KB slabs: below 196 KB; at 384 the
+        # activation rows alone take 200,704 B
+        plan = tfi.launch_plan(320, 2, 11, 12, trunk, quad, H100_SMEM)
+        assert (plan.cn, plan.ks, plan.stages) == (160, 1, 2)
+        assert plan.smem == (194_496 if quad else 193_664) < 196 * 1024
+        assert tfi._WG_PASS * (384 + 8) * 4 == 200_704
+        # a staged row of more taus than an activation row holds streams
+        assert tfi.launch_plan(320, 2, 330, 331, trunk, quad,
+                               H100_SMEM).design == "streamed"
     else:
         assert designs == {(100, 2): "resident", (128, 2): "resident",
                            (60, 7): "resident", (192, 2): "streamed",
                            (256, 2): "streamed", (320, 2): "streamed",
-                           (520, 1): "streamed"}
+                           (520, 1): "streamed", (320, 1): "streamed",
+                           (320, 3): "streamed", (384, 1): "streamed",
+                           (384, 2): "streamed", (384, 3): "streamed",
+                           (448, 2): "streamed"}
     with pytest.raises(ValueError, match="no launch fits"):
         tfi.launch_plan(1024, 2, 11, 12, trunk, quad, 64 * 1024)
 
@@ -844,15 +873,15 @@ def _stream_walk(up, nb, t, trunk, plan):
 
 @pytest.mark.parametrize("trunk", ["float32", "bfloat16"])
 def test_streamed_slabs_unpack_to_the_encoder(trunk):
-    """At 256 units x 2 blocks in bf16 and 320 x 2 in float32 (the
-    streamed design's widths: float32 takes the wgmma design up to 256),
+    """At 256 units x 2 blocks in bf16 and 448 in float32 (the streamed
+    design's widths: float32 takes the wgmma designs up to 384),
     the streamed kernels' slabs -- the blob's bytes copied as qv_st_body
     copies them into a slot, then read as each warp reads its B fragments
     (lane 4g + t) -- hold every layer's weight at (n, k) exactly once:
     float32's hi / lo TF32 splits, bf16's bf16 values, zeros past U and
     T. The head's fragments and the biases, read where qv_st_blob points,
     hold the head and the biases."""
-    up = 256 if trunk == "bfloat16" else 320
+    up = 256 if trunk == "bfloat16" else 448
     cfg, tuner = _width_tuner(up)
     nb = cfg.no_intermediate_layers
     blob, u, _, t = tfi._weight_blob(tuner.encoder, nb, torch.device("cpu"),
@@ -960,9 +989,11 @@ def test_streamed_slabs_unpack_to_the_encoder(trunk):
 # A fragment per warp), B by descriptor from a slab of the wgmma image that
 # ops/fused_infer.py::_wg_image derives from the fragment blob: K-major core
 # matrices, no swizzle, hi then lo a k-step, channel 8s + 2c + kh of k-step s
-# in k-slot 4kh + c. These tests read the image as the descriptors read it
-# and replay that data flow thread by thread in torch (float64 products of
-# the TF32 splits).
+# in k-slot 4kh + c. At 320 and 384 (csrc/encode_stream_wgc.cu) each layer
+# is Up / CN output chunks of CN columns, a wgmma.m64nCNk8 product each from
+# the same A registers, and the image holds a layer chunk by chunk. These
+# tests read the image as the descriptors read it and replay that data flow
+# thread by thread in torch (float64 products of the TF32 splits).
 
 _WG_LBO, _WG_SBO = 128, 256        # the descriptors' byte offsets
 
@@ -972,17 +1003,26 @@ def _wg_slot_channel(slot):
     return 2 * (slot % 4) + slot // 4
 
 
-def _wg_read_b(words, step, half, up):
-    """B (8 k-slots x up) of the image's k-step `step`, hi (half 0) or lo
-    (1), read as the kernel's descriptors read a slab that holds it: the
-    k-step's image at 64 up bytes a step, lo 32 up bytes past hi; element
-    (k-slot kk, row n) in core matrix (n // 8, kk // 4) at SBO and LBO
-    strides, its 16-byte row n % 8, 4 bytes a k-slot."""
+def _wg_read_b(words, step, half, up, cn=None, kl=1, layer_step=0):
+    """B (8 k-slots x up) of k-step `step` of a layer whose kl k-steps
+    start at the trunk's k-step `layer_step`, hi (half 0) or lo (1), read
+    as the kernel's descriptors read the slabs that hold it, chunk by
+    chunk of cn columns (up: one chunk): the layer's image at 64 up bytes a
+    k-step, chunk c's k-step `step` 64 cn (c kl + step) bytes into it, lo
+    32 cn bytes past hi; element (k-slot kk, row n) in core matrix (n // 8,
+    kk // 4) at SBO and LBO strides, its 16-byte row n % 8, 4 bytes a
+    k-slot. With one chunk, `step` may count from the trunk's first
+    k-step."""
+    cn = up if cn is None else cn
     kk = torch.arange(8)[:, None]
-    n = torch.arange(up)[None]
-    off = (step * 64 * up + half * 32 * up + n // 8 * _WG_SBO
-           + kk // 4 * _WG_LBO + n % 8 * 16 + kk % 4 * 4)
-    return words[off // 4]
+    chunks = []
+    for c in range(up // cn):
+        n = torch.arange(cn)[None]
+        off = (layer_step * 64 * up + (c * kl + step) * 64 * cn
+               + half * 32 * cn + n // 8 * _WG_SBO + kk // 4 * _WG_LBO
+               + n % 8 * 16 + kk % 4 * 4)
+        chunks.append(words[off // 4])
+    return torch.cat(chunks, 1)
 
 
 def _wg_thread_maps():
@@ -1000,27 +1040,33 @@ def _wg_thread_maps():
     return rows, slots, d_rows, d_cols
 
 
-@pytest.mark.parametrize("units,nb", [(100, 2), (256, 2), (60, 7), (13, 3)])
+@pytest.mark.parametrize("units,nb", [(100, 2), (256, 2), (60, 7), (13, 3),
+                                      (320, 2), (384, 1)])
 def test_wgmma_image_unpacks_to_the_encoder(units, nb):
     """The wgmma image, read by the kernel's descriptors k-step by k-step
-    (the first layer's, then each block's), holds every trunk weight w[n,
-    8s + channel(slot)] exactly once: hi = tf32(w) in the hi half, lo =
-    tf32(w - hi) in the lo half (hi + lo within 2^-21 of w), zeros past U
-    and T; it is a permutation of the blob's trunk fragments, which stay
-    as they were."""
+    (the first layer's, then each block's) and, at 320 and 384, chunk by
+    chunk in the chunk width the chunked kernels take there
+    (fused_infer._WGC_SLABS), holds every trunk weight w[n, 8s +
+    channel(slot)] exactly once: hi = tf32(w) in the hi half, lo = tf32(w -
+    hi) in the lo half (hi + lo within 2^-21 of w), zeros past U and T; it
+    is a permutation of the blob's trunk fragments, which stay as they
+    were; with one chunk (up <= 256) the image is the one chunk width's."""
     cfg = dataclasses.replace(OPT, no_units=units, no_intermediate_layers=nb)
     _, params = port_params(cfg, SCAN, units)
     tuner = port_tuner(cfg, SCAN, params)
     blob, u, up, t = tfi._weight_blob(tuner.encoder, nb, torch.device("cpu"))
-    img = tfi._wg_image(blob, up, nb, t)
     ks0 = -(-t // 8)
     trunk = (ks0 + nb * up // 8) * up * 16
-    assert img.numel() == trunk
-    assert torch.equal(img.sort().values, blob[:trunk].sort().values)
-    words = img
     wfc, _, wbs, _, _, _ = tfi._stream1_weights(tuner.encoder, nb)
-    step = 0
     chan = _wg_slot_channel(torch.arange(8))
+    cn = tfi._WGC_SLABS[up][0] if up in tfi._WGC_SLABS else None
+    if up <= 256:
+        assert torch.equal(tfi._wg_image(blob, up, nb, t, up),
+                           tfi._wg_image(blob, up, nb, t))
+    words = tfi._wg_image(blob, up, nb, t, cn)
+    assert words.numel() == trunk
+    assert torch.equal(words.sort().values, blob[:trunk].sort().values)
+    step = 0
     for w in [wfc] + list(wbs):
         kp = 8 * ks0 if step == 0 else up
         wp = torch.zeros((up, kp))
@@ -1030,8 +1076,8 @@ def test_wgmma_image_unpacks_to_the_encoder(units, nb):
         got = torch.full((2, up, kp), float("nan"))
         for s in range(kp // 8):
             for half in range(2):
-                got[half][:, 8 * s + chan] = _wg_read_b(words, step + s, half,
-                                                        up).T
+                got[half][:, 8 * s + chan] = _wg_read_b(
+                    words, s, half, up, cn, kp // 8, step).T
         assert torch.equal(got[0], hi_ref) and torch.equal(got[1], lo_ref)
         assert ((got[0] + got[1] - wp).abs() <= 2.0 ** -21 * wp.abs()).all()
         step += kp // 8
@@ -1040,52 +1086,77 @@ def test_wgmma_image_unpacks_to_the_encoder(units, nb):
 
 
 def _chain_in_wgmma(x, encoder, *, se_idx, multi_image, activation,
-                    n_blocks):
+                    n_blocks, cn=None):
     """The raw head q (5, N) by the wgmma kernels' data flow: tiles of 64
     voxels a warpgroup; a layer's k-steps as three TF32 products into one
-    sum per thread (A registers of the activations a thread wrote itself,
-    B read from the image by descriptor); the epilogue's bias and
-    activation on each thread's own accumulators; the head on mma.sync
-    from the blob's fragments, 16 rows a warp (as _chain_in_fragments)."""
+    sum per thread and output chunk of cn columns (up: one chunk; A
+    registers of the activations a thread wrote itself, B read from the
+    image by descriptor); the epilogue's bias and activation on each
+    thread's own accumulators, after every chunk's last k-step; the head
+    on mma.sync from the blob's fragments, 16 rows a warp (as
+    _chain_in_fragments). With chunks the rows are staged in the
+    activation rows' first 8 ks0 columns, as csrc/encode_stream_wgc.cu
+    stages them."""
     act = activation_fn(activation)
     blob, u, up, t = tfi._weight_blob(encoder, n_blocks, x.device)
-    words = tfi._wg_image(blob, up, n_blocks, t)
+    cn = up if cn is None else cn
+    words = tfi._wg_image(blob, up, n_blocks, t, cn)
     _, _, wf, b0, bb, bf = _blob_parts(blob, t, up, n_blocks)
     ks0 = -(-t // 8)
     h = normalise_data(x, se_idx, multi_image)          # (N, T)
     n = h.shape[0]
-    rows = torch.zeros(-(-n // 64) * 64, 8 * ks0)
+    rows = torch.zeros(-(-n // 64) * 64, up + 8 if cn < up else 8 * ks0)
     rows[:n, :t] = h
-    tiles = rows.reshape(-1, 64, 8 * ks0)
+    tiles = rows.reshape(-1, 64, rows.shape[1])
     a_rows, a_slots, d_rows, d_cols = _wg_thread_maps()
     th = torch.arange(128)[:, None].expand(128, 4)
-    # who writes each (row, column) of a layer's output, and who reads it
+    # who writes each (row, column) of a layer's output -- chunk c's sum
+    # d[4 j + 2 hh + i] to column c cn + 8 j + 2 t + i -- and who reads it:
+    # each column once, read back by its writer alone
     writer = torch.full((64, up), -1)
-    for j in range(up // 8):
-        writer[d_rows, 8 * j + d_cols] = th
+    for c in range(up // cn):
+        for j in range(cn // 8):
+            assert (writer[d_rows, c * cn + 8 * j + d_cols] == -1).all()
+            writer[d_rows, c * cn + 8 * j + d_cols] = th
     for s in range(up // 8):
         assert torch.equal(writer[a_rows, 8 * s + _wg_slot_channel(a_slots)],
                            th)
+    # the staged rows: row 16 w + lane by lane < 16 of warp w, so every
+    # thread's first-layer A registers come from its own warp
+    assert torch.equal(a_rows // 16, th // 32)
 
-    def layer(src, first, steps, bias):
-        d = torch.zeros(src.shape[0], 64, up, dtype=torch.float64)
+    def layer(buf, first, steps, bias):
+        """buf (tiles, 64, columns): the layer's inputs; returns the
+        buffer after the epilogue (with chunks, the same rows written)."""
+        before = buf.clone()
+        d = torch.zeros(buf.shape[0], 64, up, dtype=torch.float64)
         for s in range(steps):
-            regs = src[:, a_rows, 8 * s + _wg_slot_channel(a_slots)]
+            regs = buf[:, a_rows, 8 * s + _wg_slot_channel(a_slots)]
             hi = tfi._tf32(regs)
             lo = tfi._tf32(regs - hi)
-            a_hi = torch.zeros(src.shape[0], 64, 8, dtype=torch.float64)
+            a_hi = torch.zeros(buf.shape[0], 64, 8, dtype=torch.float64)
             a_lo = torch.zeros_like(a_hi)
             a_hi[:, a_rows, a_slots] = hi.double()
             a_lo[:, a_rows, a_slots] = lo.double()
-            b_hi, b_lo = (_wg_read_b(words, first + s, half, up).double()
-                          for half in range(2))
-            d = d + (a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi)
-        return act(d.float() + bias)
+            b_hi, b_lo = (_wg_read_b(words, s, half, up, cn, steps,
+                                     first).double() for half in range(2))
+            for c in range(up // cn):       # chunk c from its own slab
+                cols = slice(c * cn, (c + 1) * cn)
+                d[..., cols] += (a_lo @ b_hi[:, cols] + a_hi @ b_lo[:, cols]
+                                 + a_hi @ b_hi[:, cols])
+        # no output is written before the last chunk's last k-step
+        assert torch.equal(buf, before)
+        out = act(d.float() + bias)
+        if cn == up:
+            return out
+        buf = buf.clone()
+        buf[..., :up] = out
+        return buf
 
     a = layer(tiles, 0, ks0, b0)
     for i in range(n_blocks):
         a = layer(a, ks0 + i * (up // 8), up // 8, bb[i])
-    r16 = a.reshape(-1, 16, up)
+    r16 = a[..., :up].reshape(-1, 16, up)
     lane = torch.arange(32)
     g, tt = lane // 4, lane % 4
     frags = [torch.stack([r16[:, g, 8 * s + 2 * tt], r16[:, g + 8, 8 * s + 2 * tt],
@@ -1109,12 +1180,16 @@ def _chain_in_wgmma(x, encoder, *, se_idx, multi_image, activation,
 
 @pytest.mark.parametrize("units,nb,activation", [
     (100, 2, "relu"), (100, 2, "softplus"), (60, 7, "gelu"),
-    (13, 3, "sigmoid"), (192, 1, "relu")])
+    (13, 3, "sigmoid"), (192, 1, "relu"), (320, 2, "relu"),
+    (384, 1, "gelu")])
 def test_wgmma_chain_matches_plain(units, nb, activation):
     """The chain replayed in the wgmma kernels' data flow -- padded
     channels and all, each thread reading back only the activations it
-    wrote (asserted) -- equals encode_q_plain: rtol 1e-6, atol 2e-6 (the
-    dropped lo * lo terms, ~2^-22 a product), as the fragment chain."""
+    wrote (asserted), at 320 and 384 in the chunk width taken there
+    (fused_infer._WGC_SLABS) with own-read across the chunks and the rows
+    staged in the activation rows -- equals encode_q_plain: rtol 1e-6, atol
+    2e-6 (the dropped lo * lo terms, ~2^-22 a product), as the fragment
+    chain."""
     cfg = dataclasses.replace(OPT, no_units=units, no_intermediate_layers=nb,
                               activation=activation)
     _, params = port_params(cfg, SCAN, units)
@@ -1123,7 +1198,8 @@ def test_wgmma_chain_matches_plain(units, nb, activation):
     x = torch.from_numpy(volume(rng, (70,), SCAN.n_taus))
     kw = dict(se_idx=SCAN.se_idx, multi_image=False, activation=activation,
               n_blocks=nb)
-    got = _chain_in_wgmma(x, tuner.encoder, **kw)
     ref = tfi.encode_q_plain(x, tuner.encoder, trunk="float32", **kw)
+    cn, _ = tfi._WGC_SLABS.get(tfi._padded_width(units), (None, 1))
+    got = _chain_in_wgmma(x, tuner.encoder, cn=cn, **kw)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6,
                                atol=2e-6)

@@ -37,7 +37,13 @@ that configuration, seed 0), and kernels B and C then run the design
 ``qv_encode_quad_wg_kernel`` and ``qv_encode_q_wg_kernel``, fed the
 blob's wgmma image ``fused_infer._wg_image``; an edited copy of
 ``csrc/encode_stream_wg.cu`` keeps their C interface and the plan's
-shared-memory layout) or the streamed ones (``qv_encode_quad_stream``,
+shared-memory layout), at 320 and 384 units (padded) the chunked wgmma
+ones (``qv_encode_quad_wgc``, ``qv_encode_q1_wgc``, kernels
+``qv_encode_quad_wgc_kernel`` and ``qv_encode_q_wgc_kernel``, fed the
+image in the plan's chunks, ``fused_infer._wg_image(..., cn)``; an edited
+copy of ``csrc/encode_stream_wgc.cu`` likewise, beside which an edited
+``encode_stream_wg.cuh`` replaces the package's) or the streamed ones
+(``qv_encode_quad_stream``,
 ``qv_encode_q1_stream``, kernels ``qv_encode_quad_stream_kernel`` and
 ``qv_encode_q_stream_kernel``; an edited copy of ``csrc/encode_stream.cu``
 or ``encode_stream_bf16.cu`` likewise). Per build it prints:
@@ -94,10 +100,12 @@ shared memory at the request's width and depth -- the measurement behind
 ``launch_plan``'s order: streamed, each tile (m-tiles a pass) of
 ``fused_infer._ST_TILES`` and each slab of ``fused_infer._st_slabs``;
 wgmma, each slab compiled for the width (``fused_infer._WG_SLABS``: its
-k-steps and bytes) and each ring of ``fused_infer._WG_STAGES`` slots. The
-wgmma design's other knobs are compiled in (two consumer warpgroups of 64
-voxels, no cluster): time another as an edited copy of
-``csrc/encode_stream_wg.cu``.
+k-steps and bytes) and each ring of ``fused_infer._WG_STAGES`` slots;
+chunked, each ring of the width's chunks and slab
+(``fused_infer._WGC_SLABS``). The wgmma designs' other knobs
+are compiled in (two consumer warpgroups of 64 voxels, no cluster): time
+another as an edited copy of ``csrc/encode_stream_wg.cu`` or
+``encode_stream_wgc.cu``.
 
 ``--dtype bfloat16`` runs B and C at trunk="bfloat16" (the entries
 ``qv_encode_quad_fused_bf16`` and ``qv_encode_q1_bf16``, kernels
@@ -155,6 +163,7 @@ ENTRIES = ("qv_quad_posterior_summaries", "qv_encode_quad_fused",
            "qv_encode_q1", "qv_encode_quad_fused_bf16", "qv_encode_q1_bf16",
            "qv_encode_quad_stream", "qv_encode_q1_stream",
            "qv_encode_quad_wg", "qv_encode_q1_wg",
+           "qv_encode_quad_wgc", "qv_encode_q1_wgc",
            "qv_encode_quad_stream_bf16", "qv_encode_q1_stream_bf16",
            "qv_mc_summaries", "qv_mc_kl_map", "qv_mc_kl")
 # C entries of earlier builds that the package no longer has: the earlier
@@ -275,8 +284,9 @@ class Calls:
             self.block_b, self.smem_b = self.plan_b.threads, self.plan_b.smem
             self.block, self.smem = self.plan_c.threads, self.plan_c.smem
         self.stream = torch.cuda.current_stream().cuda_stream
-        self.image = (fi._wg_image(self.blob, self.up, nb, t)
-                      if self.design() == "wgmma" else None)
+        self.image = (fi._wg_image(self.blob, self.up, nb, t,
+                                   self.plan_b.cn or None)
+                      if self.design() in ("wgmma", "chunked") else None)
 
     def design(self) -> str:
         return "row blob" if self.plan_b is None else self.plan_b.design
@@ -305,6 +315,12 @@ class Calls:
                 *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
                 self.image.data_ptr(), ranges, *o, 1, p.stages, p.ks,
                 p.threads, p.smem, self.stream)
+        elif self.design() == "chunked":
+            p = self.plan_b
+            err = self.lib.qv_encode_quad_wgc(
+                *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
+                self.image.data_ptr(), ranges, *o, 1, p.stages, p.ks, p.cn,
+                p.threads, p.smem, self.stream)
         else:
             err = getattr(self.lib, "qv_encode_quad_fused" + self.ctx["tag"])(
                 *self.enc_args(act), self.u, self.up, self.nb,
@@ -325,6 +341,12 @@ class Calls:
                 *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
                 self.image.data_ptr(), q, p.stages, p.ks, p.threads, p.smem,
                 self.stream)
+        elif self.design() == "chunked":
+            p = self.plan_c
+            err = self.lib.qv_encode_q1_wgc(
+                *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
+                self.image.data_ptr(), q, p.stages, p.ks, p.cn, p.threads,
+                p.smem, self.stream)
         else:
             err = getattr(self.lib, "qv_encode_q1" + self.ctx["tag"])(
                 *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
@@ -528,6 +550,8 @@ def entry(calls, key, ctx) -> str:
         stem += "stream" if key == "B" else "_stream"
     elif calls.design() == "wgmma":
         stem += "wg" if key == "B" else "_wg"
+    elif calls.design() == "chunked":
+        stem += "wgc" if key == "B" else "_wgc"
     elif key == "B":
         stem += "fused"
     return stem + ctx["tag"]
@@ -544,6 +568,9 @@ def bc_symbols(plan, trunk, up) -> tuple:
     if plan is not None and plan.design == "wgmma":
         return (("qv_encode_quad_wg_kernel", "qv_encode_q_wg_kernel"),
                 f"ILi{up}ELi{plan.ks}EE")
+    if plan is not None and plan.design == "chunked":
+        return (("qv_encode_quad_wgc_kernel", "qv_encode_q_wgc_kernel"),
+                f"ILi{up}ELi{plan.cn}ELi{plan.ks}EE")
     return ((f"qv_encode_quad{tag}_kernel", f"qv_encode_q{tag}_kernel"),
             "ILi64E")
 
@@ -627,6 +654,16 @@ def sweep_plans(calls, trunk, up, t) -> list:
                          for q in (True, False)]
                 out.append((f"ks {ks} ({ks * 64 * up} B slabs) stages "
                             f"{stages}", *plans))
+        return out
+    if calls.design() == "chunked":
+        cn, ks = fi._WGC_SLABS[up]
+        for stages in fi._WG_STAGES:
+            plans = [fi.LaunchPlan("chunked", fi._WG_THREADS,
+                                   fi._wg_smem(up, t, q, stages, ks, cn),
+                                   ks=ks, stages=stages, cn=cn)
+                     for q in (True, False)]
+            out.append((f"cn {cn} ks {ks} ({ks * 64 * cn} B slabs) stages "
+                        f"{stages}", *plans))
         return out
     ncw = fi._st_ncw(up)
     for mt in fi._ST_TILES[ncw]:
