@@ -13,6 +13,7 @@
 // encode_stream_wg.cu's wgmma kernels up to a padded width of 256 (65-128
 // units x 2 blocks, deep trunks such as 60 x 7, 129-256 units),
 // encode_stream_wgc.cu's chunked wgmma kernels at 320 and 384 (257-384
+// units), encode_stream_wgx.cu's split wgmma kernels at 448-832 (385-832
 // units) and this kernel past them; the bf16 trunk takes this kernel past
 // 128 units and at depths whose blob does not fit.
 //
@@ -67,9 +68,10 @@
 // * Products: mma.sync (m16n8k8 TF32 as 3xTF32, mma_math.cuh; m16n8k16
 //   bf16 with float32 sums). One skeleton serves both trunks. Where a
 //   layer is one wgmma width in float32 (up to 256) encode_stream_wg.cu
-//   redesigns it on wgmma with a producer's ring, and at 320 and 384
-//   encode_stream_wgc.cu in output chunks of one activation buffer
-//   (PERF.md); a bf16 version on wgmma is later work.
+//   redesigns it on wgmma with a producer's ring, at 320 and 384
+//   encode_stream_wgc.cu in output chunks of one activation buffer, and at
+//   448-832 encode_stream_wgx.cu with a layer's columns split between two
+//   warpgroups (PERF.md); a bf16 version on wgmma is later work.
 // MT and NCW are template constants (QV_ST_DISPATCH); depth, width and the
 // slab's k-steps are runtime values that the wrapper's plan gives
 // (launch_plan), with the shared-memory bytes; this file computes the

@@ -29,11 +29,14 @@ csrc/encode_stream_wg.cu, which feeds a wgmma image of the blob's weights
 (``_wg_image``) through a ring of slabs (``.wgmma_launches``); in float32
 at padded widths 320 and 384 (257-384 units), csrc/encode_stream_wgc.cu,
 the same design with each layer's products in output chunks of at most 256
-columns (``.chunked_launches``); and the streamed kernels of
-csrc/encode_stream.cuh everywhere else (float32 past 384 units, bf16 past
-128 units or where its blob does not fit), which stream the blob itself
-through shared memory a slab at a time (``.stream_launches`` and
-``.stream_bf16_launches``).
+columns (``.chunked_launches``); in float32 at padded widths 448-832
+(385-832 units), csrc/encode_stream_wgx.cu, the same block with each
+layer's columns split between its two consumer warpgroups on a shared
+pass of 64 voxels (``.split_launches``); and the streamed kernels of
+csrc/encode_stream.cuh everywhere else (float32 past 832 units or where
+the split block does not fit, bf16 past 128 units or where its blob does
+not fit), which stream the blob itself through shared memory a slab at a
+time (``.stream_launches`` and ``.stream_bf16_launches``).
 ``encode_q1_packed`` is the wrapper of kernel C, which shares B's encode
 routine and writes the raw head ``q (5, N)`` for the MC summaries
 (ops/summarize.py); its plain version is ``encode_q_plain``.
@@ -111,6 +114,15 @@ _WG_STAGES = (2, 3, 4)
 # (QV_WGC_DISPATCH); on the H100 384 ran 13-14% faster in chunks of 192
 # than of 128 (PERF.md)
 _WGC_SLABS = {320: (160, 1), 384: (192, 1)}
+# the split wgmma kernels (csrc/encode_stream_wgx.cu) past 384, where a
+# pass of 128 voxels does not fit: voxels a pass (QV_WGX_PASS, both
+# consumer warpgroups') and, for each padded width, the chunk width
+# compiled (QV_WGX_DISPATCH; it divides a warpgroup's Up / 2) and the ring's
+# slots: of the plans that fit, the one that ran fastest on the H100
+# (tools/bench_stream1.py --sweep; PERF.md)
+_WGX_PASS = 64
+_WGX_SLABS = {448: (224, 2), 512: (128, 3), 576: (144, 3), 640: (160, 2),
+              704: (88, 3), 768: (64, 2), 832: (16, 2)}
 
 
 def fused_infer_available(activation: str) -> bool:
@@ -238,12 +250,12 @@ def _wg_image(blob, up: int, nb: int, t: int, cn: int | None = None):
     """The wgmma image of a float32 blob's trunk, a permutation of its
     fragments: layer by layer (the first, then each block), its outputs in
     chunks of ``cn`` columns (``up`` by default: csrc/encode_stream_wg.cu;
-    fewer past 256, csrc/encode_stream_wgc.cu), each chunk's k-steps in
-    order as K-major core matrices with hi and lo apart, [chunk][k-step s]
-    [hi | lo][row group j of the chunk][k-half kh][row g][column c] = the
-    split of w[8j + g, 8s + 2c + kh] -- fragment (s, j, lane 4g + c) word 2
-    hi/lo + kh (``_fragments``). With one chunk the image is the layers'
-    k-steps in order."""
+    fewer past 256, csrc/encode_stream_wgc.cu and encode_stream_wgx.cu),
+    each chunk's k-steps in order as K-major core matrices with hi and lo
+    apart, [chunk][k-step s][hi | lo][row group j of the chunk][k-half kh]
+    [row g][column c] = the split of w[8j + g, 8s + 2c + kh] -- fragment
+    (s, j, lane 4g + c) word 2 hi/lo + kh (``_fragments``). With one chunk
+    the image is the layers' k-steps in order."""
     nt = up // 8
     cn = up if cn is None else cn
     ks0 = -(-t // 8)
@@ -404,7 +416,9 @@ class LaunchPlan:
     encode_quad_bf16.cu), "wgmma" (float32, csrc/encode_stream_wg.cu: a
     ring of ``stages`` slabs of ``ks`` k-steps), "chunked" (float32,
     csrc/encode_stream_wgc.cu: the same with each layer in output chunks
-    of ``cn`` columns) or "streamed"
+    of ``cn`` columns), "split" (float32, csrc/encode_stream_wgx.cu: the
+    same block, a warpgroup's half of each layer's columns in chunks of
+    ``cn``, slabs of one k-step) or "streamed"
     (csrc/encode_stream.cuh: ``mt`` m-tiles -- 16 mt voxels a pass -- and
     ``ncw`` n-tiles a warp, slabs of ``ks`` k-steps, double-buffered),
     with the block's ``threads`` and dynamic shared-memory bytes
@@ -475,6 +489,18 @@ def _wg_smem(up: int, t: int, quad: bool, stages: int, ks: int,
     return _WG_BAR_BYTES + stages * ks * 64 * (cn or up) + 4 * words
 
 
+def _wgx_smem(up: int, t: int, quad: bool, stages: int, cn: int) -> int:
+    """Shared-memory bytes of the split wgmma kernels, in the layout of
+    csrc/encode_stream_wgx.cu: the ring's mbarriers, ``stages`` slots of
+    two pieces of 64 ``cn`` bytes, the activation rows and the staged rows
+    of a pass of 64 voxels, the round's heads and, in B, the node table
+    (the quadrature's scratch in the activation rows)."""
+    words = _WGX_PASS * (up + 8 + _xs_stride(t)) + 5 * _ST_ROUND
+    if quad:
+        words += _NCONST
+    return _WG_BAR_BYTES + stages * 2 * 64 * cn + 4 * words
+
+
 def launch_plan(up: int, nb: int, t: int, t_in: int, trunk: str,
                 quad: bool, limit: int) -> LaunchPlan:
     """The launch of kernel B (``quad``) or C at padded width ``up``, ``nb``
@@ -484,7 +510,8 @@ def launch_plan(up: int, nb: int, t: int, t_in: int, trunk: str,
     rows of the most warps that fit); else, in float32 at ``up`` <= 256,
     the wgmma design's smallest ring if it fits; in float32 at ``up`` 320
     and 384 the chunked design in two slots if it fits (the staged rows
-    must fit in an activation row); else the streamed
+    must fit in an activation row); in float32 at ``up`` 448-832 the split
+    design in its ring (``_WGX_SLABS``) if it fits; else the streamed
     design with the largest pass of voxels, then the largest slab, that
     fits. Raises if none fits."""
     _check_trunk(trunk)
@@ -515,6 +542,12 @@ def launch_plan(up: int, nb: int, t: int, t_in: int, trunk: str,
         if smem <= limit:
             return LaunchPlan("chunked", _WG_THREADS, smem, ks=ks,
                               stages=_WG_STAGES[0], cn=cn)
+    if trunk == "float32" and up in _WGX_SLABS:
+        cn, stages = _WGX_SLABS[up]
+        smem = _wgx_smem(up, t, quad, stages, cn)
+        if smem <= limit:
+            return LaunchPlan("split", _WG_THREADS, smem, ks=1,
+                              stages=stages, cn=cn)
     for mt in _ST_TILES[_st_ncw(up)]:
         for ks in _st_slabs(up, trunk):
             smem = _st_smem(up, t, trunk, quad, mt, ks)
@@ -574,7 +607,7 @@ def _entry(name: str, trunk: str):
 
 
 _COUNTER_PREFIX = {"resident": "", "streamed": "stream_", "wgmma": "wgmma_",
-                   "chunked": "chunked_"}
+                   "chunked": "chunked_", "split": "split_"}
 
 
 def _count(wrapper, plan: LaunchPlan, trunk: str) -> None:
@@ -679,6 +712,12 @@ def encode_quad_fused_op(x: torch.Tensor, blob: torch.Tensor, units: int,
                 *args, padded_units, n_blocks, blob.data_ptr(),
                 image.data_ptr(), ranges, *ptrs, int(mvg), plan.stages,
                 plan.ks, plan.cn, plan.threads, plan.smem, stream)
+        elif plan.design == "split":
+            image = _wg_image_of(blob, padded_units, n_blocks, t, plan.cn)
+            err = _cuda.library().qv_encode_quad_wgx(
+                *args, padded_units, n_blocks, blob.data_ptr(),
+                image.data_ptr(), ranges, *ptrs, int(mvg), plan.stages,
+                plan.cn, plan.threads, plan.smem, stream)
         else:
             err = _entry("qv_encode_quad_stream", trunk)(
                 *args, padded_units, n_blocks, blob.data_ptr(), ranges,
@@ -709,8 +748,8 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
     layouts, the mask channel and the trunk. CUDA tensors launch kernel C
     by the design ``launch_plan`` picks (counted as kernel B's, in
     ``encode_q1_packed.launches``, ``.bf16_launches``,
-    ``.wgmma_launches``, ``.chunked_launches``, ``.stream_launches`` and
-    ``.stream_bf16_launches``) or raise; CPU
+    ``.wgmma_launches``, ``.chunked_launches``, ``.split_launches``,
+    ``.stream_launches`` and ``.stream_bf16_launches``) or raise; CPU
     tensors run ``encode_q_plain``. Unlike the TPU kernel, N is not
     padded."""
     kw = dict(se_idx=se_idx, multi_image=multi_image, activation=activation,
@@ -749,6 +788,12 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
                 *args, up, n_blocks, blob.data_ptr(), image.data_ptr(),
                 q.data_ptr(), plan.stages, plan.ks, plan.cn, plan.threads,
                 plan.smem, stream)
+        elif plan.design == "split":
+            image = _wg_image_of(blob, up, n_blocks, t, plan.cn)
+            err = _cuda.library().qv_encode_q1_wgx(
+                *args, up, n_blocks, blob.data_ptr(), image.data_ptr(),
+                q.data_ptr(), plan.stages, plan.cn, plan.threads, plan.smem,
+                stream)
         else:
             err = _entry("qv_encode_q1_stream", trunk)(
                 *args, up, n_blocks, blob.data_ptr(), q.data_ptr(), plan.mt,
@@ -760,5 +805,5 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
 
 for _w in (encode_quad_fused, encode_q1_packed):
     _w.launches = _w.bf16_launches = _w.wgmma_launches = 0
-    _w.chunked_launches = 0
+    _w.chunked_launches = _w.split_launches = 0
     _w.stream_launches = _w.stream_bf16_launches = 0

@@ -159,18 +159,21 @@ def _design_counter(units, nb, trunk, quad, t_in):
 
 
 # widths and depths past the resident blob: 100 and 128 units x 2 blocks in
-# float32 (the blob does not fit), 192, 256, 320 and 384 x 2 and 520 x 1
-# (past 128 units), 60 x 7 (depth); 128 x 2 and 60 x 7 at bf16 stay
-# resident. In float32 every padded width up to 256 takes the wgmma design
-# (csrc/encode_stream_wg.cu), 320 and 384 the chunked one
-# (csrc/encode_stream_wgc.cu), 520 the streamed one. N = 20,011 ends in a
-# ragged pass and round, and channel-major at N % 4 != 0.
+# float32 (the blob does not fit), 192, 256, 320 and 384 x 2, 448, 520,
+# 800 and 833 x 1 (past 128 units), 60 x 7 (depth); 128 x 2 and 60 x 7 at
+# bf16 stay resident. In float32 every padded width up to 256 takes the
+# wgmma design (csrc/encode_stream_wg.cu), 320 and 384 the chunked one
+# (csrc/encode_stream_wgc.cu), 448-832 the split one
+# (csrc/encode_stream_wgx.cu: 448, 520 and 800, its widest, 832 padded),
+# 833 (896 padded) the streamed one. N = 20,011 ends in a ragged pass and round, and
+# channel-major at N % 4 != 0.
 @pytest.mark.parametrize("trunk", ["float32", "bfloat16"])
 @pytest.mark.parametrize("layout", ["voxel", "channel"])
 @pytest.mark.parametrize("units,nb,act", [
     (100, 2, "relu"), (128, 2, "gelu"), (192, 2, "relu"), (256, 2, "relu"),
     (520, 1, "softplus"), (60, 7, "relu"), (320, 2, "gelu"),
-    (384, 2, "relu")])
+    (384, 2, "relu"), (448, 1, "gelu"), (800, 1, "softplus"),
+    (833, 1, "relu")])
 def test_wide_and_deep_kernels_match_plain(cuda_device, trunk, layout, units,
                                            nb, act):
     """Kernels B and C at every width and depth against their plain
@@ -179,7 +182,8 @@ def test_wide_and_deep_kernels_match_plain(cuda_device, trunk, layout, units,
     plain quadrature of C's q at the float32 tolerances and against its
     plain version at the JAX package's bf16 gate. One launch each, counted
     under the design launch_plan picks: wgmma in float32 up to 256 units
-    (padded), chunked wgmma at 320 and 384, streamed past them."""
+    (padded), chunked wgmma at 320 and 384, split wgmma at 448-832,
+    streamed past them."""
     _wide_and_deep_case(cuda_device, trunk, layout, units, nb, act)
 
 
@@ -215,6 +219,7 @@ def _wide_and_deep_case(cuda_device, trunk, layout, units, nb, act):
         up = tfi._padded_width(units)
         assert names == 2 * ["wgmma_launches" if up <= 256
                              else "chunked_launches" if up <= 384
+                             else "split_launches" if up <= 832
                              else "stream_launches"]
     before = (getattr(tfi.encode_quad_fused, names[0]),
               getattr(tfi.encode_q1_packed, names[1]))
@@ -244,15 +249,17 @@ def _wide_and_deep_case(cuda_device, trunk, layout, units, nb, act):
                                    rtol=0.05, atol=0.03, err_msg=name)
 
 
-@pytest.mark.parametrize("units,design", [(256, "wgmma"), (320, "chunked")],
-                         ids=["wgmma-256", "chunked-320"])
+@pytest.mark.parametrize("units,design", [(256, "wgmma"), (320, "chunked"),
+                                          (448, "split")],
+                         ids=["wgmma-256", "chunked-320", "split-448"])
 def test_wgmma_design_raises_rather_than_running_plain(cuda_device,
                                                       monkeypatch, units,
                                                       design):
-    """At 256 units x 2 blocks (the wgmma design) and 320 x 2 (the chunked
-    wgmma design) a launch the card refuses (a plan past its shared memory)
-    and a kernel library that does not build raise from kernels B and C;
-    neither runs a plain version or counts a launch."""
+    """At 256 units x 2 blocks (the wgmma design), 320 x 2 (the chunked
+    wgmma design) and 448 x 2 (the split wgmma design) a launch the card
+    refuses (a plan past its shared memory) and a kernel library that does
+    not build raise from kernels B and C; neither runs a plain version or
+    counts a launch."""
     from qbold_vi_tpu_torch.ops import _cuda
 
     cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=units)
@@ -1540,13 +1547,16 @@ def test_fused_artifact_reloads_in_a_fresh_process(cuda_device, tmp_path):
 
 @pytest.mark.parametrize("trunk,units", [("float32", 256),
                                          ("bfloat16", 256),
-                                         ("float32", 320)],
-                         ids=["float32", "bfloat16", "float32-320"])
+                                         ("float32", 320),
+                                         ("float32", 448)],
+                         ids=["float32", "bfloat16", "float32-320",
+                              "float32-448"])
 def test_fused_artifact_at_256_units(cuda_device, tmp_path, trunk, units):
     """The fused .pt2 at 256 units x 2 blocks (kernel B's wgmma design in
-    float32, the streamed one in bf16) and at 320 x 2 in float32 (the
-    chunked wgmma design) exports, saves, reloads and gives the in-process
-    kernel-B route's maps bit for bit, one launch of that design a call."""
+    float32, the streamed one in bf16), at 320 x 2 in float32 (the chunked
+    wgmma design) and at 448 x 2 (the split wgmma design) exports, saves,
+    reloads and gives the in-process kernel-B route's maps bit for bit, one
+    launch of that design a call."""
     from qbold_vi_tpu_torch.io import export_model as em
 
     cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=units,
@@ -1562,7 +1572,8 @@ def test_fused_artifact_at_256_units(cuda_device, tmp_path, trunk, units):
     x = torch.from_numpy(np.ascontiguousarray(
         volume(rng, shape, 12).reshape(-1, 12).T)).to(cuda_device)
     counter = ("stream_bf16_launches" if trunk == "bfloat16" else
-               "wgmma_launches" if units <= 256 else "chunked_launches")
+               "wgmma_launches" if units <= 256 else "chunked_launches"
+               if units <= 384 else "split_launches")
     before = getattr(tfi.encode_quad_fused, counter)
     out = art(x)
     torch.cuda.synchronize()

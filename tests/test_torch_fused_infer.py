@@ -180,14 +180,15 @@ def test_bf16_trunk_matches_jax_kernel(name, cfg, scan, layout, mask):
 
 
 # Widths and depths past the resident blob (65-128 units x 2 in float32)
-# and past 128 units, where the card runs the wgmma, chunked wgmma or
-# streamed kernels: the port's plain versions against the JAX kernel in
-# the interpreter, relu and a smooth activation, both layouts, with the
-# mask.
+# and past 128 units, where the card runs the wgmma, chunked wgmma, split
+# wgmma or streamed kernels: the port's plain versions against the JAX
+# kernel in the interpreter, relu and a smooth activation, both layouts,
+# with the mask.
 WIDE_CASES = [
     ("100x2-relu-channel", 100, 2, "relu", "float32", "channel"),
     ("256x2-gelu-voxel", 256, 2, "gelu", "float32", "voxel"),
     ("320x2-softplus-channel", 320, 2, "softplus", "float32", "channel"),
+    ("448x1-softplus-channel", 448, 1, "softplus", "float32", "channel"),
     ("520x1-relu-voxel", 520, 1, "relu", "float32", "voxel"),
     ("100x2-softplus-voxel-bf16", 100, 2, "softplus", "bfloat16", "voxel"),
     ("256x2-relu-channel-bf16", 256, 2, "relu", "bfloat16", "channel"),
@@ -777,10 +778,12 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
     (at 100 x 2 in float32 it is 72,280 floats; 60 x 7; past 128 units)
     the float32 trunk takes the wgmma design up to a padded width of 256,
     the chunked wgmma design at 320 and 384 (257-384 units, whose pass of
-    128 voxels fits) and the streamed one past it; the bf16 trunk (half
+    128 voxels fits), the split wgmma design at 448-832 (385-832 units,
+    where it does not) and the streamed one past it; the bf16 trunk (half
     the blob) streams past 128 units."""
     for units in (1, 13, 60, 64, 65, 100, 128, 129, 192, 200, 256, 257,
-                  300, 320, 321, 384, 385, 448, 520, 1024):
+                  300, 320, 321, 384, 385, 448, 449, 520, 640, 700, 768,
+                  769, 832, 833, 1024):
         up = tfi._padded_width(units)
         assert up >= units
         for nb in (1, 2, 3, 7, 12):
@@ -803,6 +806,16 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
                 assert plan.cn % 8 == 0 and plan.cn <= 256
                 assert plan.smem == tfi._wg_smem(up, 11, quad, plan.stages,
                                                  plan.ks, plan.cn)
+            elif trunk == "float32" and up <= 832:
+                assert plan.design == "split", (units, nb, plan)
+                assert plan.threads == tfi._WG_THREADS
+                assert (plan.cn, plan.stages) == tfi._WGX_SLABS[up]
+                assert plan.ks == 1 and plan.stages in tfi._WG_STAGES
+                assert (up // 2) % plan.cn == 0 and plan.cn % 8 == 0
+                assert plan.cn <= 256
+                assert plan.smem == tfi._wgx_smem(up, 11, quad, plan.stages,
+                                                  plan.cn)
+                assert tfi._ST_ROUND % tfi._WGX_PASS == 0
             else:
                 assert plan.design == "streamed", (units, nb, plan)
                 assert (plan.mt, plan.ncw) in {
@@ -818,16 +831,19 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
                for shape in ((100, 2), (128, 2), (60, 7), (192, 2),
                              (256, 2), (320, 2), (520, 1), (320, 1),
                              (320, 3), (384, 1), (384, 2), (384, 3),
-                             (448, 2))}
+                             (448, 1), (448, 2), (768, 1), (769, 1),
+                             (833, 1))}
     if trunk == "float32":
         assert tfi._blob_floats(128, 2, 11, trunk) == 72_280
         assert designs == {(100, 2): "wgmma", (128, 2): "wgmma",
                            (60, 7): "wgmma", (192, 2): "wgmma",
                            (256, 2): "wgmma", (320, 2): "chunked",
-                           (520, 1): "streamed", (320, 1): "chunked",
+                           (520, 1): "split", (320, 1): "chunked",
                            (320, 3): "chunked", (384, 1): "chunked",
                            (384, 2): "chunked", (384, 3): "chunked",
-                           (448, 2): "streamed"}
+                           (448, 1): "split", (448, 2): "split",
+                           (768, 1): "split", (769, 1): "split",
+                           (833, 1): "streamed"}
         # at 256 x 2: two warpgroups' activation rows (132 KB) beside a
         # ring of two 16 KB slabs
         plan = tfi.launch_plan(256, 2, 11, 12, trunk, quad, H100_SMEM)
@@ -843,6 +859,22 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
         # a staged row of more taus than an activation row holds streams
         assert tfi.launch_plan(320, 2, 330, 331, trunk, quad,
                                H100_SMEM).design == "streamed"
+        # at 448 a pass of 128 voxels does not fit (its activation rows
+        # alone take 233,472 B); the split design's 64 voxels a pass take
+        # 116,736 B of them beside two 28 KB slabs: below 196 KB
+        assert 128 * (448 + 8) * 4 == 233_472 > H100_SMEM
+        plan = tfi.launch_plan(448, 1, 11, 12, trunk, quad, H100_SMEM)
+        assert (plan.cn, plan.stages) == (224, 2)
+        assert tfi._WGX_PASS * (448 + 8) * 4 == 116_736
+        assert plan.smem == (186_304 if quad else 185_472) < 196 * 1024
+        # past the split block's reach (832: at 896 its activation rows
+        # alone take 231,424 B), or where its staged rows do not fit beside
+        # it, the streamed design serves
+        assert tfi._WGX_PASS * (896 + 8) * 4 == 231_424
+        assert tfi.launch_plan(896, 1, 11, 12, trunk, quad,
+                               H100_SMEM).design == "streamed"
+        assert tfi.launch_plan(448, 1, 330, 331, trunk, quad,
+                               H100_SMEM).design == "streamed"
     else:
         assert designs == {(100, 2): "resident", (128, 2): "resident",
                            (60, 7): "resident", (192, 2): "streamed",
@@ -850,7 +882,9 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
                            (520, 1): "streamed", (320, 1): "streamed",
                            (320, 3): "streamed", (384, 1): "streamed",
                            (384, 2): "streamed", (384, 3): "streamed",
-                           (448, 2): "streamed"}
+                           (448, 1): "streamed", (448, 2): "streamed",
+                           (768, 1): "streamed", (769, 1): "streamed",
+                           (833, 1): "streamed"}
     with pytest.raises(ValueError, match="no launch fits"):
         tfi.launch_plan(1024, 2, 11, 12, trunk, quad, 64 * 1024)
 
@@ -873,15 +907,15 @@ def _stream_walk(up, nb, t, trunk, plan):
 
 @pytest.mark.parametrize("trunk", ["float32", "bfloat16"])
 def test_streamed_slabs_unpack_to_the_encoder(trunk):
-    """At 256 units x 2 blocks in bf16 and 448 in float32 (the streamed
-    design's widths: float32 takes the wgmma designs up to 384),
+    """At 256 units x 2 blocks in bf16 and 896 in float32 (the streamed
+    design's widths: float32 takes the wgmma designs up to 832),
     the streamed kernels' slabs -- the blob's bytes copied as qv_st_body
     copies them into a slot, then read as each warp reads its B fragments
     (lane 4g + t) -- hold every layer's weight at (n, k) exactly once:
     float32's hi / lo TF32 splits, bf16's bf16 values, zeros past U and
     T. The head's fragments and the biases, read where qv_st_blob points,
     hold the head and the biases."""
-    up = 256 if trunk == "bfloat16" else 448
+    up = 256 if trunk == "bfloat16" else 896
     cfg, tuner = _width_tuner(up)
     nb = cfg.no_intermediate_layers
     blob, u, _, t = tfi._weight_blob(tuner.encoder, nb, torch.device("cpu"),
@@ -1041,16 +1075,18 @@ def _wg_thread_maps():
 
 
 @pytest.mark.parametrize("units,nb", [(100, 2), (256, 2), (60, 7), (13, 3),
-                                      (320, 2), (384, 1)])
+                                      (320, 2), (384, 1), (448, 1)])
 def test_wgmma_image_unpacks_to_the_encoder(units, nb):
     """The wgmma image, read by the kernel's descriptors k-step by k-step
     (the first layer's, then each block's) and, at 320 and 384, chunk by
     chunk in the chunk width the chunked kernels take there
-    (fused_infer._WGC_SLABS), holds every trunk weight w[n, 8s +
-    channel(slot)] exactly once: hi = tf32(w) in the hi half, lo = tf32(w -
-    hi) in the lo half (hi + lo within 2^-21 of w), zeros past U and T; it
-    is a permutation of the blob's trunk fragments, which stay as they
-    were; with one chunk (up <= 256) the image is the one chunk width's."""
+    (fused_infer._WGC_SLABS), at 448 in the split kernels'
+    (fused_infer._WGX_SLABS: each warpgroup's half one chunk), holds every
+    trunk weight w[n, 8s + channel(slot)] exactly once: hi = tf32(w) in
+    the hi half, lo = tf32(w - hi) in the lo half (hi + lo within 2^-21 of
+    w), zeros past U and T; it is a permutation of the blob's trunk
+    fragments, which stay as they were; with one chunk (up <= 256) the
+    image is the one chunk width's."""
     cfg = dataclasses.replace(OPT, no_units=units, no_intermediate_layers=nb)
     _, params = port_params(cfg, SCAN, units)
     tuner = port_tuner(cfg, SCAN, params)
@@ -1059,7 +1095,8 @@ def test_wgmma_image_unpacks_to_the_encoder(units, nb):
     trunk = (ks0 + nb * up // 8) * up * 16
     wfc, _, wbs, _, _, _ = tfi._stream1_weights(tuner.encoder, nb)
     chan = _wg_slot_channel(torch.arange(8))
-    cn = tfi._WGC_SLABS[up][0] if up in tfi._WGC_SLABS else None
+    cn = (tfi._WGC_SLABS[up][0] if up in tfi._WGC_SLABS
+          else tfi._WGX_SLABS.get(up, (None,))[0])
     if up <= 256:
         assert torch.equal(tfi._wg_image(blob, up, nb, t, up),
                            tfi._wg_image(blob, up, nb, t))
@@ -1086,7 +1123,7 @@ def test_wgmma_image_unpacks_to_the_encoder(units, nb):
 
 
 def _chain_in_wgmma(x, encoder, *, se_idx, multi_image, activation,
-                    n_blocks, cn=None):
+                    n_blocks, cn=None, split=False):
     """The raw head q (5, N) by the wgmma kernels' data flow: tiles of 64
     voxels a warpgroup; a layer's k-steps as three TF32 products into one
     sum per thread and output chunk of cn columns (up: one chunk; A
@@ -1096,7 +1133,9 @@ def _chain_in_wgmma(x, encoder, *, se_idx, multi_image, activation,
     on mma.sync from the blob's fragments, 16 rows a warp (as
     _chain_in_fragments). With chunks the rows are staged in the
     activation rows' first 8 ks0 columns, as csrc/encode_stream_wgc.cu
-    stages them."""
+    stages them. ``split``: csrc/encode_stream_wgx.cu's flow, both
+    warpgroups on the same 64 voxels, warpgroup wg writing the chunks of
+    the columns wg up / 2 .. (wg + 1) up / 2 - 1, the rows staged apart."""
     act = activation_fn(activation)
     blob, u, up, t = tfi._weight_blob(encoder, n_blocks, x.device)
     cn = up if cn is None else cn
@@ -1105,22 +1144,27 @@ def _chain_in_wgmma(x, encoder, *, se_idx, multi_image, activation,
     ks0 = -(-t // 8)
     h = normalise_data(x, se_idx, multi_image)          # (N, T)
     n = h.shape[0]
-    rows = torch.zeros(-(-n // 64) * 64, up + 8 if cn < up else 8 * ks0)
+    apart = cn == up or split               # the rows in their own buffer
+    rows = torch.zeros(-(-n // 64) * 64, 8 * ks0 if apart else up + 8)
     rows[:n, :t] = h
     tiles = rows.reshape(-1, 64, rows.shape[1])
     a_rows, a_slots, d_rows, d_cols = _wg_thread_maps()
     th = torch.arange(128)[:, None].expand(128, 4)
     # who writes each (row, column) of a layer's output -- chunk c's sum
-    # d[4 j + 2 hh + i] to column c cn + 8 j + 2 t + i -- and who reads it:
-    # each column once, read back by its writer alone
+    # d[4 j + 2 hh + i] to column c cn + 8 j + 2 t + i, by thread th of the
+    # chunk's warpgroup (split: wg c // (up / 2 cn), as 128 wg + th) -- and
+    # who reads it: each column once, read back by its writer alone; split,
+    # by thread th of both warpgroups, half of it written by the other
     writer = torch.full((64, up), -1)
     for c in range(up // cn):
+        owner = th + 128 * (c // (up // (2 * cn)) if split else 0)
         for j in range(cn // 8):
             assert (writer[d_rows, c * cn + 8 * j + d_cols] == -1).all()
-            writer[d_rows, c * cn + 8 * j + d_cols] = th
+            writer[d_rows, c * cn + 8 * j + d_cols] = owner
     for s in range(up // 8):
+        wg = 8 * s // (up // 2) if split else 0
         assert torch.equal(writer[a_rows, 8 * s + _wg_slot_channel(a_slots)],
-                           th)
+                           th + 128 * wg)
     # the staged rows: row 16 w + lane by lane < 16 of warp w, so every
     # thread's first-layer A registers come from its own warp
     assert torch.equal(a_rows // 16, th // 32)
@@ -1147,7 +1191,7 @@ def _chain_in_wgmma(x, encoder, *, se_idx, multi_image, activation,
         # no output is written before the last chunk's last k-step
         assert torch.equal(buf, before)
         out = act(d.float() + bias)
-        if cn == up:
+        if apart:
             return out
         buf = buf.clone()
         buf[..., :up] = out
@@ -1181,13 +1225,15 @@ def _chain_in_wgmma(x, encoder, *, se_idx, multi_image, activation,
 @pytest.mark.parametrize("units,nb,activation", [
     (100, 2, "relu"), (100, 2, "softplus"), (60, 7, "gelu"),
     (13, 3, "sigmoid"), (192, 1, "relu"), (320, 2, "relu"),
-    (384, 1, "gelu")])
+    (384, 1, "gelu"), (448, 2, "softplus")])
 def test_wgmma_chain_matches_plain(units, nb, activation):
     """The chain replayed in the wgmma kernels' data flow -- padded
     channels and all, each thread reading back only the activations it
     wrote (asserted), at 320 and 384 in the chunk width taken there
     (fused_infer._WGC_SLABS) with own-read across the chunks and the rows
-    staged in the activation rows -- equals encode_q_plain: rtol 1e-6, atol
+    staged in the activation rows, at 448 in the split kernels' flow (a
+    layer's columns halved between the warpgroups, each reading the
+    other's half) -- equals encode_q_plain: rtol 1e-6, atol
     2e-6 (the dropped lo * lo terms, ~2^-22 a product), as the fragment
     chain."""
     cfg = dataclasses.replace(OPT, no_units=units, no_intermediate_layers=nb,
@@ -1199,7 +1245,9 @@ def test_wgmma_chain_matches_plain(units, nb, activation):
     kw = dict(se_idx=SCAN.se_idx, multi_image=False, activation=activation,
               n_blocks=nb)
     ref = tfi.encode_q_plain(x, tuner.encoder, trunk="float32", **kw)
-    cn, _ = tfi._WGC_SLABS.get(tfi._padded_width(units), (None, 1))
-    got = _chain_in_wgmma(x, tuner.encoder, cn=cn, **kw)
+    up = tfi._padded_width(units)
+    cn = (tfi._WGC_SLABS.get(up) or tfi._WGX_SLABS.get(up) or (None,))[0]
+    got = _chain_in_wgmma(x, tuner.encoder, cn=cn,
+                          split=up in tfi._WGX_SLABS, **kw)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6,
                                atol=2e-6)

@@ -42,7 +42,11 @@ ones (``qv_encode_quad_wgc``, ``qv_encode_q1_wgc``, kernels
 ``qv_encode_quad_wgc_kernel`` and ``qv_encode_q_wgc_kernel``, fed the
 image in the plan's chunks, ``fused_infer._wg_image(..., cn)``; an edited
 copy of ``csrc/encode_stream_wgc.cu`` likewise, beside which an edited
-``encode_stream_wg.cuh`` replaces the package's) or the streamed ones
+``encode_stream_wg.cuh`` replaces the package's), at 448-832 the split
+wgmma ones (``qv_encode_quad_wgx``, ``qv_encode_q1_wgx``, kernels
+``qv_encode_quad_wgx_kernel`` and ``qv_encode_q_wgx_kernel``, fed the
+image in the plan's chunks; an edited copy of
+``csrc/encode_stream_wgx.cu`` likewise) or the streamed ones
 (``qv_encode_quad_stream``,
 ``qv_encode_q1_stream``, kernels ``qv_encode_quad_stream_kernel`` and
 ``qv_encode_q_stream_kernel``; an edited copy of ``csrc/encode_stream.cu``
@@ -91,21 +95,24 @@ A through that package's wrappers, with their errors, C's head against a
 float64 head on the plain version's features (``chip_smoke.head_f64_err``)
 and B beside C + A: the way to time two commits in one call, in turns
 (parent, change, change, parent; ``--dtype both`` runs both trunks in
-one process, and ``--shapes 60x2,256x2,...`` each width x depth given,
-in place of ``--units`` / ``--blocks``).
+one process). ``--shapes 60x2,256x2,...`` takes each width x depth given
+in place of ``--units`` / ``--blocks``, with or without ``--package``.
 
 ``--sweep`` times B and C (errors against the plain versions, device ms)
-under every plan of the design ``launch_plan`` picks that fits the card's
-shared memory at the request's width and depth -- the measurement behind
+by each build (the package's and each copy) under every plan of the
+design ``launch_plan`` picks that fits the card's shared memory at the
+request's width and depth -- the measurement behind
 ``launch_plan``'s order: streamed, each tile (m-tiles a pass) of
 ``fused_infer._ST_TILES`` and each slab of ``fused_infer._st_slabs``;
 wgmma, each slab compiled for the width (``fused_infer._WG_SLABS``: its
 k-steps and bytes) and each ring of ``fused_infer._WG_STAGES`` slots;
 chunked, each ring of the width's chunks and slab
-(``fused_infer._WGC_SLABS``). The wgmma designs' other knobs
-are compiled in (two consumer warpgroups of 64 voxels, no cluster): time
-another as an edited copy of ``csrc/encode_stream_wg.cu`` or
-``encode_stream_wgc.cu``.
+(``fused_infer._WGC_SLABS``); split, every chunk width that divides a
+warpgroup's columns and each ring (``fused_infer._WGX_SLABS`` holds the
+plan's). The wgmma designs' other knobs are compiled in (two consumer
+warpgroups of 64 voxels, no cluster): time another as an edited copy of
+``csrc/encode_stream_wg.cu``, ``encode_stream_wgc.cu`` or
+``encode_stream_wgx.cu`` (each build is swept).
 
 ``--dtype bfloat16`` runs B and C at trunk="bfloat16" (the entries
 ``qv_encode_quad_fused_bf16`` and ``qv_encode_q1_bf16``, kernels
@@ -164,6 +171,7 @@ ENTRIES = ("qv_quad_posterior_summaries", "qv_encode_quad_fused",
            "qv_encode_quad_stream", "qv_encode_q1_stream",
            "qv_encode_quad_wg", "qv_encode_q1_wg",
            "qv_encode_quad_wgc", "qv_encode_q1_wgc",
+           "qv_encode_quad_wgx", "qv_encode_q1_wgx",
            "qv_encode_quad_stream_bf16", "qv_encode_q1_stream_bf16",
            "qv_mc_summaries", "qv_mc_kl_map", "qv_mc_kl")
 # C entries of earlier builds that the package no longer has: the earlier
@@ -220,8 +228,9 @@ def resources(log: str, kernels: dict, inst: str) -> dict:
     lines = log.splitlines()
     for i, line in enumerate(lines):
         m = re.search(r"Function properties for \S*?(qv_\w+_kernel)", line)
-        templated = any(k in m.group(1) for k in ("bf16", "stream", "_wg_")) \
-            if m else False
+        templated = m is not None and any(
+            k in m.group(1)
+            for k in ("bf16", "stream", "_wg_", "_wgc_", "_wgx_"))
         if (m and m.group(1) in kernels.values() and i + 2 < len(lines)
                 and (not templated or inst in line)):
             regs = re.search(r"Used (\d+) registers", lines[i + 2])
@@ -286,7 +295,8 @@ class Calls:
         self.stream = torch.cuda.current_stream().cuda_stream
         self.image = (fi._wg_image(self.blob, self.up, nb, t,
                                    self.plan_b.cn or None)
-                      if self.design() in ("wgmma", "chunked") else None)
+                      if self.design() in ("wgmma", "chunked", "split")
+                      else None)
 
     def design(self) -> str:
         return "row blob" if self.plan_b is None else self.plan_b.design
@@ -321,6 +331,12 @@ class Calls:
                 *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
                 self.image.data_ptr(), ranges, *o, 1, p.stages, p.ks, p.cn,
                 p.threads, p.smem, self.stream)
+        elif self.design() == "split":
+            p = self.plan_b
+            err = self.lib.qv_encode_quad_wgx(
+                *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
+                self.image.data_ptr(), ranges, *o, 1, p.stages, p.cn,
+                p.threads, p.smem, self.stream)
         else:
             err = getattr(self.lib, "qv_encode_quad_fused" + self.ctx["tag"])(
                 *self.enc_args(act), self.u, self.up, self.nb,
@@ -347,6 +363,12 @@ class Calls:
                 *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
                 self.image.data_ptr(), q, p.stages, p.ks, p.cn, p.threads,
                 p.smem, self.stream)
+        elif self.design() == "split":
+            p = self.plan_c
+            err = self.lib.qv_encode_q1_wgx(
+                *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
+                self.image.data_ptr(), q, p.stages, p.cn, p.threads, p.smem,
+                self.stream)
         else:
             err = getattr(self.lib, "qv_encode_q1" + self.ctx["tag"])(
                 *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
@@ -552,6 +574,8 @@ def entry(calls, key, ctx) -> str:
         stem += "wg" if key == "B" else "_wg"
     elif calls.design() == "chunked":
         stem += "wgc" if key == "B" else "_wgc"
+    elif calls.design() == "split":
+        stem += "wgx" if key == "B" else "_wgx"
     elif key == "B":
         stem += "fused"
     return stem + ctx["tag"]
@@ -571,6 +595,9 @@ def bc_symbols(plan, trunk, up) -> tuple:
     if plan is not None and plan.design == "chunked":
         return (("qv_encode_quad_wgc_kernel", "qv_encode_q_wgc_kernel"),
                 f"ILi{up}ELi{plan.cn}ELi{plan.ks}EE")
+    if plan is not None and plan.design == "split":
+        return (("qv_encode_quad_wgx_kernel", "qv_encode_q_wgx_kernel"),
+                f"ILi{up}ELi{plan.cn}EE")
     return ((f"qv_encode_quad{tag}_kernel", f"qv_encode_q{tag}_kernel"),
             "ILi64E")
 
@@ -665,6 +692,18 @@ def sweep_plans(calls, trunk, up, t) -> list:
             out.append((f"cn {cn} ks {ks} ({ks * 64 * cn} B slabs) stages "
                         f"{stages}", *plans))
         return out
+    if calls.design() == "split":
+        for cn in range(256, 7, -8):
+            if (up // 2) % cn:
+                continue
+            for stages in fi._WG_STAGES:
+                plans = [fi.LaunchPlan("split", fi._WG_THREADS,
+                                       fi._wgx_smem(up, t, q, stages, cn),
+                                       ks=1, stages=stages, cn=cn)
+                         for q in (True, False)]
+                out.append((f"cn {cn} ({2 * 64 * cn} B slabs) stages "
+                            f"{stages}", *plans))
+        return out
     ncw = fi._st_ncw(up)
     for mt in fi._ST_TILES[ncw]:
         for ks in fi._st_slabs(up, trunk):
@@ -675,9 +714,11 @@ def sweep_plans(calls, trunk, up, t) -> list:
     return out
 
 
-def sweep(lib, ctx) -> None:
-    """--sweep: B and C under every plan of launch_plan's design that
-    fits."""
+def sweep(name, lib, ctx) -> None:
+    """--sweep: B and C by the build ``name`` under every plan of
+    launch_plan's design that fits (the split design: every chunk width
+    that divides a warpgroup's columns; a plan the build does not compile
+    is skipped)."""
     calls = Calls(lib, False, ctx)
     if calls.design() == "resident":
         print("sweep: launch_plan keeps the resident design here", flush=True)
@@ -692,8 +733,16 @@ def sweep(lib, ctx) -> None:
         if plans[0].smem > limit:
             continue
         calls.plan_b, calls.plan_c = plans
-        calls.b()
-        calls.c()
+        if calls.image is not None:
+            calls.image = fi._wg_image(calls.blob, up, nb, t,
+                                       plans[0].cn or None)
+        try:
+            calls.b()
+            calls.c()
+        except RuntimeError as e:
+            if "invalid argument" not in str(e):
+                raise
+            continue                  # a chunk width this build lacks
         torch.cuda.synchronize()
         err_b = max(float((g - r).abs().max()) for g, r in
                     zip(ctx["b_out"][:1] + ctx["b_out"][2:],
@@ -705,8 +754,8 @@ def sweep(lib, ctx) -> None:
                     f"{err_b:.1e}), C {kernel_ms(calls.c, sym_c):.4f}"
                     f" (err {err_c:.1e}), smem B {plans[0].smem}")
     calls.plan_b, calls.plan_c = chosen
-    print(f"sweep at {trunk}, {up} units (padded) x {nb} blocks, device ms at "
-          f"N={N}: " + "; ".join(rows), flush=True)
+    print(f"sweep of {name} at {trunk}, {up} units (padded) x {nb} blocks, "
+          f"device ms at N={N}: " + "; ".join(rows), flush=True)
 
 
 def wrappers(dev, dtype, units=60, blocks=2) -> None:
@@ -775,8 +824,8 @@ def main() -> int:
                     default=OPTIMAL.model.no_intermediate_layers,
                     help="the trunk's depth (OPTIMAL's 2)")
     ap.add_argument("--shapes", default=None,
-                    help="with --package: the trunks to time, as "
-                    "UNITSxBLOCKS separated by commas")
+                    help="the trunks to time (in place of --units and "
+                    "--blocks), as UNITSxBLOCKS separated by commas")
     ap.add_argument("--package", default=None,
                     help="import qbold_vi_tpu_torch from this directory and "
                     "time B, C and A through its wrappers alone")
@@ -789,10 +838,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     dtypes = (("float32", "bfloat16") if args.dtype == "both"
               else (args.dtype,))
+    shapes = ([tuple(map(int, s.split("x")))
+               for s in args.shapes.split(",")] if args.shapes
+              else [(args.units, args.blocks)])
     if args.package:
-        shapes = ([tuple(map(int, s.split("x")))
-                   for s in args.shapes.split(",")] if args.shapes
-                  else [(args.units, args.blocks)])
         with torch.no_grad():
             for units, blocks in shapes:
                 for dtype in dtypes:
@@ -807,12 +856,14 @@ def main() -> int:
     for i, (name, (lib, log, so)) in enumerate(built.items()):
         libs[name] = (lib, log, so, i < len(args.row_blob))
     with torch.no_grad():
-        for dtype in dtypes:
-            ctx = context(dev, dtype, args.units, args.blocks)
-            print(f"{dtype}, {args.units} units x {args.blocks} blocks; head "
+        for (units, blocks), dtype in ((s, d) for s in shapes for d in dtypes):
+            ctx = context(dev, dtype, units, blocks)
+            print(f"{dtype}, {units} units x {blocks} blocks; head "
                   "mixes: " + mix_shares(ctx), flush=True)
             if args.sweep:
-                sweep(bind(_cuda.library()), ctx)
+                for name, (lib, log, so, row_blob) in libs.items():
+                    if not row_blob:
+                        sweep(name, lib, ctx)
                 continue
             for name, (lib, log, so, row_blob) in libs.items():
                 bench(name, lib, log, so, row_blob, ctx)
