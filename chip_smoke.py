@@ -318,27 +318,30 @@ The sweep (qbold_vi_tpu_torch/sweep.py), after phase 42:
    ``dryrun --devices 2`` with its population stage.
 Kernels B and C past the resident blob (csrc/encode_stream_wg.cu in
 float32 up to 256 units, encode_stream_wgc.cu at 320 and 384,
-encode_stream_wgx.cu at 448-832, csrc/encode_stream.cuh past it and in
-bf16), run after phase 24:
+encode_stream_wgx.cu at 448-768, encode_stream_wgk.cu at 832-1280,
+csrc/encode_stream.cuh past it and in bf16), run after phase 24:
 47. OPTIMAL's 1,032,192-voxel request at 256 units x 2 blocks in float32
    (the wgmma kernels) and bf16, at 320 x 2 and 384 x 2 in float32 (the
-   chunked kernels), at 448 x 1 (the split kernels) and at 833 x 1 (the
-   streamed float32 kernels, 896 padded), through posterior_maps under
-   "auto" by quadrature (B) and by method="mc" (C, then D), the counts
-   set to 0 before and read after each, maps finite; B and C against
-   their plain versions at 50,003 voxels (float32 at CHECKS; bf16 C
-   within Q16_ULPS ulps, B against the plain quadrature of C's q at
-   CHECKS); their device ms at full width beside their bounds, their
-   plain versions' ms, and (at 256 x 2, 320 x 2 and 448 x 1) the fused
-   route's ms a call beside the "off" route's (the encoder, then A or D)
-   on the same device request; the same request in float32 at 100 x 2 (B and C)
-   and 60 x 7 (B), whose resident blobs do not fit (the wgmma kernels),
-   each kernel held against its plain version on the whole request, its
-   ms beside its bound; the wgmma, chunked and split B and C hold HGMMA
-   in the SASS. The kernels line gives each design's B and C (B-wgmma,
-   C-wgmma, B-chunked, C-chunked and at 384 x 2, B-split, C-split,
-   B-stream, C-stream, B-bf16-stream, C-bf16-stream) their launches on
-   this path.
+   chunked kernels), at 448 x 1 (the split kernels), at 833 x 1 (the
+   cluster kernels, 896 padded) and at 1281 x 1 (the streamed float32
+   kernels, 1344 padded), through posterior_maps under "auto" by
+   quadrature (B) and by method="mc" (C, then D), the counts set to 0
+   before and read after each, maps finite; B and C against their plain
+   versions at 50,003 voxels (float32 at CHECKS; bf16 C within Q16_ULPS
+   ulps, B against the plain quadrature of C's q at CHECKS), and so at
+   832 x 1 (init_params seed 832: the 3xTF32 drift that the cluster
+   kernels' promoted sums repair) and 1280 x 1 (the cluster kernels'
+   widest); their device ms at full width beside their bounds, their
+   plain versions' ms, and (at 256 x 2, 320 x 2, 448 x 1 and 833 x 1) the
+   fused route's ms a call beside the "off" route's (the encoder, then A
+   or D) on the same device request; the same request in float32 at 100 x
+   2 (B and C) and 60 x 7 (B), whose resident blobs do not fit (the wgmma
+   kernels), each kernel held against its plain version on the whole
+   request, its ms beside its bound; the wgmma, chunked, split and
+   cluster B and C hold HGMMA in the SASS. The kernels line gives each
+   design's B and C (B-wgmma, C-wgmma, B-chunked, C-chunked and at 384 x
+   2, B-split, C-split, B-cluster, C-cluster, B-stream, C-stream,
+   B-bf16-stream, C-bf16-stream) their launches on this path.
 No phase 43-46 accepts a trial whose status is "failed". The kernels line
 gives S and F their launches on the population path under
 "launches_sweep", and S its P = 4 time and bound.
@@ -2072,8 +2075,8 @@ def stream1_phases(dev, card, cfg, tuner, ranges, enc_kw) -> tuple:
 
 
 STREAM_COUNTERS = ("launches", "bf16_launches", "wgmma_launches",
-                   "chunked_launches", "split_launches", "stream_launches",
-                   "stream_bf16_launches")
+                   "chunked_launches", "split_launches", "cluster_launches",
+                   "stream_launches", "stream_bf16_launches")
 
 
 def bc_counts() -> dict:
@@ -2153,13 +2156,17 @@ WIDE_TRUNK = (256, 2)                # phase 47's full-width path
 PAST_TRUNK = (320, 2)                # float32 past 256: the chunked design
 PAST_WIDE_TRUNK = (384, 2)           # float32: the chunked design's widest
 SPLIT_TRUNK = (448, 1)               # float32 past 384: the split design
-STREAM_TRUNK = (833, 1)              # float32: the narrowest streamed width
+CLUSTER_TRUNK = (833, 1)             # float32 past 768 units: the cluster
+DRIFT_TRUNK = (832, 1)               # the 3xTF32 drift of 832 full units
+CLUSTER_WIDE_TRUNK = (1280, 1)       # the cluster design's widest
+STREAM_TRUNK = (1281, 1)             # float32: the narrowest streamed width
 FAULT_TRUNK = (100, 2)               # float32: the blob does not fit
 DEEP_TRUNK = (60, 7)                 # float32: OPTIMAL's width, 7 blocks
 N_WIDE_CMP = 50_003                  # kernels vs plain at wide widths
 # phase 47's kernels by design: the float32 wgmma kernels up to 256 units
 # (padded), the chunked wgmma ones at 320 and 384, the split wgmma ones at
-# 448-832, the streamed ones past them in float32 and past 128 in bf16
+# 448-768, the cluster wgmma ones at 832-1280, the streamed ones past them
+# in float32 and past 128 in bf16
 WIDE_SYMBOLS = {
     ("B", "wgmma"): "qv_encode_quad_wg_kernel",
     ("C", "wgmma"): "qv_encode_q_wg_kernel",
@@ -2167,6 +2174,8 @@ WIDE_SYMBOLS = {
     ("C", "chunked"): "qv_encode_q_wgc_kernel",
     ("B", "split"): "qv_encode_quad_wgx_kernel",
     ("C", "split"): "qv_encode_q_wgx_kernel",
+    ("B", "cluster"): "qv_encode_quad_wgk_kernel",
+    ("C", "cluster"): "qv_encode_q_wgk_kernel",
     ("B", "stream"): "qv_encode_quad_stream_kernel",
     ("C", "stream"): "qv_encode_q_stream_kernel",
     ("B", "stream-bf16"): "qv_encode_quad_stream_bf16_kernel",
@@ -2175,6 +2184,8 @@ WIDE_KINDS = {"wgmma": ("encode_stream_wg.cu", "wgmma_launches", "-wgmma"),
               "chunked": ("encode_stream_wgc.cu", "chunked_launches",
                           "-chunked"),
               "split": ("encode_stream_wgx.cu", "split_launches", "-split"),
+              "cluster": ("encode_stream_wgk.cu", "cluster_launches",
+                          "-cluster"),
               "stream": ("encode_stream.cu", "stream_launches", "-stream"),
               "stream-bf16": ("encode_stream_bf16.cu", "stream_bf16_launches",
                               "-bf16-stream")}
@@ -2183,14 +2194,16 @@ WIDE_KINDS = {"wgmma": ("encode_stream_wg.cu", "wgmma_launches", "-wgmma"),
 def wide_kind_expected(units, trunk) -> str:
     """The design phase 47 expects at this width: bf16 streams past 128
     units; float32 takes wgmma up to 256 (padded), the chunked wgmma at 320
-    and 384, the split wgmma at 448-832, the streamed design past them."""
+    and 384, the split wgmma at 448-768, the cluster wgmma at 832-1280, the
+    streamed design past them."""
     from qbold_vi_tpu_torch.ops import fused_infer as fi
 
     if trunk == "bfloat16":
         return "stream-bf16"
     up = fi._padded_width(units)
     return ("wgmma" if up <= 256 else "chunked" if up <= 384
-            else "split" if up <= 832 else "stream")
+            else "split" if up <= 768 else "cluster" if up <= 1280
+            else "stream")
 
 
 def wide_kind(dev, units, nb, trunk, n_taus) -> str:
@@ -2201,7 +2214,7 @@ def wide_kind(dev, units, nb, trunk, n_taus) -> str:
     design = fi._plan(fi._padded_width(units), nb, n_taus, n_taus + 1, trunk,
                       True, dev).design
     kind = {"wgmma": "wgmma", "chunked": "chunked", "split": "split",
-            "streamed": "stream"}[design]
+            "cluster": "cluster", "streamed": "stream"}[design]
     return kind + ("-bf16" if trunk == "bfloat16" else "")
 
 
@@ -2237,19 +2250,23 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
     read after, and held against its plain version. At 256 units x 2
     blocks in float32 (the wgmma kernels), in bf16 (the streamed bf16
     kernels), at 320 x 2 and 384 x 2 in float32 (the chunked wgmma
-    kernels), at 448 x 1 (the split wgmma kernels) and at 833 x 1 in
-    float32 (the streamed kernels, at the narrowest width they serve, 896
-    padded): posterior_maps by quadrature (kernel B) and by method="mc"
-    (C, then D), the maps finite and of the request's shape; B and C against their plain versions at N_WIDE_CMP voxels
-    (float32 at CHECKS; bf16 C within Q16_ULPS ulps, B against the plain
-    quadrature of C's q at CHECKS); device ms of B and C beside their
-    bounds and, at 256 x 2, 320 x 2 and 448 x 1, the "off" route's (the
-    encoder, then kernel A or D) and the fused route's ms a call by CUDA
-    events on the same device request. At 100 x 2 (B and C) and 60 x 7 (B)
+    kernels), at 448 x 1 (the split wgmma kernels), at 833 x 1 (the
+    cluster wgmma kernels, 896 padded) and at 1281 x 1 in float32 (the
+    streamed kernels, at the narrowest width they serve, 1344 padded):
+    posterior_maps by quadrature (kernel B) and by method="mc" (C, then
+    D), the maps finite and of the request's shape; B and C against their
+    plain versions at N_WIDE_CMP voxels (float32 at CHECKS; bf16 C within
+    Q16_ULPS ulps, B against the plain quadrature of C's q at CHECKS);
+    device ms of B and C beside their bounds and, at 256 x 2, 320 x 2,
+    448 x 1 and 833 x 1, the "off" route's (the encoder, then kernel A or
+    D) and the fused route's ms a call by CUDA events on the same device
+    request. At 832 x 1 (init_params seed 832, the 3xTF32 drift fault) and
+    1280 x 1: B and C on the cluster kernels against their plain versions
+    at N_WIDE_CMP voxels at CHECKS. At 100 x 2 (B and C) and 60 x 7 (B)
     in float32, where the resident blob does not fit (the wgmma kernels):
     the request through posterior_maps, the kernel against its plain
     version on the whole request, its device ms beside its bound. First,
-    the wgmma, chunked and split wgmma kernels must hold HGMMA
+    the wgmma, chunked, split and cluster wgmma kernels must hold HGMMA
     instructions in the built library's SASS."""
     from qbold_vi_tpu_torch import infer
     from qbold_vi_tpu_torch.ops import _cuda
@@ -2259,13 +2276,15 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
     code = sass(_cuda.library()._name)
     hgmma = {WIDE_SYMBOLS[(k, kind)]: code.get(
         WIDE_SYMBOLS[(k, kind)], (0, {}))[1].get("HGMMA", 0)
-        for k in "BC" for kind in ("wgmma", "chunked", "split")}
+        for k in "BC" for kind in ("wgmma", "chunked", "split", "cluster")}
     if not all(hgmma.values()):
         raise AssertionError(f"HGMMA instructions of the float32 wgmma, "
-                             f"chunked and split B and C: {hgmma} (each "
-                             "must hold some; or cuobjdump is missing)")
-    log(f"kernels B and C's float32 wgmma, chunked and split designs take "
-        f"their products on wgmma: static HGMMA instructions {hgmma}")
+                             f"chunked, split and cluster B and C: {hgmma} "
+                             "(each must hold some; or cuobjdump is "
+                             "missing)")
+    log(f"kernels B and C's float32 wgmma, chunked, split and cluster "
+        f"designs take their products on wgmma: static HGMMA instructions "
+        f"{hgmma}")
     scan = cfg.scan
     ranges = dict(oef_range=cfg.model.oef_range, min_oef=cfg.model.min_oef,
                   dbv_range=cfg.model.dbv_range, min_dbv=cfg.model.min_dbv,
@@ -2312,6 +2331,7 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
                                        (PAST_TRUNK, "float32", True),
                                        (PAST_WIDE_TRUNK, "float32", False),
                                        (SPLIT_TRUNK, "float32", True),
+                                       (CLUSTER_TRUNK, "float32", True),
                                        (STREAM_TRUNK, "float32", False)):
         t = wide_tuner(dev, cfg, units, nb, trunk)
         kind = wide_kind(dev, units, nb, trunk, scan.n_taus)
@@ -2406,6 +2426,32 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
                          f"{'A' if key == 'B' else 'D'}) {o_ms:.4f} ms "
                          f"({'faster' if r_ms < o_ms else 'NOT faster'})")
             log(f"{line} on {REQUESTS[0]} [{card}]")
+    # ---- 832 x 1 and 1280 x 1: the cluster kernels against plain -------------
+    for units, nb in (DRIFT_TRUNK, CLUSTER_WIDE_TRUNK):
+        t = wide_tuner(dev, cfg, units, nb, "float32")
+        kind = wide_kind(dev, units, nb, "float32", scan.n_taus)
+        if kind != "cluster":
+            raise AssertionError(f"{units} x {nb} float32: plan {kind}")
+        enc = dict(se_idx=scan.se_idx,
+                   multi_image=t.cfg.multi_image_normalisation,
+                   activation=t.cfg.activation, n_blocks=nb,
+                   trunk="float32", mask_channel=True, input_layout="voxel")
+        kw = dict(enc, mvg=t.cfg.use_mvg, **ranges)
+        tag = f"{units}x{nb} {kind}"
+        q = fi.encode_q1_packed(x_cmp, t.encoder, **enc)
+        got = fi.encode_quad_fused(x_cmp, t.encoder, **kw)
+        ref = fi.encode_quad_fused_plain(x_cmp, t.encoder, **kw)
+        e_c = check_close(f"C {tag}", q.T, fi.encode_q_plain(
+            x_cmp, t.encoder, **enc).T, "raw")
+        e_b = [check_close(f"B {tag}", got[0].T, ref[0].T, "mean"),
+               check_close(f"B {tag}", got[1].T, ref[1].T, "var", ref[0].T),
+               check_close(f"B {tag}", got[2].T, ref[2].T, "raw")]
+        out["err"][("C", kind, f"{units}x{nb}")] = e_c
+        out["err"][("B", kind, f"{units}x{nb}")] = max(e_b)
+        log(f"B and C at {units} x {nb} float32 ({kind}, init_params seed "
+            f"{units}) vs plain at N={N_WIDE_CMP} within CHECKS: largest "
+            f"|C - plain| {e_c:.3e}, B's means / vars / raw "
+            + " / ".join(f"{e:.3e}" for e in e_b))
     # ---- 100 x 2 and 60 x 7 in float32: the resident blob does not fit ------
     for (units, nb), keys in ((FAULT_TRUNK, "BC"), (DEEP_TRUNK, "B")):
         t = wide_tuner(dev, cfg, units, nb, "float32")
@@ -5692,6 +5738,7 @@ def main() -> int:
                           "trunk": WIDE_TRUNK, "past": PAST_TRUNK,
                           "past_wide": PAST_WIDE_TRUNK,
                           "split": SPLIT_TRUNK,
+                          "cluster": CLUSTER_TRUNK,
                           "streamed": STREAM_TRUNK,
                           "ms": {"-".join(k): v
                                  for k, v in wide["ms"].items()},

@@ -13,9 +13,11 @@
 // encode_stream_wg.cu's wgmma kernels up to a padded width of 256 (65-128
 // units x 2 blocks, deep trunks such as 60 x 7, 129-256 units),
 // encode_stream_wgc.cu's chunked wgmma kernels at 320 and 384 (257-384
-// units), encode_stream_wgx.cu's split wgmma kernels at 448-832 (385-832
-// units) and this kernel past them; the bf16 trunk takes this kernel past
-// 128 units and at depths whose blob does not fit.
+// units), encode_stream_wgx.cu's split wgmma kernels at 448-768 (385-768
+// units), encode_stream_wgk.cu's cluster wgmma kernels at 832-1280
+// (769-1280 units) and this kernel past them and where their blocks do
+// not fit; the bf16 trunk takes this kernel past 128 units and at depths
+// whose blob does not fit.
 //
 // Bound: at 256 units x 2 blocks the products (U T + nb U^2 + 5 U FMAs a
 // voxel, 3xTF32 in float32) take 1.69 ms of a 1.03 M-voxel request at the
@@ -69,9 +71,10 @@
 //   bf16 with float32 sums). One skeleton serves both trunks. Where a
 //   layer is one wgmma width in float32 (up to 256) encode_stream_wg.cu
 //   redesigns it on wgmma with a producer's ring, at 320 and 384
-//   encode_stream_wgc.cu in output chunks of one activation buffer, and at
-//   448-832 encode_stream_wgx.cu with a layer's columns split between two
-//   warpgroups (PERF.md); a bf16 version on wgmma is later work.
+//   encode_stream_wgc.cu in output chunks of one activation buffer, at
+//   448-768 encode_stream_wgx.cu with a layer's columns split between two
+//   warpgroups, and at 832-1280 encode_stream_wgk.cu across a cluster of
+//   blocks (PERF.md); a bf16 version on wgmma is later work.
 // MT and NCW are template constants (QV_ST_DISPATCH); depth, width and the
 // slab's k-steps are runtime values that the wrapper's plan gives
 // (launch_plan), with the shared-memory bytes; this file computes the
@@ -121,6 +124,7 @@ static __device__ __forceinline__ void qv_st_wait() {
 // act_stride / x_stride: row strides of the activation buffers and of the
 // staged rows, in 32-bit words; load_a: the A fragment of m-tile rows
 // row0 .. row0 + 15, k-step ks; load_b: the B fragment of slab group grp;
+// mma: a product onto the sums (the head's); mma_trunk: a trunk layer's;
 // store: bias + activation of a lane's four sums, rows row and row + 8,
 // channels col and col + 1; put_x: channel c of staged row r.
 
@@ -161,6 +165,18 @@ struct QvStF32 {
     const uint32_t bhi[2] = {__float_as_uint(b.x), __float_as_uint(b.y)};
     const uint32_t blo[2] = {__float_as_uint(b.z), __float_as_uint(b.w)};
     qv_mma3(d, a.hi, a.lo, bhi, blo, false);
+  }
+  // A trunk layer's k-step: its three products into a fresh fragment,
+  // added to the sums in float32 (the tensor cores' sums truncate, and a
+  // running sum over the 1,344+ channels of the widest layers drifted past
+  // the kernels' gate, PERF.md)
+  static __device__ __forceinline__ void mma_trunk(float* d, const A& a,
+                                                   B b) {
+    const uint32_t bhi[2] = {__float_as_uint(b.x), __float_as_uint(b.y)};
+    const uint32_t blo[2] = {__float_as_uint(b.z), __float_as_uint(b.w)};
+    float f[4];
+    qv_mma3(f, a.hi, a.lo, bhi, blo, true);
+    qv_add4(d, f);
   }
   // bias: the layer's float32 biases
   static __device__ __forceinline__ void store(uint32_t* buf, int stride,
@@ -242,6 +258,12 @@ struct QvStBf16 {
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.b0),
           "r"(b.b1));
+  }
+  // a trunk layer's k-step: one product onto the sums (its rounding points
+  // are the JAX kernel's)
+  static __device__ __forceinline__ void mma_trunk(float* d, const A& a,
+                                                   B b) {
+    mma(d, a, b);
   }
   static __device__ __forceinline__ uint32_t pair(float lo, float hi,
                                                   uint32_t bw, int act) {
@@ -529,7 +551,8 @@ static __device__ __forceinline__ void qv_st_body(
                   const typename P::B bj =
                       P::load_b(cur, s * CN + warp * NCW + j, lane);
 #pragma unroll
-                  for (int m = 0; m < MT; ++m) P::mma(acc[m][j], a[m], bj);
+                  for (int m = 0; m < MT; ++m)
+                    P::mma_trunk(acc[m][j], a[m], bj);
                 }
               }
             }
@@ -568,7 +591,10 @@ static int qv_st_launch(Kernel kernel, int threads, long long n, int block,
   if (block != threads) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // cleared: the next launch would report it again
+    return (int)err;
+  }
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,

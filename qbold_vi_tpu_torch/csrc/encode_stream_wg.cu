@@ -11,7 +11,8 @@
 // ops/fused_infer.py::launch_plan takes it for the float32 trunk at every
 // Up <= 256 where the resident blob does not fit; past 256 units
 // encode_stream_wgc.cu's chunked kernels serve where they fit (320 and 384),
-// encode_stream_wgx.cu's split ones at 448-832, encode_stream.cu beyond,
+// encode_stream_wgx.cu's split ones at 448-768, encode_stream_wgk.cu's
+// cluster ones at 832-1280, encode_stream.cu beyond,
 // and the bf16 trunk keeps its own kernels.
 //
 // Bound: at 256 units x 2 blocks the 3xTF32 products take 1.69 ms of a

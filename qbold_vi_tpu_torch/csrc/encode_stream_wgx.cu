@@ -1,5 +1,5 @@
 // Kernels B and C, float32 trunk, past a padded width of 384 (Up 448 to
-// 832: 385-832 units at any depth), where a pass of 128 voxels no longer
+// 768: 385-768 units at any depth), where a pass of 128 voxels no longer
 // fits in shared memory (its activation rows alone take 233,472 B at 448):
 // encode_stream_wg.cu's block with each layer's output columns split
 // between its two consumer warpgroups, which share a pass of 64 voxels.
@@ -10,9 +10,11 @@
 // normalised log signal, the dense chain in 3xTF32 (float32-accurate),
 // the float32 head, then B's quadrature summaries or C's q (5, N), rounding
 // where encode_stream_wg.cu rounds. ops/fused_infer.py::launch_plan takes
-// it for the float32 trunk at Up 448-832 wherever its block fits (past
-// 832 the activation rows alone exceed the card's 232,448 B);
-// encode_stream.cu serves the wider trunks.
+// it for the float32 trunk at Up 448-768 wherever its block fits;
+// encode_stream_wgk.cu's cluster of such blocks serves 832-1280 (at 832
+// this block fits only in 16-column pieces, which ran 2.9-3.1x slower on
+// the H100; at 896 its activation rows alone exceed the card's 232,448 B)
+// and encode_stream.cu the wider trunks.
 //
 // Bound: at 448 units x 1 block the 3xTF32 products take 2.60 ms of a
 // 1.03 M-voxel request at the dense TF32 peak; the request's bytes 0.026
@@ -288,7 +290,6 @@ __global__ void __launch_bounds__(QV_WG_THREADS, 1)
     QV_WGX_CASE(kernel, 640, 160, __VA_ARGS__)       \
     QV_WGX_CASE(kernel, 704, 88, __VA_ARGS__)        \
     QV_WGX_CASE(kernel, 768, 64, __VA_ARGS__)        \
-    QV_WGX_CASE(kernel, 832, 16, __VA_ARGS__)        \
     default:                                         \
       return (int)cudaErrorInvalidValue;             \
   }

@@ -29,14 +29,19 @@ csrc/encode_stream_wg.cu, which feeds a wgmma image of the blob's weights
 (``_wg_image``) through a ring of slabs (``.wgmma_launches``); in float32
 at padded widths 320 and 384 (257-384 units), csrc/encode_stream_wgc.cu,
 the same design with each layer's products in output chunks of at most 256
-columns (``.chunked_launches``); in float32 at padded widths 448-832
-(385-832 units), csrc/encode_stream_wgx.cu, the same block with each
+columns (``.chunked_launches``); in float32 at padded widths 448-768
+(385-768 units), csrc/encode_stream_wgx.cu, the same block with each
 layer's columns split between its two consumer warpgroups on a shared
-pass of 64 voxels (``.split_launches``); and the streamed kernels of
-csrc/encode_stream.cuh everywhere else (float32 past 832 units or where
-the split block does not fit, bf16 past 128 units or where its blob does
-not fit), which stream the blob itself through shared memory a slab at a
-time (``.stream_launches`` and ``.stream_bf16_launches``).
+pass of 64 voxels (``.split_launches``); in float32 at padded widths
+832-1280 (769-1280 units), csrc/encode_stream_wgk.cu, a thread-block
+cluster of such blocks on a pass of 128 voxels, each block holding its
+share of every layer's columns and reading the others' through
+distributed shared memory (``.cluster_launches``); and the streamed
+kernels of csrc/encode_stream.cuh everywhere else (float32 past 1280
+units or where the cluster's or split block does not fit, bf16 past 128
+units or where its blob does not fit), which stream the blob itself
+through shared memory a slab at a time (``.stream_launches`` and
+``.stream_bf16_launches``).
 ``encode_q1_packed`` is the wrapper of kernel C, which shares B's encode
 routine and writes the raw head ``q (5, N)`` for the MC summaries
 (ops/summarize.py); its plain version is ``encode_q_plain``.
@@ -119,10 +124,23 @@ _WGC_SLABS = {320: (160, 1), 384: (192, 1)}
 # consumer warpgroups') and, for each padded width, the chunk width
 # compiled (QV_WGX_DISPATCH; it divides a warpgroup's Up / 2) and the ring's
 # slots: of the plans that fit, the one that ran fastest on the H100
-# (tools/bench_stream1.py --sweep; PERF.md)
+# (tools/bench_stream1.py --sweep; PERF.md); at 832 the cluster design's
+# kernels ran 2.9-3.1x faster than the split kernels' 16-column pieces
 _WGX_PASS = 64
 _WGX_SLABS = {448: (224, 2), 512: (128, 3), 576: (144, 3), 640: (160, 2),
-              704: (88, 3), 768: (64, 2), 832: (16, 2)}
+              704: (88, 3), 768: (64, 2)}
+# the cluster wgmma kernels (csrc/encode_stream_wgk.cu): voxels a pass of
+# the cluster (QV_WGK_PASS), the bytes of a block's mbarriers
+# (QV_WGK_BAR_BYTES), the columns a block compiled (QV_WGK_CASES: Up / C)
+# and, for each padded width, the plan: the cluster's blocks C, the ring's
+# slots and the k-steps of a promoted segment. On the H100 8 blocks ran
+# 3-5% faster than 7 at 896, 4 slots within 1% of 2, segments of 8 k-steps
+# 1-2% faster than 4 with C's q within 3.8e-6 of float64
+# (tools/bench_stream1.py --sweep at 832, 896 and 1280; PERF.md)
+_WGK_PASS = 128
+_WGK_BAR_BYTES = 256
+_WGK_COLUMNS = (104, 112, 120, 128, 136, 144, 152, 160)
+_WGK_PLANS = {up: (8, 2, 8) for up in range(832, 1281, 64)}
 
 
 def fused_infer_available(activation: str) -> bool:
@@ -418,7 +436,10 @@ class LaunchPlan:
     csrc/encode_stream_wgc.cu: the same with each layer in output chunks
     of ``cn`` columns), "split" (float32, csrc/encode_stream_wgx.cu: the
     same block, a warpgroup's half of each layer's columns in chunks of
-    ``cn``, slabs of one k-step) or "streamed"
+    ``cn``, slabs of one k-step), "cluster" (float32,
+    csrc/encode_stream_wgk.cu: ``cluster`` such blocks, each ``cn`` = Up /
+    ``cluster`` of every layer's columns, slabs of one k-step, the sums
+    promoted every ``seg`` k-steps) or "streamed"
     (csrc/encode_stream.cuh: ``mt`` m-tiles -- 16 mt voxels a pass -- and
     ``ncw`` n-tiles a warp, slabs of ``ks`` k-steps, double-buffered),
     with the block's ``threads`` and dynamic shared-memory bytes
@@ -432,6 +453,8 @@ class LaunchPlan:
     ks: int = 0
     stages: int = 0
     cn: int = 0
+    cluster: int = 0
+    seg: int = 0
 
 
 def _st_ncw(up: int) -> int:
@@ -501,6 +524,30 @@ def _wgx_smem(up: int, t: int, quad: bool, stages: int, cn: int) -> int:
     return _WG_BAR_BYTES + stages * 2 * 64 * cn + 4 * words
 
 
+def _wgk_stride(cn: int) -> int:
+    """csrc/encode_stream_wgk.cu's SA: words an activation row of ``cn``
+    columns, cn + 8 where cn is a multiple of 16, else cn + 16 (8 words
+    past a multiple of 16)."""
+    return cn + (8 if cn % 16 == 0 else 16)
+
+
+def _wgk_smem(up: int, t: int, quad: bool, stages: int,
+              cluster: int) -> int:
+    """Shared-memory bytes of a block of the cluster wgmma kernels, in the
+    layout of csrc/encode_stream_wgk.cu: its mbarriers, ``stages`` slots of
+    one k-step of its Up / ``cluster`` columns (64 bytes a column), those
+    columns' activation rows and every staged row of a pass of 128 voxels,
+    the partial heads of ``cluster`` blocks for a round of 256 voxels and,
+    in B, the node table (the quadrature's scratch in the activation
+    rows)."""
+    cn = up // cluster
+    words = (_WGK_PASS * (_wgk_stride(cn) + _xs_stride(t))
+             + cluster * 5 * _ST_ROUND)
+    if quad:
+        words += _NCONST
+    return _WGK_BAR_BYTES + stages * 64 * cn + 4 * words
+
+
 def launch_plan(up: int, nb: int, t: int, t_in: int, trunk: str,
                 quad: bool, limit: int) -> LaunchPlan:
     """The launch of kernel B (``quad``) or C at padded width ``up``, ``nb``
@@ -510,10 +557,12 @@ def launch_plan(up: int, nb: int, t: int, t_in: int, trunk: str,
     rows of the most warps that fit); else, in float32 at ``up`` <= 256,
     the wgmma design's smallest ring if it fits; in float32 at ``up`` 320
     and 384 the chunked design in two slots if it fits (the staged rows
-    must fit in an activation row); in float32 at ``up`` 448-832 the split
-    design in its ring (``_WGX_SLABS``) if it fits; else the streamed
-    design with the largest pass of voxels, then the largest slab, that
-    fits. Raises if none fits."""
+    must fit in an activation row); in float32 at the ``up`` of
+    ``_WGK_PLANS`` (832-1280) the cluster design in its plan if it fits;
+    in float32 at ``up`` 448-768 the split design in its ring
+    (``_WGX_SLABS``) if it fits; else the streamed design with the largest
+    pass of voxels, then the largest slab, that fits. Raises if none
+    fits."""
     _check_trunk(trunk)
     scratch = _quad_scratch_floats if quad else (lambda threads: 0)
     blob = _blob_floats(up, nb, t, trunk)
@@ -542,6 +591,13 @@ def launch_plan(up: int, nb: int, t: int, t_in: int, trunk: str,
         if smem <= limit:
             return LaunchPlan("chunked", _WG_THREADS, smem, ks=ks,
                               stages=_WG_STAGES[0], cn=cn)
+    if trunk == "float32" and up in _WGK_PLANS:
+        cluster, stages, seg = _WGK_PLANS[up]
+        smem = _wgk_smem(up, t, quad, stages, cluster)
+        if smem <= limit:
+            return LaunchPlan("cluster", _WG_THREADS, smem, ks=1,
+                              stages=stages, cn=up // cluster,
+                              cluster=cluster, seg=seg)
     if trunk == "float32" and up in _WGX_SLABS:
         cn, stages = _WGX_SLABS[up]
         smem = _wgx_smem(up, t, quad, stages, cn)
@@ -607,7 +663,8 @@ def _entry(name: str, trunk: str):
 
 
 _COUNTER_PREFIX = {"resident": "", "streamed": "stream_", "wgmma": "wgmma_",
-                   "chunked": "chunked_", "split": "split_"}
+                   "chunked": "chunked_", "split": "split_",
+                   "cluster": "cluster_"}
 
 
 def _count(wrapper, plan: LaunchPlan, trunk: str) -> None:
@@ -718,6 +775,12 @@ def encode_quad_fused_op(x: torch.Tensor, blob: torch.Tensor, units: int,
                 *args, padded_units, n_blocks, blob.data_ptr(),
                 image.data_ptr(), ranges, *ptrs, int(mvg), plan.stages,
                 plan.cn, plan.threads, plan.smem, stream)
+        elif plan.design == "cluster":
+            image = _wg_image_of(blob, padded_units, n_blocks, t, plan.cn)
+            err = _cuda.library().qv_encode_quad_wgk(
+                *args, padded_units, n_blocks, blob.data_ptr(),
+                image.data_ptr(), ranges, *ptrs, int(mvg), plan.stages,
+                plan.cluster, plan.seg, plan.threads, plan.smem, stream)
         else:
             err = _entry("qv_encode_quad_stream", trunk)(
                 *args, padded_units, n_blocks, blob.data_ptr(), ranges,
@@ -749,7 +812,8 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
     by the design ``launch_plan`` picks (counted as kernel B's, in
     ``encode_q1_packed.launches``, ``.bf16_launches``,
     ``.wgmma_launches``, ``.chunked_launches``, ``.split_launches``,
-    ``.stream_launches`` and ``.stream_bf16_launches``) or raise; CPU
+    ``.cluster_launches``, ``.stream_launches`` and
+    ``.stream_bf16_launches``) or raise; CPU
     tensors run ``encode_q_plain``. Unlike the TPU kernel, N is not
     padded."""
     kw = dict(se_idx=se_idx, multi_image=multi_image, activation=activation,
@@ -794,6 +858,12 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
                 *args, up, n_blocks, blob.data_ptr(), image.data_ptr(),
                 q.data_ptr(), plan.stages, plan.cn, plan.threads, plan.smem,
                 stream)
+        elif plan.design == "cluster":
+            image = _wg_image_of(blob, up, n_blocks, t, plan.cn)
+            err = _cuda.library().qv_encode_q1_wgk(
+                *args, up, n_blocks, blob.data_ptr(), image.data_ptr(),
+                q.data_ptr(), plan.stages, plan.cluster, plan.seg,
+                plan.threads, plan.smem, stream)
         else:
             err = _entry("qv_encode_q1_stream", trunk)(
                 *args, up, n_blocks, blob.data_ptr(), q.data_ptr(), plan.mt,
@@ -805,5 +875,5 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
 
 for _w in (encode_quad_fused, encode_q1_packed):
     _w.launches = _w.bf16_launches = _w.wgmma_launches = 0
-    _w.chunked_launches = _w.split_launches = 0
+    _w.chunked_launches = _w.split_launches = _w.cluster_launches = 0
     _w.stream_launches = _w.stream_bf16_launches = 0

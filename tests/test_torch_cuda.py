@@ -160,20 +160,25 @@ def _design_counter(units, nb, trunk, quad, t_in):
 
 # widths and depths past the resident blob: 100 and 128 units x 2 blocks in
 # float32 (the blob does not fit), 192, 256, 320 and 384 x 2, 448, 520,
-# 800 and 833 x 1 (past 128 units), 60 x 7 (depth); 128 x 2 and 60 x 7 at
-# bf16 stay resident. In float32 every padded width up to 256 takes the
-# wgmma design (csrc/encode_stream_wg.cu), 320 and 384 the chunked one
-# (csrc/encode_stream_wgc.cu), 448-832 the split one
-# (csrc/encode_stream_wgx.cu: 448, 520 and 800, its widest, 832 padded),
-# 833 (896 padded) the streamed one. N = 20,011 ends in a ragged pass and round, and
-# channel-major at N % 4 != 0.
+# 800, 832, 833, 1280 and 1281 x 1 and 1024 x 2 (past 128 units), 60 x 7
+# (depth); 128 x 2 and 60 x 7 at bf16 stay resident. In float32 every
+# padded width up to 256 takes the wgmma design (csrc/encode_stream_wg.cu),
+# 320 and 384 the chunked one (csrc/encode_stream_wgc.cu), 448-768 the
+# split one (csrc/encode_stream_wgx.cu: 448 and 520), 832-1280 the cluster
+# one (csrc/encode_stream_wgk.cu: 800 and 832 at 832 padded, where 832
+# full units drifted past the gate on the split kernel; 833 at 896; 1024;
+# 1280, its widest), 1281 (1344 padded) the streamed one, whose trunk sums
+# drifted past the gate there until they were promoted each k-step.
+# N = 20,011 ends in a ragged pass and round, and channel-major at
+# N % 4 != 0.
 @pytest.mark.parametrize("trunk", ["float32", "bfloat16"])
 @pytest.mark.parametrize("layout", ["voxel", "channel"])
 @pytest.mark.parametrize("units,nb,act", [
     (100, 2, "relu"), (128, 2, "gelu"), (192, 2, "relu"), (256, 2, "relu"),
     (520, 1, "softplus"), (60, 7, "relu"), (320, 2, "gelu"),
     (384, 2, "relu"), (448, 1, "gelu"), (800, 1, "softplus"),
-    (833, 1, "relu")])
+    (832, 1, "relu"), (833, 1, "relu"), (1024, 2, "softplus"),
+    (1280, 1, "relu"), (1281, 1, "relu")])
 def test_wide_and_deep_kernels_match_plain(cuda_device, trunk, layout, units,
                                            nb, act):
     """Kernels B and C at every width and depth against their plain
@@ -182,8 +187,8 @@ def test_wide_and_deep_kernels_match_plain(cuda_device, trunk, layout, units,
     plain quadrature of C's q at the float32 tolerances and against its
     plain version at the JAX package's bf16 gate. One launch each, counted
     under the design launch_plan picks: wgmma in float32 up to 256 units
-    (padded), chunked wgmma at 320 and 384, split wgmma at 448-832,
-    streamed past them."""
+    (padded), chunked wgmma at 320 and 384, split wgmma at 448-768,
+    cluster wgmma at 832-1280, streamed past them."""
     _wide_and_deep_case(cuda_device, trunk, layout, units, nb, act)
 
 
@@ -219,7 +224,8 @@ def _wide_and_deep_case(cuda_device, trunk, layout, units, nb, act):
         up = tfi._padded_width(units)
         assert names == 2 * ["wgmma_launches" if up <= 256
                              else "chunked_launches" if up <= 384
-                             else "split_launches" if up <= 832
+                             else "split_launches" if up <= 768
+                             else "cluster_launches" if up <= 1280
                              else "stream_launches"]
     before = (getattr(tfi.encode_quad_fused, names[0]),
               getattr(tfi.encode_q1_packed, names[1]))
@@ -1584,6 +1590,63 @@ def test_fused_artifact_at_256_units(cuda_device, tmp_path, trunk, units):
         mask_channel=True, input_layout="channel")
     for key, r in zip(("means", "stds", "raw_log_stds"), ref):
         assert torch.equal(out[key], r), key
+
+
+@pytest.mark.parametrize("refusal", ["smem", "cluster", "unbuilt"])
+def test_cluster_design_raises_rather_than_falling_back(cuda_device,
+                                                       monkeypatch, refusal):
+    """At 833 units x 1 block (the cluster design, 896 padded) a cluster
+    launch that cannot run raises from kernels B and C: a block past the
+    card's shared memory, a cluster of 16 blocks (past the portable 8),
+    a kernel library that does not build. No other design (split,
+    streamed) launches in its place, no plain version runs and no launch
+    is counted."""
+    from qbold_vi_tpu_torch.ops import _cuda
+
+    cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=833,
+                              no_intermediate_layers=1)
+    tuner = _tuner(cfg, cuda_device)
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy(volume(rng, (5_003,), SCAN.n_taus + 1)).to(
+        cuda_device)
+    kw = dict(se_idx=SCAN.se_idx, multi_image=False, activation="relu",
+              n_blocks=1, trunk="float32", mask_channel=True,
+              input_layout="voxel")
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(tfi, "encode_quad_fused_plain", plain)
+    monkeypatch.setattr(tfi, "encode_q_plain", plain)
+    plan = tfi._plan
+    assert plan(896, 1, SCAN.n_taus, SCAN.n_taus + 1, "float32", True,
+                x.device).design == "cluster"
+    wrappers = (tfi.encode_quad_fused, tfi.encode_q1_packed)
+    counters = [c for c in vars(tfi.encode_quad_fused)
+                if c.endswith("launches")]
+
+    def counts():
+        return [getattr(w, c) for w in wrappers for c in counters]
+
+    before = counts()
+    if refusal == "unbuilt":
+        def unbuilt():
+            raise RuntimeError("nvcc failed: no kernel library")
+
+        monkeypatch.setattr(_cuda, "library", unbuilt)
+        match = "nvcc failed"
+    else:
+        change = ({"smem": 1 << 20} if refusal == "smem"
+                  else {"cluster": 16, "cn": 56})
+        monkeypatch.setattr(tfi, "_plan", lambda *a: dataclasses.replace(
+            plan(*a), **change))
+        match = "launch failed"
+    with pytest.raises(RuntimeError, match=match):
+        tfi.encode_quad_fused(x, tuner.encoder, mvg=True, **kw, **RANGES)
+    with pytest.raises(RuntimeError, match=match):
+        tfi.encode_q1_packed(x, tuner.encoder, **kw)
+    torch.cuda.synchronize()
+    assert counts() == before
 
 
 def test_default_artifact_on_the_card(cuda_device, tmp_path):

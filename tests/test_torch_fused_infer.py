@@ -181,7 +181,8 @@ def test_bf16_trunk_matches_jax_kernel(name, cfg, scan, layout, mask):
 
 # Widths and depths past the resident blob (65-128 units x 2 in float32)
 # and past 128 units, where the card runs the wgmma, chunked wgmma, split
-# wgmma or streamed kernels: the port's plain versions against the JAX
+# wgmma, cluster wgmma or streamed kernels: the port's plain versions
+# against the JAX
 # kernel in the interpreter, relu and a smooth activation, both layouts,
 # with the mask.
 WIDE_CASES = [
@@ -190,6 +191,7 @@ WIDE_CASES = [
     ("320x2-softplus-channel", 320, 2, "softplus", "float32", "channel"),
     ("448x1-softplus-channel", 448, 1, "softplus", "float32", "channel"),
     ("520x1-relu-voxel", 520, 1, "relu", "float32", "voxel"),
+    ("896x1-relu-voxel", 896, 1, "relu", "float32", "voxel"),
     ("100x2-softplus-voxel-bf16", 100, 2, "softplus", "bfloat16", "voxel"),
     ("256x2-relu-channel-bf16", 256, 2, "relu", "bfloat16", "channel"),
     ("520x1-softplus-channel-bf16", 520, 1, "softplus", "bfloat16",
@@ -778,12 +780,14 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
     (at 100 x 2 in float32 it is 72,280 floats; 60 x 7; past 128 units)
     the float32 trunk takes the wgmma design up to a padded width of 256,
     the chunked wgmma design at 320 and 384 (257-384 units, whose pass of
-    128 voxels fits), the split wgmma design at 448-832 (385-832 units,
-    where it does not) and the streamed one past it; the bf16 trunk (half
-    the blob) streams past 128 units."""
+    128 voxels fits), the split wgmma design at 448-768 (385-768 units,
+    where it does not), the cluster wgmma design at 832-1280 (769-1280
+    units: a cluster of blocks shares a pass of 128 voxels) and the
+    streamed one past it; the bf16 trunk (half the blob) streams past 128
+    units."""
     for units in (1, 13, 60, 64, 65, 100, 128, 129, 192, 200, 256, 257,
                   300, 320, 321, 384, 385, 448, 449, 520, 640, 700, 768,
-                  769, 832, 833, 1024):
+                  769, 832, 833, 1024, 1200, 1280, 1281, 1472):
         up = tfi._padded_width(units)
         assert up >= units
         for nb in (1, 2, 3, 7, 12):
@@ -806,7 +810,20 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
                 assert plan.cn % 8 == 0 and plan.cn <= 256
                 assert plan.smem == tfi._wg_smem(up, 11, quad, plan.stages,
                                                  plan.ks, plan.cn)
-            elif trunk == "float32" and up <= 832:
+            elif trunk == "float32" and 832 <= up <= 1280:
+                assert plan.design == "cluster", (units, nb, plan)
+                assert plan.threads == tfi._WG_THREADS
+                cluster, stages, seg = tfi._WGK_PLANS[up]
+                assert (plan.cluster, plan.stages, plan.seg) == (
+                    cluster, stages, seg)
+                assert plan.cn * plan.cluster == up and plan.ks == 1
+                assert plan.cn in tfi._WGK_COLUMNS and plan.cn % 8 == 0
+                assert 2 <= plan.cluster <= 8 and seg >= 1
+                assert plan.stages in tfi._WG_STAGES
+                assert plan.smem == tfi._wgk_smem(up, 11, quad, plan.stages,
+                                                  plan.cluster)
+                assert (2 * plan.cluster * tfi._ST_ROUND) % tfi._WGK_PASS == 0
+            elif trunk == "float32" and up <= 768:
                 assert plan.design == "split", (units, nb, plan)
                 assert plan.threads == tfi._WG_THREADS
                 assert (plan.cn, plan.stages) == tfi._WGX_SLABS[up]
@@ -832,7 +849,8 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
                              (256, 2), (320, 2), (520, 1), (320, 1),
                              (320, 3), (384, 1), (384, 2), (384, 3),
                              (448, 1), (448, 2), (768, 1), (769, 1),
-                             (833, 1))}
+                             (832, 1), (833, 1), (1024, 2), (1280, 1),
+                             (1281, 1))}
     if trunk == "float32":
         assert tfi._blob_floats(128, 2, 11, trunk) == 72_280
         assert designs == {(100, 2): "wgmma", (128, 2): "wgmma",
@@ -842,8 +860,10 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
                            (320, 3): "chunked", (384, 1): "chunked",
                            (384, 2): "chunked", (384, 3): "chunked",
                            (448, 1): "split", (448, 2): "split",
-                           (768, 1): "split", (769, 1): "split",
-                           (833, 1): "streamed"}
+                           (768, 1): "split", (769, 1): "cluster",
+                           (832, 1): "cluster", (833, 1): "cluster",
+                           (1024, 2): "cluster", (1280, 1): "cluster",
+                           (1281, 1): "streamed"}
         # at 256 x 2: two warpgroups' activation rows (132 KB) beside a
         # ring of two 16 KB slabs
         plan = tfi.launch_plan(256, 2, 11, 12, trunk, quad, H100_SMEM)
@@ -867,11 +887,25 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
         assert (plan.cn, plan.stages) == (224, 2)
         assert tfi._WGX_PASS * (448 + 8) * 4 == 116_736
         assert plan.smem == (186_304 if quad else 185_472) < 196 * 1024
-        # past the split block's reach (832: at 896 its activation rows
-        # alone take 231,424 B), or where its staged rows do not fit beside
-        # it, the streamed design serves
+        # past the split block's reach (at 896 its activation rows alone
+        # would take 231,424 B) a cluster of 8 blocks shares a pass of 128
+        # voxels, each block the rows of its 112 columns (61,440 B), every
+        # staged row, the partial heads of 8 blocks for a round
         assert tfi._WGX_PASS * (896 + 8) * 4 == 231_424
-        assert tfi.launch_plan(896, 1, 11, 12, trunk, quad,
+        plan = tfi.launch_plan(896, 1, 11, 12, trunk, quad, H100_SMEM)
+        assert (plan.design, plan.cluster, plan.cn) == ("cluster", 8, 112)
+        assert tfi._WGK_PASS * (112 + 8) * 4 == 61_440
+        assert plan.smem == 256 + plan.stages * 64 * 112 + 4 * (
+            128 * (120 + 24) + 8 * 5 * 256 + (tfi._NCONST if quad else 0))
+        # at 1280 each block's 160 columns: 80 sums and 80 fragment
+        # registers a thread
+        plan = tfi.launch_plan(1280, 1, 11, 12, trunk, quad, H100_SMEM)
+        assert (plan.design, plan.cn) == ("cluster", 160)
+        # where the staged rows of many taus do not fit beside a block,
+        # and past 1280, the streamed design serves
+        assert tfi.launch_plan(896, 1, 330, 331, trunk, quad,
+                               H100_SMEM).design == "streamed"
+        assert tfi.launch_plan(1344, 1, 11, 12, trunk, quad,
                                H100_SMEM).design == "streamed"
         assert tfi.launch_plan(448, 1, 330, 331, trunk, quad,
                                H100_SMEM).design == "streamed"
@@ -884,7 +918,9 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
                            (384, 2): "streamed", (384, 3): "streamed",
                            (448, 1): "streamed", (448, 2): "streamed",
                            (768, 1): "streamed", (769, 1): "streamed",
-                           (833, 1): "streamed"}
+                           (832, 1): "streamed", (833, 1): "streamed",
+                           (1024, 2): "streamed", (1280, 1): "streamed",
+                           (1281, 1): "streamed"}
     with pytest.raises(ValueError, match="no launch fits"):
         tfi.launch_plan(1024, 2, 11, 12, trunk, quad, 64 * 1024)
 
@@ -907,15 +943,15 @@ def _stream_walk(up, nb, t, trunk, plan):
 
 @pytest.mark.parametrize("trunk", ["float32", "bfloat16"])
 def test_streamed_slabs_unpack_to_the_encoder(trunk):
-    """At 256 units x 2 blocks in bf16 and 896 in float32 (the streamed
-    design's widths: float32 takes the wgmma designs up to 832),
+    """At 256 units x 2 blocks in bf16 and 1344 in float32 (the streamed
+    design's widths: float32 takes the wgmma designs up to 1280),
     the streamed kernels' slabs -- the blob's bytes copied as qv_st_body
     copies them into a slot, then read as each warp reads its B fragments
     (lane 4g + t) -- hold every layer's weight at (n, k) exactly once:
     float32's hi / lo TF32 splits, bf16's bf16 values, zeros past U and
     T. The head's fragments and the biases, read where qv_st_blob points,
     hold the head and the biases."""
-    up = 256 if trunk == "bfloat16" else 896
+    up = 256 if trunk == "bfloat16" else 1344
     cfg, tuner = _width_tuner(up)
     nb = cfg.no_intermediate_layers
     blob, u, _, t = tfi._weight_blob(tuner.encoder, nb, torch.device("cpu"),
@@ -1075,13 +1111,16 @@ def _wg_thread_maps():
 
 
 @pytest.mark.parametrize("units,nb", [(100, 2), (256, 2), (60, 7), (13, 3),
-                                      (320, 2), (384, 1), (448, 1)])
+                                      (320, 2), (384, 1), (448, 1),
+                                      (1000, 1)])
 def test_wgmma_image_unpacks_to_the_encoder(units, nb):
     """The wgmma image, read by the kernel's descriptors k-step by k-step
     (the first layer's, then each block's) and, at 320 and 384, chunk by
     chunk in the chunk width the chunked kernels take there
     (fused_infer._WGC_SLABS), at 448 in the split kernels'
-    (fused_infer._WGX_SLABS: each warpgroup's half one chunk), holds every
+    (fused_infer._WGX_SLABS: each warpgroup's half one chunk), at 1024 in
+    the cluster kernels' (fused_infer._WGK_PLANS: a block's columns one
+    chunk), holds every
     trunk weight w[n, 8s + channel(slot)] exactly once: hi = tf32(w) in
     the hi half, lo = tf32(w - hi) in the lo half (hi + lo within 2^-21 of
     w), zeros past U and T; it is a permutation of the blob's trunk
@@ -1096,6 +1135,7 @@ def test_wgmma_image_unpacks_to_the_encoder(units, nb):
     wfc, _, wbs, _, _, _ = tfi._stream1_weights(tuner.encoder, nb)
     chan = _wg_slot_channel(torch.arange(8))
     cn = (tfi._WGC_SLABS[up][0] if up in tfi._WGC_SLABS
+          else up // tfi._WGK_PLANS[up][0] if up in tfi._WGK_PLANS
           else tfi._WGX_SLABS.get(up, (None,))[0])
     if up <= 256:
         assert torch.equal(tfi._wg_image(blob, up, nb, t, up),
@@ -1222,10 +1262,104 @@ def _chain_in_wgmma(x, encoder, *, se_idx, multi_image, activation,
     return q.reshape(-1, 8)[:n, :5].T
 
 
+def _chain_in_cluster(x, encoder, *, se_idx, multi_image, activation,
+                      n_blocks, cluster, seg):
+    """The raw head q (5, N) by csrc/encode_stream_wgk.cu's data flow:
+    a pass of 128 voxels (two warpgroups' tiles of 64, each as
+    _chain_in_wgmma's) on a cluster of ``cluster`` blocks, block r
+    computing the columns r NL .. (r + 1) NL - 1 of every layer (NL = up /
+    cluster) from chunk r of the image in chunks of NL and keeping only
+    those; past the first layer a thread's A registers of k-step s read
+    from the block that holds its channels (rank s // (NL / 8), its
+    columns 8 (s mod NL / 8) + channel), block r taking a block layer's
+    k-steps in turn from its own, r NL / 8; a k-step's three TF32 products
+    summed exactly into a fresh fragment, added to the float32 sums every
+    ``seg`` k-steps of that order and at the layer's end; the head's
+    partial sums a
+    block over its own columns from its own activated sums, each rounded
+    to float32, added in rank order, then the bias."""
+    act = activation_fn(activation)
+    blob, u, up, t = tfi._weight_blob(encoder, n_blocks, x.device)
+    nl = up // cluster
+    nt = nl // 8
+    words = tfi._wg_image(blob, up, n_blocks, t, nl)
+    _, _, wf, b0, bb, bf = _blob_parts(blob, t, up, n_blocks)
+    ks0 = -(-t // 8)
+    h = normalise_data(x, se_idx, multi_image)          # (N, T)
+    n = h.shape[0]
+    rows = torch.zeros(-(-n // 128) * 128, 8 * ks0)     # every block's
+    rows[:n, :t] = h
+    tiles = rows.reshape(-1, 64, 8 * ks0)
+    a_rows, a_slots, _, _ = _wg_thread_maps()
+    chan = _wg_slot_channel(a_slots)
+    # every (block, k-step of its columns) is read by exactly one k-step
+    owners = [(s // nt, s % nt) for s in range(up // 8)]
+    assert sorted(owners) == [(r, j) for r in range(cluster)
+                              for j in range(nt)]
+
+    def layer(regs_of, steps, first, bias, rotate):
+        """Each block's activations (tiles, 64, NL) after the layer."""
+        b_hi, b_lo = ([_wg_read_b(words, s, half, up, nl, steps,
+                                  first).double() for s in range(steps)]
+                      for half in range(2))
+        outs = []
+        for r in range(cluster):
+            cols = slice(r * nl, (r + 1) * nl)
+            acc = torch.zeros(tiles.shape[0], 64, nl)
+            order = [(i + r * nt * rotate) % steps for i in range(steps)]
+            for i, s in enumerate(order):
+                regs = regs_of(s)
+                hi = tfi._tf32(regs)
+                lo = tfi._tf32(regs - hi)
+                a_hi = torch.zeros(tiles.shape[0], 64, 8, dtype=torch.float64)
+                a_lo = torch.zeros_like(a_hi)
+                a_hi[:, a_rows, a_slots] = hi.double()
+                a_lo[:, a_rows, a_slots] = lo.double()
+                prod = (a_lo @ b_hi[s][:, cols] + a_hi @ b_lo[s][:, cols]
+                        + a_hi @ b_hi[s][:, cols])
+                frag = prod if i % seg == 0 else frag + prod
+                if (i + 1) % seg == 0 or i + 1 == steps:
+                    acc = acc + frag.float()    # promoted on the CUDA cores
+            outs.append(act(acc + bias[cols]))
+        return outs
+
+    bufs = layer(lambda s: tiles[:, a_rows, 8 * s + chan], ks0, 0, b0,
+                 False)
+    for i in range(n_blocks):
+        held = bufs
+        bufs = layer(
+            lambda s: held[s // nt][:, a_rows, 8 * (s % nt) + chan],
+            up // 8, ks0 + i * (up // 8), bb[i], True)
+    lane = torch.arange(32)
+    g, tt = lane // 4, lane % 4
+    q = torch.zeros(tiles.shape[0] * 4, 16, 8)
+    for r in range(cluster):
+        r16 = bufs[r].reshape(-1, 16, nl)
+        part = 0.0
+        for j in range(nt):
+            af = torch.stack([r16[:, g, 8 * j + 2 * tt],
+                              r16[:, g + 8, 8 * j + 2 * tt],
+                              r16[:, g, 8 * j + 2 * tt + 1],
+                              r16[:, g + 8, 8 * j + 2 * tt + 1]], -1)
+            hi = tfi._tf32(af.float())
+            lo = tfi._tf32(af.float() - hi)
+            b = wf[r * nt + j, 0]
+            part = part + (_mma(lo, b[:, :2]) + _mma(hi, b[:, 2:])
+                           + _mma(hi, b[:, :2]))
+        part = part.float()
+        q[:, g, 2 * tt] += part[..., 0]
+        q[:, g, 2 * tt + 1] += part[..., 1]
+        q[:, g + 8, 2 * tt] += part[..., 2]
+        q[:, g + 8, 2 * tt + 1] += part[..., 3]
+    q = q + bf[:8]
+    return q.reshape(-1, 8)[:n, :5].T
+
+
 @pytest.mark.parametrize("units,nb,activation", [
     (100, 2, "relu"), (100, 2, "softplus"), (60, 7, "gelu"),
     (13, 3, "sigmoid"), (192, 1, "relu"), (320, 2, "relu"),
-    (384, 1, "gelu"), (448, 2, "softplus")])
+    (384, 1, "gelu"), (448, 2, "softplus"), (833, 1, "relu"),
+    (1024, 2, "softplus")])
 def test_wgmma_chain_matches_plain(units, nb, activation):
     """The chain replayed in the wgmma kernels' data flow -- padded
     channels and all, each thread reading back only the activations it
@@ -1233,9 +1367,11 @@ def test_wgmma_chain_matches_plain(units, nb, activation):
     (fused_infer._WGC_SLABS) with own-read across the chunks and the rows
     staged in the activation rows, at 448 in the split kernels' flow (a
     layer's columns halved between the warpgroups, each reading the
-    other's half) -- equals encode_q_plain: rtol 1e-6, atol
-    2e-6 (the dropped lo * lo terms, ~2^-22 a product), as the fragment
-    chain."""
+    other's half), at 896 and 1024 in the cluster kernels' flow
+    (_chain_in_cluster: each block's column share, the other blocks'
+    shares read from them, the sums promoted every _WGK_PLANS segment) --
+    equals encode_q_plain: rtol 1e-6, atol 2e-6 (the dropped lo * lo
+    terms, ~2^-22 a product), as the fragment chain."""
     cfg = dataclasses.replace(OPT, no_units=units, no_intermediate_layers=nb,
                               activation=activation)
     _, params = port_params(cfg, SCAN, units)
@@ -1246,8 +1382,14 @@ def test_wgmma_chain_matches_plain(units, nb, activation):
               n_blocks=nb)
     ref = tfi.encode_q_plain(x, tuner.encoder, trunk="float32", **kw)
     up = tfi._padded_width(units)
-    cn = (tfi._WGC_SLABS.get(up) or tfi._WGX_SLABS.get(up) or (None,))[0]
-    got = _chain_in_wgmma(x, tuner.encoder, cn=cn,
-                          split=up in tfi._WGX_SLABS, **kw)
+    if up in tfi._WGK_PLANS:
+        cluster, _, seg = tfi._WGK_PLANS[up]
+        got = _chain_in_cluster(x, tuner.encoder, cluster=cluster, seg=seg,
+                                **kw)
+    else:
+        cn = (tfi._WGC_SLABS.get(up) or tfi._WGX_SLABS.get(up)
+              or (None,))[0]
+        got = _chain_in_wgmma(x, tuner.encoder, cn=cn,
+                              split=up in tfi._WGX_SLABS, **kw)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6,
                                atol=2e-6)

@@ -6,7 +6,7 @@ frame, shared memory, blocks an SM and SASS instructions.
 
     python3 tools/bench_stream1.py [--dtype float32|bfloat16|both]
         [--units U] [--blocks NB] [--shapes UxNB,...] [--sweep]
-        [--only-copies]
+        [--slots S,...] [--segments K,...] [--only-copies]
         [--row-blob SRC ...]
         [--package DIR] [SRC ...]
 
@@ -42,11 +42,16 @@ ones (``qv_encode_quad_wgc``, ``qv_encode_q1_wgc``, kernels
 ``qv_encode_quad_wgc_kernel`` and ``qv_encode_q_wgc_kernel``, fed the
 image in the plan's chunks, ``fused_infer._wg_image(..., cn)``; an edited
 copy of ``csrc/encode_stream_wgc.cu`` likewise, beside which an edited
-``encode_stream_wg.cuh`` replaces the package's), at 448-832 the split
+``encode_stream_wg.cuh`` replaces the package's), at 448-768 the split
 wgmma ones (``qv_encode_quad_wgx``, ``qv_encode_q1_wgx``, kernels
 ``qv_encode_quad_wgx_kernel`` and ``qv_encode_q_wgx_kernel``, fed the
 image in the plan's chunks; an edited copy of
-``csrc/encode_stream_wgx.cu`` likewise) or the streamed ones
+``csrc/encode_stream_wgx.cu`` likewise), at 832-1280 the cluster wgmma
+ones (``qv_encode_quad_wgk``, ``qv_encode_q1_wgk``, kernels
+``qv_encode_quad_wgk_kernel`` and ``qv_encode_q_wgk_kernel``, fed the
+image in chunks of a block's columns, with the clusters the card holds
+at once, ``qv_encode_wgk_clusters``; an edited copy of
+``csrc/encode_stream_wgk.cu`` likewise) or the streamed ones
 (``qv_encode_quad_stream``,
 ``qv_encode_q1_stream``, kernels ``qv_encode_quad_stream_kernel`` and
 ``qv_encode_q_stream_kernel``; an edited copy of ``csrc/encode_stream.cu``
@@ -109,10 +114,16 @@ k-steps and bytes) and each ring of ``fused_infer._WG_STAGES`` slots;
 chunked, each ring of the width's chunks and slab
 (``fused_infer._WGC_SLABS``); split, every chunk width that divides a
 warpgroup's columns and each ring (``fused_infer._WGX_SLABS`` holds the
-plan's). The wgmma designs' other knobs are compiled in (two consumer
-warpgroups of 64 voxels, no cluster): time another as an edited copy of
-``csrc/encode_stream_wg.cu``, ``encode_stream_wgc.cu`` or
-``encode_stream_wgx.cu`` (each build is swept).
+plan's); cluster, every cluster of at most 8 blocks whose columns a
+block the package compiles, each ring of SLOTS and each promoted segment
+of SEGMENTS (``--slots``, ``--segments``; ``fused_infer._WGK_PLANS`` holds
+the plan's), with the resident clusters. Each plan's row gives B's CHECKS
+verdict and C's distance to the float64 encode. The wgmma designs' other
+knobs are compiled in (two consumer warpgroups of 64 voxels; a pass of
+128 voxels a cluster): time another as an edited copy of
+``csrc/encode_stream_wg.cu``, ``encode_stream_wgc.cu``,
+``encode_stream_wgx.cu`` or ``encode_stream_wgk.cu`` (each build is
+swept).
 
 ``--dtype bfloat16`` runs B and C at trunk="bfloat16" (the entries
 ``qv_encode_quad_fused_bf16`` and ``qv_encode_q1_bf16``, kernels
@@ -172,6 +183,7 @@ ENTRIES = ("qv_quad_posterior_summaries", "qv_encode_quad_fused",
            "qv_encode_quad_wg", "qv_encode_q1_wg",
            "qv_encode_quad_wgc", "qv_encode_q1_wgc",
            "qv_encode_quad_wgx", "qv_encode_q1_wgx",
+           "qv_encode_quad_wgk", "qv_encode_q1_wgk", "qv_encode_wgk_clusters",
            "qv_encode_quad_stream_bf16", "qv_encode_q1_stream_bf16",
            "qv_mc_summaries", "qv_mc_kl_map", "qv_mc_kl")
 # C entries of earlier builds that the package no longer has: the earlier
@@ -230,7 +242,7 @@ def resources(log: str, kernels: dict, inst: str) -> dict:
         m = re.search(r"Function properties for \S*?(qv_\w+_kernel)", line)
         templated = m is not None and any(
             k in m.group(1)
-            for k in ("bf16", "stream", "_wg_", "_wgc_", "_wgx_"))
+            for k in ("bf16", "stream", "_wg_", "_wgc_", "_wgx_", "_wgk_"))
         if (m and m.group(1) in kernels.values() and i + 2 < len(lines)
                 and (not templated or inst in line)):
             regs = re.search(r"Used (\d+) registers", lines[i + 2])
@@ -295,7 +307,8 @@ class Calls:
         self.stream = torch.cuda.current_stream().cuda_stream
         self.image = (fi._wg_image(self.blob, self.up, nb, t,
                                    self.plan_b.cn or None)
-                      if self.design() in ("wgmma", "chunked", "split")
+                      if self.design() in ("wgmma", "chunked", "split",
+                                           "cluster")
                       else None)
 
     def design(self) -> str:
@@ -337,6 +350,12 @@ class Calls:
                 *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
                 self.image.data_ptr(), ranges, *o, 1, p.stages, p.cn,
                 p.threads, p.smem, self.stream)
+        elif self.design() == "cluster":
+            p = self.plan_b
+            err = self.lib.qv_encode_quad_wgk(
+                *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
+                self.image.data_ptr(), ranges, *o, 1, p.stages, p.cluster,
+                p.seg, p.threads, p.smem, self.stream)
         else:
             err = getattr(self.lib, "qv_encode_quad_fused" + self.ctx["tag"])(
                 *self.enc_args(act), self.u, self.up, self.nb,
@@ -369,6 +388,12 @@ class Calls:
                 *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
                 self.image.data_ptr(), q, p.stages, p.cn, p.threads, p.smem,
                 self.stream)
+        elif self.design() == "cluster":
+            p = self.plan_c
+            err = self.lib.qv_encode_q1_wgk(
+                *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
+                self.image.data_ptr(), q, p.stages, p.cluster, p.seg,
+                p.threads, p.smem, self.stream)
         else:
             err = getattr(self.lib, "qv_encode_q1" + self.ctx["tag"])(
                 *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
@@ -576,6 +601,8 @@ def entry(calls, key, ctx) -> str:
         stem += "wgc" if key == "B" else "_wgc"
     elif calls.design() == "split":
         stem += "wgx" if key == "B" else "_wgx"
+    elif calls.design() == "cluster":
+        stem += "wgk" if key == "B" else "_wgk"
     elif key == "B":
         stem += "fused"
     return stem + ctx["tag"]
@@ -598,6 +625,9 @@ def bc_symbols(plan, trunk, up) -> tuple:
     if plan is not None and plan.design == "split":
         return (("qv_encode_quad_wgx_kernel", "qv_encode_q_wgx_kernel"),
                 f"ILi{up}ELi{plan.cn}EE")
+    if plan is not None and plan.design == "cluster":
+        return (("qv_encode_quad_wgk_kernel", "qv_encode_q_wgk_kernel"),
+                f"ILi{plan.cn}EE")
     return ((f"qv_encode_quad{tag}_kernel", f"qv_encode_q{tag}_kernel"),
             "ILi64E")
 
@@ -624,6 +654,12 @@ def bench(name, lib, log, so, row_blob, ctx) -> None:
                      f"block of {threads}, {blocks_per_sm(regs, threads, smem)}"
                      f" blocks an SM, {size} SASS instructions, MUFU "
                      f"{dict(sorted(mufu.items()))}")
+    if calls.design() == "cluster":
+        b, c = (active_clusters(lib, calls.up, plan, quad_)
+                for plan, quad_ in ((calls.plan_b, True),
+                                    (calls.plan_c, False)))
+        parts.append(f"active clusters of {calls.plan_b.cluster} blocks: B "
+                     f"{b}, C {c}")
     print(f"{name}: " + "; ".join(parts), flush=True)
     serial = sorted({re.sub(r".*function '\S*?(qv_\w+_kernel)(ILi\d+E)?.*",
                             r"\1\2", line)
@@ -668,9 +704,58 @@ def bench(name, lib, log, so, row_blob, ctx) -> None:
               "events a call): " + "; ".join(rows), flush=True)
 
 
+# the ring's slots and the promoted segments (k-steps) the sweep of the
+# cluster design tries (--slots, --segments); 1024 promotes only at a
+# layer's end
+SLOTS = (2, 3, 4, 6, 8)
+SEGMENTS = (1, 2, 4, 8, 16, 1024)
+
+
+def cluster_plans(up, t) -> list:
+    """[(label, B's plan, C's plan)] of the cluster design at padded width
+    ``up``: every cluster C <= 8 whose columns a block (Up / C) the package
+    compiles (fused_infer._WGK_COLUMNS), each ring of SLOTS and each
+    promoted segment of SEGMENTS."""
+    out = []
+    for cluster in range(8, 0, -1):
+        if up % cluster or up // cluster not in fi._WGK_COLUMNS:
+            continue
+        for stages in SLOTS:
+            for seg in SEGMENTS:
+                plans = [fi.LaunchPlan("cluster", fi._WG_THREADS,
+                                       fi._wgk_smem(up, t, q, stages,
+                                                    cluster),
+                                       ks=1, stages=stages,
+                                       cn=up // cluster, cluster=cluster,
+                                       seg=seg) for q in (True, False)]
+                out.append((f"cluster {cluster} ({up // cluster} columns a "
+                            f"block, {64 * up // cluster} B slabs) stages "
+                            f"{stages} seg {seg}", *plans))
+    return out
+
+
+def split_plans(up, t) -> list:
+    """[(label, B's plan, C's plan)] of the split design at padded width
+    ``up``: every chunk width that divides a warpgroup's columns, each
+    ring of fused_infer._WG_STAGES."""
+    out = []
+    for cn in range(256, 7, -8):
+        if (up // 2) % cn:
+            continue
+        for stages in fi._WG_STAGES:
+            plans = [fi.LaunchPlan("split", fi._WG_THREADS,
+                                   fi._wgx_smem(up, t, q, stages, cn),
+                                   ks=1, stages=stages, cn=cn)
+                     for q in (True, False)]
+            out.append((f"split cn {cn} ({2 * 64 * cn} B slabs) stages "
+                        f"{stages}", *plans))
+    return out
+
+
 def sweep_plans(calls, trunk, up, t) -> list:
     """[(label, B's plan, C's plan)] of every plan of the design
-    launch_plan picks here."""
+    launch_plan picks here (the cluster design's at a width the split
+    design also takes, 832, and the split design's)."""
     out = []
     if calls.design() == "wgmma":
         for ks in fi._WG_SLABS[up]:
@@ -693,17 +778,10 @@ def sweep_plans(calls, trunk, up, t) -> list:
                         f"{stages}", *plans))
         return out
     if calls.design() == "split":
-        for cn in range(256, 7, -8):
-            if (up // 2) % cn:
-                continue
-            for stages in fi._WG_STAGES:
-                plans = [fi.LaunchPlan("split", fi._WG_THREADS,
-                                       fi._wgx_smem(up, t, q, stages, cn),
-                                       ks=1, stages=stages, cn=cn)
-                         for q in (True, False)]
-                out.append((f"cn {cn} ({2 * 64 * cn} B slabs) stages "
-                            f"{stages}", *plans))
-        return out
+        return split_plans(up, t)
+    if calls.design() == "cluster":
+        return cluster_plans(up, t) + (split_plans(up, t)
+                                       if up in fi._WGX_SLABS else [])
     ncw = fi._st_ncw(up)
     for mt in fi._ST_TILES[ncw]:
         for ks in fi._st_slabs(up, trunk):
@@ -723,6 +801,7 @@ def sweep(name, lib, ctx) -> None:
     if calls.design() == "resident":
         print("sweep: launch_plan keeps the resident design here", flush=True)
         return
+    design = calls.design()
     trunk, up, nb = ctx["trunk"], calls.up, calls.nb
     t = OPTIMAL.scan.n_taus
     limit = _cuda.library().qv_max_dynamic_smem()
@@ -733,6 +812,9 @@ def sweep(name, lib, ctx) -> None:
         if plans[0].smem > limit:
             continue
         calls.plan_b, calls.plan_c = plans
+        if not hasattr(lib, entry(calls, "B", ctx)):
+            continue                  # a design this build lacks
+        (sym_b, sym_c), _ = bc_symbols(plans[0], trunk, up)
         if calls.image is not None:
             calls.image = fi._wg_image(calls.blob, up, nb, t,
                                        plans[0].cn or None)
@@ -747,15 +829,48 @@ def sweep(name, lib, ctx) -> None:
         err_b = max(float((g - r).abs().max()) for g, r in
                     zip(ctx["b_out"][:1] + ctx["b_out"][2:],
                         ctx["b_plain"][:1] + ctx["b_plain"][2:]))
+        verdict = gate_b(ctx)
         err_c = float((ctx["q_out"] - ctx["q_plain"]).abs().max())
+        err64 = float((ctx["q_out"].double() - ctx["q64"]).abs().max())
         mark = " (launch_plan's)" if plans[0] == chosen[0] else ""
+        extra = ""
+        if plans[0].design == "cluster":
+            extra = (f", active clusters B "
+                     f"{active_clusters(lib, up, plans[0], True)} / C "
+                     f"{active_clusters(lib, up, plans[1], False)}")
         rows.append(f"{label}{mark}: B "
                     f"{kernel_ms(calls.b, sym_b):.4f} (means/raw err "
-                    f"{err_b:.1e}), C {kernel_ms(calls.c, sym_c):.4f}"
-                    f" (err {err_c:.1e}), smem B {plans[0].smem}")
+                    f"{err_b:.1e}, {verdict}), C "
+                    f"{kernel_ms(calls.c, sym_c):.4f} (err {err_c:.1e}, vs "
+                    f"float64 {err64:.2e}), smem B {plans[0].smem}{extra}")
     calls.plan_b, calls.plan_c = chosen
-    print(f"sweep of {name} at {trunk}, {up} units (padded) x {nb} blocks, "
-          f"device ms at N={N}: " + "; ".join(rows), flush=True)
+    plain64 = float((ctx["q_plain"].double() - ctx["q64"]).abs().max())
+    rows.append(f"the plain version's q vs float64 {plain64:.2e}")
+    print(f"sweep of {name} at {trunk}, {up} units (padded) x {nb} blocks "
+          f"({design}), device ms at N={N}: " + "; ".join(rows), flush=True)
+
+
+def gate_b(ctx) -> str:
+    """Whether B's outputs (ctx["b_out"]) hold chip_smoke's CHECKS against
+    the plain version's."""
+    got, ref = ctx["b_out"], ctx["b_plain"]
+    try:
+        check_close("B", got[0].T, ref[0].T, "mean")
+        check_close("B", got[1].T, ref[1].T, "var", ref[0].T)
+        check_close("B", got[2].T, ref[2].T, "raw")
+        return "within CHECKS"
+    except AssertionError as exc:
+        return f"OUTSIDE CHECKS ({exc})"
+
+
+def active_clusters(lib, up, plan, quad) -> int:
+    """Clusters of the plan's kernel B (quad) or C that the card holds at
+    once (qv_encode_wgk_clusters)."""
+    n = ctypes.c_int(0)
+    _cuda.check(lib.qv_encode_wgk_clusters(up, plan.cluster, int(quad),
+                                           plan.smem, ctypes.byref(n)),
+                "cluster occupancy")
+    return n.value
 
 
 def wrappers(dev, dtype, units=60, blocks=2) -> None:
@@ -832,9 +947,20 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="time B and C under every plan of launch_plan's "
                     "design that fits")
+    ap.add_argument("--slots", default=None,
+                    help="the cluster design's rings --sweep tries, "
+                    "separated by commas (SLOTS)")
+    ap.add_argument("--segments", default=None,
+                    help="the cluster design's promoted segments --sweep "
+                    "tries, separated by commas (SEGMENTS)")
     ap.add_argument("sources", nargs="*", help="edited copies of the "
                     "package's encode_quad.cu or summarize.cu")
     args = ap.parse_args()
+    global SLOTS, SEGMENTS
+    if args.slots:
+        SLOTS = tuple(map(int, args.slots.split(",")))
+    if args.segments:
+        SEGMENTS = tuple(map(int, args.segments.split(",")))
     dev = torch.device("cuda", 0)
     dtypes = (("float32", "bfloat16") if args.dtype == "both"
               else (args.dtype,))

@@ -14,14 +14,14 @@ directory, and this one).
   channel), both input layouts, at each trunk of ``COMPAT``: OPTIMAL in
   both trunks (the resident kernels), 256 units x 2 blocks in bf16 (the
   streamed bf16 kernels), 256 x 2, 100 x 2 and 60 x 7 in float32 (the wgmma
-  kernels), 320 x 2 (the chunked kernels) and 833 x 1 in float32 (the
-  streamed float32 kernels at the narrowest width they serve, 896
-  padded) -- ``init_params`` seed 0 -- from checkout a; then b's, held
-  bit for bit against them (exit 1 if any differs).
+  kernels), 320 x 2 (the chunked kernels) and 448 x 1 and 768 x 1 in
+  float32 (the split kernels) -- ``init_params`` seed 0 -- from checkout
+  a; then b's, held bit for bit against them (exit 1 if any differs).
 * ``export-pt2`` / ``run-pt2``: a's fused serving ``.pt2`` of each trunk of
   ``PT2``: bf16 at OPTIMAL (F.pt2), float32 at 100 x 2 (F-f32-100x2.pt2),
-  at 320 x 2 (F-f32-320x2.pt2) and at 448 x 1 (F-f32-448x1.pt2: widths
-  whose float32 design b may have changed), run by b and held bit for bit
+  at 320 x 2 (F-f32-320x2.pt2), at 448 x 1 (F-f32-448x1.pt2) and at 833
+  x 1 (F-f32-833x1.pt2: widths whose float32 design b may have changed),
+  run by b and held bit for bit
   against b's kernel B on the same rows: an artifact of a's weight-blob
   layout still runs on b's op.
 
@@ -46,11 +46,11 @@ PT2_SHAPE = (1, 24, 20, 4)
 # (trunk, units, blocks): the kernels whose outputs must not move
 COMPAT = (("float32", 60, 2), ("bfloat16", 60, 2), ("bfloat16", 256, 2),
           ("float32", 256, 2), ("float32", 100, 2), ("float32", 60, 7),
-          ("float32", 320, 2), ("float32", 833, 1))
+          ("float32", 320, 2), ("float32", 448, 1), ("float32", 768, 1))
 # (trunk, units, blocks, the artifact's suffix)
 PT2 = (("bfloat16", 60, 2, ""), ("float32", 100, 2, "-f32-100x2"),
        ("float32", 320, 2, "-f32-320x2"),
-       ("float32", 448, 1, "-f32-448x1"))
+       ("float32", 448, 1, "-f32-448x1"), ("float32", 833, 1, "-f32-833x1"))
 
 
 def tuner(trunk: str, units: int = 60, blocks: int = 2) -> FineTuner:
