@@ -318,29 +318,32 @@ The sweep (qbold_vi_tpu_torch/sweep.py), after phase 42:
    ``dryrun --devices 2`` with its population stage.
 Kernels B and C past the resident blob (csrc/encode_stream_wg.cu in
 float32 up to 256 units, encode_stream_wgc.cu at 320 and 384,
-encode_stream_wgx.cu at 448-768, encode_stream_wgk.cu at 832-1280,
-csrc/encode_stream.cuh past it and in bf16), run after phase 24:
+encode_stream_wgx.cu at 448-768, encode_stream_wgk.cu at 832-1472,
+csrc/encode_stream.cuh where no wgmma block fits beside many taus and in
+bf16), run after phase 24:
 47. OPTIMAL's 1,032,192-voxel request at 256 units x 2 blocks in float32
    (the wgmma kernels) and bf16, at 320 x 2 and 384 x 2 in float32 (the
    chunked kernels), at 448 x 1 (the split kernels), at 833 x 1 (the
-   cluster kernels, 896 padded) and at 1281 x 1 (the streamed float32
-   kernels, 1344 padded), through posterior_maps under "auto" by
-   quadrature (B) and by method="mc" (C, then D), the counts set to 0
-   before and read after each, maps finite; B and C against their plain
-   versions at 50,003 voxels (float32 at CHECKS; bf16 C within Q16_ULPS
-   ulps, B against the plain quadrature of C's q at CHECKS), and so at
-   832 x 1 (init_params seed 832: the 3xTF32 drift that the cluster
-   kernels' promoted sums repair) and 1280 x 1 (the cluster kernels'
-   widest); their device ms at full width beside their bounds, their
-   plain versions' ms, and (at 256 x 2, 320 x 2, 448 x 1 and 833 x 1) the
-   fused route's ms a call beside the "off" route's (the encoder, then A
-   or D) on the same device request; the same request in float32 at 100 x
-   2 (B and C) and 60 x 7 (B), whose resident blobs do not fit (the wgmma
-   kernels), each kernel held against its plain version on the whole
-   request, its ms beside its bound; the wgmma, chunked, split and
-   cluster B and C hold HGMMA in the SASS. The kernels line gives each
-   design's B and C (B-wgmma, C-wgmma, B-chunked, C-chunked and at 384 x
-   2, B-split, C-split, B-cluster, C-cluster, B-stream, C-stream,
+   cluster kernels, 896 padded), at 1281 x 1 (the cluster kernels with a
+   block's columns in two output chunks, 1344 padded) and at 768 x 1 on a
+   scan of 51 taus (the streamed float32 kernels), through posterior_maps
+   under "auto" by quadrature (B) and by method="mc" (C, then D), the
+   counts set to 0 before and read after each, maps finite; B and C
+   against their plain versions at 50,003 voxels (float32 at CHECKS; bf16
+   C within Q16_ULPS ulps, B against the plain quadrature of C's q at
+   CHECKS), and so at 832 x 1 (init_params seed 832: the 3xTF32 drift
+   that the cluster kernels' promoted sums repair), 1280 x 1 (the widest
+   of one product a block) and 1472 x 1 (the cluster kernels' widest);
+   their device ms at full width beside their bounds, their plain
+   versions' ms, and (at 256 x 2, 320 x 2, 448 x 1, 833 x 1 and 1281 x 1)
+   the fused route's ms a call beside the "off" route's (the encoder, then
+   A or D) on the same device request; the same request in float32 at 100
+   x 2 (B and C) and 60 x 7 (B), whose resident blobs do not fit (the
+   wgmma kernels), each kernel held against its plain version on the whole
+   request, its ms beside its bound; the wgmma, chunked, split and cluster
+   B and C hold HGMMA in the SASS. The kernels line gives each design's B
+   and C (B-wgmma, C-wgmma, B-chunked, C-chunked and at 384 x 2, B-split,
+   C-split, B-cluster, C-cluster and at 1281 x 1, B-stream, C-stream,
    B-bf16-stream, C-bf16-stream) their launches on this path.
 No phase 43-46 accepts a trial whose status is "failed". The kernels line
 gives S and F their launches on the population path under
@@ -2158,15 +2161,19 @@ PAST_WIDE_TRUNK = (384, 2)           # float32: the chunked design's widest
 SPLIT_TRUNK = (448, 1)               # float32 past 384: the split design
 CLUSTER_TRUNK = (833, 1)             # float32 past 768 units: the cluster
 DRIFT_TRUNK = (832, 1)               # the 3xTF32 drift of 832 full units
-CLUSTER_WIDE_TRUNK = (1280, 1)       # the cluster design's widest
-STREAM_TRUNK = (1281, 1)             # float32: the narrowest streamed width
+CLUSTER_WIDE_TRUNK = (1280, 1)       # the widest of one product a block
+CHUNK_TRUNK = (1281, 1)              # past 1280: a block's columns chunked
+CHUNK_WIDE_TRUNK = (1472, 1)         # the cluster design's widest
+STREAM_TRUNK = (768, 1)              # float32 on STREAM_TAU_STEP's taus:
+STREAM_TAU_STEP = 0.0016             # 51 taus, whose staged rows leave no
+                                     # wgmma block room: the streamed design
 FAULT_TRUNK = (100, 2)               # float32: the blob does not fit
 DEEP_TRUNK = (60, 7)                 # float32: OPTIMAL's width, 7 blocks
 N_WIDE_CMP = 50_003                  # kernels vs plain at wide widths
 # phase 47's kernels by design: the float32 wgmma kernels up to 256 units
 # (padded), the chunked wgmma ones at 320 and 384, the split wgmma ones at
-# 448-768, the cluster wgmma ones at 832-1280, the streamed ones past them
-# in float32 and past 128 in bf16
+# 448-768, the cluster wgmma ones at 832-1472, the streamed ones in float32
+# where many taus leave no wgmma block room and past 128 units in bf16
 WIDE_SYMBOLS = {
     ("B", "wgmma"): "qv_encode_quad_wg_kernel",
     ("C", "wgmma"): "qv_encode_q_wg_kernel",
@@ -2191,19 +2198,20 @@ WIDE_KINDS = {"wgmma": ("encode_stream_wg.cu", "wgmma_launches", "-wgmma"),
                               "-bf16-stream")}
 
 
-def wide_kind_expected(units, trunk) -> str:
+def wide_kind_expected(units, trunk, n_taus) -> str:
     """The design phase 47 expects at this width: bf16 streams past 128
-    units; float32 takes wgmma up to 256 (padded), the chunked wgmma at 320
-    and 384, the split wgmma at 448-768, the cluster wgmma at 832-1280, the
-    streamed design past them."""
+    units; float32 on 11 taus takes wgmma up to 256 (padded), the chunked
+    wgmma at 320 and 384, the split wgmma at 448-768, the cluster wgmma at
+    832-1472; on STREAM_TAU_STEP's 51 taus 768 units stream."""
     from qbold_vi_tpu_torch.ops import fused_infer as fi
 
     if trunk == "bfloat16":
         return "stream-bf16"
     up = fi._padded_width(units)
+    if n_taus > 11:
+        return "stream"
     return ("wgmma" if up <= 256 else "chunked" if up <= 384
-            else "split" if up <= 768 else "cluster" if up <= 1280
-            else "stream")
+            else "split" if up <= 768 else "cluster")
 
 
 def wide_kind(dev, units, nb, trunk, n_taus) -> str:
@@ -2231,14 +2239,15 @@ def wide_bound(key, units, nb, trunk, scan, raw_b, mvg) -> dict:
               N_FULL * 4 * (scan.n_taus + 1 + writes), rest + extra)
 
 
-def wide_tuner(dev, cfg, units, nb, trunk):
+def wide_tuner(dev, cfg, units, nb, trunk, scan=None):
     from qbold_vi_tpu_torch.models.vi import FineTuner, init_params
 
+    scan = scan or cfg.scan
     mcfg = dataclasses.replace(cfg.model, no_units=units,
                                no_intermediate_layers=nb,
                                compute_dtype=trunk)
-    t = FineTuner(mcfg, cfg.scan, device=dev)
-    t.load_state_dict(init_params(mcfg, cfg.scan,
+    t = FineTuner(mcfg, scan, device=dev)
+    t.load_state_dict(init_params(mcfg, scan,
                                   torch.Generator().manual_seed(units)))
     return t
 
@@ -2251,18 +2260,20 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
     blocks in float32 (the wgmma kernels), in bf16 (the streamed bf16
     kernels), at 320 x 2 and 384 x 2 in float32 (the chunked wgmma
     kernels), at 448 x 1 (the split wgmma kernels), at 833 x 1 (the
-    cluster wgmma kernels, 896 padded) and at 1281 x 1 in float32 (the
-    streamed kernels, at the narrowest width they serve, 1344 padded):
-    posterior_maps by quadrature (kernel B) and by method="mc" (C, then
-    D), the maps finite and of the request's shape; B and C against their
-    plain versions at N_WIDE_CMP voxels (float32 at CHECKS; bf16 C within
-    Q16_ULPS ulps, B against the plain quadrature of C's q at CHECKS);
-    device ms of B and C beside their bounds and, at 256 x 2, 320 x 2,
-    448 x 1 and 833 x 1, the "off" route's (the encoder, then kernel A or
-    D) and the fused route's ms a call by CUDA events on the same device
-    request. At 832 x 1 (init_params seed 832, the 3xTF32 drift fault) and
-    1280 x 1: B and C on the cluster kernels against their plain versions
-    at N_WIDE_CMP voxels at CHECKS. At 100 x 2 (B and C) and 60 x 7 (B)
+    cluster wgmma kernels, 896 padded), at 1281 x 1 (the cluster kernels
+    with a block's columns in two output chunks, 1344 padded) and at 768 x
+    1 on a scan of 51 taus in float32 (the streamed kernels, where the
+    staged rows leave no wgmma block room): posterior_maps by quadrature
+    (kernel B) and by method="mc" (C, then D), the maps finite and of the
+    request's shape; B and C against their plain versions at N_WIDE_CMP
+    voxels (float32 at CHECKS; bf16 C within Q16_ULPS ulps, B against the
+    plain quadrature of C's q at CHECKS); device ms of B and C beside their
+    bounds and, at 256 x 2, 320 x 2, 448 x 1, 833 x 1 and 1281 x 1, the
+    "off" route's (the encoder, then kernel A or D) and the fused route's
+    ms a call by CUDA events on the same device request. At 832 x 1
+    (init_params seed 832, the 3xTF32 drift fault), 1280 x 1 and 1472 x
+    1: B and C on the cluster kernels against their plain versions at
+    N_WIDE_CMP voxels at CHECKS. At 100 x 2 (B and C) and 60 x 7 (B)
     in float32, where the resident blob does not fit (the wgmma kernels):
     the request through posterior_maps, the kernel against its plain
     version on the whole request, its device ms beside its bound. First,
@@ -2289,19 +2300,30 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
     ranges = dict(oef_range=cfg.model.oef_range, min_oef=cfg.model.min_oef,
                   dbv_range=cfg.model.dbv_range, min_dbv=cfg.model.min_dbv,
                   dw_coeff=float(scan.dw_coeff * scan.hct))
-    req = volumes(rng, REQUESTS[0], scan.n_taus)
-    block = torch.from_numpy(req).to(dev)
-    x_full = block.reshape(-1, block.shape[-1])
-    x_cmp = torch.from_numpy(volumes(rng, (N_WIDE_CMP,), scan.n_taus)).to(dev)
+    stream_scan = dataclasses.replace(scan, tau_step=STREAM_TAU_STEP)
+    # each scan's request and comparison voxels, drawn at its first use
+    data = {}
+
+    def scan_data(sc):
+        if sc.n_taus not in data:
+            req = volumes(rng, REQUESTS[0], sc.n_taus)
+            data[sc.n_taus] = (req, torch.from_numpy(req).to(dev),
+                               torch.from_numpy(volumes(
+                                   rng, (N_WIDE_CMP,), sc.n_taus)).to(dev))
+        return data[sc.n_taus]
+
+    scan_data(scan)
     # results by (kernel, design, trunk "UxNB"); launches by (kernel, design)
     # and by trunk
     out = {"launches": collections.Counter(), "err": {}, "ms": {},
            "plain_ms": {}, "bound": {}, "routes_ms": {}, "requests": {},
            "shapes": collections.defaultdict(list)}
 
-    def main_path(t, units, nb, trunk, kind, method, key):
-        """posterior_maps of the request by `method`, kernel `key` of the
-        design `kind` counted; returns the maps."""
+    def main_path(t, units, nb, trunk, kind, method, key, req=None):
+        """posterior_maps of the request `req` (the 11-tau one by default)
+        by `method`, kernel `key` of the design `kind` counted; returns the
+        maps."""
+        req = scan_data(scan)[0] if req is None else req
         counter = f"{key}.{WIDE_KINDS[kind][1]}"
         zero_bc_counts()
         maps = infer.posterior_maps(t, req, use_first_op=True,
@@ -2326,28 +2348,33 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
             f"mean OEF {maps['oef'].mean():.4f}")
         return maps
 
-    for (units, nb), trunk, routed in ((WIDE_TRUNK, "float32", True),
-                                       (WIDE_TRUNK, "bfloat16", True),
-                                       (PAST_TRUNK, "float32", True),
-                                       (PAST_WIDE_TRUNK, "float32", False),
-                                       (SPLIT_TRUNK, "float32", True),
-                                       (CLUSTER_TRUNK, "float32", True),
-                                       (STREAM_TRUNK, "float32", False)):
-        t = wide_tuner(dev, cfg, units, nb, trunk)
-        kind = wide_kind(dev, units, nb, trunk, scan.n_taus)
-        if kind != wide_kind_expected(units, trunk):
-            raise AssertionError(f"{units} x {nb} {trunk}: plan {kind}, want "
-                                 f"{wide_kind_expected(units, trunk)}")
-        shape = f"{units}x{nb}"
+    for (units, nb), trunk, routed, sc in (
+            (WIDE_TRUNK, "float32", True, scan),
+            (WIDE_TRUNK, "bfloat16", True, scan),
+            (PAST_TRUNK, "float32", True, scan),
+            (PAST_WIDE_TRUNK, "float32", False, scan),
+            (SPLIT_TRUNK, "float32", True, scan),
+            (CLUSTER_TRUNK, "float32", True, scan),
+            (CHUNK_TRUNK, "float32", True, scan),
+            (STREAM_TRUNK, "float32", False, stream_scan)):
+        req, block, x_cmp = scan_data(sc)
+        x_full = block.reshape(-1, block.shape[-1])
+        t = wide_tuner(dev, cfg, units, nb, trunk, sc)
+        kind = wide_kind(dev, units, nb, trunk, sc.n_taus)
+        want = wide_kind_expected(units, trunk, sc.n_taus)
+        if kind != want:
+            raise AssertionError(f"{units} x {nb} {trunk} at {sc.n_taus} "
+                                 f"taus: plan {kind}, want {want}")
+        shape = f"{units}x{nb}" + ("" if sc is scan else f"-t{sc.n_taus}")
         out["shapes"][kind].append(shape)
-        enc = dict(se_idx=scan.se_idx,
+        enc = dict(se_idx=sc.se_idx,
                    multi_image=t.cfg.multi_image_normalisation,
                    activation=t.cfg.activation, n_blocks=nb, trunk=trunk,
                    mask_channel=True, input_layout="voxel")
         kw = dict(enc, mvg=t.cfg.use_mvg, **ranges)
         # ---- the main path, through the entry point -----------------------
         for method, key in (("quadrature", "B"), ("mc", "C")):
-            main_path(t, units, nb, trunk, kind, method, key)
+            main_path(t, units, nb, trunk, kind, method, key, req)
         # ---- B and C against their plain versions ------------------------
         q = fi.encode_q1_packed(x_cmp, t.encoder, **enc)
         q_ref = fi.encode_q_plain(x_cmp, t.encoder, **enc)
@@ -2393,7 +2420,7 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
         raw_b = fi.encode_quad_fused(x_full, t.encoder, **kw)[2]
         for key in "BC":
             out["bound"][(key, kind, shape)] = wide_bound(
-                key, units, nb, trunk, scan, raw_b, t.cfg.use_mvg)
+                key, units, nb, trunk, sc, raw_b, t.cfg.use_mvg)
         if routed:
             draws = infer.mc_draws(S_MC, True)
             noise = infer._flat_noise(infer.draw_noise(
@@ -2426,8 +2453,10 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
                          f"{'A' if key == 'B' else 'D'}) {o_ms:.4f} ms "
                          f"({'faster' if r_ms < o_ms else 'NOT faster'})")
             log(f"{line} on {REQUESTS[0]} [{card}]")
-    # ---- 832 x 1 and 1280 x 1: the cluster kernels against plain -------------
-    for units, nb in (DRIFT_TRUNK, CLUSTER_WIDE_TRUNK):
+    # ---- 832 x 1, 1280 x 1, 1472 x 1: the cluster kernels against plain ------
+    _, block, x_cmp = scan_data(scan)
+    x_full = block.reshape(-1, block.shape[-1])
+    for units, nb in (DRIFT_TRUNK, CLUSTER_WIDE_TRUNK, CHUNK_WIDE_TRUNK):
         t = wide_tuner(dev, cfg, units, nb, "float32")
         kind = wide_kind(dev, units, nb, "float32", scan.n_taus)
         if kind != "cluster":
@@ -2500,11 +2529,13 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
                 f"ms; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
                 f"({100 * bd['bound_ms'] / ms:.1f}%) [{card}]")
     # the kernels line: each kernel by design at the first trunk phase 47
-    # ran it at, and the chunked design again at each further trunk
+    # ran it at, and the chunked and cluster designs again at each further
+    # trunk
     entries = [(key, kind, out["shapes"][kind][0], "")
                for kind in WIDE_KINDS for key in ("B", "C")]
-    entries += [(key, "chunked", shape, f"-{shape}")
-                for shape in out["shapes"]["chunked"][1:] for key in "BC"]
+    entries += [(key, kind, shape, f"-{shape}")
+                for kind in ("chunked", "cluster")
+                for shape in out["shapes"][kind][1:] for key in "BC"]
     out["kernels"] = [{
         "name": f"{key}{WIDE_KINDS[kind][2]}{suffix}", "route": "cuda",
         "source": f"qbold_vi_tpu_torch/csrc/{WIDE_KINDS[kind][0]}",
@@ -5739,7 +5770,9 @@ def main() -> int:
                           "past_wide": PAST_WIDE_TRUNK,
                           "split": SPLIT_TRUNK,
                           "cluster": CLUSTER_TRUNK,
+                          "cluster_chunked": CHUNK_TRUNK,
                           "streamed": STREAM_TRUNK,
+                          "streamed_tau_step": STREAM_TAU_STEP,
                           "ms": {"-".join(k): v
                                  for k, v in wide["ms"].items()},
                           "routes_ms": {"-".join(k): v for k, v

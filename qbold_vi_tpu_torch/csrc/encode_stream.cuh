@@ -14,10 +14,10 @@
 // units x 2 blocks, deep trunks such as 60 x 7, 129-256 units),
 // encode_stream_wgc.cu's chunked wgmma kernels at 320 and 384 (257-384
 // units), encode_stream_wgx.cu's split wgmma kernels at 448-768 (385-768
-// units), encode_stream_wgk.cu's cluster wgmma kernels at 832-1280
-// (769-1280 units) and this kernel past them and where their blocks do
-// not fit; the bf16 trunk takes this kernel past 128 units and at depths
-// whose blob does not fit.
+// units), encode_stream_wgk.cu's cluster wgmma kernels at 832-1472
+// (769-1472 units) and this kernel where their blocks do not fit beside
+// the staged rows (many taus: 768 units on 48 taus); the bf16 trunk takes
+// this kernel past 128 units and at depths whose blob does not fit.
 //
 // Bound: at 256 units x 2 blocks the products (U T + nb U^2 + 5 U FMAs a
 // voxel, 3xTF32 in float32) take 1.69 ms of a 1.03 M-voxel request at the
@@ -73,7 +73,7 @@
 //   redesigns it on wgmma with a producer's ring, at 320 and 384
 //   encode_stream_wgc.cu in output chunks of one activation buffer, at
 //   448-768 encode_stream_wgx.cu with a layer's columns split between two
-//   warpgroups, and at 832-1280 encode_stream_wgk.cu across a cluster of
+//   warpgroups, and at 832-1472 encode_stream_wgk.cu across a cluster of
 //   blocks (PERF.md); a bf16 version on wgmma is later work.
 // MT and NCW are template constants (QV_ST_DISPATCH); depth, width and the
 // slab's k-steps are runtime values that the wrapper's plan gives

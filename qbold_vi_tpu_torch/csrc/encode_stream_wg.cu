@@ -12,8 +12,8 @@
 // Up <= 256 where the resident blob does not fit; past 256 units
 // encode_stream_wgc.cu's chunked kernels serve where they fit (320 and 384),
 // encode_stream_wgx.cu's split ones at 448-768, encode_stream_wgk.cu's
-// cluster ones at 832-1280, encode_stream.cu beyond,
-// and the bf16 trunk keeps its own kernels.
+// cluster ones at 832-1472, encode_stream.cu where their blocks do not
+// fit, and the bf16 trunk keeps its own kernels.
 //
 // Bound: at 256 units x 2 blocks the 3xTF32 products take 1.69 ms of a
 // 1.03 M-voxel request at the dense TF32 peak; the request's bytes 0.026

@@ -11,7 +11,7 @@
 // where encode_stream_wg.cu rounds. ops/fused_infer.py::launch_plan takes
 // it for the float32 trunk at Up 320 and 384; encode_stream_wgx.cu serves
 // the wider trunks (448-768), whose pass of 128 voxels does not fit,
-// encode_stream_wgk.cu 832-1280 and encode_stream.cu past them.
+// encode_stream_wgk.cu 832-1472 and encode_stream.cu where no block fits.
 //
 // Bound: at 320 units x 2 blocks the 3xTF32 products take 2.63 ms of a
 // 1.03 M-voxel request at the dense TF32 peak; the request's bytes 0.026

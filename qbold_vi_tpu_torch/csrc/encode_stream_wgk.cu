@@ -1,4 +1,4 @@
-// Kernels B and C, float32 trunk, at padded widths 832-1280 (769-1280
+// Kernels B and C, float32 trunk, at padded widths 832-1472 (769-1472
 // units at any depth): the layer's columns split across a thread-block
 // cluster of C CTAs, which together hold one pass of 128 voxels and share
 // its activation rows through distributed shared memory (DSMEM).
@@ -10,8 +10,8 @@
 // the float32 head, then B's quadrature summaries or C's q (5, N).
 // ops/fused_infer.py::launch_plan takes it for the float32 trunk at the
 // padded widths of _WGK_PLANS wherever its block fits; encode_stream_wgx.cu
-// serves 448-768, encode_stream.cu the wider trunks and the blocks that do
-// not fit (many taus).
+// serves 448-768, encode_stream.cu the blocks that do not fit (many
+// taus).
 //
 // Bound: at 833 units x 1 block the 3xTF32 products take 8.85 ms of a
 // 1.03 M-voxel request at the dense TF32 peak; the request's bytes 0.026
@@ -58,8 +58,22 @@
 //   units the split kernel's B; C's q 2.89e-5 from float64, 1.68e-5 here
 //   unpromoted, 3.5e-6 in segments of 8 k-steps, the plain version's
 //   2.19e-6; a fourth product lo * lo moved nothing). A thread holds
-//   NL / 2 sums and NL / 2 fragment registers (NL <= 160: two copies of
-//   every sum fit where one wider product's would not).
+//   NL / 2 sums and NL / 2 fragment registers up to NL = 160 (1280).
+// * Past 160 columns a CTA (1344-1472: NL 168-184) two copies of every sum
+//   do not fit a thread's registers (PR 21's split kernel spilled at 176
+//   sums), so the CTA's columns are two output chunks of C0 and NL - C0
+//   (the template's C0; 0: one product), each a wgmma.m64nCk8 product from
+//   the same A registers and the slab's columns from C0 on (32 C0 bytes
+//   into its hi and lo halves: the image is the unchunked one). All NL / 2
+//   sums a thread stay live to the layer's end, one chunk's fresh fragment
+//   at a time: a segment of S k-steps (the plan's seg) takes chunk 0's
+//   three products a k-step into the fragment, waits for them and adds it
+//   to chunk 0's sums, then chunk 1's from the same split A registers (8
+//   a k-step), so the segment's S slabs stay in the ring until chunk 1
+//   has read them (seg <= stages); the next segment's raw A values are
+//   loaded meanwhile. On the H100 a first chunk of 64 columns and
+//   segments of 2-3 k-steps ran fastest; every cluster kernel, chunked or
+//   not, reports 168 registers and spills under __launch_bounds__ (PERF.md).
 // * The head (U -> 5): each warp's partial sums over its CTA's columns on
 //   mma.sync from its own activated sums (a thread's accumulators are its
 //   A fragments of the head's k-steps), stored into the shared memory of
@@ -206,8 +220,37 @@ static __device__ __forceinline__ QvStF32::A qv_wgk_split(float4 r) {
 
 // ---- the encode -------------------------------------------------------------
 
-// NL: the output columns of a CTA (Up / C).
-template <int NL, bool QUAD>
+// One output chunk of CW columns over a segment of sl <= S k-steps in the
+// ring's slots from `slot`: three TF32 products a k-step into the fresh
+// fragment frag (scale-d 0 at the first), A the k-step's split registers,
+// B the slab's columns off .. off + CW - 1 (32 off bytes into its hi and lo
+// halves); then the fragment is added to the chunk's float32 sums.
+template <int CW, int S, int NL>
+static __device__ __forceinline__ void qv_wgk_chunk(
+    float* frag, float* sums, const QvStF32::A* a, int sl, uint32_t ring,
+    int slot, int stages, int off) {
+  qv_wg_fence_sums<CW / 2>(frag);
+  qv_wg_fence();
+#pragma unroll
+  for (int i = 0, s = slot; i < S; ++i, s = s + 1 == stages ? 0 : s + 1) {
+    if (i < sl) {
+      const uint32_t hi = ring + s * 64 * NL + 32 * off, lo = hi + 32 * NL;
+      QvWgTf32<CW>::mma(frag, a[i].lo, qv_wg_desc(hi), i != 0);
+      QvWgTf32<CW>::mma(frag, a[i].hi, qv_wg_desc(lo), 1);
+      QvWgTf32<CW>::mma(frag, a[i].hi, qv_wg_desc(hi), 1);
+    }
+  }
+  qv_wg_commit();
+  qv_wg_wait_mma();
+  qv_wg_fence_sums<CW / 2>(frag);
+#pragma unroll
+  for (int i = 0; i < CW / 2; ++i) sums[i] += frag[i];
+}
+
+// NL: the output columns of a CTA (Up / C). C0 0: one product of NL
+// columns a k-step, its sums promoted every `seg` k-steps; else two output
+// chunks of C0 and NL - C0 columns, promoted every S (= seg) k-steps.
+template <int NL, int C0, int S, bool QUAD>
 static __device__ __forceinline__ void qv_wgk_body(
     const float* __restrict__ x, long long n, int t_in, int cm, int mask,
     int se, int multi, int act, int nb, const float* __restrict__ blob,
@@ -218,7 +261,12 @@ static __device__ __forceinline__ void qv_wgk_body(
   constexpr int SA = NL + (NL % 16 == 0 ? 8 : 16);  // words a row
   constexpr int SB = 64 * NL;                       // bytes a slab
   constexpr int PASS = QV_WGK_PASS;
+  constexpr int C1 = NL - C0;  // the second chunk's columns
+  // a fresh fragment's registers: one product's, or the wider chunk's
+  constexpr int FR = C0 == 0 ? NL / 2 : (C0 > C1 ? C0 : C1) / 2;
   static_assert(NL % 8 == 0 && NL <= 256, "columns a CTA");
+  static_assert(C0 == 0 || (C0 % 8 == 0 && C1 % 8 == 0 && C1 > 0 && S > 0),
+                "chunks");
   static_assert(PASS * SA >= QV_QUAD_SCRATCH(QV_ST_ROUND), "scratch");
   extern __shared__ float4 qv_wg_smem[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(qv_wg_smem);
@@ -332,7 +380,7 @@ static __device__ __forceinline__ void qv_wgk_body(
   };
   int slot = 0;
   uint32_t phase = 0;
-  float acc[NL / 2], frag[NL / 2];
+  float acc[NL / 2], frag[FR];
   if (cl < rounds) stage((long long)cl * span);
   __syncwarp();
 #pragma unroll 1
@@ -353,34 +401,71 @@ static __device__ __forceinline__ void qv_wgk_body(
         auto kstep = [&](int k) {
           return k + k0 < kl ? k + k0 : k + k0 - kl;
         };
-        float4 raw = load(l, kstep(0));
-        int done = 0;
+        if constexpr (C0 == 0) {
+          float4 raw = load(l, kstep(0));
+          int done = 0;
 #pragma unroll 1
-        for (int k = 0; k < kl; ++k) {
-          float4 nxt = raw;
-          if (k + 1 < kl) nxt = load(l, kstep(k + 1));  // a k-step ahead
-          const QvStF32::A a = qv_wgk_split(raw);
-          const uint32_t cur = qv_wg_addr(ring + slot * SB);
-          qv_wgk_wait<false>(full + 8 * slot, phase);
-          qv_wg_fence_sums<NL / 2>(frag);
-          qv_wg_fence();
-          QvWgTf32<NL>::mma(frag, a.lo, qv_wg_desc(cur), done != 0);
-          QvWgTf32<NL>::mma(frag, a.hi, qv_wg_desc(cur + 32 * NL), 1);
-          QvWgTf32<NL>::mma(frag, a.hi, qv_wg_desc(cur), 1);
-          qv_wg_commit();
-          qv_wg_wait_mma();
-          qv_wg_fence_sums<NL / 2>(frag);
-          if (lane == 0) qv_wg_arrive(empty + 8 * slot);  // the slot is read
-          if (++slot == stages) {
-            slot = 0;
-            phase ^= 1;
-          }
-          if (++done == seg || k + 1 == kl) {  // promote the segment
+          for (int k = 0; k < kl; ++k) {
+            float4 nxt = raw;
+            if (k + 1 < kl) nxt = load(l, kstep(k + 1));  // a k-step ahead
+            const QvStF32::A a = qv_wgk_split(raw);
+            const uint32_t cur = qv_wg_addr(ring + slot * SB);
+            qv_wgk_wait<false>(full + 8 * slot, phase);
+            qv_wg_fence_sums<NL / 2>(frag);
+            qv_wg_fence();
+            QvWgTf32<NL>::mma(frag, a.lo, qv_wg_desc(cur), done != 0);
+            QvWgTf32<NL>::mma(frag, a.hi, qv_wg_desc(cur + 32 * NL), 1);
+            QvWgTf32<NL>::mma(frag, a.hi, qv_wg_desc(cur), 1);
+            qv_wg_commit();
+            qv_wg_wait_mma();
+            qv_wg_fence_sums<NL / 2>(frag);
+            if (lane == 0) qv_wg_arrive(empty + 8 * slot);  // the slot is read
+            if (++slot == stages) {
+              slot = 0;
+              phase ^= 1;
+            }
+            if (++done == seg || k + 1 == kl) {  // promote the segment
 #pragma unroll
-            for (int i = 0; i < NL / 2; ++i) acc[i] += frag[i];
-            done = 0;
+              for (int i = 0; i < NL / 2; ++i) acc[i] += frag[i];
+              done = 0;
+            }
+            raw = nxt;
           }
-          raw = nxt;
+        } else {
+          // segments of S k-steps: the segment's A values split once,
+          // chunk 0's products over its slabs, promoted, then chunk 1's
+          // from the same registers; the next segment's raw values are
+          // loaded ahead
+          float4 nxt[S];
+#pragma unroll
+          for (int i = 0; i < S; ++i)
+            nxt[i] = i < kl ? load(l, kstep(i)) : make_float4(0, 0, 0, 0);
+          const uint32_t ring_a = qv_wg_addr(ring);
+#pragma unroll 1
+          for (int k = 0; k < kl; k += S) {
+            const int sl = min(S, kl - k);
+            QvStF32::A a[S];
+#pragma unroll
+            for (int i = 0; i < S; ++i) {
+              a[i] = qv_wgk_split(nxt[i]);
+              if (k + S + i < kl) nxt[i] = load(l, kstep(k + S + i));
+            }
+            for (int i = 0, s = slot; i < sl; ++i) {  // the slabs landed
+              qv_wgk_wait<false>(full + 8 * s, phase ^ (s < slot));
+              s = s + 1 == stages ? 0 : s + 1;
+            }
+            qv_wgk_chunk<C0, S, NL>(frag, acc, a, sl, ring_a, slot, stages,
+                                    0);
+            qv_wgk_chunk<C1, S, NL>(frag, acc + C0 / 2, a, sl, ring_a, slot,
+                                    stages, C0);
+            for (int i = 0; i < sl; ++i) {  // the segment's slots are read
+              if (lane == 0) qv_wg_arrive(empty + 8 * slot);
+              if (++slot == stages) {
+                slot = 0;
+                phase ^= 1;
+              }
+            }
+          }
         }
         if (l == 0) {
           // this warp's staged rows are read: stage the next pass's
@@ -452,23 +537,24 @@ static __device__ __forceinline__ void qv_wgk_body(
 
 // Kernels B and C, one symbol each (the profile and the SASS tell them
 // from the other designs').
-template <int NL>
+template <int NL, int C0, int S>
 __global__ void __launch_bounds__(QV_WG_THREADS, 1)
     qv_encode_quad_wgk_kernel(QV_WG_ARGS, int up, int mvg, QvRanges r,
                               int stages, int seg, float* __restrict__ means,
                               float* __restrict__ vars,
                               float* __restrict__ raw) {
-  qv_wgk_body<NL, true>(x, n, t_in, cm, mask, se, multi, act, nb, blob,
-                        image, up, mvg, r, stages, seg, means, vars, raw);
+  qv_wgk_body<NL, C0, S, true>(x, n, t_in, cm, mask, se, multi, act, nb,
+                               blob, image, up, mvg, r, stages, seg, means,
+                               vars, raw);
 }
 
-template <int NL>
+template <int NL, int C0, int S>
 __global__ void __launch_bounds__(QV_WG_THREADS, 1)
     qv_encode_q_wgk_kernel(QV_WG_ARGS, int up, int stages, int seg,
                            float* __restrict__ q) {
-  qv_wgk_body<NL, false>(x, n, t_in, cm, mask, se, multi, act, nb, blob,
-                         image, up, 0, QvRanges{}, stages, seg, q, nullptr,
-                         nullptr);
+  qv_wgk_body<NL, C0, S, false>(x, n, t_in, cm, mask, se, multi, act, nb,
+                                blob, image, up, 0, QvRanges{}, stages, seg,
+                                q, nullptr, nullptr);
 }
 
 // The launch config of a cluster of `ranks` CTAs of `block` threads.
@@ -524,44 +610,51 @@ static int qv_wgk_launch(Kernel kernel, int ranks, long long n, int block,
   return (int)cudaGetLastError();
 }
 
-// kernel<NL> for the plan's columns a CTA (Up / C of each width that
-// ops/fused_infer.py::_WGK_PLANS gives, and the sweep's other clusters).
+// kernel<NL, C0, S> for the plan's columns a CTA (Up / C of each width
+// that ops/fused_infer.py::_WGK_PLANS gives, and the sweep's other
+// clusters), its first chunk's columns C0 (0: one product) and a chunked
+// plan's promoted segment S (its `seg`; 0 where C0 is 0, `seg` at run time).
 #define QV_WGK_CASES(X, kernel, ...) \
-  X(kernel, 104, __VA_ARGS__)        \
-  X(kernel, 112, __VA_ARGS__)        \
-  X(kernel, 120, __VA_ARGS__)        \
-  X(kernel, 128, __VA_ARGS__)        \
-  X(kernel, 136, __VA_ARGS__)        \
-  X(kernel, 144, __VA_ARGS__)        \
-  X(kernel, 152, __VA_ARGS__)        \
-  X(kernel, 160, __VA_ARGS__)
-#define QV_WGK_LAUNCH(kernel, NL_, ...) \
-  case NL_:                             \
-    return qv_wgk_launch(kernel<NL_>, __VA_ARGS__);
-#define QV_WGK_CHECK(up, cluster, stages, seg)                         \
-  if (stages < 2 || stages > QV_WG_MAX_STAGES || seg < 1 ||            \
-      cluster < 1 || cluster > QV_WGK_MAX_CLUSTER || up % cluster != 0) \
-    return (int)cudaErrorInvalidValue;
-#define QV_WGK_DISPATCH(kernel, up, cluster, ...)           \
-  switch (up / cluster) {                                   \
-    QV_WGK_CASES(QV_WGK_LAUNCH, kernel, cluster, __VA_ARGS__) \
-    default:                                                \
-      return (int)cudaErrorInvalidValue;                    \
-  }
+  X(kernel, 104, 0, 0, __VA_ARGS__)  \
+  X(kernel, 112, 0, 0, __VA_ARGS__)  \
+  X(kernel, 120, 0, 0, __VA_ARGS__)  \
+  X(kernel, 128, 0, 0, __VA_ARGS__)  \
+  X(kernel, 136, 0, 0, __VA_ARGS__)  \
+  X(kernel, 144, 0, 0, __VA_ARGS__)  \
+  X(kernel, 152, 0, 0, __VA_ARGS__)  \
+  X(kernel, 160, 0, 0, __VA_ARGS__)  \
+  X(kernel, 168, 64, 2, __VA_ARGS__) \
+  X(kernel, 176, 64, 3, __VA_ARGS__) \
+  X(kernel, 176, 64, 2, __VA_ARGS__) \
+  X(kernel, 184, 64, 3, __VA_ARGS__) \
+  X(kernel, 184, 64, 2, __VA_ARGS__)
+#define QV_WGK_LAUNCH(kernel, NL_, C0_, S_, ...)            \
+  if (nl == NL_ && chunk == C0_ && (C0_ == 0 || seg == S_)) \
+    return qv_wgk_launch(kernel<NL_, C0_, S_>, __VA_ARGS__);
+#define QV_WGK_CHECK(up, cluster, stages, seg, chunk)                      \
+  if (stages < 2 || stages > QV_WG_MAX_STAGES || seg < 1 ||               \
+      cluster < 1 || cluster > QV_WGK_MAX_CLUSTER || up % cluster != 0 || \
+      chunk < 0 || (chunk > 0 && seg > stages))                           \
+    return (int)cudaErrorInvalidValue;                                    \
+  const int nl = up / cluster;
+#define QV_WGK_DISPATCH(kernel, ...)                  \
+  QV_WGK_CASES(QV_WGK_LAUNCH, kernel, __VA_ARGS__)   \
+  return (int)cudaErrorInvalidValue;
 
-// The C entries: encode_stream_wgx.cu's with the cluster's CTAs and the
-// promoted segment's k-steps in place of the chunk width.
+// The C entries: encode_stream_wgx.cu's with the cluster's CTAs, the
+// promoted segment's k-steps and the first chunk's columns (0: none) in
+// place of the chunk width.
 extern "C" int qv_encode_quad_wgk(
     const float* x, long long n, int t_in, int channel_major,
     int mask_channel, int se_idx, int multi_image, int act, int up, int nb,
     const float* blob, const float* image, QvRanges r, float* means,
     float* vars, float* raw, int mvg, int stages, int cluster, int seg,
-    int block, long long smem_bytes, void* stream) {
-  QV_WGK_CHECK(up, cluster, stages, seg)
-  QV_WGK_DISPATCH(qv_encode_quad_wgk_kernel, up, cluster, n, block,
-                  smem_bytes, stream, x, n, t_in, channel_major,
-                  mask_channel, se_idx, multi_image, act, nb, blob, image,
-                  up, mvg, r, stages, seg, means, vars, raw)
+    int chunk, int block, long long smem_bytes, void* stream) {
+  QV_WGK_CHECK(up, cluster, stages, seg, chunk)
+  QV_WGK_DISPATCH(qv_encode_quad_wgk_kernel, cluster, n, block, smem_bytes,
+                  stream, x, n, t_in, channel_major, mask_channel, se_idx,
+                  multi_image, act, nb, blob, image, up, mvg, r, stages, seg,
+                  means, vars, raw)
 }
 
 extern "C" int qv_encode_q1_wgk(const float* x, long long n, int t_in,
@@ -569,37 +662,33 @@ extern "C" int qv_encode_q1_wgk(const float* x, long long n, int t_in,
                                 int se_idx, int multi_image, int act, int up,
                                 int nb, const float* blob, const float* image,
                                 float* q, int stages, int cluster, int seg,
-                                int block, long long smem_bytes,
+                                int chunk, int block, long long smem_bytes,
                                 void* stream) {
-  QV_WGK_CHECK(up, cluster, stages, seg)
-  QV_WGK_DISPATCH(qv_encode_q_wgk_kernel, up, cluster, n, block, smem_bytes,
+  QV_WGK_CHECK(up, cluster, stages, seg, chunk)
+  QV_WGK_DISPATCH(qv_encode_q_wgk_kernel, cluster, n, block, smem_bytes,
                   stream, x, n, t_in, channel_major, mask_channel, se_idx,
                   multi_image, act, nb, blob, image, up, stages, seg, q)
 }
 
-#define QV_WGK_COUNT(kernel, NL_, ranks, smem, clusters) \
-  case NL_:                                              \
-    return qv_wgk_clusters(kernel<NL_>, ranks, smem, clusters);
+#define QV_WGK_COUNT(kernel, NL_, C0_, S_, ranks, smem, clusters) \
+  if (nl == NL_ && chunk == C0_ && (C0_ == 0 || seg == S_))      \
+    return qv_wgk_clusters(kernel<NL_, C0_, S_>, ranks, smem, clusters);
 
 // Clusters of kernel B (quad) or C at this plan that the card holds at
 // once, into *clusters; returns the CUDA error.
-extern "C" int qv_encode_wgk_clusters(int up, int cluster, int quad,
+extern "C" int qv_encode_wgk_clusters(int up, int cluster, int seg,
+                                      int chunk, int quad,
                                       long long smem_bytes, int* clusters) {
   *clusters = 0;
   if (cluster < 1 || cluster > QV_WGK_MAX_CLUSTER || up % cluster != 0)
     return (int)cudaErrorInvalidValue;
+  const int nl = up / cluster;
   if (quad) {
-    switch (up / cluster) {
-      QV_WGK_CASES(QV_WGK_COUNT, qv_encode_quad_wgk_kernel, cluster,
-                   smem_bytes, clusters)
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-  }
-  switch (up / cluster) {
+    QV_WGK_CASES(QV_WGK_COUNT, qv_encode_quad_wgk_kernel, cluster,
+                 smem_bytes, clusters)
+  } else {
     QV_WGK_CASES(QV_WGK_COUNT, qv_encode_q_wgk_kernel, cluster, smem_bytes,
                  clusters)
-    default:
-      return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaErrorInvalidValue;
 }

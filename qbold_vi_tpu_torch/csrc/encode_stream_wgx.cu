@@ -11,10 +11,10 @@
 // the float32 head, then B's quadrature summaries or C's q (5, N), rounding
 // where encode_stream_wg.cu rounds. ops/fused_infer.py::launch_plan takes
 // it for the float32 trunk at Up 448-768 wherever its block fits;
-// encode_stream_wgk.cu's cluster of such blocks serves 832-1280 (at 832
+// encode_stream_wgk.cu's cluster of such blocks serves 832-1472 (at 832
 // this block fits only in 16-column pieces, which ran 2.9-3.1x slower on
 // the H100; at 896 its activation rows alone exceed the card's 232,448 B)
-// and encode_stream.cu the wider trunks.
+// and encode_stream.cu the blocks that do not fit (many taus).
 //
 // Bound: at 448 units x 1 block the 3xTF32 products take 2.60 ms of a
 // 1.03 M-voxel request at the dense TF32 peak; the request's bytes 0.026

@@ -151,12 +151,12 @@ _SIGNATURES = {
         _LL, _P],
     "qv_encode_quad_wgk": [
         _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, QvRanges, _P, _P,
-        _P, _I, _I, _I, _I, _I, _LL, _P],
+        _P, _I, _I, _I, _I, _I, _I, _LL, _P],
     "qv_encode_q1_wgk": [
         _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I,
-        _LL, _P],
+        _I, _LL, _P],
     "qv_encode_wgk_clusters": [
-        _I, _I, _I, _LL, ctypes.POINTER(ctypes.c_int)],
+        _I, _I, _I, _I, _I, _LL, ctypes.POINTER(ctypes.c_int)],
     "qv_encode_quad_stream_bf16": [
         _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, QvRanges, _P, _P, _P,
         _I, _I, _I, _I, _I, _LL, _P],

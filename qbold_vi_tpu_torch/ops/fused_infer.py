@@ -33,13 +33,14 @@ columns (``.chunked_launches``); in float32 at padded widths 448-768
 (385-768 units), csrc/encode_stream_wgx.cu, the same block with each
 layer's columns split between its two consumer warpgroups on a shared
 pass of 64 voxels (``.split_launches``); in float32 at padded widths
-832-1280 (769-1280 units), csrc/encode_stream_wgk.cu, a thread-block
+832-1472 (769-1472 units), csrc/encode_stream_wgk.cu, a thread-block
 cluster of such blocks on a pass of 128 voxels, each block holding its
-share of every layer's columns and reading the others' through
-distributed shared memory (``.cluster_launches``); and the streamed
-kernels of csrc/encode_stream.cuh everywhere else (float32 past 1280
-units or where the cluster's or split block does not fit, bf16 past 128
-units or where its blob does not fit), which stream the blob itself
+share of every layer's columns (past 160 a block, in two output chunks)
+and reading the others' through distributed shared memory
+(``.cluster_launches``); and the streamed kernels of
+csrc/encode_stream.cuh everywhere else (float32 where the cluster's or
+split block does not fit, bf16 past 128 units or where its blob does not
+fit), which stream the blob itself
 through shared memory a slab at a time (``.stream_launches`` and
 ``.stream_bf16_launches``).
 ``encode_q1_packed`` is the wrapper of kernel C, which shares B's encode
@@ -132,15 +133,24 @@ _WGX_SLABS = {448: (224, 2), 512: (128, 3), 576: (144, 3), 640: (160, 2),
 # the cluster wgmma kernels (csrc/encode_stream_wgk.cu): voxels a pass of
 # the cluster (QV_WGK_PASS), the bytes of a block's mbarriers
 # (QV_WGK_BAR_BYTES), the columns a block compiled (QV_WGK_CASES: Up / C)
-# and, for each padded width, the plan: the cluster's blocks C, the ring's
-# slots and the k-steps of a promoted segment. On the H100 8 blocks ran
-# 3-5% faster than 7 at 896, 4 slots within 1% of 2, segments of 8 k-steps
-# 1-2% faster than 4 with C's q within 3.8e-6 of float64
-# (tools/bench_stream1.py --sweep at 832, 896 and 1280; PERF.md)
+# and, for each padded width, its plans, the first that fits taken: the
+# cluster's blocks C, the ring's slots, the k-steps of a promoted segment
+# and the first of two output chunks' columns (0: one product of a
+# block's columns). At 832-1280 on the H100 8 blocks ran 3-5% faster than
+# 7 at 896, 4 slots within 1% of 2, segments of 8 k-steps 1-2% faster than
+# 4 with C's q within 3.8e-6 of float64. Past 160 columns a block
+# (1344-1472) a first chunk of 64 columns ran 1-10% faster than halves, a
+# segment of 2 k-steps in 4 slots 2-10% faster than 1 in 2, and at 1408 and
+# 1472 one of 3 in 6 slots 1-7% faster than 2 in 4 (at 1344 not); a cluster
+# of 16 blocks (88 columns a block, no chunks; 7 resident) ran 34-37%
+# slower at 1408 (tools/bench_stream1.py --sweep; PERF.md)
 _WGK_PASS = 128
 _WGK_BAR_BYTES = 256
-_WGK_COLUMNS = (104, 112, 120, 128, 136, 144, 152, 160)
-_WGK_PLANS = {up: (8, 2, 8) for up in range(832, 1281, 64)}
+_WGK_COLUMNS = (104, 112, 120, 128, 136, 144, 152, 160, 168, 176, 184)
+_WGK_PLANS = {**{up: ((8, 2, 8, 0),) for up in range(832, 1281, 64)},
+              1344: ((8, 4, 2, 64),),
+              1408: ((8, 6, 3, 64), (8, 4, 2, 64)),
+              1472: ((8, 6, 3, 64), (8, 4, 2, 64))}
 
 
 def fused_infer_available(activation: str) -> bool:
@@ -439,7 +449,8 @@ class LaunchPlan:
     ``cn``, slabs of one k-step), "cluster" (float32,
     csrc/encode_stream_wgk.cu: ``cluster`` such blocks, each ``cn`` = Up /
     ``cluster`` of every layer's columns, slabs of one k-step, the sums
-    promoted every ``seg`` k-steps) or "streamed"
+    promoted every ``seg`` k-steps; past 160 columns a block, those in two
+    output chunks of ``chunk`` and ``cn - chunk`` columns) or "streamed"
     (csrc/encode_stream.cuh: ``mt`` m-tiles -- 16 mt voxels a pass -- and
     ``ncw`` n-tiles a warp, slabs of ``ks`` k-steps, double-buffered),
     with the block's ``threads`` and dynamic shared-memory bytes
@@ -455,6 +466,7 @@ class LaunchPlan:
     cn: int = 0
     cluster: int = 0
     seg: int = 0
+    chunk: int = 0
 
 
 def _st_ncw(up: int) -> int:
@@ -558,7 +570,8 @@ def launch_plan(up: int, nb: int, t: int, t_in: int, trunk: str,
     the wgmma design's smallest ring if it fits; in float32 at ``up`` 320
     and 384 the chunked design in two slots if it fits (the staged rows
     must fit in an activation row); in float32 at the ``up`` of
-    ``_WGK_PLANS`` (832-1280) the cluster design in its plan if it fits;
+    ``_WGK_PLANS`` (832-1472) the cluster design in the first of its plans
+    that fits;
     in float32 at ``up`` 448-768 the split design in its ring
     (``_WGX_SLABS``) if it fits; else the streamed design with the largest
     pass of voxels, then the largest slab, that fits. Raises if none
@@ -591,13 +604,13 @@ def launch_plan(up: int, nb: int, t: int, t_in: int, trunk: str,
         if smem <= limit:
             return LaunchPlan("chunked", _WG_THREADS, smem, ks=ks,
                               stages=_WG_STAGES[0], cn=cn)
-    if trunk == "float32" and up in _WGK_PLANS:
-        cluster, stages, seg = _WGK_PLANS[up]
+    for cluster, stages, seg, chunk in (
+            _WGK_PLANS.get(up, ()) if trunk == "float32" else ()):
         smem = _wgk_smem(up, t, quad, stages, cluster)
         if smem <= limit:
             return LaunchPlan("cluster", _WG_THREADS, smem, ks=1,
                               stages=stages, cn=up // cluster,
-                              cluster=cluster, seg=seg)
+                              cluster=cluster, seg=seg, chunk=chunk)
     if trunk == "float32" and up in _WGX_SLABS:
         cn, stages = _WGX_SLABS[up]
         smem = _wgx_smem(up, t, quad, stages, cn)
@@ -780,7 +793,8 @@ def encode_quad_fused_op(x: torch.Tensor, blob: torch.Tensor, units: int,
             err = _cuda.library().qv_encode_quad_wgk(
                 *args, padded_units, n_blocks, blob.data_ptr(),
                 image.data_ptr(), ranges, *ptrs, int(mvg), plan.stages,
-                plan.cluster, plan.seg, plan.threads, plan.smem, stream)
+                plan.cluster, plan.seg, plan.chunk, plan.threads, plan.smem,
+                stream)
         else:
             err = _entry("qv_encode_quad_stream", trunk)(
                 *args, padded_units, n_blocks, blob.data_ptr(), ranges,
@@ -863,7 +877,7 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
             err = _cuda.library().qv_encode_q1_wgk(
                 *args, up, n_blocks, blob.data_ptr(), image.data_ptr(),
                 q.data_ptr(), plan.stages, plan.cluster, plan.seg,
-                plan.threads, plan.smem, stream)
+                plan.chunk, plan.threads, plan.smem, stream)
         else:
             err = _entry("qv_encode_q1_stream", trunk)(
                 *args, up, n_blocks, blob.data_ptr(), q.data_ptr(), plan.mt,

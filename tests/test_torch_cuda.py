@@ -81,9 +81,9 @@ def _ulp_close(got, ref, ulps, name):
     assert err <= ulps * ulp, f"{name}: {err:.3e}, {err / ulp:.2f} ulps"
 
 
-def _tuner(cfg, device):
-    tuner = FineTuner(cfg, SCAN, device=device)
-    tuner.load_state_dict(init_params(cfg, SCAN,
+def _tuner(cfg, device, scan=SCAN):
+    tuner = FineTuner(cfg, scan, device=device)
+    tuner.load_state_dict(init_params(cfg, scan,
                                       torch.Generator().manual_seed(0)))
     return tuner
 
@@ -160,17 +160,17 @@ def _design_counter(units, nb, trunk, quad, t_in):
 
 # widths and depths past the resident blob: 100 and 128 units x 2 blocks in
 # float32 (the blob does not fit), 192, 256, 320 and 384 x 2, 448, 520,
-# 800, 832, 833, 1280 and 1281 x 1 and 1024 x 2 (past 128 units), 60 x 7
-# (depth); 128 x 2 and 60 x 7 at bf16 stay resident. In float32 every
-# padded width up to 256 takes the wgmma design (csrc/encode_stream_wg.cu),
-# 320 and 384 the chunked one (csrc/encode_stream_wgc.cu), 448-768 the
-# split one (csrc/encode_stream_wgx.cu: 448 and 520), 832-1280 the cluster
-# one (csrc/encode_stream_wgk.cu: 800 and 832 at 832 padded, where 832
-# full units drifted past the gate on the split kernel; 833 at 896; 1024;
-# 1280, its widest), 1281 (1344 padded) the streamed one, whose trunk sums
-# drifted past the gate there until they were promoted each k-step.
-# N = 20,011 ends in a ragged pass and round, and channel-major at
-# N % 4 != 0.
+# 800, 832, 833, 1280, 1281, 1350 and 1472 x 1 and 1024 x 2 (past 128
+# units), 60 x 7 (depth); 128 x 2 and 60 x 7 at bf16 stay resident. In
+# float32 every padded width up to 256 takes the wgmma design
+# (csrc/encode_stream_wg.cu), 320 and 384 the chunked one
+# (csrc/encode_stream_wgc.cu), 448-768 the split one
+# (csrc/encode_stream_wgx.cu: 448 and 520), 832-1472 the cluster one
+# (csrc/encode_stream_wgk.cu: 800 and 832 at 832 padded, where 832 full
+# units drifted past the gate on the split kernel; 833 at 896; 1024; 1280,
+# the widest of one product a block; 1281, 1350 and 1472 at 1344, 1408 and
+# 1472, a block's columns in two output chunks). N = 20,011 ends in a
+# ragged pass and round, and channel-major at N % 4 != 0.
 @pytest.mark.parametrize("trunk", ["float32", "bfloat16"])
 @pytest.mark.parametrize("layout", ["voxel", "channel"])
 @pytest.mark.parametrize("units,nb,act", [
@@ -178,7 +178,8 @@ def _design_counter(units, nb, trunk, quad, t_in):
     (520, 1, "softplus"), (60, 7, "relu"), (320, 2, "gelu"),
     (384, 2, "relu"), (448, 1, "gelu"), (800, 1, "softplus"),
     (832, 1, "relu"), (833, 1, "relu"), (1024, 2, "softplus"),
-    (1280, 1, "relu"), (1281, 1, "relu")])
+    (1280, 1, "relu"), (1281, 1, "relu"), (1350, 1, "softplus"),
+    (1472, 1, "gelu")])
 def test_wide_and_deep_kernels_match_plain(cuda_device, trunk, layout, units,
                                            nb, act):
     """Kernels B and C at every width and depth against their plain
@@ -188,7 +189,7 @@ def test_wide_and_deep_kernels_match_plain(cuda_device, trunk, layout, units,
     plain version at the JAX package's bf16 gate. One launch each, counted
     under the design launch_plan picks: wgmma in float32 up to 256 units
     (padded), chunked wgmma at 320 and 384, split wgmma at 448-768,
-    cluster wgmma at 832-1280, streamed past them."""
+    cluster wgmma at 832-1472."""
     _wide_and_deep_case(cuda_device, trunk, layout, units, nb, act)
 
 
@@ -201,32 +202,45 @@ def test_deep_narrow_float32_takes_the_wgmma_design(cuda_device, layout):
     _wide_and_deep_case(cuda_device, "float32", layout, 30, 32, "softplus")
 
 
-def _wide_and_deep_case(cuda_device, trunk, layout, units, nb, act):
+@pytest.mark.parametrize("layout", ["voxel", "channel"])
+def test_many_taus_float32_takes_the_streamed_design(cuda_device, layout):
+    """768 units x 1 block in float32 on a scan of 51 taus (tau_step
+    1.6 ms): the split block does not fit beside the staged rows, so
+    kernels B and C stream (csrc/encode_stream.cu, a pass of 16 voxels),
+    held against their plain versions as
+    test_wide_and_deep_kernels_match_plain holds them."""
+    scan = dataclasses.replace(SCAN, tau_step=0.0016)
+    assert scan.n_taus == 51
+    _wide_and_deep_case(cuda_device, "float32", layout, 768, 1, "relu",
+                        scan, "stream_launches")
+
+
+def _wide_and_deep_case(cuda_device, trunk, layout, units, nb, act,
+                        scan=SCAN, want=None):
     from qbold_vi_tpu_torch.ops.quadrature import quad_tile_summaries
 
     cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=units,
                               no_intermediate_layers=nb, activation=act,
                               compute_dtype=("bfloat16" if trunk == "bfloat16"
                                              else "float32"))
-    tuner = _tuner(cfg, cuda_device)
+    tuner = _tuner(cfg, cuda_device, scan)
     rng = np.random.default_rng(units + nb)
     n = 20_011
-    x = torch.from_numpy(volume(rng, (n,), SCAN.n_taus + 1)).to(cuda_device)
+    x = torch.from_numpy(volume(rng, (n,), scan.n_taus + 1)).to(cuda_device)
     x[:, -1] = (torch.rand(n, device=cuda_device) > 0.2).float()
     if layout == "channel":
         x = x.T.contiguous()
-    kw = dict(se_idx=SCAN.se_idx, multi_image=False, activation=act,
+    kw = dict(se_idx=scan.se_idx, multi_image=False, activation=act,
               n_blocks=nb, trunk=trunk, mask_channel=True,
               input_layout=layout)
-    names = [_design_counter(units, nb, trunk, quad, SCAN.n_taus + 1)
+    names = [_design_counter(units, nb, trunk, quad, scan.n_taus + 1)
              for quad in (True, False)]
     if trunk == "float32":
         up = tfi._padded_width(units)
-        assert names == 2 * ["wgmma_launches" if up <= 256
-                             else "chunked_launches" if up <= 384
-                             else "split_launches" if up <= 768
-                             else "cluster_launches" if up <= 1280
-                             else "stream_launches"]
+        assert names == 2 * [want or ("wgmma_launches" if up <= 256
+                                      else "chunked_launches" if up <= 384
+                                      else "split_launches" if up <= 768
+                                      else "cluster_launches")]
     before = (getattr(tfi.encode_quad_fused, names[0]),
               getattr(tfi.encode_q1_packed, names[1]))
     q = tfi.encode_q1_packed(x, tuner.encoder, **kw)
@@ -1592,18 +1606,28 @@ def test_fused_artifact_at_256_units(cuda_device, tmp_path, trunk, units):
         assert torch.equal(out[key], r), key
 
 
-@pytest.mark.parametrize("refusal", ["smem", "cluster", "unbuilt"])
+_REFUSALS = [(833, "smem"), (833, "cluster"), (833, "unbuilt"),
+             (1281, "smem"), (1281, "cluster"), (1281, "unbuilt"),
+             (1281, "chunk"), (1281, "segment")]
+
+
+@pytest.mark.parametrize(
+    "units,refusal", _REFUSALS,
+    ids=[r if u == 833 else f"{u}-{r}" for u, r in _REFUSALS])
 def test_cluster_design_raises_rather_than_falling_back(cuda_device,
-                                                       monkeypatch, refusal):
-    """At 833 units x 1 block (the cluster design, 896 padded) a cluster
-    launch that cannot run raises from kernels B and C: a block past the
-    card's shared memory, a cluster of 16 blocks (past the portable 8),
-    a kernel library that does not build. No other design (split,
-    streamed) launches in its place, no plain version runs and no launch
-    is counted."""
+                                                       monkeypatch, units,
+                                                       refusal):
+    """At 833 units x 1 block (the cluster design, 896 padded) and at 1281
+    (1344 padded, a block's columns in two output chunks) a cluster launch
+    that cannot run raises from kernels B and C: a block past the card's
+    shared memory, a cluster of 16 blocks (past the portable 8), a kernel
+    library that does not build and, chunked, a first chunk or a promoted
+    segment the build does not compile. No other design (split, streamed)
+    launches in its place, no plain version runs and no launch is
+    counted."""
     from qbold_vi_tpu_torch.ops import _cuda
 
-    cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=833,
+    cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=units,
                               no_intermediate_layers=1)
     tuner = _tuner(cfg, cuda_device)
     rng = np.random.default_rng(22)
@@ -1619,8 +1643,9 @@ def test_cluster_design_raises_rather_than_falling_back(cuda_device,
     monkeypatch.setattr(tfi, "encode_quad_fused_plain", plain)
     monkeypatch.setattr(tfi, "encode_q_plain", plain)
     plan = tfi._plan
-    assert plan(896, 1, SCAN.n_taus, SCAN.n_taus + 1, "float32", True,
-                x.device).design == "cluster"
+    chosen = plan(tfi._padded_width(units), 1, SCAN.n_taus, SCAN.n_taus + 1,
+                  "float32", True, x.device)
+    assert chosen.design == "cluster" and (chosen.chunk > 0) == (units > 1280)
     wrappers = (tfi.encode_quad_fused, tfi.encode_q1_packed)
     counters = [c for c in vars(tfi.encode_quad_fused)
                 if c.endswith("launches")]
@@ -1636,8 +1661,11 @@ def test_cluster_design_raises_rather_than_falling_back(cuda_device,
         monkeypatch.setattr(_cuda, "library", unbuilt)
         match = "nvcc failed"
     else:
-        change = ({"smem": 1 << 20} if refusal == "smem"
-                  else {"cluster": 16, "cn": 56})
+        change = {"smem": {"smem": 1 << 20},
+                  "cluster": {"cluster": 16, "cn": 56} if units == 833
+                  else {"cluster": 12, "cn": 112},
+                  "chunk": {"chunk": 72},
+                  "segment": {"seg": 3, "stages": 4}}[refusal]
         monkeypatch.setattr(tfi, "_plan", lambda *a: dataclasses.replace(
             plan(*a), **change))
         match = "launch failed"

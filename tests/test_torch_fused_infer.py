@@ -192,6 +192,7 @@ WIDE_CASES = [
     ("448x1-softplus-channel", 448, 1, "softplus", "float32", "channel"),
     ("520x1-relu-voxel", 520, 1, "relu", "float32", "voxel"),
     ("896x1-relu-voxel", 896, 1, "relu", "float32", "voxel"),
+    ("1344x1-softplus-channel", 1344, 1, "softplus", "float32", "channel"),
     ("100x2-softplus-voxel-bf16", 100, 2, "softplus", "bfloat16", "voxel"),
     ("256x2-relu-channel-bf16", 256, 2, "relu", "bfloat16", "channel"),
     ("520x1-softplus-channel-bf16", 520, 1, "softplus", "bfloat16",
@@ -392,10 +393,10 @@ def _chain_in_fragments(x, encoder, *, se_idx, multi_image, activation,
     return q.reshape(-1, 8)[:n, :5].T
 
 
-def _width_tuner(units, activation="relu"):
+def _width_tuner(units, activation="relu", scan=SCAN):
     cfg = dataclasses.replace(OPT, no_units=units, activation=activation)
-    _, params = port_params(cfg, SCAN, units)
-    return cfg, port_tuner(cfg, SCAN, params)
+    _, params = port_params(cfg, scan, units)
+    return cfg, port_tuner(cfg, scan, params)
 
 
 @pytest.mark.parametrize("units", [13, 30, 60, 256])
@@ -781,13 +782,15 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
     the float32 trunk takes the wgmma design up to a padded width of 256,
     the chunked wgmma design at 320 and 384 (257-384 units, whose pass of
     128 voxels fits), the split wgmma design at 448-768 (385-768 units,
-    where it does not), the cluster wgmma design at 832-1280 (769-1280
-    units: a cluster of blocks shares a pass of 128 voxels) and the
-    streamed one past it; the bf16 trunk (half the blob) streams past 128
-    units."""
+    where it does not) and the cluster wgmma design at 832-1472 (769-1472
+    units: a cluster of blocks shares a pass of 128 voxels; past 1280 a
+    block's columns in two output chunks); the streamed one where no
+    block fits beside the staged rows of many taus; the bf16 trunk (half
+    the blob) streams past 128 units."""
     for units in (1, 13, 60, 64, 65, 100, 128, 129, 192, 200, 256, 257,
                   300, 320, 321, 384, 385, 448, 449, 520, 640, 700, 768,
-                  769, 832, 833, 1024, 1200, 1280, 1281, 1472):
+                  769, 832, 833, 1024, 1200, 1280, 1281, 1350, 1408,
+                  1472):
         up = tfi._padded_width(units)
         assert up >= units
         for nb in (1, 2, 3, 7, 12):
@@ -810,16 +813,26 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
                 assert plan.cn % 8 == 0 and plan.cn <= 256
                 assert plan.smem == tfi._wg_smem(up, 11, quad, plan.stages,
                                                  plan.ks, plan.cn)
-            elif trunk == "float32" and 832 <= up <= 1280:
+            elif trunk == "float32" and 832 <= up <= 1472:
                 assert plan.design == "cluster", (units, nb, plan)
                 assert plan.threads == tfi._WG_THREADS
-                cluster, stages, seg = tfi._WGK_PLANS[up]
-                assert (plan.cluster, plan.stages, plan.seg) == (
-                    cluster, stages, seg)
+                # the width's first plan fits at 11 taus
+                cluster, stages, seg, chunk = tfi._WGK_PLANS[up][0]
+                assert (plan.cluster, plan.stages, plan.seg, plan.chunk) == (
+                    cluster, stages, seg, chunk)
                 assert plan.cn * plan.cluster == up and plan.ks == 1
                 assert plan.cn in tfi._WGK_COLUMNS and plan.cn % 8 == 0
                 assert 2 <= plan.cluster <= 8 and seg >= 1
-                assert plan.stages in tfi._WG_STAGES
+                # past 160 columns a block: two output chunks, each a
+                # wgmma width (a multiple of 8), whose segment's slabs
+                # the ring holds at once
+                assert (chunk > 0) == (plan.cn > 160)
+                if chunk:
+                    assert chunk % 8 == 0 and 0 < chunk < plan.cn
+                    assert max(chunk, plan.cn - chunk) <= 120
+                    assert seg <= plan.stages
+                # the ring's slots: at most QV_WG_MAX_STAGES
+                assert 2 <= plan.stages <= 8
                 assert plan.smem == tfi._wgk_smem(up, 11, quad, plan.stages,
                                                   plan.cluster)
                 assert (2 * plan.cluster * tfi._ST_ROUND) % tfi._WGK_PASS == 0
@@ -850,7 +863,7 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
                              (320, 3), (384, 1), (384, 2), (384, 3),
                              (448, 1), (448, 2), (768, 1), (769, 1),
                              (832, 1), (833, 1), (1024, 2), (1280, 1),
-                             (1281, 1))}
+                             (1281, 1), (1350, 1), (1472, 1))}
     if trunk == "float32":
         assert tfi._blob_floats(128, 2, 11, trunk) == 72_280
         assert designs == {(100, 2): "wgmma", (128, 2): "wgmma",
@@ -863,7 +876,8 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
                            (768, 1): "split", (769, 1): "cluster",
                            (832, 1): "cluster", (833, 1): "cluster",
                            (1024, 2): "cluster", (1280, 1): "cluster",
-                           (1281, 1): "streamed"}
+                           (1281, 1): "cluster", (1350, 1): "cluster",
+                           (1472, 1): "cluster"}
         # at 256 x 2: two warpgroups' activation rows (132 KB) beside a
         # ring of two 16 KB slabs
         plan = tfi.launch_plan(256, 2, 11, 12, trunk, quad, H100_SMEM)
@@ -900,15 +914,39 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
         # at 1280 each block's 160 columns: 80 sums and 80 fragment
         # registers a thread
         plan = tfi.launch_plan(1280, 1, 11, 12, trunk, quad, H100_SMEM)
-        assert (plan.design, plan.cn) == ("cluster", 160)
-        # where the staged rows of many taus do not fit beside a block,
-        # and past 1280, the streamed design serves
+        assert (plan.design, plan.cn, plan.chunk) == ("cluster", 160, 0)
+        # past it (1344-1472: 168-184 columns a block) the columns are two
+        # output chunks: 84-92 sums a thread and one chunk's fragment of
+        # at most 60 registers; the shared memory is the unchunked
+        # layout's, 170-180 KB at 11 taus
+        for up, smem in ((1344, 170_048), (1408, 171_072), (1472, 180_288)):
+            plan = tfi.launch_plan(up, 1, 11, 12, trunk, quad, H100_SMEM)
+            assert (plan.design, plan.cn) == ("cluster", up // 8)
+            assert plan.chunk == tfi._WGK_PLANS[up][0][3] > 0
+            assert plan.smem == tfi._wgk_smem(up, 11, quad, plan.stages, 8)
+            assert plan.smem == smem - (0 if quad else 4 * tfi._NCONST) + (
+                plan.stages - 2) * 64 * up // 8
+        # where a width's first ring does not fit beside the staged rows
+        # of more taus, its next one does: at 1472 on 40 taus the ring of
+        # 6 slots takes 235,584 B, the ring of 4 212,032 B
+        first, then = tfi._WGK_PLANS[1472]
+        plan = tfi.launch_plan(1472, 1, 40, 41, trunk, True, H100_SMEM)
+        assert tfi._wgk_smem(1472, 40, True, first[1], 8) == 235_584
+        assert (plan.design, plan.stages, plan.seg, plan.chunk,
+                plan.smem) == ("cluster", *then[1:], 212_032)
+        # where the staged rows of many taus do not fit beside a block
+        # the streamed design serves: at 768 x 1 on 48 or 51 taus its
+        # pass of 16 voxels
         assert tfi.launch_plan(896, 1, 330, 331, trunk, quad,
-                               H100_SMEM).design == "streamed"
-        assert tfi.launch_plan(1344, 1, 11, 12, trunk, quad,
                                H100_SMEM).design == "streamed"
         assert tfi.launch_plan(448, 1, 330, 331, trunk, quad,
                                H100_SMEM).design == "streamed"
+        for t in (48, 51):
+            plan = tfi.launch_plan(768, 1, t, t + 1, trunk, quad, H100_SMEM)
+            assert (plan.design, plan.mt) == ("streamed", 1)
+        # past 1472 no block of any design fits
+        with pytest.raises(ValueError, match="no launch fits"):
+            tfi.launch_plan(1536, 1, 11, 12, trunk, quad, H100_SMEM)
     else:
         assert designs == {(100, 2): "resident", (128, 2): "resident",
                            (60, 7): "resident", (192, 2): "streamed",
@@ -920,7 +958,8 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
                            (768, 1): "streamed", (769, 1): "streamed",
                            (832, 1): "streamed", (833, 1): "streamed",
                            (1024, 2): "streamed", (1280, 1): "streamed",
-                           (1281, 1): "streamed"}
+                           (1281, 1): "streamed", (1350, 1): "streamed",
+                           (1472, 1): "streamed"}
     with pytest.raises(ValueError, match="no launch fits"):
         tfi.launch_plan(1024, 2, 11, 12, trunk, quad, 64 * 1024)
 
@@ -943,16 +982,18 @@ def _stream_walk(up, nb, t, trunk, plan):
 
 @pytest.mark.parametrize("trunk", ["float32", "bfloat16"])
 def test_streamed_slabs_unpack_to_the_encoder(trunk):
-    """At 256 units x 2 blocks in bf16 and 1344 in float32 (the streamed
-    design's widths: float32 takes the wgmma designs up to 1280),
-    the streamed kernels' slabs -- the blob's bytes copied as qv_st_body
+    """At 256 units x 2 blocks in bf16 and 768 x 2 on 51 taus in float32
+    (the streamed design's shapes: float32 takes the wgmma designs at every
+    width where the staged rows fit beside their blocks), the streamed
+    kernels' slabs -- the blob's bytes copied as qv_st_body
     copies them into a slot, then read as each warp reads its B fragments
     (lane 4g + t) -- hold every layer's weight at (n, k) exactly once:
     float32's hi / lo TF32 splits, bf16's bf16 values, zeros past U and
     T. The head's fragments and the biases, read where qv_st_blob points,
     hold the head and the biases."""
-    up = 256 if trunk == "bfloat16" else 1344
-    cfg, tuner = _width_tuner(up)
+    up = 256 if trunk == "bfloat16" else 768
+    cfg, tuner = _width_tuner(up, scan=SCAN if trunk == "bfloat16"
+                              else dataclasses.replace(SCAN, tau_step=0.0016))
     nb = cfg.no_intermediate_layers
     blob, u, _, t = tfi._weight_blob(tuner.encoder, nb, torch.device("cpu"),
                                      trunk)
@@ -1135,7 +1176,7 @@ def test_wgmma_image_unpacks_to_the_encoder(units, nb):
     wfc, _, wbs, _, _, _ = tfi._stream1_weights(tuner.encoder, nb)
     chan = _wg_slot_channel(torch.arange(8))
     cn = (tfi._WGC_SLABS[up][0] if up in tfi._WGC_SLABS
-          else up // tfi._WGK_PLANS[up][0] if up in tfi._WGK_PLANS
+          else up // tfi._WGK_PLANS[up][0][0] if up in tfi._WGK_PLANS
           else tfi._WGX_SLABS.get(up, (None,))[0])
     if up <= 256:
         assert torch.equal(tfi._wg_image(blob, up, nb, t, up),
@@ -1263,7 +1304,7 @@ def _chain_in_wgmma(x, encoder, *, se_idx, multi_image, activation,
 
 
 def _chain_in_cluster(x, encoder, *, se_idx, multi_image, activation,
-                      n_blocks, cluster, seg):
+                      n_blocks, cluster, seg, chunk=0):
     """The raw head q (5, N) by csrc/encode_stream_wgk.cu's data flow:
     a pass of 128 voxels (two warpgroups' tiles of 64, each as
     _chain_in_wgmma's) on a cluster of ``cluster`` blocks, block r
@@ -1274,10 +1315,13 @@ def _chain_in_cluster(x, encoder, *, se_idx, multi_image, activation,
     columns 8 (s mod NL / 8) + channel), block r taking a block layer's
     k-steps in turn from its own, r NL / 8; a k-step's three TF32 products
     summed exactly into a fresh fragment, added to the float32 sums every
-    ``seg`` k-steps of that order and at the layer's end; the head's
-    partial sums a
-    block over its own columns from its own activated sums, each rounded
-    to float32, added in rank order, then the bias."""
+    ``seg`` k-steps of that order and at the layer's end -- with ``chunk``,
+    a block's columns as two output chunks, 0 .. chunk - 1 and chunk .. NL
+    - 1, each read by a descriptor 32 chunk-offset bytes into the block's
+    slab and its own fragment promoted a segment at a time, chunk 0's
+    first; the head's partial sums a block over its own columns from its
+    own activated sums, each rounded to float32, added in rank order, then
+    the bias."""
     act = activation_fn(activation)
     blob, u, up, t = tfi._weight_blob(encoder, n_blocks, x.device)
     nl = up // cluster
@@ -1292,6 +1336,12 @@ def _chain_in_cluster(x, encoder, *, se_idx, multi_image, activation,
     tiles = rows.reshape(-1, 64, 8 * ks0)
     a_rows, a_slots, _, _ = _wg_thread_maps()
     chan = _wg_slot_channel(a_slots)
+    # the chunks' columns of a block (one chunk: all NL) and the bytes
+    # their descriptors start past the block's slab, hi or lo: 32 bytes a
+    # column, 8-column core-matrix groups SBO apart
+    chunks = [(0, nl)] if not chunk else [(0, chunk), (chunk, nl)]
+    assert all(32 * c0 == c0 // 8 * _WG_SBO and c0 % 8 == 0
+               for c0, _ in chunks)
     # every (block, k-step of its columns) is read by exactly one k-step
     owners = [(s // nt, s % nt) for s in range(up // 8)]
     assert sorted(owners) == [(r, j) for r in range(cluster)
@@ -1304,23 +1354,27 @@ def _chain_in_cluster(x, encoder, *, se_idx, multi_image, activation,
                       for half in range(2))
         outs = []
         for r in range(cluster):
-            cols = slice(r * nl, (r + 1) * nl)
             acc = torch.zeros(tiles.shape[0], 64, nl)
             order = [(i + r * nt * rotate) % steps for i in range(steps)]
-            for i, s in enumerate(order):
-                regs = regs_of(s)
-                hi = tfi._tf32(regs)
-                lo = tfi._tf32(regs - hi)
-                a_hi = torch.zeros(tiles.shape[0], 64, 8, dtype=torch.float64)
-                a_lo = torch.zeros_like(a_hi)
-                a_hi[:, a_rows, a_slots] = hi.double()
-                a_lo[:, a_rows, a_slots] = lo.double()
-                prod = (a_lo @ b_hi[s][:, cols] + a_hi @ b_lo[s][:, cols]
-                        + a_hi @ b_hi[s][:, cols])
-                frag = prod if i % seg == 0 else frag + prod
-                if (i + 1) % seg == 0 or i + 1 == steps:
-                    acc = acc + frag.float()    # promoted on the CUDA cores
-            outs.append(act(acc + bias[cols]))
+            for seg0 in range(0, steps, seg):
+                for c0, c1 in chunks:       # chunk 0's segment first
+                    cols = slice(r * nl + c0, r * nl + c1)
+                    for i, s in enumerate(order[seg0:seg0 + seg]):
+                        regs = regs_of(s)
+                        hi = tfi._tf32(regs)
+                        lo = tfi._tf32(regs - hi)
+                        a_hi = torch.zeros(tiles.shape[0], 64, 8,
+                                           dtype=torch.float64)
+                        a_lo = torch.zeros_like(a_hi)
+                        a_hi[:, a_rows, a_slots] = hi.double()
+                        a_lo[:, a_rows, a_slots] = lo.double()
+                        prod = (a_lo @ b_hi[s][:, cols]
+                                + a_hi @ b_lo[s][:, cols]
+                                + a_hi @ b_hi[s][:, cols])
+                        frag = prod if i == 0 else frag + prod
+                    # promoted on the CUDA cores
+                    acc[..., c0:c1] = acc[..., c0:c1] + frag.float()
+            outs.append(act(acc + bias[r * nl:(r + 1) * nl]))
         return outs
 
     bufs = layer(lambda s: tiles[:, a_rows, 8 * s + chan], ks0, 0, b0,
@@ -1359,7 +1413,7 @@ def _chain_in_cluster(x, encoder, *, se_idx, multi_image, activation,
     (100, 2, "relu"), (100, 2, "softplus"), (60, 7, "gelu"),
     (13, 3, "sigmoid"), (192, 1, "relu"), (320, 2, "relu"),
     (384, 1, "gelu"), (448, 2, "softplus"), (833, 1, "relu"),
-    (1024, 2, "softplus")])
+    (1024, 2, "softplus"), (1281, 1, "relu"), (1472, 1, "softplus")])
 def test_wgmma_chain_matches_plain(units, nb, activation):
     """The chain replayed in the wgmma kernels' data flow -- padded
     channels and all, each thread reading back only the activations it
@@ -1367,9 +1421,10 @@ def test_wgmma_chain_matches_plain(units, nb, activation):
     (fused_infer._WGC_SLABS) with own-read across the chunks and the rows
     staged in the activation rows, at 448 in the split kernels' flow (a
     layer's columns halved between the warpgroups, each reading the
-    other's half), at 896 and 1024 in the cluster kernels' flow
-    (_chain_in_cluster: each block's column share, the other blocks'
-    shares read from them, the sums promoted every _WGK_PLANS segment) --
+    other's half), at 896, 1024, 1344 and 1472 in the cluster kernels'
+    flow (_chain_in_cluster: each block's column share, the other blocks'
+    shares read from them, the sums promoted every _WGK_PLANS segment; at
+    1344 and 1472 a block's columns in the plan's two output chunks) --
     equals encode_q_plain: rtol 1e-6, atol 2e-6 (the dropped lo * lo
     terms, ~2^-22 a product), as the fragment chain."""
     cfg = dataclasses.replace(OPT, no_units=units, no_intermediate_layers=nb,
@@ -1383,9 +1438,10 @@ def test_wgmma_chain_matches_plain(units, nb, activation):
     ref = tfi.encode_q_plain(x, tuner.encoder, trunk="float32", **kw)
     up = tfi._padded_width(units)
     if up in tfi._WGK_PLANS:
-        cluster, _, seg = tfi._WGK_PLANS[up]
+        cluster, _, seg, chunk = tfi._WGK_PLANS[up][0]
+        assert (chunk > 0) == (units > 1280)
         got = _chain_in_cluster(x, tuner.encoder, cluster=cluster, seg=seg,
-                                **kw)
+                                chunk=chunk, **kw)
     else:
         cn = (tfi._WGC_SLABS.get(up) or tfi._WGX_SLABS.get(up)
               or (None,))[0]

@@ -6,7 +6,9 @@ frame, shared memory, blocks an SM and SASS instructions.
 
     python3 tools/bench_stream1.py [--dtype float32|bfloat16|both]
         [--units U] [--blocks NB] [--shapes UxNB,...] [--sweep]
-        [--slots S,...] [--segments K,...] [--only-copies]
+        [--slots S,...] [--segments K,...] [--chunks C,...]
+        [--clusters C,...]
+        [--only-copies]
         [--row-blob SRC ...]
         [--package DIR] [SRC ...]
 
@@ -46,11 +48,12 @@ copy of ``csrc/encode_stream_wgc.cu`` likewise, beside which an edited
 wgmma ones (``qv_encode_quad_wgx``, ``qv_encode_q1_wgx``, kernels
 ``qv_encode_quad_wgx_kernel`` and ``qv_encode_q_wgx_kernel``, fed the
 image in the plan's chunks; an edited copy of
-``csrc/encode_stream_wgx.cu`` likewise), at 832-1280 the cluster wgmma
+``csrc/encode_stream_wgx.cu`` likewise), at 832-1472 the cluster wgmma
 ones (``qv_encode_quad_wgk``, ``qv_encode_q1_wgk``, kernels
 ``qv_encode_quad_wgk_kernel`` and ``qv_encode_q_wgk_kernel``, fed the
-image in chunks of a block's columns, with the clusters the card holds
-at once, ``qv_encode_wgk_clusters``; an edited copy of
+image in chunks of a block's columns, past 160 columns a block computed
+in two output chunks, with the clusters the card holds at once,
+``qv_encode_wgk_clusters``; an edited copy of
 ``csrc/encode_stream_wgk.cu`` likewise) or the streamed ones
 (``qv_encode_quad_stream``,
 ``qv_encode_q1_stream``, kernels ``qv_encode_quad_stream_kernel`` and
@@ -115,12 +118,17 @@ chunked, each ring of the width's chunks and slab
 (``fused_infer._WGC_SLABS``); split, every chunk width that divides a
 warpgroup's columns and each ring (``fused_infer._WGX_SLABS`` holds the
 plan's); cluster, every cluster of at most 8 blocks whose columns a
-block the package compiles, each ring of SLOTS and each promoted segment
-of SEGMENTS (``--slots``, ``--segments``; ``fused_infer._WGK_PLANS`` holds
-the plan's), with the resident clusters. Each plan's row gives B's CHECKS
-verdict and C's distance to the float64 encode. The wgmma designs' other
-knobs are compiled in (two consumer warpgroups of 64 voxels; a pass of
-128 voxels a cluster): time another as an edited copy of
+block the package compiles, each ring of SLOTS, each promoted segment
+of SEGMENTS and, past 160 columns a block, each first output chunk of
+CHUNKS (``--slots``, ``--segments``, ``--chunks``;
+``fused_infer._WGK_PLANS`` holds the plan's; ``--clusters`` the cluster
+sizes), with the resident clusters.
+Each plan's row gives B's CHECKS verdict, C's distance to the float64
+encode and B's registers and spills (ptxas). A build's cluster
+instantiations are its ``QV_WGK_CASES``: sweep other chunks and segments
+as a copy of ``csrc/encode_stream_wgk.cu`` with more cases. The wgmma
+designs' other knobs are compiled in (two consumer warpgroups of 64
+voxels; a pass of 128 voxels a cluster): time another as an edited copy of
 ``csrc/encode_stream_wg.cu``, ``encode_stream_wgc.cu``,
 ``encode_stream_wgx.cu`` or ``encode_stream_wgk.cu`` (each build is
 swept).
@@ -355,7 +363,7 @@ class Calls:
             err = self.lib.qv_encode_quad_wgk(
                 *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
                 self.image.data_ptr(), ranges, *o, 1, p.stages, p.cluster,
-                p.seg, p.threads, p.smem, self.stream)
+                p.seg, p.chunk, p.threads, p.smem, self.stream)
         else:
             err = getattr(self.lib, "qv_encode_quad_fused" + self.ctx["tag"])(
                 *self.enc_args(act), self.u, self.up, self.nb,
@@ -393,7 +401,7 @@ class Calls:
             err = self.lib.qv_encode_q1_wgk(
                 *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
                 self.image.data_ptr(), q, p.stages, p.cluster, p.seg,
-                p.threads, p.smem, self.stream)
+                p.chunk, p.threads, p.smem, self.stream)
         else:
             err = getattr(self.lib, "qv_encode_q1" + self.ctx["tag"])(
                 *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
@@ -626,8 +634,10 @@ def bc_symbols(plan, trunk, up) -> tuple:
         return (("qv_encode_quad_wgx_kernel", "qv_encode_q_wgx_kernel"),
                 f"ILi{up}ELi{plan.cn}EE")
     if plan is not None and plan.design == "cluster":
+        chunk = getattr(plan, "chunk", None)     # an earlier build's: none
         return (("qv_encode_quad_wgk_kernel", "qv_encode_q_wgk_kernel"),
-                f"ILi{plan.cn}EE")
+                f"ILi{plan.cn}EE" if chunk is None else
+                f"ILi{plan.cn}ELi{chunk}ELi{plan.seg if chunk else 0}EE")
     return ((f"qv_encode_quad{tag}_kernel", f"qv_encode_q{tag}_kernel"),
             "ILi64E")
 
@@ -705,32 +715,50 @@ def bench(name, lib, log, so, row_blob, ctx) -> None:
 
 
 # the ring's slots and the promoted segments (k-steps) the sweep of the
-# cluster design tries (--slots, --segments); 1024 promotes only at a
-# layer's end
+# cluster design tries (--slots, --segments; 1024 promotes only at a
+# layer's end), and the first output chunk's columns (--chunks; 0: one
+# product of a block's columns); by default past 160 columns a block, 64
+# and the wider half's multiple of 8 below half
 SLOTS = (2, 3, 4, 6, 8)
 SEGMENTS = (1, 2, 4, 8, 16, 1024)
+CHUNKS = None
+CLUSTERS = (8, 7, 6, 5, 4, 3, 2, 1)
+
+
+def cluster_chunks(nl) -> tuple:
+    """The first chunk widths the sweep tries at ``nl`` columns a block."""
+    if CHUNKS is not None:
+        return tuple(c for c in CHUNKS if c < nl)
+    return (0,) if nl <= 160 else (64, nl // 16 * 8)
 
 
 def cluster_plans(up, t) -> list:
     """[(label, B's plan, C's plan)] of the cluster design at padded width
-    ``up``: every cluster C <= 8 whose columns a block (Up / C) the package
-    compiles (fused_infer._WGK_COLUMNS), each ring of SLOTS and each
-    promoted segment of SEGMENTS."""
+    ``up``: every cluster of CLUSTERS (``--clusters``; past 8 a copy that
+    allows non-portable clusters) whose columns a block (Up / C) are whole
+    k-steps, each ring of SLOTS, each promoted segment of SEGMENTS and
+    each first chunk of cluster_chunks (a chunked plan's segment no longer
+    than its ring); a plan no build compiles is skipped."""
     out = []
-    for cluster in range(8, 0, -1):
-        if up % cluster or up // cluster not in fi._WGK_COLUMNS:
+    for cluster in CLUSTERS:
+        nl = up // cluster
+        if up % cluster or nl % 8:
             continue
-        for stages in SLOTS:
-            for seg in SEGMENTS:
-                plans = [fi.LaunchPlan("cluster", fi._WG_THREADS,
-                                       fi._wgk_smem(up, t, q, stages,
-                                                    cluster),
-                                       ks=1, stages=stages,
-                                       cn=up // cluster, cluster=cluster,
-                                       seg=seg) for q in (True, False)]
-                out.append((f"cluster {cluster} ({up // cluster} columns a "
-                            f"block, {64 * up // cluster} B slabs) stages "
-                            f"{stages} seg {seg}", *plans))
+        for chunk in cluster_chunks(nl):
+            for stages in SLOTS:
+                for seg in SEGMENTS:
+                    if chunk and seg > stages:
+                        continue
+                    plans = [fi.LaunchPlan(
+                        "cluster", fi._WG_THREADS,
+                        fi._wgk_smem(up, t, q, stages, cluster), ks=1,
+                        stages=stages, cn=nl, cluster=cluster, seg=seg,
+                        chunk=chunk) for q in (True, False)]
+                    out.append((f"cluster {cluster} ({nl} columns a block"
+                                + (f" in chunks {chunk} + {nl - chunk}"
+                                   if chunk else "")
+                                + f", {64 * nl} B slabs) stages {stages} "
+                                f"seg {seg}", *plans))
     return out
 
 
@@ -792,11 +820,12 @@ def sweep_plans(calls, trunk, up, t) -> list:
     return out
 
 
-def sweep(name, lib, ctx) -> None:
+def sweep(name, lib, log, ctx) -> None:
     """--sweep: B and C by the build ``name`` under every plan of
     launch_plan's design that fits (the split design: every chunk width
     that divides a warpgroup's columns; a plan the build does not compile
-    is skipped)."""
+    is skipped), with B's registers and spills from the build's ptxas
+    report."""
     calls = Calls(lib, False, ctx)
     if calls.design() == "resident":
         print("sweep: launch_plan keeps the resident design here", flush=True)
@@ -838,6 +867,10 @@ def sweep(name, lib, ctx) -> None:
             extra = (f", active clusters B "
                      f"{active_clusters(lib, up, plans[0], True)} / C "
                      f"{active_clusters(lib, up, plans[1], False)}")
+        (sym_b, _), inst = bc_symbols(plans[0], trunk, up)
+        regs = resources(log, {"B": sym_b}, inst).get(sym_b)
+        if regs:
+            extra += f", B {regs[0]} registers ({regs[2]})"
         rows.append(f"{label}{mark}: B "
                     f"{kernel_ms(calls.b, sym_b):.4f} (means/raw err "
                     f"{err_b:.1e}, {verdict}), C "
@@ -867,8 +900,9 @@ def active_clusters(lib, up, plan, quad) -> int:
     """Clusters of the plan's kernel B (quad) or C that the card holds at
     once (qv_encode_wgk_clusters)."""
     n = ctypes.c_int(0)
-    _cuda.check(lib.qv_encode_wgk_clusters(up, plan.cluster, int(quad),
-                                           plan.smem, ctypes.byref(n)),
+    _cuda.check(lib.qv_encode_wgk_clusters(up, plan.cluster, plan.seg,
+                                           plan.chunk, int(quad), plan.smem,
+                                           ctypes.byref(n)),
                 "cluster occupancy")
     return n.value
 
@@ -953,14 +987,25 @@ def main() -> int:
     ap.add_argument("--segments", default=None,
                     help="the cluster design's promoted segments --sweep "
                     "tries, separated by commas (SEGMENTS)")
+    ap.add_argument("--clusters", default=None,
+                    help="the cluster design's blocks a cluster --sweep "
+                    "tries, separated by commas (CLUSTERS)")
+    ap.add_argument("--chunks", default=None,
+                    help="the cluster design's first output chunks "
+                    "--sweep tries (columns; 0: one product), separated by "
+                    "commas (CHUNKS)")
     ap.add_argument("sources", nargs="*", help="edited copies of the "
                     "package's encode_quad.cu or summarize.cu")
     args = ap.parse_args()
-    global SLOTS, SEGMENTS
+    global SLOTS, SEGMENTS, CHUNKS, CLUSTERS
     if args.slots:
         SLOTS = tuple(map(int, args.slots.split(",")))
     if args.segments:
         SEGMENTS = tuple(map(int, args.segments.split(",")))
+    if args.chunks:
+        CHUNKS = tuple(map(int, args.chunks.split(",")))
+    if args.clusters:
+        CLUSTERS = tuple(map(int, args.clusters.split(",")))
     dev = torch.device("cuda", 0)
     dtypes = (("float32", "bfloat16") if args.dtype == "both"
               else (args.dtype,))
@@ -989,7 +1034,7 @@ def main() -> int:
             if args.sweep:
                 for name, (lib, log, so, row_blob) in libs.items():
                     if not row_blob:
-                        sweep(name, lib, ctx)
+                        sweep(name, lib, log, ctx)
                 continue
             for name, (lib, log, so, row_blob) in libs.items():
                 bench(name, lib, log, so, row_blob, ctx)

@@ -14,14 +14,17 @@ directory, and this one).
   channel), both input layouts, at each trunk of ``COMPAT``: OPTIMAL in
   both trunks (the resident kernels), 256 units x 2 blocks in bf16 (the
   streamed bf16 kernels), 256 x 2, 100 x 2 and 60 x 7 in float32 (the wgmma
-  kernels), 320 x 2 (the chunked kernels) and 448 x 1 and 768 x 1 in
-  float32 (the split kernels) -- ``init_params`` seed 0 -- from checkout
-  a; then b's, held bit for bit against them (exit 1 if any differs).
+  kernels), 320 x 2 (the chunked kernels), 448 x 1 and 768 x 1 in
+  float32 (the split kernels), 833 x 1 and 1280 x 1 (the cluster kernels
+  of one product a block) and, on a scan of 51 taus (``TAU_STEP``), 768
+  x 1 (the streamed float32 kernels) -- ``init_params`` seed 0 -- from
+  checkout a; then b's, held bit for bit against them (exit 1 if any
+  differs).
 * ``export-pt2`` / ``run-pt2``: a's fused serving ``.pt2`` of each trunk of
   ``PT2``: bf16 at OPTIMAL (F.pt2), float32 at 100 x 2 (F-f32-100x2.pt2),
-  at 320 x 2 (F-f32-320x2.pt2), at 448 x 1 (F-f32-448x1.pt2) and at 833
-  x 1 (F-f32-833x1.pt2: widths whose float32 design b may have changed),
-  run by b and held bit for bit
+  at 320 x 2 (F-f32-320x2.pt2), at 448 x 1 (F-f32-448x1.pt2), at 833 x 1
+  (F-f32-833x1.pt2) and at 1281 x 1 (F-f32-1281x1.pt2: widths whose
+  float32 design b may have changed), run by b and held bit for bit
   against b's kernel B on the same rows: an artifact of a's weight-blob
   layout still runs on b's op.
 
@@ -46,24 +49,30 @@ PT2_SHAPE = (1, 24, 20, 4)
 # (trunk, units, blocks): the kernels whose outputs must not move
 COMPAT = (("float32", 60, 2), ("bfloat16", 60, 2), ("bfloat16", 256, 2),
           ("float32", 256, 2), ("float32", 100, 2), ("float32", 60, 7),
-          ("float32", 320, 2), ("float32", 448, 1), ("float32", 768, 1))
+          ("float32", 320, 2), ("float32", 448, 1), ("float32", 768, 1),
+          ("float32", 833, 1), ("float32", 1280, 1))
+# (trunk, units, blocks) on a scan of TAU_STEP's 51 taus
+TAU_STEP = 0.0016
+COMPAT_TAUS = (("float32", 768, 1),)
 # (trunk, units, blocks, the artifact's suffix)
 PT2 = (("bfloat16", 60, 2, ""), ("float32", 100, 2, "-f32-100x2"),
        ("float32", 320, 2, "-f32-320x2"),
-       ("float32", 448, 1, "-f32-448x1"), ("float32", 833, 1, "-f32-833x1"))
+       ("float32", 448, 1, "-f32-448x1"), ("float32", 833, 1, "-f32-833x1"),
+       ("float32", 1281, 1, "-f32-1281x1"))
 
 
-def tuner(trunk: str, units: int = 60, blocks: int = 2) -> FineTuner:
+def tuner(trunk: str, units: int = 60, blocks: int = 2,
+          scan=OPTIMAL.scan) -> FineTuner:
     cfg = dataclasses.replace(OPTIMAL.model, compute_dtype=trunk,
                               no_units=units, no_intermediate_layers=blocks)
-    t = FineTuner(cfg, OPTIMAL.scan, device="cuda")
-    t.load_state_dict(init_params(cfg, OPTIMAL.scan,
+    t = FineTuner(cfg, scan, device="cuda")
+    t.load_state_dict(init_params(cfg, scan,
                                   torch.Generator().manual_seed(0)))
     return t
 
 
-def kernel_b(t, x, trunk, layout):
-    cfg, scan = t.cfg, OPTIMAL.scan
+def kernel_b(t, x, trunk, layout, scan=OPTIMAL.scan):
+    cfg = t.cfg
     return fi.encode_quad_fused(
         x, t.encoder, se_idx=scan.se_idx, multi_image=False,
         activation=cfg.activation, n_blocks=cfg.no_intermediate_layers,
@@ -74,25 +83,31 @@ def kernel_b(t, x, trunk, layout):
 
 
 def outputs() -> dict:
-    rng = np.random.default_rng(0)
-    x = rng.uniform(50, 150, size=(N, 12)).astype(np.float32)
-    x[:, -1] = rng.uniform(size=N) > 0.2
-    x = torch.from_numpy(x).cuda()
     out = {}
-    for trunk, units, blocks in COMPAT:
-        t = tuner(trunk, units, blocks)
-        for layout in ("voxel", "channel"):
-            xi = x if layout == "voxel" else x.T.contiguous()
-            b = kernel_b(t, xi, trunk, layout)
-            q = fi.encode_q1_packed(
-                xi, t.encoder, se_idx=OPTIMAL.scan.se_idx, multi_image=False,
-                activation=t.cfg.activation,
-                n_blocks=t.cfg.no_intermediate_layers, trunk=trunk,
-                mask_channel=True, input_layout=layout)
-            tag = (trunk if (units, blocks) == (60, 2)
-                   else f"{trunk}-{units}x{blocks}")
-            for k, v in zip(("means", "vars", "raw", "q"), list(b) + [q]):
-                out[f"{tag}-{layout}-{k}"] = v.cpu().numpy()
+    many = dataclasses.replace(OPTIMAL.scan, tau_step=TAU_STEP)
+    for scan, trunks in ((OPTIMAL.scan, COMPAT), (many, COMPAT_TAUS)):
+        rng = np.random.default_rng(0)
+        x = rng.uniform(50, 150, size=(N, scan.n_taus + 1)).astype(
+            np.float32)
+        x[:, -1] = rng.uniform(size=N) > 0.2
+        x = torch.from_numpy(x).cuda()
+        for trunk, units, blocks in trunks:
+            t = tuner(trunk, units, blocks, scan)
+            for layout in ("voxel", "channel"):
+                xi = x if layout == "voxel" else x.T.contiguous()
+                b = kernel_b(t, xi, trunk, layout, scan)
+                q = fi.encode_q1_packed(
+                    xi, t.encoder, se_idx=scan.se_idx, multi_image=False,
+                    activation=t.cfg.activation,
+                    n_blocks=t.cfg.no_intermediate_layers, trunk=trunk,
+                    mask_channel=True, input_layout=layout)
+                tag = (trunk if (units, blocks) == (60, 2)
+                       else f"{trunk}-{units}x{blocks}")
+                if scan is many:
+                    tag += f"-t{scan.n_taus}"
+                for k, v in zip(("means", "vars", "raw", "q"),
+                                list(b) + [q]):
+                    out[f"{tag}-{layout}-{k}"] = v.cpu().numpy()
     return out
 
 
