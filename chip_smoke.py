@@ -2164,16 +2164,23 @@ DRIFT_TRUNK = (832, 1)               # the 3xTF32 drift of 832 full units
 CLUSTER_WIDE_TRUNK = (1280, 1)       # the widest of one product a block
 CHUNK_TRUNK = (1281, 1)              # past 1280: a block's columns chunked
 CHUNK_WIDE_TRUNK = (1472, 1)         # the cluster design's widest
-STREAM_TRUNK = (768, 1)              # float32 on STREAM_TAU_STEP's taus:
-STREAM_TAU_STEP = 0.0016             # 51 taus, whose staged rows leave no
-                                     # wgmma block room: the streamed design
+DENSE_TRUNK = (768, 1)               # float32 on DENSE_TAU_STEP's 51 taus,
+DENSE_TAU_STEP = 0.0016              # whose staged rows leave the split
+                                     # block no room of their own: its
+                                     # shared rows
+DENSE_WIDE_TRUNK = (1472, 1)         # the cluster's shared rows on
+DENSE_WIDE_TAU_STEP = 0.000635       # 128 taus (raised until they came)
+STREAM_TRUNK = (320, 2)              # float32 on STREAM_TAU_STEP's 330
+STREAM_TAU_STEP = 0.000246           # taus, whose staged row is wider than
+                                     # an activation row: the streamed design
 FAULT_TRUNK = (100, 2)               # float32: the blob does not fit
 DEEP_TRUNK = (60, 7)                 # float32: OPTIMAL's width, 7 blocks
 N_WIDE_CMP = 50_003                  # kernels vs plain at wide widths
 # phase 47's kernels by design: the float32 wgmma kernels up to 256 units
 # (padded), the chunked wgmma ones at 320 and 384, the split wgmma ones at
 # 448-768, the cluster wgmma ones at 832-1472, the streamed ones in float32
-# where many taus leave no wgmma block room and past 128 units in bf16
+# where a staged row of many taus is wider than the block's activation row
+# and past 128 units in bf16
 WIDE_SYMBOLS = {
     ("B", "wgmma"): "qv_encode_quad_wg_kernel",
     ("C", "wgmma"): "qv_encode_q_wg_kernel",
@@ -2200,18 +2207,20 @@ WIDE_KINDS = {"wgmma": ("encode_stream_wg.cu", "wgmma_launches", "-wgmma"),
 
 def wide_kind_expected(units, trunk, n_taus) -> str:
     """The design phase 47 expects at this width: bf16 streams past 128
-    units; float32 on 11 taus takes wgmma up to 256 (padded), the chunked
-    wgmma at 320 and 384, the split wgmma at 448-768, the cluster wgmma at
-    832-1472; on STREAM_TAU_STEP's 51 taus 768 units stream."""
+    units; float32 takes wgmma up to 256 (padded), the chunked wgmma at 320
+    and 384, the split wgmma at 448-768, the cluster wgmma at 832-1472
+    (a block's Up / 8 columns) wherever a staged row of ``n_taus`` (8
+    ceil(T / 8) channels) fits in the block's activation row, with rows of
+    their own or, many taus, in the activation rows; else it streams."""
     from qbold_vi_tpu_torch.ops import fused_infer as fi
 
     if trunk == "bfloat16":
         return "stream-bf16"
     up = fi._padded_width(units)
-    if n_taus > 11:
-        return "stream"
-    return ("wgmma" if up <= 256 else "chunked" if up <= 384
+    kind = ("wgmma" if up <= 256 else "chunked" if up <= 384
             else "split" if up <= 768 else "cluster")
+    columns = up // 8 if kind == "cluster" else up
+    return kind if -(-n_taus // 8) * 8 <= columns else "stream"
 
 
 def wide_kind(dev, units, nb, trunk, n_taus) -> str:
@@ -2261,19 +2270,23 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
     kernels), at 320 x 2 and 384 x 2 in float32 (the chunked wgmma
     kernels), at 448 x 1 (the split wgmma kernels), at 833 x 1 (the
     cluster wgmma kernels, 896 padded), at 1281 x 1 (the cluster kernels
-    with a block's columns in two output chunks, 1344 padded) and at 768 x
-    1 on a scan of 51 taus in float32 (the streamed kernels, where the
-    staged rows leave no wgmma block room): posterior_maps by quadrature
+    with a block's columns in two output chunks, 1344 padded), at 768 x 1
+    on a scan of 51 taus in float32 (the split kernels with the staged rows
+    in the activation rows, where no buffer of their own fits beside the
+    block) and at 320 x 2 on 330 taus (the streamed kernels, where a
+    staged row is wider than an activation row): posterior_maps by quadrature
     (kernel B) and by method="mc" (C, then D), the maps finite and of the
     request's shape; B and C against their plain versions at N_WIDE_CMP
     voxels (float32 at CHECKS; bf16 C within Q16_ULPS ulps, B against the
     plain quadrature of C's q at CHECKS); device ms of B and C beside their
-    bounds and, at 256 x 2, 320 x 2, 448 x 1, 833 x 1 and 1281 x 1, the
-    "off" route's (the encoder, then kernel A or D) and the fused route's
-    ms a call by CUDA events on the same device request. At 832 x 1
-    (init_params seed 832, the 3xTF32 drift fault), 1280 x 1 and 1472 x
-    1: B and C on the cluster kernels against their plain versions at
-    N_WIDE_CMP voxels at CHECKS. At 100 x 2 (B and C) and 60 x 7 (B)
+    bounds and, at 256 x 2, 320 x 2, 448 x 1, 833 x 1, 1281 x 1 and 768 x 1
+    on 51 taus, the "off" route's (the encoder, then kernel A or D) and the
+    fused route's ms a call by CUDA events on the same device request. At
+    832 x 1 (init_params seed 832, the 3xTF32 drift fault), 1280 x 1 and
+    1472 x 1, and at 1472 x 1 on a scan of 128 taus (the cluster kernels
+    with shared rows, where launch_plan raised before they came): B and C
+    on the cluster kernels against their plain versions at N_WIDE_CMP
+    voxels at CHECKS. At 100 x 2 (B and C) and 60 x 7 (B)
     in float32, where the resident blob does not fit (the wgmma kernels):
     the request through posterior_maps, the kernel against its plain
     version on the whole request, its device ms beside its bound. First,
@@ -2300,6 +2313,7 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
     ranges = dict(oef_range=cfg.model.oef_range, min_oef=cfg.model.min_oef,
                   dbv_range=cfg.model.dbv_range, min_dbv=cfg.model.min_dbv,
                   dw_coeff=float(scan.dw_coeff * scan.hct))
+    dense_scan = dataclasses.replace(scan, tau_step=DENSE_TAU_STEP)
     stream_scan = dataclasses.replace(scan, tau_step=STREAM_TAU_STEP)
     # each scan's request and comparison voxels, drawn at its first use
     data = {}
@@ -2319,10 +2333,11 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
            "plain_ms": {}, "bound": {}, "routes_ms": {}, "requests": {},
            "shapes": collections.defaultdict(list)}
 
-    def main_path(t, units, nb, trunk, kind, method, key, req=None):
+    def main_path(t, units, nb, trunk, kind, method, key, req=None,
+                  shape=None):
         """posterior_maps of the request `req` (the 11-tau one by default)
-        by `method`, kernel `key` of the design `kind` counted; returns the
-        maps."""
+        by `method`, kernel `key` of the design `kind` counted (by trunk
+        under `shape`, "UxNB" by default); returns the maps."""
         req = scan_data(scan)[0] if req is None else req
         counter = f"{key}.{WIDE_KINDS[kind][1]}"
         zero_bc_counts()
@@ -2341,7 +2356,8 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
             raise AssertionError(f"{units} x {nb} {trunk} {method}: "
                                  f"launches {counts}, want {counter}")
         out["launches"][(key, kind)] += counts[counter]
-        out["launches"][(key, kind, f"{units}x{nb}")] += counts[counter]
+        out["launches"][(key, kind, shape or f"{units}x{nb}")] += counts[
+            counter]
         log(f"posterior_maps {method} at {units} x {nb} {trunk} on "
             f"{REQUESTS[0]} under \"auto\": {key} ({kind}) launched "
             f"{counts[counter]} times, D {counts['D']}, A {counts['A']}; "
@@ -2356,6 +2372,7 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
             (SPLIT_TRUNK, "float32", True, scan),
             (CLUSTER_TRUNK, "float32", True, scan),
             (CHUNK_TRUNK, "float32", True, scan),
+            (DENSE_TRUNK, "float32", True, dense_scan),
             (STREAM_TRUNK, "float32", False, stream_scan)):
         req, block, x_cmp = scan_data(sc)
         x_full = block.reshape(-1, block.shape[-1])
@@ -2374,7 +2391,7 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
         kw = dict(enc, mvg=t.cfg.use_mvg, **ranges)
         # ---- the main path, through the entry point -----------------------
         for method, key in (("quadrature", "B"), ("mc", "C")):
-            main_path(t, units, nb, trunk, kind, method, key, req)
+            main_path(t, units, nb, trunk, kind, method, key, req, shape)
         # ---- B and C against their plain versions ------------------------
         q = fi.encode_q1_packed(x_cmp, t.encoder, **enc)
         q_ref = fi.encode_q_plain(x_cmp, t.encoder, **enc)
@@ -2453,20 +2470,28 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
                          f"{'A' if key == 'B' else 'D'}) {o_ms:.4f} ms "
                          f"({'faster' if r_ms < o_ms else 'NOT faster'})")
             log(f"{line} on {REQUESTS[0]} [{card}]")
-    # ---- 832 x 1, 1280 x 1, 1472 x 1: the cluster kernels against plain ------
-    _, block, x_cmp = scan_data(scan)
-    x_full = block.reshape(-1, block.shape[-1])
-    for units, nb in (DRIFT_TRUNK, CLUSTER_WIDE_TRUNK, CHUNK_WIDE_TRUNK):
-        t = wide_tuner(dev, cfg, units, nb, "float32")
-        kind = wide_kind(dev, units, nb, "float32", scan.n_taus)
+    # ---- 832 x 1, 1280 x 1, 1472 x 1 (and on 128 taus): the cluster kernels
+    # against plain -----------------------------------------------------------
+    dense_wide = dataclasses.replace(scan, tau_step=DENSE_WIDE_TAU_STEP)
+    for (units, nb), sc in ((DRIFT_TRUNK, scan), (CLUSTER_WIDE_TRUNK, scan),
+                            (CHUNK_WIDE_TRUNK, scan),
+                            (DENSE_WIDE_TRUNK, dense_wide)):
+        x_cmp = (scan_data(scan)[2] if sc is scan else torch.from_numpy(
+            volumes(rng, (N_WIDE_CMP,), sc.n_taus)).to(dev))
+        t = wide_tuner(dev, cfg, units, nb, "float32", sc)
+        kind = wide_kind(dev, units, nb, "float32", sc.n_taus)
         if kind != "cluster":
-            raise AssertionError(f"{units} x {nb} float32: plan {kind}")
-        enc = dict(se_idx=scan.se_idx,
+            raise AssertionError(f"{units} x {nb} float32 on {sc.n_taus} "
+                                 f"taus: plan {kind}")
+        rows = fi._plan(fi._padded_width(units), nb, sc.n_taus,
+                        sc.n_taus + 1, "float32", True, dev).rows
+        enc = dict(se_idx=sc.se_idx,
                    multi_image=t.cfg.multi_image_normalisation,
                    activation=t.cfg.activation, n_blocks=nb,
                    trunk="float32", mask_channel=True, input_layout="voxel")
         kw = dict(enc, mvg=t.cfg.use_mvg, **ranges)
-        tag = f"{units}x{nb} {kind}"
+        shape = f"{units}x{nb}" + ("" if sc is scan else f"-t{sc.n_taus}")
+        tag = f"{shape} {kind}"
         q = fi.encode_q1_packed(x_cmp, t.encoder, **enc)
         got = fi.encode_quad_fused(x_cmp, t.encoder, **kw)
         ref = fi.encode_quad_fused_plain(x_cmp, t.encoder, **kw)
@@ -2475,12 +2500,14 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
         e_b = [check_close(f"B {tag}", got[0].T, ref[0].T, "mean"),
                check_close(f"B {tag}", got[1].T, ref[1].T, "var", ref[0].T),
                check_close(f"B {tag}", got[2].T, ref[2].T, "raw")]
-        out["err"][("C", kind, f"{units}x{nb}")] = e_c
-        out["err"][("B", kind, f"{units}x{nb}")] = max(e_b)
-        log(f"B and C at {units} x {nb} float32 ({kind}, init_params seed "
-            f"{units}) vs plain at N={N_WIDE_CMP} within CHECKS: largest "
-            f"|C - plain| {e_c:.3e}, B's means / vars / raw "
-            + " / ".join(f"{e:.3e}" for e in e_b))
+        out["err"][("C", kind, shape)] = e_c
+        out["err"][("B", kind, shape)] = max(e_b)
+        log(f"B and C at {units} x {nb} float32 on {sc.n_taus} taus ({kind},"
+            f" {rows} rows, init_params seed {units}) vs plain at "
+            f"N={N_WIDE_CMP} within CHECKS: largest |C - plain| {e_c:.3e}, "
+            "B's means / vars / raw " + " / ".join(f"{e:.3e}" for e in e_b))
+    _, block, _ = scan_data(scan)
+    x_full = block.reshape(-1, block.shape[-1])
     # ---- 100 x 2 and 60 x 7 in float32: the resident blob does not fit ------
     for (units, nb), keys in ((FAULT_TRUNK, "BC"), (DEEP_TRUNK, "B")):
         t = wide_tuner(dev, cfg, units, nb, "float32")
@@ -2529,12 +2556,12 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
                 f"ms; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
                 f"({100 * bd['bound_ms'] / ms:.1f}%) [{card}]")
     # the kernels line: each kernel by design at the first trunk phase 47
-    # ran it at, and the chunked and cluster designs again at each further
-    # trunk
+    # ran it at, and the chunked, split and cluster designs again at each
+    # further trunk
     entries = [(key, kind, out["shapes"][kind][0], "")
                for kind in WIDE_KINDS for key in ("B", "C")]
     entries += [(key, kind, shape, f"-{shape}")
-                for kind in ("chunked", "cluster")
+                for kind in ("chunked", "split", "cluster")
                 for shape in out["shapes"][kind][1:] for key in "BC"]
     out["kernels"] = [{
         "name": f"{key}{WIDE_KINDS[kind][2]}{suffix}", "route": "cuda",
@@ -5771,6 +5798,10 @@ def main() -> int:
                           "split": SPLIT_TRUNK,
                           "cluster": CLUSTER_TRUNK,
                           "cluster_chunked": CHUNK_TRUNK,
+                          "dense": DENSE_TRUNK,
+                          "dense_tau_step": DENSE_TAU_STEP,
+                          "dense_wide": DENSE_WIDE_TRUNK,
+                          "dense_wide_tau_step": DENSE_WIDE_TAU_STEP,
                           "streamed": STREAM_TRUNK,
                           "streamed_tau_step": STREAM_TAU_STEP,
                           "ms": {"-".join(k): v

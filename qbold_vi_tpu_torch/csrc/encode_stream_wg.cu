@@ -12,8 +12,9 @@
 // Up <= 256 where the resident blob does not fit; past 256 units
 // encode_stream_wgc.cu's chunked kernels serve where they fit (320 and 384),
 // encode_stream_wgx.cu's split ones at 448-768, encode_stream_wgk.cu's
-// cluster ones at 832-1472, encode_stream.cu where their blocks do not
-// fit, and the bf16 trunk keeps its own kernels.
+// cluster ones at 832-1472, encode_stream.cu where a staged row of many
+// taus is wider than their blocks' activation rows, and the bf16 trunk
+// keeps its own kernels.
 //
 // Bound: at 256 units x 2 blocks the 3xTF32 products take 1.69 ms of a
 // 1.03 M-voxel request at the dense TF32 peak; the request's bytes 0.026
@@ -67,11 +68,17 @@
 //   on named barrier 1) or write C's q. B's scratch shares the activation
 //   rows where it fits (they are idle between a round's last head and its
 //   next pass).
+// * Or (SH, the plan's shared rows: many taus, where a buffer of 128 staged
+//   rows does not fit beside the block) each warp stages its 16 rows in the
+//   first 8 ks0 columns of its activation rows, as encode_stream_wgc.cu
+//   does: a thread's first-layer products read, and its epilogue
+//   overwrites, only the channels it owns (header), and the round's
+//   scratch is read before the next pass is staged.
 // Shared memory (ops/fused_infer.py::_wg_smem, in this order):
 //   mbarriers (QV_WG_BAR_BYTES) | ring stages x KS x 64 Up bytes |
-//   activations 128 x (Up + 8) floats | rows 128 x SX floats |
-//   heads 5 x 256 floats | [B: node table QV_NCONST, quadrature scratch
-//   QV_QUAD_SCRATCH(256) floats unless it fits in the activations]
+//   activations 128 x (Up + 8) floats | rows 128 x SX floats (none with
+//   SH) | heads 5 x 256 floats | [B: node table QV_NCONST, quadrature
+//   scratch QV_QUAD_SCRATCH(256) floats unless it fits in the activations]
 // (SX: QvStF32::x_stride of the first layer's k-steps.) The PTX helpers
 // and the products are encode_stream_wg.cuh's, shared with
 // encode_stream_wgc.cu.
@@ -81,8 +88,8 @@
 // ---- the encode -------------------------------------------------------------
 
 // KS: k-steps a slab (their A registers, 8 a k-step, are loaded before
-// the slab's products).
-template <int UP, int KS, bool QUAD>
+// the slab's products); SH: the staged rows in the activation rows.
+template <int UP, int KS, bool SH, bool QUAD>
 static __device__ __forceinline__ void qv_wg_body(
     const float* __restrict__ x, long long n, int t_in, int cm, int mask,
     int se, int multi, int act, int nb, const float* __restrict__ blob,
@@ -102,7 +109,7 @@ static __device__ __forceinline__ void qv_wg_body(
   uint8_t* ring = sm + QV_WG_BAR_BYTES;
   float* acts = reinterpret_cast<float*>(ring + stages * slab_bytes);
   float* xss = acts + PASS * SA;
-  float* hq = xss + PASS * sx;
+  float* hq = xss + (SH ? 0 : PASS * sx);
   float* consts = hq + 5 * QV_ST_ROUND;
   float* scratch = PASS * SA >= QV_QUAD_SCRATCH(QV_ST_ROUND)
                        ? acts
@@ -166,7 +173,10 @@ static __device__ __forceinline__ void qv_wg_body(
   const int warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   uint32_t* act_w = reinterpret_cast<uint32_t*>(acts + wg * 64 * SA);
-  uint32_t* xs_w = reinterpret_cast<uint32_t*>(xss + wg * 64 * sx);
+  // the staged rows and their stride
+  uint32_t* xs_w =
+      SH ? act_w : reinterpret_cast<uint32_t*>(xss + wg * 64 * sx);
+  const int s_x = SH ? SA : sx;
   const int lo = se - 1 > 0 ? se - 1 : 0, hi = se + 2 < T ? se + 2 : T;
   int slot = 0;
   uint32_t phase = 0;
@@ -182,14 +192,14 @@ static __device__ __forceinline__ void qv_wg_body(
       __syncwarp();  // the warp's rows of the last pass are read
       if (lane < 16) {
         const int r = 16 * warp + lane;
-        qv_st_stage_row<QvStF32>(xs_w, sx, r, x, n, v0r + base + r, t_in, cm,
-                                 mask, T, se, multi, lo, hi, 8 * ks0);
+        qv_st_stage_row<QvStF32>(xs_w, s_x, r, x, n, v0r + base + r, t_in,
+                                 cm, mask, T, se, multi, lo, hi, 8 * ks0);
       }
       __syncwarp();
 #pragma unroll 1
       for (int l = 0; l <= nb; ++l) {
         const uint32_t* in = l == 0 ? xs_w : act_w;
-        const int s_in = l == 0 ? sx : SA;
+        const int s_in = l == 0 ? s_x : SA;
         const int kl = l == 0 ? ks0 : ksh, nks = l == 0 ? nks0 : nksh;
 #pragma unroll 1
         for (int ksl = 0; ksl < nks; ++ksl) {
@@ -252,57 +262,62 @@ static __device__ __forceinline__ void qv_wg_body(
 
 // Kernels B and C, one symbol each (the profile and the SASS tell them
 // from encode_stream.cu's).
-template <int UP, int KS>
+template <int UP, int KS, bool SH>
 __global__ void __launch_bounds__(QV_WG_THREADS, 1)
     qv_encode_quad_wg_kernel(QV_WG_ARGS, int mvg, QvRanges r, int stages,
                              float* __restrict__ means,
                              float* __restrict__ vars,
                              float* __restrict__ raw) {
-  qv_wg_body<UP, KS, true>(x, n, t_in, cm, mask, se, multi, act, nb, blob,
-                           image, mvg, r, stages, means, vars, raw);
+  qv_wg_body<UP, KS, SH, true>(x, n, t_in, cm, mask, se, multi, act, nb,
+                               blob, image, mvg, r, stages, means, vars, raw);
 }
 
-template <int UP, int KS>
+template <int UP, int KS, bool SH>
 __global__ void __launch_bounds__(QV_WG_THREADS, 1)
     qv_encode_q_wg_kernel(QV_WG_ARGS, int stages, float* __restrict__ q) {
-  qv_wg_body<UP, KS, false>(x, n, t_in, cm, mask, se, multi, act, nb, blob,
-                            image, 0, QvRanges{}, stages, q, nullptr,
-                            nullptr);
+  qv_wg_body<UP, KS, SH, false>(x, n, t_in, cm, mask, se, multi, act, nb,
+                                blob, image, 0, QvRanges{}, stages, q,
+                                nullptr, nullptr);
 }
 
-// kernel<Up, KS> for the plan's ring (stages slots of ks k-steps; the
-// pairs ops/fused_infer.py::_WG_SLABS offers), launched as
-// encode_stream.cuh's kernels are.
-#define QV_WG_CASE(kernel, UP_, KS_, ...) \
-  case UP_ * 8 + KS_:                     \
-    return qv_st_launch(kernel<UP_, KS_>, QV_WG_THREADS, __VA_ARGS__);
-#define QV_WG_DISPATCH(kernel, up, stages, ks, ...) \
-  if (stages < 2 || stages > QV_WG_MAX_STAGES)      \
-    return (int)cudaErrorInvalidValue;              \
-  switch (up * 8 + ks) {                            \
-    QV_WG_CASE(kernel, 16, 2, __VA_ARGS__)          \
-    QV_WG_CASE(kernel, 32, 4, __VA_ARGS__)          \
-    QV_WG_CASE(kernel, 64, 4, __VA_ARGS__)          \
-    QV_WG_CASE(kernel, 128, 2, __VA_ARGS__)         \
-    QV_WG_CASE(kernel, 192, 1, __VA_ARGS__)         \
-    QV_WG_CASE(kernel, 192, 2, __VA_ARGS__)         \
-    QV_WG_CASE(kernel, 256, 1, __VA_ARGS__)         \
-    QV_WG_CASE(kernel, 256, 2, __VA_ARGS__)         \
-    default:                                        \
-      return (int)cudaErrorInvalidValue;            \
+// kernel<Up, KS, SH> for the plan's ring (stages slots of ks k-steps; the
+// pairs ops/fused_infer.py::_WG_SLABS offers) and rows (shared at the
+// plan's first slab of 192 and 256, the widths where the staged rows of
+// many taus leave a block no room), launched as encode_stream.cuh's
+// kernels are.
+#define QV_WG_CASE(kernel, UP_, KS_, SH_, ...)                    \
+  case (UP_ * 8 + KS_) * 2 + SH_:                                 \
+    return qv_st_launch(kernel<UP_, KS_, (SH_ != 0)>, QV_WG_THREADS, \
+                        __VA_ARGS__);
+#define QV_WG_DISPATCH(kernel, up, stages, ks, shared, ...)              \
+  if (stages < 2 || stages > QV_WG_MAX_STAGES || shared < 0 || shared > 1) \
+    return (int)cudaErrorInvalidValue;                                     \
+  switch ((up * 8 + ks) * 2 + shared) {                                    \
+    QV_WG_CASE(kernel, 16, 2, 0, __VA_ARGS__)                              \
+    QV_WG_CASE(kernel, 32, 4, 0, __VA_ARGS__)                              \
+    QV_WG_CASE(kernel, 64, 4, 0, __VA_ARGS__)                              \
+    QV_WG_CASE(kernel, 128, 2, 0, __VA_ARGS__)                             \
+    QV_WG_CASE(kernel, 192, 1, 0, __VA_ARGS__)                             \
+    QV_WG_CASE(kernel, 192, 2, 0, __VA_ARGS__)                             \
+    QV_WG_CASE(kernel, 256, 1, 0, __VA_ARGS__)                             \
+    QV_WG_CASE(kernel, 256, 2, 0, __VA_ARGS__)                             \
+    QV_WG_CASE(kernel, 192, 1, 1, __VA_ARGS__)                             \
+    QV_WG_CASE(kernel, 256, 1, 1, __VA_ARGS__)                             \
+    default:                                                               \
+      return (int)cudaErrorInvalidValue;                                   \
   }
 
 // The C entries: encode_stream.cu's arguments with the wgmma image
-// (ops/fused_infer.py::_wg_image) beside the blob and the plan's ring in
-// place of its tile; block must be QV_WG_THREADS and smem_bytes the
-// plan's.
+// (ops/fused_infer.py::_wg_image) beside the blob and the plan's ring and
+// rows (shared 1: in the activation rows) in place of its tile; block
+// must be QV_WG_THREADS and smem_bytes the plan's.
 extern "C" int qv_encode_quad_wg(
     const float* x, long long n, int t_in, int channel_major,
     int mask_channel, int se_idx, int multi_image, int act, int up, int nb,
     const float* blob, const float* image, QvRanges r, float* means,
-    float* vars, float* raw, int mvg, int stages, int ks, int block,
-    long long smem_bytes, void* stream) {
-  QV_WG_DISPATCH(qv_encode_quad_wg_kernel, up, stages, ks, n, block,
+    float* vars, float* raw, int mvg, int stages, int ks, int shared,
+    int block, long long smem_bytes, void* stream) {
+  QV_WG_DISPATCH(qv_encode_quad_wg_kernel, up, stages, ks, shared, n, block,
                  smem_bytes, stream, x, n, t_in, channel_major, mask_channel,
                  se_idx, multi_image, act, nb, blob, image, mvg, r, stages,
                  means, vars, raw)
@@ -312,9 +327,10 @@ extern "C" int qv_encode_q1_wg(const float* x, long long n, int t_in,
                                int channel_major, int mask_channel,
                                int se_idx, int multi_image, int act, int up,
                                int nb, const float* blob, const float* image,
-                               float* q, int stages, int ks, int block,
-                               long long smem_bytes, void* stream) {
-  QV_WG_DISPATCH(qv_encode_q_wg_kernel, up, stages, ks, n, block,
+                               float* q, int stages, int ks, int shared,
+                               int block, long long smem_bytes,
+                               void* stream) {
+  QV_WG_DISPATCH(qv_encode_q_wg_kernel, up, stages, ks, shared, n, block,
                  smem_bytes, stream, x, n, t_in, channel_major, mask_channel,
                  se_idx, multi_image, act, nb, blob, image, stages, q)
 }

@@ -10,8 +10,9 @@
 // the float32 head, then B's quadrature summaries or C's q (5, N).
 // ops/fused_infer.py::launch_plan takes it for the float32 trunk at the
 // padded widths of _WGK_PLANS wherever its block fits; encode_stream_wgx.cu
-// serves 448-768, encode_stream.cu the blocks that do not fit (many
-// taus).
+// serves 448-768, encode_stream.cu where a staged row of many taus is
+// wider than a block's NL columns (a narrower one shares the activation
+// rows, SH).
 //
 // Bound: at 833 units x 1 block the 3xTF32 products take 8.85 ms of a
 // 1.03 M-voxel request at the dense TF32 peak; the request's bytes 0.026
@@ -85,15 +86,25 @@
 //   and the next pass's first epilogue.
 // * Each warp stages its own 16 rows of the next pass once its first
 //   layer's products have read the current ones.
+// * Or (SH, the plan's shared rows: many taus, where a buffer of 128 staged
+//   rows does not fit beside the block; T <= NL) each warp stages its 16
+//   rows in the first 8 ks0 columns of its activation rows, which its
+//   first layer reads before the epilogue's cluster barrier; the next
+//   pass's rows wait until every CTA has read this CTA's activations, the
+//   inputs of the last layer (a cluster barrier more a pass), and the next
+//   round's first pass until the round's quadrature has read its scratch.
 // Every wait on an mbarrier traps after 10 s (a fault, not a hang).
 // Shared memory (ops/fused_infer.py::_wgk_smem, in this order):
 //   mbarriers (QV_WGK_BAR_BYTES) | ring stages x 64 NL bytes |
-//   activations 128 x SA floats | rows 128 x SX floats | partial heads
-//   C x 5 x 256 floats | [B: node table QV_NCONST]
+//   activations 128 x SA floats | rows 128 x SX floats (none with SH) |
+//   partial heads C x 5 x 256 floats | [B: node table QV_NCONST]
 // (SA = NL + 8 where NL is a multiple of 16, else NL + 16: 8 words past a
 // multiple of 16, so that a warp's A loads and epilogue stores meet no
 // bank twice; SX: QvStF32::x_stride of the first layer's k-steps.) The
-// PTX helpers and the m64nNk8 products are encode_stream_wg.cuh's.
+// PTX helpers and the m64nNk8 products are encode_stream_wg.cuh's. This
+// file compiles kernel B's entries; encode_stream_wgk_c.cu compiles it
+// again with QV_WGK_C for kernel C's, so that nvcc builds the two sets of
+// instantiations side by side (one process a source).
 
 #include "encode_stream_wg.cuh"
 
@@ -249,8 +260,9 @@ static __device__ __forceinline__ void qv_wgk_chunk(
 
 // NL: the output columns of a CTA (Up / C). C0 0: one product of NL
 // columns a k-step, its sums promoted every `seg` k-steps; else two output
-// chunks of C0 and NL - C0 columns, promoted every S (= seg) k-steps.
-template <int NL, int C0, int S, bool QUAD>
+// chunks of C0 and NL - C0 columns, promoted every S (= seg) k-steps. SH:
+// the staged rows in the activation rows (header).
+template <int NL, int C0, int S, bool SH, bool QUAD>
 static __device__ __forceinline__ void qv_wgk_body(
     const float* __restrict__ x, long long n, int t_in, int cm, int mask,
     int se, int multi, int act, int nb, const float* __restrict__ blob,
@@ -280,7 +292,8 @@ static __device__ __forceinline__ void qv_wgk_body(
   uint8_t* ring = sm + QV_WGK_BAR_BYTES;
   float* acts = reinterpret_cast<float*>(ring + stages * SB);
   float* xss = acts + PASS * SA;
-  float* part = xss + PASS * sx;  // [rank][channel][voxel of the round]
+  // [rank][channel][voxel of the round]
+  float* part = xss + (SH ? 0 : PASS * sx);
   float* consts = part + ranks * 5 * QV_ST_ROUND;
   const QvStBlob b = qv_st_blob<QvStF32>(blob, up, nb, ks0);
   if (QUAD) qv_stage_consts(b.consts, consts);
@@ -352,7 +365,9 @@ static __device__ __forceinline__ void qv_wgk_body(
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int row0 = 64 * wg + 16 * warp;
   uint32_t* act_u = reinterpret_cast<uint32_t*>(acts);
-  uint32_t* xs_u = reinterpret_cast<uint32_t*>(xss);
+  // the staged rows and their stride
+  uint32_t* xs_u = reinterpret_cast<uint32_t*>(SH ? acts : xss);
+  const int s_x = SH ? SA : sx;
   const uint32_t acts_a = qv_wg_addr(acts), part_a = qv_wg_addr(part);
   const int lo = se - 1 > 0 ? se - 1 : 0, hi = se + 2 < T ? se + 2 : T;
   const QvNamedSync both{1, QV_WG_CONSUMERS};
@@ -360,16 +375,18 @@ static __device__ __forceinline__ void qv_wgk_body(
   // each warp stages its own 16 rows of the pass of voxels v .. v + 127
   auto stage = [&](long long v) {
     if (lane < 16)
-      qv_st_stage_row<QvStF32>(xs_u, sx, row0 + lane, x, n, v + row0 + lane,
-                               t_in, cm, mask, T, se, multi, lo, hi, 8 * ks0);
+      qv_st_stage_row<QvStF32>(xs_u, s_x, row0 + lane, x, n,
+                               v + row0 + lane, t_in, cm, mask, T, se, multi,
+                               lo, hi, 8 * ks0);
   };
   // k-step k's raw A values of layer l: the staged rows (l == 0) or the
   // activations of rank k / NT
   auto load = [&](int l, int k) -> float4 {
     if (l == 0) {
-      const float* r = xss + (row0 + g) * sx + 8 * k + 2 * t;
+      const float* r = reinterpret_cast<const float*>(xs_u) +
+                       (row0 + g) * s_x + 8 * k + 2 * t;
       const float2 a = *reinterpret_cast<const float2*>(r);
-      const float2 c = *reinterpret_cast<const float2*>(r + 8 * sx);
+      const float2 c = *reinterpret_cast<const float2*>(r + 8 * s_x);
       return make_float4(a.x, c.x, a.y, c.y);
     }
     const int o = k / NT;
@@ -467,7 +484,7 @@ static __device__ __forceinline__ void qv_wgk_body(
             }
           }
         }
-        if (l == 0) {
+        if (!SH && l == 0) {
           // this warp's staged rows are read: stage the next pass's
           __syncwarp();
           const long long next = rnd + ncl;
@@ -509,6 +526,11 @@ static __device__ __forceinline__ void qv_wgk_body(
                                    owner),
                         h[i]);
           }
+          if (SH && p + 1 < passes) {
+            cs.sync();  // every CTA has read this CTA's activations
+            stage(v0 + (p + 1) * PASS);
+            __syncwarp();
+          }
         }
       }
     }
@@ -532,29 +554,33 @@ static __device__ __forceinline__ void qv_wgk_body(
     // come after the next pass's cluster barriers (nb >= 1: the blob of
     // ops/fused_infer.py::_weight_blob has a block)
     both.sync();
+    if (SH && rnd + ncl < rounds) {
+      stage((rnd + ncl) * span);
+      __syncwarp();
+    }
   }
 }
 
 // Kernels B and C, one symbol each (the profile and the SASS tell them
 // from the other designs').
-template <int NL, int C0, int S>
+template <int NL, int C0, int S, bool SH>
 __global__ void __launch_bounds__(QV_WG_THREADS, 1)
     qv_encode_quad_wgk_kernel(QV_WG_ARGS, int up, int mvg, QvRanges r,
                               int stages, int seg, float* __restrict__ means,
                               float* __restrict__ vars,
                               float* __restrict__ raw) {
-  qv_wgk_body<NL, C0, S, true>(x, n, t_in, cm, mask, se, multi, act, nb,
-                               blob, image, up, mvg, r, stages, seg, means,
-                               vars, raw);
+  qv_wgk_body<NL, C0, S, SH, true>(x, n, t_in, cm, mask, se, multi, act, nb,
+                                   blob, image, up, mvg, r, stages, seg,
+                                   means, vars, raw);
 }
 
-template <int NL, int C0, int S>
+template <int NL, int C0, int S, bool SH>
 __global__ void __launch_bounds__(QV_WG_THREADS, 1)
     qv_encode_q_wgk_kernel(QV_WG_ARGS, int up, int stages, int seg,
                            float* __restrict__ q) {
-  qv_wgk_body<NL, C0, S, false>(x, n, t_in, cm, mask, se, multi, act, nb,
-                                blob, image, up, 0, QvRanges{}, stages, seg,
-                                q, nullptr, nullptr);
+  qv_wgk_body<NL, C0, S, SH, false>(x, n, t_in, cm, mask, se, multi, act,
+                                    nb, blob, image, up, 0, QvRanges{},
+                                    stages, seg, q, nullptr, nullptr);
 }
 
 // The launch config of a cluster of `ranks` CTAs of `block` threads.
@@ -610,31 +636,45 @@ static int qv_wgk_launch(Kernel kernel, int ranks, long long n, int block,
   return (int)cudaGetLastError();
 }
 
-// kernel<NL, C0, S> for the plan's columns a CTA (Up / C of each width
+// kernel<NL, C0, S, SH> for the plan's columns a CTA (Up / C of each width
 // that ops/fused_infer.py::_WGK_PLANS gives, and the sweep's other
-// clusters), its first chunk's columns C0 (0: one product) and a chunked
-// plan's promoted segment S (its `seg`; 0 where C0 is 0, `seg` at run time).
-#define QV_WGK_CASES(X, kernel, ...) \
-  X(kernel, 104, 0, 0, __VA_ARGS__)  \
-  X(kernel, 112, 0, 0, __VA_ARGS__)  \
-  X(kernel, 120, 0, 0, __VA_ARGS__)  \
-  X(kernel, 128, 0, 0, __VA_ARGS__)  \
-  X(kernel, 136, 0, 0, __VA_ARGS__)  \
-  X(kernel, 144, 0, 0, __VA_ARGS__)  \
-  X(kernel, 152, 0, 0, __VA_ARGS__)  \
-  X(kernel, 160, 0, 0, __VA_ARGS__)  \
-  X(kernel, 168, 64, 2, __VA_ARGS__) \
-  X(kernel, 176, 64, 3, __VA_ARGS__) \
-  X(kernel, 176, 64, 2, __VA_ARGS__) \
-  X(kernel, 184, 64, 3, __VA_ARGS__) \
-  X(kernel, 184, 64, 2, __VA_ARGS__)
-#define QV_WGK_LAUNCH(kernel, NL_, C0_, S_, ...)            \
-  if (nl == NL_ && chunk == C0_ && (C0_ == 0 || seg == S_)) \
-    return qv_wgk_launch(kernel<NL_, C0_, S_>, __VA_ARGS__);
-#define QV_WGK_CHECK(up, cluster, stages, seg, chunk)                      \
+// clusters), its first chunk's columns C0 (0: one product), a chunked
+// plan's promoted segment S (its `seg`; 0 where C0 is 0, `seg` at run time)
+// and its rows (SH 1: in the activation rows, at the plans whose staged
+// rows of many taus leave no room beside the block).
+// The shared-rows plans (ops/fused_infer.py::_WGK_SHARED): the widths
+// 1280-1472, whose staged rows of 73-184 taus fit in an activation row but
+// not beside the block.
+#define QV_WGK_SHARED_CASES(X, kernel, ...) \
+  X(kernel, 160, 0, 0, 1, __VA_ARGS__)      \
+  X(kernel, 168, 64, 2, 1, __VA_ARGS__)     \
+  X(kernel, 176, 64, 3, 1, __VA_ARGS__)     \
+  X(kernel, 184, 64, 3, 1, __VA_ARGS__)
+#define QV_WGK_CASES(X, kernel, ...)    \
+  X(kernel, 104, 0, 0, 0, __VA_ARGS__)  \
+  X(kernel, 112, 0, 0, 0, __VA_ARGS__)  \
+  X(kernel, 120, 0, 0, 0, __VA_ARGS__)  \
+  X(kernel, 128, 0, 0, 0, __VA_ARGS__)  \
+  X(kernel, 136, 0, 0, 0, __VA_ARGS__)  \
+  X(kernel, 144, 0, 0, 0, __VA_ARGS__)  \
+  X(kernel, 152, 0, 0, 0, __VA_ARGS__)  \
+  X(kernel, 160, 0, 0, 0, __VA_ARGS__)  \
+  X(kernel, 168, 64, 2, 0, __VA_ARGS__) \
+  X(kernel, 176, 64, 3, 0, __VA_ARGS__) \
+  X(kernel, 176, 64, 2, 0, __VA_ARGS__) \
+  X(kernel, 184, 64, 3, 0, __VA_ARGS__) \
+  X(kernel, 184, 64, 2, 0, __VA_ARGS__) \
+  QV_WGK_SHARED_CASES(X, kernel, __VA_ARGS__)
+#define QV_WGK_MATCH(NL_, C0_, S_, SH_) \
+  (nl == NL_ && chunk == C0_ && (C0_ == 0 || seg == S_) && shared == SH_)
+#define QV_WGK_LAUNCH(kernel, NL_, C0_, S_, SH_, ...) \
+  if (QV_WGK_MATCH(NL_, C0_, S_, SH_))                \
+    return qv_wgk_launch(kernel<NL_, C0_, S_, (SH_ != 0)>, __VA_ARGS__);
+#define QV_WGK_CHECK(up, cluster, stages, seg, chunk, shared)             \
   if (stages < 2 || stages > QV_WG_MAX_STAGES || seg < 1 ||               \
       cluster < 1 || cluster > QV_WGK_MAX_CLUSTER || up % cluster != 0 || \
-      chunk < 0 || (chunk > 0 && seg > stages))                           \
+      chunk < 0 || (chunk > 0 && seg > stages) || shared < 0 ||           \
+      shared > 1)                                                         \
     return (int)cudaErrorInvalidValue;                                    \
   const int nl = up / cluster;
 #define QV_WGK_DISPATCH(kernel, ...)                  \
@@ -643,52 +683,74 @@ static int qv_wgk_launch(Kernel kernel, int ranks, long long n, int block,
 
 // The C entries: encode_stream_wgx.cu's with the cluster's CTAs, the
 // promoted segment's k-steps and the first chunk's columns (0: none) in
-// place of the chunk width.
+// place of the chunk width, then the rows (shared 1: in the activation
+// rows); kernel B's here, kernel C's in encode_stream_wgk_c.cu.
+#define QV_WGK_COUNT(kernel, NL_, C0_, S_, SH_, ranks, smem, clusters) \
+  if (QV_WGK_MATCH(NL_, C0_, S_, SH_))                                  \
+    return qv_wgk_clusters(kernel<NL_, C0_, S_, (SH_ != 0)>, ranks, smem, \
+                           clusters);
+#define QV_WGK_COUNT_CHECK(up, cluster, shared)                        \
+  *clusters = 0;                                                       \
+  if (cluster < 1 || cluster > QV_WGK_MAX_CLUSTER || up % cluster != 0 || \
+      shared < 0 || shared > 1)                                        \
+    return (int)cudaErrorInvalidValue;                                 \
+  const int nl = up / cluster;
+
+// Clusters of kernel C at this plan that the card holds at once, into
+// *clusters; returns the CUDA error (encode_stream_wgk_c.cu).
+extern "C" int qv_encode_wgk_clusters_q1(int up, int cluster, int seg,
+                                         int chunk, int shared,
+                                         long long smem_bytes,
+                                         int* clusters);
+
+#ifndef QV_WGK_C
 extern "C" int qv_encode_quad_wgk(
     const float* x, long long n, int t_in, int channel_major,
     int mask_channel, int se_idx, int multi_image, int act, int up, int nb,
     const float* blob, const float* image, QvRanges r, float* means,
     float* vars, float* raw, int mvg, int stages, int cluster, int seg,
-    int chunk, int block, long long smem_bytes, void* stream) {
-  QV_WGK_CHECK(up, cluster, stages, seg, chunk)
+    int chunk, int shared, int block, long long smem_bytes, void* stream) {
+  QV_WGK_CHECK(up, cluster, stages, seg, chunk, shared)
   QV_WGK_DISPATCH(qv_encode_quad_wgk_kernel, cluster, n, block, smem_bytes,
                   stream, x, n, t_in, channel_major, mask_channel, se_idx,
                   multi_image, act, nb, blob, image, up, mvg, r, stages, seg,
                   means, vars, raw)
 }
 
+// Clusters of kernel B (quad) or C at this plan that the card holds at
+// once, into *clusters; returns the CUDA error.
+extern "C" int qv_encode_wgk_clusters(int up, int cluster, int seg,
+                                      int chunk, int shared, int quad,
+                                      long long smem_bytes, int* clusters) {
+  if (!quad)
+    return qv_encode_wgk_clusters_q1(up, cluster, seg, chunk, shared,
+                                     smem_bytes, clusters);
+  QV_WGK_COUNT_CHECK(up, cluster, shared)
+  QV_WGK_CASES(QV_WGK_COUNT, qv_encode_quad_wgk_kernel, cluster, smem_bytes,
+               clusters)
+  return (int)cudaErrorInvalidValue;
+}
+#else
 extern "C" int qv_encode_q1_wgk(const float* x, long long n, int t_in,
                                 int channel_major, int mask_channel,
                                 int se_idx, int multi_image, int act, int up,
                                 int nb, const float* blob, const float* image,
                                 float* q, int stages, int cluster, int seg,
-                                int chunk, int block, long long smem_bytes,
-                                void* stream) {
-  QV_WGK_CHECK(up, cluster, stages, seg, chunk)
+                                int chunk, int shared, int block,
+                                long long smem_bytes, void* stream) {
+  QV_WGK_CHECK(up, cluster, stages, seg, chunk, shared)
   QV_WGK_DISPATCH(qv_encode_q_wgk_kernel, cluster, n, block, smem_bytes,
                   stream, x, n, t_in, channel_major, mask_channel, se_idx,
                   multi_image, act, nb, blob, image, up, stages, seg, q)
 }
 
-#define QV_WGK_COUNT(kernel, NL_, C0_, S_, ranks, smem, clusters) \
-  if (nl == NL_ && chunk == C0_ && (C0_ == 0 || seg == S_))      \
-    return qv_wgk_clusters(kernel<NL_, C0_, S_>, ranks, smem, clusters);
-
-// Clusters of kernel B (quad) or C at this plan that the card holds at
-// once, into *clusters; returns the CUDA error.
-extern "C" int qv_encode_wgk_clusters(int up, int cluster, int seg,
-                                      int chunk, int quad,
-                                      long long smem_bytes, int* clusters) {
-  *clusters = 0;
-  if (cluster < 1 || cluster > QV_WGK_MAX_CLUSTER || up % cluster != 0)
-    return (int)cudaErrorInvalidValue;
-  const int nl = up / cluster;
-  if (quad) {
-    QV_WGK_CASES(QV_WGK_COUNT, qv_encode_quad_wgk_kernel, cluster,
-                 smem_bytes, clusters)
-  } else {
-    QV_WGK_CASES(QV_WGK_COUNT, qv_encode_q_wgk_kernel, cluster, smem_bytes,
-                 clusters)
-  }
+extern "C" int qv_encode_wgk_clusters_q1(int up, int cluster, int seg,
+                                         int chunk, int shared,
+                                         long long smem_bytes,
+                                         int* clusters) {
+  QV_WGK_COUNT_CHECK(up, cluster, shared)
+  QV_WGK_CASES(QV_WGK_COUNT, qv_encode_q_wgk_kernel, cluster, smem_bytes,
+               clusters)
   return (int)cudaErrorInvalidValue;
 }
+#endif

@@ -14,7 +14,8 @@
 // encode_stream_wgk.cu's cluster of such blocks serves 832-1472 (at 832
 // this block fits only in 16-column pieces, which ran 2.9-3.1x slower on
 // the H100; at 896 its activation rows alone exceed the card's 232,448 B)
-// and encode_stream.cu the blocks that do not fit (many taus).
+// and encode_stream.cu where a staged row of many taus is wider than the
+// block's activation row (a narrower one shares the activation rows, SH).
 //
 // Bound: at 448 units x 1 block the 3xTF32 products take 2.60 ms of a
 // 1.03 M-voxel request at the dense TF32 peak; the request's bytes 0.026
@@ -53,6 +54,14 @@
 //   while warpgroup 1 stages the next pass's rows (16 a warp, the next
 //   round's first pass after a round's last), and the barrier that opens
 //   a pass publishes both.
+// * Or (SH, the plan's shared rows: many taus, where a buffer of 64 staged
+//   rows does not fit beside the block) the staged rows share the
+//   activation rows, in their first 8 ks0 columns: both warpgroups read
+//   them in the first layer, so its epilogue waits on the named barrier as
+//   every later layer's does; warpgroup 1 stages the next pass once the
+//   heads have read the last activations (a barrier more a pass), and the
+//   next round's first pass after the round's quadrature has read its
+//   scratch.
 // * Rounds of 256 voxels (four passes) then B's quadrature or C's q, as in
 //   encode_stream_wg.cu, on named barrier 1; B's scratch in the activation
 //   rows, idle between a round's last head and its next pass's first
@@ -66,11 +75,14 @@
 // at 512 and 704, slower at 448).
 // Shared memory (ops/fused_infer.py::_wgx_smem, in this order):
 //   mbarriers (QV_WG_BAR_BYTES) | ring stages x 2 x 64 CN bytes |
-//   activations 64 x (Up + 8) floats | rows 64 x SX floats | heads 5 x 256
-//   floats | [B: node table QV_NCONST; the quadrature's scratch in the
-//   activations]
+//   activations 64 x (Up + 8) floats | rows 64 x SX floats (none with SH)
+//   | heads 5 x 256 floats | [B: node table QV_NCONST; the quadrature's
+//   scratch in the activations]
 // (SX: QvStF32::x_stride of the first layer's k-steps.) The PTX helpers and
-// the m64nNk8 products are encode_stream_wg.cuh's.
+// the m64nNk8 products are encode_stream_wg.cuh's. This file compiles
+// kernel B's entry; encode_stream_wgx_c.cu compiles it again with
+// QV_WGX_C for kernel C's, so that nvcc builds the two sets of
+// instantiations side by side (one process a source).
 
 #include "encode_stream_wg.cuh"
 
@@ -78,8 +90,9 @@
 
 // ---- the encode -------------------------------------------------------------
 
-// CN: the output columns of a product (Up / (2 CN) chunks a warpgroup).
-template <int UP, int CN, bool QUAD>
+// CN: the output columns of a product (Up / (2 CN) chunks a warpgroup);
+// SH: the staged rows in the activation rows (header).
+template <int UP, int CN, bool SH, bool QUAD>
 static __device__ __forceinline__ void qv_wgx_body(
     const float* __restrict__ x, long long n, int t_in, int cm, int mask,
     int se, int multi, int act, int nb, const float* __restrict__ blob,
@@ -101,7 +114,7 @@ static __device__ __forceinline__ void qv_wgx_body(
   uint8_t* ring = sm + QV_WG_BAR_BYTES;
   float* acts = reinterpret_cast<float*>(ring + stages * slab_bytes);
   float* xss = acts + PASS * SA;
-  float* hq = xss + PASS * sx;
+  float* hq = xss + (SH ? 0 : PASS * sx);
   float* consts = hq + 5 * QV_ST_ROUND;
   float* scratch = acts;
   const QvStBlob b = qv_st_blob<QvStF32>(blob, UP, nb, ks0);
@@ -169,14 +182,16 @@ static __device__ __forceinline__ void qv_wgx_body(
   const int warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   uint32_t* act_u = reinterpret_cast<uint32_t*>(acts);
-  uint32_t* xs_u = reinterpret_cast<uint32_t*>(xss);
+  // the staged rows and their stride
+  uint32_t* xs_u = SH ? act_u : reinterpret_cast<uint32_t*>(xss);
+  const int s_x = SH ? SA : sx;
   const int lo = se - 1 > 0 ? se - 1 : 0, hi = se + 2 < T ? se + 2 : T;
   const QvNamedSync both{1, QV_WG_CONSUMERS};
   // warpgroup 1 stages the pass of voxels v .. v + 63, 16 rows a warp
   auto stage = [&](long long v) {
     if (wg == 1 && lane < 16) {
       const int r = 16 * warp + lane;
-      qv_st_stage_row<QvStF32>(xs_u, sx, r, x, n, v + r, t_in, cm, mask, T,
+      qv_st_stage_row<QvStF32>(xs_u, s_x, r, x, n, v + r, t_in, cm, mask, T,
                                se, multi, lo, hi, 8 * ks0);
     }
   };
@@ -195,7 +210,7 @@ static __device__ __forceinline__ void qv_wgx_body(
 #pragma unroll 1
       for (int l = 0; l <= nb; ++l) {
         const uint32_t* in = l == 0 ? xs_u : act_u;
-        const int s_in = l == 0 ? sx : SA, kl = l == 0 ? ks0 : ksh;
+        const int s_in = l == 0 ? s_x : SA, kl = l == 0 ? ks0 : ksh;
 #pragma unroll 1
         for (int k = 0; k < kl; ++k) {
           const QvStF32::A a = QvStF32::load_a(in, s_in, 16 * warp, k, g, t);
@@ -221,10 +236,10 @@ static __device__ __forceinline__ void qv_wgx_body(
             }
           }
         }
-        // the first layer reads the staged rows; every later one the
-        // activations, which both warpgroups must have read before either
-        // overwrites them
-        if (l > 0) both.sync();
+        // the first layer reads the staged rows (SH: in the activation
+        // rows); every later one the activations, which both warpgroups
+        // must have read before either overwrites them
+        if (SH || l > 0) both.sync();
 #pragma unroll
         for (int c = 0; c < NCH; ++c)
 #pragma unroll
@@ -237,12 +252,16 @@ static __device__ __forceinline__ void qv_wgx_body(
       if (wg == 0) {
         qv_st_head(QvStF32(), act_u, SA, b, UP, 16 * warp, lane, hq,
                    p * PASS);
-      } else {
+      } else if (!SH) {
         const long long next = rnd + gridDim.x;
         if (p + 1 < passes)
           stage(v0r + (p + 1) * PASS);
         else if (next < rounds)
           stage(next * QV_ST_ROUND);
+      }
+      if (SH && p + 1 < passes) {
+        both.sync();  // the heads have read the activations
+        stage(v0r + (p + 1) * PASS);
       }
     }
     both.sync();  // the round's heads are staged
@@ -252,70 +271,85 @@ static __device__ __forceinline__ void qv_wgx_body(
     else
       qv_st_write_q(hq, n, v0r, o0);
     both.sync();  // the heads and the scratch are read
+    if (SH && rnd + gridDim.x < rounds) stage((rnd + gridDim.x) * QV_ST_ROUND);
   }
 }
 
 // Kernels B and C, one symbol each (the profile and the SASS tell them
 // from the other designs').
-template <int UP, int CN>
+template <int UP, int CN, bool SH>
 __global__ void __launch_bounds__(QV_WG_THREADS, 1)
     qv_encode_quad_wgx_kernel(QV_WG_ARGS, int mvg, QvRanges r, int stages,
                               float* __restrict__ means,
                               float* __restrict__ vars,
                               float* __restrict__ raw) {
-  qv_wgx_body<UP, CN, true>(x, n, t_in, cm, mask, se, multi, act, nb, blob,
-                            image, mvg, r, stages, means, vars, raw);
+  qv_wgx_body<UP, CN, SH, true>(x, n, t_in, cm, mask, se, multi, act, nb,
+                                blob, image, mvg, r, stages, means, vars,
+                                raw);
 }
 
-template <int UP, int CN>
+template <int UP, int CN, bool SH>
 __global__ void __launch_bounds__(QV_WG_THREADS, 1)
     qv_encode_q_wgx_kernel(QV_WG_ARGS, int stages, float* __restrict__ q) {
-  qv_wgx_body<UP, CN, false>(x, n, t_in, cm, mask, se, multi, act, nb,
-                             blob, image, 0, QvRanges{}, stages, q, nullptr,
-                             nullptr);
+  qv_wgx_body<UP, CN, SH, false>(x, n, t_in, cm, mask, se, multi, act, nb,
+                                 blob, image, 0, QvRanges{}, stages, q,
+                                 nullptr, nullptr);
 }
 
-// kernel<Up, CN> for the plan's chunks (the CN of each Up that
-// ops/fused_infer.py::_WGX_SLABS gives).
-#define QV_WGX_CASE(kernel, UP_, CN_, ...) \
-  case UP_ * 512 + CN_:                    \
-    return qv_st_launch(kernel<UP_, CN_>, QV_WG_THREADS, __VA_ARGS__);
-#define QV_WGX_DISPATCH(kernel, up, cn, stages, ...) \
-  if (stages < 2 || stages > QV_WG_MAX_STAGES)       \
-    return (int)cudaErrorInvalidValue;               \
-  switch (up * 512 + cn) {                           \
-    QV_WGX_CASE(kernel, 448, 224, __VA_ARGS__)       \
-    QV_WGX_CASE(kernel, 512, 128, __VA_ARGS__)       \
-    QV_WGX_CASE(kernel, 576, 144, __VA_ARGS__)       \
-    QV_WGX_CASE(kernel, 640, 160, __VA_ARGS__)       \
-    QV_WGX_CASE(kernel, 704, 88, __VA_ARGS__)        \
-    QV_WGX_CASE(kernel, 768, 64, __VA_ARGS__)        \
-    default:                                         \
-      return (int)cudaErrorInvalidValue;             \
+// kernel<Up, CN, SH> for the plan's chunks and rows (the CN of each Up that
+// ops/fused_infer.py::_WGX_SLABS gives; shared rows at every width, where
+// many taus leave no room for rows of their own).
+#define QV_WGX_CASE(kernel, UP_, CN_, SH_, ...)                   \
+  case (UP_ * 512 + CN_) * 2 + SH_:                               \
+    return qv_st_launch(kernel<UP_, CN_, (SH_ != 0)>, QV_WG_THREADS, \
+                        __VA_ARGS__);
+#define QV_WGX_DISPATCH(kernel, up, cn, stages, shared, ...) \
+  if (stages < 2 || stages > QV_WG_MAX_STAGES || shared < 0 ||  \
+      shared > 1)                                              \
+    return (int)cudaErrorInvalidValue;                         \
+  switch ((up * 512 + cn) * 2 + shared) {                      \
+    QV_WGX_CASE(kernel, 448, 224, 0, __VA_ARGS__)              \
+    QV_WGX_CASE(kernel, 512, 128, 0, __VA_ARGS__)              \
+    QV_WGX_CASE(kernel, 576, 144, 0, __VA_ARGS__)              \
+    QV_WGX_CASE(kernel, 640, 160, 0, __VA_ARGS__)              \
+    QV_WGX_CASE(kernel, 704, 88, 0, __VA_ARGS__)               \
+    QV_WGX_CASE(kernel, 768, 64, 0, __VA_ARGS__)               \
+    QV_WGX_CASE(kernel, 448, 224, 1, __VA_ARGS__)              \
+    QV_WGX_CASE(kernel, 512, 128, 1, __VA_ARGS__)              \
+    QV_WGX_CASE(kernel, 576, 144, 1, __VA_ARGS__)              \
+    QV_WGX_CASE(kernel, 640, 160, 1, __VA_ARGS__)              \
+    QV_WGX_CASE(kernel, 704, 88, 1, __VA_ARGS__)               \
+    QV_WGX_CASE(kernel, 768, 64, 1, __VA_ARGS__)               \
+    default:                                                   \
+      return (int)cudaErrorInvalidValue;                       \
   }
 
 // The C entries: encode_stream_wg.cu's with the chunk width cn in place of
-// the slab's k-steps (a slab is one k-step).
+// the slab's k-steps (a slab is one k-step), then the rows (shared 1: in
+// the activation rows); kernel B's here, kernel C's in encode_stream_wgx_c.cu.
+#ifndef QV_WGX_C
 extern "C" int qv_encode_quad_wgx(
     const float* x, long long n, int t_in, int channel_major,
     int mask_channel, int se_idx, int multi_image, int act, int up, int nb,
     const float* blob, const float* image, QvRanges r, float* means,
-    float* vars, float* raw, int mvg, int stages, int cn, int block,
-    long long smem_bytes, void* stream) {
-  QV_WGX_DISPATCH(qv_encode_quad_wgx_kernel, up, cn, stages, n, block,
-                  smem_bytes, stream, x, n, t_in, channel_major,
+    float* vars, float* raw, int mvg, int stages, int cn, int shared,
+    int block, long long smem_bytes, void* stream) {
+  QV_WGX_DISPATCH(qv_encode_quad_wgx_kernel, up, cn, stages, shared, n,
+                  block, smem_bytes, stream, x, n, t_in, channel_major,
                   mask_channel, se_idx, multi_image, act, nb, blob, image,
                   mvg, r, stages, means, vars, raw)
 }
-
+#else
 extern "C" int qv_encode_q1_wgx(const float* x, long long n, int t_in,
                                 int channel_major, int mask_channel,
                                 int se_idx, int multi_image, int act, int up,
                                 int nb, const float* blob, const float* image,
-                                float* q, int stages, int cn, int block,
-                                long long smem_bytes, void* stream) {
-  QV_WGX_DISPATCH(qv_encode_q_wgx_kernel, up, cn, stages, n, block,
+                                float* q, int stages, int cn, int shared,
+                                int block, long long smem_bytes,
+                                void* stream) {
+  QV_WGX_DISPATCH(qv_encode_q_wgx_kernel, up, cn, stages, shared, n, block,
                   smem_bytes, stream, x, n, t_in, channel_major,
                   mask_channel, se_idx, multi_image, act, nb, blob, image,
                   stages, q)
 }
+#endif

@@ -50,7 +50,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("quadrature.cu", "encode_quad.cu", "encode_quad_bf16.cu",
            "encode_stream.cu", "encode_stream_bf16.cu",
            "encode_stream_wg.cu", "encode_stream_wgc.cu",
-           "encode_stream_wgx.cu", "encode_stream_wgk.cu", "decode_nll.cu",
+           "encode_stream_wgx.cu", "encode_stream_wgx_c.cu",
+           "encode_stream_wgk.cu", "encode_stream_wgk_c.cu", "decode_nll.cu",
            "fused_elbo.cu", "summarize.cu", "conv3x3.cu", "synth_batch.cu")
 HEADERS = ("quad_math.cuh", "elbo_math.cuh", "mma_math.cuh",
            "encode_act.cuh", "encode_stream.cuh", "encode_stream_wg.cuh")
@@ -133,9 +134,9 @@ _SIGNATURES = {
         _LL, _P],
     "qv_encode_quad_wg": [
         _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, QvRanges, _P, _P,
-        _P, _I, _I, _I, _I, _LL, _P],
+        _P, _I, _I, _I, _I, _I, _LL, _P],
     "qv_encode_q1_wg": [
-        _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
+        _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I,
         _LL, _P],
     "qv_encode_quad_wgc": [
         _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, QvRanges, _P, _P,
@@ -145,18 +146,18 @@ _SIGNATURES = {
         _LL, _P],
     "qv_encode_quad_wgx": [
         _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, QvRanges, _P, _P,
-        _P, _I, _I, _I, _I, _LL, _P],
+        _P, _I, _I, _I, _I, _I, _LL, _P],
     "qv_encode_q1_wgx": [
-        _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
+        _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I,
         _LL, _P],
     "qv_encode_quad_wgk": [
         _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, QvRanges, _P, _P,
-        _P, _I, _I, _I, _I, _I, _I, _LL, _P],
+        _P, _I, _I, _I, _I, _I, _I, _I, _LL, _P],
     "qv_encode_q1_wgk": [
         _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I,
-        _I, _LL, _P],
+        _I, _I, _LL, _P],
     "qv_encode_wgk_clusters": [
-        _I, _I, _I, _I, _I, _LL, ctypes.POINTER(ctypes.c_int)],
+        _I, _I, _I, _I, _I, _I, _LL, ctypes.POINTER(ctypes.c_int)],
     "qv_encode_quad_stream_bf16": [
         _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, QvRanges, _P, _P, _P,
         _I, _I, _I, _I, _I, _LL, _P],

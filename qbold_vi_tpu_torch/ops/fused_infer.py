@@ -37,10 +37,12 @@ pass of 64 voxels (``.split_launches``); in float32 at padded widths
 cluster of such blocks on a pass of 128 voxels, each block holding its
 share of every layer's columns (past 160 a block, in two output chunks)
 and reading the others' through distributed shared memory
-(``.cluster_launches``); and the streamed kernels of
-csrc/encode_stream.cuh everywhere else (float32 where the cluster's or
-split block does not fit, bf16 past 128 units or where its blob does not
-fit), which stream the blob itself
+(``.cluster_launches``). On dense tau scans, where a buffer of staged
+input rows does not fit beside the wgmma, split or cluster block, the
+block stages them in its activation rows (``LaunchPlan.rows``). The
+streamed kernels of csrc/encode_stream.cuh serve everywhere else (float32
+where a staged row is wider than the block's activation row, bf16 past
+128 units or where its blob does not fit), which stream the blob itself
 through shared memory a slab at a time (``.stream_launches`` and
 ``.stream_bf16_launches``).
 ``encode_q1_packed`` is the wrapper of kernel C, which shares B's encode
@@ -151,6 +153,19 @@ _WGK_PLANS = {**{up: ((8, 2, 8, 0),) for up in range(832, 1281, 64)},
               1344: ((8, 4, 2, 64),),
               1408: ((8, 6, 3, 64), (8, 4, 2, 64)),
               1472: ((8, 6, 3, 64), (8, 4, 2, 64))}
+# where the wgmma, split and cluster designs stage a pass's input rows, in
+# the order launch_plan tries them: a buffer of their own, then (many taus)
+# the first columns of the activation rows; the shared-rows kernels
+# compiled: the wgmma design's at these padded widths (QV_WG_DISPATCH, the
+# first slab of _WG_SLABS), the split design's at every width of
+# _WGX_SLABS (QV_WGX_DISPATCH), the cluster design's at these (columns a
+# block, first chunk, segment) (csrc/encode_stream_wgk.cu::
+# QV_WGK_SHARED_CASES): the plans whose staged rows of some tau count fit
+# in an activation row but not beside the block at the H100's 232,448 B
+_ROWS = ("separate", "shared")
+_WG_SHARED = (192, 256)
+_WGX_SHARED = tuple(_WGX_SLABS)
+_WGK_SHARED = ((160, 0, 0), (168, 64, 2), (176, 64, 3), (184, 64, 3))
 
 
 def fused_infer_available(activation: str) -> bool:
@@ -454,7 +469,11 @@ class LaunchPlan:
     (csrc/encode_stream.cuh: ``mt`` m-tiles -- 16 mt voxels a pass -- and
     ``ncw`` n-tiles a warp, slabs of ``ks`` k-steps, double-buffered),
     with the block's ``threads`` and dynamic shared-memory bytes
-    ``smem``."""
+    ``smem``. ``rows`` is where the wgmma, split and cluster designs stage
+    a pass's input rows: "separate" (a buffer of their own) or "shared"
+    (in the first columns of the activation rows, where many taus leave
+    no room for that buffer; the chunked design's rows are always
+    there)."""
 
     design: str
     threads: int
@@ -467,6 +486,7 @@ class LaunchPlan:
     cluster: int = 0
     seg: int = 0
     chunk: int = 0
+    rows: str = "separate"
 
 
 def _st_ncw(up: int) -> int:
@@ -507,16 +527,16 @@ def _st_smem(up: int, t: int, trunk: str, quad: bool, mt: int,
 
 
 def _wg_smem(up: int, t: int, quad: bool, stages: int, ks: int,
-             cn: int | None = None) -> int:
+             cn: int | None = None, shared: bool = False) -> int:
     """Shared-memory bytes of the wgmma kernels, in the layout of
     csrc/encode_stream_wg.cu (``cn`` None) or csrc/encode_stream_wgc.cu
     (chunks of ``cn`` columns): the ring's mbarriers, ``stages`` slots of
     ``ks`` k-steps (64 up bytes each, 64 cn chunked), the activation rows
-    of a pass, its staged rows (chunked: in the activation rows), the
-    round's heads and, in B, the node table and the quadrature's scratch
-    (in the activation rows where it fits)."""
+    of a pass, its staged rows (chunked or ``shared``: in the activation
+    rows), the round's heads and, in B, the node table and the
+    quadrature's scratch (in the activation rows where it fits)."""
     act = _WG_PASS * (up + 8)
-    rows = 0 if cn else _WG_PASS * _xs_stride(t)
+    rows = 0 if cn or shared else _WG_PASS * _xs_stride(t)
     words = act + rows + 5 * _ST_ROUND
     if quad:
         scratch = _quad_scratch_floats(_ST_ROUND)
@@ -524,13 +544,16 @@ def _wg_smem(up: int, t: int, quad: bool, stages: int, ks: int,
     return _WG_BAR_BYTES + stages * ks * 64 * (cn or up) + 4 * words
 
 
-def _wgx_smem(up: int, t: int, quad: bool, stages: int, cn: int) -> int:
+def _wgx_smem(up: int, t: int, quad: bool, stages: int, cn: int,
+              shared: bool = False) -> int:
     """Shared-memory bytes of the split wgmma kernels, in the layout of
     csrc/encode_stream_wgx.cu: the ring's mbarriers, ``stages`` slots of
     two pieces of 64 ``cn`` bytes, the activation rows and the staged rows
-    of a pass of 64 voxels, the round's heads and, in B, the node table
-    (the quadrature's scratch in the activation rows)."""
-    words = _WGX_PASS * (up + 8 + _xs_stride(t)) + 5 * _ST_ROUND
+    (``shared``: none, they are in the activation rows) of a pass of 64
+    voxels, the round's heads and, in B, the node table (the quadrature's
+    scratch in the activation rows)."""
+    rows = 0 if shared else _xs_stride(t)
+    words = _WGX_PASS * (up + 8 + rows) + 5 * _ST_ROUND
     if quad:
         words += _NCONST
     return _WG_BAR_BYTES + stages * 2 * 64 * cn + 4 * words
@@ -544,20 +567,28 @@ def _wgk_stride(cn: int) -> int:
 
 
 def _wgk_smem(up: int, t: int, quad: bool, stages: int,
-              cluster: int) -> int:
+              cluster: int, shared: bool = False) -> int:
     """Shared-memory bytes of a block of the cluster wgmma kernels, in the
     layout of csrc/encode_stream_wgk.cu: its mbarriers, ``stages`` slots of
     one k-step of its Up / ``cluster`` columns (64 bytes a column), those
-    columns' activation rows and every staged row of a pass of 128 voxels,
-    the partial heads of ``cluster`` blocks for a round of 256 voxels and,
-    in B, the node table (the quadrature's scratch in the activation
-    rows)."""
+    columns' activation rows and every staged row of a pass of 128 voxels
+    (``shared``: in the activation rows), the partial heads of ``cluster``
+    blocks for a round of 256 voxels and, in B, the node table (the
+    quadrature's scratch in the activation rows)."""
     cn = up // cluster
-    words = (_WGK_PASS * (_wgk_stride(cn) + _xs_stride(t))
+    rows = 0 if shared else _xs_stride(t)
+    words = (_WGK_PASS * (_wgk_stride(cn) + rows)
              + cluster * 5 * _ST_ROUND)
     if quad:
         words += _NCONST
     return _WGK_BAR_BYTES + stages * 64 * cn + 4 * words
+
+
+def _fits_row(t: int, columns: int) -> bool:
+    """Whether a staged row of ``t`` taus (its k-steps' 8 ceil(t / 8)
+    channels) fits in the first columns of an activation row of
+    ``columns``: the shared-rows layout's condition."""
+    return -(-t // 8) * 8 <= columns
 
 
 def launch_plan(up: int, nb: int, t: int, t_in: int, trunk: str,
@@ -575,7 +606,11 @@ def launch_plan(up: int, nb: int, t: int, t_in: int, trunk: str,
     in float32 at ``up`` 448-768 the split design in its ring
     (``_WGX_SLABS``) if it fits; else the streamed design with the largest
     pass of voxels, then the largest slab, that fits. Raises if none
-    fits."""
+    fits. The wgmma, split and cluster designs try their plans with
+    separate staged rows first, then (where the build compiles it,
+    ``_WG_SHARED``, ``_WGX_SHARED``, ``_WGK_SHARED``, and a staged row fits
+    in an activation row of the block's columns) with shared rows, before
+    the next design."""
     _check_trunk(trunk)
     scratch = _quad_scratch_floats if quad else (lambda threads: 0)
     blob = _blob_floats(up, nb, t, trunk)
@@ -594,29 +629,46 @@ def launch_plan(up: int, nb: int, t: int, t_in: int, trunk: str,
                     return LaunchPlan("resident", 32 * warps, smem)
     if trunk == "float32" and up in _WG_SLABS:
         ks, stages = _WG_SLABS[up][0], _WG_STAGES[0]
-        smem = _wg_smem(up, t, quad, stages, ks)
-        if smem <= limit:
-            return LaunchPlan("wgmma", _WG_THREADS, smem, ks=ks,
-                              stages=stages)
+        for rows in _ROWS:
+            if rows == "shared" and not (up in _WG_SHARED
+                                         and _fits_row(t, up)):
+                continue
+            smem = _wg_smem(up, t, quad, stages, ks,
+                            shared=rows == "shared")
+            if smem <= limit:
+                return LaunchPlan("wgmma", _WG_THREADS, smem, ks=ks,
+                                  stages=stages, rows=rows)
     if trunk == "float32" and up in _WGC_SLABS and -(-t // 8) * 8 <= up:
         cn, ks = _WGC_SLABS[up]
         smem = _wg_smem(up, t, quad, _WG_STAGES[0], ks, cn)
         if smem <= limit:
             return LaunchPlan("chunked", _WG_THREADS, smem, ks=ks,
                               stages=_WG_STAGES[0], cn=cn)
-    for cluster, stages, seg, chunk in (
-            _WGK_PLANS.get(up, ()) if trunk == "float32" else ()):
-        smem = _wgk_smem(up, t, quad, stages, cluster)
-        if smem <= limit:
-            return LaunchPlan("cluster", _WG_THREADS, smem, ks=1,
-                              stages=stages, cn=up // cluster,
-                              cluster=cluster, seg=seg, chunk=chunk)
+    for rows in _ROWS:
+        for cluster, stages, seg, chunk in (
+                _WGK_PLANS.get(up, ()) if trunk == "float32" else ()):
+            if rows == "shared" and not (
+                    (up // cluster, chunk, seg if chunk else 0)
+                    in _WGK_SHARED and _fits_row(t, up // cluster)):
+                continue
+            smem = _wgk_smem(up, t, quad, stages, cluster,
+                             shared=rows == "shared")
+            if smem <= limit:
+                return LaunchPlan("cluster", _WG_THREADS, smem, ks=1,
+                                  stages=stages, cn=up // cluster,
+                                  cluster=cluster, seg=seg, chunk=chunk,
+                                  rows=rows)
     if trunk == "float32" and up in _WGX_SLABS:
         cn, stages = _WGX_SLABS[up]
-        smem = _wgx_smem(up, t, quad, stages, cn)
-        if smem <= limit:
-            return LaunchPlan("split", _WG_THREADS, smem, ks=1,
-                              stages=stages, cn=cn)
+        for rows in _ROWS:
+            if rows == "shared" and not (up in _WGX_SHARED
+                                         and _fits_row(t, up)):
+                continue
+            smem = _wgx_smem(up, t, quad, stages, cn,
+                             shared=rows == "shared")
+            if smem <= limit:
+                return LaunchPlan("split", _WG_THREADS, smem, ks=1,
+                                  stages=stages, cn=cn, rows=rows)
     for mt in _ST_TILES[_st_ncw(up)]:
         for ks in _st_slabs(up, trunk):
             smem = _st_smem(up, t, trunk, quad, mt, ks)
@@ -669,15 +721,63 @@ def _launch_setup(images, encoder, *, n_blocks: int, activation: str,
     return x, channel_major, n, blob, u, up, t
 
 
-def _entry(name: str, trunk: str):
-    """The C entry of kernel B or C for the trunk's dtype."""
-    return getattr(_cuda.library(),
+def _entry(name: str, trunk: str, lib=None):
+    """The C entry of kernel B or C for the trunk's dtype in library
+    ``lib`` (the package's by default)."""
+    return getattr(lib or _cuda.library(),
                    name + ("_bf16" if trunk == "bfloat16" else ""))
+
+
+_WG_ENTRY = {"wgmma": "wg", "chunked": "wgc", "split": "wgx",
+             "cluster": "wgk"}
+
+
+def _launch_bc(lib, plan: LaunchPlan, quad: bool, trunk: str, args,
+               units: int, up: int, nb: int, t: int, blob, outs, stream,
+               ranges=None, mvg: bool = False) -> int:
+    """Launch kernel B (``quad``: ``outs`` = means, vars, raw, with the
+    quadrature's ``ranges`` and ``mvg``) or C (``outs`` = (q,)) by an
+    explicit ``plan`` through the C entries of library ``lib`` (the
+    package's, or a build of edited sources with its interface), the rows'
+    ``args`` of ``_encode_args``; returns the CUDA error. The wrappers
+    launch ``launch_plan``'s plan; tools/bench_stream1.py --sweep and the
+    card tests any other."""
+    ptrs = tuple(o.data_ptr() for o in outs)
+    tail = (ranges, *ptrs, int(mvg)) if quad else ptrs
+    size = (plan.threads, plan.smem, stream)
+    if plan.design == "resident":
+        if quad:
+            return _entry("qv_encode_quad_fused", trunk, lib)(
+                *args, units, up, nb, blob.data_ptr(), blob.numel(), *tail,
+                *size)
+        return _entry("qv_encode_q1", trunk, lib)(
+            *args, up, nb, blob.data_ptr(), blob.numel(), *tail, *size)
+    if plan.design == "streamed":
+        name = "qv_encode_quad_stream" if quad else "qv_encode_q1_stream"
+        return _entry(name, trunk, lib)(
+            *args, up, nb, blob.data_ptr(), *tail, plan.mt, plan.ncw,
+            plan.ks, *size)
+    knobs = {"wgmma": (plan.stages, plan.ks, _shared(plan)),
+             "chunked": (plan.stages, plan.ks, plan.cn),
+             "split": (plan.stages, plan.cn, _shared(plan)),
+             "cluster": (plan.stages, plan.cluster, plan.seg, plan.chunk,
+                         _shared(plan))}[plan.design]
+    image = _wg_image_of(blob, up, nb, t, plan.cn or None)
+    name = ("qv_encode_quad_" if quad else "qv_encode_q1_") + _WG_ENTRY[
+        plan.design]
+    return getattr(lib, name)(*args, up, nb, blob.data_ptr(),
+                              image.data_ptr(), *tail, *knobs, *size)
 
 
 _COUNTER_PREFIX = {"resident": "", "streamed": "stream_", "wgmma": "wgmma_",
                    "chunked": "chunked_", "split": "split_",
                    "cluster": "cluster_"}
+
+
+def _shared(plan: LaunchPlan) -> int:
+    """The C entries' ``shared`` argument of a wgmma, split or cluster
+    plan: 1 where its staged rows are in the activation rows."""
+    return int(plan.rows == "shared")
 
 
 def _count(wrapper, plan: LaunchPlan, trunk: str) -> None:
@@ -762,44 +862,11 @@ def encode_quad_fused_op(x: torch.Tensor, blob: torch.Tensor, units: int,
     ranges = _cuda.quad_ranges(oef_range=oef_range, min_oef=min_oef,
                                dbv_range=dbv_range, min_dbv=min_dbv,
                                dw_coeff=dw_coeff)
-    ptrs = tuple(o.data_ptr() for o in outs)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        if plan.design == "resident":
-            err = _entry("qv_encode_quad_fused", trunk)(
-                *args, units, padded_units, n_blocks, blob.data_ptr(),
-                blob.numel(), ranges, *ptrs, int(mvg), plan.threads,
-                plan.smem, stream)
-        elif plan.design == "wgmma":
-            image = _wg_image_of(blob, padded_units, n_blocks, t)
-            err = _cuda.library().qv_encode_quad_wg(
-                *args, padded_units, n_blocks, blob.data_ptr(),
-                image.data_ptr(), ranges, *ptrs, int(mvg), plan.stages,
-                plan.ks, plan.threads, plan.smem, stream)
-        elif plan.design == "chunked":
-            image = _wg_image_of(blob, padded_units, n_blocks, t, plan.cn)
-            err = _cuda.library().qv_encode_quad_wgc(
-                *args, padded_units, n_blocks, blob.data_ptr(),
-                image.data_ptr(), ranges, *ptrs, int(mvg), plan.stages,
-                plan.ks, plan.cn, plan.threads, plan.smem, stream)
-        elif plan.design == "split":
-            image = _wg_image_of(blob, padded_units, n_blocks, t, plan.cn)
-            err = _cuda.library().qv_encode_quad_wgx(
-                *args, padded_units, n_blocks, blob.data_ptr(),
-                image.data_ptr(), ranges, *ptrs, int(mvg), plan.stages,
-                plan.cn, plan.threads, plan.smem, stream)
-        elif plan.design == "cluster":
-            image = _wg_image_of(blob, padded_units, n_blocks, t, plan.cn)
-            err = _cuda.library().qv_encode_quad_wgk(
-                *args, padded_units, n_blocks, blob.data_ptr(),
-                image.data_ptr(), ranges, *ptrs, int(mvg), plan.stages,
-                plan.cluster, plan.seg, plan.chunk, plan.threads, plan.smem,
-                stream)
-        else:
-            err = _entry("qv_encode_quad_stream", trunk)(
-                *args, padded_units, n_blocks, blob.data_ptr(), ranges,
-                *ptrs, int(mvg), plan.mt, plan.ncw, plan.ks, plan.threads,
-                plan.smem, stream)
+        err = _launch_bc(_cuda.library(), plan, True, trunk, args, units,
+                         padded_units, n_blocks, t, blob, outs, stream,
+                         ranges, mvg)
     _cuda.check(err, "fused-infer")
     _count(encode_quad_fused, plan, trunk)
     return tuple(outs)
@@ -837,7 +904,7 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
         return encode_q_plain(images, encoder, **kw)
     if images.device.type != "cuda":
         raise ValueError(f"no fused-infer kernel for device {images.device}")
-    x, channel_major, n, blob, _, up, t = _launch_setup(
+    x, channel_major, n, blob, u, up, t = _launch_setup(
         images, encoder, n_blocks=n_blocks, activation=activation,
         trunk=trunk, mask_channel=mask_channel, input_layout=input_layout,
         se_idx=se_idx)
@@ -850,38 +917,8 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
                         multi_image, activation)
     stream = torch.cuda.current_stream(images.device).cuda_stream
     with torch.cuda.device(images.device):
-        if plan.design == "resident":
-            err = _entry("qv_encode_q1", trunk)(
-                *args, up, n_blocks, blob.data_ptr(), blob.numel(),
-                q.data_ptr(), plan.threads, plan.smem, stream)
-        elif plan.design == "wgmma":
-            image = _wg_image_of(blob, up, n_blocks, t)
-            err = _cuda.library().qv_encode_q1_wg(
-                *args, up, n_blocks, blob.data_ptr(), image.data_ptr(),
-                q.data_ptr(), plan.stages, plan.ks, plan.threads, plan.smem,
-                stream)
-        elif plan.design == "chunked":
-            image = _wg_image_of(blob, up, n_blocks, t, plan.cn)
-            err = _cuda.library().qv_encode_q1_wgc(
-                *args, up, n_blocks, blob.data_ptr(), image.data_ptr(),
-                q.data_ptr(), plan.stages, plan.ks, plan.cn, plan.threads,
-                plan.smem, stream)
-        elif plan.design == "split":
-            image = _wg_image_of(blob, up, n_blocks, t, plan.cn)
-            err = _cuda.library().qv_encode_q1_wgx(
-                *args, up, n_blocks, blob.data_ptr(), image.data_ptr(),
-                q.data_ptr(), plan.stages, plan.cn, plan.threads, plan.smem,
-                stream)
-        elif plan.design == "cluster":
-            image = _wg_image_of(blob, up, n_blocks, t, plan.cn)
-            err = _cuda.library().qv_encode_q1_wgk(
-                *args, up, n_blocks, blob.data_ptr(), image.data_ptr(),
-                q.data_ptr(), plan.stages, plan.cluster, plan.seg,
-                plan.chunk, plan.threads, plan.smem, stream)
-        else:
-            err = _entry("qv_encode_q1_stream", trunk)(
-                *args, up, n_blocks, blob.data_ptr(), q.data_ptr(), plan.mt,
-                plan.ncw, plan.ks, plan.threads, plan.smem, stream)
+        err = _launch_bc(_cuda.library(), plan, False, trunk, args, u, up,
+                         n_blocks, t, blob, (q,), stream)
     _cuda.check(err, "stream-1 encode")
     _count(encode_q1_packed, plan, trunk)
     return q

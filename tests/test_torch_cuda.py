@@ -202,17 +202,97 @@ def test_deep_narrow_float32_takes_the_wgmma_design(cuda_device, layout):
     _wide_and_deep_case(cuda_device, "float32", layout, 30, 32, "softplus")
 
 
+# dense tau scans: (units, blocks, tau_step, taus, design); 51 taus
+# (tau_step 1.6 ms) at 768 x 1, 128 at 256 x 2 and 1472 x 1, where no
+# block of their design fits beside a buffer of staged rows
+MANY_TAUS = [(768, 1, 0.0016, 51, "split"), (256, 2, 0.000635, 128, "wgmma"),
+             (1472, 1, 0.000635, 128, "cluster")]
+
+
 @pytest.mark.parametrize("layout", ["voxel", "channel"])
-def test_many_taus_float32_takes_the_streamed_design(cuda_device, layout):
-    """768 units x 1 block in float32 on a scan of 51 taus (tau_step
-    1.6 ms): the split block does not fit beside the staged rows, so
-    kernels B and C stream (csrc/encode_stream.cu, a pass of 16 voxels),
-    held against their plain versions as
-    test_wide_and_deep_kernels_match_plain holds them."""
-    scan = dataclasses.replace(SCAN, tau_step=0.0016)
-    assert scan.n_taus == 51
-    _wide_and_deep_case(cuda_device, "float32", layout, 768, 1, "relu",
+@pytest.mark.parametrize("units,nb,step,taus,design", MANY_TAUS,
+                         ids=[f"{u}x{nb}-t{t}" for u, nb, _, t, _ in
+                              MANY_TAUS])
+def test_many_taus_float32_takes_the_shared_rows_designs(
+        cuda_device, layout, units, nb, step, taus, design):
+    """768 units x 1 block on 51 taus, 256 x 2 and 1472 x 1 on 128 in
+    float32: the split, wgmma and cluster blocks stage the rows in their
+    activation rows (LaunchPlan.rows "shared"), kernels B and C held
+    against their plain versions as test_wide_and_deep_kernels_match_plain
+    holds them."""
+    from qbold_vi_tpu_torch.ops import _cuda
+
+    scan = dataclasses.replace(SCAN, tau_step=step)
+    assert scan.n_taus == taus
+    plan = tfi.launch_plan(tfi._padded_width(units), nb, taus, taus + 1,
+                           "float32", True,
+                           _cuda.library().qv_max_dynamic_smem())
+    assert (plan.design, plan.rows) == (design, "shared")
+    _wide_and_deep_case(cuda_device, "float32", layout, units, nb, "relu",
+                        scan, design + "_launches")
+
+
+def test_float32_streams_where_a_row_is_wider_than_the_block(cuda_device):
+    """320 units x 2 blocks in float32 on 330 taus (tau_step 0.246 ms): a
+    staged row (336 channels) is wider than the chunked block's activation
+    row, so kernels B and C stream (csrc/encode_stream.cu), held against
+    their plain versions as test_wide_and_deep_kernels_match_plain holds
+    them."""
+    scan = dataclasses.replace(SCAN, tau_step=0.000246)
+    assert scan.n_taus == 330
+    _wide_and_deep_case(cuda_device, "float32", "voxel", 320, 2, "relu",
                         scan, "stream_launches")
+
+
+@pytest.mark.parametrize("units,nb,design", [(256, 2, "wgmma"),
+                                             (768, 1, "split"),
+                                             (1472, 1, "cluster")])
+def test_shared_rows_are_bit_equal_to_separate_rows(cuda_device, units, nb,
+                                                    design):
+    """On 11 taus, where both fit, the shared-rows plan of the wgmma, split
+    and cluster designs gives kernels B and C the separate-rows plan's
+    outputs bit for bit: the same rows, staged elsewhere. Both launched by
+    fused_infer._launch_bc, the entry tools/bench_stream1.py --sweep uses
+    for an explicit plan."""
+    from qbold_vi_tpu_torch.ops import _cuda
+
+    cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=units,
+                              no_intermediate_layers=nb)
+    tuner = _tuner(cfg, cuda_device)
+    rng = np.random.default_rng(24)
+    x = torch.from_numpy(volume(rng, (20_011,), SCAN.n_taus + 1)).to(
+        cuda_device)
+    xs, cm, n, blob, u, up, t = tfi._launch_setup(
+        x, tuner.encoder, n_blocks=nb, activation="relu", trunk="float32",
+        mask_channel=True, input_layout="voxel", se_idx=SCAN.se_idx)
+    args = tfi._encode_args(xs, n, cm, True, SCAN.se_idx, False, "relu")
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = {}
+    for quad in (True, False):
+        plan = tfi._plan(up, nb, t, t + 1, "float32", quad, x.device)
+        assert (plan.design, plan.rows) == (design, "separate")
+        smem = {"wgmma": lambda: tfi._wg_smem(up, t, quad, plan.stages,
+                                              plan.ks, shared=True),
+                "split": lambda: tfi._wgx_smem(up, t, quad, plan.stages,
+                                               plan.cn, True),
+                "cluster": lambda: tfi._wgk_smem(up, t, quad, plan.stages,
+                                                 plan.cluster, True)}[design]
+        shared = dataclasses.replace(plan, rows="shared", smem=smem())
+        assert shared.smem < plan.smem
+        for p in (plan, shared):
+            o = tuple(torch.full((3 if quad else 5, n), float("nan"),
+                                 device=cuda_device)
+                      for _ in range(3 if quad else 1))
+            _cuda.check(tfi._launch_bc(_cuda.library(), p, quad, "float32",
+                                       args, u, up, nb, t, blob, o, stream,
+                                       _cuda.quad_ranges(**RANGES), True),
+                        f"{design} {p.rows}")
+            outs[(quad, p.rows)] = o
+    torch.cuda.synchronize()
+    for quad in (True, False):
+        for a, b in zip(outs[(quad, "separate")], outs[(quad, "shared")]):
+            assert torch.isfinite(a).all()
+            assert torch.equal(a, b), (design, quad)
 
 
 def _wide_and_deep_case(cuda_device, trunk, layout, units, nb, act,
@@ -1607,8 +1687,8 @@ def test_fused_artifact_at_256_units(cuda_device, tmp_path, trunk, units):
 
 
 _REFUSALS = [(833, "smem"), (833, "cluster"), (833, "unbuilt"),
-             (1281, "smem"), (1281, "cluster"), (1281, "unbuilt"),
-             (1281, "chunk"), (1281, "segment")]
+             (833, "shared"), (1281, "smem"), (1281, "cluster"),
+             (1281, "unbuilt"), (1281, "chunk"), (1281, "segment")]
 
 
 @pytest.mark.parametrize(
@@ -1621,10 +1701,11 @@ def test_cluster_design_raises_rather_than_falling_back(cuda_device,
     (1344 padded, a block's columns in two output chunks) a cluster launch
     that cannot run raises from kernels B and C: a block past the card's
     shared memory, a cluster of 16 blocks (past the portable 8), a kernel
-    library that does not build and, chunked, a first chunk or a promoted
-    segment the build does not compile. No other design (split, streamed)
-    launches in its place, no plain version runs and no launch is
-    counted."""
+    library that does not build, at 896 a shared-rows plan the build does
+    not compile (112 columns a block) and, chunked, a first chunk or a
+    promoted segment the build does not compile. No other design (split,
+    streamed) launches in its place, no plain version runs and no launch
+    is counted."""
     from qbold_vi_tpu_torch.ops import _cuda
 
     cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=units,
@@ -1665,7 +1746,8 @@ def test_cluster_design_raises_rather_than_falling_back(cuda_device,
                   "cluster": {"cluster": 16, "cn": 56} if units == 833
                   else {"cluster": 12, "cn": 112},
                   "chunk": {"chunk": 72},
-                  "segment": {"seg": 3, "stages": 4}}[refusal]
+                  "segment": {"seg": 3, "stages": 4},
+                  "shared": {"rows": "shared"}}[refusal]
         monkeypatch.setattr(tfi, "_plan", lambda *a: dataclasses.replace(
             plan(*a), **change))
         match = "launch failed"

@@ -935,15 +935,18 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
         assert (plan.design, plan.stages, plan.seg, plan.chunk,
                 plan.smem) == ("cluster", *then[1:], 212_032)
         # where the staged rows of many taus do not fit beside a block
-        # the streamed design serves: at 768 x 1 on 48 or 51 taus its
-        # pass of 16 voxels
+        # they share its activation rows: at 448 x 1 on 330 taus and at
+        # 768 x 1 on 48 or 51 taus the split block with shared rows; where
+        # a staged row is wider than a block's activation row (896 x 1 on
+        # 330 taus: 112 columns a block) the streamed design serves
         assert tfi.launch_plan(896, 1, 330, 331, trunk, quad,
                                H100_SMEM).design == "streamed"
-        assert tfi.launch_plan(448, 1, 330, 331, trunk, quad,
-                               H100_SMEM).design == "streamed"
+        plan = tfi.launch_plan(448, 1, 330, 331, trunk, quad, H100_SMEM)
+        assert (plan.design, plan.rows) == ("split", "shared")
         for t in (48, 51):
             plan = tfi.launch_plan(768, 1, t, t + 1, trunk, quad, H100_SMEM)
-            assert (plan.design, plan.mt) == ("streamed", 1)
+            assert (plan.design, plan.rows) == ("split", "shared")
+            assert plan.smem == tfi._wgx_smem(768, t, quad, 2, 64, True)
         # past 1472 no block of any design fits
         with pytest.raises(ValueError, match="no launch fits"):
             tfi.launch_plan(1536, 1, 11, 12, trunk, quad, H100_SMEM)
@@ -982,18 +985,20 @@ def _stream_walk(up, nb, t, trunk, plan):
 
 @pytest.mark.parametrize("trunk", ["float32", "bfloat16"])
 def test_streamed_slabs_unpack_to_the_encoder(trunk):
-    """At 256 units x 2 blocks in bf16 and 768 x 2 on 51 taus in float32
+    """At 256 units x 2 blocks in bf16 and 320 x 2 on 330 taus in float32
     (the streamed design's shapes: float32 takes the wgmma designs at every
-    width where the staged rows fit beside their blocks), the streamed
+    width where the staged rows fit beside their blocks or in their
+    activation rows), the streamed
     kernels' slabs -- the blob's bytes copied as qv_st_body
     copies them into a slot, then read as each warp reads its B fragments
     (lane 4g + t) -- hold every layer's weight at (n, k) exactly once:
     float32's hi / lo TF32 splits, bf16's bf16 values, zeros past U and
     T. The head's fragments and the biases, read where qv_st_blob points,
     hold the head and the biases."""
-    up = 256 if trunk == "bfloat16" else 768
+    up = 256 if trunk == "bfloat16" else 320
     cfg, tuner = _width_tuner(up, scan=SCAN if trunk == "bfloat16"
-                              else dataclasses.replace(SCAN, tau_step=0.0016))
+                              else dataclasses.replace(SCAN,
+                                                       tau_step=0.000246))
     nb = cfg.no_intermediate_layers
     blob, u, _, t = tfi._weight_blob(tuner.encoder, nb, torch.device("cpu"),
                                      trunk)

@@ -5,7 +5,7 @@ on one subject, with each build's errors and its registers, spills, stack
 frame, shared memory, blocks an SM and SASS instructions.
 
     python3 tools/bench_stream1.py [--dtype float32|bfloat16|both]
-        [--units U] [--blocks NB] [--shapes UxNB,...] [--sweep]
+        [--units U] [--blocks NB] [--shapes UxNB[xT],...] [--sweep]
         [--slots S,...] [--segments K,...] [--chunks C,...]
         [--clusters C,...]
         [--only-copies]
@@ -32,7 +32,9 @@ The request is OPTIMAL's stream-1 serving request: 1,032,192 voxels
 (14 x 96 x 96 x 8), 11 taus + a mask channel, voxel-major, U 60, 2
 blocks, MVG, relu, random weights (``init_params`` seed 0); ``--units``
 and ``--blocks`` change the trunk's width and depth (``init_params`` of
-that configuration, seed 0), and kernels B and C then run the design
+that configuration, seed 0), ``--shapes`` also the taus (a scan of T
+taus: OPTIMAL's with the tau_step that gives T, ``scan_of``), and kernels
+B and C then run the design
 ``fused_infer.launch_plan`` picks there: the resident entries
 (``qv_encode_quad_fused``, ``qv_encode_q1``), the float32 wgmma ones
 (``qv_encode_quad_wg``, ``qv_encode_q1_wg``, kernels
@@ -54,7 +56,10 @@ ones (``qv_encode_quad_wgk``, ``qv_encode_q1_wgk``, kernels
 image in chunks of a block's columns, past 160 columns a block computed
 in two output chunks, with the clusters the card holds at once,
 ``qv_encode_wgk_clusters``; an edited copy of
-``csrc/encode_stream_wgk.cu`` likewise) or the streamed ones
+``csrc/encode_stream_wgk.cu`` likewise; the wgmma, split and cluster
+designs with the plan's staged rows, separate or in the activation rows,
+``LaunchPlan.rows``, every launch through ``fused_infer._launch_bc``) or
+the streamed ones
 (``qv_encode_quad_stream``,
 ``qv_encode_q1_stream``, kernels ``qv_encode_quad_stream_kernel`` and
 ``qv_encode_q_stream_kernel``; an edited copy of ``csrc/encode_stream.cu``
@@ -103,8 +108,9 @@ A through that package's wrappers, with their errors, C's head against a
 float64 head on the plain version's features (``chip_smoke.head_f64_err``)
 and B beside C + A: the way to time two commits in one call, in turns
 (parent, change, change, parent; ``--dtype both`` runs both trunks in
-one process). ``--shapes 60x2,256x2,...`` takes each width x depth given
-in place of ``--units`` / ``--blocks``, with or without ``--package``.
+one process). ``--shapes 60x2,256x2,768x1x51,...`` takes each width x
+depth [x taus] given in place of ``--units`` / ``--blocks``, with or
+without ``--package``.
 
 ``--sweep`` times B and C (errors against the plain versions, device ms)
 by each build (the package's and each copy) under every plan of the
@@ -122,9 +128,11 @@ block the package compiles, each ring of SLOTS, each promoted segment
 of SEGMENTS and, past 160 columns a block, each first output chunk of
 CHUNKS (``--slots``, ``--segments``, ``--chunks``;
 ``fused_infer._WGK_PLANS`` holds the plan's; ``--clusters`` the cluster
-sizes), with the resident clusters.
+sizes), with the resident clusters; the wgmma, split and cluster plans
+each with separate staged rows and, where a staged row fits in an
+activation row of the block's columns, with shared rows.
 Each plan's row gives B's CHECKS verdict, C's distance to the float64
-encode and B's registers and spills (ptxas). A build's cluster
+encode and B's and C's registers and spills (ptxas). A build's cluster
 instantiations are its ``QV_WGK_CASES``: sweep other chunks and segments
 as a copy of ``csrc/encode_stream_wgk.cu`` with more cases. The wgmma
 designs' other knobs are compiled in (two consumer warpgroups of 64
@@ -170,7 +178,7 @@ if "--package" in sys.argv[:-1]:
 from chip_smoke import (branch_shares, check_close,  # noqa: E402
                         check_rows, cuda_ms, encode_q_f64, gpu_line,
                         head_f64_err, kernel_ms, raw_head, sass, squashed,
-                        volumes)
+                        volumes, wide_bound)
 from qbold_vi_tpu_torch import OPTIMAL, FineTuner, init_params  # noqa: E402
 from qbold_vi_tpu_torch.ops import _cuda  # noqa: E402
 from qbold_vi_tpu_torch.ops import fused_elbo as fe  # noqa: E402
@@ -205,19 +213,45 @@ KERNELS = dict(A="qv_quad_kernel", B="qv_encode_quad_kernel",
                C="qv_encode_q_kernel", D="qv_mc_summaries_kernel",
                E="qv_mc_kl_kernel")
 MIXES = ("C rows", "straddling", "below", "above")   # kernel A's heads
+# the tau_step of a scan of T taus (OPTIMAL's grid otherwise): the ones
+# chip_smoke.py and the card tests use
+TAU_STEPS = {51: 0.0016, 96: 0.00085, 128: 0.000635, 330: 0.000246}
+
+
+def scan_of(taus: int):
+    """OPTIMAL's scan with ``taus`` taus: its own at 11, else its grid at
+    TAU_STEPS' step or one that gives ``taus`` (span / (taus - 1/2))."""
+    scan = OPTIMAL.scan
+    if taus != scan.n_taus:
+        step = TAU_STEPS.get(taus, (scan.tau_end - scan.tau_start)
+                             / (taus - 0.5))
+        scan = dataclasses.replace(scan, tau_step=step)
+    if scan.n_taus != taus:
+        raise ValueError(f"no scan of {taus} taus (tau_step {step})")
+    return scan
 
 
 def build_variants(paths):
     """{name: (ctypes library, nvcc log, .so path)} of each source, built
-    with the port's flags."""
+    with the port's flags. A source whose package file has a companion
+    ``<stem>_c.cu`` (encode_stream_wgx.cu, encode_stream_wgk.cu: kernel
+    C's entries compiled apart) is built with that companion, pointed at
+    the copy."""
     out_dir = _cuda.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
     for path in map(Path, paths):
         name = f"{path.parent.name}/{path.stem}"
         so = out_dir / f"{path.parent.name}_{path.stem}.so"
+        srcs = [str(path)]
+        companion = _cuda.CSRC / f"{path.stem}_c.cu"
+        if companion.is_file():
+            c_src = out_dir / f"{path.parent.name}_{path.stem}_c.cu"
+            c_src.write_text(companion.read_text().replace(
+                f'#include "{path.name}"', f'#include "{path.resolve()}"'))
+            srcs.append(str(c_src))
         cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, f"-I{path.resolve().parent}",
-               f"-I{_cuda.CSRC}", "-shared", "-o", str(so), str(path)]
+               f"-I{_cuda.CSRC}", "-shared", "-o", str(so), *srcs]
         procs.append((name, so, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     libs = {}
@@ -304,20 +338,16 @@ class Calls:
             self.block_b, self.smem_b = self.block, self.smem
             self.plan_b = self.plan_c = None
         else:
-            _, _, _, self.blob, self.u, self.up, t = fi._launch_setup(
+            _, _, _, self.blob, self.u, self.up, self.t = fi._launch_setup(
                 x, enc, trunk=ctx["trunk"], **ctx["setup"])
             # kernel B's plan counts its quadrature's scratch
             self.plan_b, self.plan_c = (
-                fi._plan(self.up, nb, t, t + 1, ctx["trunk"], quad_, x.device)
+                fi._plan(self.up, nb, self.t, self.t + 1, ctx["trunk"], quad_,
+                         x.device)
                 for quad_ in (True, False))
             self.block_b, self.smem_b = self.plan_b.threads, self.plan_b.smem
             self.block, self.smem = self.plan_c.threads, self.plan_c.smem
         self.stream = torch.cuda.current_stream().cuda_stream
-        self.image = (fi._wg_image(self.blob, self.up, nb, t,
-                                   self.plan_b.cn or None)
-                      if self.design() in ("wgmma", "chunked", "split",
-                                           "cluster")
-                      else None)
 
     def design(self) -> str:
         return "row blob" if self.plan_b is None else self.plan_b.design
@@ -332,80 +362,31 @@ class Calls:
                                act or c["kw"]["activation"])
 
     def b(self, act=None):
-        o = [t.data_ptr() for t in self.ctx["b_out"]]
         ranges = _cuda.quad_ranges(**self.ctx["ranges"])
-        if self.streamed():
-            p = self.plan_b
-            err = getattr(self.lib, "qv_encode_quad_stream" + self.ctx["tag"])(
-                *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
-                ranges, *o, 1, p.mt, p.ncw, p.ks, p.threads, p.smem,
-                self.stream)
-        elif self.design() == "wgmma":
-            p = self.plan_b
-            err = self.lib.qv_encode_quad_wg(
-                *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
-                self.image.data_ptr(), ranges, *o, 1, p.stages, p.ks,
-                p.threads, p.smem, self.stream)
-        elif self.design() == "chunked":
-            p = self.plan_b
-            err = self.lib.qv_encode_quad_wgc(
-                *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
-                self.image.data_ptr(), ranges, *o, 1, p.stages, p.ks, p.cn,
-                p.threads, p.smem, self.stream)
-        elif self.design() == "split":
-            p = self.plan_b
-            err = self.lib.qv_encode_quad_wgx(
-                *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
-                self.image.data_ptr(), ranges, *o, 1, p.stages, p.cn,
-                p.threads, p.smem, self.stream)
-        elif self.design() == "cluster":
-            p = self.plan_b
-            err = self.lib.qv_encode_quad_wgk(
-                *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
-                self.image.data_ptr(), ranges, *o, 1, p.stages, p.cluster,
-                p.seg, p.chunk, p.threads, p.smem, self.stream)
-        else:
+        if self.plan_b is None:              # the earlier row-blob encode
+            o = [t.data_ptr() for t in self.ctx["b_out"]]
             err = getattr(self.lib, "qv_encode_quad_fused" + self.ctx["tag"])(
                 *self.enc_args(act), self.u, self.up, self.nb,
                 self.blob.data_ptr(), self.blob.numel(), ranges, *o, 1,
                 self.block_b, self.smem_b, self.stream)
+        else:
+            err = fi._launch_bc(self.lib, self.plan_b, True, self.ctx["trunk"],
+                                self.enc_args(act), self.u, self.up, self.nb,
+                                self.t, self.blob, self.ctx["b_out"],
+                                self.stream, ranges, True)
         _cuda.check(err, "B")
 
     def c(self, act=None):
-        q = self.ctx["q_out"].data_ptr()
-        if self.streamed():
-            p = self.plan_c
-            err = getattr(self.lib, "qv_encode_q1_stream" + self.ctx["tag"])(
-                *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
-                q, p.mt, p.ncw, p.ks, p.threads, p.smem, self.stream)
-        elif self.design() == "wgmma":
-            p = self.plan_c
-            err = self.lib.qv_encode_q1_wg(
-                *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
-                self.image.data_ptr(), q, p.stages, p.ks, p.threads, p.smem,
-                self.stream)
-        elif self.design() == "chunked":
-            p = self.plan_c
-            err = self.lib.qv_encode_q1_wgc(
-                *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
-                self.image.data_ptr(), q, p.stages, p.ks, p.cn, p.threads,
-                p.smem, self.stream)
-        elif self.design() == "split":
-            p = self.plan_c
-            err = self.lib.qv_encode_q1_wgx(
-                *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
-                self.image.data_ptr(), q, p.stages, p.cn, p.threads, p.smem,
-                self.stream)
-        elif self.design() == "cluster":
-            p = self.plan_c
-            err = self.lib.qv_encode_q1_wgk(
-                *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
-                self.image.data_ptr(), q, p.stages, p.cluster, p.seg,
-                p.chunk, p.threads, p.smem, self.stream)
-        else:
+        if self.plan_c is None:              # the earlier row-blob encode
             err = getattr(self.lib, "qv_encode_q1" + self.ctx["tag"])(
                 *self.enc_args(act), self.up, self.nb, self.blob.data_ptr(),
-                self.blob.numel(), q, self.block, self.smem, self.stream)
+                self.blob.numel(), self.ctx["q_out"].data_ptr(), self.block,
+                self.smem, self.stream)
+        else:
+            err = fi._launch_bc(self.lib, self.plan_c, False,
+                                self.ctx["trunk"], self.enc_args(act), self.u,
+                                self.up, self.nb, self.t, self.blob,
+                                (self.ctx["q_out"],), self.stream)
         _cuda.check(err, "C")
 
     def a(self, mix="C rows", block=quad.QUAD_BLOCK):
@@ -450,8 +431,8 @@ def trunk_config(units, blocks):
                                no_intermediate_layers=blocks)
 
 
-def context(dev, trunk="float32", units=60, blocks=2):
-    cfg, scan = trunk_config(units, blocks), OPTIMAL.scan
+def context(dev, trunk="float32", units=60, blocks=2, taus=11):
+    cfg, scan = trunk_config(units, blocks), scan_of(taus)
     tuner = FineTuner(cfg, scan, device=dev)
     tuner.load_state_dict(init_params(cfg, scan,
                                       torch.Generator().manual_seed(0)))
@@ -495,6 +476,7 @@ def context(dev, trunk="float32", units=60, blocks=2):
             qe[:N_SUBJ], pe[:N_SUBJ], torch.from_numpy(sm.mc_philox_normals(
                 SEED, N_SUBJ, S_KL)).to(dev)),
         x=x, encoder=tuner.encoder, kw=kw, ranges=ranges, trunk=trunk,
+        taus=taus,
         tag="_bf16" if trunk == "bfloat16" else "",
         setup={k: kw[k] for k in ("n_blocks", "activation", "mask_channel",
                                   "input_layout", "se_idx")},
@@ -624,20 +606,23 @@ def bc_symbols(plan, trunk, up) -> tuple:
         return ((f"qv_encode_quad_stream{tag}_kernel",
                  f"qv_encode_q_stream{tag}_kernel"),
                 f"ILi{plan.mt}ELi{plan.ncw}E")
+    # the rows' template argument (an earlier build's plan has none)
+    rows = f"Lb{int(getattr(plan, 'rows', '') == 'shared')}E"
     if plan is not None and plan.design == "wgmma":
         return (("qv_encode_quad_wg_kernel", "qv_encode_q_wg_kernel"),
-                f"ILi{up}ELi{plan.ks}EE")
+                f"ILi{up}ELi{plan.ks}E{rows}E")
     if plan is not None and plan.design == "chunked":
         return (("qv_encode_quad_wgc_kernel", "qv_encode_q_wgc_kernel"),
                 f"ILi{up}ELi{plan.cn}ELi{plan.ks}EE")
     if plan is not None and plan.design == "split":
         return (("qv_encode_quad_wgx_kernel", "qv_encode_q_wgx_kernel"),
-                f"ILi{up}ELi{plan.cn}EE")
+                f"ILi{up}ELi{plan.cn}E{rows}E")
     if plan is not None and plan.design == "cluster":
         chunk = getattr(plan, "chunk", None)     # an earlier build's: none
         return (("qv_encode_quad_wgk_kernel", "qv_encode_q_wgk_kernel"),
                 f"ILi{plan.cn}EE" if chunk is None else
-                f"ILi{plan.cn}ELi{chunk}ELi{plan.seg if chunk else 0}EE")
+                f"ILi{plan.cn}ELi{chunk}ELi{plan.seg if chunk else 0}E"
+                f"{rows}E")
     return ((f"qv_encode_quad{tag}_kernel", f"qv_encode_q{tag}_kernel"),
             "ILi64E")
 
@@ -749,17 +734,27 @@ def cluster_plans(up, t) -> list:
                 for seg in SEGMENTS:
                     if chunk and seg > stages:
                         continue
-                    plans = [fi.LaunchPlan(
-                        "cluster", fi._WG_THREADS,
-                        fi._wgk_smem(up, t, q, stages, cluster), ks=1,
-                        stages=stages, cn=nl, cluster=cluster, seg=seg,
-                        chunk=chunk) for q in (True, False)]
-                    out.append((f"cluster {cluster} ({nl} columns a block"
-                                + (f" in chunks {chunk} + {nl - chunk}"
-                                   if chunk else "")
-                                + f", {64 * nl} B slabs) stages {stages} "
-                                f"seg {seg}", *plans))
+                    for rows in plan_rows(t, nl):
+                        plans = [fi.LaunchPlan(
+                            "cluster", fi._WG_THREADS,
+                            fi._wgk_smem(up, t, q, stages, cluster,
+                                         rows == "shared"), ks=1,
+                            stages=stages, cn=nl, cluster=cluster, seg=seg,
+                            chunk=chunk, rows=rows) for q in (True, False)]
+                        out.append((f"cluster {cluster} ({nl} columns a "
+                                    "block"
+                                    + (f" in chunks {chunk} + {nl - chunk}"
+                                       if chunk else "")
+                                    + f", {64 * nl} B slabs) stages {stages} "
+                                    f"seg {seg}, {rows} rows", *plans))
     return out
+
+
+def plan_rows(t, columns) -> tuple:
+    """The staged rows the sweep tries for a block of ``columns`` output
+    columns: separate, and shared where a staged row of ``t`` taus fits in
+    an activation row."""
+    return fi._ROWS if fi._fits_row(t, columns) else fi._ROWS[:1]
 
 
 def split_plans(up, t) -> list:
@@ -771,12 +766,14 @@ def split_plans(up, t) -> list:
         if (up // 2) % cn:
             continue
         for stages in fi._WG_STAGES:
-            plans = [fi.LaunchPlan("split", fi._WG_THREADS,
-                                   fi._wgx_smem(up, t, q, stages, cn),
-                                   ks=1, stages=stages, cn=cn)
-                     for q in (True, False)]
-            out.append((f"split cn {cn} ({2 * 64 * cn} B slabs) stages "
-                        f"{stages}", *plans))
+            for rows in plan_rows(t, up):
+                plans = [fi.LaunchPlan("split", fi._WG_THREADS,
+                                       fi._wgx_smem(up, t, q, stages, cn,
+                                                    rows == "shared"),
+                                       ks=1, stages=stages, cn=cn, rows=rows)
+                         for q in (True, False)]
+                out.append((f"split cn {cn} ({2 * 64 * cn} B slabs) stages "
+                            f"{stages}, {rows} rows", *plans))
     return out
 
 
@@ -788,12 +785,15 @@ def sweep_plans(calls, trunk, up, t) -> list:
     if calls.design() == "wgmma":
         for ks in fi._WG_SLABS[up]:
             for stages in fi._WG_STAGES:
-                plans = [fi.LaunchPlan("wgmma", fi._WG_THREADS,
-                                       fi._wg_smem(up, t, q, stages, ks),
-                                       ks=ks, stages=stages)
-                         for q in (True, False)]
-                out.append((f"ks {ks} ({ks * 64 * up} B slabs) stages "
-                            f"{stages}", *plans))
+                for rows in plan_rows(t, up):
+                    plans = [fi.LaunchPlan(
+                        "wgmma", fi._WG_THREADS,
+                        fi._wg_smem(up, t, q, stages, ks,
+                                    shared=rows == "shared"),
+                        ks=ks, stages=stages, rows=rows)
+                        for q in (True, False)]
+                    out.append((f"ks {ks} ({ks * 64 * up} B slabs) stages "
+                                f"{stages}, {rows} rows", *plans))
         return out
     if calls.design() == "chunked":
         cn, ks = fi._WGC_SLABS[up]
@@ -831,8 +831,7 @@ def sweep(name, lib, log, ctx) -> None:
         print("sweep: launch_plan keeps the resident design here", flush=True)
         return
     design = calls.design()
-    trunk, up, nb = ctx["trunk"], calls.up, calls.nb
-    t = OPTIMAL.scan.n_taus
+    trunk, up, nb, t = ctx["trunk"], calls.up, calls.nb, calls.t
     limit = _cuda.library().qv_max_dynamic_smem()
     (sym_b, sym_c), _ = bc_symbols(calls.plan_b, trunk, up)
     chosen = (calls.plan_b, calls.plan_c)
@@ -844,9 +843,6 @@ def sweep(name, lib, log, ctx) -> None:
         if not hasattr(lib, entry(calls, "B", ctx)):
             continue                  # a design this build lacks
         (sym_b, sym_c), _ = bc_symbols(plans[0], trunk, up)
-        if calls.image is not None:
-            calls.image = fi._wg_image(calls.blob, up, nb, t,
-                                       plans[0].cn or None)
         try:
             calls.b()
             calls.c()
@@ -867,10 +863,11 @@ def sweep(name, lib, log, ctx) -> None:
             extra = (f", active clusters B "
                      f"{active_clusters(lib, up, plans[0], True)} / C "
                      f"{active_clusters(lib, up, plans[1], False)}")
-        (sym_b, _), inst = bc_symbols(plans[0], trunk, up)
-        regs = resources(log, {"B": sym_b}, inst).get(sym_b)
-        if regs:
-            extra += f", B {regs[0]} registers ({regs[2]})"
+        (sym_b, sym_c), inst = bc_symbols(plans[0], trunk, up)
+        for key, sym in (("B", sym_b), ("C", sym_c)):
+            regs = resources(log, {key: sym}, inst).get(sym)
+            if regs:
+                extra += f", {key} {regs[0]} registers ({regs[2]})"
         rows.append(f"{label}{mark}: B "
                     f"{kernel_ms(calls.b, sym_b):.4f} (means/raw err "
                     f"{err_b:.1e}, {verdict}), C "
@@ -880,7 +877,8 @@ def sweep(name, lib, log, ctx) -> None:
     plain64 = float((ctx["q_plain"].double() - ctx["q64"]).abs().max())
     rows.append(f"the plain version's q vs float64 {plain64:.2e}")
     print(f"sweep of {name} at {trunk}, {up} units (padded) x {nb} blocks "
-          f"({design}), device ms at N={N}: " + "; ".join(rows), flush=True)
+          f"on {t} taus ({design}), device ms at N={N}: " + "; ".join(rows),
+          flush=True)
 
 
 def gate_b(ctx) -> str:
@@ -901,18 +899,23 @@ def active_clusters(lib, up, plan, quad) -> int:
     once (qv_encode_wgk_clusters)."""
     n = ctypes.c_int(0)
     _cuda.check(lib.qv_encode_wgk_clusters(up, plan.cluster, plan.seg,
-                                           plan.chunk, int(quad), plan.smem,
+                                           plan.chunk, fi._shared(plan),
+                                           int(quad), plan.smem,
                                            ctypes.byref(n)),
                 "cluster occupancy")
     return n.value
 
 
-def wrappers(dev, dtype, units=60, blocks=2) -> None:
+def wrappers(dev, dtype, units=60, blocks=2, taus=11) -> None:
     """B, C and A through the package's wrappers (the same in every
     checkout that has the bf16 trunk): errors against the plain versions,
     C's head against a float64 head on the plain version's features
-    (chip_smoke.head_f64_err), device times, and B beside C + A."""
-    cfg, scan = trunk_config(units, blocks), OPTIMAL.scan
+    (chip_smoke.head_f64_err), device times, B beside C + A, the launches
+    one call of B and of C counts, the plain versions' ms a call (CUDA
+    events) and the bounds (chip_smoke.wide_bound). Where the package's
+    launch_plan raises at this shape, the plain versions' ms and the
+    bounds alone."""
+    cfg, scan = trunk_config(units, blocks), scan_of(taus)
     tuner = FineTuner(cfg, scan, device=dev)
     tuner.load_state_dict(init_params(cfg, scan,
                                       torch.Generator().manual_seed(0)))
@@ -925,24 +928,53 @@ def wrappers(dev, dtype, units=60, blocks=2) -> None:
     x = torch.from_numpy(volumes(np.random.default_rng(0), (N,),
                                  scan.n_taus)).to(dev)
     enc = tuner.encoder
-    q = fi.encode_q1_packed(x, enc, **kw)
-    b = fi.encode_quad_fused(x, enc, mvg=True, **kw, **ranges)
+    where = (f"package {Path(fi.__file__).resolve().parent.parent} through "
+             f"its wrappers at {dtype}, {units} units x {blocks} blocks on "
+             f"{scan.n_taus} taus")
     q_ref = fi.encode_q_plain(x, enc, **kw)
     b_ref = fi.encode_quad_fused_plain(x, enc, mvg=True, **kw, **ranges)
+    plain = {"B": cuda_ms(lambda: fi.encode_quad_fused_plain(
+                 x, enc, mvg=True, **kw, **ranges), reps=2, blocks=3),
+             "C": cuda_ms(lambda: fi.encode_q_plain(x, enc, **kw), reps=2,
+                          blocks=3)}
+    try:
+        plan = (fi._plan(fi._padded_width(units), blocks, scan.n_taus,
+                         scan.n_taus + 1, dtype, True, dev)
+                if hasattr(fi, "launch_plan") else None)
+    except ValueError as exc:                 # no launch fits this shape
+        bound = {k: wide_bound(k, units, blocks, dtype, scan, b_ref[2],
+                               True) for k in "BC"}
+        print(f"{where}: launch_plan raises ({exc}); plain ms B "
+              f"{plain['B']:.4f}, C {plain['C']:.4f}; bound ms B "
+              f"{bound['B']['bound_ms']:.4f}, C {bound['C']['bound_ms']:.4f}",
+              flush=True)
+        return
+    design = "" if plan is None else f" ({plan.design}" + (
+        f", {plan.rows} rows)" if hasattr(plan, "rows") else ")")
+    counters = {k: [c for c in vars(w) if c.endswith("launches")]
+                for k, w in (("B", fi.encode_quad_fused),
+                             ("C", fi.encode_q1_packed))}
+    before = {k: [getattr(w, c) for c in counters[k]]
+              for k, w in (("B", fi.encode_quad_fused),
+                           ("C", fi.encode_q1_packed))}
+    q = fi.encode_q1_packed(x, enc, **kw)
+    b = fi.encode_quad_fused(x, enc, mvg=True, **kw, **ranges)
+    launched = {k: {c: getattr(w, c) - n for c, n in zip(counters[k],
+                                                          before[k])
+                    if getattr(w, c) != n}
+                for k, w in (("B", fi.encode_quad_fused),
+                             ("C", fi.encode_q1_packed))}
+    bound = {k: wide_bound(k, units, blocks, dtype, scan, b[2], True)
+             for k in "BC"}
     head = head_f64_err(q, x, enc, kw)
     rows = q.T.contiguous()
-    plan = (fi._plan(fi._padded_width(units), blocks, scan.n_taus,
-                     scan.n_taus + 1, dtype, True, dev)
-            if hasattr(fi, "launch_plan") else None)
     (sym_b, sym_c), _ = bc_symbols(plan, dtype, fi._padded_width(units))
     ms = {"B": kernel_ms(lambda: fi.encode_quad_fused(
               x, enc, mvg=True, **kw, **ranges), sym_b),
           "C": kernel_ms(lambda: fi.encode_q1_packed(x, enc, **kw), sym_c),
           "A": kernel_ms(lambda: quad.quad_posterior_summaries(
               rows, mvg=True, **ranges), KERNELS["A"])}
-    print(f"package {Path(fi.__file__).resolve().parent.parent} through its "
-          f"wrappers at {dtype}, {units} units x {blocks} blocks"
-          f"{' (' + plan.design + ')' if plan else ''}: C vs plain "
+    print(f"{where}{design}: C vs plain "
           f"{float((q - q_ref).abs().max()):.2e}, B vs plain means / vars / "
           "raw " + " / ".join(f"{float((g - r).abs().max()):.2e}"
                               for g, r in zip(b, b_ref))
@@ -951,7 +983,12 @@ def wrappers(dev, dtype, units=60, blocks=2) -> None:
           + " (the plain float32 head " + ", ".join(
               f"{k} {v:.3e}" for k, v in head[1].items()) + "); device ms "
           + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
-          + f", C + A {ms['C'] + ms['A']:.4f}", flush=True)
+          + f", C + A {ms['C'] + ms['A']:.4f}; launches a call "
+          f"{launched}; plain ms B {plain['B']:.4f}, C {plain['C']:.4f}; "
+          + "; ".join(f"{k} bound {bound[k]['bound_ms']:.4f} ms by "
+                      f"{bound[k]['bound_by']} "
+                      f"({100 * bound[k]['bound_ms'] / ms[k]:.1f}%)"
+                      for k in "BC"), flush=True)
 
 
 def main() -> int:
@@ -974,7 +1011,7 @@ def main() -> int:
                     help="the trunk's depth (OPTIMAL's 2)")
     ap.add_argument("--shapes", default=None,
                     help="the trunks to time (in place of --units and "
-                    "--blocks), as UNITSxBLOCKS separated by commas")
+                    "--blocks), as UNITSxBLOCKS[xTAUS] separated by commas")
     ap.add_argument("--package", default=None,
                     help="import qbold_vi_tpu_torch from this directory and "
                     "time B, C and A through its wrappers alone")
@@ -1009,14 +1046,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     dtypes = (("float32", "bfloat16") if args.dtype == "both"
               else (args.dtype,))
-    shapes = ([tuple(map(int, s.split("x")))
+    shapes = ([(tuple(map(int, s.split("x"))) + (OPTIMAL.scan.n_taus,))[:3]
                for s in args.shapes.split(",")] if args.shapes
-              else [(args.units, args.blocks)])
+              else [(args.units, args.blocks, OPTIMAL.scan.n_taus)])
     if args.package:
         with torch.no_grad():
-            for units, blocks in shapes:
+            for units, blocks, taus in shapes:
                 for dtype in dtypes:
-                    wrappers(dev, dtype, units, blocks)
+                    wrappers(dev, dtype, units, blocks, taus)
         print(gpu_line())
         return 0
     libs = {}
@@ -1027,10 +1064,11 @@ def main() -> int:
     for i, (name, (lib, log, so)) in enumerate(built.items()):
         libs[name] = (lib, log, so, i < len(args.row_blob))
     with torch.no_grad():
-        for (units, blocks), dtype in ((s, d) for s in shapes for d in dtypes):
-            ctx = context(dev, dtype, units, blocks)
-            print(f"{dtype}, {units} units x {blocks} blocks; head "
-                  "mixes: " + mix_shares(ctx), flush=True)
+        for (units, blocks, taus), dtype in ((s, d) for s in shapes
+                                             for d in dtypes):
+            ctx = context(dev, dtype, units, blocks, taus)
+            print(f"{dtype}, {units} units x {blocks} blocks on {taus} taus; "
+                  "head mixes: " + mix_shares(ctx), flush=True)
             if args.sweep:
                 for name, (lib, log, so, row_blob) in libs.items():
                     if not row_blob:

@@ -16,10 +16,13 @@ directory, and this one).
   streamed bf16 kernels), 256 x 2, 100 x 2 and 60 x 7 in float32 (the wgmma
   kernels), 320 x 2 (the chunked kernels), 448 x 1 and 768 x 1 in
   float32 (the split kernels), 833 x 1 and 1280 x 1 (the cluster kernels
-  of one product a block) and, on a scan of 51 taus (``TAU_STEP``), 768
-  x 1 (the streamed float32 kernels) -- ``init_params`` seed 0 -- from
-  checkout a; then b's, held bit for bit against them (exit 1 if any
-  differs).
+  of one product a block) and, on a scan of 330 taus (``TAU_STEP``), 320
+  x 2 (the streamed float32 kernels, where a staged row is wider than an
+  activation row) -- ``init_params`` seed 0 -- from checkout a; then b's,
+  held bit for bit against them (exit 1 if any differs). A shape whose
+  plan b changed is not among them (768 x 1 on 51 taus, streamed until
+  the split kernels took it with the staged rows in the activation
+  rows).
 * ``export-pt2`` / ``run-pt2``: a's fused serving ``.pt2`` of each trunk of
   ``PT2``: bf16 at OPTIMAL (F.pt2), float32 at 100 x 2 (F-f32-100x2.pt2),
   at 320 x 2 (F-f32-320x2.pt2), at 448 x 1 (F-f32-448x1.pt2), at 833 x 1
@@ -51,9 +54,9 @@ COMPAT = (("float32", 60, 2), ("bfloat16", 60, 2), ("bfloat16", 256, 2),
           ("float32", 256, 2), ("float32", 100, 2), ("float32", 60, 7),
           ("float32", 320, 2), ("float32", 448, 1), ("float32", 768, 1),
           ("float32", 833, 1), ("float32", 1280, 1))
-# (trunk, units, blocks) on a scan of TAU_STEP's 51 taus
-TAU_STEP = 0.0016
-COMPAT_TAUS = (("float32", 768, 1),)
+# (trunk, units, blocks) on a scan of TAU_STEP's 330 taus
+TAU_STEP = 0.000246
+COMPAT_TAUS = (("float32", 320, 2),)
 # (trunk, units, blocks, the artifact's suffix)
 PT2 = (("bfloat16", 60, 2, ""), ("float32", 100, 2, "-f32-100x2"),
        ("float32", 320, 2, "-f32-320x2"),
