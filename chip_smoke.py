@@ -151,7 +151,7 @@ and E (one Philox block for two draw pairs), after phase 13:
    and 32 in the kernel) under gelu and softplus (act(0) != 0 on padded
    channels), both layouts, N = 1,000,003 (a ragged tile of 32); a
    stream-1 request at 256 units under fused_infer "auto" through kernel
-   B's streamed design (B launched, A not) against the CPU at rtol 1e-3 /
+   B's wgmma design (B launched, A not) against the CPU at rtol 1e-3 /
    atol 3e-5, and a forced "on" giving the same maps;
 25. D at S = 2, 7 (odd: iid) and 200, both layouts, and E at S = 2, 7
    and 100, against their plain versions fed mc_philox_normals (E also fed
@@ -318,33 +318,36 @@ The sweep (qbold_vi_tpu_torch/sweep.py), after phase 42:
    ``dryrun --devices 2`` with its population stage.
 Kernels B and C past the resident blob (csrc/encode_stream_wg.cu in
 float32 up to 256 units, encode_stream_wgc.cu at 320 and 384,
-encode_stream_wgx.cu at 448-768, encode_stream_wgk.cu at 832-1472,
-csrc/encode_stream.cuh where no wgmma block fits beside many taus and in
-bf16), run after phase 24:
+encode_stream_wgx.cu at 448-768, encode_stream_wgk.cu at 832-1472, at any
+tau count; csrc/encode_stream.cuh in bf16), run after phase 24:
 47. OPTIMAL's 1,032,192-voxel request at 256 units x 2 blocks in float32
    (the wgmma kernels) and bf16, at 320 x 2 and 384 x 2 in float32 (the
    chunked kernels), at 448 x 1 (the split kernels), at 833 x 1 (the
    cluster kernels, 896 padded), at 1281 x 1 (the cluster kernels with a
-   block's columns in two output chunks, 1344 padded) and at 768 x 1 on a
-   scan of 51 taus (the streamed float32 kernels), through posterior_maps
+   block's columns in two output chunks, 1344 padded), at 768 x 1 on a
+   scan of 51 taus (the split kernels' rows in the activation rows), at
+   320 x 2 and 60 x 2 on 330 taus (the chunked and wgmma kernels' rows
+   staged a window of k-steps at a time), through posterior_maps
    under "auto" by quadrature (B) and by method="mc" (C, then D), the
    counts set to 0 before and read after each, maps finite; B and C
    against their plain versions at 50,003 voxels (float32 at CHECKS; bf16
    C within Q16_ULPS ulps, B against the plain quadrature of C's q at
    CHECKS), and so at 832 x 1 (init_params seed 832: the 3xTF32 drift
    that the cluster kernels' promoted sums repair), 1280 x 1 (the widest
-   of one product a block) and 1472 x 1 (the cluster kernels' widest);
+   of one product a block), 1472 x 1 (the cluster kernels' widest) and
+   1472 x 1 on 128 and 330 taus (shared and windowed rows);
    their device ms at full width beside their bounds, their plain
-   versions' ms, and (at 256 x 2, 320 x 2, 448 x 1, 833 x 1 and 1281 x 1)
-   the fused route's ms a call beside the "off" route's (the encoder, then
-   A or D) on the same device request; the same request in float32 at 100
-   x 2 (B and C) and 60 x 7 (B), whose resident blobs do not fit (the
-   wgmma kernels), each kernel held against its plain version on the whole
-   request, its ms beside its bound; the wgmma, chunked, split and cluster
-   B and C hold HGMMA in the SASS. The kernels line gives each design's B
-   and C (B-wgmma, C-wgmma, B-chunked, C-chunked and at 384 x 2, B-split,
-   C-split, B-cluster, C-cluster and at 1281 x 1, B-stream, C-stream,
-   B-bf16-stream, C-bf16-stream) their launches on this path.
+   versions' ms, and (at 256 x 2, 320 x 2, 448 x 1, 833 x 1, 1281 x 1, 768
+   x 1 on 51 taus and 320 x 2 on 330) the fused route's ms a call beside
+   the "off" route's (the encoder, then A or D) on the same device
+   request; the same request in float32 at 100 x 2 (B and C) and 60 x 7
+   (B), whose resident blobs do not fit (the wgmma kernels), each kernel
+   held against its plain version on the whole request, its ms beside its
+   bound; the wgmma, chunked, split and cluster B and C hold HGMMA in the
+   SASS. The kernels line gives each design's B and C (B-wgmma, C-wgmma,
+   B-chunked, C-chunked and at each further trunk, B-split, C-split,
+   B-cluster, C-cluster and at each further trunk, B-bf16-stream,
+   C-bf16-stream) their launches on this path.
 No phase 43-46 accepts a trial whose status is "failed". The kernels line
 gives S and F their launches on the population path under
 "launches_sweep", and S its P = 4 time and bound.
@@ -2079,7 +2082,7 @@ def stream1_phases(dev, card, cfg, tuner, ranges, enc_kw) -> tuple:
 
 STREAM_COUNTERS = ("launches", "bf16_launches", "wgmma_launches",
                    "chunked_launches", "split_launches", "cluster_launches",
-                   "stream_launches", "stream_bf16_launches")
+                   "stream_bf16_launches")
 
 
 def bc_counts() -> dict:
@@ -2132,8 +2135,9 @@ def wide_stream1_phase(dev, cfg, rng) -> None:
     zero_bc_counts()
     got = infer.posterior_maps(tuners["card"], data, use_first_op=True)
     moved = bc_counts()
-    if moved["B.wgmma_launches"] == 0 or moved["A"] or moved["B.launches"] \
-            or moved["B.stream_launches"]:
+    others = sum(v for k, v in moved.items()
+                 if k.startswith("B.") and k != "B.wgmma_launches")
+    if moved["B.wgmma_launches"] == 0 or moved["A"] or others:
         raise AssertionError(f"stream 1 at 256 units: launches {moved}, "
                              "want B's wgmma design only")
     ref = infer.posterior_maps(tuners["cpu"], data, use_first_op=True)
@@ -2170,17 +2174,21 @@ DENSE_TAU_STEP = 0.0016              # whose staged rows leave the split
                                      # shared rows
 DENSE_WIDE_TRUNK = (1472, 1)         # the cluster's shared rows on
 DENSE_WIDE_TAU_STEP = 0.000635       # 128 taus (raised until they came)
-STREAM_TRUNK = (320, 2)              # float32 on STREAM_TAU_STEP's 330
-STREAM_TAU_STEP = 0.000246           # taus, whose staged row is wider than
-                                     # an activation row: the streamed design
+WINDOW_TRUNK = (320, 2)              # float32 on WINDOW_TAU_STEP's 330
+WINDOW_TAU_STEP = 0.000246           # taus, whose staged row is wider than
+                                     # an activation row: the chunked
+                                     # design's windowed rows
+WINDOW_NARROW_TRUNK = (60, 2)        # OPTIMAL's width on 330 taus: the
+                                     # wgmma design's windowed rows
+WINDOW_WIDE_TRUNK = (1472, 1)        # the cluster's windowed rows on 330
+                                     # taus (raised until they came)
 FAULT_TRUNK = (100, 2)               # float32: the blob does not fit
 DEEP_TRUNK = (60, 7)                 # float32: OPTIMAL's width, 7 blocks
 N_WIDE_CMP = 50_003                  # kernels vs plain at wide widths
 # phase 47's kernels by design: the float32 wgmma kernels up to 256 units
 # (padded), the chunked wgmma ones at 320 and 384, the split wgmma ones at
-# 448-768, the cluster wgmma ones at 832-1472, the streamed ones in float32
-# where a staged row of many taus is wider than the block's activation row
-# and past 128 units in bf16
+# 448-768, the cluster wgmma ones at 832-1472 (at any tau count), the
+# streamed ones past 128 units in bf16
 WIDE_SYMBOLS = {
     ("B", "wgmma"): "qv_encode_quad_wg_kernel",
     ("C", "wgmma"): "qv_encode_q_wg_kernel",
@@ -2190,8 +2198,6 @@ WIDE_SYMBOLS = {
     ("C", "split"): "qv_encode_q_wgx_kernel",
     ("B", "cluster"): "qv_encode_quad_wgk_kernel",
     ("C", "cluster"): "qv_encode_q_wgk_kernel",
-    ("B", "stream"): "qv_encode_quad_stream_kernel",
-    ("C", "stream"): "qv_encode_q_stream_kernel",
     ("B", "stream-bf16"): "qv_encode_quad_stream_bf16_kernel",
     ("C", "stream-bf16"): "qv_encode_q_stream_bf16_kernel"}
 WIDE_KINDS = {"wgmma": ("encode_stream_wg.cu", "wgmma_launches", "-wgmma"),
@@ -2200,7 +2206,6 @@ WIDE_KINDS = {"wgmma": ("encode_stream_wg.cu", "wgmma_launches", "-wgmma"),
               "split": ("encode_stream_wgx.cu", "split_launches", "-split"),
               "cluster": ("encode_stream_wgk.cu", "cluster_launches",
                           "-cluster"),
-              "stream": ("encode_stream.cu", "stream_launches", "-stream"),
               "stream-bf16": ("encode_stream_bf16.cu", "stream_bf16_launches",
                               "-bf16-stream")}
 
@@ -2208,19 +2213,16 @@ WIDE_KINDS = {"wgmma": ("encode_stream_wg.cu", "wgmma_launches", "-wgmma"),
 def wide_kind_expected(units, trunk, n_taus) -> str:
     """The design phase 47 expects at this width: bf16 streams past 128
     units; float32 takes wgmma up to 256 (padded), the chunked wgmma at 320
-    and 384, the split wgmma at 448-768, the cluster wgmma at 832-1472
-    (a block's Up / 8 columns) wherever a staged row of ``n_taus`` (8
-    ceil(T / 8) channels) fits in the block's activation row, with rows of
-    their own or, many taus, in the activation rows; else it streams."""
+    and 384, the split wgmma at 448-768, the cluster wgmma at 832-1472, on
+    any ``n_taus`` (the staged rows of their own, in the activation rows,
+    or there a window of k-steps at a time where a row is wider)."""
     from qbold_vi_tpu_torch.ops import fused_infer as fi
 
     if trunk == "bfloat16":
         return "stream-bf16"
     up = fi._padded_width(units)
-    kind = ("wgmma" if up <= 256 else "chunked" if up <= 384
+    return ("wgmma" if up <= 256 else "chunked" if up <= 384
             else "split" if up <= 768 else "cluster")
-    columns = up // 8 if kind == "cluster" else up
-    return kind if -(-n_taus // 8) * 8 <= columns else "stream"
 
 
 def wide_kind(dev, units, nb, trunk, n_taus) -> str:
@@ -2230,9 +2232,7 @@ def wide_kind(dev, units, nb, trunk, n_taus) -> str:
 
     design = fi._plan(fi._padded_width(units), nb, n_taus, n_taus + 1, trunk,
                       True, dev).design
-    kind = {"wgmma": "wgmma", "chunked": "chunked", "split": "split",
-            "cluster": "cluster", "streamed": "stream"}[design]
-    return kind + ("-bf16" if trunk == "bfloat16" else "")
+    return {"streamed": "stream-bf16"}.get(design, design)
 
 
 def wide_bound(key, units, nb, trunk, scan, raw_b, mvg) -> dict:
@@ -2273,20 +2273,22 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
     with a block's columns in two output chunks, 1344 padded), at 768 x 1
     on a scan of 51 taus in float32 (the split kernels with the staged rows
     in the activation rows, where no buffer of their own fits beside the
-    block) and at 320 x 2 on 330 taus (the streamed kernels, where a
-    staged row is wider than an activation row): posterior_maps by quadrature
+    block), at 320 x 2 on 330 taus (the chunked kernels with the rows
+    staged a window of k-steps at a time, where a staged row is wider than
+    an activation row) and at 60 x 2 on 330 taus (the wgmma kernels,
+    windowed likewise): posterior_maps by quadrature
     (kernel B) and by method="mc" (C, then D), the maps finite and of the
     request's shape; B and C against their plain versions at N_WIDE_CMP
     voxels (float32 at CHECKS; bf16 C within Q16_ULPS ulps, B against the
     plain quadrature of C's q at CHECKS); device ms of B and C beside their
-    bounds and, at 256 x 2, 320 x 2, 448 x 1, 833 x 1, 1281 x 1 and 768 x 1
-    on 51 taus, the "off" route's (the encoder, then kernel A or D) and the
-    fused route's ms a call by CUDA events on the same device request. At
-    832 x 1 (init_params seed 832, the 3xTF32 drift fault), 1280 x 1 and
-    1472 x 1, and at 1472 x 1 on a scan of 128 taus (the cluster kernels
-    with shared rows, where launch_plan raised before they came): B and C
-    on the cluster kernels against their plain versions at N_WIDE_CMP
-    voxels at CHECKS. At 100 x 2 (B and C) and 60 x 7 (B)
+    bounds and, at 256 x 2, 320 x 2, 448 x 1, 833 x 1, 1281 x 1, 768 x 1
+    on 51 taus and 320 x 2 on 330 taus, the "off" route's (the encoder,
+    then kernel A or D) and the fused route's ms a call by CUDA events on
+    the same device request. At 832 x 1 (init_params seed 832, the 3xTF32
+    drift fault), 1280 x 1 and 1472 x 1, at 1472 x 1 on a scan of 128 taus
+    (the cluster kernels with shared rows) and on 330 taus (windowed rows;
+    launch_plan raised at both before they came): B and C on the cluster
+    kernels against their plain versions at N_WIDE_CMP voxels at CHECKS. At 100 x 2 (B and C) and 60 x 7 (B)
     in float32, where the resident blob does not fit (the wgmma kernels):
     the request through posterior_maps, the kernel against its plain
     version on the whole request, its device ms beside its bound. First,
@@ -2314,7 +2316,7 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
                   dbv_range=cfg.model.dbv_range, min_dbv=cfg.model.min_dbv,
                   dw_coeff=float(scan.dw_coeff * scan.hct))
     dense_scan = dataclasses.replace(scan, tau_step=DENSE_TAU_STEP)
-    stream_scan = dataclasses.replace(scan, tau_step=STREAM_TAU_STEP)
+    window_scan = dataclasses.replace(scan, tau_step=WINDOW_TAU_STEP)
     # each scan's request and comparison voxels, drawn at its first use
     data = {}
 
@@ -2373,7 +2375,8 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
             (CLUSTER_TRUNK, "float32", True, scan),
             (CHUNK_TRUNK, "float32", True, scan),
             (DENSE_TRUNK, "float32", True, dense_scan),
-            (STREAM_TRUNK, "float32", False, stream_scan)):
+            (WINDOW_TRUNK, "float32", True, window_scan),
+            (WINDOW_NARROW_TRUNK, "float32", False, window_scan)):
         req, block, x_cmp = scan_data(sc)
         x_full = block.reshape(-1, block.shape[-1])
         t = wide_tuner(dev, cfg, units, nb, trunk, sc)
@@ -2470,12 +2473,13 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
                          f"{'A' if key == 'B' else 'D'}) {o_ms:.4f} ms "
                          f"({'faster' if r_ms < o_ms else 'NOT faster'})")
             log(f"{line} on {REQUESTS[0]} [{card}]")
-    # ---- 832 x 1, 1280 x 1, 1472 x 1 (and on 128 taus): the cluster kernels
-    # against plain -----------------------------------------------------------
+    # ---- 832 x 1, 1280 x 1, 1472 x 1 (and on 128 and 330 taus): the cluster
+    # kernels against plain ---------------------------------------------------
     dense_wide = dataclasses.replace(scan, tau_step=DENSE_WIDE_TAU_STEP)
     for (units, nb), sc in ((DRIFT_TRUNK, scan), (CLUSTER_WIDE_TRUNK, scan),
                             (CHUNK_WIDE_TRUNK, scan),
-                            (DENSE_WIDE_TRUNK, dense_wide)):
+                            (DENSE_WIDE_TRUNK, dense_wide),
+                            (WINDOW_WIDE_TRUNK, window_scan)):
         x_cmp = (scan_data(scan)[2] if sc is scan else torch.from_numpy(
             volumes(rng, (N_WIDE_CMP,), sc.n_taus)).to(dev))
         t = wide_tuner(dev, cfg, units, nb, "float32", sc)
@@ -2556,12 +2560,12 @@ def full_width_phase(dev, card, cfg, rng) -> dict:
                 f"ms; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
                 f"({100 * bd['bound_ms'] / ms:.1f}%) [{card}]")
     # the kernels line: each kernel by design at the first trunk phase 47
-    # ran it at, and the chunked, split and cluster designs again at each
-    # further trunk
+    # ran it at, and the float32 designs again at each further trunk (the
+    # windowed rows' at "-t330")
     entries = [(key, kind, out["shapes"][kind][0], "")
                for kind in WIDE_KINDS for key in ("B", "C")]
     entries += [(key, kind, shape, f"-{shape}")
-                for kind in ("chunked", "split", "cluster")
+                for kind in ("wgmma", "chunked", "split", "cluster")
                 for shape in out["shapes"][kind][1:] for key in "BC"]
     out["kernels"] = [{
         "name": f"{key}{WIDE_KINDS[kind][2]}{suffix}", "route": "cuda",
@@ -5802,8 +5806,10 @@ def main() -> int:
                           "dense_tau_step": DENSE_TAU_STEP,
                           "dense_wide": DENSE_WIDE_TRUNK,
                           "dense_wide_tau_step": DENSE_WIDE_TAU_STEP,
-                          "streamed": STREAM_TRUNK,
-                          "streamed_tau_step": STREAM_TAU_STEP,
+                          "windowed": WINDOW_TRUNK,
+                          "windowed_narrow": WINDOW_NARROW_TRUNK,
+                          "windowed_wide": WINDOW_WIDE_TRUNK,
+                          "windowed_tau_step": WINDOW_TAU_STEP,
                           "ms": {"-".join(k): v
                                  for k, v in wide["ms"].items()},
                           "routes_ms": {"-".join(k): v for k, v

@@ -1,7 +1,9 @@
 // Kernels B and C, streamed: the fused stream-1 encode (C), or the encode
 // followed by the quadrature summaries (B), at any width and depth, with the
-// weights streamed through shared memory. encode_stream.cu instantiates it
-// for the float32 trunk (3xTF32), encode_stream_bf16.cu for the bf16 trunk.
+// weights streamed through shared memory. encode_stream_bf16.cu instantiates
+// it for the bf16 trunk; the float32 policy (QvStF32), the staged rows and
+// the head here serve the float32 wgmma designs, which replaced its float32
+// instantiation (PERF.md).
 //
 // It replaces the same TPU kernels as encode_quad.cu and encode_quad_bf16.cu
 // (qbold_vi_tpu/ops/pallas_infer.py::encode_quad_fused, pallas_call at :353,
@@ -14,10 +16,11 @@
 // units x 2 blocks, deep trunks such as 60 x 7, 129-256 units),
 // encode_stream_wgc.cu's chunked wgmma kernels at 320 and 384 (257-384
 // units), encode_stream_wgx.cu's split wgmma kernels at 448-768 (385-768
-// units), encode_stream_wgk.cu's cluster wgmma kernels at 832-1472
-// (769-1472 units) and this kernel where their blocks do not fit beside
-// the staged rows (many taus: 768 units on 48 taus); the bf16 trunk takes
-// this kernel past 128 units and at depths whose blob does not fit.
+// units) and encode_stream_wgk.cu's cluster wgmma kernels at 832-1472
+// (769-1472 units), at any tau count (many taus: their staged rows in the
+// activation rows, a window of k-steps at a time where a row is wider);
+// the bf16 trunk takes this kernel past 128 units and at depths whose
+// blob does not fit.
 //
 // Bound: at 256 units x 2 blocks the products (U T + nb U^2 + 5 U FMAs a
 // voxel, 3xTF32 in float32) take 1.69 ms of a 1.03 M-voxel request at the
@@ -126,7 +129,9 @@ static __device__ __forceinline__ void qv_st_wait() {
 // row0 .. row0 + 15, k-step ks; load_b: the B fragment of slab group grp;
 // mma: a product onto the sums (the head's); mma_trunk: a trunk layer's;
 // store: bias + activation of a lane's four sums, rows row and row + 8,
-// channels col and col + 1; put_x: channel c of staged row r.
+// channels col and col + 1; put_x: channel c of staged row r. The float32
+// policy keeps what the wgmma designs take from it (their staged rows,
+// A fragments, epilogue and head): qv_st_body runs the bf16 trunk only.
 
 // float32: 3xTF32 m16n8k8 (mma_math.cuh), activations as float32.
 struct QvStF32 {
@@ -135,7 +140,6 @@ struct QvStF32 {
     uint32_t hi[4], lo[4];
   };
   typedef float4 B;
-  static __device__ __forceinline__ int act_stride(int up) { return up + 8; }
   static __device__ __forceinline__ int x_stride(int ks0) {
     const int tp = 8 * ks0;
     return tp % 16 == 0 ? tp + 8 : tp;
@@ -153,10 +157,6 @@ struct QvStF32 {
     qv_split(b.y, f.hi[3], f.lo[3]);
     return f;
   }
-  static __device__ __forceinline__ B load_b(const uint8_t* slot, int grp,
-                                             int lane) {
-    return *reinterpret_cast<const float4*>(slot + grp * FB + lane * 16);
-  }
   static __device__ __forceinline__ B load_b_global(const uint8_t* p, int grp,
                                                     int lane) {
     return __ldg(reinterpret_cast<const float4*>(p + grp * FB) + lane);
@@ -165,18 +165,6 @@ struct QvStF32 {
     const uint32_t bhi[2] = {__float_as_uint(b.x), __float_as_uint(b.y)};
     const uint32_t blo[2] = {__float_as_uint(b.z), __float_as_uint(b.w)};
     qv_mma3(d, a.hi, a.lo, bhi, blo, false);
-  }
-  // A trunk layer's k-step: its three products into a fresh fragment,
-  // added to the sums in float32 (the tensor cores' sums truncate, and a
-  // running sum over the 1,344+ channels of the widest layers drifted past
-  // the kernels' gate, PERF.md)
-  static __device__ __forceinline__ void mma_trunk(float* d, const A& a,
-                                                   B b) {
-    const uint32_t bhi[2] = {__float_as_uint(b.x), __float_as_uint(b.y)};
-    const uint32_t blo[2] = {__float_as_uint(b.z), __float_as_uint(b.w)};
-    float f[4];
-    qv_mma3(f, a.hi, a.lo, bhi, blo, true);
-    qv_add4(d, f);
   }
   // bias: the layer's float32 biases
   static __device__ __forceinline__ void store(uint32_t* buf, int stride,
@@ -361,6 +349,130 @@ static __device__ __forceinline__ void qv_st_stage_row(
     for (int c = 0; c < T; ++c) P::put_x(xs, stride, r, c, 0.0f);
   }
   for (int c = T; c < kpad; ++c) P::put_x(xs, stride, r, c, 0.0f);
+}
+
+// Windowed rows (the float32 wgmma designs' rows "windowed", where a staged
+// row of many taus is wider than the block's activation row): a pass stages
+// its rows a window at a time, the channels of the first layer's next
+// k-steps in the first columns of the activation rows, each value as
+// qv_st_stage_row computes it. QvStWin is a row's voxel, mask value and
+// reference, computed once a pass before its first window and kept in the
+// registers of the lanes of its warp that stage it (l % 16 its row).
+struct QvStWin {
+  long long v;
+  float m, ref;
+};
+
+// A loaded value xv masked and clipped (qv_st_stage_row's clip).
+static __device__ __forceinline__ float qv_st_clipped(float xv, int mask,
+                                                      float m) {
+  if (mask) xv = xv * m;
+  return fminf(fmaxf(xv, 1e-2f), 1e8f);
+}
+
+static __device__ __forceinline__ QvStWin qv_st_win_row(
+    const float* __restrict__ x, long long n, long long v, int t_in, int cm,
+    int mask, int T, int se, int multi, int lo, int hi) {
+  QvStWin w{v, 1.0f, 1.0f};
+  if (v >= n) return w;
+  auto at = [&](int c) {
+    return cm ? x[(long long)c * n + v] : x[v * t_in + c];
+  };
+  if (mask) w.m = at(T);
+  if (multi) {
+    float sum = 0.0f;
+    for (int c = lo; c < hi; ++c) sum += qv_st_clipped(at(c), mask, w.m);
+    w.ref = sum / (float)(hi - lo);
+  } else {
+    w.ref = qv_st_clipped(at(se), mask, w.m);
+  }
+  return w;
+}
+
+// Channel c of voxel v as loaded (1 past N and past T), and its staged
+// value from that load: log(clip / reference), zero past N and past T --
+// apart, so that a lane can start a batch of loads before their
+// arithmetic.
+static __device__ __forceinline__ float qv_st_win_load(
+    const float* __restrict__ x, long long n, long long v, int t_in, int cm,
+    int T, int c) {
+  return v < n && c < T ? (cm ? x[(long long)c * n + v] : x[v * t_in + c])
+                        : 1.0f;
+}
+static __device__ __forceinline__ float qv_st_win_value(
+    float xv, long long n, long long v, int mask, int T, float m, float ref,
+    int c) {
+  return v < n && c < T ? logf(qv_st_clipped(xv, mask, m) / ref) : 0.0f;
+}
+
+// Channels c0 .. c0 + width - 1 (width <= W) of a warp's 16 staged rows
+// (rows r0 .. r0 + 15: consecutive voxels, lane l's row r0 + l % 16 and
+// its QvStWin w) into their columns 0 .. width - 1, by warp q of the NQ
+// warps that stage the same rows. The lanes follow x's layout, so that a
+// load reads contiguous words: channel-major, a lane a row and the two
+// lanes of a row alternate channels; voxel-major, the 32 lanes take a row's
+// consecutive channels, row by row, its reference and mask value from its
+// lanes by shuffle (every lane of the warp calls this). Each lane loads a
+// batch of B values, then computes them: the loads are in flight together
+// (one at a time, the staging ran at ~60 G values a second on the H100;
+// batches of 16 ran within 4% of 8 and spilled more in the cluster
+// kernels, PERF.md).
+template <int W, int NQ>
+static __device__ __forceinline__ void qv_st_stage_window(
+    float* rows, int stride, int r0, int q, const QvStWin& w,
+    const float* __restrict__ x, long long n, int t_in, int cm, int mask,
+    int T, int c0, int width) {
+  constexpr int B = 8;  // values a lane loads at once
+  const int lane = threadIdx.x & 31;
+  if (cm) {
+    float* o = rows + (r0 + (lane & 15)) * stride;
+    const int c1 = 2 * q + (lane >> 4);  // the lane's first channel
+#pragma unroll 1
+    for (int i0 = 0; 2 * NQ * i0 < width; i0 += B) {
+      float raw[B];
+#pragma unroll
+      for (int i = 0; i < B; ++i)
+        raw[i] = qv_st_win_load(x, n, w.v, t_in, cm, T,
+                                c0 + c1 + 2 * NQ * (i0 + i));
+#pragma unroll
+      for (int i = 0; i < B; ++i) {
+        const int c = c1 + 2 * NQ * (i0 + i);
+        if (c < width)
+          o[c] = qv_st_win_value(raw[i], n, w.v, mask, T, w.m, w.ref, c0 + c);
+      }
+    }
+    return;
+  }
+  constexpr int NJ = (W + 32 * NQ - 1) / (32 * NQ);  // a lane's chunks a row
+  // rows a batch: a power of two, at most B / NJ (at least 1)
+  constexpr int R = B / NJ >= 8 ? 8 : B / NJ >= 4 ? 4 : B / NJ >= 2 ? 2 : 1;
+  const long long v0 = w.v - (lane & 15);
+#pragma unroll 1
+  for (int rb = 0; rb < 16; rb += R) {
+    float raw[R][NJ], m[R], ref[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      m[r] = __shfl_sync(0xffffffffu, w.m, rb + r);
+      ref[r] = __shfl_sync(0xffffffffu, w.ref, rb + r);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = 32 * (q + NQ * j) + lane;
+        raw[r][j] = qv_st_win_load(x, n, v0 + rb + r, t_in, cm, T,
+                                   c < width ? c0 + c : T);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float* o = rows + (r0 + rb + r) * stride;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = 32 * (q + NQ * j) + lane;
+        if (c < width)
+          o[c] = qv_st_win_value(raw[r][j], n, v0 + rb + r, mask, T, m[r],
+                                 ref[r], c0 + c);
+      }
+    }
+  }
 }
 
 // The head of m-tile rows row0 .. row0 + 15 from the last activations:

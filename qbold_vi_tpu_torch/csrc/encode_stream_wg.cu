@@ -3,7 +3,7 @@
 // such as 60 x 7, 129-256 units): the streamed encode on Hopper's wgmma,
 // with the weights fed through a ring of slabs by a producer warp.
 //
-// It replaces the same TPU kernels as encode_quad.cu and encode_stream.cu
+// It replaces the same TPU kernels as encode_quad.cu and encode_stream.cuh
 // (qbold_vi_tpu/ops/pallas_infer.py::encode_quad_fused, pallas_call at :353,
 // and encode_q1_packed, at :246) and computes what they compute: the
 // normalised log signal, the dense chain in 3xTF32 (float32-accurate),
@@ -12,18 +12,16 @@
 // Up <= 256 where the resident blob does not fit; past 256 units
 // encode_stream_wgc.cu's chunked kernels serve where they fit (320 and 384),
 // encode_stream_wgx.cu's split ones at 448-768, encode_stream_wgk.cu's
-// cluster ones at 832-1472, encode_stream.cu where a staged row of many
-// taus is wider than their blocks' activation rows, and the bf16 trunk
-// keeps its own kernels.
+// cluster ones at 832-1472, and the bf16 trunk keeps its own kernels.
 //
 // Bound: at 256 units x 2 blocks the 3xTF32 products take 1.69 ms of a
 // 1.03 M-voxel request at the dense TF32 peak; the request's bytes 0.026
 // ms. A design adds the weights' reads from L2: every pass of V voxels
 // reads all the trunk's weights (hi and lo), 1.1 MB at 256 x 2, ~8.9 GB a
-// request at V = 128. In encode_stream.cu the time followed the block-wide
-// barrier of every slab and the B fragments each warp loads into
-// registers, and every warp split all the pass's activations into TF32
-// hi / lo once again (PERF.md).
+// request at V = 128. In the float32 streamed kernel of encode_stream.cuh
+// (retired) the time followed the block-wide barrier of every slab and
+// the B fragments each warp loads into registers, and every warp split
+// all the pass's activations into TF32 hi / lo once again (PERF.md).
 //
 // Design. A block of three warpgroups: two consumer warpgroups, each of
 // which owns 64 voxels of a pass of 128, and a producer warpgroup.
@@ -68,16 +66,27 @@
 //   on named barrier 1) or write C's q. B's scratch shares the activation
 //   rows where it fits (they are idle between a round's last head and its
 //   next pass).
-// * Or (SH, the plan's shared rows: many taus, where a buffer of 128 staged
-//   rows does not fit beside the block) each warp stages its 16 rows in the
-//   first 8 ks0 columns of its activation rows, as encode_stream_wgc.cu
-//   does: a thread's first-layer products read, and its epilogue
-//   overwrites, only the channels it owns (header), and the round's
-//   scratch is read before the next pass is staged.
+// * Or (RW 1, the plan's shared rows: many taus, where a buffer of 128
+//   staged rows does not fit beside the block) each warp stages its 16 rows
+//   in the first 8 ks0 columns of its activation rows, as
+//   encode_stream_wgc.cu does: a thread's first-layer products read, and
+//   its epilogue overwrites, only the channels it owns (header), and the
+//   round's scratch is read before the next pass is staged.
+// * Or (RW 2, the plan's windowed rows: a staged row of 8 ks0 channels
+//   wider than an activation row of Up) each warp stages its 16 rows a
+//   window at a time: the channels of k-steps k .. k + Up / 8 - 1 (whole
+//   slabs) in the first Up columns of its activation rows, before the
+//   first layer's slab k, every lane of the warp staging in the order of
+//   x's layout (encode_stream.cuh::qv_st_stage_window; a row's reference
+//   and mask value computed once a pass in its lanes' registers). Only
+//   the warp reads its rows, so a __syncwarp before and after a window is
+//   the only barrier; the values and the products' order are the shared
+//   rows', so the outputs are too, bit for bit. The block's shared memory
+//   does not depend on the taus.
 // Shared memory (ops/fused_infer.py::_wg_smem, in this order):
 //   mbarriers (QV_WG_BAR_BYTES) | ring stages x KS x 64 Up bytes |
 //   activations 128 x (Up + 8) floats | rows 128 x SX floats (none with
-//   SH) | heads 5 x 256 floats | [B: node table QV_NCONST, quadrature
+//   RW 1 or 2) | heads 5 x 256 floats | [B: node table QV_NCONST, quadrature
 //   scratch QV_QUAD_SCRATCH(256) floats unless it fits in the activations]
 // (SX: QvStF32::x_stride of the first layer's k-steps.) The PTX helpers
 // and the products are encode_stream_wg.cuh's, shared with
@@ -88,8 +97,9 @@
 // ---- the encode -------------------------------------------------------------
 
 // KS: k-steps a slab (their A registers, 8 a k-step, are loaded before
-// the slab's products); SH: the staged rows in the activation rows.
-template <int UP, int KS, bool SH, bool QUAD>
+// the slab's products); RW: the staged rows, 0 a buffer of their own, 1 in
+// the activation rows, 2 there a window at a time (header).
+template <int UP, int KS, int RW, bool QUAD>
 static __device__ __forceinline__ void qv_wg_body(
     const float* __restrict__ x, long long n, int t_in, int cm, int mask,
     int se, int multi, int act, int nb, const float* __restrict__ blob,
@@ -97,6 +107,9 @@ static __device__ __forceinline__ void qv_wg_body(
     float* __restrict__ o0, float* __restrict__ o1, float* __restrict__ o2) {
   constexpr int KB = 64 * UP;  // bytes of a k-step's image, hi then lo
   constexpr int SA = UP + 8, PASS = QV_WG_PASS;
+  constexpr bool SH = RW != 0;  // the rows in the activation rows
+  constexpr int WK = UP / 8;    // k-steps a window
+  static_assert(WK % KS == 0, "a window holds whole slabs");
   extern __shared__ float4 qv_wg_smem[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(qv_wg_smem);
   const int T = t_in - mask;
@@ -189,13 +202,21 @@ static __device__ __forceinline__ void qv_wg_body(
 #pragma unroll 1
     for (int p = 0; p < passes; ++p) {
       const int base = p * PASS + wg * 64;  // the warpgroup's rows
-      __syncwarp();  // the warp's rows of the last pass are read
-      if (lane < 16) {
-        const int r = 16 * warp + lane;
-        qv_st_stage_row<QvStF32>(xs_w, s_x, r, x, n, v0r + base + r, t_in,
-                                 cm, mask, T, se, multi, lo, hi, 8 * ks0);
+      // RW 2: lane l holds the values of row 16 w + l % 16
+      const int wr = 16 * warp + (lane & 15);
+      QvStWin win;
+      if (RW == 2) {
+        win = qv_st_win_row(x, n, v0r + base + wr, t_in, cm, mask, T, se,
+                            multi, lo, hi);
+      } else {
+        __syncwarp();  // the warp's rows of the last pass are read
+        if (lane < 16) {
+          const int r = 16 * warp + lane;
+          qv_st_stage_row<QvStF32>(xs_w, s_x, r, x, n, v0r + base + r, t_in,
+                                   cm, mask, T, se, multi, lo, hi, 8 * ks0);
+        }
+        __syncwarp();
       }
-      __syncwarp();
 #pragma unroll 1
       for (int l = 0; l <= nb; ++l) {
         const uint32_t* in = l == 0 ? xs_w : act_w;
@@ -204,14 +225,25 @@ static __device__ __forceinline__ void qv_wg_body(
 #pragma unroll 1
         for (int ksl = 0; ksl < nks; ++ksl) {
           const int k0 = ksl * KS, nk = min(KS, kl - k0);
+          // RW 2: the window of k-steps kw .. kw + WK - 1 that holds the
+          // slab, staged at its first slab once the last window (or pass)
+          // is read
+          const int kw = RW == 2 && l == 0 ? k0 - k0 % WK : 0;
+          if (RW == 2 && l == 0 && kw == k0) {
+            __syncwarp();
+            qv_st_stage_window<8 * WK, 1>(
+                reinterpret_cast<float*>(act_w), SA, 16 * warp, 0, win, x, n,
+                t_in, cm, mask, T, 8 * k0, min(8 * WK, 8 * (ks0 - k0)));
+            __syncwarp();
+          }
           // a slab's KS k-steps with no branch around the products: past
           // the slab's nk (the first layer's last slab), A is zero and B
           // the slab's first k-step
           QvStF32::A a[KS];
 #pragma unroll
           for (int s = 0; s < KS; ++s) {
-            a[s] = QvStF32::load_a(in, s_in, 16 * warp, min(k0 + s, kl - 1),
-                                   g, t);
+            a[s] = QvStF32::load_a(in, s_in, 16 * warp,
+                                   min(k0 + s, kl - 1) - kw, g, t);
             const uint32_t keep = s < nk ? 0xFFFFFFFFu : 0u;
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
@@ -261,38 +293,38 @@ static __device__ __forceinline__ void qv_wg_body(
 }
 
 // Kernels B and C, one symbol each (the profile and the SASS tell them
-// from encode_stream.cu's).
-template <int UP, int KS, bool SH>
+// from the other designs').
+template <int UP, int KS, int RW>
 __global__ void __launch_bounds__(QV_WG_THREADS, 1)
     qv_encode_quad_wg_kernel(QV_WG_ARGS, int mvg, QvRanges r, int stages,
                              float* __restrict__ means,
                              float* __restrict__ vars,
                              float* __restrict__ raw) {
-  qv_wg_body<UP, KS, SH, true>(x, n, t_in, cm, mask, se, multi, act, nb,
+  qv_wg_body<UP, KS, RW, true>(x, n, t_in, cm, mask, se, multi, act, nb,
                                blob, image, mvg, r, stages, means, vars, raw);
 }
 
-template <int UP, int KS, bool SH>
+template <int UP, int KS, int RW>
 __global__ void __launch_bounds__(QV_WG_THREADS, 1)
     qv_encode_q_wg_kernel(QV_WG_ARGS, int stages, float* __restrict__ q) {
-  qv_wg_body<UP, KS, SH, false>(x, n, t_in, cm, mask, se, multi, act, nb,
+  qv_wg_body<UP, KS, RW, false>(x, n, t_in, cm, mask, se, multi, act, nb,
                                 blob, image, 0, QvRanges{}, stages, q,
                                 nullptr, nullptr);
 }
 
-// kernel<Up, KS, SH> for the plan's ring (stages slots of ks k-steps; the
+// kernel<Up, KS, RW> for the plan's ring (stages slots of ks k-steps; the
 // pairs ops/fused_infer.py::_WG_SLABS offers) and rows (shared at the
 // plan's first slab of 192 and 256, the widths where the staged rows of
-// many taus leave a block no room), launched as encode_stream.cuh's
-// kernels are.
-#define QV_WG_CASE(kernel, UP_, KS_, SH_, ...)                    \
-  case (UP_ * 8 + KS_) * 2 + SH_:                                 \
-    return qv_st_launch(kernel<UP_, KS_, (SH_ != 0)>, QV_WG_THREADS, \
-                        __VA_ARGS__);
-#define QV_WG_DISPATCH(kernel, up, stages, ks, shared, ...)              \
-  if (stages < 2 || stages > QV_WG_MAX_STAGES || shared < 0 || shared > 1) \
-    return (int)cudaErrorInvalidValue;                                     \
-  switch ((up * 8 + ks) * 2 + shared) {                                    \
+// many taus leave a block no room; windowed at the first slab of every
+// width, where a staged row is wider than an activation row), launched as
+// encode_stream.cuh's kernels are.
+#define QV_WG_CASE(kernel, UP_, KS_, RW_, ...)                       \
+  case (UP_ * 8 + KS_) * 4 + RW_:                                    \
+    return qv_st_launch(kernel<UP_, KS_, RW_>, QV_WG_THREADS, __VA_ARGS__);
+#define QV_WG_DISPATCH(kernel, up, stages, ks, rows, ...)              \
+  if (stages < 2 || stages > QV_WG_MAX_STAGES || rows < 0 || rows > 2) \
+    return (int)cudaErrorInvalidValue;                                 \
+  switch ((up * 8 + ks) * 4 + rows) {                                  \
     QV_WG_CASE(kernel, 16, 2, 0, __VA_ARGS__)                              \
     QV_WG_CASE(kernel, 32, 4, 0, __VA_ARGS__)                              \
     QV_WG_CASE(kernel, 64, 4, 0, __VA_ARGS__)                              \
@@ -303,21 +335,27 @@ __global__ void __launch_bounds__(QV_WG_THREADS, 1)
     QV_WG_CASE(kernel, 256, 2, 0, __VA_ARGS__)                             \
     QV_WG_CASE(kernel, 192, 1, 1, __VA_ARGS__)                             \
     QV_WG_CASE(kernel, 256, 1, 1, __VA_ARGS__)                             \
+    QV_WG_CASE(kernel, 16, 2, 2, __VA_ARGS__)                              \
+    QV_WG_CASE(kernel, 32, 4, 2, __VA_ARGS__)                              \
+    QV_WG_CASE(kernel, 64, 4, 2, __VA_ARGS__)                              \
+    QV_WG_CASE(kernel, 128, 2, 2, __VA_ARGS__)                             \
+    QV_WG_CASE(kernel, 192, 1, 2, __VA_ARGS__)                             \
+    QV_WG_CASE(kernel, 256, 1, 2, __VA_ARGS__)                             \
     default:                                                               \
       return (int)cudaErrorInvalidValue;                                   \
   }
 
-// The C entries: encode_stream.cu's arguments with the wgmma image
+// The C entries: encode_stream.cuh's arguments with the wgmma image
 // (ops/fused_infer.py::_wg_image) beside the blob and the plan's ring and
-// rows (shared 1: in the activation rows) in place of its tile; block
-// must be QV_WG_THREADS and smem_bytes the plan's.
+// rows (0 separate, 1 shared: in the activation rows, 2 windowed) in place
+// of its tile; block must be QV_WG_THREADS and smem_bytes the plan's.
 extern "C" int qv_encode_quad_wg(
     const float* x, long long n, int t_in, int channel_major,
     int mask_channel, int se_idx, int multi_image, int act, int up, int nb,
     const float* blob, const float* image, QvRanges r, float* means,
-    float* vars, float* raw, int mvg, int stages, int ks, int shared,
+    float* vars, float* raw, int mvg, int stages, int ks, int rows,
     int block, long long smem_bytes, void* stream) {
-  QV_WG_DISPATCH(qv_encode_quad_wg_kernel, up, stages, ks, shared, n, block,
+  QV_WG_DISPATCH(qv_encode_quad_wg_kernel, up, stages, ks, rows, n, block,
                  smem_bytes, stream, x, n, t_in, channel_major, mask_channel,
                  se_idx, multi_image, act, nb, blob, image, mvg, r, stages,
                  means, vars, raw)
@@ -327,10 +365,10 @@ extern "C" int qv_encode_q1_wg(const float* x, long long n, int t_in,
                                int channel_major, int mask_channel,
                                int se_idx, int multi_image, int act, int up,
                                int nb, const float* blob, const float* image,
-                               float* q, int stages, int ks, int shared,
+                               float* q, int stages, int ks, int rows,
                                int block, long long smem_bytes,
                                void* stream) {
-  QV_WG_DISPATCH(qv_encode_q_wg_kernel, up, stages, ks, shared, n, block,
+  QV_WG_DISPATCH(qv_encode_q_wg_kernel, up, stages, ks, rows, n, block,
                  smem_bytes, stream, x, n, t_in, channel_major, mask_channel,
                  se_idx, multi_image, act, nb, blob, image, stages, q)
 }

@@ -3,23 +3,23 @@
 // depth): encode_stream_wg.cu's design with each layer's products in output
 // chunks, since wgmma's N is at most 256.
 //
-// It replaces the same TPU kernels as encode_quad.cu and encode_stream.cu
+// It replaces the same TPU kernels as encode_quad.cu and encode_stream.cuh
 // (qbold_vi_tpu/ops/pallas_infer.py::encode_quad_fused, pallas_call at :353,
 // and encode_q1_packed, at :246) and computes what they compute: the
 // normalised log signal, the dense chain in 3xTF32 (float32-accurate),
 // the float32 head, then B's quadrature summaries or C's q (5, N), rounding
 // where encode_stream_wg.cu rounds. ops/fused_infer.py::launch_plan takes
-// it for the float32 trunk at Up 320 and 384; encode_stream_wgx.cu serves
-// the wider trunks (448-768), whose pass of 128 voxels does not fit,
-// encode_stream_wgk.cu 832-1472 and encode_stream.cu where no block fits.
+// it for the float32 trunk at Up 320 and 384 at any tau count;
+// encode_stream_wgx.cu serves the wider trunks (448-768), whose pass of 128
+// voxels does not fit, and encode_stream_wgk.cu 832-1472.
 //
 // Bound: at 320 units x 2 blocks the 3xTF32 products take 2.63 ms of a
 // 1.03 M-voxel request at the dense TF32 peak; the request's bytes 0.026
 // ms. A design adds the weights' reads from L2: every pass of V voxels
 // reads all the trunk's weights (hi and lo), 1.68 MB at 320 x 2, ~13.5 GB a
-// request at V = 128 and twice that at the 64 voxels a pass of
-// encode_stream.cu's plan there, which also ran every layer as two chunks
-// of 256 outputs (the second a quarter full at 320) on mma.sync.
+// request at V = 128 and twice that at the 64 voxels a pass of the
+// float32 streamed plan there (retired), which also ran every layer as two
+// chunks of 256 outputs (the second a quarter full at 320) on mma.sync.
 //
 // Design. encode_stream_wg.cu's block -- two consumer warpgroups of 64
 // voxels, a producer warpgroup that fills a ring of slabs by cp.async.bulk,
@@ -49,6 +49,17 @@
 //   slabs that keeps 320 x 2 at 194,496 bytes, below the 196 KB past which
 //   blocks of encode_stream_wg.cu ran 13-20% slower on the H100 (PERF.md);
 //   384 needs the activations' 200,704 bytes alone.
+// * Or (WIN, the plan's windowed rows: a staged row of 8 ks0 channels wider
+//   than the activation row, many taus) each warp stages its 16 rows a
+//   window at a time, as encode_stream_wg.cu's windowed kernels do: the
+//   channels of k-steps k .. k + Up / 8 - 1 in the first Up columns,
+//   before the first layer's k-slab k, every lane of the warp staging.
+//   The warp alone reads its rows, and every chunk of a k-slab reads the
+//   same A registers, loaded before the chunks' products, so a __syncwarp
+//   before and after a window is the only barrier, and the layer's
+//   epilogue, after its last k-slab's chunks, overwrites no window still
+//   to be read. The outputs are the unwindowed kernel's, bit for bit, where
+//   both fit; the block's shared memory does not depend on the taus.
 // Shared memory (ops/fused_infer.py::_wg_smem with cn, in this order):
 //   mbarriers (QV_WG_BAR_BYTES) | ring stages x KS x 64 CN bytes |
 //   activations and staged rows 128 x (Up + 8) floats | heads 5 x 256
@@ -61,8 +72,9 @@
 
 // CN: the output columns of a product (UP / CN chunks a layer); KS: k-steps
 // a slab (their A registers, 8 a k-step, are loaded before the slab's
-// products). A slab is KS k-steps of one chunk (this file's header).
-template <int UP, int CN, int KS, bool QUAD>
+// products). A slab is KS k-steps of one chunk; WIN: the rows staged a
+// window at a time (this file's header).
+template <int UP, int CN, int KS, bool WIN, bool QUAD>
 static __device__ __forceinline__ void qv_wgc_body(
     const float* __restrict__ x, long long n, int t_in, int cm, int mask,
     int se, int multi, int act, int nb, const float* __restrict__ blob,
@@ -72,6 +84,8 @@ static __device__ __forceinline__ void qv_wgc_body(
   constexpr int NCH = UP / CN;
   constexpr int KB = 64 * CN;  // bytes of a chunk's k-step, hi then lo
   constexpr int SA = UP + 8, PASS = QV_WG_PASS;
+  constexpr int WK = UP / 8;  // k-steps a window
+  static_assert(WK % KS == 0, "a window holds whole k-slabs");
   extern __shared__ float4 qv_wg_smem[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(qv_wg_smem);
   const int T = t_in - mask;
@@ -160,27 +174,46 @@ static __device__ __forceinline__ void qv_wgc_body(
 #pragma unroll 1
     for (int p = 0; p < passes; ++p) {
       const int base = p * PASS + wg * 64;  // the warpgroup's rows
-      __syncwarp();  // the warp's rows of the last pass are read
-      if (lane < 16) {
-        const int r = 16 * warp + lane;
-        qv_st_stage_row<QvStF32>(act_w, SA, r, x, n, v0r + base + r, t_in,
-                                 cm, mask, T, se, multi, lo, hi, 8 * ks0);
+      // WIN: lane l holds the values of row 16 w + l % 16
+      const int wr = 16 * warp + (lane & 15);
+      QvStWin win;
+      if (WIN) {
+        win = qv_st_win_row(x, n, v0r + base + wr, t_in, cm, mask, T, se,
+                            multi, lo, hi);
+      } else {
+        __syncwarp();  // the warp's rows of the last pass are read
+        if (lane < 16) {
+          const int r = 16 * warp + lane;
+          qv_st_stage_row<QvStF32>(act_w, SA, r, x, n, v0r + base + r, t_in,
+                                   cm, mask, T, se, multi, lo, hi, 8 * ks0);
+        }
+        __syncwarp();
       }
-      __syncwarp();
 #pragma unroll 1
       for (int l = 0; l <= nb; ++l) {
         const int kl = l == 0 ? ks0 : ksh, nks = l == 0 ? nks0 : nksh;
 #pragma unroll 1
         for (int ksl = 0; ksl < nks; ++ksl) {
           const int k0 = ksl * KS, nk = min(KS, kl - k0);
+          // WIN: the window of k-steps kw .. kw + WK - 1 that holds the
+          // k-slab, staged at its first k-slab once the last window (or
+          // pass) is read
+          const int kw = WIN && l == 0 ? k0 - k0 % WK : 0;
+          if (WIN && l == 0 && kw == k0) {
+            __syncwarp();
+            qv_st_stage_window<8 * WK, 1>(
+                reinterpret_cast<float*>(act_w), SA, 16 * warp, 0, win, x, n,
+                t_in, cm, mask, T, 8 * k0, min(8 * WK, 8 * (ks0 - k0)));
+            __syncwarp();
+          }
           // a slab's KS k-steps with no branch around the products: past
           // the slab's nk (the first layer's last slab), A is zero and B
           // the slab's first k-step
           QvStF32::A a[KS];
 #pragma unroll
           for (int s = 0; s < KS; ++s) {
-            a[s] = QvStF32::load_a(act_w, SA, 16 * warp, min(k0 + s, kl - 1),
-                                   g, t);
+            a[s] = QvStF32::load_a(act_w, SA, 16 * warp,
+                                   min(k0 + s, kl - 1) - kw, g, t);
             const uint32_t keep = s < nk ? 0xFFFFFFFFu : 0u;
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
@@ -238,48 +271,55 @@ static __device__ __forceinline__ void qv_wgc_body(
 
 // Kernels B and C, one symbol each (the profile and the SASS tell them
 // from encode_stream_wg.cu's).
-template <int UP, int CN, int KS>
+template <int UP, int CN, int KS, bool WIN>
 __global__ void __launch_bounds__(QV_WG_THREADS, 1)
     qv_encode_quad_wgc_kernel(QV_WG_ARGS, int mvg, QvRanges r, int stages,
                               float* __restrict__ means,
                               float* __restrict__ vars,
                               float* __restrict__ raw) {
-  qv_wgc_body<UP, CN, KS, true>(x, n, t_in, cm, mask, se, multi, act, nb,
-                               blob, image, mvg, r, stages, means, vars, raw);
+  qv_wgc_body<UP, CN, KS, WIN, true>(x, n, t_in, cm, mask, se, multi, act,
+                                     nb, blob, image, mvg, r, stages, means,
+                                     vars, raw);
 }
 
-template <int UP, int CN, int KS>
+template <int UP, int CN, int KS, bool WIN>
 __global__ void __launch_bounds__(QV_WG_THREADS, 1)
     qv_encode_q_wgc_kernel(QV_WG_ARGS, int stages, float* __restrict__ q) {
-  qv_wgc_body<UP, CN, KS, false>(x, n, t_in, cm, mask, se, multi, act, nb,
-                                blob, image, 0, QvRanges{}, stages, q,
-                                nullptr, nullptr);
+  qv_wgc_body<UP, CN, KS, WIN, false>(x, n, t_in, cm, mask, se, multi, act,
+                                      nb, blob, image, 0, QvRanges{}, stages,
+                                      q, nullptr, nullptr);
 }
 
-// kernel<Up, CN, KS> for the plan's chunks and ring (the (CN, KS) of each
-// Up that ops/fused_infer.py::_WGC_SLABS gives).
-#define QV_WGC_CASE(kernel, UP_, CN_, KS_, ...)    \
-  case (UP_ * 512 + CN_) * 8 + KS_:                \
-    return qv_st_launch(kernel<UP_, CN_, KS_>, QV_WG_THREADS, __VA_ARGS__);
-#define QV_WGC_DISPATCH(kernel, up, cn, stages, ks, ...) \
-  if (stages < 2 || stages > QV_WG_MAX_STAGES)           \
-    return (int)cudaErrorInvalidValue;                   \
-  switch ((up * 512 + cn) * 8 + ks) {                    \
-    QV_WGC_CASE(kernel, 320, 160, 1, __VA_ARGS__)        \
-    QV_WGC_CASE(kernel, 384, 192, 1, __VA_ARGS__)        \
-    default:                                             \
-      return (int)cudaErrorInvalidValue;                 \
+// kernel<Up, CN, KS, WIN> for the plan's chunks and ring (the (CN, KS) of
+// each Up that ops/fused_infer.py::_WGC_SLABS gives) and rows (windowed
+// at both widths, where a staged row of many taus is wider than Up).
+#define QV_WGC_CASE(kernel, UP_, CN_, KS_, WIN_, ...)                     \
+  case ((UP_ * 512 + CN_) * 8 + KS_) * 2 + WIN_:                         \
+    return qv_st_launch(kernel<UP_, CN_, KS_, (WIN_ != 0)>, QV_WG_THREADS, \
+                        __VA_ARGS__);
+#define QV_WGC_DISPATCH(kernel, up, cn, stages, ks, windowed, ...)          \
+  if (stages < 2 || stages > QV_WG_MAX_STAGES || windowed < 0 ||           \
+      windowed > 1)                                                         \
+    return (int)cudaErrorInvalidValue;                                      \
+  switch (((up * 512 + cn) * 8 + ks) * 2 + windowed) {                      \
+    QV_WGC_CASE(kernel, 320, 160, 1, 0, __VA_ARGS__)                        \
+    QV_WGC_CASE(kernel, 384, 192, 1, 0, __VA_ARGS__)                        \
+    QV_WGC_CASE(kernel, 320, 160, 1, 1, __VA_ARGS__)                        \
+    QV_WGC_CASE(kernel, 384, 192, 1, 1, __VA_ARGS__)                        \
+    default:                                                                \
+      return (int)cudaErrorInvalidValue;                                    \
   }
 
-// The C entries: encode_stream_wg.cu's with the chunk width cn after ks.
+// The C entries: encode_stream_wg.cu's with the chunk width cn after ks,
+// then the rows (windowed 1: a window at a time).
 extern "C" int qv_encode_quad_wgc(
     const float* x, long long n, int t_in, int channel_major,
     int mask_channel, int se_idx, int multi_image, int act, int up, int nb,
     const float* blob, const float* image, QvRanges r, float* means,
-    float* vars, float* raw, int mvg, int stages, int ks, int cn, int block,
-    long long smem_bytes, void* stream) {
-  QV_WGC_DISPATCH(qv_encode_quad_wgc_kernel, up, cn, stages, ks, n, block,
-                  smem_bytes, stream, x, n, t_in, channel_major,
+    float* vars, float* raw, int mvg, int stages, int ks, int cn,
+    int windowed, int block, long long smem_bytes, void* stream) {
+  QV_WGC_DISPATCH(qv_encode_quad_wgc_kernel, up, cn, stages, ks, windowed,
+                  n, block, smem_bytes, stream, x, n, t_in, channel_major,
                   mask_channel, se_idx, multi_image, act, nb, blob, image,
                   mvg, r, stages, means, vars, raw)
 }
@@ -289,10 +329,10 @@ extern "C" int qv_encode_q1_wgc(const float* x, long long n, int t_in,
                                 int se_idx, int multi_image, int act, int up,
                                 int nb, const float* blob, const float* image,
                                 float* q, int stages, int ks, int cn,
-                                int block, long long smem_bytes,
-                                void* stream) {
-  QV_WGC_DISPATCH(qv_encode_q_wgc_kernel, up, cn, stages, ks, n, block,
-                  smem_bytes, stream, x, n, t_in, channel_major,
+                                int windowed, int block,
+                                long long smem_bytes, void* stream) {
+  QV_WGC_DISPATCH(qv_encode_q_wgc_kernel, up, cn, stages, ks, windowed, n,
+                  block, smem_bytes, stream, x, n, t_in, channel_major,
                   mask_channel, se_idx, multi_image, act, nb, blob, image,
                   stages, q)
 }

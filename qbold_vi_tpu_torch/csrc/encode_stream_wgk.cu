@@ -3,22 +3,22 @@
 // cluster of C CTAs, which together hold one pass of 128 voxels and share
 // its activation rows through distributed shared memory (DSMEM).
 //
-// It replaces the same TPU kernels as encode_quad.cu and encode_stream.cu
+// It replaces the same TPU kernels as encode_quad.cu and encode_stream.cuh
 // (qbold_vi_tpu/ops/pallas_infer.py::encode_quad_fused, pallas_call at :353,
 // and encode_q1_packed, at :246) and computes what they compute: the
 // normalised log signal, the dense chain in 3xTF32 (float32-accurate),
 // the float32 head, then B's quadrature summaries or C's q (5, N).
 // ops/fused_infer.py::launch_plan takes it for the float32 trunk at the
-// padded widths of _WGK_PLANS wherever its block fits; encode_stream_wgx.cu
-// serves 448-768, encode_stream.cu where a staged row of many taus is
-// wider than a block's NL columns (a narrower one shares the activation
-// rows, SH).
+// padded widths of _WGK_PLANS at any tau count (many taus: the staged
+// rows in the activation rows, RW 1, or there a window at a time where a
+// row is wider than a block's NL columns, RW 2); encode_stream_wgx.cu
+// serves 448-768.
 //
 // Bound: at 833 units x 1 block the 3xTF32 products take 8.85 ms of a
 // 1.03 M-voxel request at the dense TF32 peak; the request's bytes 0.026
 // ms. A design adds the weights' reads from L2: a pass of V voxels reads
 // the trunk's weights (hi and lo, 6.6 MB at 896 x 1) once, ~426 GB a
-// request at the 16 voxels a pass of encode_stream.cu's plan there (the
+// request at the 16 voxels a pass of the float32 streamed plan there (the
 // only pass that fits one CTA: at 896 a single CTA's rows of 64 voxels
 // alone take 231,424 B), ~53 GB at V = 128.
 //
@@ -86,25 +86,42 @@
 //   and the next pass's first epilogue.
 // * Each warp stages its own 16 rows of the next pass once its first
 //   layer's products have read the current ones.
-// * Or (SH, the plan's shared rows: many taus, where a buffer of 128 staged
-//   rows does not fit beside the block; T <= NL) each warp stages its 16
+// * Or (RW 1, the plan's shared rows: many taus, where a buffer of 128
+//   staged rows does not fit beside the block; T <= NL) each warp stages its 16
 //   rows in the first 8 ks0 columns of its activation rows, which its
 //   first layer reads before the epilogue's cluster barrier; the next
 //   pass's rows wait until every CTA has read this CTA's activations, the
 //   inputs of the last layer (a cluster barrier more a pass), and the next
 //   round's first pass until the round's quadrature has read its scratch.
+// * Or (RW 2, the plan's windowed rows: a staged row of 8 ks0 channels
+//   wider than NL) each warp stages its 16 rows a window at a time: the
+//   channels of WK k-steps (NT, or in a chunked plan the most whole
+//   segments of S within NT) in the first 8 WK columns of its activation
+//   rows, every lane of the warp staging (qv_st_stage_window; a row's
+//   reference and mask value computed once a pass in registers). The first
+//   layer reads only the warp's own rows (no peer reads them: peers read
+//   a layer's activations after its cluster barriers), so a __syncwarp
+//   before and after a window is the only barrier: the first window at
+//   the first layer's start, after the cluster barrier that follows the
+//   last layer (as RW 1 stages a pass), each later one once the k-steps
+//   loaded ahead of the products have reached it. The outputs are the
+//   shared rows' bit for bit; the block's shared memory does not depend on
+//   the taus.
 // Every wait on an mbarrier traps after 10 s (a fault, not a hang).
 // Shared memory (ops/fused_infer.py::_wgk_smem, in this order):
 //   mbarriers (QV_WGK_BAR_BYTES) | ring stages x 64 NL bytes |
-//   activations 128 x SA floats | rows 128 x SX floats (none with SH) |
+//   activations 128 x SA floats | rows 128 x SX floats (none with RW 1
+//   or 2) |
 //   partial heads C x 5 x 256 floats | [B: node table QV_NCONST]
 // (SA = NL + 8 where NL is a multiple of 16, else NL + 16: 8 words past a
 // multiple of 16, so that a warp's A loads and epilogue stores meet no
 // bank twice; SX: QvStF32::x_stride of the first layer's k-steps.) The
 // PTX helpers and the m64nNk8 products are encode_stream_wg.cuh's. This
 // file compiles kernel B's entries; encode_stream_wgk_c.cu compiles it
-// again with QV_WGK_C for kernel C's, so that nvcc builds the two sets of
-// instantiations side by side (one process a source).
+// again with QV_WGK_C for kernel C's, and encode_stream_wgk_w.cu /
+// encode_stream_wgk_wc.cu with QV_WGK_W the windowed kernels' (entries
+// named _w), so that nvcc builds the four sets of instantiations side by
+// side (one process a source).
 
 #include "encode_stream_wg.cuh"
 
@@ -260,9 +277,10 @@ static __device__ __forceinline__ void qv_wgk_chunk(
 
 // NL: the output columns of a CTA (Up / C). C0 0: one product of NL
 // columns a k-step, its sums promoted every `seg` k-steps; else two output
-// chunks of C0 and NL - C0 columns, promoted every S (= seg) k-steps. SH:
-// the staged rows in the activation rows (header).
-template <int NL, int C0, int S, bool SH, bool QUAD>
+// chunks of C0 and NL - C0 columns, promoted every S (= seg) k-steps. RW:
+// the staged rows, 0 a buffer of their own, 1 in the activation rows, 2
+// there a window at a time (header).
+template <int NL, int C0, int S, int RW, bool QUAD>
 static __device__ __forceinline__ void qv_wgk_body(
     const float* __restrict__ x, long long n, int t_in, int cm, int mask,
     int se, int multi, int act, int nb, const float* __restrict__ blob,
@@ -276,6 +294,9 @@ static __device__ __forceinline__ void qv_wgk_body(
   constexpr int C1 = NL - C0;  // the second chunk's columns
   // a fresh fragment's registers: one product's, or the wider chunk's
   constexpr int FR = C0 == 0 ? NL / 2 : (C0 > C1 ? C0 : C1) / 2;
+  constexpr bool SH = RW != 0;  // the rows in the activation rows
+  // k-steps a window: whole segments of a chunked plan
+  constexpr int WK = C0 == 0 ? NT : NT / S * S;
   static_assert(NL % 8 == 0 && NL <= 256, "columns a CTA");
   static_assert(C0 == 0 || (C0 % 8 == 0 && C1 % 8 == 0 && C1 > 0 && S > 0),
                 "chunks");
@@ -379,12 +400,25 @@ static __device__ __forceinline__ void qv_wgk_body(
                                v + row0 + lane, t_in, cm, mask, T, se, multi,
                                lo, hi, 8 * ks0);
   };
+  // RW 2: lane l holds the values of row row0 + l % 16; the window holds
+  // k-steps kwin .. kwin + WK - 1
+  QvStWin win;
+  int kwin = 0;
+  auto restage = [&](int k) {
+    __syncwarp();  // the last window (or pass) is read
+    qv_st_stage_window<8 * WK, 1>(acts, SA, row0, 0, win, x, n, t_in, cm,
+                                  mask, T, 8 * k,
+                                  min(8 * WK, 8 * (ks0 - k)));
+    kwin = k;
+    __syncwarp();
+  };
   // k-step k's raw A values of layer l: the staged rows (l == 0) or the
   // activations of rank k / NT
   auto load = [&](int l, int k) -> float4 {
     if (l == 0) {
       const float* r = reinterpret_cast<const float*>(xs_u) +
-                       (row0 + g) * s_x + 8 * k + 2 * t;
+                       (row0 + g) * s_x + 8 * (RW == 2 ? k - kwin : k) +
+                       2 * t;
       const float2 a = *reinterpret_cast<const float2*>(r);
       const float2 c = *reinterpret_cast<const float2*>(r + 8 * s_x);
       return make_float4(a.x, c.x, a.y, c.y);
@@ -398,7 +432,7 @@ static __device__ __forceinline__ void qv_wgk_body(
   int slot = 0;
   uint32_t phase = 0;
   float acc[NL / 2], frag[FR];
-  if (cl < rounds) stage((long long)cl * span);
+  if (RW != 2 && cl < rounds) stage((long long)cl * span);
   __syncwarp();
 #pragma unroll 1
   for (long long rnd = cl; rnd < rounds; rnd += ncl) {
@@ -418,12 +452,19 @@ static __device__ __forceinline__ void qv_wgk_body(
         auto kstep = [&](int k) {
           return k + k0 < kl ? k + k0 : k + k0 - kl;
         };
+        if (RW == 2 && l == 0) {  // the pass's first window
+          win = qv_st_win_row(x, n, v0 + p * PASS + row0 + (lane & 15), t_in,
+                              cm, mask, T, se, multi, lo, hi);
+          restage(0);
+        }
         if constexpr (C0 == 0) {
           float4 raw = load(l, kstep(0));
           int done = 0;
 #pragma unroll 1
           for (int k = 0; k < kl; ++k) {
             float4 nxt = raw;
+            if (RW == 2 && l == 0 && k + 1 < kl && (k + 1) % WK == 0)
+              restage(k + 1);  // raw is in registers
             if (k + 1 < kl) nxt = load(l, kstep(k + 1));  // a k-step ahead
             const QvStF32::A a = qv_wgk_split(raw);
             const uint32_t cur = qv_wg_addr(ring + slot * SB);
@@ -462,10 +503,21 @@ static __device__ __forceinline__ void qv_wgk_body(
           for (int k = 0; k < kl; k += S) {
             const int sl = min(S, kl - k);
             QvStF32::A a[S];
+            if constexpr (RW == 2) {
+              // the segment's values are split before the next segment's
+              // window replaces them
 #pragma unroll
-            for (int i = 0; i < S; ++i) {
-              a[i] = qv_wgk_split(nxt[i]);
-              if (k + S + i < kl) nxt[i] = load(l, kstep(k + S + i));
+              for (int i = 0; i < S; ++i) a[i] = qv_wgk_split(nxt[i]);
+              if (l == 0 && k + S < kl && (k + S) % WK == 0) restage(k + S);
+#pragma unroll
+              for (int i = 0; i < S; ++i)
+                if (k + S + i < kl) nxt[i] = load(l, kstep(k + S + i));
+            } else {
+#pragma unroll
+              for (int i = 0; i < S; ++i) {
+                a[i] = qv_wgk_split(nxt[i]);
+                if (k + S + i < kl) nxt[i] = load(l, kstep(k + S + i));
+              }
             }
             for (int i = 0, s = slot; i < sl; ++i) {  // the slabs landed
               qv_wgk_wait<false>(full + 8 * s, phase ^ (s < slot));
@@ -528,8 +580,10 @@ static __device__ __forceinline__ void qv_wgk_body(
           }
           if (SH && p + 1 < passes) {
             cs.sync();  // every CTA has read this CTA's activations
-            stage(v0 + (p + 1) * PASS);
-            __syncwarp();
+            if (RW == 1) {
+              stage(v0 + (p + 1) * PASS);
+              __syncwarp();
+            }
           }
         }
       }
@@ -554,7 +608,7 @@ static __device__ __forceinline__ void qv_wgk_body(
     // come after the next pass's cluster barriers (nb >= 1: the blob of
     // ops/fused_infer.py::_weight_blob has a block)
     both.sync();
-    if (SH && rnd + ncl < rounds) {
+    if (RW == 1 && rnd + ncl < rounds) {
       stage((rnd + ncl) * span);
       __syncwarp();
     }
@@ -563,22 +617,22 @@ static __device__ __forceinline__ void qv_wgk_body(
 
 // Kernels B and C, one symbol each (the profile and the SASS tell them
 // from the other designs').
-template <int NL, int C0, int S, bool SH>
+template <int NL, int C0, int S, int RW>
 __global__ void __launch_bounds__(QV_WG_THREADS, 1)
     qv_encode_quad_wgk_kernel(QV_WG_ARGS, int up, int mvg, QvRanges r,
                               int stages, int seg, float* __restrict__ means,
                               float* __restrict__ vars,
                               float* __restrict__ raw) {
-  qv_wgk_body<NL, C0, S, SH, true>(x, n, t_in, cm, mask, se, multi, act, nb,
+  qv_wgk_body<NL, C0, S, RW, true>(x, n, t_in, cm, mask, se, multi, act, nb,
                                    blob, image, up, mvg, r, stages, seg,
                                    means, vars, raw);
 }
 
-template <int NL, int C0, int S, bool SH>
+template <int NL, int C0, int S, int RW>
 __global__ void __launch_bounds__(QV_WG_THREADS, 1)
     qv_encode_q_wgk_kernel(QV_WG_ARGS, int up, int stages, int seg,
                            float* __restrict__ q) {
-  qv_wgk_body<NL, C0, S, SH, false>(x, n, t_in, cm, mask, se, multi, act,
+  qv_wgk_body<NL, C0, S, RW, false>(x, n, t_in, cm, mask, se, multi, act,
                                     nb, blob, image, up, 0, QvRanges{},
                                     stages, seg, q, nullptr, nullptr);
 }
@@ -636,12 +690,13 @@ static int qv_wgk_launch(Kernel kernel, int ranks, long long n, int block,
   return (int)cudaGetLastError();
 }
 
-// kernel<NL, C0, S, SH> for the plan's columns a CTA (Up / C of each width
+// kernel<NL, C0, S, RW> for the plan's columns a CTA (Up / C of each width
 // that ops/fused_infer.py::_WGK_PLANS gives, and the sweep's other
 // clusters), its first chunk's columns C0 (0: one product), a chunked
 // plan's promoted segment S (its `seg`; 0 where C0 is 0, `seg` at run time)
-// and its rows (SH 1: in the activation rows, at the plans whose staged
-// rows of many taus leave no room beside the block).
+// and its rows (RW 1: in the activation rows, at the plans whose staged
+// rows of many taus leave no room beside the block; RW 2: there a window at
+// a time, where a staged row is wider than a block's columns).
 // The shared-rows plans (ops/fused_infer.py::_WGK_SHARED): the widths
 // 1280-1472, whose staged rows of 73-184 taus fit in an activation row but
 // not beside the block.
@@ -665,92 +720,131 @@ static int qv_wgk_launch(Kernel kernel, int ranks, long long n, int block,
   X(kernel, 184, 64, 3, 0, __VA_ARGS__) \
   X(kernel, 184, 64, 2, 0, __VA_ARGS__) \
   QV_WGK_SHARED_CASES(X, kernel, __VA_ARGS__)
-#define QV_WGK_MATCH(NL_, C0_, S_, SH_) \
-  (nl == NL_ && chunk == C0_ && (C0_ == 0 || seg == S_) && shared == SH_)
-#define QV_WGK_LAUNCH(kernel, NL_, C0_, S_, SH_, ...) \
-  if (QV_WGK_MATCH(NL_, C0_, S_, SH_))                \
-    return qv_wgk_launch(kernel<NL_, C0_, S_, (SH_ != 0)>, __VA_ARGS__);
-#define QV_WGK_CHECK(up, cluster, stages, seg, chunk, shared)             \
+// The windowed-rows plans (ops/fused_infer.py::_WGK_WINDOWED): the first
+// plan of every width, reached where a staged row of many taus is wider
+// than its columns (encode_stream_wgk_w.cu, encode_stream_wgk_wc.cu).
+#define QV_WGK_WINDOWED_CASES(X, kernel, ...) \
+  X(kernel, 104, 0, 0, 2, __VA_ARGS__)        \
+  X(kernel, 112, 0, 0, 2, __VA_ARGS__)        \
+  X(kernel, 120, 0, 0, 2, __VA_ARGS__)        \
+  X(kernel, 128, 0, 0, 2, __VA_ARGS__)        \
+  X(kernel, 136, 0, 0, 2, __VA_ARGS__)        \
+  X(kernel, 144, 0, 0, 2, __VA_ARGS__)        \
+  X(kernel, 152, 0, 0, 2, __VA_ARGS__)        \
+  X(kernel, 160, 0, 0, 2, __VA_ARGS__)        \
+  X(kernel, 168, 64, 2, 2, __VA_ARGS__)       \
+  X(kernel, 176, 64, 3, 2, __VA_ARGS__)       \
+  X(kernel, 184, 64, 3, 2, __VA_ARGS__)
+// This source's kernels and its entries' names (header).
+#ifdef QV_WGK_W
+#define QV_WGK_TU_CASES(X, kernel, ...) \
+  QV_WGK_WINDOWED_CASES(X, kernel, __VA_ARGS__)
+#define QV_WGK_NAME(name) name##_w
+#else
+#define QV_WGK_TU_CASES(X, kernel, ...) QV_WGK_CASES(X, kernel, __VA_ARGS__)
+#define QV_WGK_NAME(name) name
+#endif
+#define QV_WGK_MATCH(NL_, C0_, S_, RW_) \
+  (nl == NL_ && chunk == C0_ && (C0_ == 0 || seg == S_) && rows == RW_)
+#define QV_WGK_LAUNCH(kernel, NL_, C0_, S_, RW_, ...) \
+  if (QV_WGK_MATCH(NL_, C0_, S_, RW_))                \
+    return qv_wgk_launch(kernel<NL_, C0_, S_, RW_>, __VA_ARGS__);
+#define QV_WGK_CHECK(up, cluster, stages, seg, chunk, rows)               \
   if (stages < 2 || stages > QV_WG_MAX_STAGES || seg < 1 ||               \
       cluster < 1 || cluster > QV_WGK_MAX_CLUSTER || up % cluster != 0 || \
-      chunk < 0 || (chunk > 0 && seg > stages) || shared < 0 ||           \
-      shared > 1)                                                         \
+      chunk < 0 || (chunk > 0 && seg > stages) || rows < 0 || rows > 2)   \
     return (int)cudaErrorInvalidValue;                                    \
   const int nl = up / cluster;
 #define QV_WGK_DISPATCH(kernel, ...)                  \
-  QV_WGK_CASES(QV_WGK_LAUNCH, kernel, __VA_ARGS__)   \
+  QV_WGK_TU_CASES(QV_WGK_LAUNCH, kernel, __VA_ARGS__) \
   return (int)cudaErrorInvalidValue;
 
 // The C entries: encode_stream_wgx.cu's with the cluster's CTAs, the
 // promoted segment's k-steps and the first chunk's columns (0: none) in
-// place of the chunk width, then the rows (shared 1: in the activation
-// rows); kernel B's here, kernel C's in encode_stream_wgk_c.cu.
-#define QV_WGK_COUNT(kernel, NL_, C0_, S_, SH_, ranks, smem, clusters) \
-  if (QV_WGK_MATCH(NL_, C0_, S_, SH_))                                  \
-    return qv_wgk_clusters(kernel<NL_, C0_, S_, (SH_ != 0)>, ranks, smem, \
-                           clusters);
-#define QV_WGK_COUNT_CHECK(up, cluster, shared)                        \
-  *clusters = 0;                                                       \
+// place of the chunk width, then the rows (0 separate, 1 shared: in the
+// activation rows, 2 windowed: the _w entries); kernel B's here, kernel
+// C's in encode_stream_wgk_c.cu.
+#define QV_WGK_COUNT(kernel, NL_, C0_, S_, RW_, ranks, smem, clusters) \
+  if (QV_WGK_MATCH(NL_, C0_, S_, RW_))                                  \
+    return qv_wgk_clusters(kernel<NL_, C0_, S_, RW_>, ranks, smem, clusters);
+#define QV_WGK_COUNT_CHECK(up, cluster, rows)                             \
+  *clusters = 0;                                                          \
   if (cluster < 1 || cluster > QV_WGK_MAX_CLUSTER || up % cluster != 0 || \
-      shared < 0 || shared > 1)                                        \
-    return (int)cudaErrorInvalidValue;                                 \
+      rows < 0 || rows > 2)                                               \
+    return (int)cudaErrorInvalidValue;                                    \
   const int nl = up / cluster;
 
 // Clusters of kernel C at this plan that the card holds at once, into
-// *clusters; returns the CUDA error (encode_stream_wgk_c.cu).
-extern "C" int qv_encode_wgk_clusters_q1(int up, int cluster, int seg,
-                                         int chunk, int shared,
-                                         long long smem_bytes,
-                                         int* clusters);
+// *clusters; returns the CUDA error (encode_stream_wgk_c.cu, the windowed
+// plans' encode_stream_wgk_wc.cu).
+extern "C" int QV_WGK_NAME(qv_encode_wgk_clusters_q1)(int up, int cluster,
+                                                      int seg, int chunk,
+                                                      int rows,
+                                                      long long smem_bytes,
+                                                      int* clusters);
 
 #ifndef QV_WGK_C
-extern "C" int qv_encode_quad_wgk(
+extern "C" int QV_WGK_NAME(qv_encode_quad_wgk)(
     const float* x, long long n, int t_in, int channel_major,
     int mask_channel, int se_idx, int multi_image, int act, int up, int nb,
     const float* blob, const float* image, QvRanges r, float* means,
     float* vars, float* raw, int mvg, int stages, int cluster, int seg,
-    int chunk, int shared, int block, long long smem_bytes, void* stream) {
-  QV_WGK_CHECK(up, cluster, stages, seg, chunk, shared)
+    int chunk, int rows, int block, long long smem_bytes, void* stream) {
+  QV_WGK_CHECK(up, cluster, stages, seg, chunk, rows)
   QV_WGK_DISPATCH(qv_encode_quad_wgk_kernel, cluster, n, block, smem_bytes,
                   stream, x, n, t_in, channel_major, mask_channel, se_idx,
                   multi_image, act, nb, blob, image, up, mvg, r, stages, seg,
                   means, vars, raw)
 }
 
+#ifndef QV_WGK_W
+// The windowed plans' count (encode_stream_wgk_w.cu).
+extern "C" int qv_encode_wgk_clusters_w(int up, int cluster, int seg,
+                                        int chunk, int rows, int quad,
+                                        long long smem_bytes, int* clusters);
+#endif
+
 // Clusters of kernel B (quad) or C at this plan that the card holds at
 // once, into *clusters; returns the CUDA error.
-extern "C" int qv_encode_wgk_clusters(int up, int cluster, int seg,
-                                      int chunk, int shared, int quad,
-                                      long long smem_bytes, int* clusters) {
+extern "C" int QV_WGK_NAME(qv_encode_wgk_clusters)(int up, int cluster,
+                                                   int seg, int chunk,
+                                                   int rows, int quad,
+                                                   long long smem_bytes,
+                                                   int* clusters) {
+#ifndef QV_WGK_W
+  if (rows == 2)
+    return qv_encode_wgk_clusters_w(up, cluster, seg, chunk, rows, quad,
+                                    smem_bytes, clusters);
+#endif
   if (!quad)
-    return qv_encode_wgk_clusters_q1(up, cluster, seg, chunk, shared,
-                                     smem_bytes, clusters);
-  QV_WGK_COUNT_CHECK(up, cluster, shared)
-  QV_WGK_CASES(QV_WGK_COUNT, qv_encode_quad_wgk_kernel, cluster, smem_bytes,
-               clusters)
+    return QV_WGK_NAME(qv_encode_wgk_clusters_q1)(up, cluster, seg, chunk,
+                                                  rows, smem_bytes, clusters);
+  QV_WGK_COUNT_CHECK(up, cluster, rows)
+  QV_WGK_TU_CASES(QV_WGK_COUNT, qv_encode_quad_wgk_kernel, cluster,
+                  smem_bytes, clusters)
   return (int)cudaErrorInvalidValue;
 }
 #else
-extern "C" int qv_encode_q1_wgk(const float* x, long long n, int t_in,
-                                int channel_major, int mask_channel,
-                                int se_idx, int multi_image, int act, int up,
-                                int nb, const float* blob, const float* image,
-                                float* q, int stages, int cluster, int seg,
-                                int chunk, int shared, int block,
-                                long long smem_bytes, void* stream) {
-  QV_WGK_CHECK(up, cluster, stages, seg, chunk, shared)
+extern "C" int QV_WGK_NAME(qv_encode_q1_wgk)(
+    const float* x, long long n, int t_in, int channel_major,
+    int mask_channel, int se_idx, int multi_image, int act, int up, int nb,
+    const float* blob, const float* image, float* q, int stages, int cluster,
+    int seg, int chunk, int rows, int block, long long smem_bytes,
+    void* stream) {
+  QV_WGK_CHECK(up, cluster, stages, seg, chunk, rows)
   QV_WGK_DISPATCH(qv_encode_q_wgk_kernel, cluster, n, block, smem_bytes,
                   stream, x, n, t_in, channel_major, mask_channel, se_idx,
                   multi_image, act, nb, blob, image, up, stages, seg, q)
 }
 
-extern "C" int qv_encode_wgk_clusters_q1(int up, int cluster, int seg,
-                                         int chunk, int shared,
-                                         long long smem_bytes,
-                                         int* clusters) {
-  QV_WGK_COUNT_CHECK(up, cluster, shared)
-  QV_WGK_CASES(QV_WGK_COUNT, qv_encode_q_wgk_kernel, cluster, smem_bytes,
-               clusters)
+extern "C" int QV_WGK_NAME(qv_encode_wgk_clusters_q1)(int up, int cluster,
+                                                      int seg, int chunk,
+                                                      int rows,
+                                                      long long smem_bytes,
+                                                      int* clusters) {
+  QV_WGK_COUNT_CHECK(up, cluster, rows)
+  QV_WGK_TU_CASES(QV_WGK_COUNT, qv_encode_q_wgk_kernel, cluster, smem_bytes,
+                  clusters)
   return (int)cudaErrorInvalidValue;
 }
 #endif

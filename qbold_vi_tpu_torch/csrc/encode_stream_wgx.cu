@@ -4,7 +4,7 @@
 // encode_stream_wg.cu's block with each layer's output columns split
 // between its two consumer warpgroups, which share a pass of 64 voxels.
 //
-// It replaces the same TPU kernels as encode_quad.cu and encode_stream.cu
+// It replaces the same TPU kernels as encode_quad.cu and encode_stream.cuh
 // (qbold_vi_tpu/ops/pallas_infer.py::encode_quad_fused, pallas_call at :353,
 // and encode_q1_packed, at :246) and computes what they compute: the
 // normalised log signal, the dense chain in 3xTF32 (float32-accurate),
@@ -13,18 +13,18 @@
 // it for the float32 trunk at Up 448-768 wherever its block fits;
 // encode_stream_wgk.cu's cluster of such blocks serves 832-1472 (at 832
 // this block fits only in 16-column pieces, which ran 2.9-3.1x slower on
-// the H100; at 896 its activation rows alone exceed the card's 232,448 B)
-// and encode_stream.cu where a staged row of many taus is wider than the
-// block's activation row (a narrower one shares the activation rows, SH).
+// the H100; at 896 its activation rows alone exceed the card's 232,448 B).
+// On many taus the staged rows share the activation rows (RW 1), a window
+// at a time where a row is wider than an activation row (RW 2).
 //
 // Bound: at 448 units x 1 block the 3xTF32 products take 2.60 ms of a
 // 1.03 M-voxel request at the dense TF32 peak; the request's bytes 0.026
 // ms. A design adds the weights' reads from L2: every pass of V voxels
 // reads all the trunk's weights (hi and lo), 1.73 MB at 448 x 1, ~27.9 GB a
-// request at V = 64 and twice that at the 32 voxels a pass of
-// encode_stream.cu's plan there (two activation buffers of 64 voxels do
-// not fit), which also ran every layer as two chunks of 256 outputs on
-// mma.sync.
+// request at V = 64 and twice that at the 32 voxels a pass of the
+// float32 streamed plan there (retired; two activation buffers of 64
+// voxels do not fit), which also ran every layer as two chunks of 256
+// outputs on mma.sync.
 //
 // Design. encode_stream_wg.cu's block -- two consumer warpgroups, a
 // producer warpgroup that fills a ring of slabs by cp.async.bulk with full
@@ -54,14 +54,26 @@
 //   while warpgroup 1 stages the next pass's rows (16 a warp, the next
 //   round's first pass after a round's last), and the barrier that opens
 //   a pass publishes both.
-// * Or (SH, the plan's shared rows: many taus, where a buffer of 64 staged
-//   rows does not fit beside the block) the staged rows share the
+// * Or (RW 1, the plan's shared rows: many taus, where a buffer of 64
+//   staged rows does not fit beside the block) the staged rows share the
 //   activation rows, in their first 8 ks0 columns: both warpgroups read
 //   them in the first layer, so its epilogue waits on the named barrier as
 //   every later layer's does; warpgroup 1 stages the next pass once the
 //   heads have read the last activations (a barrier more a pass), and the
 //   next round's first pass after the round's quadrature has read its
 //   scratch.
+// * Or (RW 2, the plan's windowed rows: a staged row of 8 ks0 channels
+//   wider than the activation row) the rows are staged a window at a time:
+//   the channels of k-steps k .. k + Up / 8 - 1 in the first Up columns,
+//   before the first layer's k-step k, by every lane of both warpgroups
+//   (warp w of each half of the channels of its rows 16 w .. 16 w + 15,
+//   qv_st_stage_window; a row's reference and mask value computed once a
+//   pass in registers). Both warpgroups read every row, so the
+//   named barrier runs before a window is replaced and after it is
+//   staged; the first window after the pass's opening barrier, which
+//   follows the last heads and the round's quadrature. The outputs are the
+//   shared rows' bit for bit; the block's shared memory does not depend on
+//   the taus.
 // * Rounds of 256 voxels (four passes) then B's quadrature or C's q, as in
 //   encode_stream_wg.cu, on named barrier 1; B's scratch in the activation
 //   rows, idle between a round's last head and its next pass's first
@@ -75,7 +87,8 @@
 // at 512 and 704, slower at 448).
 // Shared memory (ops/fused_infer.py::_wgx_smem, in this order):
 //   mbarriers (QV_WG_BAR_BYTES) | ring stages x 2 x 64 CN bytes |
-//   activations 64 x (Up + 8) floats | rows 64 x SX floats (none with SH)
+//   activations 64 x (Up + 8) floats | rows 64 x SX floats (none with RW
+//   1 or 2)
 //   | heads 5 x 256 floats | [B: node table QV_NCONST; the quadrature's
 //   scratch in the activations]
 // (SX: QvStF32::x_stride of the first layer's k-steps.) The PTX helpers and
@@ -91,8 +104,9 @@
 // ---- the encode -------------------------------------------------------------
 
 // CN: the output columns of a product (Up / (2 CN) chunks a warpgroup);
-// SH: the staged rows in the activation rows (header).
-template <int UP, int CN, bool SH, bool QUAD>
+// RW: the staged rows, 0 a buffer of their own, 1 in the activation rows,
+// 2 there a window at a time (header).
+template <int UP, int CN, int RW, bool QUAD>
 static __device__ __forceinline__ void qv_wgx_body(
     const float* __restrict__ x, long long n, int t_in, int cm, int mask,
     int se, int multi, int act, int nb, const float* __restrict__ blob,
@@ -102,6 +116,8 @@ static __device__ __forceinline__ void qv_wgx_body(
   static_assert(HALF % CN == 0 && CN % 8 == 0 && CN <= 256, "chunk width");
   constexpr int PB = 64 * CN;  // bytes of a piece: a chunk's k-step, hi, lo
   constexpr int SA = UP + 8, PASS = QV_WGX_PASS;
+  constexpr bool SH = RW != 0;  // the rows in the activation rows
+  constexpr int WK = UP / 8;    // k-steps a window
   static_assert(PASS * SA >= QV_QUAD_SCRATCH(QV_ST_ROUND), "scratch");
   extern __shared__ float4 qv_wg_smem[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(qv_wg_smem);
@@ -195,10 +211,15 @@ static __device__ __forceinline__ void qv_wgx_body(
                                se, multi, lo, hi, 8 * ks0);
     }
   };
+  // RW 2: lane l of warp w holds the values of row 16 w + l % 16; warp w
+  // of each warpgroup stages half of the rows' channels
+  const int wr = 16 * warp + (lane & 15);
+  QvStWin win;
   int slot = 0;
   uint32_t phase = 0;
   float acc[HALF / 2];  // chunk c's sums at acc + c CN / 2
-  if (blockIdx.x < rounds) stage((long long)blockIdx.x * QV_ST_ROUND);
+  if (RW != 2 && blockIdx.x < rounds)
+    stage((long long)blockIdx.x * QV_ST_ROUND);
 #pragma unroll 1
   for (long long rnd = blockIdx.x; rnd < rounds; rnd += gridDim.x) {
     const long long v0r = rnd * QV_ST_ROUND;
@@ -213,7 +234,22 @@ static __device__ __forceinline__ void qv_wgx_body(
         const int s_in = l == 0 ? s_x : SA, kl = l == 0 ? ks0 : ksh;
 #pragma unroll 1
         for (int k = 0; k < kl; ++k) {
-          const QvStF32::A a = QvStF32::load_a(in, s_in, 16 * warp, k, g, t);
+          // RW 2: the window of k-steps kw .. kw + WK - 1 that holds k-step
+          // k, staged at its first once both warpgroups have read the last
+          const int kw = RW == 2 && l == 0 ? k - k % WK : 0;
+          if (RW == 2 && l == 0 && kw == k) {
+            if (k == 0)
+              win = qv_st_win_row(x, n, v0r + p * PASS + wr, t_in, cm, mask,
+                                  T, se, multi, lo, hi);
+            else
+              both.sync();
+            qv_st_stage_window<8 * WK, 2>(
+                reinterpret_cast<float*>(act_u), SA, 16 * warp, wg, win, x, n,
+                t_in, cm, mask, T, 8 * k, min(8 * WK, 8 * (ks0 - k)));
+            both.sync();
+          }
+          const QvStF32::A a =
+              QvStF32::load_a(in, s_in, 16 * warp, k - kw, g, t);
           // the k-step's chunks, each from its own slot into its own sums
           // (the same A registers), from this warpgroup's piece
 #pragma unroll
@@ -259,7 +295,7 @@ static __device__ __forceinline__ void qv_wgx_body(
         else if (next < rounds)
           stage(next * QV_ST_ROUND);
       }
-      if (SH && p + 1 < passes) {
+      if (RW == 1 && p + 1 < passes) {
         both.sync();  // the heads have read the activations
         stage(v0r + (p + 1) * PASS);
       }
@@ -271,43 +307,42 @@ static __device__ __forceinline__ void qv_wgx_body(
     else
       qv_st_write_q(hq, n, v0r, o0);
     both.sync();  // the heads and the scratch are read
-    if (SH && rnd + gridDim.x < rounds) stage((rnd + gridDim.x) * QV_ST_ROUND);
+    if (RW == 1 && rnd + gridDim.x < rounds)
+      stage((rnd + gridDim.x) * QV_ST_ROUND);
   }
 }
 
 // Kernels B and C, one symbol each (the profile and the SASS tell them
 // from the other designs').
-template <int UP, int CN, bool SH>
+template <int UP, int CN, int RW>
 __global__ void __launch_bounds__(QV_WG_THREADS, 1)
     qv_encode_quad_wgx_kernel(QV_WG_ARGS, int mvg, QvRanges r, int stages,
                               float* __restrict__ means,
                               float* __restrict__ vars,
                               float* __restrict__ raw) {
-  qv_wgx_body<UP, CN, SH, true>(x, n, t_in, cm, mask, se, multi, act, nb,
+  qv_wgx_body<UP, CN, RW, true>(x, n, t_in, cm, mask, se, multi, act, nb,
                                 blob, image, mvg, r, stages, means, vars,
                                 raw);
 }
 
-template <int UP, int CN, bool SH>
+template <int UP, int CN, int RW>
 __global__ void __launch_bounds__(QV_WG_THREADS, 1)
     qv_encode_q_wgx_kernel(QV_WG_ARGS, int stages, float* __restrict__ q) {
-  qv_wgx_body<UP, CN, SH, false>(x, n, t_in, cm, mask, se, multi, act, nb,
+  qv_wgx_body<UP, CN, RW, false>(x, n, t_in, cm, mask, se, multi, act, nb,
                                  blob, image, 0, QvRanges{}, stages, q,
                                  nullptr, nullptr);
 }
 
-// kernel<Up, CN, SH> for the plan's chunks and rows (the CN of each Up that
-// ops/fused_infer.py::_WGX_SLABS gives; shared rows at every width, where
-// many taus leave no room for rows of their own).
-#define QV_WGX_CASE(kernel, UP_, CN_, SH_, ...)                   \
-  case (UP_ * 512 + CN_) * 2 + SH_:                               \
-    return qv_st_launch(kernel<UP_, CN_, (SH_ != 0)>, QV_WG_THREADS, \
-                        __VA_ARGS__);
-#define QV_WGX_DISPATCH(kernel, up, cn, stages, shared, ...) \
-  if (stages < 2 || stages > QV_WG_MAX_STAGES || shared < 0 ||  \
-      shared > 1)                                              \
-    return (int)cudaErrorInvalidValue;                         \
-  switch ((up * 512 + cn) * 2 + shared) {                      \
+// kernel<Up, CN, RW> for the plan's chunks and rows (the CN of each Up that
+// ops/fused_infer.py::_WGX_SLABS gives; shared and windowed rows at every
+// width, where many taus leave no room for rows of their own).
+#define QV_WGX_CASE(kernel, UP_, CN_, RW_, ...) \
+  case (UP_ * 512 + CN_) * 4 + RW_:             \
+    return qv_st_launch(kernel<UP_, CN_, RW_>, QV_WG_THREADS, __VA_ARGS__);
+#define QV_WGX_DISPATCH(kernel, up, cn, stages, rows, ...)             \
+  if (stages < 2 || stages > QV_WG_MAX_STAGES || rows < 0 || rows > 2) \
+    return (int)cudaErrorInvalidValue;                                 \
+  switch ((up * 512 + cn) * 4 + rows) {                                \
     QV_WGX_CASE(kernel, 448, 224, 0, __VA_ARGS__)              \
     QV_WGX_CASE(kernel, 512, 128, 0, __VA_ARGS__)              \
     QV_WGX_CASE(kernel, 576, 144, 0, __VA_ARGS__)              \
@@ -320,21 +355,28 @@ __global__ void __launch_bounds__(QV_WG_THREADS, 1)
     QV_WGX_CASE(kernel, 640, 160, 1, __VA_ARGS__)              \
     QV_WGX_CASE(kernel, 704, 88, 1, __VA_ARGS__)               \
     QV_WGX_CASE(kernel, 768, 64, 1, __VA_ARGS__)               \
+    QV_WGX_CASE(kernel, 448, 224, 2, __VA_ARGS__)              \
+    QV_WGX_CASE(kernel, 512, 128, 2, __VA_ARGS__)              \
+    QV_WGX_CASE(kernel, 576, 144, 2, __VA_ARGS__)              \
+    QV_WGX_CASE(kernel, 640, 160, 2, __VA_ARGS__)              \
+    QV_WGX_CASE(kernel, 704, 88, 2, __VA_ARGS__)               \
+    QV_WGX_CASE(kernel, 768, 64, 2, __VA_ARGS__)               \
     default:                                                   \
       return (int)cudaErrorInvalidValue;                       \
   }
 
 // The C entries: encode_stream_wg.cu's with the chunk width cn in place of
-// the slab's k-steps (a slab is one k-step), then the rows (shared 1: in
-// the activation rows); kernel B's here, kernel C's in encode_stream_wgx_c.cu.
+// the slab's k-steps (a slab is one k-step), then the rows (0 separate, 1
+// shared: in the activation rows, 2 windowed); kernel B's here, kernel C's
+// in encode_stream_wgx_c.cu.
 #ifndef QV_WGX_C
 extern "C" int qv_encode_quad_wgx(
     const float* x, long long n, int t_in, int channel_major,
     int mask_channel, int se_idx, int multi_image, int act, int up, int nb,
     const float* blob, const float* image, QvRanges r, float* means,
-    float* vars, float* raw, int mvg, int stages, int cn, int shared,
+    float* vars, float* raw, int mvg, int stages, int cn, int rows,
     int block, long long smem_bytes, void* stream) {
-  QV_WGX_DISPATCH(qv_encode_quad_wgx_kernel, up, cn, stages, shared, n,
+  QV_WGX_DISPATCH(qv_encode_quad_wgx_kernel, up, cn, stages, rows, n,
                   block, smem_bytes, stream, x, n, t_in, channel_major,
                   mask_channel, se_idx, multi_image, act, nb, blob, image,
                   mvg, r, stages, means, vars, raw)
@@ -344,10 +386,10 @@ extern "C" int qv_encode_q1_wgx(const float* x, long long n, int t_in,
                                 int channel_major, int mask_channel,
                                 int se_idx, int multi_image, int act, int up,
                                 int nb, const float* blob, const float* image,
-                                float* q, int stages, int cn, int shared,
+                                float* q, int stages, int cn, int rows,
                                 int block, long long smem_bytes,
                                 void* stream) {
-  QV_WGX_DISPATCH(qv_encode_q_wgx_kernel, up, cn, stages, shared, n, block,
+  QV_WGX_DISPATCH(qv_encode_q_wgx_kernel, up, cn, stages, rows, n, block,
                   smem_bytes, stream, x, n, t_in, channel_major,
                   mask_channel, se_idx, multi_image, act, nb, blob, image,
                   stages, q)

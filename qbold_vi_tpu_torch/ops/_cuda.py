@@ -48,11 +48,12 @@ __all__ = ["library", "build_log", "check", "quad_consts", "quad_ranges",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("quadrature.cu", "encode_quad.cu", "encode_quad_bf16.cu",
-           "encode_stream.cu", "encode_stream_bf16.cu",
-           "encode_stream_wg.cu", "encode_stream_wgc.cu",
-           "encode_stream_wgx.cu", "encode_stream_wgx_c.cu",
-           "encode_stream_wgk.cu", "encode_stream_wgk_c.cu", "decode_nll.cu",
-           "fused_elbo.cu", "summarize.cu", "conv3x3.cu", "synth_batch.cu")
+           "encode_stream_bf16.cu", "encode_stream_wg.cu",
+           "encode_stream_wgc.cu", "encode_stream_wgx.cu",
+           "encode_stream_wgx_c.cu", "encode_stream_wgk.cu",
+           "encode_stream_wgk_c.cu", "encode_stream_wgk_w.cu",
+           "encode_stream_wgk_wc.cu", "decode_nll.cu", "fused_elbo.cu",
+           "summarize.cu", "conv3x3.cu", "synth_batch.cu")
 HEADERS = ("quad_math.cuh", "elbo_math.cuh", "mma_math.cuh",
            "encode_act.cuh", "encode_stream.cuh", "encode_stream_wg.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -126,12 +127,6 @@ _SIGNATURES = {
         _P, _P, _P, _I, _I, _LL, _P],
     "qv_encode_q1_bf16": [
         _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _LL, _P],
-    "qv_encode_quad_stream": [
-        _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, QvRanges, _P, _P, _P,
-        _I, _I, _I, _I, _I, _LL, _P],
-    "qv_encode_q1_stream": [
-        _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I,
-        _LL, _P],
     "qv_encode_quad_wg": [
         _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, QvRanges, _P, _P,
         _P, _I, _I, _I, _I, _I, _LL, _P],
@@ -140,10 +135,10 @@ _SIGNATURES = {
         _LL, _P],
     "qv_encode_quad_wgc": [
         _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, QvRanges, _P, _P,
-        _P, _I, _I, _I, _I, _I, _LL, _P],
+        _P, _I, _I, _I, _I, _I, _I, _LL, _P],
     "qv_encode_q1_wgc": [
         _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I,
-        _LL, _P],
+        _I, _LL, _P],
     "qv_encode_quad_wgx": [
         _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, QvRanges, _P, _P,
         _P, _I, _I, _I, _I, _I, _LL, _P],
@@ -158,6 +153,12 @@ _SIGNATURES = {
         _I, _I, _LL, _P],
     "qv_encode_wgk_clusters": [
         _I, _I, _I, _I, _I, _I, _LL, ctypes.POINTER(ctypes.c_int)],
+    "qv_encode_quad_wgk_w": [
+        _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, QvRanges, _P, _P,
+        _P, _I, _I, _I, _I, _I, _I, _I, _LL, _P],
+    "qv_encode_q1_wgk_w": [
+        _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+        _I, _I, _LL, _P],
     "qv_encode_quad_stream_bf16": [
         _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, QvRanges, _P, _P, _P,
         _I, _I, _I, _I, _I, _LL, _P],

@@ -39,12 +39,13 @@ share of every layer's columns (past 160 a block, in two output chunks)
 and reading the others' through distributed shared memory
 (``.cluster_launches``). On dense tau scans, where a buffer of staged
 input rows does not fit beside the wgmma, split or cluster block, the
-block stages them in its activation rows (``LaunchPlan.rows``). The
-streamed kernels of csrc/encode_stream.cuh serve everywhere else (float32
-where a staged row is wider than the block's activation row, bf16 past
-128 units or where its blob does not fit), which stream the blob itself
-through shared memory a slab at a time (``.stream_launches`` and
-``.stream_bf16_launches``).
+block stages them in its activation rows, and where a staged row is wider
+than an activation row, there a window of the first layer's k-steps at a
+time (``LaunchPlan.rows``), so every float32 shape up to a padded width
+of 1472 runs at any tau count. The bf16 trunk takes the streamed kernels
+of csrc/encode_stream.cuh past 128 units or where its blob does not fit,
+which stream the blob itself through shared memory a slab at a time
+(``.stream_bf16_launches``).
 ``encode_q1_packed`` is the wrapper of kernel C, which shares B's encode
 routine and writes the raw head ``q (5, N)`` for the MC summaries
 (ops/summarize.py); its plain version is ``encode_q_plain``.
@@ -155,17 +156,28 @@ _WGK_PLANS = {**{up: ((8, 2, 8, 0),) for up in range(832, 1281, 64)},
               1472: ((8, 6, 3, 64), (8, 4, 2, 64))}
 # where the wgmma, split and cluster designs stage a pass's input rows, in
 # the order launch_plan tries them: a buffer of their own, then (many taus)
-# the first columns of the activation rows; the shared-rows kernels
-# compiled: the wgmma design's at these padded widths (QV_WG_DISPATCH, the
-# first slab of _WG_SLABS), the split design's at every width of
-# _WGX_SLABS (QV_WGX_DISPATCH), the cluster design's at these (columns a
-# block, first chunk, segment) (csrc/encode_stream_wgk.cu::
+# the first columns of the activation rows, then (a staged row wider than
+# an activation row) there a window of the first layer's k-steps at a time;
+# the chunked design's rows are always in its activation rows ("separate",
+# its one layout of old), windowed where a row is wider. The shared-rows
+# kernels compiled: the wgmma design's at these padded widths
+# (QV_WG_DISPATCH, the first slab of _WG_SLABS), the split design's at
+# every width of _WGX_SLABS (QV_WGX_DISPATCH), the cluster design's at
+# these (columns a block, first chunk, segment) (csrc/encode_stream_wgk.cu::
 # QV_WGK_SHARED_CASES): the plans whose staged rows of some tau count fit
-# in an activation row but not beside the block at the H100's 232,448 B
-_ROWS = ("separate", "shared")
+# in an activation row but not beside the block at the H100's 232,448 B.
+# The windowed kernels compiled: the wgmma design's at every width's first
+# slab, the chunked and split designs' at every width, the cluster design's
+# at every width's first plan (QV_WGK_WINDOWED_CASES): the plans that some
+# tau count up to 1024 reaches at the H100's limit (a windowed block's
+# bytes are the shared-rows block's, whatever the taus)
+_ROWS = ("separate", "shared", "windowed")
+_ROW_CODES = {"separate": 0, "shared": 1, "windowed": 2}
 _WG_SHARED = (192, 256)
 _WGX_SHARED = tuple(_WGX_SLABS)
 _WGK_SHARED = ((160, 0, 0), (168, 64, 2), (176, 64, 3), (184, 64, 3))
+_WGK_WINDOWED = tuple((up // c, chunk, seg if chunk else 0)
+                      for up, ((c, _, seg, chunk), *_) in _WGK_PLANS.items())
 
 
 def fused_infer_available(activation: str) -> bool:
@@ -466,14 +478,16 @@ class LaunchPlan:
     ``cluster`` of every layer's columns, slabs of one k-step, the sums
     promoted every ``seg`` k-steps; past 160 columns a block, those in two
     output chunks of ``chunk`` and ``cn - chunk`` columns) or "streamed"
-    (csrc/encode_stream.cuh: ``mt`` m-tiles -- 16 mt voxels a pass -- and
-    ``ncw`` n-tiles a warp, slabs of ``ks`` k-steps, double-buffered),
-    with the block's ``threads`` and dynamic shared-memory bytes
-    ``smem``. ``rows`` is where the wgmma, split and cluster designs stage
-    a pass's input rows: "separate" (a buffer of their own) or "shared"
-    (in the first columns of the activation rows, where many taus leave
-    no room for that buffer; the chunked design's rows are always
-    there)."""
+    (bf16, csrc/encode_stream.cuh: ``mt`` m-tiles -- 16 mt voxels a pass
+    -- and ``ncw`` n-tiles a warp, slabs of ``ks`` k-steps,
+    double-buffered), with the block's ``threads`` and dynamic
+    shared-memory bytes ``smem``. ``rows`` is where the wgmma, split and
+    cluster designs stage a pass's input rows: "separate" (a buffer of
+    their own), "shared" (in the first columns of the activation rows,
+    where many taus leave no room for that buffer) or "windowed" (there,
+    a window of the first layer's k-steps at a time, where a staged row
+    is wider than an activation row); the chunked design's rows are
+    always in its activation rows, "separate" (whole) or "windowed"."""
 
     design: str
     threads: int
@@ -533,8 +547,10 @@ def _wg_smem(up: int, t: int, quad: bool, stages: int, ks: int,
     (chunks of ``cn`` columns): the ring's mbarriers, ``stages`` slots of
     ``ks`` k-steps (64 up bytes each, 64 cn chunked), the activation rows
     of a pass, its staged rows (chunked or ``shared``: in the activation
-    rows), the round's heads and, in B, the node table and the
-    quadrature's scratch (in the activation rows where it fits)."""
+    rows, whole or windowed; then no byte depends on ``t``), the round's
+    heads and, in B, the node table and the quadrature's scratch (in the
+    activation rows where it fits). A windowed row's reference and mask
+    value stay in the staging lanes' registers."""
     act = _WG_PASS * (up + 8)
     rows = 0 if cn or shared else _WG_PASS * _xs_stride(t)
     words = act + rows + 5 * _ST_ROUND
@@ -549,9 +565,9 @@ def _wgx_smem(up: int, t: int, quad: bool, stages: int, cn: int,
     """Shared-memory bytes of the split wgmma kernels, in the layout of
     csrc/encode_stream_wgx.cu: the ring's mbarriers, ``stages`` slots of
     two pieces of 64 ``cn`` bytes, the activation rows and the staged rows
-    (``shared``: none, they are in the activation rows) of a pass of 64
-    voxels, the round's heads and, in B, the node table (the quadrature's
-    scratch in the activation rows)."""
+    (``shared``: none, they are in the activation rows, whole or windowed)
+    of a pass of 64 voxels, the round's heads and, in B, the node table
+    (the quadrature's scratch in the activation rows)."""
     rows = 0 if shared else _xs_stride(t)
     words = _WGX_PASS * (up + 8 + rows) + 5 * _ST_ROUND
     if quad:
@@ -572,9 +588,9 @@ def _wgk_smem(up: int, t: int, quad: bool, stages: int,
     layout of csrc/encode_stream_wgk.cu: its mbarriers, ``stages`` slots of
     one k-step of its Up / ``cluster`` columns (64 bytes a column), those
     columns' activation rows and every staged row of a pass of 128 voxels
-    (``shared``: in the activation rows), the partial heads of ``cluster``
-    blocks for a round of 256 voxels and, in B, the node table (the
-    quadrature's scratch in the activation rows)."""
+    (``shared``: in the activation rows, whole or windowed), the partial
+    heads of ``cluster`` blocks for a round of 256 voxels and, in B, the
+    node table (the quadrature's scratch in the activation rows)."""
     cn = up // cluster
     rows = 0 if shared else _xs_stride(t)
     words = (_WGK_PASS * (_wgk_stride(cn) + rows)
@@ -591,6 +607,17 @@ def _fits_row(t: int, columns: int) -> bool:
     return -(-t // 8) * 8 <= columns
 
 
+def _may_stage(rows: str, t: int, columns: int, shared: bool,
+               windowed: bool = True) -> bool:
+    """Whether launch_plan tries a plan with these staged ``rows``: a
+    buffer of their own always; in the activation rows of ``columns``
+    where the build compiles the plan so (``shared``, ``windowed``) and,
+    whole, a staged row of ``t`` taus fits in them."""
+    if rows == "shared":
+        return shared and _fits_row(t, columns)
+    return rows == "separate" or windowed
+
+
 def launch_plan(up: int, nb: int, t: int, t_in: int, trunk: str,
                 quad: bool, limit: int) -> LaunchPlan:
     """The launch of kernel B (``quad``) or C at padded width ``up``, ``nb``
@@ -599,18 +626,19 @@ def launch_plan(up: int, nb: int, t: int, t_in: int, trunk: str,
     resident design wherever its blob fits (in float32 beside the staged
     rows of the most warps that fit); else, in float32 at ``up`` <= 256,
     the wgmma design's smallest ring if it fits; in float32 at ``up`` 320
-    and 384 the chunked design in two slots if it fits (the staged rows
-    must fit in an activation row); in float32 at the ``up`` of
-    ``_WGK_PLANS`` (832-1472) the cluster design in the first of its plans
-    that fits;
-    in float32 at ``up`` 448-768 the split design in its ring
-    (``_WGX_SLABS``) if it fits; else the streamed design with the largest
-    pass of voxels, then the largest slab, that fits. Raises if none
-    fits. The wgmma, split and cluster designs try their plans with
+    and 384 the chunked design in two slots if it fits (windowed where a
+    staged row is wider than an activation row); in float32 at the ``up``
+    of ``_WGK_PLANS`` (832-1472) the cluster design in the first of its
+    plans that fits; in float32 at ``up`` 448-768 the split design in its
+    ring (``_WGX_SLABS``) if it fits; in bf16 the streamed design with the
+    largest pass of voxels, then the largest slab, that fits. Raises if
+    none fits. The wgmma, split and cluster designs try their plans with
     separate staged rows first, then (where the build compiles it,
     ``_WG_SHARED``, ``_WGX_SHARED``, ``_WGK_SHARED``, and a staged row fits
-    in an activation row of the block's columns) with shared rows, before
-    the next design."""
+    in an activation row of the block's columns) with shared rows, then
+    windowed (the cluster design where the build compiles it,
+    ``_WGK_WINDOWED``), before the next design; the bytes of a block with
+    shared or windowed rows do not depend on ``t``."""
     _check_trunk(trunk)
     scratch = _quad_scratch_floats if quad else (lambda threads: 0)
     blob = _blob_floats(up, nb, t, trunk)
@@ -630,29 +658,29 @@ def launch_plan(up: int, nb: int, t: int, t_in: int, trunk: str,
     if trunk == "float32" and up in _WG_SLABS:
         ks, stages = _WG_SLABS[up][0], _WG_STAGES[0]
         for rows in _ROWS:
-            if rows == "shared" and not (up in _WG_SHARED
-                                         and _fits_row(t, up)):
+            if not _may_stage(rows, t, up, up in _WG_SHARED):
                 continue
             smem = _wg_smem(up, t, quad, stages, ks,
-                            shared=rows == "shared")
+                            shared=rows != "separate")
             if smem <= limit:
                 return LaunchPlan("wgmma", _WG_THREADS, smem, ks=ks,
                                   stages=stages, rows=rows)
-    if trunk == "float32" and up in _WGC_SLABS and -(-t // 8) * 8 <= up:
+    if trunk == "float32" and up in _WGC_SLABS:
         cn, ks = _WGC_SLABS[up]
+        rows = "separate" if _fits_row(t, up) else "windowed"
         smem = _wg_smem(up, t, quad, _WG_STAGES[0], ks, cn)
-        if smem <= limit:
+        if smem <= limit and rows in _ROWS:
             return LaunchPlan("chunked", _WG_THREADS, smem, ks=ks,
-                              stages=_WG_STAGES[0], cn=cn)
+                              stages=_WG_STAGES[0], cn=cn, rows=rows)
     for rows in _ROWS:
         for cluster, stages, seg, chunk in (
                 _WGK_PLANS.get(up, ()) if trunk == "float32" else ()):
-            if rows == "shared" and not (
-                    (up // cluster, chunk, seg if chunk else 0)
-                    in _WGK_SHARED and _fits_row(t, up // cluster)):
+            key = (up // cluster, chunk, seg if chunk else 0)
+            if not _may_stage(rows, t, up // cluster, key in _WGK_SHARED,
+                              key in _WGK_WINDOWED):
                 continue
             smem = _wgk_smem(up, t, quad, stages, cluster,
-                             shared=rows == "shared")
+                             shared=rows != "separate")
             if smem <= limit:
                 return LaunchPlan("cluster", _WG_THREADS, smem, ks=1,
                                   stages=stages, cn=up // cluster,
@@ -661,14 +689,18 @@ def launch_plan(up: int, nb: int, t: int, t_in: int, trunk: str,
     if trunk == "float32" and up in _WGX_SLABS:
         cn, stages = _WGX_SLABS[up]
         for rows in _ROWS:
-            if rows == "shared" and not (up in _WGX_SHARED
-                                         and _fits_row(t, up)):
+            if not _may_stage(rows, t, up, up in _WGX_SHARED):
                 continue
             smem = _wgx_smem(up, t, quad, stages, cn,
-                             shared=rows == "shared")
+                             shared=rows != "separate")
             if smem <= limit:
                 return LaunchPlan("split", _WG_THREADS, smem, ks=1,
                                   stages=stages, cn=cn, rows=rows)
+    if trunk == "float32":
+        raise ValueError(
+            f"fused-infer kernel: no launch fits {limit} B of shared memory "
+            f"at {up} units (padded), {nb} blocks, T={t} in float32: no "
+            f"wgmma design's block fits (the widest is {max(_WGK_PLANS)})")
     for mt in _ST_TILES[_st_ncw(up)]:
         for ks in _st_slabs(up, trunk):
             smem = _st_smem(up, t, trunk, quad, mt, ks)
@@ -757,27 +789,30 @@ def _launch_bc(lib, plan: LaunchPlan, quad: bool, trunk: str, args,
         return _entry(name, trunk, lib)(
             *args, up, nb, blob.data_ptr(), *tail, plan.mt, plan.ncw,
             plan.ks, *size)
-    knobs = {"wgmma": (plan.stages, plan.ks, _shared(plan)),
-             "chunked": (plan.stages, plan.ks, plan.cn),
-             "split": (plan.stages, plan.cn, _shared(plan)),
+    rows = _ROW_CODES[plan.rows]
+    knobs = {"wgmma": (plan.stages, plan.ks, rows),
+             "chunked": (plan.stages, plan.ks, plan.cn, int(rows == 2)),
+             "split": (plan.stages, plan.cn, rows),
              "cluster": (plan.stages, plan.cluster, plan.seg, plan.chunk,
-                         _shared(plan))}[plan.design]
+                         rows)}[plan.design]
     image = _wg_image_of(blob, up, nb, t, plan.cn or None)
-    name = ("qv_encode_quad_" if quad else "qv_encode_q1_") + _WG_ENTRY[
-        plan.design]
-    return getattr(lib, name)(*args, up, nb, blob.data_ptr(),
-                              image.data_ptr(), *tail, *knobs, *size)
+    return getattr(lib, _wg_entry(plan, quad))(
+        *args, up, nb, blob.data_ptr(), image.data_ptr(), *tail, *knobs,
+        *size)
+
+
+def _wg_entry(plan: LaunchPlan, quad: bool) -> str:
+    """The C entry of kernel B (``quad``) or C at a wgmma-family plan:
+    the cluster design's windowed kernels have their own, compiled apart
+    (csrc/encode_stream_wgk_w.cu, encode_stream_wgk_wc.cu)."""
+    windowed = plan.design == "cluster" and plan.rows == "windowed"
+    return (("qv_encode_quad_" if quad else "qv_encode_q1_")
+            + _WG_ENTRY[plan.design] + ("_w" if windowed else ""))
 
 
 _COUNTER_PREFIX = {"resident": "", "streamed": "stream_", "wgmma": "wgmma_",
                    "chunked": "chunked_", "split": "split_",
                    "cluster": "cluster_"}
-
-
-def _shared(plan: LaunchPlan) -> int:
-    """The C entries' ``shared`` argument of a wgmma, split or cluster
-    plan: 1 where its staged rows are in the activation rows."""
-    return int(plan.rows == "shared")
 
 
 def _count(wrapper, plan: LaunchPlan, trunk: str) -> None:
@@ -893,8 +928,7 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
     by the design ``launch_plan`` picks (counted as kernel B's, in
     ``encode_q1_packed.launches``, ``.bf16_launches``,
     ``.wgmma_launches``, ``.chunked_launches``, ``.split_launches``,
-    ``.cluster_launches``, ``.stream_launches`` and
-    ``.stream_bf16_launches``) or raise; CPU
+    ``.cluster_launches`` and ``.stream_bf16_launches``) or raise; CPU
     tensors run ``encode_q_plain``. Unlike the TPU kernel, N is not
     padded."""
     kw = dict(se_idx=se_idx, multi_image=multi_image, activation=activation,
@@ -927,4 +961,4 @@ def encode_q1_packed(images, encoder, *, se_idx: int, multi_image: bool,
 for _w in (encode_quad_fused, encode_q1_packed):
     _w.launches = _w.bf16_launches = _w.wgmma_launches = 0
     _w.chunked_launches = _w.split_launches = _w.cluster_launches = 0
-    _w.stream_launches = _w.stream_bf16_launches = 0
+    _w.stream_bf16_launches = 0

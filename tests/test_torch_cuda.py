@@ -147,13 +147,15 @@ def test_fused_kernel_matches_plain(cuda_device, layout, act, units, mvg,
     _close([a.T.cpu().numpy() for a in got], [a.T.cpu().numpy() for a in ref])
 
 
-def _design_counter(units, nb, trunk, quad, t_in):
-    """The launch counter of kernel B (quad) or C at this shape: the
-    design launch_plan picks on this card, and the trunk."""
+def _design_counter(units, nb, trunk, quad, t_in, mask=True):
+    """The launch counter of kernel B (quad) or C at this shape (t_in
+    input channels, the last the mask if ``mask``): the design launch_plan
+    picks on this card, and the trunk."""
     from qbold_vi_tpu_torch.ops import _cuda
 
-    plan = tfi.launch_plan(tfi._padded_width(units), nb, t_in - 1, t_in,
-                           trunk, quad, _cuda.library().qv_max_dynamic_smem())
+    plan = tfi.launch_plan(tfi._padded_width(units), nb, t_in - int(mask),
+                           t_in, trunk, quad,
+                           _cuda.library().qv_max_dynamic_smem())
     return tfi._COUNTER_PREFIX[plan.design] + (
         "bf16_launches" if trunk == "bfloat16" else "launches")
 
@@ -232,16 +234,98 @@ def test_many_taus_float32_takes_the_shared_rows_designs(
                         scan, design + "_launches")
 
 
-def test_float32_streams_where_a_row_is_wider_than_the_block(cuda_device):
-    """320 units x 2 blocks in float32 on 330 taus (tau_step 0.246 ms): a
-    staged row (336 channels) is wider than the chunked block's activation
-    row, so kernels B and C stream (csrc/encode_stream.cu), held against
-    their plain versions as test_wide_and_deep_kernels_match_plain holds
-    them."""
-    scan = dataclasses.replace(SCAN, tau_step=0.000246)
-    assert scan.n_taus == 330
-    _wide_and_deep_case(cuda_device, "float32", "voxel", 320, 2, "relu",
-                        scan, "stream_launches")
+# a staged row wider than the block's activation row: (units, blocks,
+# tau_step, taus, design, layout, multi_image, mask channel); 330 taus
+# (tau_step 0.246 ms: 336 channels) at 320 x 2 (320 columns), 64 x 2,
+# 896 x 1 and 1472 x 1 (112 and 184 columns a cluster block), 512 taus
+# (0.1585 ms) at 1280 x 1 (160 columns a block) and 448 x 1 (the split
+# block's 448 columns)
+WINDOWED = [(320, 2, 0.000246, 330, "chunked", "voxel", False, True),
+            (320, 2, 0.000246, 330, "chunked", "channel", True, True),
+            (64, 2, 0.000246, 330, "wgmma", "channel", False, False),
+            (896, 1, 0.000246, 330, "cluster", "voxel", False, True),
+            (1472, 1, 0.000246, 330, "cluster", "channel", False, True),
+            (1280, 1, 0.0001585, 512, "cluster", "voxel", False, True),
+            (448, 1, 0.0001585, 512, "split", "channel", False, True)]
+
+
+@pytest.mark.parametrize(
+    "units,nb,step,taus,design,layout,multi,mask", WINDOWED,
+    ids=[f"{u}x{nb}-t{t}-{lay}" + ("-multi" if m else "")
+         + ("" if k else "-nomask")
+         for u, nb, _, t, _, lay, m, k in WINDOWED])
+def test_float32_stages_windows_where_a_row_is_wider_than_the_block(
+        cuda_device, units, nb, step, taus, design, layout, multi, mask):
+    """Where a staged row is wider than the block's activation row, kernels
+    B and C stage it a window of the first layer's k-steps at a time
+    (LaunchPlan.rows "windowed") in the chunked, wgmma, cluster and split
+    designs, held against their plain versions as
+    test_wide_and_deep_kernels_match_plain holds them: both input
+    layouts, multi_image once and no mask channel once."""
+    from qbold_vi_tpu_torch.ops import _cuda
+
+    scan = dataclasses.replace(SCAN, tau_step=step)
+    assert scan.n_taus == taus
+    plan = tfi.launch_plan(tfi._padded_width(units), nb, taus,
+                           taus + int(mask), "float32", True,
+                           _cuda.library().qv_max_dynamic_smem())
+    assert (plan.design, plan.rows) == (design, "windowed")
+    _wide_and_deep_case(cuda_device, "float32", layout, units, nb, "relu",
+                        scan, design + "_launches", multi=multi, mask=mask)
+
+
+# where both fit: (units, blocks, tau_step, taus, design)
+BIT_EQUAL = [(256, 2, 0.000635, 128, "wgmma"), (384, 2, None, 11, "chunked"),
+             (1472, 1, 0.000635, 128, "cluster"),
+             (768, 1, 0.0016, 51, "split")]
+
+
+@pytest.mark.parametrize("units,nb,step,taus,design", BIT_EQUAL,
+                         ids=[f"{u}x{nb}-t{t}" for u, nb, _, t, _ in
+                              BIT_EQUAL])
+def test_windowed_rows_are_bit_equal_to_shared_rows(cuda_device, units, nb,
+                                                    step, taus, design):
+    """Where a staged row fits in the activation row, the windowed plan of
+    each design gives kernels B and C the outputs of its plan with the
+    whole rows there (shared; the chunked design's one layout of old) bit
+    for bit: the same values, staged by every lane a window at a time, in
+    the same bytes. Both launched by fused_infer._launch_bc."""
+    from qbold_vi_tpu_torch.ops import _cuda
+
+    scan = SCAN if step is None else dataclasses.replace(SCAN,
+                                                         tau_step=step)
+    assert scan.n_taus == taus
+    cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=units,
+                              no_intermediate_layers=nb)
+    tuner = _tuner(cfg, cuda_device, scan)
+    rng = np.random.default_rng(25)
+    x = torch.from_numpy(volume(rng, (20_011,), taus + 1)).to(cuda_device)
+    xs, cm, n, blob, u, up, t = tfi._launch_setup(
+        x, tuner.encoder, n_blocks=nb, activation="relu", trunk="float32",
+        mask_channel=True, input_layout="voxel", se_idx=scan.se_idx)
+    args = tfi._encode_args(xs, n, cm, True, scan.se_idx, False, "relu")
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = {}
+    for quad in (True, False):
+        plan = tfi._plan(up, nb, t, t + 1, "float32", quad, x.device)
+        assert (plan.design, plan.rows) == (
+            design, "separate" if design == "chunked" else "shared")
+        windowed = dataclasses.replace(plan, rows="windowed")
+        for p in (plan, windowed):
+            o = tuple(torch.full((3 if quad else 5, n), float("nan"),
+                                 device=cuda_device)
+                      for _ in range(3 if quad else 1))
+            _cuda.check(tfi._launch_bc(_cuda.library(), p, quad, "float32",
+                                       args, u, up, nb, t, blob, o, stream,
+                                       _cuda.quad_ranges(**RANGES), True),
+                        f"{design} {p.rows}")
+            outs[(quad, p.rows)] = o
+    torch.cuda.synchronize()
+    for quad in (True, False):
+        whole = outs[(quad, "separate" if design == "chunked" else "shared")]
+        for a, b in zip(whole, outs[(quad, "windowed")]):
+            assert torch.isfinite(a).all()
+            assert torch.equal(a, b), (design, quad)
 
 
 @pytest.mark.parametrize("units,nb,design", [(256, 2, "wgmma"),
@@ -296,7 +380,7 @@ def test_shared_rows_are_bit_equal_to_separate_rows(cuda_device, units, nb,
 
 
 def _wide_and_deep_case(cuda_device, trunk, layout, units, nb, act,
-                        scan=SCAN, want=None):
+                        scan=SCAN, want=None, multi=False, mask=True):
     from qbold_vi_tpu_torch.ops.quadrature import quad_tile_summaries
 
     cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=units,
@@ -306,14 +390,16 @@ def _wide_and_deep_case(cuda_device, trunk, layout, units, nb, act,
     tuner = _tuner(cfg, cuda_device, scan)
     rng = np.random.default_rng(units + nb)
     n = 20_011
-    x = torch.from_numpy(volume(rng, (n,), scan.n_taus + 1)).to(cuda_device)
-    x[:, -1] = (torch.rand(n, device=cuda_device) > 0.2).float()
+    t_in = scan.n_taus + int(mask)
+    x = torch.from_numpy(volume(rng, (n,), t_in)).to(cuda_device)
+    if mask:
+        x[:, -1] = (torch.rand(n, device=cuda_device) > 0.2).float()
     if layout == "channel":
         x = x.T.contiguous()
-    kw = dict(se_idx=scan.se_idx, multi_image=False, activation=act,
-              n_blocks=nb, trunk=trunk, mask_channel=True,
+    kw = dict(se_idx=scan.se_idx, multi_image=multi, activation=act,
+              n_blocks=nb, trunk=trunk, mask_channel=mask,
               input_layout=layout)
-    names = [_design_counter(units, nb, trunk, quad, scan.n_taus + 1)
+    names = [_design_counter(units, nb, trunk, quad, t_in, mask)
              for quad in (True, False)]
     if trunk == "float32":
         up = tfi._padded_width(units)
@@ -1688,7 +1774,8 @@ def test_fused_artifact_at_256_units(cuda_device, tmp_path, trunk, units):
 
 _REFUSALS = [(833, "smem"), (833, "cluster"), (833, "unbuilt"),
              (833, "shared"), (1281, "smem"), (1281, "cluster"),
-             (1281, "unbuilt"), (1281, "chunk"), (1281, "segment")]
+             (1281, "unbuilt"), (1281, "chunk"), (1281, "segment"),
+             (1281, "windowed")]
 
 
 @pytest.mark.parametrize(
@@ -1703,9 +1790,10 @@ def test_cluster_design_raises_rather_than_falling_back(cuda_device,
     shared memory, a cluster of 16 blocks (past the portable 8), a kernel
     library that does not build, at 896 a shared-rows plan the build does
     not compile (112 columns a block) and, chunked, a first chunk or a
-    promoted segment the build does not compile. No other design (split,
-    streamed) launches in its place, no plain version runs and no launch
-    is counted."""
+    promoted segment the build does not compile, and a windowed-rows plan
+    it does not compile (a segment of 3 k-steps at 168 columns a block).
+    No other design (split, streamed) launches in its place, no plain
+    version runs and no launch is counted."""
     from qbold_vi_tpu_torch.ops import _cuda
 
     cfg = dataclasses.replace(tcfg.OPTIMAL.model, no_units=units,
@@ -1747,7 +1835,9 @@ def test_cluster_design_raises_rather_than_falling_back(cuda_device,
                   else {"cluster": 12, "cn": 112},
                   "chunk": {"chunk": 72},
                   "segment": {"seg": 3, "stages": 4},
-                  "shared": {"rows": "shared"}}[refusal]
+                  "shared": {"rows": "shared"},
+                  "windowed": {"rows": "windowed", "seg": 3,
+                               "stages": 4}}[refusal]
         monkeypatch.setattr(tfi, "_plan", lambda *a: dataclasses.replace(
             plan(*a), **change))
         match = "launch failed"

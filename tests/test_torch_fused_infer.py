@@ -784,9 +784,9 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
     128 voxels fits), the split wgmma design at 448-768 (385-768 units,
     where it does not) and the cluster wgmma design at 832-1472 (769-1472
     units: a cluster of blocks shares a pass of 128 voxels; past 1280 a
-    block's columns in two output chunks); the streamed one where no
-    block fits beside the staged rows of many taus; the bf16 trunk (half
-    the blob) streams past 128 units."""
+    block's columns in two output chunks), at any tau count
+    (tests/test_torch_many_taus.py); the bf16 trunk (half the blob)
+    streams past 128 units."""
     for units in (1, 13, 60, 64, 65, 100, 128, 129, 192, 200, 256, 257,
                   300, 320, 321, 384, 385, 448, 449, 520, 640, 700, 768,
                   769, 832, 833, 1024, 1200, 1280, 1281, 1350, 1408,
@@ -890,9 +890,11 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
         assert (plan.cn, plan.ks, plan.stages) == (160, 1, 2)
         assert plan.smem == (194_496 if quad else 193_664) < 196 * 1024
         assert tfi._WG_PASS * (384 + 8) * 4 == 200_704
-        # a staged row of more taus than an activation row holds streams
-        assert tfi.launch_plan(320, 2, 330, 331, trunk, quad,
-                               H100_SMEM).design == "streamed"
+        # a staged row of more taus than an activation row holds is staged
+        # a window of k-steps at a time, in the same block
+        plan = tfi.launch_plan(320, 2, 330, 331, trunk, quad, H100_SMEM)
+        assert (plan.design, plan.rows) == ("chunked", "windowed")
+        assert plan.smem == (194_496 if quad else 193_664)
         # at 448 a pass of 128 voxels does not fit (its activation rows
         # alone take 233,472 B); the split design's 64 voxels a pass take
         # 116,736 B of them beside two 28 KB slabs: below 196 KB
@@ -938,16 +940,17 @@ def test_launch_plan_takes_every_width_and_depth(trunk, quad):
         # they share its activation rows: at 448 x 1 on 330 taus and at
         # 768 x 1 on 48 or 51 taus the split block with shared rows; where
         # a staged row is wider than a block's activation row (896 x 1 on
-        # 330 taus: 112 columns a block) the streamed design serves
-        assert tfi.launch_plan(896, 1, 330, 331, trunk, quad,
-                               H100_SMEM).design == "streamed"
+        # 330 taus: 112 columns a block) they are staged there a window at
+        # a time
+        plan = tfi.launch_plan(896, 1, 330, 331, trunk, quad, H100_SMEM)
+        assert (plan.design, plan.rows) == ("cluster", "windowed")
         plan = tfi.launch_plan(448, 1, 330, 331, trunk, quad, H100_SMEM)
         assert (plan.design, plan.rows) == ("split", "shared")
         for t in (48, 51):
             plan = tfi.launch_plan(768, 1, t, t + 1, trunk, quad, H100_SMEM)
             assert (plan.design, plan.rows) == ("split", "shared")
             assert plan.smem == tfi._wgx_smem(768, t, quad, 2, 64, True)
-        # past 1472 no block of any design fits
+        # past 1472 no block of any design fits, nor any streamed one
         with pytest.raises(ValueError, match="no launch fits"):
             tfi.launch_plan(1536, 1, 11, 12, trunk, quad, H100_SMEM)
     else:
@@ -983,31 +986,25 @@ def _stream_walk(up, nb, t, trunk, plan):
                        min(cn, nt - c * cn))
 
 
-@pytest.mark.parametrize("trunk", ["float32", "bfloat16"])
+@pytest.mark.parametrize("trunk", ["bfloat16"])
 def test_streamed_slabs_unpack_to_the_encoder(trunk):
-    """At 256 units x 2 blocks in bf16 and 320 x 2 on 330 taus in float32
-    (the streamed design's shapes: float32 takes the wgmma designs at every
-    width where the staged rows fit beside their blocks or in their
-    activation rows), the streamed
-    kernels' slabs -- the blob's bytes copied as qv_st_body
+    """At 256 units x 2 blocks in bf16 (the streamed design's shape: the
+    float32 trunk takes the wgmma designs at every width and tau count),
+    the streamed kernels' slabs -- the blob's bytes copied as qv_st_body
     copies them into a slot, then read as each warp reads its B fragments
     (lane 4g + t) -- hold every layer's weight at (n, k) exactly once:
-    float32's hi / lo TF32 splits, bf16's bf16 values, zeros past U and
-    T. The head's fragments and the biases, read where qv_st_blob points,
-    hold the head and the biases."""
-    up = 256 if trunk == "bfloat16" else 320
-    cfg, tuner = _width_tuner(up, scan=SCAN if trunk == "bfloat16"
-                              else dataclasses.replace(SCAN,
-                                                       tau_step=0.000246))
+    bf16 values, zeros past U and T. The head's fragments and the biases,
+    read where qv_st_blob points, hold the head and the biases."""
+    up = 256
+    cfg, tuner = _width_tuner(up)
     nb = cfg.no_intermediate_layers
     blob, u, _, t = tfi._weight_blob(tuner.encoder, nb, torch.device("cpu"),
                                      trunk)
     plan = tfi.launch_plan(up, nb, t, t + 1, trunk, True, H100_SMEM)
     assert plan.design == "streamed"
-    f32 = trunk == "float32"
-    k, fb = (8, 512) if f32 else (16, 256)
+    k, fb = 16, 256
     nt, ks0, cn = up // 8, -(-t // k), 8 * plan.ncw
-    raw = blob.numpy().view(np.uint8)[0 if f32 else 16:]
+    raw = blob.numpy().view(np.uint8)[16:]
     layer_off = [0] + [ks0 * nt * fb + i * (up // k) * nt * fb
                        for i in range(nb)]
     wfc, bfc, wbs, bbs, wft, bft = tfi._stream1_weights(tuner.encoder, nb)
@@ -1029,67 +1026,46 @@ def test_streamed_slabs_unpack_to_the_encoder(trunk):
                     grp = slot[(s_ * cn + w * plan.ncw + j) * fb:][:fb]
                     n_ = (jw + j) * 8 + g
                     kb = (k0 + s_) * k
-                    if f32:
-                        v = grp.view(np.float32).reshape(32, 4)
-                        for h in range(2):        # (b0, b1) hi, then lo
-                            for pair in range(2):
-                                dst = got[layer][h, n_, kb + 2 * tt + pair]
-                                assert np.isnan(dst).all()
-                                got[layer][h, n_, kb + 2 * tt + pair] = \
-                                    v[:, 2 * h + pair]
-                    else:
-                        words = grp.view(np.uint32)
-                        for half, word in enumerate((words[:32],
-                                                     words[32:])):
-                            b = torch.from_numpy(word.view(np.int32).copy())
-                            pairs = b.view(torch.bfloat16).float().numpy()
-                            for pair in range(2):
-                                col = kb + 8 * half + 2 * tt + pair
-                                assert np.isnan(got[layer][0, n_, col]).all()
-                                got[layer][0, n_, col] = pairs[pair::2]
+                    words = grp.view(np.uint32)
+                    for half, word in enumerate((words[:32], words[32:])):
+                        b = torch.from_numpy(word.view(np.int32).copy())
+                        pairs = b.view(torch.bfloat16).float().numpy()
+                        for pair in range(2):
+                            col = kb + 8 * half + 2 * tt + pair
+                            assert np.isnan(got[layer][0, n_, col]).all()
+                            got[layer][0, n_, col] = pairs[pair::2]
     for layer, w in enumerate([wfc] + list(wbs)):
         wp = torch.zeros((up, got[layer].shape[2]))
         wp[:w.shape[0], :w.shape[1]] = w
-        if f32:
-            hi = tfi._tf32(wp)
-            assert np.array_equal(got[layer][0], hi.numpy()), layer
-            assert np.array_equal(got[layer][1], tfi._tf32(wp - hi).numpy())
-        else:
-            assert np.array_equal(got[layer][0],
-                                  wp.to(torch.bfloat16).float().numpy())
-    # the head, read from global memory at qv_st_blob's wf, k-step by k-step
+        assert np.array_equal(got[layer][0],
+                              wp.to(torch.bfloat16).float().numpy())
+    # the head, read from global memory at qv_st_blob's wf, k-step by
+    # k-step: three bf16 pieces
     wf_off = layer_off[-1] + (up // k) * nt * fb
     head = np.zeros((8, up))
-    for piece in range(1 if f32 else 3):
+    for piece in range(3):
         for ks in range(up // k):
             grp = raw[wf_off + piece * (up // k) * fb + ks * fb:][:fb]
-            if f32:
-                v = grp.view(np.float32).reshape(32, 4).astype(np.float64)
+            words = grp.view(np.uint32)
+            for half, word in enumerate((words[:32], words[32:])):
+                b = torch.from_numpy(word.view(np.int32).copy())
+                pairs = b.view(torch.bfloat16).double().numpy()
                 for pair in range(2):
-                    head[g, ks * 8 + 2 * tt + pair] += (v[:, pair]
-                                                        + v[:, 2 + pair])
-            else:
-                words = grp.view(np.uint32)
-                for half, word in enumerate((words[:32], words[32:])):
-                    b = torch.from_numpy(word.view(np.int32).copy())
-                    pairs = b.view(torch.bfloat16).double().numpy()
-                    for pair in range(2):
-                        head[g, ks * 16 + 8 * half + 2 * tt + pair] += \
-                            pairs[pair::2]
+                    head[g, ks * 16 + 8 * half + 2 * tt + pair] += \
+                        pairs[pair::2]
     ref = np.zeros((8, up))
     ref[:5, :u] = wft.double().numpy()
-    tol = 2.0 ** -21 * np.abs(ref) if f32 else 0.0
-    assert (np.abs(head - ref) <= tol).all()
+    assert (head == ref).all()
     # the biases (layer l's at wf + head pieces + l x its bytes), the
     # head's float32 bias, then the node table
-    bias_off = wf_off + (1 if f32 else 3) * (up // k) * fb
-    bb = 4 * up if f32 else 2 * up
+    bias_off = wf_off + 3 * (up // k) * fb
+    bb = 2 * up
     for layer, b in enumerate([bfc[:, 0]] + list(bbs[..., 0])):
         cut = raw[bias_off + layer * bb:][:bb]
-        got_b = (cut.view(np.float32) if f32 else torch.from_numpy(
-            cut.view(np.int16).copy()).view(torch.bfloat16).float().numpy())
+        got_b = torch.from_numpy(cut.view(np.int16).copy()).view(
+            torch.bfloat16).float().numpy()
         want = torch.zeros(up)
-        want[:u] = b if f32 else b.to(torch.bfloat16).float()
+        want[:u] = b.to(torch.bfloat16).float()
         assert np.array_equal(got_b, want.numpy()), layer
     bf_off = bias_off + (nb + 1) * bb
     assert np.array_equal(raw[bf_off:bf_off + 32].view(np.float32)[:5],

@@ -56,14 +56,14 @@ ones (``qv_encode_quad_wgk``, ``qv_encode_q1_wgk``, kernels
 image in chunks of a block's columns, past 160 columns a block computed
 in two output chunks, with the clusters the card holds at once,
 ``qv_encode_wgk_clusters``; an edited copy of
-``csrc/encode_stream_wgk.cu`` likewise; the wgmma, split and cluster
-designs with the plan's staged rows, separate or in the activation rows,
-``LaunchPlan.rows``, every launch through ``fused_infer._launch_bc``) or
-the streamed ones
-(``qv_encode_quad_stream``,
-``qv_encode_q1_stream``, kernels ``qv_encode_quad_stream_kernel`` and
-``qv_encode_q_stream_kernel``; an edited copy of ``csrc/encode_stream.cu``
-or ``encode_stream_bf16.cu`` likewise). Per build it prints:
+``csrc/encode_stream_wgk.cu`` likewise; the wgmma, chunked, split and
+cluster designs with the plan's staged rows, separate, in the activation
+rows or there a window at a time, ``LaunchPlan.rows``, every launch
+through ``fused_infer._launch_bc``) or, in bf16, the streamed ones
+(``qv_encode_quad_stream_bf16``, ``qv_encode_q1_stream_bf16``, kernels
+``qv_encode_quad_stream_bf16_kernel`` and
+``qv_encode_q_stream_bf16_kernel``; an edited copy of
+``csrc/encode_stream_bf16.cu`` likewise). Per build it prints:
 
 * B (``qv_encode_quad_fused``): means / vars / raw against the plain
   version; C (``qv_encode_q1``): q against the plain version and against
@@ -116,12 +116,12 @@ without ``--package``.
 by each build (the package's and each copy) under every plan of the
 design ``launch_plan`` picks that fits the card's shared memory at the
 request's width and depth -- the measurement behind
-``launch_plan``'s order: streamed, each tile (m-tiles a pass) of
+``launch_plan``'s order: streamed (bf16), each tile (m-tiles a pass) of
 ``fused_infer._ST_TILES`` and each slab of ``fused_infer._st_slabs``;
 wgmma, each slab compiled for the width (``fused_infer._WG_SLABS``: its
 k-steps and bytes) and each ring of ``fused_infer._WG_STAGES`` slots;
 chunked, each ring of the width's chunks and slab
-(``fused_infer._WGC_SLABS``); split, every chunk width that divides a
+(``fused_infer._WGC_SLABS``), its rows whole or windowed; split, every chunk width that divides a
 warpgroup's columns and each ring (``fused_infer._WGX_SLABS`` holds the
 plan's); cluster, every cluster of at most 8 blocks whose columns a
 block the package compiles, each ring of SLOTS, each promoted segment
@@ -130,11 +130,13 @@ CHUNKS (``--slots``, ``--segments``, ``--chunks``;
 ``fused_infer._WGK_PLANS`` holds the plan's; ``--clusters`` the cluster
 sizes), with the resident clusters; the wgmma, split and cluster plans
 each with separate staged rows and, where a staged row fits in an
-activation row of the block's columns, with shared rows.
+activation row of the block's columns, with shared rows, and with
+windowed rows (a plan the build does not compile is skipped).
 Each plan's row gives B's CHECKS verdict, C's distance to the float64
 encode and B's and C's registers and spills (ptxas). A build's cluster
-instantiations are its ``QV_WGK_CASES``: sweep other chunks and segments
-as a copy of ``csrc/encode_stream_wgk.cu`` with more cases. The wgmma
+instantiations are its ``QV_WGK_CASES`` (``QV_WGK_WINDOWED_CASES`` with
+windowed rows): sweep other chunks and segments as a copy of
+``csrc/encode_stream_wgk.cu`` with more cases. The wgmma
 designs' other knobs are compiled in (two consumer warpgroups of 64
 voxels; a pass of 128 voxels a cluster): time another as an edited copy of
 ``csrc/encode_stream_wg.cu``, ``encode_stream_wgc.cu``,
@@ -195,11 +197,11 @@ S, SEED = 200, 3
 S_KL = 100
 ENTRIES = ("qv_quad_posterior_summaries", "qv_encode_quad_fused",
            "qv_encode_q1", "qv_encode_quad_fused_bf16", "qv_encode_q1_bf16",
-           "qv_encode_quad_stream", "qv_encode_q1_stream",
            "qv_encode_quad_wg", "qv_encode_q1_wg",
            "qv_encode_quad_wgc", "qv_encode_q1_wgc",
            "qv_encode_quad_wgx", "qv_encode_q1_wgx",
            "qv_encode_quad_wgk", "qv_encode_q1_wgk", "qv_encode_wgk_clusters",
+           "qv_encode_quad_wgk_w", "qv_encode_q1_wgk_w",
            "qv_encode_quad_stream_bf16", "qv_encode_q1_stream_bf16",
            "qv_mc_summaries", "qv_mc_kl_map", "qv_mc_kl")
 # C entries of earlier builds that the package no longer has: the earlier
@@ -215,7 +217,8 @@ KERNELS = dict(A="qv_quad_kernel", B="qv_encode_quad_kernel",
 MIXES = ("C rows", "straddling", "below", "above")   # kernel A's heads
 # the tau_step of a scan of T taus (OPTIMAL's grid otherwise): the ones
 # chip_smoke.py and the card tests use
-TAU_STEPS = {51: 0.0016, 96: 0.00085, 128: 0.000635, 330: 0.000246}
+TAU_STEPS = {51: 0.0016, 96: 0.00085, 128: 0.000635, 330: 0.000246,
+             512: 0.0001585}
 
 
 def scan_of(taus: int):
@@ -235,8 +238,9 @@ def build_variants(paths):
     """{name: (ctypes library, nvcc log, .so path)} of each source, built
     with the port's flags. A source whose package file has a companion
     ``<stem>_c.cu`` (encode_stream_wgx.cu, encode_stream_wgk.cu: kernel
-    C's entries compiled apart) is built with that companion, pointed at
-    the copy."""
+    C's entries compiled apart; encode_stream_wgk.cu's windowed kernels'
+    ``_w.cu`` and ``_wc.cu`` too) is built with those companions, pointed
+    at the copy."""
     out_dir = _cuda.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
@@ -244,9 +248,11 @@ def build_variants(paths):
         name = f"{path.parent.name}/{path.stem}"
         so = out_dir / f"{path.parent.name}_{path.stem}.so"
         srcs = [str(path)]
-        companion = _cuda.CSRC / f"{path.stem}_c.cu"
-        if companion.is_file():
-            c_src = out_dir / f"{path.parent.name}_{path.stem}_c.cu"
+        for part in ("_c", "_w", "_wc"):
+            companion = _cuda.CSRC / f"{path.stem}{part}.cu"
+            if not companion.is_file():
+                continue
+            c_src = out_dir / f"{path.parent.name}_{path.stem}{part}.cu"
             c_src.write_text(companion.read_text().replace(
                 f'#include "{path.name}"', f'#include "{path.resolve()}"'))
             srcs.append(str(c_src))
@@ -582,17 +588,12 @@ def timed(label: str, fn, symbol: str) -> str:
 
 def entry(calls, key, ctx) -> str:
     """The C entry of kernel B or C on this build's plan and trunk."""
+    if calls.design() in fi._WG_ENTRY:
+        return fi._wg_entry(calls.plan_b if key == "B" else calls.plan_c,
+                            key == "B")
     stem = {"B": "qv_encode_quad_", "C": "qv_encode_q1"}[key]
     if calls.streamed():
         stem += "stream" if key == "B" else "_stream"
-    elif calls.design() == "wgmma":
-        stem += "wg" if key == "B" else "_wg"
-    elif calls.design() == "chunked":
-        stem += "wgc" if key == "B" else "_wgc"
-    elif calls.design() == "split":
-        stem += "wgx" if key == "B" else "_wgx"
-    elif calls.design() == "cluster":
-        stem += "wgk" if key == "B" else "_wgk"
     elif key == "B":
         stem += "fused"
     return stem + ctx["tag"]
@@ -606,14 +607,17 @@ def bc_symbols(plan, trunk, up) -> tuple:
         return ((f"qv_encode_quad_stream{tag}_kernel",
                  f"qv_encode_q_stream{tag}_kernel"),
                 f"ILi{plan.mt}ELi{plan.ncw}E")
-    # the rows' template argument (an earlier build's plan has none)
-    rows = f"Lb{int(getattr(plan, 'rows', '') == 'shared')}E"
+    # the rows' template argument: 0 separate, 1 shared, 2 windowed (the
+    # chunked design's: windowed or not; an earlier package's plan may
+    # have no rows)
+    code = {"shared": 1, "windowed": 2}.get(getattr(plan, "rows", ""), 0)
+    rows = f"Li{code}E"
     if plan is not None and plan.design == "wgmma":
         return (("qv_encode_quad_wg_kernel", "qv_encode_q_wg_kernel"),
                 f"ILi{up}ELi{plan.ks}E{rows}E")
     if plan is not None and plan.design == "chunked":
         return (("qv_encode_quad_wgc_kernel", "qv_encode_q_wgc_kernel"),
-                f"ILi{up}ELi{plan.cn}ELi{plan.ks}EE")
+                f"ILi{up}ELi{plan.cn}ELi{plan.ks}ELb{int(code == 2)}EE")
     if plan is not None and plan.design == "split":
         return (("qv_encode_quad_wgx_kernel", "qv_encode_q_wgx_kernel"),
                 f"ILi{up}ELi{plan.cn}E{rows}E")
@@ -738,7 +742,7 @@ def cluster_plans(up, t) -> list:
                         plans = [fi.LaunchPlan(
                             "cluster", fi._WG_THREADS,
                             fi._wgk_smem(up, t, q, stages, cluster,
-                                         rows == "shared"), ks=1,
+                                         rows != "separate"), ks=1,
                             stages=stages, cn=nl, cluster=cluster, seg=seg,
                             chunk=chunk, rows=rows) for q in (True, False)]
                         out.append((f"cluster {cluster} ({nl} columns a "
@@ -752,9 +756,10 @@ def cluster_plans(up, t) -> list:
 
 def plan_rows(t, columns) -> tuple:
     """The staged rows the sweep tries for a block of ``columns`` output
-    columns: separate, and shared where a staged row of ``t`` taus fits in
-    an activation row."""
-    return fi._ROWS if fi._fits_row(t, columns) else fi._ROWS[:1]
+    columns: separate, shared where a staged row of ``t`` taus fits in an
+    activation row, and windowed."""
+    return tuple(r for r in fi._ROWS
+                 if r != "shared" or fi._fits_row(t, columns))
 
 
 def split_plans(up, t) -> list:
@@ -769,7 +774,7 @@ def split_plans(up, t) -> list:
             for rows in plan_rows(t, up):
                 plans = [fi.LaunchPlan("split", fi._WG_THREADS,
                                        fi._wgx_smem(up, t, q, stages, cn,
-                                                    rows == "shared"),
+                                                    rows != "separate"),
                                        ks=1, stages=stages, cn=cn, rows=rows)
                          for q in (True, False)]
                 out.append((f"split cn {cn} ({2 * 64 * cn} B slabs) stages "
@@ -789,7 +794,7 @@ def sweep_plans(calls, trunk, up, t) -> list:
                     plans = [fi.LaunchPlan(
                         "wgmma", fi._WG_THREADS,
                         fi._wg_smem(up, t, q, stages, ks,
-                                    shared=rows == "shared"),
+                                    shared=rows != "separate"),
                         ks=ks, stages=stages, rows=rows)
                         for q in (True, False)]
                     out.append((f"ks {ks} ({ks * 64 * up} B slabs) stages "
@@ -798,12 +803,15 @@ def sweep_plans(calls, trunk, up, t) -> list:
     if calls.design() == "chunked":
         cn, ks = fi._WGC_SLABS[up]
         for stages in fi._WG_STAGES:
-            plans = [fi.LaunchPlan("chunked", fi._WG_THREADS,
-                                   fi._wg_smem(up, t, q, stages, ks, cn),
-                                   ks=ks, stages=stages, cn=cn)
-                     for q in (True, False)]
-            out.append((f"cn {cn} ks {ks} ({ks * 64 * cn} B slabs) stages "
-                        f"{stages}", *plans))
+            for rows in ("separate", "windowed"):
+                if rows == "separate" and not fi._fits_row(t, up):
+                    continue
+                plans = [fi.LaunchPlan("chunked", fi._WG_THREADS,
+                                       fi._wg_smem(up, t, q, stages, ks, cn),
+                                       ks=ks, stages=stages, cn=cn, rows=rows)
+                         for q in (True, False)]
+                out.append((f"cn {cn} ks {ks} ({ks * 64 * cn} B slabs) "
+                            f"stages {stages}, {rows} rows", *plans))
         return out
     if calls.design() == "split":
         return split_plans(up, t)
@@ -899,7 +907,8 @@ def active_clusters(lib, up, plan, quad) -> int:
     once (qv_encode_wgk_clusters)."""
     n = ctypes.c_int(0)
     _cuda.check(lib.qv_encode_wgk_clusters(up, plan.cluster, plan.seg,
-                                           plan.chunk, fi._shared(plan),
+                                           plan.chunk,
+                                           fi._ROW_CODES[plan.rows],
                                            int(quad), plan.smem,
                                            ctypes.byref(n)),
                 "cluster occupancy")

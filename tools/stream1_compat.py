@@ -16,13 +16,14 @@ directory, and this one).
   streamed bf16 kernels), 256 x 2, 100 x 2 and 60 x 7 in float32 (the wgmma
   kernels), 320 x 2 (the chunked kernels), 448 x 1 and 768 x 1 in
   float32 (the split kernels), 833 x 1 and 1280 x 1 (the cluster kernels
-  of one product a block) and, on a scan of 330 taus (``TAU_STEP``), 320
-  x 2 (the streamed float32 kernels, where a staged row is wider than an
-  activation row) -- ``init_params`` seed 0 -- from checkout a; then b's,
-  held bit for bit against them (exit 1 if any differs). A shape whose
-  plan b changed is not among them (768 x 1 on 51 taus, streamed until
-  the split kernels took it with the staged rows in the activation
-  rows).
+  of one product a block) and, on dense scans (``COMPAT_TAUS``), 768 x 1
+  on 51 taus, 256 x 2 and 1472 x 1 on 128 taus (the split, wgmma and
+  cluster kernels with the staged rows in the activation rows) --
+  ``init_params`` seed 0 -- from checkout a; then b's, held bit for bit
+  against them (exit 1 if any differs). A shape whose plan b changed is
+  not among them (320 x 2 on 330 taus, streamed until the chunked kernels
+  took it with the rows staged a window of k-steps at a time; 768 x 1 on
+  51 taus before the shared rows came).
 * ``export-pt2`` / ``run-pt2``: a's fused serving ``.pt2`` of each trunk of
   ``PT2``: bf16 at OPTIMAL (F.pt2), float32 at 100 x 2 (F-f32-100x2.pt2),
   at 320 x 2 (F-f32-320x2.pt2), at 448 x 1 (F-f32-448x1.pt2), at 833 x 1
@@ -54,9 +55,9 @@ COMPAT = (("float32", 60, 2), ("bfloat16", 60, 2), ("bfloat16", 256, 2),
           ("float32", 256, 2), ("float32", 100, 2), ("float32", 60, 7),
           ("float32", 320, 2), ("float32", 448, 1), ("float32", 768, 1),
           ("float32", 833, 1), ("float32", 1280, 1))
-# (trunk, units, blocks) on a scan of TAU_STEP's 330 taus
-TAU_STEP = 0.000246
-COMPAT_TAUS = (("float32", 320, 2),)
+# (tau_step, ((trunk, units, blocks), ...)): on scans of 51 and 128 taus
+COMPAT_TAUS = ((0.0016, (("float32", 768, 1),)),
+               (0.000635, (("float32", 256, 2), ("float32", 1472, 1))))
 # (trunk, units, blocks, the artifact's suffix)
 PT2 = (("bfloat16", 60, 2, ""), ("float32", 100, 2, "-f32-100x2"),
        ("float32", 320, 2, "-f32-320x2"),
@@ -87,8 +88,10 @@ def kernel_b(t, x, trunk, layout, scan=OPTIMAL.scan):
 
 def outputs() -> dict:
     out = {}
-    many = dataclasses.replace(OPTIMAL.scan, tau_step=TAU_STEP)
-    for scan, trunks in ((OPTIMAL.scan, COMPAT), (many, COMPAT_TAUS)):
+    scans = [(OPTIMAL.scan, COMPAT)] + [
+        (dataclasses.replace(OPTIMAL.scan, tau_step=step), trunks)
+        for step, trunks in COMPAT_TAUS]
+    for scan, trunks in scans:
         rng = np.random.default_rng(0)
         x = rng.uniform(50, 150, size=(N, scan.n_taus + 1)).astype(
             np.float32)
@@ -106,7 +109,7 @@ def outputs() -> dict:
                     mask_channel=True, input_layout=layout)
                 tag = (trunk if (units, blocks) == (60, 2)
                        else f"{trunk}-{units}x{blocks}")
-                if scan is many:
+                if scan is not OPTIMAL.scan:
                     tag += f"-t{scan.n_taus}"
                 for k, v in zip(("means", "vars", "raw", "q"),
                                 list(b) + [q]):
